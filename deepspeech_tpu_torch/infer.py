@@ -1,0 +1,200 @@
+"""Inference entry point: forward -> log-softmax -> greedy CTC decode.
+
+The port's counterpart of ``deepspeech_tpu/infer.py`` for greedy
+decoding: ``Inferencer.decode_batch`` / ``decode_batch_bucketed`` over
+the ``(B, T)`` ladder (data/infer_bucket.py), with the attribute names
+(``_last_nbest``, ``_last_times``) the serving plane reads. Beam search,
+LM fusion, streaming, sequence-parallel and transducer decoding,
+timestamps and restoring an orbax checkpoint raise
+``NotImplementedError`` naming the slice of the port that brings them.
+
+CLI: ``python -m deepspeech_tpu_torch.infer --config=ds2_small
+--synthetic=N [--params=x.npz] [--seed=0] [--device=cpu]
+[--section.key=value ...]``. Without ``--params`` the weights are a
+random init from ``--seed`` (bridge.init_params).
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .bridge import from_flax
+from .config import Config
+from .data.infer_bucket import (ladder_shapes, plan_infer_buckets,
+                                slice_to_plan, unbucket)
+from .data.tokenizer import CharTokenizer
+from .decode.greedy import greedy_decode, ids_to_texts
+from .device import resolve_device
+from .metrics import cer, wer
+from .models.ds2 import DeepSpeech2
+
+_LATER = {
+    "beam": "slice 6 (beam search and LM)",
+    "beam_fused": "slice 6 (beam search and LM)",
+    "beam_fused_device": "slice 6 (beam search and LM)",
+    "streaming": "slice 3 (streaming)",
+    "sp_greedy": "slice 9 (sequence parallelism)",
+    "sp_beam": "slice 9 (sequence parallelism)",
+    "rnnt_greedy": "slice 9 (RNN-T)",
+    "rnnt_beam": "slice 9 (RNN-T)",
+}
+
+
+class Inferencer:
+    """Batched greedy decoding with given weights.
+
+    ``params`` / ``batch_stats`` are flax-layout trees of numpy arrays
+    (the JAX package's, or ``bridge.init_params`` / ``bridge.load_npz``).
+    ``device`` None means the card (raises without CUDA); pass "cpu" to
+    run the plain versions on the CPU.
+    """
+
+    def __init__(self, cfg: Config, tokenizer: CharTokenizer,
+                 params=None, batch_stats=None, device=None):
+        mode = cfg.decode.mode
+        if mode != "greedy":
+            if mode not in _LATER:
+                raise ValueError(f"unknown decode mode {mode!r}")
+            raise NotImplementedError(
+                f"decode.mode={mode!r} comes with {_LATER[mode]} of the "
+                "port")
+        if cfg.decode.lm_path:
+            raise NotImplementedError(
+                "LM fusion/rescoring comes with slice 6 of the port")
+        if cfg.decode.timestamps:
+            raise NotImplementedError(
+                "greedy timestamps come with slice 3 of the port")
+        if params is None:
+            raise NotImplementedError(
+                "restoring an orbax checkpoint comes with the port's "
+                "checkpoint import; pass params/batch_stats "
+                "(bridge.load_npz)")
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.device = resolve_device(device)
+        self.model = DeepSpeech2(cfg.model, cfg.features.num_features)
+        self.model.load_state_dict(from_flax(params, batch_stats or {}))
+        self.model.to(self.device).eval()
+        self._last_nbest = None  # beam modes would stash [(text, score)]
+        self._last_times = None  # timestamp mode would stash spans
+
+    def forward(self, features, feat_lens
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """features [B, T, F], feat_lens [B] (numpy or tensors) ->
+        (log-probs [B, T', V] f32, out lens [B]) on the device."""
+        feats = torch.as_tensor(np.asarray(features, np.float32))
+        lens = torch.as_tensor(np.asarray(feat_lens, np.int64))
+        with torch.inference_mode():
+            logits, out_lens = self.model(feats.to(self.device),
+                                          lens.to(self.device))
+            return torch.log_softmax(logits, dim=-1), out_lens
+
+    def decode_batch(self, batch: Dict[str, np.ndarray]) -> List[str]:
+        lp, lens = self.forward(batch["features"], batch["feat_lens"])
+        with torch.inference_mode():
+            ids, out_lens = greedy_decode(lp, lens)
+        return ids_to_texts(ids, out_lens, self.tokenizer)
+
+    def decode_batch_bucketed(self, batch: Dict[str, np.ndarray],
+                              plans=None) -> List[str]:
+        """Ladder-bucketed decode of one mixed-length host batch: plan
+        the rows onto the ``(B, T)`` ladder, decode each plan's sub-batch
+        through ``decode_batch``, and return texts in request order.
+        ``plans`` lets a caller that already shaped the batch skip the
+        planner."""
+        lens = np.asarray(batch["feat_lens"])
+        if plans is None:
+            plans = plan_infer_buckets(lens, self.cfg.data.bucket_frames,
+                                       self.cfg.data.batch_size)
+        texts = [self.decode_batch(slice_to_plan(batch, plan))
+                 for plan in plans]
+        self._last_nbest = None
+        self._last_times = None
+        return unbucket(plans, texts)
+
+    def ladder(self) -> List[tuple]:
+        """This engine's full ``(B, T)`` rung ladder."""
+        return ladder_shapes(self.cfg.data.bucket_frames,
+                             self.cfg.data.batch_size)
+
+    def run(self, batches: Iterable[Tuple[Dict, int]], logger=None,
+            refs_of=None) -> Dict[str, float]:
+        """Decode ``(batch, n_valid)`` pairs; report WER/CER vs labels.
+
+        ``logger.log(event, **fields)``, when given, receives one "utt"
+        event per utterance and the "infer_summary". ``refs_of(batch,
+        n_valid)`` may override the reference transcripts, which by
+        default come from the padded label ids.
+        """
+        refs: List[str] = []
+        hyps: List[str] = []
+        for batch, n_valid in batches:
+            texts = self.decode_batch(batch)[:n_valid]
+            if refs_of is not None:
+                batch_refs = refs_of(batch, n_valid)
+            else:
+                batch_refs = [
+                    self.tokenizer.decode(row[:n]) for row, n in
+                    list(zip(batch["labels"], batch["label_lens"]))[:n_valid]]
+            if logger is not None:
+                for r, h in zip(batch_refs, texts):
+                    logger.log("utt", ref=r, hyp=h)
+            refs.extend(batch_refs)
+            hyps.extend(texts)
+        summary = {"wer": wer(refs, hyps), "cer": cer(refs, hyps),
+                   "n_utts": len(refs)}
+        if logger is not None:
+            logger.log("infer_summary", **summary)
+        return summary
+
+
+class _PrintLogger:
+    """One JSON object per line on stdout."""
+
+    def log(self, event: str, **fields) -> None:
+        print(json.dumps({"event": event, **fields}), flush=True)
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    import argparse
+
+    from .bridge import init_params, load_npz
+    from .config import apply_overrides, get_config, parse_cli_overrides
+    from .data.synthetic import SyntheticPipeline
+    from .data.tokenizer import get_tokenizer
+
+    parser = argparse.ArgumentParser(prog="deepspeech_tpu_torch.infer")
+    parser.add_argument("--config", default="ds2_small")
+    parser.add_argument("--synthetic", type=int, default=0,
+                        help="decode N synthetic utterances")
+    parser.add_argument("--params", default="",
+                        help=".npz from bridge.save_npz; default: a random "
+                             "init from --seed")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default=None,
+                        help="'cuda' (default) or 'cpu'")
+    args, extra = parser.parse_known_args(argv)
+    cfg = apply_overrides(get_config(args.config),
+                          parse_cli_overrides(extra))
+    if not args.synthetic:
+        raise NotImplementedError(
+            "decoding a manifest comes with slice 2 of the port; "
+            "use --synthetic=N")
+    if args.params:
+        params, batch_stats = load_npz(args.params)
+    else:
+        params, batch_stats = init_params(
+            cfg, torch.Generator().manual_seed(args.seed))
+    tokenizer = get_tokenizer(cfg.data.language, cfg.data.vocab_path)
+    inf = Inferencer(cfg, tokenizer, params, batch_stats, device=args.device)
+    pipe = SyntheticPipeline(cfg, args.synthetic)
+    summary = inf.run(pipe.eval_epoch(), _PrintLogger())
+    print(json.dumps({"event": "done", **summary}))
+
+
+if __name__ == "__main__":
+    main()

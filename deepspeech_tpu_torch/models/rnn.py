@@ -1,0 +1,122 @@
+"""Recurrent stack: (bi)directional GRU layers.
+
+As in the JAX package, the input projection ``x @ W_x`` for all frames
+is hoisted out of the time loop into one large matmul, in the model
+dtype; only ``h @ W_h`` stays in the recurrence. A bidirectional layer
+runs both directions over the same projection (the reverse one over
+the flipped time axis) and sums them. The projection is made
+time-major, ``[T, B, 3H]``, the layout the recurrence reads.
+
+The recurrence is ``ops/gru.py``'s ``gru_fwd``: one call per layer,
+both directions in it. ``gru_scan`` below is the plain oracle with the
+JAX package's signature; the tests hold it to the JAX ``gru_scan``, and
+no layer calls it.
+
+Gate conventions (r, z, n):
+  r = sigmoid(xp_r + h W_r + b_r)
+  z = sigmoid(xp_z + h W_z + b_z)
+  n = tanh(xp_n + r * (h W_n + b_n))
+  h' = (1 - z) * n + z * h
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from ..ops.gru import gru_fwd, gru_fwd_plain
+from .layers import Dense, MaskedBatchNorm, length_mask
+
+
+def gru_scan(xproj: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor,
+             b_h: torch.Tensor, reverse: bool = False,
+             dot_dtype: Optional[torch.dtype] = None,
+             h0: Optional[torch.Tensor] = None,
+             return_final: bool = False):
+    """The GRU recurrence with the JAX oracle's signature.
+
+    xproj [B, T, 3H] (includes b_x), mask [B, T] (1 = valid). Returns
+    outputs [B, T, H] float32, or ``(outputs, final_carry [B, H])`` when
+    ``return_final``. ``dot_dtype`` rounds the recurrent product's
+    operands (None keeps float32); ``h0`` seeds a forward scan.
+    """
+    if reverse and (return_final or h0 is not None):
+        raise ValueError("streaming carry only supports forward scans")
+    w = w_h.to(dot_dtype or torch.float32)
+    ys, hfin = gru_fwd_plain(
+        xproj.transpose(0, 1), mask.t().float(), w[None],
+        b_h.float()[None], None if h0 is None else h0.float()[None],
+        (reverse,))
+    ys = ys[0].transpose(0, 1)
+    return (ys, hfin[0]) if return_final else ys
+
+
+def _check_impl(impl: str) -> None:
+    # Both names mean the one recurrence the port has, gru_fwd; they are
+    # accepted so that the JAX package's configs and overrides parse.
+    if impl not in ("auto", "pallas"):
+        raise ValueError(f"rnn_impl {impl!r}: the port runs every GRU "
+                         "layer through ops/gru.py's gru_fwd; use 'auto' "
+                         "or 'pallas'")
+
+
+class RNNLayer(nn.Module):
+    """One (bi)directional GRU layer with optional sequence BN.
+
+    Parameters keep the JAX names and layouts: ``bn``, ``wx`` (Dense,
+    kernel [in, 3H]), ``wh_fw``/``wh_bw`` [H, 3H], ``bh_fw``/``bh_bw`` [3H].
+    """
+
+    def __init__(self, cfg: ModelConfig, features_in: int):
+        super().__init__()
+        if cfg.rnn_type != "gru":
+            raise NotImplementedError(
+                f"rnn_type={cfg.rnn_type!r}: the LSTM variant comes with "
+                "slice 8 of the port")
+        _check_impl(cfg.rnn_impl)
+        self.cfg = cfg
+        h = cfg.rnn_hidden
+        if cfg.rnn_batch_norm:
+            self.bn = MaskedBatchNorm(features_in)
+        self.wx = Dense(features_in, 3 * h)
+        self.dirs = ["fw", "bw"] if cfg.bidirectional else ["fw"]
+        for s in self.dirs:
+            self.register_parameter(f"wh_{s}",
+                                    nn.Parameter(torch.zeros(h, 3 * h)))
+            self.register_parameter(f"bh_{s}",
+                                    nn.Parameter(torch.zeros(3 * h)))
+
+    def forward(self, x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.dtype)
+        mask = length_mask(lens, x.shape[1])
+        if cfg.rnn_batch_norm:
+            x = self.bn(x, mask)
+        xp_t = self.wx(x.transpose(0, 1), dtype)  # [T, B, 3H]
+        mask_t = mask.t().contiguous()
+        reverse = [s == "bw" for s in self.dirs]
+        whs = [getattr(self, f"wh_{s}") for s in self.dirs]
+        bhs = [getattr(self, f"bh_{s}") for s in self.dirs]
+        ys, _ = gru_fwd(xp_t.contiguous(), mask_t,
+                        torch.stack(whs).to(dtype).contiguous(),
+                        torch.stack(bhs).float().contiguous(), None, reverse)
+        out = ys.sum(0).transpose(0, 1)  # [B, T, H]
+        out = out * mask[:, :, None]
+        return out.to(dtype)
+
+
+class RNNStack(nn.Module):
+    def __init__(self, cfg: ModelConfig, features_in: int):
+        super().__init__()
+        for i in range(cfg.rnn_layers):
+            self.add_module(f"rnn{i}", RNNLayer(
+                cfg, features_in if i == 0 else cfg.rnn_hidden))
+        self.n_layers = cfg.rnn_layers
+
+    def forward(self, x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"rnn{i}")(x, lens)
+        return x

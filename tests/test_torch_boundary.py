@@ -1,0 +1,79 @@
+"""The port stands alone: no JAX, no flax, nothing of deepspeech_tpu,
+and its entry points refuse to run on the CPU unless asked."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from deepspeech_tpu_torch import resolve_device
+from deepspeech_tpu_torch.config import get_config
+from deepspeech_tpu_torch.data import CharTokenizer
+from deepspeech_tpu_torch.infer import Inferencer
+from deepspeech_tpu_torch.ops.gru import gru_fwd
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "deepspeech_tpu"}
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "deepspeech_tpu_torch")
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imported_roots(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_or_reference_imports():
+    bad = [(os.path.relpath(p, ROOT), m) for p in _port_sources()
+           for m in _imported_roots(p) if m in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, deepspeech_tpu_torch.infer, "
+            "deepspeech_tpu_torch.bridge; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_entry_points_need_cuda_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Inferencer(get_config("ds2_small"), CharTokenizer.english(),
+                   params={}, batch_stats={})
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_gru_fwd_runs_plain_only_for_cpu_tensors():
+    """A tensor on another device never reaches the plain version."""
+    t, b, h = 2, 1, 4
+    args = [torch.zeros(t, b, 3 * h, device="meta"),
+            torch.ones(t, b, device="meta"),
+            torch.zeros(1, h, 3 * h, device="meta"),
+            torch.zeros(1, 3 * h, device="meta")]
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        gru_fwd(*args)
+    ys, hfin = gru_fwd(*[torch.zeros_like(a, device="cpu") for a in args])
+    assert ys.shape == (1, t, b, h) and hfin.shape == (1, b, h)

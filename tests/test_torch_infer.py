@@ -1,0 +1,104 @@
+"""The port's Inferencer and greedy decoder against the JAX package's:
+identical transcripts in float32 from the same bridged weights."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeech_tpu.config import apply_overrides as jax_apply_overrides
+from deepspeech_tpu.config import get_config as jax_get_config
+from deepspeech_tpu.data import CharTokenizer as JaxCharTokenizer
+from deepspeech_tpu.decode.greedy import greedy_decode as jax_greedy_decode
+from deepspeech_tpu.infer import Inferencer as JaxInferencer
+from deepspeech_tpu.models import create_model as jax_create_model
+from deepspeech_tpu_torch import bridge
+from deepspeech_tpu_torch.config import apply_overrides, get_config
+from deepspeech_tpu_torch.data import CharTokenizer
+from deepspeech_tpu_torch.data.synthetic import synthetic_batch
+from deepspeech_tpu_torch.decode.greedy import greedy_decode
+from deepspeech_tpu_torch.infer import Inferencer, main
+from test_torch_model import random_flax_variables
+
+OVER = {"model.rnn_hidden": "32", "model.rnn_layers": "2",
+        "model.conv_channels": "4,4", "model.dtype": "float32",
+        "model.rnn_impl": "pallas", "data.batch_size": "2",
+        "data.bucket_frames": "24,40"}
+
+
+def _request(cfg):
+    """Three utterances of 10, 33 and 37 frames -> two ladder rungs."""
+    batch, _ = synthetic_batch(cfg, 3, 40, 4, seed=5)
+    batch["feat_lens"] = np.array([10, 33, 37], np.int32)
+    for i, n in enumerate(batch["feat_lens"]):
+        batch["features"][i, n:] = 0.0
+    return batch
+
+
+def test_bucketed_greedy_transcripts_match_jax():
+    jcfg = jax_apply_overrides(jax_get_config("ds2_small"), OVER)
+    tcfg = apply_overrides(get_config("ds2_small"), OVER)
+    batch = _request(tcfg)
+    params, stats = random_flax_variables(
+        jax_create_model(jcfg.model), jnp.asarray(batch["features"]),
+        jnp.asarray(batch["feat_lens"]), np.random.default_rng(4))
+    # Spread the logits so no frame's argmax is a near tie.
+    params["head"]["kernel"] = params["head"]["kernel"] * 8.0
+
+    ref = JaxInferencer(jcfg, JaxCharTokenizer.english(), params,
+                        stats).decode_batch_bucketed(batch)
+    inf = Inferencer(tcfg, CharTokenizer.english(), params, stats,
+                     device="cpu")
+    got = inf.decode_batch_bucketed(batch)
+    assert got == ref
+    assert any(got)
+    assert inf._last_nbest is None and inf._last_times is None
+    assert inf.ladder() == [(1, 24), (2, 24), (1, 40), (2, 40)]
+
+
+def test_greedy_collapse_matches_jax():
+    rng = np.random.default_rng(0)
+    logits = rng.normal(size=(4, 30, 6)).astype(np.float32)
+    logits[:, ::3, 0] += 3.0  # blanks between repeats
+    logits[1, 5:9, 2] += 9.0  # a repeat run
+    lens = np.array([30, 12, 1, 0], np.int32)
+    ref_ids, ref_lens = jax_greedy_decode(jnp.asarray(logits),
+                                          jnp.asarray(lens))
+    ids, out_lens = greedy_decode(torch.from_numpy(logits),
+                                  torch.from_numpy(lens).long())
+    np.testing.assert_array_equal(out_lens.numpy(), np.asarray(ref_lens))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ref_ids))
+
+
+def test_cli_synthetic_with_saved_params(tmp_path, capsys):
+    cfg = apply_overrides(get_config("ds2_streaming"),
+                          {k: v for k, v in OVER.items()
+                           if k != "data.bucket_frames"})
+    params, stats = bridge.init_params(cfg, torch.Generator().manual_seed(0))
+    path = str(tmp_path / "w.npz")
+    bridge.save_npz(path, params, stats)
+    args = ["--config=ds2_streaming", "--synthetic=4", f"--params={path}",
+            "--device=cpu", "--data.bucket_frames=48"]
+    main(args + [f"--{k}={v}" for k, v in OVER.items()
+                 if k != "data.bucket_frames"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-1].startswith('{"event": "done"')
+    assert sum('"event": "utt"' in ln for ln in lines) == 4
+
+
+@pytest.mark.parametrize("over", [{"decode.mode": "beam"},
+                                  {"decode.mode": "streaming"},
+                                  {"decode.lm_path": "lm.arpa"},
+                                  {"decode.timestamps": "true"}])
+def test_unported_decode_options_raise(over):
+    cfg = apply_overrides(get_config("ds2_small"), {**OVER, **over})
+    params, stats = bridge.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError):
+        Inferencer(cfg, CharTokenizer.english(), params, stats, device="cpu")
+
+
+def test_orbax_restore_raises():
+    with pytest.raises(NotImplementedError, match="orbax"):
+        Inferencer(get_config("ds2_small"), CharTokenizer.english(),
+                   device="cpu")
