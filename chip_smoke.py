@@ -4,21 +4,34 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds every kernel under deepspeech_tpu_torch/csrc with nvcc;
-3. kernel phase: holds each kernel against its plain PyTorch version on
-   the card at the main path's shapes (B=32, T'=850 -- the 1700-frame
-   bucket over time stride 2 -- H=800, ragged lengths) and times the
-   kernel, the plain version and one PyTorch library call that does the
-   same recurrence (cuDNN's GRU, which also does the input projection)
-   with CUDA events;
-4. path phases: greedy inference through ``Inferencer.decode_batch_bucketed``
-   at the full width of ds2_small (3 BiGRU layers) and of ds2_streaming
-   (5 GRU layers + lookahead) from a seeded random init, on a request of
-   mixed lengths; counts the kernel launches of that run, and holds the
-   RNN stack's output and the greedy argmax against the same forward
-   with the plain GRU on the card, beside a mis-directed GRU that the
+2. builds every kernel under deepspeech_tpu_torch/csrc with nvcc, one
+   process per source, all started together;
+3. kernel phases: holds each kernel against its plain PyTorch version on
+   the card at the main paths' shapes, checks that two runs of each new
+   kernel give the same bits, and times the kernel, the plain version
+   and one PyTorch library call that computes the same function with
+   CUDA events:
+   - ``gru_fwd`` at B=32, T'=850 (the 1700-frame bucket over time
+     stride 2), H=800, ragged lengths (library: cuDNN's GRU);
+   - ``gru_bwd`` at the same shapes (library: cuDNN's GRU backward);
+   - ``ctc_alpha`` (with and without its tape) and ``ctc_beta`` at B=32,
+     T'=850, labels of about 15 characters a second, S <= 513
+     (library: ``torch.nn.functional.ctc_loss``);
+4. inference path phases: greedy inference through
+   ``Inferencer.decode_batch_bucketed`` at the full width of ds2_small
+   (3 BiGRU layers) and ds2_streaming (5 GRU layers + lookahead) from a
+   seeded random init, on a request of mixed lengths; counts the
+   ``gru_fwd`` launches and holds the RNN stack's output against the
+   same forward with the plain GRU, beside a mis-directed GRU that the
    check must reject;
-5. prints a ``{"kernels": [...]}`` line, the card line, and as the last
+5. training path phases: ``Trainer`` steps at the full width of
+   ds2_small and ds2_streaming on a (32, 1700) batch of ragged lengths;
+   counts the launches per step, holds the whole model's gradient
+   against the same step with every kernel patched to its plain version
+   (and a mis-directed ``gru_bwd`` that the check must reject), and
+   takes AdamW steps on the fixed batch whose loss, measured without a
+   gradient (the loss-only kernel), must fall;
+6. prints a ``{"kernels": [...]}`` line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; without CUDA it
@@ -50,6 +63,25 @@ TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 # and 0.38.
 RNN_REL_TOL = 2e-2
 ARGMAX_FLOOR = 0.98             # share of valid frames, kernel vs plain
+V, L_MAX = 29, 256              # ds2_small vocab; config max_label_len
+# CTC kernel against its plain version, f32: the same arithmetic in the
+# same order, so only exp/log rounding may differ; relative to
+# max(1, |value|) over the states a path can reach.
+CTC_TOL = 1e-5
+# Train path: per parameter group, ||g - g_plain|| / ||g_plain|| of the
+# whole model's gradient against the same step with every kernel patched
+# to its plain version. bf16: on an H100 the kernels read at most 8.0e-3
+# (ds2_small) and 3.0e-2 (ds2_streaming: bf16 rounding flips, amplified
+# through five recurrences of 850 steps), and a gru_bwd with one
+# direction run backwards (the control, read on every run) at least
+# 0.52 and 1.05 in its largest group. f32 (the same weights and batch
+# with model.dtype=float32): the kernels read 1.8e-4 and 7.4e-4, at the
+# gradient's own noise floor: the plain path moves by 1.6e-3 and 1.2e-3
+# when the features are scaled by 1 + 2**-22 (read on every run).
+GRAD_REL_TOL = 0.1
+GRAD_REL_TOL_F32 = 5e-3
+TRAIN_STEPS = 3                 # timed steps per train phase
+DESCENT_STEPS = 10              # AdamW steps on the fixed batch
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -92,14 +124,22 @@ def _bound(args, valid_rows: int):
     input read once plus each output written once over HBM bandwidth."""
     xp, mask, w, b, h0, _ = args
     d = w.shape[0]
-    flops = 2.0 * valid_rows * d * H * 3 * H
     peak = PEAK_BF16_FLOPS if w.dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (xp, mask, w, b, h0) if t is not None)
-    nbytes += (d * T * B * H + d * B * H) * 4  # ys, hfin
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    ys_hfin = (d * T * B * H + d * B * H) * 4
+    return _roofline(_nbytes(xp, mask, w, b, h0) + ys_hfin,
+                     2.0 * valid_rows * d * H * 3 * H, peak)
+
+
+def _roofline(nbytes: float, ops: float, peak: float):
+    """(bound ms, what bounds it): the larger of the bytes over HBM
+    bandwidth and the operations over ``peak``."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def kernel_phase(gen):
@@ -168,6 +208,206 @@ def kernel_phase(gen):
     return entries
 
 
+def _rel_max_err(a, b) -> float:
+    """max |a - b| / max(1, |b|) over entries above NEG/2 in ``b``."""
+    live = b > -5e29
+    return float(((a - b).abs() / b.abs().clamp(min=1.0))[live].max())
+
+
+def _ctc_batch(gen, b: int = B, t: int = T):
+    """Logits and labels of a ragged (b, t) batch: 2t..2t/5.7 feature
+    frames (300..1700 at t=850) with one at the full length, labels of
+    0.15 characters per feature frame (about 15 a second at 100 frames
+    a second), random ids 1..28 with repeats, padded to L_MAX."""
+    dev = "cuda"
+    lens = torch.randint(t * 300 // 850, t + 1, (b,), generator=gen,
+                         device=dev)
+    lens[0] = t
+    lab_lens = (0.15 * 2 * lens.float()).long().clamp(max=L_MAX)
+    labels = torch.randint(1, V, (b, L_MAX), generator=gen, device=dev)
+    labels = labels * (torch.arange(L_MAX, device=dev)[None]
+                       < lab_lens[:, None])
+    logits = torch.randn(b, t, V, generator=gen, device=dev) * 2
+    return logits, labels.int(), lens.int(), lab_lens.int()
+
+
+def ctc_kernel_phase(gen):
+    from deepspeech_tpu_torch.ops import ctc
+
+    logits, labels, lens, lab_lens = _ctc_batch(gen)
+    prep = ctc.prepare(logits, labels, lens, lab_lens)
+    lp, ext, skip, il, sl = prep
+    ll, tape = ctc.ctc_alpha(*prep, tape=True)
+    ll2, tape2 = ctc.ctc_alpha(*prep, tape=True)
+    ll_lo, _ = ctc.ctc_alpha(*prep, tape=False)
+    gamma = ctc.ctc_beta(*prep, tape, ll)
+    gamma2 = ctc.ctc_beta(*prep, tape, ll)
+    torch.cuda.synchronize()
+    ll_p, tape_p = ctc.ctc_alpha_plain(*prep, tape=True)
+    gamma_p = ctc.ctc_beta_plain(*prep, tape_p, ll_p)
+    errs = {"loglik": _rel_max_err(ll, ll_p),
+            "tape": _rel_max_err(tape, tape_p),
+            "gamma": float((gamma - gamma_p).abs().max())}
+    # The loss and dlogits through ctc_loss, kernels against plain.
+    lg = logits.clone().requires_grad_()
+    loss = ctc.ctc_loss(lg, labels, lens, lab_lens)
+    loss.sum().backward()
+    lg_p = logits.clone().requires_grad_()
+    with mock.patch.object(ctc, "ctc_alpha", ctc.ctc_alpha_plain), \
+            mock.patch.object(ctc, "ctc_beta", ctc.ctc_beta_plain):
+        loss_p = ctc.ctc_loss(lg_p, labels, lens, lab_lens)
+        loss_p.sum().backward()
+    errs["loss"] = _rel_max_err(loss.detach(), loss_p.detach())
+    errs["dlogits"] = float((lg.grad - lg_p.grad).abs().max())
+    for name, err in errs.items():
+        _require(err <= CTC_TOL, f"ctc {name}: kernel - plain {err} > "
+                 f"{CTC_TOL}")
+    _require(torch.equal(ll, ll2) and torch.equal(tape, tape2)
+             and torch.equal(gamma, gamma2),
+             "ctc kernels: two runs on one input differ")
+    _require(torch.equal(ll_lo, ll), "ctc_alpha: the loss-only "
+             "log-likelihood differs from the taped one")
+    _require(bool(torch.isfinite(loss).all()), "ctc: non-finite loss")
+    print(json.dumps({"check": "ctc", "errs": errs, "tol": CTC_TOL,
+                      "bit_identical": True}), flush=True)
+
+    # Bounds, from this input: band cells a path can reach are t < len
+    # and s <= 2L; about 12 operations each for alpha (three exp, one
+    # log, adds, max), 16 for beta (and the occupancy's add, exp, min).
+    cells = float(((sl.double() + 1) * il.double()).sum())
+    small = _nbytes(lp, ext, skip, il, sl, ll)
+    bounds = {"alpha": _roofline(small + _nbytes(tape), 12 * cells,
+                                 PEAK_F32_FLOPS),
+              "loss_only": _roofline(small, 12 * cells, PEAK_F32_FLOPS),
+              "beta": _roofline(small + _nbytes(tape, gamma), 16 * cells,
+                                PEAK_F32_FLOPS)}
+    times = {
+        "alpha": _time_ms(lambda: ctc.ctc_alpha(*prep, tape=True), 10),
+        "loss_only": _time_ms(lambda: ctc.ctc_alpha(*prep, tape=False), 10),
+        "beta": _time_ms(lambda: ctc.ctc_beta(*prep, tape, ll), 10)}
+    plain = {
+        "alpha": _time_ms(lambda: ctc.ctc_alpha_plain(*prep, tape=True), 1),
+        "loss_only": _time_ms(
+            lambda: ctc.ctc_alpha_plain(*prep, tape=False), 1),
+        "beta": _time_ms(lambda: ctc.ctc_beta_plain(*prep, tape, ll), 1)}
+    # Yardstick: torch's CTC on the same log-probs, forward and backward
+    # (the pair the taped alpha and the beta replace) and forward alone.
+    lp_tbv = lp.transpose(0, 1).detach().requires_grad_()
+    targets, in_l, tg_l = labels.long(), lens.long(), lab_lens.long()
+
+    def torch_fwd_bwd():
+        torch.nn.functional.ctc_loss(lp_tbv, targets, in_l, tg_l,
+                                     reduction="sum").backward()
+
+    with torch.no_grad():
+        lib_fwd = _time_ms(lambda: torch.nn.functional.ctc_loss(
+            lp_tbv, targets, in_l, tg_l, reduction="none"), 10)
+    lib_fwd_bwd = _time_ms(torch_fwd_bwd, 10)
+    src = "deepspeech_tpu_torch/csrc/ctc.cu"
+    shape = {"B": B, "T": T, "V": V, "S": 2 * L_MAX + 1,
+             "band_cells": cells}
+    entries = []
+    for key, name, replaces, err, lib in (
+            ("alpha", "ctc_alpha", "deepspeech_tpu/ops/ctc_pallas.py:118",
+             max(errs["loglik"], errs["tape"]), lib_fwd_bwd),
+            ("loss_only", "ctc_alpha[loss_only]",
+             "deepspeech_tpu/ops/ctc_pallas.py:124", errs["loglik"], lib_fwd),
+            ("beta", "ctc_beta", "deepspeech_tpu/ops/ctc_pallas.py:132",
+             errs["gamma"], lib_fwd_bwd)):
+        entries.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": times[key], "plain_ms": plain[key],
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "library_ms": lib, "shape": shape})
+    print(json.dumps({"timed": "ctc", "ms": times, "plain_ms": plain,
+                      "library_fwd_ms": lib_fwd,
+                      "library_fwd_bwd_ms": lib_fwd_bwd,
+                      "bounds": bounds}), flush=True)
+    return entries
+
+
+def gru_bwd_kernel_phase(gen):
+    from deepspeech_tpu_torch.ops.gru import gru_bwd, gru_bwd_plain, gru_fwd
+
+    def inputs(d, dtype, shape):
+        args, valid = _gru_inputs(d, dtype, False, gen, *shape)
+        xp, mask, w, bias, _, reverse = args
+        ys, _ = gru_fwd(*args)
+        dy = torch.randn(ys.shape, generator=gen, device="cuda") * 0.1
+        return (xp, mask, w, bias, ys, dy, reverse), valid
+
+    checks = {}
+    for name, d, dtype, shape in (
+            ("D2_bf16", 2, torch.bfloat16, (T, B, H)),
+            ("D2_f32", 2, torch.float32, (T, B, H)),
+            ("D1_bf16", 1, torch.bfloat16, (T, B, H)),
+            ("D1_f32", 1, torch.float32, (T, B, H)),
+            ("D2_bf16_ragged", 2, torch.bfloat16, (37, 45, 100)),
+            ("D1_f32_ragged", 1, torch.float32, (37, 45, 100))):
+        args, _ = inputs(d, dtype, shape)
+        dxp, dg = gru_bwd(*args)
+        dxp2, dg2 = gru_bwd(*args)
+        torch.cuda.synchronize()
+        dxp_p, dg_p = gru_bwd_plain(*args)
+        err = max(float((dxp - dxp_p).abs().max()),
+                  float((dg - dg_p).abs().max()))
+        _require(bool(torch.isfinite(dxp).all() and torch.isfinite(dg).all()),
+                 f"gru_bwd {name}: non-finite")
+        _require(err <= TOL[dtype],
+                 f"gru_bwd {name}: max |kernel - plain| {err} > {TOL[dtype]}")
+        _require(torch.equal(dxp, dxp2) and torch.equal(dg, dg2),
+                 f"gru_bwd {name}: two runs on one input differ")
+        checks[name] = {"max_abs_err": err, "tol": TOL[dtype],
+                        "bit_identical": True}
+        print(json.dumps({"check": f"gru_bwd {name}", "max_abs_err": err,
+                          "tol": TOL[dtype], "bit_identical": True}),
+              flush=True)
+
+    entries = []
+    for d, replaces, check in ((2, "deepspeech_tpu/ops/rnn_pallas.py:211",
+                                "D2_bf16"),
+                               (1, "deepspeech_tpu/ops/rnn_pallas.py:113",
+                                "D1_bf16")):
+        args, valid = inputs(d, torch.bfloat16, (T, B, H))
+        ms = _time_ms(lambda: gru_bwd(*args), reps=3)
+        plain_ms = _time_ms(lambda: gru_bwd_plain(*args), reps=1)
+        # Yardstick: the backward of cuDNN's GRU in bf16 (input and
+        # weight gradients), timed apart from its forward.
+        cudnn = torch.nn.GRU(H, H, bidirectional=d == 2).to(
+            "cuda", torch.bfloat16)
+        cudnn.flatten_parameters()
+        x_lib = torch.randn(T, B, H, generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_()
+        out, _ = cudnn(x_lib)
+        g_out = torch.randn_like(out)
+        leaves = [x_lib, *cudnn.parameters()]
+        library_ms = _time_ms(lambda: torch.autograd.grad(
+            out, leaves, g_out, retain_graph=True), reps=3)
+        xp, mask, w, bias, ys, dy, _ = args
+        # Two [B,H]x[H,3H] products per valid step (gate recompute and
+        # dgates @ W^T); inputs read once, dxp and dgates written once.
+        dxp_bytes = 2 * d * T * B * 3 * H * 4
+        bound_ms, bound_by = _roofline(
+            _nbytes(xp, mask, w, bias, ys, dy) + dxp_bytes,
+            2 * 2.0 * valid * d * H * 3 * H, PEAK_BF16_FLOPS)
+        entries.append({
+            "name": f"gru_bwd[D={d}]", "route": "cuda",
+            "source": "deepspeech_tpu_torch/csrc/gru_bwd.cu",
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": checks[check]["max_abs_err"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "shape": {"D": d, "T": T, "B": B, "H": H, "dtype": "bfloat16",
+                      "valid_rows": valid},
+            "checks": {k: v for k, v in checks.items()
+                       if k.startswith(f"D{d}_")}})
+        print(json.dumps({"timed": entries[-1]["name"], "ms": ms,
+                          "plain_ms": plain_ms, "library_ms": library_ms,
+                          "bound_ms": bound_ms}), flush=True)
+    return entries
+
+
 def _request(cfg, n: int, rng):
     """A request of ``n`` utterances, 300..1700 frames, one of 1700."""
     lens = rng.integers(300, 1701, size=n).astype(np.int32)
@@ -232,14 +472,18 @@ def path_phase(preset: str, layers_per_forward: int):
         return gru_fwd(xp, mask, w, b, h0,
                        [not reverse[0], *reverse[1:]])
 
+    # The real wrapper counts through its module's name, which the
+    # patch points here.
+    misdirected.launches = 0
+
     sub = slice_to_plan(batch, plans[-1])
     lp, lens, rnn = _forward(inf, sub)
-    with mock.patch("deepspeech_tpu_torch.models.rnn.gru_fwd",
+    with mock.patch("deepspeech_tpu_torch.ops.gru.gru_fwd",
                     gru_fwd_plain):
         t1 = time.perf_counter()
         lp_p, lens_p, rnn_p = _forward(inf, sub)
         plain_s = time.perf_counter() - t1
-    with mock.patch("deepspeech_tpu_torch.models.rnn.gru_fwd", misdirected):
+    with mock.patch("deepspeech_tpu_torch.ops.gru.gru_fwd", misdirected):
         _, _, rnn_bad = _forward(inf, sub)
     t_out = -(-plans[-1].bucket_frames // cfg.model.time_stride)
     _require(tuple(lp.shape) == (plans[-1].batch_pad, t_out,
@@ -293,6 +537,220 @@ def path_phase(preset: str, layers_per_forward: int):
     return launches
 
 
+class _FixedBatch:
+    """One host batch with the interface ``Trainer`` reads."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def peek(self):
+        return self.batch
+
+    def epoch(self, epoch_idx: int):
+        return iter([self.batch])
+
+    def eval_epoch(self):
+        return iter([(self.batch, len(self.batch["feat_lens"]))])
+
+    def batches_per_epoch(self, epoch_idx: int) -> int:
+        return 1
+
+
+def _train_batch(cfg, rng):
+    """A full (B, 1700) training batch: 300..1700 frames, one of 1700,
+    0.15 characters per frame (random ids 1..28, at most L_MAX)."""
+    from deepspeech_tpu_torch.data import pad_batch
+
+    n, f = cfg.data.batch_size, cfg.features.num_features
+    lens = rng.integers(300, 1701, size=n)
+    lens[0] = 1700
+    feats = [rng.normal(size=(t, f)).astype(np.float32) for t in lens]
+    labels = [rng.integers(1, V, size=min(int(0.15 * t), L_MAX)).tolist()
+              for t in lens]
+    return pad_batch(feats, labels, 1700, cfg.data.max_label_len,
+                     cfg.model.time_stride)
+
+
+def _group(name: str) -> str:
+    if ".wh_" in name or ".bh_" in name:
+        return "recurrent"
+    if ".wx." in name:
+        return "wx"
+    if name.startswith("conv."):
+        return "conv"
+    return "head"  # BN of the RNN layers, lookahead, bn_out, head
+
+
+def _grads(model, dev):
+    """The whole model's gradient of the mean CTC loss on ``dev``, in
+    train mode (no optimizer step)."""
+    from deepspeech_tpu_torch.ops.ctc import ctc_loss_mean
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    logits, lens = model(dev["features"], dev["feat_lens"])
+    ctc_loss_mean(logits, dev["labels"], lens, dev["label_lens"]).backward()
+    torch.cuda.synchronize()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _group_rel(got, ref):
+    """||got - ref|| / ||ref|| per parameter group."""
+    out = {}
+    for group in ("recurrent", "wx", "conv", "head"):
+        names = [n for n in ref if _group(n) == group]
+        num = sum(float((got[n] - ref[n]).float().square().sum())
+                  for n in names)
+        den = sum(float(ref[n].float().square().sum()) for n in names)
+        out[group] = math.sqrt(num / den)
+    return out
+
+
+def _counts():
+    from deepspeech_tpu_torch.ops import ctc, gru
+
+    return {"gru_fwd": gru.gru_fwd.launches, "gru_bwd": gru.gru_bwd.launches,
+            "ctc_alpha": ctc.ctc_alpha.launches
+            - ctc.ctc_alpha.loss_only_launches,
+            "loss_only": ctc.ctc_alpha.loss_only_launches,
+            "ctc_beta": ctc.ctc_beta.launches}
+
+
+def _zero_counts() -> None:
+    from deepspeech_tpu_torch.ops import ctc, gru
+
+    gru.gru_fwd.launches = gru.gru_bwd.launches = 0
+    ctc.ctc_alpha.launches = ctc.ctc_alpha.loss_only_launches = 0
+    ctc.ctc_beta.launches = 0
+
+
+def train_phase(preset: str, layers: int):
+    from deepspeech_tpu_torch.bridge import init_params
+    from deepspeech_tpu_torch.config import apply_overrides, get_config
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.ops import ctc, gru
+    from deepspeech_tpu_torch.ops.ctc import ctc_loss_mean
+    from deepspeech_tpu_torch.train import Trainer, to_device
+
+    cfg = apply_overrides(get_config(preset), {"train.checkpoint_dir": ""})
+    params, stats = init_params(cfg, torch.Generator().manual_seed(SEED))
+    batch = _train_batch(cfg, np.random.default_rng(SEED))
+    pipe, tok = _FixedBatch(batch), CharTokenizer.english()
+    trainer = Trainer(cfg, pipe, tok, params=params, batch_stats=stats)
+    trainer.train_step(batch)  # warm-up: cuBLAS/cuDNN handles
+    torch.cuda.synchronize()
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    metrics = [trainer.train_step(batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    want = {"gru_fwd": layers * TRAIN_STEPS, "gru_bwd": layers * TRAIN_STEPS,
+            "ctc_alpha": TRAIN_STEPS, "loss_only": 0,
+            "ctc_beta": TRAIN_STEPS}
+    _require(counts == want, f"{preset} train: launches {counts} in "
+             f"{TRAIN_STEPS} steps, want {want}")
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    _require(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                 for m in metrics), f"{preset} train: non-finite {metrics}")
+
+    # The whole model's gradient against the same step with every kernel
+    # patched to its plain version, and against a gru_bwd whose first
+    # direction runs the wrong way through time, which must fail.
+    real_bwd = gru.gru_bwd
+
+    def misdirected(xp, mask, w, b, ys, dy, reverse):
+        return real_bwd(xp, mask, w, b, ys, dy,
+                        [not reverse[0], *reverse[1:]])
+
+    misdirected.launches = 0  # as in path_phase's control
+
+    dev = to_device(batch, trainer.device)
+    g_kernel = _grads(trainer.model, dev)
+    with mock.patch.multiple(gru, gru_fwd=gru.gru_fwd_plain,
+                             gru_bwd=gru.gru_bwd_plain), \
+            mock.patch.multiple(ctc, ctc_alpha=ctc.ctc_alpha_plain,
+                                ctc_beta=ctc.ctc_beta_plain):
+        t1 = time.perf_counter()
+        g_plain = _grads(trainer.model, dev)
+        plain_s = time.perf_counter() - t1
+    with mock.patch.object(gru, "gru_bwd", misdirected):
+        g_bad = _grads(trainer.model, dev)
+    rel, rel_bad = _group_rel(g_kernel, g_plain), _group_rel(g_bad, g_plain)
+    _require(max(rel.values()) <= GRAD_REL_TOL,
+             f"{preset}: gradient differs from the plain path by {rel} > "
+             f"{GRAD_REL_TOL} (relative, per group)")
+    _require(max(rel_bad.values()) > GRAD_REL_TOL,
+             f"{preset}: a mis-directed gru_bwd reads {rel_bad}, within "
+             f"{GRAD_REL_TOL}: the check cannot tell it from the kernel")
+    del trainer, g_kernel, g_plain, g_bad
+
+    # The same in float32, where bf16 rounding cannot hide a fault.
+    cfg32 = apply_overrides(cfg, {"model.dtype": "float32"})
+    m32 = Trainer(cfg32, pipe, tok, params=params, batch_stats=stats).model
+    g32 = _grads(m32, dev)
+    with mock.patch.multiple(gru, gru_fwd=gru.gru_fwd_plain,
+                             gru_bwd=gru.gru_bwd_plain), \
+            mock.patch.multiple(ctc, ctc_alpha=ctc.ctc_alpha_plain,
+                                ctc_beta=ctc.ctc_beta_plain):
+        g32_plain = _grads(m32, dev)
+        nudged = dict(dev, features=dev["features"] * (1 + 2.0 ** -22))
+        floor32 = _group_rel(_grads(m32, nudged), g32_plain)
+    rel32 = _group_rel(g32, g32_plain)
+    _require(max(rel32.values()) <= GRAD_REL_TOL_F32,
+             f"{preset}: f32 gradient differs from the plain path by "
+             f"{rel32} > {GRAD_REL_TOL_F32} (relative, per group)")
+    del m32, g32, g32_plain
+
+    # AdamW on the fixed batch; its loss, measured without a gradient
+    # (the loss-only kernel), must fall.
+    cfg_a = apply_overrides(cfg, {"train.optimizer": "adamw",
+                                  "train.learning_rate": "0.001",
+                                  "train.warmup_steps": "1"})
+    tr = Trainer(cfg_a, pipe, tok, params=params, batch_stats=stats)
+
+    def eval_loss() -> float:
+        with torch.no_grad():
+            tr.model.train()
+            logits, lens = tr.model(dev["features"], dev["feat_lens"])
+            return float(ctc_loss_mean(logits, dev["labels"], lens,
+                                       dev["label_lens"]))
+
+    _zero_counts()
+    loss0 = eval_loss()
+    for _ in range(DESCENT_STEPS):
+        tr.train_step(batch)
+    loss1 = eval_loss()
+    descent = _counts()
+    _require(descent["loss_only"] == 2 and descent["ctc_beta"]
+             == DESCENT_STEPS, f"{preset} descent: launches {descent}")
+    _require(loss1 < loss0, f"{preset}: loss on the fixed batch went "
+             f"{loss0} -> {loss1} over {DESCENT_STEPS} AdamW steps")
+    n = cfg.data.batch_size
+    print(json.dumps({
+        "path": f"{preset} train", "batch": [n, 1700],
+        "frames": [int(x) for x in batch["feat_lens"]][:4] + ["..."],
+        "steps": TRAIN_STEPS, "seconds": seconds,
+        "steps_per_s": TRAIN_STEPS / seconds,
+        "utt_per_s": TRAIN_STEPS * n / seconds,
+        "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
+        "losses": [m["loss"] for m in metrics],
+        "grad_norms": [m["grad_norm"] for m in metrics],
+        "grad_rel_err": rel, "misdirected_grad_rel_err": rel_bad,
+        "grad_rel_tol": GRAD_REL_TOL, "plain_grad_seconds": plain_s,
+        "f32_grad_rel_err": rel32, "f32_grad_rel_tol": GRAD_REL_TOL_F32,
+        "f32_plain_noise_floor": floor32,
+        "descent": {"optimizer": "adamw", "lr": 1e-3,
+                    "steps": DESCENT_STEPS, "loss_before": loss0,
+                    "loss_after": loss1,
+                    "loss_only_launches": descent["loss_only"]}}),
+          flush=True)
+    return {"gru_bwd": counts["gru_bwd"], "ctc_alpha": counts["ctc_alpha"],
+            "ctc_beta": counts["ctc_beta"],
+            "loss_only": descent["loss_only"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -314,9 +772,21 @@ def main() -> int:
           flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    entries = kernel_phase(gen)
-    entries[0]["launches"] = path_phase("ds2_small", 3)
-    entries[1]["launches"] = path_phase("ds2_streaming", 5)
+    entries = {e["name"]: e for e in (kernel_phase(gen)
+                                      + gru_bwd_kernel_phase(gen)
+                                      + ctc_kernel_phase(gen))}
+    entries["gru_fwd[D=2]"]["launches"] = path_phase("ds2_small", 3)
+    entries["gru_fwd[D=1]"]["launches"] = path_phase("ds2_streaming", 5)
+    for preset, layers, d in (("ds2_small", 3, 2), ("ds2_streaming", 5, 1)):
+        counts = train_phase(preset, layers)
+        entries[f"gru_bwd[D={d}]"]["launches"] = counts["gru_bwd"]
+        for name, key in (("ctc_alpha", "ctc_alpha"),
+                          ("ctc_alpha[loss_only]", "loss_only"),
+                          ("ctc_beta", "ctc_beta")):
+            entries[name]["launches"] += counts[key]
+    entries = [entries[n] for n in (
+        "gru_fwd[D=2]", "gru_fwd[D=1]", "ctc_alpha", "ctc_alpha[loss_only]",
+        "ctc_beta", "gru_bwd[D=2]", "gru_bwd[D=1]")]
     for e in entries:
         _require(e["launches"] > 0, f"{e['name']} never launched")
     print(json.dumps({"kernels": entries, "card": card}), flush=True)

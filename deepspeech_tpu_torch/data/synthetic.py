@@ -39,7 +39,9 @@ def synthetic_batch(cfg: Config, batch_size: int, frames: int,
 
 class SyntheticPipeline:
     """``n_utts`` synthetic utterances as ``cfg.data.batch_size`` batches
-    of ``frames`` frames (default: the smallest bucket)."""
+    of ``frames`` frames (default: the smallest bucket), with the
+    interface the trainer reads (JAX ``train._SyntheticPipeline``):
+    every epoch yields the same batches in the same order."""
 
     def __init__(self, cfg: Config, n_utts: int, frames: int = 0,
                  label_len: int = 12):
@@ -50,6 +52,15 @@ class SyntheticPipeline:
         self.batches = [
             synthetic_batch(cfg, bs, frames, label_len, seed=i)[0]
             for i in range(self.n_batches)]
+
+    def peek(self):
+        return self.batches[0]
+
+    def epoch(self, epoch_idx: int):
+        return iter(self.batches)
+
+    def batches_per_epoch(self, epoch_idx: int) -> int:
+        return self.n_batches
 
     def eval_epoch(self):
         """``(batch, n_valid)`` pairs, every row valid."""

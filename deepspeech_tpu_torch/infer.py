@@ -152,7 +152,7 @@ class Inferencer:
         return summary
 
 
-class _PrintLogger:
+class PrintLogger:
     """One JSON object per line on stdout."""
 
     def log(self, event: str, **fields) -> None:
@@ -182,7 +182,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                           parse_cli_overrides(extra))
     if not args.synthetic:
         raise NotImplementedError(
-            "decoding a manifest comes with slice 2 of the port; "
+            "decoding a manifest comes with slice 2b of the port "
+            "(checkpoints and manifest data); "
             "use --synthetic=N")
     if args.params:
         params, batch_stats = load_npz(args.params)
@@ -192,7 +193,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     tokenizer = get_tokenizer(cfg.data.language, cfg.data.vocab_path)
     inf = Inferencer(cfg, tokenizer, params, batch_stats, device=args.device)
     pipe = SyntheticPipeline(cfg, args.synthetic)
-    summary = inf.run(pipe.eval_epoch(), _PrintLogger())
+    summary = inf.run(pipe.eval_epoch(), PrintLogger())
     print(json.dumps({"event": "done", **summary}))
 
 

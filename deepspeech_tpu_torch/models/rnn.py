@@ -7,10 +7,11 @@ runs both directions over the same projection (the reverse one over
 the flipped time axis) and sums them. The projection is made
 time-major, ``[T, B, 3H]``, the layout the recurrence reads.
 
-The recurrence is ``ops/gru.py``'s ``gru_fwd``: one call per layer,
-both directions in it. ``gru_scan`` below is the plain oracle with the
-JAX package's signature; the tests hold it to the JAX ``gru_scan``, and
-no layer calls it.
+The recurrence is ``ops/gru.py``'s ``GRUFunction``: one ``gru_fwd``
+call per layer, both directions in it, and one ``gru_bwd`` call in the
+backward, so gradients reach ``wx``, ``wh_*`` and ``bh_*``. ``gru_scan``
+below is the plain oracle with the JAX package's signature; the tests
+hold it to the JAX ``gru_scan``, and no layer calls it.
 
 Gate conventions (r, z, n):
   r = sigmoid(xp_r + h W_r + b_r)
@@ -27,7 +28,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
-from ..ops.gru import gru_fwd, gru_fwd_plain
+from ..ops.gru import GRUFunction, gru_fwd_plain
 from .layers import Dense, MaskedBatchNorm, length_mask
 
 
@@ -100,9 +101,8 @@ class RNNLayer(nn.Module):
         reverse = [s == "bw" for s in self.dirs]
         whs = [getattr(self, f"wh_{s}") for s in self.dirs]
         bhs = [getattr(self, f"bh_{s}") for s in self.dirs]
-        ys, _ = gru_fwd(xp_t.contiguous(), mask_t,
-                        torch.stack(whs).to(dtype).contiguous(),
-                        torch.stack(bhs).float().contiguous(), None, reverse)
+        ys = GRUFunction.apply(xp_t.contiguous(), mask_t, torch.stack(whs),
+                               torch.stack(bhs).float(), None, reverse)
         out = ys.sum(0).transpose(0, 1)  # [B, T, H]
         out = out * mask[:, :, None]
         return out.to(dtype)

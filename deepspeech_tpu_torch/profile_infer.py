@@ -1,18 +1,22 @@
-"""Where one greedy decode's time goes on the card.
+"""Where one greedy decode's, or one training step's, time goes on the
+card.
 
 Runs ``Inferencer.decode_batch`` on one full ``(B, T)`` rung (every row
-``T`` frames long, random init from ``--seed``) under ``torch.profiler``
-and prints one JSON line: wall time of the decode, device busy time
-(the sum of kernel times; the port runs on one stream, so they do not
-overlap), the idle share, and the kernels that took the most device
-time, with the card's name and power limit.
+``T`` frames long, random init from ``--seed``), or with ``--train`` one
+``Trainer.train_step`` on such a batch (labels of 0.15 characters per
+frame), under ``torch.profiler`` and prints one JSON line: wall time of
+the call, device busy time (the sum of kernel times; the port runs on
+one stream, so they do not overlap), the idle share, and the kernels
+that took the most device time, with the card's name and power limit.
 
 ``python -m deepspeech_tpu_torch.profile_infer --config=ds2_small
-[--batch=32] [--frames=1700] [--seed=0] [--section.key=value ...]``
+[--train] [--batch=32] [--frames=1700] [--seed=0]
+[--section.key=value ...]``
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import time
@@ -21,14 +25,20 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+_PORT_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "ctc_alpha_kernel",
+                 "ctc_beta_kernel")
+
 
 def main(argv: Optional[List[str]] = None) -> None:
     import argparse
 
     from .bridge import init_params
     from .config import apply_overrides, get_config, parse_cli_overrides
+    from .data.pipeline import pad_batch
+    from .data.synthetic import SyntheticPipeline
     from .data.tokenizer import get_tokenizer
     from .infer import Inferencer
+    from .train import Trainer
 
     parser = argparse.ArgumentParser(prog="deepspeech_tpu_torch.profile_infer")
     parser.add_argument("--config", default="ds2_small")
@@ -36,24 +46,41 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--frames", type=int, default=1700)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--top", type=int, default=8)
+    parser.add_argument("--train", action="store_true",
+                        help="profile one training step instead")
     args, extra = parser.parse_known_args(argv)
     cfg = apply_overrides(get_config(args.config),
                           parse_cli_overrides(extra))
     params, stats = init_params(cfg, torch.Generator().manual_seed(args.seed))
-    inf = Inferencer(cfg, get_tokenizer(cfg.data.language), params, stats)
     rng = np.random.default_rng(args.seed)
-    batch = {"features": rng.normal(size=(
-                 args.batch, args.frames,
-                 cfg.features.num_features)).astype(np.float32),
-             "feat_lens": np.full(args.batch, args.frames, np.int32)}
-    inf.decode_batch(batch)  # warm-up
+    feats = rng.normal(size=(args.batch, args.frames,
+                             cfg.features.num_features)).astype(np.float32)
+    if args.train:
+        labels = [rng.integers(1, cfg.model.vocab_size, size=min(
+            int(0.15 * args.frames), cfg.data.max_label_len)).tolist()
+            for _ in range(args.batch)]
+        batch = pad_batch(list(feats), labels, args.frames,
+                          cfg.data.max_label_len, cfg.model.time_stride)
+        # One step, no checkpoint: the trainer refuses a checkpoint_dir.
+        cfg = apply_overrides(cfg, {"train.checkpoint_dir": ""})
+        run = functools.partial(
+            Trainer(cfg, SyntheticPipeline(cfg, args.batch),
+                    get_tokenizer(cfg.data.language), params=params,
+                    batch_stats=stats).train_step, batch)
+    else:
+        batch = {"features": feats,
+                 "feat_lens": np.full(args.batch, args.frames, np.int32)}
+        run = functools.partial(
+            Inferencer(cfg, get_tokenizer(cfg.data.language), params,
+                       stats).decode_batch, batch)
+    run()  # warm-up
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        inf.decode_batch(batch)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -65,12 +92,18 @@ def main(argv: Optional[List[str]] = None) -> None:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.splitlines()[0]
     print(json.dumps({
-        "config": cfg.name, "rung": [args.batch, args.frames],
+        "config": cfg.name, "mode": "train_step" if args.train else "decode",
+        "rung": [args.batch, args.frames],
         "card": card, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "top_kernels": [{"name": e.key[:80], "calls": e.count,
                          "device_ms": e.self_device_time_total / 1e3}
-                        for e in kernels[:args.top]]}))
+                        for e in kernels[:args.top]],
+        # The port's own kernels, however small.
+        "port_kernels": {name: {"calls": e.count,
+                                "device_ms": e.self_device_time_total / 1e3}
+                         for e in kernels for name in _PORT_KERNELS
+                         if f"::{name}" in e.key}}))
 
 
 if __name__ == "__main__":

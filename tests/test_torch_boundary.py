@@ -10,10 +10,13 @@ import pytest
 import torch
 
 from deepspeech_tpu_torch import resolve_device
-from deepspeech_tpu_torch.config import get_config
+from deepspeech_tpu_torch.config import apply_overrides, get_config
 from deepspeech_tpu_torch.data import CharTokenizer
+from deepspeech_tpu_torch.data import SyntheticPipeline
 from deepspeech_tpu_torch.infer import Inferencer
-from deepspeech_tpu_torch.ops.gru import gru_fwd
+from deepspeech_tpu_torch.ops import ctc
+from deepspeech_tpu_torch.ops.gru import gru_bwd, gru_fwd
+from deepspeech_tpu_torch.train import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "deepspeech_tpu"}
@@ -47,7 +50,7 @@ def test_no_jax_or_reference_imports():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, deepspeech_tpu_torch.infer, "
-            "deepspeech_tpu_torch.bridge; "
+            "deepspeech_tpu_torch.bridge, deepspeech_tpu_torch.train; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -63,6 +66,10 @@ def test_entry_points_need_cuda_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Inferencer(get_config("ds2_small"), CharTokenizer.english(),
                    params={}, batch_stats={})
+    cfg = apply_overrides(get_config("ds2_small"),
+                          {"train.checkpoint_dir": ""})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, SyntheticPipeline(cfg, 1), CharTokenizer.english())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -77,3 +84,25 @@ def test_gru_fwd_runs_plain_only_for_cpu_tensors():
         gru_fwd(*args)
     ys, hfin = gru_fwd(*[torch.zeros_like(a, device="cpu") for a in args])
     assert ys.shape == (1, t, b, h) and hfin.shape == (1, b, h)
+
+
+def test_new_kernels_run_plain_only_for_cpu_tensors():
+    """gru_bwd, ctc_alpha and ctc_beta: a tensor on another device never
+    reaches the plain version."""
+    t, b, h = 2, 1, 4
+    gru_args = [torch.zeros(t, b, 3 * h), torch.ones(t, b),
+                torch.zeros(1, h, 3 * h), torch.zeros(1, 3 * h),
+                torch.zeros(1, t, b, h), torch.zeros(1, t, b, h)]
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        gru_bwd(*[a.to("meta") for a in gru_args])
+    dxp, dgates = gru_bwd(*gru_args)
+    assert dxp.shape == dgates.shape == (1, t, b, 3 * h)
+    prep = ctc.prepare(torch.zeros(b, t, 5), torch.ones(b, 1, dtype=torch.int32),
+                       torch.full((b,), t), torch.ones(b, dtype=torch.int32))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ctc.ctc_alpha(*[a.to("meta") for a in prep], tape=True)
+    loglik, tape = ctc.ctc_alpha(*prep, tape=True)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ctc.ctc_beta(*[a.to("meta") for a in prep], tape.to("meta"),
+                     loglik.to("meta"))
+    assert ctc.ctc_beta(*prep, tape, loglik).shape == (b, t, 3)

@@ -97,16 +97,16 @@ def test_every_layer_calls_gru_fwd_once(preset, reverse, impl, monkeypatch):
     """Each GRU layer makes one gru_fwd call holding all its directions,
     whichever accepted rnn_impl name the config carries: a bidirectional
     layer (False, True), a streaming layer (False,)."""
-    import deepspeech_tpu_torch.models.rnn as rnn_mod
+    import deepspeech_tpu_torch.ops.gru as gru_mod
     _, tcfg, _, params, stats, feats, lens = _model_inputs(
         preset, "float32", seed=1)
     calls = []
 
     def recording(xp, mask, w, b, h0, reverse):
         calls.append((tuple(w.shape), h0, tuple(reverse)))
-        return rnn_mod.gru_fwd_plain(xp, mask, w, b, h0, reverse)
+        return gru_mod.gru_fwd_plain(xp, mask, w, b, h0, reverse)
 
-    monkeypatch.setattr(rnn_mod, "gru_fwd", recording)
+    monkeypatch.setattr(gru_mod, "gru_fwd", recording)
     cfg = apply_overrides(tcfg, {"model.rnn_impl": impl})
     model = DeepSpeech2(cfg.model)
     model.load_state_dict(from_flax(params, stats))
