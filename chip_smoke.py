@@ -11,23 +11,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    kernel give the same bits, and times the kernel, the plain version
    and one PyTorch library call that computes the same function with
    CUDA events:
-   - ``gru_fwd`` at B=32, T'=850 (the 1700-frame bucket over time
-     stride 2), H=800, ragged lengths (library: cuDNN's GRU);
+   - ``gru_fwd`` (the resident kernel) at B=32, T'=850 (the 1700-frame
+     bucket over time stride 2), H=800, ragged lengths (library:
+     cuDNN's GRU);
    - ``gru_bwd`` at the same shapes (library: cuDNN's GRU backward);
    - ``ctc_alpha`` (with and without its tape) and ``ctc_beta`` at B=32,
      T'=850, labels of about 15 characters a second, S <= 513
      (library: ``torch.nn.functional.ctc_loss``);
+   - ``gru_fwd_stream`` and ``gru_bwd_stream`` (W streamed every step)
+     at ds2_full's B=32, T'=850, H=1760 (library: cuDNN's GRU at
+     H=1760, forward and backward timed apart);
+   each GRU kernel at D=2 and D=1 (the forward with h0), bf16 and f32,
+   and at one ragged shape off its tiles, each checked to have run the
+   kernel meant (resident or streamed) by the launch counts;
 4. inference path phases: greedy inference through
    ``Inferencer.decode_batch_bucketed`` at the full width of ds2_small
-   (3 BiGRU layers) and ds2_streaming (5 GRU layers + lookahead) from a
-   seeded random init, on a request of mixed lengths; counts the
-   ``gru_fwd`` launches and holds the RNN stack's output against the
-   same forward with the plain GRU, beside a mis-directed GRU that the
-   check must reject;
+   (3 BiGRU layers: 3 ``gru_fwd`` launches per forward), ds2_streaming
+   (5 GRU layers + lookahead: 5 ``gru_fwd``) and ds2_full (7 BiGRU
+   layers at H=1760: 7 ``gru_fwd_stream``, one per layer with both
+   directions in it) from a seeded random init, on a request of mixed
+   lengths and a full (32, 1700) rung; counts the launches and holds the
+   RNN stack's output against the same forward with the plain GRU,
+   beside a mis-directed GRU that the check must reject;
 5. training path phases: ``Trainer`` steps at the full width of
-   ds2_small and ds2_streaming on a (32, 1700) batch of ragged lengths;
-   counts the launches per step, holds the whole model's gradient
-   against the same step with every kernel patched to its plain version
+   ds2_small, ds2_streaming and ds2_full on a (32, 1700) batch of
+   ragged lengths; counts the launches per step (one GRU forward and
+   one backward per layer: resident for the first two, streamed for
+   ds2_full), holds the whole model's gradient against the same step
+   with every kernel patched to its plain version, in bf16 and f32
    (and a mis-directed ``gru_bwd`` that the check must reject), and
    takes AdamW steps on the fixed batch whose loss, measured without a
    gradient (the loss-only kernel), must fall;
@@ -82,6 +93,16 @@ GRAD_REL_TOL = 0.1
 GRAD_REL_TOL_F32 = 5e-3
 TRAIN_STEPS = 3                 # timed steps per train phase
 DESCENT_STEPS = 10              # AdamW steps on the fixed batch
+# ds2_full (7 BiGRU, H=1760): a step takes seconds, so fewer of them.
+FULL_TRAIN_STEPS = 2
+FULL_DESCENT_STEPS = 5
+# The TPU kernels the GRU kernels replace (deepspeech_tpu/ops/).
+K4 = "deepspeech_tpu/ops/rnn_pallas.py:155"   # _bigru_kernel
+K5 = "deepspeech_tpu/ops/rnn_pallas.py:211"   # _bigru_bwd_kernel
+K6 = "deepspeech_tpu/ops/rnn_pallas.py:85"    # _gru_kernel
+K7 = "deepspeech_tpu/ops/rnn_pallas.py:113"   # _gru_bwd_kernel
+K8 = "deepspeech_tpu/ops/rnn_pallas.py:260"   # _gru_kernel_blocked
+K9 = "deepspeech_tpu/ops/rnn_pallas.py:312"   # _gru_bwd_kernel_blocked
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -119,15 +140,28 @@ def _gru_inputs(d: int, dtype: torch.dtype, with_h0: bool, gen,
 
 
 def _bound(args, valid_rows: int):
-    """Least time for gru_fwd on these inputs: the larger of its product
-    FLOPs on valid frames over the peak for the dot dtype, and each
-    input read once plus each output written once over HBM bandwidth."""
+    """Least time for gru_fwd on these inputs, at their own shape: the
+    larger of its product FLOPs on valid frames over the peak for the
+    dot dtype, and each input read once plus each output written once
+    over HBM bandwidth."""
     xp, mask, w, b, h0, _ = args
-    d = w.shape[0]
+    (t, bsz, _), (d, h) = xp.shape, w.shape[:2]
     peak = PEAK_BF16_FLOPS if w.dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    ys_hfin = (d * T * B * H + d * B * H) * 4
+    ys_hfin = (d * t * bsz * h + d * bsz * h) * 4
     return _roofline(_nbytes(xp, mask, w, b, h0) + ys_hfin,
-                     2.0 * valid_rows * d * H * 3 * H, peak)
+                     2.0 * valid_rows * d * h * 3 * h, peak)
+
+
+def _require_only(kernel: str, n: int) -> None:
+    """Since the last ``_zero_counts()``, ``kernel`` launched ``n`` times
+    and its resident or streamed twin not once: the wrapper under test
+    ran the kernel meant. Resets the counts."""
+    family = kernel[:len("gru_fwd")]
+    counts = {k: v for k, v in _counts().items() if k.startswith(family)}
+    want = {k: n if k == kernel else 0 for k in counts}
+    _require(counts == want, f"{kernel} checks: launches {counts}, want "
+             f"{want}")
+    _zero_counts()
 
 
 def _roofline(nbytes: float, ops: float, peak: float):
@@ -142,43 +176,55 @@ def _nbytes(*tensors) -> int:
                if t is not None)
 
 
-def kernel_phase(gen):
-    from deepspeech_tpu_torch.ops.gru import gru_fwd, gru_fwd_plain
+def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed):
+    """Hold ``ops.gru.<kernel>`` (``gru_fwd``, which launches the
+    resident kernel at these sizes, or ``gru_fwd_stream``) against
+    ``gru_fwd_plain`` at T'=850, B=32 and width ``h``, D=2 and D=1 with
+    h0, bf16 and f32, and at one ragged shape off the kernels' tiles (H
+    not a multiple of 16 or 64, B above one 32-row pass); two runs must
+    give the same bits. Then time it for each ``(d, replaces)`` of
+    ``timed``, with its bound, its plain version and cuDNN's GRU."""
+    from deepspeech_tpu_torch.ops import gru
 
+    fn = getattr(gru, kernel)
+    _zero_counts()
     checks = {}
-    # The main path's shapes, then one ragged shape off the kernel's
-    # tiles: H not a multiple of 16 or 64, B above one 32-row pass.
     for name, d, dtype, with_h0, shape in (
-            ("D2_bf16", 2, torch.bfloat16, False, (T, B, H)),
-            ("D2_f32", 2, torch.float32, False, (T, B, H)),
-            ("D1_bf16_h0", 1, torch.bfloat16, True, (T, B, H)),
-            ("D1_f32_h0", 1, torch.float32, True, (T, B, H)),
+            ("D2_bf16", 2, torch.bfloat16, False, (T, B, h)),
+            ("D2_f32", 2, torch.float32, False, (T, B, h)),
+            ("D1_bf16_h0", 1, torch.bfloat16, True, (T, B, h)),
+            ("D1_f32_h0", 1, torch.float32, True, (T, B, h)),
             ("D2_bf16_ragged", 2, torch.bfloat16, True, (37, 45, 100))):
         args, valid = _gru_inputs(d, dtype, with_h0, gen, *shape)
-        ys, hfin = gru_fwd(*args)
+        ys, hfin = fn(*args)
+        ys2, hfin2 = fn(*args)
         torch.cuda.synchronize()
-        ys_p, hfin_p = gru_fwd_plain(*args)
+        ys_p, hfin_p = gru.gru_fwd_plain(*args)
         err = max(float((ys - ys_p).abs().max()),
                   float((hfin - hfin_p).abs().max()))
         _require(bool(torch.isfinite(ys).all()), f"{name}: non-finite ys")
         _require(err <= TOL[dtype],
-                 f"gru_fwd {name}: max |kernel - plain| {err} > {TOL[dtype]}")
-        checks[name] = {"max_abs_err": err, "tol": TOL[dtype]}
-        print(json.dumps({"check": f"gru_fwd {name}", "max_abs_err": err,
-                          "tol": TOL[dtype]}), flush=True)
+                 f"{kernel} {name}: max |kernel - plain| {err} > "
+                 f"{TOL[dtype]}")
+        _require(torch.equal(ys, ys2) and torch.equal(hfin, hfin2),
+                 f"{kernel} {name}: two runs on one input differ")
+        checks[name] = {"max_abs_err": err, "tol": TOL[dtype],
+                        "bit_identical": True}
+        print(json.dumps({"check": f"{kernel} {name}", "max_abs_err": err,
+                          "tol": TOL[dtype], "bit_identical": True}),
+              flush=True)
+    _require_only(kernel, 2 * len(checks))
 
     entries = []
-    for d, replaces, check in ((2, "deepspeech_tpu/ops/rnn_pallas.py:155",
-                                "D2_bf16"),
-                               (1, "deepspeech_tpu/ops/rnn_pallas.py:85",
-                                "D1_bf16_h0")):
-        args, valid = _gru_inputs(d, torch.bfloat16, False, gen)
-        ms = _time_ms(lambda: gru_fwd(*args), reps=5)
-        plain_ms = _time_ms(lambda: gru_fwd_plain(*args), reps=1)
-        cudnn = torch.nn.GRU(H, H, bidirectional=d == 2).to(
+    for d, replaces in timed:
+        check = "D2_bf16" if d == 2 else "D1_bf16_h0"
+        args, valid = _gru_inputs(d, torch.bfloat16, False, gen, T, B, h)
+        ms = _time_ms(lambda: fn(*args), reps=5)
+        plain_ms = _time_ms(lambda: gru.gru_fwd_plain(*args), reps=1)
+        cudnn = torch.nn.GRU(h, h, bidirectional=d == 2).to(
             "cuda", torch.bfloat16)
         cudnn.flatten_parameters()
-        x_lib = torch.randn(T, B, H, generator=gen, device="cuda").to(
+        x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
             torch.bfloat16)
         with torch.no_grad():
             library_ms = _time_ms(lambda: cudnn(x_lib), reps=5)
@@ -188,23 +234,29 @@ def kernel_phase(gen):
         # scale with B up to 32.
         args_b1 = tuple(a[:, :1].contiguous() if i < 2 else a
                         for i, a in enumerate(args))
-        ms_b1 = _time_ms(lambda: gru_fwd(*args_b1), reps=5)
+        ms_b1 = _time_ms(lambda: fn(*args_b1), reps=5)
+        extra = {}
+        if kernel.endswith("_stream"):
+            # The streamed kernel where the resident one runs (H=800):
+            # what the residency rule saves there.
+            args_h, _ = _gru_inputs(d, torch.bfloat16, False, gen)
+            extra["ms_at_h800"] = _time_ms(lambda: fn(*args_h), reps=3)
         entries.append({
-            "name": f"gru_fwd[D={d}]", "route": "cuda",
-            "source": "deepspeech_tpu_torch/csrc/gru_fwd.cu",
+            "name": f"{kernel}[D={d}]", "route": "cuda",
+            "source": f"deepspeech_tpu_torch/csrc/{kernel}.cu",
             "replaces": replaces, "launches": 0,
             "max_abs_err": checks[check]["max_abs_err"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "ms_at_b1": ms_b1,
-            "shape": {"D": d, "T": T, "B": B, "H": H, "dtype": "bfloat16",
+            "ms_at_b1": ms_b1, **extra,
+            "shape": {"D": d, "T": T, "B": B, "H": h, "dtype": "bfloat16",
                       "valid_rows": valid},
             "checks": {k: v for k, v in checks.items()
                        if k.startswith(f"D{d}_")}})
         print(json.dumps({"timed": entries[-1]["name"], "ms": ms,
                           "ms_at_b1": ms_b1, "plain_ms": plain_ms,
-                          "library_ms": library_ms, "bound_ms": bound_ms}),
-              flush=True)
+                          "library_ms": library_ms, "bound_ms": bound_ms,
+                          **extra}), flush=True)
     return entries
 
 
@@ -327,84 +379,98 @@ def ctc_kernel_phase(gen):
     return entries
 
 
-def gru_bwd_kernel_phase(gen):
-    from deepspeech_tpu_torch.ops.gru import gru_bwd, gru_bwd_plain, gru_fwd
+def gru_bwd_kernel_phase(gen, kernel: str, h: int, timed):
+    """Hold ``ops.gru.<kernel>`` (``gru_bwd``, the resident kernel at
+    these sizes, or ``gru_bwd_stream``) against ``gru_bwd_plain`` as
+    ``gru_fwd_kernel_phase`` holds the forward, and time it for each
+    ``(d, replaces)`` of ``timed`` beside cuDNN's GRU backward."""
+    from deepspeech_tpu_torch.ops import gru
+
+    fn = getattr(gru, kernel)
 
     def inputs(d, dtype, shape):
         args, valid = _gru_inputs(d, dtype, False, gen, *shape)
         xp, mask, w, bias, _, reverse = args
-        ys, _ = gru_fwd(*args)
+        ys, _ = gru.gru_fwd(*args)
         dy = torch.randn(ys.shape, generator=gen, device="cuda") * 0.1
         return (xp, mask, w, bias, ys, dy, reverse), valid
 
+    _zero_counts()
     checks = {}
     for name, d, dtype, shape in (
-            ("D2_bf16", 2, torch.bfloat16, (T, B, H)),
-            ("D2_f32", 2, torch.float32, (T, B, H)),
-            ("D1_bf16", 1, torch.bfloat16, (T, B, H)),
-            ("D1_f32", 1, torch.float32, (T, B, H)),
+            ("D2_bf16", 2, torch.bfloat16, (T, B, h)),
+            ("D2_f32", 2, torch.float32, (T, B, h)),
+            ("D1_bf16", 1, torch.bfloat16, (T, B, h)),
+            ("D1_f32", 1, torch.float32, (T, B, h)),
             ("D2_bf16_ragged", 2, torch.bfloat16, (37, 45, 100)),
             ("D1_f32_ragged", 1, torch.float32, (37, 45, 100))):
         args, _ = inputs(d, dtype, shape)
-        dxp, dg = gru_bwd(*args)
-        dxp2, dg2 = gru_bwd(*args)
+        dxp, dg = fn(*args)
+        dxp2, dg2 = fn(*args)
         torch.cuda.synchronize()
-        dxp_p, dg_p = gru_bwd_plain(*args)
+        dxp_p, dg_p = gru.gru_bwd_plain(*args)
         err = max(float((dxp - dxp_p).abs().max()),
                   float((dg - dg_p).abs().max()))
         _require(bool(torch.isfinite(dxp).all() and torch.isfinite(dg).all()),
-                 f"gru_bwd {name}: non-finite")
+                 f"{kernel} {name}: non-finite")
         _require(err <= TOL[dtype],
-                 f"gru_bwd {name}: max |kernel - plain| {err} > {TOL[dtype]}")
+                 f"{kernel} {name}: max |kernel - plain| {err} > "
+                 f"{TOL[dtype]}")
         _require(torch.equal(dxp, dxp2) and torch.equal(dg, dg2),
-                 f"gru_bwd {name}: two runs on one input differ")
+                 f"{kernel} {name}: two runs on one input differ")
         checks[name] = {"max_abs_err": err, "tol": TOL[dtype],
                         "bit_identical": True}
-        print(json.dumps({"check": f"gru_bwd {name}", "max_abs_err": err,
+        print(json.dumps({"check": f"{kernel} {name}", "max_abs_err": err,
                           "tol": TOL[dtype], "bit_identical": True}),
               flush=True)
+    _require_only(kernel, 2 * len(checks))
 
     entries = []
-    for d, replaces, check in ((2, "deepspeech_tpu/ops/rnn_pallas.py:211",
-                                "D2_bf16"),
-                               (1, "deepspeech_tpu/ops/rnn_pallas.py:113",
-                                "D1_bf16")):
-        args, valid = inputs(d, torch.bfloat16, (T, B, H))
-        ms = _time_ms(lambda: gru_bwd(*args), reps=3)
-        plain_ms = _time_ms(lambda: gru_bwd_plain(*args), reps=1)
+    for d, replaces in timed:
+        check = f"D{d}_bf16"
+        args, valid = inputs(d, torch.bfloat16, (T, B, h))
+        ms = _time_ms(lambda: fn(*args), reps=3)
+        plain_ms = _time_ms(lambda: gru.gru_bwd_plain(*args), reps=1)
         # Yardstick: the backward of cuDNN's GRU in bf16 (input and
         # weight gradients), timed apart from its forward.
-        cudnn = torch.nn.GRU(H, H, bidirectional=d == 2).to(
+        cudnn = torch.nn.GRU(h, h, bidirectional=d == 2).to(
             "cuda", torch.bfloat16)
         cudnn.flatten_parameters()
-        x_lib = torch.randn(T, B, H, generator=gen, device="cuda").to(
+        x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
             torch.bfloat16).requires_grad_()
         out, _ = cudnn(x_lib)
         g_out = torch.randn_like(out)
         leaves = [x_lib, *cudnn.parameters()]
         library_ms = _time_ms(lambda: torch.autograd.grad(
             out, leaves, g_out, retain_graph=True), reps=3)
+        del out, g_out, leaves, cudnn, x_lib
+        extra = {}
+        if kernel.endswith("_stream"):
+            # The streamed kernel where the resident one runs (H=800).
+            args_h, _ = inputs(d, torch.bfloat16, (T, B, H))
+            extra["ms_at_h800"] = _time_ms(lambda: fn(*args_h), reps=2)
+            del args_h
         xp, mask, w, bias, ys, dy, _ = args
         # Two [B,H]x[H,3H] products per valid step (gate recompute and
         # dgates @ W^T); inputs read once, dxp and dgates written once.
-        dxp_bytes = 2 * d * T * B * 3 * H * 4
+        dxp_bytes = 2 * d * T * B * 3 * h * 4
         bound_ms, bound_by = _roofline(
             _nbytes(xp, mask, w, bias, ys, dy) + dxp_bytes,
-            2 * 2.0 * valid * d * H * 3 * H, PEAK_BF16_FLOPS)
+            2 * 2.0 * valid * d * h * 3 * h, PEAK_BF16_FLOPS)
         entries.append({
-            "name": f"gru_bwd[D={d}]", "route": "cuda",
-            "source": "deepspeech_tpu_torch/csrc/gru_bwd.cu",
+            "name": f"{kernel}[D={d}]", "route": "cuda",
+            "source": f"deepspeech_tpu_torch/csrc/{kernel}.cu",
             "replaces": replaces, "launches": 0,
             "max_abs_err": checks[check]["max_abs_err"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "shape": {"D": d, "T": T, "B": B, "H": H, "dtype": "bfloat16",
+            "bound_by": bound_by, "library_ms": library_ms, **extra,
+            "shape": {"D": d, "T": T, "B": B, "H": h, "dtype": "bfloat16",
                       "valid_rows": valid},
             "checks": {k: v for k, v in checks.items()
                        if k.startswith(f"D{d}_")}})
         print(json.dumps({"timed": entries[-1]["name"], "ms": ms,
                           "plain_ms": plain_ms, "library_ms": library_ms,
-                          "bound_ms": bound_ms}), flush=True)
+                          "bound_ms": bound_ms, **extra}), flush=True)
     return entries
 
 
@@ -433,7 +499,11 @@ def _forward(inf, sub):
     return lp, lens, out["rnn"].float()
 
 
-def path_phase(preset: str, layers_per_forward: int):
+def path_phase(preset: str, layers_per_forward: int, kernel: str):
+    """Greedy inference on ``preset`` through
+    ``Inferencer.decode_batch_bucketed``; ``kernel`` is the GRU forward
+    kernel its layers must run, one launch per layer per forward (both
+    directions in it): ``gru_fwd`` (resident) or ``gru_fwd_stream``."""
     from deepspeech_tpu_torch.bridge import init_params
     from deepspeech_tpu_torch.config import get_config
     from deepspeech_tpu_torch.data import CharTokenizer, plan_infer_buckets
@@ -452,15 +522,17 @@ def path_phase(preset: str, layers_per_forward: int):
     inf.decode_batch_bucketed(batch)  # warm-up: cuBLAS/cuDNN handles
     torch.cuda.synchronize()
 
-    gru_fwd.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     texts = inf.decode_batch_bucketed(batch)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = gru_fwd.launches
-    want = layers_per_forward * len(plans)
-    _require(launches == want, f"{preset}: gru_fwd launched {launches} "
-             f"times for {len(plans)} forwards, want {want}")
+    counts = {k: v for k, v in _counts().items() if k.startswith("gru_")}
+    launches = counts[kernel]
+    want = {k: layers_per_forward * len(plans) if k == kernel else 0
+            for k in counts}
+    _require(counts == want, f"{preset}: GRU launches {counts} for "
+             f"{len(plans)} forwards, want {want}")
     _require(len(texts) == 12 and all(isinstance(s, str) for s in texts),
              f"{preset}: bad transcripts {texts!r}")
 
@@ -524,7 +596,10 @@ def path_phase(preset: str, layers_per_forward: int):
     result = {"path": preset, "utts": 12, "forwards": len(plans),
               "rungs": [[p.batch_pad, p.bucket_frames] for p in plans],
               "seconds": seconds, "utt_per_s": 12 / seconds,
-              "gru_fwd_launches": launches,
+              "kernel": kernel, "launches": launches,
+              "launches_per_forward": launches / len(plans),
+              "launches_per_layer": launches / len(plans)
+              / layers_per_forward,
               "full_rung": [cfg.data.batch_size, 1700],
               "full_rung_seconds": full_s,
               "full_rung_utt_per_s": cfg.data.batch_size / full_s,
@@ -610,6 +685,8 @@ def _counts():
     from deepspeech_tpu_torch.ops import ctc, gru
 
     return {"gru_fwd": gru.gru_fwd.launches, "gru_bwd": gru.gru_bwd.launches,
+            "gru_fwd_stream": gru.gru_fwd_stream.launches,
+            "gru_bwd_stream": gru.gru_bwd_stream.launches,
             "ctc_alpha": ctc.ctc_alpha.launches
             - ctc.ctc_alpha.loss_only_launches,
             "loss_only": ctc.ctc_alpha.loss_only_launches,
@@ -620,11 +697,17 @@ def _zero_counts() -> None:
     from deepspeech_tpu_torch.ops import ctc, gru
 
     gru.gru_fwd.launches = gru.gru_bwd.launches = 0
+    gru.gru_fwd_stream.launches = gru.gru_bwd_stream.launches = 0
     ctc.ctc_alpha.launches = ctc.ctc_alpha.loss_only_launches = 0
     ctc.ctc_beta.launches = 0
 
 
-def train_phase(preset: str, layers: int):
+def train_phase(preset: str, layers: int, streamed: bool, steps: int,
+                descent_steps: int):
+    """``Trainer`` steps on ``preset`` at full width; its layers must run
+    the streamed GRU kernels when ``streamed``, else the resident ones,
+    one forward and one backward launch per layer per step. ``steps``
+    timed steps, ``descent_steps`` AdamW steps on the fixed batch."""
     from deepspeech_tpu_torch.bridge import init_params
     from deepspeech_tpu_torch.config import apply_overrides, get_config
     from deepspeech_tpu_torch.data import CharTokenizer
@@ -642,15 +725,17 @@ def train_phase(preset: str, layers: int):
 
     _zero_counts()
     t0 = time.perf_counter()
-    metrics = [trainer.train_step(batch) for _ in range(TRAIN_STEPS)]
+    metrics = [trainer.train_step(batch) for _ in range(steps)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _counts()
-    want = {"gru_fwd": layers * TRAIN_STEPS, "gru_bwd": layers * TRAIN_STEPS,
-            "ctc_alpha": TRAIN_STEPS, "loss_only": 0,
-            "ctc_beta": TRAIN_STEPS}
+    fwd, bwd = (("gru_fwd_stream", "gru_bwd_stream") if streamed
+                else ("gru_fwd", "gru_bwd"))
+    want = {k: 0 for k in counts}
+    want.update({fwd: layers * steps, bwd: layers * steps,
+                 "ctc_alpha": steps, "ctc_beta": steps})
     _require(counts == want, f"{preset} train: launches {counts} in "
-             f"{TRAIN_STEPS} steps, want {want}")
+             f"{steps} steps, want {want}")
     metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
     _require(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                  for m in metrics), f"{preset} train: non-finite {metrics}")
@@ -719,22 +804,25 @@ def train_phase(preset: str, layers: int):
 
     _zero_counts()
     loss0 = eval_loss()
-    for _ in range(DESCENT_STEPS):
+    for _ in range(descent_steps):
         tr.train_step(batch)
     loss1 = eval_loss()
     descent = _counts()
     _require(descent["loss_only"] == 2 and descent["ctc_beta"]
-             == DESCENT_STEPS, f"{preset} descent: launches {descent}")
+             == descent_steps and descent[bwd] == layers * descent_steps,
+             f"{preset} descent: launches {descent}")
     _require(loss1 < loss0, f"{preset}: loss on the fixed batch went "
-             f"{loss0} -> {loss1} over {DESCENT_STEPS} AdamW steps")
+             f"{loss0} -> {loss1} over {descent_steps} AdamW steps")
     n = cfg.data.batch_size
     print(json.dumps({
         "path": f"{preset} train", "batch": [n, 1700],
         "frames": [int(x) for x in batch["feat_lens"]][:4] + ["..."],
-        "steps": TRAIN_STEPS, "seconds": seconds,
-        "steps_per_s": TRAIN_STEPS / seconds,
-        "utt_per_s": TRAIN_STEPS * n / seconds,
-        "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
+        "steps": steps, "seconds": seconds,
+        "steps_per_s": steps / seconds,
+        "utt_per_s": steps * n / seconds,
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "gru_launches_per_layer_step": {
+            k: counts[k] / steps / layers for k in (fwd, bwd)},
         "losses": [m["loss"] for m in metrics],
         "grad_norms": [m["grad_norm"] for m in metrics],
         "grad_rel_err": rel, "misdirected_grad_rel_err": rel_bad,
@@ -742,11 +830,11 @@ def train_phase(preset: str, layers: int):
         "f32_grad_rel_err": rel32, "f32_grad_rel_tol": GRAD_REL_TOL_F32,
         "f32_plain_noise_floor": floor32,
         "descent": {"optimizer": "adamw", "lr": 1e-3,
-                    "steps": DESCENT_STEPS, "loss_before": loss0,
+                    "steps": descent_steps, "loss_before": loss0,
                     "loss_after": loss1,
                     "loss_only_launches": descent["loss_only"]}}),
           flush=True)
-    return {"gru_bwd": counts["gru_bwd"], "ctc_alpha": counts["ctc_alpha"],
+    return {"gru_bwd": counts[bwd], "ctc_alpha": counts["ctc_alpha"],
             "ctc_beta": counts["ctc_beta"],
             "loss_only": descent["loss_only"]}
 
@@ -771,22 +859,42 @@ def main() -> int:
                       "build_seconds": time.perf_counter() - t0}),
           flush=True)
 
+    from deepspeech_tpu_torch.config import get_config
+
+    h_full = get_config("ds2_full").model.rnn_hidden
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    entries = {e["name"]: e for e in (kernel_phase(gen)
-                                      + gru_bwd_kernel_phase(gen)
-                                      + ctc_kernel_phase(gen))}
-    entries["gru_fwd[D=2]"]["launches"] = path_phase("ds2_small", 3)
-    entries["gru_fwd[D=1]"]["launches"] = path_phase("ds2_streaming", 5)
-    for preset, layers, d in (("ds2_small", 3, 2), ("ds2_streaming", 5, 1)):
-        counts = train_phase(preset, layers)
-        entries[f"gru_bwd[D={d}]"]["launches"] = counts["gru_bwd"]
-        for name, key in (("ctc_alpha", "ctc_alpha"),
-                          ("ctc_alpha[loss_only]", "loss_only"),
-                          ("ctc_beta", "ctc_beta")):
-            entries[name]["launches"] += counts[key]
+    phases = (gru_fwd_kernel_phase(gen, "gru_fwd", H, [(2, K4), (1, K6)])
+              + gru_bwd_kernel_phase(gen, "gru_bwd", H, [(2, K5), (1, K7)])
+              + ctc_kernel_phase(gen)
+              + gru_fwd_kernel_phase(gen, "gru_fwd_stream", h_full,
+                                     [(2, K8)])
+              + gru_bwd_kernel_phase(gen, "gru_bwd_stream", h_full,
+                                     [(2, K9)]))
+    entries = {e["name"]: e for e in phases}
+    # Inference: one GRU forward launch per layer per forward.
+    for preset, layers, name in (("ds2_small", 3, "gru_fwd[D=2]"),
+                                 ("ds2_streaming", 5, "gru_fwd[D=1]"),
+                                 ("ds2_full", 7, "gru_fwd_stream[D=2]")):
+        entries[name]["launches"] = path_phase(
+            preset, layers, name.split("[")[0])
+    # Training: one forward and one backward launch per layer per step.
+    for preset, layers, name, streamed, steps, descent in (
+            ("ds2_small", 3, "gru_bwd[D=2]", False, TRAIN_STEPS,
+             DESCENT_STEPS),
+            ("ds2_streaming", 5, "gru_bwd[D=1]", False, TRAIN_STEPS,
+             DESCENT_STEPS),
+            ("ds2_full", 7, "gru_bwd_stream[D=2]", True, FULL_TRAIN_STEPS,
+             FULL_DESCENT_STEPS)):
+        counts = train_phase(preset, layers, streamed, steps, descent)
+        entries[name]["launches"] = counts["gru_bwd"]
+        for ctc_name, key in (("ctc_alpha", "ctc_alpha"),
+                              ("ctc_alpha[loss_only]", "loss_only"),
+                              ("ctc_beta", "ctc_beta")):
+            entries[ctc_name]["launches"] += counts[key]
     entries = [entries[n] for n in (
         "gru_fwd[D=2]", "gru_fwd[D=1]", "ctc_alpha", "ctc_alpha[loss_only]",
-        "ctc_beta", "gru_bwd[D=2]", "gru_bwd[D=1]")]
+        "ctc_beta", "gru_bwd[D=2]", "gru_bwd[D=1]", "gru_fwd_stream[D=2]",
+        "gru_bwd_stream[D=2]")]
     for e in entries:
         _require(e["launches"] > 0, f"{e['name']} never launched")
     print(json.dumps({"kernels": entries, "card": card}), flush=True)

@@ -9,7 +9,9 @@ time-major, ``[T, B, 3H]``, the layout the recurrence reads.
 
 The recurrence is ``ops/gru.py``'s ``GRUFunction``: one ``gru_fwd``
 call per layer, both directions in it, and one ``gru_bwd`` call in the
-backward, so gradients reach ``wx``, ``wh_*`` and ``bh_*``. ``gru_scan``
+backward, so gradients reach ``wx``, ``wh_*`` and ``bh_*``; each call
+launches one kernel, resident or streamed as ``ops/gru.py``'s
+``resident_fits`` decides (ds2_full's H=1760 streams). ``gru_scan``
 below is the plain oracle with the JAX package's signature; the tests
 hold it to the JAX ``gru_scan``, and no layer calls it.
 

@@ -24,8 +24,21 @@ layer, D x ceil(H/16) blocks each holding a ``[H, 48]`` column slice of
 W in shared memory, a grid-wide barrier between steps. See the sources
 for the layouts.
 
+Where W does not fit that way (ds2_full's H=1760: a 345 KB slice per
+block, 220 blocks at D=2 on 132 SMs), ``gru_fwd`` and ``gru_bwd`` launch
+the streamed kernels instead, ``gru_fwd_stream`` (``csrc/
+gru_fwd_stream.cu``, replacing ``_gru_kernel_blocked``, rnn_pallas.py:260,
+K8) and ``gru_bwd_stream`` (``csrc/gru_bwd_stream.cu``, replacing
+``_gru_bwd_kernel_blocked``, :312, K9), which stage W through shared
+memory from global memory every step. ``resident_fits`` makes the
+choice on the host before the launch, from the shapes and the card's
+SM count and shared memory, as the TPU package's ``_use_blocked`` and
+``bigru_fits_vmem`` make it from the VMEM budget (rnn_pallas.py:455,
+:709). Each kernel counts its own launches.
+
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. There is no fallback between the two.
+launches the kernel or raises. There is no fallback between the two,
+nor between the resident and the streamed kernel.
 """
 
 from __future__ import annotations
@@ -39,6 +52,65 @@ from . import _build
 from .precision import full_f32_matmul
 
 _DTYPES = (torch.bfloat16, torch.float32)
+
+# An H100 SXM's limits, the defaults of ``resident_fits``: SMs, the
+# shared memory one block may opt into, and the shared memory of one SM
+# (the runtime keeps 1 KB of it per resident block).
+H100_SMS = 132
+H100_SMEM_PER_BLOCK = 232448
+H100_SMEM_PER_SM = 233472
+_SMEM_RESERVED_PER_BLOCK = 1024
+# The resident kernels' tile (csrc/gru_fwd.cu, csrc/gru_bwd.cu): hidden
+# units per block, h_prev columns per chunk, batch rows per pass, threads.
+_U, _KC, _ROWS, _THREADS = 16, 64, 32, 256
+_MAX_THREADS_PER_SM = 2048
+
+
+def resident_smem_bytes(kind: str, h: int, b: int) -> int:
+    """Shared memory one block of the resident kernel takes: W's
+    ``[H, 48]`` slice and the staged h_prev chunk as f32 (whatever the
+    dot dtype), and for ``kind="bwd"`` the dgates tile and the carried
+    dh of the block's units for ``b`` batch rows."""
+    h_pad = -(-h // _KC) * _KC
+    floats = 3 * _U * (h_pad + 4) + _ROWS * (_KC + 4)
+    if kind == "bwd":
+        floats += _ROWS * (3 * _U + 4) + 2 * b * _U
+    elif kind != "fwd":
+        raise ValueError(f"kind must be 'fwd' or 'bwd', not {kind!r}")
+    return 4 * floats
+
+
+def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
+                  sms: int = H100_SMS,
+                  smem_per_block: int = H100_SMEM_PER_BLOCK,
+                  smem_per_sm: int = H100_SMEM_PER_SM) -> bool:
+    """Whether the resident kernel (``csrc/gru_fwd.cu`` for ``kind=
+    "fwd"``, ``csrc/gru_bwd.cu`` for ``"bwd"``) can run D directions of
+    H units at batch ``b`` on a card with these limits: its shared memory
+    per block within what a block may have, and its D * ceil(H/16)
+    blocks all resident at once, as the grid barrier needs. When not,
+    ``gru_fwd``/``gru_bwd`` launch the streamed kernel. The card's
+    values default to an H100's, so the rule runs without a card.
+
+    The Hopper counterpart of the TPU package's ``fits_vmem``,
+    ``_use_blocked`` and ``bigru_fits_vmem`` (rnn_pallas.py:66, :455,
+    :709). The resident kernels stage W as f32 whatever the dot dtype,
+    so ``dtype`` (bf16 or f32) does not move the answer today."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype must be bf16 or f32, not {dtype}")
+    smem = resident_smem_bytes(kind, h, b)
+    if smem > smem_per_block:
+        return False
+    per_sm = min(smem_per_sm // (smem + _SMEM_RESERVED_PER_BLOCK),
+                 _MAX_THREADS_PER_SM // _THREADS)
+    return d * -(-h // _U) <= sms * per_sm
+
+
+def _card(device: torch.device) -> Tuple[int, int, int]:
+    """``(sms, smem_per_block, smem_per_sm)`` of a CUDA device."""
+    p = torch.cuda.get_device_properties(device)
+    return (p.multi_processor_count, p.shared_memory_per_block_optin,
+            p.shared_memory_per_multiprocessor)
 
 
 def _check(xp, mask, w, b, h0, reverse) -> None:
@@ -102,15 +174,50 @@ def gru_fwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     return ys, hfin
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("gru_fwd")
+def _lib(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` loaded, with its C functions typed: the forward
+    kernels share one signature, the backward kernels another."""
+    lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gru_fwd_launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                   p]
-    lib.gru_fwd_launch.restype = i
-    lib.gru_fwd_error_string.argtypes = [i]
-    lib.gru_fwd_error_string.restype = ctypes.c_char_p
+    launch = getattr(lib, f"{name}_launch")
+    if name.startswith("gru_bwd"):
+        launch.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        scratch = getattr(lib, f"{name}_scratch_floats")
+        scratch.argtypes = [i, i, i]
+        scratch.restype = ctypes.c_longlong
+    else:
+        launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    launch.restype = i
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [i]
+    err.restype = ctypes.c_char_p
     return lib
+
+
+def _require_cuda(xp: torch.Tensor, name: str) -> None:
+    if xp.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {xp.device}")
+
+
+def _launch(name: str, xp: torch.Tensor, mask: torch.Tensor,
+            w: torch.Tensor, tensors: Sequence[Optional[torch.Tensor]],
+            reverse: Tuple[bool, ...]) -> None:
+    """Launch ``csrc/<name>.cu`` on PyTorch's current stream, or raise if
+    the launch is refused. ``tensors`` are the pointer arguments after
+    ``w`` in the C order (None for a null pointer)."""
+    lib = _lib(name)
+    t, bsz, _ = xp.shape
+    d, h = w.shape[0], w.shape[1]
+    rc = getattr(lib, f"{name}_launch")(
+        int(w.dtype == torch.bfloat16), xp.data_ptr(), mask.data_ptr(),
+        w.data_ptr(), *(None if x is None else x.data_ptr() for x in tensors),
+        d, t, bsz, h, sum(1 << i for i, r in enumerate(reverse) if r),
+        xp.device.index, torch.cuda.current_stream(xp.device).cuda_stream)
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(
+            f"{name} kernel launch failed (D={d}, T={t}, B={bsz}, H={h}, "
+            f"w {w.dtype}): {msg} [cudaError {rc}]")
 
 
 def gru_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
@@ -130,40 +237,63 @@ def gru_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     ``h' = (1-z) n + z h``. The product rounds h_prev to ``w.dtype`` and
     sums in f32; the carry and outputs stay f32.
 
-    A CPU tensor runs ``gru_fwd_plain``; a CUDA tensor launches
-    ``csrc/gru_fwd.cu`` (one launch, counted in ``gru_fwd.launches``)
-    or raises.
+    A CPU tensor runs ``gru_fwd_plain``. A CUDA tensor launches the
+    resident kernel ``csrc/gru_fwd.cu`` (one launch, counted in
+    ``gru_fwd.launches``) where ``resident_fits`` says it can hold W,
+    and ``gru_fwd_stream`` otherwise; a refused launch raises.
     """
     reverse = tuple(bool(r) for r in reverse)
     _check(xp, mask, w, b, h0, reverse)
     if xp.device.type == "cpu":
         return gru_fwd_plain(xp, mask, w, b, h0, reverse)
-    if xp.device.type != "cuda":
-        raise ValueError(f"gru_fwd runs on cpu or cuda, not {xp.device}")
-    t, bsz, _ = xp.shape
-    d, h = w.shape[0], w.shape[1]
-    ys = torch.empty((d, t, bsz, h), dtype=torch.float32, device=xp.device)
-    hfin = torch.empty((d, bsz, h), dtype=torch.float32, device=xp.device)
-    if t == 0 or bsz == 0:
-        hfin.copy_(h0 if h0 is not None else torch.zeros_like(hfin))
-        return ys, hfin
-    lib = _lib()
-    rc = lib.gru_fwd_launch(
-        int(w.dtype == torch.bfloat16), xp.data_ptr(), mask.data_ptr(), w.data_ptr(), b.data_ptr(),
-        None if h0 is None else h0.data_ptr(), ys.data_ptr(),
-        hfin.data_ptr(), d, t, bsz, h,
-        sum(1 << i for i, r in enumerate(reverse) if r), xp.device.index,
-        torch.cuda.current_stream(xp.device).cuda_stream)
-    if rc != 0:
-        msg = lib.gru_fwd_error_string(rc).decode()
-        raise RuntimeError(
-            f"gru_fwd kernel launch failed (D={d}, T={t}, B={bsz}, H={h}, "
-            f"w {w.dtype}): {msg} [cudaError {rc}]")
-    gru_fwd.launches += 1
+    _require_cuda(xp, "gru_fwd")
+    if not resident_fits("fwd", w.shape[0], w.shape[1], xp.shape[1],
+                         w.dtype, *_card(xp.device)):
+        return gru_fwd_stream(xp, mask, w, b, h0, reverse)
+    ys, hfin = _fwd_outputs(xp, w, h0)
+    if ys.numel():
+        _launch("gru_fwd", xp, mask, w, (b, h0, ys, hfin), reverse)
+        gru_fwd.launches += 1
     return ys, hfin
 
 
 gru_fwd.launches = 0
+
+
+def _fwd_outputs(xp, w, h0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Empty ``ys [D,T,B,H]`` and ``hfin [D,B,H]`` f32 on xp's device;
+    with no step or no row to run, ``hfin`` is already the carry in."""
+    t, bsz, _ = xp.shape
+    d, h = w.shape[0], w.shape[1]
+    ys = torch.empty((d, t, bsz, h), dtype=torch.float32, device=xp.device)
+    hfin = torch.empty((d, bsz, h), dtype=torch.float32, device=xp.device)
+    if not ys.numel():
+        hfin.copy_(h0 if h0 is not None else torch.zeros_like(hfin))
+    return ys, hfin
+
+
+def gru_fwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                   reverse: Sequence[bool] = (False,)
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gru_fwd`` through the streamed kernel ``csrc/gru_fwd_stream.cu``
+    (K8), whatever the sizes: W stays in global memory and crosses L2
+    once a step. The same contract and arithmetic as ``gru_fwd``. A CPU
+    tensor runs ``gru_fwd_plain``; a CUDA tensor launches the kernel (one
+    launch, counted in ``gru_fwd_stream.launches``) or raises."""
+    reverse = tuple(bool(r) for r in reverse)
+    _check(xp, mask, w, b, h0, reverse)
+    if xp.device.type == "cpu":
+        return gru_fwd_plain(xp, mask, w, b, h0, reverse)
+    _require_cuda(xp, "gru_fwd_stream")
+    ys, hfin = _fwd_outputs(xp, w, h0)
+    if ys.numel():
+        _launch("gru_fwd_stream", xp, mask, w, (b, h0, ys, hfin), reverse)
+        gru_fwd_stream.launches += 1
+    return ys, hfin
+
+
+gru_fwd_stream.launches = 0
 
 
 def gru_bwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
@@ -210,17 +340,30 @@ def gru_bwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     return dxp, dgates
 
 
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load("gru_bwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gru_bwd_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                   i, i, p]
-    lib.gru_bwd_launch.restype = i
-    lib.gru_bwd_scratch_floats.argtypes = [i, i, i]
-    lib.gru_bwd_scratch_floats.restype = ctypes.c_longlong
-    lib.gru_bwd_error_string.argtypes = [i]
-    lib.gru_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+def _check_bwd(xp, mask, w, b, ys, dy, reverse) -> None:
+    _check(xp, mask, w, b, None, reverse)
+    d, t, bsz, h = w.shape[0], xp.shape[0], xp.shape[1], w.shape[1]
+    for name, x in (("ys", ys), ("dy", dy)):
+        if (tuple(x.shape) != (d, t, bsz, h) or x.dtype != torch.float32
+                or x.device != xp.device or not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous f32 "
+                             f"{[d, t, bsz, h]} on {xp.device}; got "
+                             f"{x.dtype} {list(x.shape)} on {x.device}")
+
+
+def _bwd_launch(name, xp, mask, w, b, ys, dy, reverse):
+    """Allocate ``dxp``/``dgates`` and ``csrc/<name>.cu``'s scratch and
+    launch it; returns ``(dxp, dgates, launched)``."""
+    d, t, bsz, h = w.shape[0], xp.shape[0], xp.shape[1], w.shape[1]
+    dxp = torch.empty((d, t, bsz, 3 * h), dtype=torch.float32,
+                      device=xp.device)
+    dgates = torch.empty_like(dxp)
+    if not dxp.numel():
+        return dxp, dgates, False
+    floats = getattr(_lib(name), f"{name}_scratch_floats")(d, bsz, h)
+    scratch = torch.empty((floats,), dtype=torch.float32, device=xp.device)
+    _launch(name, xp, mask, w, (b, ys, dy, dxp, dgates, scratch), reverse)
+    return dxp, dgates, True
 
 
 def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
@@ -239,47 +382,51 @@ def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     projection ``(da_r, da_z, da_n)``, ``dgates`` that of the recurrent
     gates ``h W + b``, ``(da_r, da_z, dg_n)``.
 
-    A CPU tensor runs ``gru_bwd_plain``; a CUDA tensor launches
-    ``csrc/gru_bwd.cu`` (one launch, counted in ``gru_bwd.launches``)
-    or raises.
+    A CPU tensor runs ``gru_bwd_plain``. A CUDA tensor launches the
+    resident kernel ``csrc/gru_bwd.cu`` (one launch, counted in
+    ``gru_bwd.launches``) where ``resident_fits`` says it can hold W,
+    and ``gru_bwd_stream`` otherwise; a refused launch raises.
     """
     reverse = tuple(bool(r) for r in reverse)
-    _check(xp, mask, w, b, None, reverse)
-    d, t, bsz, h = w.shape[0], xp.shape[0], xp.shape[1], w.shape[1]
-    for name, x in (("ys", ys), ("dy", dy)):
-        if (tuple(x.shape) != (d, t, bsz, h) or x.dtype != torch.float32
-                or x.device != xp.device or not x.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous f32 "
-                             f"{[d, t, bsz, h]} on {xp.device}; got "
-                             f"{x.dtype} {list(x.shape)} on {x.device}")
+    _check_bwd(xp, mask, w, b, ys, dy, reverse)
     if xp.device.type == "cpu":
         return gru_bwd_plain(xp, mask, w, b, ys, dy, reverse)
-    if xp.device.type != "cuda":
-        raise ValueError(f"gru_bwd runs on cpu or cuda, not {xp.device}")
-    dxp = torch.empty((d, t, bsz, 3 * h), dtype=torch.float32,
-                      device=xp.device)
-    dgates = torch.empty_like(dxp)
-    if t == 0 or bsz == 0:
-        return dxp, dgates
-    lib = _bwd_lib()
-    partial = torch.empty((lib.gru_bwd_scratch_floats(d, bsz, h),),
-                          dtype=torch.float32, device=xp.device)
-    rc = lib.gru_bwd_launch(
-        int(w.dtype == torch.bfloat16), xp.data_ptr(), mask.data_ptr(),
-        w.data_ptr(), b.data_ptr(), ys.data_ptr(), dy.data_ptr(),
-        dxp.data_ptr(), dgates.data_ptr(), partial.data_ptr(), d, t, bsz, h,
-        sum(1 << i for i, r in enumerate(reverse) if r), xp.device.index,
-        torch.cuda.current_stream(xp.device).cuda_stream)
-    if rc != 0:
-        msg = lib.gru_bwd_error_string(rc).decode()
-        raise RuntimeError(
-            f"gru_bwd kernel launch failed (D={d}, T={t}, B={bsz}, H={h}, "
-            f"w {w.dtype}): {msg} [cudaError {rc}]")
-    gru_bwd.launches += 1
+    _require_cuda(xp, "gru_bwd")
+    if not resident_fits("bwd", w.shape[0], w.shape[1], xp.shape[1],
+                         w.dtype, *_card(xp.device)):
+        return gru_bwd_stream(xp, mask, w, b, ys, dy, reverse)
+    dxp, dgates, launched = _bwd_launch("gru_bwd", xp, mask, w, b, ys, dy,
+                                        reverse)
+    gru_bwd.launches += launched
     return dxp, dgates
 
 
 gru_bwd.launches = 0
+
+
+def gru_bwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor, ys: torch.Tensor, dy: torch.Tensor,
+                   reverse: Sequence[bool] = (False,)
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gru_bwd`` through the streamed kernel ``csrc/gru_bwd_stream.cu``
+    (K9), whatever the sizes: a column phase and a row phase a step,
+    each streaming W from global memory, the dgates @ W^T reduction by
+    the owner of each hidden unit (see the source). The same contract
+    and arithmetic as ``gru_bwd``. A CPU tensor runs ``gru_bwd_plain``;
+    a CUDA tensor launches the kernel (one launch, counted in
+    ``gru_bwd_stream.launches``) or raises."""
+    reverse = tuple(bool(r) for r in reverse)
+    _check_bwd(xp, mask, w, b, ys, dy, reverse)
+    if xp.device.type == "cpu":
+        return gru_bwd_plain(xp, mask, w, b, ys, dy, reverse)
+    _require_cuda(xp, "gru_bwd_stream")
+    dxp, dgates, launched = _bwd_launch("gru_bwd_stream", xp, mask, w, b,
+                                        ys, dy, reverse)
+    gru_bwd_stream.launches += launched
+    return dxp, dgates
+
+
+gru_bwd_stream.launches = 0
 
 
 def _h_prev(ys: torch.Tensor, reverse: Tuple[bool, ...]) -> torch.Tensor:

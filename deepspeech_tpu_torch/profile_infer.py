@@ -25,7 +25,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-_PORT_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "ctc_alpha_kernel",
+_PORT_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_fwd_stream_kernel",
+                 "gru_bwd_stream_kernel", "ctc_alpha_kernel",
                  "ctc_beta_kernel")
 
 
