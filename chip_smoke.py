@@ -21,6 +21,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    - ``gru_fwd_stream`` and ``gru_bwd_stream`` (W streamed every step)
      at ds2_full's B=32, T'=850, H=1760 (library: cuDNN's GRU at
      H=1760, forward and backward timed apart);
+   - ``gru_fwd_q`` (int8 W resident) at ds2_full's H=1760, D=2 and at
+     H=800, D=1 with h0, and ``gru_fwd_q_stream`` (int8 W streamed) at
+     H=1760 (library: cuDNN's GRU in bf16 on the dequantized W);
    each GRU kernel at D=2 and D=1 (the forward with h0), bf16 and f32,
    and at one ragged shape off its tiles, each checked to have run the
    kernel meant (resident or streamed) by the launch counts;
@@ -33,6 +36,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    lengths and a full (32, 1700) rung; counts the launches and holds the
    RNN stack's output against the same forward with the plain GRU,
    beside a mis-directed GRU that the check must reject;
+   int8 path phases: the same through ``Inferencer(quantize="int8")``
+   on ds2_full (7 ``gru_fwd_q`` per forward, regime "resident-q"), on
+   ds2_full with ``resident_fits`` patched in this script to refuse the
+   int8 kernel (7 ``gru_fwd_q_stream``, "blocked-q"), ds2_small (3) and
+   ds2_streaming (5); then, for information, the int8 engine against
+   the bf16 one on ds2_full (log-probs, transcripts, bytes, peak device
+   memory);
 5. training path phases: ``Trainer`` steps at the full width of
    ds2_small, ds2_streaming and ds2_full on a (32, 1700) batch of
    ragged lengths; counts the launches per step (one GRU forward and
@@ -51,6 +61,8 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import functools
+import gc
 import json
 import math
 import subprocess
@@ -103,6 +115,8 @@ K6 = "deepspeech_tpu/ops/rnn_pallas.py:85"    # _gru_kernel
 K7 = "deepspeech_tpu/ops/rnn_pallas.py:113"   # _gru_bwd_kernel
 K8 = "deepspeech_tpu/ops/rnn_pallas.py:260"   # _gru_kernel_blocked
 K9 = "deepspeech_tpu/ops/rnn_pallas.py:312"   # _gru_bwd_kernel_blocked
+K10 = "deepspeech_tpu/ops/rnn_pallas.py:581"  # _gru_kernel_q
+K11 = "deepspeech_tpu/ops/rnn_pallas.py:282"  # _gru_kernel_blocked_q
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -139,16 +153,35 @@ def _gru_inputs(d: int, dtype: torch.dtype, with_h0: bool, gen,
     return (xp, mask.contiguous(), w, bias, h0, reverse), int(lens.sum())
 
 
+def _quantize_w(w):
+    """``w [D,H,3H]`` -> int8 ``q`` and f32 ``scale [D,3H]``, absmax per
+    output column, as utils/quantize.py quantizes ``wh_*``."""
+    scale = w.float().abs().amax(1) / 127.0
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(w.float() / scale[:, None]), -127, 127)
+    return q.to(torch.int8).contiguous(), scale.contiguous()
+
+
+def _gru_q_inputs(d: int, dtype: torch.dtype, with_h0: bool, gen,
+                  t: int = T, b: int = B, h: int = H):
+    """``_gru_inputs`` with W as int8 and per-column scales:
+    ``(xp, mask, q, scale, bias, h0, reverse)``."""
+    (xp, mask, w, bias, h0, reverse), valid = _gru_inputs(
+        d, torch.float32, with_h0, gen, t, b, h)
+    return (xp.to(dtype), mask, *_quantize_w(w), bias, h0, reverse), valid
+
+
 def _bound(args, valid_rows: int):
-    """Least time for gru_fwd on these inputs, at their own shape: the
-    larger of its product FLOPs on valid frames over the peak for the
-    dot dtype, and each input read once plus each output written once
-    over HBM bandwidth."""
-    xp, mask, w, b, h0, _ = args
-    (t, bsz, _), (d, h) = xp.shape, w.shape[:2]
-    peak = PEAK_BF16_FLOPS if w.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    """Least time for gru_fwd (``args`` = xp, mask, w, b, h0, reverse)
+    or gru_fwd_q (xp, mask, q, scale, b, h0, reverse) on these inputs,
+    at their own shape: the larger of its product FLOPs on valid frames
+    over the peak for the dot dtype, and each input read once plus each
+    output written once over HBM bandwidth."""
+    xp, mask, *weights, h0, _ = args
+    (t, bsz, _), (d, h) = xp.shape, weights[0].shape[:2]
+    peak = PEAK_BF16_FLOPS if xp.dtype == torch.bfloat16 else PEAK_F32_FLOPS
     ys_hfin = (d * t * bsz * h + d * bsz * h) * 4
-    return _roofline(_nbytes(xp, mask, w, b, h0) + ys_hfin,
+    return _roofline(_nbytes(xp, mask, *weights, h0) + ys_hfin,
                      2.0 * valid_rows * d * h * 3 * h, peak)
 
 
@@ -176,30 +209,36 @@ def _nbytes(*tensors) -> int:
                if t is not None)
 
 
-def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed):
+def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed, d1_h=None):
     """Hold ``ops.gru.<kernel>`` (``gru_fwd``, which launches the
-    resident kernel at these sizes, or ``gru_fwd_stream``) against
-    ``gru_fwd_plain`` at T'=850, B=32 and width ``h``, D=2 and D=1 with
-    h0, bf16 and f32, and at one ragged shape off the kernels' tiles (H
-    not a multiple of 16 or 64, B above one 32-row pass); two runs must
-    give the same bits. Then time it for each ``(d, replaces)`` of
-    ``timed``, with its bound, its plain version and cuDNN's GRU."""
+    resident kernel at these sizes, or ``gru_fwd_stream``; with int8 W
+    ``gru_fwd_q``, resident at these sizes, or ``gru_fwd_q_stream``)
+    against its plain version at T'=850, B=32 and width ``h`` (D=1:
+    ``d1_h``, default ``h``), D=2 and D=1 with h0, bf16 and f32, and at
+    one ragged shape off the kernels' tiles (H not a multiple of 16 or
+    64, B above one 32-row pass); two runs must give the same bits. Then
+    time it for each ``(d, replaces)`` of ``timed``, with its bound, its
+    plain version and cuDNN's GRU (for int8 W, on the dequantized W)."""
     from deepspeech_tpu_torch.ops import gru
 
     fn = getattr(gru, kernel)
+    quantized = kernel.startswith("gru_fwd_q")
+    make = _gru_q_inputs if quantized else _gru_inputs
+    plain = gru.gru_fwd_q_plain if quantized else gru.gru_fwd_plain
+    d1_h = d1_h or h
     _zero_counts()
     checks = {}
     for name, d, dtype, with_h0, shape in (
             ("D2_bf16", 2, torch.bfloat16, False, (T, B, h)),
             ("D2_f32", 2, torch.float32, False, (T, B, h)),
-            ("D1_bf16_h0", 1, torch.bfloat16, True, (T, B, h)),
-            ("D1_f32_h0", 1, torch.float32, True, (T, B, h)),
+            ("D1_bf16_h0", 1, torch.bfloat16, True, (T, B, d1_h)),
+            ("D1_f32_h0", 1, torch.float32, True, (T, B, d1_h)),
             ("D2_bf16_ragged", 2, torch.bfloat16, True, (37, 45, 100))):
-        args, valid = _gru_inputs(d, dtype, with_h0, gen, *shape)
+        args, valid = make(d, dtype, with_h0, gen, *shape)
         ys, hfin = fn(*args)
         ys2, hfin2 = fn(*args)
         torch.cuda.synchronize()
-        ys_p, hfin_p = gru.gru_fwd_plain(*args)
+        ys_p, hfin_p = plain(*args)
         err = max(float((ys - ys_p).abs().max()),
                   float((hfin - hfin_p).abs().max()))
         _require(bool(torch.isfinite(ys).all()), f"{name}: non-finite ys")
@@ -218,11 +257,21 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed):
     entries = []
     for d, replaces in timed:
         check = "D2_bf16" if d == 2 else "D1_bf16_h0"
-        args, valid = _gru_inputs(d, torch.bfloat16, False, gen, T, B, h)
+        args, valid = make(d, torch.bfloat16, False, gen, T, B, h)
         ms = _time_ms(lambda: fn(*args), reps=5)
-        plain_ms = _time_ms(lambda: gru.gru_fwd_plain(*args), reps=1)
-        cudnn = torch.nn.GRU(h, h, bidirectional=d == 2).to(
-            "cuda", torch.bfloat16)
+        plain_ms = _time_ms(lambda: plain(*args), reps=1)
+        cudnn = torch.nn.GRU(h, h, bidirectional=d == 2)
+        if quantized:
+            # No PyTorch call computes an int8-weight GRU: the yardstick
+            # is cuDNN's bf16 GRU on the dequantized W (gate order r, z,
+            # n in both; cuDNN holds W^T per direction), set before the
+            # move so that cuDNN packs it with the rest.
+            q, scale = args[2], args[3]
+            with torch.no_grad():
+                for di, sfx in enumerate(("", "_reverse")[:d]):
+                    getattr(cudnn, f"weight_hh_l0{sfx}").copy_(
+                        (q[di].float() * scale[di]).t().cpu())
+        cudnn = cudnn.to("cuda", torch.bfloat16)
         cudnn.flatten_parameters()
         x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
             torch.bfloat16)
@@ -236,11 +285,14 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed):
                         for i, a in enumerate(args))
         ms_b1 = _time_ms(lambda: fn(*args_b1), reps=5)
         extra = {}
-        if kernel.endswith("_stream"):
-            # The streamed kernel where the resident one runs (H=800):
-            # what the residency rule saves there.
-            args_h, _ = _gru_inputs(d, torch.bfloat16, False, gen)
+        if kernel.endswith("_stream") or quantized:
+            # At H=800, where the resident kernel runs: for a streamed
+            # kernel what the residency rule saves there; for the int8
+            # kernels their time beside the bf16 resident kernel's.
+            args_h, _ = make(d, torch.bfloat16, False, gen)
             extra["ms_at_h800"] = _time_ms(lambda: fn(*args_h), reps=3)
+        if quantized:
+            extra["library"] = "cuDNN GRU, bf16, dequantized W"
         entries.append({
             "name": f"{kernel}[D={d}]", "route": "cuda",
             "source": f"deepspeech_tpu_torch/csrc/{kernel}.cu",
@@ -250,6 +302,7 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed):
             "bound_by": bound_by, "library_ms": library_ms,
             "ms_at_b1": ms_b1, **extra,
             "shape": {"D": d, "T": T, "B": B, "H": h, "dtype": "bfloat16",
+                      "w_dtype": "int8" if quantized else "bfloat16",
                       "valid_rows": valid},
             "checks": {k: v for k, v in checks.items()
                        if k.startswith(f"D{d}_")}})
@@ -499,22 +552,43 @@ def _forward(inf, sub):
     return lp, lens, out["rnn"].float()
 
 
-def path_phase(preset: str, layers_per_forward: int, kernel: str):
+@functools.lru_cache(maxsize=1)
+def _weights(preset: str):
+    """The seeded random init of ``preset`` (flax layout, numpy)."""
+    from deepspeech_tpu_torch.bridge import init_params
+    from deepspeech_tpu_torch.config import get_config
+
+    return init_params(get_config(preset),
+                       torch.Generator().manual_seed(SEED))
+
+
+def _refusing_fwd_q(real):
+    """``resident_fits`` that refuses the resident int8 kernel: patched
+    in for one phase, it sends the int8 layers to the streamed kernel."""
+    return lambda kind, *a, **kw: kind != "fwd_q" and real(kind, *a, **kw)
+
+
+def path_phase(preset: str, layers_per_forward: int, kernel: str,
+               quantize: str = ""):
     """Greedy inference on ``preset`` through
     ``Inferencer.decode_batch_bucketed``; ``kernel`` is the GRU forward
     kernel its layers must run, one launch per layer per forward (both
-    directions in it): ``gru_fwd`` (resident) or ``gru_fwd_stream``."""
-    from deepspeech_tpu_torch.bridge import init_params
+    directions in it): ``gru_fwd`` (resident) or ``gru_fwd_stream``, or
+    with ``quantize="int8"`` ``gru_fwd_q`` or ``gru_fwd_q_stream``. For
+    the last the caller patches ``resident_fits``."""
     from deepspeech_tpu_torch.config import get_config
     from deepspeech_tpu_torch.data import CharTokenizer, plan_infer_buckets
     from deepspeech_tpu_torch.data.infer_bucket import slice_to_plan
     from deepspeech_tpu_torch.infer import Inferencer
-    from deepspeech_tpu_torch.ops.gru import gru_fwd, gru_fwd_plain
+    from deepspeech_tpu_torch.ops import gru
 
     cfg = get_config(preset)
-    params, stats = init_params(cfg, torch.Generator().manual_seed(SEED))
+    params, stats = _weights(preset)
     tok = CharTokenizer.english()
-    inf = Inferencer(cfg, tok, params, stats)
+    inf = Inferencer(cfg, tok, params, stats, quantize=quantize)
+    regime = {"gru_fwd_q": "resident-q", "gru_fwd_q_stream": "blocked-q"}
+    _require(inf.kernel_regime == regime.get(kernel, "fp"),
+             f"{preset}: kernel_regime {inf.kernel_regime!r} for {kernel}")
     rng = np.random.default_rng(SEED)
     batch = _request(cfg, 12, rng)
     plans = plan_infer_buckets(batch["feat_lens"], cfg.data.bucket_frames,
@@ -540,9 +614,12 @@ def path_phase(preset: str, layers_per_forward: int, kernel: str):
     # GRU whose first direction runs the wrong way through time, which
     # the check must reject. (Swapping both directions of a BiGRU would
     # not do: the sum of two random directions is nearly symmetric.)
-    def misdirected(xp, mask, w, b, h0, reverse):
-        return gru_fwd(xp, mask, w, b, h0,
-                       [not reverse[0], *reverse[1:]])
+    wrapper = "gru_fwd_q" if quantize else "gru_fwd"
+    real = getattr(gru, wrapper)
+
+    def misdirected(*args):
+        *rest, reverse = args
+        return real(*rest, [not reverse[0], *reverse[1:]])
 
     # The real wrapper counts through its module's name, which the
     # patch points here.
@@ -550,12 +627,11 @@ def path_phase(preset: str, layers_per_forward: int, kernel: str):
 
     sub = slice_to_plan(batch, plans[-1])
     lp, lens, rnn = _forward(inf, sub)
-    with mock.patch("deepspeech_tpu_torch.ops.gru.gru_fwd",
-                    gru_fwd_plain):
+    with mock.patch.object(gru, wrapper, getattr(gru, wrapper + "_plain")):
         t1 = time.perf_counter()
         lp_p, lens_p, rnn_p = _forward(inf, sub)
         plain_s = time.perf_counter() - t1
-    with mock.patch("deepspeech_tpu_torch.ops.gru.gru_fwd", misdirected):
+    with mock.patch.object(gru, wrapper, misdirected):
         _, _, rnn_bad = _forward(inf, sub)
     t_out = -(-plans[-1].bucket_frames // cfg.model.time_stride)
     _require(tuple(lp.shape) == (plans[-1].batch_pad, t_out,
@@ -593,7 +669,9 @@ def path_phase(preset: str, layers_per_forward: int, kernel: str):
     inf.decode_batch(full)
     torch.cuda.synchronize()
     full_s = time.perf_counter() - t2
-    result = {"path": preset, "utts": 12, "forwards": len(plans),
+    result = {"path": preset, "quantize": quantize or None,
+              "kernel_regime": inf.kernel_regime,
+              "utts": 12, "forwards": len(plans),
               "rungs": [[p.batch_pad, p.bucket_frames] for p in plans],
               "seconds": seconds, "utt_per_s": 12 / seconds,
               "kernel": kernel, "launches": launches,
@@ -610,6 +688,61 @@ def path_phase(preset: str, layers_per_forward: int, kernel: str):
               "argmax_agreement": agree, "argmax_floor": ARGMAX_FLOOR}
     print(json.dumps(result), flush=True)
     return launches
+
+
+def quant_effect_phase(preset: str):
+    """For information, not a gate: what weight-only int8 quantization
+    itself does to ``preset`` on the same weights. The bf16 and the int8
+    engine in turn, each alone on the card: the bytes its model holds,
+    its peak device memory over a full (32, 1700) rung, its log-probs on
+    that rung and its transcripts of a mixed request."""
+    from deepspeech_tpu_torch.config import get_config
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.infer import Inferencer
+    from deepspeech_tpu_torch.metrics import cer
+
+    cfg = get_config(preset)
+    params, stats = _weights(preset)
+    rng = np.random.default_rng(SEED + 1)
+    batch = _request(cfg, 12, rng)
+    n, f = cfg.data.batch_size, cfg.features.num_features
+    full = _request(cfg, n, rng)
+    full["feat_lens"][:] = 1700
+    out = {}
+    for quantize in ("", "int8"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        inf = Inferencer(cfg, CharTokenizer.english(), params, stats,
+                         quantize=quantize)
+        held = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        lp, lens = inf.forward(full["features"][:, :1700], full["feat_lens"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        out[quantize or "bf16"] = {
+            "lp": lp.cpu(), "lens": lens.cpu(),
+            "texts": inf.decode_batch_bucketed(batch),
+            "model_device_bytes": held, "peak_device_bytes": peak,
+            "report": inf.quantize_report}
+        del inf, lp, lens
+    fp, q = out["bf16"], out["int8"]
+    valid = torch.arange(fp["lp"].shape[1])[None] < fp["lens"][:, None]
+    print(json.dumps({
+        "quant_effect": preset, "gate": False,
+        "quantize_report": q["report"],
+        "model_device_bytes": {k: v["model_device_bytes"]
+                               for k, v in out.items()},
+        "peak_device_bytes_full_rung": {k: v["peak_device_bytes"]
+                                        for k, v in out.items()},
+        "logprob_max_abs_diff": float((q["lp"] - fp["lp"]).abs()[valid]
+                                      .max()),
+        "argmax_agreement": float((q["lp"].argmax(-1) == fp["lp"]
+                                   .argmax(-1))[valid].float().mean()),
+        "transcripts_identical": sum(a == b for a, b in zip(q["texts"],
+                                                            fp["texts"])),
+        "transcripts": len(q["texts"]),
+        "cer_int8_vs_bf16": cer(fp["texts"], q["texts"])}), flush=True)
 
 
 class _FixedBatch:
@@ -687,6 +820,8 @@ def _counts():
     return {"gru_fwd": gru.gru_fwd.launches, "gru_bwd": gru.gru_bwd.launches,
             "gru_fwd_stream": gru.gru_fwd_stream.launches,
             "gru_bwd_stream": gru.gru_bwd_stream.launches,
+            "gru_fwd_q": gru.gru_fwd_q.launches,
+            "gru_fwd_q_stream": gru.gru_fwd_q_stream.launches,
             "ctc_alpha": ctc.ctc_alpha.launches
             - ctc.ctc_alpha.loss_only_launches,
             "loss_only": ctc.ctc_alpha.loss_only_launches,
@@ -698,6 +833,7 @@ def _zero_counts() -> None:
 
     gru.gru_fwd.launches = gru.gru_bwd.launches = 0
     gru.gru_fwd_stream.launches = gru.gru_bwd_stream.launches = 0
+    gru.gru_fwd_q.launches = gru.gru_fwd_q_stream.launches = 0
     ctc.ctc_alpha.launches = ctc.ctc_alpha.loss_only_launches = 0
     ctc.ctc_beta.launches = 0
 
@@ -860,6 +996,7 @@ def main() -> int:
           flush=True)
 
     from deepspeech_tpu_torch.config import get_config
+    from deepspeech_tpu_torch.ops import gru
 
     h_full = get_config("ds2_full").model.rnn_hidden
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -869,14 +1006,30 @@ def main() -> int:
               + gru_fwd_kernel_phase(gen, "gru_fwd_stream", h_full,
                                      [(2, K8)])
               + gru_bwd_kernel_phase(gen, "gru_bwd_stream", h_full,
-                                     [(2, K9)]))
+                                     [(2, K9)])
+              + gru_fwd_kernel_phase(gen, "gru_fwd_q", h_full, [(2, K10)],
+                                     d1_h=H)
+              + gru_fwd_kernel_phase(gen, "gru_fwd_q_stream", h_full,
+                                     [(2, K11)]))
     entries = {e["name"]: e for e in phases}
-    # Inference: one GRU forward launch per layer per forward.
+    # Inference: one GRU forward launch per layer per forward, bf16 and
+    # then int8 on the same weights. ds2_full int8 is this slice's main
+    # path (K10); with the resident int8 kernel refused it streams (K11).
     for preset, layers, name in (("ds2_small", 3, "gru_fwd[D=2]"),
                                  ("ds2_streaming", 5, "gru_fwd[D=1]"),
                                  ("ds2_full", 7, "gru_fwd_stream[D=2]")):
         entries[name]["launches"] = path_phase(
             preset, layers, name.split("[")[0])
+        q_launches = path_phase(preset, layers, "gru_fwd_q", "int8")
+        if preset != "ds2_full":
+            continue
+        entries["gru_fwd_q[D=2]"]["launches"] = q_launches
+        with mock.patch.object(gru, "resident_fits",
+                               _refusing_fwd_q(gru.resident_fits)):
+            entries["gru_fwd_q_stream[D=2]"]["launches"] = path_phase(
+                preset, layers, "gru_fwd_q_stream", "int8")
+        quant_effect_phase(preset)
+    _weights.cache_clear()
     # Training: one forward and one backward launch per layer per step.
     for preset, layers, name, streamed, steps, descent in (
             ("ds2_small", 3, "gru_bwd[D=2]", False, TRAIN_STEPS,
@@ -894,7 +1047,7 @@ def main() -> int:
     entries = [entries[n] for n in (
         "gru_fwd[D=2]", "gru_fwd[D=1]", "ctc_alpha", "ctc_alpha[loss_only]",
         "ctc_beta", "gru_bwd[D=2]", "gru_bwd[D=1]", "gru_fwd_stream[D=2]",
-        "gru_bwd_stream[D=2]")]
+        "gru_bwd_stream[D=2]", "gru_fwd_q[D=2]", "gru_fwd_q_stream[D=2]")]
     for e in entries:
         _require(e["launches"] > 0, f"{e['name']} never launched")
     print(json.dumps({"kernels": entries, "card": card}), flush=True)

@@ -7,6 +7,12 @@ lookahead ``w [ctx, C]``) and ``batch_stats`` (BN ``mean``/``var``).
 The port's module tree uses the same names, so the mapping is by name;
 the one change of layout is the conv kernel (HWIO <-> OIHW), and the
 round trip is exact.
+
+A quantized tree (``utils/quantize.py``'s ``quantize_params``) maps the
+same way: each ``{"q", "scale"}`` leaf becomes an int8 ``<leaf>.q`` and
+an f32 ``<leaf>.scale`` entry, which a model built with
+``quantized=True`` holds; a conv kernel's ``q`` turns to OIHW like its
+f32 kernel and keeps its scale per output channel.
 """
 
 from __future__ import annotations
@@ -23,8 +29,9 @@ from .models.ds2 import DeepSpeech2
 
 Tree = Dict[str, object]
 
-_CONV_KERNEL = re.compile(r"^conv\.conv\d+\.kernel$")
-_CONV_WEIGHT = re.compile(r"^conv\.conv\d+\.weight$")
+# A conv kernel, or the q / scale of a quantized one.
+_CONV_KERNEL = re.compile(r"^(conv\.conv\d+\.)kernel(\.q|\.scale)?$")
+_CONV_WEIGHT = re.compile(r"^(conv\.conv\d+\.)weight(\.q|\.scale)?$")
 _BN_STATS = ("mean", "var")
 
 
@@ -51,11 +58,15 @@ def _nest(flat: Dict[str, np.ndarray]) -> Tree:
 
 
 def from_flax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
-    """Flax ``params`` + ``batch_stats`` -> the port's ``state_dict``."""
+    """Flax ``params`` (plain or quantized) + ``batch_stats`` -> the
+    port's ``state_dict``."""
     sd = {}
     for key, v in _flatten(params).items():
-        if _CONV_KERNEL.match(key):
-            key, v = key[:-len("kernel")] + "weight", v.transpose(3, 2, 0, 1)
+        m = _CONV_KERNEL.match(key)
+        if m:
+            key = f"{m.group(1)}weight{m.group(2) or ''}"
+            if v.ndim == 4:
+                v = v.transpose(3, 2, 0, 1)
         sd[key] = torch.tensor(v)
     for key, v in _flatten(batch_stats).items():
         sd[key] = torch.tensor(v)
@@ -67,8 +78,11 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Tree, Tree]:
     params, stats = {}, {}
     for key, t in state_dict.items():
         v = t.detach().cpu().numpy()
-        if _CONV_WEIGHT.match(key):
-            key, v = key[:-len("weight")] + "kernel", v.transpose(2, 3, 1, 0)
+        m = _CONV_WEIGHT.match(key)
+        if m:
+            key = f"{m.group(1)}kernel{m.group(2) or ''}"
+            if v.ndim == 4:
+                v = v.transpose(2, 3, 1, 0)
         dest = stats if key.rsplit(".", 1)[-1] in _BN_STATS else params
         dest[key] = np.ascontiguousarray(v)
     return _nest(params), _nest(stats)

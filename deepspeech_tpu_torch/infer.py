@@ -8,15 +8,23 @@ LM fusion, streaming, sequence-parallel and transducer decoding,
 timestamps and restoring an orbax checkpoint raise
 ``NotImplementedError`` naming the slice of the port that brings them.
 
+``quantize="int8"`` serves weight-only int8 weights, as the JAX
+package's ``Inferencer(quantize="int8")`` does (infer.py:155-253): PTQ
+runs once at init (``utils/quantize.py``), the model holds the quantized
+leaves int8 on the device and its GRU layers run ``ops/gru.py``'s
+``gru_fwd_q``; ``kernel_regime`` names the kernel that holds W.
+
 CLI: ``python -m deepspeech_tpu_torch.infer --config=ds2_small
 --synthetic=N [--params=x.npz] [--seed=0] [--device=cpu]
-[--section.key=value ...]``. Without ``--params`` the weights are a
-random init from ``--seed`` (bridge.init_params).
+[--quantize-weights=int8] [--section.key=value ...]``. Without
+``--params`` the weights are a random init from ``--seed``
+(bridge.init_params).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -31,6 +39,16 @@ from .decode.greedy import greedy_decode, ids_to_texts
 from .device import resolve_device
 from .metrics import cer, wer
 from .models.ds2 import DeepSpeech2
+from .ops.gru import card_limits
+from .utils.quantize import (kernel_regime, quantization_error,
+                             quantize_params)
+
+_log = logging.getLogger(__name__)
+
+# The decode modes whose forward dequantizes the quantized tree
+# (infer.py:159-161); streaming runs its own PTQ (slice 3).
+_OFFLINE_MODES = ("greedy", "beam", "beam_fused", "beam_fused_device",
+                  "rnnt_greedy", "rnnt_beam")
 
 _LATER = {
     "beam": "slice 6 (beam search and LM)",
@@ -50,12 +68,23 @@ class Inferencer:
     ``params`` / ``batch_stats`` are flax-layout trees of numpy arrays
     (the JAX package's, or ``bridge.init_params`` / ``bridge.load_npz``).
     ``device`` None means the card (raises without CUDA); pass "cpu" to
-    run the plain versions on the CPU.
+    run the plain versions on the CPU. ``quantize="int8"`` quantizes
+    ``params`` once here (``quantize_calls``, ``quantize_report``) and
+    serves the int8 model; ``kernel_regime`` is "resident-q",
+    "blocked-q" or "fp".
     """
 
     def __init__(self, cfg: Config, tokenizer: CharTokenizer,
-                 params=None, batch_stats=None, device=None):
+                 params=None, batch_stats=None, device=None,
+                 quantize: str = ""):
         mode = cfg.decode.mode
+        if quantize and quantize != "int8":
+            raise ValueError(f"quantize={quantize!r}; only 'int8'")
+        if quantize and mode != "streaming" and mode not in _OFFLINE_MODES:
+            raise ValueError(
+                f"--quantize-weights is for the offline decode modes "
+                f"{_OFFLINE_MODES} and streaming; {mode!r} threads "
+                f"full-precision params")
         if mode != "greedy":
             if mode not in _LATER:
                 raise ValueError(f"unknown decode mode {mode!r}")
@@ -76,9 +105,26 @@ class Inferencer:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.device = resolve_device(device)
-        self.model = DeepSpeech2(cfg.model, cfg.features.num_features)
+        self.quantize_calls = 0
+        self.quantize_report = None
+        if quantize:
+            qtree, report = quantize_params(params)
+            _log.info(
+                "int8 weight-only PTQ: %d leaves quantized, %d kept, "
+                "%.1f MB -> %.1f MB, max rel err %.4f",
+                report["quantized"], report["kept"],
+                report["bytes_before"] / 1e6, report["bytes_after"] / 1e6,
+                quantization_error(params, qtree))
+            params = qtree
+            self.quantize_calls += 1
+            self.quantize_report = report
+        self.model = DeepSpeech2(cfg.model, cfg.features.num_features,
+                                 quantized=bool(quantize))
         self.model.load_state_dict(from_flax(params, batch_stats or {}))
         self.model.to(self.device).eval()
+        card = card_limits(self.device) if self.device.type == "cuda" else ()
+        self.kernel_regime = kernel_regime(cfg.model, bool(quantize),
+                                           card=card)
         self._last_nbest = None  # beam modes would stash [(text, score)]
         self._last_times = None  # timestamp mode would stash spans
 
@@ -177,6 +223,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None,
                         help="'cuda' (default) or 'cpu'")
+    parser.add_argument("--quantize-weights", default="",
+                        choices=["", "int8"],
+                        help="weight-only post-training quantization: "
+                             "int8 weights with per-output-channel scales, "
+                             "quantized once at engine init")
     args, extra = parser.parse_known_args(argv)
     cfg = apply_overrides(get_config(args.config),
                           parse_cli_overrides(extra))
@@ -191,7 +242,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         params, batch_stats = init_params(
             cfg, torch.Generator().manual_seed(args.seed))
     tokenizer = get_tokenizer(cfg.data.language, cfg.data.vocab_path)
-    inf = Inferencer(cfg, tokenizer, params, batch_stats, device=args.device)
+    inf = Inferencer(cfg, tokenizer, params, batch_stats, device=args.device,
+                     quantize=args.quantize_weights)
     pipe = SyntheticPipeline(cfg, args.synthetic)
     summary = inf.run(pipe.eval_epoch(), PrintLogger())
     print(json.dumps({"event": "done", **summary}))

@@ -17,7 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
-from .layers import MaskedBatchNorm, clipped_relu, length_mask
+from .layers import (MaskedBatchNorm, QWeight, clipped_relu, length_mask,
+                     weight)
 
 
 def conv_out_lens(feat_lens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -37,16 +38,22 @@ def conv_out_features(cfg: ModelConfig, num_features: int) -> int:
 
 class ConvFrontend(nn.Module):
     """Conv2d (OIHW weights ``conv{i}.weight``, no bias) -> masked BN
-    ``bn{i}`` -> clipped ReLU -> zero invalid frames, per layer."""
+    ``bn{i}`` -> clipped ReLU -> zero invalid frames, per layer.
+    ``quantized`` holds each ``conv{i}.weight`` as a ``QWeight``."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, quantized: bool = False):
         super().__init__()
         self.cfg = cfg
         c_in = 1
         for i, ((kt, kf, st, sf), ch) in enumerate(
                 zip(cfg.conv_layers, cfg.conv_channels)):
-            self.add_module(f"conv{i}", nn.Conv2d(
-                c_in, ch, (kt, kf), stride=(st, sf), bias=False))
+            if quantized:
+                conv = nn.Module()
+                conv.weight = QWeight((ch, c_in, kt, kf), axis=0)
+            else:
+                conv = nn.Conv2d(c_in, ch, (kt, kf), stride=(st, sf),
+                                 bias=False)
+            self.add_module(f"conv{i}", conv)
             self.add_module(f"bn{i}", MaskedBatchNorm(ch))
             c_in = ch
 
@@ -64,7 +71,8 @@ class ConvFrontend(nn.Module):
             pf = pf_total // 2
             # F.pad takes the last dim (frequency) first.
             x = F.pad(x, (pf, pf_total - pf, pt, kt - 1 - pt))
-            x = F.conv2d(x, conv.weight.to(dtype), stride=(st, sf))
+            x = F.conv2d(x, weight(conv.weight).to(dtype),
+                         stride=(st, sf))
             lens = -(-lens // st)
             mask = length_mask(lens, x.shape[2])
             # Masked BN is channel-last, as in the JAX package: [B,T,F,C].

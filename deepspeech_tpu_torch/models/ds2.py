@@ -22,20 +22,27 @@ from .rnn import RNNStack
 
 
 class DeepSpeech2(nn.Module):
-    def __init__(self, cfg: ModelConfig, num_features: int = 161):
+    """``quantized`` builds the weight-only int8 model that a quantized
+    tree (``utils/quantize.py``, through ``bridge.from_flax``) loads
+    into: conv, ``wx`` and head kernels and the recurrent matrices held
+    int8 with their scales; inference only."""
+
+    def __init__(self, cfg: ModelConfig, num_features: int = 161,
+                 quantized: bool = False):
         super().__init__()
         if cfg.pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline_stages > 1: the pipelined RNN stack comes with "
                 "slice 9 of the port")
         self.cfg = cfg
-        self.conv = ConvFrontend(cfg)
-        self.rnn = RNNStack(cfg, conv_out_features(cfg, num_features))
+        self.conv = ConvFrontend(cfg, quantized)
+        self.rnn = RNNStack(cfg, conv_out_features(cfg, num_features),
+                            quantized)
         if cfg.lookahead_context > 0:
             self.lookahead = LookaheadConv(cfg.lookahead_context,
                                            cfg.rnn_hidden)
         self.bn_out = MaskedBatchNorm(cfg.rnn_hidden)
-        self.head = Dense(cfg.rnn_hidden, cfg.vocab_size)
+        self.head = Dense(cfg.rnn_hidden, cfg.vocab_size, quantized)
 
     def forward(self, features: torch.Tensor, feat_lens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

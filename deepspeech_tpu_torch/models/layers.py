@@ -1,5 +1,6 @@
-"""Shared model layers: masked batch-norm, the DS2 clipped ReLU, and a
-Dense layer that computes in the model dtype.
+"""Shared model layers: masked batch-norm, the DS2 clipped ReLU, a
+Dense layer that computes in the model dtype, and the weight-only int8
+leaf ``QWeight`` of a quantized model.
 
 Batch-norm statistics are taken over valid frames only (mask-weighted)
 with the JAX package's running-stat convention: biased variance and
@@ -85,15 +86,46 @@ class MaskedBatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class QWeight(nn.Module):
+    """A weight-only int8 leaf, held on the device as it is stored: ``q``
+    int8 and ``scale`` f32, one per output channel on axis ``axis`` of
+    ``q`` (``utils/quantize.py``'s layout; a conv kernel's OIHW ``q``
+    keeps its scale on axis 0). ``dequantize()`` is ``q * scale`` in
+    f32, the JAX package's dequantization at the forward's entry
+    (infer.py:241-249)."""
+
+    def __init__(self, shape, axis: int = -1):
+        super().__init__()
+        self.axis = axis % len(shape)
+        self.register_buffer("q", torch.zeros(shape, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(shape[self.axis]))
+
+    def dequantize(self) -> torch.Tensor:
+        view = [1] * self.q.dim()
+        view[self.axis] = -1
+        return self.q.float() * self.scale.view(view)
+
+
+def weight(w) -> torch.Tensor:
+    """A weight as the forward uses it: a ``QWeight`` dequantized to f32,
+    a parameter as it is."""
+    return w.dequantize() if isinstance(w, QWeight) else w
+
+
 class Dense(nn.Module):
     """``x @ kernel + bias`` with input, kernel and bias cast to the
     compute dtype, as flax ``nn.Dense(dtype=...)`` computes. The kernel
-    keeps flax's ``[in, out]`` layout."""
+    keeps flax's ``[in, out]`` layout; ``quantized`` holds it as a
+    ``QWeight``."""
 
-    def __init__(self, features_in: int, features_out: int):
+    def __init__(self, features_in: int, features_out: int,
+                 quantized: bool = False):
         super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(features_in, features_out))
+        self.kernel = (QWeight((features_in, features_out)) if quantized
+                       else nn.Parameter(torch.zeros(features_in,
+                                                     features_out)))
         self.bias = nn.Parameter(torch.zeros(features_out))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return x.to(dtype) @ self.kernel.to(dtype) + self.bias.to(dtype)
+        return (x.to(dtype) @ weight(self.kernel).to(dtype)
+                + self.bias.to(dtype))

@@ -15,6 +15,12 @@ launches one kernel, resident or streamed as ``ops/gru.py``'s
 below is the plain oracle with the JAX package's signature; the tests
 hold it to the JAX ``gru_scan``, and no layer calls it.
 
+A quantized layer (``quantized=True``, inference only) holds ``wh_*``
+int8 with their per-column scales and calls ``ops/gru.py``'s
+``gru_fwd_q`` once per forward, both directions in it, as the JAX
+model sends int8 ``W_h`` into ``gru_scan_pallas_q`` (models/rnn.py:205);
+its ``wx`` kernel is int8 too, dequantized where it is used.
+
 Gate conventions (r, z, n):
   r = sigmoid(xp_r + h W_r + b_r)
   z = sigmoid(xp_z + h W_z + b_z)
@@ -30,8 +36,9 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops import gru as gru_ops
 from ..ops.gru import GRUFunction, gru_fwd_plain
-from .layers import Dense, MaskedBatchNorm, length_mask
+from .layers import Dense, MaskedBatchNorm, QWeight, length_mask
 
 
 def gru_scan(xproj: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor,
@@ -71,9 +78,11 @@ class RNNLayer(nn.Module):
 
     Parameters keep the JAX names and layouts: ``bn``, ``wx`` (Dense,
     kernel [in, 3H]), ``wh_fw``/``wh_bw`` [H, 3H], ``bh_fw``/``bh_bw`` [3H].
+    ``quantized`` holds ``wx.kernel`` and ``wh_*`` as ``QWeight``s.
     """
 
-    def __init__(self, cfg: ModelConfig, features_in: int):
+    def __init__(self, cfg: ModelConfig, features_in: int,
+                 quantized: bool = False):
         super().__init__()
         if cfg.rnn_type != "gru":
             raise NotImplementedError(
@@ -84,11 +93,12 @@ class RNNLayer(nn.Module):
         h = cfg.rnn_hidden
         if cfg.rnn_batch_norm:
             self.bn = MaskedBatchNorm(features_in)
-        self.wx = Dense(features_in, 3 * h)
+        self.quantized = quantized
+        self.wx = Dense(features_in, 3 * h, quantized)
         self.dirs = ["fw", "bw"] if cfg.bidirectional else ["fw"]
         for s in self.dirs:
-            self.register_parameter(f"wh_{s}",
-                                    nn.Parameter(torch.zeros(h, 3 * h)))
+            setattr(self, f"wh_{s}", QWeight((h, 3 * h)) if quantized
+                    else nn.Parameter(torch.zeros(h, 3 * h)))
             self.register_parameter(f"bh_{s}",
                                     nn.Parameter(torch.zeros(3 * h)))
 
@@ -102,20 +112,36 @@ class RNNLayer(nn.Module):
         mask_t = mask.t().contiguous()
         reverse = [s == "bw" for s in self.dirs]
         whs = [getattr(self, f"wh_{s}") for s in self.dirs]
-        bhs = [getattr(self, f"bh_{s}") for s in self.dirs]
-        ys = GRUFunction.apply(xp_t.contiguous(), mask_t, torch.stack(whs),
-                               torch.stack(bhs).float(), None, reverse)
+        bh = torch.stack([getattr(self, f"bh_{s}") for s in self.dirs])
+        if self.quantized:
+            if torch.is_grad_enabled() and (x.requires_grad or any(
+                    p.requires_grad for p in self.parameters())):
+                raise RuntimeError(
+                    "a quantized model is for inference only (the int8 GRU "
+                    "kernels have no backward, as gru_scan_pallas_q has no "
+                    "VJP): run it under torch.no_grad() or "
+                    "torch.inference_mode()")
+            ys, _ = gru_ops.gru_fwd_q(
+                xp_t.contiguous(), mask_t,
+                torch.stack([w.q for w in whs]),
+                torch.stack([w.scale for w in whs]), bh.float(), None,
+                reverse)
+        else:
+            ys = GRUFunction.apply(xp_t.contiguous(), mask_t,
+                                   torch.stack(whs), bh.float(), None,
+                                   reverse)
         out = ys.sum(0).transpose(0, 1)  # [B, T, H]
         out = out * mask[:, :, None]
         return out.to(dtype)
 
 
 class RNNStack(nn.Module):
-    def __init__(self, cfg: ModelConfig, features_in: int):
+    def __init__(self, cfg: ModelConfig, features_in: int,
+                 quantized: bool = False):
         super().__init__()
         for i in range(cfg.rnn_layers):
             self.add_module(f"rnn{i}", RNNLayer(
-                cfg, features_in if i == 0 else cfg.rnn_hidden))
+                cfg, features_in if i == 0 else cfg.rnn_hidden, quantized))
         self.n_layers = cfg.rnn_layers
 
     def forward(self, x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:

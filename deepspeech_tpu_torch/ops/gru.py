@@ -36,6 +36,16 @@ SM count and shared memory, as the TPU package's ``_use_blocked`` and
 ``bigru_fits_vmem`` make it from the VMEM budget (rnn_pallas.py:455,
 :709). Each kernel counts its own launches.
 
+``gru_fwd_q`` is the forward with weight-only int8 recurrent weights
+(``utils/quantize.py``'s layout: int8 ``Q [H,3H]`` and an f32 scale per
+output channel), for inference: ``(h @ Q) * scale + b``. It launches
+``csrc/gru_fwd_q.cu``, replacing ``_gru_kernel_q`` (:581, K10), which
+holds each block's ``[H, 48]`` slice of Q in shared memory as bytes:
+ds2_full's H=1760, streamed in bf16, is resident in int8. Where even
+the int8 slices do not fit, or when the caller forces it, it launches
+``gru_fwd_q_stream`` (``csrc/gru_fwd_q_stream.cu``, replacing
+``_gru_kernel_blocked_q``, :282, K11), K8 with s8 tiles.
+
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. There is no fallback between the two,
 nor between the resident and the streamed kernel.
@@ -70,13 +80,18 @@ def resident_smem_bytes(kind: str, h: int, b: int) -> int:
     """Shared memory one block of the resident kernel takes: W's
     ``[H, 48]`` slice and the staged h_prev chunk as f32 (whatever the
     dot dtype), and for ``kind="bwd"`` the dgates tile and the carried
-    dh of the block's units for ``b`` batch rows."""
+    dh of the block's units for ``b`` batch rows. For ``kind="fwd_q"``
+    (``csrc/gru_fwd_q.cu``) the slice is int8, 16 bytes of padding a
+    column, beside the chunk of it widened to f32 and the h_prev chunk."""
     h_pad = -(-h // _KC) * _KC
+    if kind == "fwd_q":
+        return 3 * _U * (h_pad + 16) + 4 * (3 * _U + _ROWS) * (_KC + 4)
     floats = 3 * _U * (h_pad + 4) + _ROWS * (_KC + 4)
     if kind == "bwd":
         floats += _ROWS * (3 * _U + 4) + 2 * b * _U
     elif kind != "fwd":
-        raise ValueError(f"kind must be 'fwd' or 'bwd', not {kind!r}")
+        raise ValueError(f"kind must be 'fwd', 'bwd' or 'fwd_q', not "
+                         f"{kind!r}")
     return 4 * floats
 
 
@@ -85,17 +100,20 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
                   smem_per_block: int = H100_SMEM_PER_BLOCK,
                   smem_per_sm: int = H100_SMEM_PER_SM) -> bool:
     """Whether the resident kernel (``csrc/gru_fwd.cu`` for ``kind=
-    "fwd"``, ``csrc/gru_bwd.cu`` for ``"bwd"``) can run D directions of
-    H units at batch ``b`` on a card with these limits: its shared memory
-    per block within what a block may have, and its D * ceil(H/16)
-    blocks all resident at once, as the grid barrier needs. When not,
-    ``gru_fwd``/``gru_bwd`` launch the streamed kernel. The card's
-    values default to an H100's, so the rule runs without a card.
+    "fwd"``, ``csrc/gru_bwd.cu`` for ``"bwd"``, ``csrc/gru_fwd_q.cu``
+    for ``"fwd_q"``) can run D directions of H units at batch ``b`` on a
+    card with these limits: its shared memory per block within what a
+    block may have, and its D * ceil(H/16) blocks all resident at once,
+    as the grid barrier needs. When not, ``gru_fwd``/``gru_bwd``/
+    ``gru_fwd_q`` launch the streamed kernel. The card's values default
+    to an H100's, so the rule runs without a card.
 
     The Hopper counterpart of the TPU package's ``fits_vmem``,
     ``_use_blocked`` and ``bigru_fits_vmem`` (rnn_pallas.py:66, :455,
-    :709). The resident kernels stage W as f32 whatever the dot dtype,
-    so ``dtype`` (bf16 or f32) does not move the answer today."""
+    :709). The resident kernels stage W as f32 (int8 for ``"fwd_q"``)
+    whatever the dot dtype, so ``dtype`` (bf16 or f32) does not move the
+    answer today. ds2_full (D=2, H=1760) misses for ``"fwd"`` and fits
+    for ``"fwd_q"``: 106 KB a block, two blocks an SM."""
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be bf16 or f32, not {dtype}")
     smem = resident_smem_bytes(kind, h, b)
@@ -106,14 +124,18 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
     return d * -(-h // _U) <= sms * per_sm
 
 
-def _card(device: torch.device) -> Tuple[int, int, int]:
-    """``(sms, smem_per_block, smem_per_sm)`` of a CUDA device."""
+def card_limits(device: torch.device) -> Tuple[int, int, int]:
+    """``(sms, smem_per_block, smem_per_sm)`` of a CUDA device, in the
+    order ``resident_fits`` takes them after its first five arguments."""
     p = torch.cuda.get_device_properties(device)
     return (p.multi_processor_count, p.shared_memory_per_block_optin,
             p.shared_memory_per_multiprocessor)
 
 
-def _check(xp, mask, w, b, h0, reverse) -> None:
+def _check(xp, mask, w, b, h0, reverse, scale=None) -> None:
+    """The forward kernels' argument rules; with ``scale`` (the int8
+    kernels) ``w`` is int8 and ``scale`` f32 ``[D,3H]``, else ``w`` has
+    xp's dtype."""
     if xp.dim() != 3 or w.dim() != 3:
         raise ValueError(f"xp must be [T,B,3H] and w [D,H,3H]; got "
                          f"{tuple(xp.shape)} and {tuple(w.shape)}")
@@ -124,24 +146,53 @@ def _check(xp, mask, w, b, h0, reverse) -> None:
                          f"on 3H")
     if len(reverse) != d:
         raise ValueError(f"reverse has {len(reverse)} flags for D={d}")
-    if xp.dtype not in _DTYPES or w.dtype != xp.dtype:
-        raise ValueError(f"xp and w must share one dtype, bf16 or f32; got "
+    w_dtype = xp.dtype if scale is None else torch.int8
+    if xp.dtype not in _DTYPES or w.dtype != w_dtype:
+        raise ValueError(f"xp must be bf16 or f32 and w {w_dtype}; got "
                          f"{xp.dtype}, {w.dtype}")
     want = {"mask": (mask, (t, bsz)), "b": (b, (d, 3 * h))}
     if h0 is not None:
         want["h0"] = (h0, (d, bsz, h))
+    if scale is not None:
+        want["scale"] = (scale, (d, 3 * h))
     for name, (x, shape) in want.items():
         if tuple(x.shape) != shape or x.dtype != torch.float32:
             raise ValueError(f"{name} must be f32 {list(shape)}; got "
                              f"{x.dtype} {list(x.shape)}")
     for name, x in (("xp", xp), ("mask", mask), ("w", w), ("b", b),
-                    ("h0", h0)):
+                    ("h0", h0), ("scale", scale)):
         if x is None:
             continue
         if x.device != xp.device:
             raise ValueError(f"{name} is on {x.device}, xp on {xp.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _fwd_plain_loop(xp, mask, h0, reverse, d: int, h: int, gates
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward recurrence as an eager time loop; ``gates(di, hc)``
+    gives direction ``di``'s recurrent gates ``[B,3H]`` f32 from the f32
+    carry."""
+    t, bsz, _ = xp.shape
+    ys = torch.empty((d, t, bsz, h), dtype=torch.float32, device=xp.device)
+    hfin = torch.empty((d, bsz, h), dtype=torch.float32, device=xp.device)
+    for di in range(d):
+        hc = (torch.zeros((bsz, h), dtype=torch.float32, device=xp.device)
+              if h0 is None else h0[di].float())
+        for s in range(t):
+            row = t - 1 - s if reverse[di] else s
+            g = gates(di, hc)
+            x = xp[row].float()
+            r = torch.sigmoid(x[:, :h] + g[:, :h])
+            z = torch.sigmoid(x[:, h:2 * h] + g[:, h:2 * h])
+            n = torch.tanh(x[:, 2 * h:] + r * g[:, 2 * h:])
+            hnew = (1.0 - z) * n + z * hc
+            m = mask[row][:, None]
+            hc = m * hnew + (1.0 - m) * hc
+            ys[di, row] = hc
+        hfin[di] = hc
+    return ys, hfin
 
 
 def gru_fwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
@@ -151,36 +202,39 @@ def gru_fwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     """The plain PyTorch version of ``gru_fwd``: an eager time loop with
     the same arithmetic (h_prev rounded to ``w.dtype`` for the product,
     the product and the carry in f32)."""
-    t, bsz, _ = xp.shape
-    d, h = w.shape[0], w.shape[1]
-    ys = torch.empty((d, t, bsz, h), dtype=torch.float32, device=xp.device)
-    hfin = torch.empty((d, bsz, h), dtype=torch.float32, device=xp.device)
-    for di in range(d):
-        w32 = w[di].float()
-        hc = (torch.zeros((bsz, h), dtype=torch.float32, device=xp.device)
-              if h0 is None else h0[di].float())
-        for s in range(t):
-            row = t - 1 - s if reverse[di] else s
-            gates = hc.to(w.dtype).float() @ w32 + b[di]
-            x = xp[row].float()
-            r = torch.sigmoid(x[:, :h] + gates[:, :h])
-            z = torch.sigmoid(x[:, h:2 * h] + gates[:, h:2 * h])
-            n = torch.tanh(x[:, 2 * h:] + r * gates[:, 2 * h:])
-            hnew = (1.0 - z) * n + z * hc
-            m = mask[row][:, None]
-            hc = m * hnew + (1.0 - m) * hc
-            ys[di, row] = hc
-        hfin[di] = hc
-    return ys, hfin
+    w32 = w.float()
+    return _fwd_plain_loop(
+        xp, mask, h0, reverse, w.shape[0], w.shape[1],
+        lambda di, hc: hc.to(w.dtype).float() @ w32[di] + b[di])
+
+
+def gru_fwd_q_plain(xp: torch.Tensor, mask: torch.Tensor, wq: torch.Tensor,
+                    scale: torch.Tensor, b: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None,
+                    reverse: Sequence[bool] = (False,)
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of ``gru_fwd_q``: ``gru_fwd_plain``'s
+    loop with the gates ``(round(h) @ Q) * scale + b``, h rounded to the
+    dot dtype ``xp.dtype`` (int8 widens to bf16 and f32 exactly), the
+    product in f32 and the scale on the finished column sums, as
+    ``_gru_kernel_q`` computes them (rnn_pallas.py:601-603)."""
+    q32 = wq.float()
+    return _fwd_plain_loop(
+        xp, mask, h0, reverse, wq.shape[0], wq.shape[1],
+        lambda di, hc: (hc.to(xp.dtype).float() @ q32[di]) * scale[di]
+        + b[di])
 
 
 def _lib(name: str) -> ctypes.CDLL:
     """``csrc/<name>.cu`` loaded, with its C functions typed: the forward
-    kernels share one signature, the backward kernels another."""
+    kernels share one signature, the int8 forward kernels the same with
+    the scale pointer after W, the backward kernels another."""
     lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     launch = getattr(lib, f"{name}_launch")
-    if name.startswith("gru_bwd"):
+    if name.startswith("gru_fwd_q"):
+        launch.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    elif name.startswith("gru_bwd"):
         launch.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         scratch = getattr(lib, f"{name}_scratch_floats")
         scratch.argtypes = [i, i, i]
@@ -209,7 +263,7 @@ def _launch(name: str, xp: torch.Tensor, mask: torch.Tensor,
     t, bsz, _ = xp.shape
     d, h = w.shape[0], w.shape[1]
     rc = getattr(lib, f"{name}_launch")(
-        int(w.dtype == torch.bfloat16), xp.data_ptr(), mask.data_ptr(),
+        int(xp.dtype == torch.bfloat16), xp.data_ptr(), mask.data_ptr(),
         w.data_ptr(), *(None if x is None else x.data_ptr() for x in tensors),
         d, t, bsz, h, sum(1 << i for i, r in enumerate(reverse) if r),
         xp.device.index, torch.cuda.current_stream(xp.device).cuda_stream)
@@ -217,7 +271,7 @@ def _launch(name: str, xp: torch.Tensor, mask: torch.Tensor,
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
         raise RuntimeError(
             f"{name} kernel launch failed (D={d}, T={t}, B={bsz}, H={h}, "
-            f"w {w.dtype}): {msg} [cudaError {rc}]")
+            f"xp {xp.dtype}, w {w.dtype}): {msg} [cudaError {rc}]")
 
 
 def gru_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
@@ -248,7 +302,7 @@ def gru_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
         return gru_fwd_plain(xp, mask, w, b, h0, reverse)
     _require_cuda(xp, "gru_fwd")
     if not resident_fits("fwd", w.shape[0], w.shape[1], xp.shape[1],
-                         w.dtype, *_card(xp.device)):
+                         w.dtype, *card_limits(xp.device)):
         return gru_fwd_stream(xp, mask, w, b, h0, reverse)
     ys, hfin = _fwd_outputs(xp, w, h0)
     if ys.numel():
@@ -294,6 +348,85 @@ def gru_fwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
 
 
 gru_fwd_stream.launches = 0
+
+
+def gru_fwd_q(xp: torch.Tensor, mask: torch.Tensor, wq: torch.Tensor,
+              scale: torch.Tensor, b: torch.Tensor,
+              h0: Optional[torch.Tensor] = None,
+              reverse: Sequence[bool] = (False,),
+              blocked: Optional[bool] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GRU forward over D directions with weight-only int8 recurrent
+    weights, for inference (no gradient).
+
+    ``xp [T,B,3H]`` bf16|f32 (the dot dtype; includes the input bias),
+    ``mask [T,B]`` f32, ``wq [D,H,3H]`` int8 and ``scale [D,3H]`` f32
+    (one per output channel, ``utils/quantize.py``'s layout), ``b [D,3H]``
+    f32, ``h0 [D,B,H]`` f32 or None, ``reverse`` as ``gru_fwd`` takes
+    them. Returns ``ys [D,T,B,H]`` and ``hfin [D,B,H]`` f32. The gates are
+    ``(round(h) @ Q) * scale + b``: h_prev rounded to the dot dtype, the
+    sum in f32, the scale applied to the finished column sums; then
+    ``gru_fwd``'s update.
+
+    A CPU tensor runs ``gru_fwd_q_plain``. A CUDA tensor launches the
+    resident kernel ``csrc/gru_fwd_q.cu`` (one launch, counted in
+    ``gru_fwd_q.launches``) where ``resident_fits("fwd_q", ...)`` holds
+    on this card, and ``gru_fwd_q_stream`` otherwise. ``blocked`` forces
+    the choice, as ``gru_scan_pallas_q``'s does (rnn_pallas.py:619):
+    True the streamed kernel, False the resident one, which raises where
+    it does not fit (judged on an H100's limits for a CPU tensor). Both
+    kernels take ``h0``. A refused launch raises.
+    """
+    reverse = tuple(bool(r) for r in reverse)
+    _check(xp, mask, wq, b, h0, reverse, scale)
+    if xp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gru_fwd_q runs on cpu or cuda, not {xp.device}")
+    d, h, bsz = wq.shape[0], wq.shape[1], xp.shape[1]
+    card = card_limits(xp.device) if xp.device.type == "cuda" else ()
+    fits = resident_fits("fwd_q", d, h, bsz, xp.dtype, *card)
+    if blocked is False and not fits:
+        raise ValueError(
+            f"gru_fwd_q forced resident (blocked=False), but D={d} x H={h} "
+            f"int8 slices do not fit the card's shared memory and SMs")
+    if xp.device.type == "cpu":
+        return gru_fwd_q_plain(xp, mask, wq, scale, b, h0, reverse)
+    if (not fits) if blocked is None else blocked:
+        return gru_fwd_q_stream(xp, mask, wq, scale, b, h0, reverse)
+    ys, hfin = _fwd_outputs(xp, wq, h0)
+    if ys.numel():
+        _launch("gru_fwd_q", xp, mask, wq, (scale, b, h0, ys, hfin), reverse)
+        gru_fwd_q.launches += 1
+    return ys, hfin
+
+
+gru_fwd_q.launches = 0
+
+
+def gru_fwd_q_stream(xp: torch.Tensor, mask: torch.Tensor,
+                     wq: torch.Tensor, scale: torch.Tensor, b: torch.Tensor,
+                     h0: Optional[torch.Tensor] = None,
+                     reverse: Sequence[bool] = (False,)
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gru_fwd_q`` through the streamed kernel ``csrc/gru_fwd_q_stream.cu``
+    (K11), whatever the sizes: Q stays in global memory and crosses L2 as
+    int8 once a step. The same contract and arithmetic as ``gru_fwd_q``.
+    A CPU tensor runs ``gru_fwd_q_plain``; a CUDA tensor launches the
+    kernel (one launch, counted in ``gru_fwd_q_stream.launches``) or
+    raises."""
+    reverse = tuple(bool(r) for r in reverse)
+    _check(xp, mask, wq, b, h0, reverse, scale)
+    if xp.device.type == "cpu":
+        return gru_fwd_q_plain(xp, mask, wq, scale, b, h0, reverse)
+    _require_cuda(xp, "gru_fwd_q_stream")
+    ys, hfin = _fwd_outputs(xp, wq, h0)
+    if ys.numel():
+        _launch("gru_fwd_q_stream", xp, mask, wq, (scale, b, h0, ys, hfin),
+                reverse)
+        gru_fwd_q_stream.launches += 1
+    return ys, hfin
+
+
+gru_fwd_q_stream.launches = 0
 
 
 def gru_bwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
@@ -393,7 +526,7 @@ def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
         return gru_bwd_plain(xp, mask, w, b, ys, dy, reverse)
     _require_cuda(xp, "gru_bwd")
     if not resident_fits("bwd", w.shape[0], w.shape[1], xp.shape[1],
-                         w.dtype, *_card(xp.device)):
+                         w.dtype, *card_limits(xp.device)):
         return gru_bwd_stream(xp, mask, w, b, ys, dy, reverse)
     dxp, dgates, launched = _bwd_launch("gru_bwd", xp, mask, w, b, ys, dy,
                                         reverse)

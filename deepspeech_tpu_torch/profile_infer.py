@@ -8,10 +8,13 @@ frame), under ``torch.profiler`` and prints one JSON line: wall time of
 the call, device busy time (the sum of kernel times; the port runs on
 one stream, so they do not overlap), the idle share, and the kernels
 that took the most device time, with the card's name and power limit.
+``--quantize-weights=int8`` decodes through the weight-only int8 engine
+(``Inferencer(quantize="int8")``) and adds its kernel regime and peak
+device memory to the line.
 
 ``python -m deepspeech_tpu_torch.profile_infer --config=ds2_small
-[--train] [--batch=32] [--frames=1700] [--seed=0]
-[--section.key=value ...]``
+[--train] [--quantize-weights=int8] [--batch=32] [--frames=1700]
+[--seed=0] [--section.key=value ...]``
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 
 _PORT_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_fwd_stream_kernel",
-                 "gru_bwd_stream_kernel", "ctc_alpha_kernel",
+                 "gru_bwd_stream_kernel", "gru_fwd_q_kernel",
+                 "gru_fwd_q_stream_kernel", "ctc_alpha_kernel",
                  "ctc_beta_kernel")
 
 
@@ -49,7 +53,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--top", type=int, default=8)
     parser.add_argument("--train", action="store_true",
                         help="profile one training step instead")
+    parser.add_argument("--quantize-weights", default="",
+                        choices=["", "int8"],
+                        help="decode through the weight-only int8 engine")
     args, extra = parser.parse_known_args(argv)
+    if args.train and args.quantize_weights:
+        parser.error("--quantize-weights is for decoding; the int8 "
+                     "engine has no training step")
     cfg = apply_overrides(get_config(args.config),
                           parse_cli_overrides(extra))
     params, stats = init_params(cfg, torch.Generator().manual_seed(args.seed))
@@ -71,11 +81,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     else:
         batch = {"features": feats,
                  "feat_lens": np.full(args.batch, args.frames, np.int32)}
-        run = functools.partial(
-            Inferencer(cfg, get_tokenizer(cfg.data.language), params,
-                       stats).decode_batch, batch)
+        inf = Inferencer(cfg, get_tokenizer(cfg.data.language), params,
+                         stats, quantize=args.quantize_weights)
+        run = functools.partial(inf.decode_batch, batch)
+    torch.cuda.reset_peak_memory_stats()
     run()  # warm-up
     torch.cuda.synchronize()
+    peak_bytes = torch.cuda.max_memory_allocated()
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -94,7 +106,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         check=True, capture_output=True, text=True).stdout.splitlines()[0]
     print(json.dumps({
         "config": cfg.name, "mode": "train_step" if args.train else "decode",
+        "quantize": args.quantize_weights or None,
+        "kernel_regime": None if args.train else inf.kernel_regime,
         "rung": [args.batch, args.frames],
+        "peak_device_bytes": peak_bytes,
         "card": card, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "top_kernels": [{"name": e.key[:80], "calls": e.count,

@@ -42,7 +42,17 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
+# Modules whose JAX counterparts are jax-free or half so, which the port
+# keeps its own copies of; each must be among the sources checked.
+OWN_COPIES = ("deepspeech_tpu_torch/utils/quantize.py",
+              "deepspeech_tpu_torch/serving/ladder.py",
+              "deepspeech_tpu_torch/config.py",
+              "deepspeech_tpu_torch/data/infer_bucket.py")
+
+
 def test_no_jax_or_reference_imports():
+    sources = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert set(OWN_COPIES) <= sources
     bad = [(os.path.relpath(p, ROOT), m) for p in _port_sources()
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
@@ -50,7 +60,10 @@ def test_no_jax_or_reference_imports():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, deepspeech_tpu_torch.infer, "
-            "deepspeech_tpu_torch.bridge, deepspeech_tpu_torch.train; "
+            "deepspeech_tpu_torch.bridge, deepspeech_tpu_torch.train, "
+            "deepspeech_tpu_torch.utils.quantize, "
+            "deepspeech_tpu_torch.serving.ladder, "
+            "deepspeech_tpu_torch.profile_infer; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
