@@ -24,9 +24,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    - ``gru_fwd_q`` (int8 W resident) at ds2_full's H=1760, D=2 and at
      H=800, D=1 with h0, and ``gru_fwd_q_stream`` (int8 W streamed) at
      H=1760 (library: cuDNN's GRU in bf16 on the dequantized W);
+   - ``lstm_fwd`` (W resident) at H=800, D=2 and D=1, with and without
+     its cell-state tape; ``lstm_fwd_stream`` (W streamed) at ds2_full's
+     H=1760, D=2, with and without the tape; ``lstm_fwd_q`` (int8 W
+     resident) at H=800, D=2 and ``lstm_fwd_q_stream`` (int8 W
+     streamed) at H=1760, D=2 (library: cuDNN's LSTM in bf16 at the
+     same H, the forget gate's +1 folded into its ``bias_hh``, on the
+     dequantized W for the int8 kernels);
    each GRU kernel at D=2 and D=1 (the forward with h0), bf16 and f32,
    and at one ragged shape off its tiles, each checked to have run the
-   kernel meant (resident or streamed) by the launch counts;
+   kernel meant (resident or streamed) by the launch counts; each LSTM
+   kernel the same at its D, without h0;
 4. inference path phases: greedy inference through
    ``Inferencer.decode_batch_bucketed`` at the full width of ds2_small
    (3 BiGRU layers: 3 ``gru_fwd`` launches per forward), ds2_streaming
@@ -43,6 +51,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ds2_streaming (5); then, for information, the int8 engine against
    the bf16 one on ds2_full (log-probs, transcripts, bytes, peak device
    memory);
+   LSTM path phases: the same with ``model.rnn_type=lstm`` on the same
+   presets' widths: ds2_small (3 ``lstm_fwd`` per forward), ds2_streaming
+   (5 ``lstm_fwd``, D=1), ds2_full (7 ``lstm_fwd_stream``), and through
+   ``Inferencer(quantize="int8")`` ds2_small (3 ``lstm_fwd_q``,
+   "resident-q") and ds2_full (7 ``lstm_fwd_q_stream``, "blocked-q"),
+   no GRU kernel on an LSTM path and no LSTM kernel on a GRU path, each
+   against the same forward with the LSTM kernel patched to its plain
+   version, beside an LSTM with one direction reversed;
 5. training path phases: ``Trainer`` steps at the full width of
    ds2_small, ds2_streaming and ds2_full on a (32, 1700) batch of
    ragged lengths; counts the launches per step (one GRU forward and
@@ -117,6 +133,11 @@ K8 = "deepspeech_tpu/ops/rnn_pallas.py:260"   # _gru_kernel_blocked
 K9 = "deepspeech_tpu/ops/rnn_pallas.py:312"   # _gru_bwd_kernel_blocked
 K10 = "deepspeech_tpu/ops/rnn_pallas.py:581"  # _gru_kernel_q
 K11 = "deepspeech_tpu/ops/rnn_pallas.py:282"  # _gru_kernel_blocked_q
+# The TPU kernels the LSTM kernels replace (deepspeech_tpu/ops/).
+K12 = "deepspeech_tpu/ops/lstm_pallas.py:89"   # _lstm_kernel
+K14 = "deepspeech_tpu/ops/lstm_pallas.py:116"  # _lstm_kernel_blocked
+K16 = "deepspeech_tpu/ops/lstm_pallas.py:292"  # _lstm_kernel_q
+K17 = "deepspeech_tpu/ops/lstm_pallas.py:315"  # _lstm_kernel_blocked_q
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -154,7 +175,7 @@ def _gru_inputs(d: int, dtype: torch.dtype, with_h0: bool, gen,
 
 
 def _quantize_w(w):
-    """``w [D,H,3H]`` -> int8 ``q`` and f32 ``scale [D,3H]``, absmax per
+    """``w [D,H,GH]`` -> int8 ``q`` and f32 ``scale [D,GH]``, absmax per
     output column, as utils/quantize.py quantizes ``wh_*``."""
     scale = w.float().abs().amax(1) / 127.0
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
@@ -310,6 +331,142 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed, d1_h=None):
                           "ms_at_b1": ms_b1, "plain_ms": plain_ms,
                           "library_ms": library_ms, "bound_ms": bound_ms,
                           **extra}), flush=True)
+    return entries
+
+
+def _lstm_inputs(d: int, dtype: torch.dtype, gen, t: int = T, b: int = B,
+                 h: int = H, quantized: bool = False):
+    """The arguments of ``lstm_fwd`` ``(xp [T,B,4H], mask, w [D,H,4H], b,
+    reverse)``, or with ``quantized`` of ``lstm_fwd_q`` ``(xp, mask, q,
+    scale, b, reverse)``, on ragged lengths; and the valid rows."""
+    dev = "cuda"
+    lens = torch.randint(t // 3, t + 1, (b,), generator=gen, device=dev)
+    lens[0] = t
+    mask = (torch.arange(t, device=dev)[:, None] < lens[None, :]).float()
+    xp = torch.randn(t, b, 4 * h, generator=gen, device=dev).to(dtype)
+    w = torch.randn(d, h, 4 * h, generator=gen, device=dev) / math.sqrt(h)
+    bias = torch.randn(d, 4 * h, generator=gen, device=dev) * 0.1
+    weights = _quantize_w(w) if quantized else (w.to(dtype).contiguous(),)
+    return ((xp, mask.contiguous(), *weights, bias, (False, True)[:d]),
+            int(lens.sum()))
+
+
+def _cudnn_lstm(args, h: int):
+    """cuDNN's LSTM in bf16 computing the function of ``lstm_fwd``'s (or,
+    on the dequantized W, ``lstm_fwd_q``'s) ``args`` from its own input
+    projection: the same gate order (i, f, g, o); cuDNN holds W^T per
+    direction and has no +1 on the forget gate, so the +1 goes into its
+    ``bias_hh``. Set before the move, so that cuDNN packs them."""
+    xp, mask, *weights, bias, reverse = args
+    w = (weights[0].float() * weights[1][:, None] if len(weights) == 2
+         else weights[0].float())
+    lib = torch.nn.LSTM(h, h, bidirectional=len(reverse) == 2)
+    with torch.no_grad():
+        for di, sfx in enumerate(("", "_reverse")[:len(reverse)]):
+            getattr(lib, f"weight_hh_l0{sfx}").copy_(w[di].t().cpu())
+            b_hh = bias[di].clone()
+            b_hh[h:2 * h] += 1.0
+            getattr(lib, f"bias_hh_l0{sfx}").copy_(b_hh.cpu())
+    lib = lib.to("cuda", torch.bfloat16)
+    lib.flatten_parameters()
+    return lib
+
+
+def lstm_kernel_phase(gen, kernel: str, h: int, timed):
+    """Hold ``ops.lstm.<kernel>`` (``lstm_fwd``, which launches the
+    resident kernel at these sizes, or ``lstm_fwd_stream``; with int8 W
+    ``lstm_fwd_q``, resident here, or ``lstm_fwd_q_stream``) against its
+    plain version at T'=850, B=32 and width ``h`` for each D of ``timed``,
+    bf16 and f32, with and without the cell-state tape (the fp kernels),
+    and at one ragged shape off the tiles; two runs must give the same
+    bits, the tape included. Then time it for each ``(d, replaces)`` of
+    ``timed`` without the tape, as serving calls it, beside its bound,
+    its plain version and cuDNN's LSTM."""
+    from deepspeech_tpu_torch.ops import lstm
+
+    fn = getattr(lstm, kernel)
+    quantized = kernel.startswith("lstm_fwd_q")
+    plain = lstm.lstm_fwd_q_plain if quantized else lstm.lstm_fwd_plain
+    tapes = (False,) if quantized else (False, True)
+    cases = [(f"D{d}_{dn}{'_tape' if tape else ''}", d, dtype, tape,
+              (T, B, h))
+             for d, _ in timed
+             for dn, dtype in (("bf16", torch.bfloat16),
+                               ("f32", torch.float32))
+             for tape in tapes]
+    cases.append((f"D2_bf16_ragged{'' if quantized else '_tape'}", 2,
+                  torch.bfloat16, not quantized, (37, 45, 100)))
+    _zero_counts()
+    checks = {}
+    for name, d, dtype, tape, shape in cases:
+        args, _ = _lstm_inputs(d, dtype, gen, *shape, quantized=quantized)
+        kw = {"tape": True} if tape else {}
+        outs = [fn(*args, **kw) for _ in range(2)]
+        torch.cuda.synchronize()
+        ref = plain(*args, **kw)
+        got, again, ref = [x if tape else (x,) for x in (*outs, ref)]
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        _require(all(bool(torch.isfinite(g).all()) for g in got),
+                 f"{kernel} {name}: non-finite output")
+        _require(err <= TOL[dtype],
+                 f"{kernel} {name}: max |kernel - plain| {err} > "
+                 f"{TOL[dtype]}")
+        _require(all(torch.equal(g, a) for g, a in zip(got, again)),
+                 f"{kernel} {name}: two runs on one input differ")
+        checks[name] = {"max_abs_err": err, "tol": TOL[dtype],
+                        "bit_identical": True}
+        print(json.dumps({"check": f"{kernel} {name}", "max_abs_err": err,
+                          "tol": TOL[dtype], "bit_identical": True}),
+              flush=True)
+    _require_only(kernel, 2 * len(checks))
+
+    entries = []
+    for d, replaces in timed:
+        args, valid = _lstm_inputs(d, torch.bfloat16, gen, T, B, h,
+                                   quantized)
+        ms = _time_ms(lambda: fn(*args), reps=5)
+        plain_ms = _time_ms(lambda: plain(*args), reps=1)
+        lib = _cudnn_lstm(args, h)
+        x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        with torch.no_grad():
+            library_ms = _time_ms(lambda: lib(x_lib), reps=5)
+        del lib, x_lib
+        # The product's FLOPs on valid frames, 2 * rows * D * H * 4H, over
+        # the bf16 peak; the inputs read once and ys written once.
+        xp, mask, *weights, bias, _ = args
+        bound_ms, bound_by = _roofline(
+            _nbytes(xp, mask, *weights, bias) + 4 * d * T * B * h,
+            2.0 * valid * d * h * 4 * h, PEAK_BF16_FLOPS)
+        args_b1 = tuple(a[:, :1].contiguous() if i < 2 else a
+                        for i, a in enumerate(args))
+        extra = {"ms_at_b1": _time_ms(lambda: fn(*args_b1), reps=5)}
+        if not quantized:
+            extra["ms_tape"] = _time_ms(lambda: fn(*args, tape=True), reps=3)
+        if kernel.endswith("_stream"):
+            # At H=800, where the resident kernel runs: what the
+            # residency rule saves there.
+            args_h, _ = _lstm_inputs(d, torch.bfloat16, gen,
+                                     quantized=quantized)
+            extra["ms_at_h800"] = _time_ms(lambda: fn(*args_h), reps=3)
+            del args_h
+        if quantized:
+            extra["library"] = "cuDNN LSTM, bf16, dequantized W"
+        entries.append({
+            "name": f"{kernel}[D={d}]", "route": "cuda",
+            "source": f"deepspeech_tpu_torch/csrc/{kernel}.cu",
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": checks[f"D{d}_bf16"]["max_abs_err"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, **extra,
+            "shape": {"D": d, "T": T, "B": B, "H": h, "dtype": "bfloat16",
+                      "w_dtype": "int8" if quantized else "bfloat16",
+                      "valid_rows": valid},
+            "checks": {k: v for k, v in checks.items()
+                       if k.startswith(f"D{d}_")}})
+        print(json.dumps({"timed": entries[-1]["name"], "ms": ms,
+                          "plain_ms": plain_ms, "library_ms": library_ms,
+                          "bound_ms": bound_ms, **extra}), flush=True)
     return entries
 
 
@@ -552,13 +709,23 @@ def _forward(inf, sub):
     return lp, lens, out["rnn"].float()
 
 
-@functools.lru_cache(maxsize=1)
-def _weights(preset: str):
-    """The seeded random init of ``preset`` (flax layout, numpy)."""
-    from deepspeech_tpu_torch.bridge import init_params
-    from deepspeech_tpu_torch.config import get_config
+def _config(preset: str, rnn_type: str = "gru"):
+    """``preset``'s config, with ``model.rnn_type`` set for an LSTM."""
+    from deepspeech_tpu_torch.config import apply_overrides, get_config
 
-    return init_params(get_config(preset),
+    cfg = get_config(preset)
+    if rnn_type != "gru":
+        cfg = apply_overrides(cfg, {"model.rnn_type": rnn_type})
+    return cfg
+
+
+@functools.lru_cache(maxsize=1)
+def _weights(preset: str, rnn_type: str = "gru"):
+    """The seeded random init of ``preset`` with ``rnn_type`` cells
+    (flax layout, numpy)."""
+    from deepspeech_tpu_torch.bridge import init_params
+
+    return init_params(_config(preset, rnn_type),
                        torch.Generator().manual_seed(SEED))
 
 
@@ -569,26 +736,30 @@ def _refusing_fwd_q(real):
 
 
 def path_phase(preset: str, layers_per_forward: int, kernel: str,
-               quantize: str = ""):
-    """Greedy inference on ``preset`` through
-    ``Inferencer.decode_batch_bucketed``; ``kernel`` is the GRU forward
-    kernel its layers must run, one launch per layer per forward (both
-    directions in it): ``gru_fwd`` (resident) or ``gru_fwd_stream``, or
-    with ``quantize="int8"`` ``gru_fwd_q`` or ``gru_fwd_q_stream``. For
-    the last the caller patches ``resident_fits``."""
-    from deepspeech_tpu_torch.config import get_config
+               quantize: str = "", rnn_type: str = "gru"):
+    """Greedy inference on ``preset`` (its cells ``rnn_type``) through
+    ``Inferencer.decode_batch_bucketed``; ``kernel`` is the recurrent
+    forward kernel its layers must run, one launch per layer per forward
+    (both directions in it), and no other recurrent kernel may launch:
+    ``gru_fwd`` (resident) or ``gru_fwd_stream``, with
+    ``quantize="int8"`` ``gru_fwd_q`` or ``gru_fwd_q_stream`` (for the
+    last the caller patches ``resident_fits``); for an LSTM
+    ``lstm_fwd``, ``lstm_fwd_stream``, ``lstm_fwd_q`` or
+    ``lstm_fwd_q_stream``."""
     from deepspeech_tpu_torch.data import CharTokenizer, plan_infer_buckets
     from deepspeech_tpu_torch.data.infer_bucket import slice_to_plan
     from deepspeech_tpu_torch.infer import Inferencer
-    from deepspeech_tpu_torch.ops import gru
+    from deepspeech_tpu_torch.ops import gru, lstm
 
-    cfg = get_config(preset)
-    params, stats = _weights(preset)
+    cfg = _config(preset, rnn_type)
+    params, stats = _weights(preset, rnn_type)
     tok = CharTokenizer.english()
     inf = Inferencer(cfg, tok, params, stats, quantize=quantize)
-    regime = {"gru_fwd_q": "resident-q", "gru_fwd_q_stream": "blocked-q"}
+    regime = {"gru_fwd_q": "resident-q", "gru_fwd_q_stream": "blocked-q",
+              "lstm_fwd_q": "resident-q", "lstm_fwd_q_stream": "blocked-q"}
+    path = preset if rnn_type == "gru" else f"{preset}-{rnn_type}"
     _require(inf.kernel_regime == regime.get(kernel, "fp"),
-             f"{preset}: kernel_regime {inf.kernel_regime!r} for {kernel}")
+             f"{path}: kernel_regime {inf.kernel_regime!r} for {kernel}")
     rng = np.random.default_rng(SEED)
     batch = _request(cfg, 12, rng)
     plans = plan_infer_buckets(batch["feat_lens"], cfg.data.bucket_frames,
@@ -601,21 +772,24 @@ def path_phase(preset: str, layers_per_forward: int, kernel: str,
     texts = inf.decode_batch_bucketed(batch)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {k: v for k, v in _counts().items() if k.startswith("gru_")}
+    counts = {k: v for k, v in _counts().items()
+              if k.startswith(("gru_", "lstm_"))}
     launches = counts[kernel]
     want = {k: layers_per_forward * len(plans) if k == kernel else 0
             for k in counts}
-    _require(counts == want, f"{preset}: GRU launches {counts} for "
+    _require(counts == want, f"{path}: recurrent launches {counts} for "
              f"{len(plans)} forwards, want {want}")
     _require(len(texts) == 12 and all(isinstance(s, str) for s in texts),
-             f"{preset}: bad transcripts {texts!r}")
+             f"{path}: bad transcripts {texts!r}")
 
-    # The largest rung against the plain GRU on the card, and against a
-    # GRU whose first direction runs the wrong way through time, which
-    # the check must reject. (Swapping both directions of a BiGRU would
-    # not do: the sum of two random directions is nearly symmetric.)
-    wrapper = "gru_fwd_q" if quantize else "gru_fwd"
-    real = getattr(gru, wrapper)
+    # The largest rung against the plain recurrence on the card, and
+    # against one whose first direction runs the wrong way through time,
+    # which the check must reject. (Swapping both directions of a
+    # bidirectional layer would not do: the sum of two random directions
+    # is nearly symmetric.)
+    ops = gru if rnn_type == "gru" else lstm
+    wrapper = f"{rnn_type}_fwd_q" if quantize else f"{rnn_type}_fwd"
+    real = getattr(ops, wrapper)
 
     def misdirected(*args):
         *rest, reverse = args
@@ -627,18 +801,18 @@ def path_phase(preset: str, layers_per_forward: int, kernel: str,
 
     sub = slice_to_plan(batch, plans[-1])
     lp, lens, rnn = _forward(inf, sub)
-    with mock.patch.object(gru, wrapper, getattr(gru, wrapper + "_plain")):
+    with mock.patch.object(ops, wrapper, getattr(ops, wrapper + "_plain")):
         t1 = time.perf_counter()
         lp_p, lens_p, rnn_p = _forward(inf, sub)
         plain_s = time.perf_counter() - t1
-    with mock.patch.object(gru, wrapper, misdirected):
+    with mock.patch.object(ops, wrapper, misdirected):
         _, _, rnn_bad = _forward(inf, sub)
     t_out = -(-plans[-1].bucket_frames // cfg.model.time_stride)
     _require(tuple(lp.shape) == (plans[-1].batch_pad, t_out,
                                  cfg.model.vocab_size),
-             f"{preset}: log-probs shape {tuple(lp.shape)}")
-    _require(bool(torch.isfinite(lp).all()), f"{preset}: non-finite")
-    _require(torch.equal(lens, lens_p), f"{preset}: lengths differ")
+             f"{path}: log-probs shape {tuple(lp.shape)}")
+    _require(bool(torch.isfinite(lp).all()), f"{path}: non-finite")
+    _require(torch.equal(lens, lens_p), f"{path}: lengths differ")
     valid = (torch.arange(t_out, device=lp.device)[None] < lens[:, None])
 
     def rel(x):
@@ -648,13 +822,13 @@ def path_phase(preset: str, layers_per_forward: int, kernel: str,
     lp_err = float((lp - lp_p).abs()[valid].max())
     agree = float((lp.argmax(-1) == lp_p.argmax(-1))[valid].float().mean())
     _require(rnn_err <= RNN_REL_TOL,
-             f"{preset}: RNN output differs from the plain GRU path by "
+             f"{path}: RNN output differs from the plain path by "
              f"{rnn_err} > {RNN_REL_TOL} (relative)")
     _require(bad_err > RNN_REL_TOL,
-             f"{preset}: a mis-directed GRU reads {bad_err}, within "
+             f"{path}: a mis-directed {rnn_type} reads {bad_err}, within "
              f"{RNN_REL_TOL}: the check cannot tell it from the kernel")
     _require(agree >= ARGMAX_FLOOR,
-             f"{preset}: argmax agrees with the plain GRU path on {agree} "
+             f"{path}: argmax agrees with the plain path on {agree} "
              f"of valid frames < {ARGMAX_FLOOR}")
 
     # Throughput at the largest rung, full batch.
@@ -669,7 +843,7 @@ def path_phase(preset: str, layers_per_forward: int, kernel: str,
     inf.decode_batch(full)
     torch.cuda.synchronize()
     full_s = time.perf_counter() - t2
-    result = {"path": preset, "quantize": quantize or None,
+    result = {"path": path, "quantize": quantize or None,
               "kernel_regime": inf.kernel_regime,
               "utts": 12, "forwards": len(plans),
               "rungs": [[p.batch_pad, p.bucket_frames] for p in plans],
@@ -681,7 +855,7 @@ def path_phase(preset: str, layers_per_forward: int, kernel: str,
               "full_rung": [cfg.data.batch_size, 1700],
               "full_rung_seconds": full_s,
               "full_rung_utt_per_s": cfg.data.batch_size / full_s,
-              "plain_gru_forward_seconds": plain_s,
+              "plain_forward_seconds": plain_s,
               "rnn_rel_err": rnn_err, "rnn_rel_tol": RNN_REL_TOL,
               "misdirected_rnn_rel_err": bad_err,
               "logprob_max_abs_err": lp_err,
@@ -814,14 +988,19 @@ def _group_rel(got, ref):
     return out
 
 
+_LSTM_KERNELS = ("lstm_fwd", "lstm_fwd_stream", "lstm_fwd_q",
+                 "lstm_fwd_q_stream")
+
+
 def _counts():
-    from deepspeech_tpu_torch.ops import ctc, gru
+    from deepspeech_tpu_torch.ops import ctc, gru, lstm
 
     return {"gru_fwd": gru.gru_fwd.launches, "gru_bwd": gru.gru_bwd.launches,
             "gru_fwd_stream": gru.gru_fwd_stream.launches,
             "gru_bwd_stream": gru.gru_bwd_stream.launches,
             "gru_fwd_q": gru.gru_fwd_q.launches,
             "gru_fwd_q_stream": gru.gru_fwd_q_stream.launches,
+            **{k: getattr(lstm, k).launches for k in _LSTM_KERNELS},
             "ctc_alpha": ctc.ctc_alpha.launches
             - ctc.ctc_alpha.loss_only_launches,
             "loss_only": ctc.ctc_alpha.loss_only_launches,
@@ -829,11 +1008,13 @@ def _counts():
 
 
 def _zero_counts() -> None:
-    from deepspeech_tpu_torch.ops import ctc, gru
+    from deepspeech_tpu_torch.ops import ctc, gru, lstm
 
     gru.gru_fwd.launches = gru.gru_bwd.launches = 0
     gru.gru_fwd_stream.launches = gru.gru_bwd_stream.launches = 0
     gru.gru_fwd_q.launches = gru.gru_fwd_q_stream.launches = 0
+    for k in _LSTM_KERNELS:
+        getattr(lstm, k).launches = 0
     ctc.ctc_alpha.launches = ctc.ctc_alpha.loss_only_launches = 0
     ctc.ctc_beta.launches = 0
 
@@ -1010,7 +1191,13 @@ def main() -> int:
               + gru_fwd_kernel_phase(gen, "gru_fwd_q", h_full, [(2, K10)],
                                      d1_h=H)
               + gru_fwd_kernel_phase(gen, "gru_fwd_q_stream", h_full,
-                                     [(2, K11)]))
+                                     [(2, K11)])
+              + lstm_kernel_phase(gen, "lstm_fwd", H, [(2, K12), (1, K12)])
+              + lstm_kernel_phase(gen, "lstm_fwd_stream", h_full,
+                                  [(2, K14)])
+              + lstm_kernel_phase(gen, "lstm_fwd_q", H, [(2, K16)])
+              + lstm_kernel_phase(gen, "lstm_fwd_q_stream", h_full,
+                                  [(2, K17)]))
     entries = {e["name"]: e for e in phases}
     # Inference: one GRU forward launch per layer per forward, bf16 and
     # then int8 on the same weights. ds2_full int8 is this slice's main
@@ -1029,6 +1216,17 @@ def main() -> int:
             entries["gru_fwd_q_stream[D=2]"]["launches"] = path_phase(
                 preset, layers, "gru_fwd_q_stream", "int8")
         quant_effect_phase(preset)
+    # The LSTM variants of the same presets (model.rnn_type=lstm): one
+    # LSTM forward launch per layer per forward, bf16 and then int8 on
+    # the same weights. At ds2_full's H=1760 both stream (K14, K17).
+    for preset, layers, name, quantize in (
+            ("ds2_small", 3, "lstm_fwd[D=2]", ""),
+            ("ds2_small", 3, "lstm_fwd_q[D=2]", "int8"),
+            ("ds2_streaming", 5, "lstm_fwd[D=1]", ""),
+            ("ds2_full", 7, "lstm_fwd_stream[D=2]", ""),
+            ("ds2_full", 7, "lstm_fwd_q_stream[D=2]", "int8")):
+        entries[name]["launches"] = path_phase(
+            preset, layers, name.split("[")[0], quantize, "lstm")
     _weights.cache_clear()
     # Training: one forward and one backward launch per layer per step.
     for preset, layers, name, streamed, steps, descent in (
@@ -1047,7 +1245,9 @@ def main() -> int:
     entries = [entries[n] for n in (
         "gru_fwd[D=2]", "gru_fwd[D=1]", "ctc_alpha", "ctc_alpha[loss_only]",
         "ctc_beta", "gru_bwd[D=2]", "gru_bwd[D=1]", "gru_fwd_stream[D=2]",
-        "gru_bwd_stream[D=2]", "gru_fwd_q[D=2]", "gru_fwd_q_stream[D=2]")]
+        "gru_bwd_stream[D=2]", "gru_fwd_q[D=2]", "gru_fwd_q_stream[D=2]",
+        "lstm_fwd[D=2]", "lstm_fwd[D=1]", "lstm_fwd_stream[D=2]",
+        "lstm_fwd_q[D=2]", "lstm_fwd_q_stream[D=2]")]
     for e in entries:
         _require(e["launches"] > 0, f"{e['name']} never launched")
     print(json.dumps({"kernels": entries, "card": card}), flush=True)

@@ -2,7 +2,8 @@
 
 The interchange format is the flax layout as nested dicts of numpy
 arrays: ``params`` (conv kernels HWIO ``[kt, kf, in, out]``, Dense
-kernels ``[in, out]``, ``wh_*`` ``[H, 3H]``, BN ``scale``/``bias``,
+kernels ``[in, out]``, ``wh_*`` ``[H, 3H]`` (GRU) or ``[H, 4H]``
+(LSTM), BN ``scale``/``bias``,
 lookahead ``w [ctx, C]``) and ``batch_stats`` (BN ``mean``/``var``).
 The port's module tree uses the same names, so the mapping is by name;
 the one change of layout is the conv kernel (HWIO <-> OIHW), and the

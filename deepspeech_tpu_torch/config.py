@@ -44,7 +44,7 @@ class ModelConfig:
     # RNN stack.
     rnn_layers: int = 3
     rnn_hidden: int = 800
-    rnn_type: str = "gru"  # "gru" | "lstm" (lstm: a later slice)
+    rnn_type: str = "gru"  # "gru" | "lstm" (lstm: inference only so far)
     bidirectional: bool = True
     # Streaming variant: unidirectional + lookahead conv over future frames.
     lookahead_context: int = 0  # 0 disables lookahead conv
@@ -53,10 +53,11 @@ class ModelConfig:
     vocab_size: int = 29  # EN: blank + a-z + space + apostrophe
     relu_clip: float = 20.0
     dtype: str = "bfloat16"  # compute dtype; params stay float32
-    # The port has one GRU recurrence, ops/gru.py's gru_fwd (the CUDA
-    # kernel for CUDA tensors, its plain version for CPU tensors). The
-    # field stays so that the JAX package's configs parse: "auto" and
-    # "pallas" both name gru_fwd, and any other value raises.
+    # The port has one recurrence for each cell, ops/gru.py's gru_fwd
+    # and ops/lstm.py's lstm_fwd (the CUDA kernels for CUDA tensors,
+    # their plain versions for CPU tensors). The field stays so that the
+    # JAX package's configs parse: "auto" and "pallas" both name them,
+    # and any other value raises.
     rnn_impl: str = "auto"
     # Training only (a later slice).
     rnn_remat_chunk: int = 0

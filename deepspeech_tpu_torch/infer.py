@@ -2,7 +2,8 @@
 
 The port's counterpart of ``deepspeech_tpu/infer.py`` for greedy
 decoding: ``Inferencer.decode_batch`` / ``decode_batch_bucketed`` over
-the ``(B, T)`` ladder (data/infer_bucket.py), with the attribute names
+the ``(B, T)`` ladder (data/infer_bucket.py), for a GRU or an LSTM
+model (``model.rnn_type``), with the attribute names
 (``_last_nbest``, ``_last_times``) the serving plane reads. Beam search,
 LM fusion, streaming, sequence-parallel and transducer decoding,
 timestamps and restoring an orbax checkpoint raise
@@ -11,12 +12,14 @@ timestamps and restoring an orbax checkpoint raise
 ``quantize="int8"`` serves weight-only int8 weights, as the JAX
 package's ``Inferencer(quantize="int8")`` does (infer.py:155-253): PTQ
 runs once at init (``utils/quantize.py``), the model holds the quantized
-leaves int8 on the device and its GRU layers run ``ops/gru.py``'s
-``gru_fwd_q``; ``kernel_regime`` names the kernel that holds W.
+leaves int8 on the device and its recurrent layers run ``ops/gru.py``'s
+``gru_fwd_q`` (GRU) or ``ops/lstm.py``'s ``lstm_fwd_q`` (LSTM);
+``kernel_regime`` names the kernel that holds W.
 
 CLI: ``python -m deepspeech_tpu_torch.infer --config=ds2_small
 --synthetic=N [--params=x.npz] [--seed=0] [--device=cpu]
-[--quantize-weights=int8] [--section.key=value ...]``. Without
+[--quantize-weights=int8] [--section.key=value ...]``, e.g.
+``--model.rnn_type=lstm`` for the LSTM variant of a preset. Without
 ``--params`` the weights are a random init from ``--seed``
 (bridge.init_params).
 """

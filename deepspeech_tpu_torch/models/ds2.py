@@ -1,6 +1,6 @@
 """DS2 model assembly.
 
-features [B, T, F] -> conv frontend -> GRU stack -> (lookahead conv +
+features [B, T, F] -> conv frontend -> GRU or LSTM stack -> (lookahead conv +
 clipped ReLU) -> masked BN -> dense head -> logits [B, T', V] float32.
 Submodule and parameter names follow the JAX package's (``conv``,
 ``rnn``, ``lookahead``, ``bn_out``, ``head``), which is what lets

@@ -74,6 +74,8 @@ _SMEM_RESERVED_PER_BLOCK = 1024
 # units per block, h_prev columns per chunk, batch rows per pass, threads.
 _U, _KC, _ROWS, _THREADS = 16, 64, 32, 256
 _MAX_THREADS_PER_SM = 2048
+# The resident kernels the rule below knows: the GRU's and the LSTM's.
+_KINDS = ("fwd", "bwd", "fwd_q", "lstm_fwd", "lstm_fwd_q")
 
 
 def resident_smem_bytes(kind: str, h: int, b: int) -> int:
@@ -82,16 +84,23 @@ def resident_smem_bytes(kind: str, h: int, b: int) -> int:
     dot dtype), and for ``kind="bwd"`` the dgates tile and the carried
     dh of the block's units for ``b`` batch rows. For ``kind="fwd_q"``
     (``csrc/gru_fwd_q.cu``) the slice is int8, 16 bytes of padding a
-    column, beside the chunk of it widened to f32 and the h_prev chunk."""
+    column, beside the chunk of it widened to f32 and the h_prev chunk.
+    The LSTM kernels (``"lstm_fwd"``: ``csrc/lstm_fwd.cu``,
+    ``"lstm_fwd_q"``: ``csrc/lstm_fwd_q.cu``) lay out the same with four
+    gates, a ``[H, 64]`` slice, and add the cell state of the block's
+    units for ``b`` batch rows as f32."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be one of {_KINDS}, not {kind!r}")
     h_pad = -(-h // _KC) * _KC
-    if kind == "fwd_q":
-        return 3 * _U * (h_pad + 16) + 4 * (3 * _U + _ROWS) * (_KC + 4)
-    floats = 3 * _U * (h_pad + 4) + _ROWS * (_KC + 4)
+    gc = (4 if kind.startswith("lstm") else 3) * _U  # gate columns
+    if kind.endswith("fwd_q"):
+        nbytes = gc * (h_pad + 16) + 4 * (gc + _ROWS) * (_KC + 4)
+        return nbytes + (4 * b * _U if kind == "lstm_fwd_q" else 0)
+    floats = gc * (h_pad + 4) + _ROWS * (_KC + 4)
     if kind == "bwd":
         floats += _ROWS * (3 * _U + 4) + 2 * b * _U
-    elif kind != "fwd":
-        raise ValueError(f"kind must be 'fwd', 'bwd' or 'fwd_q', not "
-                         f"{kind!r}")
+    elif kind == "lstm_fwd":
+        floats += b * _U
     return 4 * floats
 
 
@@ -101,19 +110,25 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
                   smem_per_sm: int = H100_SMEM_PER_SM) -> bool:
     """Whether the resident kernel (``csrc/gru_fwd.cu`` for ``kind=
     "fwd"``, ``csrc/gru_bwd.cu`` for ``"bwd"``, ``csrc/gru_fwd_q.cu``
-    for ``"fwd_q"``) can run D directions of H units at batch ``b`` on a
-    card with these limits: its shared memory per block within what a
-    block may have, and its D * ceil(H/16) blocks all resident at once,
-    as the grid barrier needs. When not, ``gru_fwd``/``gru_bwd``/
-    ``gru_fwd_q`` launch the streamed kernel. The card's values default
-    to an H100's, so the rule runs without a card.
+    for ``"fwd_q"``, ``csrc/lstm_fwd.cu`` for ``"lstm_fwd"``,
+    ``csrc/lstm_fwd_q.cu`` for ``"lstm_fwd_q"``) can run D directions of
+    H units at batch ``b`` on a card with these limits: its shared
+    memory per block within what a block may have, and its D * ceil(H/16)
+    blocks all resident at once, as the grid barrier needs. When not,
+    ``gru_fwd``/``gru_bwd``/``gru_fwd_q`` and ``ops/lstm.py``'s
+    ``lstm_fwd``/``lstm_fwd_q`` launch the streamed kernel. The card's
+    values default to an H100's, so the rule runs without a card.
 
     The Hopper counterpart of the TPU package's ``fits_vmem``,
     ``_use_blocked`` and ``bigru_fits_vmem`` (rnn_pallas.py:66, :455,
-    :709). The resident kernels stage W as f32 (int8 for ``"fwd_q"``)
-    whatever the dot dtype, so ``dtype`` (bf16 or f32) does not move the
-    answer today. ds2_full (D=2, H=1760) misses for ``"fwd"`` and fits
-    for ``"fwd_q"``: 106 KB a block, two blocks an SM."""
+    :709). The resident kernels stage W as f32 (int8 for the ``_q``
+    kinds) whatever the dot dtype, so ``dtype`` (bf16 or f32) does not
+    move the answer today. ds2_full (D=2, H=1760) misses for ``"fwd"``
+    and fits for ``"fwd_q"``: 106 KB a block, two blocks an SM; with
+    four gates it misses for both LSTM kinds (140 KB of int8 slice and
+    staging a block, one an SM, 220 blocks), and ds2_small's H=800 fits
+    for both (220 KB a block for ``"lstm_fwd"`` at b=32, one an SM, 100
+    blocks)."""
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be bf16 or f32, not {dtype}")
     smem = resident_smem_bytes(kind, h, b)
@@ -132,29 +147,31 @@ def card_limits(device: torch.device) -> Tuple[int, int, int]:
             p.shared_memory_per_multiprocessor)
 
 
-def _check(xp, mask, w, b, h0, reverse, scale=None) -> None:
-    """The forward kernels' argument rules; with ``scale`` (the int8
-    kernels) ``w`` is int8 and ``scale`` f32 ``[D,3H]``, else ``w`` has
-    xp's dtype."""
+def _check(xp, mask, w, b, h0, reverse, scale=None, gates: int = 3) -> None:
+    """The forward kernels' argument rules, for ``gates`` gates (3: the
+    GRU, 4: ``ops/lstm.py``'s LSTM); with ``scale`` (the int8 kernels)
+    ``w`` is int8 and ``scale`` f32 ``[D,GH]``, else ``w`` has xp's
+    dtype."""
+    g = f"{gates}H"
     if xp.dim() != 3 or w.dim() != 3:
-        raise ValueError(f"xp must be [T,B,3H] and w [D,H,3H]; got "
+        raise ValueError(f"xp must be [T,B,{g}] and w [D,H,{g}]; got "
                          f"{tuple(xp.shape)} and {tuple(w.shape)}")
-    t, bsz, h3 = xp.shape
+    t, bsz, gh = xp.shape
     d, h = w.shape[0], w.shape[1]
-    if h3 != 3 * h or w.shape[2] != 3 * h:
-        raise ValueError(f"xp [T,B,{h3}] and w {tuple(w.shape)} disagree "
-                         f"on 3H")
+    if gh != gates * h or w.shape[2] != gates * h:
+        raise ValueError(f"xp [T,B,{gh}] and w {tuple(w.shape)} disagree "
+                         f"on {g}")
     if len(reverse) != d:
         raise ValueError(f"reverse has {len(reverse)} flags for D={d}")
     w_dtype = xp.dtype if scale is None else torch.int8
     if xp.dtype not in _DTYPES or w.dtype != w_dtype:
         raise ValueError(f"xp must be bf16 or f32 and w {w_dtype}; got "
                          f"{xp.dtype}, {w.dtype}")
-    want = {"mask": (mask, (t, bsz)), "b": (b, (d, 3 * h))}
+    want = {"mask": (mask, (t, bsz)), "b": (b, (d, gh))}
     if h0 is not None:
         want["h0"] = (h0, (d, bsz, h))
     if scale is not None:
-        want["scale"] = (scale, (d, 3 * h))
+        want["scale"] = (scale, (d, gh))
     for name, (x, shape) in want.items():
         if tuple(x.shape) != shape or x.dtype != torch.float32:
             raise ValueError(f"{name} must be f32 {list(shape)}; got "
@@ -226,22 +243,15 @@ def gru_fwd_q_plain(xp: torch.Tensor, mask: torch.Tensor, wq: torch.Tensor,
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    """``csrc/<name>.cu`` loaded, with its C functions typed: the forward
-    kernels share one signature, the int8 forward kernels the same with
-    the scale pointer after W, the backward kernels another."""
+    """``csrc/<name>.cu`` loaded, with its error-string function (and a
+    backward kernel's scratch size) typed; ``_launch`` types the launch
+    function."""
     lib = _build.load(name)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    launch = getattr(lib, f"{name}_launch")
-    if name.startswith("gru_fwd_q"):
-        launch.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-    elif name.startswith("gru_bwd"):
-        launch.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    i = ctypes.c_int
+    if name.startswith("gru_bwd"):
         scratch = getattr(lib, f"{name}_scratch_floats")
         scratch.argtypes = [i, i, i]
         scratch.restype = ctypes.c_longlong
-    else:
-        launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-    launch.restype = i
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [i]
     err.restype = ctypes.c_char_p
@@ -257,12 +267,18 @@ def _launch(name: str, xp: torch.Tensor, mask: torch.Tensor,
             w: torch.Tensor, tensors: Sequence[Optional[torch.Tensor]],
             reverse: Tuple[bool, ...]) -> None:
     """Launch ``csrc/<name>.cu`` on PyTorch's current stream, or raise if
-    the launch is refused. ``tensors`` are the pointer arguments after
-    ``w`` in the C order (None for a null pointer)."""
+    the launch is refused. Every kernel's C function takes ``(bf16, xp,
+    mask, w, *tensors, D, T, B, H, reverse_bits, device, stream)``;
+    ``tensors`` are the pointer arguments after ``w`` in the C order
+    (None for a null pointer)."""
     lib = _lib(name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = [i, p, p, p, *[p] * len(tensors), i, i, i, i, i, i, p]
+    launch.restype = i
     t, bsz, _ = xp.shape
     d, h = w.shape[0], w.shape[1]
-    rc = getattr(lib, f"{name}_launch")(
+    rc = launch(
         int(xp.dtype == torch.bfloat16), xp.data_ptr(), mask.data_ptr(),
         w.data_ptr(), *(None if x is None else x.data_ptr() for x in tensors),
         d, t, bsz, h, sum(1 << i for i, r in enumerate(reverse) if r),

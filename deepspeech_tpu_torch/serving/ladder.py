@@ -10,12 +10,13 @@ package's, verbatim.
 
 ``recurrent_stream_bytes`` prices the recurrent weights a forward
 streams every step: 0 where a resident kernel holds them, the matrix at
-its stored width where the streamed kernel re-reads it. The port decides
-residency by the Hopper rule (``ops/gru.py`` ``resident_fits``: the
-grid's shared memory and SMs, which depend on the directions D), not by
-the TPU's 10 MB VMEM budget, so the two answers differ at some sizes:
-int8 GRU at H=1888, D=2 is resident here and streams on the TPU; bf16
-at H=1280 streams here and is resident on the TPU.
+its stored width where the streamed kernel re-reads it, for the GRU
+(3 gates) and the LSTM (4). The port decides residency by the Hopper
+rule (``ops/gru.py`` ``resident_fits``: the grid's shared memory and
+SMs, which depend on the directions D), not by the TPU's 10 MB VMEM
+budget, so the two answers differ at some sizes: int8 GRU at H=1888,
+D=2 is resident here and streams on the TPU; bf16 at H=1280 streams
+here and is resident on the TPU.
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ import torch
 from ..ops import gru
 
 _FP_DTYPES = {2: torch.bfloat16, 4: torch.float32}
+# The resident kernels' kinds in ops/gru.py's rule, by gate count: the
+# GRU's (csrc/gru_fwd.cu, csrc/gru_fwd_q.cu) and the LSTM's
+# (csrc/lstm_fwd.cu, csrc/lstm_fwd_q.cu), fp and int8.
+_KINDS = {3: ("fwd", "fwd_q"), 4: ("lstm_fwd", "lstm_fwd_q")}
 
 
 def max_batch_for_budget(param_bytes: int, per_row_bytes: int,
@@ -54,23 +59,24 @@ def recurrent_stream_bytes(hidden: int, n_gates: int, weight_bytes: int,
 
     0 where the resident kernel holds the matrices of ``directions``
     directions on a card with ``card``'s (sms, smem_per_block,
-    smem_per_sm), an H100's by default: ``csrc/gru_fwd_q.cu`` for the
-    int8 weights (``weight_bytes`` 1), ``csrc/gru_fwd.cu`` for bf16 (2)
-    or f32 (4). Else the full matrices at their stored width, which the
+    smem_per_sm), an H100's by default: ``csrc/gru_fwd_q.cu`` (GRU,
+    ``n_gates`` 3) or ``csrc/lstm_fwd_q.cu`` (LSTM, 4) for the int8
+    weights (``weight_bytes`` 1), ``csrc/gru_fwd.cu`` or
+    ``csrc/lstm_fwd.cu`` for bf16 (2) or f32 (4), judged at one batch
+    row. Else the full matrices at their stored width, which the
     streamed kernels re-read every step: ``n_gates * H^2 *
-    weight_bytes * layers * directions``. The port has the GRU
-    (``n_gates`` 3) only.
+    weight_bytes * layers * directions``.
     """
     if hidden < 1 or n_gates < 1 or weight_bytes < 1:
         raise ValueError("need hidden, n_gates, weight_bytes >= 1")
-    if n_gates != 3:
-        raise NotImplementedError(
-            f"n_gates={n_gates}: the LSTM kernels come with slice 8 of the "
-            "port")
+    if n_gates not in _KINDS:
+        raise ValueError(f"n_gates must be 3 (GRU) or 4 (LSTM), not "
+                         f"{n_gates}")
+    fp_kind, q_kind = _KINDS[n_gates]
     if weight_bytes == 1:
-        kind, dtype = "fwd_q", torch.float32
+        kind, dtype = q_kind, torch.float32
     elif weight_bytes in _FP_DTYPES:
-        kind, dtype = "fwd", _FP_DTYPES[weight_bytes]
+        kind, dtype = fp_kind, _FP_DTYPES[weight_bytes]
     else:
         raise ValueError(f"weight_bytes must be 1, 2 or 4, not "
                          f"{weight_bytes}")

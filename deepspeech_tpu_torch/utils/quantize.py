@@ -13,13 +13,15 @@ What stays f32: biases, BN scales, biases and statistics, the lookahead
 weights, anything 1-D. The model (``models/``) holds the quantized
 leaves int8 on the device and dequantizes them as ``q * scale`` in f32
 where the forward uses them, except the recurrent matrices, which go
-int8 into ``ops/gru.py``'s ``gru_fwd_q``.
+int8 into ``ops/gru.py``'s ``gru_fwd_q`` (GRU) or ``ops/lstm.py``'s
+``lstm_fwd_q`` (LSTM).
 
 ``keep_recurrent_q`` and ``kernel_regime`` answer by the Hopper
-residency rule (``ops/gru.py`` ``resident_fits("fwd_q", ...)``), not by
-the TPU's 10 MB VMEM budget: ``csrc/gru_fwd_q.cu`` (K10) holds int8 W
+residency rule (``ops/gru.py`` ``resident_fits("fwd_q", ...)``, or
+``"lstm_fwd_q"`` for an LSTM), not by the TPU's 10 MB VMEM budget:
+``csrc/gru_fwd_q.cu`` (K10) / ``csrc/lstm_fwd_q.cu`` (K16) hold int8 W
 where the grid's shared memory can, ``csrc/gru_fwd_q_stream.cu`` (K11)
-streams it elsewhere.
+/ ``csrc/lstm_fwd_q_stream.cu`` (K17) stream it elsewhere.
 """
 
 from __future__ import annotations
@@ -137,13 +139,19 @@ def quantization_error(params, qtree) -> float:
     return max(errs) if errs else 0.0
 
 
+_Q_KIND = {"gru": "fwd_q", "lstm": "lstm_fwd_q"}
+
+
 def _resident(model_cfg, card: Tuple[int, ...]) -> bool:
     """The Hopper residency rule for the int8 recurrence of this model:
-    ``csrc/gru_fwd_q.cu`` holds D x ceil(H/16) int8 slices on a card with
-    ``card``'s (sms, smem_per_block, smem_per_sm), an H100's by default.
-    The rule does not read the batch."""
+    ``csrc/gru_fwd_q.cu`` (GRU) or ``csrc/lstm_fwd_q.cu`` (LSTM) holds
+    D x ceil(H/16) int8 slices on a card with ``card``'s (sms,
+    smem_per_block, smem_per_sm), an H100's by default. Judged at one
+    batch row: the GRU's rule does not read the batch, and the LSTM's
+    cell state adds 64 bytes a row to a block."""
     d = 2 if model_cfg.bidirectional else 1
-    return gru.resident_fits("fwd_q", d, model_cfg.rnn_hidden, 1,
+    return gru.resident_fits(_Q_KIND[model_cfg.rnn_type], d,
+                             model_cfg.rnn_hidden, 1,
                              getattr(torch, model_cfg.dtype), *card)
 
 
@@ -152,13 +160,14 @@ def keep_recurrent_q(model_cfg, streaming: bool = False,
                      ) -> Optional[Callable[[str], bool]]:
     """The ``keep`` predicate for ``dequantize_params`` when the engine
     threads the recurrent matrices int8 into ``gru_fwd_q``, else None
-    (every leaf dequantized). The port's GRU layers always run the q
-    kernels (its ``rnn_impl`` "auto" and "pallas" both mean them), for a
-    non-pipelined GRU model; ``streaming=True`` (the chunked engine,
+    (every leaf dequantized). The port's GRU and LSTM layers always run
+    the q kernels (its ``rnn_impl`` "auto" and "pallas" both mean them),
+    for a non-pipelined model; ``streaming=True`` (the chunked engine,
     which carries ``h0``) also needs the resident kernel, as the JAX
-    package's carried-state q kernel is resident-only. ``card`` as
-    ``_resident`` takes it."""
-    if (model_cfg.rnn_type == "gru" and model_cfg.pipeline_stages == 1
+    package's carried-state q kernel is resident-only (its rule,
+    utils/quantize.py:160-167, with the card in place of the budget).
+    ``card`` as ``_resident`` takes it."""
+    if (model_cfg.rnn_type in _Q_KIND and model_cfg.pipeline_stages == 1
             and (not streaming or _resident(model_cfg, card))):
         return lambda path: path.endswith(("wh_fw", "wh_bw"))
     return None
@@ -167,8 +176,9 @@ def keep_recurrent_q(model_cfg, streaming: bool = False,
 def kernel_regime(model_cfg, quantized: bool, streaming: bool = False,
                   card: Tuple[int, ...] = ()) -> str:
     """Which recurrent-kernel regime an engine's forward runs in:
-    ``"resident-q"`` (int8 W held in shared memory, K10),
-    ``"blocked-q"`` (int8 W streamed every step, K11) or ``"fp"``."""
+    ``"resident-q"`` (int8 W held in shared memory, K10 / K16),
+    ``"blocked-q"`` (int8 W streamed every step, K11 / K17) or
+    ``"fp"``."""
     if not quantized or keep_recurrent_q(model_cfg, streaming,
                                          card) is None:
         return "fp"

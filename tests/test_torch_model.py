@@ -124,5 +124,10 @@ def test_every_layer_calls_gru_fwd_once(preset, reverse, impl, monkeypatch):
     ({"model.rnn_impl": "xla"}, ValueError),
 ])
 def test_unported_model_options_raise(over, exc):
+    """What the port does not run yet raises, when the model is built or
+    when it first runs a forward that may need a gradient (an LSTM
+    serves without one; its training comes with a later slice)."""
+    cfg = apply_overrides(get_config("ds2_small"),
+                          {"model.rnn_hidden": "8", **over}).model
     with pytest.raises(exc):
-        DeepSpeech2(apply_overrides(get_config("ds2_small"), over).model)
+        DeepSpeech2(cfg)(torch.zeros(1, 16, 161), torch.tensor([16]))

@@ -144,9 +144,13 @@ def test_regime_reads_the_card():
     small = get_config("ds2_small").model
     assert quantize.kernel_regime(small, True, card=SMALL_CARD) == \
         "resident-q"
+    # The LSTM (four gates) reads the card by its own kernel's rule:
+    # ds2_small's 100 int8 blocks, two an SM, fit half an H100 too.
     lstm = apply_overrides(get_config("ds2_small"),
                            {"model.rnn_type": "lstm"}).model
-    assert quantize.kernel_regime(lstm, True) == "fp"
+    assert quantize.kernel_regime(lstm, True) == "resident-q"
+    assert quantize.kernel_regime(lstm, True, card=(49,) + SMALL_CARD[1:]) \
+        == "blocked-q"
 
 
 # ---------------------------------------------------------------------------
@@ -204,8 +208,14 @@ def test_recurrent_stream_bytes_follows_the_hopper_rule(h, wb, d, same):
         h, 3, wb, layers=7, directions=d,
         card=(1, gru.H100_SMEM_PER_BLOCK, gru.H100_SMEM_PER_SM)) == \
         3 * h * h * wb * 7 * d
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        ladder.recurrent_stream_bytes(h, 4, wb)
+    # Four gates (the LSTM) price by the LSTM kernels' own rule.
+    lstm_kind = "lstm_fwd_q" if wb == 1 else "lstm_fwd"
+    lstm_resident = gru.resident_fits(lstm_kind, d, h, 1, dtype)
+    assert ladder.recurrent_stream_bytes(h, 4, wb, layers=7,
+                                         directions=d) == \
+        (0 if lstm_resident else 4 * h * h * wb * 7 * d)
+    with pytest.raises(ValueError):
+        ladder.recurrent_stream_bytes(h, 5, wb)
     with pytest.raises(ValueError):
         ladder.recurrent_stream_bytes(h, 3, 3)
 
