@@ -31,6 +31,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      streamed) at H=1760, D=2 (library: cuDNN's LSTM in bf16 at the
      same H, the forget gate's +1 folded into its ``bias_hh``, on the
      dequantized W for the int8 kernels);
+   - ``lstm_bwd`` (W resident) at H=800, D=2 and D=1, and
+     ``lstm_bwd_stream`` (W streamed) at ds2_full's H=1760, D=2 (also
+     timed at H=800), on the tape of ``lstm_fwd(..., tape=True)``
+     (library: cuDNN's bf16 LSTM backward alone, the +1 folded as
+     above);
    each GRU kernel at D=2 and D=1 (the forward with h0), bf16 and f32,
    and at one ragged shape off its tiles, each checked to have run the
    kernel meant (resident or streamed) by the launch counts; each LSTM
@@ -61,15 +66,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    version, beside an LSTM with one direction reversed;
 5. training path phases: ``Trainer`` steps at the full width of
    ds2_small, ds2_streaming and ds2_full on a (32, 1700) batch of
-   ragged lengths; counts the launches per step (one GRU forward and
-   one backward per layer: resident for the first two, streamed for
-   ds2_full), holds the whole model's gradient against the same step
-   with every kernel patched to its plain version, in bf16 and f32
-   (and a mis-directed ``gru_bwd`` that the check must reject), and
-   takes AdamW steps on the fixed batch whose loss, measured without a
-   gradient (the loss-only kernel), must fall;
-6. prints a ``{"kernels": [...]}`` line, the card line, and as the last
-   line ``{"ok": true, "device": {...}}``.
+   ragged lengths, GRU and then LSTM (``model.rnn_type=lstm``; the
+   ds2_full GRU phase at 2 of its 7 layers, to save time); counts
+   the launches per step (one recurrent forward and one backward per
+   layer: ``gru_fwd``/``gru_bwd`` or the taped ``lstm_fwd`` and
+   ``lstm_bwd`` for the first two, the streamed kernels for ds2_full;
+   no kernel of the other cell), holds the whole model's gradient
+   against the same step with every kernel patched to its plain
+   version, in bf16 and f32 (and a mis-directed backward that the check
+   must reject), and takes AdamW steps on the fixed batch whose loss,
+   measured without a gradient (the loss-only kernel), must fall;
+6. prints each phase's seconds on a line of its own, a
+   ``{"kernels": [...]}`` line, the card line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; without CUDA it
 exits non-zero before printing any result.
@@ -124,6 +133,9 @@ DESCENT_STEPS = 10              # AdamW steps on the fixed batch
 # ds2_full (7 BiGRU, H=1760): a step takes seconds, so fewer of them.
 FULL_TRAIN_STEPS = 2
 FULL_DESCENT_STEPS = 5
+# The ds2_full GRU train phase runs 2 of its 7 layers at full width, to
+# keep the script within its time (the ds2_full-lstm phase runs all 7).
+FULL_GRU_TRAIN_LAYERS = 2
 # The TPU kernels the GRU kernels replace (deepspeech_tpu/ops/).
 K4 = "deepspeech_tpu/ops/rnn_pallas.py:155"   # _bigru_kernel
 K5 = "deepspeech_tpu/ops/rnn_pallas.py:211"   # _bigru_bwd_kernel
@@ -138,11 +150,24 @@ K12 = "deepspeech_tpu/ops/lstm_pallas.py:89"   # _lstm_kernel
 K14 = "deepspeech_tpu/ops/lstm_pallas.py:116"  # _lstm_kernel_blocked
 K16 = "deepspeech_tpu/ops/lstm_pallas.py:292"  # _lstm_kernel_q
 K17 = "deepspeech_tpu/ops/lstm_pallas.py:315"  # _lstm_kernel_blocked_q
+K13 = "deepspeech_tpu/ops/lstm_pallas.py:147"  # _lstm_bwd_kernel
+K15 = "deepspeech_tpu/ops/lstm_pallas.py:174"  # _lstm_bwd_kernel_blocked
 
 
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def _phase(name: str, fn, *args):
+    """Run one phase, print its seconds on a line of its own, and return
+    what it returned."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": name, "seconds": time.perf_counter() - t0}),
+          flush=True)
+    return out
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -467,6 +492,99 @@ def lstm_kernel_phase(gen, kernel: str, h: int, timed):
         print(json.dumps({"timed": entries[-1]["name"], "ms": ms,
                           "plain_ms": plain_ms, "library_ms": library_ms,
                           "bound_ms": bound_ms, **extra}), flush=True)
+    return entries
+
+
+def lstm_bwd_kernel_phase(gen, kernel: str, h: int, timed):
+    """Hold ``ops.lstm.<kernel>`` (``lstm_bwd``, the resident kernel at
+    these sizes, or ``lstm_bwd_stream``) against ``lstm_bwd_plain`` on
+    the ys and cs tape of ``lstm_fwd(..., tape=True)`` at T'=850, B=32
+    and width ``h`` for each D of ``timed``, bf16 and f32, and at ragged
+    shapes off the tiles; two runs must give the same bits. Then time it
+    for each ``(d, replaces)`` of ``timed`` beside its bound, its plain
+    version and cuDNN's LSTM backward."""
+    from deepspeech_tpu_torch.ops import lstm
+
+    fn = getattr(lstm, kernel)
+
+    def inputs(d, dtype, shape):
+        args, valid = _lstm_inputs(d, dtype, gen, *shape)
+        xp, mask, w, bias, reverse = args
+        ys, cs = lstm.lstm_fwd(*args, tape=True)
+        dy = torch.randn(ys.shape, generator=gen, device="cuda") * 0.1
+        return (xp, mask, w, bias, ys, cs, dy, reverse), valid
+
+    cases = [(f"D{d}_{dn}", d, dtype, (T, B, h)) for d, _ in timed
+             for dn, dtype in (("bf16", torch.bfloat16),
+                               ("f32", torch.float32))]
+    cases += [("D2_bf16_ragged", 2, torch.bfloat16, (37, 45, 100)),
+              ("D1_f32_ragged", 1, torch.float32, (37, 45, 100))]
+    _zero_counts()
+    checks = {}
+    for name, d, dtype, shape in cases:
+        args, _ = inputs(d, dtype, shape)
+        dg, dg2 = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        err = float((dg - lstm.lstm_bwd_plain(*args)).abs().max())
+        _require(bool(torch.isfinite(dg).all()), f"{kernel} {name}: "
+                 "non-finite")
+        _require(err <= TOL[dtype],
+                 f"{kernel} {name}: max |kernel - plain| {err} > "
+                 f"{TOL[dtype]}")
+        _require(torch.equal(dg, dg2),
+                 f"{kernel} {name}: two runs on one input differ")
+        checks[name] = {"max_abs_err": err, "tol": TOL[dtype],
+                        "bit_identical": True}
+        print(json.dumps({"check": f"{kernel} {name}", "max_abs_err": err,
+                          "tol": TOL[dtype], "bit_identical": True}),
+              flush=True)
+    _require_only(kernel, 2 * len(checks))
+
+    entries = []
+    for d, replaces in timed:
+        args, valid = inputs(d, torch.bfloat16, (T, B, h))
+        ms = _time_ms(lambda: fn(*args), reps=3)
+        plain_ms = _time_ms(lambda: lstm.lstm_bwd_plain(*args), reps=1)
+        # Yardstick: the backward of cuDNN's bf16 LSTM (input and weight
+        # gradients), timed apart from its forward.
+        xp, mask, w, bias, ys, cs, dy, reverse = args
+        lib = _cudnn_lstm((xp, mask, w, bias, reverse), h)
+        x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_()
+        out, _ = lib(x_lib)
+        g_out = torch.randn_like(out)
+        leaves = [x_lib, *lib.parameters()]
+        library_ms = _time_ms(lambda: torch.autograd.grad(
+            out, leaves, g_out, retain_graph=True), reps=3)
+        del out, g_out, leaves, lib, x_lib
+        extra = {}
+        if kernel.endswith("_stream"):
+            # The streamed kernel where the resident one runs (H=800).
+            args_h, _ = inputs(d, torch.bfloat16, (T, B, H))
+            extra["ms_at_h800"] = _time_ms(lambda: fn(*args_h), reps=2)
+            del args_h
+        # Two [B,H]x[H,4H] products per valid step (gate recompute and
+        # dgates @ W^T) over the bf16 peak; the inputs read once and
+        # dgates written once.
+        bound_ms, bound_by = _roofline(
+            _nbytes(xp, mask, w, bias, ys, cs, dy) + 4 * d * T * B * 4 * h,
+            2 * 2.0 * valid * d * h * 4 * h, PEAK_BF16_FLOPS)
+        entries.append({
+            "name": f"{kernel}[D={d}]", "route": "cuda",
+            "source": f"deepspeech_tpu_torch/csrc/{kernel}.cu",
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": checks[f"D{d}_bf16"]["max_abs_err"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library": "cuDNN LSTM backward, bf16", **extra,
+            "shape": {"D": d, "T": T, "B": B, "H": h, "dtype": "bfloat16",
+                      "valid_rows": valid},
+            "checks": {k: v for k, v in checks.items()
+                       if k.startswith(f"D{d}_")}})
+        print(json.dumps({"timed": entries[-1]["name"], "ms": ms,
+                          "plain_ms": plain_ms, "library_ms": library_ms,
+                          "bound_ms": bound_ms, **extra}), flush=True)
+        del args
     return entries
 
 
@@ -989,7 +1107,7 @@ def _group_rel(got, ref):
 
 
 _LSTM_KERNELS = ("lstm_fwd", "lstm_fwd_stream", "lstm_fwd_q",
-                 "lstm_fwd_q_stream")
+                 "lstm_fwd_q_stream", "lstm_bwd", "lstm_bwd_stream")
 
 
 def _counts():
@@ -1020,19 +1138,26 @@ def _zero_counts() -> None:
 
 
 def train_phase(preset: str, layers: int, streamed: bool, steps: int,
-                descent_steps: int):
-    """``Trainer`` steps on ``preset`` at full width; its layers must run
-    the streamed GRU kernels when ``streamed``, else the resident ones,
-    one forward and one backward launch per layer per step. ``steps``
-    timed steps, ``descent_steps`` AdamW steps on the fixed batch."""
+                descent_steps: int, rnn_type: str = "gru"):
+    """``Trainer`` steps on ``preset`` with ``rnn_type`` cells at full
+    width and ``layers`` recurrent layers (the preset's depth, or fewer
+    to cut the phase's time); its layers must run the streamed kernels
+    of that cell when ``streamed``, else the resident ones
+    (``gru_fwd``/``gru_bwd``, or ``lstm_fwd`` with its tape and
+    ``lstm_bwd``), one forward and one backward launch per layer per
+    step, and no kernel of the other cell. ``steps`` timed steps,
+    ``descent_steps`` AdamW steps on the fixed batch."""
     from deepspeech_tpu_torch.bridge import init_params
-    from deepspeech_tpu_torch.config import apply_overrides, get_config
+    from deepspeech_tpu_torch.config import apply_overrides
     from deepspeech_tpu_torch.data import CharTokenizer
-    from deepspeech_tpu_torch.ops import ctc, gru
+    from deepspeech_tpu_torch.ops import ctc, gru, lstm
     from deepspeech_tpu_torch.ops.ctc import ctc_loss_mean
     from deepspeech_tpu_torch.train import Trainer, to_device
 
-    cfg = apply_overrides(get_config(preset), {"train.checkpoint_dir": ""})
+    cfg = apply_overrides(_config(preset, rnn_type),
+                          {"train.checkpoint_dir": "",
+                           "model.rnn_layers": str(layers)})
+    path = preset if rnn_type == "gru" else f"{preset}-{rnn_type}"
     params, stats = init_params(cfg, torch.Generator().manual_seed(SEED))
     batch = _train_batch(cfg, np.random.default_rng(SEED))
     pipe, tok = _FixedBatch(batch), CharTokenizer.english()
@@ -1046,45 +1171,51 @@ def train_phase(preset: str, layers: int, streamed: bool, steps: int,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _counts()
-    fwd, bwd = (("gru_fwd_stream", "gru_bwd_stream") if streamed
-                else ("gru_fwd", "gru_bwd"))
+    fwd, bwd = (f"{rnn_type}_fwd", f"{rnn_type}_bwd")
+    if streamed:
+        fwd, bwd = f"{fwd}_stream", f"{bwd}_stream"
     want = {k: 0 for k in counts}
     want.update({fwd: layers * steps, bwd: layers * steps,
                  "ctc_alpha": steps, "ctc_beta": steps})
-    _require(counts == want, f"{preset} train: launches {counts} in "
+    _require(counts == want, f"{path} train: launches {counts} in "
              f"{steps} steps, want {want}")
     metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
     _require(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
-                 for m in metrics), f"{preset} train: non-finite {metrics}")
+                 for m in metrics), f"{path} train: non-finite {metrics}")
 
     # The whole model's gradient against the same step with every kernel
-    # patched to its plain version, and against a gru_bwd whose first
-    # direction runs the wrong way through time, which must fail.
-    real_bwd = gru.gru_bwd
+    # patched to its plain version, and against a backward whose first
+    # direction runs the wrong way through time, which must fail. Each
+    # layer calls its cell's wrappers through the module's names, with
+    # ``reverse`` last.
+    ops = gru if rnn_type == "gru" else lstm
+    wrapper = f"{rnn_type}_bwd"
+    plain = {f"{rnn_type}_fwd": getattr(ops, f"{rnn_type}_fwd_plain"),
+             wrapper: getattr(ops, f"{wrapper}_plain")}
+    real_bwd = getattr(ops, wrapper)
 
-    def misdirected(xp, mask, w, b, ys, dy, reverse):
-        return real_bwd(xp, mask, w, b, ys, dy,
-                        [not reverse[0], *reverse[1:]])
+    def misdirected(*args):
+        *rest, reverse = args
+        return real_bwd(*rest, [not reverse[0], *reverse[1:]])
 
     misdirected.launches = 0  # as in path_phase's control
 
     dev = to_device(batch, trainer.device)
     g_kernel = _grads(trainer.model, dev)
-    with mock.patch.multiple(gru, gru_fwd=gru.gru_fwd_plain,
-                             gru_bwd=gru.gru_bwd_plain), \
+    with mock.patch.multiple(ops, **plain), \
             mock.patch.multiple(ctc, ctc_alpha=ctc.ctc_alpha_plain,
                                 ctc_beta=ctc.ctc_beta_plain):
         t1 = time.perf_counter()
         g_plain = _grads(trainer.model, dev)
         plain_s = time.perf_counter() - t1
-    with mock.patch.object(gru, "gru_bwd", misdirected):
+    with mock.patch.object(ops, wrapper, misdirected):
         g_bad = _grads(trainer.model, dev)
     rel, rel_bad = _group_rel(g_kernel, g_plain), _group_rel(g_bad, g_plain)
     _require(max(rel.values()) <= GRAD_REL_TOL,
-             f"{preset}: gradient differs from the plain path by {rel} > "
+             f"{path}: gradient differs from the plain path by {rel} > "
              f"{GRAD_REL_TOL} (relative, per group)")
     _require(max(rel_bad.values()) > GRAD_REL_TOL,
-             f"{preset}: a mis-directed gru_bwd reads {rel_bad}, within "
+             f"{path}: a mis-directed {wrapper} reads {rel_bad}, within "
              f"{GRAD_REL_TOL}: the check cannot tell it from the kernel")
     del trainer, g_kernel, g_plain, g_bad
 
@@ -1092,8 +1223,7 @@ def train_phase(preset: str, layers: int, streamed: bool, steps: int,
     cfg32 = apply_overrides(cfg, {"model.dtype": "float32"})
     m32 = Trainer(cfg32, pipe, tok, params=params, batch_stats=stats).model
     g32 = _grads(m32, dev)
-    with mock.patch.multiple(gru, gru_fwd=gru.gru_fwd_plain,
-                             gru_bwd=gru.gru_bwd_plain), \
+    with mock.patch.multiple(ops, **plain), \
             mock.patch.multiple(ctc, ctc_alpha=ctc.ctc_alpha_plain,
                                 ctc_beta=ctc.ctc_beta_plain):
         g32_plain = _grads(m32, dev)
@@ -1101,7 +1231,7 @@ def train_phase(preset: str, layers: int, streamed: bool, steps: int,
         floor32 = _group_rel(_grads(m32, nudged), g32_plain)
     rel32 = _group_rel(g32, g32_plain)
     _require(max(rel32.values()) <= GRAD_REL_TOL_F32,
-             f"{preset}: f32 gradient differs from the plain path by "
+             f"{path}: f32 gradient differs from the plain path by "
              f"{rel32} > {GRAD_REL_TOL_F32} (relative, per group)")
     del m32, g32, g32_plain
 
@@ -1127,18 +1257,18 @@ def train_phase(preset: str, layers: int, streamed: bool, steps: int,
     descent = _counts()
     _require(descent["loss_only"] == 2 and descent["ctc_beta"]
              == descent_steps and descent[bwd] == layers * descent_steps,
-             f"{preset} descent: launches {descent}")
-    _require(loss1 < loss0, f"{preset}: loss on the fixed batch went "
+             f"{path} descent: launches {descent}")
+    _require(loss1 < loss0, f"{path}: loss on the fixed batch went "
              f"{loss0} -> {loss1} over {descent_steps} AdamW steps")
     n = cfg.data.batch_size
     print(json.dumps({
-        "path": f"{preset} train", "batch": [n, 1700],
+        "path": f"{path} train", "layers": layers, "batch": [n, 1700],
         "frames": [int(x) for x in batch["feat_lens"]][:4] + ["..."],
         "steps": steps, "seconds": seconds,
         "steps_per_s": steps / seconds,
         "utt_per_s": steps * n / seconds,
         "launches_per_step": {k: v / steps for k, v in counts.items()},
-        "gru_launches_per_layer_step": {
+        "launches_per_layer_step": {
             k: counts[k] / steps / layers for k in (fwd, bwd)},
         "losses": [m["loss"] for m in metrics],
         "grad_norms": [m["grad_norm"] for m in metrics],
@@ -1151,7 +1281,7 @@ def train_phase(preset: str, layers: int, streamed: bool, steps: int,
                     "loss_after": loss1,
                     "loss_only_launches": descent["loss_only"]}}),
           flush=True)
-    return {"gru_bwd": counts[bwd], "ctc_alpha": counts["ctc_alpha"],
+    return {"bwd": counts[bwd], "ctc_alpha": counts["ctc_alpha"],
             "ctc_beta": counts["ctc_beta"],
             "loss_only": descent["loss_only"]}
 
@@ -1181,41 +1311,45 @@ def main() -> int:
 
     h_full = get_config("ds2_full").model.rnn_hidden
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    phases = (gru_fwd_kernel_phase(gen, "gru_fwd", H, [(2, K4), (1, K6)])
-              + gru_bwd_kernel_phase(gen, "gru_bwd", H, [(2, K5), (1, K7)])
-              + ctc_kernel_phase(gen)
-              + gru_fwd_kernel_phase(gen, "gru_fwd_stream", h_full,
-                                     [(2, K8)])
-              + gru_bwd_kernel_phase(gen, "gru_bwd_stream", h_full,
-                                     [(2, K9)])
-              + gru_fwd_kernel_phase(gen, "gru_fwd_q", h_full, [(2, K10)],
-                                     d1_h=H)
-              + gru_fwd_kernel_phase(gen, "gru_fwd_q_stream", h_full,
-                                     [(2, K11)])
-              + lstm_kernel_phase(gen, "lstm_fwd", H, [(2, K12), (1, K12)])
-              + lstm_kernel_phase(gen, "lstm_fwd_stream", h_full,
-                                  [(2, K14)])
-              + lstm_kernel_phase(gen, "lstm_fwd_q", H, [(2, K16)])
-              + lstm_kernel_phase(gen, "lstm_fwd_q_stream", h_full,
-                                  [(2, K17)]))
-    entries = {e["name"]: e for e in phases}
+    entries = {}
+    for name, fn, *args in (
+            ("gru_fwd", gru_fwd_kernel_phase, H, [(2, K4), (1, K6)]),
+            ("gru_bwd", gru_bwd_kernel_phase, H, [(2, K5), (1, K7)]),
+            ("ctc", ctc_kernel_phase),
+            ("gru_fwd_stream", gru_fwd_kernel_phase, h_full, [(2, K8)]),
+            ("gru_bwd_stream", gru_bwd_kernel_phase, h_full, [(2, K9)]),
+            ("gru_fwd_q", functools.partial(gru_fwd_kernel_phase, d1_h=H),
+             h_full, [(2, K10)]),
+            ("gru_fwd_q_stream", gru_fwd_kernel_phase, h_full, [(2, K11)]),
+            ("lstm_fwd", lstm_kernel_phase, H, [(2, K12), (1, K12)]),
+            ("lstm_fwd_stream", lstm_kernel_phase, h_full, [(2, K14)]),
+            ("lstm_fwd_q", lstm_kernel_phase, H, [(2, K16)]),
+            ("lstm_fwd_q_stream", lstm_kernel_phase, h_full, [(2, K17)]),
+            ("lstm_bwd", lstm_bwd_kernel_phase, H, [(2, K13), (1, K13)]),
+            ("lstm_bwd_stream", lstm_bwd_kernel_phase, h_full, [(2, K15)])):
+        kernel = () if name == "ctc" else (name,)
+        for e in _phase(f"{name} kernel", fn, gen, *kernel, *args):
+            entries[e["name"]] = e
     # Inference: one GRU forward launch per layer per forward, bf16 and
     # then int8 on the same weights. ds2_full int8 is this slice's main
     # path (K10); with the resident int8 kernel refused it streams (K11).
     for preset, layers, name in (("ds2_small", 3, "gru_fwd[D=2]"),
                                  ("ds2_streaming", 5, "gru_fwd[D=1]"),
                                  ("ds2_full", 7, "gru_fwd_stream[D=2]")):
-        entries[name]["launches"] = path_phase(
-            preset, layers, name.split("[")[0])
-        q_launches = path_phase(preset, layers, "gru_fwd_q", "int8")
+        entries[name]["launches"] = _phase(
+            f"{preset} decode", path_phase, preset, layers,
+            name.split("[")[0])
+        q_launches = _phase(f"{preset} int8 decode", path_phase, preset,
+                            layers, "gru_fwd_q", "int8")
         if preset != "ds2_full":
             continue
         entries["gru_fwd_q[D=2]"]["launches"] = q_launches
         with mock.patch.object(gru, "resident_fits",
                                _refusing_fwd_q(gru.resident_fits)):
-            entries["gru_fwd_q_stream[D=2]"]["launches"] = path_phase(
-                preset, layers, "gru_fwd_q_stream", "int8")
-        quant_effect_phase(preset)
+            entries["gru_fwd_q_stream[D=2]"]["launches"] = _phase(
+                f"{preset} int8 blocked-q decode", path_phase, preset,
+                layers, "gru_fwd_q_stream", "int8")
+        _phase(f"{preset} quant_effect", quant_effect_phase, preset)
     # The LSTM variants of the same presets (model.rnn_type=lstm): one
     # LSTM forward launch per layer per forward, bf16 and then int8 on
     # the same weights. At ds2_full's H=1760 both stream (K14, K17).
@@ -1225,19 +1359,28 @@ def main() -> int:
             ("ds2_streaming", 5, "lstm_fwd[D=1]", ""),
             ("ds2_full", 7, "lstm_fwd_stream[D=2]", ""),
             ("ds2_full", 7, "lstm_fwd_q_stream[D=2]", "int8")):
-        entries[name]["launches"] = path_phase(
-            preset, layers, name.split("[")[0], quantize, "lstm")
+        entries[name]["launches"] = _phase(
+            f"{preset}-lstm {quantize or 'bf16'} decode", path_phase, preset,
+            layers, name.split("[")[0], quantize, "lstm")
     _weights.cache_clear()
-    # Training: one forward and one backward launch per layer per step.
-    for preset, layers, name, streamed, steps, descent in (
+    # Training: one forward and one backward launch per layer per step,
+    # GRU and then LSTM (the LSTM's forward with its tape).
+    for preset, layers, name, streamed, steps, descent, rnn_type in (
             ("ds2_small", 3, "gru_bwd[D=2]", False, TRAIN_STEPS,
-             DESCENT_STEPS),
+             DESCENT_STEPS, "gru"),
             ("ds2_streaming", 5, "gru_bwd[D=1]", False, TRAIN_STEPS,
-             DESCENT_STEPS),
-            ("ds2_full", 7, "gru_bwd_stream[D=2]", True, FULL_TRAIN_STEPS,
-             FULL_DESCENT_STEPS)):
-        counts = train_phase(preset, layers, streamed, steps, descent)
-        entries[name]["launches"] = counts["gru_bwd"]
+             DESCENT_STEPS, "gru"),
+            ("ds2_full", FULL_GRU_TRAIN_LAYERS, "gru_bwd_stream[D=2]", True,
+             FULL_TRAIN_STEPS, FULL_DESCENT_STEPS, "gru"),
+            ("ds2_small", 3, "lstm_bwd[D=2]", False, TRAIN_STEPS,
+             DESCENT_STEPS, "lstm"),
+            ("ds2_streaming", 5, "lstm_bwd[D=1]", False, TRAIN_STEPS,
+             DESCENT_STEPS, "lstm"),
+            ("ds2_full", 7, "lstm_bwd_stream[D=2]", True, FULL_TRAIN_STEPS,
+             FULL_DESCENT_STEPS, "lstm")):
+        counts = _phase(f"{preset}-{rnn_type} train", train_phase, preset,
+                        layers, streamed, steps, descent, rnn_type)
+        entries[name]["launches"] = counts["bwd"]
         for ctc_name, key in (("ctc_alpha", "ctc_alpha"),
                               ("ctc_alpha[loss_only]", "loss_only"),
                               ("ctc_beta", "ctc_beta")):
@@ -1247,7 +1390,8 @@ def main() -> int:
         "ctc_beta", "gru_bwd[D=2]", "gru_bwd[D=1]", "gru_fwd_stream[D=2]",
         "gru_bwd_stream[D=2]", "gru_fwd_q[D=2]", "gru_fwd_q_stream[D=2]",
         "lstm_fwd[D=2]", "lstm_fwd[D=1]", "lstm_fwd_stream[D=2]",
-        "lstm_fwd_q[D=2]", "lstm_fwd_q_stream[D=2]")]
+        "lstm_fwd_q[D=2]", "lstm_fwd_q_stream[D=2]", "lstm_bwd[D=2]",
+        "lstm_bwd[D=1]", "lstm_bwd_stream[D=2]")]
     for e in entries:
         _require(e["launches"] > 0, f"{e['name']} never launched")
     print(json.dumps({"kernels": entries, "card": card}), flush=True)

@@ -44,7 +44,7 @@ class ModelConfig:
     # RNN stack.
     rnn_layers: int = 3
     rnn_hidden: int = 800
-    rnn_type: str = "gru"  # "gru" | "lstm" (lstm: inference only so far)
+    rnn_type: str = "gru"  # "gru" | "lstm"
     bidirectional: bool = True
     # Streaming variant: unidirectional + lookahead conv over future frames.
     lookahead_context: int = 0  # 0 disables lookahead conv

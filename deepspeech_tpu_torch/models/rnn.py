@@ -13,9 +13,11 @@ A GRU layer's recurrence is ``ops/gru.py``'s ``GRUFunction``: one
 call in the backward, so gradients reach ``wx``, ``wh_*`` and
 ``bh_*``; each call launches one kernel, resident or streamed as
 ``ops/gru.py``'s ``resident_fits`` decides (ds2_full's H=1760 streams).
-An LSTM layer (``rnn_type="lstm"``, inference only in this slice) makes
-one ``ops/lstm.py`` ``lstm_fwd`` call per layer, both directions in it,
-where the JAX model calls ``lstm_scan_pallas`` once per direction
+An LSTM layer (``rnn_type="lstm"``) is ``ops/lstm.py``'s
+``LSTMFunction`` when a gradient may be needed: one taped ``lstm_fwd``
+call per layer, both directions in it, and one ``lstm_bwd`` call in the
+backward; without a gradient it makes the one ``lstm_fwd`` call
+untaped. The JAX model calls ``lstm_scan_pallas`` once per direction
 (models/rnn.py:242-251): the same function. ``gru_scan`` and
 ``lstm_scan`` below are the plain oracles with the JAX package's
 signatures; the tests hold them to the JAX ones, and no layer calls
@@ -49,12 +51,10 @@ from ..config import ModelConfig
 from ..ops import gru as gru_ops
 from ..ops import lstm as lstm_ops
 from ..ops.gru import GRUFunction, gru_fwd_plain
-from ..ops.lstm import lstm_plain_loop
+from ..ops.lstm import LSTMFunction, lstm_plain_loop
 from .layers import Dense, MaskedBatchNorm, QWeight, length_mask
 
 _N_GATES = {"gru": 3, "lstm": 4}
-_LSTM_TRAINING = ("slice 8b of the port (LSTM training: the backward "
-                  "kernels K13/K15)")
 
 
 def gru_scan(xproj: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor,
@@ -156,11 +156,13 @@ class RNNLayer(nn.Module):
         dtype = getattr(torch, cfg.dtype)
         mask = length_mask(lens, x.shape[1])
         lstm = cfg.rnn_type == "lstm"
-        if lstm and self._may_need_grad(x):
-            raise NotImplementedError(
-                "an LSTM layer runs forward only: its gradient comes with "
-                f"{_LSTM_TRAINING}; run it under torch.no_grad() or "
-                "torch.inference_mode()")
+        grad = self._may_need_grad(x)
+        if self.quantized and grad:
+            raise RuntimeError(
+                "a quantized model is for inference only (the int8 GRU and "
+                "LSTM kernels have no backward, as gru_scan_pallas_q and "
+                "lstm_scan_pallas_q have no VJP): run it under "
+                "torch.no_grad() or torch.inference_mode()")
         if cfg.rnn_batch_norm:
             x = self.bn(x, mask)
         xp_t = self.wx(x.transpose(0, 1), dtype).contiguous()  # [T, B, GH]
@@ -172,17 +174,14 @@ class RNNLayer(nn.Module):
             ys = lstm_ops.lstm_fwd_q(
                 xp_t, mask_t, torch.stack([w.q for w in whs]),
                 torch.stack([w.scale for w in whs]), bh.float(), reverse)
+        elif lstm and grad:
+            ys = LSTMFunction.apply(xp_t, mask_t, torch.stack(whs),
+                                    bh.float(), None, reverse)
         elif lstm:
             ys = lstm_ops.lstm_fwd(
                 xp_t, mask_t, torch.stack(whs).to(xp_t.dtype).contiguous(),
                 bh.float(), reverse)
         elif self.quantized:
-            if self._may_need_grad(x):
-                raise RuntimeError(
-                    "a quantized model is for inference only (the int8 GRU "
-                    "kernels have no backward, as gru_scan_pallas_q has no "
-                    "VJP): run it under torch.no_grad() or "
-                    "torch.inference_mode()")
             ys, _ = gru_ops.gru_fwd_q(
                 xp_t, mask_t,
                 torch.stack([w.q for w in whs]),

@@ -75,7 +75,7 @@ _SMEM_RESERVED_PER_BLOCK = 1024
 _U, _KC, _ROWS, _THREADS = 16, 64, 32, 256
 _MAX_THREADS_PER_SM = 2048
 # The resident kernels the rule below knows: the GRU's and the LSTM's.
-_KINDS = ("fwd", "bwd", "fwd_q", "lstm_fwd", "lstm_fwd_q")
+_KINDS = ("fwd", "bwd", "fwd_q", "lstm_fwd", "lstm_fwd_q", "lstm_bwd")
 
 
 def resident_smem_bytes(kind: str, h: int, b: int) -> int:
@@ -88,7 +88,11 @@ def resident_smem_bytes(kind: str, h: int, b: int) -> int:
     The LSTM kernels (``"lstm_fwd"``: ``csrc/lstm_fwd.cu``,
     ``"lstm_fwd_q"``: ``csrc/lstm_fwd_q.cu``) lay out the same with four
     gates, a ``[H, 64]`` slice, and add the cell state of the block's
-    units for ``b`` batch rows as f32."""
+    units for ``b`` batch rows as f32. The LSTM backward (``"lstm_bwd"``:
+    ``csrc/lstm_bwd.cu``) keeps the slice and one ``[32, 68]`` tile,
+    which holds the h_prev chunk during the gate recompute and the
+    dgates tile after it (four gates of 16 units are the chunk's 64
+    columns), and adds dh and dc of the block's units for ``b`` rows."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be one of {_KINDS}, not {kind!r}")
     h_pad = -(-h // _KC) * _KC
@@ -99,6 +103,8 @@ def resident_smem_bytes(kind: str, h: int, b: int) -> int:
     floats = gc * (h_pad + 4) + _ROWS * (_KC + 4)
     if kind == "bwd":
         floats += _ROWS * (3 * _U + 4) + 2 * b * _U
+    elif kind == "lstm_bwd":
+        floats += 2 * b * _U
     elif kind == "lstm_fwd":
         floats += b * _U
     return 4 * floats
@@ -111,13 +117,14 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
     """Whether the resident kernel (``csrc/gru_fwd.cu`` for ``kind=
     "fwd"``, ``csrc/gru_bwd.cu`` for ``"bwd"``, ``csrc/gru_fwd_q.cu``
     for ``"fwd_q"``, ``csrc/lstm_fwd.cu`` for ``"lstm_fwd"``,
-    ``csrc/lstm_fwd_q.cu`` for ``"lstm_fwd_q"``) can run D directions of
-    H units at batch ``b`` on a card with these limits: its shared
-    memory per block within what a block may have, and its D * ceil(H/16)
-    blocks all resident at once, as the grid barrier needs. When not,
-    ``gru_fwd``/``gru_bwd``/``gru_fwd_q`` and ``ops/lstm.py``'s
-    ``lstm_fwd``/``lstm_fwd_q`` launch the streamed kernel. The card's
-    values default to an H100's, so the rule runs without a card.
+    ``csrc/lstm_fwd_q.cu`` for ``"lstm_fwd_q"``, ``csrc/lstm_bwd.cu`` for
+    ``"lstm_bwd"``) can run D directions of H units at batch ``b`` on a
+    card with these limits: its shared memory per block within what a
+    block may have, and its D * ceil(H/16) blocks all resident at once,
+    as the grid barrier needs. When not, ``gru_fwd``/``gru_bwd``/
+    ``gru_fwd_q`` and ``ops/lstm.py``'s ``lstm_fwd``/``lstm_fwd_q``/
+    ``lstm_bwd`` launch the streamed kernel. The card's values default
+    to an H100's, so the rule runs without a card.
 
     The Hopper counterpart of the TPU package's ``fits_vmem``,
     ``_use_blocked`` and ``bigru_fits_vmem`` (rnn_pallas.py:66, :455,
@@ -128,7 +135,8 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
     four gates it misses for both LSTM kinds (140 KB of int8 slice and
     staging a block, one an SM, 220 blocks), and ds2_small's H=800 fits
     for both (220 KB a block for ``"lstm_fwd"`` at b=32, one an SM, 100
-    blocks)."""
+    blocks) and for ``"lstm_bwd"`` (222 KB at b=32, in bf16 and f32;
+    ds2_full's H=1760 misses)."""
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be bf16 or f32, not {dtype}")
     smem = resident_smem_bytes(kind, h, b)
@@ -248,7 +256,7 @@ def _lib(name: str) -> ctypes.CDLL:
     function."""
     lib = _build.load(name)
     i = ctypes.c_int
-    if name.startswith("gru_bwd"):
+    if name.startswith(("gru_bwd", "lstm_bwd")):
         scratch = getattr(lib, f"{name}_scratch_floats")
         scratch.argtypes = [i, i, i]
         scratch.restype = ctypes.c_longlong
@@ -489,10 +497,13 @@ def gru_bwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     return dxp, dgates
 
 
-def _check_bwd(xp, mask, w, b, ys, dy, reverse) -> None:
-    _check(xp, mask, w, b, None, reverse)
+def _check_bwd(xp, mask, w, b, reverse, gates: int = 3, **tapes) -> None:
+    """The backward kernels' argument rules: the forward's for ``gates``
+    gates, and each of ``tapes`` (``ys``, ``dy``; the LSTM's ``cs``)
+    contiguous f32 ``[D,T,B,H]`` on xp's device."""
+    _check(xp, mask, w, b, None, reverse, gates=gates)
     d, t, bsz, h = w.shape[0], xp.shape[0], xp.shape[1], w.shape[1]
-    for name, x in (("ys", ys), ("dy", dy)):
+    for name, x in tapes.items():
         if (tuple(x.shape) != (d, t, bsz, h) or x.dtype != torch.float32
                 or x.device != xp.device or not x.is_contiguous()):
             raise ValueError(f"{name} must be contiguous f32 "
@@ -537,7 +548,7 @@ def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     and ``gru_bwd_stream`` otherwise; a refused launch raises.
     """
     reverse = tuple(bool(r) for r in reverse)
-    _check_bwd(xp, mask, w, b, ys, dy, reverse)
+    _check_bwd(xp, mask, w, b, reverse, ys=ys, dy=dy)
     if xp.device.type == "cpu":
         return gru_bwd_plain(xp, mask, w, b, ys, dy, reverse)
     _require_cuda(xp, "gru_bwd")
@@ -565,7 +576,7 @@ def gru_bwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     a CUDA tensor launches the kernel (one launch, counted in
     ``gru_bwd_stream.launches``) or raises."""
     reverse = tuple(bool(r) for r in reverse)
-    _check_bwd(xp, mask, w, b, ys, dy, reverse)
+    _check_bwd(xp, mask, w, b, reverse, ys=ys, dy=dy)
     if xp.device.type == "cpu":
         return gru_bwd_plain(xp, mask, w, b, ys, dy, reverse)
     _require_cuda(xp, "gru_bwd_stream")

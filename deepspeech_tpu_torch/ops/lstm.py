@@ -1,5 +1,5 @@
-"""The LSTM forward recurrence: hand-written Hopper kernels and their
-plain PyTorch versions, for inference.
+"""The LSTM recurrence and its backward: hand-written Hopper kernels and
+their plain PyTorch versions.
 
 Gates i, f, g, o (``deepspeech_tpu/ops/lstm_pallas.py``'s order and
 arithmetic, ``_lstm_elementwise_fwd`` :41):
@@ -35,15 +35,26 @@ an SM), or when the caller forces it, ``lstm_fwd_q_stream``
 :315, K17), K14 with s8 tiles. Neither int8 kernel writes a tape: the
 TPU kernels have none.
 
+``lstm_bwd`` is the BPTT, with the gates recomputed from the stored
+outputs and the cell-state tape: ``csrc/lstm_bwd.cu`` (replacing
+``_lstm_bwd_kernel``, :147, K13), K12's tile with ``csrc/gru_bwd.cu``'s
+dgates @ W^T partial sums added in block order after the barrier, or
+where ``gru.resident_fits("lstm_bwd", ...)`` says no, ``lstm_bwd_stream``
+(``csrc/lstm_bwd_stream.cu``, replacing ``_lstm_bwd_kernel_blocked``,
+:174, K15), a column phase and a row phase a step as in
+``csrc/gru_bwd_stream.cu``. ``LSTMFunction`` wraps ``lstm_fwd(...,
+tape=True)`` and ``lstm_bwd`` for autograd and forms dW and db outside
+the kernel by one f32 product, as ``_lstm_bwd`` does (:492-503).
+
 What bounds them on the H100 is what bounds the GRU kernels
 (``ops/gru.py``): T serial steps of a fixed latency, far above the FLOP
-roofline (2*T*D*B*H*4H over the peak) and the byte roofline.
+roofline (2*T*D*B*H*4H over the peak, twice that for the backward) and
+the byte roofline.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. There is no fallback between the two,
 nor between the resident and the streamed kernel. Each kernel counts
-its own launches. The backward kernels K13/K15 and LSTM training come
-with the next slice of the port.
+its own launches.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import torch
 
 from . import gru
+from .precision import full_f32_matmul
 
 _Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -161,9 +173,9 @@ def lstm_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     ``b [D,4H]`` f32 recurrent bias, ``reverse[d]`` True for a direction
     that runs t = T-1..0. Returns ``ys [D,T,B,H]`` f32 (a masked frame
     holds the previous h), and with ``tape`` also ``cs [D,T,B,H]`` f32,
-    the cell state of every row (held on masked frames), which the BPTT
-    of the next slice reads. The product rounds h_prev to ``w.dtype``
-    and sums in f32; c and h stay f32.
+    the cell state of every row (held on masked frames), which
+    ``lstm_bwd`` reads. The product rounds h_prev to ``w.dtype`` and
+    sums in f32; c and h stay f32.
 
     A CPU tensor runs ``lstm_fwd_plain``. A CUDA tensor launches the
     resident kernel ``csrc/lstm_fwd.cu`` (one launch, counted in
@@ -286,3 +298,174 @@ def lstm_fwd_q_stream(xp: torch.Tensor, mask: torch.Tensor,
 
 
 lstm_fwd_q_stream.launches = 0
+
+
+def lstm_bwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor, ys: torch.Tensor, cs: torch.Tensor,
+                   dy: torch.Tensor, reverse: Sequence[bool] = (False,)
+                   ) -> torch.Tensor:
+    """The plain PyTorch version of ``lstm_bwd``: an eager reverse time
+    loop with ``_lstm_elementwise_bwd``'s per-step math
+    (lstm_pallas.py:54), h_prev rounded to ``w.dtype`` for the gate
+    recompute and ``round(dgates)`` in ``w.dtype`` into ``@ W^T``, the
+    rest in f32."""
+    t, bsz, _ = xp.shape
+    d, h = w.shape[0], w.shape[1]
+    f32 = dict(dtype=torch.float32, device=xp.device)
+    dgates = torch.empty((d, t, bsz, 4 * h), **f32)
+    for di in range(d):
+        w32 = w[di].float()
+        dh = torch.zeros((bsz, h), **f32)
+        dc = torch.zeros((bsz, h), **f32)
+        for i in range(t):
+            row = i if reverse[di] else t - 1 - i
+            if i == t - 1:  # the forward's first step
+                h_prev = c_prev = torch.zeros_like(dh)
+            else:
+                prev = row + 1 if reverse[di] else row - 1
+                h_prev, c_prev = ys[di, prev], cs[di, prev]
+            g = h_prev.to(w.dtype).float() @ w32 + b[di]
+            x = xp[row].float()
+            ig = torch.sigmoid(x[:, :h] + g[:, :h])
+            fg = torch.sigmoid(x[:, h:2 * h] + g[:, h:2 * h] + 1.0)
+            gg = torch.tanh(x[:, 2 * h:3 * h] + g[:, 2 * h:3 * h])
+            og = torch.sigmoid(x[:, 3 * h:] + g[:, 3 * h:])
+            tc = torch.tanh(fg * c_prev + ig * gg)
+            m = mask[row][:, None]
+            dhc = dh + dy[di, row]
+            dh_mid = m * dhc
+            dc_pre = m * dc + dh_mid * og * (1.0 - tc * tc)
+            da = torch.cat([dc_pre * gg * ig * (1.0 - ig),
+                            dc_pre * c_prev * fg * (1.0 - fg),
+                            dc_pre * ig * (1.0 - gg * gg),
+                            dh_mid * tc * og * (1.0 - og)], 1)
+            dgates[di, row] = da
+            dh = (1.0 - m) * dhc + da.to(w.dtype).float() @ w32.t()
+            dc = dc_pre * fg + (1.0 - m) * dc
+    return dgates
+
+
+def _bwd_launch(name, xp, mask, w, b, ys, cs, dy, reverse
+                ) -> Tuple[torch.Tensor, bool]:
+    """Allocate ``dgates`` and ``csrc/<name>.cu``'s scratch and launch it;
+    returns ``(dgates, launched)``."""
+    d, t, bsz, h = w.shape[0], xp.shape[0], xp.shape[1], w.shape[1]
+    dgates = torch.empty((d, t, bsz, 4 * h), dtype=torch.float32,
+                         device=xp.device)
+    if not dgates.numel():
+        return dgates, False
+    floats = getattr(gru._lib(name), f"{name}_scratch_floats")(d, bsz, h)
+    scratch = torch.empty((floats,), dtype=torch.float32, device=xp.device)
+    gru._launch(name, xp, mask, w, (b, ys, cs, dy, dgates, scratch), reverse)
+    return dgates, True
+
+
+def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
+             b: torch.Tensor, ys: torch.Tensor, cs: torch.Tensor,
+             dy: torch.Tensor, reverse: Sequence[bool] = (False,)
+             ) -> torch.Tensor:
+    """LSTM backpropagation through time over D directions, from
+    h0 = c0 = 0.
+
+    ``xp``, ``mask``, ``w``, ``b`` and ``reverse`` as ``lstm_fwd`` took
+    them; ``ys`` and ``cs [D,T,B,H]`` f32, the outputs and the cell-state
+    tape ``lstm_fwd(..., tape=True)`` returned; ``dy [D,T,B,H]`` f32, the
+    gradient of the loss with respect to ``ys``. Each direction runs
+    against its forward order, carrying dh and dc; a step recomputes the
+    gates from h_prev rounded to ``w.dtype`` (c_prev from the tape) and
+    adds ``round(dgates) @ W^T`` to dh in f32. Returns ``dgates
+    [D,T,B,4H]`` f32, the gradient of the gate pre-activations
+    ``(da_i, da_f, da_g, da_o)``: both that of the input projection and
+    that of the recurrent gates ``h W + b``. The JAX kernels write these
+    same values twice, as ``dxp`` and ``dgates`` (lstm_pallas.py:166-167,
+    :211-212); the port writes them once.
+
+    A CPU tensor runs ``lstm_bwd_plain``. A CUDA tensor launches the
+    resident kernel ``csrc/lstm_bwd.cu`` (one launch, counted in
+    ``lstm_bwd.launches``) where ``gru.resident_fits("lstm_bwd", ...)``
+    says it can hold W, and ``lstm_bwd_stream`` otherwise; a refused
+    launch raises.
+    """
+    reverse = tuple(bool(r) for r in reverse)
+    gru._check_bwd(xp, mask, w, b, reverse, gates=4, ys=ys, cs=cs, dy=dy)
+    if xp.device.type == "cpu":
+        return lstm_bwd_plain(xp, mask, w, b, ys, cs, dy, reverse)
+    gru._require_cuda(xp, "lstm_bwd")
+    if not gru.resident_fits("lstm_bwd", w.shape[0], w.shape[1],
+                             xp.shape[1], w.dtype,
+                             *gru.card_limits(xp.device)):
+        return lstm_bwd_stream(xp, mask, w, b, ys, cs, dy, reverse)
+    dgates, launched = _bwd_launch("lstm_bwd", xp, mask, w, b, ys, cs, dy,
+                                   reverse)
+    lstm_bwd.launches += launched
+    return dgates
+
+
+lstm_bwd.launches = 0
+
+
+def lstm_bwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor, ys: torch.Tensor, cs: torch.Tensor,
+                    dy: torch.Tensor, reverse: Sequence[bool] = (False,)
+                    ) -> torch.Tensor:
+    """``lstm_bwd`` through the streamed kernel ``csrc/lstm_bwd_stream.cu``
+    (K15), whatever the sizes: a column phase and a row phase a step,
+    each streaming W from global memory, the ``round(dgates) @ W^T``
+    reduction by the owner of each hidden unit (see the source). The
+    same contract and arithmetic as ``lstm_bwd``. A CPU tensor runs
+    ``lstm_bwd_plain``; a CUDA tensor launches the kernel (one launch,
+    counted in ``lstm_bwd_stream.launches``) or raises."""
+    reverse = tuple(bool(r) for r in reverse)
+    gru._check_bwd(xp, mask, w, b, reverse, gates=4, ys=ys, cs=cs, dy=dy)
+    if xp.device.type == "cpu":
+        return lstm_bwd_plain(xp, mask, w, b, ys, cs, dy, reverse)
+    gru._require_cuda(xp, "lstm_bwd_stream")
+    dgates, launched = _bwd_launch("lstm_bwd_stream", xp, mask, w, b, ys,
+                                   cs, dy, reverse)
+    lstm_bwd_stream.launches += launched
+    return dgates
+
+
+lstm_bwd_stream.launches = 0
+
+
+class LSTMFunction(torch.autograd.Function):
+    """``lstm_fwd(..., tape=True)`` with ``lstm_bwd`` as its backward.
+
+    ``apply(xp [T,B,4H], mask [T,B], w [D,H,4H] f32, b [D,4H] f32, hc0,
+    reverse)`` -> ``ys [D,T,B,H]`` f32. ``w`` is rounded to ``xp.dtype``
+    (the dot dtype) inside, so its gradient stays f32, as the JAX kernels
+    cast the f32 weights inside. The backward returns ``dgates`` summed
+    over directions as ``dxp`` (``xp.dtype``), ``dW = sum_t h_prev^T
+    dgates`` as one f32 product with TF32 off (``_lstm_bwd``'s HIGHEST
+    einsum, lstm_pallas.py:501-502), and ``db = sum dgates``. ``hc0``
+    must be None: the BPTT, like the JAX VJP, starts from h0 = c0 = 0
+    and returns no gradient for a carry, and the LSTM kernels take no
+    carried state.
+    """
+
+    @staticmethod
+    def forward(ctx, xp, mask, w, b, hc0, reverse):
+        if hc0 is not None:
+            raise NotImplementedError(
+                "LSTMFunction: no carried (h0, c0) and no gradient through "
+                "one; the BPTT starts from zeros, as the JAX VJP does")
+        reverse = tuple(bool(r) for r in reverse)
+        wd = w.to(xp.dtype).contiguous()
+        ys, cs = lstm_fwd(xp, mask, wd, b, reverse, tape=True)
+        ctx.save_for_backward(xp, mask, wd, b, ys, cs)
+        ctx.reverse = reverse
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        xp, mask, wd, b, ys, cs = ctx.saved_tensors
+        dgates = lstm_bwd(xp, mask, wd, b, ys, cs, dys.float().contiguous(),
+                          ctx.reverse)
+        d, t, bsz, h = ys.shape
+        hp = gru._h_prev(ys, ctx.reverse).reshape(d, t * bsz, h)
+        with full_f32_matmul():
+            dw = torch.bmm(hp.transpose(1, 2),
+                           dgates.reshape(d, t * bsz, 4 * h))
+        db = dgates.sum((1, 2))
+        return dgates.sum(0).to(xp.dtype), None, dw, db, None, None

@@ -15,8 +15,8 @@ device memory to the line.
 ``python -m deepspeech_tpu_torch.profile_infer --config=ds2_small
 [--train] [--quantize-weights=int8] [--batch=32] [--frames=1700]
 [--seed=0] [--section.key=value ...]``; ``--model.rnn_type=lstm``
-profiles the LSTM variant of a preset (decoding only: LSTM training
-comes with a later slice).
+profiles the LSTM variant of a preset, a decode or with ``--train`` a
+training step.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ _PORT_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_fwd_stream_kernel",
                  "gru_bwd_stream_kernel", "gru_fwd_q_kernel",
                  "gru_fwd_q_stream_kernel", "lstm_fwd_kernel",
                  "lstm_fwd_stream_kernel", "lstm_fwd_q_kernel",
-                 "lstm_fwd_q_stream_kernel", "ctc_alpha_kernel",
+                 "lstm_fwd_q_stream_kernel", "lstm_bwd_kernel",
+                 "lstm_bwd_stream_kernel", "ctc_alpha_kernel",
                  "ctc_beta_kernel")
 
 

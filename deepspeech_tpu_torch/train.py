@@ -3,7 +3,8 @@
 The port's counterpart of ``deepspeech_tpu/train.py`` on one card. A
 step runs the model in train mode (batch statistics normalise and
 update the running ones), the CTC loss through the kernels of
-``ops/ctc.py``, the backward through ``ops/gru.py``'s ``gru_bwd``, then
+``ops/ctc.py``, the backward through ``ops/gru.py``'s ``gru_bwd`` (an
+LSTM model's through ``ops/lstm.py``'s ``lstm_bwd``), then
 the reference's optimizer chain (``train.py:69-95``): clip by global
 norm exactly as optax does, then SGD with Nesterov momentum or AdamW,
 with the warmup/anneal learning rate written into the optimizer every
@@ -12,9 +13,9 @@ step. Evaluation is greedy WER/CER.
 What the JAX trainer has and this slice does not raises
 ``NotImplementedError`` naming the slice of the port that brings it:
 checkpoints and manifests (slice 2b), multi-device meshes, ZeRO and
-gradient accumulation (slice 5), LSTM training (slice 8b), the guarded
-step, sequence parallelism, RNN-T, pipelining, tensorboard and profile
-traces (slice 9).
+gradient accumulation (slice 5), the guarded step, sequence
+parallelism, RNN-T, pipelining, tensorboard and profile traces
+(slice 9).
 
 CLI: ``python -m deepspeech_tpu_torch.train --config=dev_slice
 --synthetic=N --train.checkpoint_dir= [--device=cpu]
@@ -58,10 +59,6 @@ def check_supported(cfg: Config) -> None:
                      "slice 9 of the port"),
         (t.accum_steps > 1, "train.accum_steps > 1: gradient accumulation "
                             "comes with slice 5 of the port"),
-        (cfg.model.rnn_type == "lstm",
-         "model.rnn_type='lstm': LSTM training (the backward kernels "
-         "K13/K15) comes with slice 8b of the port; the LSTM serves "
-         "through infer.Inferencer"),
         (len(t.mesh_shape) != 2 or any(n > 1 for n in t.mesh_shape),
          f"train.mesh_shape={t.mesh_shape}: meshes of more than one device "
          "come with slice 5 of the port"),

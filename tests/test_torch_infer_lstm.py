@@ -5,8 +5,8 @@ on its Pallas LSTM kernels in interpret mode (``model.rnn_impl=
 ``lstm_scan_pallas_q``; resident, or blocked with
 ``rnn_pallas._VMEM_WEIGHT_BUDGET`` set to 0 inside the test). Models:
 ds2_small-shaped (3 BiLSTM) and ds2_full-shaped (7 BiLSTM) at H=32 with
-4 conv channels. Also the bridge of a qtree with ``[H, 4H]`` leaves, the
-guards on LSTM training, and the infer CLI.
+4 conv channels. Also the bridge of a qtree with ``[H, 4H]`` leaves, an
+LSTM under a gradient (it trains; int8 raises), and the infer CLI.
 
 Tolerances: log-probs 1e-4 absolute in f32 and identical greedy
 transcripts.
@@ -160,8 +160,10 @@ def test_bridge_loads_an_lstm_qtree():
 
 @pytest.mark.parametrize("quantized", [False, True])
 def test_lstm_under_grad_raises(quantized):
-    """An LSTM forward that could need a gradient raises, naming the
-    slice that brings LSTM training; without a gradient it runs."""
+    """An LSTM forward that could need a gradient runs through
+    ``LSTMFunction`` and gives finite gradients to every recurrent
+    parameter; an int8 LSTM raises there (``lstm_scan_pallas_q`` has no
+    VJP). Without a gradient both run."""
     cfg = apply_overrides(get_config("ds2_small"), OVER)
     params, stats = bridge.init_params(cfg, torch.Generator().manual_seed(0))
     if quantized:
@@ -170,19 +172,33 @@ def test_lstm_under_grad_raises(quantized):
     model.load_state_dict(bridge.from_flax(params, stats))
     feats = torch.randn(2, 24, 161)
     lens = torch.tensor([24, 17])
-    with pytest.raises(NotImplementedError, match="slice 8b"):
-        model.eval()(feats, lens)
+    if quantized:
+        with pytest.raises(RuntimeError, match="inference only"):
+            model.eval()(feats, lens)
+    else:
+        logits, _ = model.eval()(feats, lens)
+        logits.float().square().mean().backward()
+        for name, p in model.named_parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        assert model.rnn.rnn1.wh_bw.grad.abs().max() > 0
     with torch.no_grad():
         logits, _ = model(feats, lens)
     assert torch.isfinite(logits).all()
 
 
 def test_trainer_refuses_an_lstm_before_any_step():
+    """``Trainer`` no longer refuses an LSTM: it takes a step on the CPU,
+    with a finite loss and gradient norm, and the recurrent weights
+    move."""
     cfg = apply_overrides(get_config("ds2_small"),
                           {**OVER, "train.checkpoint_dir": ""})
-    with pytest.raises(NotImplementedError, match="slice 8b"):
-        Trainer(cfg, SyntheticPipeline(cfg, 2), CharTokenizer.english(),
-                device="cpu")
+    pipe = SyntheticPipeline(cfg, 2)
+    trainer = Trainer(cfg, pipe, CharTokenizer.english(), device="cpu")
+    before = trainer.model.rnn.rnn0.wh_fw.detach().clone()
+    metrics = trainer.train_step(next(iter(pipe.epoch(0))))
+    assert trainer.step == 1
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert not torch.equal(trainer.model.rnn.rnn0.wh_fw, before)
 
 
 @pytest.mark.parametrize("quantize_mode", ["", "int8"])

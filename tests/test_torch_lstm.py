@@ -247,4 +247,4 @@ def test_lstm_rule_layouts_and_the_gru_answers_unchanged():
     assert not gru.resident_fits("lstm_fwd", 2, 800, 32, torch.bfloat16,
                                  sms=66)
     with pytest.raises(ValueError, match="kind"):
-        gru.resident_smem_bytes("lstm_bwd", 800, 32)
+        gru.resident_smem_bytes("lstm_bwd_q", 800, 32)
