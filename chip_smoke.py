@@ -500,9 +500,10 @@ def lstm_bwd_kernel_phase(gen, kernel: str, h: int, timed):
     these sizes, or ``lstm_bwd_stream``) against ``lstm_bwd_plain`` on
     the ys and cs tape of ``lstm_fwd(..., tape=True)`` at T'=850, B=32
     and width ``h`` for each D of ``timed``, bf16 and f32, and at ragged
-    shapes off the tiles; two runs must give the same bits. Then time it
-    for each ``(d, replaces)`` of ``timed`` beside its bound, its plain
-    version and cuDNN's LSTM backward."""
+    shapes off the tiles (the streamed kernel also at width ``h``); two
+    runs must give the same bits. Then time it for each ``(d,
+    replaces)`` of ``timed`` beside its bound, its plain version and
+    cuDNN's LSTM backward."""
     from deepspeech_tpu_torch.ops import lstm
 
     fn = getattr(lstm, kernel)
@@ -519,6 +520,14 @@ def lstm_bwd_kernel_phase(gen, kernel: str, h: int, timed):
                                ("f32", torch.float32))]
     cases += [("D2_bf16_ragged", 2, torch.bfloat16, (37, 45, 100)),
               ("D1_f32_ragged", 1, torch.float32, (37, 45, 100))]
+    if kernel.endswith("_stream"):
+        # At full width: the product 4H = 7040 deep, B above the 32 rows
+        # of a pass, and B=8 in a partly filled m16 tile; and H=99, which
+        # bf16 runs on the two-phase kernel (H % 4 != 0).
+        cases += [("D2_bf16_ragged_full", 2, torch.bfloat16, (37, 45, h)),
+                  ("D2_f32_ragged_full", 2, torch.float32, (37, 45, h)),
+                  ("D2_bf16_b8_full", 2, torch.bfloat16, (37, 8, h)),
+                  ("D1_bf16_odd_h", 1, torch.bfloat16, (37, 45, 99))]
     _zero_counts()
     checks = {}
     for name, d, dtype, shape in cases:

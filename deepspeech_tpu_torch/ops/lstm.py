@@ -41,8 +41,9 @@ outputs and the cell-state tape: ``csrc/lstm_bwd.cu`` (replacing
 dgates @ W^T partial sums added in block order after the barrier, or
 where ``gru.resident_fits("lstm_bwd", ...)`` says no, ``lstm_bwd_stream``
 (``csrc/lstm_bwd_stream.cu``, replacing ``_lstm_bwd_kernel_blocked``,
-:174, K15), a column phase and a row phase a step as in
-``csrc/gru_bwd_stream.cu``. ``LSTMFunction`` wraps ``lstm_fwd(...,
+:174, K15): in bf16 a tensor-core GEMM recomputes every step's gates
+first, then a serial loop runs ``round(dgates) @ W^T`` on the tensor
+cores, one W pass a step. ``LSTMFunction`` wraps ``lstm_fwd(...,
 tape=True)`` and ``lstm_bwd`` for autograd and forms dW and db outside
 the kernel by one f32 product, as ``_lstm_bwd`` does (:492-503).
 
@@ -409,12 +410,17 @@ def lstm_bwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                     dy: torch.Tensor, reverse: Sequence[bool] = (False,)
                     ) -> torch.Tensor:
     """``lstm_bwd`` through the streamed kernel ``csrc/lstm_bwd_stream.cu``
-    (K15), whatever the sizes: a column phase and a row phase a step,
-    each streaming W from global memory, the ``round(dgates) @ W^T``
-    reduction by the owner of each hidden unit (see the source). The
-    same contract and arithmetic as ``lstm_bwd``. A CPU tensor runs
-    ``lstm_bwd_plain``; a CUDA tensor launches the kernel (one launch,
-    counted in ``lstm_bwd_stream.launches``) or raises."""
+    (K15), whatever the sizes. In bf16 the gate recompute, which reads
+    h_prev from the ``ys`` tape and not from the carried dh, runs first
+    for every step at once as a tensor-core GEMM written into ``dgates``;
+    then a serial kernel streams W's rows once a step to form
+    ``round(dgates) @ W^T`` on the tensor cores, one grid barrier a step,
+    and overwrites each step's gates with its ``dgates`` (see the
+    source). f32 (and bf16 where H is not a multiple of 4) runs the
+    two-phase CUDA-core kernel, a column and a row phase a step. The same contract and
+    arithmetic as ``lstm_bwd``. A CPU tensor runs ``lstm_bwd_plain``; a
+    CUDA tensor calls the kernel's C entry point once (counted in
+    ``lstm_bwd_stream.launches``) or raises."""
     reverse = tuple(bool(r) for r in reverse)
     gru._check_bwd(xp, mask, w, b, reverse, gates=4, ys=ys, cs=cs, dy=dy)
     if xp.device.type == "cpu":

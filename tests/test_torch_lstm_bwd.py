@@ -20,6 +20,8 @@ CUDA kernels (csrc/lstm_bwd.cu, csrc/lstm_bwd_stream.cu) to it on the
 card.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,10 +31,10 @@ import torch
 from deepspeech_tpu.ops import rnn_pallas
 from deepspeech_tpu.ops.lstm_pallas import (_lstm_bwd, _lstm_fwd,
                                             lstm_scan_pallas)
-from deepspeech_tpu_torch import bridge
+from deepspeech_tpu_torch import bridge, k15_ablation
 from deepspeech_tpu_torch.config import apply_overrides, get_config
 from deepspeech_tpu_torch.models import DeepSpeech2
-from deepspeech_tpu_torch.ops import gru, lstm
+from deepspeech_tpu_torch.ops import _build, gru, lstm
 from deepspeech_tpu_torch.utils import quantize
 
 B, T = 3, 9
@@ -318,3 +320,16 @@ def test_lstm_backward_layout_and_the_other_answers_unchanged():
     assert not gru.resident_fits("bwd", 2, 1760, 32, torch.bfloat16)
     assert not gru.resident_fits("lstm_bwd", 2, 800, 32, torch.bfloat16,
                                  sms=99)
+
+
+@pytest.mark.parametrize("variant", [n for n, subs in
+                                     k15_ablation.VARIANTS.items() if subs])
+def test_k15_ablation_variants_match_the_source(variant):
+    """Each ablation that ``deepspeech_tpu_torch.k15_ablation`` builds
+    replaces text that ``csrc/lstm_bwd_stream.cu`` holds exactly once, so
+    the script measures the part it names."""
+    with open(os.path.join(_build.CSRC_DIR, "lstm_bwd_stream.cu")) as f:
+        src = f.read()
+    for old, new in k15_ablation.VARIANTS[variant]:
+        assert src.count(old) == 1
+        assert new != old
