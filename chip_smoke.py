@@ -26,11 +26,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      H=1760 (library: cuDNN's GRU in bf16 on the dequantized W);
    - ``lstm_fwd`` (W resident) at H=800, D=2 and D=1, with and without
      its cell-state tape; ``lstm_fwd_stream`` (W streamed) at ds2_full's
-     H=1760, D=2, with and without the tape; ``lstm_fwd_q`` (int8 W
-     resident) at H=800, D=2 and ``lstm_fwd_q_stream`` (int8 W
-     streamed) at H=1760, D=2 (library: cuDNN's LSTM in bf16 at the
-     same H, the forget gate's +1 folded into its ``bias_hh``, on the
-     dequantized W for the int8 kernels);
+     H=1760, D=2, with and without the tape, and at T=37 with B=45 and
+     B=8, at H=104 and at H=2176 (more groups than SMs), each check
+     naming the device kernels that ran
+     (in bf16 the transpose of W and the tensor-core loop);
+     ``lstm_fwd_q`` (int8 W resident) at H=800, D=2 and
+     ``lstm_fwd_q_stream`` (int8 W streamed) at H=1760, D=2
+     (library: cuDNN's LSTM in bf16 at the same H, the forget gate's
+     +1 folded into its ``bias_hh``, on the dequantized W for the int8
+     kernels);
    - ``lstm_bwd`` (W resident) at H=800, D=2 and D=1, and
      ``lstm_bwd_stream`` (W streamed) at ds2_full's H=1760, D=2 (also
      timed at H=800), on the tape of ``lstm_fwd(..., tape=True)``
@@ -90,6 +94,7 @@ import functools
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -397,37 +402,89 @@ def _cudnn_lstm(args, h: int):
     return lib
 
 
+def _device_kernels(fn, tries: int = 3):
+    """Run ``fn()`` under ``torch.profiler`` (as profile_infer reads the
+    card); returns its result, ``{name: device ms}`` of the port's
+    kernels that ran, and how many times ``fn`` ran. The profiler now
+    and then reports no device event for a window (on an H100, about one
+    window in twenty); such a window runs again, up to ``tries`` times."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for runs in range(1, tries + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        ran = {}
+        for e in prof.key_averages():
+            m = re.search(r"::((?:lstm|gru|ctc)_\w+_kernel)\b", e.key)
+            if m and e.device_type == torch.autograd.DeviceType.CUDA:
+                ran[m.group(1)] = (ran.get(m.group(1), 0.0)
+                                   + e.self_device_time_total / 1e3)
+        if ran:
+            break
+    return out, ran, runs
+
+
+def _k14_kernels(dtype: torch.dtype, h: int) -> set:
+    """The device kernels one ``lstm_fwd_stream`` call launches: in bf16
+    with H a multiple of 8 the transpose of W and the tensor-core loop,
+    else the CUDA-core kernel (csrc/lstm_fwd_stream.cu)."""
+    if dtype == torch.bfloat16 and h % 8 == 0:
+        return {"lstm_fwd_stream_transpose_kernel",
+                "lstm_fwd_stream_mma_kernel"}
+    return {"lstm_fwd_stream_kernel"}
+
+
 def lstm_kernel_phase(gen, kernel: str, h: int, timed):
     """Hold ``ops.lstm.<kernel>`` (``lstm_fwd``, which launches the
     resident kernel at these sizes, or ``lstm_fwd_stream``; with int8 W
     ``lstm_fwd_q``, resident here, or ``lstm_fwd_q_stream``) against its
     plain version at T'=850, B=32 and width ``h`` for each D of ``timed``,
     bf16 and f32, with and without the cell-state tape (the fp kernels),
-    and at one ragged shape off the tiles; two runs must give the same
-    bits, the tape included. Then time it for each ``(d, replaces)`` of
-    ``timed`` without the tape, as serving calls it, beside its bound,
-    its plain version and cuDNN's LSTM."""
+    and at one ragged shape off the tiles (``lstm_fwd_stream`` also at
+    width ``h``); two runs must give the same bits, the tape included.
+    Each check names the device kernels that ran (``lstm_fwd_stream``:
+    the ones its dtype and H select). Then time it for each ``(d,
+    replaces)`` of ``timed`` without the tape, as serving calls it,
+    beside its bound, its plain version and cuDNN's LSTM."""
     from deepspeech_tpu_torch.ops import lstm
 
     fn = getattr(lstm, kernel)
     quantized = kernel.startswith("lstm_fwd_q")
     plain = lstm.lstm_fwd_q_plain if quantized else lstm.lstm_fwd_plain
     tapes = (False,) if quantized else (False, True)
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [(f"D{d}_{dn}{'_tape' if tape else ''}", d, dtype, tape,
               (T, B, h))
              for d, _ in timed
-             for dn, dtype in (("bf16", torch.bfloat16),
-                               ("f32", torch.float32))
+             for dn, dtype in (("bf16", bf16), ("f32", f32))
              for tape in tapes]
     cases.append((f"D2_bf16_ragged{'' if quantized else '_tape'}", 2,
-                  torch.bfloat16, not quantized, (37, 45, 100)))
+                  bf16, not quantized, (37, 45, 100)))
+    if kernel == "lstm_fwd_stream":
+        # At full width: B above the 32 rows of a pass, and B=8 in a
+        # partly filled m16 tile; H=104, a multiple of 8 but not of the
+        # 32-unit groups; H=2176, 136 groups on an H100's 132 SMs, so
+        # some blocks take two groups a step and no W^T stays resident.
+        # H=100 (above) and f32 run the CUDA-core kernel.
+        cases += [("D2_bf16_ragged_full", 2, bf16, False, (37, 45, h)),
+                  ("D2_bf16_ragged_full_tape", 2, bf16, True, (37, 45, h)),
+                  ("D2_f32_ragged_full_tape", 2, f32, True, (37, 45, h)),
+                  ("D2_bf16_b8_full", 2, bf16, False, (37, 8, h)),
+                  ("D2_bf16_h104_tape", 2, bf16, True, (37, 45, 104)),
+                  ("D2_bf16_h2176_tape", 2, bf16, True, (37, 8, 2176))]
     _zero_counts()
-    checks = {}
+    checks, calls = {}, 0
     for name, d, dtype, tape, shape in cases:
         args, _ = _lstm_inputs(d, dtype, gen, *shape, quantized=quantized)
         kw = {"tape": True} if tape else {}
-        outs = [fn(*args, **kw) for _ in range(2)]
-        torch.cuda.synchronize()
+        outs, ran, runs = _device_kernels(
+            lambda: [fn(*args, **kw) for _ in range(2)])
+        calls += 2 * runs
+        if kernel == "lstm_fwd_stream":
+            _require(set(ran) == _k14_kernels(dtype, shape[2]),
+                     f"{kernel} {name}: ran {sorted(ran)}, want "
+                     f"{sorted(_k14_kernels(dtype, shape[2]))}")
         ref = plain(*args, **kw)
         got, again, ref = [x if tape else (x,) for x in (*outs, ref)]
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
@@ -439,17 +496,20 @@ def lstm_kernel_phase(gen, kernel: str, h: int, timed):
         _require(all(torch.equal(g, a) for g, a in zip(got, again)),
                  f"{kernel} {name}: two runs on one input differ")
         checks[name] = {"max_abs_err": err, "tol": TOL[dtype],
-                        "bit_identical": True}
+                        "bit_identical": True, "kernels": sorted(ran)}
         print(json.dumps({"check": f"{kernel} {name}", "max_abs_err": err,
-                          "tol": TOL[dtype], "bit_identical": True}),
-              flush=True)
-    _require_only(kernel, 2 * len(checks))
+                          "tol": TOL[dtype], "bit_identical": True,
+                          "kernels": sorted(ran)}), flush=True)
+    _require_only(kernel, calls)
 
     entries = []
     for d, replaces in timed:
         args, valid = _lstm_inputs(d, torch.bfloat16, gen, T, B, h,
                                    quantized)
         ms = _time_ms(lambda: fn(*args), reps=5)
+        # One call's device time by kernel (for lstm_fwd_stream: the
+        # transpose of W and the serial loop).
+        _, device_ms, _ = _device_kernels(lambda: fn(*args))
         plain_ms = _time_ms(lambda: plain(*args), reps=1)
         lib = _cudnn_lstm(args, h)
         x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
@@ -465,7 +525,8 @@ def lstm_kernel_phase(gen, kernel: str, h: int, timed):
             2.0 * valid * d * h * 4 * h, PEAK_BF16_FLOPS)
         args_b1 = tuple(a[:, :1].contiguous() if i < 2 else a
                         for i, a in enumerate(args))
-        extra = {"ms_at_b1": _time_ms(lambda: fn(*args_b1), reps=5)}
+        extra = {"ms_at_b1": _time_ms(lambda: fn(*args_b1), reps=5),
+                 "device_ms": device_ms}
         if not quantized:
             extra["ms_tape"] = _time_ms(lambda: fn(*args, tape=True), reps=3)
         if kernel.endswith("_stream"):

@@ -116,14 +116,16 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _split_ms(fn) -> Dict[str, float]:
+def _split_ms(fn, source: str = "lstm_bwd_stream") -> Dict[str, float]:
+    """Device ms of one ``fn()`` by kernel, for the kernels whose names
+    start with ``source``."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     split: Dict[str, float] = {}
     for e in prof.key_averages():
-        name = re.search(r"lstm_bwd_stream_\w+", e.key)
+        name = re.search(source + r"_\w+", e.key)
         if name and e.device_type == torch.autograd.DeviceType.CUDA:
             split[name.group(0)] = e.self_device_time_total / 1e3
     return split

@@ -20,9 +20,13 @@ j, H+j, 2H+j, 3H+j) in shared memory, their cell state beside it, a
 grid barrier per step. Where that does not fit (``gru.resident_fits(
 "lstm_fwd", ...)``; ds2_full's H=1760), it launches ``lstm_fwd_stream``
 (``csrc/lstm_fwd_stream.cu``, replacing ``_lstm_kernel_blocked``,
-:116, K14), which stages W through shared memory from global memory
-every step and keeps c in a scratch row that only its owning thread
-touches.
+:116, K14), which streams W from global memory every step and keeps c
+in a scratch row that only its owning thread touches. In bf16 with H a
+multiple of 8 (``_fwd_stream_mma``) it transposes W into its scratch
+once a call and runs the serial loop on the tensor cores (``mma.sync``;
+part of each group's W^T held in shared memory for the call, the rest
+streamed once a step); f32 and other H stage W through shared memory
+as f32 for the CUDA cores.
 
 ``lstm_fwd_q`` is the forward with weight-only int8 recurrent weights
 (``utils/quantize.py``'s layout: int8 ``Q [H,4H]``, an f32 scale per
@@ -157,11 +161,31 @@ def _outputs(xp, w, tape: bool):
 
 
 def _c_scratch(xp, w) -> torch.Tensor:
-    """The streamed kernels' cell state ``[D,B,H]`` f32: each entry is
-    read and written by the one thread that owns its unit and row, and
-    the kernel writes it before it reads it."""
+    """The streamed int8 kernel's cell state ``[D,B,H]`` f32: each entry
+    is read and written by the one thread that owns its unit and row,
+    and the kernel writes it before it reads it."""
     return torch.empty((w.shape[0], xp.shape[1], w.shape[1]),
                        dtype=torch.float32, device=xp.device)
+
+
+def _fwd_stream_mma(w: torch.Tensor) -> bool:
+    """Whether ``lstm_fwd_stream``'s C call runs its tensor-core path:
+    bf16 with H a multiple of 8 (a 16-byte piece of a row holds 8
+    values), the rule ``lstm_fwd_stream_launch`` applies before any
+    launch (it also needs the scratch 16-byte aligned, which
+    ``torch.empty`` is). Else the CUDA-core kernel runs."""
+    return w.dtype == torch.bfloat16 and w.shape[1] % 8 == 0
+
+
+def _fwd_stream_scratch(xp, w) -> torch.Tensor:
+    """``lstm_fwd_stream``'s scratch, f32: the cell state ``[D,B,H]``
+    and, on the tensor-core path, the rounded h rows ``[2,D,B,H]`` and
+    ``Wt = W^T [D,4H,H]``, both in bf16 (``D*B*H + 2*D*H*H`` floats)."""
+    d, bsz, h = w.shape[0], xp.shape[1], w.shape[1]
+    floats = d * bsz * h
+    if _fwd_stream_mma(w):
+        floats += d * bsz * h + 2 * d * h * h
+    return torch.empty((floats,), dtype=torch.float32, device=xp.device)
 
 
 def lstm_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
@@ -208,9 +232,14 @@ def lstm_fwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                     tape: bool = False) -> _Out:
     """``lstm_fwd`` through the streamed kernel ``csrc/lstm_fwd_stream.cu``
     (K14), whatever the sizes: W stays in global memory and crosses L2
-    once a step. The same contract and arithmetic as ``lstm_fwd``. A CPU
-    tensor runs ``lstm_fwd_plain``; a CUDA tensor launches the kernel
-    (one launch, counted in ``lstm_fwd_stream.launches``) or raises."""
+    once a step. Where ``_fwd_stream_mma`` holds (bf16, H % 8 == 0) the
+    C call transposes W into the scratch and runs the serial loop on the
+    tensor cores, two launches, with part of W^T held in shared memory
+    for the call; else one launch of the CUDA-core kernel (see the
+    source). The same contract and arithmetic as ``lstm_fwd``.
+    A CPU tensor runs ``lstm_fwd_plain``; a CUDA tensor calls the
+    kernel's C entry point once (counted in
+    ``lstm_fwd_stream.launches``) or raises."""
     reverse = tuple(bool(r) for r in reverse)
     gru._check(xp, mask, w, b, None, reverse, gates=4)
     if xp.device.type == "cpu":
@@ -219,7 +248,7 @@ def lstm_fwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     ys, cs = _outputs(xp, w, tape)
     if ys.numel():
         gru._launch("lstm_fwd_stream", xp, mask, w,
-                    (b, ys, cs, _c_scratch(xp, w)), reverse)
+                    (b, ys, cs, _fwd_stream_scratch(xp, w)), reverse)
         lstm_fwd_stream.launches += 1
     return _result(ys, cs, tape)
 

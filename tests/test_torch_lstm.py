@@ -6,15 +6,21 @@ interpret mode, resident (``_lstm_kernel``, K12) and forced blocked
 monkeypatched to 0); and the residency rule of the LSTM kernels.
 
 H=16 is one padded block of the JAX blocked kernel, H=176 two with a
-padded tail (4H=704 -> 512 + 192). Tolerances: 1e-5 with f32 dots; 3e-2
-with bf16 dots (tests/test_pallas.py's for the fused cells: the two
-sides round h_prev to bf16 at the same place but sum in other orders,
-and a flipped rounding moves the next step).
+padded tail (4H=704 -> 512 + 192). The shapes chip_smoke.py holds the
+streamed kernel (K14) to at CPU widths: D=2, T=37 with B=45 (above one
+32-row pass) and B=8 (a partly filled m16 tile), H=40 (a multiple of 8
+but not of the 32-unit groups: the tensor-core loop in bf16) and H=20
+(not a multiple of 8: the CUDA-core kernel). Tolerances: 1e-5 with f32
+dots; 3e-2 with bf16 dots (tests/test_pallas.py's for the fused cells:
+the two sides round h_prev to bf16 at the same place but sum in other
+orders, and a flipped rounding moves the next step).
 
 On the CPU the wrappers run the plain version; chip_smoke.py holds the
 CUDA kernels (csrc/lstm_fwd.cu, csrc/lstm_fwd_stream.cu) to it on the
 card.
 """
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,24 +30,36 @@ import torch
 from deepspeech_tpu.models.rnn import lstm_scan as jax_lstm_scan
 from deepspeech_tpu.ops import rnn_pallas
 from deepspeech_tpu.ops.lstm_pallas import _lstm_pallas_raw, lstm_scan_pallas
+from deepspeech_tpu_torch import k14_variants
 from deepspeech_tpu_torch.models.rnn import lstm_scan
-from deepspeech_tpu_torch.ops import gru, lstm
+from deepspeech_tpu_torch.ops import _build, gru, lstm
 
 B, T = 3, 9
 TOL = {None: 1e-5, "bfloat16": 3e-2}
 
 
-def _inputs(seed, h, d, bf16=False):
-    """xproj [B,T,4H] (bf16 values when bf16), a ragged mask [B,T],
-    W [D,H,4H] and biases [D,4H], from numpy."""
+# chip_smoke.py's K14 check shapes at CPU widths: (T, B, H, D).
+_K14_SHAPES = [pytest.param((37, 45, 40, 2), id="t37-b45-h40-d2"),
+               pytest.param((37, 8, 40, 2), id="t37-b8-h40-d2"),
+               pytest.param((37, 45, 20, 2), id="t37-b45-h20-d2")]
+
+
+def _inputs(seed, h, d, bf16=False, t=T, b=B):
+    """xproj [B,T,4H] (bf16 values when bf16), a ragged mask [B,T] (the
+    first row full; at the default sizes lengths T, T-3 and 2), W
+    [D,H,4H] and biases [D,4H], from numpy."""
     rng = np.random.default_rng(seed)
-    xproj = rng.normal(size=(B, T, 4 * h)).astype(np.float32)
+    xproj = rng.normal(size=(b, t, 4 * h)).astype(np.float32)
     if bf16:
         xproj = torch.from_numpy(xproj).bfloat16().float().numpy()
     w = (rng.normal(size=(d, h, 4 * h)) / np.sqrt(h)).astype(np.float32)
     bias = (rng.normal(size=(d, 4 * h)) * 0.1).astype(np.float32)
-    lens = np.array([T, T - 3, 2])
-    mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+    if (t, b) == (T, B):
+        lens = np.array([T, T - 3, 2])
+    else:
+        lens = rng.integers(t // 3, t + 1, size=b)
+        lens[0] = t
+    mask = (np.arange(t)[None] < lens[:, None]).astype(np.float32)
     return xproj, mask, w, bias
 
 
@@ -104,22 +122,34 @@ def test_lstm_scan_carries_match_the_jax_oracle():
 # The plain version against the Pallas kernels.
 # ---------------------------------------------------------------------------
 
+def _directions(shape, reverse):
+    """``(t, b, h, reverse flags)`` of a case: an int H is one direction
+    at the default sizes; a ``(T, B, H, D)`` shape runs D=2 as
+    ``(reverse, not reverse)``."""
+    if isinstance(shape, int):
+        return T, B, shape, (reverse,)
+    t, b, h, d = shape
+    return t, b, h, (reverse, not reverse)[:d]
+
+
 @pytest.mark.parametrize("blocked", [False, True])
-@pytest.mark.parametrize("h", [16, 176])
+@pytest.mark.parametrize("h", [16, 176, *_K14_SHAPES])
 @pytest.mark.parametrize("dot", [None, "bfloat16"])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_plain_matches_pallas(monkeypatch, reverse, dot, h, blocked):
-    """One direction against the resident (K12) or blocked (K14) JAX
-    kernel."""
+    """Each direction against the resident (K12) or blocked (K14) JAX
+    kernel, at one direction of B=3, T=9 or at K14's check shapes."""
     if blocked:
         monkeypatch.setattr(rnn_pallas, "_VMEM_WEIGHT_BUDGET", 0)
+    t, b, h, rev = _directions(h, reverse)
     assert rnn_pallas._use_blocked(h, jnp.float32, n_gates=4) is blocked
-    xproj, mask, w, bias = _inputs(10 + h, h, 1, dot is not None)
-    ref = _pallas(xproj, mask, w[0], bias[0], reverse, dot)
-    ys = lstm.lstm_fwd_plain(*_port_args(xproj, mask, w, bias, dot),
-                             (reverse,))
-    np.testing.assert_allclose(ys[0].transpose(0, 1).numpy(), ref,
-                               atol=TOL[dot], rtol=TOL[dot])
+    xproj, mask, w, bias = _inputs(10 + h, h, len(rev), dot is not None,
+                                   t, b)
+    ys = lstm.lstm_fwd_plain(*_port_args(xproj, mask, w, bias, dot), rev)
+    for di, r in enumerate(rev):
+        ref = _pallas(xproj, mask, w[di], bias[di], r, dot)
+        np.testing.assert_allclose(ys[di].transpose(0, 1).numpy(), ref,
+                                   atol=TOL[dot], rtol=TOL[dot])
 
 
 @pytest.mark.parametrize("blocked", [False, True])
@@ -138,30 +168,44 @@ def test_two_directions_equal_the_sum_of_two_jax_calls(monkeypatch, dot,
                                atol=2 * TOL[dot], rtol=TOL[dot])
 
 
-@pytest.mark.parametrize("blocked", [False, True])
-@pytest.mark.parametrize("reverse", [False, True])
-def test_tape_matches_the_pallas_cell_state(monkeypatch, reverse, blocked):
+@pytest.mark.parametrize("reverse,blocked,shape,dot", [
+    # One direction at B=3, T=9, H=176, f32 dots.
+    *[pytest.param(r, bl, 176, None, id=f"{r}-{bl}")
+      for r in (False, True) for bl in (False, True)],
+    # K14's check shapes, D=2, bf16 and f32 dots.
+    *[pytest.param(False, bl, sh.values[0], dot,
+                   id=f"{bl}-{sh.id}-{dot or 'f32'}")
+      for sh in _K14_SHAPES for bl in (False, True)
+      for dot in (None, "bfloat16")]])
+def test_tape_matches_the_pallas_cell_state(monkeypatch, reverse, blocked,
+                                            shape, dot):
     """The tape ``cs`` against ``_lstm_pallas_raw(..., want_cs=True)``'s
-    (masked frames hold c), and the outputs beside it unchanged."""
+    for each direction (masked frames hold c), and the outputs beside it
+    unchanged."""
     if blocked:
         monkeypatch.setattr(rnn_pallas, "_VMEM_WEIGHT_BUDGET", 0)
-    xproj, mask, w, bias = _inputs(40, 176, 1)
-    ref_ys, ref_cs, _, _ = _lstm_pallas_raw(
-        jnp.asarray(xproj), jnp.asarray(mask), jnp.asarray(w[0]),
-        jnp.asarray(bias[0]), reverse, True, None, want_cs=True)
-    args = _port_args(xproj, mask, w, bias, None)
-    ys, cs = lstm.lstm_fwd(*args, (reverse,), tape=True)
-    np.testing.assert_allclose(cs[0].numpy(), np.asarray(ref_cs),
-                               atol=1e-5, rtol=1e-5)
-    np.testing.assert_allclose(ys[0].numpy(), np.asarray(ref_ys),
-                               atol=1e-5, rtol=1e-5)
-    assert torch.equal(ys, lstm.lstm_fwd(*args, (reverse,)))
-    # Masked frames hold both carries. Utterance 2 ends after row 1: a
-    # forward scan holds its row-1 state to the end, a reverse one keeps
-    # its zero state until it reaches row 1.
+    t, b, h, rev = _directions(shape, reverse)
+    xproj, mask, w, bias = _inputs(40, h, len(rev), dot is not None, t, b)
+    args = _port_args(xproj, mask, w, bias, dot)
+    ys, cs = lstm.lstm_fwd(*args, rev, tape=True)
+    for di, r in enumerate(rev):
+        ref_ys, ref_cs, _, _ = _lstm_pallas_raw(
+            jnp.asarray(xproj), jnp.asarray(mask), jnp.asarray(w[di]),
+            jnp.asarray(bias[di]), r, True, dot, want_cs=True)
+        np.testing.assert_allclose(cs[di].numpy(), np.asarray(ref_cs),
+                                   atol=TOL[dot], rtol=TOL[dot])
+        np.testing.assert_allclose(ys[di].numpy(), np.asarray(ref_ys),
+                                   atol=TOL[dot], rtol=TOL[dot])
+    assert torch.equal(ys, lstm.lstm_fwd(*args, rev))
+    # Masked frames hold both carries: past its length an utterance
+    # keeps, in a forward direction, its state at its last frame, and in
+    # a reverse one the zero state it starts from.
+    lens = mask.sum(1).astype(int)
     for x in (ys, cs):
-        held = torch.zeros(176) if reverse else x[0, 1, 2]
-        assert torch.equal(x[0, 2:, 2], held.expand(T - 2, 176))
+        for di, r in enumerate(rev):
+            for bi, n in enumerate(lens):
+                held = torch.zeros(h) if r else x[di, n - 1, bi]
+                assert torch.equal(x[di, n:, bi], held.expand(t - n, h))
 
 
 @pytest.mark.parametrize("tape", [False, True])
@@ -177,6 +221,44 @@ def test_wrappers_run_the_plain_version_on_cpu(tape):
         got, want = (got, ref) if tape else ((got,), (ref,))
         assert all(torch.equal(g, r) for g, r in zip(got, want))
     assert (lstm.lstm_fwd.launches, lstm.lstm_fwd_stream.launches) == counts
+
+
+@pytest.mark.parametrize("dtype,h,mma", [
+    (torch.bfloat16, 64, True),     # groups of 32 units
+    (torch.bfloat16, 104, True),    # a multiple of 8, not of 32
+    (torch.bfloat16, 100, False),   # not a multiple of 8
+    (torch.float32, 64, False),     # f32: the CUDA-core kernel
+])
+def test_stream_scratch_follows_the_kernel_the_call_runs(dtype, h, mma):
+    """``lstm_fwd_stream`` picks its C path before the launch, as
+    ``lstm_fwd_stream_launch`` does: bf16 with H % 8 == 0 runs the
+    tensor-core loop, whose scratch holds the cell state (f32), two
+    rounded h rows and W^T (bf16); any other call the CUDA-core kernel,
+    whose scratch is the cell state alone."""
+    d, t, bsz = 2, 3, 5
+    xp = torch.zeros(t, bsz, 4 * h, dtype=dtype)
+    w = torch.zeros(d, h, 4 * h, dtype=dtype)
+    assert lstm._fwd_stream_mma(w) is mma
+    scratch = lstm._fwd_stream_scratch(xp, w)
+    assert scratch.dtype == torch.float32
+    c_bytes = 4 * d * bsz * h
+    extra = 2 * (2 * d * bsz * h) + 2 * (d * 4 * h * h) if mma else 0
+    assert scratch.numel() * 4 == c_bytes + extra
+    # The int8 streamed kernel keeps its [D,B,H] cell state.
+    assert lstm._c_scratch(xp, w).shape == (d, bsz, h)
+
+
+@pytest.mark.parametrize("variant", [n for n, subs in
+                                     k14_variants.VARIANTS.items() if subs])
+def test_k14_variants_match_the_source(variant):
+    """Each variant that ``deepspeech_tpu_torch.k14_variants`` builds
+    replaces a constant that ``csrc/lstm_fwd_stream.cu`` holds exactly
+    once, so the script times the loop it names."""
+    with open(os.path.join(_build.CSRC_DIR, "lstm_fwd_stream.cu")) as f:
+        src = f.read()
+    for old, new in k14_variants.VARIANTS[variant]:
+        assert src.count(old) == 1
+        assert new != old
 
 
 def test_wrappers_reject_other_devices_and_bad_arguments():
