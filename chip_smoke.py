@@ -20,7 +20,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      (library: ``torch.nn.functional.ctc_loss``);
    - ``gru_fwd_stream`` and ``gru_bwd_stream`` (W streamed every step)
      at ds2_full's B=32, T'=850, H=1760 (library: cuDNN's GRU at
-     H=1760, forward and backward timed apart);
+     H=1760, forward and backward timed apart); ``gru_bwd_stream`` also
+     at T=37 with B=45 (bf16 and f32) and B=8, at H=104 and at H=2176
+     (more groups than SMs), each check naming the device kernels that
+     ran (in bf16 with H % 8 == 0 the gate pre-pass GEMM and the
+     tensor-core loop, else the two-phase kernel);
    - ``gru_fwd_q`` (int8 W resident) at ds2_full's H=1760, D=2 and at
      H=800, D=1 with h0, and ``gru_fwd_q_stream`` (int8 W streamed) at
      H=1760 (library: cuDNN's GRU in bf16 on the dequantized W);
@@ -70,8 +74,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    version, beside an LSTM with one direction reversed;
 5. training path phases: ``Trainer`` steps at the full width of
    ds2_small, ds2_streaming and ds2_full on a (32, 1700) batch of
-   ragged lengths, GRU and then LSTM (``model.rnn_type=lstm``; the
-   ds2_full GRU phase at 2 of its 7 layers, to save time); counts
+   ragged lengths, GRU and then LSTM (``model.rnn_type=lstm``); counts
    the launches per step (one recurrent forward and one backward per
    layer: ``gru_fwd``/``gru_bwd`` or the taped ``lstm_fwd`` and
    ``lstm_bwd`` for the first two, the streamed kernels for ds2_full;
@@ -138,9 +141,9 @@ DESCENT_STEPS = 10              # AdamW steps on the fixed batch
 # ds2_full (7 BiGRU, H=1760): a step takes seconds, so fewer of them.
 FULL_TRAIN_STEPS = 2
 FULL_DESCENT_STEPS = 5
-# The ds2_full GRU train phase runs 2 of its 7 layers at full width, to
-# keep the script within its time (the ds2_full-lstm phase runs all 7).
-FULL_GRU_TRAIN_LAYERS = 2
+# The ds2_full GRU train phase runs all 7 layers at full width, as the
+# ds2_full-lstm phase does (2 of 7 before K9's tensor-core loop, for time).
+FULL_GRU_TRAIN_LAYERS = 7
 # The TPU kernels the GRU kernels replace (deepspeech_tpu/ops/).
 K4 = "deepspeech_tpu/ops/rnn_pallas.py:155"   # _bigru_kernel
 K5 = "deepspeech_tpu/ops/rnn_pallas.py:211"   # _bigru_bwd_kernel
@@ -402,16 +405,23 @@ def _cudnn_lstm(args, h: int):
     return lib
 
 
-def _device_kernels(fn, tries: int = 3):
+def _device_kernels(fn, tries: int = 5, want: frozenset = frozenset()):
     """Run ``fn()`` under ``torch.profiler`` (as profile_infer reads the
     card); returns its result, ``{name: device ms}`` of the port's
-    kernels that ran, and how many times ``fn`` ran. The profiler now
-    and then reports no device event for a window (on an H100, about one
-    window in twenty); such a window runs again, up to ``tries`` times."""
+    kernels that ran, and how many times ``fn`` ran. On an H100 the
+    profiler now and then records no device event for a window, at times
+    several windows in a row, or misses the first kernel a window
+    launches (K9's pre-pass in one-call windows). So a window
+    starts with a throw-away kernel and a pause, and one that saw none
+    of the port's kernels or not all of ``want`` runs again after a
+    longer pause, up to ``tries`` times."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for runs in range(1, tries + 1):
         with torch.profiler.profile(activities=acts) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
             out = fn()
             torch.cuda.synchronize()
         ran = {}
@@ -420,8 +430,9 @@ def _device_kernels(fn, tries: int = 3):
             if m and e.device_type == torch.autograd.DeviceType.CUDA:
                 ran[m.group(1)] = (ran.get(m.group(1), 0.0)
                                    + e.self_device_time_total / 1e3)
-        if ran:
+        if ran and want <= set(ran):
             break
+        time.sleep(0.5 * runs)
     return out, ran, runs
 
 
@@ -509,7 +520,10 @@ def lstm_kernel_phase(gen, kernel: str, h: int, timed):
         ms = _time_ms(lambda: fn(*args), reps=5)
         # One call's device time by kernel (for lstm_fwd_stream: the
         # transpose of W and the serial loop).
-        _, device_ms, _ = _device_kernels(lambda: fn(*args))
+        _, device_ms, _ = _device_kernels(
+            lambda: fn(*args), want=frozenset(
+                _k14_kernels(torch.bfloat16, h)
+                if kernel == "lstm_fwd_stream" else ()))
         plain_ms = _time_ms(lambda: plain(*args), reps=1)
         lib = _cudnn_lstm(args, h)
         x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
@@ -777,14 +791,30 @@ def ctc_kernel_phase(gen):
     return entries
 
 
+def _k9_kernels(w: torch.Tensor, ys: torch.Tensor) -> set:
+    """The device kernels one ``gru_bwd_stream`` call launches: where
+    ``ops.gru._bwd_stream_mma`` holds (bf16, H a multiple of 8, aligned)
+    the gate pre-pass GEMM and the tensor-core loop, else the two-phase
+    CUDA-core kernel (csrc/gru_bwd_stream.cu)."""
+    from deepspeech_tpu_torch.ops import gru
+
+    if gru._bwd_stream_mma(w, ys):
+        return {"gru_bwd_stream_gates_kernel", "gru_bwd_stream_mma_kernel"}
+    return {"gru_bwd_stream_kernel"}
+
+
 def gru_bwd_kernel_phase(gen, kernel: str, h: int, timed):
     """Hold ``ops.gru.<kernel>`` (``gru_bwd``, the resident kernel at
     these sizes, or ``gru_bwd_stream``) against ``gru_bwd_plain`` as
-    ``gru_fwd_kernel_phase`` holds the forward, and time it for each
-    ``(d, replaces)`` of ``timed`` beside cuDNN's GRU backward."""
+    ``gru_fwd_kernel_phase`` holds the forward, two runs the same bits
+    (``gru_bwd_stream``'s checks also naming the device kernels the
+    profiler saw: the ones its dtype, H and alignment select), and time
+    it for each ``(d, replaces)`` of ``timed`` beside cuDNN's GRU
+    backward."""
     from deepspeech_tpu_torch.ops import gru
 
     fn = getattr(gru, kernel)
+    streamed = kernel.endswith("_stream")
 
     def inputs(d, dtype, shape):
         args, valid = _gru_inputs(d, dtype, False, gen, *shape)
@@ -793,19 +823,42 @@ def gru_bwd_kernel_phase(gen, kernel: str, h: int, timed):
         dy = torch.randn(ys.shape, generator=gen, device="cuda") * 0.1
         return (xp, mask, w, bias, ys, dy, reverse), valid
 
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("D2_bf16", 2, bf16, (T, B, h)), ("D2_f32", 2, f32, (T, B, h)),
+             ("D1_bf16", 1, bf16, (T, B, h)), ("D1_f32", 1, f32, (T, B, h)),
+             ("D2_bf16_ragged", 2, bf16, (37, 45, 100)),
+             ("D1_f32_ragged", 1, f32, (37, 45, 100))]
+    if streamed:
+        # At full width: B above the 32 rows of a pass, and B=8 in a
+        # partly filled m16 tile; H=104, a multiple of 8 but not of the
+        # 32-unit groups; H=2176, 136 groups on an H100's 132 SMs, so
+        # some blocks take two groups a step and all of W streams. H=100
+        # (above: bf16 with H % 8 != 0) and f32 run the two-phase kernel.
+        cases += [("D2_bf16_ragged_full", 2, bf16, (37, 45, h)),
+                  ("D2_f32_ragged_full", 2, f32, (37, 45, h)),
+                  ("D2_bf16_b8_full", 2, bf16, (37, 8, h)),
+                  ("D2_bf16_h104", 2, bf16, (37, 45, 104)),
+                  ("D2_bf16_h2176", 2, bf16, (37, 8, 2176))]
     _zero_counts()
-    checks = {}
-    for name, d, dtype, shape in (
-            ("D2_bf16", 2, torch.bfloat16, (T, B, h)),
-            ("D2_f32", 2, torch.float32, (T, B, h)),
-            ("D1_bf16", 1, torch.bfloat16, (T, B, h)),
-            ("D1_f32", 1, torch.float32, (T, B, h)),
-            ("D2_bf16_ragged", 2, torch.bfloat16, (37, 45, 100)),
-            ("D1_f32_ragged", 1, torch.float32, (37, 45, 100))):
+    checks, calls = {}, 0
+    for name, d, dtype, shape in cases:
         args, _ = inputs(d, dtype, shape)
-        dxp, dg = fn(*args)
-        dxp2, dg2 = fn(*args)
-        torch.cuda.synchronize()
+        if streamed:
+            want = _k9_kernels(args[2], args[4])
+            outs, ran, runs = _device_kernels(
+                lambda: [fn(*args) for _ in range(2)], want=frozenset(want))
+            calls += 2 * runs
+            _require(set(ran) == want, f"{kernel} {name}: ran "
+                     f"{sorted(ran)}, want {sorted(want)}")
+            floats = gru._lib(kernel).gru_bwd_stream_scratch_floats(
+                d, shape[1], shape[2])
+            _require(floats == gru._bwd_stream_scratch_floats(
+                d, shape[1], shape[2]), f"{kernel} {name}: the C scratch "
+                f"size {floats} is not ops.gru's")
+        else:
+            outs = [fn(*args) for _ in range(2)]
+            calls += 2
+        (dxp, dg), (dxp2, dg2) = outs
         dxp_p, dg_p = gru.gru_bwd_plain(*args)
         err = max(float((dxp - dxp_p).abs().max()),
                   float((dg - dg_p).abs().max()))
@@ -818,10 +871,12 @@ def gru_bwd_kernel_phase(gen, kernel: str, h: int, timed):
                  f"{kernel} {name}: two runs on one input differ")
         checks[name] = {"max_abs_err": err, "tol": TOL[dtype],
                         "bit_identical": True}
-        print(json.dumps({"check": f"{kernel} {name}", "max_abs_err": err,
-                          "tol": TOL[dtype], "bit_identical": True}),
+        if streamed:
+            checks[name]["kernels"] = sorted(ran)
+        print(json.dumps({"check": f"{kernel} {name}", **checks[name]}),
               flush=True)
-    _require_only(kernel, 2 * len(checks))
+        del args, outs
+    _require_only(kernel, calls)
 
     entries = []
     for d, replaces in timed:
@@ -843,11 +898,21 @@ def gru_bwd_kernel_phase(gen, kernel: str, h: int, timed):
             out, leaves, g_out, retain_graph=True), reps=3)
         del out, g_out, leaves, cudnn, x_lib
         extra = {}
-        if kernel.endswith("_stream"):
-            # The streamed kernel where the resident one runs (H=800).
+        if streamed:
+            # One call's device time by kernel (in bf16: the gate
+            # pre-pass and the serial loop); one batch row, where W's
+            # bytes stay and most products go; and H=800, where the
+            # resident kernel runs.
+            _, extra["device_ms"], _ = _device_kernels(
+                lambda: fn(*args),
+                want=frozenset(_k9_kernels(args[2], args[4])))
+            args_b1 = tuple(a[:, :, :1].contiguous() if i in (4, 5) else
+                            a[:, :1].contiguous() if i < 2 else a
+                            for i, a in enumerate(args))
+            extra["ms_at_b1"] = _time_ms(lambda: fn(*args_b1), reps=3)
             args_h, _ = inputs(d, torch.bfloat16, (T, B, H))
             extra["ms_at_h800"] = _time_ms(lambda: fn(*args_h), reps=2)
-            del args_h
+            del args_h, args_b1
         xp, mask, w, bias, ys, dy, _ = args
         # Two [B,H]x[H,3H] products per valid step (gate recompute and
         # dgates @ W^T); inputs read once, dxp and dgates written once.
@@ -869,6 +934,7 @@ def gru_bwd_kernel_phase(gen, kernel: str, h: int, timed):
         print(json.dumps({"timed": entries[-1]["name"], "ms": ms,
                           "plain_ms": plain_ms, "library_ms": library_ms,
                           "bound_ms": bound_ms, **extra}), flush=True)
+        del args
     return entries
 
 

@@ -26,7 +26,7 @@ import json
 import math
 import os
 import subprocess
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -64,21 +64,33 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
 }
 
 
-def _build_variants() -> Tuple[Dict[str, ctypes.CDLL], Dict[str, list]]:
-    with open(os.path.join(_build.CSRC_DIR, "lstm_fwd_stream.cu")) as f:
+def build_variants(source: str, variants: Dict[str, List[Tuple[str, str]]],
+                   tag: str, copies: Optional[Dict[str, str]] = None
+                   ) -> Tuple[Dict[str, ctypes.CDLL], Dict[str, list]]:
+    """Build each of ``variants`` (name -> text substitutions of
+    ``csrc/<source>.cu``) and each of ``copies`` (name -> the path of
+    another copy of that source, built as it is) into
+    ``build/torch_kernels/<tag>/``, one ``nvcc -Xptxas -v`` each, all
+    started together. Returns the loaded libraries and, for each, ptxas's
+    registers and spills of its tensor-core loop (the report after its
+    ``mma_kernel`` line; none where the source has no such kernel)."""
+    with open(os.path.join(_build.CSRC_DIR, f"{source}.cu")) as f:
         text = f.read()
-    out_dir = os.path.join(_build.BUILD_DIR, "k14_variants")
+    out_dir = os.path.join(_build.BUILD_DIR, tag)
     os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, subs in VARIANTS.items():
+    sources = {}
+    for name, subs in variants.items():
         src = text
         for old, new in subs:
             if src.count(old) != 1:
                 raise RuntimeError(f"{name}: the source no longer has {old!r}")
             src = src.replace(old, new)
-        path = os.path.join(out_dir, f"{name}.cu")
-        with open(path, "w") as f:
+        sources[name] = os.path.join(out_dir, f"{name}.cu")
+        with open(sources[name], "w") as f:
             f.write(src)
+    sources.update(copies or {})
+    procs = {}
+    for name, path in sources.items():
         lib = os.path.join(out_dir, f"lib{name}.so")
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
@@ -90,12 +102,11 @@ def _build_variants() -> Tuple[Dict[str, ctypes.CDLL], Dict[str, list]]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
         libs[name] = ctypes.CDLL(lib)
-        # The loop's registers and spills: the report after its
-        # "Compiling entry function" line.
         lines = log.splitlines()
-        at = next(i for i, x in enumerate(lines) if "mma_kernel" in x)
-        ptxas[name] = [x.strip() for x in lines[at + 1:at + 4]
-                       if "spill" in x or "Used" in x]
+        at = next((i for i, x in enumerate(lines) if "mma_kernel" in x), None)
+        ptxas[name] = [] if at is None else [
+            x.strip() for x in lines[at + 1:at + 4]
+            if "spill" in x or "Used" in x]
     return libs, ptxas
 
 
@@ -117,7 +128,8 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k14_variants measures the card: no CUDA device")
-    libs, ptxas = _build_variants()
+    libs, ptxas = build_variants("lstm_fwd_stream", VARIANTS,
+                                 "k14_variants")
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = _inputs(gen)
     ref = lstm.lstm_fwd_plain(*inputs)

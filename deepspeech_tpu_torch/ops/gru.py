@@ -564,16 +564,44 @@ def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
 gru_bwd.launches = 0
 
 
+def _bwd_stream_mma(w: torch.Tensor, ys: torch.Tensor) -> bool:
+    """Whether ``gru_bwd_stream``'s C call runs its tensor-core path (the
+    gate pre-pass GEMM, then the ``mma.sync`` loop): bf16 with H a
+    multiple of 8 (a 16-byte piece of a W row of 3H holds 8 values) and
+    ``w`` and ``ys`` 16-byte aligned, the rule ``gru_bwd_stream_launch``
+    applies before any launch (it also needs the scratch aligned, which
+    ``torch.empty`` is). Else the two-phase CUDA-core kernel runs."""
+    return (w.dtype == torch.bfloat16 and w.shape[1] % 8 == 0
+            and w.data_ptr() % 16 == 0 and ys.data_ptr() % 16 == 0)
+
+
+def _bwd_stream_scratch_floats(d: int, bsz: int, h: int) -> int:
+    """``gru_bwd_stream_scratch_floats``: the f32 scratch either path of
+    ``csrc/gru_bwd_stream.cu`` takes, ``8*D*B*H``. The two-phase kernel
+    keeps dh and its elementwise part ``[2,D,B,H]`` f32, then two
+    ``round(dgates)`` rows ``[2,D,B,3H]`` in the dot dtype (f32 room);
+    the tensor-core loop keeps the elementwise part alone in the first
+    ``D*B*H`` and its two bf16 rows at the same float offset ``2*D*B*H``
+    (16-byte aligned when H % 8 == 0)."""
+    return 8 * d * bsz * h
+
+
 def gru_bwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor, ys: torch.Tensor, dy: torch.Tensor,
                    reverse: Sequence[bool] = (False,)
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``gru_bwd`` through the streamed kernel ``csrc/gru_bwd_stream.cu``
-    (K9), whatever the sizes: a column phase and a row phase a step,
-    each streaming W from global memory, the dgates @ W^T reduction by
-    the owner of each hidden unit (see the source). The same contract
-    and arithmetic as ``gru_bwd``. A CPU tensor runs ``gru_bwd_plain``;
-    a CUDA tensor launches the kernel (one launch, counted in
+    (K9), whatever the sizes. Where ``_bwd_stream_mma`` holds (bf16,
+    H % 8 == 0) the gate recompute, which reads h_prev from the ``ys``
+    tape and not from the carried dh, runs first for every step at once
+    as a tensor-core GEMM written into ``dgates``; then a serial kernel
+    streams W's rows once a step to form ``round(dgates) @ W^T`` on the
+    tensor cores (part of W held in shared memory for the call), one grid
+    barrier a step, and overwrites each step's gates with its ``dgates``.
+    f32 and other bf16 calls run the two-phase CUDA-core kernel, a
+    column and a row phase a step (see the source). The same contract and
+    arithmetic as ``gru_bwd``. A CPU tensor runs ``gru_bwd_plain``; a
+    CUDA tensor calls the kernel's C entry point once (counted in
     ``gru_bwd_stream.launches``) or raises."""
     reverse = tuple(bool(r) for r in reverse)
     _check_bwd(xp, mask, w, b, reverse, ys=ys, dy=dy)

@@ -4,13 +4,19 @@ the sizes that take the streamed kernels against the JAX package's
 blocked Pallas kernels (``_gru_kernel_blocked``, ``_gru_bwd_kernel_blocked``)
 run in interpret mode, as tests/test_pallas.py runs them: the residency
 budget is forced to 0 inside the test only, so H=176 (3H=528, two
-512-column blocks) takes the blocked path.
+512-column blocks) takes the blocked path. Also the decomposition the
+streamed backward kernel (``csrc/gru_bwd_stream.cu``, K9) runs in bf16,
+every row's gates first as one product and then the serial loop, against
+``gru_bwd_plain`` and the blocked Pallas VJP; that kernel's path rule and
+scratch; and ``k9_variants``'s substitutions.
 
 On the CPU the wrappers run their plain versions; chip_smoke.py holds
 the CUDA kernels to those plain versions on the card. Tolerances: 1e-4
 in float32 (the JAX Pallas gradient tests' own), 3e-2 of the largest
 reference value with bf16 dots (the JAX bf16 test's).
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -20,8 +26,9 @@ import torch
 
 from deepspeech_tpu.ops import rnn_pallas
 from deepspeech_tpu.ops.rnn_pallas import gru_scan_pallas
+from deepspeech_tpu_torch import k9_variants
 from deepspeech_tpu_torch.config import get_config
-from deepspeech_tpu_torch.ops import gru
+from deepspeech_tpu_torch.ops import _build, gru
 from test_torch_gru_bwd import _close
 
 H, B, T = 176, 3, 9
@@ -179,3 +186,158 @@ def test_stream_wrappers_reject_other_devices_and_bad_shapes(fn):
     with pytest.raises(ValueError):
         getattr(gru, fn)(xp[:, :, :-1].contiguous(), m, w, b, *extra,
                          (False,))
+
+
+
+# ---------------------------------------------------------------------------
+# K9's tensor-core decomposition (csrc/gru_bwd_stream.cu, bf16 path): every
+# row's gates first as one product, then the serial loop on them.
+# ---------------------------------------------------------------------------
+
+def _k9_decomposed(xp, mask, w, b, ys, dy, reverse):
+    """The bf16 path of ``csrc/gru_bwd_stream.cu`` in plain PyTorch, at
+    any dtype: the gate pre-pass ``pre = round(h_prev) @ W + b`` for all
+    T*B rows of a direction at once (h_prev from ``gru._h_prev``), then
+    the serial loop on ``pre``: ``dh = its elementwise part +
+    round(dg_prev) @ W^T``, ``dz`` from the f32 h_prev, the rounded row
+    carrying ``(da_r, da_z, dg_n)`` (the n column's ``dg_n = da_n * r``,
+    not ``da_n``)."""
+    d, t, bsz, h = ys.shape
+    w32 = w.float()
+    hp = gru._h_prev(ys, reverse)
+    pre = (torch.bmm(hp.to(w.dtype).float().reshape(d, t * bsz, h), w32)
+           .reshape(d, t, bsz, 3 * h) + b[:, None, None])
+    dxp = torch.empty((d, t, bsz, 3 * h))
+    dgates = torch.empty_like(dxp)
+    for di in range(d):
+        de = torch.zeros((bsz, h))
+        dgr = None
+        for i in range(t):
+            row = i if reverse[di] else t - 1 - i
+            carry = de if dgr is None else de + dgr @ w32[di].t()
+            g, x = pre[di, row], xp[row].float()
+            g_n = g[:, 2 * h:]
+            r = torch.sigmoid(x[:, :h] + g[:, :h])
+            z = torch.sigmoid(x[:, h:2 * h] + g[:, h:2 * h])
+            n = torch.tanh(x[:, 2 * h:] + r * g_n)
+            m = mask[row][:, None]
+            dhc = carry + dy[di, row]
+            dh_mid = m * dhc
+            da_n = dh_mid * (1.0 - z) * (1.0 - n * n)
+            da_z = dh_mid * (hp[di, row] - n) * z * (1.0 - z)
+            da_r = da_n * g_n * r * (1.0 - r)
+            dg = torch.cat([da_r, da_z, da_n * r], 1)
+            dxp[di, row] = torch.cat([da_r, da_z, da_n], 1)
+            dgates[di, row] = dg
+            dgr = dg.to(w.dtype).float()
+            de = dh_mid * z + (1.0 - m) * dhc
+    return dxp, dgates
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("reverse", [(False,), (True,), (False, True),
+                                     (True, False)])
+@pytest.mark.parametrize("h", [16, 24])
+def test_k9_decomposition_matches_plain_and_blocked_pallas(
+        monkeypatch, h, reverse, bf16):
+    """K9's decomposition on the blocked JAX forward's own outputs
+    against ``gru_bwd_plain`` (f32: 1e-6; bf16: the same roundings at
+    the same places, so 1e-6 too unless a last-bit difference of the
+    f32 gate sums flips a bf16 rounding, which moves dgates by 2**-8
+    of itself: 1e-2 of the largest value) and against the blocked Pallas
+    VJP, ``_gru_bwd_kernel_blocked`` in interpret mode (dxp, and dW and
+    db formed from dgates as ``_gru_bwd`` forms them; f32 1e-4, bf16 the
+    module's 3e-2)."""
+    monkeypatch.setattr(rnn_pallas, "_VMEM_WEIGHT_BUDGET", 0)
+    dot = "bfloat16" if bf16 else None
+    assert rnn_pallas._use_blocked(h, rnn_pallas._dot_jnp_dtype(dot))
+    d = len(reverse)
+    rng = np.random.default_rng(100 + h + 7 * d + 3 * reverse[0])
+    xproj = rng.normal(size=(B, T, 3 * h)).astype(np.float32)
+    if bf16:
+        xproj = torch.from_numpy(xproj).bfloat16().float().numpy()
+    ws = (rng.normal(size=(d, h, 3 * h)) / np.sqrt(h)).astype(np.float32)
+    bs = (rng.normal(size=(d, 3 * h)) * 0.1).astype(np.float32)
+    lens = np.array([T, T - 3, 1])
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+    dys = rng.normal(size=(d, B, T, h)).astype(np.float32)
+    ys, ref = [], []
+    for di, rev in enumerate(reverse):
+        _, res = rnn_pallas._gru_fwd(
+            jnp.asarray(xproj), jnp.asarray(mask), jnp.asarray(ws[di]),
+            jnp.asarray(bs[di]), rev, True, dot)
+        ys.append(np.array(res[4]))
+        ref.append(rnn_pallas._gru_bwd(rev, True, dot, res,
+                                       jnp.asarray(dys[di])))
+    dd = torch.bfloat16 if bf16 else torch.float32
+    args = (torch.from_numpy(xproj).transpose(0, 1).contiguous().to(dd),
+            torch.from_numpy(mask).t().contiguous(),
+            torch.from_numpy(ws).to(dd), torch.from_numpy(bs),
+            torch.from_numpy(np.stack(ys)),
+            torch.from_numpy(dys).transpose(1, 2).contiguous(), reverse)
+    dxp, dgates = _k9_decomposed(*args)
+    dxp_p, dgates_p = gru.gru_bwd_plain(*args)
+    tol = 1e-2 * max(1.0, float(dgates_p.abs().max())) if bf16 else 1e-6
+    torch.testing.assert_close(dxp, dxp_p, atol=tol, rtol=0)
+    torch.testing.assert_close(dgates, dgates_p, atol=tol, rtol=0)
+    hp = gru._h_prev(args[4], reverse).reshape(d, T * B, h).double()
+    for di in range(d):
+        dxp_ref, _, dw_ref, db_ref = ref[di]
+        _close(dxp[di].transpose(0, 1).numpy(), dxp_ref, bf16, "dxp")
+        dw = hp[di].t() @ dgates[di].reshape(T * B, 3 * h).double()
+        _close(dw.float().numpy(), dw_ref, bf16, "dW from dgates")
+        _close(dgates[di].sum((0, 1)).numpy(), db_ref, bf16,
+               "db from dgates")
+
+
+def _strided(dtype, shape, offset: int = 0):
+    """A tensor of ``shape`` over a few elements of storage (every
+    stride 0), its data ``offset`` elements past a 16-byte boundary."""
+    return torch.zeros(16, dtype=dtype).as_strided(
+        shape, (0,) * len(shape), offset)
+
+
+@pytest.mark.parametrize("dtype,h,mma", [
+    (torch.bfloat16, 1760, True),   # ds2_full: 55 groups a direction
+    (torch.bfloat16, 800, True),    # ds2_small's width, streamed
+    (torch.bfloat16, 2176, True),   # 136 groups at D=2: more than SMs
+    (torch.bfloat16, 100, False),   # 3H = 300: no 16-byte pieces
+    (torch.float32, 1760, False),   # f32: the two-phase kernel
+])
+def test_k9_path_rule_and_scratch(dtype, h, mma):
+    """``gru_bwd_stream`` picks its C path before the launch, as
+    ``gru_bwd_stream_launch`` does: bf16 with H % 8 == 0 and w and ys
+    16-byte aligned runs the pre-pass GEMM and the tensor-core loop; any
+    other call the two-phase kernel. The scratch is ``8*D*B*H`` floats
+    either way: the two-phase kernel's dh, its elementwise part and two
+    rows of 3H in the dot dtype; the loop's elementwise part and, from
+    float ``2*D*B*H`` (16-byte aligned), two bf16 rows."""
+    d, t, bsz = 2, 3, 5
+    w = _strided(dtype, (d, h, 3 * h))
+    ys = _strided(torch.float32, (d, t, bsz, h))
+    assert gru._bwd_stream_mma(w, ys) is mma
+    if mma:  # a misaligned w or ys takes the two-phase kernel
+        assert not gru._bwd_stream_mma(_strided(dtype, (d, h, 3 * h), 1), ys)
+        assert not gru._bwd_stream_mma(
+            w, _strided(torch.float32, (d, t, bsz, h), 1))
+    floats = gru._bwd_stream_scratch_floats(d, bsz, h)
+    assert floats == 8 * d * bsz * h
+    two_phase = 4 * 2 * d * bsz * h + 2 * d * bsz * 3 * h * (
+        2 if dtype == torch.bfloat16 else 4)
+    rows_at = 4 * 2 * d * bsz * h
+    loop = rows_at + 2 * (2 * d * bsz * 3 * h)
+    assert two_phase <= 4 * floats and loop <= 4 * floats
+    assert rows_at % 16 == 0 or h % 8 != 0
+
+
+@pytest.mark.parametrize("variant", [n for n, subs in
+                                     k9_variants.VARIANTS.items() if subs])
+def test_k9_variants_match_the_source(variant):
+    """Each variant that ``deepspeech_tpu_torch.k9_variants`` builds
+    replaces a constant that ``csrc/gru_bwd_stream.cu`` holds exactly
+    once, so the script times the loop it names."""
+    with open(os.path.join(_build.CSRC_DIR, "gru_bwd_stream.cu")) as f:
+        src = f.read()
+    for old, new in k9_variants.VARIANTS[variant]:
+        assert src.count(old) == 1
+        assert new != old
