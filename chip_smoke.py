@@ -35,7 +35,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      naming the device kernels that ran
      (in bf16 the transpose of W and the tensor-core loop);
      ``lstm_fwd_q`` (int8 W resident) at H=800, D=2 and
-     ``lstm_fwd_q_stream`` (int8 W streamed) at H=1760, D=2
+     ``lstm_fwd_q_stream`` (int8 W streamed) at H=1760, D=2, and at
+     T=37 with B=45 (bf16 and f32) and B=8, at H=104 and H=108 (either
+     side of its H % 8 rule) and at H=2176, each check naming the
+     device kernels that ran (with bf16 dots and H % 8 == 0 the
+     transpose of Q and the tensor-core loop, else the CUDA-core kernel)
      (library: cuDNN's LSTM in bf16 at the same H, the forget gate's
      +1 folded into its ``bias_hh``, on the dequantized W for the int8
      kernels);
@@ -446,18 +450,36 @@ def _k14_kernels(dtype: torch.dtype, h: int) -> set:
     return {"lstm_fwd_stream_kernel"}
 
 
+def _k17_kernels(dtype: torch.dtype, h: int) -> set:
+    """The device kernels one ``lstm_fwd_q_stream`` call launches: with
+    bf16 dots and H a multiple of 8 the transpose of Q and the
+    tensor-core loop, else the CUDA-core kernel
+    (csrc/lstm_fwd_q_stream.cu)."""
+    if dtype == torch.bfloat16 and h % 8 == 0:
+        return {"lstm_fwd_q_stream_transpose_kernel",
+                "lstm_fwd_q_stream_mma_kernel"}
+    return {"lstm_fwd_q_stream_kernel"}
+
+
+# The streamed kernels whose C call picks its device kernels by dtype and
+# H: what each call must have launched.
+_STREAM_KERNELS = {"lstm_fwd_stream": _k14_kernels,
+                   "lstm_fwd_q_stream": _k17_kernels}
+
+
 def lstm_kernel_phase(gen, kernel: str, h: int, timed):
     """Hold ``ops.lstm.<kernel>`` (``lstm_fwd``, which launches the
     resident kernel at these sizes, or ``lstm_fwd_stream``; with int8 W
     ``lstm_fwd_q``, resident here, or ``lstm_fwd_q_stream``) against its
     plain version at T'=850, B=32 and width ``h`` for each D of ``timed``,
     bf16 and f32, with and without the cell-state tape (the fp kernels),
-    and at one ragged shape off the tiles (``lstm_fwd_stream`` also at
-    width ``h``); two runs must give the same bits, the tape included.
-    Each check names the device kernels that ran (``lstm_fwd_stream``:
-    the ones its dtype and H select). Then time it for each ``(d,
-    replaces)`` of ``timed`` without the tape, as serving calls it,
-    beside its bound, its plain version and cuDNN's LSTM."""
+    and at one ragged shape off the tiles (``lstm_fwd_stream`` and
+    ``lstm_fwd_q_stream`` also at width ``h``); two runs must give the
+    same bits, the tape included. Each check names the device kernels
+    that ran (the streamed kernels: the ones their dtype and H select).
+    Then time it for each ``(d, replaces)`` of ``timed`` without the
+    tape, as serving calls it, beside its bound, its plain version and
+    cuDNN's LSTM."""
     from deepspeech_tpu_torch.ops import lstm
 
     fn = getattr(lstm, kernel)
@@ -484,6 +506,19 @@ def lstm_kernel_phase(gen, kernel: str, h: int, timed):
                   ("D2_bf16_b8_full", 2, bf16, False, (37, 8, h)),
                   ("D2_bf16_h104_tape", 2, bf16, True, (37, 45, 104)),
                   ("D2_bf16_h2176_tape", 2, bf16, True, (37, 8, 2176))]
+    if kernel == "lstm_fwd_q_stream":
+        # At full width: B above the 32 rows of a pass, B=8 in a partly
+        # filled m16 tile, f32 (the CUDA-core kernel); H=104, a multiple of
+        # 8 (the tensor-core rule) but not of the 32-unit groups nor of the
+        # 64-deep chunks, and H=108, off the rule (the CUDA-core kernel, as
+        # H=100 above); H=2176, 136 groups on an H100's 132 SMs, so some
+        # blocks take two groups a step and no Q^T stays resident.
+        cases += [("D2_bf16_ragged_full", 2, bf16, False, (37, 45, h)),
+                  ("D2_f32_ragged_full", 2, f32, False, (37, 45, h)),
+                  ("D2_bf16_b8_full", 2, bf16, False, (37, 8, h)),
+                  ("D2_bf16_h104", 2, bf16, False, (37, 45, 104)),
+                  ("D2_bf16_h108", 2, bf16, False, (37, 45, 108)),
+                  ("D2_bf16_h2176", 2, bf16, False, (37, 8, 2176))]
     _zero_counts()
     checks, calls = {}, 0
     for name, d, dtype, tape, shape in cases:
@@ -492,10 +527,10 @@ def lstm_kernel_phase(gen, kernel: str, h: int, timed):
         outs, ran, runs = _device_kernels(
             lambda: [fn(*args, **kw) for _ in range(2)])
         calls += 2 * runs
-        if kernel == "lstm_fwd_stream":
-            _require(set(ran) == _k14_kernels(dtype, shape[2]),
-                     f"{kernel} {name}: ran {sorted(ran)}, want "
-                     f"{sorted(_k14_kernels(dtype, shape[2]))}")
+        if kernel in _STREAM_KERNELS:
+            want = _STREAM_KERNELS[kernel](dtype, shape[2])
+            _require(set(ran) == want, f"{kernel} {name}: ran {sorted(ran)}, "
+                     f"want {sorted(want)}")
         ref = plain(*args, **kw)
         got, again, ref = [x if tape else (x,) for x in (*outs, ref)]
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
@@ -518,12 +553,12 @@ def lstm_kernel_phase(gen, kernel: str, h: int, timed):
         args, valid = _lstm_inputs(d, torch.bfloat16, gen, T, B, h,
                                    quantized)
         ms = _time_ms(lambda: fn(*args), reps=5)
-        # One call's device time by kernel (for lstm_fwd_stream: the
-        # transpose of W and the serial loop).
+        # One call's device time by kernel (for the streamed kernels: the
+        # transpose of W or Q and the serial loop).
         _, device_ms, _ = _device_kernels(
             lambda: fn(*args), want=frozenset(
-                _k14_kernels(torch.bfloat16, h)
-                if kernel == "lstm_fwd_stream" else ()))
+                _STREAM_KERNELS[kernel](torch.bfloat16, h)
+                if kernel in _STREAM_KERNELS else ()))
         plain_ms = _time_ms(lambda: plain(*args), reps=1)
         lib = _cudnn_lstm(args, h)
         x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(

@@ -36,8 +36,12 @@ slice held as int8 and widened 64 rows at a time beside the h_prev
 chunk, or where that does not fit (ds2_full's H=1760: 220 blocks of one
 an SM), or when the caller forces it, ``lstm_fwd_q_stream``
 (``csrc/lstm_fwd_q_stream.cu``, replacing ``_lstm_kernel_blocked_q``,
-:315, K17), K14 with s8 tiles. Neither int8 kernel writes a tape: the
-TPU kernels have none.
+:315, K17). In bf16 with H a multiple of 8 (``_fwd_q_stream_mma``)
+that is K14's tensor-core loop with s8 weights: Q^T written into its
+scratch once a call, its s8 pieces streamed (part held in shared
+memory) and widened to bf16 in registers for ``mma.sync``; f32 and
+other H stage Q through shared memory as f32 for the CUDA cores.
+Neither int8 kernel writes a tape: the TPU kernels have none.
 
 ``lstm_bwd`` is the BPTT, with the gates recomputed from the stored
 outputs and the cell-state tape: ``csrc/lstm_bwd.cu`` (replacing
@@ -160,14 +164,6 @@ def _outputs(xp, w, tape: bool):
     return ys, cs
 
 
-def _c_scratch(xp, w) -> torch.Tensor:
-    """The streamed int8 kernel's cell state ``[D,B,H]`` f32: each entry
-    is read and written by the one thread that owns its unit and row,
-    and the kernel writes it before it reads it."""
-    return torch.empty((w.shape[0], xp.shape[1], w.shape[1]),
-                       dtype=torch.float32, device=xp.device)
-
-
 def _fwd_stream_mma(w: torch.Tensor) -> bool:
     """Whether ``lstm_fwd_stream``'s C call runs its tensor-core path:
     bf16 with H a multiple of 8 (a 16-byte piece of a row holds 8
@@ -185,6 +181,30 @@ def _fwd_stream_scratch(xp, w) -> torch.Tensor:
     floats = d * bsz * h
     if _fwd_stream_mma(w):
         floats += d * bsz * h + 2 * d * h * h
+    return torch.empty((floats,), dtype=torch.float32, device=xp.device)
+
+
+def _fwd_q_stream_mma(xp: torch.Tensor, wq: torch.Tensor) -> bool:
+    """Whether ``lstm_fwd_q_stream``'s C call runs its tensor-core path:
+    a bf16 dot dtype (``xp``'s; ``wq`` is always int8) with H a multiple
+    of 8 (a 16-byte piece of an h row holds 8 values; the rows of Q^T
+    are padded to a multiple of 64), the rule ``lstm_fwd_q_stream_launch``
+    applies before any launch (it also needs the scratch 16-byte
+    aligned, which ``torch.empty`` is). Else the CUDA-core kernel
+    runs."""
+    return xp.dtype == torch.bfloat16 and wq.shape[1] % 8 == 0
+
+
+def _fwd_q_stream_scratch(xp, wq) -> torch.Tensor:
+    """``lstm_fwd_q_stream``'s scratch, f32: the cell state ``[D,B,H]``
+    (each entry read and written by the one thread that owns its unit
+    and row) and, on the tensor-core path, the rounded h rows
+    ``[2,D,B,H]`` bf16 and ``Qt = Q^T [D,4H,Hp]`` int8, its rows padded
+    to ``Hp``, H rounded up to 64 (``D*B*H + D*H*Hp`` floats)."""
+    d, bsz, h = wq.shape[0], xp.shape[1], wq.shape[1]
+    floats = d * bsz * h
+    if _fwd_q_stream_mma(xp, wq):
+        floats += d * bsz * h + d * h * (-(-h // 64) * 64)
     return torch.empty((floats,), dtype=torch.float32, device=xp.device)
 
 
@@ -310,10 +330,15 @@ def lstm_fwd_q_stream(xp: torch.Tensor, mask: torch.Tensor,
                       reverse: Sequence[bool] = (False,)) -> torch.Tensor:
     """``lstm_fwd_q`` through the streamed kernel
     ``csrc/lstm_fwd_q_stream.cu`` (K17), whatever the sizes: Q stays in
-    global memory and crosses L2 as int8 once a step. The same contract
-    and arithmetic as ``lstm_fwd_q``. A CPU tensor runs
-    ``lstm_fwd_q_plain``; a CUDA tensor launches the kernel (one launch,
-    counted in ``lstm_fwd_q_stream.launches``) or raises."""
+    global memory and crosses L2 as int8 once a step. Where
+    ``_fwd_q_stream_mma`` holds (bf16 ``xp``, H % 8 == 0) the C call
+    transposes Q into the scratch and runs the serial loop on the tensor
+    cores, two launches, with part of Q^T held in shared memory for the
+    call and every s8 piece widened to bf16 in registers; else one launch
+    of the CUDA-core kernel (see the source). The same contract and
+    arithmetic as ``lstm_fwd_q``. A CPU tensor runs ``lstm_fwd_q_plain``;
+    a CUDA tensor calls the kernel's C entry point once (counted in
+    ``lstm_fwd_q_stream.launches``) or raises."""
     reverse = tuple(bool(r) for r in reverse)
     gru._check(xp, mask, wq, b, None, reverse, scale, gates=4)
     if xp.device.type == "cpu":
@@ -322,7 +347,7 @@ def lstm_fwd_q_stream(xp: torch.Tensor, mask: torch.Tensor,
     ys, _ = _outputs(xp, wq, False)
     if ys.numel():
         gru._launch("lstm_fwd_q_stream", xp, mask, wq,
-                    (scale, b, ys, _c_scratch(xp, wq)), reverse)
+                    (scale, b, ys, _fwd_q_stream_scratch(xp, wq)), reverse)
         lstm_fwd_q_stream.launches += 1
     return ys
 

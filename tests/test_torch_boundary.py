@@ -18,7 +18,13 @@ from deepspeech_tpu_torch.ops import ctc
 from deepspeech_tpu_torch.ops.gru import gru_bwd, gru_fwd
 from deepspeech_tpu_torch.train import Trainer
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The child's torch (OpenMP, MKL) holds to one thread, as this process does.
+ONE_THREAD = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "deepspeech_tpu"}
 
 
@@ -67,7 +73,8 @@ def test_import_leaves_jax_unloaded():
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=120,
+                         env=ONE_THREAD)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
 

@@ -14,6 +14,10 @@ from deepspeech_tpu_torch.config import apply_overrides, get_config
 from deepspeech_tpu_torch.models import DeepSpeech2
 from test_torch_model import random_flax_variables
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 OVER = {"model.rnn_hidden": "24", "model.rnn_layers": "2",
         "model.conv_channels": "3,5"}
 

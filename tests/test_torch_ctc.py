@@ -22,6 +22,10 @@ from deepspeech_tpu.ops import ctc as jax_ctc
 from deepspeech_tpu.ops.ctc_pallas import ctc_loss_pallas
 from deepspeech_tpu_torch.ops import ctc
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 B, T, V, L = 5, 24, 7, 6
 
 

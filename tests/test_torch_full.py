@@ -37,6 +37,10 @@ from deepspeech_tpu_torch.train import Trainer
 from test_torch_model import random_flax_variables
 from test_torch_train import _assert_trees_close, _jax_step
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 NARROW = {"model.rnn_hidden": "32", "model.conv_channels": "4,4",
           "model.dtype": "float32", "model.rnn_impl": "pallas",
           "data.batch_size": "4", "train.checkpoint_dir": "",

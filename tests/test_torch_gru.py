@@ -18,6 +18,10 @@ from deepspeech_tpu.ops.rnn_pallas import (bigru_scan_pallas,
 from deepspeech_tpu_torch.models.rnn import gru_scan
 from deepspeech_tpu_torch.ops.gru import gru_fwd, gru_fwd_plain
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 H, B, T = 48, 3, 40
 
 

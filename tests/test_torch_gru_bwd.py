@@ -20,6 +20,10 @@ import torch
 from deepspeech_tpu.ops.rnn_pallas import bigru_scan_pallas, gru_scan_pallas
 from deepspeech_tpu_torch.ops.gru import GRUFunction, gru_bwd, gru_fwd_plain
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 H, B, T = 24, 3, 20
 
 

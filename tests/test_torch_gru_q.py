@@ -24,6 +24,10 @@ from deepspeech_tpu.ops import rnn_pallas
 from deepspeech_tpu.ops.rnn_pallas import gru_scan_pallas_q
 from deepspeech_tpu_torch.ops import gru
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 B, T = 3, 9
 TOL = {None: 1e-5, "bfloat16": 2e-2}
 

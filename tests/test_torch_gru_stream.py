@@ -31,6 +31,10 @@ from deepspeech_tpu_torch.config import get_config
 from deepspeech_tpu_torch.ops import _build, gru
 from test_torch_gru_bwd import _close
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 H, B, T = 176, 3, 9
 
 

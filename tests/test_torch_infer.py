@@ -21,6 +21,10 @@ from deepspeech_tpu_torch.decode.greedy import greedy_decode
 from deepspeech_tpu_torch.infer import Inferencer, main
 from test_torch_model import random_flax_variables
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 OVER = {"model.rnn_hidden": "32", "model.rnn_layers": "2",
         "model.conv_channels": "4,4", "model.dtype": "float32",
         "model.rnn_impl": "pallas", "data.batch_size": "2",

@@ -36,6 +36,10 @@ from deepspeech_tpu_torch.utils import quantize
 from test_torch_infer import _request
 from test_torch_model import random_flax_variables
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 OVER = {"model.rnn_type": "lstm", "model.rnn_hidden": "32",
         "model.conv_channels": "4,4", "model.dtype": "float32",
         "model.rnn_impl": "pallas", "data.batch_size": "2",

@@ -18,6 +18,10 @@ from deepspeech_tpu_torch.config import get_config
 from deepspeech_tpu_torch.models.conv import ConvFrontend, conv_out_lens
 from deepspeech_tpu_torch.models.layers import MaskedBatchNorm
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 TOL = 1e-5
 
 

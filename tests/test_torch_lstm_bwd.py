@@ -37,6 +37,10 @@ from deepspeech_tpu_torch.models import DeepSpeech2
 from deepspeech_tpu_torch.ops import _build, gru, lstm
 from deepspeech_tpu_torch.utils import quantize
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 B, T = 3, 9
 
 

@@ -20,6 +20,10 @@ from deepspeech_tpu_torch.bridge import from_flax
 from deepspeech_tpu_torch.config import apply_overrides, get_config
 from deepspeech_tpu_torch.models import DeepSpeech2
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 B, T = 3, 40
 SMALL = {"model.rnn_hidden": "32", "model.rnn_layers": "2",
          "model.conv_channels": "4,4", "model.rnn_impl": "pallas"}

@@ -27,6 +27,10 @@ from deepspeech_tpu_torch.serving import ladder
 from deepspeech_tpu_torch.utils import quantize
 from test_torch_model import random_flax_variables
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 NARROW = {"model.rnn_hidden": "32", "model.conv_channels": "4,4",
           "model.dtype": "float32", "model.rnn_impl": "pallas"}
 SMALL_CARD = (66, gru.H100_SMEM_PER_BLOCK, gru.H100_SMEM_PER_SM)

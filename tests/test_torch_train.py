@@ -41,7 +41,13 @@ from deepspeech_tpu_torch.train import (Trainer, check_supported,
                                         clip_by_global_norm,
                                         make_lr_schedule)
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The child's torch (OpenMP, MKL) holds to one thread, as this process does.
+ONE_THREAD = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 SMALL = {"model.rnn_hidden": "24", "model.rnn_layers": "2",
          "model.conv_channels": "4,4", "model.dtype": "float32",
          "data.batch_size": "4", "train.checkpoint_dir": "",
@@ -222,7 +228,7 @@ def test_train_cli_ends_with_done():
            "--data.batch_size=4", "--train.checkpoint_dir=",
            "--train.epochs=1"]
     out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=300)
+                         timeout=300, env=ONE_THREAD)
     assert out.returncode == 0, out.stderr
     last = json.loads(out.stdout.strip().splitlines()[-1])
     assert last["event"] == "done" and last["steps"] == 2

@@ -42,7 +42,13 @@ from deepspeech_tpu_torch.train import Trainer
 from test_torch_model import random_flax_variables
 from test_torch_train import _assert_trees_close, _jax_step
 
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The child's torch (OpenMP, MKL) holds to one thread, as this process does.
+ONE_THREAD = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 NARROW = {"model.rnn_type": "lstm", "model.rnn_hidden": "32",
           "model.conv_channels": "4,4", "model.dtype": "float32",
           "model.rnn_impl": "pallas", "data.batch_size": "4",
@@ -134,7 +140,7 @@ def test_train_cli_trains_an_lstm():
            "--model.rnn_hidden=16", "--model.conv_channels=4,4",
            "--data.batch_size=2", "--train.epochs=1"]
     out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=300)
+                         timeout=300, env=ONE_THREAD)
     assert out.returncode == 0, out.stderr
     last = json.loads(out.stdout.strip().splitlines()[-1])
     assert last["event"] == "done" and last["steps"] == 2
