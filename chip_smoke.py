@@ -20,11 +20,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      (library: ``torch.nn.functional.ctc_loss``);
    - ``gru_fwd_stream`` and ``gru_bwd_stream`` (W streamed every step)
      at ds2_full's B=32, T'=850, H=1760 (library: cuDNN's GRU at
-     H=1760, forward and backward timed apart); ``gru_bwd_stream`` also
-     at T=37 with B=45 (bf16 and f32) and B=8, at H=104 and at H=2176
-     (more groups than SMs), each check naming the device kernels that
-     ran (in bf16 with H % 8 == 0 the gate pre-pass GEMM and the
-     tensor-core loop, else the two-phase kernel);
+     H=1760, forward and backward timed apart); ``gru_fwd_stream`` also
+     at T=37 with B=45 and h0 and with B=8, at H=104 and at H=2176 (more
+     groups than SMs), each check naming the device kernels that ran (in
+     bf16 with H % 8 == 0 the transpose of W and the tensor-core loop,
+     else the CUDA-core kernel); ``gru_bwd_stream`` also at T=37 with
+     B=45 (bf16 and f32) and B=8, at H=104 and at H=2176, each check
+     naming the device kernels that ran (in bf16 with H % 8 == 0 the gate
+     pre-pass GEMM and the tensor-core loop, else the two-phase kernel);
    - ``gru_fwd_q`` (int8 W resident) at ds2_full's H=1760, D=2 and at
      H=800, D=1 with h0, and ``gru_fwd_q_stream`` (int8 W streamed) at
      H=1760 (library: cuDNN's GRU in bf16 on the dequantized W);
@@ -274,9 +277,12 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed, d1_h=None):
     against its plain version at T'=850, B=32 and width ``h`` (D=1:
     ``d1_h``, default ``h``), D=2 and D=1 with h0, bf16 and f32, and at
     one ragged shape off the kernels' tiles (H not a multiple of 16 or
-    64, B above one 32-row pass); two runs must give the same bits. Then
-    time it for each ``(d, replaces)`` of ``timed``, with its bound, its
-    plain version and cuDNN's GRU (for int8 W, on the dequantized W)."""
+    64, B above one 32-row pass); two runs must give the same bits.
+    ``gru_fwd_stream`` is also held at full width off the tiles and at
+    H=104 and H=2176, each check naming the device kernels its dtype and
+    H select. Then time it for each ``(d, replaces)`` of ``timed``, with
+    its bound, its plain version and cuDNN's GRU (for int8 W, on the
+    dequantized W)."""
     from deepspeech_tpu_torch.ops import gru
 
     fn = getattr(gru, kernel)
@@ -284,17 +290,38 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed, d1_h=None):
     make = _gru_q_inputs if quantized else _gru_inputs
     plain = gru.gru_fwd_q_plain if quantized else gru.gru_fwd_plain
     d1_h = d1_h or h
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("D2_bf16", 2, bf16, False, (T, B, h)),
+             ("D2_f32", 2, f32, False, (T, B, h)),
+             ("D1_bf16_h0", 1, bf16, True, (T, B, d1_h)),
+             ("D1_f32_h0", 1, f32, True, (T, B, d1_h)),
+             ("D2_bf16_ragged", 2, bf16, True, (37, 45, 100))]
+    if kernel == "gru_fwd_stream":
+        # On the tensor-core loop: at full width with h0 (step 0 runs the
+        # product) and B above the 32 rows of a pass; B=8 in a partly
+        # filled m16 tile; H=104, a multiple of 8 with a partial last
+        # 32-unit group; H=2176, 136 groups on an H100's 132 SMs, so some
+        # blocks take two groups a step and no W^T stays resident. H=100
+        # (above: bf16 with H % 8 != 0) and f32 run the CUDA-core kernel.
+        cases += [("D2_bf16_h0_ragged_full", 2, bf16, True, (37, 45, h)),
+                  ("D2_bf16_b8_full", 2, bf16, False, (37, 8, h)),
+                  ("D2_bf16_h0_h104", 2, bf16, True, (37, 45, 104)),
+                  ("D2_bf16_h0_h2176", 2, bf16, True, (37, 8, 2176))]
     _zero_counts()
-    checks = {}
-    for name, d, dtype, with_h0, shape in (
-            ("D2_bf16", 2, torch.bfloat16, False, (T, B, h)),
-            ("D2_f32", 2, torch.float32, False, (T, B, h)),
-            ("D1_bf16_h0", 1, torch.bfloat16, True, (T, B, d1_h)),
-            ("D1_f32_h0", 1, torch.float32, True, (T, B, d1_h)),
-            ("D2_bf16_ragged", 2, torch.bfloat16, True, (37, 45, 100))):
+    checks, calls = {}, 0
+    for name, d, dtype, with_h0, shape in cases:
         args, valid = make(d, dtype, with_h0, gen, *shape)
-        ys, hfin = fn(*args)
-        ys2, hfin2 = fn(*args)
+        if kernel in _STREAM_KERNELS:
+            want = _STREAM_KERNELS[kernel](dtype, shape[2])
+            outs, ran, runs = _device_kernels(
+                lambda: [fn(*args) for _ in range(2)], want=frozenset(want))
+            calls += 2 * runs
+            _require(set(ran) == want, f"{kernel} {name}: ran {sorted(ran)}, "
+                     f"want {sorted(want)}")
+        else:
+            outs = [fn(*args) for _ in range(2)]
+            calls += 2
+        (ys, hfin), (ys2, hfin2) = outs
         torch.cuda.synchronize()
         ys_p, hfin_p = plain(*args)
         err = max(float((ys - ys_p).abs().max()),
@@ -307,10 +334,12 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed, d1_h=None):
                  f"{kernel} {name}: two runs on one input differ")
         checks[name] = {"max_abs_err": err, "tol": TOL[dtype],
                         "bit_identical": True}
-        print(json.dumps({"check": f"{kernel} {name}", "max_abs_err": err,
-                          "tol": TOL[dtype], "bit_identical": True}),
+        if kernel in _STREAM_KERNELS:
+            checks[name]["kernels"] = sorted(ran)
+        print(json.dumps({"check": f"{kernel} {name}", **checks[name]}),
               flush=True)
-    _require_only(kernel, 2 * len(checks))
+        del args, outs
+    _require_only(kernel, calls)
 
     entries = []
     for d, replaces in timed:
@@ -343,6 +372,12 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed, d1_h=None):
                         for i, a in enumerate(args))
         ms_b1 = _time_ms(lambda: fn(*args_b1), reps=5)
         extra = {}
+        if kernel in _STREAM_KERNELS:
+            # One call's device time by kernel (in bf16: the transpose of
+            # W and the serial loop).
+            _, extra["device_ms"], _ = _device_kernels(
+                lambda: fn(*args), want=frozenset(
+                    _STREAM_KERNELS[kernel](torch.bfloat16, h)))
         if kernel.endswith("_stream") or quantized:
             # At H=800, where the resident kernel runs: for a streamed
             # kernel what the residency rule saves there; for the int8
@@ -461,9 +496,20 @@ def _k17_kernels(dtype: torch.dtype, h: int) -> set:
     return {"lstm_fwd_q_stream_kernel"}
 
 
+def _k8_kernels(dtype: torch.dtype, h: int) -> set:
+    """The device kernels one ``gru_fwd_stream`` call launches: in bf16
+    with H a multiple of 8 the transpose of W and the tensor-core loop,
+    else the CUDA-core kernel (csrc/gru_fwd_stream.cu)."""
+    if dtype == torch.bfloat16 and h % 8 == 0:
+        return {"gru_fwd_stream_transpose_kernel",
+                "gru_fwd_stream_mma_kernel"}
+    return {"gru_fwd_stream_kernel"}
+
+
 # The streamed kernels whose C call picks its device kernels by dtype and
 # H: what each call must have launched.
-_STREAM_KERNELS = {"lstm_fwd_stream": _k14_kernels,
+_STREAM_KERNELS = {"gru_fwd_stream": _k8_kernels,
+                   "lstm_fwd_stream": _k14_kernels,
                    "lstm_fwd_q_stream": _k17_kernels}
 
 

@@ -78,11 +78,11 @@ def _source_text() -> str:
 
 
 def built_value(text: str, name: str) -> int:
-    """The value of ``constexpr int <name> = v;``, which the source must
-    hold exactly once."""
+    """The value of ``constexpr int <name> = v;``, which the source text
+    must hold exactly once."""
     found = re.findall(rf"^constexpr int {name} = (\d+);", text, re.M)
     if len(found) != 1:
-        raise RuntimeError(f"{SOURCE}.cu holds {name} {len(found)} times")
+        raise RuntimeError(f"the source holds {name} {len(found)} times")
     return int(found[0])
 
 

@@ -29,12 +29,14 @@ block, 220 blocks at D=2 on 132 SMs), ``gru_fwd`` and ``gru_bwd`` launch
 the streamed kernels instead, ``gru_fwd_stream`` (``csrc/
 gru_fwd_stream.cu``, replacing ``_gru_kernel_blocked``, rnn_pallas.py:260,
 K8) and ``gru_bwd_stream`` (``csrc/gru_bwd_stream.cu``, replacing
-``_gru_bwd_kernel_blocked``, :312, K9), which stage W through shared
-memory from global memory every step. ``resident_fits`` makes the
-choice on the host before the launch, from the shapes and the card's
-SM count and shared memory, as the TPU package's ``_use_blocked`` and
-``bigru_fits_vmem`` make it from the VMEM budget (rnn_pallas.py:455,
-:709). Each kernel counts its own launches.
+``_gru_bwd_kernel_blocked``, :312, K9), which stream W from global memory
+every step; in bf16 with H % 8 == 0 both run a serial loop on the tensor
+cores (``mma.sync``) with part of W held in shared memory for the call,
+else a CUDA-core kernel that stages W through shared memory as f32.
+``resident_fits`` makes the choice on the host before the launch, from
+the shapes and the card's SM count and shared memory, as the TPU
+package's ``_use_blocked`` and ``bigru_fits_vmem`` make it from the VMEM
+budget (rnn_pallas.py:455, :709). Each kernel counts its own launches.
 
 ``gru_fwd_q`` is the forward with weight-only int8 recurrent weights
 (``utils/quantize.py``'s layout: int8 ``Q [H,3H]`` and an f32 scale per
@@ -350,15 +352,38 @@ def _fwd_outputs(xp, w, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     return ys, hfin
 
 
+def _fwd_stream_mma(w: torch.Tensor) -> bool:
+    """Whether ``gru_fwd_stream``'s C call runs its tensor-core path:
+    bf16 with H a multiple of 8 (a 16-byte piece of a row holds 8
+    values), the rule ``gru_fwd_stream_launch`` applies before any
+    launch (it also needs the scratch 16-byte aligned, which
+    ``torch.empty`` is). Else the CUDA-core kernel runs."""
+    return w.dtype == torch.bfloat16 and w.shape[1] % 8 == 0
+
+
+def _fwd_stream_scratch(xp, w) -> torch.Tensor:
+    """``gru_fwd_stream``'s scratch, f32: on the tensor-core path the
+    rounded h rows ``[2,D,B,H]`` and ``Wt = W^T [D,3H,H]``, both in bf16
+    (``D*B*H + 3*D*H*H/2`` floats); none for the CUDA-core kernel."""
+    d, bsz, h = w.shape[0], xp.shape[1], w.shape[1]
+    floats = d * bsz * h + 3 * d * h * h // 2 if _fwd_stream_mma(w) else 0
+    return torch.empty((floats,), dtype=torch.float32, device=xp.device)
+
+
 def gru_fwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor, h0: Optional[torch.Tensor] = None,
                    reverse: Sequence[bool] = (False,)
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``gru_fwd`` through the streamed kernel ``csrc/gru_fwd_stream.cu``
     (K8), whatever the sizes: W stays in global memory and crosses L2
-    once a step. The same contract and arithmetic as ``gru_fwd``. A CPU
-    tensor runs ``gru_fwd_plain``; a CUDA tensor launches the kernel (one
-    launch, counted in ``gru_fwd_stream.launches``) or raises."""
+    once a step. Where ``_fwd_stream_mma`` holds (bf16, H % 8 == 0) the
+    C call transposes W into the scratch (and rounds ``h0`` into the h
+    row step 0 reads) and runs the serial loop on the tensor cores, two
+    launches, with part of W^T held in shared memory for the call; else
+    one launch of the CUDA-core kernel (see the source). The same
+    contract and arithmetic as ``gru_fwd``. A CPU tensor runs
+    ``gru_fwd_plain``; a CUDA tensor calls the kernel's C entry point
+    once (counted in ``gru_fwd_stream.launches``) or raises."""
     reverse = tuple(bool(r) for r in reverse)
     _check(xp, mask, w, b, h0, reverse)
     if xp.device.type == "cpu":
@@ -366,7 +391,8 @@ def gru_fwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     _require_cuda(xp, "gru_fwd_stream")
     ys, hfin = _fwd_outputs(xp, w, h0)
     if ys.numel():
-        _launch("gru_fwd_stream", xp, mask, w, (b, h0, ys, hfin), reverse)
+        _launch("gru_fwd_stream", xp, mask, w,
+                (b, h0, ys, hfin, _fwd_stream_scratch(xp, w)), reverse)
         gru_fwd_stream.launches += 1
     return ys, hfin
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 _PORT_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_fwd_stream_kernel",
+                 "gru_fwd_stream_transpose_kernel", "gru_fwd_stream_mma_kernel",
                  "gru_bwd_stream_kernel", "gru_bwd_stream_gates_kernel",
                  "gru_bwd_stream_mma_kernel", "gru_fwd_q_kernel",
                  "gru_fwd_q_stream_kernel", "lstm_fwd_kernel",

@@ -8,7 +8,11 @@ budget is forced to 0 inside the test only, so H=176 (3H=528, two
 streamed backward kernel (``csrc/gru_bwd_stream.cu``, K9) runs in bf16,
 every row's gates first as one product and then the serial loop, against
 ``gru_bwd_plain`` and the blocked Pallas VJP; that kernel's path rule and
-scratch; and ``k9_variants``'s substitutions.
+scratch; and ``k9_variants``'s substitutions. For the streamed forward
+(``csrc/gru_fwd_stream.cu``, K8): its path rule and scratch, its
+tensor-core loop's order of summation mirrored in torch against
+``gru_fwd_plain`` and the blocked Pallas kernel, and ``k8_variants``'s
+substitutions.
 
 On the CPU the wrappers run their plain versions; chip_smoke.py holds
 the CUDA kernels to those plain versions on the card. Tolerances: 1e-4
@@ -26,7 +30,7 @@ import torch
 
 from deepspeech_tpu.ops import rnn_pallas
 from deepspeech_tpu.ops.rnn_pallas import gru_scan_pallas
-from deepspeech_tpu_torch import k9_variants
+from deepspeech_tpu_torch import k8_variants, k9_variants, k17_variants
 from deepspeech_tpu_torch.config import get_config
 from deepspeech_tpu_torch.ops import _build, gru
 from test_torch_gru_bwd import _close
@@ -343,5 +347,112 @@ def test_k9_variants_match_the_source(variant):
     with open(os.path.join(_build.CSRC_DIR, "gru_bwd_stream.cu")) as f:
         src = f.read()
     for old, new in k9_variants.VARIANTS[variant]:
+        assert src.count(old) == 1
+        assert new != old
+
+
+# ---------------------------------------------------------------------------
+# K8's tensor-core loop (csrc/gru_fwd_stream.cu, bf16 path): the path rule,
+# the scratch, the loop's order of summation, and k8_variants.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,h,mma", [
+    (torch.bfloat16, 1760, True),   # ds2_full: 55 groups a direction
+    (torch.bfloat16, 104, True),    # a multiple of 8, not of 32
+    (torch.bfloat16, 128, True),    # whole groups and chunks
+    (torch.bfloat16, 100, False),   # not a multiple of 8
+    (torch.float32, 1760, False),   # f32: the CUDA-core kernel
+])
+def test_k8_path_rule_and_scratch(dtype, h, mma):
+    """``gru_fwd_stream`` picks its C path before the launch, as
+    ``gru_fwd_stream_launch`` does: bf16 with H % 8 == 0 runs the
+    transpose and the tensor-core loop, whose scratch holds two rounded
+    h rows and W^T, both bf16; any other call the CUDA-core kernel,
+    which takes no scratch."""
+    d, t, bsz = 2, 3, 5
+    xp = torch.zeros(t, bsz, 3 * h, dtype=dtype)
+    w = torch.zeros(d, h, 3 * h, dtype=dtype)
+    assert gru._fwd_stream_mma(w) is mma
+    scratch = gru._fwd_stream_scratch(xp, w)
+    assert scratch.dtype == torch.float32
+    rows, wt = 2 * (2 * d * bsz * h), 2 * (d * 3 * h * h)
+    assert scratch.numel() * 4 == (rows + wt if mma else 0)
+    if mma:  # W^T starts 16-byte aligned after the rows
+        assert rows % 16 == 0
+
+
+def _k8_loop_gates(w, b):
+    """The gates of csrc/gru_fwd_stream.cu's tensor-core loop in its
+    order of summation: h rounded to W's dtype, the depth H cut into
+    MKC-deep chunks, warp kw summing chunks kw, kw + NW_K, ... in turn,
+    the warps' partial sums added in warp order, then the bias (b_n
+    too, before r multiplies the n column in ``_fwd_plain_loop``). The
+    constants are the source's own."""
+    with open(os.path.join(_build.CSRC_DIR, "gru_fwd_stream.cu")) as f:
+        text = f.read()
+    mkc = k17_variants.built_value(text, "MKC")
+    nw_k = (k17_variants.built_value(text, "M_WARPS")
+            // k17_variants.built_value(text, "NW_N"))
+    h = w.shape[1]
+    w32 = w.float()
+    chunks = [slice(c * mkc, min(h, (c + 1) * mkc))
+              for c in range(-(-h // mkc))]
+
+    def gates(di, hc):
+        hr = hc.to(w.dtype).float()
+        total = torch.zeros(hc.shape[0], 3 * h)
+        for kw in range(nw_k):
+            part = torch.zeros(hc.shape[0], 3 * h)
+            for k in chunks[kw::nw_k]:
+                part = part + hr[:, k] @ w32[di][k]
+            total = total + part
+        return total + b[di]
+    return gates
+
+
+@pytest.mark.parametrize("h", [48, 176])
+def test_k8_loop_order_matches_plain_and_the_blocked_pallas_kernel(
+        force_blocked, h):
+    """The tensor-core loop's order of summation, mirrored in f32 at D=2,
+    T=9, B=5 with ragged lengths: with an h0, within 1e-6 of
+    ``gru_fwd_plain`` (ys and hfin); without, a direction at a time,
+    within 1e-5 of the JAX blocked kernel (``_gru_kernel_blocked``, K8)
+    in interpret mode. H=48 is one whole and one partial chunk, H=176
+    six chunks over the four depth splits."""
+    rng = np.random.default_rng(80 + h)
+    t, bsz, d = 9, 5, 2
+    xproj = rng.normal(size=(bsz, t, 3 * h)).astype(np.float32)
+    ws = (rng.normal(size=(d, h, 3 * h)) / np.sqrt(h)).astype(np.float32)
+    bs = (rng.normal(size=(d, 3 * h)) * 0.1).astype(np.float32)
+    h0 = (rng.normal(size=(d, bsz, h)) * 0.5).astype(np.float32)
+    lens = np.array([t, t - 3, 2, t - 1, 5])
+    mask = (np.arange(t)[None] < lens[:, None]).astype(np.float32)
+    xp = torch.from_numpy(xproj).transpose(0, 1).contiguous()
+    m = torch.from_numpy(mask).t().contiguous()
+    w, b = torch.from_numpy(ws), torch.from_numpy(bs)
+    reverse = (False, True)
+    gates = _k8_loop_gates(w, b)
+    for hh in (torch.from_numpy(h0), None):
+        ys, hfin = gru._fwd_plain_loop(xp, m, hh, reverse, d, h, gates)
+        ys_p, hfin_p = gru.gru_fwd_plain(xp, m, w, b, hh, reverse)
+        torch.testing.assert_close(ys, ys_p, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(hfin, hfin_p, atol=1e-6, rtol=1e-6)
+    for di, rev in enumerate(reverse):
+        pal = gru_scan_pallas(jnp.asarray(xproj), jnp.asarray(mask),
+                              jnp.asarray(ws[di]), jnp.asarray(bs[di]), rev,
+                              True, None)
+        np.testing.assert_allclose(ys[di].transpose(0, 1).numpy(),
+                                   np.asarray(pal), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("variant", [n for n, subs in
+                                     k8_variants.VARIANTS.items() if subs])
+def test_k8_variants_match_the_source(variant):
+    """Each variant that ``deepspeech_tpu_torch.k8_variants`` builds
+    replaces a constant that ``csrc/gru_fwd_stream.cu`` holds exactly
+    once, so the script times the loop it names."""
+    with open(os.path.join(_build.CSRC_DIR, "gru_fwd_stream.cu")) as f:
+        src = f.read()
+    for old, new in k8_variants.VARIANTS[variant]:
         assert src.count(old) == 1
         assert new != old
