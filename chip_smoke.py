@@ -30,7 +30,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      pre-pass GEMM and the tensor-core loop, else the two-phase kernel);
    - ``gru_fwd_q`` (int8 W resident) at ds2_full's H=1760, D=2 and at
      H=800, D=1 with h0, and ``gru_fwd_q_stream`` (int8 W streamed) at
-     H=1760 (library: cuDNN's GRU in bf16 on the dequantized W);
+     H=1760, both also at T=37 with B=45 and h0 and with B=8 at full
+     width and at H=104, ``gru_fwd_q`` at the residency rule's edges (D=2
+     H=1920, D=1 H=2112: Q^T partly held) and ``gru_fwd_q_stream`` at
+     H=2176 (more groups than SMs), each check naming the device kernels
+     that ran (with bf16 dots and H % 8 == 0 the transpose of Q and the
+     tensor-core loop, else the CUDA-core kernel) (library: cuDNN's GRU in
+     bf16 on the dequantized W);
    - ``lstm_fwd`` (W resident) at H=800, D=2 and D=1, with and without
      its cell-state tape; ``lstm_fwd_stream`` (W streamed) at ds2_full's
      H=1760, D=2, with and without the tape, and at T=37 with B=45 and
@@ -278,11 +284,12 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed, d1_h=None):
     ``d1_h``, default ``h``), D=2 and D=1 with h0, bf16 and f32, and at
     one ragged shape off the kernels' tiles (H not a multiple of 16 or
     64, B above one 32-row pass); two runs must give the same bits.
-    ``gru_fwd_stream`` is also held at full width off the tiles and at
-    H=104 and H=2176, each check naming the device kernels its dtype and
-    H select. Then time it for each ``(d, replaces)`` of ``timed``, with
-    its bound, its plain version and cuDNN's GRU (for int8 W, on the
-    dequantized W)."""
+    ``gru_fwd_stream``, ``gru_fwd_q`` and ``gru_fwd_q_stream`` are also
+    held at full width off the tiles and at H=104, the first and last
+    at H=2176 and ``gru_fwd_q`` at D=2 H=1920 and D=1 H=2112, each check
+    naming the device kernels its dtype and H select. Then time it for
+    each ``(d, replaces)`` of ``timed``, with its bound, its plain
+    version and cuDNN's GRU (for int8 W, on the dequantized W)."""
     from deepspeech_tpu_torch.ops import gru
 
     fn = getattr(gru, kernel)
@@ -307,6 +314,20 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed, d1_h=None):
                   ("D2_bf16_b8_full", 2, bf16, False, (37, 8, h)),
                   ("D2_bf16_h0_h104", 2, bf16, True, (37, 45, 104)),
                   ("D2_bf16_h0_h2176", 2, bf16, True, (37, 8, 2176))]
+    elif quantized:
+        # The int8 kernels' tensor-core loop (bf16 dots, H % 8 == 0), as
+        # for gru_fwd_stream above; gru_fwd_q also at the residency rule's
+        # edges, where a block holds 6 of a warp's 8 or 9 chunks of Q^T and
+        # streams the rest, and gru_fwd_q_stream at H=2176, where blocks
+        # walk two groups and hold none. H=100 and f32 run the CUDA-core
+        # kernels.
+        cases += [("D2_bf16_h0_ragged_full", 2, bf16, True, (37, 45, h)),
+                  ("D2_bf16_b8_full", 2, bf16, False, (37, 8, h)),
+                  ("D2_bf16_h0_h104", 2, bf16, True, (37, 45, 104))]
+        cases += ([("D2_bf16_h0_h1920", 2, bf16, True, (37, 8, 1920)),
+                   ("D1_bf16_h0_h2112", 1, bf16, True, (37, 8, 2112))]
+                  if kernel == "gru_fwd_q" else
+                  [("D2_bf16_h0_h2176", 2, bf16, True, (37, 8, 2176))])
     _zero_counts()
     checks, calls = {}, 0
     for name, d, dtype, with_h0, shape in cases:
@@ -506,9 +527,32 @@ def _k8_kernels(dtype: torch.dtype, h: int) -> set:
     return {"gru_fwd_stream_kernel"}
 
 
-# The streamed kernels whose C call picks its device kernels by dtype and
-# H: what each call must have launched.
+def _k10_kernels(dtype: torch.dtype, h: int) -> set:
+    """The device kernels one ``gru_fwd_q`` call launches on the resident
+    kernel's C entry point: with bf16 dots and H a multiple of 8 the
+    transpose of Q and the tensor-core loop, else the CUDA-core kernel
+    (csrc/gru_fwd_q.cu)."""
+    if dtype == torch.bfloat16 and h % 8 == 0:
+        return {"gru_fwd_q_transpose_kernel", "gru_fwd_q_mma_kernel"}
+    return {"gru_fwd_q_kernel"}
+
+
+def _k11_kernels(dtype: torch.dtype, h: int) -> set:
+    """The device kernels one ``gru_fwd_q_stream`` call launches: with
+    bf16 dots and H a multiple of 8 the transpose of Q and the
+    tensor-core loop, else the CUDA-core kernel
+    (csrc/gru_fwd_q_stream.cu)."""
+    if dtype == torch.bfloat16 and h % 8 == 0:
+        return {"gru_fwd_q_stream_transpose_kernel",
+                "gru_fwd_q_stream_mma_kernel"}
+    return {"gru_fwd_q_stream_kernel"}
+
+
+# The kernels whose C call picks its device kernels by dtype and H: what
+# each call must have launched.
 _STREAM_KERNELS = {"gru_fwd_stream": _k8_kernels,
+                   "gru_fwd_q": _k10_kernels,
+                   "gru_fwd_q_stream": _k11_kernels,
                    "lstm_fwd_stream": _k14_kernels,
                    "lstm_fwd_q_stream": _k17_kernels}
 

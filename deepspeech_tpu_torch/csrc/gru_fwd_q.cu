@@ -1,5 +1,5 @@
 // GRU forward recurrence for Hopper (sm_90a) with weight-only int8
-// recurrent weights held in shared memory: one launch runs the whole time
+// recurrent weights held in shared memory: one C call runs the whole time
 // loop of D directions.
 //
 // Replaces the TPU kernel _gru_kernel_q (deepspeech_tpu/ops/rnn_pallas.py:581,
@@ -8,7 +8,8 @@
 //   xp [T,B,3H] in the dot dtype, bf16|f32 (xp includes the input bias),
 //   mask [T,B] f32, wq [D,H,3H] int8, scale [D,3H] f32 (per output
 //   channel), bias [D,3H] f32, h0 [D,B,H] f32 or NULL, reverse bit d set for
-//   a direction that runs t = T-1..0
+//   a direction that runs t = T-1..0, a scratch whose size depends on the
+//   path (gru_fwd_q_launch says what it holds)
 //   -> ys [D,T,B,H] f32 (every row, masked rows hold h), hfin [D,B,H] f32.
 // Gates: (round(h_prev) @ Q) * scale + b, with h_prev rounded to the dot
 // dtype, the sum in f32 and the scale applied to the finished column sum
@@ -16,31 +17,58 @@
 //
 // What bounds it: as for csrc/gru_fwd.cu, each step's [B,H] x [H,3H]
 // product needs the step before, so the time is T times one step's
-// latency, far above the FLOP and the byte roofline of the call. The
-// design is csrc/gru_fwd.cu's, with W held as int8: a block owns U hidden
-// units of one direction (gate columns j, H+j, 2H+j) and keeps their
-// [H, 3U] column slice of Q in shared memory as bytes for the whole
-// sequence, a quarter of the f32 slice gru_fwd.cu holds. At ds2_full's
-// H=1760 that is 48 x 1808 B = 87 KB a block, 106 KB with the staging
-// buffers: two blocks per SM, 264 slots on 132 SMs for the 220 blocks of
-// D=2, where the f32 slice (345 KB) cannot be resident at all.
+// latency, far above the FLOP and the byte roofline of the call. What a
+// step costs is the busiest SM's: with Q held in shared memory it reads
+// only the h row from L2, multiplies, and waits at one grid barrier.
 //
-// A step stages h_prev in KC-column chunks (rounded to the dot dtype, the
-// next chunk's loads in flight while the current one is multiplied, as in
-// gru_fwd.cu) and, beside each chunk, widens the matching KC rows of the
-// int8 slice to f32 in a small shared buffer: the widening is exact
-// (|q| <= 127), costs 48 values a row against 1536 FMAs, and leaves the
-// inner loop gru_fwd.cu's f32 FMA loop. h_prev rounded to bf16 times an
-// int8 value is exact in f32, so the sums equal a bf16 x int8 dot with f32
-// accumulation up to the order of summation. Then the scale, the bias, the
-// GRU update and the mask, and the block writes its [B, U] slice of the ys
-// row. A grid-wide barrier (cooperative launch, every block resident)
-// separates the steps. CUDA cores, no tensor cores: simple first.
+// bf16 path (the main path: an int8 engine's dots are bf16; H % 8 == 0 and
+// a 16-byte aligned scratch), two launches from one C call: Q^T written
+// once as biased s8 (gru_fwd_q_transpose_kernel), then the serial loop on
+// mma.sync with the s8 pieces widened to bf16 in registers
+// (gru_fwd_q_mma_kernel). Both are csrc/gru_fwd_q_mma.cuh's, which holds
+// the design; csrc/gru_fwd_q_stream.cu (K11) runs the same loop with a
+// fixed share of Q^T resident. Here a block keeps as many chunks of its
+// group's Qt slice resident as fit beside the rings (at most Q_RES a
+// warp), worked out at launch from H: at ds2_full's H=1760 all 7 of a
+// warp's chunks, 172 KB a block, so a step moves only the h row from L2;
+// at the residency rule's edges (D=2 H=1920, D=1 H=2112, 184-203 KB of
+// slice) 6 a warp, the rest streamed every step.
+// deepspeech_tpu_torch/k10_variants.py times the constants below beside
+// the others that fit: on an H100 SXM (700 W, one call, ds2_full)
+// 12.12-12.49 ms a call, against 12.11-12.32 with 3 stages (all 7 chunks
+// still resident), 12.90 with 4 chunks, 13.97-13.98 with every chunk
+// streamed, 13.24-13.71 with 4 column splits (all 14 of theirs resident)
+// and 13.70-13.74 with one; the CUDA-core kernel below took 65.45-66.67.
+//
+// f32 path (not the main path; model.dtype=float32) and a bf16 call whose
+// H is not a multiple of 8 or whose scratch is not 16-byte aligned:
+// gru_fwd_q_kernel on the CUDA cores, no scratch. This is csrc/
+// gru_fwd.cu's design with W held as int8: a block owns U hidden units of
+// one direction (gate columns j, H+j, 2H+j) and keeps their [H, 3U] column
+// slice of Q in shared memory as bytes for the whole sequence (at H=1760
+// 87 KB a block, 106 KB with the staging buffers: two blocks per SM, 264
+// slots on 132 SMs for the 220 blocks of D=2). A step stages h_prev in
+// KC-column chunks (rounded to the dot dtype, the next chunk's loads in
+// flight while the current one is multiplied) and, beside each chunk,
+// widens the matching KC rows of the int8 slice to f32 in a small shared
+// buffer (exact: |q| <= 127), so the inner loop is gru_fwd.cu's f32 FMA
+// loop. Then the scale, the bias, the GRU update and the mask, and the
+// block writes its [B, U] slice of the ys row. A grid-wide barrier
+// (cooperative launch, every block resident) separates the steps.
+//
+// The choice between the two is made before any launch, from the dtype,
+// H and the scratch's alignment (gru_fwd_q_launch); ops/gru.py's _fwd_q_mma
+// repeats it to size the scratch. ops/gru.py launches this kernel where
+// resident_fits("fwd_q") says the CUDA-core kernel's [H, 48] int8 slices
+// fit the card (the rule that names the "resident-q" regime), and
+// csrc/gru_fwd_q_stream.cu otherwise.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gru_fwd_q_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -270,28 +298,74 @@ cudaError_t launch(const void* xp, const float* mask, const int8_t* wq,
   return cudaGetLastError();
 }
 
+// ---- bf16 path: Q transposed once, then the serial loop on the tensor cores ----
+
+// The loop's constants: warps over the group's 96 columns (the rest over
+// the depth), cp.async stages of the rings, and the most chunks of a warp's
+// Qt slice held resident for the call (fewer where they do not fit).
+constexpr int NW_N = 2;
+constexpr int MS = 2;
+constexpr int Q_RES = 16;
+
+__global__ void __launch_bounds__(gru_q_mma::TT * 8)
+gru_fwd_q_transpose_kernel(const int8_t* __restrict__ q,
+                           int8_t* __restrict__ qt,
+                           const float* __restrict__ h0,
+                           __nv_bfloat16* __restrict__ h_row, size_t n_h,
+                           int H, int Hp) {
+  gru_q_mma::transpose(q, qt, h0, h_row, n_h, H, Hp);
+}
+
+__global__ void __launch_bounds__(gru_q_mma::M_THREADS, 1)
+gru_fwd_q_mma_kernel(const __nv_bfloat16* __restrict__ xp,
+                     const float* __restrict__ mask,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ h0, float* ys, float* hfin,
+                     float* scratch, int D, int T, int B, int H,
+                     int reverse_bits, int res) {
+  gru_q_mma::loop<NW_N, MS>(xp, mask, scale, bias, h0, ys, hfin, scratch, D,
+                            T, B, H, reverse_bits, res);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns 0 or a cudaError_t; the launch is asynchronous on `stream`.
-// xp is bf16 when `bf16` is set, f32 otherwise; wq is int8. The calling
+// Returns 0 or a cudaError_t; the launches are asynchronous on `stream`.
+// xp is bf16 when `bf16` is set, f32 otherwise; wq is int8; h0 may be NULL
+// (zeros). A bf16 call with H % 8 == 0 and a non-NULL, 16-byte aligned
+// scratch runs the tensor-core path (two launches); its scratch holds
+// D*B*H + 3*D*H*Hp/4 floats (the two rounded h rows in bf16, then Qt in
+// int8 with rows of Hp = H rounded up to 64). Any other call runs the
+// CUDA-core kernel, which reads no scratch (it may be NULL). The calling
 // thread's current device is the same after the call as before it.
 int gru_fwd_q_launch(int bf16, const void* xp, const float* mask,
                      const int8_t* wq, const float* scale, const float* bias,
-                     const float* h0, float* ys, float* hfin, int D, int T,
-                     int B, int H, int reverse_bits, int device,
-                     void* stream) {
+                     const float* h0, float* ys, float* hfin, float* scratch,
+                     int D, int T, int B, int H, int reverse_bits,
+                     int device, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = bf16 ? launch<__nv_bfloat16>(xp, mask, wq, scale, bias, h0, ys, hfin,
-                                     D, T, B, H, reverse_bits, device, st)
-             : launch<float>(xp, mask, wq, scale, bias, h0, ys, hfin, D, T, B,
-                             H, reverse_bits, device, st);
+  if (bf16 && H % 8 == 0 && scratch != nullptr && aligned16(scratch))
+    err = gru_q_mma::launch<NW_N, MS, Q_RES>(
+        gru_fwd_q_transpose_kernel, gru_fwd_q_mma_kernel, xp, mask, wq,
+        scale, bias, h0, ys, hfin, scratch, D, T, B, H, reverse_bits, device,
+        st);
+  else if (bf16)
+    err = launch<__nv_bfloat16>(xp, mask, wq, scale, bias, h0, ys, hfin, D,
+                                T, B, H, reverse_bits, device, st);
+  else
+    err = launch<float>(xp, mask, wq, scale, bias, h0, ys, hfin, D, T, B, H,
+                        reverse_bits, device, st);
   const cudaError_t restore = cudaSetDevice(prev);
   return err != cudaSuccess ? err : restore;
 }

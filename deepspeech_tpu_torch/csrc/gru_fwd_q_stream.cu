@@ -1,6 +1,6 @@
 // GRU forward recurrence for Hopper (sm_90a) with weight-only int8
-// recurrent weights streamed from global memory every step: one launch
-// runs the whole time loop of D directions at any H.
+// recurrent weights streamed from global memory every step: one C call runs
+// the whole time loop of D directions at any H.
 //
 // Replaces the TPU kernel _gru_kernel_blocked_q (deepspeech_tpu/ops/
 // rnn_pallas.py:282, K11), which streams s8 [H, 512] column tiles of W_h
@@ -10,34 +10,66 @@
 //   xp [T,B,3H] in the dot dtype, bf16|f32 (xp includes the input bias),
 //   mask [T,B] f32, wq [D,H,3H] int8, scale [D,3H] f32 (per output
 //   channel), bias [D,3H] f32, h0 [D,B,H] f32 or NULL, reverse bit d set for
-//   a direction that runs t = T-1..0
+//   a direction that runs t = T-1..0, a scratch whose size depends on the
+//   path (gru_fwd_q_stream_launch says what it holds)
 //   -> ys [D,T,B,H] f32 (every row, masked rows hold h), hfin [D,B,H] f32.
 // Gates: (round(h_prev) @ Q) * scale + b, the sum in f32 and the scale on
 // the finished column sum; then r, z, n as in csrc/gru_fwd.cu. The TPU
 // kernel takes no h0; this one does, as csrc/gru_fwd_stream.cu does.
 //
-// This is csrc/gru_fwd_stream.cu (K8) with 1-byte weight tiles; see its
-// notes for the design. A cooperative persistent grid walks D x ceil(H/U)
-// column groups each step; for its group a block stages KC-row chunks of
-// the group's [H, 3U] column slice of Q and the matching h_prev columns
-// into shared memory as f32, two buffers deep, the next chunk's global
-// loads issued into registers before the current chunk's products run.
-// The prefetch holds the raw s8 bytes and widens them where they are
-// stored to shared memory (exact: |q| <= 127), so the thread does not
-// wait on the loads before computing. The group's 48 scales multiply the
-// finished sums. W crosses L2 once a step at one byte a value: 9.3 MB a
-// direction at ds2_full's H=1760, a quarter of f32's bytes and half of
-// bf16's. What bounds it is K8's: T steps of a serial latency, far above
-// the FLOP and byte roofline of the call. CUDA cores, no tensor cores.
+// What bounds it: T serial steps of one step's latency, far above the FLOP
+// roofline (2*T*D*B*H*3H over the peak) and the byte roofline (the inputs
+// and outputs once), as for csrc/gru_fwd_stream.cu (K8), whose function
+// this is with s8 weights. A step's cost is that of the busiest SM: it
+// moves the h row and the streamed part of its group's slice of Q from L2
+// through shared memory into the products, widens Q to bf16, then waits at
+// one grid barrier.
 //
-// ops/gru.py launches it where resident_fits("fwd_q") says the resident
-// kernel csrc/gru_fwd_q.cu cannot hold the int8 slices, or when the
-// caller forces it (blocked=True).
+// bf16 path (the main path of a streamed int8 layer; H % 8 == 0 and a
+// 16-byte aligned scratch), two launches from one C call: Q^T written once
+// as biased s8 (gru_fwd_q_stream_transpose_kernel), then the serial loop
+// on mma.sync with the s8 pieces widened to bf16 in registers
+// (gru_fwd_q_stream_mma_kernel). Both are csrc/gru_fwd_q_mma.cuh's, which
+// holds the design; csrc/gru_fwd_q.cu (K10) runs the same loop with as
+// much of Q^T resident as fits. Here a fixed share stays resident, the
+// first Q_RES chunks of a warp's slice (6 of 7 at ds2_full's H=1760: 86%),
+// and the rest streams through each warp's MS-stage ring every step, as
+// csrc/lstm_fwd_q_stream.cu's (K17) loop streams it: the kernel of a layer
+// whose int8 slices the residency rule refuses, or that the caller forces
+// here (blocked=True). deepspeech_tpu_torch/k10_variants.py times the
+// constants below beside the others that fit: on an H100 SXM (700 W, one
+// call, ds2_full) 12.36-12.54 ms a call with 6 chunks resident, against
+// 12.86-13.23 with 4, 13.38-13.41 with 2 and 13.94-14.00 with every chunk
+// streamed; 3 stages and 4 chunks 12.94-12.95, 4 column splits 14.05 at
+// best.
+//
+// f32 path (not the main path; model.dtype=float32) and a bf16 call whose
+// H is not a multiple of 8 or whose scratch is not 16-byte aligned:
+// gru_fwd_q_stream_kernel on the CUDA cores, no scratch. This is csrc/
+// gru_fwd_stream.cu's CUDA-core kernel with 1-byte weight tiles. A
+// cooperative persistent grid walks D x ceil(H/U) column groups each
+// step; for its group a block stages KC-row chunks of the group's [H, 3U]
+// column slice of Q and the matching h_prev columns into shared memory as
+// f32, two buffers deep, the next chunk's global loads issued into
+// registers before the current chunk's products run. The prefetch holds
+// the raw s8 bytes and widens them where they are stored to shared memory
+// (exact: |q| <= 127), so the thread does not wait on the loads before
+// computing. The group's 48 scales multiply the finished sums. W crosses
+// L2 once a step at one byte a value.
+//
+// The choice between the two is made before any launch, from the dtype,
+// H and the scratch's alignment (gru_fwd_q_stream_launch); ops/gru.py's
+// _fwd_q_mma repeats it to size the scratch. ops/gru.py launches this
+// kernel where resident_fits("fwd_q") says the resident kernel csrc/
+// gru_fwd_q.cu cannot hold the int8 slices, or when the caller forces it
+// (blocked=True).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gru_fwd_q_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -260,28 +292,75 @@ cudaError_t launch(const void* xp, const float* mask, const int8_t* wq,
   return cudaGetLastError();
 }
 
+// ---- bf16 path: Q transposed once, then the serial loop on the tensor cores ----
+
+// The loop's constants: warps over the group's 96 columns (the rest over
+// the depth), cp.async stages of the rings, and the chunks of a warp's Qt
+// slice held resident for the call (when a block has one group).
+constexpr int NW_N = 2;
+constexpr int MS = 2;
+constexpr int Q_RES = 6;
+
+__global__ void __launch_bounds__(gru_q_mma::TT * 8)
+gru_fwd_q_stream_transpose_kernel(const int8_t* __restrict__ q,
+                                  int8_t* __restrict__ qt,
+                                  const float* __restrict__ h0,
+                                  __nv_bfloat16* __restrict__ h_row,
+                                  size_t n_h, int H, int Hp) {
+  gru_q_mma::transpose(q, qt, h0, h_row, n_h, H, Hp);
+}
+
+__global__ void __launch_bounds__(gru_q_mma::M_THREADS, 1)
+gru_fwd_q_stream_mma_kernel(const __nv_bfloat16* __restrict__ xp,
+                            const float* __restrict__ mask,
+                            const float* __restrict__ scale,
+                            const float* __restrict__ bias,
+                            const float* __restrict__ h0, float* ys,
+                            float* hfin, float* scratch, int D, int T, int B,
+                            int H, int reverse_bits, int res) {
+  gru_q_mma::loop<NW_N, MS>(xp, mask, scale, bias, h0, ys, hfin, scratch, D,
+                            T, B, H, reverse_bits, res);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns 0 or a cudaError_t; the launch is asynchronous on `stream`.
-// xp is bf16 when `bf16` is set, f32 otherwise; wq is int8. The calling
+// Returns 0 or a cudaError_t; the launches are asynchronous on `stream`.
+// xp is bf16 when `bf16` is set, f32 otherwise; wq is int8; h0 may be NULL
+// (zeros). A bf16 call with H % 8 == 0 and a non-NULL, 16-byte aligned
+// scratch runs the tensor-core path (two launches); its scratch holds
+// D*B*H + 3*D*H*Hp/4 floats (the two rounded h rows in bf16, then Qt in
+// int8 with rows of Hp = H rounded up to 64). Any other call runs the
+// CUDA-core kernel, which reads no scratch (it may be NULL). The calling
 // thread's current device is the same after the call as before it.
 int gru_fwd_q_stream_launch(int bf16, const void* xp, const float* mask,
                             const int8_t* wq, const float* scale,
                             const float* bias, const float* h0, float* ys,
-                            float* hfin, int D, int T, int B, int H,
-                            int reverse_bits, int device, void* stream) {
+                            float* hfin, float* scratch, int D, int T, int B,
+                            int H, int reverse_bits, int device,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = bf16 ? launch<__nv_bfloat16>(xp, mask, wq, scale, bias, h0, ys, hfin,
-                                     D, T, B, H, reverse_bits, device, st)
-             : launch<float>(xp, mask, wq, scale, bias, h0, ys, hfin, D, T, B,
-                             H, reverse_bits, device, st);
+  if (bf16 && H % 8 == 0 && scratch != nullptr && aligned16(scratch))
+    err = gru_q_mma::launch<NW_N, MS, Q_RES>(
+        gru_fwd_q_stream_transpose_kernel, gru_fwd_q_stream_mma_kernel, xp,
+        mask, wq, scale, bias, h0, ys, hfin, scratch, D, T, B, H,
+        reverse_bits, device, st);
+  else if (bf16)
+    err = launch<__nv_bfloat16>(xp, mask, wq, scale, bias, h0, ys, hfin, D,
+                                T, B, H, reverse_bits, device, st);
+  else
+    err = launch<float>(xp, mask, wq, scale, bias, h0, ys, hfin, D, T, B, H,
+                        reverse_bits, device, st);
   const cudaError_t restore = cudaSetDevice(prev);
   return err != cudaSuccess ? err : restore;
 }

@@ -70,8 +70,8 @@ def build_variants(source: str, variants: Dict[str, List[Tuple[str, str]]],
     """Build each of ``variants`` (name -> text substitutions of
     ``csrc/<source>.cu``) and each of ``copies`` (name -> the path of
     another copy of that source, built as it is) into
-    ``build/torch_kernels/<tag>/``, one ``nvcc -Xptxas -v`` each, all
-    started together. Returns the loaded libraries and, for each, ptxas's
+    ``build/torch_kernels/<tag>/``, one ``nvcc -Xptxas -v`` each (headers
+    from ``csrc/``), all started together. Returns the loaded libraries and, for each, ptxas's
     registers and spills of its tensor-core loop (the report after its
     ``mma_kernel`` line; none where the source has no such kernel)."""
     with open(os.path.join(_build.CSRC_DIR, f"{source}.cu")) as f:
@@ -93,9 +93,9 @@ def build_variants(source: str, variants: Dict[str, List[Tuple[str, str]]],
     for name, path in sources.items():
         lib = os.path.join(out_dir, f"lib{name}.so")
         procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
-             path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), lib)
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+             "-I", _build.CSRC_DIR, "-o", lib, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs, ptxas = {}, {}
     for name, (proc, lib) in procs.items():
         log, _ = proc.communicate()

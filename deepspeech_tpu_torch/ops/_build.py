@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/lib<name>-<hash>.so``
 beside the package (a directory ``.gitignore`` lists), then loaded with
-``ctypes``. The file name carries a hash of the source and flags, so an
-edited source rebuilds and an unchanged one loads what is there. The
+``ctypes``. The file name carries a hash of the source, the headers of
+``csrc/`` it includes and the flags, so an edited source or header
+rebuilds and an unchanged one loads what is there. The
 build runs at first use, never at import: this module imports on a
 machine with no ``nvcc`` and no card.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict, Iterable
@@ -38,7 +40,11 @@ def _nvcc() -> str:
 
 def _target(name: str) -> str:
     with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        text = f.read()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
+    for header in re.findall(rb'^#include "(\w+\.cuh)"', text, re.M):
+        with open(os.path.join(CSRC_DIR, header.decode()), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -41,12 +41,14 @@ budget (rnn_pallas.py:455, :709). Each kernel counts its own launches.
 ``gru_fwd_q`` is the forward with weight-only int8 recurrent weights
 (``utils/quantize.py``'s layout: int8 ``Q [H,3H]`` and an f32 scale per
 output channel), for inference: ``(h @ Q) * scale + b``. It launches
-``csrc/gru_fwd_q.cu``, replacing ``_gru_kernel_q`` (:581, K10), which
-holds each block's ``[H, 48]`` slice of Q in shared memory as bytes:
-ds2_full's H=1760, streamed in bf16, is resident in int8. Where even
-the int8 slices do not fit, or when the caller forces it, it launches
-``gru_fwd_q_stream`` (``csrc/gru_fwd_q_stream.cu``, replacing
-``_gru_kernel_blocked_q``, :282, K11), K8 with s8 tiles.
+``csrc/gru_fwd_q.cu``, replacing ``_gru_kernel_q`` (:581, K10): ds2_full's
+H=1760, streamed in bf16, is resident in int8. Where the int8 slices do
+not fit, or when the caller forces it, it launches ``gru_fwd_q_stream``
+(``csrc/gru_fwd_q_stream.cu``, replacing ``_gru_kernel_blocked_q``, :282,
+K11). With bf16 dots and H % 8 == 0 both run one serial loop on the
+tensor cores (``csrc/gru_fwd_q_mma.cuh``: Q^T written once as s8, widened
+to bf16 in registers for ``mma.sync``), K10 with as much of Q^T held in
+shared memory as fits, K11 with a fixed share; else a CUDA-core kernel.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. There is no fallback between the two,
@@ -418,14 +420,19 @@ def gru_fwd_q(xp: torch.Tensor, mask: torch.Tensor, wq: torch.Tensor,
     sum in f32, the scale applied to the finished column sums; then
     ``gru_fwd``'s update.
 
-    A CPU tensor runs ``gru_fwd_q_plain``. A CUDA tensor launches the
-    resident kernel ``csrc/gru_fwd_q.cu`` (one launch, counted in
-    ``gru_fwd_q.launches``) where ``resident_fits("fwd_q", ...)`` holds
-    on this card, and ``gru_fwd_q_stream`` otherwise. ``blocked`` forces
-    the choice, as ``gru_scan_pallas_q``'s does (rnn_pallas.py:619):
-    True the streamed kernel, False the resident one, which raises where
-    it does not fit (judged on an H100's limits for a CPU tensor). Both
-    kernels take ``h0``. A refused launch raises.
+    A CPU tensor runs ``gru_fwd_q_plain``. A CUDA tensor calls the
+    resident kernel's C entry point ``csrc/gru_fwd_q.cu`` once (counted
+    in ``gru_fwd_q.launches``) where ``resident_fits("fwd_q", ...)``
+    holds on this card, and ``gru_fwd_q_stream`` otherwise. Where
+    ``_fwd_q_mma`` holds (bf16 dots, H % 8 == 0) the C call transposes Q
+    into the scratch (and rounds ``h0`` into the h row step 0 reads) and
+    runs the serial loop on the tensor cores, two launches, with as much
+    of Q^T held in shared memory as fits; else one launch of the
+    CUDA-core kernel. ``blocked`` forces the choice, as
+    ``gru_scan_pallas_q``'s does (rnn_pallas.py:619): True the streamed
+    kernel, False the resident one, which raises where it does not fit
+    (judged on an H100's limits for a CPU tensor). Both kernels take
+    ``h0``. A refused launch raises.
     """
     reverse = tuple(bool(r) for r in reverse)
     _check(xp, mask, wq, b, h0, reverse, scale)
@@ -444,12 +451,35 @@ def gru_fwd_q(xp: torch.Tensor, mask: torch.Tensor, wq: torch.Tensor,
         return gru_fwd_q_stream(xp, mask, wq, scale, b, h0, reverse)
     ys, hfin = _fwd_outputs(xp, wq, h0)
     if ys.numel():
-        _launch("gru_fwd_q", xp, mask, wq, (scale, b, h0, ys, hfin), reverse)
+        _launch("gru_fwd_q", xp, mask, wq,
+                (scale, b, h0, ys, hfin, _fwd_q_scratch(xp, wq)), reverse)
         gru_fwd_q.launches += 1
     return ys, hfin
 
 
 gru_fwd_q.launches = 0
+
+
+def _fwd_q_mma(xp: torch.Tensor, wq: torch.Tensor) -> bool:
+    """Whether the C call of ``gru_fwd_q`` or ``gru_fwd_q_stream`` runs
+    its tensor-core path: bf16 dots (``xp``'s dtype; Q is always int8)
+    with H a multiple of 8 (a 16-byte piece of the h row holds 8
+    values), the rule ``gru_fwd_q_launch`` and ``gru_fwd_q_stream_launch``
+    apply before any launch (they also need the scratch 16-byte aligned,
+    which ``torch.empty`` is). Else the CUDA-core kernel runs."""
+    return xp.dtype == torch.bfloat16 and wq.shape[1] % 8 == 0
+
+
+def _fwd_q_scratch(xp, wq) -> torch.Tensor:
+    """The scratch of both int8 kernels' C calls, f32: on the tensor-core
+    path the rounded h rows ``[2,D,B,H]`` in bf16, then ``Qt = Q^T
+    [D,3H,Hp]`` as bytes, rows padded to Hp = H rounded up to 64
+    (``D*B*H + 3*D*H*Hp/4`` floats, 18.9 MB of Qt at ds2_full); none for
+    the CUDA-core kernels."""
+    d, bsz, h = wq.shape[0], xp.shape[1], wq.shape[1]
+    hp = -(-h // 64) * 64
+    floats = d * bsz * h + 3 * d * h * hp // 4 if _fwd_q_mma(xp, wq) else 0
+    return torch.empty((floats,), dtype=torch.float32, device=xp.device)
 
 
 def gru_fwd_q_stream(xp: torch.Tensor, mask: torch.Tensor,
@@ -458,11 +488,14 @@ def gru_fwd_q_stream(xp: torch.Tensor, mask: torch.Tensor,
                      reverse: Sequence[bool] = (False,)
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``gru_fwd_q`` through the streamed kernel ``csrc/gru_fwd_q_stream.cu``
-    (K11), whatever the sizes: Q stays in global memory and crosses L2 as
-    int8 once a step. The same contract and arithmetic as ``gru_fwd_q``.
-    A CPU tensor runs ``gru_fwd_q_plain``; a CUDA tensor launches the
-    kernel (one launch, counted in ``gru_fwd_q_stream.launches``) or
-    raises."""
+    (K11), whatever the sizes: Q stays in global memory and the part of
+    it a block does not hold crosses L2 as int8 once a step. Where
+    ``_fwd_q_mma`` holds the C call transposes Q into the scratch and runs
+    ``gru_fwd_q``'s tensor-core loop with a fixed share of Q^T resident,
+    two launches; else one launch of the CUDA-core kernel. The same
+    contract and arithmetic as ``gru_fwd_q``. A CPU tensor runs
+    ``gru_fwd_q_plain``; a CUDA tensor calls the kernel's C entry point
+    once (counted in ``gru_fwd_q_stream.launches``) or raises."""
     reverse = tuple(bool(r) for r in reverse)
     _check(xp, mask, wq, b, h0, reverse, scale)
     if xp.device.type == "cpu":
@@ -470,8 +503,8 @@ def gru_fwd_q_stream(xp: torch.Tensor, mask: torch.Tensor,
     _require_cuda(xp, "gru_fwd_q_stream")
     ys, hfin = _fwd_outputs(xp, wq, h0)
     if ys.numel():
-        _launch("gru_fwd_q_stream", xp, mask, wq, (scale, b, h0, ys, hfin),
-                reverse)
+        _launch("gru_fwd_q_stream", xp, mask, wq,
+                (scale, b, h0, ys, hfin, _fwd_q_scratch(xp, wq)), reverse)
         gru_fwd_q_stream.launches += 1
     return ys, hfin
 

@@ -34,7 +34,10 @@ _PORT_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_fwd_stream_kernel",
                  "gru_fwd_stream_transpose_kernel", "gru_fwd_stream_mma_kernel",
                  "gru_bwd_stream_kernel", "gru_bwd_stream_gates_kernel",
                  "gru_bwd_stream_mma_kernel", "gru_fwd_q_kernel",
-                 "gru_fwd_q_stream_kernel", "lstm_fwd_kernel",
+                 "gru_fwd_q_transpose_kernel", "gru_fwd_q_mma_kernel",
+                 "gru_fwd_q_stream_kernel",
+                 "gru_fwd_q_stream_transpose_kernel",
+                 "gru_fwd_q_stream_mma_kernel", "lstm_fwd_kernel",
                  "lstm_fwd_stream_kernel", "lstm_fwd_stream_transpose_kernel",
                  "lstm_fwd_stream_mma_kernel", "lstm_fwd_q_kernel",
                  "lstm_fwd_q_stream_kernel",
