@@ -52,11 +52,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      (library: cuDNN's LSTM in bf16 at the same H, the forget gate's
      +1 folded into its ``bias_hh``, on the dequantized W for the int8
      kernels);
-   - ``lstm_bwd`` (W resident) at H=800, D=2 and D=1, and
-     ``lstm_bwd_stream`` (W streamed) at ds2_full's H=1760, D=2 (also
-     timed at H=800), on the tape of ``lstm_fwd(..., tape=True)``
-     (library: cuDNN's bf16 LSTM backward alone, the +1 folded as
-     above);
+   - ``lstm_bwd`` (W resident) at H=800, D=2 and D=1, and at T=37 with
+     B=45 at both D and B=8, at H=104, 832, 1056 (D=2) and 1280 (D=1),
+     and at H=804 and H=100 (off its H % 8 rule); and ``lstm_bwd_stream``
+     (W streamed) at ds2_full's H=1760, D=2 (also timed at H=800), and
+     at T=37 with B=45 and B=8 and at H=99; on the tape of
+     ``lstm_fwd(..., tape=True)``, each check naming the device kernels
+     that ran (in bf16 on the rule the gate pre-pass and the tensor-core
+     loop, else the CUDA-core kernel) (library: cuDNN's bf16 LSTM
+     backward alone, the +1 folded as above);
    each GRU kernel at D=2 and D=1 (the forward with h0), bf16 and f32,
    and at one ragged shape off its tiles, each checked to have run the
    kernel meant (resident or streamed) by the launch counts; each LSTM
@@ -125,6 +129,14 @@ PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16, NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
 TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+# The LSTM backward kernels in bf16 (lstm_bwd, lstm_bwd_stream), max
+# |kernel - plain| of dgates with dy ~ 0.1 N(0, 1): on an H100 they read
+# 5e-5 to 2.6e-4 at every case of their phase, with max |plain| 3.1 (D=1)
+# and 4.7 (D=2) at T'=850, B=32, H=800; K13 with its loop's product
+# taken out, or 11 of a warp's 12-13 chunks of it, reads 0.79 to 0.87
+# there (deepspeech_tpu_torch/k13_variants.py --ablate requires them to
+# miss this limit).
+LSTM_BWD_TOL = {torch.bfloat16: 2e-3, torch.float32: TOL[torch.float32]}
 # End to end, bf16: ||rnn - rnn_plain|| / ||rnn_plain|| over valid frames
 # of the RNN stack's output. On an H100 the kernel reads 1.6e-3
 # (ds2_small) and 2.8e-3 (ds2_streaming); a zeroed GRU reads 1, and a
@@ -548,13 +560,35 @@ def _k11_kernels(dtype: torch.dtype, h: int) -> set:
     return {"gru_fwd_q_stream_kernel"}
 
 
+def _k13_kernels(dtype: torch.dtype, h: int) -> set:
+    """The device kernels one ``lstm_bwd`` call launches on the resident
+    kernel's C entry point: in bf16 with H a multiple of 8 the gate
+    pre-pass and the tensor-core loop with W resident (at either group
+    width), else the CUDA-core kernel (csrc/lstm_bwd.cu)."""
+    if dtype == torch.bfloat16 and h % 8 == 0:
+        return {"lstm_bwd_gates_kernel", "lstm_bwd_mma_kernel"}
+    return {"lstm_bwd_kernel"}
+
+
+def _k15_kernels(dtype: torch.dtype, h: int) -> set:
+    """The device kernels one ``lstm_bwd_stream`` call launches: in bf16
+    with H a multiple of 4 the gate pre-pass and the tensor-core loop
+    with W streamed, else the two-phase CUDA-core kernel
+    (csrc/lstm_bwd_stream.cu)."""
+    if dtype == torch.bfloat16 and h % 4 == 0:
+        return {"lstm_bwd_stream_gates_kernel", "lstm_bwd_stream_mma_kernel"}
+    return {"lstm_bwd_stream_kernel"}
+
+
 # The kernels whose C call picks its device kernels by dtype and H: what
 # each call must have launched.
 _STREAM_KERNELS = {"gru_fwd_stream": _k8_kernels,
                    "gru_fwd_q": _k10_kernels,
                    "gru_fwd_q_stream": _k11_kernels,
                    "lstm_fwd_stream": _k14_kernels,
-                   "lstm_fwd_q_stream": _k17_kernels}
+                   "lstm_fwd_q_stream": _k17_kernels,
+                   "lstm_bwd": _k13_kernels,
+                   "lstm_bwd_stream": _k15_kernels}
 
 
 def lstm_kernel_phase(gen, kernel: str, h: int, timed):
@@ -700,13 +734,16 @@ def lstm_bwd_kernel_phase(gen, kernel: str, h: int, timed):
     these sizes, or ``lstm_bwd_stream``) against ``lstm_bwd_plain`` on
     the ys and cs tape of ``lstm_fwd(..., tape=True)`` at T'=850, B=32
     and width ``h`` for each D of ``timed``, bf16 and f32, and at ragged
-    shapes off the tiles (the streamed kernel also at width ``h``); two
-    runs must give the same bits. Then time it for each ``(d,
+    shapes off the tiles, within ``LSTM_BWD_TOL``; two runs must give
+    the same bits. Each check
+    names the device kernels that ran, the ones the dtype and H select
+    (``_k13_kernels``, ``_k15_kernels``). Then time it for each ``(d,
     replaces)`` of ``timed`` beside its bound, its plain version and
-    cuDNN's LSTM backward."""
+    cuDNN's LSTM backward, with one call's device time by kernel."""
     from deepspeech_tpu_torch.ops import lstm
 
     fn = getattr(lstm, kernel)
+    bf16, f32 = torch.bfloat16, torch.float32
 
     def inputs(d, dtype, shape):
         args, valid = _lstm_inputs(d, dtype, gen, *shape)
@@ -716,60 +753,85 @@ def lstm_bwd_kernel_phase(gen, kernel: str, h: int, timed):
         return (xp, mask, w, bias, ys, cs, dy, reverse), valid
 
     cases = [(f"D{d}_{dn}", d, dtype, (T, B, h)) for d, _ in timed
-             for dn, dtype in (("bf16", torch.bfloat16),
-                               ("f32", torch.float32))]
-    cases += [("D2_bf16_ragged", 2, torch.bfloat16, (37, 45, 100)),
-              ("D1_f32_ragged", 1, torch.float32, (37, 45, 100))]
+             for dn, dtype in (("bf16", bf16), ("f32", f32))]
+    # H=100 is off K13's tensor-core rule (H % 8 == 0), which takes it to
+    # the CUDA-core kernel, and on K15's (H % 4 == 0).
+    cases += [("D2_bf16_ragged", 2, bf16, (37, 45, 100)),
+              ("D1_f32_ragged", 1, f32, (37, 45, 100))]
+    if kernel == "lstm_bwd":
+        # At full width: B above the 32 rows of a pass at both D, and B=8
+        # in a partly filled m16 tile; H=104, a multiple of 8 but not of
+        # the groups; H=832, D=2 and the rule's edges in bf16, H=1056 at
+        # D=2 (132 groups of 16 on an H100's 132 SMs) and H=1280 at D=1
+        # (227 KB of shared memory a block); H=804, off the tensor-core
+        # rule (H % 8 != 0), on the CUDA-core kernel.
+        cases += [("D2_bf16_ragged_full", 2, bf16, (37, 45, h)),
+                  ("D1_bf16_ragged_full", 1, bf16, (37, 45, h)),
+                  ("D2_bf16_b8_full", 2, bf16, (37, 8, h)),
+                  ("D2_bf16_h104", 2, bf16, (37, 45, 104)),
+                  ("D2_bf16_h832", 2, bf16, (37, 45, 832)),
+                  ("D2_bf16_h1056", 2, bf16, (37, 8, 1056)),
+                  ("D1_bf16_h1280", 1, bf16, (37, 8, 1280)),
+                  ("D1_bf16_h804", 1, bf16, (37, 45, 804))]
     if kernel.endswith("_stream"):
         # At full width: the product 4H = 7040 deep, B above the 32 rows
         # of a pass, and B=8 in a partly filled m16 tile; and H=99, which
         # bf16 runs on the two-phase kernel (H % 4 != 0).
-        cases += [("D2_bf16_ragged_full", 2, torch.bfloat16, (37, 45, h)),
-                  ("D2_f32_ragged_full", 2, torch.float32, (37, 45, h)),
-                  ("D2_bf16_b8_full", 2, torch.bfloat16, (37, 8, h)),
-                  ("D1_bf16_odd_h", 1, torch.bfloat16, (37, 45, 99))]
+        cases += [("D2_bf16_ragged_full", 2, bf16, (37, 45, h)),
+                  ("D2_f32_ragged_full", 2, f32, (37, 45, h)),
+                  ("D2_bf16_b8_full", 2, bf16, (37, 8, h)),
+                  ("D1_bf16_odd_h", 1, bf16, (37, 45, 99))]
     _zero_counts()
-    checks = {}
+    checks, calls = {}, 0
     for name, d, dtype, shape in cases:
         args, _ = inputs(d, dtype, shape)
-        dg, dg2 = fn(*args), fn(*args)
-        torch.cuda.synchronize()
+        (dg, dg2), ran, runs = _device_kernels(
+            lambda: [fn(*args) for _ in range(2)])
+        calls += 2 * runs
+        want = _STREAM_KERNELS[kernel](dtype, shape[2])
+        _require(set(ran) == want, f"{kernel} {name}: ran {sorted(ran)}, "
+                 f"want {sorted(want)}")
         err = float((dg - lstm.lstm_bwd_plain(*args)).abs().max())
+        tol = LSTM_BWD_TOL[dtype]
         _require(bool(torch.isfinite(dg).all()), f"{kernel} {name}: "
                  "non-finite")
-        _require(err <= TOL[dtype],
-                 f"{kernel} {name}: max |kernel - plain| {err} > "
-                 f"{TOL[dtype]}")
+        _require(err <= tol,
+                 f"{kernel} {name}: max |kernel - plain| {err} > {tol}")
         _require(torch.equal(dg, dg2),
                  f"{kernel} {name}: two runs on one input differ")
-        checks[name] = {"max_abs_err": err, "tol": TOL[dtype],
-                        "bit_identical": True}
+        checks[name] = {"max_abs_err": err, "tol": tol,
+                        "bit_identical": True, "kernels": sorted(ran)}
         print(json.dumps({"check": f"{kernel} {name}", "max_abs_err": err,
-                          "tol": TOL[dtype], "bit_identical": True}),
-              flush=True)
-    _require_only(kernel, 2 * len(checks))
+                          "tol": tol, "bit_identical": True,
+                          "kernels": sorted(ran)}), flush=True)
+        del args, dg, dg2
+    _require_only(kernel, calls)
 
     entries = []
     for d, replaces in timed:
-        args, valid = inputs(d, torch.bfloat16, (T, B, h))
+        args, valid = inputs(d, bf16, (T, B, h))
         ms = _time_ms(lambda: fn(*args), reps=3)
+        # One call's device time by kernel: the gate pre-pass and the loop.
+        _, device_ms, _ = _device_kernels(
+            lambda: fn(*args),
+            want=frozenset(_STREAM_KERNELS[kernel](bf16, h)))
         plain_ms = _time_ms(lambda: lstm.lstm_bwd_plain(*args), reps=1)
         # Yardstick: the backward of cuDNN's bf16 LSTM (input and weight
         # gradients), timed apart from its forward.
         xp, mask, w, bias, ys, cs, dy, reverse = args
         lib = _cudnn_lstm((xp, mask, w, bias, reverse), h)
         x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
-            torch.bfloat16).requires_grad_()
+            bf16).requires_grad_()
         out, _ = lib(x_lib)
         g_out = torch.randn_like(out)
         leaves = [x_lib, *lib.parameters()]
         library_ms = _time_ms(lambda: torch.autograd.grad(
             out, leaves, g_out, retain_graph=True), reps=3)
         del out, g_out, leaves, lib, x_lib
-        extra = {}
+        extra = {"device_ms": device_ms}
         if kernel.endswith("_stream"):
             # The streamed kernel where the resident one runs (H=800).
-            args_h, _ = inputs(d, torch.bfloat16, (T, B, H))
+            args_h, _ = inputs(d, bf16, (T, B, H))
             extra["ms_at_h800"] = _time_ms(lambda: fn(*args_h), reps=2)
             del args_h
         # Two [B,H]x[H,4H] products per valid step (gate recompute and

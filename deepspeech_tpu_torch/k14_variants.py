@@ -71,9 +71,10 @@ def build_variants(source: str, variants: Dict[str, List[Tuple[str, str]]],
     ``csrc/<source>.cu``) and each of ``copies`` (name -> the path of
     another copy of that source, built as it is) into
     ``build/torch_kernels/<tag>/``, one ``nvcc -Xptxas -v`` each (headers
-    from ``csrc/``), all started together. Returns the loaded libraries and, for each, ptxas's
-    registers and spills of its tensor-core loop (the report after its
-    ``mma_kernel`` line; none where the source has no such kernel)."""
+    from ``csrc/``), all started together. Returns the loaded libraries
+    and, for each, ptxas's registers and spills of its tensor-core loops
+    (the report after each ``mma_kernel`` entry, in ptxas's order; none
+    where the source has no such kernel)."""
     with open(os.path.join(_build.CSRC_DIR, f"{source}.cu")) as f:
         text = f.read()
     out_dir = os.path.join(_build.BUILD_DIR, tag)
@@ -103,10 +104,10 @@ def build_variants(source: str, variants: Dict[str, List[Tuple[str, str]]],
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
         libs[name] = ctypes.CDLL(lib)
         lines = log.splitlines()
-        at = next((i for i, x in enumerate(lines) if "mma_kernel" in x), None)
-        ptxas[name] = [] if at is None else [
-            x.strip() for x in lines[at + 1:at + 4]
-            if "spill" in x or "Used" in x]
+        ptxas[name] = [
+            x.strip() for at, entry in enumerate(lines)
+            if "Compiling entry" in entry and "mma_kernel" in entry
+            for x in lines[at + 1:at + 4] if "spill" in x or "Used" in x]
     return libs, ptxas
 
 

@@ -1,7 +1,9 @@
 """Where a step of the streamed LSTM backward (K15) spends its time on
 the card.
 
-Builds variants of ``csrc/lstm_bwd_stream.cu``, each made by a text
+Builds variants of ``csrc/lstm_bwd_stream.cu`` with
+``csrc/lstm_bwd_mma.cuh`` pasted in place of its ``#include`` (the loop
+lives in the header, which K13 shares), each made by a text
 substitution that takes one part out of the serial loop (W's loads, the
 dgates row's loads, both, the grid barrier; the copies into shared
 memory; those and the products), times each with CUDA events
@@ -38,16 +40,14 @@ _NO_ROW_COPY = (
     "                           ok ? g_d + size_t(b) * N + k : g_d, ok);",
     "                (void)ok;")
 _NO_W_COPY = (
-    "    cp_async16(slot + (4 + nt) * 32 + lane, "
-    "ok ? w_d + size_t(u) * N + k : w_d,\n               ok);",
+    "    cp_async16(dst + nt * 32 + lane, ok ? w_d + size_t(u) * N + k : w_d, "
+    "ok);",
     "    (void)ok;")
 _NO_MMA = [(f"                mma_bf16(acc[mt][nt], a[2 * mt].{x}, "
             f"a[2 * mt + 1].{x},",
             f"                if (0) mma_bf16(acc[mt][nt], a[2 * mt].{x}, "
             f"a[2 * mt + 1].{x},") for x in "xz"]
-_NO_SYNC = ("        stage_w(ring, it, warp, lane, j0, H, w_d);\n    }\n"
-            "    grid.sync();",
-            "        stage_w(ring, it, warp, lane, j0, H, w_d);\n    }\n")
+_NO_SYNC = ("    }\n    grid.sync();\n  }\n}", "    }\n  }\n}")
 VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     "full": [],
     "no_w_loads": [_NO_W],
@@ -60,9 +60,25 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
 }
 
 
-def _build_variants() -> Dict[str, ctypes.CDLL]:
-    with open(os.path.join(_build.CSRC_DIR, "lstm_bwd_stream.cu")) as f:
+HEADER = "lstm_bwd_mma.cuh"
+
+
+def with_header(source: str) -> str:
+    """The text of ``csrc/<source>.cu`` with ``csrc/lstm_bwd_mma.cuh``
+    pasted in place of its ``#include``, so that a substitution reaches
+    the loop."""
+    with open(os.path.join(_build.CSRC_DIR, f"{source}.cu")) as f:
         text = f.read()
+    with open(os.path.join(_build.CSRC_DIR, HEADER)) as f:
+        head = f.read()
+    include = f'#include "{HEADER}"\n'
+    if text.count(include) != 1:
+        raise RuntimeError(f"{source}.cu no longer includes {HEADER} once")
+    return text.replace(include, head)
+
+
+def _build_variants() -> Dict[str, ctypes.CDLL]:
+    text = with_header("lstm_bwd_stream")
     out_dir = os.path.join(_build.BUILD_DIR, "k15_ablation")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}

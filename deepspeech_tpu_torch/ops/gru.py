@@ -80,9 +80,49 @@ _U, _KC, _ROWS, _THREADS = 16, 64, 32, 256
 _MAX_THREADS_PER_SM = 2048
 # The resident kernels the rule below knows: the GRU's and the LSTM's.
 _KINDS = ("fwd", "bwd", "fwd_q", "lstm_fwd", "lstm_fwd_q", "lstm_bwd")
+# The LSTM backward's tensor-core loop (csrc/lstm_bwd.cu in bf16 with
+# H % 8 == 0, csrc/lstm_bwd_mma.cuh with W resident): its warps, the
+# depth of a chunk of the 4H-deep product, and the group widths the
+# launch takes, the narrow one where every group gets an SM, else the
+# wide, each with the stages of a warp's ring of 16-byte dgates-row
+# pieces (4 a lane a chunk) that the source gives it.
+_MMA_WARPS, _MMA_KC = 8, 32
+_MMA_NARROW, _MMA_WIDE = 8, 16
+_MMA_STAGES = {_MMA_NARROW: 6, _MMA_WIDE: 4}
 
 
-def resident_smem_bytes(kind: str, h: int, b: int) -> int:
+def lstm_bwd_mma(dtype: torch.dtype, h: int) -> bool:
+    """Whether ``csrc/lstm_bwd.cu`` runs its tensor-core path for this
+    dot dtype and H: bf16 with H a multiple of 8 (a 16-byte piece of a
+    row holds 8 values). The C entry point also needs w, ys and the
+    scratch 16-byte aligned, which the port's own tensors are; ops/
+    lstm.py's ``_bwd_mma`` checks that too."""
+    return dtype == torch.bfloat16 and h % 8 == 0
+
+
+def lstm_bwd_mma_width(d: int, h: int, sms: int = H100_SMS) -> int:
+    """The group width ``csrc/lstm_bwd.cu``'s launch takes for the
+    tensor-core loop: 8 units where D x ceil(H/8) groups get an SM each
+    (D=1 at H=800: 100 groups), else 16 (D=2 at H=800: 100 groups)."""
+    return (_MMA_NARROW if d * -(-h // _MMA_NARROW) <= sms
+            else _MMA_WIDE)
+
+
+def lstm_bwd_mma_smem_bytes(units: int, h: int) -> int:
+    """Shared memory of one block of the tensor-core loop (csrc/
+    lstm_bwd_mma.cuh ``Plan``) for groups of ``units``: the warps' rings
+    (the width's stages of 4 pieces a lane; the partial sums alias them)
+    and every warp's chunks of the group's ``[units, 4H]`` rows of W in
+    bf16, ``units/8`` pieces a lane a chunk."""
+    ring = _MMA_WARPS * _MMA_STAGES[units] * 4 * 32
+    red = _MMA_WARPS * _ROWS * (units + 8) // 4
+    chunks = -(-(-(-4 * h // _MMA_KC)) // _MMA_WARPS)
+    return 16 * (max(ring, red) + _MMA_WARPS * chunks * (units // 8) * 32)
+
+
+def resident_smem_bytes(kind: str, h: int, b: int,
+                        dtype: torch.dtype = torch.float32,
+                        units: int = _MMA_WIDE) -> int:
     """Shared memory one block of the resident kernel takes: W's
     ``[H, 48]`` slice and the staged h_prev chunk as f32 (whatever the
     dot dtype), and for ``kind="bwd"`` the dgates tile and the carried
@@ -93,12 +133,18 @@ def resident_smem_bytes(kind: str, h: int, b: int) -> int:
     ``"lstm_fwd_q"``: ``csrc/lstm_fwd_q.cu``) lay out the same with four
     gates, a ``[H, 64]`` slice, and add the cell state of the block's
     units for ``b`` batch rows as f32. The LSTM backward (``"lstm_bwd"``:
-    ``csrc/lstm_bwd.cu``) keeps the slice and one ``[32, 68]`` tile,
-    which holds the h_prev chunk during the gate recompute and the
-    dgates tile after it (four gates of 16 units are the chunk's 64
-    columns), and adds dh and dc of the block's units for ``b`` rows."""
+    ``csrc/lstm_bwd.cu``) in f32, or in bf16 off ``lstm_bwd_mma``'s
+    rule, keeps the slice and one ``[32, 68]`` tile, which holds the
+    h_prev chunk during the gate recompute and the dgates tile after it
+    (four gates of 16 units are the chunk's 64 columns), and adds dh and
+    dc of the block's units for ``b`` rows; in bf16 on that rule it runs
+    the tensor-core loop, whose block holds its group's ``[units, 4H]``
+    rows of W in bf16 beside the rings, whatever ``b``
+    (``lstm_bwd_mma_smem_bytes``)."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be one of {_KINDS}, not {kind!r}")
+    if kind == "lstm_bwd" and lstm_bwd_mma(dtype, h):
+        return lstm_bwd_mma_smem_bytes(units, h)
     h_pad = -(-h // _KC) * _KC
     gc = (4 if kind.startswith("lstm") else 3) * _U  # gate columns
     if kind.endswith("fwd_q"):
@@ -134,21 +180,29 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
     ``_use_blocked`` and ``bigru_fits_vmem`` (rnn_pallas.py:66, :455,
     :709). The resident kernels stage W as f32 (int8 for the ``_q``
     kinds) whatever the dot dtype, so ``dtype`` (bf16 or f32) does not
-    move the answer today. ds2_full (D=2, H=1760) misses for ``"fwd"``
-    and fits for ``"fwd_q"``: 106 KB a block, two blocks an SM; with
-    four gates it misses for both LSTM kinds (140 KB of int8 slice and
-    staging a block, one an SM, 220 blocks), and ds2_small's H=800 fits
-    for both (220 KB a block for ``"lstm_fwd"`` at b=32, one an SM, 100
-    blocks) and for ``"lstm_bwd"`` (222 KB at b=32, in bf16 and f32;
-    ds2_full's H=1760 misses)."""
+    move their answer, except for ``"lstm_bwd"``: in bf16 with H % 8 ==
+    0 (``lstm_bwd_mma``) its tensor-core loop holds W's rows in bf16,
+    one block an SM for each group of ``lstm_bwd_mma_width`` units, and
+    does not depend on ``b``. ds2_full (D=2, H=1760) misses for ``"fwd"``
+    and fits for ``"fwd_q"``: 106 KB a block, two blocks an SM; with four
+    gates it misses for both LSTM kinds (140 KB of int8 slice and staging
+    a block, one an SM, 220 blocks), and ds2_small's H=800 fits for both
+    (220 KB a block for ``"lstm_fwd"`` at b=32, one an SM, 100 blocks).
+    ``"lstm_bwd"`` fits at ds2_small's and ds2_streaming's H=800 (f32:
+    222 KB at b=32, 100 or 50 blocks; bf16: 168 KB in 100 groups of 16
+    units at D=2, 148 KB in 100 groups of 8 at D=1) and misses at
+    ds2_full's H=1760 in both dtypes; in bf16 it admits H up to 1056 at
+    D=2 and 1280 at D=1."""
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be bf16 or f32, not {dtype}")
-    smem = resident_smem_bytes(kind, h, b)
+    units, most = _U, _MAX_THREADS_PER_SM // _THREADS
+    if kind == "lstm_bwd" and lstm_bwd_mma(dtype, h):
+        units, most = lstm_bwd_mma_width(d, h, sms), 1
+    smem = resident_smem_bytes(kind, h, b, dtype, units)
     if smem > smem_per_block:
         return False
-    per_sm = min(smem_per_sm // (smem + _SMEM_RESERVED_PER_BLOCK),
-                 _MAX_THREADS_PER_SM // _THREADS)
-    return d * -(-h // _U) <= sms * per_sm
+    per_sm = min(smem_per_sm // (smem + _SMEM_RESERVED_PER_BLOCK), most)
+    return d * -(-h // units) <= sms * per_sm
 
 
 def card_limits(device: torch.device) -> Tuple[int, int, int]:
@@ -256,14 +310,17 @@ def gru_fwd_q_plain(xp: torch.Tensor, mask: torch.Tensor, wq: torch.Tensor,
 
 def _lib(name: str) -> ctypes.CDLL:
     """``csrc/<name>.cu`` loaded, with its error-string function (and a
-    backward kernel's scratch size) typed; ``_launch`` types the launch
+    backward kernel's scratch sizes) typed; ``_launch`` types the launch
     function."""
     lib = _build.load(name)
     i = ctypes.c_int
     if name.startswith(("gru_bwd", "lstm_bwd")):
-        scratch = getattr(lib, f"{name}_scratch_floats")
-        scratch.argtypes = [i, i, i]
-        scratch.restype = ctypes.c_longlong
+        sizes = ["scratch_floats"] + (["mma_scratch_floats"]
+                                      if name == "lstm_bwd" else [])
+        for size in sizes:
+            scratch = getattr(lib, f"{name}_{size}")
+            scratch.argtypes = [i, i, i]
+            scratch.restype = ctypes.c_longlong
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [i]
     err.restype = ctypes.c_char_p

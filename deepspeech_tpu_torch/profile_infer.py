@@ -43,6 +43,7 @@ _PORT_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_fwd_stream_kernel",
                  "lstm_fwd_q_stream_kernel",
                  "lstm_fwd_q_stream_transpose_kernel",
                  "lstm_fwd_q_stream_mma_kernel", "lstm_bwd_kernel",
+                 "lstm_bwd_gates_kernel", "lstm_bwd_mma_kernel",
                  "lstm_bwd_stream_kernel", "lstm_bwd_stream_gates_kernel",
                  "lstm_bwd_stream_mma_kernel", "ctc_alpha_kernel",
                  "ctc_beta_kernel")

@@ -20,8 +20,6 @@ CUDA kernels (csrc/lstm_bwd.cu, csrc/lstm_bwd_stream.cu) to it on the
 card.
 """
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +32,7 @@ from deepspeech_tpu.ops.lstm_pallas import (_lstm_bwd, _lstm_fwd,
 from deepspeech_tpu_torch import bridge, k15_ablation
 from deepspeech_tpu_torch.config import apply_overrides, get_config
 from deepspeech_tpu_torch.models import DeepSpeech2
-from deepspeech_tpu_torch.ops import _build, gru, lstm
+from deepspeech_tpu_torch.ops import gru, lstm
 from deepspeech_tpu_torch.utils import quantize
 
 # One CPU thread for torch: parallel test workers share the machine's
@@ -301,10 +299,42 @@ def test_int8_lstm_under_grad_raises():
     (2, 800, 77, False),    # 232,576 bytes
 ])
 def test_residency_rule_of_the_lstm_backward(dtype, d, h, b, resident):
-    """The slice is staged as f32 whatever the dot dtype, so bf16 and
-    f32 fit alike; the JAX rule streams an f32 H=800 LSTM
-    (``fits_vmem(800, 4, 4)`` is false) and holds a bf16 one."""
-    assert gru.resident_fits("lstm_bwd", d, h, b, dtype) is resident
+    """``resident`` is the answer of the CUDA-core kernel's layout, which
+    stages the slice as f32 and which f32 and bf16 off the tensor-core
+    rule (H % 8 != 0, as H=833) take; the JAX rule streams an f32 H=800
+    LSTM (``fits_vmem(800, 4, 4)`` is false) and holds a bf16 one. bf16
+    on the rule takes the tensor-core loop's layout, which gives the same
+    answers at these sizes except that it does not grow with B: at
+    B=77 it still holds W (``test_residency_rule_of_the_lstm_backward_in_
+    bf16``)."""
+    want = resident or (dtype == torch.bfloat16 and (d, h, b) == (2, 800, 77))
+    assert gru.resident_fits("lstm_bwd", d, h, b, dtype) is want
+
+
+@pytest.mark.parametrize("d,h,b,resident", [
+    (2, 800, 32, True),     # ds2_small-lstm: 100 groups of 16, 168 KB
+    (1, 800, 32, True),     # ds2_streaming-lstm: 100 groups of 8, 148 KB
+    (2, 800, 1024, True),   # dh and dc live in the scratch: any B
+    (2, 1056, 32, True),    # 132 groups of 16 on 132 SMs
+    (2, 1064, 32, False),   # 134 groups
+    (1, 1280, 32, True),    # 229,376 bytes a block
+    (1, 1288, 32, False),   # 237,568 bytes
+    (2, 1760, 32, False),   # ds2_full-lstm
+    (2, 836, 32, False),    # off the rule: the f32 layout's answer
+])
+def test_residency_rule_of_the_lstm_backward_in_bf16(d, h, b, resident):
+    """bf16 with H % 8 == 0 runs the tensor-core loop, whose block holds
+    its group's rows of W in bf16 beside the rings
+    (``resident_smem_bytes(..., torch.bfloat16, units)``), one block an
+    SM; the width is 8 where D x ceil(H/8) groups fit the SMs, else 16.
+    The answers at the presets are the f32 ones."""
+    assert gru.resident_fits("lstm_bwd", d, h, b, torch.bfloat16) is resident
+    units = gru.lstm_bwd_mma_width(d, h)
+    assert units == (8 if d * -(-h // 8) <= gru.H100_SMS else 16)
+    if h % 8 == 0:
+        assert gru.resident_smem_bytes("lstm_bwd", h, b, torch.bfloat16,
+                                       units) == \
+            gru.lstm_bwd_mma_smem_bytes(units, h)
 
 
 def test_lstm_backward_layout_and_the_other_answers_unchanged():
@@ -330,10 +360,10 @@ def test_lstm_backward_layout_and_the_other_answers_unchanged():
                                      k15_ablation.VARIANTS.items() if subs])
 def test_k15_ablation_variants_match_the_source(variant):
     """Each ablation that ``deepspeech_tpu_torch.k15_ablation`` builds
-    replaces text that ``csrc/lstm_bwd_stream.cu`` holds exactly once, so
+    replaces text that ``csrc/lstm_bwd_stream.cu``, with the loop's
+    header ``csrc/lstm_bwd_mma.cuh`` pasted in, holds exactly once, so
     the script measures the part it names."""
-    with open(os.path.join(_build.CSRC_DIR, "lstm_bwd_stream.cu")) as f:
-        src = f.read()
+    src = k15_ablation.with_header("lstm_bwd_stream")
     for old, new in k15_ablation.VARIANTS[variant]:
         assert src.count(old) == 1
         assert new != old
