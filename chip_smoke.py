@@ -137,6 +137,14 @@ TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 # there (deepspeech_tpu_torch/k13_variants.py --ablate requires them to
 # miss this limit).
 LSTM_BWD_TOL = {torch.bfloat16: 2e-3, torch.float32: TOL[torch.float32]}
+# The resident GRU backward (gru_bwd: K5 at D=2, K7 at D=1) in bf16, max
+# |kernel - plain| of dxp and dgates with dy ~ 0.1 N(0, 1): on an H100 the
+# tensor-core loop reads 1.1e-4 to 4.2e-4 at every case of its phase,
+# with max |plain| 3.6-3.9 (D=2) and 4.1-4.5 (D=1) at T'=850, B=32,
+# H=800; with its product taken out, or all but one of a warp's chunks of
+# it, it reads 1.43 to 1.47 there (deepspeech_tpu_torch/k7_variants.py
+# --ablate requires them to miss this limit).
+GRU_BWD_TOL = {torch.bfloat16: 2e-3, torch.float32: TOL[torch.float32]}
 # End to end, bf16: ||rnn - rnn_plain|| / ||rnn_plain|| over valid frames
 # of the RNN stack's output. On an H100 the kernel reads 1.6e-3
 # (ds2_small) and 2.8e-3 (ds2_streaming); a zeroed GRU reads 1, and a
@@ -980,28 +988,44 @@ def ctc_kernel_phase(gen):
 
 def _k9_kernels(w: torch.Tensor, ys: torch.Tensor) -> set:
     """The device kernels one ``gru_bwd_stream`` call launches: where
-    ``ops.gru._bwd_stream_mma`` holds (bf16, H a multiple of 8, aligned)
+    ``ops.gru._bwd_mma`` holds (bf16, H a multiple of 8, aligned)
     the gate pre-pass GEMM and the tensor-core loop, else the two-phase
     CUDA-core kernel (csrc/gru_bwd_stream.cu)."""
     from deepspeech_tpu_torch.ops import gru
 
-    if gru._bwd_stream_mma(w, ys):
+    if gru._bwd_mma(w, ys):
         return {"gru_bwd_stream_gates_kernel", "gru_bwd_stream_mma_kernel"}
     return {"gru_bwd_stream_kernel"}
+
+
+def _k7_kernels(w: torch.Tensor, ys: torch.Tensor) -> set:
+    """The device kernels one ``gru_bwd`` call launches on the resident
+    kernel's C entry point (K5 at D=2, K7 at D=1): where
+    ``ops.gru._bwd_mma`` holds the gate pre-pass GEMM and the
+    tensor-core loop with W resident (at either group width), else the
+    CUDA-core kernel (csrc/gru_bwd.cu)."""
+    from deepspeech_tpu_torch.ops import gru
+
+    if gru._bwd_mma(w, ys):
+        return {"gru_bwd_gates_kernel", "gru_bwd_mma_kernel"}
+    return {"gru_bwd_kernel"}
 
 
 def gru_bwd_kernel_phase(gen, kernel: str, h: int, timed):
     """Hold ``ops.gru.<kernel>`` (``gru_bwd``, the resident kernel at
     these sizes, or ``gru_bwd_stream``) against ``gru_bwd_plain`` as
-    ``gru_fwd_kernel_phase`` holds the forward, two runs the same bits
-    (``gru_bwd_stream``'s checks also naming the device kernels the
-    profiler saw: the ones its dtype, H and alignment select), and time
-    it for each ``(d, replaces)`` of ``timed`` beside cuDNN's GRU
-    backward."""
+    ``gru_fwd_kernel_phase`` holds the forward (``gru_bwd`` within
+    ``GRU_BWD_TOL``), two runs the same bits, each check naming the
+    device kernels the profiler saw (the ones its dtype, H and alignment
+    select: ``_k7_kernels``, ``_k9_kernels``), and time it for each ``(d,
+    replaces)`` of ``timed`` beside cuDNN's GRU backward, with one call's
+    device time by kernel."""
     from deepspeech_tpu_torch.ops import gru
 
     fn = getattr(gru, kernel)
     streamed = kernel.endswith("_stream")
+    kernels = _k9_kernels if streamed else _k7_kernels
+    tols = TOL if streamed else GRU_BWD_TOL
 
     def inputs(d, dtype, shape):
         args, valid = _gru_inputs(d, dtype, False, gen, *shape)
@@ -1026,40 +1050,49 @@ def gru_bwd_kernel_phase(gen, kernel: str, h: int, timed):
                   ("D2_bf16_b8_full", 2, bf16, (37, 8, h)),
                   ("D2_bf16_h104", 2, bf16, (37, 45, 104)),
                   ("D2_bf16_h2176", 2, bf16, (37, 8, 2176))]
+    else:
+        # At full width: B above the 32 rows of a pass at both D, and B=8
+        # in a partly filled m16 tile; H=104, a multiple of 8 but not of
+        # the groups of 16; the rule's edges in bf16, H=1056 at D=2 (132
+        # groups of 16 on an H100's 132 SMs) and H=1704 at D=1 (224 KB of
+        # the 227 a block may have). H=100 (above: bf16 with H % 8 != 0)
+        # and f32 run the CUDA-core kernel.
+        cases += [("D2_bf16_ragged_full", 2, bf16, (37, 45, h)),
+                  ("D1_bf16_ragged_full", 1, bf16, (37, 45, h)),
+                  ("D2_bf16_b8_full", 2, bf16, (37, 8, h)),
+                  ("D2_bf16_h104", 2, bf16, (37, 45, 104)),
+                  ("D2_bf16_h1056", 2, bf16, (37, 8, 1056)),
+                  ("D1_bf16_h1704", 1, bf16, (37, 8, 1704))]
     _zero_counts()
     checks, calls = {}, 0
     for name, d, dtype, shape in cases:
         args, _ = inputs(d, dtype, shape)
+        want = kernels(args[2], args[4])
+        outs, ran, runs = _device_kernels(
+            lambda: [fn(*args) for _ in range(2)], want=frozenset(want))
+        calls += 2 * runs
+        _require(set(ran) == want, f"{kernel} {name}: ran "
+                 f"{sorted(ran)}, want {sorted(want)}")
         if streamed:
-            want = _k9_kernels(args[2], args[4])
-            outs, ran, runs = _device_kernels(
-                lambda: [fn(*args) for _ in range(2)], want=frozenset(want))
-            calls += 2 * runs
-            _require(set(ran) == want, f"{kernel} {name}: ran "
-                     f"{sorted(ran)}, want {sorted(want)}")
             floats = gru._lib(kernel).gru_bwd_stream_scratch_floats(
                 d, shape[1], shape[2])
             _require(floats == gru._bwd_stream_scratch_floats(
                 d, shape[1], shape[2]), f"{kernel} {name}: the C scratch "
                 f"size {floats} is not ops.gru's")
-        else:
-            outs = [fn(*args) for _ in range(2)]
-            calls += 2
         (dxp, dg), (dxp2, dg2) = outs
         dxp_p, dg_p = gru.gru_bwd_plain(*args)
         err = max(float((dxp - dxp_p).abs().max()),
                   float((dg - dg_p).abs().max()))
         _require(bool(torch.isfinite(dxp).all() and torch.isfinite(dg).all()),
                  f"{kernel} {name}: non-finite")
-        _require(err <= TOL[dtype],
+        _require(err <= tols[dtype],
                  f"{kernel} {name}: max |kernel - plain| {err} > "
-                 f"{TOL[dtype]}")
+                 f"{tols[dtype]}")
         _require(torch.equal(dxp, dxp2) and torch.equal(dg, dg2),
                  f"{kernel} {name}: two runs on one input differ")
-        checks[name] = {"max_abs_err": err, "tol": TOL[dtype],
-                        "bit_identical": True}
-        if streamed:
-            checks[name]["kernels"] = sorted(ran)
+        checks[name] = {"max_abs_err": err, "tol": tols[dtype],
+                        "bit_identical": True, "kernels": sorted(ran),
+                        "max_abs_plain": float(dg_p.abs().max())}
         print(json.dumps({"check": f"{kernel} {name}", **checks[name]}),
               flush=True)
         del args, outs
@@ -1084,15 +1117,14 @@ def gru_bwd_kernel_phase(gen, kernel: str, h: int, timed):
         library_ms = _time_ms(lambda: torch.autograd.grad(
             out, leaves, g_out, retain_graph=True), reps=3)
         del out, g_out, leaves, cudnn, x_lib
+        # One call's device time by kernel (in bf16: the gate pre-pass and
+        # the serial loop).
         extra = {}
+        _, extra["device_ms"], _ = _device_kernels(
+            lambda: fn(*args), want=frozenset(kernels(args[2], args[4])))
         if streamed:
-            # One call's device time by kernel (in bf16: the gate
-            # pre-pass and the serial loop); one batch row, where W's
-            # bytes stay and most products go; and H=800, where the
-            # resident kernel runs.
-            _, extra["device_ms"], _ = _device_kernels(
-                lambda: fn(*args),
-                want=frozenset(_k9_kernels(args[2], args[4])))
+            # One batch row, where W's bytes stay and most products go;
+            # and H=800, where the resident kernel runs.
             args_b1 = tuple(a[:, :, :1].contiguous() if i in (4, 5) else
                             a[:, :1].contiguous() if i < 2 else a
                             for i, a in enumerate(args))

@@ -21,9 +21,41 @@
 // What bounds it: per step two [B,H] x [H,3H]-sized products (the gate
 // recompute and dgates @ W^T), 2 * 2*T*D*B*H*3H FLOPs in all, and the
 // inputs and outputs once (dxp and dgates dominate: 2*D*T*B*3H*4 bytes).
-// Only dgates @ W^T lies on the serial chain, but every step needs it,
-// so the time is T times one step's latency, far above both bounds.
-// The design is gru_fwd.cu's: D x ceil(H/U) blocks, each owning U hidden
+// The gate recompute reads h_prev from the ys tape and so does not depend
+// on the carried dh; only dgates @ W^T lies on the serial chain, but every
+// step needs it, so the time is T times one step's latency, far above
+// both bounds.
+//
+// bf16 path (the main path: ds2_small at D=2, ds2_streaming at D=1, both
+// H=800) where H % 8 == 0 and w, ys and the scratch are 16-byte aligned:
+// two launches from one C entry point, both from csrc/gru_bwd_mma.cuh (K9
+// runs the same two with W partly streamed):
+//  1. gru_bwd_gates_kernel, the gate pre-pass: one tensor-core GEMM
+//     pre[d, row] = round(h_prev(d, row)) @ W[d] + bias[d] for every row at
+//     once (M = T*B, N = 3H, K = H: 104 GFLOP a direction at H=800,
+//     T'=850, B=32), written into the dgates buffer itself. The recompute
+//     leaves the serial chain.
+//  2. gru_bwd_mma_kernel<MU, MS>, the serial loop with W resident: a
+//     cooperative grid of D x ceil(H/MU) groups of MU hidden units, one
+//     group a block and one block an SM, one grid barrier a step. A group
+//     copies its rows of W, [MU, 3H] bf16 (77 KB at MU=16, H=800), into
+//     shared memory once a call; a step forms
+//     dh[:, own] = dh_mid z + (1 - m) dh + round(dg_{i-1}) @ W[own rows, :]^T
+//     on mma.sync, 8 warps each taking every 8th 32-deep chunk of the
+//     3H-deep product and adding their partial sums in warp order, while a
+//     lane streams its 16-byte pieces of the [B, 3H] bf16 dgates row (154
+//     KB at B=32, H=800; double-buffered by step parity) through its
+//     warp's MS-stage ring. Then the elementwise step, its activations
+//     taken while the first copies are in flight, dh's elementwise part
+//     kept by its owning thread in a [D,B,H] f32 scratch. The launch takes
+//     MU=8 with MS_NARROW ring stages where D x ceil(H/8) groups fit one an
+//     SM (D=1 at H=800: 100 groups, 38 KB of W each), else MU=16 with
+//     MS_WIDE (D=2: 100 groups): deepspeech_tpu_torch/k7_variants.py times
+//     the widths and the depths beside the parent's kernel.
+//
+// f32 path (not the main path; model.dtype=float32) and every other bf16
+// call: gru_bwd_kernel, everything on the CUDA cores with f32 FMAs. The
+// design is gru_fwd.cu's: D x ceil(H/U) blocks, each owning U hidden
 // units of one direction, holding their [H, 3U] column slice of W in
 // shared memory for the whole sequence, with a grid-wide barrier per
 // step (cooperative launch). The gate recompute reads h_prev from ys as
@@ -35,12 +67,18 @@
 // in block order. No atomics: dh, and so every output, is the same bits
 // on every run. The scratch is double-buffered by step parity, so one
 // grid barrier per step separates a step's writes from its reads and
-// from the next step's writes. The products run on the CUDA cores.
+// from the next step's writes.
+//
+// The choice between the two is made before any launch, from the dtype,
+// H and the pointers' alignment (gru_bwd_launch); ops/gru.py's _bwd_mma
+// repeats it.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gru_bwd_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -295,18 +333,13 @@ cudaError_t launch(const void* xp, const float* mask, const void* w,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  int coop = 0, sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  const int groups = D * ((H + U - 1) / U);
+  int blocks = 0;
+  err = gru_bwd_mma::coop_blocks(reinterpret_cast<const void*>(kernel),
+                                 THREADS, smem, groups, device, &blocks);
   if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = D * ((H + U - 1) / U);
   // grid.sync() needs every block resident at once.
-  if (per_sm * sms < blocks) return cudaErrorCooperativeLaunchTooLarge;
+  if (blocks < groups) return cudaErrorCooperativeLaunchTooLarge;
   const WT* xp_t = static_cast<const WT*>(xp);
   const WT* w_t = static_cast<const WT*>(w);
   void* args[] = {&xp_t, &mask, &w_t, &bias, &ys, &dy, &dxp, &dgates,
@@ -319,21 +352,91 @@ cudaError_t launch(const void* xp, const float* mask, const void* w,
   return cudaGetLastError();
 }
 
+// ---- bf16 path: the gate pre-pass and the serial loop of
+// csrc/gru_bwd_mma.cuh, W resident ----
+
+// The group widths and the stages of a warp's ring of dgates-row pieces:
+// MU_NARROW units and MS_NARROW stages where D x ceil(H/MU_NARROW) groups
+// fit one an SM, else MU_WIDE and MS_WIDE.
+constexpr int MU_NARROW = 8;
+constexpr int MS_NARROW = 6;
+constexpr int MU_WIDE = 16;
+constexpr int MS_WIDE = 4;
+
+__global__ void __launch_bounds__(gru_bwd_mma::P_THREADS)
+gru_bwd_gates_kernel(const __nv_bfloat16* __restrict__ w,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ ys, float* __restrict__ pre,
+                     int T, int B, int H, int reverse_bits) {
+  gru_bwd_mma::gates(w, bias, ys, pre, T, B, H, reverse_bits);
+}
+
+template <int MU, int MS>
+__global__ void __launch_bounds__(gru_bwd_mma::M_THREADS, 1)
+gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ xp,
+                   const float* __restrict__ mask,
+                   const __nv_bfloat16* __restrict__ w,
+                   const float* __restrict__ ys,
+                   const float* __restrict__ dy, float* __restrict__ dxp,
+                   float* dgates, float* scratch, int D, int T, int B, int H,
+                   int reverse_bits) {
+  gru_bwd_mma::loop<MU, MS, gru_bwd_mma::W_ALL>(
+      xp, mask, w, ys, dy, dxp, dgates, scratch, D, T, B, H, reverse_bits);
+}
+
+template <int MU, int MS>
+size_t loop_smem(int H) {
+  return gru_bwd_mma::Plan<MU, MS, gru_bwd_mma::W_ALL>::smem(H);
+}
+
+// The two launches at the width the card's SM count gives.
+cudaError_t launch_mma(const void* xp, const float* mask, const void* w,
+                       const float* bias, const float* ys, const float* dy,
+                       float* dxp, float* dgates, float* scratch, int D,
+                       int T, int B, int H, int reverse_bits, int device,
+                       cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const bool narrow = D * ((H + MU_NARROW - 1) / MU_NARROW) <= sms;
+  return gru_bwd_mma::launch(
+      gru_bwd_gates_kernel,
+      narrow ? gru_bwd_mma_kernel<MU_NARROW, MS_NARROW>
+             : gru_bwd_mma_kernel<MU_WIDE, MS_WIDE>,
+      narrow ? MU_NARROW : MU_WIDE,
+      narrow ? loop_smem<MU_NARROW, MS_NARROW>(H)
+             : loop_smem<MU_WIDE, MS_WIDE>(H),
+      true, xp, mask, w, bias, ys, dy, dxp, dgates, scratch, D, T, B, H,
+      reverse_bits, device, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch that gru_bwd_launch needs for `partial`.
+// Floats of scratch that gru_bwd_launch needs on the CUDA-core path: the
+// partial sums [2][D][ceil(H/16)][B][H].
 long long gru_bwd_scratch_floats(int D, int B, int H) {
   return 2LL * D * ((H + U - 1) / U) * B * H;
 }
 
-// Returns 0 or a cudaError_t; the launch is asynchronous on `stream`.
-// xp and w are bf16 when `bf16` is set, f32 otherwise. The calling
-// thread's current device is the same after the call as before it.
+// Floats of scratch that gru_bwd_launch needs on the tensor-core path:
+// dh's elementwise part [D,B,H] f32, then two round(dgates) rows
+// [2,D,B,3H] bf16.
+long long gru_bwd_mma_scratch_floats(int D, int B, int H) {
+  return 4LL * D * B * H;
+}
+
+// Returns 0 or a cudaError_t; the launches are asynchronous on `stream`.
+// xp and w are bf16 when `bf16` is set, f32 otherwise. A bf16 call runs
+// the tensor-core path (two launches; gru_bwd_mma_scratch_floats of
+// scratch) where H % 8 == 0 and w, ys and scratch are 16-byte aligned,
+// else the CUDA-core kernel, as f32 does (gru_bwd_scratch_floats). The
+// calling thread's current device is the same after the call as before it.
 int gru_bwd_launch(int bf16, const void* xp, const float* mask,
                    const void* w, const float* bias, const float* ys,
-                   const float* dy, float* dxp, float* dgates, float* partial,
+                   const float* dy, float* dxp, float* dgates, float* scratch,
                    int D, int T, int B, int H, int reverse_bits, int device,
                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -342,11 +445,18 @@ int gru_bwd_launch(int bf16, const void* xp, const float* mask,
   if (err != cudaSuccess) return err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = bf16 ? launch<__nv_bfloat16>(xp, mask, w, bias, ys, dy, dxp, dgates,
-                                     partial, D, T, B, H, reverse_bits,
-                                     device, st)
-             : launch<float>(xp, mask, w, bias, ys, dy, dxp, dgates, partial,
-                             D, T, B, H, reverse_bits, device, st);
+  const bool mma = bf16 && H % 8 == 0 && gru_bwd_mma::aligned16(w) &&
+                   gru_bwd_mma::aligned16(ys) &&
+                   gru_bwd_mma::aligned16(scratch);
+  if (mma)
+    err = launch_mma(xp, mask, w, bias, ys, dy, dxp, dgates, scratch, D, T, B,
+                     H, reverse_bits, device, st);
+  else if (bf16)
+    err = launch<__nv_bfloat16>(xp, mask, w, bias, ys, dy, dxp, dgates,
+                                scratch, D, T, B, H, reverse_bits, device, st);
+  else
+    err = launch<float>(xp, mask, w, bias, ys, dy, dxp, dgates, scratch, D, T,
+                        B, H, reverse_bits, device, st);
   const cudaError_t restore = cudaSetDevice(prev);
   return err != cudaSuccess ? err : restore;
 }

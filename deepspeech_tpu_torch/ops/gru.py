@@ -21,8 +21,11 @@ per product over 989 TFLOP/s in bf16) and the byte roofline (the
 inputs and outputs once over 3.35 TB/s). The kernels therefore keep W
 out of device memory for the whole sequence: one cooperative launch per
 layer, D x ceil(H/16) blocks each holding a ``[H, 48]`` column slice of
-W in shared memory, a grid-wide barrier between steps. See the sources
-for the layouts.
+W in shared memory, a grid-wide barrier between steps. In bf16 with
+H % 8 == 0 the backward instead recomputes every step's gates first as
+one tensor-core GEMM and runs its serial loop on ``mma.sync``, each
+group's rows of W in shared memory (``csrc/gru_bwd_mma.cuh``, which K9
+shares). See the sources for the layouts.
 
 Where W does not fit that way (ds2_full's H=1760: a 345 KB slice per
 block, 220 blocks at D=2 on 132 SMs), ``gru_fwd`` and ``gru_bwd`` launch
@@ -80,15 +83,29 @@ _U, _KC, _ROWS, _THREADS = 16, 64, 32, 256
 _MAX_THREADS_PER_SM = 2048
 # The resident kernels the rule below knows: the GRU's and the LSTM's.
 _KINDS = ("fwd", "bwd", "fwd_q", "lstm_fwd", "lstm_fwd_q", "lstm_bwd")
-# The LSTM backward's tensor-core loop (csrc/lstm_bwd.cu in bf16 with
-# H % 8 == 0, csrc/lstm_bwd_mma.cuh with W resident): its warps, the
-# depth of a chunk of the 4H-deep product, and the group widths the
-# launch takes, the narrow one where every group gets an SM, else the
-# wide, each with the stages of a warp's ring of 16-byte dgates-row
-# pieces (4 a lane a chunk) that the source gives it.
+# The backward tensor-core loops with W resident (csrc/lstm_bwd.cu and
+# csrc/gru_bwd.cu in bf16 with H % 8 == 0, on csrc/lstm_bwd_mma.cuh and
+# csrc/gru_bwd_mma.cuh): their warps, the depth of a chunk of the
+# 4H- or 3H-deep product, and the group widths both launches take, the
+# narrow one where every group gets an SM, else the wide, each with the
+# stages of a warp's ring of 16-byte dgates-row pieces (4 a lane a
+# chunk) that both sources give it.
 _MMA_WARPS, _MMA_KC = 8, 32
 _MMA_NARROW, _MMA_WIDE = 8, 16
 _MMA_STAGES = {_MMA_NARROW: 6, _MMA_WIDE: 4}
+
+
+def _mma_smem_bytes(gates: int, units: int, h: int) -> int:
+    """Shared memory of one block of a backward tensor-core loop with W
+    resident (``Plan::smem`` of csrc/lstm_bwd_mma.cuh and csrc/
+    gru_bwd_mma.cuh): the warps' rings (the width's stages of 4 pieces a
+    lane; the partial sums alias them) and every warp's chunks of the
+    group's ``[units, gates*H]`` rows of W in bf16, ``units/8`` pieces a
+    lane a chunk."""
+    ring = _MMA_WARPS * _MMA_STAGES[units] * 4 * 32
+    red = _MMA_WARPS * _ROWS * (units + 8) // 4
+    chunks = -(-(-(-gates * h // _MMA_KC)) // _MMA_WARPS)
+    return 16 * (max(ring, red) + _MMA_WARPS * chunks * (units // 8) * 32)
 
 
 def lstm_bwd_mma(dtype: torch.dtype, h: int) -> bool:
@@ -114,10 +131,22 @@ def lstm_bwd_mma_smem_bytes(units: int, h: int) -> int:
     (the width's stages of 4 pieces a lane; the partial sums alias them)
     and every warp's chunks of the group's ``[units, 4H]`` rows of W in
     bf16, ``units/8`` pieces a lane a chunk."""
-    ring = _MMA_WARPS * _MMA_STAGES[units] * 4 * 32
-    red = _MMA_WARPS * _ROWS * (units + 8) // 4
-    chunks = -(-(-(-4 * h // _MMA_KC)) // _MMA_WARPS)
-    return 16 * (max(ring, red) + _MMA_WARPS * chunks * (units // 8) * 32)
+    return _mma_smem_bytes(4, units, h)
+
+
+# csrc/gru_bwd.cu (K5/K7) runs its tensor-core path by the LSTM's rule
+# (bf16, H % 8 == 0; csrc/gru_bwd_stream.cu's K9 too) and its launch
+# takes the same group widths.
+gru_bwd_mma = lstm_bwd_mma
+gru_bwd_mma_width = lstm_bwd_mma_width
+
+
+def gru_bwd_mma_smem_bytes(units: int, h: int) -> int:
+    """Shared memory of one block of ``csrc/gru_bwd.cu``'s tensor-core
+    loop (csrc/gru_bwd_mma.cuh ``Plan`` with ``W_ALL``) for groups of
+    ``units``: the rings and every warp's chunks of the group's
+    ``[units, 3H]`` rows of W in bf16."""
+    return _mma_smem_bytes(3, units, h)
 
 
 def resident_smem_bytes(kind: str, h: int, b: int,
@@ -126,9 +155,13 @@ def resident_smem_bytes(kind: str, h: int, b: int,
     """Shared memory one block of the resident kernel takes: W's
     ``[H, 48]`` slice and the staged h_prev chunk as f32 (whatever the
     dot dtype), and for ``kind="bwd"`` the dgates tile and the carried
-    dh of the block's units for ``b`` batch rows. For ``kind="fwd_q"``
-    (``csrc/gru_fwd_q.cu``) the slice is int8, 16 bytes of padding a
-    column, beside the chunk of it widened to f32 and the h_prev chunk.
+    dh of the block's units for ``b`` batch rows; in bf16 on
+    ``gru_bwd_mma``'s rule the GRU backward runs the tensor-core loop,
+    whose block holds its group's ``[units, 3H]`` rows of W in bf16
+    beside the rings, whatever ``b`` (``gru_bwd_mma_smem_bytes``). For
+    ``kind="fwd_q"`` (``csrc/gru_fwd_q.cu``) the slice is int8, 16 bytes
+    of padding a column, beside the chunk of it widened to f32 and the
+    h_prev chunk.
     The LSTM kernels (``"lstm_fwd"``: ``csrc/lstm_fwd.cu``,
     ``"lstm_fwd_q"``: ``csrc/lstm_fwd_q.cu``) lay out the same with four
     gates, a ``[H, 64]`` slice, and add the cell state of the block's
@@ -145,6 +178,8 @@ def resident_smem_bytes(kind: str, h: int, b: int,
         raise ValueError(f"kind must be one of {_KINDS}, not {kind!r}")
     if kind == "lstm_bwd" and lstm_bwd_mma(dtype, h):
         return lstm_bwd_mma_smem_bytes(units, h)
+    if kind == "bwd" and gru_bwd_mma(dtype, h):
+        return gru_bwd_mma_smem_bytes(units, h)
     h_pad = -(-h // _KC) * _KC
     gc = (4 if kind.startswith("lstm") else 3) * _U  # gate columns
     if kind.endswith("fwd_q"):
@@ -180,14 +215,20 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
     ``_use_blocked`` and ``bigru_fits_vmem`` (rnn_pallas.py:66, :455,
     :709). The resident kernels stage W as f32 (int8 for the ``_q``
     kinds) whatever the dot dtype, so ``dtype`` (bf16 or f32) does not
-    move their answer, except for ``"lstm_bwd"``: in bf16 with H % 8 ==
-    0 (``lstm_bwd_mma``) its tensor-core loop holds W's rows in bf16,
-    one block an SM for each group of ``lstm_bwd_mma_width`` units, and
-    does not depend on ``b``. ds2_full (D=2, H=1760) misses for ``"fwd"``
-    and fits for ``"fwd_q"``: 106 KB a block, two blocks an SM; with four
-    gates it misses for both LSTM kinds (140 KB of int8 slice and staging
-    a block, one an SM, 220 blocks), and ds2_small's H=800 fits for both
-    (220 KB a block for ``"lstm_fwd"`` at b=32, one an SM, 100 blocks).
+    move their answer, except for ``"bwd"`` and ``"lstm_bwd"``: in bf16
+    with H % 8 == 0 (``gru_bwd_mma``, ``lstm_bwd_mma``) their tensor-core
+    loops hold W's rows in bf16, one block an SM for each group of
+    ``gru_bwd_mma_width`` (``lstm_bwd_mma_width``) units, and do not
+    depend on ``b``. ``"bwd"`` fits at ds2_small's and ds2_streaming's
+    H=800 (f32: 176 KB at b=32, 100 or 50 blocks; bf16: 144 KB in 100
+    groups of 16 units at D=2, 136 KB in 100 groups of 8 at D=1) and
+    misses at ds2_full's H=1760 in both dtypes; in bf16 it admits H up to
+    1056 at D=2 and 1704 at D=1. ds2_full (D=2, H=1760) misses for
+    ``"fwd"`` and fits for ``"fwd_q"``: 106 KB a block, two blocks an SM;
+    with four gates it misses for both LSTM kinds (140 KB of int8 slice
+    and staging a block, one an SM, 220 blocks), and ds2_small's H=800
+    fits for both (220 KB a block for ``"lstm_fwd"`` at b=32, one an SM,
+    100 blocks).
     ``"lstm_bwd"`` fits at ds2_small's and ds2_streaming's H=800 (f32:
     222 KB at b=32, 100 or 50 blocks; bf16: 168 KB in 100 groups of 16
     units at D=2, 148 KB in 100 groups of 8 at D=1) and misses at
@@ -198,6 +239,8 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
     units, most = _U, _MAX_THREADS_PER_SM // _THREADS
     if kind == "lstm_bwd" and lstm_bwd_mma(dtype, h):
         units, most = lstm_bwd_mma_width(d, h, sms), 1
+    elif kind == "bwd" and gru_bwd_mma(dtype, h):
+        units, most = gru_bwd_mma_width(d, h, sms), 1
     smem = resident_smem_bytes(kind, h, b, dtype, units)
     if smem > smem_per_block:
         return False
@@ -316,7 +359,8 @@ def _lib(name: str) -> ctypes.CDLL:
     i = ctypes.c_int
     if name.startswith(("gru_bwd", "lstm_bwd")):
         sizes = ["scratch_floats"] + (["mma_scratch_floats"]
-                                      if name == "lstm_bwd" else [])
+                                      if name in ("gru_bwd", "lstm_bwd")
+                                      else [])
         for size in sizes:
             scratch = getattr(lib, f"{name}_{size}")
             scratch.argtypes = [i, i, i]
@@ -627,16 +671,54 @@ def _check_bwd(xp, mask, w, b, reverse, gates: int = 3, **tapes) -> None:
                              f"{x.dtype} {list(x.shape)} on {x.device}")
 
 
+def _bwd_mma(w: torch.Tensor, ys: torch.Tensor) -> bool:
+    """Whether the C call of a backward kernel runs its tensor-core path,
+    the gate pre-pass GEMM and then the ``mma.sync`` loop: ``gru_bwd``
+    (``csrc/gru_bwd.cu``), ``gru_bwd_stream`` (``csrc/gru_bwd_stream.cu``)
+    and ``ops/lstm.py``'s ``lstm_bwd`` (``csrc/lstm_bwd.cu``) apply the
+    same rule before any launch: ``gru_bwd_mma`` (bf16, H % 8 == 0) with
+    ``w`` and ``ys`` 16-byte aligned (they also need the scratch aligned,
+    which ``torch.empty`` is). Else the CUDA-core kernel runs: K5/K7's
+    ``gru_bwd_kernel``, K9's two-phase ``gru_bwd_stream_kernel``, K13's
+    ``lstm_bwd_kernel``."""
+    return (gru_bwd_mma(w.dtype, w.shape[1])
+            and w.data_ptr() % 16 == 0 and ys.data_ptr() % 16 == 0)
+
+
+def _bwd_resident(w: torch.Tensor, ys: torch.Tensor,
+                  limits: Tuple[int, int, int] = (
+                      H100_SMS, H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM),
+                  kind: str = "bwd") -> bool:
+    """Whether the backward of ``kind`` keeps W resident (``"bwd"``:
+    ``gru_bwd``, K5/K7; ``"lstm_bwd"``: ``ops/lstm.py``'s ``lstm_bwd``,
+    K13) on a card with these ``card_limits``, for the kernel
+    ``_bwd_mma`` says its C call runs: ``resident_fits`` with ``w``'s
+    dtype on the tensor-core path, and with f32 otherwise, since the
+    CUDA-core kernel stages W as f32 whatever the dot dtype (a bf16 view
+    of W that is not 16-byte aligned is sized as that kernel's block,
+    which grows with B)."""
+    dtype = w.dtype if _bwd_mma(w, ys) else torch.float32
+    return resident_fits(kind, w.shape[0], w.shape[1], ys.shape[2], dtype,
+                         *limits)
+
+
 def _bwd_launch(name, xp, mask, w, b, ys, dy, reverse):
     """Allocate ``dxp``/``dgates`` and ``csrc/<name>.cu``'s scratch and
-    launch it; returns ``(dxp, dgates, launched)``."""
+    launch it; returns ``(dxp, dgates, launched)``. ``gru_bwd``'s
+    tensor-core path (``_bwd_mma``) takes ``gru_bwd_mma_scratch_floats``
+    (dh's elementwise part, the two bf16 dgates rows), its CUDA-core
+    kernel ``gru_bwd_scratch_floats`` (the blocks' partial sums);
+    ``gru_bwd_stream`` one size for both of its paths."""
     d, t, bsz, h = w.shape[0], xp.shape[0], xp.shape[1], w.shape[1]
     dxp = torch.empty((d, t, bsz, 3 * h), dtype=torch.float32,
                       device=xp.device)
     dgates = torch.empty_like(dxp)
     if not dxp.numel():
         return dxp, dgates, False
-    floats = getattr(_lib(name), f"{name}_scratch_floats")(d, bsz, h)
+    size = (f"{name}_mma_scratch_floats"
+            if name == "gru_bwd" and _bwd_mma(w, ys)
+            else f"{name}_scratch_floats")
+    floats = getattr(_lib(name), size)(d, bsz, h)
     scratch = torch.empty((floats,), dtype=torch.float32, device=xp.device)
     _launch(name, xp, mask, w, (b, ys, dy, dxp, dgates, scratch), reverse)
     return dxp, dgates, True
@@ -658,18 +740,22 @@ def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     projection ``(da_r, da_z, da_n)``, ``dgates`` that of the recurrent
     gates ``h W + b``, ``(da_r, da_z, dg_n)``.
 
-    A CPU tensor runs ``gru_bwd_plain``. A CUDA tensor launches the
-    resident kernel ``csrc/gru_bwd.cu`` (one launch, counted in
-    ``gru_bwd.launches``) where ``resident_fits`` says it can hold W,
-    and ``gru_bwd_stream`` otherwise; a refused launch raises.
+    A CPU tensor runs ``gru_bwd_plain``. A CUDA tensor calls the
+    resident kernel's C entry point ``csrc/gru_bwd.cu`` once (counted in
+    ``gru_bwd.launches``) where ``_bwd_resident`` says it can hold W,
+    and ``gru_bwd_stream`` otherwise; a refused launch raises. Where
+    ``_bwd_mma`` holds (bf16, H % 8 == 0) that call is two launches, the
+    gate pre-pass GEMM on the tensor cores and the serial ``mma.sync``
+    loop with each group's rows of W held in shared memory
+    (``csrc/gru_bwd_mma.cuh``); f32 and other bf16 calls run the
+    CUDA-core kernel.
     """
     reverse = tuple(bool(r) for r in reverse)
     _check_bwd(xp, mask, w, b, reverse, ys=ys, dy=dy)
     if xp.device.type == "cpu":
         return gru_bwd_plain(xp, mask, w, b, ys, dy, reverse)
     _require_cuda(xp, "gru_bwd")
-    if not resident_fits("bwd", w.shape[0], w.shape[1], xp.shape[1],
-                         w.dtype, *card_limits(xp.device)):
+    if not _bwd_resident(w, ys, card_limits(xp.device)):
         return gru_bwd_stream(xp, mask, w, b, ys, dy, reverse)
     dxp, dgates, launched = _bwd_launch("gru_bwd", xp, mask, w, b, ys, dy,
                                         reverse)
@@ -680,25 +766,14 @@ def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
 gru_bwd.launches = 0
 
 
-def _bwd_stream_mma(w: torch.Tensor, ys: torch.Tensor) -> bool:
-    """Whether ``gru_bwd_stream``'s C call runs its tensor-core path (the
-    gate pre-pass GEMM, then the ``mma.sync`` loop): bf16 with H a
-    multiple of 8 (a 16-byte piece of a W row of 3H holds 8 values) and
-    ``w`` and ``ys`` 16-byte aligned, the rule ``gru_bwd_stream_launch``
-    applies before any launch (it also needs the scratch aligned, which
-    ``torch.empty`` is). Else the two-phase CUDA-core kernel runs."""
-    return (w.dtype == torch.bfloat16 and w.shape[1] % 8 == 0
-            and w.data_ptr() % 16 == 0 and ys.data_ptr() % 16 == 0)
-
-
 def _bwd_stream_scratch_floats(d: int, bsz: int, h: int) -> int:
     """``gru_bwd_stream_scratch_floats``: the f32 scratch either path of
     ``csrc/gru_bwd_stream.cu`` takes, ``8*D*B*H``. The two-phase kernel
     keeps dh and its elementwise part ``[2,D,B,H]`` f32, then two
     ``round(dgates)`` rows ``[2,D,B,3H]`` in the dot dtype (f32 room);
-    the tensor-core loop keeps the elementwise part alone in the first
-    ``D*B*H`` and its two bf16 rows at the same float offset ``2*D*B*H``
-    (16-byte aligned when H % 8 == 0)."""
+    the tensor-core loop keeps the elementwise part in the first
+    ``D*B*H`` and its two bf16 rows right after it, as
+    ``gru_bwd_mma_scratch_floats`` lays out K5/K7's."""
     return 8 * d * bsz * h
 
 
@@ -707,7 +782,7 @@ def gru_bwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                    reverse: Sequence[bool] = (False,)
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``gru_bwd`` through the streamed kernel ``csrc/gru_bwd_stream.cu``
-    (K9), whatever the sizes. Where ``_bwd_stream_mma`` holds (bf16,
+    (K9), whatever the sizes. Where ``_bwd_mma`` holds (bf16,
     H % 8 == 0) the gate recompute, which reads h_prev from the ``ys``
     tape and not from the carried dh, runs first for every step at once
     as a tensor-core GEMM written into ``dgates``; then a serial kernel

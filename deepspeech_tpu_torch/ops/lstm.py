@@ -404,47 +404,20 @@ def lstm_bwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     return dgates
 
 
-def _bwd_mma(w: torch.Tensor, ys: torch.Tensor) -> bool:
-    """Whether ``lstm_bwd``'s C call (``csrc/lstm_bwd.cu``) runs its
-    tensor-core path, the gate pre-pass GEMM and then the ``mma.sync``
-    loop with W resident: ``gru.lstm_bwd_mma`` (bf16, H % 8 == 0) with
-    ``w`` and ``ys`` 16-byte aligned, the rule ``lstm_bwd_launch``
-    applies before any launch (it also needs the scratch aligned, which
-    ``torch.empty`` is). Else the CUDA-core kernel runs."""
-    return (gru.lstm_bwd_mma(w.dtype, w.shape[1])
-            and w.data_ptr() % 16 == 0 and ys.data_ptr() % 16 == 0)
-
-
-def _bwd_resident(w: torch.Tensor, ys: torch.Tensor,
-                  limits: Tuple[int, int, int] = (
-                      gru.H100_SMS, gru.H100_SMEM_PER_BLOCK,
-                      gru.H100_SMEM_PER_SM)) -> bool:
-    """Whether ``lstm_bwd`` keeps W resident (K13) on a card with these
-    ``gru.card_limits``, for the kernel ``_bwd_mma`` says its C call
-    runs: ``gru.resident_fits("lstm_bwd", ...)`` with ``w``'s dtype on
-    the tensor-core path, and with f32 otherwise, since the CUDA-core
-    kernel stages W as f32 whatever the dot dtype (a bf16 view of W that
-    is not 16-byte aligned is sized as that kernel's block, which grows
-    with B)."""
-    dtype = w.dtype if _bwd_mma(w, ys) else torch.float32
-    return gru.resident_fits("lstm_bwd", w.shape[0], w.shape[1],
-                             ys.shape[2], dtype, *limits)
-
-
 def _bwd_launch(name, xp, mask, w, b, ys, cs, dy, reverse
                 ) -> Tuple[torch.Tensor, bool]:
     """Allocate ``dgates`` and ``csrc/<name>.cu``'s scratch and launch it;
     returns ``(dgates, launched)``. ``lstm_bwd``'s tensor-core path
-    (``_bwd_mma``) takes ``lstm_bwd_mma_scratch_floats`` (dh and dc, the
-    two bf16 dgates rows), its CUDA-core kernel ``lstm_bwd_scratch_floats``
-    (the blocks' partial sums)."""
+    (``gru._bwd_mma``) takes ``lstm_bwd_mma_scratch_floats`` (dh and dc,
+    the two bf16 dgates rows), its CUDA-core kernel
+    ``lstm_bwd_scratch_floats`` (the blocks' partial sums)."""
     d, t, bsz, h = w.shape[0], xp.shape[0], xp.shape[1], w.shape[1]
     dgates = torch.empty((d, t, bsz, 4 * h), dtype=torch.float32,
                          device=xp.device)
     if not dgates.numel():
         return dgates, False
     size = (f"{name}_mma_scratch_floats"
-            if name == "lstm_bwd" and _bwd_mma(w, ys)
+            if name == "lstm_bwd" and gru._bwd_mma(w, ys)
             else f"{name}_scratch_floats")
     floats = getattr(gru._lib(name), size)(d, bsz, h)
     scratch = torch.empty((floats,), dtype=torch.float32, device=xp.device)
@@ -474,19 +447,20 @@ def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
 
     A CPU tensor runs ``lstm_bwd_plain``. A CUDA tensor calls the
     resident kernel's C entry point ``csrc/lstm_bwd.cu`` once (counted in
-    ``lstm_bwd.launches``) where ``_bwd_resident`` says it can hold W,
-    and ``lstm_bwd_stream`` otherwise; a refused
-    launch raises. Where ``_bwd_mma`` holds (bf16, H % 8 == 0) that call
-    is two launches, the gate pre-pass GEMM on the tensor cores and the
-    serial ``mma.sync`` loop with each group's rows of W held in shared
-    memory; f32 and other bf16 calls run the CUDA-core kernel.
+    ``lstm_bwd.launches``) where ``gru._bwd_resident`` says it can hold
+    W, and ``lstm_bwd_stream`` otherwise; a refused launch raises. Where
+    ``gru._bwd_mma`` holds (bf16, H % 8 == 0) that call is two launches,
+    the gate pre-pass GEMM on the tensor cores and the serial
+    ``mma.sync`` loop with each group's rows of W held in shared memory;
+    f32 and other bf16 calls run the CUDA-core kernel.
     """
     reverse = tuple(bool(r) for r in reverse)
     gru._check_bwd(xp, mask, w, b, reverse, gates=4, ys=ys, cs=cs, dy=dy)
     if xp.device.type == "cpu":
         return lstm_bwd_plain(xp, mask, w, b, ys, cs, dy, reverse)
     gru._require_cuda(xp, "lstm_bwd")
-    if not _bwd_resident(w, ys, gru.card_limits(xp.device)):
+    if not gru._bwd_resident(w, ys, gru.card_limits(xp.device),
+                             "lstm_bwd"):
         return lstm_bwd_stream(xp, mask, w, b, ys, cs, dy, reverse)
     dgates, launched = _bwd_launch("lstm_bwd", xp, mask, w, b, ys, cs, dy,
                                    reverse)

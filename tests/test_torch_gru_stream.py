@@ -65,6 +65,26 @@ def test_residency_rule_at_the_sizes_that_matter(kind, dtype, d, h,
     assert gru.resident_fits(kind, d, h, 32, dtype) is resident
 
 
+@pytest.mark.parametrize("d,h,b,bf16,f32", [
+    (1, 800, 2048, True, False),   # bf16 holds W's rows whatever B
+    (2, 800, 512, True, False),
+    (1, 1200, 32, True, False),    # 75 groups of 16; f32's slice misses
+    (2, 1056, 512, True, False),   # the D=2 edge: 132 groups of 16
+    (1, 1704, 32, True, False),    # the D=1 edge: 224 KB a block
+    (1, 1712, 32, False, False),   # 232 KB: over the 227 a block may have
+    (2, 1064, 8, False, False),    # 134 groups of 16 on 132 SMs
+])
+def test_backward_residency_in_bf16_is_the_tensor_core_loops(d, h, b, bf16,
+                                                             f32):
+    """The GRU backward's rule in bf16 with H % 8 == 0 is the tensor-core
+    loop's (``gru_bwd_mma_width``, ``gru_bwd_mma_smem_bytes``): one block
+    an SM for each group, W's rows in bf16, nothing that grows with B; in
+    f32 the CUDA-core kernel's, whose f32 slice and carried dh fit less
+    H and less B."""
+    assert gru.resident_fits("bwd", d, h, b, torch.bfloat16) is bf16
+    assert gru.resident_fits("bwd", d, h, b, torch.float32) is f32
+
+
 @pytest.mark.parametrize("preset,resident", [
     ("ds2_small", True), ("ds2_streaming", True), ("ds2_full", False)])
 def test_presets_take_their_kernels(preset, resident):
@@ -319,21 +339,23 @@ def test_k9_path_rule_and_scratch(dtype, h, mma):
     other call the two-phase kernel. The scratch is ``8*D*B*H`` floats
     either way: the two-phase kernel's dh, its elementwise part and two
     rows of 3H in the dot dtype; the loop's elementwise part and, from
-    float ``2*D*B*H`` (16-byte aligned), two bf16 rows."""
+    float ``D*B*H`` (16-byte aligned), two bf16 rows, ``4*D*B*H`` in all:
+    the layout of K5's and K7's ``gru_bwd_mma_scratch_floats``."""
     d, t, bsz = 2, 3, 5
     w = _strided(dtype, (d, h, 3 * h))
     ys = _strided(torch.float32, (d, t, bsz, h))
-    assert gru._bwd_stream_mma(w, ys) is mma
+    assert gru._bwd_mma(w, ys) is mma
     if mma:  # a misaligned w or ys takes the two-phase kernel
-        assert not gru._bwd_stream_mma(_strided(dtype, (d, h, 3 * h), 1), ys)
-        assert not gru._bwd_stream_mma(
+        assert not gru._bwd_mma(_strided(dtype, (d, h, 3 * h), 1), ys)
+        assert not gru._bwd_mma(
             w, _strided(torch.float32, (d, t, bsz, h), 1))
     floats = gru._bwd_stream_scratch_floats(d, bsz, h)
     assert floats == 8 * d * bsz * h
     two_phase = 4 * 2 * d * bsz * h + 2 * d * bsz * 3 * h * (
         2 if dtype == torch.bfloat16 else 4)
-    rows_at = 4 * 2 * d * bsz * h
+    rows_at = 4 * d * bsz * h
     loop = rows_at + 2 * (2 * d * bsz * 3 * h)
+    assert loop == 4 * 4 * d * bsz * h
     assert two_phase <= 4 * floats and loop <= 4 * floats
     assert rows_at % 16 == 0 or h % 8 != 0
 

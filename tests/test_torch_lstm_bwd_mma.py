@@ -177,20 +177,20 @@ def test_loop_order_matches_the_pallas_kernel(reverse, h):
     (torch.float32, 800, False),     # f32: the CUDA-core kernel
 ])
 def test_path_rule_and_scratch(dtype, h, mma):
-    """``_bwd_mma`` repeats ``lstm_bwd_launch``'s rule: bf16, H % 8 == 0,
-    w and ys 16-byte aligned (a view that starts 2 bytes in takes the
-    CUDA-core kernel). The tensor-core path's scratch, dh and dc [D,B,H]
-    f32 and the two bf16 rounded dgates rows [2,D,B,4H], is the 6*D*B*H
-    floats ``lstm_bwd_mma_scratch_floats`` returns, and the bf16 rows
-    start 16-byte aligned."""
+    """``gru._bwd_mma`` repeats ``lstm_bwd_launch``'s rule: bf16,
+    H % 8 == 0, w and ys 16-byte aligned (a view that starts 2 bytes in
+    takes the CUDA-core kernel). The tensor-core path's scratch, dh and
+    dc [D,B,H] f32 and the two bf16 rounded dgates rows [2,D,B,4H], is
+    the 6*D*B*H floats ``lstm_bwd_mma_scratch_floats`` returns, and the
+    bf16 rows start 16-byte aligned."""
     d, bsz = 2, 5
     w = torch.zeros(d, h, 4 * h, dtype=dtype)
     ys = torch.zeros(d, 3, bsz, h)
     assert gru.lstm_bwd_mma(dtype, h) is mma
-    assert lstm._bwd_mma(w, ys) is mma
+    assert gru._bwd_mma(w, ys) is mma
     if mma:
         flat = torch.zeros(w.numel() + 8, dtype=dtype)
-        assert not lstm._bwd_mma(flat[1:1 + w.numel()].view(w.shape), ys)
+        assert not gru._bwd_mma(flat[1:1 + w.numel()].view(w.shape), ys)
         floats = 2 * d * bsz * h + 2 * d * bsz * 4 * h // 2
         assert floats == 6 * d * bsz * h
         assert (2 * d * bsz * h * 4) % 16 == 0
@@ -257,7 +257,7 @@ def test_plan_agrees_with_the_residency_rule_at_every_size():
 def test_residency_follows_the_c_path(dtype, d, h, b, aligned, resident):
     """``lstm_bwd`` decides between K13 and K15 on the layout of the
     kernel its C call will run: a bf16 W that is not 16-byte aligned
-    runs the CUDA-core kernel (``_bwd_mma``), so it is sized as that
+    runs the CUDA-core kernel (``gru._bwd_mma``), so it is sized as that
     kernel's block, which grows with B and holds W's slice as f32, and
     goes to K15 where that block does not fit, even where the
     tensor-core layout would."""
@@ -265,8 +265,8 @@ def test_residency_follows_the_c_path(dtype, d, h, b, aligned, resident):
     w = w[:-8] if aligned else w[1:-7]
     w = w.view(d, h, 4 * h)
     ys = torch.zeros(d, 2, b, h)
-    assert lstm._bwd_mma(w, ys) is (aligned and dtype == torch.bfloat16)
-    assert lstm._bwd_resident(w, ys) is resident
+    assert gru._bwd_mma(w, ys) is (aligned and dtype == torch.bfloat16)
+    assert gru._bwd_resident(w, ys, kind="lstm_bwd") is resident
 
 
 # ---------------------------------------------------------------------------
