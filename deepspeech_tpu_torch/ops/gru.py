@@ -5,7 +5,10 @@ their plain PyTorch versions.
 ``_gru_kernel`` (:85, one direction, with the carried ``h0`` in and the
 final carry out of ``gru_scan_pallas_stream``) at D=1, and
 ``_bigru_kernel`` (:155, both directions of a bidirectional layer in one
-launch) at D=2. The kernel is ``csrc/gru_fwd.cu``.
+launch) at D=2. The kernel is ``csrc/gru_fwd.cu``; in bf16 with H % 8 == 0
+it transposes W once a call and runs its serial loop on ``mma.sync`` with
+each group's rows of W^T in shared memory (``csrc/gru_fwd_mma.cuh``,
+which K8 shares).
 
 ``gru_bwd`` replaces their backward kernels: ``_gru_bwd_kernel`` (:113,
 K7) at D=1 and ``_bigru_bwd_kernel`` (:211, K5) at D=2, the BPTT with
@@ -20,12 +23,14 @@ times one step's latency, far above the FLOP roofline (2*T*D*B*H*3H
 per product over 989 TFLOP/s in bf16) and the byte roofline (the
 inputs and outputs once over 3.35 TB/s). The kernels therefore keep W
 out of device memory for the whole sequence: one cooperative launch per
-layer, D x ceil(H/16) blocks each holding a ``[H, 48]`` column slice of
-W in shared memory, a grid-wide barrier between steps. In bf16 with
-H % 8 == 0 the backward instead recomputes every step's gates first as
-one tensor-core GEMM and runs its serial loop on ``mma.sync``, each
-group's rows of W in shared memory (``csrc/gru_bwd_mma.cuh``, which K9
-shares). See the sources for the layouts.
+layer, a group of hidden units a block, each holding its slice of W in
+shared memory, a grid-wide barrier between steps: on the CUDA cores
+(f32, and bf16 with H % 8 != 0) D x ceil(H/16) blocks with a ``[H, 48]``
+f32 slice each; in bf16 with H % 8 == 0 a serial loop on ``mma.sync``
+with each group's rows of W (W^T for the forward) in bf16, the backward
+after recomputing every step's gates as one tensor-core GEMM
+(``csrc/gru_fwd_mma.cuh``, ``csrc/gru_bwd_mma.cuh``). See the sources
+for the layouts.
 
 Where W does not fit that way (ds2_full's H=1760: a 345 KB slice per
 block, 220 blocks at D=2 on 132 SMs), ``gru_fwd`` and ``gru_bwd`` launch
@@ -93,6 +98,10 @@ _KINDS = ("fwd", "bwd", "fwd_q", "lstm_fwd", "lstm_fwd_q", "lstm_bwd")
 _MMA_WARPS, _MMA_KC = 8, 32
 _MMA_NARROW, _MMA_WIDE = 8, 16
 _MMA_STAGES = {_MMA_NARROW: 6, _MMA_WIDE: 4}
+# The forward's loop with all of W^T resident (csrc/gru_fwd.cu in bf16
+# with H % 8 == 0, on csrc/gru_fwd_mma.cuh) takes the same widths, with
+# these stages of a warp's ring of 16-byte h-row pieces.
+_FWD_MMA_STAGES = {_MMA_NARROW: 4, _MMA_WIDE: 4}
 
 
 def _mma_smem_bytes(gates: int, units: int, h: int) -> int:
@@ -149,6 +158,26 @@ def gru_bwd_mma_smem_bytes(units: int, h: int) -> int:
     return _mma_smem_bytes(3, units, h)
 
 
+# csrc/gru_fwd.cu (K4/K6) runs its tensor-core path by the same rule and
+# its launch takes the same group widths.
+gru_fwd_mma = lstm_bwd_mma
+gru_fwd_mma_width = lstm_bwd_mma_width
+
+
+def gru_fwd_mma_smem_bytes(units: int, h: int) -> int:
+    """Shared memory of one block of ``csrc/gru_fwd.cu``'s tensor-core
+    loop (csrc/gru_fwd_mma.cuh ``Plan`` with ``W_ALL``) for groups of
+    ``units``: the warps' rings (the width's stages of 4 h-row pieces a
+    lane), which the warps' partial sums alias (rows of ``3*units`` f32
+    padded to 8 mod 16), then every 32-deep chunk of the group's
+    ``[3*units, H]`` rows of W^T in bf16."""
+    gcol = 3 * units
+    red_s = gcol + 8 + (8 if (gcol + 8) % 16 == 0 else 0)
+    ring = _MMA_WARPS * _FWD_MMA_STAGES[units] * 4 * 32
+    red = _MMA_WARPS * _ROWS * red_s // 4
+    return 16 * (max(ring, red) + -(-h // _MMA_KC) * (gcol // 8) * 32)
+
+
 def resident_smem_bytes(kind: str, h: int, b: int,
                         dtype: torch.dtype = torch.float32,
                         units: int = _MMA_WIDE) -> int:
@@ -158,7 +187,9 @@ def resident_smem_bytes(kind: str, h: int, b: int,
     dh of the block's units for ``b`` batch rows; in bf16 on
     ``gru_bwd_mma``'s rule the GRU backward runs the tensor-core loop,
     whose block holds its group's ``[units, 3H]`` rows of W in bf16
-    beside the rings, whatever ``b`` (``gru_bwd_mma_smem_bytes``). For
+    beside the rings, whatever ``b`` (``gru_bwd_mma_smem_bytes``), and
+    on ``gru_fwd_mma``'s the forward's holds its group's ``[3*units, H]``
+    rows of W^T (``gru_fwd_mma_smem_bytes``). For
     ``kind="fwd_q"`` (``csrc/gru_fwd_q.cu``) the slice is int8, 16 bytes
     of padding a column, beside the chunk of it widened to f32 and the
     h_prev chunk.
@@ -180,6 +211,8 @@ def resident_smem_bytes(kind: str, h: int, b: int,
         return lstm_bwd_mma_smem_bytes(units, h)
     if kind == "bwd" and gru_bwd_mma(dtype, h):
         return gru_bwd_mma_smem_bytes(units, h)
+    if kind == "fwd" and gru_fwd_mma(dtype, h):
+        return gru_fwd_mma_smem_bytes(units, h)
     h_pad = -(-h // _KC) * _KC
     gc = (4 if kind.startswith("lstm") else 3) * _U  # gate columns
     if kind.endswith("fwd_q"):
@@ -215,11 +248,16 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
     ``_use_blocked`` and ``bigru_fits_vmem`` (rnn_pallas.py:66, :455,
     :709). The resident kernels stage W as f32 (int8 for the ``_q``
     kinds) whatever the dot dtype, so ``dtype`` (bf16 or f32) does not
-    move their answer, except for ``"bwd"`` and ``"lstm_bwd"``: in bf16
-    with H % 8 == 0 (``gru_bwd_mma``, ``lstm_bwd_mma``) their tensor-core
-    loops hold W's rows in bf16, one block an SM for each group of
-    ``gru_bwd_mma_width`` (``lstm_bwd_mma_width``) units, and do not
-    depend on ``b``. ``"bwd"`` fits at ds2_small's and ds2_streaming's
+    move their answer, except for ``"fwd"``, ``"bwd"`` and
+    ``"lstm_bwd"``: in bf16 with H % 8 == 0 (``gru_fwd_mma``,
+    ``gru_bwd_mma``, ``lstm_bwd_mma``) their tensor-core loops hold W's
+    rows (the forward's W^T) in bf16, one block an SM for each group of
+    ``gru_fwd_mma_width`` (``gru_bwd_mma_width``, ``lstm_bwd_mma_width``)
+    units, and do not depend on ``b``. ``"fwd"`` fits at ds2_small's and
+    ds2_streaming's H=800 (f32: 165 KB, 100 or 50 blocks; bf16: 139 KB
+    in 100 groups of 16 units at D=2, 102 KB in 100 groups of 8 at D=1);
+    in bf16 it admits H up to 1056 at D=2 and 1728 at D=1. ``"bwd"``
+    fits at ds2_small's and ds2_streaming's
     H=800 (f32: 176 KB at b=32, 100 or 50 blocks; bf16: 144 KB in 100
     groups of 16 units at D=2, 136 KB in 100 groups of 8 at D=1) and
     misses at ds2_full's H=1760 in both dtypes; in bf16 it admits H up to
@@ -241,6 +279,8 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
         units, most = lstm_bwd_mma_width(d, h, sms), 1
     elif kind == "bwd" and gru_bwd_mma(dtype, h):
         units, most = gru_bwd_mma_width(d, h, sms), 1
+    elif kind == "fwd" and gru_fwd_mma(dtype, h):
+        units, most = gru_fwd_mma_width(d, h, sms), 1
     smem = resident_smem_bytes(kind, h, b, dtype, units)
     if smem > smem_per_block:
         return False
@@ -420,10 +460,15 @@ def gru_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     ``h' = (1-z) n + z h``. The product rounds h_prev to ``w.dtype`` and
     sums in f32; the carry and outputs stay f32.
 
-    A CPU tensor runs ``gru_fwd_plain``. A CUDA tensor launches the
-    resident kernel ``csrc/gru_fwd.cu`` (one launch, counted in
+    A CPU tensor runs ``gru_fwd_plain``. A CUDA tensor calls the
+    resident kernel's C entry point ``csrc/gru_fwd.cu`` once (counted in
     ``gru_fwd.launches``) where ``resident_fits`` says it can hold W,
-    and ``gru_fwd_stream`` otherwise; a refused launch raises.
+    and ``gru_fwd_stream`` otherwise; a refused launch raises. Where
+    ``_fwd_mma`` holds (bf16, H % 8 == 0) that call is two launches,
+    W^T written into the scratch (and ``h0`` rounded into the h row step
+    0 reads), then the serial ``mma.sync`` loop with each group's rows of
+    W^T held in shared memory (``csrc/gru_fwd_mma.cuh``); f32 and other
+    bf16 calls run the CUDA-core kernel.
     """
     reverse = tuple(bool(r) for r in reverse)
     _check(xp, mask, w, b, h0, reverse)
@@ -435,7 +480,8 @@ def gru_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
         return gru_fwd_stream(xp, mask, w, b, h0, reverse)
     ys, hfin = _fwd_outputs(xp, w, h0)
     if ys.numel():
-        _launch("gru_fwd", xp, mask, w, (b, h0, ys, hfin), reverse)
+        _launch("gru_fwd", xp, mask, w,
+                (b, h0, ys, hfin, _fwd_scratch(xp, w)), reverse)
         gru_fwd.launches += 1
     return ys, hfin
 
@@ -455,21 +501,24 @@ def _fwd_outputs(xp, w, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     return ys, hfin
 
 
-def _fwd_stream_mma(w: torch.Tensor) -> bool:
-    """Whether ``gru_fwd_stream``'s C call runs its tensor-core path:
-    bf16 with H a multiple of 8 (a 16-byte piece of a row holds 8
-    values), the rule ``gru_fwd_stream_launch`` applies before any
-    launch (it also needs the scratch 16-byte aligned, which
-    ``torch.empty`` is). Else the CUDA-core kernel runs."""
-    return w.dtype == torch.bfloat16 and w.shape[1] % 8 == 0
+def _fwd_mma(w: torch.Tensor) -> bool:
+    """Whether the C call of ``gru_fwd`` or ``gru_fwd_stream`` runs its
+    tensor-core path (csrc/gru_fwd_mma.cuh's transpose and loop):
+    ``gru_fwd_mma`` (bf16 with H a multiple of 8: a 16-byte piece of a
+    row holds 8 values), the rule ``gru_fwd_launch`` and
+    ``gru_fwd_stream_launch`` apply before any launch (they also need
+    the scratch 16-byte aligned, which ``torch.empty`` is). Else the
+    CUDA-core kernel runs."""
+    return gru_fwd_mma(w.dtype, w.shape[1])
 
 
-def _fwd_stream_scratch(xp, w) -> torch.Tensor:
-    """``gru_fwd_stream``'s scratch, f32: on the tensor-core path the
-    rounded h rows ``[2,D,B,H]`` and ``Wt = W^T [D,3H,H]``, both in bf16
-    (``D*B*H + 3*D*H*H/2`` floats); none for the CUDA-core kernel."""
+def _fwd_scratch(xp, w) -> torch.Tensor:
+    """The scratch of both forward kernels' C calls, f32: on the
+    tensor-core path the rounded h rows ``[2,D,B,H]`` and ``Wt = W^T
+    [D,3H,H]``, both in bf16 (``D*B*H + 3*D*H*H/2`` floats); none for
+    the CUDA-core kernels."""
     d, bsz, h = w.shape[0], xp.shape[1], w.shape[1]
-    floats = d * bsz * h + 3 * d * h * h // 2 if _fwd_stream_mma(w) else 0
+    floats = d * bsz * h + 3 * d * h * h // 2 if _fwd_mma(w) else 0
     return torch.empty((floats,), dtype=torch.float32, device=xp.device)
 
 
@@ -479,7 +528,7 @@ def gru_fwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``gru_fwd`` through the streamed kernel ``csrc/gru_fwd_stream.cu``
     (K8), whatever the sizes: W stays in global memory and crosses L2
-    once a step. Where ``_fwd_stream_mma`` holds (bf16, H % 8 == 0) the
+    once a step. Where ``_fwd_mma`` holds (bf16, H % 8 == 0) the
     C call transposes W into the scratch (and rounds ``h0`` into the h
     row step 0 reads) and runs the serial loop on the tensor cores, two
     launches, with part of W^T held in shared memory for the call; else
@@ -495,7 +544,7 @@ def gru_fwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     ys, hfin = _fwd_outputs(xp, w, h0)
     if ys.numel():
         _launch("gru_fwd_stream", xp, mask, w,
-                (b, h0, ys, hfin, _fwd_stream_scratch(xp, w)), reverse)
+                (b, h0, ys, hfin, _fwd_scratch(xp, w)), reverse)
         gru_fwd_stream.launches += 1
     return ys, hfin
 

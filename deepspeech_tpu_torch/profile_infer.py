@@ -30,8 +30,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-_PORT_KERNELS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_fwd_stream_kernel",
-                 "gru_fwd_stream_transpose_kernel", "gru_fwd_stream_mma_kernel",
+_PORT_KERNELS = ("gru_fwd_kernel", "gru_fwd_transpose_kernel",
+                 "gru_fwd_mma_kernel", "gru_bwd_kernel",
+                 "gru_fwd_stream_kernel", "gru_fwd_stream_transpose_kernel",
+                 "gru_fwd_stream_mma_kernel",
                  "gru_bwd_gates_kernel", "gru_bwd_mma_kernel",
                  "gru_bwd_stream_kernel", "gru_bwd_stream_gates_kernel",
                  "gru_bwd_stream_mma_kernel", "gru_fwd_q_kernel",

@@ -101,12 +101,17 @@ def test_presets_take_their_kernels(preset, resident):
 def test_residency_rule_reads_the_card():
     """The card's limits are parameters: a card with half the SMs cannot
     hold ds2_small's 100 blocks; one with less shared memory per block
-    cannot hold its 169 KB slice; the backward's carried dh grows with
-    the batch until the slice no longer fits."""
+    cannot hold the f32 kernel's 169 KB slice (f32 stages W as f32), nor,
+    below 139 KB, the bf16 tensor-core loop's block of W^T rows; the
+    backward's carried dh grows with the batch until the slice no longer
+    fits."""
     args = ("fwd", 2, 800, 32, torch.bfloat16)
     assert gru.resident_fits(*args)
     assert not gru.resident_fits(*args, sms=66)
-    assert not gru.resident_fits(*args, smem_per_block=160 * 1024)
+    assert not gru.resident_fits("fwd", 2, 800, 32, torch.float32,
+                                 smem_per_block=160 * 1024)
+    assert gru.resident_fits(*args, smem_per_block=160 * 1024)
+    assert not gru.resident_fits(*args, smem_per_block=128 * 1024)
     smem = gru.resident_smem_bytes("fwd", 800, 32)
     assert smem == 4 * (48 * (832 + 4) + 32 * 68)
     assert gru.resident_smem_bytes("bwd", 800, 64) > \
@@ -394,8 +399,8 @@ def test_k8_path_rule_and_scratch(dtype, h, mma):
     d, t, bsz = 2, 3, 5
     xp = torch.zeros(t, bsz, 3 * h, dtype=dtype)
     w = torch.zeros(d, h, 3 * h, dtype=dtype)
-    assert gru._fwd_stream_mma(w) is mma
-    scratch = gru._fwd_stream_scratch(xp, w)
+    assert gru._fwd_mma(w) is mma
+    scratch = gru._fwd_scratch(xp, w)
     assert scratch.dtype == torch.float32
     rows, wt = 2 * (2 * d * bsz * h), 2 * (d * 3 * h * h)
     assert scratch.numel() * 4 == (rows + wt if mma else 0)
@@ -409,11 +414,14 @@ def _k8_loop_gates(w, b):
     MKC-deep chunks, warp kw summing chunks kw, kw + NW_K, ... in turn,
     the warps' partial sums added in warp order, then the bias (b_n
     too, before r multiplies the n column in ``_fwd_plain_loop``). The
-    constants are the source's own."""
+    constants are the source's own (the chunk depth and the warps those
+    of csrc/gru_fwd_mma.cuh, whose loop the source instances)."""
     with open(os.path.join(_build.CSRC_DIR, "gru_fwd_stream.cu")) as f:
         text = f.read()
-    mkc = k17_variants.built_value(text, "MKC")
-    nw_k = (k17_variants.built_value(text, "M_WARPS")
+    with open(os.path.join(_build.CSRC_DIR, "gru_fwd_mma.cuh")) as f:
+        head = f.read()
+    mkc = k17_variants.built_value(head, "MKC")
+    nw_k = (k17_variants.built_value(head, "M_WARPS")
             // k17_variants.built_value(text, "NW_N"))
     h = w.shape[1]
     w32 = w.float()

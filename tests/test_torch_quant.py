@@ -193,7 +193,8 @@ def test_ladder_errors_and_tiers_match_jax():
     (1760, 2, 2, True),    # ds2_full bf16: streamed on both
     (1760, 1, 2, True),    # ds2_full int8: resident on both
     (1888, 1, 2, False),   # int8 past the TPU's 1-byte budget, fits here
-    (1280, 2, 1, False),   # bf16 inside the TPU budget, over 227 KB here
+    (1280, 2, 2, False),   # bf16 inside the TPU budget, 160 groups here
+    (1536, 2, 1, False),   # bf16 past the TPU budget, 96 groups fit here
 ])
 def test_recurrent_stream_bytes_follows_the_hopper_rule(h, wb, d, same):
     """0 where the port's resident kernel holds the matrices, the stored
