@@ -43,10 +43,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      tensor-core loop, else the CUDA-core kernel) (library: cuDNN's GRU in
      bf16 on the dequantized W);
    - ``lstm_fwd`` (W resident) at H=800, D=2 and D=1, with and without
-     its cell-state tape; ``lstm_fwd_stream`` (W streamed) at ds2_full's
-     H=1760, D=2, with and without the tape, and at T=37 with B=45 and
-     B=8, at H=104 and at H=2176 (more groups than SMs), each check
-     naming the device kernels that ran
+     its cell-state tape, and at T=37 with B=45 at both D, with B=8, at
+     H=104, at D=2 H=808 (a partial group of 16) and H=1056 and at D=1
+     H=1216 (the widest the rule admits at each D), and at H=804 and
+     H=100 (off its H % 8 rule), each check naming the device kernels
+     that ran (in bf16 with H % 8 == 0 the transpose of W and the
+     tensor-core loop, else the CUDA-core kernel); ``lstm_fwd_stream``
+     (W streamed) at ds2_full's H=1760, D=2, with and without the tape,
+     and at T=37 with B=45 and B=8, at H=104 and at H=2176 (more groups
+     than SMs), each check naming the device kernels that ran
      (in bf16 the transpose of W and the tensor-core loop);
      ``lstm_fwd_q`` (int8 W resident) at H=800, D=2 and
      ``lstm_fwd_q_stream`` (int8 W streamed) at H=1760, D=2, and at
@@ -158,6 +163,14 @@ GRU_BWD_TOL = {torch.bfloat16: 2e-3, torch.float32: TOL[torch.float32]}
 # 1.19 there (deepspeech_tpu_torch/k4_variants.py --ablate requires them
 # to miss this limit).
 GRU_FWD_TOL = {torch.bfloat16: 1e-2, torch.float32: TOL[torch.float32]}
+# The resident LSTM forward (lstm_fwd: K12 at D=2 and D=1) in bf16, max
+# |kernel - plain| of ys and the cs tape: on an H100 the tensor-core loop
+# reads 2.8e-4 to 1.4e-3 at every case of its phase in two runs, with
+# max |plain| of ys 0.96 (D=2) and 0.94 (D=1) at T'=850, B=32, H=800;
+# with its product taken out, or all but one of a warp's chunks of it, it
+# reads 0.97 to 2.2 there (deepspeech_tpu_torch/k12_variants.py --ablate
+# requires them to miss this limit).
+LSTM_FWD_TOL = {torch.bfloat16: 1e-2, torch.float32: TOL[torch.float32]}
 # End to end, bf16: ||rnn - rnn_plain|| / ||rnn_plain|| over valid frames
 # of the RNN stack's output. On an H100 the kernel reads 1.6e-3
 # (ds2_small) and 2.8e-3 (ds2_streaming); a zeroed GRU reads 1, and a
@@ -559,6 +572,16 @@ def _k14_kernels(dtype: torch.dtype, h: int) -> set:
     return {"lstm_fwd_stream_kernel"}
 
 
+def _k12_kernels(dtype: torch.dtype, h: int) -> set:
+    """The device kernels one ``lstm_fwd`` call launches on the resident
+    kernel's C entry point: in bf16 with H a multiple of 8 the transpose
+    of W and the tensor-core loop with all of W^T resident (at either
+    group width), else the CUDA-core kernel (csrc/lstm_fwd.cu)."""
+    if dtype == torch.bfloat16 and h % 8 == 0:
+        return {"lstm_fwd_transpose_kernel", "lstm_fwd_mma_kernel"}
+    return {"lstm_fwd_kernel"}
+
+
 def _k17_kernels(dtype: torch.dtype, h: int) -> set:
     """The device kernels one ``lstm_fwd_q_stream`` call launches: with
     bf16 dots and H a multiple of 8 the transpose of Q and the
@@ -637,6 +660,7 @@ _STREAM_KERNELS = {"gru_fwd": _k4_kernels,
                    "gru_fwd_stream": _k8_kernels,
                    "gru_fwd_q": _k10_kernels,
                    "gru_fwd_q_stream": _k11_kernels,
+                   "lstm_fwd": _k12_kernels,
                    "lstm_fwd_stream": _k14_kernels,
                    "lstm_fwd_q_stream": _k17_kernels,
                    "lstm_bwd": _k13_kernels,
@@ -651,8 +675,11 @@ def lstm_kernel_phase(gen, kernel: str, h: int, timed):
     bf16 and f32, with and without the cell-state tape (the fp kernels),
     and at one ragged shape off the tiles (``lstm_fwd_stream`` and
     ``lstm_fwd_q_stream`` also at width ``h``); two runs must give the
-    same bits, the tape included. Each check names the device kernels
-    that ran (the streamed kernels: the ones their dtype and H select).
+    same bits, the tape included; ``lstm_fwd`` also at full width off
+    the tiles, at H=104, at its rule's widths (D=2 H=808, a partial group
+    of 16, and 1056; D=1 H=1216) and at H=804 (off its H % 8 rule),
+    within ``LSTM_FWD_TOL``. Each check names the device kernels that ran
+    (all but ``lstm_fwd_q``: the ones their dtype and H select).
     Then time it for each ``(d, replaces)`` of ``timed`` without the
     tape, as serving calls it, beside its bound, its plain version and
     cuDNN's LSTM."""
@@ -670,6 +697,23 @@ def lstm_kernel_phase(gen, kernel: str, h: int, timed):
              for tape in tapes]
     cases.append((f"D2_bf16_ragged{'' if quantized else '_tape'}", 2,
                   bf16, not quantized, (37, 45, 100)))
+    if kernel == "lstm_fwd":
+        # On the tensor-core loop with all of W^T resident: at full width
+        # with B above the 32 rows of a pass, at both D; B=8 in a partly
+        # filled m16 tile; H=104, a partial last 32-deep chunk; at D=2
+        # H=808, 51 groups of 16 a direction, the last half full, and
+        # H=1056, 132 groups of 16; at D=1 H=1216, 76 groups of 16 (224 KB
+        # a block), the widest the rule admits. H=804 and H=100 (above):
+        # bf16 with H % 8 != 0, and f32, run the CUDA-core kernel.
+        cases += [("D2_bf16_ragged_full_tape", 2, bf16, True, (37, 45, h)),
+                  ("D1_bf16_ragged_full_tape", 1, bf16, True, (37, 45, h)),
+                  ("D1_bf16_ragged_full", 1, bf16, False, (37, 45, h)),
+                  ("D2_bf16_b8_full", 2, bf16, False, (37, 8, h)),
+                  ("D2_bf16_h104_tape", 2, bf16, True, (37, 45, 104)),
+                  ("D2_bf16_h808_tape", 2, bf16, True, (37, 45, 808)),
+                  ("D2_bf16_h1056_tape", 2, bf16, True, (37, 8, 1056)),
+                  ("D1_bf16_h1216_tape", 1, bf16, True, (37, 8, 1216)),
+                  ("D2_bf16_h804_tape", 2, bf16, True, (37, 45, 804))]
     if kernel == "lstm_fwd_stream":
         # At full width: B above the 32 rows of a pass, and B=8 in a
         # partly filled m16 tile; H=104, a multiple of 8 but not of the
@@ -695,16 +739,19 @@ def lstm_kernel_phase(gen, kernel: str, h: int, timed):
                   ("D2_bf16_h104", 2, bf16, False, (37, 45, 104)),
                   ("D2_bf16_h108", 2, bf16, False, (37, 45, 108)),
                   ("D2_bf16_h2176", 2, bf16, False, (37, 8, 2176))]
+    tols = LSTM_FWD_TOL if kernel == "lstm_fwd" else TOL
     _zero_counts()
     checks, calls = {}, 0
     for name, d, dtype, tape, shape in cases:
         args, _ = _lstm_inputs(d, dtype, gen, *shape, quantized=quantized)
         kw = {"tape": True} if tape else {}
+        want = (_STREAM_KERNELS[kernel](dtype, shape[2])
+                if kernel in _STREAM_KERNELS else set())
         outs, ran, runs = _device_kernels(
-            lambda: [fn(*args, **kw) for _ in range(2)])
+            lambda: [fn(*args, **kw) for _ in range(2)],
+            want=frozenset(want))
         calls += 2 * runs
         if kernel in _STREAM_KERNELS:
-            want = _STREAM_KERNELS[kernel](dtype, shape[2])
             _require(set(ran) == want, f"{kernel} {name}: ran {sorted(ran)}, "
                      f"want {sorted(want)}")
         ref = plain(*args, **kw)
@@ -712,15 +759,15 @@ def lstm_kernel_phase(gen, kernel: str, h: int, timed):
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         _require(all(bool(torch.isfinite(g).all()) for g in got),
                  f"{kernel} {name}: non-finite output")
-        _require(err <= TOL[dtype],
+        _require(err <= tols[dtype],
                  f"{kernel} {name}: max |kernel - plain| {err} > "
-                 f"{TOL[dtype]}")
+                 f"{tols[dtype]}")
         _require(all(torch.equal(g, a) for g, a in zip(got, again)),
                  f"{kernel} {name}: two runs on one input differ")
-        checks[name] = {"max_abs_err": err, "tol": TOL[dtype],
+        checks[name] = {"max_abs_err": err, "tol": tols[dtype],
                         "bit_identical": True, "kernels": sorted(ran)}
         print(json.dumps({"check": f"{kernel} {name}", "max_abs_err": err,
-                          "tol": TOL[dtype], "bit_identical": True,
+                          "tol": tols[dtype], "bit_identical": True,
                           "kernels": sorted(ran)}), flush=True)
     _require_only(kernel, calls)
 

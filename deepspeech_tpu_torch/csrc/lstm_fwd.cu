@@ -1,9 +1,9 @@
 // LSTM forward recurrence for Hopper (sm_90a) with W held in shared memory:
-// one launch runs the whole time loop of D directions.
+// one C call runs the whole time loop of D directions.
 //
 // Replaces the TPU kernel _lstm_kernel (deepspeech_tpu/ops/lstm_pallas.py:89,
 // K12, via _lstm_pallas_raw :223 / lstm_scan_pallas :281), one direction a
-// launch there; here D=1 or D=2 in one launch. The contract is
+// launch there; here D=1 or D=2 in one C call. The contract is
 // ops/lstm.py lstm_fwd's docstring:
 //   xp [T,B,4H] and w [D,H,4H] in one dtype, bf16|f32 (the dot dtype; xp
 //   includes the input bias), mask [T,B] f32, bias [D,4H] f32, reverse bit
@@ -18,27 +18,63 @@
 // What bounds it: each step is a [B,H] x [H,4H] product that depends on the
 // step before, so the T steps run in order and the time is T times the
 // latency of one step, far above both the FLOP and the byte roofline of the
-// whole call. The design is csrc/gru_fwd.cu's with four gates: the grid is
-// D x ceil(H/U) blocks, each owning U hidden units of one direction (gate
-// columns j, H+j, 2H+j, 3H+j), so the whole cell update of a unit happens
-// in its block and c never leaves it: c sits in shared memory beside the
-// block's [H, 4U] slice of W (f32, held from the first step to the last),
-// one value per batch row and unit, read and written by the one thread
-// that owns that row and unit. Only h crosses blocks, through the ys row
-// the grid wrote the step before (read through L2). A step stages h_prev
-// in KC-column chunks rounded to the dot dtype (the next chunk's loads in
-// flight while the current one is multiplied), forms [B, 4U] gates with f32
-// FMAs, applies the update and the mask, and writes its [B, U] slice of the
-// ys row (and of the tape). A grid-wide barrier (cooperative launch, every
-// block resident) separates the steps. At H=800 a block takes 220 KB of
-// shared memory (one an SM; 100 blocks at D=2); ops/gru.py
-// resident_smem_bytes("lstm_fwd") repeats the layout. CUDA cores, no tensor
-// cores: simple first, faster later.
+// whole call. The design keeps W out of device memory for the whole
+// sequence: each group of hidden units of one direction holds its slice of
+// W in shared memory from the first step to the last, one group a block,
+// all blocks resident at once (cooperative launch), a grid-wide barrier
+// between the steps. The whole cell update of a unit happens in its block,
+// so only h crosses blocks; c is read and written by the one thread that
+// owns its row and unit.
+//
+// bf16 path (the main path: ds2_small-lstm at D=2, ds2_streaming-lstm at
+// D=1, both H=800) where H % 8 == 0 and the scratch is 16-byte aligned:
+// two launches from one C call, both from csrc/lstm_fwd_mma.cuh (K14 runs
+// the same two with W^T partly streamed):
+//  1. lstm_fwd_transpose_kernel writes W^T [D,4H,H] bf16 into the scratch
+//     once a call (5.12 MB a direction at H=800).
+//  2. lstm_fwd_mma_kernel<MU, MS>, the serial loop with all of W^T
+//     resident: a cooperative grid of D x ceil(H/MU) groups of MU hidden
+//     units, one group a block and one block an SM. A group copies its
+//     [4*MU, H] rows of W^T (102 KB at MU=16, H=800) into shared memory
+//     once a call; a step forms its [B, 4*MU] gate sums
+//     round(h_prev) @ W[:, own columns] on mma.sync, bf16 operands and
+//     f32 sums, one warp taking all 4*MU columns and the 8 warps every
+//     8th 32-deep chunk of the H-deep product (3-4 chunks at H=800),
+//     their partial sums added in warp order, while each lane streams its
+//     16-byte pieces of the [B, H] bf16 h row (51 KB at B=32; double-
+//     buffered by step parity) through its warp's MS-stage ring. Then the
+//     LSTM update and the mask, c from and back to the scratch, ys, the
+//     tape and the next step's bf16 row. The launch takes MU=MU_NARROW
+//     units with MS_NARROW stages where D x ceil(H/MU_NARROW) groups fit
+//     one an SM (D=1 at H=800: 100 groups, 51 KB of W^T each), else
+//     MU_WIDE with MS_WIDE (D=2: 100 groups): deepspeech_tpu_torch/
+//     k12_variants.py times the widths and the depths beside the
+//     parent's kernel.
+//
+// f32 path (not the main path; model.dtype=float32) and every other bf16
+// call: lstm_fwd_kernel, everything on the CUDA cores with f32 FMAs, no
+// scratch. The grid is D x ceil(H/U) blocks, each owning U hidden units of
+// one direction (gate columns j, H+j, 2H+j, 3H+j): c sits in shared memory
+// beside the block's [H, 4U] slice of W (f32, held from the first step to
+// the last), one value per batch row and unit. Only h crosses blocks,
+// through the ys row the grid wrote the step before (read through L2). A
+// step stages h_prev in KC-column chunks rounded to the dot dtype (the
+// next chunk's loads in flight while the current one is multiplied), forms
+// [B, 4U] gates with f32 FMAs, applies the update and the mask, and writes
+// its [B, U] slice of the ys row (and of the tape). At H=800 a block takes
+// 220 KB of shared memory (one an SM; 100 blocks at D=2); ops/gru.py
+// resident_smem_bytes("lstm_fwd") repeats the layout.
+//
+// The choice between the two is made before any launch, from the dtype,
+// H and the scratch's alignment (lstm_fwd_launch); ops/lstm.py's _fwd_mma
+// repeats it.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lstm_fwd_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -227,18 +263,13 @@ cudaError_t launch(const void* xp, const float* mask, const void* w,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  int coop = 0, sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  const int groups = D * ((H + U - 1) / U);
+  int blocks = 0;
+  err = lstm_fwd_mma::coop_blocks(reinterpret_cast<const void*>(kernel),
+                                  THREADS, smem, groups, device, &blocks);
   if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = D * ((H + U - 1) / U);
   // grid.sync() needs every block resident at once.
-  if (per_sm * sms < blocks) return cudaErrorCooperativeLaunchTooLarge;
+  if (blocks < groups) return cudaErrorCooperativeLaunchTooLarge;
   const WT* xp_t = static_cast<const WT*>(xp);
   const WT* w_t = static_cast<const WT*>(w);
   void* args[] = {&xp_t, &mask, &w_t, &bias, &ys, &cs,
@@ -250,28 +281,92 @@ cudaError_t launch(const void* xp, const float* mask, const void* w,
   return cudaGetLastError();
 }
 
+// ---- bf16 path: csrc/lstm_fwd_mma.cuh's transpose and serial loop, all
+// of W^T resident ----
+
+// The group widths and the stages of a warp's ring of h-row pieces:
+// MU_NARROW units and MS_NARROW stages where D x ceil(H/MU_NARROW) groups
+// fit one an SM, else MU_WIDE and MS_WIDE.
+constexpr int MU_NARROW = 8;
+constexpr int MS_NARROW = 4;
+constexpr int MU_WIDE = 16;
+constexpr int MS_WIDE = 4;
+
+__global__ void __launch_bounds__(lstm_fwd_mma::TT * 8)
+lstm_fwd_transpose_kernel(const unsigned short* __restrict__ w,
+                          unsigned short* __restrict__ wt, int H) {
+  lstm_fwd_mma::transpose(w, wt, H);
+}
+
+template <int MU, int MS>
+__global__ void __launch_bounds__(lstm_fwd_mma::M_THREADS, 1)
+lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ xp,
+                    const float* __restrict__ mask,
+                    const float* __restrict__ bias, float* ys, float* cs,
+                    float* scratch, int D, int T, int B, int H,
+                    int reverse_bits) {
+  lstm_fwd_mma::loop<MU, MS, lstm_fwd_mma::W_ALL>(
+      xp, mask, bias, ys, cs, scratch, D, T, B, H, reverse_bits);
+}
+
+template <int MU, int MS>
+size_t loop_smem(int H) {
+  return lstm_fwd_mma::Plan<MU, MS, lstm_fwd_mma::W_ALL>::smem(H);
+}
+
+// The two launches at the width the card's SM count gives.
+cudaError_t launch_mma(const void* xp, const float* mask, const void* w,
+                       const float* bias, float* ys, float* cs,
+                       float* scratch, int D, int T, int B, int H,
+                       int reverse_bits, int device, cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const bool narrow = D * ((H + MU_NARROW - 1) / MU_NARROW) <= sms;
+  return lstm_fwd_mma::launch(
+      lstm_fwd_transpose_kernel,
+      narrow ? lstm_fwd_mma_kernel<MU_NARROW, MS_NARROW>
+             : lstm_fwd_mma_kernel<MU_WIDE, MS_WIDE>,
+      narrow ? MU_NARROW : MU_WIDE,
+      narrow ? loop_smem<MU_NARROW, MS_NARROW>(H)
+             : loop_smem<MU_WIDE, MS_WIDE>(H),
+      true, xp, mask, w, bias, ys, cs, scratch, D, T, B, H, reverse_bits,
+      device, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns 0 or a cudaError_t; the launch is asynchronous on `stream`.
+// Returns 0 or a cudaError_t; the launches are asynchronous on `stream`.
 // xp and w are bf16 when `bf16` is set, f32 otherwise; cs may be NULL (no
-// tape). The calling thread's current device is the same after the call as
-// before it.
+// tape). A bf16 call with H % 8 == 0 and a non-NULL, 16-byte aligned
+// scratch runs the tensor-core path (two launches); its scratch holds
+// 2*D*B*H + 2*D*H*H floats (c in f32, then the two rounded h rows and
+// W^T, both bf16). Any other call runs the CUDA-core kernel, which reads
+// no scratch (it may be NULL). The calling thread's current device is the
+// same after the call as before it.
 int lstm_fwd_launch(int bf16, const void* xp, const float* mask,
                     const void* w, const float* bias, float* ys, float* cs,
-                    int D, int T, int B, int H, int reverse_bits, int device,
-                    void* stream) {
+                    float* scratch, int D, int T, int B, int H,
+                    int reverse_bits, int device, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = bf16 ? launch<__nv_bfloat16>(xp, mask, w, bias, ys, cs, D, T, B, H,
-                                     reverse_bits, device, st)
-             : launch<float>(xp, mask, w, bias, ys, cs, D, T, B, H,
-                             reverse_bits, device, st);
+  if (bf16 && H % 8 == 0 && scratch != nullptr &&
+      lstm_fwd_mma::aligned16(scratch))
+    err = launch_mma(xp, mask, w, bias, ys, cs, scratch, D, T, B, H,
+                     reverse_bits, device, st);
+  else if (bf16)
+    err = launch<__nv_bfloat16>(xp, mask, w, bias, ys, cs, D, T, B, H,
+                                reverse_bits, device, st);
+  else
+    err = launch<float>(xp, mask, w, bias, ys, cs, D, T, B, H,
+                        reverse_bits, device, st);
   const cudaError_t restore = cudaSetDevice(prev);
   return err != cudaSuccess ? err : restore;
 }

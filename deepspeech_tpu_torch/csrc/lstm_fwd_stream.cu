@@ -27,13 +27,14 @@
 // waits at one grid barrier.
 //
 // bf16 path (the main path; H % 8 == 0 and a 16-byte aligned scratch),
-// two launches from one C call:
+// two launches from one C call, both from csrc/lstm_fwd_mma.cuh (K12,
+// csrc/lstm_fwd.cu, runs the same two with all of W^T resident):
 //  1. lstm_fwd_stream_transpose_kernel writes Wt [D,4H,H] bf16 = W^T into
 //     the scratch, once a call (49.6 MB each way at ds2_full). The
 //     product's depth k runs down W's columns, so a 16-byte piece of a W
 //     row holds 8 consecutive n; a piece of a Wt row holds 8 consecutive
 //     k, which is what the loop's fragments take as they lie.
-//  2. lstm_fwd_stream_mma_kernel, the serial loop: a cooperative,
+//  2. lstm_fwd_stream_mma_kernel, the header's serial loop: a cooperative,
 //     persistent grid over D x ceil(H/32) groups of U=32 hidden units (gate
 //     columns j, H+j, 2H+j, 3H+j: 128 rows of Wt), one group a block and
 //     one block an SM (110 groups at ds2_full), one grid barrier a step.
@@ -89,12 +90,14 @@
 //
 // The choice between the two is made before any launch, from the dtype,
 // H and the scratch's alignment (lstm_fwd_stream_launch); ops/lstm.py's
-// _fwd_stream_mma repeats it to size the scratch.
+// _fwd_mma repeats it to size the scratch.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lstm_fwd_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -298,323 +301,40 @@ lstm_fwd_stream_kernel(const WT* __restrict__ xp,
   }
 }
 
-// ---- bf16 path: W transposed once, then the serial loop on the tensor cores ----
+// ---- bf16 path: csrc/lstm_fwd_mma.cuh's transpose and serial loop, part
+// of W^T resident ----
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// Groups of MU units, the stages of a warp's ring, the warps over the
+// group's 128 gate columns (2: two gates' 64 columns a warp, eight n8
+// tiles; the other 4 split the depth H), and the chunks of W^T a warp
+// holds for the call. A warp's first W_RES chunks of Wt (4 of 13 or 14
+// at H=1760: 29% of the group's slice, 128 KB beside the rings' 96 KB)
+// are copied into shared memory once and stay there for the whole call,
+// when a block has one group; the rest streams every step.
+// deepspeech_tpu_torch/k14_variants.py times this choice beside the
+// others tried.
+constexpr int MU = 32;
+constexpr int MS = 2;
+constexpr int NW_N = 2;
+constexpr int W_RES = 4;
+using Plan = lstm_fwd_mma::Plan<MU, MS, W_RES, NW_N>;
+// With a count of held chunks a block's bytes do not depend on H.
+static_assert(Plan::smem(0) <= 232448, "over the shared memory of a block");
 
-// 16 bytes from global to shared memory through L2 only (.cg); with `ok`
-// false, 16 zero bytes and nothing read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// c += a @ b on one m16n8k16 tile: bf16 operands, f32 sums.
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-constexpr int TT = 32;  // transpose tile
-
-// wt[d][n][k] = w[d][k][n] for n < 4H, k < H (bf16 bits).
-// grid = (ceil(4H/TT), ceil(H/TT), D), block = (TT, 8).
-__global__ void __launch_bounds__(TT * 8)
+__global__ void __launch_bounds__(lstm_fwd_mma::TT * 8)
 lstm_fwd_stream_transpose_kernel(const unsigned short* __restrict__ w,
                                  unsigned short* __restrict__ wt, int H) {
-  __shared__ unsigned short tile[TT][TT + 1];
-  const size_t N = 4 * size_t(H);
-  const int n0 = blockIdx.x * TT, k0 = blockIdx.y * TT;
-  const unsigned short* src = w + size_t(blockIdx.z) * H * N;
-  unsigned short* dst = wt + size_t(blockIdx.z) * N * H;
-  for (int r = threadIdx.y; r < TT; r += 8) {
-    const int k = k0 + r, n = n0 + threadIdx.x;
-    if (k < H && n < N) tile[r][threadIdx.x] = src[size_t(k) * N + n];
-  }
-  __syncthreads();
-  for (int r = threadIdx.y; r < TT; r += 8) {
-    const int n = n0 + r, k = k0 + threadIdx.x;
-    if (n < N && k < H) dst[size_t(n) * H + k] = tile[threadIdx.x][r];
-  }
+  lstm_fwd_mma::transpose(w, wt, H);
 }
 
-// Serial loop.
-constexpr int MU = 32;                  // hidden units per group
-constexpr int GCOL = 4 * MU;            // a group's gate columns: Wt rows
-constexpr int M_WARPS = 8;
-constexpr int M_THREADS = 32 * M_WARPS;
-constexpr int MROWS = 32;               // batch rows per pass: two m16 tiles
-constexpr int QROWS = MROWS / M_WARPS;  // rows per thread, elementwise step
-constexpr int MKC = 32;                 // depth of a chunk: two k16 steps
-constexpr int MS = 2;                   // cp.async stages of a warp's ring
-constexpr int NW_N = 2;                 // warps over the group's columns
-constexpr int NW_K = M_WARPS / NW_N;    // warps over the depth H
-constexpr int NCOL = GCOL / NW_N;       // a warp's columns
-constexpr int NT = NCOL / 8;            // its n8 tiles
-constexpr int PIECES = 4 + NT;          // a lane's 16-byte pieces a chunk:
-                                        // 4 of the h row, NT of Wt
-constexpr int RING = MS * PIECES * 32;  // uint4 of a warp's ring
-// A warp's first W_RES chunks of Wt (4 of 13 or 14 at H=1760: 29% of the
-// group's slice, 128 KB beside the rings' 96 KB) are copied into shared
-// memory once and stay there for the whole call, when a block has one
-// group; the rest streams every step. deepspeech_tpu_torch/k14_variants.py
-// times this choice beside the others tried.
-constexpr int W_RES = 4;
-constexpr int RES = W_RES * NT * 32;    // uint4 of a warp's resident chunks
-constexpr int RED_S = GCOL + 8;         // partial-sum row stride, floats
-// The warps' partial sums alias the rings, which are drained by then.
-constexpr size_t MMA_SMEM = sizeof(uint4) * (RING + RES) * M_WARPS;
-static_assert(sizeof(float) * NW_K * MROWS * RED_S <=
-                  sizeof(uint4) * RING * M_WARPS,
-              "partial sums must fit the rings");
-
-// A lane of the warp that takes columns wn*NCOL.. and chunks kw,
-// kw + NW_K, ... stages its NT 16-byte pieces of Wt's rows for its chunk
-// `it` at `dst` (NT x 32 uint4): the row (gate c / MU, unit j0 + c % MU)
-// of column c = wn*NCOL + 8*nt + lane/4, 8 consecutive k each.
-__device__ __forceinline__ void stage_w(uint4* dst, int it, int kw, int wn,
-                                        int lane, int j0, int H,
-                                        const __nv_bfloat16* wt_d) {
-  const int k = (kw + it * NW_K) * MKC + (lane % 4) * 8;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = wn * NCOL + nt * 8 + lane / 4;
-    const int u = j0 + c % MU;
-    const bool ok = k < H && u < H;  // H % 8 == 0: 8 k or none
-    cp_async16(dst + nt * 32 + lane,
-               ok ? wt_d + (size_t(c / MU) * H + u) * H + k : wt_d, ok);
-  }
-}
-
-// Needs H % 8 == 0 and a 16-byte aligned scratch: c [D,B,H] f32, then the
-// rounded h rows [2][D][B][H] bf16, then Wt [D][4H][H] bf16 as
-// lstm_fwd_stream_transpose_kernel wrote it.
-__global__ void __launch_bounds__(M_THREADS, 1)
+__global__ void __launch_bounds__(lstm_fwd_mma::M_THREADS, 1)
 lstm_fwd_stream_mma_kernel(const __nv_bfloat16* __restrict__ xp,
                            const float* __restrict__ mask,
                            const float* __restrict__ bias, float* ys,
                            float* cs, float* scratch, int D, int T, int B,
                            int H, int reverse_bits) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, tig = lane % 4;  // mma fragment coordinates
-  const int wn = warp % NW_N, kw = warp / NW_N;
-  uint4* ring = reinterpret_cast<uint4*>(smem_raw) + warp * RING;
-  uint4* res_w =
-      reinterpret_cast<uint4*>(smem_raw) + M_WARPS * RING + warp * RES;
-  float* red = reinterpret_cast<float*>(smem_raw);
-  const int nblk = (H + MU - 1) / MU;
-  const int groups = D * nblk;
-  const int n_chunks = (H + MKC - 1) / MKC;
-  // This warp's chunks: kw, kw + NW_K, ...
-  const int n_mine = (n_chunks - kw + NW_K - 1) / NW_K;
-  const int res = gridDim.x >= groups ? (W_RES < n_mine ? W_RES : n_mine)
-                                      : 0;
-  const size_t H4 = 4 * size_t(H);
-  const size_t BH = size_t(B) * H;
-  float* c_buf = scratch;
-  __nv_bfloat16* hrow = reinterpret_cast<__nv_bfloat16*>(c_buf + D * BH);
-  const __nv_bfloat16* wt = hrow + 2 * D * BH;
-  cg::grid_group grid = cg::this_grid();
-
-  if (res > 0) {
-    const int j0 = (blockIdx.x % nblk) * MU;
-    const __nv_bfloat16* wt_d = wt + size_t(blockIdx.x / nblk) * H4 * H;
-    for (int it = 0; it < res; ++it)
-      stage_w(res_w + it * NT * 32, it, kw, wn, lane, j0, H, wt_d);
-    cp_async_commit();
-    cp_async_wait<0>();  // a lane reads back only its own pieces
-  }
-
-  for (int s = 0; s < T; ++s) {
-    __nv_bfloat16* h_out = hrow + size_t(s & 1) * D * BH;
-    const __nv_bfloat16* h_in = hrow + size_t((s + 1) & 1) * D * BH;
-    for (int gi = blockIdx.x; gi < groups; gi += gridDim.x) {
-      const int d = gi / nblk;
-      const int j0 = (gi % nblk) * MU;
-      const int j = j0 + lane;  // the unit this thread updates
-      const bool rev = (reverse_bits >> d) & 1;
-      const int row = rev ? T - 1 - s : s;
-      const int prev = rev ? row + 1 : row - 1;
-      const __nv_bfloat16* wt_d = wt + size_t(d) * H4 * H;
-      const __nv_bfloat16* h_d = h_in + size_t(d) * BH;
-      float* ys_d = ys + size_t(d) * T * BH;
-      float* c_d = c_buf + size_t(d) * BH;
-      for (int b0 = 0; b0 < B; b0 += MROWS) {
-        // The update's inputs, rows b0 + warp + M_WARPS q: issued now,
-        // used after the product, which they do not depend on.
-        unsigned short x_v[QROWS][4];
-        float m_v[QROWS], c_v[QROWS], h_v[QROWS];
-#pragma unroll
-        for (int q = 0; q < QROWS; ++q) {
-          const int b = b0 + warp + M_WARPS * q;
-          if (b >= B || j >= H) continue;
-          const size_t at = size_t(b) * H + j;
-          const unsigned short* x = reinterpret_cast<const unsigned short*>(
-              xp + (size_t(row) * B + b) * H4);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) x_v[q][e] = __ldg(x + e * H + j);
-          m_v[q] = __ldg(mask + size_t(row) * B + b);
-          c_v[q] = s > 0 ? c_d[at] : 0.f;
-          // This thread wrote the previous row's h itself.
-          h_v[q] = s > 0 ? __ldcg(ys_d + size_t(prev) * BH + at) : 0.f;
-        }
-
-        // gates = round(h_prev) @ W[:, own columns], on the tensor cores.
-        if (s > 0) {
-          float acc[2][NT][4] = {};
-          const bool m1 = b0 + 16 < B;  // the second m16 tile holds a row
-          // The first pass of a step finds Wt's first MS-1 chunks issued
-          // before the barrier (below).
-          const bool w_issued = gi == blockIdx.x && b0 == 0;
-          auto stage = [&](int it) {
-            if (it < n_mine) {
-              uint4* slot = ring + (it % MS) * PIECES * 32;
-              const int k = (kw + it * NW_K) * MKC + tig * 8;
-              const bool k_ok = k < H;  // H % 8 == 0: 8 k or none
-#pragma unroll
-              for (int p = 0; p < 4; ++p) {
-                const int b = b0 + p * 8 + g;  // m tile p/2, rows +8*(p%2)
-                const bool ok = k_ok && b < B;
-                cp_async16(slot + p * 32 + lane,
-                           ok ? h_d + size_t(b) * H + k : h_d, ok);
-              }
-              if (it >= res && !(w_issued && it < MS - 1))
-                stage_w(slot + 4 * 32, it, kw, wn, lane, j0, H, wt_d);
-            }
-            cp_async_commit();
-          };
-#pragma unroll
-          for (int it = 0; it < MS - 1; ++it) stage(it);
-          for (int it = 0; it < n_mine; ++it) {
-            cp_async_wait<MS - 2>();
-            // Refills the slot this lane read in the last iteration.
-            stage(it + MS - 1);
-            const uint4* slot = ring + (it % MS) * PIECES * 32;
-            const uint4* wp = it < res ? res_w + it * NT * 32 : slot + 4 * 32;
-            uint4 a[4], bw[NT];
-#pragma unroll
-            for (int p = 0; p < 4; ++p) a[p] = slot[p * 32 + lane];
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) bw[nt] = wp[nt * 32 + lane];
-            // A lane's piece holds k = 8*tig .. 8*tig+7 of the chunk; the
-            // fragment slots (2tig, 2tig+1 | 2tig+8, 2tig+9) of the first
-            // k16 step take its words x | y, of the second z | w, in A
-            // and in B alike.
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              if (mt == 1 && !m1) continue;
-#pragma unroll
-              for (int nt = 0; nt < NT; ++nt) {
-                if (j0 + (wn * NCOL + nt * 8) % MU >= H) continue;
-                mma_bf16(acc[mt][nt], a[2 * mt].x, a[2 * mt + 1].x,
-                         a[2 * mt].y, a[2 * mt + 1].y, bw[nt].x, bw[nt].y);
-                mma_bf16(acc[mt][nt], a[2 * mt].z, a[2 * mt + 1].z,
-                         a[2 * mt].w, a[2 * mt + 1].w, bw[nt].z, bw[nt].w);
-              }
-            }
-          }
-          cp_async_wait<0>();
-          __syncthreads();  // every ring is drained: red may overwrite them
-          float* r = red + kw * MROWS * RED_S;
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-              float* o = r + (mt * 16 + g) * RED_S + wn * NCOL + nt * 8 +
-                         tig * 2;
-              *reinterpret_cast<float2*>(o) =
-                  make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-              *reinterpret_cast<float2*>(o + 8 * RED_S) =
-                  make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-            }
-          __syncthreads();
-        }
-
-        if (j < H) {
-          const float b_i = bias[d * H4 + j];
-          const float b_f = bias[d * H4 + H + j];
-          const float b_g = bias[d * H4 + 2 * H + j];
-          const float b_o = bias[d * H4 + 3 * H + j];
-#pragma unroll
-          for (int q = 0; q < QROWS; ++q) {
-            const int bl = warp + M_WARPS * q, b = b0 + bl;
-            if (b >= B) continue;
-            float sum[4] = {0.f, 0.f, 0.f, 0.f};
-            if (s > 0) {  // the warps' partial sums, in warp order
-#pragma unroll
-              for (int kk = 0; kk < NW_K; ++kk)
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                  sum[e] += red[(kk * MROWS + bl) * RED_S + e * MU + lane];
-            }
-            const float ig = sigmoid(bits_f32(x_v[q][0]) + (sum[0] + b_i));
-            const float fg =
-                sigmoid((bits_f32(x_v[q][1]) + (sum[1] + b_f)) + 1.f);
-            const float gg = tanhf(bits_f32(x_v[q][2]) + (sum[2] + b_g));
-            const float og = sigmoid(bits_f32(x_v[q][3]) + (sum[3] + b_o));
-            const float c_new = fg * c_v[q] + ig * gg;
-            const float h_new = og * tanhf(c_new);
-            const float m = m_v[q];
-            const float h = m * h_new + (1.f - m) * h_v[q];
-            const float c = m * c_new + (1.f - m) * c_v[q];
-            const size_t at = size_t(b) * H + j;
-            c_d[at] = c;
-            ys_d[size_t(row) * BH + at] = h;
-            if (cs) cs[(size_t(d) * T + row) * BH + at] = c;
-            h_out[size_t(d) * BH + at] = __float2bfloat16_rn(h);
-          }
-        }
-        if (s > 0) __syncthreads();  // red is read: the rings are free
-      }
-    }
-    if (s == T - 1) break;
-    // Wt does not wait for the barrier: issue the next step's first chunks
-    // for this block's first group (committed with its first chunk of the
-    // h row).
-    {
-      const int j0 = (blockIdx.x % nblk) * MU;
-      const __nv_bfloat16* wt_d = wt + size_t(blockIdx.x / nblk) * H4 * H;
-      for (int it = res; it < MS - 1 && it < n_mine; ++it)
-        stage_w(ring + (it % MS) * PIECES * 32 + 4 * 32, it, kw, wn, lane,
-                j0, H, wt_d);
-    }
-    grid.sync();
-  }
-}
-
-// Blocks of a cooperative launch of `kernel`: all resident at once, as
-// grid.sync() needs, and no more than `groups`.
-cudaError_t coop_blocks(const void* kernel, int threads, size_t smem,
-                        int groups, int device, int* blocks) {
-  int coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-  *blocks = groups < per_sm * sms ? groups : per_sm * sms;
-  return cudaSuccess;
+  lstm_fwd_mma::loop<MU, MS, W_RES, NW_N>(xp, mask, bias, ys, cs, scratch,
+                                          D, T, B, H, reverse_bits);
 }
 
 // The CUDA-core kernel: f32, or bf16 off the tensor-core path.
@@ -629,8 +349,9 @@ cudaError_t launch_cuda_core(const void* xp, const float* mask,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = coop_blocks(reinterpret_cast<const void*>(kernel), THREADS,
-                    SMEM_BYTES, D * ((H + U - 1) / U), device, &blocks);
+  err = lstm_fwd_mma::coop_blocks(reinterpret_cast<const void*>(kernel),
+                                  THREADS, SMEM_BYTES, D * ((H + U - 1) / U),
+                                  device, &blocks);
   if (err != cudaSuccess) return err;
   const WT* xp_t = static_cast<const WT*>(xp);
   const WT* w_t = static_cast<const WT*>(w);
@@ -643,41 +364,16 @@ cudaError_t launch_cuda_core(const void* xp, const float* mask,
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // The tensor-core path: W transposed into the scratch, then the serial
-// loop.
+// loop, as many blocks as fit (at most one a group).
 cudaError_t launch_mma(const void* xp, const float* mask, const void* w,
                        const float* bias, float* ys, float* cs,
                        float* scratch, int D, int T, int B, int H,
                        int reverse_bits, int device, cudaStream_t stream) {
-  const size_t BH = size_t(B) * H;
-  unsigned short* wt =
-      reinterpret_cast<unsigned short*>(scratch + D * BH) + 2 * D * BH;
-  const dim3 t_grid((4 * H + TT - 1) / TT, (H + TT - 1) / TT, D);
-  lstm_fwd_stream_transpose_kernel<<<t_grid, dim3(TT, 8), 0, stream>>>(
-      static_cast<const unsigned short*>(w), wt, H);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  auto* kernel = lstm_fwd_stream_mma_kernel;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(MMA_SMEM));
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = coop_blocks(reinterpret_cast<const void*>(kernel), M_THREADS,
-                    MMA_SMEM, D * ((H + MU - 1) / MU), device, &blocks);
-  if (err != cudaSuccess) return err;
-  const __nv_bfloat16* xp_t = static_cast<const __nv_bfloat16*>(xp);
-  void* args[] = {&xp_t, &mask, &bias, &ys, &cs, &scratch,
-                  &D, &T, &B, &H, &reverse_bits};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(blocks), dim3(M_THREADS), args,
-                                    MMA_SMEM, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return lstm_fwd_mma::launch(lstm_fwd_stream_transpose_kernel,
+                              lstm_fwd_stream_mma_kernel, MU, Plan::smem(H),
+                              false, xp, mask, w, bias, ys, cs, scratch, D,
+                              T, B, H, reverse_bits, device, stream);
 }
 
 }  // namespace
@@ -702,7 +398,7 @@ int lstm_fwd_stream_launch(int bf16, const void* xp, const float* mask,
   if (err != cudaSuccess) return err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (bf16 && H % 8 == 0 && aligned16(scratch))
+  if (bf16 && H % 8 == 0 && lstm_fwd_mma::aligned16(scratch))
     err = launch_mma(xp, mask, w, bias, ys, cs, scratch, D, T, B, H,
                      reverse_bits, device, st);
   else if (bf16)

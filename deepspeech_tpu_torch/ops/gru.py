@@ -98,9 +98,10 @@ _KINDS = ("fwd", "bwd", "fwd_q", "lstm_fwd", "lstm_fwd_q", "lstm_bwd")
 _MMA_WARPS, _MMA_KC = 8, 32
 _MMA_NARROW, _MMA_WIDE = 8, 16
 _MMA_STAGES = {_MMA_NARROW: 6, _MMA_WIDE: 4}
-# The forward's loop with all of W^T resident (csrc/gru_fwd.cu in bf16
-# with H % 8 == 0, on csrc/gru_fwd_mma.cuh) takes the same widths, with
-# these stages of a warp's ring of 16-byte h-row pieces.
+# The forwards' loops with all of W^T resident (csrc/gru_fwd.cu and
+# csrc/lstm_fwd.cu in bf16 with H % 8 == 0, on csrc/gru_fwd_mma.cuh and
+# csrc/lstm_fwd_mma.cuh) take the same widths, with these stages of a
+# warp's ring of 16-byte h-row pieces, which both sources give them.
 _FWD_MMA_STAGES = {_MMA_NARROW: 4, _MMA_WIDE: 4}
 
 
@@ -164,18 +165,40 @@ gru_fwd_mma = lstm_bwd_mma
 gru_fwd_mma_width = lstm_bwd_mma_width
 
 
-def gru_fwd_mma_smem_bytes(units: int, h: int) -> int:
-    """Shared memory of one block of ``csrc/gru_fwd.cu``'s tensor-core
-    loop (csrc/gru_fwd_mma.cuh ``Plan`` with ``W_ALL``) for groups of
-    ``units``: the warps' rings (the width's stages of 4 h-row pieces a
-    lane), which the warps' partial sums alias (rows of ``3*units`` f32
-    padded to 8 mod 16), then every 32-deep chunk of the group's
-    ``[3*units, H]`` rows of W^T in bf16."""
-    gcol = 3 * units
+def _fwd_mma_smem_bytes(gates: int, units: int, h: int) -> int:
+    """Shared memory of one block of a forward tensor-core loop with all
+    of W^T resident (``Plan::smem`` of csrc/gru_fwd_mma.cuh and csrc/
+    lstm_fwd_mma.cuh with ``W_ALL``) for groups of ``units``: the warps'
+    rings (the width's stages of 4 h-row pieces a lane), which the warps'
+    partial sums alias (rows of ``gates*units`` f32 padded to 8 mod 16),
+    then every 32-deep chunk of the group's ``[gates*units, H]`` rows of
+    W^T in bf16."""
+    gcol = gates * units
     red_s = gcol + 8 + (8 if (gcol + 8) % 16 == 0 else 0)
     ring = _MMA_WARPS * _FWD_MMA_STAGES[units] * 4 * 32
     red = _MMA_WARPS * _ROWS * red_s // 4
     return 16 * (max(ring, red) + -(-h // _MMA_KC) * (gcol // 8) * 32)
+
+
+def gru_fwd_mma_smem_bytes(units: int, h: int) -> int:
+    """Shared memory of one block of ``csrc/gru_fwd.cu``'s tensor-core
+    loop for groups of ``units``: ``_fwd_mma_smem_bytes`` with three
+    gates, the group's ``[3*units, H]`` rows of W^T."""
+    return _fwd_mma_smem_bytes(3, units, h)
+
+
+# csrc/lstm_fwd.cu (K12) runs its tensor-core path by the same rule and
+# its launch takes the same group widths.
+lstm_fwd_mma = lstm_bwd_mma
+lstm_fwd_mma_width = lstm_bwd_mma_width
+
+
+def lstm_fwd_mma_smem_bytes(units: int, h: int) -> int:
+    """Shared memory of one block of ``csrc/lstm_fwd.cu``'s tensor-core
+    loop for groups of ``units``: ``_fwd_mma_smem_bytes`` with four
+    gates, the group's ``[4*units, H]`` rows of W^T (the cell state
+    lives in the scratch, not in the block)."""
+    return _fwd_mma_smem_bytes(4, units, h)
 
 
 def resident_smem_bytes(kind: str, h: int, b: int,
@@ -196,7 +219,11 @@ def resident_smem_bytes(kind: str, h: int, b: int,
     The LSTM kernels (``"lstm_fwd"``: ``csrc/lstm_fwd.cu``,
     ``"lstm_fwd_q"``: ``csrc/lstm_fwd_q.cu``) lay out the same with four
     gates, a ``[H, 64]`` slice, and add the cell state of the block's
-    units for ``b`` batch rows as f32. The LSTM backward (``"lstm_bwd"``:
+    units for ``b`` batch rows as f32; in bf16 on ``lstm_fwd_mma``'s
+    rule the forward runs the tensor-core loop, whose block holds its
+    group's ``[4*units, H]`` rows of W^T beside the rings and keeps the
+    cell state in the scratch, whatever ``b``
+    (``lstm_fwd_mma_smem_bytes``). The LSTM backward (``"lstm_bwd"``:
     ``csrc/lstm_bwd.cu``) in f32, or in bf16 off ``lstm_bwd_mma``'s
     rule, keeps the slice and one ``[32, 68]`` tile, which holds the
     h_prev chunk during the gate recompute and the dgates tile after it
@@ -213,6 +240,8 @@ def resident_smem_bytes(kind: str, h: int, b: int,
         return gru_bwd_mma_smem_bytes(units, h)
     if kind == "fwd" and gru_fwd_mma(dtype, h):
         return gru_fwd_mma_smem_bytes(units, h)
+    if kind == "lstm_fwd" and lstm_fwd_mma(dtype, h):
+        return lstm_fwd_mma_smem_bytes(units, h)
     h_pad = -(-h // _KC) * _KC
     gc = (4 if kind.startswith("lstm") else 3) * _U  # gate columns
     if kind.endswith("fwd_q"):
@@ -248,16 +277,17 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
     ``_use_blocked`` and ``bigru_fits_vmem`` (rnn_pallas.py:66, :455,
     :709). The resident kernels stage W as f32 (int8 for the ``_q``
     kinds) whatever the dot dtype, so ``dtype`` (bf16 or f32) does not
-    move their answer, except for ``"fwd"``, ``"bwd"`` and
-    ``"lstm_bwd"``: in bf16 with H % 8 == 0 (``gru_fwd_mma``,
-    ``gru_bwd_mma``, ``lstm_bwd_mma``) their tensor-core loops hold W's
-    rows (the forward's W^T) in bf16, one block an SM for each group of
-    ``gru_fwd_mma_width`` (``gru_bwd_mma_width``, ``lstm_bwd_mma_width``)
-    units, and do not depend on ``b``. ``"fwd"`` fits at ds2_small's and
-    ds2_streaming's H=800 (f32: 165 KB, 100 or 50 blocks; bf16: 139 KB
-    in 100 groups of 16 units at D=2, 102 KB in 100 groups of 8 at D=1);
-    in bf16 it admits H up to 1056 at D=2 and 1728 at D=1. ``"bwd"``
-    fits at ds2_small's and ds2_streaming's
+    move their answer, except for ``"fwd"``, ``"bwd"``, ``"lstm_fwd"``
+    and ``"lstm_bwd"``: in bf16 with H % 8 == 0 (``gru_fwd_mma``,
+    ``gru_bwd_mma``, ``lstm_fwd_mma``, ``lstm_bwd_mma``) their
+    tensor-core loops hold W's rows (the forwards' W^T) in bf16, one
+    block an SM for each group of ``gru_fwd_mma_width``
+    (``gru_bwd_mma_width``, ``lstm_fwd_mma_width``,
+    ``lstm_bwd_mma_width``) units, and do not depend on ``b``. ``"fwd"``
+    fits at ds2_small's and ds2_streaming's H=800 (f32: 165 KB, 100 or
+    50 blocks; bf16: 139 KB in 100 groups of 16 units at D=2, 102 KB in
+    100 groups of 8 at D=1); in bf16 it admits H up to 1056 at D=2 and
+    1728 at D=1. ``"bwd"`` fits at ds2_small's and ds2_streaming's
     H=800 (f32: 176 KB at b=32, 100 or 50 blocks; bf16: 144 KB in 100
     groups of 16 units at D=2, 136 KB in 100 groups of 8 at D=1) and
     misses at ds2_full's H=1760 in both dtypes; in bf16 it admits H up to
@@ -265,8 +295,10 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
     ``"fwd"`` and fits for ``"fwd_q"``: 106 KB a block, two blocks an SM;
     with four gates it misses for both LSTM kinds (140 KB of int8 slice
     and staging a block, one an SM, 220 blocks), and ds2_small's H=800
-    fits for both (220 KB a block for ``"lstm_fwd"`` at b=32, one an SM,
-    100 blocks).
+    fits for both (``"lstm_fwd"``: f32 220 KB a block at b=32, one an SM,
+    100 blocks; bf16 172 KB in 100 groups of 16 units at D=2, 114 KB in
+    100 groups of 8 at D=1, whatever b). In bf16 ``"lstm_fwd"`` admits H
+    up to 1056 at D=2 and 1216 at D=1; ds2_full's H=1760 streams.
     ``"lstm_bwd"`` fits at ds2_small's and ds2_streaming's H=800 (f32:
     222 KB at b=32, 100 or 50 blocks; bf16: 168 KB in 100 groups of 16
     units at D=2, 148 KB in 100 groups of 8 at D=1) and misses at
@@ -281,6 +313,8 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
         units, most = gru_bwd_mma_width(d, h, sms), 1
     elif kind == "fwd" and gru_fwd_mma(dtype, h):
         units, most = gru_fwd_mma_width(d, h, sms), 1
+    elif kind == "lstm_fwd" and lstm_fwd_mma(dtype, h):
+        units, most = lstm_fwd_mma_width(d, h, sms), 1
     smem = resident_smem_bytes(kind, h, b, dtype, units)
     if smem > smem_per_block:
         return False

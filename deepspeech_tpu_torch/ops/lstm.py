@@ -12,21 +12,25 @@ A masked frame holds both h and c. Each direction starts from h = c = 0
 
 ``lstm_fwd`` replaces ``_lstm_kernel`` (lstm_pallas.py:89, K12; W held
 on chip, the cell-state tape ``cs`` written only when asked) with
-``csrc/lstm_fwd.cu``: one cooperative launch for D directions (the JAX
-model launches one kernel per direction, models/rnn.py:242-251; summed,
-the two compute the same function), D x ceil(H/16) blocks each holding
-the ``[H, 64]`` f32 column slice of W for 16 hidden units (gate columns
-j, H+j, 2H+j, 3H+j) in shared memory, their cell state beside it, a
-grid barrier per step. Where that does not fit (``gru.resident_fits(
-"lstm_fwd", ...)``; ds2_full's H=1760), it launches ``lstm_fwd_stream``
-(``csrc/lstm_fwd_stream.cu``, replacing ``_lstm_kernel_blocked``,
-:116, K14), which streams W from global memory every step and keeps c
-in a scratch row that only its owning thread touches. In bf16 with H a
-multiple of 8 (``_fwd_stream_mma``) it transposes W into its scratch
-once a call and runs the serial loop on the tensor cores (``mma.sync``;
-part of each group's W^T held in shared memory for the call, the rest
-streamed once a step); f32 and other H stage W through shared memory
-as f32 for the CUDA cores.
+``csrc/lstm_fwd.cu``: one C call for D directions (the JAX model
+launches one kernel per direction, models/rnn.py:242-251; summed, the
+two compute the same function), a cooperative grid of groups of hidden
+units (gate columns j, H+j, 2H+j, 3H+j), each holding its slice of W in
+shared memory for the call, a grid barrier per step. In bf16 with H a
+multiple of 8 (``_fwd_mma``) it transposes W into its scratch once a
+call and runs the serial loop on the tensor cores (``mma.sync``, each
+group's rows of W^T resident, c in the scratch, touched only by its
+owning thread; ``csrc/lstm_fwd_mma.cuh``); f32 and other H run D x
+ceil(H/16) blocks on the CUDA cores, each holding the ``[H, 64]`` f32
+column slice of W for 16 units and their cell state. Where W does not
+fit (``gru.resident_fits("lstm_fwd", ...)``; ds2_full's H=1760), it
+launches ``lstm_fwd_stream`` (``csrc/lstm_fwd_stream.cu``, replacing
+``_lstm_kernel_blocked``, :116, K14), which streams W from global
+memory every step and keeps c in a scratch row. In bf16 with H a
+multiple of 8 that is the same header's loop with part of each group's
+W^T held in shared memory for the call and the rest streamed once a
+step; f32 and other H stage W through shared memory as f32 for the
+CUDA cores.
 
 ``lstm_fwd_q`` is the forward with weight-only int8 recurrent weights
 (``utils/quantize.py``'s layout: int8 ``Q [H,4H]``, an f32 scale per
@@ -168,24 +172,35 @@ def _outputs(xp, w, tape: bool):
     return ys, cs
 
 
-def _fwd_stream_mma(w: torch.Tensor) -> bool:
-    """Whether ``lstm_fwd_stream``'s C call runs its tensor-core path:
-    bf16 with H a multiple of 8 (a 16-byte piece of a row holds 8
-    values), the rule ``lstm_fwd_stream_launch`` applies before any
-    launch (it also needs the scratch 16-byte aligned, which
-    ``torch.empty`` is). Else the CUDA-core kernel runs."""
-    return w.dtype == torch.bfloat16 and w.shape[1] % 8 == 0
+def _fwd_mma(w: torch.Tensor) -> bool:
+    """Whether the C call of ``lstm_fwd`` or ``lstm_fwd_stream`` runs its
+    tensor-core path (csrc/lstm_fwd_mma.cuh's transpose and loop):
+    ``gru.lstm_fwd_mma`` (bf16 with H a multiple of 8: a 16-byte piece
+    of a row holds 8 values), the rule ``lstm_fwd_launch`` and
+    ``lstm_fwd_stream_launch`` apply before any launch (they also need
+    the scratch 16-byte aligned, which ``torch.empty`` is). Else the
+    CUDA-core kernel runs."""
+    return gru.lstm_fwd_mma(w.dtype, w.shape[1])
+
+
+def _fwd_scratch(xp, w) -> torch.Tensor:
+    """``lstm_fwd``'s scratch, f32: on the tensor-core path the cell
+    state ``[D,B,H]`` in f32, then the rounded h rows ``[2,D,B,H]`` and
+    ``Wt = W^T [D,4H,H]``, both in bf16 (``2*D*B*H + 2*D*H*H`` floats);
+    none for the CUDA-core kernel, which keeps c in shared memory."""
+    d, bsz, h = w.shape[0], xp.shape[1], w.shape[1]
+    floats = 2 * d * bsz * h + 2 * d * h * h if _fwd_mma(w) else 0
+    return torch.empty((floats,), dtype=torch.float32, device=xp.device)
 
 
 def _fwd_stream_scratch(xp, w) -> torch.Tensor:
-    """``lstm_fwd_stream``'s scratch, f32: the cell state ``[D,B,H]``
-    and, on the tensor-core path, the rounded h rows ``[2,D,B,H]`` and
-    ``Wt = W^T [D,4H,H]``, both in bf16 (``D*B*H + 2*D*H*H`` floats)."""
+    """``lstm_fwd_stream``'s scratch, f32: on the tensor-core path
+    ``_fwd_scratch``'s layout; its CUDA-core kernel keeps the cell state
+    ``[D,B,H]`` there alone."""
+    if _fwd_mma(w):
+        return _fwd_scratch(xp, w)
     d, bsz, h = w.shape[0], xp.shape[1], w.shape[1]
-    floats = d * bsz * h
-    if _fwd_stream_mma(w):
-        floats += d * bsz * h + 2 * d * h * h
-    return torch.empty((floats,), dtype=torch.float32, device=xp.device)
+    return torch.empty((d * bsz * h,), dtype=torch.float32, device=xp.device)
 
 
 def _fwd_q_stream_mma(xp: torch.Tensor, wq: torch.Tensor) -> bool:
@@ -226,11 +241,15 @@ def lstm_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     ``lstm_bwd`` reads. The product rounds h_prev to ``w.dtype`` and
     sums in f32; c and h stay f32.
 
-    A CPU tensor runs ``lstm_fwd_plain``. A CUDA tensor launches the
-    resident kernel ``csrc/lstm_fwd.cu`` (one launch, counted in
-    ``lstm_fwd.launches``) where ``gru.resident_fits("lstm_fwd", ...)``
-    says it can hold W, and ``lstm_fwd_stream`` otherwise; a refused
-    launch raises.
+    A CPU tensor runs ``lstm_fwd_plain``. A CUDA tensor calls the
+    resident kernel's C entry point ``csrc/lstm_fwd.cu`` once (counted
+    in ``lstm_fwd.launches``) where ``gru.resident_fits("lstm_fwd",
+    ...)`` says it can hold W, and ``lstm_fwd_stream`` otherwise; a
+    refused launch raises. Where ``_fwd_mma`` holds (bf16, H % 8 == 0)
+    that call is two launches, W^T written into the scratch, then the
+    serial ``mma.sync`` loop with each group's rows of W^T held in shared
+    memory (``csrc/lstm_fwd_mma.cuh``); f32 and other bf16 calls run the
+    CUDA-core kernel.
     """
     reverse = tuple(bool(r) for r in reverse)
     gru._check(xp, mask, w, b, None, reverse, gates=4)
@@ -243,7 +262,8 @@ def lstm_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
         return lstm_fwd_stream(xp, mask, w, b, reverse, tape)
     ys, cs = _outputs(xp, w, tape)
     if ys.numel():
-        gru._launch("lstm_fwd", xp, mask, w, (b, ys, cs), reverse)
+        gru._launch("lstm_fwd", xp, mask, w,
+                    (b, ys, cs, _fwd_scratch(xp, w)), reverse)
         lstm_fwd.launches += 1
     return _result(ys, cs, tape)
 
@@ -256,7 +276,7 @@ def lstm_fwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                     tape: bool = False) -> _Out:
     """``lstm_fwd`` through the streamed kernel ``csrc/lstm_fwd_stream.cu``
     (K14), whatever the sizes: W stays in global memory and crosses L2
-    once a step. Where ``_fwd_stream_mma`` holds (bf16, H % 8 == 0) the
+    once a step. Where ``_fwd_mma`` holds (bf16, H % 8 == 0) the
     C call transposes W into the scratch and runs the serial loop on the
     tensor cores, two launches, with part of W^T held in shared memory
     for the call; else one launch of the CUDA-core kernel (see the

@@ -242,7 +242,7 @@ def test_stream_scratch_follows_the_kernel_the_call_runs(dtype, h, mma):
     d, t, bsz = 2, 3, 5
     xp = torch.zeros(t, bsz, 4 * h, dtype=dtype)
     w = torch.zeros(d, h, 4 * h, dtype=dtype)
-    assert lstm._fwd_stream_mma(w) is mma
+    assert lstm._fwd_mma(w) is mma
     scratch = lstm._fwd_stream_scratch(xp, w)
     assert scratch.dtype == torch.float32
     c_bytes = 4 * d * bsz * h
@@ -299,11 +299,13 @@ def test_wrappers_reject_other_devices_and_bad_arguments():
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kind,d,h,resident", [
-    ("lstm_fwd", 2, 800, True),        # ds2_small: 220 KB, 100 blocks
-    ("lstm_fwd", 1, 800, True),        # ds2_streaming
-    ("lstm_fwd", 2, 1760, False),      # ds2_full: a 460 KB slice
-    ("lstm_fwd", 2, 832, True),        # h_pad 832: the last H at 220 KB
-    ("lstm_fwd", 1, 833, False),       # h_pad 896: 236 KB
+    # f32: the CUDA-core block; bf16 (H % 8 == 0): the tensor-core loop's,
+    # tests/test_torch_lstm_fwd_mma.py.
+    ("lstm_fwd", 2, 800, True),        # ds2_small: 220 KB; bf16 172 KB
+    ("lstm_fwd", 1, 800, True),        # ds2_streaming; bf16 114 KB
+    ("lstm_fwd", 2, 1760, False),      # ds2_full: 460 KB; bf16 220 groups
+    ("lstm_fwd", 2, 832, True),        # h_pad 832: the last f32 H, 220 KB
+    ("lstm_fwd", 1, 833, False),       # h_pad 896: 236 KB, in both
     ("lstm_fwd_q", 2, 800, True),      # ds2_small int8: 80 KB
     ("lstm_fwd_q", 2, 1760, False),    # ds2_full int8: 220 of 132 slots
     ("lstm_fwd_q", 2, 1344, True),     # 113 KB, two an SM: 168 of 264
