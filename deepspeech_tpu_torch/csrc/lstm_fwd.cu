@@ -302,11 +302,12 @@ template <int MU, int MS>
 __global__ void __launch_bounds__(lstm_fwd_mma::M_THREADS, 1)
 lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ xp,
                     const float* __restrict__ mask,
+                    const float* __restrict__ scale,
                     const float* __restrict__ bias, float* ys, float* cs,
                     float* scratch, int D, int T, int B, int H,
                     int reverse_bits) {
   lstm_fwd_mma::loop<MU, MS, lstm_fwd_mma::W_ALL>(
-      xp, mask, bias, ys, cs, scratch, D, T, B, H, reverse_bits);
+      xp, mask, scale, bias, ys, cs, scratch, D, T, B, H, reverse_bits);
 }
 
 template <int MU, int MS>
@@ -331,8 +332,8 @@ cudaError_t launch_mma(const void* xp, const float* mask, const void* w,
       narrow ? MU_NARROW : MU_WIDE,
       narrow ? loop_smem<MU_NARROW, MS_NARROW>(H)
              : loop_smem<MU_WIDE, MS_WIDE>(H),
-      true, xp, mask, w, bias, ys, cs, scratch, D, T, B, H, reverse_bits,
-      device, stream);
+      true, xp, mask, w, nullptr, bias, ys, cs, scratch, D, T, B, H,
+      reverse_bits, device, stream);
 }
 
 }  // namespace

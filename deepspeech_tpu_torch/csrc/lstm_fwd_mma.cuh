@@ -1,10 +1,12 @@
 // The tensor-core path of the LSTM forward, shared by csrc/lstm_fwd.cu
-// (K12 at D=2 and D=1, all of W^T held in shared memory for the call) and
+// (K12 at D=2 and D=1, all of W^T held in shared memory for the call),
 // csrc/lstm_fwd_stream.cu (K14, part of W^T held and the rest streamed
-// from L2 every step): the two compute the same function and differ in
-// the width of a group, the split of its warps and where its rows of W^T
-// live, which each source sets with the template arguments of loop() and
-// passes to launch() below with its own two kernels.
+// from L2 every step) and csrc/lstm_fwd_q.cu (K16, K12's loop on the int8
+// Q widened to bf16, with SCALED set): the three differ in the width of a
+// group, the split of its warps, where its rows of W^T live and whether
+// the finished sums are scaled, which each source sets with the template
+// arguments of loop() and passes to launch() below with its own two
+// kernels.
 //
 // The contract is ops/lstm.py lstm_fwd's docstring: xp [T,B,4H] and
 // w [D,H,4H] bf16 (xp includes the input bias), mask [T,B] f32, bias
@@ -13,11 +15,16 @@
 //   not NULL, the cell-state tape cs [D,T,B,H] f32 (masked rows hold c).
 // Gates i, f, g, o with the +1 on f; h_prev is rounded to bf16 for the
 // product, sums, c and h stay f32. Each direction starts from h = c = 0.
+// With SCALED (ops/lstm.py lstm_fwd_q's contract) W is the int8 Q [D,H,4H]
+// and a gate's recurrent part is sum * scale + b, scale [D,4H] f32 on the
+// finished column sum; every int8 value is exact in bf16 (8 significant
+// bits), so the product is round(h) @ Q exactly as the plain version's.
 //
 // Two launches from one C call, chosen before either:
 //  1. transpose() writes Wt [D,4H,H] bf16 = W^T into the scratch, once a
-//     call: a 16-byte piece of a Wt row holds 8 consecutive k, which is
-//     what the loop's fragments take as they lie.
+//     call (from int8 Q, each value widened to bf16 on the way): a 16-byte
+//     piece of a Wt row holds 8 consecutive k, which is what the loop's
+//     fragments take as they lie.
 //  2. loop(), the serial loop: a cooperative, persistent grid over
 //     D x ceil(H/MU) groups of MU hidden units (gate columns j, H+j,
 //     2H+j, 3H+j: 4*MU rows of Wt), one grid barrier a step. A group
@@ -37,7 +44,8 @@
 //     loaded before the product (which does not wait for them): c stays
 //     in a [D,B,H] scratch that only its owning thread touches, and
 //     h_prev is the ys row the owning thread wrote the step before, never
-//     the rounded row. Thread t updates unit j0 + t % MU for rows t / MU +
+//     the rounded row; with SCALED each thread loads its unit's four
+//     scales once a call. Thread t updates unit j0 + t % MU for rows t / MU +
 //     q * (256 / MU). The step writes c, ys, the tape when cs is not NULL,
 //     and round_bf16(h) into a [2,D,B,H] bf16 row, double-buffered by step
 //     parity so that a fast group's write cannot meet a slow group's read
@@ -111,19 +119,29 @@ __device__ __forceinline__ float sigmoid(float x) {
 
 constexpr int TT = 32;  // transpose tile
 
-// wt[d][n][k] = w[d][k][n] for n < 4H, k < H (bf16 bits).
-// grid = (ceil(4H/TT), ceil(H/TT), D), block = (TT, 8).
-__device__ __forceinline__ void transpose(const unsigned short* __restrict__ w,
+// A value of W as bf16 bits: bf16 as it is; int8 widened, which is exact.
+__device__ __forceinline__ unsigned short bf16_bits(unsigned short x) {
+  return x;
+}
+__device__ __forceinline__ unsigned short bf16_bits(int8_t x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(float(x)));
+}
+
+// wt[d][n][k] = w[d][k][n] for n < 4H, k < H (bf16 bits; W bf16 bits or
+// int8). grid = (ceil(4H/TT), ceil(H/TT), D), block = (TT, 8).
+template <class Src>
+__device__ __forceinline__ void transpose(const Src* __restrict__ w,
                                           unsigned short* __restrict__ wt,
                                           int H) {
   __shared__ unsigned short tile[TT][TT + 1];
   const size_t N = 4 * size_t(H);
   const int n0 = blockIdx.x * TT, k0 = blockIdx.y * TT;
-  const unsigned short* src = w + size_t(blockIdx.z) * H * N;
+  const Src* src = w + size_t(blockIdx.z) * H * N;
   unsigned short* dst = wt + size_t(blockIdx.z) * N * H;
   for (int r = threadIdx.y; r < TT; r += 8) {
     const int k = k0 + r, n = n0 + threadIdx.x;
-    if (k < H && n < N) tile[r][threadIdx.x] = src[size_t(k) * N + n];
+    if (k < H && n < N)
+      tile[r][threadIdx.x] = bf16_bits(src[size_t(k) * N + n]);
   }
   __syncthreads();
   for (int r = threadIdx.y; r < TT; r += 8) {
@@ -206,15 +224,20 @@ __device__ __forceinline__ void stage_w(uint4* dst, int it, int kw, int wn,
 }
 
 // The scratch as the top of this file lays it out, Wt as transpose()
-// wrote it.
-template <int MU, int MS, int W_RES, int NW_N = (MU < 32 ? 1 : 2)>
+// wrote it. With SCALED the gates take scale [D,4H] on the finished sums
+// (read only then).
+template <int MU, int MS, int W_RES, int NW_N = (MU < 32 ? 1 : 2),
+          bool SCALED = false>
 __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
                                      const float* __restrict__ mask,
+                                     const float* __restrict__ scale,
                                      const float* __restrict__ bias,
                                      float* ys, float* cs, float* scratch,
                                      int D, int T, int B, int H,
                                      int reverse_bits) {
   using P = Plan<MU, MS, W_RES, NW_N>;
+  // A block's one group (W_ALL) reads its scales before the first step.
+  static_assert(!SCALED || P::ALL, "the scales of one group a block");
   constexpr int NT = P::NT, NCOL = P::NCOL, NW_K = P::NW_K;
   constexpr int QROWS = P::QROWS, RSTEP = P::RSTEP;
   constexpr int SLOT = P::SLOT, RED_S = P::RED_S;
@@ -247,6 +270,16 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
   __nv_bfloat16* hrow = reinterpret_cast<__nv_bfloat16*>(c_buf + D * BH);
   const __nv_bfloat16* wt = hrow + 2 * D * BH;
   cg::grid_group grid = cg::this_grid();
+
+  // This thread's unit's four scales (i, f, g, o), for the call.
+  float sc[4] = {1.f, 1.f, 1.f, 1.f};
+  if constexpr (SCALED) {
+    const int j = (blockIdx.x % nblk) * MU + lu;
+    if (j < H)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[e] = scale[(blockIdx.x / nblk) * H4 + e * H + j];
+  }
 
   if (res > 0) {
     const int j0 = (blockIdx.x % nblk) * MU;
@@ -384,6 +417,10 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
                 for (int e = 0; e < 4; ++e)
                   sum[e] += red[(kk * MROWS + bl) * RED_S + e * MU + lu];
             }
+            if constexpr (SCALED) {  // the scale on the finished sums
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sum[e] *= sc[e];
+            }
             const float ig =
                 sigmoid(bf16_bits_f32(x_v[q][0]) + (sum[0] + b_i));
             const float fg =
@@ -423,11 +460,14 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
 
 // ---- The launches ----
 
-using TransposeKernel = void (*)(const unsigned short*, unsigned short*,
-                                 int);
+// The transpose takes W's bf16 bits or the int8 Q.
+template <class Src>
+using TransposeKernel = void (*)(const Src*, unsigned short*, int);
+// xp, mask, scale (NULL without SCALED), bias, ys, cs, scratch, D, T, B,
+// H, reverse_bits.
 using LoopKernel = void (*)(const __nv_bfloat16*, const float*,
-                            const float*, float*, float*, float*, int, int,
-                            int, int, int);
+                            const float*, const float*, float*, float*,
+                            float*, int, int, int, int, int);
 
 // Blocks of a cooperative launch of `kernel`: all resident at once, as
 // grid.sync() needs, and no more than `groups`.
@@ -448,16 +488,19 @@ inline cudaError_t coop_blocks(const void* kernel, int threads, size_t smem,
   return cudaSuccess;
 }
 
-// The two launches: W transposed into the scratch, then the serial loop
-// over groups of MU units, `smem` bytes a block. With `one_each` (W_ALL)
-// every group needs a block of its own, or nothing is launched: the
-// residency rule (ops/gru.py resident_fits) admits only such sizes.
-inline cudaError_t launch(TransposeKernel transpose_kernel,
+// The two launches: W (bf16, or the int8 Q with `scale`) transposed into
+// the scratch, then the serial loop over groups of MU units, `smem` bytes
+// a block. With `one_each` (W_ALL) every group needs a block of its own,
+// or nothing is launched: the residency rule (ops/gru.py resident_fits)
+// admits only such sizes.
+template <class Src>
+inline cudaError_t launch(TransposeKernel<Src> transpose_kernel,
                           LoopKernel loop_kernel, int MU, size_t smem,
                           bool one_each, const void* xp, const float* mask,
-                          const void* w, const float* bias, float* ys,
-                          float* cs, float* scratch, int D, int T, int B,
-                          int H, int reverse_bits, int device,
+                          const void* w, const float* scale,
+                          const float* bias, float* ys, float* cs,
+                          float* scratch, int D, int T, int B, int H,
+                          int reverse_bits, int device,
                           cudaStream_t stream) {
   const int groups = D * ((H + MU - 1) / MU);
   cudaError_t err = cudaFuncSetAttribute(
@@ -474,12 +517,12 @@ inline cudaError_t launch(TransposeKernel transpose_kernel,
       reinterpret_cast<unsigned short*>(scratch + dbh) + 2 * dbh;
   const dim3 t_grid((4 * H + TT - 1) / TT, (H + TT - 1) / TT, D);
   transpose_kernel<<<t_grid, dim3(TT, 8), 0, stream>>>(
-      static_cast<const unsigned short*>(w), wt, H);
+      static_cast<const Src*>(w), wt, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const __nv_bfloat16* xp_t = static_cast<const __nv_bfloat16*>(xp);
-  void* args[] = {&xp_t, &mask, &bias, &ys, &cs, &scratch,
+  void* args[] = {&xp_t, &mask, &scale, &bias, &ys, &cs, &scratch,
                   &D, &T, &B, &H, &reverse_bits};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(loop_kernel),
                                     dim3(blocks), dim3(M_THREADS), args, smem,

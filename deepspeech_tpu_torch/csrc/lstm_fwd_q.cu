@@ -1,10 +1,10 @@
 // LSTM forward recurrence for Hopper (sm_90a) with weight-only int8
-// recurrent weights held in shared memory: one launch runs the whole time
+// recurrent weights held in shared memory: one C call runs the whole time
 // loop of D directions.
 //
 // Replaces the TPU kernel _lstm_kernel_q (deepspeech_tpu/ops/lstm_pallas.py:
 // 292, K16, via lstm_scan_pallas_q :345/:396), which keeps the int8 W_h
-// resident in VMEM, one direction a launch; here D=1 or D=2 in one launch.
+// resident in VMEM, one direction a launch; here D=1 or D=2 in one call.
 // The contract is ops/lstm.py lstm_fwd_q's docstring:
 //   xp [T,B,4H] in the dot dtype, bf16|f32 (xp includes the input bias),
 //   mask [T,B] f32, wq [D,H,4H] int8, scale [D,4H] f32 (per output
@@ -17,9 +17,35 @@
 // on f). Each direction starts from h = c = 0.
 //
 // What bounds it: as for csrc/lstm_fwd.cu, T serial steps of one step's
-// latency, far above the FLOP and the byte roofline of the call. The design
-// is csrc/gru_fwd_q.cu's (K10) with four gates and the cell state of
-// csrc/lstm_fwd.cu: a block owns U hidden units of one direction (gate
+// latency, far above the FLOP and the byte roofline of the call.
+//
+// bf16 path (the main path: ds2_small-lstm int8 at D=2, ds2_streaming-lstm
+// int8 at D=1, both H=800) where xp is bf16, H % 8 == 0 and the scratch is
+// 16-byte aligned: csrc/lstm_fwd.cu's (K12) two launches from
+// csrc/lstm_fwd_mma.cuh, on Q instead of W:
+//  1. lstm_fwd_q_transpose_kernel writes Wt [D,4H,H] = bf16(Q^T) into the
+//     scratch once a call (10.24 MB at D=2, H=800). Every int8 value is
+//     exact in bf16, so Wt holds Q itself and the tensor cores form
+//     round(h_prev) @ Q exactly as a bf16 product of the two: no widening
+//     in the step, where csrc/lstm_fwd_q_stream.cu (K17) widens its s8
+//     pieces in registers every step.
+//  2. lstm_fwd_q_mma_kernel<MU, MS>, K12's serial loop with all of W^T
+//     resident and SCALED set: each thread loads its unit's four scales
+//     once a call and the update forms xp + (sum * scale + b) per gate,
+//     the scale on the finished column sum as the plain version has it.
+//     The launch takes K12's widths: MU_NARROW units with MS_NARROW stages
+//     where D x ceil(H/MU_NARROW) groups fit one an SM (D=1 at H=800: 100
+//     groups, 114 KB a block), else MU_WIDE with MS_WIDE (D=2: 100 groups,
+//     172 KB); deepspeech_tpu_torch/k16_variants.py times the widths and
+//     the depths beside the parent's kernel.
+// The bf16 rule is K12's (ops/gru.py resident_fits("lstm_fwd_q", ...)
+// routes to lstm_fwd_mma_width and lstm_fwd_mma_smem_bytes): H up to 1056
+// at D=2 and 1216 at D=1, whatever B; wider calls run K17.
+//
+// f32 path (not the main path) and every other bf16 call: lstm_fwd_q_kernel
+// on the CUDA cores, no scratch. Its design is csrc/gru_fwd_q.cu's CUDA-core
+// kernel with four gates and the cell state of csrc/lstm_fwd.cu's: a block
+// owns U hidden units of one direction (gate
 // columns j, H+j, 2H+j, 3H+j), keeps their [H, 4U] column slice of Q in
 // shared memory as bytes for the whole sequence (a quarter of the f32
 // slice) and their cell state [B][U] as f32 beside it. A step stages h_prev
@@ -30,16 +56,21 @@
 // loop. Then the scale, the bias, the LSTM update and the mask, and the
 // block writes its [B, U] slice of the ys row. A grid-wide barrier
 // (cooperative launch, every block resident) separates the steps. At
-// ds2_small's H=800 a block takes 80 KB (two an SM could run; 100 blocks at
-// D=2); at ds2_full's H=1760 it would take 140 KB, one an SM, and the 220
-// blocks do not fit 132 SMs, so ops/lstm.py launches
-// csrc/lstm_fwd_q_stream.cu there. ops/gru.py resident_smem_bytes(
-// "lstm_fwd_q") repeats the layout. CUDA cores, no tensor cores.
+// H=800 a block takes 80 KB (two an SM could run; 100 blocks at D=2); at
+// ds2_full's H=1760 it would take 140 KB, one an SM, and the 220 blocks do
+// not fit 132 SMs, so ops/lstm.py launches csrc/lstm_fwd_q_stream.cu
+// there. ops/gru.py resident_smem_bytes("lstm_fwd_q") repeats the layout.
+//
+// The choice between the two is made before any launch, from the dtype,
+// H and the scratch (lstm_fwd_q_launch); ops/lstm.py's _fwd_q_mma repeats
+// it.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lstm_fwd_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -276,27 +307,95 @@ cudaError_t launch(const void* xp, const float* mask, const int8_t* wq,
   return cudaGetLastError();
 }
 
+// ---- bf16 path: csrc/lstm_fwd_mma.cuh's widening transpose and serial
+// loop, all of Q^T resident as bf16, the scale on the finished sums ----
+
+// The group widths and the stages of a warp's ring of h-row pieces:
+// MU_NARROW units and MS_NARROW stages where D x ceil(H/MU_NARROW) groups
+// fit one an SM, else MU_WIDE and MS_WIDE (csrc/lstm_fwd.cu's).
+constexpr int MU_NARROW = 8;
+constexpr int MS_NARROW = 4;
+constexpr int MU_WIDE = 16;
+constexpr int MS_WIDE = 4;
+
+__global__ void __launch_bounds__(lstm_fwd_mma::TT * 8)
+lstm_fwd_q_transpose_kernel(const int8_t* __restrict__ q,
+                            unsigned short* __restrict__ wt, int H) {
+  lstm_fwd_mma::transpose(q, wt, H);
+}
+
+template <int MU, int MS>
+__global__ void __launch_bounds__(lstm_fwd_mma::M_THREADS, 1)
+lstm_fwd_q_mma_kernel(const __nv_bfloat16* __restrict__ xp,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ bias, float* ys, float* cs,
+                      float* scratch, int D, int T, int B, int H,
+                      int reverse_bits) {
+  constexpr int NW_N = MU < 32 ? 1 : 2;  // the header's column splits
+  lstm_fwd_mma::loop<MU, MS, lstm_fwd_mma::W_ALL, NW_N, true>(
+      xp, mask, scale, bias, ys, cs, scratch, D, T, B, H, reverse_bits);
+}
+
+template <int MU, int MS>
+size_t loop_smem(int H) {
+  return lstm_fwd_mma::Plan<MU, MS, lstm_fwd_mma::W_ALL>::smem(H);
+}
+
+// The two launches at the width the card's SM count gives; no tape.
+cudaError_t launch_mma(const void* xp, const float* mask, const int8_t* wq,
+                       const float* scale, const float* bias, float* ys,
+                       float* scratch, int D, int T, int B, int H,
+                       int reverse_bits, int device, cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const bool narrow = D * ((H + MU_NARROW - 1) / MU_NARROW) <= sms;
+  return lstm_fwd_mma::launch(
+      lstm_fwd_q_transpose_kernel,
+      narrow ? lstm_fwd_q_mma_kernel<MU_NARROW, MS_NARROW>
+             : lstm_fwd_q_mma_kernel<MU_WIDE, MS_WIDE>,
+      narrow ? MU_NARROW : MU_WIDE,
+      narrow ? loop_smem<MU_NARROW, MS_NARROW>(H)
+             : loop_smem<MU_WIDE, MS_WIDE>(H),
+      true, xp, mask, wq, scale, bias, ys, nullptr, scratch, D, T, B, H,
+      reverse_bits, device, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns 0 or a cudaError_t; the launch is asynchronous on `stream`.
-// xp is bf16 when `bf16` is set, f32 otherwise; wq is int8. The calling
-// thread's current device is the same after the call as before it.
+// Returns 0 or a cudaError_t; the launches are asynchronous on `stream`.
+// xp is bf16 when `bf16` is set, f32 otherwise; wq is int8. A bf16 call
+// with H % 8 == 0 and a non-NULL, 16-byte aligned scratch runs the
+// tensor-core path (two launches); its scratch holds 2*D*B*H + 2*D*H*H
+// floats (c in f32, then the two rounded h rows and bf16(Q^T), both bf16).
+// Any other call runs the CUDA-core kernel, which reads no scratch (it may
+// be NULL). The calling thread's current device is the same after the call
+// as before it.
 int lstm_fwd_q_launch(int bf16, const void* xp, const float* mask,
                       const int8_t* wq, const float* scale,
-                      const float* bias, float* ys, int D, int T, int B,
-                      int H, int reverse_bits, int device, void* stream) {
+                      const float* bias, float* ys, float* scratch, int D,
+                      int T, int B, int H, int reverse_bits, int device,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return err;
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = bf16 ? launch<__nv_bfloat16>(xp, mask, wq, scale, bias, ys, D, T, B,
-                                     H, reverse_bits, device, st)
-             : launch<float>(xp, mask, wq, scale, bias, ys, D, T, B, H,
-                             reverse_bits, device, st);
+  if (bf16 && H % 8 == 0 && scratch != nullptr &&
+      lstm_fwd_mma::aligned16(scratch))
+    err = launch_mma(xp, mask, wq, scale, bias, ys, scratch, D, T, B, H,
+                     reverse_bits, device, st);
+  else if (bf16)
+    err = launch<__nv_bfloat16>(xp, mask, wq, scale, bias, ys, D, T, B, H,
+                                reverse_bits, device, st);
+  else
+    err = launch<float>(xp, mask, wq, scale, bias, ys, D, T, B, H,
+                        reverse_bits, device, st);
   const cudaError_t restore = cudaSetDevice(prev);
   return err != cudaSuccess ? err : restore;
 }

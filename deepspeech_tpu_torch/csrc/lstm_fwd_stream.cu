@@ -330,11 +330,12 @@ lstm_fwd_stream_transpose_kernel(const unsigned short* __restrict__ w,
 __global__ void __launch_bounds__(lstm_fwd_mma::M_THREADS, 1)
 lstm_fwd_stream_mma_kernel(const __nv_bfloat16* __restrict__ xp,
                            const float* __restrict__ mask,
+                           const float* __restrict__ scale,
                            const float* __restrict__ bias, float* ys,
                            float* cs, float* scratch, int D, int T, int B,
                            int H, int reverse_bits) {
-  lstm_fwd_mma::loop<MU, MS, W_RES, NW_N>(xp, mask, bias, ys, cs, scratch,
-                                          D, T, B, H, reverse_bits);
+  lstm_fwd_mma::loop<MU, MS, W_RES, NW_N>(xp, mask, scale, bias, ys, cs,
+                                          scratch, D, T, B, H, reverse_bits);
 }
 
 // The CUDA-core kernel: f32, or bf16 off the tensor-core path.
@@ -372,8 +373,9 @@ cudaError_t launch_mma(const void* xp, const float* mask, const void* w,
                        int reverse_bits, int device, cudaStream_t stream) {
   return lstm_fwd_mma::launch(lstm_fwd_stream_transpose_kernel,
                               lstm_fwd_stream_mma_kernel, MU, Plan::smem(H),
-                              false, xp, mask, w, bias, ys, cs, scratch, D,
-                              T, B, H, reverse_bits, device, stream);
+                              false, xp, mask, w, nullptr, bias, ys, cs,
+                              scratch, D, T, B, H, reverse_bits, device,
+                              stream);
 }
 
 }  // namespace

@@ -168,36 +168,50 @@ def _cudnn_call(gen, d: int, h: int = 800, t: int = 850, b: int = 32):
     return call
 
 
-def _k14(parent: str, reps: int, gen) -> dict:
-    """K14 as built here and the parent's: the same bits at H=1760 and at
-    H=800 (D=2), with and without the tape, and ms a call at H=1760
-    untaped in turns (parent, this tree, this tree, parent)."""
+def held_to_parent(source: str, parent: str, shapes, timed, reps: int,
+                   gen) -> dict:
+    """``csrc/<source>.cu`` (``lstm_fwd``: K12, or ``lstm_fwd_stream``:
+    K14) as built here and the parent tree's: the same bits at each
+    ``(D, H)`` of ``shapes``, with and without the tape, and ms a call
+    untaped at each ``(D, H)`` of ``timed`` in turns (parent, this tree,
+    this tree, parent). Raises if any bit differs."""
     libs, ptxas = build_variants(
-        "lstm_fwd_stream", {"as_built": []}, "k12_variants_k14",
-        {"parent": os.path.join(parent, "lstm_fwd_stream.cu")})
-    fn = lstm.lstm_fwd_stream
-    out = {"ptxas": ptxas, "same_bits": {}, "ms": {"parent": [],
-                                                    "as_built": []}}
-    for h in (1760, 800):
-        args = _inputs(gen, 2, h=h)
+        source, {"as_built": []}, f"parent_{source}",
+        {"parent": os.path.join(parent, f"{source}.cu")})
+    fn = getattr(lstm, source)
+    out = {"ptxas": ptxas, "same_bits": {}, "ms": {}, "ms_ratio": {}}
+    for d, h in shapes:
+        args = _inputs(gen, d, h=h)
         for tape in (False, True):
             got = {}
             for name in ("parent", "as_built"):
-                _build._loaded["lstm_fwd_stream"] = libs[name]
+                _build._loaded[source] = libs[name]
                 got[name] = _outputs(fn(*args, tape=tape), tape)
-            out["same_bits"][f"H{h}{'_tape' if tape else ''}"] = _same(
+            out["same_bits"][f"D{d}_H{h}{'_tape' if tape else ''}"] = _same(
                 got["parent"], got["as_built"])
             del got
         del args
-    timed = _inputs(gen, 2, h=1760)
-    for name in ("parent", "as_built", "as_built", "parent"):
-        _build._loaded["lstm_fwd_stream"] = libs[name]
-        out["ms"][name].append(_time_ms(lambda: fn(*timed), reps))
-    _build._loaded["lstm_fwd_stream"] = libs["as_built"]
-    out["ms_ratio"] = sum(out["ms"]["as_built"]) / sum(out["ms"]["parent"])
+    for d, h in timed:
+        args = _inputs(gen, d, h=h)
+        ms = {"parent": [], "as_built": []}
+        for name in ("parent", "as_built", "as_built", "parent"):
+            _build._loaded[source] = libs[name]
+            ms[name].append(_time_ms(lambda: fn(*args), reps))
+        out["ms"][f"D{d}_H{h}"] = ms
+        out["ms_ratio"][f"D{d}_H{h}"] = sum(ms["as_built"]) / sum(
+            ms["parent"])
+        del args
+    _build._loaded[source] = libs["as_built"]
     if not all(out["same_bits"].values()):
-        raise RuntimeError(f"K14 differs from the parent's: {out}")
+        raise RuntimeError(f"{source} differs from the parent's: {out}")
     return out
+
+
+def _k14(parent: str, reps: int, gen) -> dict:
+    """K14 held to the parent's at H=1760 and at H=800 (D=2), timed at
+    H=1760."""
+    return held_to_parent("lstm_fwd_stream", parent, [(2, 1760), (2, 800)],
+                          [(2, 1760)], reps, gen)
 
 
 def main(argv=None) -> None:

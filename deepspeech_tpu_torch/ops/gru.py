@@ -188,16 +188,18 @@ def gru_fwd_mma_smem_bytes(units: int, h: int) -> int:
 
 
 # csrc/lstm_fwd.cu (K12) runs its tensor-core path by the same rule and
-# its launch takes the same group widths.
+# its launch takes the same group widths; so does csrc/lstm_fwd_q.cu
+# (K16) with bf16 dots, on Q^T widened to bf16.
 lstm_fwd_mma = lstm_bwd_mma
 lstm_fwd_mma_width = lstm_bwd_mma_width
 
 
 def lstm_fwd_mma_smem_bytes(units: int, h: int) -> int:
-    """Shared memory of one block of ``csrc/lstm_fwd.cu``'s tensor-core
-    loop for groups of ``units``: ``_fwd_mma_smem_bytes`` with four
-    gates, the group's ``[4*units, H]`` rows of W^T (the cell state
-    lives in the scratch, not in the block)."""
+    """Shared memory of one block of ``csrc/lstm_fwd.cu``'s (and
+    ``csrc/lstm_fwd_q.cu``'s) tensor-core loop for groups of ``units``:
+    ``_fwd_mma_smem_bytes`` with four gates, the group's ``[4*units, H]``
+    rows of W^T in bf16 (the cell state lives in the scratch, not in the
+    block)."""
     return _fwd_mma_smem_bytes(4, units, h)
 
 
@@ -223,7 +225,8 @@ def resident_smem_bytes(kind: str, h: int, b: int,
     rule the forward runs the tensor-core loop, whose block holds its
     group's ``[4*units, H]`` rows of W^T beside the rings and keeps the
     cell state in the scratch, whatever ``b``
-    (``lstm_fwd_mma_smem_bytes``). The LSTM backward (``"lstm_bwd"``:
+    (``lstm_fwd_mma_smem_bytes``); so does ``"lstm_fwd_q"`` with bf16
+    dots, its W^T the int8 Q widened to bf16. The LSTM backward (``"lstm_bwd"``:
     ``csrc/lstm_bwd.cu``) in f32, or in bf16 off ``lstm_bwd_mma``'s
     rule, keeps the slice and one ``[32, 68]`` tile, which holds the
     h_prev chunk during the gate recompute and the dgates tile after it
@@ -240,7 +243,7 @@ def resident_smem_bytes(kind: str, h: int, b: int,
         return gru_bwd_mma_smem_bytes(units, h)
     if kind == "fwd" and gru_fwd_mma(dtype, h):
         return gru_fwd_mma_smem_bytes(units, h)
-    if kind == "lstm_fwd" and lstm_fwd_mma(dtype, h):
+    if kind in ("lstm_fwd", "lstm_fwd_q") and lstm_fwd_mma(dtype, h):
         return lstm_fwd_mma_smem_bytes(units, h)
     h_pad = -(-h // _KC) * _KC
     gc = (4 if kind.startswith("lstm") else 3) * _U  # gate columns
@@ -277,11 +280,12 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
     ``_use_blocked`` and ``bigru_fits_vmem`` (rnn_pallas.py:66, :455,
     :709). The resident kernels stage W as f32 (int8 for the ``_q``
     kinds) whatever the dot dtype, so ``dtype`` (bf16 or f32) does not
-    move their answer, except for ``"fwd"``, ``"bwd"``, ``"lstm_fwd"``
-    and ``"lstm_bwd"``: in bf16 with H % 8 == 0 (``gru_fwd_mma``,
-    ``gru_bwd_mma``, ``lstm_fwd_mma``, ``lstm_bwd_mma``) their
-    tensor-core loops hold W's rows (the forwards' W^T) in bf16, one
-    block an SM for each group of ``gru_fwd_mma_width``
+    move their answer, except for ``"fwd"``, ``"bwd"``, ``"lstm_fwd"``,
+    ``"lstm_fwd_q"`` and ``"lstm_bwd"``: in bf16 with H % 8 == 0
+    (``gru_fwd_mma``, ``gru_bwd_mma``, ``lstm_fwd_mma``,
+    ``lstm_bwd_mma``) their tensor-core loops hold W's rows (the
+    forwards' W^T; for ``"lstm_fwd_q"`` the int8 Q^T widened to bf16) in
+    bf16, one block an SM for each group of ``gru_fwd_mma_width``
     (``gru_bwd_mma_width``, ``lstm_fwd_mma_width``,
     ``lstm_bwd_mma_width``) units, and do not depend on ``b``. ``"fwd"``
     fits at ds2_small's and ds2_streaming's H=800 (f32: 165 KB, 100 or
@@ -297,8 +301,12 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
     and staging a block, one an SM, 220 blocks), and ds2_small's H=800
     fits for both (``"lstm_fwd"``: f32 220 KB a block at b=32, one an SM,
     100 blocks; bf16 172 KB in 100 groups of 16 units at D=2, 114 KB in
-    100 groups of 8 at D=1, whatever b). In bf16 ``"lstm_fwd"`` admits H
-    up to 1056 at D=2 and 1216 at D=1; ds2_full's H=1760 streams.
+    100 groups of 8 at D=1, whatever b). In bf16 ``"lstm_fwd"`` and
+    ``"lstm_fwd_q"`` admit H up to 1056 at D=2 and 1216 at D=1, whatever
+    b; ds2_full's H=1760 streams. In f32 (and in bf16 off the H % 8
+    rule) ``"lstm_fwd_q"`` keeps the CUDA-core kernel's int8 slice, 80 KB
+    at H=800, which admits H up to 1344 at D=2 (b=32, two blocks an SM)
+    and 2112 at D=1.
     ``"lstm_bwd"`` fits at ds2_small's and ds2_streaming's H=800 (f32:
     222 KB at b=32, 100 or 50 blocks; bf16: 168 KB in 100 groups of 16
     units at D=2, 148 KB in 100 groups of 8 at D=1) and misses at
@@ -313,7 +321,7 @@ def resident_fits(kind: str, d: int, h: int, b: int, dtype: torch.dtype,
         units, most = gru_bwd_mma_width(d, h, sms), 1
     elif kind == "fwd" and gru_fwd_mma(dtype, h):
         units, most = gru_fwd_mma_width(d, h, sms), 1
-    elif kind == "lstm_fwd" and lstm_fwd_mma(dtype, h):
+    elif kind in ("lstm_fwd", "lstm_fwd_q") and lstm_fwd_mma(dtype, h):
         units, most = lstm_fwd_mma_width(d, h, sms), 1
     smem = resident_smem_bytes(kind, h, b, dtype, units)
     if smem > smem_per_block:

@@ -35,17 +35,23 @@ CUDA cores.
 ``lstm_fwd_q`` is the forward with weight-only int8 recurrent weights
 (``utils/quantize.py``'s layout: int8 ``Q [H,4H]``, an f32 scale per
 output channel): ``(round(h) @ Q) * scale + b``. It launches
-``csrc/lstm_fwd_q.cu`` (replacing ``_lstm_kernel_q``, :292, K16), the
-slice held as int8 and widened 64 rows at a time beside the h_prev
-chunk, or where that does not fit (ds2_full's H=1760: 220 blocks of one
-an SM), or when the caller forces it, ``lstm_fwd_q_stream``
-(``csrc/lstm_fwd_q_stream.cu``, replacing ``_lstm_kernel_blocked_q``,
-:315, K17). In bf16 with H a multiple of 8 (``_fwd_q_stream_mma``)
-that is K14's tensor-core loop with s8 weights: Q^T written into its
-scratch once a call, its s8 pieces streamed (part held in shared
-memory) and widened to bf16 in registers for ``mma.sync``; f32 and
-other H stage Q through shared memory as f32 for the CUDA cores.
-Neither int8 kernel writes a tape: the TPU kernels have none.
+``csrc/lstm_fwd_q.cu`` (replacing ``_lstm_kernel_q``, :292, K16). With
+bf16 dots and H a multiple of 8 (``_fwd_q_mma``) that is K12's two
+launches on Q: ``bf16(Q^T)`` written into its scratch once a call (exact:
+every int8 value is a bf16 value), then K12's ``mma.sync`` loop with
+each group's rows of it resident and the scale applied to the finished
+sums; f32 and other H hold the slice as int8 and widen it 64 rows at a
+time beside the h_prev chunk for the CUDA cores. Where the resident
+kernel does not fit (ds2_full's H=1760; in bf16 H above 1056 at D=2 and
+1216 at D=1), or when the caller forces it, ``lstm_fwd_q`` launches
+``lstm_fwd_q_stream`` (``csrc/lstm_fwd_q_stream.cu``, replacing
+``_lstm_kernel_blocked_q``, :315, K17). In bf16 with H a multiple of 8
+(``_fwd_q_stream_mma``) that is K14's tensor-core loop with s8 weights:
+Q^T written into its scratch once a call, its s8 pieces streamed (part
+held in shared memory) and widened to bf16 in registers for
+``mma.sync``; f32 and other H stage Q through shared memory as f32 for
+the CUDA cores. Neither int8 kernel writes a tape: the TPU kernels have
+none.
 
 ``lstm_bwd`` is the BPTT, with the gates recomputed from the stored
 outputs and the cell-state tape: ``csrc/lstm_bwd.cu`` (replacing
@@ -203,6 +209,28 @@ def _fwd_stream_scratch(xp, w) -> torch.Tensor:
     return torch.empty((d * bsz * h,), dtype=torch.float32, device=xp.device)
 
 
+def _fwd_q_mma(xp: torch.Tensor, wq: torch.Tensor) -> bool:
+    """Whether ``lstm_fwd_q``'s C call runs its tensor-core path
+    (csrc/lstm_fwd_mma.cuh's widening transpose and loop): the rule of
+    ``gru.lstm_fwd_mma`` on the dot dtype ``xp.dtype`` (``wq`` is always
+    int8), bf16 with H a multiple of 8, which ``lstm_fwd_q_launch``
+    applies before any launch (it also needs the scratch 16-byte
+    aligned, which ``torch.empty`` is). Else the CUDA-core kernel
+    runs."""
+    return gru.lstm_fwd_mma(xp.dtype, wq.shape[1])
+
+
+def _fwd_q_scratch(xp, wq) -> torch.Tensor:
+    """``lstm_fwd_q``'s scratch, f32: on the tensor-core path
+    ``_fwd_scratch``'s layout, the cell state ``[D,B,H]`` in f32, then
+    the rounded h rows ``[2,D,B,H]`` and ``Wt = bf16(Q^T) [D,4H,H]``,
+    both in bf16 (``2*D*B*H + 2*D*H*H`` floats, 10.24 MB of Wt at D=2,
+    H=800); none for the CUDA-core kernel."""
+    d, bsz, h = wq.shape[0], xp.shape[1], wq.shape[1]
+    floats = 2 * d * bsz * h + 2 * d * h * h if _fwd_q_mma(xp, wq) else 0
+    return torch.empty((floats,), dtype=torch.float32, device=xp.device)
+
+
 def _fwd_q_stream_mma(xp: torch.Tensor, wq: torch.Tensor) -> bool:
     """Whether ``lstm_fwd_q_stream``'s C call runs its tensor-core path:
     a bf16 dot dtype (``xp``'s; ``wq`` is always int8) with H a multiple
@@ -315,14 +343,19 @@ def lstm_fwd_q(xp: torch.Tensor, mask: torch.Tensor, wq: torch.Tensor,
     the dot dtype, the sum in f32, the scale applied to the finished
     column sums; then ``lstm_fwd``'s update.
 
-    A CPU tensor runs ``lstm_fwd_q_plain``. A CUDA tensor launches the
-    resident kernel ``csrc/lstm_fwd_q.cu`` (one launch, counted in
-    ``lstm_fwd_q.launches``) where ``gru.resident_fits("lstm_fwd_q",
+    A CPU tensor runs ``lstm_fwd_q_plain``. A CUDA tensor calls the
+    resident kernel's C entry point ``csrc/lstm_fwd_q.cu`` once (counted
+    in ``lstm_fwd_q.launches``) where ``gru.resident_fits("lstm_fwd_q",
     ...)`` holds on this card, and ``lstm_fwd_q_stream`` otherwise.
-    ``blocked`` forces the choice, as ``lstm_scan_pallas_q``'s does
-    (lstm_pallas.py:350): True the streamed kernel, False the resident
-    one, which raises where it does not fit (judged on an H100's limits
-    for a CPU tensor). A refused launch raises.
+    Where ``_fwd_q_mma`` holds (bf16 dots, H % 8 == 0) that call is two
+    launches, ``bf16(Q^T)`` written into the scratch, then K12's serial
+    ``mma.sync`` loop with each group's rows of it held in shared memory
+    and the scale on the finished sums (``csrc/lstm_fwd_mma.cuh``); f32
+    and other bf16 calls run the CUDA-core kernel. ``blocked`` forces
+    the choice, as ``lstm_scan_pallas_q``'s does (lstm_pallas.py:350):
+    True the streamed kernel, False the resident one, which raises where
+    it does not fit (judged on an H100's limits for a CPU tensor). A
+    refused launch raises.
     """
     reverse = tuple(bool(r) for r in reverse)
     gru._check(xp, mask, wq, b, None, reverse, scale, gates=4)
@@ -334,14 +367,15 @@ def lstm_fwd_q(xp: torch.Tensor, mask: torch.Tensor, wq: torch.Tensor,
     if blocked is False and not fits:
         raise ValueError(
             f"lstm_fwd_q forced resident (blocked=False), but D={d} x H={h} "
-            f"int8 slices do not fit the card's shared memory and SMs")
+            f"does not fit the resident kernel's shared memory and SMs")
     if xp.device.type == "cpu":
         return lstm_fwd_q_plain(xp, mask, wq, scale, b, reverse)
     if (not fits) if blocked is None else blocked:
         return lstm_fwd_q_stream(xp, mask, wq, scale, b, reverse)
     ys, _ = _outputs(xp, wq, False)
     if ys.numel():
-        gru._launch("lstm_fwd_q", xp, mask, wq, (scale, b, ys), reverse)
+        gru._launch("lstm_fwd_q", xp, mask, wq,
+                    (scale, b, ys, _fwd_q_scratch(xp, wq)), reverse)
         lstm_fwd_q.launches += 1
     return ys
 

@@ -44,6 +44,7 @@ _PORT_KERNELS = ("gru_fwd_kernel", "gru_fwd_transpose_kernel",
                  "lstm_fwd_transpose_kernel", "lstm_fwd_mma_kernel",
                  "lstm_fwd_stream_kernel", "lstm_fwd_stream_transpose_kernel",
                  "lstm_fwd_stream_mma_kernel", "lstm_fwd_q_kernel",
+                 "lstm_fwd_q_transpose_kernel", "lstm_fwd_q_mma_kernel",
                  "lstm_fwd_q_stream_kernel",
                  "lstm_fwd_q_stream_transpose_kernel",
                  "lstm_fwd_q_stream_mma_kernel", "lstm_bwd_kernel",

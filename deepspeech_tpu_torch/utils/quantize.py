@@ -20,8 +20,9 @@ int8 into ``ops/gru.py``'s ``gru_fwd_q`` (GRU) or ``ops/lstm.py``'s
 residency rule (``ops/gru.py`` ``resident_fits("fwd_q", ...)``, or
 ``"lstm_fwd_q"`` for an LSTM), not by the TPU's 10 MB VMEM budget:
 ``csrc/gru_fwd_q.cu`` (K10) / ``csrc/lstm_fwd_q.cu`` (K16) hold int8 W
-where the grid's shared memory can, ``csrc/gru_fwd_q_stream.cu`` (K11)
-/ ``csrc/lstm_fwd_q_stream.cu`` (K17) stream it elsewhere.
+(K16 with bf16 dots as Q^T widened to bf16) where the grid's shared
+memory can, ``csrc/gru_fwd_q_stream.cu`` (K11) /
+``csrc/lstm_fwd_q_stream.cu`` (K17) stream it elsewhere.
 """
 
 from __future__ import annotations
@@ -143,12 +144,15 @@ _Q_KIND = {"gru": "fwd_q", "lstm": "lstm_fwd_q"}
 
 
 def _resident(model_cfg, card: Tuple[int, ...]) -> bool:
-    """The Hopper residency rule for the int8 recurrence of this model:
-    ``csrc/gru_fwd_q.cu`` (GRU) or ``csrc/lstm_fwd_q.cu`` (LSTM) holds
-    D x ceil(H/16) int8 slices on a card with ``card``'s (sms,
-    smem_per_block, smem_per_sm), an H100's by default. Judged at one
-    batch row: the GRU's rule does not read the batch, and the LSTM's
-    cell state adds 64 bytes a row to a block."""
+    """The Hopper residency rule for the int8 recurrence of this model,
+    on a card with ``card``'s (sms, smem_per_block, smem_per_sm), an
+    H100's by default: ``csrc/gru_fwd_q.cu`` (GRU) holds D x ceil(H/16)
+    int8 slices; ``csrc/lstm_fwd_q.cu`` (LSTM) with bf16 dots (the
+    model's dtype) and H % 8 == 0 holds Q^T widened to bf16 in K12's
+    tensor-core groups (H up to 1056 at D=2 and 1216 at D=1, whatever
+    the batch), else D x ceil(H/16) int8 slices beside the cell state.
+    Judged at one batch row: only the LSTM's CUDA-core kernel reads the
+    batch, its cell state adding 64 bytes a row to a block."""
     d = 2 if model_cfg.bidirectional else 1
     return gru.resident_fits(_Q_KIND[model_cfg.rnn_type], d,
                              model_cfg.rnn_hidden, 1,

@@ -306,13 +306,23 @@ def test_wrappers_reject_other_devices_and_bad_arguments():
     ("lstm_fwd", 2, 1760, False),      # ds2_full: 460 KB; bf16 220 groups
     ("lstm_fwd", 2, 832, True),        # h_pad 832: the last f32 H, 220 KB
     ("lstm_fwd", 1, 833, False),       # h_pad 896: 236 KB, in both
-    ("lstm_fwd_q", 2, 800, True),      # ds2_small int8: 80 KB
+    # int8: f32 dots, the CUDA-core block of int8 slices; bf16 dots (H %
+    # 8 == 0): K12's tensor-core rule on bf16(Q^T), tests/
+    # test_torch_lstm_fwd_q_mma.py. "f32": resident with f32 dots alone.
+    ("lstm_fwd_q", 2, 800, True),      # ds2_small int8: 80 KB; bf16 172
     ("lstm_fwd_q", 2, 1760, False),    # ds2_full int8: 220 of 132 slots
-    ("lstm_fwd_q", 2, 1344, True),     # 113 KB, two an SM: 168 of 264
+    ("lstm_fwd_q", 2, 1344, "f32"),    # 113 KB, two an SM: 168 of 264;
+                                       # bf16: past K12's 1056
     ("lstm_fwd_q", 2, 1345, False),    # 117 KB, one an SM: 170 of 132
-    ("lstm_fwd_q", 1, 1760, True),     # 110 blocks
+    ("lstm_fwd_q", 1, 1760, "f32"),    # 110 blocks; bf16: past 1216
+    ("lstm_fwd_q", 2, 1056, True),     # bf16: K12's D=2 edge
+    ("lstm_fwd_q", 2, 1064, "f32"),    # bf16: 134 groups of 16
+    ("lstm_fwd_q", 1, 1216, True),     # bf16: K12's D=1 edge, 224 KB
+    ("lstm_fwd_q", 1, 1224, "f32"),    # bf16: 228 KB a block
 ])
 def test_residency_rule_of_the_lstm_kernels(dtype, kind, d, h, resident):
+    if resident == "f32":
+        resident = dtype == torch.float32
     assert gru.resident_fits(kind, d, h, 32, dtype) is resident
 
 
