@@ -22,7 +22,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    - ``gru_bwd`` at the same shapes (library: cuDNN's GRU backward);
    - ``ctc_alpha`` (with and without its tape) and ``ctc_beta`` at B=32,
      T'=850, labels of about 15 characters a second, S <= 513
-     (library: ``torch.nn.functional.ctc_loss``);
+     (library: ``torch.nn.functional.ctc_loss``), and checked also at
+     ``ctc_variants.CHECKS``' shapes (T=37 with B=45, B=8, S=1, S=1024,
+     B=64 and B=128, V=4336), each printing the plan it launched with
+     and whether ll, the tape, gamma, the loss and dlogits equal the
+     plain version's bit for bit;
    - ``gru_fwd_stream`` and ``gru_bwd_stream`` (W streamed every step)
      at ds2_full's B=32, T'=850, H=1760 (library: cuDNN's GRU at
      H=1760, forward and backward timed apart); ``gru_fwd_stream`` also
@@ -1017,29 +1021,23 @@ def _rel_max_err(a, b) -> float:
     return float(((a - b).abs() / b.abs().clamp(min=1.0))[live].max())
 
 
-def _ctc_batch(gen, b: int = B, t: int = T):
-    """Logits and labels of a ragged (b, t) batch: 2t..2t/5.7 feature
-    frames (300..1700 at t=850) with one at the full length, labels of
-    0.15 characters per feature frame (about 15 a second at 100 frames
-    a second), random ids 1..28 with repeats, padded to L_MAX."""
-    dev = "cuda"
-    lens = torch.randint(t * 300 // 850, t + 1, (b,), generator=gen,
-                         device=dev)
-    lens[0] = t
-    lab_lens = (0.15 * 2 * lens.float()).long().clamp(max=L_MAX)
-    labels = torch.randint(1, V, (b, L_MAX), generator=gen, device=dev)
-    labels = labels * (torch.arange(L_MAX, device=dev)[None]
-                       < lab_lens[:, None])
-    logits = torch.randn(b, t, V, generator=gen, device=dev) * 2
-    return logits, labels.int(), lens.int(), lab_lens.int()
-
-
-def ctc_kernel_phase(gen):
+def _ctc_check(gen, name: str, b: int, t: int, v: int, l_max: int,
+               per_frame: float, pad: int):
+    """The CTC kernels at one shape against their plain versions: ll,
+    the tape and gamma (at S = 2 * l_max + 1 + pad, ext padded with
+    blank columns that no path reaches), and the loss and dlogits
+    through ``ctc_loss`` against the same with the plain versions
+    patched in (at S = 2 * l_max + 1), each within CTC_TOL; the same
+    bits twice, the loss-only ll equal to the taped one. Prints the
+    errors, whether each output equals the plain one bit for bit, and
+    the plan the kernels launched with. Returns the batch, the kernels'
+    outputs and the errors."""
+    from deepspeech_tpu_torch import ctc_variants
     from deepspeech_tpu_torch.ops import ctc
 
-    logits, labels, lens, lab_lens = _ctc_batch(gen)
-    prep = ctc.prepare(logits, labels, lens, lab_lens)
-    lp, ext, skip, il, sl = prep
+    logits, labels, lens, lab_lens = ctc_variants.batch(gen, b, t, v, l_max,
+                                                        per_frame)
+    prep = ctc_variants.operands(logits, labels, lens, lab_lens, pad)
     ll, tape = ctc.ctc_alpha(*prep, tape=True)
     ll2, tape2 = ctc.ctc_alpha(*prep, tape=True)
     ll_lo, _ = ctc.ctc_alpha(*prep, tape=False)
@@ -1051,6 +1049,9 @@ def ctc_kernel_phase(gen):
     errs = {"loglik": _rel_max_err(ll, ll_p),
             "tape": _rel_max_err(tape, tape_p),
             "gamma": float((gamma - gamma_p).abs().max())}
+    equal = {"loglik": torch.equal(ll, ll_p),
+             "tape": torch.equal(tape, tape_p),
+             "gamma": torch.equal(gamma, gamma_p)}
     # The loss and dlogits through ctc_loss, kernels against plain.
     lg = logits.clone().requires_grad_()
     loss = ctc.ctc_loss(lg, labels, lens, lab_lens)
@@ -1062,17 +1063,42 @@ def ctc_kernel_phase(gen):
         loss_p.sum().backward()
     errs["loss"] = _rel_max_err(loss.detach(), loss_p.detach())
     errs["dlogits"] = float((lg.grad - lg_p.grad).abs().max())
-    for name, err in errs.items():
-        _require(err <= CTC_TOL, f"ctc {name}: kernel - plain {err} > "
-                 f"{CTC_TOL}")
+    equal["loss"] = torch.equal(loss, loss_p)
+    equal["dlogits"] = torch.equal(lg.grad, lg_p.grad)
+    for key, err in errs.items():
+        _require(err <= CTC_TOL, f"ctc[{name}] {key}: kernel - plain {err} "
+                 f"> {CTC_TOL}")
     _require(torch.equal(ll, ll2) and torch.equal(tape, tape2)
              and torch.equal(gamma, gamma2),
-             "ctc kernels: two runs on one input differ")
-    _require(torch.equal(ll_lo, ll), "ctc_alpha: the loss-only "
+             f"ctc[{name}] kernels: two runs on one input differ")
+    _require(torch.equal(ll_lo, ll), f"ctc_alpha[{name}]: the loss-only "
              "log-likelihood differs from the taped one")
-    _require(bool(torch.isfinite(loss).all()), "ctc: non-finite loss")
-    print(json.dumps({"check": "ctc", "errs": errs, "tol": CTC_TOL,
-                      "bit_identical": True}), flush=True)
+    s = prep[1].shape[1]
+    print(json.dumps({"check": "ctc" if name == "main" else f"ctc[{name}]",
+                      "shape": {"B": b, "T": t, "V": v, "S": s,
+                                "max_s_last": int(prep[4].max())},
+                      "plan": ctc.ctc_plan(b, s, logits.device),
+                      "errs": errs, "tol": CTC_TOL, "bit_equal_plain": equal,
+                      "same_bits_twice": True}), flush=True)
+    return logits, labels, lens, lab_lens, prep, ll, tape, gamma, errs
+
+
+def ctc_kernel_phase(gen):
+    """The CTC kernels at the main shape (B=32, T'=850, V=29, S <= 513)
+    and at each of ``ctc_variants.CHECKS``, each held by ``_ctc_check``,
+    then timed at the main shape beside their plain versions and
+    ``F.ctc_loss``."""
+    from deepspeech_tpu_torch import ctc_variants
+    from deepspeech_tpu_torch.ops import ctc
+
+    logits, labels, lens, lab_lens, prep, ll, tape, gamma, errs = _ctc_check(
+        gen, "main", B, T, V, L_MAX, 0.15, 0)
+    lp, ext, skip, il, sl = prep
+    _require(bool(torch.isfinite(ll).all()), "ctc: non-finite loss")
+    # Their own generator, so that later phases draw what they drew before.
+    gen_checks = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    for check in ctc_variants.CHECKS:
+        _ctc_check(gen_checks, *check)
 
     # Bounds, from this input: band cells a path can reach are t < len
     # and s <= 2L; about 12 operations each for alpha (three exp, one
@@ -1123,8 +1149,10 @@ def ctc_kernel_phase(gen):
             "ms": times[key], "plain_ms": plain[key],
             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
             "library_ms": lib, "shape": shape})
-    print(json.dumps({"timed": "ctc", "ms": times, "plain_ms": plain,
-                      "library_fwd_ms": lib_fwd,
+    print(json.dumps({"timed": "ctc", "ms": times,
+                      "ns_per_step": {k: 1e6 * v / T
+                                      for k, v in times.items()},
+                      "plain_ms": plain, "library_fwd_ms": lib_fwd,
                       "library_fwd_bwd_ms": lib_fwd_bwd,
                       "bounds": bounds}), flush=True)
     return entries

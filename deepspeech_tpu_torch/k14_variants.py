@@ -65,7 +65,8 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
 
 
 def build_variants(source: str, variants: Dict[str, List[Tuple[str, str]]],
-                   tag: str, copies: Optional[Dict[str, str]] = None
+                   tag: str, copies: Optional[Dict[str, str]] = None,
+                   entry: str = "mma_kernel"
                    ) -> Tuple[Dict[str, ctypes.CDLL], Dict[str, list]]:
     """Build each of ``variants`` (name -> text substitutions of
     ``csrc/<source>.cu``) and each of ``copies`` (name -> the path of
@@ -73,8 +74,8 @@ def build_variants(source: str, variants: Dict[str, List[Tuple[str, str]]],
     ``build/torch_kernels/<tag>/``, one ``nvcc -Xptxas -v`` each (headers
     from ``csrc/``), all started together. Returns the loaded libraries
     and, for each, ptxas's registers and spills of its tensor-core loops
-    (the report after each ``mma_kernel`` entry, in ptxas's order; none
-    where the source has no such kernel)."""
+    (the report after each entry whose name holds ``entry``, in ptxas's
+    order; none where the source has no such kernel)."""
     with open(os.path.join(_build.CSRC_DIR, f"{source}.cu")) as f:
         text = f.read()
     out_dir = os.path.join(_build.BUILD_DIR, tag)
@@ -105,8 +106,8 @@ def build_variants(source: str, variants: Dict[str, List[Tuple[str, str]]],
         libs[name] = ctypes.CDLL(lib)
         lines = log.splitlines()
         ptxas[name] = [
-            x.strip() for at, entry in enumerate(lines)
-            if "Compiling entry" in entry and "mma_kernel" in entry
+            x.strip() for at, line in enumerate(lines)
+            if "Compiling entry" in line and entry in line
             for x in lines[at + 1:at + 4] if "spill" in x or "Used" in x]
     return libs, ptxas
 

@@ -28,11 +28,14 @@ What bounds the kernels on the H100: at B=32, T'=850, S=513, K1 reads
 the log-probs (3.2 MB) and writes the f32 alpha tape (55.8 MB), about
 0.018 ms at 3.35 TB/s; K2 reads both and writes gamma, about 0.035 ms.
 The T' steps are serial, so the time is T' times one step's latency.
-Each kernel runs one block per utterance and one thread per band state,
-with the band double-buffered in shared memory (one barrier per step)
-and the next step's emission and tape value loaded a step ahead. The
-log-softmax, the gather of ``ext`` and the fold of gamma into vocab
-bins stay torch ops, as they stay XLA ops in the JAX package. The fold
+Each kernel runs a cluster of C CTAs per utterance (``ctc_plan``), the
+band cut into one segment a warp; a lane holds its state in a register
+and takes its neighbours' by shuffles, and a warp recomputes a ghost
+zone of its upstream neighbour's states so that segments trade edges
+only every h steps (``csrc/ctc.cu`` says more), with the plain
+version's bits. The log-softmax, the gather of ``ext`` and the fold of
+gamma into vocab bins stay torch ops, as they stay XLA ops in the JAX
+package. The fold
 is a product with a one-hot ``[B, S, V]`` in full f32: no atomics, so
 the gradient is the same bits on every run.
 
@@ -52,7 +55,7 @@ from . import _build
 from .precision import full_f32_matmul
 
 NEG = -1e30  # log(0) without -inf NaN hazards
-MAX_S = 1024  # one thread per band state: S = 2L+1 <= 1024
+MAX_S = 1024  # the kernels' limit: S = 2L+1 <= 1024
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +231,7 @@ def _check(log_probs, ext, skip, input_lens, s_last, alphas=None,
         raise ValueError(f"ext must be [B={b},S]; got {list(ext.shape)}")
     s = ext.shape[1]
     if s > MAX_S:
-        raise ValueError(f"S={s} > {MAX_S}: the kernel runs one thread per "
-                         "band state")
+        raise ValueError(f"S={s} > {MAX_S}: the kernels' band limit")
     want = {"ext": (ext, torch.int32, (b, s)),
             "skip": (skip, torch.bool, (b, s)),
             "input_lens": (input_lens, torch.int32, (b,)),
@@ -327,6 +329,25 @@ def _raise_on(lib, rc: int, what: str) -> None:
                            f"[cudaError {rc}]")
 
 
+PLAN_KEYS = ("C", "W", "own", "h", "KS", "PREFETCH", "STRIDED")
+
+
+def ctc_plan(b: int, s: int, device: torch.device) -> dict:
+    """The plan both kernels launch with at ``B=b``, ``S=s`` on a CUDA
+    ``device``: ``C`` CTAs a cluster, ``W`` warps a CTA, ``own`` states
+    a segment, ``h`` steps between exchanges, and the source's ``KS``
+    states a lane, ``PREFETCH`` steps of loads ahead and ``STRIDED``
+    layout (``ctc_variants.plan`` mirrors it)."""
+    lib = _lib()
+    lib.ctc_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.ctc_plan.restype = ctypes.c_int
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    _raise_on(lib, lib.ctc_plan(b, s, index, out), f"ctc_plan (B={b}, S={s})")
+    return dict(zip(PLAN_KEYS, out))
+
+
 def ctc_alpha(log_probs: torch.Tensor, ext: torch.Tensor,
               skip: torch.Tensor, input_lens: torch.Tensor,
               s_last: torch.Tensor, tape: bool
@@ -335,7 +356,8 @@ def ctc_alpha(log_probs: torch.Tensor, ext: torch.Tensor,
 
     ``log_probs [B,T,V]`` f32 (log-softmax of the logits), ``ext [B,S]``
     int32 extended labels, ``skip [B,S]`` bool (the s-2 -> s move is
-    legal), ``input_lens [B]`` int32 frames, ``s_last [B]`` int32
+    legal; false at the blank states, even s, as ``transition_masks``
+    makes it), ``input_lens [B]`` int32 frames, ``s_last [B]`` int32
     (= 2 * label_len; states past it are invalid). Returns
     ``(loglik [B] f32, alphas [B,T,S] f32 or None)``: the tape when
     ``tape`` (K1), none otherwise (K3). Frames at or past ``input_len``
