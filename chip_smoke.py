@@ -118,7 +118,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    version, in bf16 and f32 (and a mis-directed backward that the check
    must reject), and takes AdamW steps on the fixed batch whose loss,
    measured without a gradient (the loss-only kernel), must fall;
-6. prints each phase's seconds on a line of its own, a
+6. the manifest phase: ds2_small at full width (B=32) on 128 WAV files
+   written from a seed (32 a bucket of 400, 800, 1200 and 1700 frames)
+   trains 2 epochs (8 steps) through ``DataPipeline`` (augmented, with
+   SpecAugment), ``device_prefetch`` and ``Trainer.fit``, checkpointing
+   every 3 steps and at each epoch's end; with step 8 deleted a fresh
+   Trainer restores step 6 and must end bit-identical to the first run
+   (parameters and optimizer state), the prefetched batches equal to the
+   host's; ``Inferencer(params=None)`` then decodes 40 eval WAVs through
+   ``decode_batch_bucketed``, its log-probs on a (32, 1700) rung equal
+   to the trained model's (3 ``gru_fwd`` a forward), and
+   ``restore_params(average_last=2)`` must be the mean of steps 6 and
+   8; the launches of K1-K5 on this path join the ``kernels`` line, and
+   the step with and without ``device_prefetch``, the featurization, the
+   checkpoint's bytes and seconds are printed;
+7. prints each phase's seconds on a line of its own, a
    ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -132,9 +146,12 @@ import functools
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -1813,6 +1830,304 @@ def train_phase(preset: str, layers: int, streamed: bool, steps: int,
             "loss_only": descent["loss_only"]}
 
 
+# The manifest phase: ds2_small at full width trains on WAV files
+# through DataPipeline, device_prefetch and Trainer.fit with
+# checkpoints, resumes in a fresh Trainer, and serves the newest step.
+MANIFEST_BUCKETS = (400, 800, 1200, 1700)   # ds2_small's bucket_frames
+MANIFEST_PER_BUCKET = 32                     # one batch a bucket an epoch
+MANIFEST_EVAL = 40
+MANIFEST_EVERY = 3                           # checkpoint_every_steps
+MANIFEST_TIMED = 16                          # steps a turn of the timing
+MANIFEST_LETTERS = "abcdefghijklmnopqrstuvwxyz '"
+
+
+def _write_wav(path: str, audio: np.ndarray) -> None:
+    import wave
+
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.clip(audio, -1, 1) * 32767).astype(np.int16)
+                      .tobytes())
+
+
+def _write_corpus(root: str, name: str, durations, rng) -> str:
+    """16 kHz 16-bit WAVs of ``durations`` seconds (tones in noise) with
+    random English transcripts of about 0.15 characters a frame, and
+    their manifest; returns the manifest's path."""
+    from deepspeech_tpu_torch.data import Utterance, save_manifest
+
+    utts = []
+    for i, dur in enumerate(durations):
+        dur = round(float(dur), 3)
+        t = np.arange(int(dur * 16000), dtype=np.float32) / 16000.0
+        audio = (0.3 * np.sin(2 * np.pi * rng.uniform(100, 3000) * t)
+                 + 0.05 * rng.standard_normal(t.shape, dtype=np.float32))
+        path = os.path.join(root, f"{name}{i}.wav")
+        _write_wav(path, audio)
+        n = max(int(0.15 * dur * 100), 1)
+        text = "".join(rng.choice(list(MANIFEST_LETTERS), size=n)).strip()
+        utts.append(Utterance(path, text or "a", dur))
+    manifest = os.path.join(root, f"{name}.jsonl")
+    save_manifest(manifest, utts)
+    return manifest
+
+
+class _Events:
+    """A logger that keeps the trainer's events."""
+
+    def __init__(self):
+        self.events = []
+
+    def log(self, event: str, **fields) -> None:
+        self.events.append((event, fields))
+
+
+def manifest_phase(root: str):
+    """ds2_small (2 conv, 3 BiGRU H=800, bf16, B=32) at full width on a
+    WAV manifest: 2 epochs (8 steps) of ``Trainer.fit`` with waveform
+    augmentation and SpecAugment, a checkpoint every 3 steps and at each
+    epoch's end (steps 3, 4, 6, 8); step 8 deleted, a fresh Trainer
+    restores step 6 in epoch 1 and takes exactly the 2 steps left,
+    ending with the first run's parameters and optimizer state bit for
+    bit, the batches ``device_prefetch`` delivered equal to the host's;
+    then ``Inferencer(params=None)`` serves the newest step through
+    ``decode_batch_bucketed``, its log-probs on a (32, 1700) rung equal
+    to the trained model's, and ``restore_params(average_last=2)`` the
+    mean of steps 6 and 8. Returns the launches of the main path (both
+    fits and the serving) by kernel."""
+    from deepspeech_tpu_torch import train as train_mod
+    from deepspeech_tpu_torch.checkpoint import CheckpointManager
+    from deepspeech_tpu_torch.config import apply_overrides, get_config
+    from deepspeech_tpu_torch.data import (CharTokenizer, DataPipeline,
+                                           device_prefetch)
+    from deepspeech_tpu_torch.data.infer_bucket import plan_infer_buckets
+    from deepspeech_tpu_torch.infer import Inferencer, restore_params
+    from deepspeech_tpu_torch.metrics import cer, wer
+    from deepspeech_tpu_torch.ops import gru
+    from deepspeech_tpu_torch.ops.ctc import ctc_loss_mean
+    from deepspeech_tpu_torch.train import Trainer, to_device
+
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    edges = (0.3,) + tuple(e / 100 for e in MANIFEST_BUCKETS)
+    train_durs = np.concatenate([
+        rng.uniform(lo + 0.05, min(hi, 16.5) - 0.05, MANIFEST_PER_BUCKET)
+        for lo, hi in zip(edges[:-1], edges[1:])])
+    train_m = _write_corpus(root, "train", train_durs, rng)
+    eval_m = _write_corpus(root, "eval", rng.uniform(
+        0.5, min(edges[-1], 16.5) - 0.1, MANIFEST_EVAL), rng)
+    write_s = time.perf_counter() - t0
+    ck = os.path.join(root, "ck")
+    cfg = apply_overrides(get_config("ds2_small"), {
+        "data.train_manifest": train_m, "data.eval_manifest": eval_m,
+        "data.augment": "true", "data.spec_augment": "true",
+        "train.checkpoint_dir": ck, "train.epochs": "2",
+        "train.checkpoint_every_steps": str(MANIFEST_EVERY)})
+    _require(cfg.data.bucket_frames == MANIFEST_BUCKETS
+             and cfg.data.batch_size == B and cfg.model.rnn_hidden == H,
+             f"ds2_small is not the configuration this phase was cut for: "
+             f"{cfg.data}")
+    tok = CharTokenizer.english()
+    params, stats = _weights("ds2_small")
+
+    def trainer():
+        return Trainer(cfg, DataPipeline(cfg, tok, train_m), tok,
+                       DataPipeline(cfg, tok, eval_m), _Events(),
+                       params=params, batch_stats=stats)
+
+    # Prefetched batches, copied back to the host as they are consumed,
+    # beside the host batches they were made from.
+    seen = {"host": [], "device": []}
+
+    def recording_prefetch(batches, device, depth=2):
+        def tee():
+            for b in batches:
+                seen["host"].append(b)
+                yield b
+        for dev in device_prefetch(tee(), device, depth):
+            seen["device"].append({k: v.cpu() for k, v in dev.items()})
+            yield dev
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    full = trainer()
+    full.fit()
+    fit_s = time.perf_counter() - t0
+    steps_full = full.ckpt.all_steps()
+    _require(full.step == 8 and steps_full == [4, 6, 8],
+             f"uninterrupted run: step {full.step}, steps on disk "
+             f"{steps_full} (keep 3 of 3, 4, 6, 8)")
+    shutil.rmtree(os.path.join(ck, "8"))
+    resumed = trainer()
+    resumed.maybe_restore()
+    _require((resumed.step, resumed.start_epoch) == (6, 1),
+             f"restored step {resumed.step} in epoch {resumed.start_epoch}"
+             ", want step 6 in epoch 1")
+    t0 = time.perf_counter()
+    with mock.patch.object(train_mod, "device_prefetch", recording_prefetch):
+        resumed.fit()
+    resume_s = time.perf_counter() - t0
+    _require(resumed.step == 8 and len(seen["host"]) == 2,
+             f"resumed run: step {resumed.step} after "
+             f"{len(seen['host'])} batches, want 8 after 2")
+    # Serving: the newest step through decode_batch_bucketed over the
+    # eval manifest, and a loss without a gradient (the loss-only kernel)
+    # on its (32, 1700) rung.
+    t0 = time.perf_counter()
+    inf = Inferencer(cfg, tok)
+    eval_pipe = DataPipeline(cfg, tok, eval_m)
+    refs, hyps, rung = [], [], None
+    n_eval = n_served = 0
+    for batch, n_valid in eval_pipe.eval_epoch():
+        n_eval += 1
+        n_served += len(plan_infer_buckets(batch["feat_lens"],
+                                           cfg.data.bucket_frames, B))
+        hyps += inf.decode_batch_bucketed(batch)[:n_valid]
+        refs += [tok.decode(batch["labels"][g][:batch["label_lens"][g]])
+                 for g in range(n_valid)]
+        if batch["features"].shape[1] == MANIFEST_BUCKETS[-1]:
+            rung = batch
+    dev = to_device(rung, inf.device)
+    with torch.no_grad():
+        logits, lens = inf.model(dev["features"], dev["feat_lens"])
+        eval_loss = ctc_loss_mean(logits, dev["labels"], lens,
+                                  dev["label_lens"])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = _counts()
+    # 3 BiGRU layers, so 3 gru_fwd a forward: 10 steps (8, then 2
+    # resumed); 3 evaluations (2 epochs, then the resumed one) of the
+    # n_eval eval batches; the serving's ladder plans; the loss without a
+    # gradient (its one loss-only launch).
+    want = {k: 0 for k in counts}
+    want.update({"gru_bwd": 30, "ctc_alpha": 10, "ctc_beta": 10,
+                 "loss_only": 1,
+                 "gru_fwd": 3 * (10 + 3 * n_eval + n_served + 1)})
+    _require(counts == want,
+             f"manifest path: launches {counts}, want {want} ({n_eval} "
+             f"eval batches, {n_served} served plans)")
+
+    # Bit for bit: the resumed run against the uninterrupted one.
+    got, ref = resumed.model.state_dict(), full.model.state_dict()
+    bad = [k for k in ref if not torch.equal(got[k], ref[k])]
+    gs, rs = resumed.optimizer.state_dict(), full.optimizer.state_dict()
+    bad += [f"opt {i}.{k}" for i in rs["state"] for k, v in
+            rs["state"][i].items() if not torch.equal(gs["state"][i][k], v)]
+    _require(not bad and gs["param_groups"] == rs["param_groups"],
+             f"the resumed run differs from the uninterrupted one in "
+             f"{bad[:6]} ({len(bad)} tensors)")
+    for h, d in zip(seen["host"], seen["device"]):
+        for k, v in h.items():
+            _require(torch.equal(d[k], torch.from_numpy(np.asarray(v))),
+                     f"device_prefetch delivered a different {k}")
+    # The restored Inferencer against the trained model, on the rung.
+    _require(rung is not None and rung["features"].shape[0] == B,
+             "no full (32, 1700) eval rung")
+    _zero_counts()
+    lp, _ = inf.forward(rung["features"], rung["feat_lens"])
+    fwd_launches = gru.gru_fwd.launches
+    resumed.model.eval()
+    with torch.no_grad():
+        ref_logits, _ = resumed.model(dev["features"], dev["feat_lens"])
+        ref_loss = ctc_loss_mean(ref_logits, dev["labels"], lens,
+                                 dev["label_lens"])
+    _require(torch.equal(lp, torch.log_softmax(ref_logits, dim=-1))
+             and fwd_launches == 3 and torch.equal(eval_loss, ref_loss),
+             f"the restored Inferencer's log-probs differ from the trained "
+             f"model's, or {fwd_launches} gru_fwd launches (want 3)")
+    mgr = CheckpointManager(ck)
+    avg, _ = restore_params(ck, average_last=2)
+    s6, s8 = mgr.restore(6)["params"], mgr.restore(8)["params"]
+    for path in (("head", "kernel"), ("rnn", "rnn1", "wh_fw"),
+                 ("conv", "conv0", "kernel")):
+        a, b, c = avg, s6, s8
+        for key in path:
+            a, b, c = a[key], b[key], c[key]
+        _require(np.array_equal(a, ((b.astype(np.float64) + c) / 2)
+                                .astype(b.dtype)),
+                 f"average_last=2 at {'.'.join(path)} is not the mean of "
+                 "steps 6 and 8")
+
+    # Informational: featurization a batch (epoch 1, augmented), the
+    # step with device_prefetch against the same steps with the pageable
+    # to_device, in turns of MANIFEST_TIMED steps (epoch 1's 4 batches
+    # over and over, so that the prefetch's start, two batches pinned
+    # before the first step once an epoch, is not a quarter of a turn),
+    # and the checkpoint's bytes and seconds.
+    pipe = resumed.pipeline
+    t0 = time.perf_counter()
+    host = [pipe._materialize(plan, epoch=1) for plan in
+            pipe.sampler.epoch(1)]
+    feat_s = (time.perf_counter() - t0) / len(host)
+    host = (host * MANIFEST_TIMED)[:MANIFEST_TIMED]
+
+    def steps(prefetch: bool):
+        """Seconds a step, and the seconds the consumer's thread spends
+        getting each batch onto the card (the wait in device_prefetch,
+        or the pageable to_device)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batches = device_prefetch(iter(host), resumed.device) \
+            if prefetch else iter(host)
+        fed = []
+        while True:
+            t_feed = time.perf_counter()
+            b = next(batches, None)
+            if b is None:
+                break
+            if not prefetch:
+                b = to_device(b, resumed.device)
+            fed.append(time.perf_counter() - t_feed)
+            resumed.train_step(b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / len(host), fed
+
+    turns = {"prefetch": [], "pageable": []}
+    feed = {"prefetch": [], "pageable": []}
+    for _ in range(2):
+        for mode in ("prefetch", "pageable"):
+            step_s, feed_s = steps(mode == "prefetch")
+            turns[mode].append(step_s)
+            feed[mode] += feed_s
+    resumed.ckpt = CheckpointManager(os.path.join(root, "timing"))
+    t0 = time.perf_counter()
+    resumed.save(2)
+    snap_s = time.perf_counter() - t0
+    resumed.ckpt.wait()
+    save_s = time.perf_counter() - t0
+    step_dir = os.path.join(root, "timing", str(resumed.step))
+    nbytes = {f: os.path.getsize(os.path.join(step_dir, f))
+              for f in sorted(os.listdir(step_dir))}
+    t0 = time.perf_counter()
+    resumed.ckpt.restore()
+    restore_s = time.perf_counter() - t0
+    print(json.dumps({
+        "path": "ds2_small manifest train/resume/serve", "batch": B,
+        "utts": {"train": len(train_durs), "eval": MANIFEST_EVAL},
+        "write_wavs_seconds": write_s, "fit_seconds": fit_s,
+        "resume_fit_seconds": resume_s, "serve_seconds": serve_s,
+        "steps_on_disk": steps_full, "resumed_from": [6, 1],
+        "bit_identical": True, "prefetched_batches_equal": len(seen["host"]),
+        "launches": counts, "quarantined": pipe.quarantined,
+        "eval": [f for e, f in full.logger.events if e == "eval"],
+        "served": {"wer": wer(refs, hyps), "cer": cer(refs, hyps),
+                   "n_utts": len(refs), "eval_loss": float(eval_loss)},
+        "featurize_seconds_per_batch": feat_s,
+        "step_seconds": {k: float(np.mean(v)) for k, v in turns.items()},
+        "step_seconds_turns": turns,
+        "feed_seconds": {k: float(np.mean(v)) for k, v in feed.items()},
+        "feed_seconds_median": {k: float(np.median(v))
+                                for k, v in feed.items()},
+        "feed_seconds_first": {k: v[::MANIFEST_TIMED]
+                               for k, v in feed.items()},
+        "checkpoint_bytes": nbytes, "checkpoint_snapshot_seconds": snap_s,
+        "checkpoint_save_seconds": save_s,
+        "checkpoint_restore_seconds": restore_s}), flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1913,6 +2228,18 @@ def main() -> int:
                               ("ctc_alpha[loss_only]", "loss_only"),
                               ("ctc_beta", "ctc_beta")):
             entries[ctc_name]["launches"] += counts[key]
+    # ds2_small on a WAV manifest: train, checkpoint, resume, serve.
+    root = tempfile.mkdtemp(prefix="chip_smoke_manifest_")
+    try:
+        counts = _phase("ds2_small manifest train/resume/serve",
+                        manifest_phase, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name, key in (("gru_fwd[D=2]", "gru_fwd"), ("gru_bwd[D=2]", "gru_bwd"),
+                      ("ctc_alpha", "ctc_alpha"),
+                      ("ctc_alpha[loss_only]", "loss_only"),
+                      ("ctc_beta", "ctc_beta")):
+        entries[name]["launches"] += counts[key]
     entries = [entries[n] for n in (
         "gru_fwd[D=2]", "gru_fwd[D=1]", "ctc_alpha", "ctc_alpha[loss_only]",
         "ctc_beta", "gru_bwd[D=2]", "gru_bwd[D=1]", "gru_fwd_stream[D=2]",

@@ -12,6 +12,8 @@ raises ``NotImplementedError`` naming the later slice.
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -96,13 +98,16 @@ class DataConfig:
     shuffle_seed: int = 1234
     language: str = "en"  # "en" | "zh"
     vocab_path: str = ""
+    # The JAX package's C++ loader, which computes the same features;
+    # the port featurizes with numpy (data/pipeline.py) and reads
+    # nothing here.
     native_loader: bool = True
     quarantine_corrupt: bool = True
 
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimizer/schedule/loop (training is the next slice)."""
+    """Optimizer/schedule/loop and checkpoints."""
 
     optimizer: str = "sgd"  # "sgd" | "adamw"
     learning_rate: float = 3e-4
@@ -115,7 +120,11 @@ class TrainConfig:
     log_every: int = 10
     eval_every_steps: int = 1000
     checkpoint_every_steps: int = 1000
-    checkpoint_dir: str = "/tmp/deepspeech_tpu_ckpt"
+    # Under the temp directory ($TMPDIR) of the process that builds the
+    # config, so runs that each have a temp directory of their own never
+    # resume or serve each other's steps.
+    checkpoint_dir: str = field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "deepspeech_tpu_ckpt"))
     keep_checkpoints: int = 3
     seed: int = 0
     mesh_shape: Tuple[int, ...] = (0, 1)

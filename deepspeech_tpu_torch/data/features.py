@@ -1,9 +1,12 @@
-"""Log-spectrogram featurizer (numpy, host side).
+"""Log-spectrogram featurizer: ``featurize`` in torch on the tensor's
+device, ``featurize_np`` in numpy for the host pipeline.
 
 Pre-emphasis -> framing -> Hann window -> rFFT -> log-magnitude ->
 per-utterance normalization. Audio ``[N]`` float32 in [-1, 1] ->
 features ``[T, F]`` with ``F = n_fft // 2 + 1`` (320-point FFT at
-16 kHz -> 161 bins, the DS2 layout).
+16 kHz -> 161 bins, the DS2 layout). The two agree to about 1e-4 in
+float32 (their FFTs sum in different orders); the host pipeline uses
+``featurize_np``, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from ..config import FeatureConfig
 
@@ -31,6 +35,31 @@ def num_frames(num_samples: int, cfg: FeatureConfig) -> int:
     if num_samples < win:
         return 0
     return 1 + (num_samples - win) // hop
+
+
+def featurize(audio: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """audio [N] -> log-spectrogram [T, num_features] float32, computed
+    on ``audio``'s device. Raises on audio shorter than one window
+    (filter those upstream with ``data.min_duration_s``)."""
+    win, hop, n_fft = frame_params(cfg)
+    if audio.shape[0] < win:
+        raise ValueError(
+            f"audio has {audio.shape[0]} samples < one window ({win}); "
+            "filter short utterances upstream (DataConfig.min_duration_s)")
+    audio = torch.as_tensor(audio).to(torch.float32)
+    if cfg.preemphasis > 0:
+        audio = torch.cat([audio[:1],
+                           audio[1:] - cfg.preemphasis * audio[:-1]])
+    frames = audio.unfold(0, win, hop)  # [T, win], T = 1 + (N - win) // hop
+    window = torch.hann_window(win, periodic=False, dtype=torch.float32,
+                               device=audio.device)
+    spec = torch.fft.rfft(frames * window, n=n_fft, dim=-1)
+    feats = torch.log(spec.abs() + cfg.eps)
+    if cfg.normalize:
+        mean = feats.mean(dim=0, keepdim=True)
+        std = feats.std(dim=0, keepdim=True, correction=0)
+        feats = (feats - mean) / (std + cfg.eps)
+    return feats
 
 
 def featurize_np(audio: np.ndarray, cfg: FeatureConfig) -> np.ndarray:

@@ -56,8 +56,8 @@ class SyntheticPipeline:
     def peek(self):
         return self.batches[0]
 
-    def epoch(self, epoch_idx: int):
-        return iter(self.batches)
+    def epoch(self, epoch_idx: int, start: int = 0):
+        return iter(self.batches[start:])
 
     def batches_per_epoch(self, epoch_idx: int) -> int:
         return self.n_batches

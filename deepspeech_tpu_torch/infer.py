@@ -5,9 +5,14 @@ decoding: ``Inferencer.decode_batch`` / ``decode_batch_bucketed`` over
 the ``(B, T)`` ladder (data/infer_bucket.py), for a GRU or an LSTM
 model (``model.rnn_type``), with the attribute names
 (``_last_nbest``, ``_last_times``) the serving plane reads. Beam search,
-LM fusion, streaming, sequence-parallel and transducer decoding,
-timestamps and restoring an orbax checkpoint raise
-``NotImplementedError`` naming the slice of the port that brings them.
+LM fusion, streaming, sequence-parallel and transducer decoding and
+timestamps raise ``NotImplementedError`` naming the slice of the port
+that brings them.
+
+Weights: ``Inferencer(params=None)`` restores ``train.checkpoint_dir``
+through ``restore_params``, which reads the port's own checkpoints
+(checkpoint.py) and, where ``tensorstore`` is installed, a directory
+the JAX package's orbax manager wrote (checkpoint_import.py).
 
 ``quantize="int8"`` serves weight-only int8 weights, as the JAX
 package's ``Inferencer(quantize="int8")`` does (infer.py:155-253): PTQ
@@ -17,17 +22,23 @@ leaves int8 on the device and its recurrent layers run ``ops/gru.py``'s
 ``kernel_regime`` names the kernel that holds W.
 
 CLI: ``python -m deepspeech_tpu_torch.infer --config=ds2_small
---synthetic=N [--params=x.npz] [--seed=0] [--device=cpu]
+[--checkpoint-dir=DIR] [--manifest=M] [--vocab=V] [--average-last=K]
+[--params=x.npz] [--synthetic=N [--seed=0]] [--device=cpu]
 [--quantize-weights=int8] [--section.key=value ...]``, e.g.
-``--model.rnn_type=lstm`` for the LSTM variant of a preset. Without
-``--params`` the weights are a random init from ``--seed``
+``--model.rnn_type=lstm`` for the LSTM variant of a preset. It decodes
+``--manifest`` (default ``data.eval_manifest``), or N synthetic
+utterances, with the weights of ``--params``, else of the checkpoint
+directory (the newest step, or the mean of the last K); with
+``--synthetic`` and neither, a random init from ``--seed``
 (bridge.init_params).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
+import os
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -65,11 +76,44 @@ _LATER = {
 }
 
 
+def restore_params(checkpoint_dir: str, average_last: int = 0
+                   ) -> Tuple[Dict, Dict]:
+    """``(params, batch_stats)`` of the newest training step in
+    ``checkpoint_dir`` (flax-layout numpy trees); ``average_last`` > 1
+    averages the params of that many newest steps. Reads the port's own
+    checkpoints, or a JAX orbax directory through
+    ``checkpoint_import`` (which raises ``ImportError`` naming its
+    converter where ``tensorstore`` is missing)."""
+    from .checkpoint import CheckpointManager, average_checkpoints, \
+        average_params
+    from .checkpoint_import import (import_orbax_step, is_orbax_dir,
+                                    orbax_steps)
+
+    if not os.path.isdir(checkpoint_dir):
+        raise FileNotFoundError(
+            f"no checkpoint found in {checkpoint_dir!r}")
+    if is_orbax_dir(checkpoint_dir):
+        if average_last > 1:
+            return average_params(
+                import_orbax_step(checkpoint_dir, s)[:2]
+                for s in orbax_steps(checkpoint_dir)[-average_last:])
+        return import_orbax_step(checkpoint_dir)[:2]
+    if average_last > 1:
+        return average_checkpoints(checkpoint_dir, average_last)
+    raw = CheckpointManager(checkpoint_dir).restore()
+    if raw is None:
+        raise FileNotFoundError(
+            f"no checkpoint found in {checkpoint_dir!r}")
+    return raw["params"], raw["batch_stats"]
+
+
 class Inferencer:
-    """Batched greedy decoding with given weights.
+    """Batched greedy decoding with given or restored weights.
 
     ``params`` / ``batch_stats`` are flax-layout trees of numpy arrays
-    (the JAX package's, or ``bridge.init_params`` / ``bridge.load_npz``).
+    (the JAX package's, or ``bridge.init_params`` / ``bridge.load_npz``);
+    ``params=None`` restores them from ``cfg.train.checkpoint_dir``
+    (``restore_params``).
     ``device`` None means the card (raises without CUDA); pass "cpu" to
     run the plain versions on the CPU. ``quantize="int8"`` quantizes
     ``params`` once here (``quantize_calls``, ``quantize_report``) and
@@ -101,10 +145,7 @@ class Inferencer:
             raise NotImplementedError(
                 "greedy timestamps come with slice 3 of the port")
         if params is None:
-            raise NotImplementedError(
-                "restoring an orbax checkpoint comes with the port's "
-                "checkpoint import; pass params/batch_stats "
-                "(bridge.load_npz)")
+            params, batch_stats = restore_params(cfg.train.checkpoint_dir)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.device = resolve_device(device)
@@ -213,17 +254,30 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     from .bridge import init_params, load_npz
     from .config import apply_overrides, get_config, parse_cli_overrides
+    from .data.manifest import load_manifest
+    from .data.pipeline import DataPipeline
     from .data.synthetic import SyntheticPipeline
-    from .data.tokenizer import get_tokenizer
+    from .data.tokenizer import resolve_tokenizer
 
     parser = argparse.ArgumentParser(prog="deepspeech_tpu_torch.infer")
     parser.add_argument("--config", default="ds2_small")
+    parser.add_argument("--checkpoint-dir", default="",
+                        help="default: train.checkpoint_dir")
+    parser.add_argument("--manifest", default="",
+                        help="eval manifest (default: data.eval_manifest)")
+    parser.add_argument("--vocab", default="", help="tokenizer vocab file")
+    parser.add_argument("--average-last", type=int, default=0,
+                        help="average the params of the last K saved "
+                             "steps; 0/1 = the newest only")
     parser.add_argument("--synthetic", type=int, default=0,
                         help="decode N synthetic utterances")
     parser.add_argument("--params", default="",
-                        help=".npz from bridge.save_npz; default: a random "
-                             "init from --seed")
-    parser.add_argument("--seed", type=int, default=0)
+                        help=".npz from bridge.save_npz (or a checkpoint "
+                             "step's params.npz); overrides the "
+                             "checkpoint directory")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="with --synthetic and no weights: the seed "
+                             "of a random init")
     parser.add_argument("--device", default=None,
                         help="'cuda' (default) or 'cpu'")
     parser.add_argument("--quantize-weights", default="",
@@ -234,21 +288,36 @@ def main(argv: Optional[List[str]] = None) -> None:
     args, extra = parser.parse_known_args(argv)
     cfg = apply_overrides(get_config(args.config),
                           parse_cli_overrides(extra))
-    if not args.synthetic:
-        raise NotImplementedError(
-            "decoding a manifest comes with slice 2b of the port "
-            "(checkpoints and manifest data); "
-            "use --synthetic=N")
+    if args.checkpoint_dir:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, checkpoint_dir=args.checkpoint_dir))
+    if args.synthetic:
+        tokenizer, cfg = resolve_tokenizer(cfg, synthetic=True,
+                                           vocab_override=args.vocab)
+        batches = SyntheticPipeline(cfg, args.synthetic).eval_epoch()
+    else:
+        manifest = args.manifest or cfg.data.eval_manifest
+        if not manifest:
+            raise SystemExit("need --manifest, --synthetic, or "
+                             "data.eval_manifest")
+        utts = load_manifest(manifest, cfg.data.min_duration_s,
+                             cfg.data.max_duration_s)
+        # A zh vocabulary comes from an explicit file or the training
+        # run's <checkpoint_dir>/vocab.txt, never from eval transcripts.
+        tokenizer, cfg = resolve_tokenizer(cfg, utterances=utts,
+                                           vocab_override=args.vocab)
+        batches = DataPipeline(cfg, tokenizer, utterances=utts).eval_epoch()
     if args.params:
         params, batch_stats = load_npz(args.params)
-    else:
+    elif args.synthetic and not args.checkpoint_dir:
         params, batch_stats = init_params(
             cfg, torch.Generator().manual_seed(args.seed))
-    tokenizer = get_tokenizer(cfg.data.language, cfg.data.vocab_path)
+    else:
+        params, batch_stats = restore_params(cfg.train.checkpoint_dir,
+                                             args.average_last)
     inf = Inferencer(cfg, tokenizer, params, batch_stats, device=args.device,
                      quantize=args.quantize_weights)
-    pipe = SyntheticPipeline(cfg, args.synthetic)
-    summary = inf.run(pipe.eval_epoch(), PrintLogger())
+    summary = inf.run(batches, PrintLogger())
     print(json.dumps({"event": "done", **summary}))
 
 

@@ -92,7 +92,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             for _ in range(args.batch)]
         batch = pad_batch(list(feats), labels, args.frames,
                           cfg.data.max_label_len, cfg.model.time_stride)
-        # One step, no checkpoint: the trainer refuses a checkpoint_dir.
+        # One step, and no checkpoint: a profile writes no files.
         cfg = apply_overrides(cfg, {"train.checkpoint_dir": ""})
         run = functools.partial(
             Trainer(cfg, SyntheticPipeline(cfg, args.batch),

@@ -1,4 +1,5 @@
-"""Training: forward, CTC, backward, clip, optimizer step; the epoch loop.
+"""Training: forward, CTC, backward, clip, optimizer step; the epoch loop
+with checkpoints and a deterministic mid-epoch resume.
 
 The port's counterpart of ``deepspeech_tpu/train.py`` on one card. A
 step runs the model in train mode (batch statistics normalise and
@@ -10,17 +11,28 @@ norm exactly as optax does, then SGD with Nesterov momentum or AdamW,
 with the warmup/anneal learning rate written into the optimizer every
 step. Evaluation is greedy WER/CER.
 
+``fit`` reads each epoch's batches through ``data.device_prefetch``
+(pinned memory, a side CUDA stream). With ``train.checkpoint_dir`` set,
+``Trainer`` saves a step (checkpoint.py) every
+``checkpoint_every_steps`` with the current epoch and at each epoch's
+end with the next; ``maybe_restore`` restores the newest intact step
+(parameters, BN statistics, optimizer state, step and epoch), and
+``fit`` then skips the batches of that epoch already consumed without
+loading them, so the resumed run ends bit-identical to an uninterrupted
+one.
+
 What the JAX trainer has and this slice does not raises
 ``NotImplementedError`` naming the slice of the port that brings it:
-checkpoints and manifests (slice 2b), multi-device meshes, ZeRO and
-gradient accumulation (slice 5), the guarded step, sequence
-parallelism, RNN-T, pipelining, tensorboard and profile traces
-(slice 9).
+multi-device meshes, ZeRO and gradient accumulation (slice 5), the
+guarded step, sequence parallelism, RNN-T, pipelining, tensorboard and
+profile traces (slice 9).
 
 CLI: ``python -m deepspeech_tpu_torch.train --config=dev_slice
---synthetic=N --train.checkpoint_dir= [--device=cpu]
-[--section.key=value ...]``; it ends with a ``{"event": "done", ...}``
-line. Weights start from a random init seeded by ``train.seed``.
+[--synthetic=N] [--device=cpu] [--section.key=value ...]``: it trains
+on ``data.train_manifest`` (or N synthetic utterances), evaluates on
+``data.eval_manifest``, restores ``train.checkpoint_dir``'s newest step
+first, and ends with a ``{"event": "done", ...}`` line. A fresh run's
+weights are a random init seeded by ``train.seed``.
 """
 
 from __future__ import annotations
@@ -32,8 +44,9 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from .bridge import from_flax, init_params
+from .bridge import from_flax, init_params, to_flax
 from .config import Config
+from .data.pipeline import device_prefetch
 from .data.tokenizer import CharTokenizer
 from .decode.greedy import greedy_decode, ids_to_texts
 from .device import resolve_device
@@ -42,18 +55,10 @@ from .metrics import char_errors, word_errors
 from .models.ds2 import DeepSpeech2
 from .ops.ctc import ctc_loss_mean
 
-_CHECKPOINTS = ("slice 2b of the port (checkpoints and manifest data, "
-                "ROADMAP queue 1 items 1, 4 and 6)")
-
 
 def check_supported(cfg: Config) -> None:
     """Raise on what the JAX trainer has and this slice does not."""
     t = cfg.train
-    if t.checkpoint_dir:
-        raise NotImplementedError(
-            f"train.checkpoint_dir={t.checkpoint_dir!r}: checkpoint.py "
-            f"comes with {_CHECKPOINTS}; pass --train.checkpoint_dir= to "
-            "train without checkpoints")
     later = [
         (t.guardian, "train.guardian: the guarded train step comes with "
                      "slice 9 of the port"),
@@ -136,18 +141,24 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
               ) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v)).to(device)
+    """A batch as tensors on ``device``: host arrays by pageable copies,
+    tensors already there as they are."""
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.as_tensor(np.asarray(v))).to(device)
             for k, v in batch.items()}
 
 
 class Trainer:
     """Epoch loop over a pipeline's batches on one device, with greedy
-    WER/CER evaluation.
+    WER/CER evaluation and, with ``train.checkpoint_dir`` set,
+    checkpoints and resume.
 
-    ``pipeline`` has the interface of ``data.SyntheticPipeline``
-    (``peek``, ``epoch``, ``eval_epoch``, ``batches_per_epoch``).
-    ``logger.log(event, **fields)`` receives ``train_step``,
-    ``epoch_end`` and ``eval`` events. ``device`` None means the card
+    ``pipeline`` has the interface of ``data.DataPipeline`` (``peek``,
+    ``epoch(e, start)``, ``eval_epoch``, ``batches_per_epoch``; as
+    ``data.SyntheticPipeline`` has too). ``logger.log(event, **fields)``
+    receives ``train_step``, ``epoch_end``, ``eval`` and ``restore``
+    events, and a pipeline without a logger of its own gets this one for
+    its ``corrupt_sample`` events. ``device`` None means the card
     (raises without CUDA); "cpu" runs the plain versions. ``params`` /
     ``batch_stats`` (flax-layout trees) default to
     ``bridge.init_params`` seeded by ``train.seed``.
@@ -162,6 +173,9 @@ class Trainer:
         self.eval_pipeline = eval_pipeline
         self.tokenizer = tokenizer
         self.logger = logger or PrintLogger()
+        for pipe in (pipeline, eval_pipeline):
+            if pipe is not None and getattr(pipe, "logger", 0) is None:
+                pipe.logger = self.logger
         self.device = resolve_device(device)
         self.steps_per_epoch = max(pipeline.batches_per_epoch(1), 1)
         self.lr_schedule = make_lr_schedule(cfg, self.steps_per_epoch)
@@ -173,12 +187,47 @@ class Trainer:
         self.model.to(self.device)
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.step = 0
+        self.start_epoch = 0
+        self.ckpt = None
+        if cfg.train.checkpoint_dir:
+            from .checkpoint import CheckpointManager
+
+            self.ckpt = CheckpointManager(cfg.train.checkpoint_dir,
+                                          keep=cfg.train.keep_checkpoints)
+
+    def maybe_restore(self) -> None:
+        """Restore the newest intact step of ``train.checkpoint_dir``:
+        parameters, BN statistics, optimizer state, step and epoch."""
+        if self.ckpt is None:
+            return
+        restored = self.ckpt.restore()
+        if restored is None:
+            return
+        self.model.load_state_dict(from_flax(restored["params"],
+                                             restored["batch_stats"]))
+        if restored["opt_state"] is not None:
+            self.optimizer.load_state_dict(restored["opt_state"])
+        self.step = restored["step"]
+        self.start_epoch = restored["epoch"]
+        self.logger.log("restore", step=self.step, epoch=self.start_epoch)
+
+    def save(self, epoch: int) -> None:
+        """Checkpoint the current step with ``epoch``, the epoch a
+        resume starts in. The state is on the host when this returns."""
+        if self.ckpt is None:
+            return
+        params, batch_stats = to_flax(self.model.state_dict())
+        self.ckpt.save(self.step, {
+            "params": params, "batch_stats": batch_stats,
+            "opt_state": self.optimizer.state_dict(), "epoch": epoch,
+            "config": self.cfg.name})
 
     def train_step(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
-        """One step on a host batch: forward in train mode, mean CTC,
-        backward, global norm, clip, optimizer step at this step's rate.
-        Returns ``{"loss", "grad_norm"}`` as device scalars."""
+        """One step on a batch (host arrays, or tensors on the device):
+        forward in train mode, mean CTC, backward, global norm, clip,
+        optimizer step at this step's rate. Returns
+        ``{"loss", "grad_norm"}`` as device scalars."""
         dev = to_device(batch, self.device)
         self.model.train()
         logits, lens = self.model(dev["features"], dev["feat_lens"])
@@ -219,14 +268,25 @@ class Trainer:
                 "n_utts": n}
 
     def fit(self, epochs: Optional[int] = None) -> Dict[str, float]:
+        """Train from ``start_epoch`` to ``epochs`` (default
+        ``train.epochs``). After ``maybe_restore`` the batches of the
+        restored epoch already consumed are skipped by the pipeline
+        (``epoch(e, start=...)``) before they are loaded, since the
+        sampler's order is a pure function of (seed, epoch)."""
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.train.epochs
+        every = cfg.train.checkpoint_every_steps
         last: Dict[str, float] = {}
         metrics: Dict[str, torch.Tensor] = {}
-        for epoch in range(epochs):
+        steps_before = sum(self.pipeline.batches_per_epoch(e)
+                           for e in range(self.start_epoch))
+        skip = max(self.step - steps_before, 0)
+        for epoch in range(self.start_epoch, epochs):
             t_epoch = time.perf_counter()
             t_log, utts = time.perf_counter(), 0
-            for batch in self.pipeline.epoch(epoch):
+            batches = self.pipeline.epoch(epoch, start=skip)
+            skip = 0
+            for batch in device_prefetch(batches, self.device):
                 lr = self.lr_schedule(self.step)
                 metrics = self.train_step(batch)
                 utts += len(batch["feat_lens"])
@@ -238,7 +298,9 @@ class Trainer:
                                     utt_per_sec=utts / (now - t_log),
                                     **last)
                     t_log, utts = now, 0
-            if not last:
+                if every and self.ckpt and self.step % every == 0:
+                    self.save(epoch)
+            if metrics and not last:
                 last = {k: float(v) for k, v in metrics.items()}
             self.logger.log("epoch_end", epoch=epoch,
                             seconds=time.perf_counter() - t_epoch)
@@ -246,6 +308,9 @@ class Trainer:
                 ev = self.evaluate()
                 self.logger.log("eval", epoch=epoch, **ev)
                 last.update(ev)
+            self.save(epoch + 1)
+        if self.ckpt is not None:
+            self.ckpt.wait()
         return last
 
 
@@ -253,8 +318,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     import argparse
 
     from .config import apply_overrides, get_config, parse_cli_overrides
+    from .data.manifest import load_manifest
+    from .data.pipeline import DataPipeline
     from .data.synthetic import SyntheticPipeline
-    from .data.tokenizer import get_tokenizer
+    from .data.tokenizer import resolve_tokenizer
 
     parser = argparse.ArgumentParser(prog="deepspeech_tpu_torch.train")
     parser.add_argument("--config", default="ds2_small")
@@ -265,17 +332,34 @@ def main(argv: Optional[List[str]] = None) -> None:
     args, extra = parser.parse_known_args(argv)
     cfg = apply_overrides(get_config(args.config),
                           parse_cli_overrides(extra))
-    if not args.synthetic:
-        raise NotImplementedError(
-            f"training on a manifest comes with {_CHECKPOINTS}; use "
-            "--synthetic=N")
-    tokenizer = get_tokenizer(cfg.data.language, cfg.data.vocab_path)
-    pipeline = SyntheticPipeline(cfg, args.synthetic)
     logger = PrintLogger()
-    trainer = Trainer(cfg, pipeline, tokenizer, pipeline, logger,
+    old_vocab = cfg.model.vocab_size
+    if args.synthetic:
+        tokenizer, cfg = resolve_tokenizer(cfg, synthetic=True)
+        pipeline = SyntheticPipeline(cfg, args.synthetic)
+        eval_pipe = pipeline
+    else:
+        if not cfg.data.train_manifest:
+            raise SystemExit("need --data.train_manifest=PATH or "
+                             "--synthetic=N")
+        utts = load_manifest(cfg.data.train_manifest,
+                             cfg.data.min_duration_s,
+                             cfg.data.max_duration_s)
+        tokenizer, cfg = resolve_tokenizer(cfg, utterances=utts,
+                                           for_training=True)
+        pipeline = DataPipeline(cfg, tokenizer, utterances=utts)
+        eval_pipe = (DataPipeline(cfg, tokenizer, cfg.data.eval_manifest)
+                     if cfg.data.eval_manifest else None)
+    if cfg.model.vocab_size != old_vocab:
+        logger.log("vocab_resize", preset=old_vocab,
+                   tokenizer=cfg.model.vocab_size)
+    trainer = Trainer(cfg, pipeline, tokenizer, eval_pipe, logger,
                       device=args.device)
+    trainer.maybe_restore()
     result = trainer.fit()
-    print(json.dumps({"event": "done", "steps": trainer.step, **result}))
+    print(json.dumps({"event": "done", "steps": trainer.step,
+                      **{k: v for k, v in result.items()
+                         if isinstance(v, (int, float))}}))
 
 
 if __name__ == "__main__":

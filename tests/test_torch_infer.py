@@ -1,6 +1,8 @@
 """The port's Inferencer and greedy decoder against the JAX package's:
 identical transcripts in float32 from the same bridged weights."""
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -102,7 +104,17 @@ def test_unported_decode_options_raise(over):
         Inferencer(cfg, CharTokenizer.english(), params, stats, device="cpu")
 
 
-def test_orbax_restore_raises():
-    with pytest.raises(NotImplementedError, match="orbax"):
-        Inferencer(get_config("ds2_small"), CharTokenizer.english(),
-                   device="cpu")
+def test_orbax_restore_raises(tmp_path, monkeypatch):
+    """``params=None`` restores ``train.checkpoint_dir``: an empty
+    directory raises, and an orbax one without ``tensorstore`` raises
+    naming the converter."""
+    cfg = apply_overrides(get_config("ds2_small"),
+                          {"train.checkpoint_dir": str(tmp_path / "none")})
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        Inferencer(cfg, CharTokenizer.english(), device="cpu")
+    (tmp_path / "jax" / "7").mkdir(parents=True)
+    (tmp_path / "jax" / "7" / "_CHECKPOINT_METADATA").write_text("{}")
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    cfg = apply_overrides(cfg, {"train.checkpoint_dir": str(tmp_path / "jax")})
+    with pytest.raises(ImportError, match="orbax.*checkpoint_import"):
+        Inferencer(cfg, CharTokenizer.english(), device="cpu")

@@ -236,7 +236,6 @@ def test_train_cli_ends_with_done():
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"train.checkpoint_dir": "/tmp/x"}, "checkpoint_dir="),
     ({"train.guardian": "true"}, "slice 9"),
     ({"train.accum_steps": "2"}, "slice 5"),
     ({"train.mesh_shape": "2,1"}, "slice 5"),
@@ -257,9 +256,22 @@ def test_unported_training_options_raise(over, match):
                 device="cpu")
 
 
+def test_checkpoint_dir_builds_a_checkpoint_manager(tmp_path):
+    cfg = apply_overrides(get_config("ds2_small"),
+                          {"train.checkpoint_dir": str(tmp_path / "ck")})
+    check_supported(cfg)
+    trainer = Trainer(cfg, SyntheticPipeline(cfg, 1),
+                      CharTokenizer.english(), device="cpu")
+    assert trainer.ckpt.directory == str(tmp_path / "ck")
+    trainer.maybe_restore()  # an empty directory: a fresh run
+    assert (trainer.step, trainer.start_epoch) == (0, 0)
+
+
 def test_manifest_training_raises_naming_its_slice():
+    """Training on a manifest is ported; without a manifest or
+    --synthetic the CLI says what it needs."""
     from deepspeech_tpu_torch.train import main
 
-    with pytest.raises(NotImplementedError, match="slice 2b"):
+    with pytest.raises(SystemExit, match="data.train_manifest"):
         main(["--config=dev_slice", "--device=cpu",
               "--train.checkpoint_dir="])
