@@ -38,7 +38,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      naming the device kernels that ran (in bf16 with H % 8 == 0 the gate
      pre-pass GEMM and the tensor-core loop, else the two-phase kernel);
    - ``gru_fwd_q`` (int8 W resident) at ds2_full's H=1760, D=2 and at
-     H=800, D=1 with h0, and ``gru_fwd_q_stream`` (int8 W streamed) at
+     H=800, D=1 with h0 (the streaming path's shape; timed at both), and ``gru_fwd_q_stream`` (int8 W streamed) at
      H=1760, both also at T=37 with B=45 and h0 and with B=8 at full
      width and at H=104, ``gru_fwd_q`` at the residency rule's edges (D=2
      H=1920, D=1 H=2112: Q^T partly held) and ``gru_fwd_q_stream`` at
@@ -132,7 +132,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    8; the launches of K1-K5 on this path join the ``kernels`` line, and
    the step with and without ``device_prefetch``, the featurization, the
    checkpoint's bytes and seconds are printed;
-7. prints each phase's seconds on a line of its own, a
+7. the live streaming phases, on ds2_streaming at full width from the
+   seeded init with the head scaled by 8 and every BN running mean
+   moved by +0.3: ``StreamingTranscriber.transcribe`` of 32 streams of
+   300..1700 frames in chunks of 64 against the offline forward on the
+   same batch (f32: log-probs within 1e-4, identical transcripts; bf16
+   and int8 within ``STREAM_LP_TOL``), exactly 5 ``gru_fwd`` (K6 with a
+   carried h0; int8: ``gru_fwd_q``, K10, "resident-q") launches a chunk
+   and no other recurrent kernel, and the same run through the plain
+   GRU with each call's kernel held to it; ``StreamingSessionManager``
+   with a mid-flight join, a tail and an export/import between two
+   managers, each final and each session's logits equal to its solo
+   run's at the same capacity, and the snapshot's bytes;
+   ``serve.serve_files`` on 8 WAVs written from a seed, its finals equal
+   to ``Inferencer(decode.mode="streaming")``'s, and once with
+   endpointing; a chunk's ms (CUDA events, wall, the profiler's busy
+   time by kernel and the W transpose's share) at capacity 1 and 32;
+   ``Inferencer.run`` through ``device_prefetch`` and pageable, ms a
+   batch, for information;
+8. prints each phase's seconds on a line of its own, a
    ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -142,6 +160,7 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -467,10 +486,11 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed, d1_h=None):
     entries = []
     for d, replaces in timed:
         check = "D2_bf16" if d == 2 else "D1_bf16_h0"
-        args, valid = make(d, torch.bfloat16, False, gen, T, B, h)
+        hd = d1_h if d == 1 else h
+        args, valid = make(d, torch.bfloat16, False, gen, T, B, hd)
         ms = _time_ms(lambda: fn(*args), reps=5)
         plain_ms = _time_ms(lambda: plain(*args), reps=1)
-        cudnn = torch.nn.GRU(h, h, bidirectional=d == 2)
+        cudnn = torch.nn.GRU(hd, hd, bidirectional=d == 2)
         if quantized:
             # No PyTorch call computes an int8-weight GRU: the yardstick
             # is cuDNN's bf16 GRU on the dequantized W (gate order r, z,
@@ -483,7 +503,7 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed, d1_h=None):
                         (q[di].float() * scale[di]).t().cpu())
         cudnn = cudnn.to("cuda", torch.bfloat16)
         cudnn.flatten_parameters()
-        x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
+        x_lib = torch.randn(T, B, hd, generator=gen, device="cuda").to(
             torch.bfloat16)
         with torch.no_grad():
             library_ms = _time_ms(lambda: cudnn(x_lib), reps=5)
@@ -500,7 +520,7 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed, d1_h=None):
             # W and the serial loop).
             _, extra["device_ms"], _ = _device_kernels(
                 lambda: fn(*args), want=frozenset(
-                    _STREAM_KERNELS[kernel](torch.bfloat16, h)))
+                    _STREAM_KERNELS[kernel](torch.bfloat16, hd)))
         if kernel.endswith("_stream") or quantized:
             # At H=800, where the resident kernel runs: for a streamed
             # kernel what the residency rule saves there; for the int8
@@ -517,7 +537,7 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed, d1_h=None):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "ms_at_b1": ms_b1, **extra,
-            "shape": {"D": d, "T": T, "B": B, "H": h, "dtype": "bfloat16",
+            "shape": {"D": d, "T": T, "B": B, "H": hd, "dtype": "bfloat16",
                       "w_dtype": "int8" if quantized else "bfloat16",
                       "valid_rows": valid},
             "checks": {k: v for k, v in checks.items()
@@ -567,10 +587,13 @@ def _cudnn_lstm(args, h: int):
     return lib
 
 
-def _device_kernels(fn, tries: int = 5, want: frozenset = frozenset()):
+def _device_kernels(fn, tries: int = 5, want: frozenset = frozenset(),
+                    every: bool = False):
     """Run ``fn()`` under ``torch.profiler`` (as profile_infer reads the
     card); returns its result, ``{name: device ms}`` of the port's
-    kernels that ran, and how many times ``fn`` ran. On an H100 the
+    kernels that ran (``every``: of every device kernel, by its full
+    name, each name in ``want`` found inside one), and how many times
+    ``fn`` ran. On an H100 the
     profiler now and then records no device event for a window, at times
     several windows in a row, or misses the first kernel a window
     launches (K9's pre-pass in one-call windows). So a window
@@ -589,10 +612,14 @@ def _device_kernels(fn, tries: int = 5, want: frozenset = frozenset()):
         ran = {}
         for e in prof.key_averages():
             m = re.search(r"::((?:lstm|gru|ctc)_\w+_kernel)\b", e.key)
-            if m and e.device_type == torch.autograd.DeviceType.CUDA:
-                ran[m.group(1)] = (ran.get(m.group(1), 0.0)
-                                   + e.self_device_time_total / 1e3)
-        if ran and want <= set(ran):
+            name = e.key if every else m and m.group(1)
+            if (name and e.device_type == torch.autograd.DeviceType.CUDA
+                    and (not every or e.self_device_time_total > 0)):
+                ran[name] = (ran.get(name, 0.0)
+                             + e.self_device_time_total / 1e3)
+        found = (all(any(w in k for k in ran) for w in want) if every
+                 else want <= set(ran))
+        if ran and found:
             break
         time.sleep(0.5 * runs)
     return out, ran, runs
@@ -1434,8 +1461,7 @@ def path_phase(preset: str, layers_per_forward: int, kernel: str,
     texts = inf.decode_batch_bucketed(batch)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {k: v for k, v in _counts().items()
-              if k.startswith(("gru_", "lstm_"))}
+    counts = _recurrent_counts()
     launches = counts[kernel]
     want = {k: layers_per_forward * len(plans) if k == kernel else 0
             for k in counts}
@@ -2128,6 +2154,457 @@ def manifest_phase(root: str):
     return counts
 
 
+STREAM_CHUNK = 64            # chunk_frames, ds2_streaming's decode default
+STREAM_STREAMS = 32          # streams of the chunked-vs-offline check
+# Log-probs, chunked against offline: f32 as the JAX tests hold it; bf16
+# measured 0.031 (0.014 int8) on an H100, the window's conv and GEMMs
+# rounding at other shapes than the whole utterance's.
+STREAM_LP_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.1}
+STREAM_TIMED = 32            # chunks timed at each capacity
+FEED_BATCHES = 8             # (32, 800) batches of the feed timing
+
+
+def _stream_weights(cfg):
+    """The seeded random init of ``cfg`` for the streaming phases: the
+    head scaled by 8, so that no frame's argmax is a near tie, and every
+    BN running mean moved by +0.3 off its init, as the JAX package's
+    tests/test_streaming.py does, so that a seam error shows."""
+    from deepspeech_tpu_torch.bridge import init_params
+
+    params, stats = init_params(cfg, torch.Generator().manual_seed(SEED))
+    params["head"]["kernel"] = params["head"]["kernel"] * 8.0
+
+    def shift(tree):
+        return {k: shift(v) if isinstance(v, dict)
+                else v + 0.3 if k == "mean" else v for k, v in tree.items()}
+
+    return params, shift(stats)
+
+
+def _recurrent_counts():
+    return {k: v for k, v in _counts().items()
+            if k.startswith(("gru_", "lstm_"))}
+
+
+def _checking_plain(real, plain, tol, errs):
+    """A stand-in for ``real`` (``gru_fwd`` or ``gru_fwd_q``) that runs
+    the kernel and its plain version on each call's inputs, records
+    ``max |kernel - plain|`` over ys and hfin in ``errs`` and returns the
+    plain result: the chunked run then goes through the plain GRU, and
+    each of its calls holds the kernel within ``tol``."""
+    def both(*args):
+        ys, hfin = real(*args)
+        ys_p, hfin_p = plain(*args)
+        errs.append(max(float((ys - ys_p).abs().max()),
+                        float((hfin - hfin_p).abs().max())))
+        _require(errs[-1] <= tol, f"{real.__name__} in the chunked run: "
+                 f"max |kernel - plain| {errs[-1]} > {tol}")
+        return ys_p, hfin_p
+
+    both.launches = 0
+    return both
+
+
+def streaming_phase():
+    """ds2_streaming (5 GRU layers at H=800, lookahead 20) at full width
+    through ``StreamingTranscriber.transcribe``: 32 streams of 300..1700
+    frames in chunks of 64, against the offline forward of the same
+    model on the same batch, in f32 (log-probs within 1e-4, identical
+    transcripts) and bf16 (within ``STREAM_LP_TOL``); exactly 5 launches
+    of ``gru_fwd`` (K6, D=1, carried h0) a chunk and no other recurrent
+    kernel; the same run through the plain GRU, each call holding the
+    kernel within K6's ``GRU_FWD_TOL``; then ``quantize="int8"``: 5
+    ``gru_fwd_q`` (K10 with h0) a chunk, regime "resident-q", against the
+    int8 model's offline forward and the plain int8 GRU. Returns the
+    launches of K6 and K10 in the counted runs."""
+    from deepspeech_tpu_torch.config import apply_overrides
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.decode.greedy import greedy_decode, ids_to_texts
+    from deepspeech_tpu_torch.ops import gru
+    from deepspeech_tpu_torch.ops.gru import card_limits
+    from deepspeech_tpu_torch.streaming import StreamingTranscriber
+    from deepspeech_tpu_torch.utils.quantize import kernel_regime
+
+    tok = CharTokenizer.english()
+    base = _config("ds2_streaming")
+    layers = base.model.rnn_layers
+    batch = _request(base, STREAM_STREAMS, np.random.default_rng(SEED))
+    feats, lens = batch["features"], batch["feat_lens"]
+    feats_t = torch.from_numpy(feats).cuda()
+    lens_t = torch.from_numpy(lens).long().cuda()
+    launches = {"gru_fwd": 0, "gru_fwd_q": 0}
+    for dtype, quantize, kernel in (
+            (torch.float32, "", "gru_fwd"), (torch.bfloat16, "", "gru_fwd"),
+            (torch.bfloat16, "int8", "gru_fwd_q")):
+        cfg = apply_overrides(base, {"model.dtype": str(dtype)[6:]})
+        params, stats = _stream_weights(cfg)
+        st = StreamingTranscriber(cfg, params, stats, tok,
+                                  chunk_frames=STREAM_CHUNK,
+                                  quantize=quantize)
+        name = f"ds2_streaming {quantize or str(dtype)[6:]} chunked"
+        if quantize:
+            regime = kernel_regime(cfg.model, True, streaming=True,
+                                   card=card_limits(torch.device("cuda")))
+            _require(regime == "resident-q" and st._keep_q is not None,
+                     f"{name}: regime {regime!r}")
+        chunks = -(-feats.shape[1] // STREAM_CHUNK) + st.flush_chunks()
+        st.transcribe(feats, lens)  # warm-up: cuBLAS/cuDNN handles
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        lo, out_lens = st.transcribe(feats, lens)
+        seconds = time.perf_counter() - t0
+        counts = _recurrent_counts()
+        want = {k: layers * chunks if k == kernel else 0 for k in counts}
+        _require(counts == want, f"{name}: recurrent launches {counts} for "
+                 f"{chunks} chunks, want {want}")
+        launches[kernel] += counts[kernel]
+        with torch.no_grad():
+            logits, off_lens = st.model(feats_t, lens_t)
+        lp_off = torch.log_softmax(logits, -1)
+        lp = torch.log_softmax(torch.from_numpy(lo).cuda(), -1)
+        _require(np.array_equal(off_lens.cpu().numpy(), out_lens),
+                 f"{name}: lengths differ from offline")
+        valid = (torch.arange(lp.shape[1], device=lp.device)[None]
+                 < off_lens[:, None])
+        err = float((lp - lp_off[:, :lp.shape[1]]).abs()[valid].max())
+        _require(bool(torch.isfinite(lp[valid]).all()), f"{name}: non-finite")
+        texts = ids_to_texts(*greedy_decode(lp, off_lens), tok)
+        texts_off = ids_to_texts(*greedy_decode(lp_off, off_lens), tok)
+        same_texts = sum(a == b for a, b in zip(texts, texts_off))
+        _require(err <= STREAM_LP_TOL[dtype],
+                 f"{name}: log-probs differ from offline by {err} > "
+                 f"{STREAM_LP_TOL[dtype]}")
+        if dtype == torch.float32:
+            _require(same_texts == STREAM_STREAMS,
+                     f"{name}: {STREAM_STREAMS - same_texts} transcripts "
+                     "differ from offline")
+        _require(any(texts), f"{name}: every transcript is empty")
+        # The same chunked run through the plain GRU on the card.
+        errs = []
+        real, plain = ((gru.gru_fwd_q, gru.gru_fwd_q_plain) if quantize
+                       else (gru.gru_fwd, gru.gru_fwd_plain))
+        tol = (TOL if quantize else GRU_FWD_TOL)[dtype]
+        with mock.patch.object(gru, kernel,
+                               _checking_plain(real, plain, tol, errs)):
+            lo_p, _ = st.transcribe(feats, lens)
+        _require(len(errs) == layers * chunks,
+                 f"{name}: {len(errs)} plain checks, want {layers * chunks}")
+        lp_p = torch.log_softmax(torch.from_numpy(lo_p).cuda(), -1)
+        print(json.dumps({
+            "stream_check": name, "streams": STREAM_STREAMS,
+            "frames_max": int(lens.max()), "chunk_frames": STREAM_CHUNK,
+            "chunks": chunks, "kernel": kernel, "launches": counts[kernel],
+            "launches_per_chunk": counts[kernel] / chunks,
+            "kernel_regime": "resident-q" if quantize else "fp",
+            "logprob_max_abs_err_vs_offline": err,
+            "logprob_tol": STREAM_LP_TOL[dtype],
+            "transcripts_equal_offline": same_texts,
+            "gru_max_abs_err_vs_plain": max(errs), "gru_tol": tol,
+            "logprob_max_abs_err_vs_plain_run": float(
+                (lp - lp_p).abs()[valid].max()),
+            "seconds": seconds,
+            "audio_s_per_s": float(lens.sum()) * 0.01 / seconds}),
+            flush=True)
+        del st
+    return launches
+
+
+class _Recorder:
+    """Keeps, for each session, the valid logits rows of every chunk it
+    took part in, across managers: ``attach`` wraps a manager's
+    ``process_chunk``."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def attach(self, mgr):
+        real = mgr.st.process_chunk
+
+        def wrapped(state, chunk):
+            state, lo, va = real(state, chunk)
+            for sid, sess in mgr._sessions.items():
+                self.rows.setdefault(sid, []).append(
+                    lo[sess.slot][va[sess.slot]])
+            return state, lo, va
+
+        mgr.st.process_chunk = wrapped
+        return mgr
+
+    def logits(self, sid):
+        return torch.cat(self.rows[sid])
+
+
+def sessions_phase():
+    """``StreamingSessionManager`` (greedy) on ds2_streaming in bf16 at
+    full width, capacity 4: a session "b" joins a running manager at
+    clock 128; "a" is exported after 3 chunks and imported into a second
+    manager of the same capacity, where "c" has been streaming, and
+    leaves there with a tail of 37 frames. Each final must equal its
+    solo stream's (a fresh manager of the same capacity), and each
+    session's logits rows must equal its solo run's bit for bit (equal
+    shapes). Prints the snapshot's bytes."""
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.serving.session import StreamingSessionManager
+
+    cfg = _config("ds2_streaming")
+    params, stats = _stream_weights(cfg)
+    tok = CharTokenizer.english()
+    f = cfg.features.num_features
+    rng = np.random.default_rng(SEED + 1)
+    feats = {sid: rng.normal(size=(n, f)).astype(np.float32)
+             for sid, n in (("a", 6 * 64 + 37), ("b", 5 * 64),
+                            ("c", 7 * 64))}
+
+    def chunk(sid, i):
+        return feats[sid][i * 64:(i + 1) * 64]
+
+    def make(rec):
+        return rec.attach(StreamingSessionManager(
+            cfg, params, stats, tok, chunk_frames=STREAM_CHUNK, capacity=4))
+
+    rec = _Recorder()
+    src, dst = make(rec), make(rec)
+    src.join("a")
+    dst.join("c")
+    for i in range(2):
+        src.step({"a": chunk("a", i)})
+        dst.step({"c": chunk("c", i)})
+    src.join("b")                                   # mid-flight, clock 128
+    _require(src._sessions["b"].raw_start == 128, "b did not join at 128")
+    src.step({"a": chunk("a", 2), "b": chunk("b", 0)})
+    dst.step({"c": chunk("c", 2)})
+    snap = src.export_session("a")
+    _require(all(isinstance(x, np.ndarray) for x in
+                 (snap.acoustic["raw_hist"], snap.acoustic["la_buf"],
+                  *snap.acoustic["h"])), "snapshot leaves are not numpy")
+    dst.import_session(snap)
+    for i in range(3, 6):
+        src.step({"b": chunk("b", i - 2)})
+        dst.step({"a": chunk("a", i), "c": chunk("c", i)})
+    dst.leave("a", tail=feats["a"][6 * 64:])
+    src.step({"b": chunk("b", 4)})
+    src.leave("b")
+    dst.step({"c": chunk("c", 6)})
+    dst.leave("c")
+    src.flush()
+    dst.flush()
+    finals = {"a": dst.final("a"), "b": src.final("b"), "c": dst.final("c")}
+    report = {"capacity": 4, "snapshot_nbytes": snap.nbytes(),
+              "finals_nonempty": sum(bool(t) for t in finals.values())}
+    for sid, x in feats.items():
+        solo_rec = _Recorder()
+        solo = make(solo_rec)
+        solo.join(sid)
+        n = x.shape[0] // 64
+        for i in range(n):
+            solo.step({sid: chunk(sid, i)})
+        solo.leave(sid, tail=x[n * 64:] if x.shape[0] % 64 else None)
+        solo.flush()
+        _require(solo.final(sid) == finals[sid],
+                 f"session {sid}: final {finals[sid]!r} != solo "
+                 f"{solo.final(sid)!r}")
+        got, want = rec.logits(sid), solo_rec.logits(sid)
+        _require(got.shape == want.shape,
+                 f"session {sid}: {got.shape} logits rows, solo "
+                 f"{want.shape}")
+        report[f"{sid}_logits_bit_identical"] = bool(torch.equal(got, want))
+        report[f"{sid}_logits_max_abs_diff"] = float(
+            (got - want).abs().max())
+        _require(report[f"{sid}_logits_bit_identical"],
+                 f"session {sid}: logits differ from solo by "
+                 f"{report[f'{sid}_logits_max_abs_diff']}")
+    _require(report["finals_nonempty"] > 0, "every final is empty")
+    print(json.dumps({"sessions": report, "stats_src": src.stats(),
+                      "stats_dst": dst.stats()}), flush=True)
+
+
+def _write_speech(path: str, seconds, rng) -> None:
+    """Bursts of tones in noise, standing in for speech, parted by 1 s of
+    silence."""
+    parts = []
+    for sec in seconds:
+        t = np.arange(int(sec * 16000)) / 16000.0
+        parts += [0.3 * np.sin(2 * np.pi * rng.uniform(100, 2000) * t)
+                  + 0.05 * rng.normal(size=t.shape), np.zeros(16000)]
+    _write_wav(path, np.concatenate(parts[:-1]))
+
+
+def serve_phase(root: str):
+    """``serve.serve_files`` on 8 WAVs written from a seed (3.5..17 s,
+    bursts parted by silence) on ds2_streaming in bf16: its finals must
+    equal ``Inferencer(decode.mode="streaming")``'s transcripts on the
+    same WAVs; again with endpointing (800 ms), which must cut segments.
+    Returns the ``gru_fwd`` launches of the two serving runs."""
+    import io
+
+    from deepspeech_tpu_torch import serve
+    from deepspeech_tpu_torch.config import apply_overrides
+    from deepspeech_tpu_torch.data import (CharTokenizer, featurize_np,
+                                           load_audio)
+    from deepspeech_tpu_torch.infer import Inferencer
+
+    cfg = _config("ds2_streaming")
+    params, stats = _stream_weights(cfg)
+    tok = CharTokenizer.english()
+    rng = np.random.default_rng(SEED + 2)
+    paths = []
+    for i in range(8):
+        n = int(rng.integers(2, 6))
+        secs = rng.uniform(0.8, 2.2, size=n)
+        secs *= min(1.0, (17.0 - (n - 1)) / secs.sum())
+        paths.append(os.path.join(root, f"live{i}.wav"))
+        _write_speech(paths[-1], secs, rng)
+    _zero_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    finals = serve.serve_files(cfg, tok, params, stats, paths, out=out)
+    seconds = time.perf_counter() - t0
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    chunk_ms = sorted(x["ms"] for x in lines if "chunk" in x)
+    out_ep = io.StringIO()
+    finals_ep = serve.serve_files(cfg, tok, params, stats, paths, out=out_ep,
+                                  endpoint_silence_ms=800)
+    counts = _recurrent_counts()
+    launches = counts["gru_fwd"]
+    _require(launches > 0 and sum(counts.values()) == launches,
+             f"serve: recurrent launches {counts}")
+    segments = [json.loads(x) for x in out_ep.getvalue().splitlines()
+                if x.startswith('{"segment"')]
+    feats = [featurize_np(load_audio(p, 16000), cfg.features) for p in paths]
+    lens = np.asarray([len(x) for x in feats], np.int32)
+    batch = np.zeros((8, lens.max(), cfg.features.num_features), np.float32)
+    for i, x in enumerate(feats):
+        batch[i, :len(x)] = x
+    inf = Inferencer(apply_overrides(cfg, {"decode.mode": "streaming"}),
+                     tok, params, stats)
+    texts = inf.decode_batch({"features": batch, "feat_lens": lens})
+    _require(finals == texts, f"serve finals {finals} != streaming "
+             f"Inferencer {texts}")
+    _require(any(finals), "every serve final is empty")
+    _require(len(segments) > 0 and len(finals_ep) == 8,
+             f"endpointing cut {len(segments)} segments")
+    print(json.dumps({"serve": {
+        "streams": 8, "frames": lens.tolist(), "chunks": len(chunk_ms),
+        "seconds": seconds, "chunk_wall_ms_median":
+        chunk_ms[len(chunk_ms) // 2], "chunk_wall_ms_max": chunk_ms[-1],
+        "finals_equal_streaming_inferencer": True,
+        "endpointing_segments": len(segments)}}), flush=True)
+    return launches
+
+
+def chunk_timing_phase(card: str):
+    """A chunk of ds2_streaming (bf16, 64 frames) at capacity 1 and 32:
+    ms a chunk by CUDA events around a run of ``process_chunk`` calls
+    (the device's timeline, the gaps where it waits for the host
+    included), wall ms a ``StreamingSessionManager.step`` (host clock,
+    its greedy collapse included), and the device's busy ms a chunk by
+    kernel from the profiler, with the share of the W transpose each
+    ``gru_fwd`` call makes."""
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.serving.session import StreamingSessionManager
+
+    cfg = _config("ds2_streaming")
+    params, stats = _stream_weights(cfg)
+    rng = np.random.default_rng(SEED + 3)
+    f = cfg.features.num_features
+    for cap in (1, 32):
+        mgr = StreamingSessionManager(cfg, params, stats,
+                                      CharTokenizer.english(),
+                                      chunk_frames=STREAM_CHUNK,
+                                      capacity=cap)
+        sids = [str(i) for i in range(cap)]
+        for sid in sids:
+            mgr.join(sid)
+        x = rng.normal(size=(cap, STREAM_CHUNK, f)).astype(np.float32)
+        feed = {sid: x[i] for i, sid in enumerate(sids)}
+        for _ in range(4):
+            mgr.step(feed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STREAM_TIMED):
+            mgr.step(feed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / STREAM_TIMED
+        chunk = torch.from_numpy(x).cuda()
+        state = mgr.state
+
+        def chunks(n):
+            s = state
+            for _ in range(n):
+                s, _, _ = mgr.st.process_chunk(s, chunk)
+
+        event_ms = _time_ms(lambda: chunks(STREAM_TIMED),
+                            reps=1) / STREAM_TIMED
+        _, ran, _ = _device_kernels(
+            lambda: chunks(8), want=frozenset({"gru_fwd_mma_kernel"}),
+            every=True)
+        busy = sum(ran.values())
+        transpose = sum(v for k, v in ran.items() if "transpose" in k)
+        top = sorted(ran.items(), key=lambda kv: -kv[1])[:8]
+        print(json.dumps({"chunk_timing": {
+            "config": "ds2_streaming", "dtype": "bfloat16",
+            "capacity": cap, "chunk_frames": STREAM_CHUNK,
+            "event_ms_per_chunk": event_ms,
+            "wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_chunk": busy / 8,
+            "device_idle_share": 1 - busy / 8 / event_ms,
+            "transpose_share": transpose / busy if busy else None,
+            "top_kernels_ms_per_chunk": {k: v / 8 for k, v in top},
+            "card": card}}), flush=True)
+        del mgr
+
+
+def feed_phase(card: str):
+    """``Inferencer.run`` on ds2_small (bf16) over 8 (32, 800) batches,
+    through ``device_prefetch`` and with the copy made pageable in the
+    loop (``device_prefetch`` patched in this script only): wall ms a
+    batch both ways, for information; transcripts and WER/CER must
+    agree."""
+    from deepspeech_tpu_torch import infer
+    from deepspeech_tpu_torch.data import CharTokenizer, synthetic_batch
+
+    cfg = _config("ds2_small")
+    params, stats = _weights("ds2_small")
+    inf = infer.Inferencer(cfg, CharTokenizer.english(), params, stats)
+    batches = [(synthetic_batch(cfg, 32, 800, 60, seed=s)[0], 32)
+               for s in range(FEED_BATCHES)]
+
+    def pageable(it, device, depth=2):
+        for b in it:
+            yield {k: torch.as_tensor(np.asarray(v)).to(device)
+                   for k, v in b.items()}
+
+    class Hyps:
+        def __init__(self):
+            self.hyps = []
+
+        def log(self, event, **f):
+            if event == "utt":
+                self.hyps.append(f["hyp"])
+
+    inf.run(batches[:2])  # warm-up
+    out = {}
+    for way in ("prefetch", "pageable", "pageable", "prefetch"):
+        log = Hyps()
+        with (mock.patch.object(infer, "device_prefetch", pageable)
+              if way == "pageable" else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = inf.run(batches, log)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / FEED_BATCHES
+        out.setdefault(way, []).append(ms)
+        prev = out.setdefault("result", (summary, log.hyps))
+        _require(prev == (summary, log.hyps),
+                 f"Inferencer.run {way}: transcripts or WER differ")
+    print(json.dumps({"feed": {
+        "config": "ds2_small", "batches": FEED_BATCHES, "batch": [32, 800],
+        "run_ms_per_batch_prefetch": out["prefetch"],
+        "run_ms_per_batch_pageable": out["pageable"], "card": card}}),
+        flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2161,7 +2638,7 @@ def main() -> int:
             ("gru_fwd_stream", gru_fwd_kernel_phase, h_full, [(2, K8)]),
             ("gru_bwd_stream", gru_bwd_kernel_phase, h_full, [(2, K9)]),
             ("gru_fwd_q", functools.partial(gru_fwd_kernel_phase, d1_h=H),
-             h_full, [(2, K10)]),
+             h_full, [(2, K10), (1, K10)]),
             ("gru_fwd_q_stream", gru_fwd_kernel_phase, h_full, [(2, K11)]),
             ("lstm_fwd", lstm_kernel_phase, H, [(2, K12), (1, K12)]),
             ("lstm_fwd_stream", lstm_kernel_phase, h_full, [(2, K14)]),
@@ -2240,10 +2717,25 @@ def main() -> int:
                       ("ctc_alpha[loss_only]", "loss_only"),
                       ("ctc_beta", "ctc_beta")):
         entries[name]["launches"] += counts[key]
+    # ds2_streaming live: the chunked engine, sessions, serve (K6 and
+    # K10 at D=1 with a carried h0), the chunk's times, the feed.
+    stream = _phase("ds2_streaming chunked vs offline", streaming_phase)
+    entries["gru_fwd[D=1]"]["launches"] += stream["gru_fwd"]
+    entries["gru_fwd_q[D=1]"]["launches"] = stream["gru_fwd_q"]
+    _phase("ds2_streaming sessions", sessions_phase)
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        entries["gru_fwd[D=1]"]["launches"] += _phase(
+            "ds2_streaming serve", serve_phase, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _phase("ds2_streaming chunk timing", chunk_timing_phase, card)
+    _phase("ds2_small run feed", feed_phase, card)
     entries = [entries[n] for n in (
         "gru_fwd[D=2]", "gru_fwd[D=1]", "ctc_alpha", "ctc_alpha[loss_only]",
         "ctc_beta", "gru_bwd[D=2]", "gru_bwd[D=1]", "gru_fwd_stream[D=2]",
-        "gru_bwd_stream[D=2]", "gru_fwd_q[D=2]", "gru_fwd_q_stream[D=2]",
+        "gru_bwd_stream[D=2]", "gru_fwd_q[D=2]", "gru_fwd_q[D=1]",
+        "gru_fwd_q_stream[D=2]",
         "lstm_fwd[D=2]", "lstm_fwd[D=1]", "lstm_fwd_stream[D=2]",
         "lstm_fwd_q[D=2]", "lstm_fwd_q[D=1]", "lstm_fwd_q_stream[D=2]",
         "lstm_bwd[D=2]", "lstm_bwd[D=1]", "lstm_bwd_stream[D=2]")]

@@ -4,10 +4,12 @@ The port's counterpart of ``deepspeech_tpu/infer.py`` for greedy
 decoding: ``Inferencer.decode_batch`` / ``decode_batch_bucketed`` over
 the ``(B, T)`` ladder (data/infer_bucket.py), for a GRU or an LSTM
 model (``model.rnn_type``), with the attribute names
-(``_last_nbest``, ``_last_times``) the serving plane reads. Beam search,
-LM fusion, streaming, sequence-parallel and transducer decoding and
-timestamps raise ``NotImplementedError`` naming the slice of the port
-that brings them.
+(``_last_nbest``, ``_last_times``, ``_last_word_times``) the serving
+plane reads. ``decode.mode="streaming"`` decodes through the chunked
+engine (streaming.py), and ``decode.timestamps`` stashes each symbol's
+argmax-alignment span in the greedy and streaming modes. Beam search,
+LM fusion, sequence-parallel and transducer decoding raise
+``NotImplementedError`` naming the slice of the port that brings them.
 
 Weights: ``Inferencer(params=None)`` restores ``train.checkpoint_dir``
 through ``restore_params``, which reads the port's own checkpoints
@@ -39,7 +41,8 @@ import dataclasses
 import json
 import logging
 import os
-from typing import Dict, Iterable, List, Optional, Tuple
+from collections import deque
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,18 +52,21 @@ from .config import Config
 from .data.infer_bucket import (ladder_shapes, plan_infer_buckets,
                                 slice_to_plan, unbucket)
 from .data.tokenizer import CharTokenizer
-from .decode.greedy import greedy_decode, ids_to_texts
+from .data.pipeline import device_prefetch
+from .decode.greedy import (collapse_ids, collapse_ids_with_times,
+                            greedy_decode, ids_to_texts)
 from .device import resolve_device
 from .metrics import cer, wer
 from .models.ds2 import DeepSpeech2
 from .ops.gru import card_limits
+from .streaming import StreamingTranscriber
 from .utils.quantize import (kernel_regime, quantization_error,
                              quantize_params)
 
 _log = logging.getLogger(__name__)
 
 # The decode modes whose forward dequantizes the quantized tree
-# (infer.py:159-161); streaming runs its own PTQ (slice 3).
+# (infer.py:159-161); streaming runs its own PTQ (streaming.py).
 _OFFLINE_MODES = ("greedy", "beam", "beam_fused", "beam_fused_device",
                   "rnnt_greedy", "rnnt_beam")
 
@@ -68,12 +74,39 @@ _LATER = {
     "beam": "slice 6 (beam search and LM)",
     "beam_fused": "slice 6 (beam search and LM)",
     "beam_fused_device": "slice 6 (beam search and LM)",
-    "streaming": "slice 3 (streaming)",
     "sp_greedy": "slice 9 (sequence parallelism)",
     "sp_beam": "slice 9 (sequence parallelism)",
     "rnnt_greedy": "slice 9 (RNN-T)",
     "rnnt_beam": "slice 9 (RNN-T)",
 }
+
+
+def _words_from_char_times(spans):
+    """[[char, s, e]] -> [[word, s, e]]: split on space chars, word
+    span = first char's start to last char's end."""
+    words, cur = [], None
+    for ch, s, e in spans:
+        if ch == " ":
+            if cur:
+                words.append(cur)
+            cur = None
+            continue
+        if cur is None:
+            cur = [ch, s, e]
+        else:
+            cur[0] += ch
+            cur[2] = e
+    if cur:
+        words.append(cur)
+    return words
+
+
+def _tensor(x, dtype) -> torch.Tensor:
+    """A tensor as given (a prefetched batch's), or one made from host
+    data."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x, dtype))
 
 
 def restore_params(checkpoint_dir: str, average_last: int = 0
@@ -118,7 +151,9 @@ class Inferencer:
     run the plain versions on the CPU. ``quantize="int8"`` quantizes
     ``params`` once here (``quantize_calls``, ``quantize_report``) and
     serves the int8 model; ``kernel_regime`` is "resident-q",
-    "blocked-q" or "fp".
+    "blocked-q" or "fp". ``decode.mode="streaming"`` builds a
+    ``StreamingTranscriber`` here, which runs the PTQ itself, and
+    shares its model.
     """
 
     def __init__(self, cfg: Config, tokenizer: CharTokenizer,
@@ -132,7 +167,14 @@ class Inferencer:
                 f"--quantize-weights is for the offline decode modes "
                 f"{_OFFLINE_MODES} and streaming; {mode!r} threads "
                 f"full-precision params")
-        if mode != "greedy":
+        if cfg.decode.timestamps and mode not in (
+                "greedy", "streaming", "rnnt_greedy"):
+            raise ValueError(
+                "decode.timestamps needs a unique alignment (CTC argmax "
+                "or the transducer's emission frames) — greedy/"
+                "streaming/rnnt_greedy modes only; beam hypotheses "
+                f"don't carry one ({mode!r})")
+        if mode not in ("greedy", "streaming"):
             if mode not in _LATER:
                 raise ValueError(f"unknown decode mode {mode!r}")
             raise NotImplementedError(
@@ -141,9 +183,6 @@ class Inferencer:
         if cfg.decode.lm_path:
             raise NotImplementedError(
                 "LM fusion/rescoring comes with slice 6 of the port")
-        if cfg.decode.timestamps:
-            raise NotImplementedError(
-                "greedy timestamps come with slice 3 of the port")
         if params is None:
             params, batch_stats = restore_params(cfg.train.checkpoint_dir)
         self.cfg = cfg
@@ -151,7 +190,17 @@ class Inferencer:
         self.device = resolve_device(device)
         self.quantize_calls = 0
         self.quantize_report = None
-        if quantize:
+        self._streamer = None
+        if mode == "streaming":
+            self._streamer = StreamingTranscriber(
+                cfg, params, batch_stats, tokenizer,
+                chunk_frames=cfg.decode.chunk_frames, quantize=quantize,
+                device=self.device)
+            self.model = self._streamer.model
+            if quantize:
+                self.quantize_calls += 1
+                self.quantize_report = self._streamer.quantize_report
+        elif quantize:
             qtree, report = quantize_params(params)
             _log.info(
                 "int8 weight-only PTQ: %d leaves quantized, %d kept, "
@@ -162,32 +211,82 @@ class Inferencer:
             params = qtree
             self.quantize_calls += 1
             self.quantize_report = report
-        self.model = DeepSpeech2(cfg.model, cfg.features.num_features,
-                                 quantized=bool(quantize))
-        self.model.load_state_dict(from_flax(params, batch_stats or {}))
-        self.model.to(self.device).eval()
+        if self._streamer is None:
+            self.model = DeepSpeech2(cfg.model, cfg.features.num_features,
+                                     quantized=bool(quantize))
+            self.model.load_state_dict(from_flax(params, batch_stats or {}))
+            self.model.to(self.device).eval()
         card = card_limits(self.device) if self.device.type == "cuda" else ()
-        self.kernel_regime = kernel_regime(cfg.model, bool(quantize),
-                                           card=card)
+        self.kernel_regime = kernel_regime(
+            cfg.model, bool(quantize), streaming=mode == "streaming",
+            card=card)
         self._last_nbest = None  # beam modes would stash [(text, score)]
-        self._last_times = None  # timestamp mode would stash spans
+        self._last_times = None  # timestamp mode stashes char spans
+        self._last_word_times = None  # word spans (spaced vocabularies)
+        self._space_id = None
+        if " " in getattr(tokenizer, "chars", []):
+            self._space_id = tokenizer.chars.index(" ") + 1
 
     def forward(self, features, feat_lens
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """features [B, T, F], feat_lens [B] (numpy or tensors) ->
         (log-probs [B, T', V] f32, out lens [B]) on the device."""
-        feats = torch.as_tensor(np.asarray(features, np.float32))
-        lens = torch.as_tensor(np.asarray(feat_lens, np.int64))
+        feats = _tensor(features, np.float32).to(self.device)
+        lens = _tensor(feat_lens, np.int64).to(self.device, torch.int64)
         with torch.inference_mode():
-            logits, out_lens = self.model(feats.to(self.device),
-                                          lens.to(self.device))
+            logits, out_lens = self.model(feats, lens)
             return torch.log_softmax(logits, dim=-1), out_lens
 
     def decode_batch(self, batch: Dict[str, np.ndarray]) -> List[str]:
+        if self._streamer is not None:
+            return self._decode_streaming(batch)
         lp, lens = self.forward(batch["features"], batch["feat_lens"])
         with torch.inference_mode():
+            if self.cfg.decode.timestamps:
+                return self._greedy_with_times(torch.argmax(lp, -1), lens)
             ids, out_lens = greedy_decode(lp, lens)
         return ids_to_texts(ids, out_lens, self.tokenizer)
+
+    def _decode_streaming(self, batch: Dict[str, np.ndarray]) -> List[str]:
+        """Greedy decode through the chunked streaming engine, the live
+        path over a dataset: it equals offline greedy for a streamable
+        model (tests/test_torch_streaming.py)."""
+        logits, lens = self._streamer.transcribe(batch["features"],
+                                                 batch["feat_lens"])
+        best = torch.argmax(torch.as_tensor(logits), dim=-1)
+        lens = torch.as_tensor(lens)
+        if self.cfg.decode.timestamps:
+            return self._greedy_with_times(best, lens)
+        return ids_to_texts(*collapse_ids(best, lens), self.tokenizer)
+
+    def _greedy_with_times(self, best, lens) -> List[str]:
+        """CTC-collapse with argmax-alignment character spans
+        (decode.timestamps): stashes per-utt [[char, start_ms, end_ms]]
+        and returns the texts."""
+        ids, out_lens, start, end = (
+            x.cpu().numpy() for x in collapse_ids_with_times(best, lens))
+        texts = ids_to_texts(ids, out_lens, self.tokenizer)
+        self._stash_char_times([
+            [(ids[b, k], int(start[b, k]), int(end[b, k]) + 1)
+             for k in range(out_lens[b])]
+            for b in range(ids.shape[0])])
+        return texts
+
+    def _stash_char_times(self, per_utt) -> None:
+        """``per_utt`` holds [(symbol_id, start_frame, end_frame_excl)]
+        lists in post-conv frames; one post-conv frame is time_stride
+        raw frames of stride_ms. Labels decode per symbol. Word spans
+        aggregate on spaces for a spaced vocabulary (a spaceless one has
+        char == word)."""
+        ms = self.cfg.model.time_stride * self.cfg.features.stride_ms
+        self._last_times = [
+            [[self.tokenizer.decode([k]), float(s * ms), float(e * ms)]
+             for k, s, e in spans]
+            for spans in per_utt]
+        self._last_word_times = None
+        if self._space_id is not None:
+            self._last_word_times = [
+                _words_from_char_times(spans) for spans in self._last_times]
 
     def decode_batch_bucketed(self, batch: Dict[str, np.ndarray],
                               plans=None) -> List[str]:
@@ -200,10 +299,21 @@ class Inferencer:
         if plans is None:
             plans = plan_infer_buckets(lens, self.cfg.data.bucket_frames,
                                        self.cfg.data.batch_size)
-        texts = [self.decode_batch(slice_to_plan(batch, plan))
-                 for plan in plans]
+        texts, times, wtimes = [], [], []
+        for plan in plans:
+            self._last_times = self._last_word_times = None
+            texts.append(self.decode_batch(slice_to_plan(batch, plan)))
+            times.append(self._last_times)
+            wtimes.append(self._last_word_times)
+
+        def _gather(per_plan):
+            if any(x is None for x in per_plan):
+                return None
+            return unbucket(plans, per_plan)
+
         self._last_nbest = None
-        self._last_times = None
+        self._last_times = _gather(times)
+        self._last_word_times = _gather(wtimes)
         return unbucket(plans, texts)
 
     def ladder(self) -> List[tuple]:
@@ -216,13 +326,19 @@ class Inferencer:
         """Decode ``(batch, n_valid)`` pairs; report WER/CER vs labels.
 
         ``logger.log(event, **fields)``, when given, receives one "utt"
-        event per utterance and the "infer_summary". ``refs_of(batch,
+        event per utterance (with ``times`` and ``word_times`` under
+        ``decode.timestamps``) and the "infer_summary". ``refs_of(batch,
         n_valid)`` may override the reference transcripts, which by
         default come from the padded label ids.
+
+        The offline modes copy each batch's features to the device
+        through ``device_prefetch``, one batch ahead of the decode; the
+        labels stay on the host. Streaming reads host arrays.
         """
         refs: List[str] = []
         hyps: List[str] = []
-        for batch, n_valid in batches:
+        for batch, n_valid in self._feed(batches):
+            self._last_times = self._last_word_times = None
             texts = self.decode_batch(batch)[:n_valid]
             if refs_of is not None:
                 batch_refs = refs_of(batch, n_valid)
@@ -230,9 +346,15 @@ class Inferencer:
                 batch_refs = [
                     self.tokenizer.decode(row[:n]) for row, n in
                     list(zip(batch["labels"], batch["label_lens"]))[:n_valid]]
+            times, word_times = self._last_times, self._last_word_times
             if logger is not None:
-                for r, h in zip(batch_refs, texts):
-                    logger.log("utt", ref=r, hyp=h)
+                for i, (r, h) in enumerate(zip(batch_refs, texts)):
+                    extra = {}
+                    if times is not None:
+                        extra["times"] = times[i]
+                    if word_times is not None:
+                        extra["word_times"] = word_times[i]
+                    logger.log("utt", ref=r, hyp=h, **extra)
             refs.extend(batch_refs)
             hyps.extend(texts)
         summary = {"wer": wer(refs, hyps), "cer": cer(refs, hyps),
@@ -240,6 +362,26 @@ class Inferencer:
         if logger is not None:
             logger.log("infer_summary", **summary)
         return summary
+
+
+    def _feed(self, batches: Iterable[Tuple[Dict, int]]
+              ) -> Iterator[Tuple[Dict, int]]:
+        """``batches`` with, in the offline modes, ``features`` and
+        ``feat_lens`` replaced by their ``device_prefetch`` copies."""
+        if self._streamer is not None:
+            yield from batches
+            return
+        held: deque = deque()
+
+        def feats():
+            for batch, n_valid in batches:
+                held.append((batch, n_valid))
+                yield {"features": batch["features"],
+                       "feat_lens": batch["feat_lens"]}
+
+        for dev in device_prefetch(feats(), self.device):
+            batch, n_valid = held.popleft()
+            yield {**batch, **dev}, n_valid
 
 
 class PrintLogger:

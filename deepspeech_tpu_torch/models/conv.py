@@ -10,7 +10,7 @@ Output length is ``ceil(T / st)`` per layer.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,12 +57,20 @@ class ConvFrontend(nn.Module):
             self.add_module(f"bn{i}", MaskedBatchNorm(ch))
             c_in = ch
 
-    def forward(self, x: torch.Tensor, feat_lens: torch.Tensor
+    def forward(self, x: torch.Tensor, feat_lens: torch.Tensor,
+                valid_start: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``valid_start [B]`` (raw frames, default 0) marks the frames
+        before each stream as invalid, as the mask past ``feat_lens``
+        does: the streaming engine's windows carry history from before a
+        stream's start (streaming.py). Offline callers do not pass it. It
+        must divide by the total time stride, so each layer's start stays
+        exact."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
         x = x.to(dtype)[:, None]  # NCHW: [B, 1, T, F]
         lens = feat_lens
+        start = valid_start
         for i, (kt, kf, st, sf) in enumerate(cfg.conv_layers):
             conv = getattr(self, f"conv{i}")
             pt = (kt - st) // 2
@@ -75,6 +83,10 @@ class ConvFrontend(nn.Module):
                          stride=(st, sf))
             lens = -(-lens // st)
             mask = length_mask(lens, x.shape[2])
+            if start is not None:
+                start = start // st
+                mask = mask * (torch.arange(x.shape[2], device=x.device)
+                               [None, :] >= start[:, None]).float()
             # Masked BN is channel-last, as in the JAX package: [B,T,F,C].
             y = getattr(self, f"bn{i}")(x.permute(0, 2, 3, 1), mask)
             y = clipped_relu(y, cfg.relu_clip)

@@ -5,6 +5,7 @@ import wave
 
 import numpy as np
 import pytest
+import torch
 
 from deepspeech_tpu.config import get_config as jax_get_config
 from deepspeech_tpu.data.features import featurize_np as jax_featurize_np
@@ -23,6 +24,10 @@ from deepspeech_tpu_torch.data import (CharTokenizer, featurize_np,
                                        slice_to_plan, synthetic_batch,
                                        unbucket)
 from deepspeech_tpu_torch.metrics import cer, edit_distance, wer
+
+# One CPU thread for torch: parallel test workers share the machine's
+# cores, and a thread pool in each worker oversubscribes them.
+torch.set_num_threads(1)
 
 
 def test_featurize_and_load_audio_match_jax(tmp_path):

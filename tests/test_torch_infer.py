@@ -12,6 +12,8 @@ import torch
 from deepspeech_tpu.config import apply_overrides as jax_apply_overrides
 from deepspeech_tpu.config import get_config as jax_get_config
 from deepspeech_tpu.data import CharTokenizer as JaxCharTokenizer
+from deepspeech_tpu.decode.greedy import \
+    collapse_ids_with_times as jax_collapse_ids_with_times
 from deepspeech_tpu.decode.greedy import greedy_decode as jax_greedy_decode
 from deepspeech_tpu.infer import Inferencer as JaxInferencer
 from deepspeech_tpu.models import create_model as jax_create_model
@@ -19,8 +21,11 @@ from deepspeech_tpu_torch import bridge
 from deepspeech_tpu_torch.config import apply_overrides, get_config
 from deepspeech_tpu_torch.data import CharTokenizer
 from deepspeech_tpu_torch.data.synthetic import synthetic_batch
-from deepspeech_tpu_torch.decode.greedy import greedy_decode
+from deepspeech_tpu_torch import infer
+from deepspeech_tpu_torch.decode.greedy import (collapse_ids_with_times,
+                                                greedy_decode)
 from deepspeech_tpu_torch.infer import Inferencer, main
+from deepspeech_tpu_torch.metrics import cer, wer
 from test_torch_model import random_flax_variables
 
 # One CPU thread for torch: parallel test workers share the machine's
@@ -77,6 +82,59 @@ def test_greedy_collapse_matches_jax():
     np.testing.assert_array_equal(ids.numpy(), np.asarray(ref_ids))
 
 
+def test_collapse_with_times_matches_jax():
+    rng = np.random.default_rng(1)
+    best = rng.integers(0, 5, size=(4, 40)).astype(np.int32)
+    best[0, :6] = [0, 3, 3, 0, 3, 3]  # a repeat parted by a blank
+    best[2, -4:] = 2                  # a run to the last frame
+    lens = np.array([40, 17, 40, 0], np.int32)
+    want = jax_collapse_ids_with_times(jnp.asarray(best), jnp.asarray(lens))
+    got = collapse_ids_with_times(torch.from_numpy(best).long(),
+                                  torch.from_numpy(lens).long())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_run_through_device_prefetch_equals_pageable(monkeypatch):
+    """``run`` feeds the offline modes through ``device_prefetch``; its
+    transcripts and WER/CER equal decoding each host batch as it is."""
+    cfg = apply_overrides(get_config("ds2_small"), OVER)
+    params, stats = bridge.init_params(cfg, torch.Generator().manual_seed(0))
+    params["head"]["kernel"] = params["head"]["kernel"] * 8.0
+    batches = [(synthetic_batch(cfg, 2, 40, 6, seed=s)[0], 2 - s % 2)
+               for s in range(3)]
+    inf = Inferencer(cfg, CharTokenizer.english(), params, stats,
+                     device="cpu")
+    fed = []
+    real = infer.device_prefetch
+
+    def counting(it, device, depth=2):
+        for b in real(it, device, depth):
+            fed.append(b)
+            yield b
+
+    monkeypatch.setattr(infer, "device_prefetch", counting)
+
+    class Log:
+        hyps = []
+
+        def log(self, event, **f):
+            if event == "utt":
+                self.hyps.append(f["hyp"])
+
+    log = Log()
+    summary = inf.run(batches, log)
+    assert len(fed) == 3 and all(isinstance(b["features"], torch.Tensor)
+                                 for b in fed)
+    assert [b["features"].shape for b in fed] == [(2, 40, 161)] * 3
+    pageable = [t for b, n in batches for t in inf.decode_batch(b)[:n]]
+    assert log.hyps == pageable and any(pageable)
+    refs = [CharTokenizer.english().decode(row[:n]) for b, k in batches
+            for row, n in list(zip(b["labels"], b["label_lens"]))[:k]]
+    assert summary == {"wer": wer(refs, pageable), "cer": cer(refs, pageable),
+                       "n_utts": 5}
+
+
 def test_cli_synthetic_with_saved_params(tmp_path, capsys):
     cfg = apply_overrides(get_config("ds2_streaming"),
                           {k: v for k, v in OVER.items()
@@ -94,9 +152,9 @@ def test_cli_synthetic_with_saved_params(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("over", [{"decode.mode": "beam"},
-                                  {"decode.mode": "streaming"},
+                                  {"decode.mode": "beam_fused"},
                                   {"decode.lm_path": "lm.arpa"},
-                                  {"decode.timestamps": "true"}])
+                                  {"decode.mode": "sp_greedy"}])
 def test_unported_decode_options_raise(over):
     cfg = apply_overrides(get_config("ds2_small"), {**OVER, **over})
     params, stats = bridge.init_params(cfg, torch.Generator().manual_seed(0))

@@ -119,7 +119,7 @@ def test_model_holds_int8_and_runs_only_without_gradient():
 @pytest.mark.parametrize("over,err,match", [
     ({"decode.mode": "sp_greedy"}, ValueError, "offline decode modes"),
     ({"decode.mode": "sp_beam"}, ValueError, "offline decode modes"),
-    ({"decode.mode": "streaming"}, NotImplementedError, "slice 3"),
+    ({"decode.mode": "streaming"}, ValueError, "unidirectional"),
     ({"decode.mode": "beam"}, NotImplementedError, "slice 6")])
 def test_mode_guards(over, err, match):
     cfg = apply_overrides(get_config("ds2_small"), {**OVER, **over})
