@@ -150,7 +150,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    time by kernel and the W transpose's share) at capacity 1 and 32;
    ``Inferencer.run`` through ``device_prefetch`` and pageable, ms a
    batch, for information;
-8. prints each phase's seconds on a line of its own, a
+8. the serving plane: ``serve.serve_files_pooled`` on the same 8 WAVs
+   over 2 replicas, then with ``migrate_sessions`` and r0's breaker
+   forced open after chunk 3 (at least one migration, no drain
+   fallback), the finals equal across the runs and to each stream's
+   solo manager, 5 ``gru_fwd`` a manager step; and ds2_small behind the
+   ``MicroBatchScheduler`` gateway over a ``ReplicaPool`` of
+   ``Replica.from_inferencer`` replicas: 64 requests on two bf16
+   replicas decoding at once on their own streams (a ``FaultPlan``
+   fails r0's first dispatch), then a premium bf16 and a bulk int8
+   replica; every request ok, every text equal to its replica's serial
+   re-decode of the same micro-batch (the first one's log-probs bit for
+   bit), exactly 3 ``gru_fwd`` or ``gru_fwd_q`` a decoded micro-batch,
+   one compile a distinct rung, each round under a 120 s watchdog; one
+   micro-batch decoded by both replicas at once under the profiler (and
+   the watchdog)
+   shows whether the two cooperative loops ran at the same time; utt/s,
+   dispatch p50/p95 and the replicas' busy seconds over wall time;
+9. prints each phase's seconds on a line of its own, a
    ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -171,6 +188,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -2605,6 +2623,391 @@ def feed_phase(card: str):
         flush=True)
 
 
+GATEWAY_REQUESTS = 64        # requests of round A (round B: 32 a tier)
+GATEWAY_MAX_BATCH = 8        # the gateway's flush cap (rung-full at 8)
+GATEWAY_WATCHDOG_S = 120.0   # a round that has not returned fails the run
+
+
+@contextlib.contextmanager
+def _watchdog(what: str, seconds: float):
+    """Fail the whole run, at once, if the block has not returned in
+    ``seconds``: a hung concurrent launch would otherwise hold the card
+    until the caller's time limit."""
+    def trip():
+        print(f"chip_smoke: watchdog: {what} has not returned in "
+              f"{seconds} s", file=sys.stderr, flush=True)
+        os._exit(3)
+
+    timer = threading.Timer(seconds, trip)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+def _recording_replica(rep, log):
+    """Record each micro-batch ``rep`` decodes (its host batch, plan and
+    texts) and the log-probs of its inferencer's first forward; the
+    faulted dispatch never reaches the backend, so it records nothing."""
+    decode = rep.decode_fn
+    forward = rep.inferencer.forward
+    log[rep.rid] = {"batches": [], "first_lp": None}
+
+    def decode_fn(batch, plan):
+        texts = decode(batch, plan)
+        log[rep.rid]["batches"].append((batch, plan, texts))
+        return texts
+
+    rep.decode_log = log[rep.rid]["batches"]
+
+    def first_forward(features, feat_lens):
+        lp, lens = forward(features, feat_lens)
+        if log[rep.rid]["first_lp"] is None:
+            log[rep.rid]["first_lp"] = lp
+        return lp, lens
+
+    rep.decode_fn = decode_fn
+    rep.inferencer.forward = first_forward
+    return forward
+
+
+def _gateway_round(name, reps, tiers, n, rng, plan=None):
+    """``n`` requests (300..1700 frames; ``tiers`` cycled) through a
+    ``MicroBatchScheduler`` over ``ReplicaPool(reps)``, pumped by
+    ``dispatch_many`` (one worker thread per replica), under the
+    watchdog; every result must be ok and every replica must have
+    dispatched. Then each replica's micro-batches are decoded again,
+    serially, by its own inferencer: the texts must be equal, the first
+    micro-batch's log-probs bit-equal; its rung ledger must count one
+    compile per distinct rung; and the recurrent launches of the round
+    must be 3 a micro-batch, ``gru_fwd`` for bf16 and ``gru_fwd_q`` for
+    int8. Returns the round's report and its launches."""
+    from deepspeech_tpu_torch.data.infer_bucket import slice_to_plan
+    from deepspeech_tpu_torch.obs.metrics import _labeled
+    from deepspeech_tpu_torch.resilience import faults
+    from deepspeech_tpu_torch.serving import (MicroBatchScheduler,
+                                              ReplicaPool)
+
+    cfg = reps[0].inferencer.cfg
+    log, forwards = {}, {}
+    for rep in reps:
+        forwards[rep.rid] = _recording_replica(rep, log)
+    pool = ReplicaPool(reps, telemetry=reps[0].telemetry)
+    sched = MicroBatchScheduler(cfg.data.bucket_frames, GATEWAY_MAX_BATCH,
+                                max_queue=4 * n, default_deadline=60.0,
+                                default_timeout=None, pool=pool,
+                                telemetry=reps[0].telemetry)
+    f = cfg.features.num_features
+    lens = rng.integers(300, 1701, size=n)
+    reqs = [(rng.normal(size=(int(t), f)).astype(np.float32),
+             tiers[k % len(tiers)]) for k, t in enumerate(lens)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    if plan is not None:
+        faults.install(plan)
+    t0 = time.perf_counter()
+    try:
+        with _watchdog(f"gateway round {name}", GATEWAY_WATCHDOG_S):
+            for k, (x, tier) in enumerate(reqs):
+                sched.submit(x, rid=f"{name}{k}", tier=tier)
+            while sched.pending:
+                sched.dispatch_many(sched.poll() or sched.flush_all())
+            torch.cuda.synchronize()
+    finally:
+        faults.clear()
+    wall = time.perf_counter() - t0
+    counts = _recurrent_counts()
+    results = sched.results
+    _require(len(results) == n and all(r.status == "ok"
+                                       for r in results.values()),
+             f"gateway round {name}: results "
+             f"{sorted({r.status for r in results.values()})}")
+    report = {"requests": n, "frames": int(lens.sum()), "seconds": wall,
+              "utt_per_s": n / wall, "replicas": {}}
+    want = {"gru_fwd": 0, "gru_fwd_q": 0}
+    for rep in reps:
+        rec = log[rep.rid]
+        kernel = "gru_fwd_q" if rep.inferencer.quantize_calls else "gru_fwd"
+        want[kernel] += 3 * len(rec["batches"])
+        _require(rec["batches"], f"gateway round {name}: {rep.rid} never "
+                 "dispatched")
+        rungs = {(p.batch_pad, p.bucket_frames) for _, p, _ in
+                 rec["batches"]}
+        stats = rep.inferencer.shape_cache.stats()
+        _require(stats["compiles"] == len(rungs),
+                 f"gateway round {name}: {rep.rid} compiles "
+                 f"{stats['compiles']} != {len(rungs)} distinct rungs")
+        rep.inferencer.forward = forwards[rep.rid]
+        for batch, p, texts in rec["batches"]:
+            again = rep.inferencer.decode_batch_bucketed(batch, plans=[p])
+            _require(again == texts, f"gateway round {name}: {rep.rid}'s "
+                     f"serial re-decode {again} != {texts}")
+        batch, p, _ = rec["batches"][0]
+        sub = slice_to_plan(batch, p)
+        lp, _ = rep.inferencer.forward(sub["features"], sub["feat_lens"])
+        torch.cuda.synchronize()
+        _require(torch.equal(lp, rec["first_lp"]),
+                 f"gateway round {name}: {rep.rid}'s first micro-batch "
+                 "log-probs differ from its serial re-decode by "
+                 f"{float((lp - rec['first_lp']).abs().max())}")
+        hist = rep.telemetry.hists[_labeled("gateway.dispatch_s",
+                                            rep.labels)]
+        report["replicas"][rep.rid] = {
+            "tier": rep.tier, "kernel": kernel,
+            "micro_batches": len(rec["batches"]),
+            "dispatches": rep.dispatches, "rows": rep.rows,
+            "busy_s": rep.busy_s, "compiles": stats["compiles"],
+            "dispatch_ms_p50": hist.percentile(50) * 1e3,
+            "dispatch_ms_p95": hist.percentile(95) * 1e3}
+    _require(counts == {**{k: 0 for k in counts}, **want},
+             f"gateway round {name}: recurrent launches {counts}, want "
+             f"{want} (3 a decoded micro-batch)")
+    report["busy_over_wall"] = sum(r.busy_s for r in reps) / wall
+    report["retries"] = int(sched.telemetry.counter("retries"))
+    return report, want
+
+
+def _concurrent_decode(reps, tries: int = 5):
+    """Every replica of ``reps`` decodes the same micro-batch (the
+    largest its first replica decoded in the round) at once, one thread
+    each, each on its own stream, under ``torch.profiler``; each text
+    must equal its replica's serial decode. From the trace's kernel
+    events: the cooperative recurrent loops (``gru_fwd*_mma_kernel``) a
+    stream ran, the µs two loops of different streams ran at the same
+    time (0: the card ran the grids one after the other), and the µs a
+    loop ran beside other kernels of another stream. A window that lost
+    a stream's loops (the profiler drops some) runs again."""
+    rec = max(reps[0].decode_log,
+              key=lambda r: r[1].batch_pad * r[1].bucket_frames)
+    batch, plan = rec[0], rec[1]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for runs in range(1, tries + 1):
+        barrier = threading.Barrier(len(reps))
+        texts = {}
+
+        def work(rep):
+            barrier.wait()
+            texts[rep.rid] = rep._on_stream(rep.decode_fn, batch, plan)
+
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            threads = [threading.Thread(target=work, args=(r,))
+                       for r in reps]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            torch.cuda.synchronize()
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            os.remove(path)
+        kernels = [(e["args"].get("stream"), float(e["ts"]),
+                    float(e["ts"]) + float(e["dur"]), e["name"])
+                   for e in events if e.get("cat") == "kernel"]
+        loops = [k for k in kernels
+                 if re.search(r"gru_fwd(_q)?_mma_kernel", k[3])]
+        if (len({k[0] for k in loops}) == len(reps)
+                and len(loops) == 3 * len(reps)):
+            break
+        time.sleep(0.5 * runs)
+    for rep in reps:
+        want = rep.inferencer.decode_batch_bucketed(batch, plans=[plan])
+        _require(texts[rep.rid] == want, f"{rep.rid}'s concurrent decode "
+                 f"{texts[rep.rid]} != its serial decode {want}")
+
+    def overlap(a, b):
+        return max(0.0, min(a[2], b[2]) - max(a[1], b[1]))
+
+    others = [k for k in kernels if k not in loops]
+    return {"rung": [plan.batch_pad, plan.bucket_frames],
+            "profiler_windows": runs,
+            "loops_per_stream": sorted(
+                sum(k[0] == s for k in loops) for s in {k[0] for k in loops}),
+            "loop_us": sum(k[2] - k[1] for k in loops),
+            "loops_overlap_us": sum(overlap(a, b) for a in loops
+                                    for b in loops if a[0] != b[0]) / 2,
+            "loop_beside_other_stream_us": sum(
+                overlap(a, b) for a in loops for b in others
+                if b[0] != a[0]),
+            "texts_equal_serial": True}
+
+
+def gateway_phase(card: str):
+    """ds2_small (3 BiGRU layers, H=800) behind the gateway at full width,
+    from the seeded init. Round A: two untiered bf16 replicas (each its
+    own ``Inferencer`` on the same weights and its own CUDA stream) take
+    64 requests, ``dispatch_many`` running them concurrently, with a
+    ``FaultPlan`` failing r0's first ``gateway.dispatch`` (its batch is
+    quarantined and retried). Round B: a premium bf16 replica and a bulk
+    ``Inferencer(quantize="int8")`` replica take 32 requests each.
+    Each round's checks are ``_gateway_round``'s; after each, the two
+    replicas decode one micro-batch at once under the profiler
+    (``_concurrent_decode``: equal to the serial texts, and whether the
+    card ran the two cooperative recurrent loops at the same time).
+    Prints utt/s, each replica's dispatch p50/p95 and the replicas' busy
+    seconds over the round's wall time (above 1: they overlapped).
+    Returns the
+    ``gru_fwd`` and ``gru_fwd_q`` launches of the two rounds."""
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.infer import Inferencer
+    from deepspeech_tpu_torch.resilience import FaultPlan, FaultSpec
+    from deepspeech_tpu_torch.serving import Replica, ServingTelemetry
+
+    cfg = _config("ds2_small")
+    params, stats = _weights("ds2_small")
+    tok = CharTokenizer.english()
+    rng = np.random.default_rng(SEED + 5)
+
+    def replica(rid, tel, quantize="", tier=None):
+        inf = Inferencer(cfg, tok, params, stats, quantize=quantize)
+        return Replica.from_inferencer(rid, inf, tier=tier, telemetry=tel)
+
+    tel = ServingTelemetry()
+    reps = [replica("r0", tel), replica("r1", tel)]
+    _require(all(r.stream is not None for r in reps)
+             and reps[0].stream != reps[1].stream,
+             "gateway replicas do not have streams of their own")
+    plan = FaultPlan([FaultSpec("gateway.dispatch", "error", target="r0",
+                                count=1)], seed=SEED)
+    round_a, launches_a = _gateway_round("A", reps, [None],
+                                         GATEWAY_REQUESTS, rng, plan)
+    with _watchdog("concurrent decode A", GATEWAY_WATCHDOG_S):
+        round_a["concurrent"] = _concurrent_decode(reps)
+    _require(plan.fired() == 1 and round_a["retries"] >= 1,
+             f"the fault plan fired {plan.fired()} times, "
+             f"{round_a['retries']} retries")
+    tel = ServingTelemetry()
+    reps = [replica("p0", tel, tier="premium"),
+            replica("b0", tel, quantize="int8", tier="bulk")]
+    _require(reps[1].inferencer.kernel_regime == "resident-q",
+             f"bulk replica regime {reps[1].inferencer.kernel_regime}")
+    round_b, launches_b = _gateway_round(
+        "B", reps, ["premium", "bulk"], GATEWAY_REQUESTS, rng)
+    with _watchdog("concurrent decode B", GATEWAY_WATCHDOG_S):
+        round_b["concurrent"] = _concurrent_decode(reps)
+    print(card, flush=True)
+    print(json.dumps({"gateway": {"preset": "ds2_small",
+                                  "max_batch": GATEWAY_MAX_BATCH,
+                                  "round_a": round_a, "round_b": round_b},
+                      "card": card}), flush=True)
+    return {k: launches_a[k] + launches_b[k] for k in launches_a}
+
+
+def pooled_stream_phase(root: str, card: str):
+    """``serve.serve_files_pooled`` on ds2_streaming (5 GRU layers,
+    H=800, bf16) at full width over ``serve_phase``'s 8 WAVs in
+    ``root``, with 2 replicas, on ``_stream_weights``; then again with
+    ``migrate_sessions=True`` and r0's breaker forced open after chunk
+    3. The finals of the two runs must be equal, and equal to each
+    stream's solo ``StreamingSessionManager`` (capacity 1) fed the same
+    zero-padded chunks; the second run must migrate at least one session
+    and fall back to no drain; each run's ``gru_fwd`` launches must be 5
+    a manager step, summed over the replicas. Returns the launches."""
+    import io
+
+    from deepspeech_tpu_torch import serve
+    from deepspeech_tpu_torch.data import (CharTokenizer, featurize_np,
+                                           load_audio)
+    from deepspeech_tpu_torch.serving import PooledSessionRouter
+    from deepspeech_tpu_torch.serving.session import StreamingSessionManager
+
+    cfg = _config("ds2_streaming")
+    params, stats = _stream_weights(cfg)
+    tok = CharTokenizer.english()
+    paths = sorted(os.path.join(root, x) for x in os.listdir(root)
+                   if x.startswith("live") and x.endswith(".wav"))
+    _require(len(paths) == 8, f"pooled streaming: {len(paths)} WAVs")
+    steps, routers = [0], []
+    real_step = StreamingSessionManager.step
+    real_route = PooledSessionRouter.step
+
+    def counted_step(self, chunks=None):
+        steps[0] += 1
+        return real_step(self, chunks)
+
+    def run(trip_after):
+        def route(self, chunks):
+            if not routers or routers[-1] is not self:
+                routers.append(self)
+            out = real_route(self, chunks)
+            calls[0] += 1
+            if calls[0] == trip_after:
+                breaker = self.pool.replica("r0").breaker
+                while breaker.state != "open":
+                    breaker.record_failure()
+            return out
+
+        calls = [0]
+        steps[0] = 0
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(StreamingSessionManager, "step",
+                               counted_step), \
+                mock.patch.object(PooledSessionRouter, "step", route):
+            finals = serve.serve_files_pooled(
+                cfg, tok, params, stats, paths, replicas=2, out=out,
+                migrate_sessions=trip_after is not None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _recurrent_counts()
+        _require(counts["gru_fwd"] == 5 * steps[0] and steps[0] > 0
+                 and sum(counts.values()) == counts["gru_fwd"],
+                 f"pooled streaming: recurrent launches {counts}, "
+                 f"{steps[0]} manager steps (want 5 gru_fwd a step)")
+        lines = [json.loads(x) for x in out.getvalue().splitlines()]
+        chunk_ms = sorted(x["ms"] for x in lines if "chunk" in x)
+        return finals, counts["gru_fwd"], {
+            "seconds": seconds, "manager_steps": steps[0],
+            "gru_fwd": counts["gru_fwd"], "chunks": len(chunk_ms),
+            "chunk_wall_ms_median": chunk_ms[len(chunk_ms) // 2],
+            "replica_map": lines[0]["replica_map"],
+            "router": routers[-1].stats()}
+
+    finals, launches, plain = run(None)
+    finals_mig, launches_mig, migrated = run(3)
+    stats_mig = migrated["router"]
+    _require(stats_mig["migrations"] >= 1
+             and stats_mig["migration_fallbacks"] == 0,
+             f"pooled streaming: router {stats_mig}")
+    _require(finals_mig == finals, f"pooled streaming: migrated finals "
+             f"{finals_mig} != {finals}")
+    _require(any(finals), "pooled streaming: every final is empty")
+    nf, k = cfg.features.num_features, STREAM_CHUNK
+    for path, final in zip(paths, finals):
+        x = featurize_np(load_audio(path, 16000), cfg.features)
+        mgr = StreamingSessionManager(cfg, params, stats, tok,
+                                      chunk_frames=k, capacity=1)
+        mgr.join("solo")
+        for i in range(-(-x.shape[0] // k)):
+            buf = np.zeros((k, nf), np.float32)
+            piece = x[i * k:(i + 1) * k]
+            buf[:piece.shape[0]] = piece
+            mgr.step({"solo": buf})
+        mgr.leave("solo")
+        mgr.flush()
+        _require(mgr.final("solo") == final,
+                 f"pooled streaming {os.path.basename(path)}: final "
+                 f"{final!r} != solo {mgr.final('solo')!r}")
+    print(card, flush=True)
+    print(json.dumps({"pooled_stream": {
+        "streams": 8, "replicas": 2, "plain": plain, "migrated": migrated,
+        "finals_equal_solo": True, "finals_equal_across_runs": True},
+        "card": card}), flush=True)
+    return launches + launches_mig
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2727,8 +3130,15 @@ def main() -> int:
     try:
         entries["gru_fwd[D=1]"]["launches"] += _phase(
             "ds2_streaming serve", serve_phase, root)
+        # Pooled live streaming on the same WAVs (K6 over 2 replicas).
+        entries["gru_fwd[D=1]"]["launches"] += _phase(
+            "ds2_streaming pooled serve", pooled_stream_phase, root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    # The gateway: ds2_small requests on replicas (K4; int8 K10).
+    gateway = _phase("ds2_small gateway", gateway_phase, card)
+    entries["gru_fwd[D=2]"]["launches"] += gateway["gru_fwd"]
+    entries["gru_fwd_q[D=2]"]["launches"] += gateway["gru_fwd_q"]
     _phase("ds2_streaming chunk timing", chunk_timing_phase, card)
     _phase("ds2_small run feed", feed_phase, card)
     entries = [entries[n] for n in (

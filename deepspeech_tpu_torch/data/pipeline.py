@@ -17,8 +17,11 @@ Corrupt-sample quarantine (``data.quarantine_corrupt``, on by
 default): a sample with non-finite features, an empty label, or a label
 longer than its frames can carry (CTC's T' >= 2L+1) never reaches the
 device; its row is replaced by a healthy donor row (shapes unchanged),
-the pipeline counts it (``quarantined``) and logs a ``corrupt_sample``
-event through its ``logger`` (the trainer's).
+the pipeline counts it (``quarantined``, and ``samples_quarantined``
+with and without a ``trigger`` label in the metrics registry), writes a
+``corrupt_sample`` postmortem record (``resilience/postmortem.py``), as
+the JAX package's pipeline does, and logs a ``corrupt_sample`` event
+through its ``logger`` (the trainer's).
 
 Features are computed with numpy (``featurize_np``); the JAX package's
 C++ loader (``data.native_loader``) computes the same features and has
@@ -37,7 +40,9 @@ from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import Config
+from ..resilience import postmortem as _postmortem
 from .features import featurize_np, load_audio
 from .manifest import Utterance, load_manifest
 from .sampler import BatchPlan, SortaGradSampler
@@ -277,10 +282,12 @@ def scrub_padded_batch(batch: Batch, *, ids: Optional[Sequence] = None,
 class DataPipeline:
     """End-to-end host pipeline for one manifest.
 
-    ``logger`` (``log(event, **fields)``), when set, receives one
-    ``corrupt_sample`` event per quarantined sample; ``quarantined``
-    counts them. The trainer sets its own logger on a pipeline that has
-    none.
+    Each quarantined sample counts in ``quarantined`` and in the
+    registry's ``samples_quarantined`` (bare and ``{trigger}``), and
+    writes one ``corrupt_sample`` postmortem record; ``logger``
+    (``log(event, **fields)``), when set, also receives one
+    ``corrupt_sample`` event. The trainer sets its own logger on a
+    pipeline that has none.
     """
 
     # Cache featurized utterances only for small (overfit-slice-sized)
@@ -314,6 +321,12 @@ class DataPipeline:
                        label_len: int) -> None:
         with self._lock:
             self.quarantined += 1
+        reg = obs.registry()
+        reg.count("samples_quarantined")
+        reg.count("samples_quarantined", labels={"trigger": trigger})
+        _postmortem.writer().write("corrupt_sample", trigger, utt=utt,
+                                   row=int(row), step=None, frames=frames,
+                                   label_len=label_len)
         if self.logger is not None:
             self.logger.log("corrupt_sample", trigger=trigger, utt=utt,
                             row=row, frames=frames, label_len=label_len)

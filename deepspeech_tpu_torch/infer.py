@@ -47,6 +47,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import obs
 from .bridge import from_flax
 from .config import Config
 from .data.infer_bucket import (ladder_shapes, plan_infer_buckets,
@@ -60,6 +61,7 @@ from .metrics import cer, wer
 from .models.ds2 import DeepSpeech2
 from .ops.gru import card_limits
 from .streaming import StreamingTranscriber
+from .utils.cache import ShapeBucketCache
 from .utils.quantize import (kernel_regime, quantization_error,
                              quantize_params)
 
@@ -99,6 +101,15 @@ def _words_from_char_times(spans):
     if cur:
         words.append(cur)
     return words
+
+
+def _valid_frames(lens, t: int) -> int:
+    """Real frames of a batch clipped to its T rung, for the rung
+    ledger. ``run`` hands ``decode_batch`` its prefetched CUDA tensors,
+    whose sum is read back (one [B] copy)."""
+    if isinstance(lens, torch.Tensor):
+        return int(lens.clamp(max=t).sum())
+    return int(np.minimum(np.asarray(lens), t).sum())
 
 
 def _tensor(x, dtype) -> torch.Tensor:
@@ -226,6 +237,11 @@ class Inferencer:
         self._space_id = None
         if " " in getattr(tokenizer, "chars", []):
             self._space_id = tokenizer.chars.index(" ") + 1
+        # Rung ledger, bounded by the planner's (B, T) ladder: a rung's
+        # first use (cuDNN/cuBLAS plans, allocator growth) is counted
+        # as its compile, and the serving plane reads the counts, the
+        # padding volume and the usage feedback (serving/replica.py).
+        self.shape_cache = ShapeBucketCache(max_shapes=len(self.ladder()))
 
     def forward(self, features, feat_lens
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -240,7 +256,11 @@ class Inferencer:
     def decode_batch(self, batch: Dict[str, np.ndarray]) -> List[str]:
         if self._streamer is not None:
             return self._decode_streaming(batch)
-        lp, lens = self.forward(batch["features"], batch["feat_lens"])
+        b, t = batch["features"].shape[:2]
+        hit = self.shape_cache.note(b, t, _valid_frames(batch["feat_lens"],
+                                                        t))
+        with obs.span("infer.forward", rung=f"{b}x{t}", cached=hit):
+            lp, lens = self.forward(batch["features"], batch["feat_lens"])
         with torch.inference_mode():
             if self.cfg.decode.timestamps:
                 return self._greedy_with_times(torch.argmax(lp, -1), lens)

@@ -111,6 +111,19 @@ def _labeled(name: str, labels: Optional[dict]) -> str:
     return f"{name}{{{inner}}}"
 
 
+_LABEL_RE = re.compile(r'(\w+)="([^"]*)"')
+
+
+def parse_series(series: str) -> Tuple[str, Dict[str, str]]:
+    """Invert :func:`_labeled`: split ``name{k="v",...}`` into
+    ``(name, {k: v})`` (``(name, {})`` for a bare series)."""
+    base, brace, rest = series.partition("{")
+    if not brace:
+        return series, {}
+    return base, dict(_LABEL_RE.findall(rest[:-1] if rest.endswith("}")
+                                        else rest))
+
+
 def _prom_parts(prefix: str, name: str) -> Tuple[str, str]:
     """Split a (possibly labeled) series name into a sanitized
     exposition metric name and its ``{...}`` label suffix."""

@@ -1,0 +1,525 @@
+"""Fleet event timeline: causal event ledger + incident correlation.
+
+The port's own copy of the JAX package's ``obs/timeline.py`` (stdlib
+only). The serving plane's control loops (breakers, brownout, live
+migration) react to each other through the pool; this module records
+their reactions as ONE story:
+
+- :class:`EventLog` — a process-wide, thread-safe, bounded ring of
+  structured events ``{seq, t_mono, t_wall, kind, source, replica?,
+  model?, tier?, cause_seq?, detail}``. Every controller publishes at
+  its decision points; ``cause_seq`` points at the event that
+  *triggered* this one (the breaker open a migration reacted to, the
+  arming event a fault fire traces back to), so trigger→reaction
+  edges are explicit in the data, not inferred from timestamps.
+  Installation mirrors ``resilience.faults``: :func:`install` /
+  :func:`clear` / :func:`active`, and the module-level :func:`publish`
+  is ONE global read when no log is installed (the default).
+- :class:`IncidentCorrelator` — folds causally-linked events into
+  **incidents**: a root event (fault fire, breaker open, SLO alert),
+  the ordered action chain that reacted to it, the replicas touched,
+  a resolution state, and a duration. An incident closes after
+  ``quiet_s`` with no new linked events and is emitted as a
+  ``kind="incident"`` postmortem (via the ``postmortem_link`` seam)
+  plus ``incidents_opened`` / ``incidents_resolved`` counters. A
+  reaction-kind event with NO causal edge at all is an **orphan**.
+- :class:`MetricSeries` — a small flight-recorder ring sampling
+  configured counter/gauge *families* (queue fill, pressure,
+  availability) on an injectable cadence, so each incident record
+  carries before/during/after metric context.
+
+Events render to JSONL as ``{"event": "timeline", ...}`` records
+(:meth:`EventLog.to_record`). The event kinds are the JAX package's,
+so one reader serves both packages' logs.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional, Sequence
+
+from .postmortem_link import postmortem_record
+
+__all__ = [
+    "EventLog", "IncidentCorrelator", "MetricSeries",
+    "ROOT_KINDS", "REACTION_KINDS", "RESOLUTION_KINDS",
+    "install", "clear", "active", "publish", "last_for",
+]
+
+# Kinds that OPEN an incident: something went wrong on its own.
+# "recovery" is the boot-time journal replay's begin event — a crash
+# happened before this process existed, so the replay itself is the
+# first observable root; its per-session events join via cause_seq and
+# "recovery_done" resolves the incident.
+ROOT_KINDS = frozenset({
+    "fault_fire", "breaker_open", "slo_alert", "guardian_skip",
+    "recovery",
+})
+
+# Kinds that only ever happen as a REACTION to something: one of these
+# with no causal edge at all is an orphan — the correlation gap
+# the correlator counts.
+REACTION_KINDS = frozenset({
+    "migration", "migration_fallback", "drain_cancel",
+    "rollout_rollback", "guardian_rollback",
+    "breaker_half_open", "breaker_close",
+    # A failed cross-process handoff always chains to its own
+    # remote_begin (the controller publishes both), so a bare one is
+    # a correlation bug. remote_begin itself is NOT a reaction — a
+    # scripted handoff legitimately starts without a prior incident —
+    # and retry_exhausted may fire for dependencies with no replica
+    # attribution, so neither joins this set.
+    "remote_fail",
+})
+
+# Kinds that, when they join an incident, mark it resolved.
+RESOLUTION_KINDS = frozenset({
+    "breaker_close", "drain_cancel", "slo_recover",
+    "vertical_down", "rollout_done", "brownout_exit",
+    "recovery_done",
+})
+
+
+class EventLog:
+    """Bounded, thread-safe ledger of fleet events — see module
+    docstring. ``clock`` (monotonic) and ``wall`` are injectable so a
+    scripted run replays bit-identically; ``registry`` (optional)
+    receives a ``timeline_events{kind=...}`` counter per publish."""
+
+    def __init__(self, *, capacity: int = 4096,
+                 clock: Callable[[], float] = time.monotonic,
+                 wall: Callable[[], float] = time.time,
+                 registry=None):
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        self.capacity = int(capacity)
+        self.clock = clock
+        self.wall = wall
+        self.registry = registry
+        self.dropped = 0
+        self._lock = threading.Lock()
+        self._events: deque = deque()
+        self._by_seq: Dict[int, dict] = {}
+        self._last_by_replica: Dict[str, int] = {}
+        self._seq = 0
+        self._listeners: List[Callable[[dict], None]] = []
+
+    # -- publishing ------------------------------------------------------
+    def publish(self, kind: str, source: str, *,
+                replica: Optional[str] = None,
+                model: Optional[str] = None,
+                tier: Optional[str] = None,
+                cause_seq: Optional[int] = None,
+                **detail) -> int:
+        """Append one event; returns its ``seq`` (monotonic from 1).
+        ``cause_seq`` is the triggering event's seq, when the caller
+        knows it. Extra keyword arguments land in ``detail``."""
+        with self._lock:
+            self._seq += 1
+            seq = self._seq
+            ev = {"seq": seq, "t_mono": float(self.clock()),
+                  "t_wall": float(self.wall()),
+                  "kind": str(kind), "source": str(source),
+                  "detail": dict(detail)}
+            if replica is not None:
+                ev["replica"] = str(replica)
+                self._last_by_replica[str(replica)] = seq
+            if model is not None:
+                ev["model"] = str(model)
+            if tier is not None:
+                ev["tier"] = str(tier)
+            if cause_seq is not None:
+                ev["cause_seq"] = int(cause_seq)
+            self._events.append(ev)
+            self._by_seq[seq] = ev
+            while len(self._events) > self.capacity:
+                old = self._events.popleft()
+                self._by_seq.pop(old["seq"], None)
+                self.dropped += 1
+            listeners = list(self._listeners)
+        if self.registry is not None:
+            self.registry.count("timeline_events",
+                                labels={"kind": str(kind)})
+        # Outside the lock: a listener (the correlator) may call back
+        # into get()/last_for().
+        for fn in listeners:
+            fn(ev)
+        return seq
+
+    def add_listener(self, fn: Callable[[dict], None]) -> None:
+        """``fn(event)`` after every publish. Listeners must not
+        publish back into the log."""
+        with self._lock:
+            self._listeners.append(fn)
+
+    # -- queries ---------------------------------------------------------
+    def get(self, seq: int) -> Optional[dict]:
+        """The event with ``seq``, or None once evicted."""
+        with self._lock:
+            return self._by_seq.get(seq)
+
+    def last_for(self, rid) -> Optional[int]:
+        """Seq of the newest event naming replica ``rid`` — the
+        default causal parent for a reaction that knows which replica
+        triggered it but not which event."""
+        if rid is None:
+            return None
+        with self._lock:
+            return self._last_by_replica.get(str(rid))
+
+    def recent(self, n: Optional[int] = None) -> List[dict]:
+        with self._lock:
+            evs = list(self._events)
+        return evs if n is None else evs[-int(n):]
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._events)
+
+    @staticmethod
+    def to_record(ev: dict) -> dict:
+        """The JSONL shape (``event="timeline"``) of one event."""
+        rec = {"event": "timeline", "ts": round(ev["t_wall"], 6),
+               "seq": ev["seq"], "t_mono": ev["t_mono"],
+               "kind": ev["kind"], "source": ev["source"]}
+        for k in ("replica", "model", "tier", "cause_seq"):
+            if k in ev:
+                rec[k] = ev[k]
+        if ev.get("detail"):
+            rec["detail"] = ev["detail"]
+        return rec
+
+
+# -- process-wide installation (mirrors resilience.faults) ---------------
+_ACTIVE: Optional[EventLog] = None
+
+
+def install(log: EventLog) -> EventLog:
+    """Make ``log`` the process-wide active timeline."""
+    global _ACTIVE
+    _ACTIVE = log
+    return log
+
+
+def clear() -> None:
+    global _ACTIVE
+    _ACTIVE = None
+
+
+def active() -> Optional[EventLog]:
+    return _ACTIVE
+
+
+def publish(kind: str, source: str, **kw) -> Optional[int]:
+    """Controller-side hook: one module-global read when no timeline
+    is installed (the production default), else
+    :meth:`EventLog.publish`. Returns the seq, or None when off."""
+    log = _ACTIVE
+    if log is None:
+        return None
+    return log.publish(kind, source, **kw)
+
+
+def last_for(rid) -> Optional[int]:
+    """Module-level :meth:`EventLog.last_for`; None when no timeline
+    is installed."""
+    log = _ACTIVE
+    if log is None:
+        return None
+    return log.last_for(rid)
+
+
+class MetricSeries:
+    """Flight-recorder ring over counter/gauge *families*.
+
+    Each sample sums every series of each configured base name
+    (labeled variants included) at one instant; :meth:`context`
+    returns the before/during/after view an incident record embeds.
+    ``interval_s`` rate-limits :meth:`maybe_sample` so the correlator
+    can call it on every observed event."""
+
+    DEFAULT_NAMES = ("queue_depth", "degraded", "availability",
+                     "warm_pct")
+
+    def __init__(self, registry=None, *,
+                 names: Sequence[str] = DEFAULT_NAMES,
+                 interval_s: float = 1.0, capacity: int = 512,
+                 clock: Callable[[], float] = time.monotonic):
+        self.registry = registry
+        self.names = tuple(names)
+        self.interval_s = float(interval_s)
+        self.capacity = int(capacity)
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._ring: deque = deque(maxlen=self.capacity)
+        self._last_t: Optional[float] = None
+
+    def _family_sum(self, name: str) -> Optional[float]:
+        reg = self.registry
+        if reg is None:
+            return None
+        total, found = 0.0, False
+        for mapping in (getattr(reg, "counters", {}),
+                        getattr(reg, "gauges", {})):
+            for key, val in list(mapping.items()):
+                if key.partition("{")[0] == name:
+                    total += float(val)
+                    found = True
+        return total if found else None
+
+    def sample(self, now: Optional[float] = None) -> dict:
+        now = float(self.clock() if now is None else now)
+        vals = {}
+        for name in self.names:
+            v = self._family_sum(name)
+            if v is not None:
+                vals[name] = round(v, 6)
+        with self._lock:
+            self._ring.append((now, vals))
+            self._last_t = now
+        return vals
+
+    def maybe_sample(self, now: Optional[float] = None
+                     ) -> Optional[dict]:
+        now = float(self.clock() if now is None else now)
+        with self._lock:
+            due = (self._last_t is None
+                   or now - self._last_t >= self.interval_s)
+        return self.sample(now) if due else None
+
+    def context(self, start_t: float, end_t: float) -> dict:
+        """Before/during/after view of the window: the last sample
+        strictly before ``start_t``, min/max per family inside the
+        window, and the newest sample at or after ``end_t``."""
+        with self._lock:
+            samples = list(self._ring)
+        before = next((v for t, v in reversed(samples) if t < start_t),
+                      None)
+        after = next((v for t, v in reversed(samples) if t >= end_t),
+                     None)
+        during: Dict[str, dict] = {}
+        for t, vals in samples:
+            if start_t <= t <= end_t:
+                for name, v in vals.items():
+                    d = during.setdefault(name, {"min": v, "max": v})
+                    d["min"] = min(d["min"], v)
+                    d["max"] = max(d["max"], v)
+        return {"before": before, "during": during, "after": after}
+
+
+class IncidentCorrelator:
+    """Folds causally-linked events into incidents — see module
+    docstring.
+
+    Attach with ``log.add_listener(correlator.observe)`` (or feed
+    :meth:`observe` replayed JSONL records offline —
+    an offline report does). An event joins the open
+    incident its ``cause_seq`` chain resolves into; a ROOT kind that
+    resolves nowhere opens a new incident and back-fills its causal
+    ancestors (so the second fire of a ``count=2`` fault spec joins
+    fire #1's incident through their shared arming event instead of
+    opening a duplicate); a REACTION kind with no causal edge at all
+    counts as an orphan. ``quiet_s`` with no linked events closes an
+    incident: a ``kind="incident"`` postmortem via the
+    ``postmortem_link`` seam, with before/during/after metric context
+    when a :class:`MetricSeries` is attached."""
+
+    def __init__(self, *, quiet_s: float = 5.0,
+                 clock: Callable[[], float] = time.monotonic,
+                 postmortem_fn: Optional[Callable] = None,
+                 series: Optional[MetricSeries] = None,
+                 registry=None, max_closed: int = 256,
+                 max_hops: int = 32, max_events: int = 8192):
+        self.quiet_s = float(quiet_s)
+        self.clock = clock
+        self._postmortem = postmortem_fn
+        self.series = series
+        self.registry = registry
+        self.max_hops = int(max_hops)
+        self.open: List[dict] = []
+        self.closed: deque = deque(maxlen=int(max_closed))
+        self.orphans = 0
+        self.orphan_events: deque = deque(maxlen=64)
+        self._next_id = 1
+        self._lock = threading.RLock()
+        # Own bounded seq -> event map (independent of any EventLog),
+        # so the ancestor walk works in offline replay too.
+        self._by_seq: Dict[int, dict] = {}
+        self._order: deque = deque(maxlen=int(max_events))
+
+    def attach(self, log: EventLog) -> "IncidentCorrelator":
+        log.add_listener(self.observe)
+        return self
+
+    def _count(self, name: str) -> None:
+        if self.registry is not None:
+            self.registry.count(name)
+
+    # -- ingestion -------------------------------------------------------
+    def observe(self, ev: dict) -> None:
+        """One event (live listener or replayed record)."""
+        with self._lock:
+            seq = ev.get("seq")
+            if not isinstance(seq, int):
+                return
+            now = float(ev.get("t_mono", 0.0))
+            if seq not in self._by_seq:
+                if len(self._order) == self._order.maxlen:
+                    self._by_seq.pop(self._order[0], None)
+                self._order.append(seq)
+                self._by_seq[seq] = ev
+            if self.series is not None:
+                self.series.maybe_sample(now)
+            self._close_quiet(now)
+            kind = ev.get("kind")
+            inc = self._incident_for(ev)
+            if inc is not None:
+                self._join(inc, ev)
+            elif kind in ROOT_KINDS:
+                self._open_incident(ev)
+            elif kind in REACTION_KINDS and ev.get("cause_seq") is None:
+                # A reaction with no causal edge: the correlation gap
+                # this subsystem exists to surface.
+                self.orphans += 1
+                self.orphan_events.append(ev)
+                self._count("timeline_orphans")
+
+    def poll(self, now: Optional[float] = None) -> None:
+        """Quiet-close pass without a new event (tick loops call
+        this); also drives the metric sampler."""
+        with self._lock:
+            now = float(self.clock() if now is None else now)
+            if self.series is not None:
+                self.series.maybe_sample(now)
+            self._close_quiet(now)
+
+    def flush(self, now: Optional[float] = None) -> None:
+        """Force-close every open incident (end of run / report)."""
+        with self._lock:
+            now = float(self.clock() if now is None else now)
+            for inc in list(self.open):
+                self._finalize(inc)
+
+    # -- correlation -----------------------------------------------------
+    def _ancestors(self, ev: dict) -> List[dict]:
+        """Ambient causal ancestors of ``ev`` (newest first). The walk
+        stops at the first root- or reaction-kind ancestor: that event
+        belongs to its own incident's story (e.g. a fresh breaker open
+        chained to the previous episode's close) and must not be
+        absorbed as prelude."""
+        out: List[dict] = []
+        cause = ev.get("cause_seq")
+        for _ in range(self.max_hops):
+            if cause is None:
+                break
+            parent = self._by_seq.get(cause)
+            if parent is None:
+                break
+            kind = parent.get("kind")
+            if kind in ROOT_KINDS or kind in REACTION_KINDS:
+                break
+            out.append(parent)
+            cause = parent.get("cause_seq")
+        return out
+
+    def _incident_for(self, ev: dict) -> Optional[dict]:
+        cause = ev.get("cause_seq")
+        for _ in range(self.max_hops):
+            if cause is None:
+                return None
+            for inc in self.open:
+                if cause in inc["seqs"]:
+                    return inc
+            parent = self._by_seq.get(cause)
+            if parent is None:
+                return None
+            cause = parent.get("cause_seq")
+        return None
+
+    def _open_incident(self, ev: dict) -> None:
+        # Back-fill causal ancestors (oldest first) so later siblings
+        # sharing an ancestor resolve into THIS incident.
+        prelude = list(reversed(self._ancestors(ev)))
+        events = prelude + [ev]
+        inc = {"id": self._next_id,
+               "root": ev,
+               "seqs": {e["seq"] for e in events},
+               "events": events,
+               "opened_t": float(events[0].get("t_mono", 0.0)),
+               "last_t": float(ev.get("t_mono", 0.0)),
+               "resolved": False,
+               "resolution": None,
+               "replicas": {e["replica"] for e in events
+                            if e.get("replica")}}
+        self._next_id += 1
+        self.open.append(inc)
+        self._count("incidents_opened")
+
+    def _join(self, inc: dict, ev: dict) -> None:
+        inc["seqs"].add(ev["seq"])
+        inc["events"].append(ev)
+        inc["last_t"] = max(inc["last_t"],
+                            float(ev.get("t_mono", 0.0)))
+        if ev.get("replica"):
+            inc["replicas"].add(ev["replica"])
+        if ev.get("kind") in RESOLUTION_KINDS:
+            inc["resolved"] = True
+            inc["resolution"] = ev.get("kind")
+
+    def _close_quiet(self, now: float) -> None:
+        for inc in list(self.open):
+            if now - inc["last_t"] >= self.quiet_s:
+                self._finalize(inc)
+
+    @staticmethod
+    def _slim(ev: dict, t0: float) -> dict:
+        out = {"seq": ev["seq"], "kind": ev.get("kind"),
+               "source": ev.get("source"),
+               "t_rel": round(float(ev.get("t_mono", 0.0)) - t0, 6)}
+        for k in ("replica", "cause_seq"):
+            if ev.get(k) is not None:
+                out[k] = ev[k]
+        return out
+
+    def _finalize(self, inc: dict) -> None:
+        self.open.remove(inc)
+        t0 = inc["opened_t"]
+        record = {
+            "incident_id": inc["id"],
+            "root_kind": inc["root"].get("kind"),
+            "root_seq": inc["root"].get("seq"),
+            "resolution": ("resolved" if inc["resolved"]
+                           else "unresolved"),
+            "resolution_kind": inc["resolution"],
+            "duration_s": round(inc["last_t"] - t0, 6),
+            "n_events": len(inc["events"]),
+            "replicas": sorted(inc["replicas"]),
+            "chain": [self._slim(e, t0) for e in inc["events"]],
+        }
+        if self.series is not None:
+            record["metrics"] = self.series.context(t0, inc["last_t"])
+        self.closed.append(record)
+        if inc["resolved"]:
+            self._count("incidents_resolved")
+        fn = self._postmortem if self._postmortem is not None \
+            else postmortem_record
+        fn("incident", trigger=str(record["root_kind"]), **record)
+
+    # -- surfaces --------------------------------------------------------
+    def status(self) -> dict:
+        """The ``/incidents`` payload: open summaries + closed
+        records + the orphan count."""
+        with self._lock:
+            return {
+                "open": [{"id": inc["id"],
+                          "root_kind": inc["root"].get("kind"),
+                          "root_seq": inc["root"].get("seq"),
+                          "n_events": len(inc["events"]),
+                          "resolved": inc["resolved"],
+                          "replicas": sorted(inc["replicas"])}
+                         for inc in self.open],
+                "closed": list(self.closed),
+                "orphans": self.orphans,
+            }

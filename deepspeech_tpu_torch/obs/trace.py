@@ -5,6 +5,8 @@ only). A span answers "where did this chunk's time go?"::
 
     {"event": "span", "name": "serve.chunk", "ts": <wall s>,
      "dur_ms": <float>, "id": 7, "parent": 3, ...attrs}
+    {"event": "compile", "name": "compile", "ts": ..., "dur_ms": 0.0,
+     "rung": "4x64", "replica": "r0"}
 
 Durations come from a monotonic clock (injectable for tests — wall time
 only stamps ``ts``); nesting is tracked per thread. A span times the
@@ -150,6 +152,32 @@ class Tracer:
         if not self.enabled:
             return _NOOP
         return _Span(self, name, attrs)
+
+    def compile_event(self, batch: int, frames: int,
+                      labels: Optional[dict] = None) -> None:
+        """One rung's first use (``utils/cache.ShapeBucketCache``):
+        always counted per rung as ``compiles{rung=...}`` in the
+        registry; with tracing on, also written as a zero-duration
+        ``{"event": "compile", "rung", ...}`` record. Extra ``labels``
+        (``{"replica": "r0"}`` from a pooled inferencer's ledger) join
+        the counter's labels and the record."""
+        rung = f"{int(batch)}x{int(frames)}"
+        self._registry.count("compiles", 1,
+                             labels={"rung": rung, **(labels or {})})
+        if not self.enabled:
+            return
+        self._write({"event": "compile", "name": "compile",
+                     "ts": round(self._wall(), 6), "dur_ms": 0.0,
+                     "id": self._new_id(), "parent": None,
+                     "rung": rung, **(labels or {})})
+
+    def emit(self, rec: dict) -> None:
+        """Write one caller-built record (a request-trace summary,
+        ``obs/context.py``) through the JSONL sink; no-op when
+        disabled."""
+        if not self.enabled:
+            return
+        self._write(rec)
 
     # -- internals ------------------------------------------------------
     def _new_id(self) -> int:

@@ -8,6 +8,15 @@ beside the package (a directory ``.gitignore`` lists), then loaded with
 rebuilds and an unchanged one loads what is there. The
 build runs at first use, never at import: this module imports on a
 machine with no ``nvcc`` and no card.
+
+Threads: the gateway decodes each replica on a worker thread of its
+own, so two threads can reach a cold kernel together. ``build`` holds
+one module lock from its check to its last rename, so the second
+thread finds the library built, and writes each compile to a temp
+name unique to the process and the thread, so builds from two
+processes sharing ``build/`` never write one file; ``load`` holds
+another while it checks, builds and loads, so one library is
+loaded.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from typing import Dict, Iterable
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,6 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_build_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -52,13 +64,18 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile the named sources that are not built yet, one ``nvcc``
     each, all started together. Returns ``{name: library path}``;
     raises ``RuntimeError`` with the compiler's output on a failure."""
+    with _build_lock:
+        return _build_locked(list(names))
+
+
+def _build_locked(names) -> Dict[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     targets = {n: _target(n) for n in names}
     procs = {}
     for name, out in targets.items():
         if os.path.exists(out):
             continue
-        tmp = f"{out}.{os.getpid()}.tmp"
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
                os.path.join(CSRC_DIR, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -78,9 +95,13 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(build([name])[name])
-    return _loaded[name]
+    lib = _loaded.get(name)
+    if lib is None:
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                lib = _loaded[name] = ctypes.CDLL(build([name])[name])
+    return lib
 
 
 def all_sources() -> list:

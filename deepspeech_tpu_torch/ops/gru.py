@@ -66,6 +66,7 @@ nor between the resident and the streamed kernel.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -433,24 +434,65 @@ def gru_fwd_q_plain(xp: torch.Tensor, mask: torch.Tensor, wq: torch.Tensor,
         + b[di])
 
 
+# Types each loaded library's functions once (``_lib``, ``_launcher``):
+# the gateway's worker threads launch kernels concurrently, and a ctypes
+# function must not be re-typed while another thread calls it. The
+# types live on the library object, so a library put into
+# ``_build._loaded`` by hand (a source variant) is typed afresh.
+_type_lock = threading.Lock()
+
+
 def _lib(name: str) -> ctypes.CDLL:
     """``csrc/<name>.cu`` loaded, with its error-string function (and a
-    backward kernel's scratch sizes) typed; ``_launch`` types the launch
-    function."""
+    backward kernel's scratch sizes) typed; ``_launcher`` types the
+    launch function."""
     lib = _build.load(name)
-    i = ctypes.c_int
-    if name.startswith(("gru_bwd", "lstm_bwd")):
-        sizes = ["scratch_floats"] + (["mma_scratch_floats"]
-                                      if name in ("gru_bwd", "lstm_bwd")
-                                      else [])
-        for size in sizes:
-            scratch = getattr(lib, f"{name}_{size}")
-            scratch.argtypes = [i, i, i]
-            scratch.restype = ctypes.c_longlong
-    err = getattr(lib, f"{name}_error_string")
-    err.argtypes = [i]
-    err.restype = ctypes.c_char_p
+    if getattr(lib, "_ds2_launchers", None) is not None:
+        return lib
+    with _type_lock:
+        if getattr(lib, "_ds2_launchers", None) is not None:
+            return lib
+        i = ctypes.c_int
+        if name.startswith(("gru_bwd", "lstm_bwd")):
+            sizes = ["scratch_floats"] + (["mma_scratch_floats"]
+                                          if name in ("gru_bwd", "lstm_bwd")
+                                          else [])
+            for size in sizes:
+                scratch = getattr(lib, f"{name}_{size}")
+                scratch.argtypes = [i, i, i]
+                scratch.restype = ctypes.c_longlong
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [i]
+        err.restype = ctypes.c_char_p
+        lib._ds2_launchers = {}
     return lib
+
+
+def _launcher(name: str, n_ptrs: int):
+    """``<name>_launch`` of the loaded library, typed for ``n_ptrs``
+    pointer arguments after ``w``."""
+    lib = _lib(name)
+    launch = lib._ds2_launchers.get(n_ptrs)
+    if launch is None:
+        with _type_lock:
+            launch = lib._ds2_launchers.get(n_ptrs)
+            if launch is None:
+                p, i = ctypes.c_void_p, ctypes.c_int
+                # A function object of its own for each typing: a
+                # parent tree's source takes fewer pointers.
+                launch = lib[f"{name}_launch"]
+                launch.argtypes = [i, p, p, p, *[p] * n_ptrs,
+                                   i, i, i, i, i, i, p]
+                launch.restype = i
+                lib._ds2_launchers[n_ptrs] = launch
+    return lib, launch
+
+
+def _counted(fn) -> None:
+    """Add one to a wrapper's ``launches``; the gateway's worker threads
+    launch concurrently, and ``+=`` on an attribute is not atomic."""
+    with _type_lock:
+        fn.launches += 1
 
 
 def _require_cuda(xp: torch.Tensor, name: str) -> None:
@@ -466,11 +508,7 @@ def _launch(name: str, xp: torch.Tensor, mask: torch.Tensor,
     mask, w, *tensors, D, T, B, H, reverse_bits, device, stream)``;
     ``tensors`` are the pointer arguments after ``w`` in the C order
     (None for a null pointer)."""
-    lib = _lib(name)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = [i, p, p, p, *[p] * len(tensors), i, i, i, i, i, i, p]
-    launch.restype = i
+    lib, launch = _launcher(name, len(tensors))
     t, bsz, _ = xp.shape
     d, h = w.shape[0], w.shape[1]
     rc = launch(
@@ -524,7 +562,7 @@ def gru_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     if ys.numel():
         _launch("gru_fwd", xp, mask, w,
                 (b, h0, ys, hfin, _fwd_scratch(xp, w)), reverse)
-        gru_fwd.launches += 1
+        _counted(gru_fwd)
     return ys, hfin
 
 
@@ -587,7 +625,7 @@ def gru_fwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     if ys.numel():
         _launch("gru_fwd_stream", xp, mask, w,
                 (b, h0, ys, hfin, _fwd_scratch(xp, w)), reverse)
-        gru_fwd_stream.launches += 1
+        _counted(gru_fwd_stream)
     return ys, hfin
 
 
@@ -645,7 +683,7 @@ def gru_fwd_q(xp: torch.Tensor, mask: torch.Tensor, wq: torch.Tensor,
     if ys.numel():
         _launch("gru_fwd_q", xp, mask, wq,
                 (scale, b, h0, ys, hfin, _fwd_q_scratch(xp, wq)), reverse)
-        gru_fwd_q.launches += 1
+        _counted(gru_fwd_q)
     return ys, hfin
 
 
@@ -697,7 +735,7 @@ def gru_fwd_q_stream(xp: torch.Tensor, mask: torch.Tensor,
     if ys.numel():
         _launch("gru_fwd_q_stream", xp, mask, wq,
                 (scale, b, h0, ys, hfin, _fwd_q_scratch(xp, wq)), reverse)
-        gru_fwd_q_stream.launches += 1
+        _counted(gru_fwd_q_stream)
     return ys, hfin
 
 

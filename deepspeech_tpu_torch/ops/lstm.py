@@ -292,7 +292,7 @@ def lstm_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     if ys.numel():
         gru._launch("lstm_fwd", xp, mask, w,
                     (b, ys, cs, _fwd_scratch(xp, w)), reverse)
-        lstm_fwd.launches += 1
+        gru._counted(lstm_fwd)
     return _result(ys, cs, tape)
 
 
@@ -321,7 +321,7 @@ def lstm_fwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     if ys.numel():
         gru._launch("lstm_fwd_stream", xp, mask, w,
                     (b, ys, cs, _fwd_stream_scratch(xp, w)), reverse)
-        lstm_fwd_stream.launches += 1
+        gru._counted(lstm_fwd_stream)
     return _result(ys, cs, tape)
 
 
@@ -376,7 +376,7 @@ def lstm_fwd_q(xp: torch.Tensor, mask: torch.Tensor, wq: torch.Tensor,
     if ys.numel():
         gru._launch("lstm_fwd_q", xp, mask, wq,
                     (scale, b, ys, _fwd_q_scratch(xp, wq)), reverse)
-        lstm_fwd_q.launches += 1
+        gru._counted(lstm_fwd_q)
     return ys
 
 
@@ -406,7 +406,7 @@ def lstm_fwd_q_stream(xp: torch.Tensor, mask: torch.Tensor,
     if ys.numel():
         gru._launch("lstm_fwd_q_stream", xp, mask, wq,
                     (scale, b, ys, _fwd_q_stream_scratch(xp, wq)), reverse)
-        lstm_fwd_q_stream.launches += 1
+        gru._counted(lstm_fwd_q_stream)
     return ys
 
 

@@ -1,0 +1,238 @@
+"""Unified retry/backoff and circuit-breaker primitives.
+
+The port's own copy of the JAX package's ``resilience/retry.py``
+(stdlib only). These two classes are the serving plane's shared
+vocabulary for recovery:
+
+- :class:`Retry` — bounded attempts with exponential backoff and
+  full jitter, optionally capped by a total sleep ``budget_s``. Every
+  attempt/giveup is counted in the metrics registry
+  (``retry_attempts{name=...}`` / ``retry_exhausted{name=...}``) so a
+  flapping dependency is visible before it becomes an outage; the
+  give-up additionally lands on the fleet timeline as a
+  ``kind="retry_exhausted"`` event (cause_seq = the arming failure,
+  via the policy's ``replica`` field) so incident chains show *why*
+  a fallback fired, not just that it did.
+- :class:`CircuitBreaker` — classic closed → open → half-open state
+  machine guarding a dependency (here: backend dispatch). After
+  ``failure_threshold`` consecutive failures the circuit opens and
+  callers back off wholesale (no attempt burn, no pile-on); after
+  ``cooldown_s`` one half-open probe is let through, and its outcome
+  closes or re-opens the circuit. State rides the registry as a gauge
+  (``circuit_state{name=...}``: 0 closed / 1 half-open / 2 open) and
+  transitions are kept on the instance for recovery-time reporting.
+
+Both take injectable clock/sleep/rng so tests are deterministic and
+fast.
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Tuple
+
+from .. import obs
+from ..obs import timeline as _timeline
+
+STATE_CLOSED = "closed"
+STATE_OPEN = "open"
+STATE_HALF_OPEN = "half_open"
+_STATE_GAUGE = {STATE_CLOSED: 0, STATE_HALF_OPEN: 1, STATE_OPEN: 2}
+
+
+class CircuitOpen(RuntimeError):
+    """Call refused: the breaker is open and cooling down."""
+
+
+@dataclass
+class Retry:
+    """Exponential backoff with full jitter, budget-capped.
+
+    Attempt ``k`` (1-based) failing sleeps
+    ``min(base_s * multiplier**(k-1), max_s)`` scaled by a uniform
+    jitter in ``[1 - jitter, 1 + jitter]``. ``budget_s`` bounds the
+    *total* sleep across attempts — exceeding it re-raises even with
+    attempts left (an unattended run must fail in bounded wall clock).
+    """
+
+    attempts: int = 3
+    base_s: float = 0.5
+    multiplier: float = 2.0
+    max_s: float = 60.0
+    jitter: float = 0.1
+    budget_s: Optional[float] = None
+    name: str = "retry"
+    sleep: Callable[[float], None] = time.sleep
+    rng: random.Random = field(default_factory=random.Random)
+    registry: Optional[object] = None
+    # Replica/peer this policy is currently guarding (callers may
+    # re-point it per call): names the exhaustion event on the fleet
+    # timeline so the incident chain shows WHY a fallback fired.
+    replica: Optional[str] = None
+
+    def __post_init__(self):
+        if self.attempts < 1:
+            raise ValueError(f"attempts must be >= 1, got {self.attempts}")
+
+    def _reg(self):
+        return self.registry if self.registry is not None \
+            else obs.registry()
+
+    def delay(self, attempt: int) -> float:
+        """Backoff before retrying after the ``attempt``-th failure."""
+        d = min(self.base_s * self.multiplier ** (max(attempt, 1) - 1),
+                self.max_s)
+        if self.jitter:
+            d *= 1.0 + self.jitter * (2.0 * self.rng.random() - 1.0)
+        return max(d, 0.0)
+
+    def call(self, fn: Callable[[], object], *,
+             retryable: Callable[[BaseException], bool] = lambda e: True,
+             on_retry: Optional[Callable[[int, BaseException, float],
+                                         None]] = None):
+        """Run ``fn`` under the policy; returns its value.
+
+        Non-retryable errors propagate immediately; retryable ones are
+        counted, backed off, and re-raised once attempts or the sleep
+        budget run out. ``on_retry(attempt, exc, delay)`` fires before
+        each sleep (a logging hook).
+        """
+        labels = {"name": self.name}
+        slept = 0.0
+        for attempt in range(1, self.attempts + 1):
+            try:
+                return fn()
+            except Exception as e:
+                if not retryable(e):
+                    raise
+                self._reg().count("retry_attempts", labels=labels)
+                d = self.delay(attempt)
+                over_budget = (self.budget_s is not None
+                               and slept + d > self.budget_s)
+                if attempt == self.attempts or over_budget:
+                    self._reg().count("retry_exhausted", labels=labels)
+                    # Fleet-timeline breadcrumb: the give-up that made
+                    # the caller fall back, chained to the arming
+                    # failure (the newest event naming the replica —
+                    # typically the fault fire that broke it).
+                    _timeline.publish(
+                        "retry_exhausted", "retry",
+                        replica=self.replica,
+                        cause_seq=_timeline.last_for(self.replica),
+                        name=self.name, attempts=attempt,
+                        slept_s=round(slept, 6),
+                        why="budget" if over_budget else "attempts")
+                    raise
+                if on_retry is not None:
+                    on_retry(attempt, e, d)
+                self.sleep(d)
+                slept += d
+
+
+class CircuitBreaker:
+    """Closed/open/half-open breaker with cooldown.
+
+    Synchronous, single-threaded like the gateway that hosts it. The
+    caller protocol is ``allow()`` before the guarded call, then
+    ``record_success()`` / ``record_failure()`` — or :meth:`call` to
+    bundle all three (raising :class:`CircuitOpen` when refused).
+    """
+
+    def __init__(self, *, failure_threshold: int = 5,
+                 cooldown_s: float = 5.0, half_open_probes: int = 1,
+                 clock: Callable[[], float] = time.monotonic,
+                 name: str = "breaker", registry=None):
+        if failure_threshold < 1 or half_open_probes < 1:
+            raise ValueError("failure_threshold, half_open_probes >= 1")
+        self.failure_threshold = failure_threshold
+        self.cooldown_s = cooldown_s
+        self.half_open_probes = half_open_probes
+        self.clock = clock
+        self.name = name
+        self._registry = registry
+        self.state = STATE_CLOSED
+        self.failures = 0  # consecutive, while closed
+        self.opened_at: Optional[float] = None
+        self._probes_in_flight = 0
+        self.opens = 0
+        # (t, state) transition log — a report reads recovery
+        # time (last open -> following close) straight off this.
+        self.transitions: List[Tuple[float, str]] = []
+
+    def _reg(self):
+        return self._registry if self._registry is not None \
+            else obs.registry()
+
+    def _set_state(self, state: str) -> None:
+        if state == self.state:
+            return
+        self.state = state
+        self.transitions.append((self.clock(), state))
+        self._reg().gauge("circuit_state", _STATE_GAUGE[state],
+                          labels={"name": self.name})
+        if state == STATE_OPEN:
+            self.opens += 1
+            self._reg().count("circuit_opens",
+                              labels={"name": self.name})
+
+    def allow(self) -> bool:
+        """May a call proceed right now? (Half-open admits probes.)"""
+        if self.state == STATE_CLOSED:
+            return True
+        if self.state == STATE_OPEN:
+            if self.clock() - self.opened_at >= self.cooldown_s:
+                self._set_state(STATE_HALF_OPEN)
+                self._probes_in_flight = 0
+            else:
+                return False
+        if self._probes_in_flight < self.half_open_probes:
+            self._probes_in_flight += 1
+            return True
+        return False
+
+    def record_success(self) -> None:
+        self.failures = 0
+        if self.state != STATE_CLOSED:
+            self._set_state(STATE_CLOSED)
+
+    def record_failure(self) -> None:
+        if self.state == STATE_HALF_OPEN:
+            self._open()  # failed probe: straight back to open
+            return
+        self.failures += 1
+        if self.state == STATE_CLOSED \
+                and self.failures >= self.failure_threshold:
+            self._open()
+
+    def _open(self) -> None:
+        self.opened_at = self.clock()
+        self.failures = 0
+        self._set_state(STATE_OPEN)
+
+    def call(self, fn: Callable[[], object]):
+        if not self.allow():
+            raise CircuitOpen(
+                f"circuit {self.name!r} open "
+                f"(cooldown {self.cooldown_s}s)")
+        try:
+            out = fn()
+        except Exception:
+            self.record_failure()
+            raise
+        self.record_success()
+        return out
+
+    def recovery_s(self) -> Optional[float]:
+        """Seconds from the LAST open to the close that followed it
+        (None while open, or if it never opened)."""
+        t_open = None
+        out = None
+        for t, s in self.transitions:
+            if s == STATE_OPEN:
+                t_open = t
+            elif s == STATE_CLOSED and t_open is not None:
+                out = t - t_open
+                t_open = None
+        return None if t_open is not None else out

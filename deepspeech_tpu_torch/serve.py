@@ -10,7 +10,8 @@ CLI: ``python -m deepspeech_tpu_torch.serve --config=ds2_streaming
 (--checkpoint-dir=DIR | --params=x.npz) wav1.wav [wav2.wav ...]
 [--chunk-frames=64] [--vocab=V] [--endpoint-silence-ms=N
 [--endpoint-silence-db=40]] [--quantize-weights=int8 | --quant-tier=bulk]
-[--device=cpu] [--section.key=value ...]``
+[--replicas=N [--migrate-sessions]] [--device=cpu]
+[--section.key=value ...]``
 
 All streams advance together as one batch, padded to the power-of-two
 rung of the shape ladder (``data/infer_bucket.batch_rung``) with masked
@@ -24,11 +25,23 @@ that stream's running peak), the current segment is finalized (a
 decoding continues into the next segment with the acoustic state (conv
 history, RNN carries) flowing on.
 
+Multi-replica serving: ``--replicas=N`` (N > 1) hosts the streams on a
+:class:`~.serving.pool.ReplicaPool` of N replicas, each with its own
+:class:`~.serving.session.StreamingSessionManager` — sessions pin to a
+replica by consistent hash and re-pin behind a drain window if a
+replica's breaker opens (``serving/pool.py``). Each stream feeds only
+its own chunks (the tail chunk is zero-padded instead of
+length-masked), and endpointing is single-replica-only, so
+``--replicas`` composes with the plain streaming path, not with
+``--endpoint-silence-ms``. ``--migrate-sessions`` moves a session off a
+draining replica by snapshot (``serving/migration.py``) instead of
+waiting out the drain: same segment, the same transcript.
+
 What the JAX ``serve`` also offers comes with later slices of the port,
 and its flags exit naming the slice: beam decoding and LM rescoring
-(slice 6); replicas, multiple models and tenants, rolling swaps,
-autoscaling, session migration, the warm store, the status server,
-the session journal, the timeline and cross-process handoff (slice 4).
+(slice 6); multiple models and tenants, rolling swaps, autoscaling,
+the status server and the timeline (slice 4b); the warm store (item
+17); the session journal and cross-process handoff (slice 4c).
 """
 
 from __future__ import annotations
@@ -47,19 +60,20 @@ from .data.features import frame_params
 
 # Flags of the JAX serve CLI that later slices of the port bring: the
 # value each takes when it is off, and the slice.
-_SLICE4 = "slice 4 (the serving plane)"
+_SLICE4B = "slice 4b (the serving plane's controllers)"
+_SLICE4C = "slice 4c (the session store and handoff)"
+_ITEM17 = "item 17 (the warm store)"
 _SLICE6 = "slice 6 (beam search and LM)"
 _LATER_FLAGS = {
-    "replicas": (1, _SLICE4), "models": ("", _SLICE4),
-    "tenant_config": ("", _SLICE4), "swap_checkpoint": ("", _SLICE4),
-    "swap_at_chunk": (-1, _SLICE4), "swap_wer_guardrail": (0.0, _SLICE4),
-    "autoscale": (False, _SLICE4), "autoscale_min": (1, _SLICE4),
-    "autoscale_max": (0, _SLICE4), "autoscale_cooldown": (1.0, _SLICE4),
-    "migrate_sessions": (False, _SLICE4), "lm_rescore": (False, _SLICE6),
-    "warm_store": ("", _SLICE4), "status_port": (-1, _SLICE4),
-    "session_journal": ("", _SLICE4), "journal_every": (1, _SLICE4),
-    "timeline": ("", _SLICE4), "handoff_listen": (-1, _SLICE4),
-    "handoff_peer": ("", _SLICE4),
+    "models": ("", _SLICE4B), "tenant_config": ("", _SLICE4B),
+    "swap_checkpoint": ("", _SLICE4B), "swap_at_chunk": (-1, _SLICE4B),
+    "swap_wer_guardrail": (0.0, _SLICE4B), "autoscale": (False, _SLICE4B),
+    "autoscale_min": (1, _SLICE4B), "autoscale_max": (0, _SLICE4B),
+    "autoscale_cooldown": (1.0, _SLICE4B), "lm_rescore": (False, _SLICE6),
+    "warm_store": ("", _ITEM17), "status_port": (-1, _SLICE4B),
+    "session_journal": ("", _SLICE4C), "journal_every": (1, _SLICE4C),
+    "timeline": ("", _SLICE4B), "handoff_listen": (-1, _SLICE4C),
+    "handoff_peer": ("", _SLICE4C),
 }
 
 
@@ -245,6 +259,94 @@ def serve_files(cfg, tokenizer, params, batch_stats, wav_paths: List[str],
     return finals
 
 
+def serve_files_pooled(cfg, tokenizer, params, batch_stats,
+                       wav_paths: List[str], replicas: int = 2,
+                       chunk_frames: int = 64, decode: str = "greedy",
+                       out=None, quantize: str = "",
+                       migrate_sessions: bool = False,
+                       device=None) -> List[str]:
+    """``--replicas=N``: the streaming loop over a ReplicaPool.
+
+    Each wav is a session routed by :class:`~.serving.pool.
+    PooledSessionRouter` — consistent-hash pinned to one replica's
+    manager, re-pinned behind a drain window if that replica stops
+    being routable. JSONL surface as :func:`serve_files` (one
+    ``{"chunk", "t_ms", "ms", "partials"}`` line per chunk, then
+    ``{"final": [...]}``), plus a leading ``{"replica_map": ...}``
+    line recording each stream's home replica. Streams feed only their
+    own chunks and leave as their audio ends; the tail chunk is
+    zero-padded rather than length-masked (a live feed has no known
+    length), so tails can differ from :func:`serve_files` by up to one
+    chunk of silence decoding.
+
+    ``migrate_sessions``: a re-pin moves the session by snapshot
+    (:class:`~.serving.migration.MigrationController`) instead of
+    waiting out a drain: the recurrent state, decoder rows and
+    partials export from the old replica's manager and import into the
+    new one with the stream's clock re-based, so the transcript
+    continues in the SAME segment as if it had never moved.
+    Incompatible moves fall back to the drain re-pin, counted, never
+    dropped.
+    """
+    from .data import featurize_np, load_audio
+    from .serving import (MigrationController, PooledSessionRouter,
+                          Replica, ReplicaPool)
+    from .serving.session import StreamingSessionManager
+
+    out = out if out is not None else sys.stdout
+    audios = [load_audio(p, cfg.features.sample_rate) for p in wav_paths]
+    feats = [featurize_np(a, cfg.features) for a in audios]
+
+    def factory():
+        # capacity=1: each replica's manager grows to a power-of-two
+        # rung sized to the sessions it hosts.
+        return StreamingSessionManager(
+            cfg, params, batch_stats, tokenizer, chunk_frames=chunk_frames,
+            decode=decode, quantize=quantize, capacity=1, device=device)
+
+    pool = ReplicaPool([Replica(f"r{k}", session_factory=factory)
+                        for k in range(replicas)],
+                       handoff=migrate_sessions)
+    migrator = MigrationController(telemetry=pool.telemetry) \
+        if migrate_sessions else None
+    router = PooledSessionRouter(pool, migrator=migrator)
+    sids = [str(s) for s in range(len(feats))]
+    homes = {sid: router.join(sid) for sid in sids}
+    print(json.dumps({"replica_map": homes}), file=out, flush=True)
+
+    nf = cfg.features.num_features
+    ms_per_frame = cfg.features.stride_ms
+    n_chunks_per = [-(-f.shape[0] // chunk_frames) for f in feats]
+    last = {sid: "" for sid in sids}
+    for i in range(max(n_chunks_per)):
+        t0 = time.perf_counter()
+        chunks = {}
+        for s, f in enumerate(feats):
+            if i >= n_chunks_per[s]:
+                continue
+            buf = np.zeros((chunk_frames, nf), np.float32)
+            piece = f[i * chunk_frames:(i + 1) * chunk_frames]
+            buf[:piece.shape[0]] = piece
+            chunks[sids[s]] = buf
+        with obs.span("serve.chunk", chunk=i):
+            last.update(router.step(chunks))
+            for s in range(len(feats)):
+                if n_chunks_per[s] == i + 1:  # audio just ended
+                    router.leave(sids[s])
+        print(json.dumps({
+            "chunk": i,
+            "t_ms": round(min((i + 1) * chunk_frames,
+                          max(f.shape[0] for f in feats))
+                          * ms_per_frame, 1),
+            "ms": round((time.perf_counter() - t0) * 1000.0, 3),
+            "partials": [last[sid] for sid in sids],
+        }), file=out, flush=True)
+    router.flush()
+    finals = [router.final(sid) for sid in sids]
+    print(json.dumps({"final": finals}), file=out, flush=True)
+    return finals
+
+
 def _refuse_later_flags(args) -> None:
     """Exit naming the slice for any flag of a later slice that is on."""
     if args.decode == "beam":
@@ -294,6 +396,14 @@ def main(argv: Optional[List[str]] = None) -> None:
                         default="",
                         help="'bulk' = int8 PTQ + greedy decode "
                              "(overrides --decode / --quantize-weights)")
+    parser.add_argument("--replicas", type=int, default=1,
+                        help="host the streams on a pool of N replicas "
+                             "(consistent-hash pinned; re-pinned behind "
+                             "a drain window on a breaker open)")
+    parser.add_argument("--migrate-sessions", action="store_true",
+                        help="with --replicas > 1: move a re-pinned "
+                             "session by snapshot instead of a drain "
+                             "(same segment, same transcript)")
     # The JAX serve's flags of later slices: parsed so that each exits
     # naming its slice.
     for name, (off, _) in _LATER_FLAGS.items():
@@ -308,6 +418,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.quant_tier == "bulk":
         args.quantize_weights, args.decode = "int8", "greedy"
     _refuse_later_flags(args)
+    if args.replicas > 1 and args.endpoint_silence_ms > 0:
+        raise ValueError("--replicas > 1 does not compose with "
+                         "--endpoint-silence-ms (endpointing is "
+                         "single-replica-only; see module docstring)")
     if not args.checkpoint_dir and not args.params:
         raise SystemExit("need --checkpoint-dir or --params")
     cfg = apply_overrides(get_config(args.config),
@@ -321,11 +435,20 @@ def main(argv: Optional[List[str]] = None) -> None:
         params, batch_stats = load_npz(args.params)
     else:
         params, batch_stats = restore_params(args.checkpoint_dir)
-    serve_files(cfg, tokenizer, params, batch_stats, args.wavs,
-                chunk_frames=args.chunk_frames, decode=args.decode,
-                endpoint_silence_ms=args.endpoint_silence_ms,
-                endpoint_db=args.endpoint_silence_db,
-                quantize=args.quantize_weights, device=args.device)
+    if args.replicas > 1:
+        serve_files_pooled(cfg, tokenizer, params, batch_stats, args.wavs,
+                           replicas=args.replicas,
+                           chunk_frames=args.chunk_frames,
+                           decode=args.decode,
+                           quantize=args.quantize_weights,
+                           migrate_sessions=args.migrate_sessions,
+                           device=args.device)
+    else:
+        serve_files(cfg, tokenizer, params, batch_stats, args.wavs,
+                    chunk_frames=args.chunk_frames, decode=args.decode,
+                    endpoint_silence_ms=args.endpoint_silence_ms,
+                    endpoint_db=args.endpoint_silence_db,
+                    quantize=args.quantize_weights, device=args.device)
 
 
 if __name__ == "__main__":

@@ -21,7 +21,7 @@ batch advances in lockstep chunks regardless of who is connected:
   of the same fingerprint, re-based onto its clock.
 
 Beam decoding (``decode="beam"``) comes with slice 6 of the port, and
-the write-ahead session journal with slice 4; both raise here.
+the write-ahead session journal with slice 4c; both raise here.
 Telemetry (slot reuse vs grow, occupancy, active sessions) lands in a
 :class:`~.telemetry.ServingTelemetry`.
 """
@@ -88,8 +88,8 @@ class StreamingSessionManager:
             raise ValueError(f"decode={decode!r}")
         if journal is not None:
             raise NotImplementedError(
-                "the write-ahead session journal comes with slice 4 (the "
-                "serving plane) of the port")
+                "the write-ahead session journal comes with slice 4c (the "
+                "session store) of the port")
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.decode = decode

@@ -53,7 +53,21 @@ def _imported_roots(path):
 OWN_COPIES = ("deepspeech_tpu_torch/utils/quantize.py",
               "deepspeech_tpu_torch/serving/ladder.py",
               "deepspeech_tpu_torch/config.py",
-              "deepspeech_tpu_torch/data/infer_bucket.py")
+              "deepspeech_tpu_torch/data/infer_bucket.py",
+              "deepspeech_tpu_torch/utils/cache.py",
+              "deepspeech_tpu_torch/obs/postmortem_link.py",
+              "deepspeech_tpu_torch/obs/context.py",
+              "deepspeech_tpu_torch/obs/timeline.py",
+              "deepspeech_tpu_torch/obs/slo.py",
+              "deepspeech_tpu_torch/resilience/postmortem.py",
+              "deepspeech_tpu_torch/resilience/retry.py",
+              "deepspeech_tpu_torch/resilience/faults.py",
+              "deepspeech_tpu_torch/resilience/brownout.py",
+              "deepspeech_tpu_torch/serving/registry.py",
+              "deepspeech_tpu_torch/serving/replica.py",
+              "deepspeech_tpu_torch/serving/pool.py",
+              "deepspeech_tpu_torch/serving/scheduler.py",
+              "deepspeech_tpu_torch/serving/migration.py")
 
 
 def test_no_jax_or_reference_imports():
@@ -69,7 +83,10 @@ def test_import_leaves_jax_unloaded():
             "deepspeech_tpu_torch.bridge, deepspeech_tpu_torch.train, "
             "deepspeech_tpu_torch.utils.quantize, "
             "deepspeech_tpu_torch.serving.ladder, "
-            "deepspeech_tpu_torch.profile_infer; "
+            "deepspeech_tpu_torch.profile_infer, "
+            "deepspeech_tpu_torch.serving, deepspeech_tpu_torch.serve, "
+            "deepspeech_tpu_torch.resilience, deepspeech_tpu_torch.obs, "
+            "deepspeech_tpu_torch.utils.cache; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

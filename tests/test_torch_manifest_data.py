@@ -356,6 +356,60 @@ def test_quarantine_counts_and_logs(tmp_path, corpus):
     assert fields["utt"] == utts[2].audio
 
 
+def test_quarantine_metrics_and_postmortems_match_jax(tmp_path, corpus):
+    """On the same corrupt manifest (an empty transcript, a transcript
+    too long for its frames) the port's pipeline counts
+    ``samples_quarantined`` (bare and per trigger) in the metrics
+    registry and writes the ``corrupt_sample`` postmortem records the
+    JAX package's writes, field for field."""
+    import io
+
+    import deepspeech_tpu.obs as jax_obs
+    import deepspeech_tpu.resilience.postmortem as jax_pm
+    import deepspeech_tpu_torch.obs as port_obs
+    import deepspeech_tpu_torch.resilience.postmortem as port_pm
+
+    jcfg, tcfg = _configs()
+    utts = load_manifest(corpus)[:12]
+    utts[2] = dataclasses.replace(utts[2], text="")
+    utts[7] = dataclasses.replace(utts[7], text="abcdefgh" * 30)
+    manifest = str(tmp_path / "corrupt.jsonl")
+    save_manifest(manifest, utts)
+
+    def run(obs, pm, make):
+        before = dict(obs.registry().counters)
+        writer = pm.configure(sink=io.StringIO(),
+                              registry=obs.MetricsRegistry())
+        try:
+            batches = list(make().epoch(0))
+            records = [{k: v for k, v in r.items() if k != "ts"}
+                       for r in writer.recent()]
+        finally:
+            pm.configure()
+        after = obs.registry().counters
+        # The registry is the process's: other tests in this worker
+        # may have counted before, so read what this run added.
+        counts = {k: after[k] - before.get(k, 0) for k in after
+                  if k.startswith("samples_quarantined")
+                  and after[k] != before.get(k, 0)}
+        return batches, counts, records
+
+    jb, jcounts, jrecords = run(jax_obs, jax_pm, lambda: jax_pipeline
+                                .DataPipeline(jcfg, jax_tokenizer
+                                              .CharTokenizer.english(),
+                                              manifest))
+    tb, tcounts, trecords = run(port_obs, port_pm, lambda: DataPipeline(
+        tcfg, CharTokenizer.english(), manifest))
+    assert tcounts == jcounts
+    assert trecords == jrecords
+    assert tcounts["samples_quarantined"] == 2
+    assert {r["trigger"] for r in trecords} == {"empty_label",
+                                                "overlong_label"}
+    assert {r["kind"] for r in trecords} == {"corrupt_sample"}
+    for g, r in zip(tb, jb):
+        _assert_batches_equal(g, r)
+
+
 def test_device_prefetch_on_cpu_yields_batches_in_order(corpus):
     _, tcfg = _configs()
     host = list(DataPipeline(tcfg, CharTokenizer.english(), corpus)

@@ -5,8 +5,13 @@ weights, with the JAX side on its Pallas GRU kernels in interpret mode:
 - ``serve_files``' JSONL (chunk partials, segments, finals; every field
   but the wall-clock ``ms``) equals the JAX ``serve_files``' on WAVs
   written here, with endpointing off and on, and with int8 weights;
-- ``main`` prints those lines from an ``.npz`` on the CPU, and exits
-  naming the slice for each flag of a later slice;
+- ``serve_files_pooled``' JSONL (``replica_map``, partials, finals)
+  equals the JAX ``serve_files_pooled``', with and without
+  ``migrate_sessions``, and with int8 weights;
+- ``main`` prints those lines from an ``.npz`` on the CPU (with
+  ``--replicas=2 --migrate-sessions`` too), refuses ``--replicas`` with
+  endpointing, and exits naming the slice for each flag of a later
+  slice;
 - ``serve_files``' finals equal ``Inferencer(decode.mode="streaming")``'s
   transcripts;
 - ``decode.timestamps`` in the greedy and streaming modes stashes the JAX
@@ -156,19 +161,76 @@ def test_main_prints_jax_lines(setup, tmp_path, capsys):
     assert got == _lines((tmp_path / "jax.jsonl").read_text())
 
 
-@pytest.mark.parametrize("flag", [
-    "--replicas=2", "--models=a=x", "--tenant-config=t.json",
-    "--swap-checkpoint=x", "--swap-at-chunk=3", "--swap-wer-guardrail=0.1",
-    "--autoscale", "--autoscale-min=2", "--autoscale-max=3",
-    "--autoscale-cooldown=2", "--migrate-sessions", "--lm-rescore",
-    "--warm-store=x", "--status-port=0", "--session-journal=x",
-    "--journal-every=2", "--timeline=x", "--handoff-listen=0",
-    "--handoff-peer=h:1", "--decode=beam", "--quant-tier=premium"])
+LATER = {"slice 4b": ("--models=a=x", "--tenant-config=t.json",
+                      "--swap-checkpoint=x", "--swap-at-chunk=3",
+                      "--swap-wer-guardrail=0.1", "--autoscale",
+                      "--autoscale-min=2", "--autoscale-max=3",
+                      "--autoscale-cooldown=2", "--status-port=0",
+                      "--timeline=x"),
+         "slice 4c": ("--session-journal=x", "--journal-every=2",
+                      "--handoff-listen=0", "--handoff-peer=h:1"),
+         "item 17": ("--warm-store=x",),
+         "slice 6": ("--lm-rescore", "--decode=beam",
+                     "--quant-tier=premium")}
+
+
+@pytest.mark.parametrize("flag", [f for fs in LATER.values() for f in fs])
 def test_main_refuses_later_flags(flag):
-    where = ("slice 6" if flag in ("--lm-rescore", "--decode=beam",
-                                   "--quant-tier=premium") else "slice 4")
+    where, = [w for w, fs in LATER.items() if flag in fs]
     with pytest.raises(SystemExit, match=where):
         serve.main([flag, "--params=x.npz", "--device=cpu", "a.wav"])
+    with pytest.raises(SystemExit, match=where):
+        serve.main([flag, "--replicas=2", "--migrate-sessions",
+                    "--params=x.npz", "--device=cpu", "a.wav"])
+
+
+def test_main_refuses_replicas_with_endpointing():
+    with pytest.raises(ValueError, match="does not compose"):
+        serve.main(["--params=x.npz", "--replicas=2",
+                    "--endpoint-silence-ms=500", "--device=cpu", "x.wav"])
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"migrate_sessions": True}, {"quantize": "int8"},
+    {"replicas": 3, "migrate_sessions": True}],
+    ids=["pooled", "migrate", "int8", "three-replicas"])
+def test_serve_files_pooled_matches_jax(setup, tmp_path, kw):
+    """``--replicas``' JSONL (``replica_map``, every chunk's partials,
+    the finals; every field but the wall-clock ``ms``) equals the JAX
+    ``serve_files_pooled``'."""
+    jcfg, tcfg, params, stats, paths = setup
+    kw = {"replicas": 2, **kw}
+    want_f, got_f = tmp_path / "jax.jsonl", tmp_path / "port.jsonl"
+    with open(want_f, "w") as fh:
+        want = jax_serve.serve_files_pooled(
+            jcfg, JaxCharTokenizer.english(), params, stats, paths,
+            out=fh, **kw)
+    with open(got_f, "w") as fh:
+        got = serve.serve_files_pooled(tcfg, CharTokenizer.english(),
+                                       params, stats, paths, out=fh,
+                                       device="cpu", **kw)
+    got_lines = _lines(got_f.read_text())
+    assert got == want and any(got)
+    assert got_lines == _lines(want_f.read_text())
+    assert set(got_lines[0]["replica_map"]) == {"0", "1", "2"}
+    assert got_lines[-1] == {"final": got}
+
+
+def test_main_pooled_prints_jax_lines(setup, tmp_path, capsys):
+    """``serve --replicas=2 --migrate-sessions`` on the CPU prints the
+    JAX ``serve_files_pooled``' lines."""
+    jcfg, _, params, stats, paths = setup
+    npz = str(tmp_path / "w.npz")
+    bridge.save_npz(npz, params, stats)
+    with open(tmp_path / "jax.jsonl", "w") as fh:
+        jax_serve.serve_files_pooled(jcfg, JaxCharTokenizer.english(),
+                                     params, stats, paths, replicas=2,
+                                     migrate_sessions=True, out=fh)
+    serve.main([f"--params={npz}", "--device=cpu", "--replicas=2",
+                "--migrate-sessions", *paths]
+               + [f"--{k}={v}" for k, v in OVER.items()])
+    got = _lines(capsys.readouterr().out)
+    assert got == _lines((tmp_path / "jax.jsonl").read_text())
 
 
 def test_main_needs_weights_and_cuda(setup, tmp_path, monkeypatch):
