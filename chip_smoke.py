@@ -167,7 +167,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the watchdog)
    shows whether the two cooperative loops ran at the same time; utt/s,
    dispatch p50/p95 and the replicas' busy seconds over wall time;
-9. prints each phase's seconds on a line of its own, a
+9. beam search and the LM: ``ds2_beam_lm`` (bf16, head x8) at full
+   width on a (32, 1700) batch with W=128, P=28 (V-1): 3 ``gru_fwd`` (K4) a
+   forward; ``beam`` on the card against the CPU on the same log-probs
+   (2 rows: top-1 identical, scores within ``BEAM_SCORE_RTOL``), the
+   sort and match merges agreeing, one step the same bits twice; with a
+   seeded character trigram ARPA written by the phase,
+   ``beam_fused_device`` through the dense and the hashed table (the
+   same n-best) and ``beam_fused`` through the C++ decoder (its call
+   counted) equal to the Python host decoder; ``aishell`` (V=4336)
+   through ``beam_fused_device`` with a hashed character trigram; ms a
+   batch of the forward, each search and the table builds, the search's
+   share of the decode's device time and its launches a frame; then
+   ``ds2_streaming`` on 8 seeded WAVs, bf16 and int8:
+   ``StreamingBeamDecoder`` over the chunks equal bit for bit to one
+   offline search, a ``decode="beam"`` manager's finals equal to the
+   decoder's and four sessions migrated mid-stream ending bit-identical,
+   5 ``gru_fwd`` (K6; int8 ``gru_fwd_q``, K10) a manager step; ``serve
+   --decode=beam`` equal to ``Inferencer(decode.mode="beam")`` in f32
+   and ``--quant-tier=premium`` equal to ``--decode=beam``; the wall ms
+   of a manager step in beam and greedy at capacities 1 and 32;
+10. prints each phase's seconds on a line of its own, a
    ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -178,6 +198,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -3008,6 +3029,573 @@ def pooled_stream_phase(root: str, card: str):
     return launches + launches_mig
 
 
+BEAM_ROWS_CPU = 2            # rows of the (32, 1700) batch searched on the CPU
+BEAM_HOST_ROWS = 1           # rows of beam_fused run by the Python decoder
+# Beam scores on the card against the CPU, sort against match, dense
+# against hashed fusion: the same search in f32 with other exp/log
+# roundings (and, between the tables, bonuses rounded apart), summed
+# over up to 850 frames; relative to |score|.
+BEAM_SCORE_RTOL = 1e-4
+BEAM_PROFILE_FRAMES = 64     # frames of the search under the profiler
+
+
+def _write_char_arpa(path: str, chars, rng, n2: int, n3: int) -> None:
+    """A seeded character trigram ARPA over ``chars`` (with <s>, </s>
+    and <unk>): random log10 probs and backoffs, ``n2`` bigrams and
+    ``n3`` trigrams drawn from the characters."""
+    uni = [f"{rng.uniform(-3, -0.5):.4f}\t{c}\t{rng.uniform(-0.6, 0):.4f}"
+           for c in chars]
+    grams = {2: set(), 3: set()}
+    for n, want in ((2, n2), (3, n3)):
+        while len(grams[n]) < want:
+            grams[n].add(tuple(chars[int(i)] for i in
+                               rng.integers(len(chars), size=n)))
+    lines = ["\\data\\", f"ngram 1={len(chars) + 3}", f"ngram 2={n2}",
+             f"ngram 3={n3}", "", "\\1-grams:", "-99.0\t<s>\t-0.4",
+             "-1.5\t</s>", "-2.5\t<unk>\t-0.3", *uni, "", "\\2-grams:"]
+    lines += [f"{rng.uniform(-2, -0.2):.4f}\t{' '.join(g)}\t"
+              f"{rng.uniform(-0.5, 0):.4f}" for g in sorted(grams[2])]
+    lines += ["", "\\3-grams:"]
+    lines += [f"{rng.uniform(-1.5, -0.1):.4f}\t{' '.join(g)}"
+              for g in sorted(grams[3])]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines + ["", "\\end\\", ""]))
+
+
+def _beam_weights(cfg):
+    """The seeded random init of ``cfg`` with the head scaled by 8 (as
+    ``_stream_weights``), so that the log-probs are peaked and a
+    transcript is not decided by a near tie."""
+    from deepspeech_tpu_torch.bridge import init_params
+
+    params, stats = init_params(cfg, torch.Generator().manual_seed(SEED))
+    params["head"]["kernel"] = params["head"]["kernel"] * 8.0
+    return params, stats
+
+
+def _beam_batch(cfg, rng, b: int = 32, t: int = 1700):
+    """A (b, t) batch of ragged lengths (the first t) of random
+    features, as the train phases make it."""
+    lens = rng.integers(t // 3, t + 1, size=b).astype(np.int32)
+    lens[0] = t
+    f = cfg.features.num_features
+    feats = np.zeros((b, t, f), np.float32)
+    for i, n in enumerate(lens):
+        feats[i, :n] = rng.normal(size=(n, f))
+    return feats, lens
+
+
+def _search_rel_err(a, b) -> float:
+    """max |a - b| / max(1, |b|) over the live scores of b."""
+    a, b = a.float().cpu(), b.float().cpu()
+    live = b > -1e29
+    return float(((a - b).abs() / b.abs().clamp(min=1.0))[live].max())
+
+
+def _top1(prefixes, lens):
+    p, n = prefixes[:, 0].cpu().numpy(), lens[:, 0].cpu().numpy()
+    return [tuple(p[i, :n[i]].tolist()) for i in range(p.shape[0])]
+
+
+class _Searches:
+    """Stands in for ``infer.beam_search``: runs it and keeps each call's
+    log-probs, lengths and result, so a phase reads what the
+    ``Inferencer`` searched without searching again."""
+
+    def __init__(self, real):
+        self.real, self.calls = real, []
+
+    def __call__(self, lp, lens, **kw):
+        out = self.real(lp, lens, **kw)
+        self.calls.append((lp, lens, kw, out))
+        return out
+
+
+def _search_profile(fn, frames: int):
+    """``fn()`` under the profiler: (device busy ms, device kernel
+    launches), the launches counted over every CUDA kernel event; the
+    search's launches a frame are the launches over ``frames``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for tries in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+        busy = launches = 0
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0):
+                busy += e.self_device_time_total / 1e3
+                launches += e.count
+        if launches > frames:
+            break
+        time.sleep(0.5)
+    return busy, launches
+
+
+def beam_phase(root: str, card: str):
+    """``ds2_beam_lm`` (ds2_small: 3 BiGRU H=800, bf16, head x8) at full
+    width from the seeded init on one (32, 1700) batch with W=128 and
+    the preset's P=40 capped at V-1 = 28 (the exact search): exactly 3
+    ``gru_fwd`` (K4) a forward; ``beam`` on the card
+    against the same ``beam_search`` on the CPU on the same log-probs
+    (``BEAM_ROWS_CPU`` rows: top-1 identical, scores within
+    ``BEAM_SCORE_RTOL``); the sort and match merges agreeing on the card;
+    one ``_step`` run twice giving the same bits. With a seeded character
+    trigram ARPA written here: ``beam_fused_device`` through the dense
+    and the hashed table (the same n-best), and ``beam_fused`` through
+    the C++ decoder (``host_impl="native"``, its call counted) equal to
+    the Python host decoder on the same log-probs. Then ``aishell``
+    (V=4336) at full width through ``beam_fused_device`` with a hashed
+    character trigram. Prints ms a batch for the forward, each search
+    and the table builds, the search's share of the decode's device
+    time and its launches a frame. Returns the K4 launches of the
+    counted forwards."""
+    from deepspeech_tpu_torch import infer, native
+    from deepspeech_tpu_torch.config import apply_overrides
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.decode import beam as beam_mod
+    from deepspeech_tpu_torch.decode.ngram import NGramLM, fusion_table_for
+    from deepspeech_tpu_torch.infer import Inferencer
+
+    report = {"card": card}
+    tok = CharTokenizer.english()
+    cfg = _config("ds2_beam_lm")
+    d = cfg.decode
+    _require(cfg.model.rnn_layers == 3 and cfg.model.rnn_hidden == 800
+             and d.beam_width == 128 and d.prune_top_k == 40
+             and d.mode == "beam", f"ds2_beam_lm: {cfg.model}, {d}")
+    params, stats = _beam_weights(cfg)
+    feats, lens = _beam_batch(cfg, np.random.default_rng(SEED + 5))
+    batch = {"features": feats, "feat_lens": lens}
+    feats_t = torch.from_numpy(feats).cuda()
+    lens_t = torch.from_numpy(lens).long().cuda()
+    inf = Inferencer(cfg, tok, params, stats)
+    inf.decode_batch({"features": feats[:2, :400],
+                      "feat_lens": np.minimum(lens[:2], 400)})  # warm-up
+    torch.cuda.synchronize()
+    searches = _Searches(infer.beam_search)
+    _zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(infer, "beam_search", searches):
+        texts = inf.decode_batch(batch)
+    torch.cuda.synchronize()
+    report["beam_decode_ms"] = (time.perf_counter() - t0) * 1e3
+    counts = _recurrent_counts()
+    want = {k: 3 if k == "gru_fwd" else 0 for k in counts}
+    _require(counts == want, f"ds2_beam_lm beam: recurrent launches "
+             f"{counts}, want {want}")
+    k4 = counts["gru_fwd"]
+    _require(len(texts) == 32 and any(texts), f"beam texts {texts[:4]}")
+    (lp, out_lens, kw, sort), = searches.calls
+    # P is the preset's 40 capped at V-1 = 28: the exact search.
+    _require(kw["merge_impl"] == "auto" and kw["beam_width"] == 128
+             and kw["prune_top_k"] == cfg.model.vocab_size - 1,
+             f"beam: searched with {kw}")
+    _require(texts == [tok.decode(p) for p in _top1(*sort[:2])],
+             "beam: the texts are not the search's top-1")
+    with torch.inference_mode():
+        report["forward_ms"] = _time_ms(lambda: inf.forward(feats_t, lens_t),
+                                        reps=3)
+        frames = lp.shape[1]
+        kw = dict(beam_width=d.beam_width, prune_top_k=d.prune_top_k,
+                  max_len=cfg.data.max_label_len)
+        out = {"sort": sort}
+
+        def search(merge, lm_table=None, rows=slice(None), dev="cuda"):
+            return beam_mod.beam_search(
+                lp[rows].to(dev), out_lens[rows].to(dev), lm_table=lm_table,
+                merge_impl=merge, **kw)
+
+        # The search on the CPU, on the same log-probs, for some rows.
+        rows = slice(0, BEAM_ROWS_CPU)
+        t0 = time.perf_counter()
+        cpu = search("sort", rows=rows, dev="cpu")
+        report["beam_cpu_ms_rows"] = (time.perf_counter() - t0) * 1e3
+        _require(_top1(*out["sort"][:2])[rows] == _top1(*cpu[:2]),
+                 "beam: top-1 on the card differs from the CPU's")
+        report["beam_cpu_rel_err"] = _search_rel_err(out["sort"][2][rows],
+                                                      cpu[2])
+        report["beam_cpu_prefixes_equal"] = bool(
+            torch.equal(out["sort"][0][rows].cpu(), cpu[0]))
+        _require(report["beam_cpu_rel_err"] <= BEAM_SCORE_RTOL,
+                 f"beam: scores on the card vs CPU "
+                 f"{report['beam_cpu_rel_err']} > {BEAM_SCORE_RTOL}")
+        t0 = time.perf_counter()
+        out["match"] = search("match")
+        torch.cuda.synchronize()
+        report["beam_match_ms"] = (time.perf_counter() - t0) * 1e3
+        _require(_top1(*out["match"][:2]) == _top1(*out["sort"][:2]),
+                 "beam: the match merge's top-1 differs from the sort's")
+        report["match_vs_sort_rel_err"] = _search_rel_err(
+            out["match"][2], out["sort"][2])
+        report["match_vs_sort_prefixes_equal"] = bool(
+            torch.equal(out["match"][0], out["sort"][0]))
+        _require(report["match_vs_sort_rel_err"] <= BEAM_SCORE_RTOL,
+                 f"beam: match vs sort {report['match_vs_sort_rel_err']}")
+        # One step twice on the card: the same bits.
+        state = beam_mod.beam_search_chunk(
+            beam_mod.beam_init(32, d.beam_width, kw["max_len"],
+                               device="cuda"),
+            lp[:, :100], torch.arange(100, device="cuda")[None]
+            < out_lens[:, None], prune_top_k=d.prune_top_k)
+        top_lp, top_v = beam_mod._top(
+            lp[:, 100].masked_fill(
+                torch.arange(lp.shape[-1], device="cuda") == 0,
+                beam_mod.NEG_INF), d.prune_top_k)
+        valid = out_lens > 100
+        twice = [beam_mod._step(state, lp[:, 100], valid, top_lp, top_v,
+                                blank_id=0, merge="sort") for _ in range(2)]
+        report["step_same_bits_twice"] = all(
+            torch.equal(a, b) for a, b in zip(*twice))
+        _require(report["step_same_bits_twice"], "beam: a step's bits differ "
+                 "between two runs on the card")
+        # Device time and launches a frame of the search, the forward's.
+        fwd_busy, _ = _search_profile(
+            lambda: inf.forward(feats_t, lens_t), 0)
+        sub = slice(0, BEAM_PROFILE_FRAMES)
+        busy, launches = _search_profile(
+            lambda: beam_mod.beam_search(lp[:, sub], out_lens.clamp(
+                max=BEAM_PROFILE_FRAMES), **kw), BEAM_PROFILE_FRAMES)
+        search_busy = busy / BEAM_PROFILE_FRAMES * frames
+        report.update({
+            "frames": frames, "forward_device_ms": fwd_busy,
+            "beam_device_ms_est": search_busy,
+            "beam_share_of_decode_device_time":
+                search_busy / (search_busy + fwd_busy),
+            "beam_launches_per_frame": launches / BEAM_PROFILE_FRAMES})
+
+        # LM fusion with a seeded character trigram.
+        arpa = os.path.join(root, "en_char.arpa")
+        letters = [chr(c) for c in range(ord("a"), ord("z") + 1)]
+        _write_char_arpa(arpa, letters, np.random.default_rng(SEED + 6),
+                         300, 600)
+        t0 = time.perf_counter()
+        table = fusion_table_for(
+            NGramLM.from_arpa(arpa), lambda i: tok.decode([i]),
+            cfg.model.vocab_size, d.lm_alpha, d.lm_beta,
+            vocab_has_space=True, impl="dense").to("cuda")
+        report["dense_table_build_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        out["dense"] = search("auto", lm_table=table)
+        torch.cuda.synchronize()
+        report["beam_fused_device_dense_ms"] = (time.perf_counter()
+                                                - t0) * 1e3
+    # The hashed table through the Inferencer, on the same log-probs.
+    fused_cfg = apply_overrides(cfg, {"decode.mode": "beam_fused_device",
+                                      "decode.lm_path": arpa,
+                                      "decode.device_lm_impl": "hashed"})
+    fused = Inferencer(fused_cfg, tok, params, stats)
+    t0 = time.perf_counter()
+    fused._lm_table()
+    report["hashed_table_build_ms"] = (time.perf_counter() - t0) * 1e3
+    searches.calls.clear()
+    t0 = time.perf_counter()
+    with mock.patch.object(infer, "beam_search", searches):
+        fused_texts = fused._decode_beam(lp, out_lens,
+                                         lm_table=fused._lm_table())
+    torch.cuda.synchronize()
+    report["beam_fused_device_hashed_ms"] = (time.perf_counter() - t0) * 1e3
+    out["hashed"] = searches.calls[0][3]
+    _require(fused_texts == [tok.decode(p) for p in
+                             _top1(*out["hashed"][:2])],
+             "beam_fused_device: the texts are not the search's top-1")
+    with torch.inference_mode():
+        _require(_top1(*out["dense"][:2]) == _top1(*out["hashed"][:2]),
+                 "beam_fused_device: the dense and hashed tables' top-1 "
+                 "differ")
+        report["dense_vs_hashed_rel_err"] = _search_rel_err(
+            out["hashed"][2], out["dense"][2])
+        report["dense_vs_hashed_prefixes_equal"] = bool(
+            torch.equal(out["hashed"][0], out["dense"][0]))
+        _require(report["dense_vs_hashed_rel_err"] <= BEAM_SCORE_RTOL,
+                 f"dense vs hashed {report['dense_vs_hashed_rel_err']}")
+        _require(_top1(*out["dense"][:2]) != _top1(*out["sort"][:2]),
+                 "beam_fused_device: the LM moved no transcript")
+    nb = fused._last_nbest
+    # beam_fused on the C++ decoder against the Python one on the same
+    # log-probs.
+    host_cfg = apply_overrides(cfg, {"decode.mode": "beam_fused",
+                                     "decode.lm_path": arpa,
+                                     "decode.host_impl": "native"})
+    host = Inferencer(host_cfg, tok, params, stats)
+    _require(isinstance(host._native_lm, native.NativeNGram),
+             "beam_fused: the C++ LM did not load")
+    calls = native.beam_search_batch_native.calls
+    t0 = time.perf_counter()
+    native_texts = host._decode_beam_fused(lp, out_lens)
+    report["beam_fused_native_ms"] = (time.perf_counter() - t0) * 1e3
+    _require(native.beam_search_batch_native.calls == calls + 1,
+             "beam_fused: the C++ search did not run")
+    native_nb = host._last_nbest
+    py_cfg = apply_overrides(host_cfg, {"decode.host_impl": "python"})
+    py = Inferencer(py_cfg, tok, params, stats)
+    rows = slice(0, BEAM_HOST_ROWS)
+    t0 = time.perf_counter()
+    py_texts = py._decode_beam_fused(lp[rows], out_lens[rows])
+    report["beam_fused_python_ms_rows"] = (time.perf_counter() - t0) * 1e3
+    _require(py_texts == native_texts[rows],
+             f"beam_fused: C++ {native_texts[rows]} != Python {py_texts}")
+    err = max(abs(a[1] - b[1]) for x, y in zip(native_nb, py._last_nbest)
+              for a, b in zip(x, y))
+    _require([[t for t, _ in x] for x in native_nb[rows]]
+             == [[t for t, _ in x] for x in py._last_nbest] and err <= 1e-3,
+             f"beam_fused: the C++ n-best differs from Python's ({err})")
+    report["beam_fused_native_vs_python_max_abs_err"] = err
+    report["nbest_deep"] = len(nb[0])
+
+    # aishell (V=4336) at full width: a hashed character trigram.
+    zh_cfg = _config("aishell")
+    zh_tok = CharTokenizer.synthetic_zh(zh_cfg.model.vocab_size - 1)
+    zh_arpa = os.path.join(root, "zh_char.arpa")
+    t0 = time.perf_counter()
+    _write_char_arpa(zh_arpa, zh_tok.chars[:2000],
+                     np.random.default_rng(SEED + 7), 20000, 20000)
+    zh_cfg = apply_overrides(zh_cfg, {"decode.mode": "beam_fused_device",
+                                      "decode.lm_path": zh_arpa})
+    zh_params, zh_stats = _beam_weights(zh_cfg)
+    zh = Inferencer(zh_cfg, zh_tok, zh_params, zh_stats)
+    table = zh._lm_table()
+    report["aishell_table_build_ms"] = (time.perf_counter() - t0) * 1e3
+    _require(type(table).__name__ == "HashedFusionTable" and table.k == 2,
+             f"aishell: table {type(table).__name__}")
+    report["aishell_table_bytes"] = table.nbytes()
+    zh.decode_batch({"features": feats[:2, :400],
+                     "feat_lens": np.minimum(lens[:2], 400)})  # warm-up
+    torch.cuda.synchronize()
+    searches.calls.clear()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(infer, "beam_search", searches):
+        zh_texts = zh.decode_batch(batch)
+    torch.cuda.synchronize()
+    report["aishell_decode_ms"] = (time.perf_counter() - t0) * 1e3
+    _require(_recurrent_counts()["gru_fwd"] == 3, "aishell: launches")
+    k4 += 3
+    (zlp, _, zkw, zout), = searches.calls
+    _require(zkw["lm_table"] is table and zlp.shape[-1] == 4336
+             and bool(torch.isfinite(zlp).all()), "aishell: the search")
+    _require(len(zh_texts) == 32 and any(zh_texts)
+             and zh_texts == [zh_tok.decode(p) for p in _top1(*zout[:2])],
+             "aishell: the texts are not the search's top-1")
+    report["aishell_beam_width"] = zh_cfg.decode.beam_width
+    print(json.dumps({"beam": report}), flush=True)
+    return k4
+
+
+def beam_stream_phase(root: str, card: str):
+    """``ds2_streaming`` (5 GRU layers H=800, ``_stream_weights``) on 8
+    seeded WAVs, bf16 and int8: ``StreamingBeamDecoder`` over the
+    chunks of ``StreamingTranscriber`` equal bit for bit to one offline
+    ``beam_search`` over the log-softmax of the concatenated logits; a
+    ``decode="beam"`` ``StreamingSessionManager`` whose finals equal
+    that decoder's top-1 and whose four sessions exported after 5 chunks
+    into a second manager (capacity 8 both) end with the never-migrated
+    n-best, texts and scores, bit for bit (bf16); exactly 5 ``gru_fwd``
+    (K6; int8: ``gru_fwd_q``, K10) a manager step. In f32, ``serve
+    --decode=beam``'s finals must equal ``Inferencer(decode.mode=
+    "beam")``'s offline transcripts of the same audio; in bf16 the
+    count of equal ones is printed, and ``--quant-tier=premium``'s lines
+    must equal ``--decode=beam``'s. Prints the wall ms of a manager step
+    in beam and greedy at capacities 1 and 32. Returns the K6 and K10
+    launches of the counted runs."""
+    import io
+
+    from deepspeech_tpu_torch import bridge, serve
+    from deepspeech_tpu_torch.config import apply_overrides
+    from deepspeech_tpu_torch.data import (CharTokenizer, featurize_np,
+                                           load_audio)
+    from deepspeech_tpu_torch.decode import beam as beam_mod
+    from deepspeech_tpu_torch.infer import Inferencer
+    from deepspeech_tpu_torch.serving.session import StreamingSessionManager
+    from deepspeech_tpu_torch.streaming import (StreamingBeamDecoder,
+                                                StreamingTranscriber)
+
+    tok = CharTokenizer.english()
+    base = _config("ds2_streaming")
+    rng = np.random.default_rng(SEED + 4)
+    paths = []
+    for i in range(8):
+        n = int(rng.integers(1, 4))
+        secs = rng.uniform(0.8, 2.2, size=n)
+        secs *= min(1.0, (8.0 - (n - 1)) / secs.sum())
+        paths.append(os.path.join(root, f"beam{i}.wav"))
+        _write_speech(paths[-1], secs, rng)
+    feats = [featurize_np(load_audio(p, 16000), base.features) for p in paths]
+    lens = np.asarray([len(x) for x in feats], np.int64)
+    k = STREAM_CHUNK
+    t = int(lens.max()) + (-int(lens.max())) % k
+    nf = base.features.num_features
+    batch = np.zeros((8, t, nf), np.float32)
+    for i, x in enumerate(feats):
+        batch[i, :len(x)] = x
+    launches = {"gru_fwd": 0, "gru_fwd_q": 0}
+    report = {"card": card, "streams": 8, "frames": lens.tolist()}
+    steps = [0]
+    real_step = StreamingSessionManager.step
+
+    def counted_step(self, chunks=None):
+        steps[0] += 1
+        return real_step(self, chunks)
+
+    for quantize, kernel in (("", "gru_fwd"), ("int8", "gru_fwd_q")):
+        name = quantize or "bf16"
+        cfg = base
+        params, stats = _stream_weights(cfg)
+        d = cfg.decode
+        st = StreamingTranscriber(cfg, params, stats, tok, chunk_frames=k,
+                                  quantize=quantize)
+        bd = StreamingBeamDecoder(beam_width=d.beam_width,
+                                  max_len=cfg.data.max_label_len,
+                                  prune_top_k=d.prune_top_k,
+                                  merge_impl=d.merge_impl)
+        state = dataclasses.replace(st.init_state(8), raw_len=torch.as_tensor(
+            lens, device="cuda"))
+        bstate = bd.init(8)
+        rows, valids = [], []
+        with torch.inference_mode():
+            for i in range(t // k):
+                state, lo, va = st.process_chunk(state,
+                                                 batch[:, i * k:(i + 1) * k])
+                bstate = bd.advance(bstate, lo, va)
+                rows.append(lo)
+                valids.append(va)
+            state, lo, va = st.finish(state, lens)
+            bstate = bd.advance(bstate, lo, va)
+            rows.append(lo)
+            valids.append(va)
+            lo, va = torch.cat(rows, 1), torch.cat(valids, 1)
+            n = va.sum(1)
+            packed = torch.zeros((8, int(n.max()), lo.shape[-1]),
+                                 device="cuda")
+            for i in range(8):
+                packed[i, :n[i]] = lo[i][va[i]]
+            off = beam_mod.beam_search(
+                torch.log_softmax(packed, -1), n, beam_width=d.beam_width,
+                prune_top_k=d.prune_top_k, max_len=cfg.data.max_label_len,
+                merge_impl=d.merge_impl)
+            got = bd.result(bstate)
+        same = all(torch.equal(a, b) for a, b in zip(got, off))
+        report[f"{name}_chunked_equals_offline_bits"] = same
+        _require(same, f"beam stream {name}: chunked differs from offline")
+        top1 = [tok.decode(p) for p in _top1(*got[:2])]
+        _require(any(top1), f"beam stream {name}: every transcript empty")
+
+        def manager(capacity=8):
+            return StreamingSessionManager(
+                cfg, params, stats, tok, chunk_frames=k, decode="beam",
+                quantize=quantize, capacity=capacity)
+
+        def run(migrate_at=None):
+            src, dst = manager(), manager()
+            homes = {str(s): src for s in range(8)}
+            for s in range(8):
+                src.join(str(s), raw_len=int(lens[s]))
+            for i in range(t // k):
+                if i == migrate_at:
+                    for s in range(4):
+                        dst.import_session(src.export_session(str(s)))
+                        homes[str(s)] = dst
+                for m in (src, dst):
+                    feed = {sid: batch[int(sid), i * k:(i + 1) * k]
+                            for sid, h in homes.items() if h is m}
+                    if feed:
+                        m.step(feed)
+            for sid, m in homes.items():
+                m.leave(sid)
+            src.flush()
+            dst.flush()
+            return ([homes[str(s)].final(str(s)) for s in range(8)],
+                    [homes[str(s)].final_nbest(str(s)) for s in range(8)])
+
+        torch.cuda.synchronize()
+        _zero_counts()
+        steps[0] = 0
+        with mock.patch.object(StreamingSessionManager, "step",
+                               counted_step):
+            finals, nbest = run()
+            if not quantize:
+                finals_mig, nbest_mig = run(migrate_at=5)
+                _require(nbest_mig == nbest, f"beam stream {name}: "
+                         "migrated sessions did not continue "
+                         "bit-identically")
+                report[f"{name}_migrated_nbest_bit_identical"] = True
+        counts = _recurrent_counts()
+        _require(counts[kernel] == 5 * steps[0] and steps[0] > 0
+                 and sum(counts.values()) == counts[kernel],
+                 f"beam stream {name}: launches {counts} for {steps[0]} "
+                 "manager steps (want 5 a step)")
+        launches[kernel] += counts[kernel]
+        _require(finals == top1, f"beam stream {name}: the manager's finals "
+                 f"{finals} differ from the decoder's {top1}")
+        report[f"{name}_manager_steps"] = steps[0]
+        report[f"{name}_launches"] = counts[kernel]
+        report[f"{name}_finals_equal_decoder"] = True
+        del st
+
+    # serve --decode=beam against the offline beam of decode.mode: in
+    # f32 through serve_files, in bf16 (the preset's) through the CLI,
+    # --decode=beam and --quant-tier=premium.
+    for dtype in ("float32", "bfloat16"):
+        cfg = apply_overrides(base, {"model.dtype": dtype})
+        params, stats = _stream_weights(cfg)
+        if dtype == "float32":
+            finals = serve.serve_files(cfg, tok, params, stats, paths,
+                                       out=io.StringIO(), decode="beam")
+        else:
+            npz = os.path.join(root, "stream.npz")
+            bridge.save_npz(npz, params, stats)
+            lines = {}
+            for flag in ("--decode=beam", "--quant-tier=premium"):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    serve.main([flag, f"--params={npz}", *paths])
+                lines[flag] = [{k2: v for k2, v in json.loads(x).items()
+                                if k2 != "ms"}
+                               for x in buf.getvalue().splitlines()]
+            _require(lines["--decode=beam"] == lines["--quant-tier=premium"],
+                     "serve --quant-tier=premium differs from --decode=beam")
+            finals = lines["--decode=beam"][-1]["final"]
+        inf = Inferencer(apply_overrides(cfg, {"decode.mode": "beam"}), tok,
+                         params, stats)
+        texts = inf.decode_batch({"features": batch, "feat_lens": lens})
+        equal = sum(a == b for a, b in zip(finals, texts))
+        report[f"serve_beam_{dtype}_finals_equal_offline"] = equal
+        _require(dtype != "float32" or equal == 8,
+                 f"serve --decode=beam f32 finals {finals} != offline beam "
+                 f"{texts}")
+        _require(any(finals), f"serve --decode=beam {dtype}: finals empty")
+
+    # Wall ms a manager step, beam and greedy, at capacity 1 and 32.
+    cfg = base
+    params, stats = _stream_weights(cfg)
+    x = np.random.default_rng(SEED + 8).normal(size=(32, k, nf)).astype(
+        np.float32)
+    for decode in ("beam", "greedy"):
+        for cap in (1, 32):
+            mgr = StreamingSessionManager(cfg, params, stats, tok,
+                                          chunk_frames=k, decode=decode,
+                                          capacity=cap)
+            feed = {str(i): x[i] for i in range(cap)}
+            for sid in feed:
+                mgr.join(sid)
+            for _ in range(3):
+                mgr.step(feed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(8):
+                mgr.step(feed)
+            torch.cuda.synchronize()
+            report[f"step_wall_ms_{decode}_cap{cap}"] = (
+                (time.perf_counter() - t0) * 1e3 / 8)
+            del mgr
+    print(json.dumps({"beam_stream": report}), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3141,6 +3729,16 @@ def main() -> int:
     entries["gru_fwd_q[D=2]"]["launches"] += gateway["gru_fwd_q"]
     _phase("ds2_streaming chunk timing", chunk_timing_phase, card)
     _phase("ds2_small run feed", feed_phase, card)
+    # Beam search and the LM: offline (K4) and live (K6, K10).
+    root = tempfile.mkdtemp(prefix="chip_smoke_beam_")
+    try:
+        entries["gru_fwd[D=2]"]["launches"] += _phase(
+            "ds2_beam_lm / aishell beam", beam_phase, root, card)
+        stream = _phase("ds2_streaming beam", beam_stream_phase, root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    entries["gru_fwd[D=1]"]["launches"] += stream["gru_fwd"]
+    entries["gru_fwd_q[D=1]"]["launches"] += stream["gru_fwd_q"]
     entries = [entries[n] for n in (
         "gru_fwd[D=2]", "gru_fwd[D=1]", "ctc_alpha", "ctc_alpha[loss_only]",
         "ctc_beta", "gru_bwd[D=2]", "gru_bwd[D=1]", "gru_fwd_stream[D=2]",

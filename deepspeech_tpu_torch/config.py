@@ -142,9 +142,13 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class DecodeConfig:
-    """Decoding. The port decodes ``mode="greedy"`` only so far; the
-    other modes of the JAX package (beam, LM fusion, streaming,
-    sequence-parallel, transducer) raise ``NotImplementedError``."""
+    """Decoding. The port decodes ``mode`` "greedy", "streaming",
+    "beam" (the on-device prefix beam search; n-best rescored on the
+    host with ``lm_path``), "beam_fused_device" (the LM fused on the
+    device by a dense or hashed table, ``device_lm_impl``) and
+    "beam_fused" (host search with word-LM fusion, by the C++ or the
+    Python decoder, ``host_impl``); the sequence-parallel ("sp_*") and
+    transducer ("rnnt_*") modes raise ``NotImplementedError``."""
 
     mode: str = "greedy"
     chunk_frames: int = 64

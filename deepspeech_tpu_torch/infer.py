@@ -1,15 +1,28 @@
-"""Inference entry point: forward -> log-softmax -> greedy CTC decode.
+"""Inference entry point: forward -> log-softmax -> CTC decode.
 
-The port's counterpart of ``deepspeech_tpu/infer.py`` for greedy
-decoding: ``Inferencer.decode_batch`` / ``decode_batch_bucketed`` over
-the ``(B, T)`` ladder (data/infer_bucket.py), for a GRU or an LSTM
-model (``model.rnn_type``), with the attribute names
-(``_last_nbest``, ``_last_times``, ``_last_word_times``) the serving
-plane reads. ``decode.mode="streaming"`` decodes through the chunked
-engine (streaming.py), and ``decode.timestamps`` stashes each symbol's
-argmax-alignment span in the greedy and streaming modes. Beam search,
-LM fusion, sequence-parallel and transducer decoding raise
-``NotImplementedError`` naming the slice of the port that brings them.
+The port's counterpart of ``deepspeech_tpu/infer.py``:
+``Inferencer.decode_batch`` / ``decode_batch_bucketed`` over the
+``(B, T)`` ladder (data/infer_bucket.py), for a GRU or an LSTM model
+(``model.rnn_type``), with the attribute names (``_last_nbest``,
+``_last_times``, ``_last_word_times``) the serving plane reads. The
+decode modes:
+
+- ``greedy``; ``streaming`` through the chunked engine (streaming.py);
+  ``decode.timestamps`` stashes each symbol's argmax-alignment span in
+  these two;
+- ``beam``: the on-device prefix beam search (decode/beam.py) on the
+  log-probs where the forward left them; with ``decode.lm_path`` the
+  n-best is rescored on the host (``rescore_nbest``);
+- ``beam_fused_device``: the same search with the LM fused on the device
+  through a dense or hashed fusion table (``decode.device_lm_impl``);
+- ``beam_fused``: the log-probs copied to the host and searched there
+  with word-LM shallow fusion, by the C++ decoder (``csrc/host``,
+  ``native.py``) or the Python one (``decode/beam_host.py``), as
+  ``decode.host_impl`` says ("native" raises if the C++ library does
+  not build or load; "auto" takes it where it does).
+
+Sequence-parallel and transducer decoding raise ``NotImplementedError``
+naming the slice of the port that brings them.
 
 Weights: ``Inferencer(params=None)`` restores ``train.checkpoint_dir``
 through ``restore_params``, which reads the port's own checkpoints
@@ -27,7 +40,11 @@ CLI: ``python -m deepspeech_tpu_torch.infer --config=ds2_small
 [--checkpoint-dir=DIR] [--manifest=M] [--vocab=V] [--average-last=K]
 [--params=x.npz] [--synthetic=N [--seed=0]] [--device=cpu]
 [--quantize-weights=int8] [--section.key=value ...]``, e.g.
-``--model.rnn_type=lstm`` for the LSTM variant of a preset. It decodes
+``--model.rnn_type=lstm`` for the LSTM variant of a preset, or
+``--config=ds2_beam_lm --decode.lm_path=lm.arpa`` for beam search with
+n-best LM rescoring (``--decode.mode=beam_fused_device`` fuses it on
+the device). With ``decode.nbest`` > 1 each ``utt`` line of a beam mode
+carries its ``nbest`` list. It decodes
 ``--manifest`` (default ``data.eval_manifest``), or N synthetic
 utterances, with the weights of ``--params``, else of the checkpoint
 directory (the newest step, or the mean of the last K); with
@@ -47,15 +64,18 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import obs
+from . import native, obs
 from .bridge import from_flax
 from .config import Config
 from .data.infer_bucket import (ladder_shapes, plan_infer_buckets,
                                 slice_to_plan, unbucket)
 from .data.tokenizer import CharTokenizer
 from .data.pipeline import device_prefetch
+from .decode.beam import beam_search
+from .decode.beam_host import prefix_beam_search_host
 from .decode.greedy import (collapse_ids, collapse_ids_with_times,
                             greedy_decode, ids_to_texts)
+from .decode.ngram import load_lm, rescore_nbest
 from .device import resolve_device
 from .metrics import cer, wer
 from .models.ds2 import DeepSpeech2
@@ -72,10 +92,9 @@ _log = logging.getLogger(__name__)
 _OFFLINE_MODES = ("greedy", "beam", "beam_fused", "beam_fused_device",
                   "rnnt_greedy", "rnnt_beam")
 
+_BEAM_MODES = ("beam", "beam_fused", "beam_fused_device")
+
 _LATER = {
-    "beam": "slice 6 (beam search and LM)",
-    "beam_fused": "slice 6 (beam search and LM)",
-    "beam_fused_device": "slice 6 (beam search and LM)",
     "sp_greedy": "slice 9 (sequence parallelism)",
     "sp_beam": "slice 9 (sequence parallelism)",
     "rnnt_greedy": "slice 9 (RNN-T)",
@@ -185,15 +204,12 @@ class Inferencer:
                 "or the transducer's emission frames) — greedy/"
                 "streaming/rnnt_greedy modes only; beam hypotheses "
                 f"don't carry one ({mode!r})")
-        if mode not in ("greedy", "streaming"):
+        if mode not in ("greedy", "streaming") + _BEAM_MODES:
             if mode not in _LATER:
                 raise ValueError(f"unknown decode mode {mode!r}")
             raise NotImplementedError(
                 f"decode.mode={mode!r} comes with {_LATER[mode]} of the "
                 "port")
-        if cfg.decode.lm_path:
-            raise NotImplementedError(
-                "LM fusion/rescoring comes with slice 6 of the port")
         if params is None:
             params, batch_stats = restore_params(cfg.train.checkpoint_dir)
         self.cfg = cfg
@@ -231,12 +247,31 @@ class Inferencer:
         self.kernel_regime = kernel_regime(
             cfg.model, bool(quantize), streaming=mode == "streaming",
             card=card)
-        self._last_nbest = None  # beam modes would stash [(text, score)]
+        self._last_nbest = None  # beam modes stash [(text, score)]
         self._last_times = None  # timestamp mode stashes char spans
         self._last_word_times = None  # word spans (spaced vocabularies)
         self._space_id = None
+        # A space-less vocabulary (Mandarin) means a character LM:
+        # fusion closes a "word" a character, and rescoring space-joins
+        # the characters for the LM.
+        self._to_lm_text = None
         if " " in getattr(tokenizer, "chars", []):
             self._space_id = tokenizer.chars.index(" ") + 1
+        else:
+            self._to_lm_text = lambda t: " ".join(t)
+        self.lm = load_lm(cfg.decode.lm_path) if cfg.decode.lm_path else None
+        # The C++ LM handle of the host fused decoder (None when the LM
+        # came from another engine or the library is not there).
+        self._native_lm = None
+        if isinstance(self.lm, native.NativeNGram):
+            self._native_lm = self.lm
+        elif (cfg.decode.lm_path and mode == "beam_fused"
+              and cfg.decode.host_impl != "python" and native.available()):
+            try:
+                self._native_lm = native.NativeNGram(cfg.decode.lm_path)
+            except (ValueError, RuntimeError):
+                self._native_lm = None
+        self._device_lm = None  # the fusion table (dense/hashed), lazy
         # Rung ledger, bounded by the planner's (B, T) ladder: a rung's
         # first use (cuDNN/cuBLAS plans, allocator growth) is counted
         # as its compile, and the serving plane reads the counts, the
@@ -253,6 +288,18 @@ class Inferencer:
             logits, out_lens = self.model(feats, lens)
             return torch.log_softmax(logits, dim=-1), out_lens
 
+    def decode_batch_nbest(self, batch: Dict[str, np.ndarray]
+                           ) -> List[List[tuple]]:
+        """Per-utterance n-best ``[(text, score)]`` lists, best first,
+        ``decode.nbest`` deep. Beam modes return the beam scores
+        (LM-rescored when an LM is loaded and not fused); greedy and
+        streaming have one hypothesis, scored 0.0."""
+        self._last_nbest = None
+        texts = self.decode_batch(batch)
+        if self._last_nbest is None:
+            return [[(t, 0.0)] for t in texts]
+        return self._last_nbest
+
     def decode_batch(self, batch: Dict[str, np.ndarray]) -> List[str]:
         if self._streamer is not None:
             return self._decode_streaming(batch)
@@ -261,11 +308,134 @@ class Inferencer:
                                                         t))
         with obs.span("infer.forward", rung=f"{b}x{t}", cached=hit):
             lp, lens = self.forward(batch["features"], batch["feat_lens"])
-        with torch.inference_mode():
+        mode = self.cfg.decode.mode
+        with torch.inference_mode(), obs.span("infer.decode", mode=mode):
+            if mode == "beam":
+                return self._decode_beam(lp, lens)
+            if mode == "beam_fused_device":
+                return self._decode_beam(lp, lens, lm_table=self._lm_table())
+            if mode == "beam_fused":
+                return self._decode_beam_fused(lp, lens)
             if self.cfg.decode.timestamps:
                 return self._greedy_with_times(torch.argmax(lp, -1), lens)
             ids, out_lens = greedy_decode(lp, lens)
         return ids_to_texts(ids, out_lens, self.tokenizer)
+
+    # -- beam modes ------------------------------------------------------
+    def _decode_beam(self, lp, lens, lm_table=None) -> List[str]:
+        """The on-device search on ``lp`` where it lies; only the first
+        ``decode.nbest`` finalized hypotheses cross to the host."""
+        d = self.cfg.decode
+        v = lp.shape[-1]
+        prefixes, plens, scores = beam_search(
+            lp, lens, beam_width=d.beam_width,
+            prune_top_k=min(d.prune_top_k, v - 1),
+            max_len=self.cfg.data.max_label_len, lm_table=lm_table,
+            merge_impl=d.merge_impl)
+        return self._nbest_texts(prefixes, plens, scores,
+                                 lm_fused=lm_table is not None)
+
+    def _nbest_lists(self, prefixes, plens, scores,
+                     lm_fused: bool) -> List[List[tuple]]:
+        """Per-utterance [(text, score)] lists, best first, ``nbest``
+        deep. LM rescoring (an LM loaded and not already fused) reorders
+        within the list."""
+        d = self.cfg.decode
+        n = min(d.nbest, prefixes.shape[1])
+        prefixes = prefixes[:, :n].cpu().numpy()
+        plens = plens[:, :n].cpu().numpy()
+        scores = scores[:, :n].cpu().numpy()
+        out = []
+        for b in range(prefixes.shape[0]):
+            nbest = [(self.tokenizer.decode(prefixes[b, k, :plens[b, k]]),
+                      float(scores[b, k])) for k in range(n)
+                     if scores[b, k] > -1e29]
+            # With on-device fusion the scores hold the LM already;
+            # rescoring would count it twice.
+            if not lm_fused and self.lm is not None and nbest:
+                nbest = rescore_nbest(nbest, self.lm, d.lm_alpha, d.lm_beta,
+                                      to_lm_text=self._to_lm_text)
+            out.append(nbest)
+        self._last_nbest = out
+        return out
+
+    def _nbest_texts(self, prefixes, plens, scores,
+                     lm_fused: bool) -> List[str]:
+        return [nb[0][0] if nb else ""
+                for nb in self._nbest_lists(prefixes, plens, scores,
+                                            lm_fused)]
+
+    def _lm_table(self):
+        """The device fusion table, built once an Inferencer and moved to
+        its device: a dense ``[V^k, V]`` tensor or a
+        ``HashedFusionTable``, as ``decode.device_lm_impl`` says
+        (``fusion_table_for`` picks under "auto"). The build walks the
+        Python reader's n-gram dicts, so the LM must be ARPA text."""
+        if self._device_lm is None:
+            d = self.cfg.decode
+            if not d.lm_path:
+                raise ValueError("beam_fused_device needs decode.lm_path")
+            from .decode.ngram import NGramLM, fusion_table_for
+
+            self._device_lm = fusion_table_for(
+                self.lm if isinstance(self.lm, NGramLM) else d.lm_path,
+                lambda i: self.tokenizer.decode([i]),
+                self.cfg.model.vocab_size, d.lm_alpha, d.lm_beta,
+                context_size=d.device_lm_context,
+                vocab_has_space=self._space_id is not None,
+                impl=d.device_lm_impl).to(self.device)
+        return self._device_lm
+
+    def _decode_beam_fused(self, lp, lens) -> List[str]:
+        """Host search with word-LM fusion: the log-probs cross to the
+        host here, the C++ batch decoder or the Python one per
+        ``decode.host_impl``."""
+        d = self.cfg.decode
+        lens = lens.cpu().numpy() if isinstance(lens, torch.Tensor) \
+            else np.asarray(lens)
+        lp = lp.float().cpu().numpy()
+        if self._use_native_fused():
+            res = native.beam_search_batch_native(
+                lp, lens, beam_width=d.beam_width,
+                prune_log_prob=d.prune_log_prob, lm=self._native_lm,
+                lm_alpha=d.lm_alpha, lm_beta=d.lm_beta,
+                space_id=self._space_id,
+                id_to_char=lambda i: self.tokenizer.decode([i]),
+                nbest=d.nbest)
+            nbest = [[(self.tokenizer.decode(ids), float(score))
+                      for ids, score in r[:d.nbest]] for r in res]
+        else:
+            lp64 = lp.astype(np.float64)
+            nbest = []
+            for b in range(lp64.shape[0]):
+                beams = prefix_beam_search_host(
+                    lp64[b, :lens[b]], beam_width=d.beam_width,
+                    prune_log_prob=d.prune_log_prob,
+                    lm=self.lm, lm_alpha=d.lm_alpha, lm_beta=d.lm_beta,
+                    space_id=self._space_id,
+                    id_to_char=lambda i: self.tokenizer.decode([i]))
+                nbest.append([(self.tokenizer.decode(ids), float(score))
+                              for ids, score in beams[:d.nbest]])
+        # The scores hold the fused LM: no rescoring pass.
+        self._last_nbest = nbest
+        return [nb[0][0] if nb else "" for nb in nbest]
+
+    def _use_native_fused(self) -> bool:
+        """The C++ batch decoder for beam_fused (``decode.host_impl``):
+        "python" never, "native" always (raising when the library or the
+        LM cannot be had), "auto" where the library loads and the LM, if
+        any, is the C++ engine's (a KenLM binary read through the kenlm
+        package fuses in Python)."""
+        impl = self.cfg.decode.host_impl
+        if impl == "python":
+            return False
+        ok = native.available() and (
+            self.lm is None or self._native_lm is not None)
+        if impl == "native" and not ok:
+            why = (native.build_error()
+                   or "LM not loadable by the native engine")
+            raise RuntimeError(f"decode.host_impl=native but: {why}")
+        return ok
 
     def _decode_streaming(self, batch: Dict[str, np.ndarray]) -> List[str]:
         """Greedy decode through the chunked streaming engine, the live
@@ -319,10 +489,12 @@ class Inferencer:
         if plans is None:
             plans = plan_infer_buckets(lens, self.cfg.data.bucket_frames,
                                        self.cfg.data.batch_size)
-        texts, times, wtimes = [], [], []
+        texts, nbest, times, wtimes = [], [], [], []
         for plan in plans:
+            self._last_nbest = None
             self._last_times = self._last_word_times = None
             texts.append(self.decode_batch(slice_to_plan(batch, plan)))
+            nbest.append(self._last_nbest)
             times.append(self._last_times)
             wtimes.append(self._last_word_times)
 
@@ -331,7 +503,7 @@ class Inferencer:
                 return None
             return unbucket(plans, per_plan)
 
-        self._last_nbest = None
+        self._last_nbest = _gather(nbest)
         self._last_times = _gather(times)
         self._last_word_times = _gather(wtimes)
         return unbucket(plans, texts)
@@ -358,8 +530,14 @@ class Inferencer:
         refs: List[str] = []
         hyps: List[str] = []
         for batch, n_valid in self._feed(batches):
+            self._last_nbest = None
             self._last_times = self._last_word_times = None
             texts = self.decode_batch(batch)[:n_valid]
+            # Beam modes with decode.nbest > 1: the alternatives (with
+            # scores) beside each top-1 hypothesis.
+            nbest = (self._last_nbest[:n_valid]
+                     if self._last_nbest is not None
+                     and self.cfg.decode.nbest > 1 else None)
             if refs_of is not None:
                 batch_refs = refs_of(batch, n_valid)
             else:
@@ -369,7 +547,7 @@ class Inferencer:
             times, word_times = self._last_times, self._last_word_times
             if logger is not None:
                 for i, (r, h) in enumerate(zip(batch_refs, texts)):
-                    extra = {}
+                    extra = {"nbest": nbest[i]} if nbest else {}
                     if times is not None:
                         extra["times"] = times[i]
                     if word_times is not None:

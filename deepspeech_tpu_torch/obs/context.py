@@ -43,7 +43,7 @@ PHASE_QUEUE = "queue"
 PHASE_DECODE = "decode"
 PHASE_BREAKER = "breaker_defer"
 PHASE_BACKOFF = "retry_backoff"
-# Second-pass phases (LM rescoring, slice 6 of the port): a rescore
+# Second-pass phases (LM rescoring, slice 6b of the port): a rescore
 # job carries its OWN context (same trace id as the first pass,
 # ``kind: "rescore"``) so the first-pass ledger keeps telescoping to
 # the first-pass latency while the slow path gets its own queue/compute

@@ -17,6 +17,13 @@ name unique to the process and the thread, so builds from two
 processes sharing ``build/`` never write one file; ``load`` holds
 another while it checks, builds and loads, so one library is
 loaded.
+
+The C++ host decoder (``csrc/host/*.cc``: the n-gram engine and the
+CTC prefix beam search of ``decode.mode="beam_fused"``) is built the
+same way by ``build_host`` / ``load_host``: one ``g++`` with the JAX
+package's flags, into ``build/torch_kernels/libds2host-<hash>.so``,
+under the same locks, the hash taken over its sources, headers and
+flags.
 """
 
 from __future__ import annotations
@@ -35,6 +42,9 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+HOST_SRC_DIR = os.path.join(CSRC_DIR, "host")
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
@@ -107,3 +117,53 @@ def load(name: str) -> ctypes.CDLL:
 def all_sources() -> list:
     """Names of every ``csrc/*.cu`` source."""
     return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+
+
+def _host_sources():
+    names = sorted(os.listdir(HOST_SRC_DIR))
+    return ([os.path.join(HOST_SRC_DIR, f) for f in names
+             if f.endswith(".cc")],
+            [os.path.join(HOST_SRC_DIR, f) for f in names
+             if f.endswith(".h")])
+
+
+def build_host() -> str:
+    """Compile ``csrc/host/*.cc`` with ``g++`` into one library unless
+    it is built; returns its path. Raises ``RuntimeError`` with the
+    compiler's output, or when there is no ``g++``."""
+    sources, headers = _host_sources()
+    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for path in sources + headers:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
+    out = os.path.join(BUILD_DIR, f"libds2host-{digest.hexdigest()[:12]}.so")
+    with _build_lock:
+        if os.path.exists(out):
+            return out
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found on PATH; the host decoder "
+                               "builds where a C++17 compiler is")
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+        proc = subprocess.run(
+            [gxx, *GXX_FLAGS, "-I", HOST_SRC_DIR, *sources, "-o", tmp],
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise RuntimeError(f"g++ csrc/host failed ({proc.returncode}):"
+                               f"\n{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
+    return out
+
+
+def load_host() -> ctypes.CDLL:
+    """The loaded host decoder library, built first if needed."""
+    lib = _loaded.get("host")
+    if lib is None:
+        with _load_lock:
+            lib = _loaded.get("host")
+            if lib is None:
+                lib = _loaded["host"] = ctypes.CDLL(build_host())
+    return lib

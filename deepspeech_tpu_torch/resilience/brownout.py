@@ -22,7 +22,7 @@ a one-poll blip):
 - level 0 **normal** — full batches, configured decode mode. Within
   level 0 an optional *rescore rung* (``rescore_pressure``, below
   ``enter_pressure``) disables async second-pass LM rescoring
-  (``should_rescore()``; slice 6 of the port) — quality-UPGRADE work
+  (``should_rescore()``; slice 6b of the port) — quality-UPGRADE work
   is the first thing shed, before any first-pass degradation
 - level 1 **degraded** — batch rungs capped at half (flushes leave
   sooner), ``decode_mode()`` degrades beam → greedy, and
@@ -277,7 +277,7 @@ class BrownoutController:
 
     def should_rescore(self) -> bool:
         """Rung 0.5 — the FIRST capability shed: second-pass LM
-        rescoring (slice 6 of the port) runs only while the gateway
+        rescoring (slice 6b of the port) runs only while the gateway
         is fully healthy. With ``rescore_pressure`` set, rescoring
         stops as soon as the effective pressure reaches it (no
         hysteresis: dropping quality-upgrade work is free and

@@ -3,13 +3,17 @@
 The port of the JAX package's ``serve.py`` single-model path: it feeds
 audio chunk by chunk through a
 :class:`~.serving.session.StreamingSessionManager` and prints one JSON
-line per chunk with the current partial transcripts (greedy, through
-the incremental collapse), then the finals.
+line per chunk with the current partial transcripts, then the finals:
+``--decode=greedy`` through the incremental collapse, ``--decode=beam``
+through the carried on-device beam state with stable-prefix partials,
+LM-fused on the device when ``--decode.lm_path`` names an ARPA file
+(the dense or hashed table of ``decode.device_lm_impl``).
 
 CLI: ``python -m deepspeech_tpu_torch.serve --config=ds2_streaming
 (--checkpoint-dir=DIR | --params=x.npz) wav1.wav [wav2.wav ...]
-[--chunk-frames=64] [--vocab=V] [--endpoint-silence-ms=N
-[--endpoint-silence-db=40]] [--quantize-weights=int8 | --quant-tier=bulk]
+[--chunk-frames=64] [--vocab=V] [--decode=greedy|beam]
+[--endpoint-silence-ms=N [--endpoint-silence-db=40]]
+[--quantize-weights=int8 | --quant-tier=premium|bulk]
 [--replicas=N [--migrate-sessions]] [--device=cpu]
 [--section.key=value ...]``
 
@@ -37,11 +41,16 @@ length-masked), and endpointing is single-replica-only, so
 draining replica by snapshot (``serving/migration.py``) instead of
 waiting out the drain: same segment, the same transcript.
 
+Quality tiers: ``--quant-tier=premium`` serves full-precision (bf16)
+weights with beam decoding, ``bulk`` int8 PTQ with greedy decoding;
+each overrides ``--decode`` and ``--quantize-weights``.
+
 What the JAX ``serve`` also offers comes with later slices of the port,
-and its flags exit naming the slice: beam decoding and LM rescoring
-(slice 6); multiple models and tenants, rolling swaps, autoscaling,
-the status server and the timeline (slice 4b); the warm store (item
-17); the session journal and cross-process handoff (slice 4c).
+and its flags exit naming the slice: the asynchronous LM second pass
+(``--lm-rescore``, slice 6b); multiple models and tenants, rolling
+swaps, autoscaling, the status server and the timeline (slice 4b); the
+warm store (item 17); the session journal and cross-process handoff
+(slice 4c).
 """
 
 from __future__ import annotations
@@ -63,13 +72,13 @@ from .data.features import frame_params
 _SLICE4B = "slice 4b (the serving plane's controllers)"
 _SLICE4C = "slice 4c (the session store and handoff)"
 _ITEM17 = "item 17 (the warm store)"
-_SLICE6 = "slice 6 (beam search and LM)"
+_SLICE6B = "slice 6b (the LM second pass)"
 _LATER_FLAGS = {
     "models": ("", _SLICE4B), "tenant_config": ("", _SLICE4B),
     "swap_checkpoint": ("", _SLICE4B), "swap_at_chunk": (-1, _SLICE4B),
     "swap_wer_guardrail": (0.0, _SLICE4B), "autoscale": (False, _SLICE4B),
     "autoscale_min": (1, _SLICE4B), "autoscale_max": (0, _SLICE4B),
-    "autoscale_cooldown": (1.0, _SLICE4B), "lm_rescore": (False, _SLICE6),
+    "autoscale_cooldown": (1.0, _SLICE4B), "lm_rescore": (False, _SLICE6B),
     "warm_store": ("", _ITEM17), "status_port": (-1, _SLICE4B),
     "session_journal": ("", _SLICE4C), "journal_every": (1, _SLICE4C),
     "timeline": ("", _SLICE4B), "handoff_listen": (-1, _SLICE4C),
@@ -92,7 +101,7 @@ def _frame_rms(audio: np.ndarray, feat_cfg, n_frames: int) -> np.ndarray:
 
 def serve_files(cfg, tokenizer, params, batch_stats, wav_paths: List[str],
                 chunk_frames: int = 64, decode: str = "greedy",
-                out=None, endpoint_silence_ms: int = 0,
+                out=None, lm_table=None, endpoint_silence_ms: int = 0,
                 endpoint_db: float = 40.0, quantize: str = "",
                 device=None) -> List[str]:
     """Stream the given wavs as if live; returns final transcripts.
@@ -108,6 +117,7 @@ def serve_files(cfg, tokenizer, params, batch_stats, wav_paths: List[str],
     Each wav is a session of one ``StreamingSessionManager`` (stream s
     is slot s, joined in order before the first chunk); this loop keeps
     only featurization, endpointing and the JSONL surface.
+    ``decode="beam"`` fuses ``lm_table`` when given (``device_lm_table``).
     """
     from .data import featurize_np, load_audio
     from .serving.session import StreamingSessionManager
@@ -124,8 +134,8 @@ def serve_files(cfg, tokenizer, params, batch_stats, wav_paths: List[str],
 
     mgr = StreamingSessionManager(cfg, params, batch_stats, tokenizer,
                                   chunk_frames=chunk_frames, decode=decode,
-                                  quantize=quantize, capacity=b_real,
-                                  device=device)
+                                  lm_table=lm_table, quantize=quantize,
+                                  capacity=b_real, device=device)
     # File lengths are known up front (unlike a live feed): joining with
     # raw_len masks each stream's padding from the first chunk, as the
     # offline and transcribe paths do.
@@ -262,7 +272,7 @@ def serve_files(cfg, tokenizer, params, batch_stats, wav_paths: List[str],
 def serve_files_pooled(cfg, tokenizer, params, batch_stats,
                        wav_paths: List[str], replicas: int = 2,
                        chunk_frames: int = 64, decode: str = "greedy",
-                       out=None, quantize: str = "",
+                       out=None, lm_table=None, quantize: str = "",
                        migrate_sessions: bool = False,
                        device=None) -> List[str]:
     """``--replicas=N``: the streaming loop over a ReplicaPool.
@@ -302,7 +312,8 @@ def serve_files_pooled(cfg, tokenizer, params, batch_stats,
         # rung sized to the sessions it hosts.
         return StreamingSessionManager(
             cfg, params, batch_stats, tokenizer, chunk_frames=chunk_frames,
-            decode=decode, quantize=quantize, capacity=1, device=device)
+            decode=decode, lm_table=lm_table, quantize=quantize, capacity=1,
+            device=device)
 
     pool = ReplicaPool([Replica(f"r{k}", session_factory=factory)
                         for k in range(replicas)],
@@ -347,13 +358,24 @@ def serve_files_pooled(cfg, tokenizer, params, batch_stats,
     return finals
 
 
+def device_lm_table(cfg, tokenizer):
+    """The on-device fusion table of ``--decode=beam`` when
+    ``decode.lm_path`` is set (``ngram.fusion_table_for``, on the CPU;
+    the beam decoder moves it to its device), else None."""
+    if not cfg.decode.lm_path:
+        return None
+    from .decode.ngram import fusion_table_for
+
+    d = cfg.decode
+    return fusion_table_for(
+        d.lm_path, lambda i: tokenizer.decode([i]), cfg.model.vocab_size,
+        d.lm_alpha, d.lm_beta, context_size=d.device_lm_context,
+        vocab_has_space=" " in getattr(tokenizer, "chars", []),
+        impl=d.device_lm_impl)
+
+
 def _refuse_later_flags(args) -> None:
     """Exit naming the slice for any flag of a later slice that is on."""
-    if args.decode == "beam":
-        raise SystemExit(f"--decode=beam comes with {_SLICE6} of the port")
-    if args.quant_tier == "premium":
-        raise SystemExit("--quant-tier=premium (bf16 weights + beam "
-                         f"decode) comes with {_SLICE6} of the port")
     for name, (off, where) in _LATER_FLAGS.items():
         if getattr(args, name) != off:
             raise SystemExit(f"--{name.replace('_', '-')} comes with "
@@ -394,7 +416,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                              "resident int8 GRU kernel where they fit")
     parser.add_argument("--quant-tier", choices=["premium", "bulk"],
                         default="",
-                        help="'bulk' = int8 PTQ + greedy decode "
+                        help="'premium' = bf16 weights + beam decode, "
+                             "'bulk' = int8 PTQ + greedy decode "
                              "(overrides --decode / --quantize-weights)")
     parser.add_argument("--replicas", type=int, default=1,
                         help="host the streams on a pool of N replicas "
@@ -417,6 +440,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     args, extra = parser.parse_known_args(argv)
     if args.quant_tier == "bulk":
         args.quantize_weights, args.decode = "int8", "greedy"
+    elif args.quant_tier == "premium":
+        args.quantize_weights, args.decode = "", "beam"
     _refuse_later_flags(args)
     if args.replicas > 1 and args.endpoint_silence_ms > 0:
         raise ValueError("--replicas > 1 does not compose with "
@@ -435,17 +460,20 @@ def main(argv: Optional[List[str]] = None) -> None:
         params, batch_stats = load_npz(args.params)
     else:
         params, batch_stats = restore_params(args.checkpoint_dir)
+    table = (device_lm_table(cfg, tokenizer) if args.decode == "beam"
+             else None)
     if args.replicas > 1:
         serve_files_pooled(cfg, tokenizer, params, batch_stats, args.wavs,
                            replicas=args.replicas,
                            chunk_frames=args.chunk_frames,
-                           decode=args.decode,
+                           decode=args.decode, lm_table=table,
                            quantize=args.quantize_weights,
                            migrate_sessions=args.migrate_sessions,
                            device=args.device)
     else:
         serve_files(cfg, tokenizer, params, batch_stats, args.wavs,
                     chunk_frames=args.chunk_frames, decode=args.decode,
+                    lm_table=table,
                     endpoint_silence_ms=args.endpoint_silence_ms,
                     endpoint_db=args.endpoint_silence_db,
                     quantize=args.quantize_weights, device=args.device)

@@ -21,7 +21,7 @@
 
 Rollouts, autoscaling, tenancy and the traffic model come with slice
 4b of the port; the session store, the journal and cross-process
-handoff with slice 4c; LM rescoring with slice 6.
+handoff with slice 4c; LM rescoring with slice 6b.
 """
 
 from .ladder import (max_batch_for_budget, recurrent_stream_bytes,

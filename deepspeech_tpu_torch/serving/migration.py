@@ -11,7 +11,8 @@ O(state-size) transfer with no segment split and no drain wait:
 
 - :class:`StreamSnapshot` is the portable unit: host copies of the
   session's slot rows of the streaming state (``raw_hist`` / per-layer
-  ``h`` / ``la_buf``), the greedy prev-id + partial text, the
+  ``h`` / ``la_buf``), the decoder's rows (the beam state's rows in
+  beam mode, the greedy prev-id + partial text otherwise), the
   clock-relative bookkeeping (``fed``, session-relative ``raw_len``),
   and a config fingerprint so a snapshot never restores into an
   incompatible model. The session manager (``serving/session.py``)
@@ -77,8 +78,10 @@ class StreamSnapshot:
 
     ``acoustic`` holds host (numpy) copies of the slot rows:
     ``raw_hist [HIST, F]``, ``h`` tuple of per-layer ``[H]`` carries,
-    ``la_buf [C-1, H]``. ``decoder`` is a beam decoder's rows (beam
-    mode, slice 6 of the port) or ``None`` (greedy, which uses
+    ``la_buf [C-1, H]``. ``decoder`` is the slot's rows of the beam
+    state in beam mode (``decode.beam.BeamState`` of host numpy arrays,
+    ``[W, ...]`` each; an import whose rows do not fit the target's beam
+    raises ``SnapshotIncompatible``) or ``None`` (greedy, which uses
     ``prev_ids`` + ``text``). ``fed``/``raw_len`` are session-relative —
     the import re-bases them onto the target manager's clock."""
 

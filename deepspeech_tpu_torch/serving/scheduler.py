@@ -110,7 +110,7 @@ records. The terminal latency histograms carry the slowest request's
 rid as a ``max_exemplar``.
 
 Per-tenant admission (``tenancy=``) comes with slice 4b of the port and
-the asynchronous LM second pass (``rescorer=``) with slice 6; both
+the asynchronous LM second pass (``rescorer=``) with slice 6b; both
 raise ``NotImplementedError``.
 """
 
@@ -292,8 +292,8 @@ class MicroBatchScheduler:
                 "(the serving plane's controllers) of the port")
         if rescorer is not None:
             raise NotImplementedError(
-                "asynchronous LM rescoring (rescorer=) comes with slice 6 "
-                "(beam search and LM) of the port")
+                "asynchronous LM rescoring (rescorer=) comes with slice 6b "
+                "(the LM second pass) of the port")
         if max_batch < 1 or max_queue < 1 or max_attempts < 1:
             raise ValueError("max_batch, max_queue, max_attempts >= 1")
         self.bucket_frames = tuple(sorted(bucket_frames))

@@ -1,8 +1,8 @@
 """Streaming session manager: live streams join/leave a running batch.
 
-The port of the JAX package's ``serving/session.py``, greedy decoding.
-The manager owns ONE batched :class:`~..streaming.StreamingTranscriber`
-state whose B rows are *slots*; live sessions map onto slots and the
+The port of the JAX package's ``serving/session.py``. The manager owns
+ONE batched :class:`~..streaming.StreamingTranscriber` state whose B
+rows are *slots*; live sessions map onto slots and the
 batch advances in lockstep chunks regardless of who is connected:
 
 - **join mid-flight**: a new session takes a free slot — the slot's
@@ -20,8 +20,13 @@ batch advances in lockstep chunks regardless of who is connected:
   :class:`~.migration.StreamSnapshot` and continue in another manager
   of the same fingerprint, re-based onto its clock.
 
-Beam decoding (``decode="beam"``) comes with slice 6 of the port, and
-the write-ahead session journal with slice 4c; both raise here.
+Decode modes: ``greedy`` (the incremental CTC collapse on the host) or
+``beam`` (a :class:`~..streaming.StreamingBeamDecoder` whose batched
+state stays on the device, optionally LM-fused by ``lm_table``); the
+beam rows of a slot are re-initialised on join and on a segment reset,
+its partial is the plausible beams' common prefix, and a snapshot
+carries them as host numpy. The write-ahead session journal comes with
+slice 4c of the port and raises here.
 Telemetry (slot reuse vs grow, occupancy, active sessions) lands in a
 :class:`~.telemetry.ServingTelemetry`.
 """
@@ -36,7 +41,9 @@ import torch
 
 from .. import obs
 from ..data.infer_bucket import batch_rung
-from ..streaming import _BIG, CONV_LAG, StreamingTranscriber, StreamState
+from ..decode.beam import set_rows, state_rows
+from ..streaming import (_BIG, CONV_LAG, StreamingBeamDecoder,
+                         StreamingTranscriber, StreamState)
 from .migration import SnapshotIncompatible, StreamSnapshot
 from .telemetry import ServingTelemetry
 
@@ -72,19 +79,18 @@ class StreamingSessionManager:
         mgr.flush()                         # zero-feed the stragglers
         text = mgr.final("a")
 
-    ``device`` and ``quantize`` as ``StreamingTranscriber`` takes them.
+    ``device`` and ``quantize`` as ``StreamingTranscriber`` takes them;
+    ``decode="beam"`` searches with ``cfg.decode``'s beam width, top-P
+    and merge and ``data.max_label_len``, fused with ``lm_table`` when
+    one is given (``ngram.fusion_table_for``).
     """
 
     def __init__(self, cfg, params, batch_stats, tokenizer, *,
                  chunk_frames: int = 64, decode: str = "greedy",
-                 quantize: str = "", capacity: int = 1,
+                 lm_table=None, quantize: str = "", capacity: int = 1,
                  telemetry: Optional[ServingTelemetry] = None,
                  journal=None, device=None):
-        if decode == "beam":
-            raise NotImplementedError(
-                "decode='beam' (StreamingBeamDecoder) comes with slice 6 "
-                "(beam search and LM) of the port")
-        if decode != "greedy":
+        if decode not in ("greedy", "beam"):
             raise ValueError(f"decode={decode!r}")
         if journal is not None:
             raise NotImplementedError(
@@ -106,6 +112,15 @@ class StreamingSessionManager:
         self.state = self.st.init_state(batch=self.capacity)
         # Free slots are dummy streams: raw_len 0 masks every frame.
         self.state.raw_len.zero_()
+        self.bd = None
+        self.bstate = None
+        if decode == "beam":
+            d = cfg.decode
+            self.bd = StreamingBeamDecoder(
+                beam_width=d.beam_width, max_len=cfg.data.max_label_len,
+                prune_top_k=d.prune_top_k, lm_table=lm_table,
+                merge_impl=d.merge_impl, device=self.st.device)
+            self.bstate = self.bd.init(batch=self.capacity)
         self._prev_ids = np.zeros((self.capacity,), np.int64)
         self._texts = [""] * self.capacity
         self.clock = 0          # global raw frames advanced so far
@@ -139,6 +154,11 @@ class StreamingSessionManager:
             raw_hist=zrow(s.raw_hist), h=tuple(zrow(h) for h in s.h),
             la_buf=zrow(s.la_buf), emitted=s.emitted,
             raw_len=zrow(s.raw_len), raw_start=zrow(s.raw_start))
+        if self.bd is not None:
+            fresh = self.bd.init(batch=add)
+            self.bstate = type(self.bstate)(*(
+                torch.cat([old, ini]) for old, ini in zip(self.bstate,
+                                                          fresh)))
         self._prev_ids = np.concatenate(
             [self._prev_ids, np.zeros((add,), np.int64)])
         self._texts.extend([""] * add)
@@ -233,8 +253,9 @@ class StreamingSessionManager:
         self.telemetry.count("sessions_left")
 
     def _finalize(self, sess: _Session) -> None:
-        self._finals[sess.sid] = self._texts[sess.slot]
-        self._final_nbest[sess.sid] = [(self._texts[sess.slot], 0.0)]
+        nbest = self._slot_nbest(sess.slot)
+        self._finals[sess.sid] = nbest[0][0]
+        self._final_nbest[sess.sid] = nbest
         del self._sessions[sess.sid]
         del self._by_slot[sess.slot]
         self._tails.pop(sess.slot, None)
@@ -257,9 +278,30 @@ class StreamingSessionManager:
                            "(still draining? call step()/flush())")
         return self._finals[sid]
 
+    def _slot_nbest(self, slot: int) -> List[tuple]:
+        """The slot's hypotheses ``[(text, score)]``, best first. Beam
+        mode decodes the W carried beams, each text once at its best
+        (first) occurrence (dead slots can carry a prefix twice), with
+        the beam's combined score (the LM bonus in it when fusing);
+        greedy has one hypothesis, scored 0.0."""
+        if self.bd is None:
+            return [(self._texts[slot], 0.0)]
+        prefixes, lens, scores = (a[slot].cpu().numpy()
+                                  for a in self.bd.result(self.bstate))
+        out: List[tuple] = []
+        seen = set()
+        for w in range(prefixes.shape[0]):
+            text = self.tokenizer.decode(prefixes[w, :lens[w]])
+            if text in seen:
+                continue
+            seen.add(text)
+            out.append((text, float(scores[w])))
+        return out
+
     def final_nbest(self, sid: str) -> List[tuple]:
         """Hypothesis list ``[(text, score)]`` of a fully drained
-        session: greedy has exactly one, scored 0.0."""
+        session, best first; ``final(sid)`` is entry 0's text. Greedy
+        has exactly one, scored 0.0."""
         if sid not in self._final_nbest:
             raise KeyError(f"session {sid!r} not finalized "
                            "(still draining? call step()/flush())")
@@ -269,9 +311,10 @@ class StreamingSessionManager:
     def snapshot_fingerprint(self) -> str:
         """Config fingerprint a snapshot must match to restore here: the
         decode mode, chunk geometry, feature width, recurrent stack,
-        conv tower, lookahead and dtype. Weights are not in it."""
+        conv tower, lookahead and dtype, and in beam mode the beam's
+        width and length. Weights are not in it."""
         m = self.cfg.model
-        return "|".join([
+        parts = [
             f"decode={self.decode}",
             f"chunk={self.chunk_frames}",
             f"feat={self.num_features}",
@@ -279,12 +322,17 @@ class StreamingSessionManager:
             f"conv={tuple(m.conv_channels)}",
             f"la={m.lookahead_context}",
             f"dtype={m.dtype}",
-        ])
+        ]
+        if self.bd is not None:
+            parts.append(f"beam={self.bd.beam_width}"
+                         f"x{self.cfg.data.max_label_len}")
+        return "|".join(parts)
 
     def snapshot_session(self, sid: str) -> StreamSnapshot:
         """Portable snapshot of an attached session WITHOUT detaching
         it (a pure read; the slot keeps streaming). Its arrays are host
-        numpy copies."""
+        numpy copies: the acoustic rows, and the beam state's rows
+        (beam) or the greedy prev-id and partial text."""
         sess = self._sessions[sid]
         slot = sess.slot
         s = self.state
@@ -293,6 +341,11 @@ class StreamingSessionManager:
             "h": tuple(_host(h[slot]) for h in s.h),
             "la_buf": _host(s.la_buf[slot]),
         }
+        if self.bd is not None:
+            return StreamSnapshot(
+                sid=sid, fingerprint=self.snapshot_fingerprint(),
+                fed=sess.fed, raw_len=sess.raw_len, acoustic=acoustic,
+                decoder=state_rows(self.bstate, slot))
         return StreamSnapshot(
             sid=sid, fingerprint=self.snapshot_fingerprint(),
             fed=sess.fed, raw_len=sess.raw_len, acoustic=acoustic,
@@ -333,14 +386,29 @@ class StreamingSessionManager:
             raise SnapshotIncompatible(
                 f"snapshot fingerprint {snap.fingerprint!r} does not "
                 f"match target {want!r}")
+        if self.bd is not None:
+            # The rows must fit the beam state as they are: a snapshot
+            # whose decoder geometry differs is refused before any slot
+            # is taken.
+            want_shapes = [tuple(f.shape[1:]) for f in self.bstate]
+            got = snap.decoder
+            got_shapes = (None if got is None or len(got) != len(want_shapes)
+                          else [tuple(np.shape(r)) for r in got])
+            if got_shapes != want_shapes:
+                raise SnapshotIncompatible(
+                    f"snapshot beam rows {got_shapes} do not fit the "
+                    f"beam state's {want_shapes}")
         slot = self._take_slot()
         raw_start = self.clock - snap.fed
         end = _BIG if snap.raw_len is None else raw_start + int(snap.raw_len)
         a = snap.acoustic
         self._set_rows(slot, raw_start, end, a["raw_hist"], a["h"],
                        a["la_buf"])
-        self._prev_ids[slot] = snap.prev_ids
-        self._texts[slot] = snap.text
+        if self.bd is not None:
+            set_rows(self.bstate, slot, snap.decoder)
+        else:
+            self._prev_ids[slot] = snap.prev_ids
+            self._texts[slot] = snap.text
         sess = _Session(sid=sid, slot=slot, raw_start=raw_start,
                         fed=snap.fed, raw_len=snap.raw_len)
         self._sessions[sid] = sess
@@ -384,9 +452,12 @@ class StreamingSessionManager:
             self.state, logits, valid = self.st.process_chunk(self.state,
                                                               batch)
         self.clock += k
-        self._prev_ids, new = self.st.decode_incremental(
-            self._prev_ids, logits, valid)
-        self._texts = [a + n for a, n in zip(self._texts, new)]
+        if self.bd is not None:
+            self.bstate = self.bd.advance(self.bstate, logits, valid)
+        else:
+            self._prev_ids, new = self.st.decode_incremental(
+                self._prev_ids, logits, valid)
+            self._texts = [a + n for a, n in zip(self._texts, new)]
         # Drained sessions: every real frame's logits have emerged once
         # the clock passes the stream end by the conv+lookahead lag.
         for sess in list(self._by_slot.values()):
@@ -415,23 +486,39 @@ class StreamingSessionManager:
 
     # -- transcripts -----------------------------------------------------
     def current_texts(self) -> List[str]:
-        """Per-slot transcript of the in-flight segment."""
-        return list(self._texts)
+        """Per-slot best transcript of the in-flight segment (beam: the
+        top beam, one host copy of it)."""
+        if self.bd is None:
+            return list(self._texts)
+        prefixes, lens, _ = self.bd.result(self.bstate)
+        prefixes, lens = prefixes[:, 0].cpu().numpy(), lens[:, 0].cpu().numpy()
+        return [self.tokenizer.decode(prefixes[s, :lens[s]])
+                for s in range(self.capacity)]
 
     def stable_texts(self) -> List[str]:
-        """Per-slot STABLE partial transcript: greedy's running collapse
+        """Per-slot STABLE partial transcript: beam mode commits only
+        the plausible beams' common prefix; greedy's running collapse
         never retracts, so it is the current one."""
-        return list(self._texts)
+        if self.bd is None:
+            return list(self._texts)
+        ids, lens = self.bd.stable_prefix(self.bstate)
+        return [self.tokenizer.decode(ids[s, :lens[s]])
+                for s in range(self.capacity)]
 
     def partials(self) -> Dict[str, str]:
         """Stable partial transcript per attached session."""
-        return {sid: self._texts[s.slot]
-                for sid, s in self._sessions.items()}
+        by_slot = self.stable_texts()
+        return {sid: by_slot[s.slot] for sid, s in self._sessions.items()}
 
     def _reset_decoder_slots(self, slots: Sequence[int]) -> None:
-        for s in slots:
-            self._texts[s] = ""
-            self._prev_ids[s] = 0
+        if self.bd is not None:
+            mask = np.zeros((self.capacity,), bool)
+            mask[list(slots)] = True
+            self.bstate = self.bd.reset_streams(self.bstate, mask)
+        else:
+            for s in slots:
+                self._texts[s] = ""
+                self._prev_ids[s] = 0
 
     def reset_decoders(self, sids: Sequence[str]) -> None:
         """Restart the decoder of the given sessions (segment

@@ -33,6 +33,11 @@ The engine is batched: B streams advance together, each with its own
 start and length. The chunk's clock (``StreamState.emitted``) is a
 Python int shared by the batch; the only device-to-host copy a chunk
 makes is the frame ids ``decode_incremental`` reads.
+
+``StreamingBeamDecoder`` carries the on-device prefix beam search
+(decode/beam.py) across the chunks instead: its state stays on the
+device, and chunks folded through it give the bits of one offline
+``beam_search`` over the concatenated log-probs.
 """
 
 from __future__ import annotations
@@ -47,6 +52,8 @@ from .bridge import from_flax
 from .config import Config, ModelConfig
 from .data.infer_bucket import batch_rung
 from .data.tokenizer import CharTokenizer
+from .decode.beam import (NEG_INF, BeamState, beam_finalize, beam_init,
+                          beam_search_chunk, reset_rows)
 from .device import resolve_device
 from .models.ds2 import DeepSpeech2
 from .models.layers import clipped_relu, weight
@@ -384,3 +391,102 @@ class StreamingTranscriber:
                 prev[b] = i
             texts.append(self.tokenizer.decode(np.asarray(out, np.int64)))
         return prev, texts
+
+
+class StreamingBeamDecoder:
+    """CTC prefix beam search carried across streaming chunks.
+
+    The port of the JAX package's ``StreamingBeamDecoder``. The search
+    keeps its whole state as dense tensors on the device, so streaming
+    it is carrying that state between chunks: chunks folded through
+    ``advance`` give the same bits as one offline ``beam_search`` over
+    the concatenated frames, on-device LM fusion included (the LM
+    context rides in the state). Pair it with
+    ``StreamingTranscriber.process_chunk``; ``finish`` flushes the
+    conv/lookahead lag and applies each stream's length::
+
+        st = StreamingTranscriber(cfg, params, stats, tok, chunk_frames=64)
+        bd = StreamingBeamDecoder(beam_width=16, max_len=200,
+                                  lm_table=table)          # table optional
+        state, bstate = st.init_state(batch=B), bd.init(batch=B)
+        for chunk in feature_chunks:
+            state, logits, valid = st.process_chunk(state, chunk)
+            bstate = bd.advance(bstate, logits, valid)
+        state, logits, valid = st.finish(state, raw_lens, tail=tail)
+        bstate = bd.advance(bstate, logits, valid)         # the lag flush
+        prefixes, lens, scores = bd.result(bstate)         # best first
+
+    ``device`` None means the card (raises without CUDA); "cpu" runs on
+    the CPU. ``lm_table`` (a dense table as a numpy array or tensor, or
+    a ``HashedFusionTable``) is moved to that device.
+    """
+
+    def __init__(self, beam_width: int = 16, max_len: int = 200,
+                 prune_top_k: int = 40, blank_id: int = 0, lm_table=None,
+                 merge_impl: str = "auto", device=None):
+        self.beam_width = beam_width
+        self.max_len = max_len
+        self.prune_top_k = prune_top_k
+        self.blank_id = blank_id
+        self.merge_impl = merge_impl
+        self.device = resolve_device(device)
+        if isinstance(lm_table, np.ndarray):
+            lm_table = torch.from_numpy(lm_table)
+        self.lm_table = (lm_table.to(self.device) if lm_table is not None
+                         else None)
+
+    def init(self, batch: int) -> BeamState:
+        return beam_init(batch, self.beam_width, self.max_len,
+                         device=self.device)
+
+    def advance(self, bstate: BeamState, logits, valid) -> BeamState:
+        """Fold one chunk's (logits [B, Tc, V], valid [B, Tc]) into the
+        beam state. Takes raw logits: the log-softmax is taken here, so
+        ``process_chunk``'s output goes in as it is."""
+        lp = torch.log_softmax(
+            torch.as_tensor(logits).to(self.device, torch.float32), dim=-1)
+        return beam_search_chunk(
+            bstate, lp, torch.as_tensor(valid).to(self.device),
+            prune_top_k=self.prune_top_k, blank_id=self.blank_id,
+            lm_table=self.lm_table, merge_impl=self.merge_impl)
+
+    def result(self, bstate: BeamState):
+        """(prefixes [B, W, Lmax], lens [B, W], scores [B, W]) on the
+        device, best first; the scores hold the LM bonus when fusing."""
+        return beam_finalize(bstate)
+
+    def stable_prefix(self, bstate: BeamState, margin: float = 10.0
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """Longest common prefix of the *plausible* beams, per stream:
+        the symbols every hypothesis within ``margin`` log-score of the
+        best agrees on (the beam always carries W hypotheses however
+        improbable, so an unweighted common prefix would rarely commit
+        anything). Returns host (ids [B, Lmax] int32, lens [B] int32).
+        It can shrink between chunks when beams diverge."""
+        prefixes, lens, scores = (a.cpu().numpy()
+                                  for a in beam_finalize(bstate))
+        b, _, lmax = prefixes.shape
+        out = np.zeros((b, lmax), np.int32)
+        out_lens = np.zeros((b,), np.int32)
+        for i in range(b):
+            live = scores[i] > max(float(np.float32(NEG_INF)),
+                                   scores[i, 0] - margin)
+            if not live.any():
+                continue
+            ps = prefixes[i][live]
+            ls = lens[i][live]
+            n = int(ls.min())
+            agree = (ps[:, :n] == ps[0:1, :n]).all(axis=0) if n else \
+                np.zeros((0,), bool)
+            stop = int(np.argmin(agree)) if not agree.all() else n
+            out[i, :stop] = ps[0, :stop]
+            out_lens[i] = stop
+        return out, out_lens
+
+    def reset_streams(self, bstate: BeamState, reset_mask) -> BeamState:
+        """Re-initialise the beams of the streams where ``reset_mask``
+        [B] is True, leaving the others as they are: segment
+        endpointing restarts a stream's transcript while its acoustic
+        state flows on."""
+        return reset_rows(bstate, torch.as_tensor(np.asarray(reset_mask,
+                                                             bool)))

@@ -16,6 +16,7 @@ from deepspeech_tpu_torch.data import SyntheticPipeline
 from deepspeech_tpu_torch.infer import Inferencer
 from deepspeech_tpu_torch.ops import ctc
 from deepspeech_tpu_torch.ops.gru import gru_bwd, gru_fwd
+from deepspeech_tpu_torch.streaming import StreamingBeamDecoder
 from deepspeech_tpu_torch.train import Trainer
 
 # One CPU thread for torch: parallel test workers share the machine's
@@ -67,7 +68,11 @@ OWN_COPIES = ("deepspeech_tpu_torch/utils/quantize.py",
               "deepspeech_tpu_torch/serving/replica.py",
               "deepspeech_tpu_torch/serving/pool.py",
               "deepspeech_tpu_torch/serving/scheduler.py",
-              "deepspeech_tpu_torch/serving/migration.py")
+              "deepspeech_tpu_torch/serving/migration.py",
+              "deepspeech_tpu_torch/decode/ngram.py",
+              "deepspeech_tpu_torch/decode/hashed_lm.py",
+              "deepspeech_tpu_torch/decode/beam_host.py",
+              "deepspeech_tpu_torch/native.py")
 
 
 def test_no_jax_or_reference_imports():
@@ -86,7 +91,8 @@ def test_import_leaves_jax_unloaded():
             "deepspeech_tpu_torch.profile_infer, "
             "deepspeech_tpu_torch.serving, deepspeech_tpu_torch.serve, "
             "deepspeech_tpu_torch.resilience, deepspeech_tpu_torch.obs, "
-            "deepspeech_tpu_torch.utils.cache; "
+            "deepspeech_tpu_torch.utils.cache, deepspeech_tpu_torch.decode, "
+            "deepspeech_tpu_torch.native; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -107,6 +113,8 @@ def test_entry_points_need_cuda_unless_asked(monkeypatch):
                           {"train.checkpoint_dir": ""})
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(cfg, SyntheticPipeline(cfg, 1), CharTokenizer.english())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingBeamDecoder(beam_width=4)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

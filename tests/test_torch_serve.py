@@ -12,6 +12,10 @@ weights, with the JAX side on its Pallas GRU kernels in interpret mode:
   ``--replicas=2 --migrate-sessions`` too), refuses ``--replicas`` with
   endpointing, and exits naming the slice for each flag of a later
   slice;
+- ``--decode=beam`` (and ``--quant-tier=premium``): ``serve_files``' and
+  ``serve_files_pooled``' JSONL equal the JAX ones', with and without an
+  on-device LM table, endpointing and int8, and the finals equal
+  ``Inferencer(decode.mode="beam")``'s offline transcripts;
 - ``serve_files``' finals equal ``Inferencer(decode.mode="streaming")``'s
   transcripts;
 - ``decode.timestamps`` in the greedy and streaming modes stashes the JAX
@@ -170,8 +174,7 @@ LATER = {"slice 4b": ("--models=a=x", "--tenant-config=t.json",
          "slice 4c": ("--session-journal=x", "--journal-every=2",
                       "--handoff-listen=0", "--handoff-peer=h:1"),
          "item 17": ("--warm-store=x",),
-         "slice 6": ("--lm-rescore", "--decode=beam",
-                     "--quant-tier=premium")}
+         "slice 6b": ("--lm-rescore",)}
 
 
 @pytest.mark.parametrize("flag", [f for fs in LATER.values() for f in fs])
@@ -298,3 +301,116 @@ def test_timestamps_refused_outside_aligned_modes(setup):
     with pytest.raises(ValueError, match="unique alignment"):
         Inferencer(cfg, CharTokenizer.english(), params, stats,
                    device="cpu")
+
+
+# -- beam decoding ----------------------------------------------------------
+
+BEAM = {"decode.beam_width": "8", "data.max_label_len": "64"}
+
+
+@pytest.fixture(scope="module")
+def beam_setup(setup):
+    jcfg, tcfg, params, stats, paths = setup
+    return (jax_apply_overrides(jcfg, BEAM), apply_overrides(tcfg, BEAM),
+            params, stats, paths)
+
+
+def _char_lm(tmp_path):
+    from test_torch_ngram import write_char_arpa
+    return write_char_arpa(tmp_path, with_unk=True)
+
+
+def _tables(cfg, jcfg, path):
+    """The device fusion tables of ``path`` for both sides, as their
+    ``serve`` builds them."""
+    from deepspeech_tpu.decode.ngram import fusion_table_for
+    cfg = apply_overrides(cfg, {"decode.lm_path": path})
+    tok = JaxCharTokenizer.english()
+    ref = fusion_table_for(path, lambda i: tok.decode([i]), 29, 0.5, 1.0,
+                           vocab_has_space=True)
+    return serve.device_lm_table(cfg, CharTokenizer.english()), ref
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"endpoint_silence_ms": 300}, {"lm": True}, {"quantize": "int8"}],
+    ids=["beam", "endpointing", "lm", "int8"])
+def test_serve_files_beam_matches_jax(beam_setup, tmp_path, kw):
+    jcfg, tcfg, params, stats, paths = beam_setup
+    kw = dict(kw, decode="beam")
+    table = ref_table = None
+    if kw.pop("lm", False):
+        table, ref_table = _tables(tcfg, jcfg, _char_lm(tmp_path))
+    want_f, got_f = tmp_path / "jax.jsonl", tmp_path / "port.jsonl"
+    with open(want_f, "w") as fh:
+        want = jax_serve.serve_files(jcfg, JaxCharTokenizer.english(),
+                                     params, stats, paths, out=fh,
+                                     lm_table=ref_table, **kw)
+    with open(got_f, "w") as fh:
+        got = serve.serve_files(tcfg, CharTokenizer.english(), params,
+                                stats, paths, out=fh, device="cpu",
+                                lm_table=table, **kw)
+    got_lines = _lines(got_f.read_text())
+    assert got == want and any(got)
+    assert got_lines == _lines(want_f.read_text())
+    if kw.get("endpoint_silence_ms"):
+        assert any("segment" in rec for rec in got_lines)
+
+
+def test_serve_files_pooled_beam_matches_jax(beam_setup, tmp_path):
+    jcfg, tcfg, params, stats, paths = beam_setup
+    kw = {"replicas": 2, "migrate_sessions": True, "decode": "beam"}
+    want_f, got_f = tmp_path / "jax.jsonl", tmp_path / "port.jsonl"
+    with open(want_f, "w") as fh:
+        want = jax_serve.serve_files_pooled(
+            jcfg, JaxCharTokenizer.english(), params, stats, paths,
+            out=fh, **kw)
+    with open(got_f, "w") as fh:
+        got = serve.serve_files_pooled(tcfg, CharTokenizer.english(),
+                                       params, stats, paths, out=fh,
+                                       device="cpu", **kw)
+    assert got == want and any(got)
+    assert _lines(got_f.read_text()) == _lines(want_f.read_text())
+
+
+@pytest.mark.parametrize("flags", [["--decode=beam"],
+                                   ["--quant-tier=premium"]])
+def test_main_beam_with_lm_prints_jax_lines(beam_setup, tmp_path, capsys,
+                                             flags):
+    """``serve --decode=beam --decode.lm_path=lm.arpa`` (or
+    ``--quant-tier=premium``, bf16-weights-and-beam) prints the JAX
+    ``serve_files``' lines with its device table."""
+    jcfg, tcfg, params, stats, paths = beam_setup
+    lm = _char_lm(tmp_path)
+    _, ref_table = _tables(tcfg, jcfg, lm)
+    npz = str(tmp_path / "w.npz")
+    bridge.save_npz(npz, params, stats)
+    with open(tmp_path / "jax.jsonl", "w") as fh:
+        jax_serve.serve_files(jcfg, JaxCharTokenizer.english(), params,
+                              stats, paths, out=fh, decode="beam",
+                              lm_table=ref_table)
+    serve.main([f"--params={npz}", "--device=cpu", *flags, *paths,
+                f"--decode.lm_path={lm}"]
+               + [f"--{k}={v}" for k, v in {**OVER, **BEAM}.items()])
+    got = _lines(capsys.readouterr().out)
+    assert got == _lines((tmp_path / "jax.jsonl").read_text())
+
+
+def test_serve_beam_finals_equal_offline_beam(beam_setup, tmp_path):
+    """The live beam's finals equal ``Inferencer(decode.mode="beam")``'s
+    transcripts of the same WAVs (the streaming model's logits equal the
+    offline forward's)."""
+    _, tcfg, params, stats, paths = beam_setup
+    with open(tmp_path / "out.jsonl", "w") as fh:
+        finals = serve.serve_files(tcfg, CharTokenizer.english(), params,
+                                   stats, paths, out=fh, decode="beam",
+                                   device="cpu")
+    cfg = apply_overrides(tcfg, {"decode.mode": "beam"})
+    feats = [featurize_np(load_audio(p, 16000), cfg.features) for p in paths]
+    lens = np.asarray([f.shape[0] for f in feats], np.int32)
+    batch = np.zeros((3, lens.max(), 161), np.float32)
+    for i, f in enumerate(feats):
+        batch[i, :len(f)] = f
+    inf = Inferencer(cfg, CharTokenizer.english(), params, stats,
+                     device="cpu")
+    assert inf.decode_batch({"features": batch, "feat_lens": lens}) == finals
+    assert any(finals)

@@ -11,6 +11,8 @@ Equalities are of transcripts (partials and finals), as the JAX tests
 demand them.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -84,9 +86,10 @@ def _solo(tiny, feat):
     return mgr.final("ref")
 
 
-def _script(make):
+def _script(make, with_nbest=False):
     """One join/step/leave/export/import script over two managers made by
-    ``make(capacity)``; returns every partial and final it saw."""
+    ``make(capacity)``; returns every partial and final it saw (and,
+    ``with_nbest``, each session's ``final_nbest``)."""
     fa, fb, fc = _feat(64 * 4 + 20, 1), _feat(64 * 3, 2), _feat(64 * 3, 3)
     (ca, ta), (cb, _), (cc, _) = _chunks(fa), _chunks(fb), _chunks(fc)
     src, dst = make(1), make(2)
@@ -113,6 +116,10 @@ def _script(make):
     seen.append({sid: m.final(sid) for m, sids in ((src, "ad"), (dst, "bc"))
                  for sid in sids})
     seen.append((src.stats(), dst.stats()))
+    if with_nbest:
+        seen.append({sid: m.final_nbest(sid)
+                     for m, sids in ((src, "ad"), (dst, "bc"))
+                     for sid in sids})
     return seen
 
 
@@ -292,8 +299,135 @@ def test_snapshot_holds_host_numpy(tiny):
     assert np.array_equal(snap.acoustic["h"][0], before)
 
 
-@pytest.mark.parametrize("kw,match", [({"decode": "beam"}, "slice 6"),
-                                      ({"journal": object()}, "slice 4")])
+@pytest.mark.parametrize("kw,match", [
+    ({"decode": "beam", "journal": object()}, "slice 4c"),
+    ({"journal": object()}, "slice 4")])
 def test_later_slices_refused(tiny, kw, match):
     with pytest.raises(NotImplementedError, match=match):
         _mgr(tiny, **kw)
+
+
+# -- beam decoding ----------------------------------------------------------
+
+BEAM = {"decode.beam_width": "8", "data.max_label_len": "64"}
+
+
+def _beam_table(tmp_path, port: bool):
+    """The character trigram fixture as a dense table over the English
+    vocabulary (V=29), the port's or the JAX package's."""
+    from deepspeech_tpu.decode import ngram as jax_ngram
+    from deepspeech_tpu_torch.decode import ngram
+    from test_torch_ngram import write_char_arpa
+
+    path = write_char_arpa(tmp_path, with_unk=True)
+    tok = CharTokenizer.english()
+    mod = ngram if port else jax_ngram
+    table, _ = mod.dense_fusion_table(mod.NGramLM.from_arpa(path),
+                                      lambda i: tok.decode([i]), 29, 0.7,
+                                      0.5)
+    return torch.from_numpy(table) if port else jnp.asarray(table)
+
+
+def _beam_mgr(tiny, capacity=1, **kw):
+    _, tcfg, params, stats = tiny
+    return StreamingSessionManager(apply_overrides(tcfg, BEAM), params,
+                                   stats, CharTokenizer.english(),
+                                   chunk_frames=64, decode="beam",
+                                   capacity=capacity, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("lm", [False, True])
+def test_beam_manager_matches_jax_on_one_script(tiny, tmp_path, lm):
+    """``decode="beam"``: the stable partials, finals and stats of the
+    script equal the JAX beam manager's; each ``final_nbest`` has the
+    same texts, scores within 1e-4."""
+    jcfg, _, params, stats = tiny
+    jcfg = jax_apply_overrides(jcfg, BEAM)
+    jtable = _beam_table(tmp_path, port=False) if lm else None
+    table = _beam_table(tmp_path, port=True) if lm else None
+    want = _script(lambda cap: JaxSessionManager(
+        jcfg, params, stats, JaxCharTokenizer.english(), chunk_frames=64,
+        decode="beam", lm_table=jtable, capacity=cap), with_nbest=True)
+    got = _script(lambda cap: _beam_mgr(tiny, cap, lm_table=table),
+                  with_nbest=True)
+    assert got[:-1] == want[:-1]
+    assert any(want[-3].values())
+    for sid, nb in got[-1].items():
+        ref = want[-1][sid]
+        assert [t for t, _ in nb] == [t for t, _ in ref]
+        np.testing.assert_allclose([x for _, x in nb], [x for _, x in ref],
+                                   atol=1e-4, rtol=0)
+        assert nb[0][0] == got[-3][sid]
+        assert len({t for t, _ in nb}) == len(nb)  # each text once
+
+
+def test_beam_export_import_continues_bit_identically(tiny):
+    """A beam session exported after two chunks and imported into a cold
+    manager ends with the never-migrated session's n-best, texts and
+    scores bit for bit (equal shapes: capacity 2, slot 0)."""
+    f = _feat(64 * 4 + 20, 10)
+    chunks, tail = _chunks(f)
+
+    def finish(mgr, sid, rest):
+        for c in rest:
+            mgr.step({sid: c})
+        mgr.leave(sid, tail=tail)
+        mgr.flush()
+        return mgr.final_nbest(sid)
+
+    solo = _beam_mgr(tiny, 2)
+    solo.join("x")
+    want = finish(solo, "x", chunks)
+    src, dst = _beam_mgr(tiny, 2), _beam_mgr(tiny, 2)
+    src.join("x")
+    for c in chunks[:2]:
+        src.step({"x": c})
+    snap = src.export_session("x")
+    assert dst.import_session(snap) == 0
+    got = finish(dst, "x", chunks[2:])
+    assert got == want and want[0][0]
+    assert dst.final("x") == want[0][0]
+
+
+def test_beam_snapshot_rows_and_geometry(tiny):
+    from deepspeech_tpu_torch.decode.beam import BeamState
+
+    mgr = _beam_mgr(tiny, 1)
+    mgr.join("x")
+    mgr.step({"x": _feat(64, 16)})
+    snap = mgr.snapshot_session("x")
+    assert isinstance(snap.decoder, BeamState)
+    assert all(isinstance(r, np.ndarray) for r in snap.decoder)
+    assert snap.decoder.prefixes.shape == (8, 64)
+    assert snap.prev_ids is None and snap.text is None
+    assert snap.nbytes() == sum(a.nbytes for a in (
+        snap.acoustic["raw_hist"], snap.acoustic["la_buf"],
+        *snap.acoustic["h"], *snap.decoder))
+    assert "beam=8x64" in mgr.snapshot_fingerprint()
+    wide = StreamingSessionManager(
+        apply_overrides(tiny[1], {**BEAM, "decode.beam_width": "16"}),
+        tiny[2], tiny[3], CharTokenizer.english(), chunk_frames=64,
+        decode="beam", device="cpu")
+    with pytest.raises(SnapshotIncompatible, match="fingerprint"):
+        wide.import_session(snap)
+    other = _beam_mgr(tiny, 1)
+    bad = dataclasses.replace(snap, decoder=snap.decoder._replace(
+        prefixes=snap.decoder.prefixes[:, :32]))
+    with pytest.raises(SnapshotIncompatible, match="beam rows"):
+        other.import_session(bad)
+    assert other.stats()["active"] == 0
+    other.import_session(snap)
+    assert other.stats()["active"] == 1
+
+
+def test_beam_reset_decoders_restarts_one_slot(tiny):
+    mgr = _beam_mgr(tiny, 2)
+    mgr.join("a")
+    mgr.join("b")
+    for i in range(3):
+        mgr.step({"a": _feat(64, 30 + i), "b": _feat(64, 40 + i)})
+    before = mgr.current_texts()
+    assert before[0] and before[1]
+    mgr.reset_decoders(["a"])
+    assert mgr.current_texts() == ["", before[1]]
+    assert mgr.partials()["a"] == ""
