@@ -108,8 +108,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    against the same forward with the LSTM kernel patched to its plain
    version, beside an LSTM with one direction reversed;
 5. training path phases: ``Trainer`` steps at the full width of
-   ds2_small, ds2_streaming and ds2_full on a (32, 1700) batch of
-   ragged lengths, GRU and then LSTM (``model.rnn_type=lstm``); counts
+   ds2_small, ds2_streaming and ds2_full (2 of its 7 layers,
+   ``FULL_TRAIN_LAYERS``) on a (32, 1700) batch of ragged lengths, GRU
+   and then LSTM (``model.rnn_type=lstm``); counts
    the launches per step (one recurrent forward and one backward per
    layer: ``gru_fwd``/``gru_bwd`` or the taped ``lstm_fwd`` and
    ``lstm_bwd`` for the first two, the streamed kernels for ds2_full;
@@ -187,7 +188,38 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    --decode=beam`` equal to ``Inferencer(decode.mode="beam")`` in f32
    and ``--quant-tier=premium`` equal to ``--decode=beam``; the wall ms
    of a manager step in beam and greedy at capacities 1 and 32;
-10. prints each phase's seconds on a line of its own, a
+   ``rescore_phase``: ``ds2_beam_lm`` behind the gateway on 32 requests
+   with ``Replica.from_inferencer(nbest=True)`` and a ``RescoringPool``
+   over the phase's character trigram: texts equal to ``nbest=False``,
+   each n-best equal to ``decode_batch_nbest``, each revision host
+   ``rescore_nbest``'s pick, a replay's revision stream the same, a
+   fired brownout rescore rung shedding 32 of 32, 3 K4 a micro-batch;
+   dispatch p50/p95 with and without, the pump's ms a job;
+10. the serving plane's controllers (``controllers_phase``, on the
+   serve phase's WAVs through ``serve.serve_files_pooled`` with
+   ``migrate_sessions``, a drain window of 0 on a counting clock): a
+   rolling swap to the same weights from chunk 1, while the streams
+   play (``done``, both replicas swapped, canaries identical; the
+   sessions re-pinned by drain equal to their two segments decoded
+   alone), one to other weights under guardrail 0 (rolled back),
+   ``--autoscale`` from 1 replica on a forced ``slo_burn_rate`` (one
+   scale-up, one scale-down, the removed replica's manager released),
+   the other finals equal to a run without controllers and 5 K6 a
+   manager step, the device memory back after each run; ds2_small's
+   premium bf16 + bulk int8 gateway whose autoscaler engages the ladder
+   and then the tier-mix rung under forced queue pressure, the shifted
+   premium requests on the bulk replica (K10, 3 a micro-batch) equal to
+   its serial decodes; a rolling swap of two ``Inferencer``-backed
+   ds2_small replicas under traffic (K4), its memory back; the ms of a
+   swap and of a scale-up; then ``serve.main --models`` on the 4
+   shortest WAVs over two port checkpoints with ``--tenant-config``
+   (one stream shed at join), ``--decode=beam --lm-rescore`` on a
+   vocabulary without a space, ``--status-port=0`` (its routes answered
+   over loopback during the run, its port closed after), ``--timeline``
+   and a swap of one model after the streams: each model's finals equal
+   to that checkpoint served alone, at least one revision, each host
+   ``rescore_nbest``'s pick over ``final_nbest``;
+11. prints each phase's seconds on a line of its own, a
    ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -211,6 +243,7 @@ import sys
 import tempfile
 import threading
 import time
+import weakref
 from unittest import mock
 
 import numpy as np
@@ -292,9 +325,10 @@ DESCENT_STEPS = 10              # AdamW steps on the fixed batch
 # ds2_full (7 BiGRU, H=1760): a step takes seconds, so fewer of them.
 FULL_TRAIN_STEPS = 2
 FULL_DESCENT_STEPS = 5
-# The ds2_full GRU train phase runs all 7 layers at full width, as the
-# ds2_full-lstm phase does (2 of 7 before K9's tensor-core loop, for time).
-FULL_GRU_TRAIN_LAYERS = 7
+# The ds2_full train phases, GRU and LSTM, run 2 of the 7 layers at full
+# width: with all 7 the whole script took 708 s, with 3 678 s, past its
+# 675 s budget (NVIDIA H100 80GB HBM3, 700 W).
+FULL_TRAIN_LAYERS = 2
 # The TPU kernels the GRU kernels replace (deepspeech_tpu/ops/).
 K4 = "deepspeech_tpu/ops/rnn_pallas.py:155"   # _bigru_kernel
 K5 = "deepspeech_tpu/ops/rnn_pallas.py:211"   # _bigru_bwd_kernel
@@ -2203,14 +2237,14 @@ STREAM_TIMED = 32            # chunks timed at each capacity
 FEED_BATCHES = 8             # (32, 800) batches of the feed timing
 
 
-def _stream_weights(cfg):
+def _stream_weights(cfg, seed: int = SEED):
     """The seeded random init of ``cfg`` for the streaming phases: the
     head scaled by 8, so that no frame's argmax is a near tie, and every
     BN running mean moved by +0.3 off its init, as the JAX package's
     tests/test_streaming.py does, so that a seam error shows."""
     from deepspeech_tpu_torch.bridge import init_params
 
-    params, stats = init_params(cfg, torch.Generator().manual_seed(SEED))
+    params, stats = init_params(cfg, torch.Generator().manual_seed(seed))
     params["head"]["kernel"] = params["head"]["kernel"] * 8.0
 
     def shift(tree):
@@ -3596,6 +3630,1057 @@ def beam_stream_phase(root: str, card: str):
     return launches
 
 
+RESCORE_REQUESTS = 32        # requests of each n-best gateway run
+RESCORE_FRAMES = (300, 900)  # their lengths: the beam is host-bound
+CTRL_DRAIN_S = 0.0           # the controllers' drain window, clock s
+CTRL_COOLDOWN_S = 0.0        # the autoscaler's cooldown between episodes
+STATUS_TIMEOUT_S = 10.0      # one GET of the status server
+
+
+class _CountClock:
+    """The controllers' clock: each read advances it 0.01 s, so every
+    hold, cooldown and drain window falls on the same read whatever the
+    wall time of a chunk on the card."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        self.t += 0.01
+        return self.t
+
+
+def _live_bytes() -> int:
+    """The card's allocated bytes once garbage is collected, the queues
+    drained and cuBLAS's workspaces freed: PyTorch keeps one (32 MiB) a
+    cuBLAS handle and stream, and the gateway's worker threads and the
+    replicas' streams meet in new pairs as traffic goes on."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def _lm_text(text: str) -> str:
+    """A transcript as the character trigram's words."""
+    return " ".join(text)
+
+
+def _nbest_gateway(name, inf, reqs, nbest: bool, rescorer=None):
+    """``reqs`` through a ``MicroBatchScheduler`` over one
+    ``Replica.from_inferencer(inf, nbest=nbest)`` with ``rescorer``
+    pumped after every ``dispatch_many``, under the watchdog. Returns
+    the results, the revisions, the replica's decoded micro-batches
+    (batch, plan, backend result), its recurrent launches, the dispatch
+    p50/p95 ms, the pump's (ms, jobs) beats and the rids in the order
+    they were offered."""
+    from deepspeech_tpu_torch.obs.metrics import _labeled
+    from deepspeech_tpu_torch.serving import (MicroBatchScheduler, Replica,
+                                              ReplicaPool, ServingTelemetry)
+
+    tel = ServingTelemetry()
+    rep = Replica.from_inferencer("r0", inf, nbest=nbest, telemetry=tel)
+    batches = []
+    decode = rep.decode_fn
+
+    def recording(batch, plan):
+        out = decode(batch, plan)
+        batches.append((batch, plan, out))
+        return out
+
+    rep.decode_fn = recording
+    sched = MicroBatchScheduler(
+        inf.cfg.data.bucket_frames, GATEWAY_MAX_BATCH,
+        max_queue=4 * len(reqs), default_deadline=60.0,
+        default_timeout=None, pool=ReplicaPool([rep], telemetry=tel),
+        telemetry=tel, rescorer=rescorer)
+    revisions, beats, offered = [], [], []
+    if rescorer is not None:
+        real_offer = rescorer.offer
+
+        def offer(rid, *a, **kw):
+            offered.append(rid)
+            return real_offer(rid, *a, **kw)
+
+        rescorer.offer = offer
+    torch.cuda.synchronize()
+    _zero_counts()
+    with _watchdog(f"n-best gateway {name}", GATEWAY_WATCHDOG_S):
+        for k, x in enumerate(reqs):
+            sched.submit(x, rid=f"{name}{k}")
+        while sched.pending:
+            sched.dispatch_many(sched.poll() or sched.flush_all())
+            if rescorer is not None and rescorer.depth:
+                jobs = rescorer.depth
+                t0 = time.perf_counter()
+                revisions += rescorer.pump()
+                beats.append(((time.perf_counter() - t0) * 1e3, jobs))
+        torch.cuda.synchronize()
+    counts = _recurrent_counts()
+    _require(counts == {**{k: 0 for k in counts},
+                        "gru_fwd": 3 * len(batches)} and batches,
+             f"n-best gateway {name}: recurrent launches {counts} for "
+             f"{len(batches)} micro-batches (want 3 gru_fwd each)")
+    results = sched.results
+    _require(len(results) == len(reqs)
+             and all(r.status == "ok" for r in results.values()),
+             f"n-best gateway {name}: results "
+             f"{sorted({r.status for r in results.values()})}")
+    hist = tel.hists[_labeled("gateway.dispatch_s", rep.labels)]
+    return {"results": results, "revisions": revisions,
+            "offered": offered, "batches": batches,
+            "gru_fwd": counts["gru_fwd"],
+            "dispatch_ms_p50": hist.percentile(50) * 1e3,
+            "dispatch_ms_p95": hist.percentile(95) * 1e3, "beats": beats}
+
+
+def rescore_phase(root: str, card: str):
+    """``ds2_beam_lm`` (ds2_small: 3 BiGRU H=800, bf16, head x8, W=128,
+    n-best 8) at full width behind the gateway with n-best, and the
+    asynchronous LM second pass over the seeded character trigram of
+    the beam phase. 32 requests of ``RESCORE_FRAMES`` go through a
+    ``MicroBatchScheduler`` over ``Replica.from_inferencer`` twice:
+    without n-best (the baseline), then with ``nbest=True`` and
+    ``rescorer=RescoringPool(...)`` pumped after every dispatch. The
+    texts must equal the baseline's; each micro-batch's n-best must equal
+    ``decode_batch_nbest`` on the same batch (texts, scores within
+    ``BEAM_SCORE_RTOL``); each request's revision, or none, must be host
+    ``rescore_nbest``'s pick over its n-best; a replay of the same offers
+    on the same beats into a fresh pool must give the same revision
+    stream (every field but the wall-clock latency); with a
+    ``BrownoutController`` whose rescore rung has fired, the same 32
+    offers must all shed as ``brownout``, counted. Each run: exactly 3
+    ``gru_fwd`` (K4) a micro-batch. Prints the dispatch p50/p95 with
+    and without the n-best and the rescorer, and the pump's ms a job.
+    Returns the K4 launches of the gateway runs."""
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.data.infer_bucket import slice_to_plan
+    from deepspeech_tpu_torch.decode.ngram import load_lm, rescore_nbest
+    from deepspeech_tpu_torch.infer import Inferencer
+    from deepspeech_tpu_torch.resilience import BrownoutController
+    from deepspeech_tpu_torch.serving import RescoringPool
+
+    cfg = _config("ds2_beam_lm")
+    d = cfg.decode
+    _require(d.mode == "beam" and d.beam_width == 128 and d.nbest == 8,
+             f"ds2_beam_lm decode: {d}")
+    params, stats = _beam_weights(cfg)
+    tok = CharTokenizer.english()
+    arpa = os.path.join(root, "rescore_char.arpa")
+    _write_char_arpa(arpa, tok.chars, np.random.default_rng(SEED + 6), 300,
+                     600)
+    lm = load_lm(arpa)
+    rng = np.random.default_rng(SEED + 8)
+    f = cfg.features.num_features
+    reqs = [rng.normal(size=(int(t), f)).astype(np.float32)
+            for t in rng.integers(RESCORE_FRAMES[0], RESCORE_FRAMES[1] + 1,
+                                  size=RESCORE_REQUESTS)]
+    inf = Inferencer(cfg, tok, params, stats)
+    inf.decode_batch({"features": reqs[0][None, :400],
+                      "feat_lens": np.asarray([400], np.int32)})  # warm-up
+
+    def pool(**kw):
+        return RescoringPool(lm=lm, alpha=d.lm_alpha, beta=d.lm_beta,
+                             to_lm_text=_lm_text, **kw)
+
+    plain = _nbest_gateway("p", inf, reqs, nbest=False)
+    first_pool = pool()
+    run = _nbest_gateway("p", inf, reqs, nbest=True, rescorer=first_pool)
+    texts = {rid: r.text for rid, r in plain["results"].items()}
+    _require({rid: r.text for rid, r in run["results"].items()} == texts,
+             "n-best gateway: texts differ from the nbest=False gateway's")
+    _require(any(texts.values()), "n-best gateway: every text is empty")
+    worst = 0.0
+    for batch, plan, (b_texts, b_nbest) in run["batches"]:
+        # The plan's rows of the padded sub-batch, in request order.
+        rows = inf.decode_batch_nbest(slice_to_plan(batch, plan))
+        again = [None] * len(b_nbest)
+        for i, idx in enumerate(plan.indices):
+            again[int(idx)] = rows[i]
+        _require([[t for t, _ in row] for row in again]
+                 == [[t for t, _ in row] for row in b_nbest]
+                 and [row[0][0] for row in b_nbest] == list(b_texts),
+                 "n-best gateway: a micro-batch's n-best differs from "
+                 "decode_batch_nbest on the same batch")
+        for row, ref in zip(b_nbest, again):
+            for (_, s), (_, r) in zip(row, ref):
+                worst = max(worst, abs(s - r) / max(1.0, abs(r)))
+    _require(worst <= BEAM_SCORE_RTOL, f"n-best gateway: n-best scores "
+             f"off decode_batch_nbest's by {worst} (relative)")
+    revised = {e.rid: e for e in run["revisions"]}
+    _require(len(revised) == len(run["revisions"]),
+             "n-best gateway: a request was revised twice")
+    for rid, r in run["results"].items():
+        _require(r.nbest and r.nbest[0][0] == r.text
+                 and len(r.nbest) <= d.nbest,
+                 f"n-best gateway: {rid}'s n-best {r.nbest}")
+        pick = rescore_nbest(r.nbest, lm, d.lm_alpha, d.lm_beta,
+                             to_lm_text=_lm_text)[0][0]
+        if pick == r.text:
+            _require(rid not in revised, f"{rid} revised to "
+                     f"{revised.get(rid)} though the LM keeps its text")
+        else:
+            _require(rid in revised and revised[rid].new_text == pick
+                     and revised[rid].old_text == r.text,
+                     f"{rid}: revision {revised.get(rid)} != host pick "
+                     f"{pick!r}")
+    st = first_pool.stats()
+    _require(st["submitted"] == st["completed"] == RESCORE_REQUESTS
+             and st["revised"] == len(revised) and not st["shed"],
+             f"rescoring pool: {st}")
+    # The replay: the same offers, in the order the gateway made them,
+    # on the same beats, into a fresh pool.
+    offers = [(rid, run["results"][rid]) for rid in run["offered"]]
+    replay, at = pool(), 0
+    replayed = []
+    for _, jobs in run["beats"]:
+        for rid, r in offers[at:at + jobs]:
+            replay.offer(rid, r.nbest, r.text)
+        at += jobs
+        replayed += replay.pump()
+
+    def stream(evs):
+        return [(e.rid, e.old_text, e.new_text, e.score_delta, e.worker)
+                for e in evs]
+
+    _require(at == len(offers) == RESCORE_REQUESTS
+             and stream(replayed) == stream(run["revisions"]),
+             "rescoring: the replay's revision stream differs")
+    bro = BrownoutController(enter_pressure=0.75, exit_pressure=0.0,
+                             shed_pressure=0.9, hold_s=0.0,
+                             rescore_pressure=0.4)
+    bro.update(0.5)
+    _require(bro.level == 0 and not bro.should_rescore(),
+             f"brownout: level {bro.level}, should_rescore "
+             f"{bro.should_rescore()}")
+    shed_pool = pool(brownout=bro)
+    for rid, r in offers:
+        shed_pool.offer(rid, r.nbest, r.text)
+    counted = shed_pool.telemetry.counter("rescore_shed",
+                                          {"reason": "brownout"})
+    _require(shed_pool.shed == {"brownout": RESCORE_REQUESTS}
+             and counted == RESCORE_REQUESTS and shed_pool.submitted == 0
+             and not shed_pool.pump(),
+             f"brownout rung: sheds {shed_pool.shed}, counted {counted}")
+    jobs = sum(n for _, n in run["beats"])
+    report = {
+        "preset": "ds2_beam_lm", "requests": RESCORE_REQUESTS,
+        "micro_batches": len(run["batches"]),
+        "gru_fwd_per_micro_batch": run["gru_fwd"] / len(run["batches"]),
+        "revised": len(revised), "nbest_depth_max": max(
+            len(r.nbest) for r in run["results"].values()),
+        "nbest_score_rel_err_max": worst,
+        "dispatch_ms_p50_plain": plain["dispatch_ms_p50"],
+        "dispatch_ms_p95_plain": plain["dispatch_ms_p95"],
+        "dispatch_ms_p50_nbest_rescorer": run["dispatch_ms_p50"],
+        "dispatch_ms_p95_nbest_rescorer": run["dispatch_ms_p95"],
+        "pump_ms_per_job": sum(ms for ms, _ in run["beats"]) / jobs,
+        "pump_beats": len(run["beats"]), "replay_identical": True,
+        "brownout_sheds": RESCORE_REQUESTS}
+    print(card, flush=True)
+    print(json.dumps({"rescore": report, "card": card}), flush=True)
+    return plain["gru_fwd"] + run["gru_fwd"]
+
+
+def _forced_burn():
+    """A pool registry whose ``slo_burn_rate`` reads 2 (over a budget
+    of 1) until the first horizontal scale-up, 0 until the first
+    scale-down, then 0.5 (inside the hysteresis band): one episode each
+    way, whatever the wall time of a chunk."""
+    from deepspeech_tpu_torch.serving import ServingTelemetry
+
+    class ForcedBurn(ServingTelemetry):
+        def __init__(self):
+            super().__init__()
+            self.episodes = []
+            self.gauge("slo_burn_rate", 2.0, labels={"window": "5m"})
+
+        def count(self, name, n=1, labels=None, **kw):
+            super().count(name, n, labels=labels, **kw)
+            if name == "autoscale_events" and labels \
+                    and labels.get("actuator") == "horizontal":
+                self.episodes.append(labels["direction"])
+                self.gauge("slo_burn_rate",
+                           0.0 if labels["direction"] == "up" else 0.5,
+                           labels={"window": "5m"})
+
+    return ForcedBurn()
+
+
+def _tier_mix_gateway(card: str):
+    """ds2_small behind a premium bf16 + bulk int8 gateway (as in
+    ``gateway_phase``'s round B) with an ``AutoscaleController`` whose
+    vertical rungs are engaged by forced queue pressure (16 premium requests queued against
+    a capacity of 20): first the ladder, then the premium->bulk tier
+    mix. The queued 16 decode on the premium replica (``gru_fwd``, K4);
+    the 8 premium requests submitted after them must ride the bulk
+    replica (``gru_fwd_q``, K10, 3 a micro-batch), their texts equal to
+    the bulk inferencer's serial decode of the same micro-batches.
+    Returns the report and the K4 and K10 launches."""
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.infer import Inferencer
+    from deepspeech_tpu_torch.serving import (AutoscaleController,
+                                              MicroBatchScheduler, Replica,
+                                              ReplicaPool, ServingTelemetry)
+
+    cfg = _config("ds2_small")
+    params, stats = _weights("ds2_small")
+    tok = CharTokenizer.english()
+    clock = [0.0]
+    tel = ServingTelemetry()
+    reps = [Replica.from_inferencer(
+        "p0", Inferencer(cfg, tok, params, stats), tier="premium",
+        telemetry=tel, clock=lambda: clock[0]),
+        Replica.from_inferencer(
+            "b0", Inferencer(cfg, tok, params, stats, quantize="int8"),
+            tier="bulk", telemetry=tel, clock=lambda: clock[0])]
+    log = {}
+    for rep in reps:
+        _recording_replica(rep, log)
+    pool = ReplicaPool(reps, telemetry=tel, clock=lambda: clock[0])
+    sched = MicroBatchScheduler(
+        cfg.data.bucket_frames, 4, max_queue=20, default_deadline=60.0,
+        default_timeout=None, pool=pool, telemetry=tel,
+        tier_max_batch={"bulk": 4}, clock=lambda: clock[0])
+    ctrl = AutoscaleController(
+        pool, lambda rid: None, scheduler=sched, min_replicas=2,
+        max_replicas=2, vertical_max_batch=GATEWAY_MAX_BATCH,
+        vertical_tier_max_batch={"bulk": GATEWAY_MAX_BATCH},
+        tier_shift={"premium": "bulk"}, vertical_hold_s=0.0,
+        vertical_cooldown_s=0.5, telemetry=tel, clock=lambda: clock[0],
+        postmortem_fn=lambda *a, **kw: None)
+    rng = np.random.default_rng(SEED + 9)
+    f = cfg.features.num_features
+
+    def submit(prefix, n):
+        for k in range(n):
+            x = rng.normal(size=(int(rng.integers(300, 1701)), f))
+            sched.submit(x.astype(np.float32), rid=f"{prefix}{k}",
+                         tier="premium")
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    with _watchdog("tier-mix gateway", GATEWAY_WATCHDOG_S):
+        submit("q", 16)
+        for t in (0.0, 1.0):
+            clock[0] = t
+            ctrl.tick()
+        _require([e["actuator"] for e in ctrl.events
+                  if e["action"] == "vertical_up"] == ["ladder", "tier_mix"]
+                 and sched.max_batch == GATEWAY_MAX_BATCH
+                 and sched.tier_shift == {"premium": "bulk"},
+                 f"tier mix: controller events {ctrl.events}")
+        for prefix in ("", "s"):
+            if prefix:
+                submit(prefix, 8)
+            while sched.pending:
+                sched.dispatch_many(sched.poll() or sched.flush_all())
+        torch.cuda.synchronize()
+    counts = _recurrent_counts()
+    shifted = int(tel.counter("tier_shifted", {"tier": "premium"}))
+    results = sched.results
+    _require(shifted == 8 and len(results) == 24
+             and all(r.status == "ok" for r in results.values()),
+             f"tier mix: {shifted} shifted, results "
+             f"{sorted({r.status for r in results.values()})}")
+    bulk = log["b0"]["batches"]
+    want = {"gru_fwd": 3 * len(log["p0"]["batches"]),
+            "gru_fwd_q": 3 * len(bulk)}
+    _require(bulk and counts == {**{k: 0 for k in counts}, **want},
+             f"tier mix: recurrent launches {counts}, want {want}")
+    b0 = reps[1]
+    for batch, p, texts in bulk:
+        again = b0.inferencer.decode_batch_bucketed(batch, plans=[p])
+        _require(again == texts, f"tier mix: the bulk replica's serial "
+                 f"re-decode {again} != {texts}")
+    rows = sum(p.n_valid for _, p, _ in bulk)
+    _require(rows == 8, f"tier mix: the bulk replica decoded {rows} rows "
+             "(want the 8 shifted premium requests)")
+    return {"shifted_premium": shifted, "bulk_micro_batches": len(bulk),
+            "premium_micro_batches": len(log["p0"]["batches"]),
+            "vertical": [e["actuator"] for e in ctrl.events
+                         if e["action"] == "vertical_up"]}, want
+
+
+ROLLOUT_WAVES = 6            # waves of the gateway rollout's traffic
+ROLLOUT_WAVE = 8             # requests a wave: two micro-batches of 4
+
+
+def _gateway_rollout(card: str):
+    """ds2_small behind a gateway of two bf16 replicas bound to
+    ``Inferencer``s (``Replica.from_inferencer``: each decodes on a CUDA
+    stream of its own), rolled to new ``Inferencer``s of the same
+    weights while traffic arrives: ``ROLLOUT_WAVES`` waves of
+    ``ROLLOUT_WAVE`` requests, a ``RolloutController`` (drain window 0,
+    the first micro-batch as its canary) ticked after each wave, so that
+    each victim parks between waves, and its ``swap_backend``
+    synchronizes the victim's stream and drops the old ``Inferencer``
+    while the other replica serves. The rollout must reach ``done`` with
+    both replicas on v2 and each canary identical; every request ok and
+    each micro-batch's texts equal to a serial re-decode on a fresh
+    ``Inferencer``; exactly 3 ``gru_fwd`` (K4) a forward; device memory
+    after the rollout within one ``Inferencer``'s weights of where it was
+    before it. Returns the report and the K4 launches."""
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.infer import Inferencer
+    from deepspeech_tpu_torch.serving import (MicroBatchScheduler, Replica,
+                                              ReplicaPool, RolloutController,
+                                              ServingTelemetry)
+
+    cfg = _config("ds2_small")
+    params, stats = _weights("ds2_small")
+    tok = CharTokenizer.english()
+    m0 = _live_bytes()
+    probe = Inferencer(cfg, tok, params, stats)
+    version_bytes = _live_bytes() - m0
+    del probe
+    clock = [0.0]
+    tel = ServingTelemetry()
+    log = []
+
+    def logged(decode):
+        def fn(batch, plan):
+            texts = decode(batch, plan)
+            log.append((batch, plan, texts))
+            return texts
+        return fn
+
+    def backend(rid, inf):
+        rep = Replica.from_inferencer(rid, inf, telemetry=tel,
+                                      clock=lambda: clock[0])
+        rep.decode_fn = logged(rep.decode_fn)
+        rep.version = "v1"
+        return rep
+
+    reps = [backend(f"g{i}", Inferencer(cfg, tok, params, stats))
+            for i in range(2)]
+    old_infs = [weakref.ref(r.inferencer) for r in reps]
+    pool = ReplicaPool(reps, telemetry=tel, clock=lambda: clock[0],
+                       drain_window_s=0.0)
+    sched = MicroBatchScheduler(
+        cfg.data.bucket_frames, 4, max_queue=4 * ROLLOUT_WAVE,
+        default_deadline=60.0, default_timeout=None, pool=pool,
+        telemetry=tel, clock=lambda: clock[0])
+    swap_ms, backend_ms, forwards = [], [], [0]
+    real_swap_backend = Replica.swap_backend
+    real_decode = Inferencer.decode_batch_bucketed
+
+    def factory(rep):
+        t0 = time.perf_counter()
+        new = Replica.from_inferencer(
+            "candidate", Inferencer(cfg, tok, params, stats))
+        torch.cuda.synchronize()
+        swap_ms.append((time.perf_counter() - t0) * 1e3)
+        return {"decode_fn": logged(new.decode_fn),
+                "inferencer": new.inferencer}
+
+    def timed_swap_backend(self, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_swap_backend(self, **kw)
+        torch.cuda.synchronize()
+        backend_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def counted_decode(self, *a, **kw):
+        forwards[0] += 1
+        return real_decode(self, *a, **kw)
+
+    rng = np.random.default_rng(SEED + 10)
+    f = cfg.features.num_features
+    ro = None
+    torch.cuda.synchronize()
+    _zero_counts()
+    with _watchdog("gateway rollout", GATEWAY_WATCHDOG_S), \
+            mock.patch.object(Replica, "swap_backend", timed_swap_backend), \
+            mock.patch.object(Inferencer, "decode_batch_bucketed",
+                              counted_decode):
+        for wave in range(ROLLOUT_WAVES):
+            clock[0] = float(wave)
+            for k in range(ROLLOUT_WAVE):
+                x = rng.normal(size=(int(rng.integers(300, 1001)), f))
+                sched.submit(x.astype(np.float32), rid=f"w{wave}r{k}")
+            while sched.pending:
+                sched.dispatch_many(sched.poll() or sched.flush_all())
+            if ro is None:
+                before = _live_bytes()
+                ro = RolloutController(
+                    pool, factory, to_version="v2",
+                    canary_set=[log[0][:2]], wer_guardrail=0.0,
+                    telemetry=tel, clock=lambda: clock[0],
+                    postmortem_fn=lambda *a, **kw: None)
+                ro.start()
+            ro.tick()
+        torch.cuda.synchronize()
+    counts = _recurrent_counts()
+    acts = [e["action"] for e in ro.events]
+    _require(ro.state == "done" and acts.count("swap") == 2
+             and all(e["wer_delta"] == 0.0 for e in ro.events
+                     if e["action"] == "swap")
+             and [r.version for r in reps] == ["v2", "v2"],
+             f"gateway rollout: {ro.events}")
+    results = sched.results
+    _require(len(results) == ROLLOUT_WAVES * ROLLOUT_WAVE
+             and all(r.status == "ok" for r in results.values()),
+             f"gateway rollout: results "
+             f"{sorted({r.status for r in results.values()})}")
+    _require(counts == {**{k: 0 for k in counts},
+                        "gru_fwd": 3 * forwards[0]} and forwards[0],
+             f"gateway rollout: recurrent launches {counts} for "
+             f"{forwards[0]} forwards (want 3 gru_fwd each)")
+    grown = _live_bytes() - before
+    _require(grown <= version_bytes and not any(r() for r in old_infs),
+             f"gateway rollout: {grown} bytes more than before it (one "
+             f"Inferencer: {version_bytes}); old Inferencers alive: "
+             f"{[r() is not None for r in old_infs]}")
+    ref = Inferencer(cfg, tok, params, stats)
+    for batch, plan, texts in log:
+        again = ref.decode_batch_bucketed(batch, plans=[plan])
+        _require(again == texts, f"gateway rollout: a serial re-decode "
+                 f"{again} != {texts}")
+    return {"actions": acts, "decodes": len(log),
+            "forwards": forwards[0], "swap_build_ms": swap_ms,
+            "swap_backend_ms": backend_ms, "version_bytes": version_bytes,
+            "bytes_after_minus_before": grown}, counts["gru_fwd"]
+
+
+def controllers_phase(root: str, card: str):
+    """The serving plane's controllers on ds2_streaming (5 GRU layers,
+    H=800, bf16, ``_stream_weights``) at full width over ``serve_phase``'s
+    8 WAVs in ``root``, through ``serve.serve_files_pooled`` with 2
+    replicas, ``migrate_sessions`` and a drain window of
+    ``CTRL_DRAIN_S`` on ``_CountClock``: (a) a rolling swap to the same
+    weights, started at chunk 1 while every stream plays, must reach
+    ``done`` with both replicas swapped and each canary identical (WER
+    0); a victim must have hosted live sessions as its drain began, and
+    sessions must be live at each swap. A snapshot never crosses
+    versions, so the sessions that leave the last v1 replica re-pin by
+    drain and end as two segments: each final must equal capacity-1
+    managers fed the same chunks before and after the re-pin, and a
+    stream that never re-pinned the run without controllers; (b) one at
+    chunk 1 to other seeded weights under guardrail 0 must roll back
+    with the finals of the run without controllers; (c)
+    ``--autoscale`` (1..3 replicas, starting at 1, so that the replica
+    removed hosted sessions) on a forced ``slo_burn_rate`` must make
+    exactly one scale-up and one scale-down with those finals too. Each
+    run: exactly 5 ``gru_fwd`` (K6) a manager step, device memory after
+    the run within one version's weights of where it was before, and in
+    (c), at the first chunk after the removal, no manager alive but the
+    pool's replicas' (the device bytes then and before the scale-up are
+    printed). (d) ``_tier_mix_gateway`` and (e) ``_gateway_rollout`` on
+    ds2_small (K4, K10). Prints the ms of a swap and of a scale-up (the
+    newcomer's manager built with its weights uploaded, and its first
+    step). Returns the K6, K4 and K10 launches."""
+    import io
+
+    from deepspeech_tpu_torch import serve, serving
+    from deepspeech_tpu_torch.data import (CharTokenizer, featurize_np,
+                                           load_audio)
+    from deepspeech_tpu_torch.serving import (PooledSessionRouter,
+                                              RolloutController)
+    from deepspeech_tpu_torch.serving.session import StreamingSessionManager
+
+    cfg = _config("ds2_streaming")
+    params, stats = _stream_weights(cfg)
+    other, other_stats = _stream_weights(cfg, seed=SEED + 1)
+    tok = CharTokenizer.english()
+    paths = sorted(os.path.join(root, x) for x in os.listdir(root)
+                   if x.startswith("live") and x.endswith(".wav"))
+    _require(len(paths) == 8, f"controllers: {len(paths)} WAVs")
+    m0 = _live_bytes()
+    probe = StreamingSessionManager(cfg, params, stats, tok, capacity=1)
+    version_bytes = _live_bytes() - m0
+    del probe
+    steps, made = [0], []
+    real_step = StreamingSessionManager.step
+    real_init = StreamingSessionManager.__init__
+
+    # Each manager's build and first step, by the autoscale episodes
+    # seen when it was built (the records, not the managers: holding a
+    # manager would hold its weights past its replica's removal).
+    def counted_step(self, chunks=None):
+        steps[0] += 1
+        rec = self._smoke_rec
+        if "first_step_ms" not in rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = real_step(self, chunks)
+        if "first_step_ms" not in rec:
+            torch.cuda.synchronize()
+            rec["first_step_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def timed_init(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_init(self, *a, **kw)
+        torch.cuda.synchronize()
+        self._smoke_rec = {"episodes": tuple(burn.episodes),
+                           "init_ms": (time.perf_counter() - t0) * 1e3,
+                           "ref": weakref.ref(self)}
+        made.append(self._smoke_rec)
+
+    def run(patches=(), replicas=2, telemetry=None, **kw):
+        out = io.StringIO()
+        before = _live_bytes()
+        steps[0] = 0
+        made.clear()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(
+                StreamingSessionManager, "step", counted_step))
+            stack.enter_context(mock.patch.object(
+                StreamingSessionManager, "__init__", timed_init))
+            for p in patches:
+                stack.enter_context(p)
+            # The loop's pool on the counting clock, with the short drain
+            # window (and, for the autoscaler, the forced registry).
+            pool_kw = {"clock": _CountClock(),
+                       "drain_window_s": CTRL_DRAIN_S}
+            if telemetry is not None:
+                pool_kw["telemetry"] = telemetry
+            stack.enter_context(mock.patch.object(
+                serving, "ReplicaPool",
+                functools.partial(serving.ReplicaPool, **pool_kw)))
+            finals = serve.serve_files_pooled(
+                cfg, tok, params, stats, paths, replicas=replicas, out=out,
+                migrate_sessions=True, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _recurrent_counts()
+        _require(counts["gru_fwd"] == 5 * steps[0] and steps[0] > 0
+                 and sum(counts.values()) == counts["gru_fwd"],
+                 f"controllers: recurrent launches {counts}, {steps[0]} "
+                 "manager steps (want 5 gru_fwd a step)")
+        # A manager built after the scale-up and before the scale-down
+        # is the newcomer's: its build (weights uploaded) and first step.
+        up_ms = [r["init_ms"] + r["first_step_ms"] for r in made
+                 if r["episodes"] == ("up",) and "first_step_ms" in r][:1]
+        made.clear()
+        grown = _live_bytes() - before
+        _require(grown <= version_bytes, f"controllers: {grown} bytes "
+                 f"still allocated after the run (one version's weights: "
+                 f"{version_bytes})")
+        lines = [json.loads(x) for x in out.getvalue().splitlines()]
+        return finals, lines, {"seconds": seconds,
+                               "chunks": sum("chunk" in x for x in lines),
+                               "manager_steps": steps[0],
+                               "gru_fwd": counts["gru_fwd"],
+                               "bytes_after_minus_before": grown,
+                               "scale_up_ms": up_ms}
+
+    burn = _forced_burn()
+    base, _, base_rep = run()
+    _require(any(base), "controllers: every final is empty")
+    report = {"base": base_rep, "version_bytes": version_bytes}
+    launches = base_rep["gru_fwd"]
+
+    swap_ms, live_at_swap, hosted, cuts, fed = [], [], [], {}, [0]
+    holder = {}
+    real_swap = RolloutController._swap
+    real_pick = RolloutController._pick_victim
+    real_attach = PooledSessionRouter._attach
+    real_router_step = PooledSessionRouter.step
+
+    def timed_swap(self, rep, now):
+        live_at_swap.append(len(holder["router"]()._home))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_swap(self, rep, now)
+        torch.cuda.synchronize()
+        swap_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def picked(self, now):
+        # The live sessions homed on each victim as its drain begins.
+        rep = real_pick(self, now)
+        if rep is not None:
+            hosted.append(sum(r == rep.rid
+                              for r in holder["router"]()._home.values()))
+        return rep
+
+    def fed_step(self, chunks):
+        # A weak reference: the router (its pool, its managers' weights)
+        # must go with the run, as the memory check requires.
+        holder["router"] = weakref.ref(self)
+        out = real_router_step(self, chunks)
+        fed[0] += 1
+        return out
+
+    def cut_attach(self, sid, pool, rep):
+        # A re-pin by drain (not the join): the session's new segment
+        # starts at the chunk this step feeds.
+        if sid in self._seg_count:
+            cuts[sid] = fed[0]
+        return real_attach(self, sid, pool, rep)
+
+    feats = [featurize_np(load_audio(p, 16000), cfg.features)
+             for p in paths]
+    k, nf = STREAM_CHUNK, cfg.features.num_features
+
+    def solo(x, lo, hi):
+        """Chunks ``lo..hi`` of ``x`` through a capacity-1 manager, then
+        left and flushed: one segment, as a re-pin by drain ends it."""
+        mgr = StreamingSessionManager(cfg, params, stats, tok,
+                                      chunk_frames=k, capacity=1)
+        mgr.join("solo")
+        for i in range(lo, hi):
+            buf = np.zeros((k, nf), np.float32)
+            piece = x[i * k:(i + 1) * k]
+            buf[:piece.shape[0]] = piece
+            mgr.step({"solo": buf})
+        mgr.leave("solo")
+        mgr.flush()
+        return mgr.final("solo")
+
+    for case, swap, swap_stats in (("same", params, stats),
+                                   ("other", other, other_stats)):
+        for box in (swap_ms, live_at_swap, hosted):
+            box.clear()
+        cuts.clear()
+        fed[0] = 0
+        finals, lines, rep_ = run(
+            (mock.patch.object(RolloutController, "_swap", timed_swap),
+             mock.patch.object(RolloutController, "_pick_victim", picked),
+             mock.patch.object(PooledSessionRouter, "step", fed_step),
+             mock.patch.object(PooledSessionRouter, "_attach",
+                               cut_attach)),
+            swap_params=swap, swap_batch_stats=swap_stats,
+            swap_at_chunk=1, swap_wer_guardrail=0.0)
+        events = [x["rollout"] for x in lines if "rollout" in x]
+        acts = [e["action"] for e in events]
+        if case == "same":
+            # Mid-stream: a victim that hosted live sessions drains them
+            # onto the other replica and swaps while they play on. A
+            # snapshot never crosses versions, so the sessions that
+            # leave the last v1 replica re-pin by drain: two segments,
+            # each held to capacity-1 managers fed the same chunks.
+            _require(acts[-1] == "done" and acts.count("swap") == 2
+                     and all(e["wer_delta"] == 0.0 for e in events
+                             if e["action"] == "swap"),
+                     f"swap to the same weights: {events}")
+            _require(max(hosted, default=0) > 0 and all(live_at_swap),
+                     f"swap to the same weights: sessions hosted by the "
+                     f"victims {hosted}, live at the swaps {live_at_swap}")
+            for s, x in enumerate(feats):
+                n, c = -(-x.shape[0] // k), cuts.get(str(s))
+                want = base[s] if c is None else " ".join(
+                    t for t in (solo(x, 0, c), solo(x, c, n)) if t)
+                _require(finals[s] == want, f"swap ({case}) stream {s} "
+                         f"(re-pinned at chunk {c}): final {finals[s]!r} "
+                         f"!= {want!r}")
+        else:
+            _require(acts[-1] == "rollback" and "swap" not in acts
+                     and events[-1]["trigger"] == "canary_regression",
+                     f"swap to other weights: {events}")
+            _require(finals == base, f"swap ({case}): finals {finals} "
+                     f"!= {base}")
+        report[f"swap_{case}"] = {
+            **rep_, "actions": acts, "swap_ms": list(swap_ms),
+            "sessions_hosted_by_victims": list(hosted),
+            "sessions_live_at_swaps": list(live_at_swap),
+            "repinned_by_drain": dict(sorted(cuts.items()))}
+        launches += rep_["gru_fwd"]
+
+    burn = _forced_burn()
+    marks = {}
+    real_route = PooledSessionRouter.step
+
+    def live_managers(pool):
+        """(managers alive anywhere, managers of the pool's replicas)."""
+        gc.collect()
+        alive = {id(m) for m in (r["ref"]() for r in made) if m is not None}
+        held = {id(r.peek_session_manager()) for r in pool
+                if r.peek_session_manager() is not None}
+        return alive, held
+
+    def route(self, chunks):
+        if "up" not in burn.episodes:
+            marks["before_up"] = torch.cuda.memory_allocated()
+        elif "down" in burn.episodes and "after_down" not in marks:
+            # The first chunk after the removal: the removed replica's
+            # manager (its weights, its state) must be gone.
+            alive, held = live_managers(self.pool)
+            torch.cuda.synchronize()
+            marks["after_down"] = torch.cuda.memory_allocated()
+            marks["leaked_managers"] = len(alive - held)
+        return real_route(self, chunks)
+
+    finals, lines, rep_ = run(
+        (mock.patch.object(PooledSessionRouter, "step", route),),
+        replicas=1, autoscale=True, autoscale_min=1, autoscale_max=3,
+        autoscale_cooldown=CTRL_COOLDOWN_S, telemetry=burn)
+    events = [x["autoscale"] for x in lines if "autoscale" in x]
+    acts = [e["action"] for e in events]
+    _require(burn.episodes == ["up", "down"] and acts.count("scale_up") == 1
+             and acts.count("scale_down") == 1,
+             f"autoscale: episodes {burn.episodes}, events {acts}")
+    _require(finals == base, f"autoscale: finals {finals} != {base}")
+    _require(marks.get("leaked_managers") == 0, f"autoscale: "
+             f"{marks.get('leaked_managers')} managers outlived their "
+             "replica's removal (or no chunk followed it)")
+    newcomers = [e["replica"] for e in events if e["action"] == "scale_up"]
+    report["autoscale"] = {
+        **rep_, "actions": acts, "newcomer": newcomers,
+        "bytes_after_removal_minus_before_up": (
+            marks["after_down"] - marks["before_up"]
+            if "after_down" in marks else None)}
+    launches += rep_["gru_fwd"]
+    tier_mix, tier_launches = _tier_mix_gateway(card)
+    report["tier_mix"] = tier_mix
+    report["gateway_rollout"], k4 = _gateway_rollout(card)
+    tier_launches["gru_fwd"] += k4
+    print(card, flush=True)
+    print(json.dumps({"controllers": report, "card": card}), flush=True)
+    return {"gru_fwd[D=1]": launches, **tier_launches}
+
+
+
+class _StatusProbe:
+    """The ``serve --status-port=0`` run's status server, from outside:
+    a stderr stand-in that catches the ``{"status_server": url}`` line,
+    and a thread that then GETs each route over loopback (one
+    ``STATUS_TIMEOUT_S`` each) while the run is held open."""
+
+    ROUTES = ("/healthz", "/metrics", "/slo", "/incidents")
+
+    def __init__(self):
+        self.url = None
+        self.got = {}
+        self.error = None
+        self.ready = threading.Event()
+        self.done = threading.Event()
+        self._buf = ""
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+
+    def write(self, text):
+        self._buf += text
+        for line in self._buf.splitlines():
+            if line.startswith('{"status_server"'):
+                self.url = json.loads(line)["status_server"]
+                self.ready.set()
+        return len(text)
+
+    def flush(self):
+        pass
+
+    def _poll(self):
+        import urllib.request
+
+        try:
+            if not self.ready.wait(STATUS_TIMEOUT_S * 6):
+                raise RuntimeError("no status_server line")
+            base = self.url.rstrip("/")
+            for route in self.ROUTES:
+                with urllib.request.urlopen(base + route,
+                                            timeout=STATUS_TIMEOUT_S) as r:
+                    self.got[route] = (r.status, r.read().decode())
+        except Exception as e:  # reported by the phase's check
+            self.error = repr(e)
+        finally:
+            self.done.set()
+
+    def join(self):
+        self._thread.join(STATUS_TIMEOUT_S * 8)
+        return not self._thread.is_alive()
+
+
+def multimodel_phase(root: str, card: str):
+    """``serve.main`` with ``--models`` over two port checkpoints of
+    ds2_streaming (``_stream_weights`` from two seeds, written here with
+    ``CheckpointManager``), 2 replicas a model, ``--tenant-config`` (two
+    tenants, quotas 2 and 1, so the 4th stream is shed at join),
+    ``--decode=beam --lm-rescore`` on a vocabulary without a space
+    (``--vocab``: English's alphabet with "_" for the space, so that
+    serve scores the LM on space-joined characters) with a seeded
+    character trigram over it, ``--status-port=0``, ``--timeline`` and a
+    rolling swap of model a to a copy of its weights after the streams
+    (``--swap-at-chunk`` past the end; ``controllers_phase`` swaps
+    mid-stream), on the 4 shortest of ``serve_phase``'s WAVs. The
+    ``model_map`` and ``tenant_map`` lines must be there, one
+    ``{"shed"}`` line with an empty final; each model's finals must
+    equal ``serve_files_pooled`` of that checkpoint alone on its
+    streams; at least one ``{"revision"}`` line, and each stream's
+    revision (or none) host ``rescore_nbest``'s pick over the router's
+    ``final_nbest``;
+    ``/healthz``, ``/metrics``, ``/slo`` and ``/incidents`` must answer
+    over loopback during the run and the port be closed after it; the
+    timeline file must hold the run's events. Exactly 5 ``gru_fwd`` (K6)
+    a manager step. Returns the K6 launches of the ``--models`` run."""
+    import io
+
+    from deepspeech_tpu_torch import serve
+    from deepspeech_tpu_torch.checkpoint import CheckpointManager
+    from deepspeech_tpu_torch.config import apply_overrides
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.decode.ngram import load_lm, rescore_nbest
+    from deepspeech_tpu_torch.serving import PooledSessionRouter
+    from deepspeech_tpu_torch.serving.session import StreamingSessionManager
+
+    cfg = _config("ds2_streaming")
+    # English's alphabet with "_" in place of the space: a vocabulary
+    # without a space, on which serve scores the LM on space-joined
+    # characters (to_lm_text), so that the character trigram's words
+    # are the hypotheses' characters.
+    vocab = os.path.join(root, "mm_vocab.txt")
+    CharTokenizer([c if c != " " else "_" for c in
+                   CharTokenizer.english().chars]).save_vocab(vocab)
+    tok = CharTokenizer.from_vocab_file(vocab)
+    _require(tok.vocab_size == cfg.model.vocab_size and " " not in tok.chars,
+             f"multimodel: vocabulary {tok.chars}")
+    paths = sorted(os.path.join(root, x) for x in os.listdir(root)
+                   if x.startswith("live") and x.endswith(".wav"))
+    _require(len(paths) == 8, f"multimodel: {len(paths)} WAVs")
+    # The four shortest: the live beam is host-bound, a step a chunk
+    # of the longest stream on each of four managers.
+    paths = sorted(sorted(paths, key=os.path.getsize)[:4])
+    weights = {"a": _stream_weights(cfg), "b": _stream_weights(
+        cfg, seed=SEED + 1)}
+    cks = {}
+    for name, (p, s) in (("a", weights["a"]), ("b", weights["b"]),
+                         ("a2", weights["a"])):
+        cks[name] = os.path.join(root, f"mm_{name}")
+        mgr = CheckpointManager(cks[name])
+        mgr.save(1, {"params": p, "batch_stats": s})
+        mgr.wait()
+    arpa = os.path.join(root, "mm_char.arpa")
+    _write_char_arpa(arpa, tok.chars, np.random.default_rng(SEED + 6), 300,
+                     600)
+    tenants = os.path.join(root, "tenants.json")
+    with open(tenants, "w") as fh:
+        json.dump({"tenants": [
+            {"tenant": "gold", "quota": 1, "priority": "realtime",
+             "weight": 2.0},
+            {"tenant": "bulk", "quota": 2, "priority": "batch"}]}, fh)
+    timeline = os.path.join(root, "timeline.jsonl")
+    steps, nbests = [0], {}
+    real_step = StreamingSessionManager.step
+    real_nbest = PooledSessionRouter.final_nbest
+    real_loop = serve.serve_files_multimodel
+    probe = _StatusProbe()
+
+    def counted_step(self, chunks=None):
+        steps[0] += 1
+        return real_step(self, chunks)
+
+    def recorded_nbest(self, sid):
+        nbests[sid] = real_nbest(self, sid)
+        return nbests[sid]
+
+    def held_loop(*a, **kw):
+        # The run stays open (its status server up) until the probe
+        # has made its GETs.
+        finals = real_loop(*a, **kw)
+        probe.done.wait(STATUS_TIMEOUT_S * 8)
+        return finals
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(probe), \
+            mock.patch.object(StreamingSessionManager, "step",
+                              counted_step), \
+            mock.patch.object(PooledSessionRouter, "final_nbest",
+                              recorded_nbest), \
+            mock.patch.object(serve, "serve_files_multimodel", held_loop):
+        serve.main([f"--models=a={cks['a']},b={cks['b']}", "--replicas=2",
+                    f"--swap-checkpoint=a={cks['a2']}",
+                    "--swap-at-chunk=100000", f"--tenant-config={tenants}",
+                    "--status-port=0", f"--timeline={timeline}",
+                    "--decode=beam", "--lm-rescore", f"--vocab={vocab}",
+                    f"--decode.lm_path={arpa}", *paths])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _require(probe.join() and probe.error is None,
+             f"multimodel: status server probe {probe.error}")
+    counts = _recurrent_counts()
+    _require(counts["gru_fwd"] == 5 * steps[0] and steps[0] > 0
+             and sum(counts.values()) == counts["gru_fwd"],
+             f"multimodel: recurrent launches {counts}, {steps[0]} "
+             "manager steps (want 5 gru_fwd a step)")
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+
+    def only(key):
+        found = [x[key] for x in lines if key in x]
+        _require(len(found) == 1, f"multimodel: {len(found)} {key} lines")
+        return found[0]
+
+    models, tenant_map = only("model_map"), only("tenant_map")
+    finals = only("final")
+    sids = [str(s) for s in range(4)]
+    _require([models[s] for s in sids] == ["a", "b"] * 2
+             and [tenant_map[s] for s in sids] == ["bulk", "gold"] * 2,
+             f"multimodel: maps {models} {tenant_map}")
+    shed = [x["shed"] for x in lines if "shed" in x]
+    _require([x["stream"] for x in shed] == [3] and finals[3] == ""
+             and all(finals[:3]),
+             f"multimodel: sheds {shed}, finals {finals}")
+    table = serve.device_lm_table(
+        apply_overrides(cfg, {"decode.lm_path": arpa}), tok)
+    for mid in ("a", "b"):
+        own = [s for s in range(3) if models[str(s)] == mid]
+        alone = serve.serve_files_pooled(
+            cfg, tok, *weights[mid], [paths[s] for s in own], replicas=2,
+            decode="beam", lm_table=table, out=io.StringIO())
+        _require(alone == [finals[s] for s in own],
+                 f"multimodel {mid}: finals {[finals[s] for s in own]} != "
+                 f"the checkpoint alone {alone}")
+    lm, d = load_lm(arpa), cfg.decode
+    revisions = {x["revision"]["rid"]: x["revision"] for x in lines
+                 if "revision" in x}
+    _require(set(nbests) == set(sids[:3]),
+             f"multimodel: n-best of {sorted(nbests)}")
+    _require(revisions, "multimodel: no {\"revision\"} line: the second "
+             "pass changed no transcript")
+    for s in range(3):
+        pick = rescore_nbest(nbests[str(s)], lm, d.lm_alpha, d.lm_beta,
+                             to_lm_text=_lm_text)[0][0]
+        rev = revisions.get(str(s))
+        _require((rev is None and pick == finals[s])
+                 or (rev is not None and rev["new_text"] == pick
+                     and rev["old_text"] == finals[s]),
+                 f"multimodel stream {s}: revision {rev}, host pick "
+                 f"{pick!r}, final {finals[s]!r}")
+    rescoring = only("rescoring")
+    _require(rescoring["submitted"] == rescoring["completed"] == 3,
+             f"multimodel: rescoring {rescoring}")
+    got = probe.got
+    _require(set(got) == set(_StatusProbe.ROUTES)
+             and all(code == 200 for code, _ in got.values())
+             and json.loads(got["/healthz"][1])["status"] == "ok"
+             and "burn" in json.loads(got["/slo"][1])
+             and {"open", "closed"} <= set(json.loads(
+                 got["/incidents"][1])),
+             f"multimodel: status routes {got}")
+    import urllib.error
+    import urllib.request
+    try:
+        urllib.request.urlopen(probe.url + "healthz", timeout=2)
+        closed = False
+    except (urllib.error.URLError, OSError):
+        closed = True
+    _require(closed, "multimodel: the status server outlived the run")
+    with open(timeline) as fh:
+        records = [json.loads(x) for x in fh if x.strip()]
+    kinds = sorted({r["kind"] for r in records})
+    _require(records and all(r["event"] == "timeline" for r in records)
+             and any(k.startswith("rollout_") for k in kinds),
+             f"multimodel: timeline kinds {kinds}")
+    roll = [x["rollout"] for x in lines if "rollout" in x]
+    _require(roll and roll[-1]["action"] == "done"
+             and all(e["model"] == "a" for e in roll),
+             f"multimodel: rollout {roll}")
+    print(card, flush=True)
+    print(json.dumps({"multimodel": {
+        "seconds": seconds, "manager_steps": steps[0],
+        "gru_fwd": counts["gru_fwd"], "shed_streams": [3],
+        "revised": len(revisions), "timeline_records": len(records),
+        "timeline_kinds": kinds, "status_routes": sorted(got),
+        "finals_equal_single_model": True}, "card": card}), flush=True)
+    return counts["gru_fwd"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3681,14 +4766,14 @@ def main() -> int:
              DESCENT_STEPS, "gru"),
             ("ds2_streaming", 5, "gru_bwd[D=1]", False, TRAIN_STEPS,
              DESCENT_STEPS, "gru"),
-            ("ds2_full", FULL_GRU_TRAIN_LAYERS, "gru_bwd_stream[D=2]", True,
+            ("ds2_full", FULL_TRAIN_LAYERS, "gru_bwd_stream[D=2]", True,
              FULL_TRAIN_STEPS, FULL_DESCENT_STEPS, "gru"),
             ("ds2_small", 3, "lstm_bwd[D=2]", False, TRAIN_STEPS,
              DESCENT_STEPS, "lstm"),
             ("ds2_streaming", 5, "lstm_bwd[D=1]", False, TRAIN_STEPS,
              DESCENT_STEPS, "lstm"),
-            ("ds2_full", 7, "lstm_bwd_stream[D=2]", True, FULL_TRAIN_STEPS,
-             FULL_DESCENT_STEPS, "lstm")):
+            ("ds2_full", FULL_TRAIN_LAYERS, "lstm_bwd_stream[D=2]", True,
+             FULL_TRAIN_STEPS, FULL_DESCENT_STEPS, "lstm")):
         counts = _phase(f"{preset}-{rnn_type} train", train_phase, preset,
                         layers, streamed, steps, descent, rnn_type)
         entries[name]["launches"] = counts["bwd"]
@@ -3721,6 +4806,17 @@ def main() -> int:
         # Pooled live streaming on the same WAVs (K6 over 2 replicas).
         entries["gru_fwd[D=1]"]["launches"] += _phase(
             "ds2_streaming pooled serve", pooled_stream_phase, root, card)
+        # The controllers on the same WAVs: rolling swaps, autoscale
+        # (K6), and the tier-mix rung on ds2_small (K4, K10); then
+        # serve --models with tenants, the status server, the timeline
+        # and the LM second pass (K6).
+        ctrl = _phase("ds2_streaming controllers", controllers_phase, root,
+                      card)
+        entries["gru_fwd[D=1]"]["launches"] += ctrl["gru_fwd[D=1]"]
+        entries["gru_fwd[D=2]"]["launches"] += ctrl["gru_fwd"]
+        entries["gru_fwd_q[D=2]"]["launches"] += ctrl["gru_fwd_q"]
+        entries["gru_fwd[D=1]"]["launches"] += _phase(
+            "ds2_streaming multimodel serve", multimodel_phase, root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # The gateway: ds2_small requests on replicas (K4; int8 K10).
@@ -3735,6 +4831,10 @@ def main() -> int:
         entries["gru_fwd[D=2]"]["launches"] += _phase(
             "ds2_beam_lm / aishell beam", beam_phase, root, card)
         stream = _phase("ds2_streaming beam", beam_stream_phase, root, card)
+        # The n-best gateway and the asynchronous LM second pass (K4).
+        entries["gru_fwd[D=2]"]["launches"] += _phase(
+            "ds2_beam_lm n-best gateway and rescoring", rescore_phase, root,
+            card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     entries["gru_fwd[D=1]"]["launches"] += stream["gru_fwd"]

@@ -15,10 +15,10 @@ The port's own copy of the JAX package's ``obs/`` (stdlib only):
   :class:`IncidentCorrelator` and :class:`MetricSeries`
   (``obs/timeline.py``), and the ``postmortem_link`` seam through
   which ``resilience`` registers its recorder, so obs never imports
-  resilience at module load.
-
-The HTTP status server of the JAX ``obs/status.py`` comes with slice 4b
-of the port.
+  resilience at module load;
+- :class:`StatusServer`, the live ops surface (``obs/status.py``:
+  ``/metrics`` ``/healthz`` ``/slo`` ``/traces`` ``/timeline``
+  ``/incidents``), a stdlib HTTP server bound to ``127.0.0.1``.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from .metrics import Histogram, MetricsRegistry, registry
 from .postmortem_link import (postmortem_record, postmortem_recorder,
                               set_postmortem_recorder)
 from .slo import SloBurnEngine
+from .status import StatusServer
 from .timeline import EventLog, IncidentCorrelator, MetricSeries
 from .trace import Tracer, tracer
 from . import timeline
@@ -35,7 +36,7 @@ from . import timeline
 __all__ = ["Histogram", "MetricsRegistry", "Tracer", "registry",
            "tracer", "span", "compile_event", "TraceContext",
            "FlightRecorder", "flight_recorder", "SloBurnEngine",
-           "EventLog", "IncidentCorrelator", "MetricSeries", "timeline",
+           "StatusServer", "EventLog", "IncidentCorrelator", "MetricSeries", "timeline",
            "set_postmortem_recorder", "postmortem_recorder",
            "postmortem_record"]
 

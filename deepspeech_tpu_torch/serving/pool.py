@@ -97,14 +97,24 @@ class ReplicaPool:
         self.clock = clock
         self.telemetry = telemetry if telemetry is not None \
             else replicas[0].telemetry
-        # Controller bookkeeping (serving/registry.py): the
-        # breaker-opens scan maintain() consumes.
+        # Shared controller bookkeeping (serving/registry.py): the
+        # breaker-opens scan maintain() consumes, the breaker-cooldown
+        # scan the rollout/autoscale controllers consult, and their
+        # hold-off probes — factored out of pool internals so
+        # per-model controllers never reach in here.
         self.group = group if group is not None else GroupState()
         self.replicas: List[Replica] = []
         self._by_rid: Dict[str, Replica] = {}
         self._ring: List[Tuple[int, str]] = []
         self._pins: Dict[str, str] = {}      # session id -> rid
         self.repins = 0
+        # Re-pin preference (rollout controller): when non-empty,
+        # sessions re-pinning off an unroutable home prefer these
+        # replicas (ring order within the set) before the rest of the
+        # ring. The rollout keeps this at "already upgraded", so a
+        # session displaced by a drain lands on the new version and
+        # never has to move again — the at-most-one-re-pin contract.
+        self.prefer_rids: set = set()
         # Fleet-timeline breaker scan state: transitions already
         # published per rid, and the seq of the rid's last breaker
         # event (the causal parent of its next one).
@@ -152,6 +162,11 @@ class ReplicaPool:
 
     def replica(self, rid: str) -> Replica:
         return self._by_rid[rid]
+
+    def pins_on(self, rid: str) -> int:
+        """How many sessions are currently pinned to ``rid`` — the
+        rollout controller's fewest-sessions-first victim ordering."""
+        return sum(1 for r in self._pins.values() if r == rid)
 
     def __len__(self) -> int:
         return len(self.replicas)
@@ -239,7 +254,12 @@ class ReplicaPool:
                 if rep is not None and rep.can_route(now) \
                         and rep.serves(tier, model):
                     return rep
-            for rid in self.ring_order(session_id):
+            order = self.ring_order(session_id)
+            if self.prefer_rids:
+                order = ([r for r in order if r in self.prefer_rids]
+                         + [r for r in order
+                            if r not in self.prefer_rids])
+            for rid in order:
                 rep = self._by_rid[rid]
                 if rep.can_route(now) and rep.serves(tier, model):
                     if pinned is not None and pinned != rid:
@@ -372,11 +392,11 @@ class PooledSessionRouter:
             raise ValueError(
                 "PooledSessionRouter takes exactly one of pool= "
                 "(single-model) or registry= (multi-model)")
-        if tenancy is not None:
-            raise NotImplementedError(
-                "per-tenant admission (tenancy=) comes with slice 4b "
-                "(the serving plane's controllers) of the port")
         self.pool = pool
+        # Optional AdmissionController (serving/tenancy.py): a live
+        # session is one admitted unit against its tenant's quota,
+        # charged at join and released at leave.
+        self.tenancy = tenancy
         # Optional MigrationController (serving/migration.py): when
         # set, a session forced off its home replica is moved by
         # snapshot handoff — same segment, bit-identical transcript,
@@ -390,8 +410,10 @@ class PooledSessionRouter:
         self._local: Dict[str, str] = {}     # sid -> sid at that manager
         self._sid_pool: Dict[str, ReplicaPool] = {}
         self._model_of: Dict[str, Optional[str]] = {}
+        self._tenant_of: Dict[str, str] = {}
         self._seg_count: Dict[str, int] = {}
         self._segments: Dict[str, List[str]] = {}
+        self._seg_nbest: Dict[str, List[tuple]] = {}
         # Drained-but-not-yet-finalized locals:
         # (pool, rid, local sid, sid).
         self._draining: List[Tuple[ReplicaPool, str, str, str]] = []
@@ -453,6 +475,13 @@ class PooledSessionRouter:
                 still.append((pool, rid, local, sid))
                 continue
             self._segments.setdefault(sid, []).append(text)
+            # Latest segment's hypothesis list: the rescoring feed for
+            # single-segment sessions (the common case); multi-segment
+            # sessions fall back to 1-best in final_nbest(). Managers
+            # without the n-best API (minimal doubles) feed 1-best too.
+            nbest_fn = getattr(mgr, "final_nbest", None)
+            self._seg_nbest[sid] = (nbest_fn(local) if nbest_fn
+                                    else [(text, 0.0)])
         self._draining = still
 
     # -- session lifecycle ----------------------------------------------
@@ -461,19 +490,27 @@ class PooledSessionRouter:
         """Attach a session; returns the hosting replica id. ``model``
         picks the model group (registry mode; the default group when
         None) — the session is served by that model's pool for its
-        whole life, re-pins included. ``tenant`` tags the session's
-        trace (per-tenant quotas come with slice 4b)."""
+        whole life, re-pins included. ``tenant`` charges one unit
+        against the tenant's quota (released at :meth:`leave`); at the
+        quota the join sheds with
+        :class:`~.tenancy.TenantQuotaExceeded`."""
         if sid in self._home:
             raise ValueError(f"session {sid!r} already attached")
         pool = self._pool_for(model)
         if self.registry is not None:
             model = self.registry.resolve(model)
         now = pool.clock()
+        if tenant is not None and self.tenancy is not None:
+            self.tenancy.charge(tenant)    # may raise: shed the join
         rep = pool.route(session_id=sid, now=now, model=model)
         if rep is None:
+            if tenant is not None and self.tenancy is not None:
+                self.tenancy.release(tenant)
             raise RuntimeError("no routable replica for session join")
         self._attach(sid, pool, rep)
         self._model_of[sid] = model
+        if tenant is not None:
+            self._tenant_of[sid] = tenant
         ctx = TraceContext(f"sess:{sid}", now, kind="session",
                            replica=rep.rid, model=model, tenant=tenant)
         ctx.to(PHASE_DECODE, now)  # streaming: live from the first chunk
@@ -485,6 +522,9 @@ class PooledSessionRouter:
 
     def leave(self, sid: str, tail=None) -> None:
         self._detach(sid, tail=tail)
+        tenant = self._tenant_of.pop(sid, None)
+        if tenant is not None and self.tenancy is not None:
+            self.tenancy.release(tenant)
 
     # -- lockstep advance ------------------------------------------------
     def step(self, chunks: Dict[str, "object"]) -> Dict[str, str]:
@@ -611,6 +651,20 @@ class PooledSessionRouter:
             self.flight_recorder.record(rec)
             obs.tracer.emit(rec)
         return text
+
+    def final_nbest(self, sid: str) -> List[tuple]:
+        """Hypothesis list of a finalized session, best-first — the
+        rescoring feed. Exact (the manager's beam n-best) when the
+        session lived on one replica as one segment; a re-pinned /
+        multi-segment session degrades to 1-best of the joined text
+        (its segments' beams were finalized independently, so no
+        whole-utterance n-best exists)."""
+        text = self.final(sid)
+        segs = [t for t in self._segments.get(sid, ()) if t]
+        nb = self._seg_nbest.get(sid)
+        if len(segs) <= 1 and nb:
+            return nb
+        return [(text, 0.0)]
 
     def stats(self) -> dict:
         out = {

@@ -4,18 +4,26 @@ The port's own copy of the JAX package's ``serving/registry.py``
 (stdlib only). A :class:`ModelGroup` is everything one model owns: its
 own :class:`~.pool.ReplicaPool` (replica set + consistent-hash ring —
 cross-model batch mixing is impossible by construction, the pools are
-disjoint) and its own rung ladder (``bucket_frames``, ``max_batch``,
-``tier_max_batch``). :class:`ModelRegistry`
+disjoint), its own rung ladder (``bucket_frames``, ``max_batch``,
+``tier_max_batch``), and its own controller scope (rollout / autoscale
+operate on the group's pool, never the fleet). :class:`ModelRegistry`
 maps ``model_id -> ModelGroup`` and is what the
 :class:`~.scheduler.MicroBatchScheduler` and
 :class:`~.pool.PooledSessionRouter` route through in multi-model mode
-(the multi-model ``serve`` CLI comes with slice 4b of the port).
+(``serve --models`` builds one).
 
 :class:`GroupState` is the controller bookkeeping a pool keeps apart
-from its routing: the **breaker-opens scan**, which replicas' breakers
-opened since last look, so ``maintain`` can start their drains exactly
-once. (The rollout and autoscale controllers' hold-off scans come with
-them, in slice 4b.)
+from its routing:
+
+- the **breaker-opens scan**: which replicas' breakers opened since
+  last look, so ``maintain`` can start their drains exactly once;
+- the **breaker-cooldown scan** shared by the rollout and autoscale
+  controllers: is any replica's breaker open inside its cooldown, i.e.
+  is the group too unhealthy for a topology change;
+- **controller hold-off flags**: a controller registers a probe
+  (``attach``) and peers consult ``holdoff_reason`` — how the
+  autoscaler learns a rollout is mid-swap without reaching into the
+  rollout object, and how both stay scoped to their own model group.
 
 Every replica registered into a group is tagged with the group's
 ``model_id`` (``Replica.model``), so its metric labels, spans, and
@@ -24,8 +32,8 @@ Every replica registered into a group is tagged with the group's
 
 from __future__ import annotations
 
-from typing import (TYPE_CHECKING, Dict, Iterable, List, Optional,
-                    Sequence)
+from typing import (TYPE_CHECKING, Callable, Dict, Iterable, List,
+                    Optional, Sequence)
 
 if TYPE_CHECKING:  # import cycle: pool.py owns a default GroupState
     from .pool import ReplicaPool
@@ -39,6 +47,8 @@ class GroupState:
 
     def __init__(self):
         self._seen_opens: Dict[str, int] = {}
+        # Controller hold-off probes: name -> () -> Optional[reason].
+        self._probes: Dict[str, Callable[[], Optional[str]]] = {}
 
     # -- breaker-opens scan (pool.maintain) ------------------------------
     def note_replica(self, rep: Replica) -> None:
@@ -62,6 +72,53 @@ class GroupState:
                 self._seen_opens[rep.rid] = b.opens
                 out.append(rep)
         return out
+
+    # -- breaker-cooldown scan (rollout / autoscale hold-off) -----------
+    @staticmethod
+    def breaker_holds_out(rep: Replica, now: float) -> bool:
+        """Is this replica's breaker open and still inside its
+        cooldown — i.e. known-bad rather than probing?"""
+        b = rep.breaker
+        return (b is not None and b.state == "open"
+                and now - b.opened_at < b.cooldown_s)
+
+    def breaker_cooldown_reason(self, replicas: Iterable[Replica],
+                                now: float,
+                                skip: Sequence[Replica] = ()
+                                ) -> Optional[str]:
+        """First held-out replica as a hold-off reason string, or
+        None when the group is healthy enough for a topology change.
+        ``skip`` excludes replicas the caller already owns (a rollout
+        victim's own breaker must not pause its own swap)."""
+        for rep in replicas:
+            if any(rep is s for s in skip):
+                continue
+            if self.breaker_holds_out(rep, now):
+                return f"breaker_open_{rep.rid}"
+        return None
+
+    # -- controller hold-off flags --------------------------------------
+    def attach(self, name: str,
+               probe: Callable[[], Optional[str]]) -> None:
+        """Register (or replace) a controller's hold-off probe. The
+        probe returns a reason string while the controller wants
+        peers held off, else None."""
+        self._probes[name] = probe
+
+    def detach(self, name: str) -> None:
+        self._probes.pop(name, None)
+
+    def holdoff_reason(self, exclude: Sequence[str] = ()
+                       ) -> Optional[str]:
+        """First peer hold-off reason (registration order), skipping
+        the caller's own probe(s)."""
+        for name, probe in self._probes.items():
+            if name in exclude:
+                continue
+            reason = probe()
+            if reason:
+                return reason
+        return None
 
 
 class ModelGroup:
@@ -90,6 +147,10 @@ class ModelGroup:
                         f"group {model_id!r}: tier_max_batch[{t!r}] "
                         f">= 1")
         self.tier_max_batch = dict(tier_max_batch or {})
+        # Per-model controller scope, attached by the operator
+        # (serve.py) — they act on this group's pool only.
+        self.rollout = None
+        self.autoscale = None
         for rep in pool.replicas:
             self._tag(rep)
 
@@ -111,7 +172,14 @@ class ModelGroup:
         self.pool.add_replica(rep)
 
     def stats(self) -> dict:
-        return {"model": self.model_id, "pool": self.pool.stats()}
+        return {
+            "model": self.model_id,
+            "pool": self.pool.stats(),
+            "rollout": (self.rollout.status()
+                        if self.rollout is not None else None),
+            "autoscale": (self.autoscale.status()
+                          if self.autoscale is not None else None),
+        }
 
 
 class ModelRegistry:

@@ -166,7 +166,8 @@ class Replica:
                 or self.model == model)
 
     @classmethod
-    def from_inferencer(cls, rid: str, inferencer, *, warmstore=None,
+    def from_inferencer(cls, rid: str, inferencer, *,
+                        nbest: bool = False, warmstore=None,
                         **kw) -> "Replica":
         """Bind a replica to one ``Inferencer``: the replica's backend
         is its bucketed decode, and the inferencer's private
@@ -175,10 +176,27 @@ class Replica:
         inferencer on a CUDA device gets a stream of its own for the
         replica's decodes (:meth:`decode`).
 
+        ``nbest=True`` switches the backend to the ``(texts, nbest)``
+        decode contract (scheduler ``_split_decode_result``): beam
+        modes return their stashed per-row hypothesis lists (one
+        device-to-host copy a micro-batch, no extra launch), greedy
+        degrades to 1-best ``[(text, 0.0)]`` — the feed for the async
+        rescoring plane. Texts are identical either way.
+
         ``warmstore=`` (the executable warm store) comes with item 17
         of the port and raises ``NotImplementedError``."""
-        def _decode(batch, plan):
-            return inferencer.decode_batch_bucketed(batch, plans=[plan])
+        if nbest:
+            def _decode(batch, plan):
+                texts = inferencer.decode_batch_bucketed(
+                    batch, plans=[plan])
+                nb = inferencer._last_nbest
+                if nb is None:  # greedy path: degrade to 1-best
+                    nb = [[(t, 0.0)] for t in texts]
+                return texts, nb
+        else:
+            def _decode(batch, plan):
+                return inferencer.decode_batch_bucketed(
+                    batch, plans=[plan])
 
         if warmstore is not None:
             raise NotImplementedError(
@@ -292,7 +310,9 @@ class Replica:
         shared ``gateway.dispatch`` span/fault point, with every metric
         carrying this replica's label. Breaker bookkeeping stays with
         the caller (the scheduler owns attempt/requeue semantics).
-        Returns the backend's texts."""
+        Returns whatever the backend returns — plain texts or the
+        ``(texts, nbest)`` tuple contract; the scheduler normalizes at
+        finalization (``_split_decode_result``)."""
         if self.decode_fn is None:
             raise RuntimeError(f"replica {self.rid!r} has no decode_fn")
         rows = len(mb.requests)
@@ -379,6 +399,56 @@ class Replica:
                 "breaker_state": self.breaker.state
                 if self.breaker is not None else None,
             }
+
+    # -- backend swap (rollout controller) -------------------------------
+    def backend_snapshot(self) -> dict:
+        """The currently-installed backend, in the shape
+        :meth:`swap_backend` accepts — the rollout controller stashes
+        this before a swap so a canary failure or mid-swap fault can
+        restore it bit-exactly."""
+        return {
+            "decode_fn": self.decode_fn,
+            "session_factory": self.session_factory,
+            "inferencer": getattr(self, "inferencer", None),
+            "version": self.version,
+        }
+
+    def swap_backend(self, *, decode_fn=None, session_factory=None,
+                     inferencer=None,
+                     version: Optional[str] = None) -> None:
+        """Install a new backend on a PARKED replica (the rollout
+        controller's swap step). Only legal while parked: a live
+        backend may have in-flight work or live streaming sessions.
+        Replacing ``session_factory`` drops the lazily-built manager so
+        the next session lands on the new weights — the caller must
+        have drained it first (the rollout gates on the manager being
+        empty). Before the old backend is dropped, the replica's CUDA
+        stream is synchronized: kernels queued there may still read
+        the old weights, whose blocks the caching allocator would
+        otherwise hand out again."""
+        if self.state != STATE_PARKED:
+            raise RuntimeError(
+                f"swap_backend on {self.rid!r} while {self.state} "
+                "(park it first)")
+        mgr = self._session_manager
+        if mgr is not None and session_factory is not self.session_factory:
+            st = mgr.stats() if hasattr(mgr, "stats") else {}
+            if st.get("active") or st.get("draining"):
+                raise RuntimeError(
+                    f"swap_backend on {self.rid!r}: session manager "
+                    f"still holds sessions ({st})")
+            self._session_manager = None
+        if self.stream is not None:
+            self.stream.synchronize()
+        self.decode_fn = decode_fn
+        self.session_factory = session_factory
+        self.inferencer = inferencer
+        if inferencer is not None:
+            if self.stream is None:
+                self.stream = _own_stream(inferencer)
+            if getattr(inferencer, "shape_cache", None) is not None:
+                inferencer.shape_cache.labels = dict(self.labels)
+        self.version = version
 
     def __repr__(self) -> str:  # debugging logs
         return (f"Replica({self.rid!r}, state={self.state}, "

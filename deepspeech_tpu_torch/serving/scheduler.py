@@ -109,9 +109,13 @@ and — when tracing is enabled — as ``{"event": "trace"}`` JSONL
 records. The terminal latency histograms carry the slowest request's
 rid as a ``max_exemplar``.
 
-Per-tenant admission (``tenancy=``) comes with slice 4b of the port and
-the asynchronous LM second pass (``rescorer=``) with slice 6b; both
-raise ``NotImplementedError``.
+Per-tenant admission (``tenancy=``, :mod:`.tenancy`) charges each
+request against its tenant's quota, inherits the tenant's priority-class
+deadline and tier, stages brownout sheds by class, and picks flushes
+weighted-fair over tenants. The asynchronous LM second pass
+(``rescorer=``, :mod:`.rescoring`) is offered every ok result that
+carries an n-best (the ``(texts, nbest)`` decode contract of
+``Replica.from_inferencer(nbest=True)``).
 """
 
 from __future__ import annotations
@@ -160,7 +164,7 @@ class _Request:
     # Model group this request decodes on (serving/registry.py);
     # None = single-model deployment.
     model: Optional[str] = None
-    # Paying tenant (a metric label; quotas come with slice 4b).
+    # Paying tenant (serving/tenancy.py); None = unmetered traffic.
     tenant: Optional[str] = None
     # Request-scoped phase ledger (obs/context.py), created at submit.
     ctx: Optional[TraceContext] = None
@@ -176,6 +180,12 @@ class GatewayResult:
     latency: Optional[float] = None  # clock units, submit -> completion
     attempts: int = 0
     error: Optional[str] = None
+    # Per-request n-best [(text, score), ...] when the backend
+    # returned one (decode_fn contract: (texts, nbest) tuple; see
+    # Replica.from_inferencer(nbest=True)) — the feed for the async
+    # rescoring plane (serving/rescoring.py). ``text`` stays the
+    # n-best head, so callers ignoring this field see no change.
+    nbest: Optional[List[Tuple[str, float]]] = None
 
 
 @dataclass
@@ -226,6 +236,18 @@ class MicroBatch:
     def padding_waste(self) -> float:
         return padding_waste([r.feat_len for r in self.requests],
                              [self.plan()])
+
+
+def _split_decode_result(res):
+    """Normalize a backend decode result. The decode_fn contract is
+    ``List[str]`` texts, optionally ``(texts, nbest)`` where ``nbest``
+    is one ``[(text, score), ...]`` list per row — the second form
+    feeds :class:`GatewayResult.nbest` for the async rescoring plane
+    without changing any texts-only caller."""
+    if isinstance(res, tuple) and len(res) == 2:
+        texts, nbest = res
+        return list(texts), nbest
+    return res, None
 
 
 def warm_rung_chooser(bucket_frames: Sequence[int],
@@ -286,14 +308,6 @@ class MicroBatchScheduler:
                  tier_max_batch: Optional[Dict[str, int]] = None,
                  flight_recorder: Optional[FlightRecorder] = None,
                  rescorer=None):
-        if tenancy is not None:
-            raise NotImplementedError(
-                "per-tenant admission (tenancy=) comes with slice 4b "
-                "(the serving plane's controllers) of the port")
-        if rescorer is not None:
-            raise NotImplementedError(
-                "asynchronous LM rescoring (rescorer=) comes with slice 6b "
-                "(the LM second pass) of the port")
         if max_batch < 1 or max_queue < 1 or max_attempts < 1:
             raise ValueError("max_batch, max_queue, max_attempts >= 1")
         self.bucket_frames = tuple(sorted(bucket_frames))
@@ -332,6 +346,15 @@ class MicroBatchScheduler:
             raise ValueError(
                 "pool mode uses per-replica breakers; don't also pass "
                 "a gateway-level breaker")
+        # An AdmissionController (serving/tenancy.py): per-tenant
+        # quotas at submit, priority-class default deadlines and
+        # brownout shed order, weighted-fair dequeue in _take.
+        self.tenancy = tenancy
+        # A RescoringPool (serving/rescoring.py): ok results carrying
+        # an n-best are offered for an async LM second pass at
+        # _finish — an O(1) enqueue; the slow-path compute runs only
+        # when the owner pumps the pool, never on this hot path.
+        self.rescorer = rescorer
         # Per-tier flush caps (tier -> max_batch): the int8 "bulk"
         # tier's ladder is taller than the bf16 "premium" one under
         # the same HBM budget. Tiers absent from the map (and
@@ -342,9 +365,15 @@ class MicroBatchScheduler:
                     raise ValueError(
                         f"tier_max_batch[{t!r}] must be >= 1")
         self.tier_max_batch = dict(tier_max_batch or {})
+        # Tier-mix shift (tier -> tier), applied at submit AFTER the
+        # brownout's effective_tier: the autoscaler's vertical
+        # actuator routes premium arrivals onto the taller bulk
+        # ladder inside the horizontal cooldown window. Empty =
+        # inactive (the default; the controller installs/clears it).
+        self.tier_shift: Dict[str, str] = {}
         # Finished-request trace summaries land here (and, tracing on,
         # in the JSONL stream). Tests pass a private ring;
-        # the default is the process-wide one.
+        # the default is the process-wide one the status server reads.
         self.flight_recorder = flight_recorder \
             if flight_recorder is not None else obs.flight_recorder()
         # Pending queues: (model key, tier key) ("" = none) -> T rung
@@ -361,6 +390,23 @@ class MicroBatchScheduler:
     @property
     def pending(self) -> int:
         return self._n_pending
+
+    def set_max_queue(self, n: int) -> int:
+        """Re-target admission capacity (the autoscaler couples it to
+        fleet size). Growth applies immediately; shrink is *bounded*:
+        never below the currently admitted backlog (those requests
+        hold slots until they retire — dropping capacity under them
+        would make ``pending >= max_queue`` shed everything while the
+        backlog drains) and never below 1. Returns the applied value,
+        which later calls can shrink further as the backlog retires."""
+        applied = max(int(n), self._n_pending, 1)
+        if applied > self.max_queue:
+            self.telemetry.count("capacity_grows")
+        elif applied < self.max_queue:
+            self.telemetry.count("capacity_shrinks")
+        self.max_queue = applied
+        self.telemetry.gauge("gateway_capacity", applied)
+        return applied
 
     def _tenant_labels(self, model: Optional[str],
                        tenant: Optional[str],
@@ -386,10 +432,14 @@ class MicroBatchScheduler:
         are relative clock units; ``tier`` is the serving quality tier
         ("premium" | "bulk"; None = tierless). ``model`` picks the
         model group (registry mode fills the default and rejects
-        unknown ids); ``tenant`` labels the request's terminal metrics
-        (per-tenant quotas come with slice 4b). Raises
-        :class:`OverloadRejected` (after counting the shed) when the
-        bounded queue is full or the brownout controller is shedding.
+        unknown ids); ``tenant`` charges the tenant's quota and
+        inherits the tenant's priority-class deadline/tier defaults.
+        Raises :class:`OverloadRejected` (after counting the shed)
+        when the bounded queue is full, the tenant is at quota
+        (:class:`~.tenancy.TenantQuotaExceeded`), or the brownout
+        controller is shedding — with tenancy the shed is staged by
+        priority class: batch tenants shed at level 1, standard at
+        level 2, realtime never (quota + queue bound them instead).
         Under brownout, premium submissions are downgraded to bulk
         (counted ``tier_degraded``) instead of shed outright."""
         if tier is not None and (not isinstance(tier, str) or not tier):
@@ -403,6 +453,13 @@ class MicroBatchScheduler:
             raise ValueError(
                 "tenant-scoped requests need a model id (pass model= "
                 "or construct the scheduler with a registry)")
+        tcfg = None
+        if tenant is not None and self.tenancy is not None:
+            tcfg = self.tenancy.config(tenant)   # KeyError on typo
+            if deadline is None:
+                deadline = self.tenancy.default_deadline(tenant)
+            if tier is None:
+                tier = tcfg.tier
         now = self.clock()
         # Expire first: already-dead requests must not hold admission
         # slots (a queue full of ghosts would shed live traffic).
@@ -411,7 +468,12 @@ class MicroBatchScheduler:
         if self.brownout is not None:
             self.brownout.update(self._n_pending / self.max_queue,
                                  now=now)
-            if self.brownout.should_shed():
+            if tcfg is not None:
+                shed = self.tenancy.sheds_at(tenant,
+                                             self.brownout.level)
+            else:
+                shed = self.brownout.should_shed()
+            if shed:
                 labels = self._tenant_labels(model, tenant)
                 self.telemetry.count("rejected", labels=labels)
                 self.telemetry.count("brownout_shed", labels=labels)
@@ -425,6 +487,18 @@ class MicroBatchScheduler:
                 self.telemetry.count("tier_degraded",
                                      labels={"tier": tier})
                 degraded_from, tier = tier, eff
+        if tier is not None and self.tier_shift:
+            # The autoscaler's vertical tier-mix actuator (after the
+            # brownout's own degradation — brownout wins when both
+            # map the tier). Counted with the REQUESTED tier, like
+            # tier_degraded.
+            eff = self.tier_shift.get(tier, tier)
+            if eff != tier:
+                self.telemetry.count("tier_shifted",
+                                     labels={"tier": tier})
+                if degraded_from is None:
+                    degraded_from = tier
+                tier = eff
         if self._n_pending >= self.max_queue:
             self.telemetry.count("rejected",
                                  labels=self._tenant_labels(model,
@@ -436,6 +510,18 @@ class MicroBatchScheduler:
             raise ValueError(f"features must be [T, F], "
                              f"got {features.shape}")
         feat_len = int(features.shape[0] if feat_len is None else feat_len)
+        # Quota charge LAST among the reject paths: every earlier
+        # raise leaves the tenant's inflight count untouched.
+        if tcfg is not None:
+            try:
+                self.tenancy.charge(tenant)
+            except OverloadRejected:
+                labels = self._tenant_labels(model, tenant)
+                self.telemetry.count("rejected", labels=labels)
+                self.telemetry.count("tenant_quota_rejected",
+                                     labels=labels)
+                raise
+
         rid = rid if rid is not None else f"r{next(self._ids)}"
         req = _Request(
             rid=rid, features=features, feat_len=feat_len,
@@ -501,12 +587,20 @@ class MicroBatchScheduler:
 
     def _take(self, qkey: Tuple[str, str], rung: int, n: int,
               now: Optional[float] = None) -> List[_Request]:
-        """Remove up to ``n`` requests from ((model, tier), rung), FIFO —
+        """Remove up to ``n`` requests from ((model, tier), rung) —
         backoff-eligible only when ``now`` is given, everything when
-        None (drain)."""
+        None (drain). With an admission controller and more eligible
+        requests than the flush takes, the pick is weighted-fair over
+        tenants (stride scheduling; FIFO within a tenant) instead of
+        global FIFO — a saturating bulk tenant can't starve the
+        others out of a contended rung."""
         rungs = self._pending[qkey]
-        took = [r for r in rungs[rung]
-                if now is None or r.not_before <= now][:n]
+        elig = [r for r in rungs[rung]
+                if now is None or r.not_before <= now]
+        if self.tenancy is not None and n < len(elig):
+            took = self.tenancy.fair_select(elig, n)
+        else:
+            took = elig[:n]
         taken = {id(r) for r in took}
         rest = [r for r in rungs[rung] if id(r) not in taken]
         if rest:
@@ -688,6 +782,17 @@ class MicroBatchScheduler:
             rec = ctx.summary()
             self.flight_recorder.record(rec)
             obs.tracer.emit(rec)
+        if req.tenant is not None and self.tenancy is not None:
+            self.tenancy.release(req.tenant)
+        if (self.rescorer is not None and result.status == "ok"
+                and result.nbest):
+            # After release: the first-pass quota slot is free before
+            # the rescorer charges its own batch-class tenant. The
+            # offer is O(1) and sheds internally — the fast path never
+            # waits on (or fails because of) the slow path.
+            self.rescorer.offer(result.rid, result.nbest, result.text,
+                                model=req.model, tenant=req.tenant,
+                                now=now)
 
     def _requeue(self, r: _Request, now: float,
                  delay: float = 0.0) -> None:
@@ -810,9 +915,14 @@ class MicroBatchScheduler:
     def _dispatch_ok(self, mb: MicroBatch, texts: List[str], breaker,
                      t_dispatch: Optional[float],
                      replica) -> List[GatewayResult]:
+        texts, nbest = _split_decode_result(texts)
         if len(texts) < len(mb.requests):
             raise ValueError(
                 f"decode_fn returned {len(texts)} texts for "
+                f"{len(mb.requests)} requests")
+        if nbest is not None and len(nbest) < len(mb.requests):
+            raise ValueError(
+                f"decode_fn returned {len(nbest)} n-best lists for "
                 f"{len(mb.requests)} requests")
         if breaker is not None:
             breaker.record_success()
@@ -821,10 +931,12 @@ class MicroBatchScheduler:
             self.telemetry.observe("gateway.dispatch_s",
                                    now - t_dispatch)
         out = []
-        for r, text in zip(mb.requests, texts):
+        for i, (r, text) in enumerate(zip(mb.requests, texts)):
             res = GatewayResult(r.rid, "ok", text=text,
                                 latency=now - r.submitted,
-                                attempts=r.attempts)
+                                attempts=r.attempts,
+                                nbest=(list(nbest[i])
+                                       if nbest is not None else None))
             self._finish(r, res, now)
             out.append(res)
         return out

@@ -69,6 +69,12 @@ OWN_COPIES = ("deepspeech_tpu_torch/utils/quantize.py",
               "deepspeech_tpu_torch/serving/pool.py",
               "deepspeech_tpu_torch/serving/scheduler.py",
               "deepspeech_tpu_torch/serving/migration.py",
+              "deepspeech_tpu_torch/serving/tenancy.py",
+              "deepspeech_tpu_torch/serving/rescoring.py",
+              "deepspeech_tpu_torch/serving/rollout.py",
+              "deepspeech_tpu_torch/serving/autoscale.py",
+              "deepspeech_tpu_torch/serving/trafficmodel.py",
+              "deepspeech_tpu_torch/obs/status.py",
               "deepspeech_tpu_torch/decode/ngram.py",
               "deepspeech_tpu_torch/decode/hashed_lm.py",
               "deepspeech_tpu_torch/decode/beam_host.py",
@@ -92,7 +98,13 @@ def test_import_leaves_jax_unloaded():
             "deepspeech_tpu_torch.serving, deepspeech_tpu_torch.serve, "
             "deepspeech_tpu_torch.resilience, deepspeech_tpu_torch.obs, "
             "deepspeech_tpu_torch.utils.cache, deepspeech_tpu_torch.decode, "
-            "deepspeech_tpu_torch.native; "
+            "deepspeech_tpu_torch.native, "
+            "deepspeech_tpu_torch.serving.tenancy, "
+            "deepspeech_tpu_torch.serving.rescoring, "
+            "deepspeech_tpu_torch.serving.rollout, "
+            "deepspeech_tpu_torch.serving.autoscale, "
+            "deepspeech_tpu_torch.serving.trafficmodel, "
+            "deepspeech_tpu_torch.obs.status; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -333,13 +333,23 @@ def test_warm_rung_chooser_matches_jax():
 
 
 def test_scheduler_refuses_later_slices():
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        port_serving.MicroBatchScheduler(EDGES, 4, tenancy=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        port_serving.MicroBatchScheduler(EDGES, 4, rescorer=object())
-    pool = port_serving.ReplicaPool(port_serving.synthetic_replicas(1))
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        port_serving.PooledSessionRouter(pool, tenancy=object())
+    """``tenancy=`` and ``rescorer=`` (slices 4b and 6b) are taken now;
+    only the warm store (item 17) is still refused, by the controllers
+    as by ``Replica.from_inferencer``."""
+    tenancy = port_serving.AdmissionController(
+        [port_serving.TenantConfig("t", quota=2)])
+    rescorer = port_serving.RescoringPool(lm=object())
+    sched = port_serving.MicroBatchScheduler(EDGES, 4, tenancy=tenancy,
+                                             rescorer=rescorer)
+    assert sched.tenancy is tenancy and sched.rescorer is rescorer
+    pool = port_serving.ReplicaPool(port_serving.synthetic_replicas(2))
+    router = port_serving.PooledSessionRouter(pool, tenancy=tenancy)
+    assert router.tenancy is tenancy
+    with pytest.raises(NotImplementedError, match="item 17"):
+        port_serving.RolloutController(pool, dict, warmstore=object())
+    with pytest.raises(NotImplementedError, match="item 17"):
+        port_serving.AutoscaleController(pool, port_serving.Replica,
+                                         warmstore=object())
 
 
 # -- replicas bound to real inferencers -----------------------------------

@@ -10,8 +10,9 @@ weights, with the JAX side on its Pallas GRU kernels in interpret mode:
   ``migrate_sessions``, and with int8 weights;
 - ``main`` prints those lines from an ``.npz`` on the CPU (with
   ``--replicas=2 --migrate-sessions`` too), refuses ``--replicas`` with
-  endpointing, and exits naming the slice for each flag of a later
-  slice;
+  endpointing, and exits naming the slice for each flag of a slice the
+  port has not yet (4c, item 17), while the flags of slices 4b and 6b
+  reach the same checks as the JAX serve's;
 - ``--decode=beam`` (and ``--quant-tier=premium``): ``serve_files``' and
   ``serve_files_pooled``' JSONL equal the JAX ones', with and without an
   on-device LM table, endpointing and int8, and the finals equal
@@ -175,16 +176,57 @@ LATER = {"slice 4b": ("--models=a=x", "--tenant-config=t.json",
                       "--handoff-listen=0", "--handoff-peer=h:1"),
          "item 17": ("--warm-store=x",),
          "slice 6b": ("--lm-rescore",)}
+# Slices the port has now: their flags are parsed and checked like the
+# JAX serve's, and no longer exit naming a slice.
+PORTED = ("slice 4b", "slice 6b")
+
+
+@pytest.fixture(scope="module")
+def ckpt_cwd(setup, tmp_path_factory):
+    """A directory holding a JAX (orbax) checkpoint of the setup's
+    weights at ``x``, which both packages' ``serve`` read: the path that
+    the flags of slices 4b and 6b name (``--models=a=x``,
+    ``--swap-checkpoint=x``, ``--timeline=x``) and ``--checkpoint-dir``."""
+    from deepspeech_tpu.checkpoint import CheckpointManager
+
+    root = tmp_path_factory.mktemp("flags")
+    mgr = CheckpointManager(str(root / "x"))
+    mgr.save(1, {"state": {"params": setup[2], "batch_stats": setup[3],
+                           "step": np.asarray(1, np.int32)}})
+    mgr.wait()
+    return root
+
+
+def _raised(fn, argv):
+    with pytest.raises(Exception) as err:
+        fn(argv)
+    return type(err.value), str(err.value)
 
 
 @pytest.mark.parametrize("flag", [f for fs in LATER.values() for f in fs])
-def test_main_refuses_later_flags(flag):
+def test_main_refuses_later_flags(flag, ckpt_cwd, monkeypatch):
     where, = [w for w, fs in LATER.items() if flag in fs]
-    with pytest.raises(SystemExit, match=where):
-        serve.main([flag, "--params=x.npz", "--device=cpu", "a.wav"])
-    with pytest.raises(SystemExit, match=where):
-        serve.main([flag, "--replicas=2", "--migrate-sessions",
-                    "--params=x.npz", "--device=cpu", "a.wav"])
+    if where not in PORTED:
+        for argv in ([flag, "--params=x.npz", "--device=cpu", "a.wav"],
+                     [flag, "--replicas=2", "--migrate-sessions",
+                      "--params=x.npz", "--device=cpu", "a.wav"]):
+            with pytest.raises(SystemExit, match=where):
+                serve.main(argv)
+        return
+    # Past the flag, the port's serve stops where the JAX serve stops,
+    # with the same error: its own check (--tenant-config without
+    # --models, --swap-checkpoint or --autoscale without --replicas >= 2,
+    # --lm-rescore without decode.lm_path), the timeline path that is a
+    # directory, or else the missing WAV once the weights are read.
+    monkeypatch.chdir(ckpt_cwd)
+    over = [f"--{k}={v}" for k, v in OVER.items()]
+    for argv in ([flag, "--checkpoint-dir=x", *over],
+                 [flag, "--replicas=2", "--migrate-sessions",
+                  "--checkpoint-dir=x", *over]):
+        want = _raised(jax_serve.main, [*argv, "a.wav"])
+        got = _raised(serve.main, [*argv, "--device=cpu", "a.wav"])
+        assert got == want
+        assert "comes with" not in got[1]
 
 
 def test_main_refuses_replicas_with_endpointing():
