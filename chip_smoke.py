@@ -219,7 +219,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and a swap of one model after the streams: each model's finals equal
    to that checkpoint served alone, at least one revision, each host
    ``rescore_nbest``'s pick over ``final_nbest``;
-11. prints each phase's seconds on a line of its own, a
+11. slice 4c and item 16: ``serve --session-journal`` children on
+   ds2_streaming (bf16 and int8 at once) SIGKILLed mid-stream and booted
+   again, every stream recovered with its final equal to a capacity-1
+   manager fed the journaled frames, the second boot's own streams equal
+   to an uninterrupted ``serve_files``, a third boot recovering nothing;
+   a ``--handoff-listen`` child and a ``--handoff-peer`` child (every
+   transfer ``remote``, each adopted final equal to a pooled run of its
+   WAV, the listener's own finals untouched) beside a sender to a closed
+   port (every final present); the children's launches of K6 and K10
+   printed by each child as it exits; and ds2_small's guarded train step
+   at full width in process: a ``nan_grad`` step a bit-exact no-op and
+   the run equal to an unguarded one without that batch, a silent batch
+   backing the rate off and the run recovering, a rollback to the
+   last-good ring, a preempted run resumed bit-identical, 3 K4, 3 K5,
+   one K1 and one K2 a step, the guarded step's ms beside the
+   unguarded one's;
+12. prints each phase's seconds on a line of its own, a
    ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -4681,6 +4697,653 @@ def multimodel_phase(root: str, card: str):
     return counts["gru_fwd"]
 
 
+# Slice 4c and item 16: crash-durable live sessions, the cross-process
+# handoff and the guarded train step. The serve CLI runs in child
+# processes on the card, each one ``python -m deepspeech_tpu_torch.serve``
+# by way of ``runpy`` in a wrapper that prints the child's own launch
+# counts on stderr as it exits (a child killed with SIGKILL prints none).
+CRASH_KILL_CHUNK = 1         # the first boot is killed after this line
+CHILD_TIMEOUT_S = 300.0      # a child that has not exited fails the run
+HANDOFF_LONG_S = 120.0       # the listener's long stream, seconds
+CHILD_PHASE_S = 420.0        # all children of a phase are killed past it
+GUARD_BATCHES = 5            # (32, 1700) batches of the guarded runs
+GUARD_ENV = {"stats_warmup_steps": 2, "recovery_steps": 2,
+             "max_consecutive_skips": 1, "snapshot_every": 3,
+             "watchdog": False}
+_SERVE_CHILD = (
+    "import json, runpy, sys\n"
+    "from deepspeech_tpu_torch.ops import gru\n"
+    "sys.argv = ['deepspeech_tpu_torch.serve'] + sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_module('deepspeech_tpu_torch.serve', "
+    "run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    print(json.dumps({'child_launches': {"
+    "'gru_fwd': gru.gru_fwd.launches, "
+    "'gru_fwd_q': gru.gru_fwd_q.launches}}), file=sys.stderr, flush=True)\n")
+
+
+_CHILDREN: list = []
+
+
+@contextlib.contextmanager
+def _children_bounded(what: str, seconds: float = CHILD_PHASE_S):
+    """Kill every child still running when the block ends, and all of
+    them at once if it has not ended in ``seconds`` (their pipes close,
+    so a read waiting on one returns and the phase fails)."""
+    def trip():
+        print(f"chip_smoke: {what}: children still running after "
+              f"{seconds} s; killed", file=sys.stderr, flush=True)
+        for c in list(_CHILDREN):
+            c.kill()
+
+    timer = threading.Timer(seconds, trip)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+        while _CHILDREN:
+            _CHILDREN.pop().kill()
+
+
+class _Child:
+    """One serve child on the card: its stdout read line by line (a
+    reader thread, with an optional ``on_line`` hook), its stderr into a
+    file under ``root``, killed when its phase ends
+    (``_children_bounded``)."""
+
+    def __init__(self, root: str, name: str, args, env=None,
+                 on_line=None, pipe_bytes: int = 0):
+        import fcntl
+
+        self.name = name
+        self.err_path = os.path.join(root, f"{name}.stderr")
+        self._err = open(self.err_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _SERVE_CHILD, *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=self._err, text=True,
+            env={**os.environ, "OMP_NUM_THREADS": "2",
+                 "MKL_NUM_THREADS": "2", **(env or {})})
+        if pipe_bytes:
+            # A small pipe: a child whose lines nobody reads blocks on
+            # its next print (its listener thread runs on).
+            fcntl.fcntl(self.proc.stdout.fileno(), fcntl.F_SETPIPE_SZ,
+                        pipe_bytes)
+        _CHILDREN.append(self)
+        self.lines = []
+        self._on_line = on_line
+        self.reading = threading.Event()
+        self._reader = None
+
+    def read(self) -> "_Child":
+        """Start reading stdout on a thread."""
+        def run():
+            for line in self.proc.stdout:
+                if line.strip():
+                    rec = json.loads(line)
+                    self.lines.append(rec)
+                    if self._on_line is not None:
+                        self._on_line(self, rec)
+
+        self._reader = threading.Thread(target=run, daemon=True)
+        self._reader.start()
+        return self
+
+    def first(self, key: str):
+        """Read lines here (no thread) up to the first holding ``key``."""
+        for line in self.proc.stdout:
+            rec = json.loads(line)
+            self.lines.append(rec)
+            if key in rec:
+                return rec[key]
+        raise RuntimeError(f"{self.name} ended without a {key!r} line: "
+                           f"{self.stderr()[-2000:]}")
+
+    def wait(self, ok: bool = True) -> int:
+        try:
+            code = self.proc.wait(timeout=CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise RuntimeError(f"{self.name} did not exit in "
+                               f"{CHILD_TIMEOUT_S} s")
+        if self._reader is not None:
+            self._reader.join(timeout=30)
+        self._err.close()
+        if ok:
+            _require(code == 0, f"{self.name} exited {code}: "
+                     f"{self.stderr()[-3000:]}")
+        return code
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        if not self._err.closed:
+            self._err.close()
+
+    def stderr(self) -> str:
+        with open(self.err_path) as fh:
+            return fh.read()
+
+    def launches(self) -> dict:
+        """The launch counts the child printed as it exited."""
+        recs = [json.loads(x) for x in self.stderr().splitlines()
+                if x.startswith('{"child_launches"')]
+        _require(len(recs) == 1, f"{self.name}: no launch counts")
+        return recs[0]["child_launches"]
+
+    def get(self, key: str):
+        return [r[key] for r in self.lines if key in r]
+
+
+def _stream_feats(cfg, paths):
+    from deepspeech_tpu_torch.data import featurize_np, load_audio
+
+    return [featurize_np(load_audio(p, 16000), cfg.features) for p in paths]
+
+
+def _solo_final(cfg, params, stats, feat, fed, raw_len, quantize):
+    """A capacity-1 manager joined with ``raw_len`` and fed the first
+    ``fed`` frames of ``feat`` (zero-padded chunks), then drained."""
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.serving.session import StreamingSessionManager
+
+    k, nf = STREAM_CHUNK, cfg.features.num_features
+    mgr = StreamingSessionManager(cfg, params, stats,
+                                  CharTokenizer.english(), chunk_frames=k,
+                                  quantize=quantize, capacity=1)
+    mgr.join("solo", raw_len=raw_len)
+    for i in range(fed // k):
+        buf = np.zeros((k, nf), np.float32)
+        piece = feat[i * k:(i + 1) * k]
+        buf[:piece.shape[0]] = piece
+        mgr.step({"solo": buf})
+    mgr.leave("solo")
+    mgr.flush()
+    return mgr.final("solo")
+
+
+def _handoff_listener(root: str, npz: str, paths):
+    """Start the handoff's listener on ds2_streaming (bf16,
+    ``--replicas=2 --handoff-listen=0``) over 3 of the serve phase's WAVs
+    and one of ``HANDOFF_LONG_S`` s. Its stdout is a 4 KB pipe that is
+    read up to the port line and then left unread until the senders are
+    done: its streams block on a print, its listener thread serves."""
+    long_wav = os.path.join(root, "handoff_long.wav")
+    rng = np.random.default_rng(SEED + 7)
+    _write_speech(long_wav, [2.0] * int((HANDOFF_LONG_S + 1) // 3), rng)
+    h = {"lsn_paths": paths[:3] + [long_wav], "snd_paths": paths[3:7],
+         "pm_path": os.path.join(root, "handoff_postmortem.jsonl"),
+         "common": [f"--params={npz}", "--replicas=2"]}
+    h["lsn"] = _Child(root, "listener", h["common"]
+                      + ["--handoff-listen=0"] + h["lsn_paths"],
+                      pipe_bytes=4096)
+    return h
+
+
+def _handoff_senders(root: str, h) -> None:
+    """Start a sender (``--replicas=2 --handoff-peer=127.0.0.1:PORT``)
+    over 4 other WAVs, and a sender of the same 4 to a closed port."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        closed_port = s.getsockname()[1]
+    port = h["lsn"].first("handoff_listen")["port"]
+    h["t0"] = time.perf_counter()
+    h["snd"] = _Child(root, "sender", h["common"]
+                      + [f"--handoff-peer=127.0.0.1:{port}"]
+                      + h["snd_paths"],
+                      env={"DS2_POSTMORTEM": h["pm_path"]}).read()
+    h["dead"] = _Child(root, "sender-closed", h["common"]
+                       + [f"--handoff-peer=127.0.0.1:{closed_port}"]
+                       + h["snd_paths"]).read()
+
+
+def _handoff_wait(h) -> None:
+    h["snd"].wait()
+    h["sender_s"] = time.perf_counter() - h["t0"]
+    h["dead"].wait()
+    h["lsn"].read()
+    h["lsn"].wait()
+
+
+def _handoff_checks(h, cfg, params, stats, card) -> dict:
+    """Every transfer ``remote``, each adopted final equal to a pooled
+    single-replica run of its WAV, the sender's finals null, the
+    listener's own finals equal to a pooled run of its WAVs; to the
+    closed port every transfer falls down the ladder and every final is
+    present, equal to a pooled run. Returns the children's launches."""
+    import io
+
+    from deepspeech_tpu_torch import serve
+    from deepspeech_tpu_torch.data import CharTokenizer
+
+    tok = CharTokenizer.english()
+    lsn, snd, dead = h["lsn"], h["snd"], h["dead"]
+    hand = snd.get("handoff")
+    _require(len(hand) == 4 and all(x["outcome"] == "remote" for x in hand),
+             f"handoff: sender outcomes {hand}")
+    _require(snd.get("final") == [[None] * 4],
+             f"handoff: sender finals {snd.get('final')}")
+    adopted = lsn.get("handoff_adopted")
+    _require(len(adopted) == 1 and len(adopted[0]) == 4,
+             f"handoff: adopted {adopted}")
+    for sid, text in adopted[0].items():
+        i = int(sid.rsplit("-", 1)[1])
+        ref = serve.serve_files_pooled(cfg, tok, params, stats,
+                                       [h["snd_paths"][i]], replicas=1,
+                                       out=io.StringIO())
+        _require([text] == ref, f"handoff: adopted {sid} {text!r} != "
+                 f"pooled {ref}")
+    own = serve.serve_files_pooled(cfg, tok, params, stats, h["lsn_paths"],
+                                   replicas=2, out=io.StringIO())
+    _require(lsn.get("final") == [own], f"handoff: listener finals "
+             f"{lsn.get('final')} != pooled {own}")
+    ladder = [x["outcome"] for x in dead.get("handoff")]
+    plain = serve.serve_files_pooled(cfg, tok, params, stats,
+                                     h["snd_paths"], replicas=2,
+                                     out=io.StringIO())
+    _require(len(ladder) == 4 and "remote" not in ladder
+             and dead.get("final") == [plain],
+             f"handoff to a closed port: {ladder}, finals "
+             f"{dead.get('final')} != {plain}")
+    with open(h["pm_path"]) as fh:
+        pms = [json.loads(x) for x in fh if x.strip()]
+    ms = [p["latency_ms"] for p in pms if p.get("kind") == "migration"
+          and p.get("outcome") == "remote_handoff"]
+    _require(len(ms) == 4, f"handoff: {len(ms)} remote postmortems")
+    n = {c.name: c.launches() for c in (lsn, snd, dead)}
+    for name, c in n.items():
+        _require(c["gru_fwd"] > 0 and c["gru_fwd_q"] == 0,
+                 f"{name}: launches {c}")
+    print(card, flush=True)
+    print(json.dumps({"handoff": {
+        "outcomes": [x["outcome"] for x in hand], "closed_port_ladder":
+        ladder, "transfer_ms": ms, "sender_s": h["sender_s"],
+        "adopted_equal_pooled": True, "listener_own_untouched": True,
+        "children_launches": n}, "card": card}), flush=True)
+    return {"gru_fwd": sum(c["gru_fwd"] for c in n.values()),
+            "gru_fwd_q": 0}
+
+
+def durable_sessions_phase(root: str, card: str):
+    """Crash recovery and the cross-process handoff, on ds2_streaming
+    over the serve phase's WAVs in ``root``, in three rounds of serve
+    children. Crash: ``serve --session-journal --journal-every=1`` (bf16,
+    and int8 in a second journal at the same time) over the 4 longest
+    WAVs, SIGKILLed after chunk ``CRASH_KILL_CHUNK``; a second boot on
+    the same journal over the other 4 must recover all 4 streams (``ok``,
+    with any torn tail counted), each recovered final equal to a
+    capacity-1 manager fed the journaled frames and drained, its own
+    finals equal to ``serve_files`` of those WAVs uninterrupted; a third
+    boot recovers nothing. The handoff's listener starts beside the first
+    boots and its senders beside the second (``_handoff_listener``,
+    ``_handoff_senders``); ``_handoff_checks`` holds them. Returns
+    the launches of K6 (``gru_fwd``) and K10 (``gru_fwd_q``) of the
+    children that exited and of the in-process references."""
+    import io
+
+    from deepspeech_tpu_torch import bridge, serve
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.serving.sessionstore import (
+        SessionJournal, snapshot_from_bytes)
+
+    cfg = _config("ds2_streaming")
+    params, stats = _stream_weights(cfg)
+    tok = CharTokenizer.english()
+    npz = os.path.join(root, "stream.npz")
+    bridge.save_npz(npz, params, stats)
+    paths = sorted(os.path.join(root, x) for x in os.listdir(root)
+                   if x.startswith("live") and x.endswith(".wav"))
+    feats = _stream_feats(cfg, paths)
+    order = sorted(range(len(paths)), key=lambda i: -len(feats[i]))
+    crash, own = sorted(order[:4]), sorted(order[4:])
+    shortest = order[-1]
+    quants = ("", "int8")
+    jdir = {q: os.path.join(root, f"journal-{q or 'bf16'}") for q in quants}
+
+    def args(q, idx):
+        return ([f"--params={npz}", f"--session-journal={jdir[q]}",
+                 "--journal-every=1"]
+                + (["--quantize-weights=int8"] if q else [])
+                + [paths[i] for i in idx])
+
+    def killer(child, rec):
+        if rec.get("chunk") == CRASH_KILL_CHUNK:
+            os.kill(child.proc.pid, 9)
+
+    _zero_counts()
+    child_counts = {"gru_fwd": 0, "gru_fwd_q": 0}
+    out = {}
+    with _children_bounded("durable sessions"):
+        t0 = time.perf_counter()
+        boot1 = {q: _Child(root, f"boot1-{q or 'bf16'}", args(q, crash),
+                           on_line=killer).read() for q in quants}
+        handoff = _handoff_listener(root, npz, paths)
+        for q, c in boot1.items():
+            code = c.wait(ok=False)
+            _require(code == -9, f"{c.name}: exited {code}, not killed "
+                     f"(lines {len(c.lines)})")
+        t_kill = time.perf_counter() - t0
+        journaled = {}
+        for q in quants:
+            scan = SessionJournal(jdir[q]).scan()
+            journaled[q] = {sid: snapshot_from_bytes(e.data)
+                            for sid, e in scan.live.items()}
+            _require(sorted(journaled[q]) == ["0", "1", "2", "3"],
+                     f"journal {q or 'bf16'} at the kill: live "
+                     f"{sorted(journaled[q])}")
+            out[q] = {"torn_tails_at_kill": len(scan.torn),
+                      "fed_at_kill": {s: x.fed for s, x in
+                                      journaled[q].items()}}
+        t1 = time.perf_counter()
+        boot2 = {q: _Child(root, f"boot2-{q or 'bf16'}",
+                           args(q, own)).read() for q in quants}
+        _handoff_senders(root, handoff)
+        for c in boot2.values():
+            c.wait()
+        t_boot2 = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        boot3 = {q: _Child(root, f"boot3-{q or 'bf16'}",
+                           args(q, [shortest])).read() for q in quants}
+        for c in boot3.values():
+            c.wait()
+        _handoff_wait(handoff)
+        t_round3 = time.perf_counter() - t2
+    for q in quants:
+        kind = "gru_fwd_q" if q else "gru_fwd"
+        rec = boot2[q].get("recovery")
+        _require(len(rec) == 1, f"boot2 {q or 'bf16'}: recovery lines {rec}")
+        rec = rec[0]
+        _require(sorted(rec["sids"]) == ["0", "1", "2", "3"]
+                 and rec["recovered"] == 4 and rec["incompatible"] == 0
+                 and rec["torn"] == out[q]["torn_tails_at_kill"],
+                 f"boot2 {q or 'bf16'}: recovery {rec}")
+        for s, i in enumerate(crash):
+            snap = journaled[q][str(s)]
+            want = _solo_final(cfg, params, stats, feats[i], snap.fed,
+                               snap.raw_len, q)
+            _require(rec["finals"][str(s)] == want,
+                     f"{q or 'bf16'} recovered {s}: "
+                     f"{rec['finals'][str(s)]!r} != solo {want!r}")
+        ref = serve.serve_files(cfg, tok, params, stats,
+                                [paths[i] for i in own], quantize=q,
+                                out=io.StringIO())
+        _require(boot2[q].get("final") == [ref],
+                 f"boot2 {q or 'bf16'}: own finals {boot2[q].get('final')}"
+                 f" != uninterrupted {ref}")
+        _require(not boot3[q].get("recovery")
+                 and len(boot3[q].get("final")) == 1
+                 and SessionJournal(jdir[q]).scan().live == {},
+                 f"boot3 {q or 'bf16'}: {boot3[q].lines[:1]}")
+        for c in (boot2[q], boot3[q]):
+            n = c.launches()
+            _require(n[kind] > 0 and sum(n.values()) == n[kind],
+                     f"{c.name}: launches {n}")
+            for k2 in child_counts:
+                child_counts[k2] += n[k2]
+        out[q].update({"recovery": {k: rec[k] for k in (
+            "recovered", "torn", "incompatible", "stale", "latency_ms")},
+            "recovered_equal_solo": True, "own_equal_uninterrupted": True,
+            "third_boot_recovered": 0})
+    print(card, flush=True)
+    print(json.dumps({"crash_recovery": {
+        "streams": 4, "kill_after_chunk": CRASH_KILL_CHUNK,
+        "first_boots_to_kill_s": t_kill, "second_boots_s": t_boot2,
+        "third_round_s": t_round3, "children_launches": child_counts,
+        "bf16": out[""], "int8": out["int8"]}, "card": card}), flush=True)
+    moved = _handoff_checks(handoff, cfg, params, stats, card)
+    counts = _recurrent_counts()
+    return {k: counts[k] + child_counts[k] + moved[k]
+            for k in ("gru_fwd", "gru_fwd_q")}
+
+
+class _Batches:
+    """A list of host batches with the pipeline interface ``fit`` reads;
+    ``zero`` empties the features of the batches it names."""
+
+    def __init__(self, batches, zero=()):
+        self.batches = batches
+        self.zero = set(zero)
+
+    def epoch(self, epoch_idx: int, start: int = 0):
+        for i, b in enumerate(self.batches[start:], start):
+            yield (dict(b, features=np.zeros_like(b["features"]))
+                   if i in self.zero else b)
+
+    def batches_per_epoch(self, epoch_idx: int) -> int:
+        return len(self.batches)
+
+    def peek(self):
+        return self.batches[0]
+
+
+class _Log:
+    """A logger that keeps its events; ``on_step(step)`` after each
+    ``train_step`` line."""
+
+    def __init__(self, on_step=None):
+        self.events = []
+        self.on_step = on_step
+
+    def log(self, event, **fields):
+        self.events.append((event, fields))
+        if event == "train_step" and self.on_step is not None:
+            self.on_step(fields["step"])
+
+
+def _state_of(trainer):
+    """Parameters, BN buffers and optimizer state tensors, cloned."""
+    opt = [(i, k, v.detach().clone()) for i, st in enumerate(
+        trainer.optimizer.state_dict()["state"].values())
+        for k, v in sorted(st.items()) if torch.is_tensor(v)]
+    return ({k: v.detach().clone()
+             for k, v in trainer.model.state_dict().items()}, opt)
+
+
+def _same_bits(a, b) -> bool:
+    (ma, oa), (mb, ob) = a, b
+    return (ma.keys() == mb.keys()
+            and all(torch.equal(ma[k], mb[k]) for k in ma)
+            and [(i, k) for i, k, _ in oa] == [(i, k) for i, k, _ in ob]
+            and all(torch.equal(x, y) for (_, _, x), (_, _, y)
+                    in zip(oa, ob)))
+
+
+def guarded_train_phase(card: str):
+    """The guarded ds2_small step at full width (bf16, SGD) in process, on
+    ``GUARD_BATCHES`` synthetic (32, 1700) batches with the guardian's
+    knobs ``GUARD_ENV`` (through ``DS2_GUARDIAN``): a ``nan_grad`` fault at
+    the third batch leaves that step's parameters, BN statistics and
+    optimizer state bit for bit as the step before left them, and the run
+    ends bit-identical to an unguarded run without that batch; a silent
+    batch (zero features) spikes the gradient norm, backs the rate off
+    and the run recovers the full rate; two poisoned batches in a row
+    roll back to the last-good ring, the run ending bit-identical to an
+    unguarded run without the rolled-back batches; ``trigger()`` after
+    the second step writes an emergency checkpoint and the resumed run
+    ends bit-identical to the uninterrupted guarded run. Every step
+    launches 3 ``gru_fwd`` (K4), 3 ``gru_bwd`` (K5), one taped
+    ``ctc_alpha`` (K1) and one ``ctc_beta`` (K2). Returns the launches."""
+    from deepspeech_tpu_torch.bridge import init_params
+    from deepspeech_tpu_torch.config import apply_overrides
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                                 PreemptionGuard, faults)
+    from deepspeech_tpu_torch.train import Trainer
+
+    cfg = apply_overrides(_config("ds2_small"), {
+        "train.checkpoint_dir": "", "train.log_every": "1",
+        "train.warmup_steps": "1"})
+    params, stats = init_params(cfg, torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 11)
+    batches = [_train_batch(cfg, rng) for _ in range(GUARD_BATCHES)]
+    tok = CharTokenizer.english()
+    steps = [0]
+    real_step = Trainer.train_step
+
+    def counted(self, *a, **kw):
+        steps[0] += 1
+        return real_step(self, *a, **kw)
+
+    def fit(bs, guarded, plan=None, zero=(), ckpt="", logger=None,
+            preempt=None, restore=False, probe=None):
+        os.environ.pop("DS2_GUARDIAN", None)
+        if guarded:
+            os.environ["DS2_GUARDIAN"] = json.dumps(GUARD_ENV)
+        c = apply_overrides(cfg, {"train.checkpoint_dir": ckpt})
+        tr = Trainer(c, _Batches(bs, zero), tok, logger=logger or _Log(),
+                     params=params, batch_stats=stats, preempt=preempt)
+        if restore:
+            tr.maybe_restore()
+        if probe is not None:
+            probe(tr)
+        if plan is not None:
+            faults.install(plan)
+        try:
+            last = tr.fit(epochs=1)
+        finally:
+            faults.clear()
+            os.environ.pop("DS2_GUARDIAN", None)
+        torch.cuda.synchronize()
+        return tr, last
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_guard_")
+    out = {}
+    try:
+        with mock.patch.object(Trainer, "train_step", counted):
+            _zero_counts()
+            # 1. A nan_grad step is a bit-exact no-op, and the run equals
+            # an unguarded one without the batch.
+            seen = {}
+
+            def probe(tr):
+                real_g, real_c = tr.guarded_step, tr.commit_step
+
+                def g(batch, lr_scale):
+                    seen["before"] = _state_of(tr)
+                    return real_g(batch, lr_scale)
+
+                def commit(applied):
+                    real_c(applied)
+                    if not applied:
+                        seen["after_skip"] = _state_of(tr)
+                        seen["same"] = _same_bits(seen["before"],
+                                                  seen["after_skip"])
+                tr.guarded_step, tr.commit_step = g, commit
+
+            t0 = time.perf_counter()
+            g1, last1 = fit(batches, True, plan=FaultPlan([FaultSpec(
+                "train.step", "nan_grad", skip=2, count=1)]), probe=probe)
+            t_guarded = time.perf_counter() - t0
+            _require(seen.get("same") is True,
+                     "guarded: the skipped step changed the state")
+            u1, _ = fit(batches[:2] + batches[3:], False)
+            _require(last1["guardian"]["skipped_batches"] == 1
+                     and g1.step == u1.step == GUARD_BATCHES - 1
+                     and _same_bits(_state_of(g1), _state_of(u1)),
+                     f"guarded with a poisoned batch != unguarded without "
+                     f"it: {last1['guardian']}, steps {g1.step} {u1.step}")
+            out["nan_grad"] = {"guardian": last1["guardian"],
+                               "skipped_step_bit_exact": True,
+                               "equal_unguarded_without_batch": True}
+            del g1, u1, seen["before"], seen["after_skip"]
+            # 2. A gradient spike backs the rate off; the run recovers.
+            log = _Log()
+            g2, last2 = fit(batches, True, zero=(2,), logger=log)
+            rates = [f["lr"] for e, f in log.events if e == "train_step"]
+            sched = [g2.lr_schedule(s) for s in range(GUARD_BATCHES)]
+            rep2 = last2["guardian"]
+            _require(rep2["soft_anomalies"] == 1 and rep2["lr_scale"] == 1.0
+                     and rep2["applied_steps"] == GUARD_BATCHES
+                     and rates[:3] == sched[:3]
+                     and rates[3:] == [x * 0.5 for x in sched[3:]],
+                     f"soft spike: {rep2}, rates {rates}")
+            out["soft_spike"] = {"guardian": rep2, "lr": rates}
+            del g2
+            # 3. Two poisoned batches in a row roll back to the ring's
+            # newest entry, the seed (snapshot_every 3): the two steps
+            # applied before them are dropped.
+            g3, last3 = fit(batches, True, ckpt=os.path.join(root, "rb"),
+                            plan=FaultPlan([FaultSpec(
+                                "train.step", "nan_grad", skip=2,
+                                count=2)]))
+            u3, _ = fit(batches[4:], False)
+            _require(last3["guardian"]["rollbacks"] == 1
+                     and g3.step == u3.step == GUARD_BATCHES - 4
+                     and _same_bits(_state_of(g3), _state_of(u3)),
+                     f"rollback: {last3['guardian']}, steps {g3.step}")
+            out["rollback"] = {"guardian": last3["guardian"],
+                               "equal_unguarded_without_batches": True}
+            del g3, u3
+            # 4. Preempted after step 2, resumed: equal to the whole run.
+            full, _ = fit(batches, True)
+            guard = PreemptionGuard()
+            cut, last4 = fit(batches, True, ckpt=os.path.join(root, "cut"),
+                             preempt=guard, logger=_Log(
+                                 on_step=lambda s: s == 2 and
+                                 guard.trigger()))
+            _require(last4.get("preempted") is True and cut.step == 2
+                     and cut.ckpt.latest_step() == 2,
+                     f"preempted: {last4}, step {cut.step}")
+            res, _ = fit(batches, True, ckpt=os.path.join(root, "cut"),
+                         restore=True)
+            _require(res.step == full.step == GUARD_BATCHES
+                     and _same_bits(_state_of(res), _state_of(full)),
+                     "preempted and resumed != uninterrupted")
+            out["preempt"] = {"stopped_at": cut.step,
+                              "resumed_equal_uninterrupted": True}
+            counts = _counts()
+            n = steps[0]
+            want = {k: 0 for k in counts}
+            want.update({"gru_fwd": 3 * n, "gru_bwd": 3 * n,
+                         "ctc_alpha": n, "ctc_beta": n})
+            _require(counts == want, f"guarded: launches {counts} in {n} "
+                     f"steps, want {want}")
+            # The guarded step against the unguarded one, in turns.
+            batch = full.pipeline.batches[0]
+            os.environ["DS2_GUARDIAN"] = json.dumps(GUARD_ENV)
+            try:
+                gt = Trainer(cfg, _Batches(batches), tok, params=params,
+                             batch_stats=stats)
+            finally:
+                os.environ.pop("DS2_GUARDIAN", None)
+            ut = Trainer(cfg, _Batches(batches), tok, params=params,
+                         batch_stats=stats)
+            del full, cut, res
+            ms = {"guarded": [], "unguarded": []}
+            for _ in range(2):
+                for name, tr in (("guarded", gt), ("unguarded", ut)):
+                    tr.train_step(batch)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    for _ in range(3):
+                        m = tr.train_step(batch)
+                        if name == "guarded":
+                            tr.commit_step(bool(m["applied"]))
+                    torch.cuda.synchronize()
+                    ms[name].append((time.perf_counter() - t1) / 3 * 1e3)
+            n_all = steps[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = _counts()
+    print(card, flush=True)
+    print(json.dumps({"guarded_train": {
+        "preset": "ds2_small", "batch": [cfg.data.batch_size, 1700],
+        "batches": GUARD_BATCHES, "guardian_env": GUARD_ENV,
+        "checked_steps": n, "first_guarded_run_s": t_guarded,
+        "step_ms": ms, "launches_per_step": {
+            k: v / n for k, v in want.items()}, **out}, "card": card}),
+        flush=True)
+    return {"gru_fwd": launches["gru_fwd"], "gru_bwd": launches["gru_bwd"],
+            "ctc_alpha": launches["ctc_alpha"],
+            "ctc_beta": launches["ctc_beta"], "steps": n_all}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4793,6 +5456,11 @@ def main() -> int:
                       ("ctc_alpha[loss_only]", "loss_only"),
                       ("ctc_beta", "ctc_beta")):
         entries[name]["launches"] += counts[key]
+    # The guarded, preemption-safe ds2_small step (K4, K5, K1, K2).
+    counts = _phase("ds2_small guarded train", guarded_train_phase, card)
+    for name, key in (("gru_fwd[D=2]", "gru_fwd"), ("gru_bwd[D=2]", "gru_bwd"),
+                      ("ctc_alpha", "ctc_alpha"), ("ctc_beta", "ctc_beta")):
+        entries[name]["launches"] += counts[key]
     # ds2_streaming live: the chunked engine, sessions, serve (K6 and
     # K10 at D=1 with a carried h0), the chunk's times, the feed.
     stream = _phase("ds2_streaming chunked vs offline", streaming_phase)
@@ -4817,6 +5485,12 @@ def main() -> int:
         entries["gru_fwd_q[D=2]"]["launches"] += ctrl["gru_fwd_q"]
         entries["gru_fwd[D=1]"]["launches"] += _phase(
             "ds2_streaming multimodel serve", multimodel_phase, root, card)
+        # serve --session-journal killed and booted again (K6, K10), and
+        # the cross-process handoff between serve children (K6).
+        durable = _phase("ds2_streaming crash recovery and handoff",
+                         durable_sessions_phase, root, card)
+        entries["gru_fwd[D=1]"]["launches"] += durable["gru_fwd"]
+        entries["gru_fwd_q[D=1]"]["launches"] += durable["gru_fwd_q"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # The gateway: ds2_small requests on replicas (K4; int8 K10).

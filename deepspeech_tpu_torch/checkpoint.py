@@ -22,6 +22,13 @@ thread, as orbax's asynchronous save does; ``wait`` joins it.
 first, past steps that fail to load (a save cut off mid-write) and past
 steps marked rejected (``rejected_steps.json``), with a warning for each
 skip. An explicit ``step`` or ``strict=True`` raises instead.
+
+Fault points (``resilience/faults.py``): ``checkpoint.save`` before each
+save (``partial_write`` deletes the committed step's ``params.npz``
+once it lands: a save cut off mid-write, the layout the walk-back must
+survive) and ``checkpoint.restore`` before each step a restore tries
+(an injected error walks back like a damaged step). The last-good ring
+is sized by the trainer from ``GuardianConfig.ring_size``.
 """
 
 from __future__ import annotations
@@ -38,7 +45,9 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import obs
 from .bridge import _flatten, _nest, load_npz, save_npz
+from .resilience import faults
 
 _log = logging.getLogger(__name__)
 
@@ -149,6 +158,7 @@ class CheckpointManager:
         ``step`` on a thread. A step at or below the newest one is not
         saved (returns False), as orbax's manager skips it."""
         step = int(step)
+        spec = faults.inject("checkpoint.save")
         self.wait()
         latest = self.latest_step()
         if latest is not None and step <= latest:
@@ -165,6 +175,10 @@ class CheckpointManager:
         self._writer = threading.Thread(target=self._write,
                                         args=(step, snap), daemon=True)
         self._writer.start()
+        if spec is not None and spec.kind == "partial_write":
+            # Chaos: the save is cut off mid-write.
+            self.wait()
+            os.remove(os.path.join(self._dir, str(step), PARAMS))
         return True
 
     def _write(self, step: int, snap: Dict[str, Any]) -> None:
@@ -224,11 +238,13 @@ class CheckpointManager:
         last_err: Optional[BaseException] = None
         for s in candidates:
             try:
+                faults.inject("checkpoint.restore")
                 return self._restore_step(s)
             except Exception as e:
                 if explicit or strict:
                     raise
                 last_err = e
+                obs.registry().count("checkpoint_restore_fallbacks")
                 _log.warning(
                     "checkpoint step %s failed to restore (%s: %s); "
                     "falling back to the previous intact step",

@@ -23,6 +23,12 @@ with and without a ``trigger`` label in the metrics registry), writes a
 the JAX package's pipeline does, and logs a ``corrupt_sample`` event
 through its ``logger`` (the trainer's).
 
+Fault points (``resilience/faults.py``): ``pipeline.materialize`` fires
+in front of each quarantine scan (``corrupt_batch`` poisons sample 0's
+features with NaN, so the scrubber catches it, or, with quarantine off,
+the training guardian does) and ``pipeline.device_prefetch`` before each
+batch's copy to the device (``latency`` stalls it, ``error`` fails it).
+
 Features are computed with numpy (``featurize_np``); the JAX package's
 C++ loader (``data.native_loader``) computes the same features and has
 no counterpart here, so that field is inert.
@@ -42,6 +48,7 @@ import torch
 
 from .. import obs
 from ..config import Config
+from ..resilience import faults
 from ..resilience import postmortem as _postmortem
 from .features import featurize_np, load_audio
 from .manifest import Utterance, load_manifest
@@ -121,6 +128,7 @@ def device_prefetch(batches: Iterable[Batch], device, depth: int = 2
     device = torch.device(device)
     if device.type == "cpu":
         for b in batches:
+            faults.inject("pipeline.device_prefetch")
             yield {k: torch.tensor(np.asarray(v)) for k, v in b.items()}
         return
     side = torch.cuda.Stream(device)
@@ -131,6 +139,7 @@ def device_prefetch(batches: Iterable[Batch], device, depth: int = 2
                 for k, v in b.items()}
 
     def send(pinned: Dict[str, torch.Tensor]):
+        faults.inject("pipeline.device_prefetch")
         with torch.cuda.stream(side):
             dev = {k: t.to(device, non_blocking=True)
                    for k, t in pinned.items()}
@@ -205,10 +214,14 @@ def scrub_samples(feats: List[np.ndarray], labels: List[List[int]], *,
     their frames can carry; each flagged sample is replaced by the
     first healthy one (batch shape and size unchanged). If the whole
     batch is corrupt, features are sanitized (``nan_to_num``) and labels
-    clipped. Returns ``(feats, labels, n_quarantined)``.
+    clipped. Returns ``(feats, labels, n_quarantined)``. The
+    ``pipeline.materialize`` fault point fires first (module docstring).
     """
     feats = list(feats)
     labels = list(labels)
+    spec = faults.inject("pipeline.materialize")
+    if spec is not None and spec.kind == "corrupt_batch" and feats:
+        feats[0] = np.full_like(feats[0], np.nan)
     if not enabled or not feats:
         return feats, labels, 0
 
@@ -252,7 +265,11 @@ def scrub_padded_batch(batch: Batch, *, ids: Optional[Sequence] = None,
     overlong-label check, since padding already clipped labels to
     feasibility and the symptom left is an empty label. Mutates
     ``batch``'s rows in place; returns ``(batch, n_quarantined)``."""
+    spec = faults.inject("pipeline.materialize")
     feats = batch["features"]
+    if spec is not None and spec.kind == "corrupt_batch" \
+            and len(feats):
+        feats[0] = np.nan
     if not enabled or not len(feats):
         return batch, 0
     finite = np.isfinite(feats).all(axis=tuple(range(1, feats.ndim)))

@@ -9,14 +9,18 @@ rebuilds and an unchanged one loads what is there. The
 build runs at first use, never at import: this module imports on a
 machine with no ``nvcc`` and no card.
 
-Threads: the gateway decodes each replica on a worker thread of its
-own, so two threads can reach a cold kernel together. ``build`` holds
-one module lock from its check to its last rename, so the second
-thread finds the library built, and writes each compile to a temp
-name unique to the process and the thread, so builds from two
-processes sharing ``build/`` never write one file; ``load`` holds
-another while it checks, builds and loads, so one library is
-loaded.
+Threads and processes: the gateway decodes each replica on a worker
+thread of its own, so two threads can reach a cold kernel together, and
+a parent can start child processes on the card that load the same
+kernels. ``build`` holds one module lock from its check to its last
+rename, so the second thread finds the library built; where a library
+is missing it also holds an exclusive ``flock`` on
+``build/torch_kernels/.lock`` and checks again under it, so a second
+process waits for the first one's compile and then loads its library
+instead of compiling the same source at the same time. Each compile
+writes a temp name unique to the process and the thread; ``load``
+holds another lock while it checks, builds and loads, so one library
+is loaded.
 
 The C++ host decoder (``csrc/host/*.cc``: the n-gram engine and the
 CTC prefix beam search of ``decode.mode="beam_fused"``) is built the
@@ -28,7 +32,9 @@ flags.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -70,6 +76,17 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
+@contextlib.contextmanager
+def _file_lock():
+    """An exclusive ``flock`` on the build directory's lock file, held
+    by one process at a time (released when the file closes, also when
+    the process dies)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        yield
+
+
 def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile the named sources that are not built yet, one ``nvcc``
     each, all started together. Returns ``{name: library path}``;
@@ -81,6 +98,13 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 def _build_locked(names) -> Dict[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     targets = {n: _target(n) for n in names}
+    if all(os.path.exists(out) for out in targets.values()):
+        return targets
+    with _file_lock():
+        return _compile(targets)
+
+
+def _compile(targets: Dict[str, str]) -> Dict[str, str]:
     procs = {}
     for name, out in targets.items():
         if os.path.exists(out):
@@ -140,7 +164,12 @@ def build_host() -> str:
     with _build_lock:
         if os.path.exists(out):
             return out
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        with _file_lock():
+            return _compile_host(sources, out)
+
+
+def _compile_host(sources, out: str) -> str:
+    if not os.path.exists(out):
         gxx = shutil.which("g++")
         if gxx is None:
             raise RuntimeError("g++ not found on PATH; the host decoder "

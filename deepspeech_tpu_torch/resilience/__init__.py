@@ -1,8 +1,7 @@
-"""Fault tolerance for the serving plane: chaos injection, retry and
-breaker, brownout, postmortems.
+"""Fault tolerance: chaos injection, retry and breaker, brownout,
+postmortems, the training guardian and the preemption guard.
 
-The port's own copy of the JAX package's ``resilience/`` serving half
-(stdlib only):
+The port's own copy of the JAX package's ``resilience/`` (stdlib only):
 
 - :mod:`.faults` — deterministic fault *injection*: a process-wide
   :class:`FaultPlan` (env/JSON-configurable, seeded, injectable clock)
@@ -19,8 +18,13 @@ The port's own copy of the JAX package's ``resilience/`` serving half
   automatic intervention (quarantined sample or request, breaker open,
   migration), shared by the data pipeline and the serving plane.
 
-The training guardian and the preemption guard of the JAX package
-come with item 16 of the port.
+- :mod:`.preempt` — :class:`PreemptionGuard`: SIGTERM latches a flag,
+  ``Trainer.fit`` writes an emergency checkpoint and returns; the
+  resumed run is bit-identical.
+- :mod:`.guardian` — :class:`TrainingGuardian` and
+  :class:`StallWatchdog`: per-step health classification, the
+  skip / backoff / rollback ladder over the ``CheckpointManager``
+  last-good ring, and a heartbeat watchdog for a wedged step.
 """
 
 from . import faults, postmortem
@@ -28,7 +32,10 @@ from .brownout import (LEVEL_BROWNOUT, LEVEL_DEGRADED, LEVEL_NORMAL,
                        LEVEL_REPLICA_DRAIN, BrownoutController)
 from .faults import (FaultPlan, FaultSpec, InjectedFault,
                      validate_plan_dict)
+from .guardian import (GuardianConfig, GuardianDecision, GuardianHalt,
+                       StallWatchdog, TrainingGuardian)
 from .postmortem import PostmortemWriter
+from .preempt import PreemptionGuard
 from .retry import CircuitBreaker, CircuitOpen, Retry
 
 __all__ = [
@@ -37,13 +44,19 @@ __all__ = [
     "CircuitOpen",
     "FaultPlan",
     "FaultSpec",
+    "GuardianConfig",
+    "GuardianDecision",
+    "GuardianHalt",
     "InjectedFault",
     "LEVEL_BROWNOUT",
     "LEVEL_DEGRADED",
     "LEVEL_NORMAL",
     "LEVEL_REPLICA_DRAIN",
     "PostmortemWriter",
+    "PreemptionGuard",
     "Retry",
+    "StallWatchdog",
+    "TrainingGuardian",
     "faults",
     "postmortem",
     "validate_plan_dict",

@@ -8,9 +8,25 @@ none of the recovery paths could be regression-tested without this.
 
 A :class:`FaultPlan` is a list of :class:`FaultSpec` entries, each
 bound to a named **injection point** (a call site that opted in via
-:func:`inject`). The port wires ``gateway.dispatch`` (``serving/
-replica.py`` and ``serving/scheduler.py``, around each micro-batch
-decode); ``KNOWN_POINTS`` lists every point the plan format names.
+:func:`inject`). The port wires every point of ``KNOWN_POINTS`` but
+``backend.init`` (the JAX package's benchmark probe):
+
+- ``gateway.dispatch`` — ``serving/replica.py`` and
+  ``serving/scheduler.py``, around each micro-batch decode;
+- ``pipeline.device_prefetch`` / ``pipeline.materialize`` —
+  ``data/pipeline.py``, per batch transfer and per materialized batch
+  (``corrupt_batch`` poisons a sample for the quarantine scrubber);
+- ``checkpoint.save`` / ``checkpoint.restore`` — ``checkpoint.py``;
+- ``train.step`` — ``train.py``, before each guarded step (``nan_grad``
+  poisons the batch so the loss and gradients go non-finite);
+- ``rollout.swap`` / ``rollout.canary`` — ``serving/rollout.py``;
+- ``journal.append`` / ``journal.recover`` —
+  ``serving/sessionstore.py`` (``partial_write`` tears the journal
+  frame in flight);
+- ``transport.send`` / ``transport.recv`` / ``transport.ack`` —
+  ``serving/transport.py`` (``partial_write`` on ``transport.send``
+  tears the wire frame; ``unavailable`` on ``transport.ack`` loses the
+  ACK after the import landed).
 
 Six fault kinds:
 

@@ -99,9 +99,30 @@ flag turns the ledger on.
 ``infer.restore_params`` (the port's ``params.npz`` step directories,
 or a JAX orbax directory where ``tensorstore`` is installed).
 
-What the JAX ``serve`` also offers comes with later slices of the port,
-and its flags exit naming the slice: the warm store (item 17); the
-session journal and cross-process handoff (slice 4c).
+Crash-durable sessions: ``--session-journal=DIR`` attaches a write-ahead
+:class:`~.serving.sessionstore.SessionJournal`: every live session
+checkpoints its :class:`~.serving.migration.StreamSnapshot` (wire-encoded,
+CRC-framed) every ``--journal-every`` chunks, at drain start and at
+handoff arrival, and is tombstoned at finalize. At boot, sessions a
+killed predecessor left mid-stream are replayed by a
+:class:`~.serving.sessionstore.RecoveryController` into a throwaway
+manager, drained to their finals and printed as one ``{"recovery":
+{...}}`` line before serving starts. Composes with ``--replicas`` (one
+journal shared by the pool's managers); not with ``--models``.
+
+Cross-process handoff: ``--handoff-listen=PORT`` (``0`` = ephemeral)
+adopts snapshots a peer ``serve`` sends (its port prints as one
+``{"handoff_listen": ...}`` line; the adopted sessions drain to final
+after this process's own streams and print as one ``{"handoff_adopted":
+{...}}`` line); ``--handoff-peer=HOST:PORT`` hands each stream to that
+peer at audio end (:class:`~.serving.transport.
+RemoteMigrationController`), one ``{"handoff": {"sid", "outcome"}}``
+line a transfer, down the ladder to a local journal re-pin, a drain
+re-pin or staying home when the peer refuses or cannot be reached.
+Either forces the pooled path.
+
+The JAX ``serve``'s ``--warm-store`` comes with item 17 of the port and
+exits naming it.
 """
 
 from __future__ import annotations
@@ -121,13 +142,14 @@ from .data.features import frame_params
 
 # Flags of the JAX serve CLI that later slices of the port bring: the
 # value each takes when it is off, and the slice.
-_SLICE4C = "slice 4c (the session store and handoff)"
 _ITEM17 = "item 17 (the warm store)"
 _LATER_FLAGS = {
     "warm_store": ("", _ITEM17),
-    "session_journal": ("", _SLICE4C), "journal_every": (1, _SLICE4C),
-    "handoff_listen": (-1, _SLICE4C), "handoff_peer": ("", _SLICE4C),
 }
+
+# Epoch counter for handoff sid prefixes: distinguishes pooled loops that
+# share one process; the pid distinguishes processes.
+_HANDOFF_EPOCH = iter(range(1 << 30))
 
 
 def _frame_rms(audio: np.ndarray, feat_cfg, n_frames: int) -> np.ndarray:
@@ -188,7 +210,8 @@ def serve_files(cfg, tokenizer, params, batch_stats, wav_paths: List[str],
                 chunk_frames: int = 64, decode: str = "greedy",
                 out=None, lm_table=None, endpoint_silence_ms: int = 0,
                 endpoint_db: float = 40.0, quantize: str = "",
-                rescorer=None, device=None) -> List[str]:
+                rescorer=None, journal=None, journal_every: int = 1,
+                device=None) -> List[str]:
     """Stream the given wavs as if live; returns final transcripts.
 
     Emits JSONL progress: {"chunk": i, "t_ms": audio ms consumed,
@@ -209,6 +232,9 @@ def serve_files(cfg, tokenizer, params, batch_stats, wav_paths: List[str],
     print as ``{"revision": ...}`` lines (:mod:`~.serving.rescoring`).
     Endpointed streams offer the joined transcript as a 1-best:
     segments already consumed their decoder state.
+
+    ``journal`` (``--session-journal``): the manager checkpoints every
+    session into it every ``journal_every`` chunks (module docstring).
     """
     from .data import featurize_np, load_audio
     from .serving.session import StreamingSessionManager
@@ -226,7 +252,9 @@ def serve_files(cfg, tokenizer, params, batch_stats, wav_paths: List[str],
     mgr = StreamingSessionManager(cfg, params, batch_stats, tokenizer,
                                   chunk_frames=chunk_frames, decode=decode,
                                   lm_table=lm_table, quantize=quantize,
-                                  capacity=b_real, device=device)
+                                  capacity=b_real, journal=journal,
+                                  journal_every=journal_every,
+                                  device=device)
     # File lengths are known up front (unlike a live feed): joining with
     # raw_len masks each stream's padding from the first chunk, as the
     # offline and transcribe paths do.
@@ -379,7 +407,11 @@ def serve_files_pooled(cfg, tokenizer, params, batch_stats,
                        autoscale_max: int = 0,
                        autoscale_cooldown: float = 1.0,
                        migrate_sessions: bool = False,
-                       rescorer=None, device=None) -> List[str]:
+                       rescorer=None, journal=None,
+                       journal_every: int = 1,
+                       handoff_listen: int = -1,
+                       handoff_peer: str = "",
+                       device=None) -> List[str]:
     """``--replicas=N``: the streaming loop over a ReplicaPool.
 
     Each wav is a session routed by :class:`~.serving.pool.
@@ -423,6 +455,23 @@ def serve_files_pooled(cfg, tokenizer, params, batch_stats,
 
     ``rescorer``: each stream's final n-best is offered to the async LM
     second pass after the finals (:func:`serve_files`).
+
+    ``journal``: one journal shared by every replica's manager (the
+    managers' local names are unique across the pool).
+
+    ``handoff_listen`` / ``handoff_peer``: the cross-process leg
+    (:mod:`~.serving.transport`). The listening side binds a
+    :class:`~.serving.transport.HandoffListener` (its port printed as
+    ``{"handoff_listen": ...}``) and adopts inbound snapshots into this
+    pool's router; what arrived by the time its own streams finish is
+    drained to final and printed as one ``{"handoff_adopted": ...}``
+    line. The sending side hands each stream to the peer at audio end
+    through a :class:`~.serving.transport.RemoteMigrationController`,
+    one ``{"handoff": {"sid", "outcome"}}`` line a transfer; a refused or
+    unreachable peer walks the ladder (journal re-pin, drain re-pin,
+    stay), so the transcript always lands somewhere. Remote-handed sids
+    report ``null`` in this process's ``final`` list (the peer prints
+    their text).
     """
     from .data import featurize_np, load_audio
     from .serving import (AutoscaleController, MigrationController,
@@ -441,7 +490,8 @@ def serve_files_pooled(cfg, tokenizer, params, batch_stats,
             return StreamingSessionManager(
                 cfg, p, bs, tokenizer, chunk_frames=chunk_frames,
                 decode=decode, lm_table=lm_table, quantize=quantize,
-                capacity=1, device=device)
+                capacity=1, journal=journal, journal_every=journal_every,
+                device=device)
         return factory
 
     factory = factory_for(params, batch_stats)
@@ -451,9 +501,57 @@ def serve_files_pooled(cfg, tokenizer, params, batch_stats,
     migrator = MigrationController(telemetry=pool.telemetry) \
         if migrate_sessions else None
     router = PooledSessionRouter(pool, migrator=migrator)
-    sids = [str(s) for s in range(len(feats))]
+    if handoff_listen >= 0 or handoff_peer:
+        # Handoff sids must be unique across peers: both ends number
+        # their streams 0..N-1, and an inbound "0" would collide with the
+        # receiver's own live "0". The pid and a process-local epoch
+        # keep the name unique across processes and across pooled loops
+        # in one process.
+        hp = f"h{os.getpid():x}{next(_HANDOFF_EPOCH)}-"
+        sids = [f"{hp}{s}" for s in range(len(feats))]
+    else:
+        sids = [str(s) for s in range(len(feats))]
     homes = {sid: router.join(sid) for sid in sids}
     print(json.dumps({"replica_map": homes}), file=out, flush=True)
+
+    handoff_rx = handoff_lsn = handoff_lock = None
+    if handoff_listen >= 0:
+        import threading
+
+        from .serving import HandoffListener, HandoffReceiver
+
+        handoff_lock = threading.Lock()
+
+        class _AdoptTarget:
+            """The router as the listener thread sees it: an adoption
+            is serialized against the chunk loop (``step`` demands
+            chunks for every active session) and enters the drain at
+            once, since the sender hands off at audio end."""
+
+            def adopt(self, sid, snap, model=None):
+                with handoff_lock:
+                    router.adopt(sid, snap, model=model)
+                    router.leave(sid)
+
+            def _pools(self):
+                return router._pools()
+
+        handoff_rx = HandoffReceiver(_AdoptTarget(), name="serve",
+                                     telemetry=pool.telemetry)
+        handoff_lsn = HandoffListener(handoff_rx, port=handoff_listen)
+        print(json.dumps({"handoff_listen": {
+            "host": handoff_lsn.host, "port": handoff_lsn.port}}),
+            file=out, flush=True)
+    handoff_ctrl = handoff_tx = None
+    handoff_out: "dict[str, str]" = {}
+    if handoff_peer:
+        from .serving import RemoteMigrationController, SocketTransport
+
+        peer_host, _, peer_port = handoff_peer.rpartition(":")
+        handoff_ctrl = RemoteMigrationController(
+            telemetry=pool.telemetry, journal=journal)
+        handoff_tx = SocketTransport(peer_host or "127.0.0.1",
+                                     int(peer_port))
 
     ms_per_frame = cfg.features.stride_ms
     n_chunks_per = [-(-f.shape[0] // chunk_frames) for f in feats]
@@ -505,9 +603,30 @@ def serve_files_pooled(cfg, tokenizer, params, batch_stats,
         chunks = {sids[s]: _chunk(f, i, chunk_frames)
                   for s, f in enumerate(feats) if i < n_chunks_per[s]}
         with obs.span("serve.chunk", chunk=i):
-            last.update(router.step(chunks))
+            if handoff_lock is not None:
+                # An adoption landing inside step() would change the
+                # active set mid-call; the listener takes the same lock.
+                with handoff_lock:
+                    last.update(router.step(chunks))
+            else:
+                last.update(router.step(chunks))
             for s in range(len(feats)):
-                if n_chunks_per[s] == i + 1:  # audio just ended
+                if n_chunks_per[s] != i + 1:
+                    continue
+                # Audio just ended: hand the session to the peer when one
+                # is configured, else start the local drain. Every rung
+                # but "remote" leaves the session attached here, so it
+                # still drains locally.
+                if handoff_ctrl is not None:
+                    outcome = handoff_ctrl.migrate_remote(
+                        router, sids[s], handoff_tx)
+                    handoff_out[sids[s]] = outcome
+                    print(json.dumps({"handoff": {
+                        "sid": sids[s], "outcome": outcome}}),
+                        file=out, flush=True)
+                    if outcome != "remote":
+                        router.leave(sids[s])
+                else:
                     router.leave(sids[s])
         if rollout is not None and i >= swap_at_chunk:
             if rollout.state == "idle":
@@ -523,8 +642,19 @@ def serve_files_pooled(cfg, tokenizer, params, batch_stats,
             "ms": round((time.perf_counter() - t0) * 1000.0, 3),
             "partials": [last[sid] for sid in sids],
         }), file=out, flush=True)
+    if handoff_lsn is not None:
+        # Stop accepting before finalizing: a transfer landing mid-flush
+        # would race the drains below.
+        handoff_lsn.close()
+    adopted_sids = (list(dict.fromkeys(handoff_rx.imported_sids))
+                    if handoff_rx is not None else [])
     router.flush()
-    finals = [router.final(sid) for sid in sids]
+    finals = [(None if handoff_out.get(sid) == "remote"
+               else router.final(sid)) for sid in sids]
+    if adopted_sids:
+        print(json.dumps({"handoff_adopted": {
+            sid: router.final(sid) for sid in adopted_sids}},
+            ensure_ascii=False), file=out, flush=True)
     if rollout is not None and rollout.state in ("idle", "running",
                                                  "paused"):
         # Streams ended before the rollout finished — with no live
@@ -541,6 +671,8 @@ def serve_files_pooled(cfg, tokenizer, params, batch_stats,
     print(json.dumps({"final": finals}), file=out, flush=True)
     if rescorer is not None:
         for sid, text in zip(sids, finals):
+            if text is None:  # handed off: the peer owns the n-best
+                continue
             rescorer.offer(sid, router.final_nbest(sid), text)
         _emit_revisions(rescorer, out)
     return finals
@@ -797,6 +929,39 @@ def _refuse_later_flags(args) -> None:
                              f"{where} of the port")
 
 
+def _recover_journal(args, cfg, tokenizer, params, batch_stats, table):
+    """Open ``--session-journal``. Sessions a killed predecessor left
+    mid-stream are recovered (the newest valid record a sid) into a
+    throwaway manager, drained and printed as one ``{"recovery": ...}``
+    line before this run's streams start: their audio feed died with
+    the old process, so a drain to final is the best completion."""
+    from .serving import RecoveryController, SessionJournal
+    from .serving.session import StreamingSessionManager
+
+    journal = SessionJournal(args.session_journal, telemetry=obs.registry())
+    scan = journal.scan()
+    if scan.live:
+        rec_mgr = StreamingSessionManager(
+            cfg, params, batch_stats, tokenizer,
+            chunk_frames=args.chunk_frames, decode=args.decode,
+            lm_table=table, quantize=args.quantize_weights,
+            capacity=max(len(scan.live), 1), journal=journal,
+            journal_every=args.journal_every, device=args.device)
+        report = RecoveryController(
+            journal, telemetry=obs.registry()).recover(rec_mgr)
+        for sid in list(report["sids"]):
+            if sid in rec_mgr._sessions \
+                    and not rec_mgr._sessions[sid].draining:
+                rec_mgr.leave(sid)
+        rec_mgr.flush()
+        report["finals"] = {sid: rec_mgr.final(sid)
+                            for sid in report["sids"]
+                            if sid in rec_mgr._finals}
+        print(json.dumps({"recovery": report}, ensure_ascii=False),
+              flush=True)
+    return journal
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     from .bridge import load_npz
     from .config import apply_overrides, get_config, parse_cli_overrides
@@ -889,6 +1054,31 @@ def main(argv: Optional[List[str]] = None) -> None:
                              "(breaker edges, autoscale episodes, "
                              "rollout transitions, migrations, SLO "
                              "alerts) to this JSONL file")
+    parser.add_argument("--session-journal", default="",
+                        help="write-ahead journal directory "
+                             "(serving/sessionstore.py): every live "
+                             "session checkpoints there (every "
+                             "--journal-every chunks, at drain start, at "
+                             "handoff arrival; tombstoned at finalize); "
+                             "at boot, sessions a killed predecessor left "
+                             "mid-stream are recovered, drained and "
+                             "printed as one {'recovery': ...} line")
+    parser.add_argument("--journal-every", type=int, default=1,
+                        help="checkpoint cadence for --session-journal, "
+                             "in chunks a session (default 1)")
+    parser.add_argument("--handoff-listen", type=int, default=-1,
+                        help="accept session handoffs from a peer serve "
+                             "on this TCP port (0 = ephemeral; printed as "
+                             "{'handoff_listen': ...}); adopted sessions "
+                             "print as {'handoff_adopted': ...}. Forces "
+                             "the pooled path (-1 = off)")
+    parser.add_argument("--handoff-peer", default="",
+                        help="host:port of a peer serve started with "
+                             "--handoff-listen: each stream is handed off "
+                             "at audio end (one {'handoff': ...} line a "
+                             "transfer), falling back to a journal "
+                             "re-pin, a drain re-pin or staying home. "
+                             "Forces the pooled path")
     # The JAX serve's flags of later slices: parsed so that each exits
     # naming its slice.
     for name, (off, _) in _LATER_FLAGS.items():
@@ -923,6 +1113,28 @@ def main(argv: Optional[List[str]] = None) -> None:
         raise ValueError("--autoscale needs --replicas >= 2: fleet "
                          "sizing rides the pooled path (a scale-down "
                          "drains one replica behind the others)")
+    if args.session_journal and args.models:
+        raise ValueError("--session-journal does not compose with "
+                         "--models: boot recovery restores into one "
+                         "model's managers (a journaled snapshot does "
+                         "not record which model group fed it)")
+    handoff_on = args.handoff_listen >= 0 or bool(args.handoff_peer)
+    if handoff_on and args.models:
+        raise ValueError("--handoff-listen/--handoff-peer do not "
+                         "compose with --models: the handshake "
+                         "fingerprints ONE model config (a multi-"
+                         "model gateway cannot say which group an "
+                         "inbound snapshot belongs to)")
+    if handoff_on and args.endpoint_silence_ms > 0:
+        raise ValueError("--handoff-listen/--handoff-peer do not "
+                         "compose with --endpoint-silence-ms: handoff "
+                         "rides the pooled path (endpointing is "
+                         "single-replica-only)")
+    if args.handoff_peer:
+        _h, _, _p = args.handoff_peer.rpartition(":")
+        if not _p.isdigit():
+            raise ValueError("--handoff-peer must be host:port (got "
+                             f"{args.handoff_peer!r})")
     model_ckpts = parse_models_flag(args.models) if args.models else {}
     if not args.checkpoint_dir and not args.params and not model_ckpts:
         raise SystemExit("need --checkpoint-dir or --params (or "
@@ -988,6 +1200,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
             log.add_listener(_tl_write)
     status = None
+    journal = None
     try:
         if args.status_port >= 0:
             # The live ops surface over the process-wide registry and
@@ -1010,6 +1223,9 @@ def main(argv: Optional[List[str]] = None) -> None:
             status.start()
             print(json.dumps({"status_server": status.url("/")}),
                   file=sys.stderr, flush=True)
+        if args.session_journal:
+            journal = _recover_journal(args, cfg, tokenizer, params,
+                                       batch_stats, table)
         if model_ckpts:
             model_params = {mid: restore_params(ckpt)
                             for mid, ckpt in model_ckpts.items()}
@@ -1057,7 +1273,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                 autoscale_max=args.autoscale_max,
                 autoscale_cooldown=args.autoscale_cooldown,
                 rescorer=rescorer, device=args.device)
-        elif args.replicas > 1:
+        elif args.replicas > 1 or handoff_on:
             swap_params = swap_bs = None
             swap_version = "v2"
             if args.swap_checkpoint:
@@ -1080,7 +1296,11 @@ def main(argv: Optional[List[str]] = None) -> None:
                                autoscale_max=args.autoscale_max,
                                autoscale_cooldown=args.autoscale_cooldown,
                                migrate_sessions=args.migrate_sessions,
-                               rescorer=rescorer, device=args.device)
+                               rescorer=rescorer, journal=journal,
+                               journal_every=args.journal_every,
+                               handoff_listen=args.handoff_listen,
+                               handoff_peer=args.handoff_peer,
+                               device=args.device)
         else:
             serve_files(cfg, tokenizer, params, batch_stats, args.wavs,
                         chunk_frames=args.chunk_frames, decode=args.decode,
@@ -1088,8 +1308,11 @@ def main(argv: Optional[List[str]] = None) -> None:
                         endpoint_silence_ms=args.endpoint_silence_ms,
                         endpoint_db=args.endpoint_silence_db,
                         quantize=args.quantize_weights, rescorer=rescorer,
+                        journal=journal, journal_every=args.journal_every,
                         device=args.device)
     finally:
+        if journal is not None:
+            journal.close()
         if correlator is not None:
             # End-of-run close: open incidents finalize (unresolved if
             # nothing resolved them) so every story gets a postmortem.

@@ -1,4 +1,4 @@
-"""The port's serving plane (slices 4a, 4b and 6b).
+"""The port's serving plane (slices 4a, 4b, 4c and 6b).
 
 - ``ladder.py`` — the tier-aware rung ladder;
 - ``session.py`` — :class:`StreamingSessionManager`, live streams that
@@ -29,18 +29,28 @@
 - ``rescoring.py`` — the async LM second pass: :class:`RescoringPool`
   over a bounded :class:`RescoringQueue`, emitting
   :class:`RevisionEvent` s;
+- ``sessionstore.py`` — crash durability for those snapshots: the
+  versioned, CRC-checksummed wire codec (:func:`snapshot_to_bytes`,
+  :func:`snapshot_from_bytes`), the segment-rotated
+  :class:`SessionJournal` the session manager checkpoints into, and the
+  :class:`RecoveryController` that replays it at boot;
+- ``transport.py`` — cross-process handoff over those bytes: a
+  handshake-gated, two-phase idempotent transfer with
+  :class:`LoopbackTransport` and :class:`SocketTransport` /
+  :class:`HandoffListener` under retry and a per-peer breaker, and the
+  :class:`RemoteMigrationController`, whose ladder (remote, journal
+  re-pin, drain re-pin, stay) never loses a session;
 - ``telemetry.py`` — :class:`ServingTelemetry`, the serving layers'
   shared registry.
 
-The session store, the journal and cross-process handoff come with
-slice 4c of the port, the executable warm store with item 17.
+The executable warm store comes with item 17 of the port.
 """
 
 from .autoscale import AutoscaleController
 from .ladder import (max_batch_for_budget, recurrent_stream_bytes,
                      tier_max_batches)
-from .migration import (CODEC_VERSION, MigrationController,
-                        SnapshotIncompatible, StreamSnapshot)
+from .migration import (MigrationController, SnapshotIncompatible,
+                        StreamSnapshot)
 from .pool import PooledSessionRouter, ReplicaPool
 from .registry import GroupState, ModelGroup, ModelRegistry
 from .replica import Replica, synthetic_replicas
@@ -49,21 +59,33 @@ from .rollout import RolloutController
 from .scheduler import (GatewayResult, MicroBatch, MicroBatchScheduler,
                         OverloadRejected, warm_rung_chooser)
 from .session import StreamingSessionManager
+from .sessionstore import (CODEC_VERSION, RecoveryController,
+                           SessionJournal, SnapshotDecodeError,
+                           snapshot_from_bytes, snapshot_to_bytes)
 from .telemetry import Histogram, ServingTelemetry
 from .tenancy import (AdmissionController, TenantConfig,
                       TenantQuotaExceeded)
+from .transport import (HandoffListener, HandoffReceiver,
+                        HandshakeRejected, LoopbackTransport,
+                        RemoteMigrationController, SocketTransport,
+                        TransportError)
 from .trafficmodel import Arrival, Schedule, SessionPlan, TrafficModel
 
 __all__ = [
     "AdmissionController", "Arrival", "AutoscaleController",
-    "CODEC_VERSION", "GatewayResult", "GroupState", "Histogram",
-    "MicroBatch", "MicroBatchScheduler", "MigrationController",
-    "ModelGroup", "ModelRegistry", "OverloadRejected",
-    "PooledSessionRouter", "Replica", "ReplicaPool", "RescoringPool",
-    "RescoringQueue", "RevisionEvent", "RolloutController", "Schedule",
-    "ServingTelemetry", "SessionPlan", "SnapshotIncompatible",
-    "StreamSnapshot", "StreamingSessionManager", "TenantConfig",
-    "TenantQuotaExceeded", "TrafficModel", "max_batch_for_budget",
-    "recurrent_stream_bytes", "synthetic_replicas", "tier_max_batches",
+    "CODEC_VERSION", "GatewayResult", "GroupState", "HandoffListener",
+    "HandoffReceiver", "HandshakeRejected", "Histogram",
+    "LoopbackTransport", "MicroBatch", "MicroBatchScheduler",
+    "MigrationController", "ModelGroup", "ModelRegistry",
+    "OverloadRejected", "PooledSessionRouter", "RecoveryController",
+    "RemoteMigrationController", "Replica", "ReplicaPool",
+    "RescoringPool", "RescoringQueue", "RevisionEvent",
+    "RolloutController", "Schedule", "ServingTelemetry",
+    "SessionJournal", "SessionPlan", "SnapshotDecodeError",
+    "SnapshotIncompatible", "SocketTransport", "StreamSnapshot",
+    "StreamingSessionManager", "TenantConfig", "TenantQuotaExceeded",
+    "TrafficModel", "TransportError", "max_batch_for_budget",
+    "recurrent_stream_bytes", "snapshot_from_bytes",
+    "snapshot_to_bytes", "synthetic_replicas", "tier_max_batches",
     "warm_rung_chooser",
 ]

@@ -18,8 +18,8 @@ O(state-size) transfer with no segment split and no drain wait:
   incompatible model. The session manager (``serving/session.py``)
   makes one with ``snapshot_session`` / ``export_session`` and installs
   one with ``import_session``. Every array in it is a host numpy
-  array, so the JAX package's wire codec (which encodes arrays through
-  ``__array__``) can carry it; a CUDA tensor could not be.
+  array, so the wire codec (``serving/sessionstore.py``) can carry it;
+  a CUDA tensor could not be.
 - :class:`MigrationController` performs the handoff: export from the
   source replica's manager (which frees the slot — the source is quiet
   instantly), import into a free slot on the target with ``raw_start``
@@ -46,14 +46,11 @@ from typing import Any, Dict, List, Optional
 from .. import obs
 from ..obs import timeline as _timeline
 from ..resilience import postmortem as _postmortem
+from .sessionstore import CODEC_VERSION
 
 __all__ = ["CODEC_VERSION", "MigrationController", "SnapshotIncompatible",
            "StreamSnapshot"]
 
-# The snapshot wire-codec version a replica advertises: the JAX
-# package's ``serving/sessionstore.py`` value, kept here until the port
-# has the codec itself (slice 4c).
-CODEC_VERSION = 1
 
 
 class SnapshotIncompatible(RuntimeError):

@@ -517,8 +517,109 @@ class PooledSessionRouter:
         self._ctx[sid] = ctx
         return rep.rid
 
+    def adopt(self, sid: str, snap, model: Optional[str] = None) -> str:
+        """Attach a session by restoring a snapshot instead of joining
+        fresh: route like :meth:`join` (onto the session's prior pin
+        when it has one), then ``import_session`` the snapshot into the
+        routed replica's manager (clock re-based, so the continuation
+        is bit-identical). The arrival side of crash recovery and of
+        cross-process handoff: a
+        :class:`~.sessionstore.RecoveryController` or a
+        :class:`~.transport.HandoffReceiver` hands decoded snapshots
+        here. :class:`~.migration.SnapshotIncompatible` propagates
+        before any registration, leaving the router clean."""
+        if sid in self._home:
+            raise ValueError(f"session {sid!r} already attached")
+        pool = self._pool_for(model)
+        if self.registry is not None:
+            model = self.registry.resolve(model)
+        now = pool.clock()
+        rep = pool.route(session_id=sid, now=now, model=model)
+        if rep is None:
+            raise RuntimeError("no routable replica for session adopt")
+        seg = self._seg_count.get(sid, 0)
+        local = f"{sid}@{seg}"
+        self._manager(rep).import_session(snap, sid=local)
+        self._seg_count[sid] = seg + 1
+        self._home[sid] = rep.rid
+        self._local[sid] = local
+        self._sid_pool[sid] = pool
+        self._model_of[sid] = model
+        ctx = TraceContext(f"sess:{sid}", now, kind="session",
+                           replica=rep.rid, model=model, tenant=None)
+        ctx.to(PHASE_DECODE, now)
+        self._ctx[sid] = ctx
+        return rep.rid
+
     def home_of(self, sid: str) -> str:
         return self._home[sid]
+
+    def local_of(self, sid: str) -> str:
+        """The session's name at its hosting manager (the router's
+        segment-scoped id, ``"<sid>@<seg>"``)."""
+        return self._local[sid]
+
+    def pool_of(self, sid: str) -> ReplicaPool:
+        """The pool hosting the session (its model group's pool in
+        registry mode)."""
+        return self._sid_pool[sid]
+
+    def rehome(self, sid: str, rid: str) -> None:
+        """Flip the hosting-replica record after an out-of-band handoff:
+        the migration controller already moved the manager state
+        (export on the old home, import under the SAME local name on
+        ``rid``), so only the router's map and the trace follow."""
+        if sid not in self._home:
+            raise KeyError(f"session {sid!r} not attached")
+        src = self._home[sid]
+        self._home[sid] = rid
+        ctx = self._ctx.get(sid)
+        if ctx is not None:
+            ctx.event("handoff", self._clock(), src=src, dst=rid)
+            ctx.note(replica=rid)
+
+    def drain_repin(self, sid: str, dst: Replica) -> None:
+        """Drain re-pin to ``dst``: detach (the old manager drains the
+        fed chunks into a segment through the conv/lookahead lag) and
+        attach a fresh segment; the migration ladder's bottom rung."""
+        pool = self._sid_pool[sid]
+        pool.pin_to(sid, dst.rid)
+        self._detach(sid)
+        self._attach(sid, pool, dst)
+        ctx = self._ctx.get(sid)
+        if ctx is not None:
+            ctx.event("repin", self._clock(), dst=dst.rid)
+            ctx.note(replica=dst.rid)
+
+    def release(self, sid: str) -> List[str]:
+        """Drop a session whose ownership left this process: the remote
+        handoff's commit point, called only after the peer's import
+        ACK. The local slot state is discarded, the journal record is
+        tombstoned (``export_session(forget=True)``) so a later
+        recovery cannot resurrect a session the peer now owns, and the
+        tenant unit is released. Returns any earlier finalized segment
+        texts (non-empty only after a drain re-pin) for the caller to
+        forward."""
+        rid = self._home.pop(sid)
+        local = self._local.pop(sid)
+        pool = self._sid_pool.pop(sid)
+        self._model_of.pop(sid, None)
+        tenant = self._tenant_of.pop(sid, None)
+        if tenant is not None and self.tenancy is not None:
+            self.tenancy.release(tenant)
+        self._manager(pool.replica(rid)).export_session(local, forget=True)
+        pool._pins.pop(sid, None)
+        self._seg_count.pop(sid, None)
+        segs = [t for t in self._segments.pop(sid, []) if t]
+        self._seg_nbest.pop(sid, None)
+        ctx = self._ctx.pop(sid, None)
+        if ctx is not None:
+            ctx.note(segments=len(segs))
+            ctx.finish(self._clock(), "released")
+            rec = ctx.summary()
+            self.flight_recorder.record(rec)
+            obs.tracer.emit(rec)
+        return segs
 
     def leave(self, sid: str, tail=None) -> None:
         self._detach(sid, tail=tail)

@@ -25,10 +25,18 @@ Decode modes: ``greedy`` (the incremental CTC collapse on the host) or
 state stays on the device, optionally LM-fused by ``lm_table``); the
 beam rows of a slot are re-initialised on join and on a segment reset,
 its partial is the plausible beams' common prefix, and a snapshot
-carries them as host numpy. The write-ahead session journal comes with
-slice 4c of the port and raises here.
+carries them as host numpy.
 Telemetry (slot reuse vs grow, occupancy, active sessions) lands in a
 :class:`~.telemetry.ServingTelemetry`.
+
+Crash durability: give the manager a
+:class:`~.sessionstore.SessionJournal` and it checkpoints every attached
+session every ``journal_every`` chunks, at ``leave()`` (drain start) and
+at ``import_session`` (a handoff arrival is durable at its new home at
+once), then tombstones it at finalize.
+:class:`~.sessionstore.RecoveryController` replays the journal after a
+crash through ``import_session``, the re-basing path live migration
+uses, so the recovered continuation is bit-identical.
 """
 
 from __future__ import annotations
@@ -89,13 +97,9 @@ class StreamingSessionManager:
                  chunk_frames: int = 64, decode: str = "greedy",
                  lm_table=None, quantize: str = "", capacity: int = 1,
                  telemetry: Optional[ServingTelemetry] = None,
-                 journal=None, device=None):
+                 journal=None, journal_every: int = 1, device=None):
         if decode not in ("greedy", "beam"):
             raise ValueError(f"decode={decode!r}")
-        if journal is not None:
-            raise NotImplementedError(
-                "the write-ahead session journal comes with slice 4c (the "
-                "session store) of the port")
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.decode = decode
@@ -137,6 +141,11 @@ class StreamingSessionManager:
         self.telemetry = telemetry if telemetry is not None \
             else ServingTelemetry()
         self.telemetry.gauge("capacity", self.capacity)
+        # Write-ahead durability (see .sessionstore): _last_ckpt holds
+        # each session's fed frames at its last checkpoint.
+        self.journal = journal
+        self.journal_every = max(int(journal_every), 1)
+        self._last_ckpt: Dict[str, int] = {}
 
     # -- capacity -------------------------------------------------------
     def _grow(self, need: int) -> None:
@@ -248,6 +257,12 @@ class StreamingSessionManager:
         if sess.raw_len is None:
             sess.raw_len = sess.fed + n_tail
             self.state.raw_len[sess.slot] = sess.raw_start + sess.raw_len
+        # Drain-start checkpoint: the record carries the now known
+        # raw_len, so recovery resumes the drain. A pending tail is
+        # frames the snapshot does not carry: the last in-stream
+        # checkpoint stands instead.
+        if n_tail == 0:
+            self._checkpoint(sid)
         sess.draining = True
         sess.left_clock = self.clock
         self.telemetry.count("sessions_left")
@@ -259,6 +274,10 @@ class StreamingSessionManager:
         del self._sessions[sess.sid]
         del self._by_slot[sess.slot]
         self._tails.pop(sess.slot, None)
+        self._last_ckpt.pop(sess.sid, None)
+        if self.journal is not None:
+            # Tombstone: recovery never replays a finished session.
+            self.journal.forget(sess.sid)
         self.telemetry.count("sessions_finalized")
         # How many raw frames of lockstep flushing the transcript waited
         # on after leave(), and the session's fed frames, each with the
@@ -351,19 +370,36 @@ class StreamingSessionManager:
             fed=sess.fed, raw_len=sess.raw_len, acoustic=acoustic,
             prev_ids=int(self._prev_ids[slot]), text=self._texts[slot])
 
-    def export_session(self, sid: str) -> StreamSnapshot:
+    def _checkpoint(self, sid: str) -> None:
+        """Journal the session's current snapshot (journal mode only)."""
+        if self.journal is None:
+            return
+        self.journal.append(sid, self.snapshot_session(sid))
+        self._last_ckpt[sid] = self._sessions[sid].fed
+
+    def export_session(self, sid: str, *,
+                       forget: bool = False) -> StreamSnapshot:
         """Snapshot a LIVE session's slot and free the slot at once, with
         no conv/lookahead drain. Draining sessions are refused: their
-        remaining work is a local flush, cheaper than any transfer."""
+        remaining work is a local flush, cheaper than any transfer.
+
+        ``forget=True`` also tombstones the session's journal record:
+        the export hands ownership out of this process (a remote
+        handoff past its ACK), so a later recovery here must not
+        resurrect it. The default keeps the record: an in-process
+        handoff stays covered until its new home checkpoints."""
         sess = self._sessions[sid]
         if sess.draining:
             raise ValueError(f"session {sid!r} is draining; only live "
                              "sessions migrate")
         snap = self.snapshot_session(sid)
+        self._last_ckpt.pop(sid, None)
         del self._sessions[sid]
         del self._by_slot[sess.slot]
         # raw_len 0 masks the stale rows exactly like a free slot.
         self.state.raw_len[sess.slot] = 0
+        if forget and self.journal is not None:
+            self.journal.forget(sid)
         self.telemetry.count("sessions_exported")
         self.telemetry.gauge("active_sessions", len(self._sessions))
         return snap
@@ -415,6 +451,9 @@ class StreamingSessionManager:
         self._by_slot[slot] = sess
         self.telemetry.count("sessions_imported")
         self.telemetry.gauge("active_sessions", len(self._sessions))
+        # Arrival checkpoint: a handed-off session is durable at its new
+        # home the moment the import lands.
+        self._checkpoint(sid)
         return slot
 
     # -- lockstep advance ------------------------------------------------
@@ -458,6 +497,13 @@ class StreamingSessionManager:
             self._prev_ids, new = self.st.decode_incremental(
                 self._prev_ids, logits, valid)
             self._texts = [a + n for a, n in zip(self._texts, new)]
+        if self.journal is not None:
+            for sid in chunks:
+                sess = self._sessions.get(sid)
+                if sess is not None and not sess.draining and \
+                        sess.fed - self._last_ckpt.get(sid, 0) \
+                        >= self.journal_every * k:
+                    self._checkpoint(sid)
         # Drained sessions: every real frame's logits have emerged once
         # the clock passes the stream end by the conv+lookahead lag.
         for sess in list(self._by_slot.values()):

@@ -21,11 +21,28 @@ end with the next; ``maybe_restore`` restores the newest intact step
 loading them, so the resumed run ends bit-identical to an uninterrupted
 one.
 
+The guarded step (``train.guardian``, or ``DS2_GUARDIAN`` as
+``resilience/guardian.py`` reads it) judges each step on the device
+(a finite loss, gradient norm and update norm) and gates it there: a bad
+step leaves the parameters, the BN statistics and the optimizer state bit
+for bit as they were, with no host sync in the gate (the previous values
+are kept on the device and written back with ``torch.where``). The
+:class:`~.resilience.guardian.TrainingGuardian` then skips the batch,
+backs the rate off (its ``lr_scale`` multiplies the optimizer's rate) or
+rolls back to the checkpoint manager's last-good ring, a
+:class:`~.resilience.guardian.StallWatchdog` watches for a wedged step,
+and a :class:`~.resilience.preempt.PreemptionGuard` (SIGTERM in the CLI)
+makes ``fit`` write an emergency checkpoint and return. The
+``train.step`` fault point's ``nan_grad`` poisons a batch to drive it.
+``train.tensorboard_dir`` writes TensorBoard scalars (``ImportError``
+where the ``tensorboard`` package is missing) and ``train.profile_dir``
+a ``torch.profiler`` trace of ``train.profile_steps`` steps from
+``train.profile_start_step``.
+
 What the JAX trainer has and this slice does not raises
 ``NotImplementedError`` naming the slice of the port that brings it:
-multi-device meshes, ZeRO and gradient accumulation (slice 5), the
-guarded step, sequence parallelism, RNN-T, pipelining, tensorboard and
-profile traces (slice 9).
+multi-device meshes, ZeRO and gradient accumulation (slice 5), sequence
+parallelism, RNN-T and pipelining (slice 9).
 
 CLI: ``python -m deepspeech_tpu_torch.train --config=dev_slice
 [--synthetic=N] [--device=cpu] [--section.key=value ...]``: it trains
@@ -38,12 +55,14 @@ weights are a random init seeded by ``train.seed``.
 from __future__ import annotations
 
 import json
+import os
 import time
 from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
+from . import obs
 from .bridge import from_flax, init_params, to_flax
 from .config import Config
 from .data.pipeline import device_prefetch
@@ -54,14 +73,14 @@ from .infer import PrintLogger
 from .metrics import char_errors, word_errors
 from .models.ds2 import DeepSpeech2
 from .ops.ctc import ctc_loss_mean
+from .resilience import faults
+from .resilience.guardian import STEP_HIST, GuardianConfig
 
 
 def check_supported(cfg: Config) -> None:
     """Raise on what the JAX trainer has and this slice does not."""
     t = cfg.train
     later = [
-        (t.guardian, "train.guardian: the guarded train step comes with "
-                     "slice 9 of the port"),
         (t.accum_steps > 1, "train.accum_steps > 1: gradient accumulation "
                             "comes with slice 5 of the port"),
         (len(t.mesh_shape) != 2 or any(n > 1 for n in t.mesh_shape),
@@ -75,10 +94,6 @@ def check_supported(cfg: Config) -> None:
                                 "of the port"),
         (cfg.model.pipeline_stages > 1, "model.pipeline_stages > 1 comes "
                                         "with slice 9 of the port"),
-        (bool(t.tensorboard_dir), "train.tensorboard_dir: tensorboard "
-                                  "scalars come with slice 9 of the port"),
-        (bool(t.profile_dir), "train.profile_dir: profile traces come with "
-                              "slice 9 of the port"),
     ]
     for cond, msg in later:
         if cond:
@@ -161,12 +176,14 @@ class Trainer:
     its ``corrupt_sample`` events. ``device`` None means the card
     (raises without CUDA); "cpu" runs the plain versions. ``params`` /
     ``batch_stats`` (flax-layout trees) default to
-    ``bridge.init_params`` seeded by ``train.seed``.
+    ``bridge.init_params`` seeded by ``train.seed``. ``preempt`` (a
+    :class:`~.resilience.preempt.PreemptionGuard`) is polled once a step
+    by ``fit``.
     """
 
     def __init__(self, cfg: Config, pipeline, tokenizer: CharTokenizer,
                  eval_pipeline=None, logger=None, device=None,
-                 params=None, batch_stats=None):
+                 params=None, batch_stats=None, preempt=None):
         check_supported(cfg)
         self.cfg = cfg
         self.pipeline = pipeline
@@ -188,12 +205,33 @@ class Trainer:
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.step = 0
         self.start_epoch = 0
+        self.preempt = preempt
+        self.tb = None
+        if cfg.train.tensorboard_dir:
+            from .utils.logging import TensorBoardLogger
+
+            self.tb = TensorBoardLogger(cfg.train.tensorboard_dir)
+        # DS2_GUARDIAN enables and configures the guardian; with the
+        # environment silent, train.guardian enables its defaults.
+        self.guardian_cfg = GuardianConfig.from_env()
+        if self.guardian_cfg is None and cfg.train.guardian:
+            self.guardian_cfg = GuardianConfig()
         self.ckpt = None
         if cfg.train.checkpoint_dir:
             from .checkpoint import CheckpointManager
 
-            self.ckpt = CheckpointManager(cfg.train.checkpoint_dir,
-                                          keep=cfg.train.keep_checkpoints)
+            self.ckpt = CheckpointManager(
+                cfg.train.checkpoint_dir, keep=cfg.train.keep_checkpoints,
+                last_good_keep=(self.guardian_cfg.ring_size
+                                if self.guardian_cfg else 2))
+        self.guardian = None
+        if self.guardian_cfg is not None:
+            from .resilience.guardian import TrainingGuardian
+
+            self.guardian = TrainingGuardian(self.guardian_cfg,
+                                             ckpt=self.ckpt)
+        # The guarded step's host-side undo, settled by commit_step.
+        self._pending = None
 
     def maybe_restore(self) -> None:
         """Restore the newest intact step of ``train.checkpoint_dir``:
@@ -227,7 +265,13 @@ class Trainer:
         """One step on a batch (host arrays, or tensors on the device):
         forward in train mode, mean CTC, backward, global norm, clip,
         optimizer step at this step's rate. Returns
-        ``{"loss", "grad_norm"}`` as device scalars."""
+        ``{"loss", "grad_norm"}`` as device scalars.
+
+        With the guardian on this is the guarded step
+        (:meth:`guarded_step` at the guardian's ``lr_scale``), and the
+        caller settles it with :meth:`commit_step`."""
+        if self.guardian is not None:
+            return self.guarded_step(batch, self.guardian.lr_scale)
         dev = to_device(batch, self.device)
         self.model.train()
         logits, lens = self.model(dev["features"], dev["feat_lens"])
@@ -242,6 +286,98 @@ class Trainer:
         self.optimizer.step()
         self.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    def guarded_step(self, batch: Dict[str, np.ndarray], lr_scale: float
+                     ) -> Dict[str, torch.Tensor]:
+        """The step of :meth:`train_step` at ``lr_scale`` times the
+        scheduled rate, gated on the device.
+
+        Every tensor the step writes in place (parameters, BN buffers,
+        the optimizer's state tensors on the device) is kept as it was
+        on the device; after the step each is written back as
+        ``torch.where(ok, new, old)``, ``ok`` being a finite loss,
+        gradient norm and update norm: no host sync. The update norm is
+        the applied update's divided back by ``lr_scale``, as the JAX
+        step reports it. The optimizer state that torch keeps on the host
+        (AdamW's ``step`` counters on a CUDA run) and state the step
+        created (torch creates SGD's momentum buffer and AdamW's moments
+        at a parameter's first step; optax starts from zeros) follow
+        the host's verdict instead: :meth:`commit_step` restores the
+        first and drops the second for a step that did not stand, so a
+        skipped step leaves no trace, not even a buffer the unguarded
+        run would not have. ``self.step`` advances in ``commit_step``.
+        Returns ``{"loss", "grad_norm", "update_norm", "applied"}`` as
+        device scalars."""
+        dev = to_device(batch, self.device)
+        params = list(self.model.parameters())
+        buffers = list(self.model.buffers())
+        state = self.optimizer.state
+        with torch.no_grad():
+            old_params = [p.detach().clone() for p in params]
+            old_buffers = [b.clone() for b in buffers]
+            old_state = {p: {k: v.clone() for k, v in state[p].items()
+                             if torch.is_tensor(v)}
+                         for p in params if state.get(p)}
+        self.model.train()
+        logits, lens = self.model(dev["features"], dev["feat_lens"])
+        loss = ctc_loss_mean(logits, dev["labels"], lens, dev["label_lens"])
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = [p.grad for p in params if p.grad is not None]
+        grad_norm = clip_by_global_norm(grads, self.cfg.train.grad_clip_norm)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_schedule(self.step) * lr_scale
+        self.optimizer.step()
+        host: List = []
+        fresh = [p for p in params if state.get(p) and p not in old_state]
+        with torch.no_grad():
+            update_norm = torch.sqrt(torch.stack(
+                [(p - o).float().square().sum()
+                 for p, o in zip(params, old_params)]).sum()) / lr_scale
+            ok = (torch.isfinite(loss.detach()) & torch.isfinite(grad_norm)
+                  & torch.isfinite(update_norm))
+            for t, old in zip(params + buffers, old_params + old_buffers):
+                t.copy_(torch.where(ok, t, old))
+            for p in params:
+                before = old_state.get(p, {})
+                for k, v in state.get(p, {}).items():
+                    if not torch.is_tensor(v):
+                        continue
+                    if v.device != ok.device:
+                        if k in before:
+                            host.append((v, before[k]))
+                        continue
+                    v.copy_(torch.where(ok, v, before[k] if k in before
+                                        else torch.zeros_like(v)))
+        self._pending = (host, fresh)
+        return {"loss": loss.detach(), "grad_norm": grad_norm,
+                "update_norm": update_norm, "applied": ok}
+
+    def commit_step(self, applied: bool) -> None:
+        """Settle the last :meth:`guarded_step` on the host's verdict:
+        advance ``self.step`` when its update stood; otherwise restore
+        the host-side optimizer state it changed and drop the state it
+        created (see :meth:`guarded_step`)."""
+        pending, self._pending = self._pending, None
+        if applied:
+            self.step += 1
+            return
+        host, fresh = pending if pending is not None else ([], [])
+        for t, old in host:
+            t.copy_(old)
+        for p in fresh:
+            self.optimizer.state.pop(p, None)
+
+    def state_snapshot(self) -> Dict:
+        """The model's and the optimizer's ``state_dict`` (the guardian's
+        last-good ring copies it to the host)."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_snapshot(self, snap: Dict) -> None:
+        """Load a :meth:`state_snapshot` (a rollback's target)."""
+        self.model.load_state_dict(snap["model"])
+        self.optimizer.load_state_dict(snap["optimizer"])
 
     @torch.no_grad()
     def evaluate(self) -> Dict[str, float]:
@@ -272,7 +408,17 @@ class Trainer:
         ``train.epochs``). After ``maybe_restore`` the batches of the
         restored epoch already consumed are skipped by the pipeline
         (``epoch(e, start=...)``) before they are loaded, since the
-        sampler's order is a pure function of (seed, epoch)."""
+        sampler's order is a pure function of (seed, epoch).
+
+        With the guardian on, each step's metrics go to
+        ``TrainingGuardian.observe_step`` (the host sync the guarded path
+        accepts) and its decision is carried out: a skipped batch leaves
+        the state as it was, a rollback loads the last-good ring's
+        newest entry (the data stream goes on), and a watchdog watches
+        the ``train.step_s`` histogram. When ``preempt.requested()``,
+        the step is checkpointed with the current epoch and ``fit``
+        returns with ``preempted``; the resumed run ends bit-identical
+        to an uninterrupted one."""
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.train.epochs
         every = cfg.train.checkpoint_every_steps
@@ -281,37 +427,157 @@ class Trainer:
         steps_before = sum(self.pipeline.batches_per_epoch(e)
                            for e in range(self.start_epoch))
         skip = max(self.step - steps_before, 0)
-        for epoch in range(self.start_epoch, epochs):
-            t_epoch = time.perf_counter()
-            t_log, utts = time.perf_counter(), 0
-            batches = self.pipeline.epoch(epoch, start=skip)
-            skip = 0
-            for batch in device_prefetch(batches, self.device):
-                lr = self.lr_schedule(self.step)
-                metrics = self.train_step(batch)
-                utts += len(batch["feat_lens"])
-                if self.step % cfg.train.log_every == 0:
-                    last = {k: float(v) for k, v in metrics.items()}
-                    now = time.perf_counter()
-                    self.logger.log("train_step", step=self.step,
-                                    epoch=epoch, lr=lr,
-                                    utt_per_sec=utts / (now - t_log),
-                                    **last)
-                    t_log, utts = now, 0
-                if every and self.ckpt and self.step % every == 0:
-                    self.save(epoch)
-            if metrics and not last:
-                last = {k: float(v) for k, v in metrics.items()}
-            self.logger.log("epoch_end", epoch=epoch,
-                            seconds=time.perf_counter() - t_epoch)
-            if self.eval_pipeline is not None:
-                ev = self.evaluate()
-                self.logger.log("eval", epoch=epoch, **ev)
-                last.update(ev)
-            self.save(epoch + 1)
+        profiler = None
+        profile_end = cfg.train.profile_start_step + cfg.train.profile_steps
+        profile_done = preempted = False
+        # The batch's ordinal in the run's data stream: it advances
+        # through skips and rollbacks (recovery replays nothing).
+        consumed = self.step
+        watchdog = None
+        if self.guardian is not None:
+            gcfg = self.guardian.cfg
+            if gcfg.watchdog:
+                from .resilience.guardian import StallWatchdog
+
+                watchdog = StallWatchdog(
+                    k=gcfg.watchdog_k, min_timeout_s=gcfg.watchdog_min_s,
+                    poll_s=gcfg.watchdog_poll_s,
+                    preempt=self.preempt).start()
+            # Seed the ring: the very first anomaly has a target.
+            self.guardian.snapshot(self.step, self.state_snapshot())
+        try:
+            for epoch in range(self.start_epoch, epochs):
+                t_epoch = time.perf_counter()
+                t_log, utts = time.perf_counter(), 0
+                batches = self.pipeline.epoch(epoch, start=skip)
+                skip = 0
+                for batch in device_prefetch(batches, self.device):
+                    # ">=" so that a resume past profile_start_step still
+                    # traces the steps left of the window.
+                    if (cfg.train.profile_dir and profiler is None
+                            and not profile_done
+                            and profile_end > self.step
+                            >= cfg.train.profile_start_step):
+                        profiler = self._start_profile()
+                    spec = faults.inject("train.step")
+                    if spec is not None and spec.kind == "nan_grad":
+                        # Chaos: poison the batch so the step's loss and
+                        # gradients come out non-finite.
+                        batch = dict(batch, features=batch["features"]
+                                     * float("nan"))
+                    lr = self.lr_schedule(self.step)
+                    if self.guardian is not None:
+                        lr *= self.guardian.lr_scale
+                    t_step = time.perf_counter()
+                    with obs.span("train.step", step=self.step):
+                        metrics = self.train_step(batch)
+                    if self.guardian is not None:
+                        decision = self.guardian.observe_step(
+                            self.step, consumed, metrics)
+                        obs.registry().observe(
+                            STEP_HIST, time.perf_counter() - t_step)
+                        if watchdog is not None:
+                            watchdog.heartbeat()
+                        consumed += 1
+                        self.commit_step(decision.action in ("ok",
+                                                             "backoff"))
+                        if decision.action == "rollback":
+                            rb_step, snap = self.guardian.rollback(
+                                decision.trigger)
+                            self.load_snapshot(snap)
+                            self.step = rb_step
+                            self.logger.log("guardian_rollback",
+                                            step=self.step,
+                                            trigger=decision.trigger)
+                            continue
+                        if decision.action == "skip":
+                            continue
+                        self.guardian.maybe_snapshot(self.step,
+                                                     self.state_snapshot())
+                    utts += len(batch["feat_lens"])
+                    if profiler is not None and self.step >= profile_end:
+                        self._stop_profile(profiler)
+                        profiler, profile_done = None, True
+                    if self.step % cfg.train.log_every == 0:
+                        last = {k: float(v) for k, v in metrics.items()
+                                if k in ("loss", "grad_norm")}
+                        now = time.perf_counter()
+                        rate = utts / (now - t_log)
+                        self.logger.log("train_step", step=self.step,
+                                        epoch=epoch, lr=lr,
+                                        utt_per_sec=rate, **last)
+                        if self.tb is not None:
+                            self.tb.scalars(self.step, **last, lr=lr,
+                                            utt_per_sec=rate)
+                        t_log, utts = now, 0
+                    if every and self.ckpt and self.step % every == 0:
+                        self.save(epoch)
+                    if self.preempt is not None and self.preempt.requested():
+                        # The grace window: persist this step with the
+                        # current epoch, so a resume skips the consumed
+                        # prefix and replays the rest in order.
+                        if self.ckpt is not None:
+                            self.ckpt.wait()
+                            if self.ckpt.latest_step() != self.step:
+                                self.save(epoch)
+                            self.ckpt.wait()
+                        self.logger.log("preempted", step=self.step,
+                                        epoch=epoch)
+                        preempted = True
+                        break
+                if preempted:
+                    break
+                if metrics and not last:
+                    last = {k: float(v) for k, v in metrics.items()
+                            if k in ("loss", "grad_norm")}
+                self.logger.log("epoch_end", epoch=epoch,
+                                seconds=time.perf_counter() - t_epoch)
+                if self.eval_pipeline is not None:
+                    ev = self.evaluate()
+                    self.logger.log("eval", epoch=epoch, **ev)
+                    if self.tb is not None:
+                        self.tb.scalars(self.step, wer=ev["wer"],
+                                        cer=ev["cer"])
+                    last.update(ev)
+                self.save(epoch + 1)
+        finally:
+            if watchdog is not None:
+                watchdog.stop()
+            if profiler is not None:
+                self._stop_profile(profiler)
+            if self.tb is not None:
+                self.tb.close()
         if self.ckpt is not None:
             self.ckpt.wait()
+        if preempted:
+            last = dict(last, preempted=True)
+        if self.guardian is not None:
+            last = dict(last, guardian=self.guardian.report())
         return last
+
+    def _start_profile(self):
+        """A ``torch.profiler`` window over the host and, on the card,
+        the device (``train.profile_dir``)."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        self._profile_from = self.step
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        """Close the window and write its Chrome trace into
+        ``train.profile_dir``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = self.cfg.train.profile_dir
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(
+            out, f"trace_steps{self._profile_from}-{self.step}.json")
+        prof.export_chrome_trace(path)
+        self.logger.log("profile_saved", dir=out, path=path, step=self.step)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -353,10 +619,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     if cfg.model.vocab_size != old_vocab:
         logger.log("vocab_resize", preset=old_vocab,
                    tokenizer=cfg.model.vocab_size)
-    trainer = Trainer(cfg, pipeline, tokenizer, eval_pipe, logger,
-                      device=args.device)
-    trainer.maybe_restore()
-    result = trainer.fit()
+    from .resilience import PreemptionGuard
+
+    # SIGTERM (a fleet's preemption) -> an emergency checkpoint and a
+    # clean exit; the next run's maybe_restore resumes bit-identically.
+    with PreemptionGuard() as guard:
+        trainer = Trainer(cfg, pipeline, tokenizer, eval_pipe, logger,
+                          device=args.device, preempt=guard)
+        trainer.maybe_restore()
+        result = trainer.fit()
     print(json.dumps({"event": "done", "steps": trainer.step,
                       **{k: v for k, v in result.items()
                          if isinstance(v, (int, float))}}))

@@ -78,7 +78,12 @@ OWN_COPIES = ("deepspeech_tpu_torch/utils/quantize.py",
               "deepspeech_tpu_torch/decode/ngram.py",
               "deepspeech_tpu_torch/decode/hashed_lm.py",
               "deepspeech_tpu_torch/decode/beam_host.py",
-              "deepspeech_tpu_torch/native.py")
+              "deepspeech_tpu_torch/native.py",
+              "deepspeech_tpu_torch/serving/sessionstore.py",
+              "deepspeech_tpu_torch/serving/transport.py",
+              "deepspeech_tpu_torch/resilience/guardian.py",
+              "deepspeech_tpu_torch/resilience/preempt.py",
+              "deepspeech_tpu_torch/utils/logging.py")
 
 
 def test_no_jax_or_reference_imports():
@@ -104,7 +109,12 @@ def test_import_leaves_jax_unloaded():
             "deepspeech_tpu_torch.serving.rollout, "
             "deepspeech_tpu_torch.serving.autoscale, "
             "deepspeech_tpu_torch.serving.trafficmodel, "
-            "deepspeech_tpu_torch.obs.status; "
+            "deepspeech_tpu_torch.obs.status, "
+            "deepspeech_tpu_torch.serving.sessionstore, "
+            "deepspeech_tpu_torch.serving.transport, "
+            "deepspeech_tpu_torch.resilience.guardian, "
+            "deepspeech_tpu_torch.resilience.preempt, "
+            "deepspeech_tpu_torch.utils.logging; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -179,3 +179,40 @@ def test_launch_counts_lose_nothing_across_threads():
     finally:
         sys.setswitchinterval(interval)
     assert fn.launches == 8 * 2000
+
+
+CHILD = """
+import sys, time
+from deepspeech_tpu_torch.ops import _build
+_build._nvcc = lambda: {nvcc!r}
+_build.BUILD_DIR = {build!r}
+while time.time() < {start!r}:
+    time.sleep(0.005)
+print(_build.build(["gru_fwd"])["gru_fwd"])
+"""
+
+
+def test_processes_build_one_source_once(tmp_path):
+    """Three processes that reach a cold kernel at the same moment: the
+    build directory's file lock lets one compile it, and the others
+    wait and load that library (one ``nvcc`` call in the log)."""
+    import subprocess
+    import time
+
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable, log=str(log)))
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    code = CHILD.format(nvcc=str(nvcc), build=str(tmp_path / "build"),
+                        start=time.time() + 8.0)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(3)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    paths = {o.strip() for o, _ in outs}
+    assert len(paths) == 1 and os.path.exists(paths.pop())
+    assert len(log.read_text().splitlines()) == 1

@@ -10,9 +10,12 @@ weights, with the JAX side on its Pallas GRU kernels in interpret mode:
   ``migrate_sessions``, and with int8 weights;
 - ``main`` prints those lines from an ``.npz`` on the CPU (with
   ``--replicas=2 --migrate-sessions`` too), refuses ``--replicas`` with
-  endpointing, and exits naming the slice for each flag of a slice the
-  port has not yet (4c, item 17), while the flags of slices 4b and 6b
-  reach the same checks as the JAX serve's;
+  endpointing, and exits naming the item for ``--warm-store`` (item 17),
+  while the flags of slices 4b, 4c and 6b reach the same checks as the
+  JAX serve's, the handoff flags' guards among them;
+- two pooled serve loops wired ``--handoff-listen`` / ``--handoff-peer``
+  style hand a stream across (outcome ``remote``), and the adopted final
+  equals a pooled run of that WAV in the port and in the JAX package;
 - ``--decode=beam`` (and ``--quant-tier=premium``): ``serve_files``' and
   ``serve_files_pooled``' JSONL equal the JAX ones', with and without an
   on-device LM table, endpointing and int8, and the finals equal
@@ -178,7 +181,7 @@ LATER = {"slice 4b": ("--models=a=x", "--tenant-config=t.json",
          "slice 6b": ("--lm-rescore",)}
 # Slices the port has now: their flags are parsed and checked like the
 # JAX serve's, and no longer exit naming a slice.
-PORTED = ("slice 4b", "slice 6b")
+PORTED = ("slice 4b", "slice 4c", "slice 6b")
 
 
 @pytest.fixture(scope="module")
@@ -227,6 +230,23 @@ def test_main_refuses_later_flags(flag, ckpt_cwd, monkeypatch):
         got = _raised(serve.main, [*argv, "--device=cpu", "a.wav"])
         assert got == want
         assert "comes with" not in got[1]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--models=a=/nonexistent", "--handoff-listen=0"],
+    ["--checkpoint-dir=/nonexistent", "--handoff-peer=127.0.0.1:9",
+     "--endpoint-silence-ms=500"],
+    ["--checkpoint-dir=/nonexistent", "--handoff-peer=nonsense"],
+    ["--models=a=/nonexistent", "--session-journal=/nonexistent"]],
+    ids=["listen-models", "peer-endpointing", "peer-not-host-port",
+         "journal-models"])
+def test_main_handoff_and_journal_guards_match_jax(argv):
+    """The flag combinations the journal and the transport do not cover
+    fail fast, before any checkpoint is read, with the JAX serve's
+    error (tests/test_serve.py's handoff guards)."""
+    want = _raised(jax_serve.main, [*argv, "x.wav"])
+    got = _raised(serve.main, [*argv, "--device=cpu", "x.wav"])
+    assert got == want and got[0] is ValueError
 
 
 def test_main_refuses_replicas_with_endpointing():
@@ -456,3 +476,101 @@ def test_serve_beam_finals_equal_offline_beam(beam_setup, tmp_path):
                      device="cpu")
     assert inf.decode_batch({"features": batch, "feat_lens": lens}) == finals
     assert any(finals)
+
+
+class _Out:
+    """A JSONL sink shared with a serve loop on another thread; with a
+    ``gate`` it parks the loop after its first chunk line until the gate
+    opens, so a peer's transfer lands while the listener is up."""
+
+    def __init__(self, gate=None):
+        import threading
+
+        self.lines = []
+        self._lock = threading.Lock()
+        self._buf = ""
+        self._gate = gate
+
+    def write(self, s):
+        gated = False
+        with self._lock:
+            self._buf += s
+            while "\n" in self._buf:
+                line, self._buf = self._buf.split("\n", 1)
+                if line.strip():
+                    self.lines.append(line)
+                    gated = gated or '"chunk"' in line
+        if gated and self._gate is not None:
+            self._gate.wait(timeout=120)
+
+    def flush(self):
+        pass
+
+    def records(self):
+        with self._lock:
+            return [json.loads(x) for x in list(self.lines)]
+
+
+def test_serve_pooled_cross_process_handoff(setup, tmp_path):
+    """Two pooled serve loops wired ``--handoff-listen`` /
+    ``--handoff-peer`` style on the loopback (tests/test_serve.py's
+    case): the sender ships its stream at audio end (outcome "remote",
+    final None), the receiver adopts it and drains it with its own
+    streams, and the adopted final equals a pooled run of the same WAV,
+    the port's and the JAX package's."""
+    import io
+    import threading
+    import time
+
+    jcfg, tcfg, params, stats, paths = setup
+    tok = CharTokenizer.english()
+    sender_done = threading.Event()
+    rout = _Out(gate=sender_done)
+    errors = []
+
+    def _recv():
+        try:
+            serve.serve_files_pooled(tcfg, tok, params, stats, paths[1:],
+                                     replicas=1, out=rout, handoff_listen=0,
+                                     device="cpu")
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    t = threading.Thread(target=_recv, daemon=True)
+    t.start()
+    port = None
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline and port is None and t.is_alive():
+        for rec in rout.records():
+            if "handoff_listen" in rec:
+                port = rec["handoff_listen"]["port"]
+        if port is None:
+            time.sleep(0.02)
+    assert port, f"the receiver never announced its port {errors}"
+    sout = _Out()
+    try:
+        finals = serve.serve_files_pooled(
+            tcfg, tok, params, stats, paths[:1], replicas=1, out=sout,
+            handoff_peer=f"127.0.0.1:{port}", device="cpu")
+    finally:
+        sender_done.set()
+        t.join(timeout=120)
+    assert not t.is_alive() and not errors, errors
+    hand = [r["handoff"] for r in sout.records() if "handoff" in r]
+    assert [h["outcome"] for h in hand] == ["remote"], hand
+    assert finals == [None]
+    adopted = [r["handoff_adopted"] for r in rout.records()
+               if "handoff_adopted" in r]
+    assert len(adopted) == 1 and len(adopted[0]) == 1, adopted
+    ref = serve.serve_files_pooled(tcfg, tok, params, stats, paths[:1],
+                                   replicas=1, out=io.StringIO(),
+                                   device="cpu")
+    jref = jax_serve.serve_files_pooled(jcfg, JaxCharTokenizer.english(),
+                                        params, stats, paths[:1],
+                                        replicas=1, out=io.StringIO())
+    assert list(adopted[0].values()) == ref == jref and any(ref)
+    rfinal = [r["final"] for r in rout.records() if "final" in r]
+    own = serve.serve_files_pooled(tcfg, tok, params, stats, paths[1:],
+                                   replicas=1, out=io.StringIO(),
+                                   device="cpu")
+    assert rfinal == [own]

@@ -300,11 +300,26 @@ def test_snapshot_holds_host_numpy(tiny):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"decode": "beam", "journal": object()}, "slice 4c"),
-    ({"journal": object()}, "slice 4")])
-def test_later_slices_refused(tiny, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _mgr(tiny, **kw)
+    ({"decode": "beam"}, "slice 4c"),
+    ({}, "slice 4")], ids=["kw0-slice 4c", "kw1-slice 4"])
+def test_later_slices_refused(tiny, tmp_path, kw, match):
+    """``journal=`` was refused until slice 4c (the session store) came;
+    now a manager in either decode mode takes a ``SessionJournal``: it
+    checkpoints a joined session every chunk and at its drain, and
+    tombstones it at finalize."""
+    from deepspeech_tpu_torch.serving import SessionJournal
+
+    journal = SessionJournal(str(tmp_path / "wal"))
+    mgr = (_beam_mgr if kw else _mgr)(tiny, journal=journal)
+    mgr.join("x")
+    mgr.step({"x": _feat(64, 21)})
+    assert sorted(journal.scan().live) == ["x"]
+    mgr.leave("x")
+    mgr.flush()
+    scan = journal.scan()
+    assert scan.live == {} and scan.tombstoned == ["x"]
+    assert [e.kind for e in scan.entries] == ["snapshot"] * 2 + ["tombstone"]
+    journal.close()
 
 
 # -- beam decoding ----------------------------------------------------------

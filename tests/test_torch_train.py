@@ -236,16 +236,14 @@ def test_train_cli_ends_with_done():
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"train.guardian": "true"}, "slice 9"),
     ({"train.accum_steps": "2"}, "slice 5"),
     ({"train.mesh_shape": "2,1"}, "slice 5"),
     ({"train.zero_opt_sharding": "true"}, "slice 5"),
     ({"train.sequence_parallel": "true"}, "slice 9"),
     ({"train.objective": "rnnt"}, "slice 9"),
     ({"model.pipeline_stages": "2"}, "slice 9"),
-    ({"train.tensorboard_dir": "tb"}, "slice 9"),
-    ({"train.profile_dir": "prof"}, "slice 9"),
-])
+], ids=["over1-slice 5", "over2-slice 5", "over3-slice 5", "over4-slice 9",
+        "over5-slice 9", "over6-slice 9"])
 def test_unported_training_options_raise(over, match):
     cfg = apply_overrides(get_config("ds2_small"),
                           {"train.checkpoint_dir": "", **over})
@@ -254,6 +252,35 @@ def test_unported_training_options_raise(over, match):
     with pytest.raises(NotImplementedError, match=match):
         Trainer(cfg, SyntheticPipeline(cfg, 1), CharTokenizer.english(),
                 device="cpu")
+
+
+@pytest.mark.parametrize("option", ["guardian", "tensorboard_dir",
+                                    "profile_dir"])
+def test_ported_training_options_work(option, tmp_path, monkeypatch):
+    """The three options that once raised here (``train.guardian``,
+    ``train.tensorboard_dir``, ``train.profile_dir``) pass
+    ``check_supported`` and do their work in a two-step ``fit``: a
+    guardian report, TensorBoard event files, a profiler trace."""
+    monkeypatch.delenv("DS2_GUARDIAN", raising=False)
+    value = {"guardian": "true", "tensorboard_dir": str(tmp_path / "tb"),
+             "profile_dir": str(tmp_path / "prof")}[option]
+    _, cfg = _configs("dev_slice", {f"train.{option}": value,
+                                    "train.profile_start_step": "0",
+                                    "train.profile_steps": "1",
+                                    "train.log_every": "1",
+                                    "model.rnn_hidden": "16",
+                                    "data.bucket_frames": "48"})
+    check_supported(cfg)
+    trainer = Trainer(cfg, SyntheticPipeline(cfg, 8, label_len=4),
+                      CharTokenizer.english(), device="cpu")
+    last = trainer.fit(epochs=1)
+    assert trainer.step == 2 and np.isfinite(last["loss"])
+    if option == "guardian":
+        assert last["guardian"]["applied_steps"] == 2
+    elif option == "tensorboard_dir":
+        assert list((tmp_path / "tb").glob("events.out.tfevents.*"))
+    else:
+        assert list((tmp_path / "prof").glob("trace_steps0-1.json"))
 
 
 def test_checkpoint_dir_builds_a_checkpoint_manager(tmp_path):
