@@ -235,7 +235,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    last-good ring, a preempted run resumed bit-identical, 3 K4, 3 K5,
    one K1 and one K2 a step, the guarded step's ms beside the
    unguarded one's;
-12. prints each phase's seconds on a line of its own, a
+12. item 10, data-parallel training (``dp_train_phase``, after the
+   guarded phase), ds2_small at full width: Leg A under a one-rank NCCL
+   group in this process (``mesh_shape=(1, 1)`` bit-identical to no
+   group after 2 steps; ``accum_steps=2`` bit-identical to a hand loop
+   of the strided half-batches, 6 K4, 6 K5, 2 K1 and 2 K2 a step;
+   ``zero_opt_sharding`` with AdamW bit-identical to AdamW without it;
+   the accumulated and ZeRO step's ms); Leg B, two processes
+   (``chip_smoke.py --dp-child RANK STORE OUT``) on the one card over
+   gloo, a global (16, 400) batch, 8 rows a rank: the ranks bit-identical
+   and within ``DP_B_TOL`` of one process's update, their step ms; and
+   the C++ feature loader against numpy on the manifest phase's 128
+   seeded WAVs with the cache off (host s a batch);
+13. prints each phase's seconds on a line of its own, a
    ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1715,18 +1727,19 @@ class _FixedBatch:
         return 1
 
 
-def _train_batch(cfg, rng):
-    """A full (B, 1700) training batch: 300..1700 frames, one of 1700,
-    0.15 characters per frame (random ids 1..28, at most L_MAX)."""
+def _train_batch(cfg, rng, frames: int = 1700):
+    """A full (B, frames) training batch, (B, 1700) by default: 3/17 of
+    ``frames`` up to ``frames`` (300..1700), one of ``frames``, 0.15
+    characters per frame (random ids 1..28, at most L_MAX)."""
     from deepspeech_tpu_torch.data import pad_batch
 
     n, f = cfg.data.batch_size, cfg.features.num_features
-    lens = rng.integers(300, 1701, size=n)
-    lens[0] = 1700
+    lens = rng.integers(frames * 3 // 17, frames + 1, size=n)
+    lens[0] = frames
     feats = [rng.normal(size=(t, f)).astype(np.float32) for t in lens]
     labels = [rng.integers(1, V, size=min(int(0.15 * t), L_MAX)).tolist()
               for t in lens]
-    return pad_batch(feats, labels, 1700, cfg.data.max_label_len,
+    return pad_batch(feats, labels, frames, cfg.data.max_label_len,
                      cfg.model.time_stride)
 
 
@@ -5344,6 +5357,474 @@ def guarded_train_phase(card: str):
             "ctc_beta": launches["ctc_beta"], "steps": n_all}
 
 
+DP_STEPS = 2                 # steps of each Leg A run and of Leg B
+DP_TIMED = 3                 # steps timed of the accumulated and ZeRO runs
+DP_B_BATCH = 16              # Leg B's global batch: 8 rows a rank
+DP_B_FRAMES = 400
+# Leg B's update against one process's, relative: 0.013 on an NVIDIA
+# H100 80GB HBM3, 700.00 W (the order of the bf16 sums differs), where
+# the planted faults read 0.156 (the BN's statistics on each rank's
+# rows) and 0.420 (one rank's rows alone).
+DP_B_TOL = 0.05
+DP_CHILD_S = 240.0           # a Leg B child that has not exited fails
+LOADER_BATCHES = 4           # the manifest's training batches, one a bucket
+# The C++ featurizer against numpy on the manifest's WAVs (a steady tone
+# in noise each), over the valid frames: the 99.9th percentile of
+# |native - numpy| is held to the tests' 2e-3; the maximum only to
+# LOADER_MAX. The features are normalized per frequency bin by its std
+# over time, which a steady tone keeps small in a few bins, so the f32
+# rounding differences of the two DFTs grow there: 6.7e-3 at most on
+# these WAVs on a build machine's CPU, 3.4e-2 on the card's host with its
+# numpy. A featurizer whose frames start one sample late must read past
+# LOADER_P999 (the phase checks it).
+LOADER_P999 = 2e-3
+LOADER_MAX = 0.1
+
+
+def _dp_config(over=None):
+    """ds2_small at full width (3 BiGRU H=800, bf16), SGD, no
+    checkpoints, for the data-parallel phase."""
+    from deepspeech_tpu_torch.config import apply_overrides
+
+    return apply_overrides(_config("ds2_small"), {
+        "train.checkpoint_dir": "", "train.warmup_steps": "1",
+        "train.log_every": "1", **(over or {})})
+
+
+def _model_bits(trainer):
+    """Parameters and BN buffers, and the optimizer's state tensors in
+    the dense layout, cloned."""
+    opt = trainer.optimizer_state_dict()["state"]
+    return ({k: v.detach().clone()
+             for k, v in trainer.model.state_dict().items()},
+            [(i, k, v.detach().clone()) for i, st in sorted(opt.items())
+             for k, v in sorted(st.items()) if torch.is_tensor(v)])
+
+
+def _wait_for(path: str, deadline: float, procs=()) -> None:
+    """Wait until ``path`` exists; fail past ``deadline`` (perf_counter)
+    or when one of ``procs`` has exited first."""
+    while not os.path.exists(path):
+        for r, c in enumerate(procs):
+            if c.poll() is not None:
+                raise RuntimeError(f"leg B: rank {r} exited {c.returncode} "
+                                   f"before {os.path.basename(path)}:\n"
+                                   f"{c.stderr.read()[-4000:]}")
+        if time.perf_counter() > deadline:
+            raise RuntimeError(f"no {path} after {DP_CHILD_S} s")
+        time.sleep(0.05)
+
+
+def _dp_child(rank: str, store: str, out: str) -> int:
+    """Leg B's rank: joins a two-rank gloo group through ``store`` on the
+    one card (LOCAL_RANK 0 for both: they share it) and builds its
+    ``Trainer``; writes ``out.ready`` and waits for the file ``go`` beside
+    ``out``; then takes ``DP_STEPS`` steps of ds2_small on its 8 rows of
+    the global (16, 400) batches, and the same steps again with the
+    masked BN's statistics taken on its own rows (the planted fault of a
+    BN without its group). Writes both states, the step times and the
+    first run's launches to ``out``."""
+    os.environ["LOCAL_RANK"] = "0"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from deepspeech_tpu_torch.bridge import init_params
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.models.layers import MaskedBatchNorm
+    from deepspeech_tpu_torch.parallel import initialize_distributed
+    from deepspeech_tpu_torch.train import Trainer
+
+    deadline = time.perf_counter() + DP_CHILD_S
+    initialize_distributed(f"file://{store}", 2, int(rank), backend="gloo")
+    cfg = _dp_config({"train.mesh_shape": "2,1",
+                      "data.batch_size": str(DP_B_BATCH)})
+    params, stats = init_params(cfg, torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 13)
+    batches = [_train_batch(cfg, rng, DP_B_FRAMES) for _ in range(DP_STEPS)]
+
+    def trainer():
+        return Trainer(cfg, _Batches(batches), CharTokenizer.english(),
+                       logger=_Log(), params=params, batch_stats=stats)
+
+    tr, fault = trainer(), trainer()
+    for m in fault.model.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.group = None
+    torch.cuda.synchronize()
+    open(out + ".ready", "w").close()
+    _wait_for(os.path.join(os.path.dirname(out), "go"), deadline)
+    _zero_counts()
+    ms = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _counts()
+    for b in batches:
+        fault.train_step(b)
+    model, opt = _model_bits(tr)
+    torch.save({"model": {k: v.cpu() for k, v in model.items()},
+                "opt": [(i, k, v.cpu()) for i, k, v in opt],
+                "bn_local": {k: v.detach().cpu() for k, v in
+                             fault.model.state_dict().items()},
+                "ms": ms, "launches": launches,
+                "device": str(tr.device),
+                "backend": dist.get_backend()}, out)
+    dist.destroy_process_group()
+    return 0
+
+
+def _update_rel(got, ref, init):
+    """||(got - init) - (ref - init)|| / ||ref - init|| over a state
+    dict's float tensors (the update's error, not the weights')."""
+    num = den = 0.0
+    for k, r in ref.items():
+        if not r.is_floating_point():
+            continue
+        d = (r - init[k]).double()
+        num += float(((got[k] - init[k]).double() - d).square().sum())
+        den += float(d.square().sum())
+    return math.sqrt(num / den)
+
+
+def _time_steps(trainer, batch, reps: int) -> float:
+    """Wall ms of a step on the card (synchronized)."""
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def dp_train_phase(card: str):
+    """Data-parallel training (item 10) on the one card, at ds2_small's
+    full width (bf16, (32, 1700) batches).
+
+    Leg A, NCCL at world size 1 (a one-rank group in this process, mesh
+    (1, 1)): every collective of the step runs over the one rank (the
+    masked BN's all-reduces, the gradients' and the loss's, ZeRO's
+    all-gather; the init checksum's all-gather), and ``Trainer`` under
+    the group ends ``DP_STEPS`` steps with the bits of a ``Trainer`` with
+    no group; ``accum_steps=2`` equals, bit for bit, a hand loop of the
+    two strided half-batches (rows ``k::2``) with the BN statistics
+    threaded, the gradients summed and halved; ``accum_steps=2`` with
+    ``zero_opt_sharding`` and AdamW (every leaf's optimizer rows cut out,
+    stepped and all-gathered) equals the same without ZeRO. An
+    accumulated step launches 6 K4, 6 K5, 2 K1 and 2 K2. The head is not
+    split (a model axis of one rank), so its gather does not run here.
+    The accumulated step is timed beside the same step with no group on
+    its axes: the one-rank collectives' cost.
+
+    Leg B, two processes on the one card over gloo: ``DP_STEPS`` steps
+    on a global (16, 400) batch, 8 rows a rank; the ranks end bit for
+    bit alike, each launches 3 K4, 3 K5, 1 K1 and 1 K2 a step, and their
+    update is within ``DP_B_TOL`` (relative) of one process's on the same
+    16 rows (the order of the BN and gradient sums differs, in bf16).
+    Two planted faults must read past ``DP_B_TOL``: the ranks with the
+    masked BN's statistics on their own rows, and one process on rank
+    0's 8 rows alone (no collective at all). A collective that gloo
+    refuses on CUDA tensors fails the phase with its error: the port
+    stages nothing through the host. The children start first and build
+    their trainers while Leg A checks its bits; Leg A is timed while
+    they wait idle, and they step only after it, so no time in the phase
+    is taken under another process's load.
+
+    The native loader: the manifest phase's 128 seeded WAVs, the cache
+    off, each of the 4 training batches featurized through the C++
+    loader and through numpy (host seconds a batch), the two within
+    ``LOADER_P999`` at the 99.9th percentile and ``LOADER_MAX`` at most
+    over the valid frames; numpy on the audio one sample late must read
+    past ``LOADER_P999``.
+    Returns Leg A's and both Leg B ranks' launches."""
+    import torch.distributed as dist
+
+    from deepspeech_tpu_torch.bridge import init_params
+    from deepspeech_tpu_torch.config import apply_overrides
+    from deepspeech_tpu_torch.data import (CharTokenizer, DataPipeline,
+                                           featurize_np, load_audio)
+    from deepspeech_tpu_torch.ops.ctc import ctc_loss_mean
+    from deepspeech_tpu_torch.parallel import Mesh, initialize_distributed
+    from deepspeech_tpu_torch.train import Trainer, clip_by_global_norm
+
+    cfg = _dp_config()
+    params, stats = init_params(cfg, torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 12)
+    batches = [_train_batch(cfg, rng) for _ in range(DP_STEPS)]
+    tok = CharTokenizer.english()
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    out = {}
+    children = []
+    try:
+        # -- Leg B's ranks start and build their trainers, then wait. --
+        t_b = time.perf_counter()
+        for r in range(2):
+            children.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-child",
+                 str(r), os.path.join(root, "store_b"),
+                 os.path.join(root, f"rank{r}.pt")],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True))
+
+        def trainer(over=None, mesh=None):
+            return Trainer(apply_overrides(cfg, over or {}),
+                           _Batches(batches), tok, logger=_Log(),
+                           params=params, batch_stats=stats, mesh=mesh)
+
+        # -- Leg A: no group, then a one-rank NCCL group. --------------
+        alone = trainer()
+        for b in batches:
+            alone.train_step(b)
+        want = _model_bits(alone)
+        del alone
+        initialize_distributed(
+            f"file://{os.path.join(root, 'store_a')}", 1, 0)
+        try:
+            _require(dist.get_backend() == "nccl",
+                     f"leg A backend {dist.get_backend()}")
+            grouped = trainer({"train.mesh_shape": "1,1"})
+            _require(grouped.mesh.data_group is not None
+                     and grouped.model.bn_out.group is not None,
+                     "leg A: no data group under the one-rank group")
+            for b in batches:
+                grouped.train_step(b)
+            _require(_same_bits(_model_bits(grouped), want),
+                     "leg A: a one-rank NCCL group changed the step's bits")
+            del grouped
+            # Strided accumulation against a hand loop.
+            _zero_counts()
+            acc = trainer({"train.accum_steps": "2"})
+            for b in batches:
+                acc.train_step(b)
+            counts = _counts()
+            hand = trainer()
+            for b in batches:
+                dev = hand.local_batch(b)
+                hand.model.train()
+                hand.model.zero_grad(set_to_none=True)
+                for k in range(2):
+                    mb = {key: v[k::2].contiguous() for key, v in dev.items()}
+                    logits, lens = hand.model(mb["features"],
+                                              mb["feat_lens"])
+                    mloss = ctc_loss_mean(logits, mb["labels"], lens,
+                                          mb["label_lens"])
+                    mloss.backward()
+                with torch.no_grad():
+                    for p in hand.model.parameters():
+                        p.grad /= 2
+                clip_by_global_norm([p.grad for p in hand.model.parameters()],
+                                    cfg.train.grad_clip_norm)
+                for g in hand.optimizer.param_groups:
+                    g["lr"] = hand.lr_schedule(hand.step)
+                hand.optimizer.step()
+                hand.step += 1
+            _require(_same_bits(_model_bits(acc), _model_bits(hand)),
+                     "leg A: accum_steps=2 != the hand loop of strided "
+                     "half-batches")
+            n = DP_STEPS
+            per_step = {"gru_fwd": 6, "gru_bwd": 6, "ctc_alpha": 2,
+                        "ctc_beta": 2}
+            want_counts = {k: 0 for k in counts}
+            want_counts.update({k: v * n for k, v in per_step.items()})
+            _require(counts == want_counts,
+                     f"leg A: launches {counts} in {n} accumulated steps, "
+                     f"want {want_counts}")
+            del hand
+            # ZeRO (AdamW, accum 2) against the same without ZeRO.
+            adam = {"train.optimizer": "adamw", "train.accum_steps": "2",
+                    "train.learning_rate": "0.0003"}
+            zero_tr = trainer(dict(adam, **{"train.zero_opt_sharding":
+                                            "true"}))
+            dense_tr = trainer(adam)
+            zero_leaves = len(zero_tr._zero)
+            _require(zero_leaves and not dense_tr._zero,
+                     "leg A: no ZeRO leaf under the one-rank group")
+            for b in batches:
+                zero_tr.train_step(b)
+                dense_tr.train_step(b)
+            _require(_same_bits(_model_bits(zero_tr), _model_bits(dense_tr)),
+                     "leg A: ZeRO AdamW != AdamW without ZeRO")
+            del dense_tr
+            # The same accumulated step with no group on its axes (no
+            # collective in the step): what the one-rank collectives cost.
+            bare = trainer({"train.accum_steps": "2"}, mesh=Mesh(1, 1))
+            # Timed only once Leg B's ranks are built and wait idle.
+            wait_until = t_b + DP_CHILD_S
+            for r in range(2):
+                _wait_for(os.path.join(root, f"rank{r}.pt.ready"),
+                          wait_until, children)
+            ms = {"accum": [], "accum_no_group": [], "zero_adamw": []}
+            for _ in range(2):
+                for name, tr in (("accum", acc), ("accum_no_group", bare),
+                                 ("zero_adamw", zero_tr)):
+                    ms[name].append(_time_steps(tr, batches[0], DP_TIMED))
+            del acc, bare, zero_tr
+        finally:
+            dist.destroy_process_group()
+        out["leg_a"] = {"world": 1, "backend": "nccl",
+                        "collectives": "one-rank NCCL: BN, gradient and "
+                                       "loss all-reduces, ZeRO all-gather",
+                        "no_group_bits_equal": True,
+                        "accum_equals_hand_loop": True,
+                        "zero_equals_dense": True,
+                        "zero_leaves": zero_leaves,
+                        "launches_per_accumulated_step": per_step,
+                        "step_ms": ms,
+                        "step_ms_load": "this process alone on the card"}
+        print(json.dumps({"dp_leg_a": out["leg_a"]}), flush=True)
+        # -- Leg B: the references in this process, then the ranks. ----
+        bcfg = _dp_config({"data.batch_size": str(DP_B_BATCH)})
+        brng = np.random.default_rng(SEED + 13)
+        bb = [_train_batch(bcfg, brng, DP_B_FRAMES) for _ in range(DP_STEPS)]
+        ref = Trainer(bcfg, _Batches(bb), tok, logger=_Log(), params=params,
+                      batch_stats=stats)
+        init = {k: v.detach().clone() for k, v in ref.model.state_dict()
+                .items()}
+        for b in bb:
+            ref.train_step(b)
+        ref_model, _ = _model_bits(ref)
+        half = DP_B_BATCH // 2
+        hb = [{k: v[:half] for k, v in b.items()} for b in bb]
+        alone = Trainer(_dp_config({"data.batch_size": str(half)}),
+                        _Batches(hb), tok, logger=_Log(), params=params,
+                        batch_stats=stats)
+        for b in hb:
+            alone.train_step(b)
+        alone_model, _ = _model_bits(alone)
+        del ref, alone
+        torch.cuda.synchronize()
+        t_go = time.perf_counter()
+        open(os.path.join(root, "go"), "w").close()
+        results = []
+        for r, c in enumerate(children):
+            try:
+                _, err = c.communicate(timeout=max(
+                    DP_CHILD_S - (time.perf_counter() - t_b), 1))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"leg B: rank {r} still running after "
+                                   f"{DP_CHILD_S} s")
+            _require(c.returncode == 0,
+                     f"leg B: rank {r} exited {c.returncode}:\n{err[-4000:]}")
+            results.append(torch.load(os.path.join(root, f"rank{r}.pt"),
+                                      weights_only=False))
+        b_s = time.perf_counter() - t_go
+        r0, r1 = results
+        _require(_same_bits((r0["model"], r0["opt"]),
+                            (r1["model"], r1["opt"])),
+                 "leg B: the two ranks' states differ")
+
+        def rel_to_ref(model):
+            return _update_rel({k: v.cuda() for k, v in model.items()},
+                               ref_model, init)
+
+        rel = rel_to_ref(r0["model"])
+        _require(rel <= DP_B_TOL, f"leg B: update {rel:.3g} from one "
+                 f"process's, past {DP_B_TOL}")
+        faults = {"bn_local_statistics": rel_to_ref(r0["bn_local"]),
+                  "rank0_rows_alone": rel_to_ref(alone_model)}
+        _require(all(v > DP_B_TOL for v in faults.values()),
+                 f"leg B: a planted fault reads within {DP_B_TOL}: {faults}")
+        keys = ("gru_fwd", "gru_bwd", "ctc_alpha", "ctc_beta")
+        per_rank = {"gru_fwd": 3, "gru_bwd": 3, "ctc_alpha": 1,
+                    "ctc_beta": 1}
+        b_counts = []
+        for r, res in enumerate(results):
+            got = {k: res["launches"][k] for k in keys}
+            _require(got == {k: v * DP_STEPS for k, v in per_rank.items()},
+                     f"leg B: rank {r} launches {res['launches']}")
+            b_counts.append(got)
+        out["leg_b"] = {"world": 2, "backend": r0["backend"],
+                        "devices": [r0["device"], r1["device"]],
+                        "batch": [DP_B_BATCH, DP_B_FRAMES],
+                        "ranks_bit_identical": True,
+                        "update_rel_to_one_process": rel, "tol": DP_B_TOL,
+                        "planted_faults_rel": faults,
+                        "step_ms": [r0["ms"], r1["ms"]],
+                        "step_ms_load": "the two ranks time-sliced on the "
+                                        "card, this process idle",
+                        "launches_per_rank": b_counts, "seconds": b_s}
+        print(json.dumps({"dp_leg_b": out["leg_b"]}), flush=True)
+        # -- The native loader against numpy. -------------------------
+        lrng = np.random.default_rng(SEED)
+        edges = (0.3,) + tuple(e / 100 for e in MANIFEST_BUCKETS)
+        durs = np.concatenate([
+            lrng.uniform(lo + 0.05, min(hi, 16.5) - 0.05,
+                         MANIFEST_PER_BUCKET)
+            for lo, hi in zip(edges[:-1], edges[1:])])
+        manifest = _write_corpus(root, "train", durs, lrng)
+        from deepspeech_tpu_torch import native
+
+        t0 = time.perf_counter()
+        _require(native.available(), f"native loader: {native.build_error()}")
+        host_build_s = time.perf_counter() - t0
+        lcfg = _config("ds2_small")
+        on = DataPipeline(lcfg, tok, manifest, cache=False)
+        off = DataPipeline(apply_overrides(
+            lcfg, {"data.native_loader": "false"}), tok, manifest,
+            cache=False)
+        plans = list(on.sampler.epoch(0))[:LOADER_BATCHES]
+        secs = {"native": [], "numpy": []}
+        diffs, late = [], []
+        for j, plan in enumerate(plans):
+            got = {}
+            for name, pipe in (("native", on), ("numpy", off)):
+                t0 = time.perf_counter()
+                got[name] = pipe._materialize(plan)
+                secs[name].append(time.perf_counter() - t0)
+            for k in ("feat_lens", "labels", "label_lens"):
+                _require(np.array_equal(got["native"][k], got["numpy"][k]),
+                         f"native loader: {k} differ from numpy's")
+            feats = got["native"]["features"]
+            for r, n in enumerate(got["native"]["feat_lens"]):
+                diffs.append(np.abs(feats[r, :n]
+                                    - got["numpy"]["features"][r, :n])
+                             .ravel())
+                if j == 0:
+                    # The planted fault: frames one sample late.
+                    audio = load_audio(on.utts[int(plan.indices[r])].audio,
+                                       lcfg.features.sample_rate)
+                    f = featurize_np(np.concatenate([audio[1:], audio[-1:]]),
+                                     lcfg.features)[:n]
+                    late.append(np.abs(feats[r, :n] - f).ravel())
+        diffs = np.concatenate(diffs)
+        worst = float(diffs.max())
+        p999 = float(np.quantile(diffs, 0.999))
+        late_p999 = float(np.quantile(np.concatenate(late), 0.999))
+        _require(p999 <= LOADER_P999 and worst < LOADER_MAX
+                 and on.native_batches == len(plans)
+                 and on.native_fallbacks == 0,
+                 f"native loader: |native - numpy| p99.9 {p999}, max "
+                 f"{worst}, {on.native_batches} native batches")
+        _require(late_p999 > LOADER_P999,
+                 f"native loader: frames one sample late read {late_p999} "
+                 f"at p99.9, within {LOADER_P999}")
+        out["native_loader"] = {"batches": len(plans),
+                                "rows": len(plans[0].indices),
+                                "host_library_s": host_build_s,
+                                "s_per_batch": secs,
+                                "max_abs_vs_numpy": worst,
+                                "p999_abs_vs_numpy": p999,
+                                "p999_one_sample_late": late_p999,
+                                "threads": os.cpu_count()}
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    print(card, flush=True)
+    print(json.dumps({"dp_train": {"preset": "ds2_small",
+                                   "batch": [cfg.data.batch_size, 1700],
+                                   **out}, "card": card}), flush=True)
+    # The main path's launches: Leg A's accumulated steps and each of Leg
+    # B's ranks, as each counted them.
+    return {k: counts[k] + sum(c[k] for c in b_counts) for k in keys}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5461,6 +5942,12 @@ def main() -> int:
     for name, key in (("gru_fwd[D=2]", "gru_fwd"), ("gru_bwd[D=2]", "gru_bwd"),
                       ("ctc_alpha", "ctc_alpha"), ("ctc_beta", "ctc_beta")):
         entries[name]["launches"] += counts[key]
+    # Data-parallel training: NCCL at world size 1, two gloo ranks on
+    # the one card, the native loader (K4, K5, K1, K2).
+    counts = _phase("ds2_small data-parallel train", dp_train_phase, card)
+    for name, key in (("gru_fwd[D=2]", "gru_fwd"), ("gru_bwd[D=2]", "gru_bwd"),
+                      ("ctc_alpha", "ctc_alpha"), ("ctc_beta", "ctc_beta")):
+        entries[name]["launches"] += counts[key]
     # ds2_streaming live: the chunked engine, sessions, serve (K6 and
     # K10 at D=1 with a carried h0), the chunk's times, the feed.
     stream = _phase("ds2_streaming chunked vs offline", streaming_phase)
@@ -5532,4 +6019,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-child"]:
+        sys.exit(_dp_child(*sys.argv[2:5]))
     sys.exit(main())

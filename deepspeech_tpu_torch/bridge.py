@@ -9,6 +9,14 @@ The port's module tree uses the same names, so the mapping is by name;
 the one change of layout is the conv kernel (HWIO <-> OIHW), and the
 round trip is exact.
 
+Under a model axis whose head is sharded (``models/ds2.py``: each rank
+of a model group holds ``V / model`` columns of ``head/kernel`` and
+``head/bias``), ``from_flax`` and ``to_flax`` still take and give the
+**full** flax leaves: given the model's ``head_group`` they slice this
+rank's columns on the way in and all-gather them on the way out (a
+collective: every rank of the group calls it), so checkpoints keep
+their layout.
+
 A quantized tree (``utils/quantize.py``'s ``quantize_params``) maps the
 same way: each ``{"q", "scale"}`` leaf becomes an int8 ``<leaf>.q`` and
 an f32 ``<leaf>.scale`` entry, which a model built with
@@ -26,7 +34,8 @@ import numpy as np
 import torch
 
 from .config import Config
-from .models.ds2 import DeepSpeech2
+from .models.ds2 import HEAD_KEYS, DeepSpeech2
+from .parallel.comm import all_gather_dim
 
 Tree = Dict[str, object]
 
@@ -58,9 +67,31 @@ def _nest(flat: Dict[str, np.ndarray]) -> Tree:
     return tree
 
 
-def from_flax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
+def flax_path(key: str, shape: Tuple[int, ...]
+              ) -> Tuple[str, Tuple[int, ...], int]:
+    """A ``state_dict`` key and its shape -> ``(flax path "a/b/c", flax
+    shape, the torch dim that is the flax leaf's dim 0)``: conv kernels
+    are OIHW here and HWIO there, every other leaf keeps its layout."""
+    m = _CONV_WEIGHT.match(key)
+    if m and len(shape) == 4:
+        o, i, h, w = shape
+        return (f"{m.group(1)}kernel{m.group(2) or ''}".replace(".", "/"),
+                (h, w, i, o), 2)
+    return key.replace(".", "/"), tuple(shape), 0
+
+
+def _head_slice(v: np.ndarray, group) -> np.ndarray:
+    rank = torch.distributed.get_rank(group)
+    parts = torch.distributed.get_world_size(group)
+    width = v.shape[-1] // parts
+    return v[..., rank * width:(rank + 1) * width]
+
+
+def from_flax(params: Tree, batch_stats: Tree, head_group=None
+              ) -> Dict[str, torch.Tensor]:
     """Flax ``params`` (plain or quantized) + ``batch_stats`` -> the
-    port's ``state_dict``."""
+    port's ``state_dict``; with ``head_group`` (a sharded head's model
+    group) this rank's columns of the head."""
     sd = {}
     for key, v in _flatten(params).items():
         m = _CONV_KERNEL.match(key)
@@ -68,16 +99,22 @@ def from_flax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
             key = f"{m.group(1)}weight{m.group(2) or ''}"
             if v.ndim == 4:
                 v = v.transpose(3, 2, 0, 1)
+        if head_group is not None and key in HEAD_KEYS:
+            v = _head_slice(v, head_group)
         sd[key] = torch.tensor(v)
     for key, v in _flatten(batch_stats).items():
         sd[key] = torch.tensor(v)
     return sd
 
 
-def to_flax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Tree, Tree]:
-    """The port's ``state_dict`` -> flax ``(params, batch_stats)``."""
+def to_flax(state_dict: Dict[str, torch.Tensor], head_group=None
+            ) -> Tuple[Tree, Tree]:
+    """The port's ``state_dict`` -> flax ``(params, batch_stats)``; with
+    ``head_group`` the head's columns are all-gathered over it first."""
     params, stats = {}, {}
     for key, t in state_dict.items():
+        if head_group is not None and key in HEAD_KEYS:
+            t = all_gather_dim(t.detach(), t.dim() - 1, head_group)
         v = t.detach().cpu().numpy()
         m = _CONV_WEIGHT.match(key)
         if m:

@@ -29,6 +29,11 @@ once it lands: a save cut off mid-write, the layout the walk-back must
 survive) and ``checkpoint.restore`` before each step a restore tries
 (an injected error walks back like a damaged step). The last-good ring
 is sized by the trainer from ``GuardianConfig.ring_size``.
+
+Under a process group only the primary rank writes (``Trainer.save``
+gathers the state first); the other ranks hold a manager built with
+``persist=False``, whose last-good ring and rejected steps live in
+memory and which writes nothing to the shared directory.
 """
 
 from __future__ import annotations
@@ -88,7 +93,7 @@ class CheckpointManager:
     """
 
     def __init__(self, directory: str, keep: int = 3,
-                 last_good_keep: int = 2):
+                 last_good_keep: int = 2, persist: bool = True):
         from .checkpoint_import import is_orbax_dir
 
         if keep < 1:
@@ -99,6 +104,7 @@ class CheckpointManager:
                 "infer.restore_params reads them (checkpoint_import.py), "
                 "and the port's trainer needs a directory of its own")
         self._dir = os.path.abspath(directory)
+        self._persist = persist
         os.makedirs(self._dir, exist_ok=True)
         self._keep = keep
         self._last_good: deque = deque(maxlen=max(last_good_keep, 1))
@@ -126,6 +132,8 @@ class CheckpointManager:
         if step in self._rejected:
             return
         self._rejected.add(step)
+        if not self._persist:
+            return
         try:
             tmp = self._rejected_path + ".tmp"
             with open(tmp, "w") as fh:
@@ -158,6 +166,9 @@ class CheckpointManager:
         ``step`` on a thread. A step at or below the newest one is not
         saved (returns False), as orbax's manager skips it."""
         step = int(step)
+        if not self._persist:
+            raise RuntimeError("this manager does not write (persist=False: "
+                               "a non-primary rank's)")
         spec = faults.inject("checkpoint.save")
         self.wait()
         latest = self.latest_step()

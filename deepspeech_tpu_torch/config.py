@@ -98,9 +98,8 @@ class DataConfig:
     shuffle_seed: int = 1234
     language: str = "en"  # "en" | "zh"
     vocab_path: str = ""
-    # The JAX package's C++ loader, which computes the same features;
-    # the port featurizes with numpy (data/pipeline.py) and reads
-    # nothing here.
+    # The C++ feature loader (csrc/host/dsp.cc): data/pipeline.py takes
+    # it where the JAX pipeline does, for an uncached corpus.
     native_loader: bool = True
     quarantine_corrupt: bool = True
 

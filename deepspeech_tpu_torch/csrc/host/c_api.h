@@ -1,7 +1,6 @@
-/* C API of the port's C++ host decoder: the n-gram query engine and the
- * CTC prefix beam-search decoder, the decoder part of the JAX package's
- * native/src/c_api.h (its audio/DSP part is left out: the port
- * featurizes in numpy).
+/* C API of the port's C++ host library: the n-gram query engine, the
+ * CTC prefix beam-search decoder and the audio/DSP loader of the JAX
+ * package's native/src/c_api.h.
  *
  * Bound from Python with ctypes (deepspeech_tpu_torch/native.py). All
  * functions are thread-safe for distinct handles; a handle must not be
@@ -77,6 +76,44 @@ int ds2n_beam_search_batch(const float* log_probs, int B, int T_max, int V,
                            int32_t* out_ids, int32_t* out_lens,
                            float* out_scores, int32_t* out_counts,
                            int nbest, int max_len, int n_threads);
+
+/* ------------------------------------------------------ audio / DSP -- */
+
+/* Number of frames the featurizer produces for n samples (0 if n<win). */
+int ds2n_num_frames(int n_samples, int win, int hop);
+
+/* Log-magnitude spectrogram with optional pre-emphasis and
+ * per-utterance normalization; matches
+ * deepspeech_tpu_torch.data.features.featurize_np in layout:
+ * out is [T, F] with F = n_fft/2 + 1, T = ds2n_num_frames(...).
+ * Returns T, or -1 on error. */
+int ds2n_featurize(const float* audio, int n_samples, int win, int hop,
+                   int n_fft, float preemph, int normalize, float eps,
+                   float* out);
+
+/* Parse a PCM WAV file (8/16/32-bit int or float32, any channel count;
+ * channels are averaged to mono).  On success *out receives a malloc'd
+ * float32 buffer (release with ds2n_free) and *n_samples its length;
+ * returns the sample rate, or -1 on error. */
+int ds2n_load_wav(const char* path, float** out, int* n_samples);
+
+/* End-to-end native loader: read B wav files, featurize each with a
+ * thread pool, write padded features into out [B, max_frames, F] and
+ * per-utterance frame counts into out_frames (clipped to max_frames).
+ * Files whose sample rate != sample_rate, or that fail to parse, get
+ * out_frames[b] = -1 and a zero row.  Returns 0, or -1 on hard error. */
+int ds2n_load_featurize_batch(const char* const* paths, int B,
+                              int sample_rate, int win, int hop, int n_fft,
+                              float preemph, int normalize, float eps,
+                              int max_frames, float* out,
+                              int32_t* out_frames, int n_threads);
+
+/* Featurize B in-memory audio buffers with a thread pool into the same
+ * padded layout as ds2n_load_featurize_batch. */
+int ds2n_featurize_batch(const float* const* audios, const int32_t* lens,
+                         int B, int win, int hop, int n_fft, float preemph,
+                         int normalize, float eps, int max_frames,
+                         float* out, int32_t* out_frames, int n_threads);
 
 /* ------------------------------------------------------------- misc -- */
 

@@ -29,9 +29,22 @@ features with NaN, so the scrubber catches it, or, with quarantine off,
 the training guardian does) and ``pipeline.device_prefetch`` before each
 batch's copy to the device (``latency`` stalls it, ``error`` fails it).
 
-Features are computed with numpy (``featurize_np``); the JAX package's
-C++ loader (``data.native_loader``) computes the same features and has
-no counterpart here, so that field is inert.
+Features: the C++ loader (``csrc/host/dsp.cc`` through ``native.py``'s
+``load_featurize_batch``: WAVs read and featurized on a thread pool,
+outside the interpreter lock) where the JAX pipeline takes it, that is
+``data.native_loader`` on, the feature cache off (a corpus past
+``MAX_CACHED_UTTS``, or ``cache=False``) and no waveform augmentation;
+SpecAugment masks its batch in place. A batch with a file that is not a
+``.wav`` or does not parse there goes through numpy (``featurize_np``),
+as the JAX pipeline's does: the reference's own data semantics, counted
+in ``native_fallbacks`` beside ``native_batches``. Small cached corpora
+featurize once with numpy.
+
+Under a process group (``parallel/``) each process builds only its rows
+of a global batch (``parallel.process_local_span``: the process-major
+equal split) and leaves the others zero; the SortaGrad plan, the
+augmentation keys and the quarantine stay per utterance, so a row's
+bits do not depend on the rank that builds it.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from .. import obs
 from ..config import Config
 from ..resilience import faults
 from ..resilience import postmortem as _postmortem
+from ..parallel.mesh import process_local_span
 from .features import featurize_np, load_audio
 from .manifest import Utterance, load_manifest
 from .sampler import BatchPlan, SortaGradSampler
@@ -316,7 +330,11 @@ class DataPipeline:
     def __init__(self, cfg: Config, tokenizer: CharTokenizer,
                  manifest_path: Optional[str] = None,
                  utterances: Optional[List[Utterance]] = None,
-                 logger=None):
+                 logger=None, cache: Optional[bool] = None):
+        """``cache`` overrides the size rule of the feature cache (None:
+        cache when the corpus has at most ``MAX_CACHED_UTTS``
+        utterances); ``cache=False`` takes the big-corpus path, fresh
+        featurization a batch, through the C++ loader where it applies."""
         self.cfg = cfg
         self.tokenizer = tokenizer
         if utterances is None:
@@ -329,7 +347,14 @@ class DataPipeline:
             cfg.data.bucket_frames, cfg.data.batch_size,
             sortagrad=cfg.data.sortagrad, seed=cfg.data.shuffle_seed)
         self._cache: Dict[int, np.ndarray] = {}
-        self._cache_enabled = len(self.utts) <= self.MAX_CACHED_UTTS
+        self._cache_enabled = (len(self.utts) <= self.MAX_CACHED_UTTS
+                               if cache is None else cache)
+        # The C++ loader: for big uncached corpora, where a batch's
+        # featurization is on the step's critical path.
+        self._native = bool(cfg.data.native_loader
+                            and not self._cache_enabled)
+        self.native_batches = 0
+        self.native_fallbacks = 0
         self.logger = logger
         self.quarantined = 0
         self._lock = threading.Lock()
@@ -364,14 +389,48 @@ class DataPipeline:
 
     def _materialize(self, plan: BatchPlan,
                      epoch: Optional[int] = None) -> Batch:
-        """One batch plan -> a padded host batch. ``epoch`` is set for
-        training batches and keys the augmentation; None (eval, peek)
-        never augments."""
+        """One batch plan -> a padded host batch; under a process group
+        only this process's rows are built, the rest left zero. ``epoch``
+        is set for training batches and keys the augmentation; None
+        (eval, peek) never augments."""
+        b = len(plan.indices)
+        lo, hi = process_local_span(b)
+        if (lo, hi) == (0, b):
+            return self._materialize_local(plan, epoch)
+        local = self._materialize_local(
+            BatchPlan(plan.indices[lo:hi], plan.bucket_frames, plan.bucket_id),
+            epoch)
+        out = {k: np.zeros((b,) + v.shape[1:], v.dtype)
+               for k, v in local.items()}
+        for k, v in local.items():
+            out[k][lo:hi] = v
+        return out
+
+    def _materialize_local(self, plan: BatchPlan,
+                           epoch: Optional[int] = None) -> Batch:
         data = self.cfg.data
         labels = [self.tokenizer.encode(self.utts[int(i)].text)
                   for i in plan.indices]
         augment = data.augment and epoch is not None
         spec_aug = data.spec_augment and epoch is not None
+        if self._native and not augment:
+            batch = self._materialize_native(plan, labels)
+            if batch is not None:
+                if spec_aug:
+                    from .augment import spec_augment_features
+
+                    # Mask each row's valid frames in place (only the
+                    # waveform augmentation needs fresh featurization).
+                    for r, i in enumerate(plan.indices):
+                        n = int(batch["feat_lens"][r])
+                        spec_augment_features(
+                            batch["features"][r, :n], data.shuffle_seed,
+                            epoch, int(i), copy=False)
+                batch, _ = scrub_padded_batch(
+                    batch, ids=self._utt_ids(plan),
+                    enabled=data.quarantine_corrupt,
+                    on_quarantine=self._on_quarantine)
+                return batch
         if augment:
             from .augment import augment_audio
 
@@ -401,6 +460,38 @@ class DataPipeline:
             on_quarantine=self._on_quarantine)
         return pad_batch(feats, labels, plan.bucket_frames,
                          data.max_label_len, self.cfg.model.time_stride)
+
+    def _materialize_native(self, plan: BatchPlan,
+                            labels: List[List[int]]) -> Optional[Batch]:
+        """A batch's WAVs read and featurized by the C++ loader. None
+        (the caller featurizes with numpy, counted in
+        ``native_fallbacks``) when a file is not a ``.wav`` or fails to
+        parse there."""
+        from .. import native
+
+        paths = [self.utts[int(i)].audio for i in plan.indices]
+        frames = None
+        if all(p.endswith(".wav") for p in paths):
+            feats, frames = native.load_featurize_batch(
+                paths, self.cfg.features, max_frames=plan.bucket_frames)
+        if frames is None or np.any(frames < 0):
+            with self._lock:
+                self.native_fallbacks += 1
+            return None
+        with self._lock:
+            self.native_batches += 1
+        b = len(paths)
+        data = self.cfg.data
+        labs = np.zeros((b, data.max_label_len), dtype=np.int32)
+        lab_lens = np.zeros((b,), dtype=np.int32)
+        for i, y in enumerate(labels):
+            y = y[:min(len(y), data.max_label_len, _max_feasible_labels(
+                int(frames[i]), plan.bucket_frames,
+                self.cfg.model.time_stride))]
+            labs[i, :len(y)] = y
+            lab_lens[i] = len(y)
+        return {"features": feats, "feat_lens": frames.astype(np.int32),
+                "labels": labs, "label_lens": lab_lens}
 
     def peek(self) -> Batch:
         """First epoch-0 batch, materialized synchronously (no worker)."""

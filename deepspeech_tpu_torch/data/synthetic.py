@@ -41,7 +41,11 @@ class SyntheticPipeline:
     """``n_utts`` synthetic utterances as ``cfg.data.batch_size`` batches
     of ``frames`` frames (default: the smallest bucket), with the
     interface the trainer reads (JAX ``train._SyntheticPipeline``):
-    every epoch yields the same batches in the same order."""
+    every epoch yields the same batches in the same order. Every process
+    builds the whole global batch (``provides_global_batches``), so a
+    mesh whose batch axis does not cross processes may use it."""
+
+    provides_global_batches = True
 
     def __init__(self, cfg: Config, n_utts: int, frames: int = 0,
                  label_len: int = 12):

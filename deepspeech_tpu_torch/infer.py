@@ -95,10 +95,10 @@ _OFFLINE_MODES = ("greedy", "beam", "beam_fused", "beam_fused_device",
 _BEAM_MODES = ("beam", "beam_fused", "beam_fused_device")
 
 _LATER = {
-    "sp_greedy": "slice 9 (sequence parallelism)",
-    "sp_beam": "slice 9 (sequence parallelism)",
-    "rnnt_greedy": "slice 9 (RNN-T)",
-    "rnnt_beam": "slice 9 (RNN-T)",
+    "sp_greedy": "item 14 (sequence parallelism)",
+    "sp_beam": "item 14 (sequence parallelism)",
+    "rnnt_greedy": "item 15 (RNN-T)",
+    "rnnt_beam": "item 15 (RNN-T)",
 }
 
 

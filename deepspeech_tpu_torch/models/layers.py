@@ -7,6 +7,16 @@ with the JAX package's running-stat convention: biased variance and
 ``running = 0.99 * running + 0.01 * batch``. ``nn.BatchNorm1d`` keeps
 the unbiased variance with the opposite momentum convention, so it is
 not used.
+
+Under data parallelism (``MaskedBatchNorm.group`` set to the data
+group) the statistics are the global ones the JAX package's GSPMD step
+takes over the whole sharded batch: ``Σw`` and ``Σw·x`` are all-reduced,
+then the mean taken, then ``Σw·(x−mean)²`` all-reduced, the two-pass
+form of one device, with the **global** count clamped to 1. The
+all-reduces are autograd-aware (``parallel/comm.py``), so the backward
+carries the other ranks' share of the gradient through the statistics,
+and the running buffers stay the same on every rank. ``nn.SyncBatchNorm``
+is neither masked nor two-pass.
 """
 
 from __future__ import annotations
@@ -15,6 +25,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ..parallel.comm import all_reduce_sum
 
 BN_MOMENTUM = 0.99
 BN_EPS = 1e-5
@@ -31,11 +43,14 @@ def length_mask(lens: torch.Tensor, t_max: int) -> torch.Tensor:
             < lens[:, None]).float()
 
 
-def masked_bn_stats(x32: torch.Tensor, mask: Optional[torch.Tensor]):
+def masked_bn_stats(x32: torch.Tensor, mask: Optional[torch.Tensor],
+                    group=None):
     """Mask-weighted (mean, biased var) over all axes but the last.
 
     ``x32`` is float32 ``[B, T, ..., C]``; ``mask`` is [B, T] or None
-    for all-valid.
+    for all-valid. ``group`` (a data-parallel process group) takes the
+    statistics over every rank's rows (module docstring); None computes
+    on this rank's rows alone, with no collective.
     """
     if mask is None:
         w = torch.ones(x32.shape[:-1], dtype=torch.float32,
@@ -44,10 +59,13 @@ def masked_bn_stats(x32: torch.Tensor, mask: Optional[torch.Tensor]):
         w = mask.reshape(mask.shape + (1,) * (x32.dim() - 3)).expand(
             x32.shape[:-1])
     dims = tuple(range(x32.dim() - 1))
-    denom = torch.clamp(w.sum(), min=1.0)
     wexp = w[..., None]
-    mean = (x32 * wexp).sum(dims) / denom
-    var = (wexp * (x32 - mean) ** 2).sum(dims) / denom
+    # Σw and Σw·x in one all-reduce (none without a group).
+    sums = all_reduce_sum(torch.cat([w.sum().reshape(1),
+                                     (x32 * wexp).sum(dims)]), group)
+    denom = torch.clamp(sums[0], min=1.0)
+    mean = sums[1:] / denom
+    var = all_reduce_sum((wexp * (x32 - mean) ** 2).sum(dims), group) / denom
     return mean, var
 
 
@@ -57,7 +75,8 @@ class MaskedBatchNorm(nn.Module):
     ``scale``/``bias`` are parameters, ``mean``/``var`` running buffers.
     In training mode the batch statistics normalize and update the
     running ones; in eval mode the running ones normalize. Computes in
-    f32 and returns the input dtype.
+    f32 and returns the input dtype. ``group`` (None: this rank's rows)
+    is the data-parallel group the statistics are taken over.
     """
 
     def __init__(self, channels: int, momentum: float = BN_MOMENTUM,
@@ -69,12 +88,13 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.group = None
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
         x32 = x.float()
         if self.training:
-            mean, var = masked_bn_stats(x32, mask)
+            mean, var = masked_bn_stats(x32, mask, self.group)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_(
                     (1 - self.momentum) * mean)

@@ -1,12 +1,16 @@
-"""ctypes bindings of the port's C++ host decoder (``csrc/host``).
+"""ctypes bindings of the port's C++ host library (``csrc/host``).
 
-The port's copy of the decoder part of the JAX package's
-``native/bindings.py``. Each wrapper has the signature and return value
-of its pure-Python oracle, so the two are interchangeable:
+The port's copy of the JAX package's ``native/bindings.py``: the
+decoder and the audio loader. Each wrapper has the signature and return
+value of its pure-Python oracle, so the two are interchangeable:
 
   NativeNGram               <-> decode.ngram.NGramLM
   beam_search_native        <-> decode.beam_host.prefix_beam_search_host
   beam_search_batch_native  -> one threaded C++ call over a batch
+  featurize_native          <-> data.features.featurize_np
+  load_wav_native           <-> data.features.load_audio
+  load_featurize_batch      -> WAVs read and featurized on a thread pool
+                               (``data.native_loader``)
 
 The library is built with ``g++`` at first use (``ops/_build.py``
 ``load_host``). ``available()`` says whether it built and loaded;
@@ -81,6 +85,21 @@ def _configure(lib) -> None:
         _c_int32_p, _c_int32_p, _c_float_p, _c_int32_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int]
     lib.ds2n_last_error.restype = ctypes.c_char_p
+    lib.ds2n_free.argtypes = [ctypes.c_void_p]
+    lib.ds2n_num_frames.restype = ctypes.c_int
+    lib.ds2n_num_frames.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.ds2n_featurize.restype = ctypes.c_int
+    lib.ds2n_featurize.argtypes = [
+        _c_float_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, _c_float_p]
+    lib.ds2n_load_wav.restype = ctypes.c_int
+    lib.ds2n_load_wav.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(_c_float_p), _c_int32_p]
+    lib.ds2n_load_featurize_batch.restype = ctypes.c_int
+    lib.ds2n_load_featurize_batch.argtypes = [
+        _c_char_pp, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, _c_float_p, _c_int32_p, ctypes.c_int]
 
 
 def available() -> bool:
@@ -251,3 +270,69 @@ def beam_search_batch_native(
 
 
 beam_search_batch_native.calls = 0
+
+
+def featurize_native(audio: np.ndarray, cfg) -> np.ndarray:
+    """audio [N] -> log-spectrogram [T, F]; the contract of
+    ``featurize_np`` (``cfg`` a ``FeatureConfig``)."""
+    from .data.features import frame_params
+
+    lib = _lib_or_raise()
+    win, hop, n_fft = frame_params(cfg)
+    a = _as_float32(audio)
+    t = lib.ds2n_num_frames(a.shape[0], win, hop)
+    out = np.zeros((max(t, 0), cfg.num_features), dtype=np.float32)
+    if t <= 0:
+        return out
+    rc = lib.ds2n_featurize(
+        a.ctypes.data_as(_c_float_p), a.shape[0], win, hop, n_fft,
+        ctypes.c_float(cfg.preemphasis), 1 if cfg.normalize else 0,
+        ctypes.c_float(cfg.eps), out.ctypes.data_as(_c_float_p))
+    if rc < 0:
+        raise RuntimeError(f"ds2n_featurize: {_last_error(lib)}")
+    return out
+
+
+def load_featurize_batch(paths: Sequence[str], cfg, max_frames: int,
+                         n_threads: int = 0
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """WAV paths -> ``([B, max_frames, F] features, [B] frames)``, each
+    file read and featurized on a C++ thread pool (``n_threads`` <= 0:
+    the host's cores); ``frames[b] == -1`` marks a file that failed to
+    load (another sample rate, or unparseable), its row zero."""
+    from .data.features import frame_params
+
+    lib = _lib_or_raise()
+    win, hop, n_fft = frame_params(cfg)
+    b = len(paths)
+    arr = (ctypes.c_char_p * b)(*[p.encode("utf-8") for p in paths])
+    out = np.zeros((b, max_frames, cfg.num_features), dtype=np.float32)
+    out_frames = np.zeros((b,), dtype=np.int32)
+    rc = lib.ds2n_load_featurize_batch(
+        arr, b, cfg.sample_rate, win, hop, n_fft,
+        ctypes.c_float(cfg.preemphasis), 1 if cfg.normalize else 0,
+        ctypes.c_float(cfg.eps), max_frames,
+        out.ctypes.data_as(_c_float_p),
+        out_frames.ctypes.data_as(_c_int32_p), n_threads)
+    if rc != 0:
+        raise RuntimeError(f"ds2n_load_featurize_batch: {_last_error(lib)}")
+    return out, out_frames
+
+
+def load_wav_native(path: str, sample_rate: int) -> np.ndarray:
+    """A WAV as float32 mono; the contract of ``load_audio`` (raises
+    ``ValueError`` on a file that does not parse or another rate)."""
+    lib = _lib_or_raise()
+    buf = _c_float_p()
+    n = ctypes.c_int32(0)
+    rate = lib.ds2n_load_wav(path.encode("utf-8"), ctypes.byref(buf),
+                             ctypes.byref(n))
+    if rate < 0:
+        raise ValueError(f"ds2n_load_wav: {_last_error(lib)}")
+    try:
+        if rate != sample_rate:
+            raise ValueError(
+                f"{path}: rate {rate} != {sample_rate}; resample offline")
+        return np.ctypeslib.as_array(buf, shape=(n.value,)).copy()
+    finally:
+        lib.ds2n_free(buf)

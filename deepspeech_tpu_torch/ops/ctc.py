@@ -51,7 +51,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, gru
 from .precision import full_f32_matmul
 
 NEG = -1e30  # log(0) without -inf NaN hazards
@@ -378,6 +378,7 @@ def ctc_alpha(log_probs: torch.Tensor, ext: torch.Tensor,
     loglik = torch.empty((b,), dtype=torch.float32, device=log_probs.device)
     alphas = (torch.empty((b, t, s), dtype=torch.float32,
                           device=log_probs.device) if tape else None)
+    gru.require_current(log_probs, "ctc_alpha")
     lib = _lib()
     rc = lib.ctc_alpha_launch(
         log_probs.data_ptr(), ext.data_ptr(), skip.data_ptr(),
@@ -420,6 +421,7 @@ def ctc_beta(log_probs: torch.Tensor, ext: torch.Tensor, skip: torch.Tensor,
         raise ValueError("ctc_beta needs B >= 1 and T >= 1")
     gamma = torch.empty((b, t, s), dtype=torch.float32,
                         device=log_probs.device)
+    gru.require_current(log_probs, "ctc_beta")
     lib = _lib()
     rc = lib.ctc_beta_launch(
         log_probs.data_ptr(), ext.data_ptr(), skip.data_ptr(),

@@ -500,6 +500,20 @@ def _require_cuda(xp: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} runs on cpu or cuda, not {xp.device}")
 
 
+def require_current(t: torch.Tensor, name: str) -> None:
+    """Refuse a CUDA tensor that is not on the current device: the
+    kernels launch through ``ctypes`` on the current device, so one on
+    another card would run on the wrong card (a process group's rank
+    sets its device at ``initialize_distributed``). Never moved
+    quietly."""
+    index = t.device.index
+    if index is not None and index != torch.cuda.current_device():
+        raise ValueError(
+            f"{name}: the tensor is on {t.device}, the current device is "
+            f"cuda:{torch.cuda.current_device()}; call "
+            "torch.cuda.set_device first")
+
+
 def _launch(name: str, xp: torch.Tensor, mask: torch.Tensor,
             w: torch.Tensor, tensors: Sequence[Optional[torch.Tensor]],
             reverse: Tuple[bool, ...]) -> None:
@@ -508,6 +522,7 @@ def _launch(name: str, xp: torch.Tensor, mask: torch.Tensor,
     mask, w, *tensors, D, T, B, H, reverse_bits, device, stream)``;
     ``tensors`` are the pointer arguments after ``w`` in the C order
     (None for a null pointer)."""
+    require_current(xp, name)
     lib, launch = _launcher(name, len(tensors))
     t, bsz, _ = xp.shape
     d, h = w.shape[0], w.shape[1]

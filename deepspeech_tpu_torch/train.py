@@ -39,17 +39,41 @@ where the ``tensorboard`` package is missing) and ``train.profile_dir``
 a ``torch.profiler`` trace of ``train.profile_steps`` steps from
 ``train.profile_start_step``.
 
-What the JAX trainer has and this slice does not raises
-``NotImplementedError`` naming the slice of the port that brings it:
-multi-device meshes, ZeRO and gradient accumulation (slice 5), sequence
-parallelism, RNN-T and pipelining (slice 9).
+Data parallelism (JAX ``train.py:253-295``, ``:411-462``,
+``:576-628``): ``Trainer`` lays the model over a ``(data, model)`` mesh
+of the process group (``parallel/mesh.py``; ``train.mesh_shape``, or a
+``mesh``). Each rank takes its own contiguous rows of the global batch
+and runs every kernel on them; the masked BN takes global statistics
+over the data group and a sharded vocabulary head gathers its logits
+over the model group (``models/ds2.py``). A step then all-reduces the
+gradients over the data group in ONE flat all-reduce, divided by the
+data size, before the clip; the reported loss is all-reduced to the
+global mean, so the guardian judges the same loss, gradient norm and
+update norm on every rank and every rank skips, backs off or rolls
+back together. ``train.accum_steps`` splits the batch into strided
+microbatches (row r into microbatch ``r % accum``), threads the BN
+statistics through them in order and averages the gradients and the
+loss. ``train.zero_opt_sharding`` keeps each rank's rows of the
+optimizer state (``parallel/zero.py``). Only the primary rank logs,
+writes TensorBoard and writes checkpoints (the ZeRO and head shards
+gathered into the dense layout); every rank restores and re-shards.
+Without a process group no collective runs; under a group of one rank
+every collective runs over that rank, which is exact, so both give the
+one-card step, bit for bit.
+
+What the JAX trainer has and the port does not yet raises
+``NotImplementedError`` naming the queue item that brings it: sequence
+parallelism and pipelining (item 14), RNN-T (item 15).
 
 CLI: ``python -m deepspeech_tpu_torch.train --config=dev_slice
 [--synthetic=N] [--device=cpu] [--section.key=value ...]``: it trains
 on ``data.train_manifest`` (or N synthetic utterances), evaluates on
 ``data.eval_manifest``, restores ``train.checkpoint_dir``'s newest step
 first, and ends with a ``{"event": "done", ...}`` line. A fresh run's
-weights are a random init seeded by ``train.seed``.
+weights are a random init seeded by ``train.seed``. ``torchrun
+--nproc_per_node=N -m deepspeech_tpu_torch.train --config=...
+--train.mesh_shape=0,1`` trains on N cards (``initialize_distributed``
+joins the group first); with one process it behaves as on one card.
 """
 
 from __future__ import annotations
@@ -57,13 +81,15 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Callable, Dict, Iterable, List, Optional
+import zlib
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import obs
-from .bridge import from_flax, init_params, to_flax
+from .bridge import _flatten, from_flax, init_params, to_flax
 from .config import Config
 from .data.pipeline import device_prefetch
 from .data.tokenizer import CharTokenizer
@@ -71,29 +97,27 @@ from .decode.greedy import greedy_decode, ids_to_texts
 from .device import resolve_device
 from .infer import PrintLogger
 from .metrics import char_errors, word_errors
-from .models.ds2 import DeepSpeech2
+from .models.ds2 import HEAD_KEYS, DeepSpeech2
 from .ops.ctc import ctc_loss_mean
+from .parallel import comm, zero
+from .parallel.distributed import (is_initialized, is_primary,
+                                   process_count)
+from .parallel.mesh import (DATA_AXIS, Mesh, make_mesh, process_local_rows,
+                            process_local_span, shard_batch)
 from .resilience import faults
 from .resilience.guardian import STEP_HIST, GuardianConfig
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise on what the JAX trainer has and this slice does not."""
+    """Raise on what the JAX trainer has and the port does not yet."""
     t = cfg.train
     later = [
-        (t.accum_steps > 1, "train.accum_steps > 1: gradient accumulation "
-                            "comes with slice 5 of the port"),
-        (len(t.mesh_shape) != 2 or any(n > 1 for n in t.mesh_shape),
-         f"train.mesh_shape={t.mesh_shape}: meshes of more than one device "
-         "come with slice 5 of the port"),
-        (t.zero_opt_sharding, "train.zero_opt_sharding: ZeRO comes with "
-                              "slice 5 of the port"),
-        (t.sequence_parallel, "train.sequence_parallel comes with slice 9 "
+        (t.sequence_parallel, "train.sequence_parallel comes with item 14 "
                               "of the port"),
-        (t.objective == "rnnt", "train.objective='rnnt' comes with slice 9 "
+        (t.objective == "rnnt", "train.objective='rnnt' comes with item 15 "
                                 "of the port"),
         (cfg.model.pipeline_stages > 1, "model.pipeline_stages > 1 comes "
-                                        "with slice 9 of the port"),
+                                        "with item 14 of the port"),
     ]
     for cond, msg in later:
         if cond:
@@ -140,14 +164,33 @@ def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+def global_norm(tensors: Sequence[torch.Tensor],
+                sharded: Sequence[bool] = (), group=None) -> torch.Tensor:
+    """``optax.global_norm``: the square root of every element's square,
+    summed. The tensors ``sharded`` marks are this rank's columns of a
+    leaf split over ``group`` (the sharded head): their squares are
+    all-reduced over it, so every rank gets the whole leaf's norm."""
+    sq = [t.float().square().sum() for t in tensors]
+    own = [i for i, s in enumerate(sharded) if s]
+    if own:
+        whole = comm.all_reduce_sum(torch.stack([sq[i] for i in own]), group)
+        for j, i in enumerate(own):
+            sq[i] = whole[j]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """Scale ``grads`` in place as ``optax.clip_by_global_norm`` does:
     ``g / norm * max_norm`` when ``norm >= max_norm``, unchanged below
     (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``). Returns the
-    global norm before clipping, on the device (no host sync)."""
-    norm = torch.sqrt(torch.stack([g.float().square().sum()
-                                   for g in grads]).sum())
+    global norm before clipping (``norm`` when given: the
+    :func:`global_norm` of a sharded head), on the device (no host
+    sync)."""
+    if norm is None:
+        norm = global_norm(grads)
     clip = norm >= max_norm
     for g in grads:
         g.copy_(torch.where(clip, g / norm * max_norm, g))
@@ -163,51 +206,120 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device
             for k, v in batch.items()}
 
 
+class LocalBatch(dict):
+    """A batch that is already this rank's rows on its device (``fit``'s
+    prefetched batches): the steps take it as it is."""
+
+
+class _Silent:
+    """The logger of a non-primary rank: only the primary logs."""
+
+    def log(self, event: str, **fields) -> None:
+        pass
+
+
+def _checksum(*trees) -> int:
+    """CRC-32 of flax-layout trees' names and bytes, in key order."""
+    crc = 0
+    for tree in trees:
+        for k, v in sorted(_flatten(tree or {}).items()):
+            crc = zlib.crc32(k.encode(), crc)
+            crc = zlib.crc32(np.ascontiguousarray(v).tobytes(), crc)
+    return crc
+
+
 class Trainer:
-    """Epoch loop over a pipeline's batches on one device, with greedy
-    WER/CER evaluation and, with ``train.checkpoint_dir`` set,
-    checkpoints and resume.
+    """Epoch loop over a pipeline's batches on one device, or on this
+    rank's device of a ``(data, model)`` mesh, with greedy WER/CER
+    evaluation and, with ``train.checkpoint_dir`` set, checkpoints and
+    resume.
 
     ``pipeline`` has the interface of ``data.DataPipeline`` (``peek``,
     ``epoch(e, start)``, ``eval_epoch``, ``batches_per_epoch``; as
-    ``data.SyntheticPipeline`` has too). ``logger.log(event, **fields)``
-    receives ``train_step``, ``epoch_end``, ``eval`` and ``restore``
-    events, and a pipeline without a logger of its own gets this one for
-    its ``corrupt_sample`` events. ``device`` None means the card
-    (raises without CUDA); "cpu" runs the plain versions. ``params`` /
-    ``batch_stats`` (flax-layout trees) default to
+    ``data.SyntheticPipeline`` has too) and yields global batches
+    (under a process group, real data in this process's rows).
+    ``logger.log(event, **fields)`` receives ``train_step``,
+    ``epoch_end``, ``eval`` and ``restore`` events, and a pipeline
+    without a logger of its own gets this one for its ``corrupt_sample``
+    events; on a non-primary rank nothing is logged. ``device`` None
+    means the card (raises without CUDA; this rank's card in a process
+    group); "cpu" runs the plain versions.
+    ``params`` / ``batch_stats`` (flax-layout trees) default to
     ``bridge.init_params`` seeded by ``train.seed``. ``preempt`` (a
     :class:`~.resilience.preempt.PreemptionGuard`) is polled once a step
-    by ``fit``.
+    by ``fit``. ``mesh`` (``parallel.make_mesh``) defaults to
+    ``make_mesh(train.mesh_shape)`` over the process group; without a
+    group that is one device, and a mesh of more raises JAX's
+    ``ValueError``.
     """
 
     def __init__(self, cfg: Config, pipeline, tokenizer: CharTokenizer,
                  eval_pipeline=None, logger=None, device=None,
-                 params=None, batch_stats=None, preempt=None):
+                 params=None, batch_stats=None, preempt=None,
+                 mesh: Optional[Mesh] = None):
         check_supported(cfg)
         self.cfg = cfg
         self.pipeline = pipeline
         self.eval_pipeline = eval_pipeline
         self.tokenizer = tokenizer
-        self.logger = logger or PrintLogger()
+        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            cfg.train.mesh_shape)
+        self.world = process_count()
+        self.primary = is_primary()
+        self.accum = max(cfg.train.accum_steps, 1)
+        b = cfg.data.batch_size
+        if self.world > 1:
+            # The pipeline fills only this process's rows by the equal
+            # process-major split; the mesh's row ownership must agree.
+            # A batch axis that does not cross processes (data=1)
+            # replicates every row everywhere, which only a pipeline
+            # that builds the whole global batch on every rank serves.
+            local = process_local_rows(self.mesh, b)
+            replicated_ok = local == (0, b) and getattr(
+                pipeline, "provides_global_batches", False)
+            if local != process_local_span(b) and not replicated_ok:
+                raise ValueError(
+                    "mesh device order breaks the process-major batch "
+                    "split assumed by the data pipeline: "
+                    f"{local} != {process_local_span(b)}")
+        data_size = self.mesh.shape[DATA_AXIS]
+        if b % (self.accum * data_size):
+            raise ValueError(
+                f"batch_size {b} must divide by "
+                f"accum_steps*data = {self.accum}*{data_size}")
+        self.logger = (logger or PrintLogger()) if self.primary else _Silent()
         for pipe in (pipeline, eval_pipeline):
             if pipe is not None and getattr(pipe, "logger", 0) is None:
                 pipe.logger = self.logger
-        self.device = resolve_device(device)
         self.steps_per_epoch = max(pipeline.batches_per_epoch(1), 1)
         self.lr_schedule = make_lr_schedule(cfg, self.steps_per_epoch)
         if params is None:
             params, batch_stats = init_params(
                 cfg, torch.Generator().manual_seed(cfg.train.seed))
-        self.model = DeepSpeech2(cfg.model, cfg.features.num_features)
-        self.model.load_state_dict(from_flax(params, batch_stats or {}))
+        if is_initialized():
+            self._check_same_init(params, batch_stats)
+        self.model = DeepSpeech2(cfg.model, cfg.features.num_features,
+                                 mesh=self.mesh)
+        self.model.load_state_dict(from_flax(params, batch_stats or {},
+                                             self.model.head_group))
         self.model.to(self.device)
-        self.optimizer = make_optimizer(cfg, self.model.parameters())
+        self._params = list(self.model.parameters())
+        # Which parameters are this rank's columns of the sharded head.
+        self._sharded = [n in HEAD_KEYS and self.model.head_group is not None
+                         for n, _ in self.model.named_parameters()]
+        self._layout = zero.layout(self.model, self.mesh,
+                                   cfg.train.zero_opt_sharding)
+        self._zero = {i: s for i, s in self._layout.items() if s.zero}
+        # The tensors the optimizer steps: a ZeRO leaf's rows, else the
+        # parameter itself.
+        self.opt_params = zero.zero_params(self._params, self._layout)
+        self.optimizer = make_optimizer(cfg, self.opt_params)
         self.step = 0
         self.start_epoch = 0
         self.preempt = preempt
         self.tb = None
-        if cfg.train.tensorboard_dir:
+        if cfg.train.tensorboard_dir and self.primary:
             from .utils.logging import TensorBoardLogger
 
             self.tb = TensorBoardLogger(cfg.train.tensorboard_dir)
@@ -223,7 +335,8 @@ class Trainer:
             self.ckpt = CheckpointManager(
                 cfg.train.checkpoint_dir, keep=cfg.train.keep_checkpoints,
                 last_good_keep=(self.guardian_cfg.ring_size
-                                if self.guardian_cfg else 2))
+                                if self.guardian_cfg else 2),
+                persist=self.primary)
         self.guardian = None
         if self.guardian_cfg is not None:
             from .resilience.guardian import TrainingGuardian
@@ -233,59 +346,177 @@ class Trainer:
         # The guarded step's host-side undo, settled by commit_step.
         self._pending = None
 
+    def _check_same_init(self, params, batch_stats) -> None:
+        """Every rank seeds its init the same way, as every JAX host
+        does, with no broadcast: check once, with one all-gather of a
+        checksum, that they agree."""
+        mine = torch.tensor([_checksum(params, batch_stats)],
+                            dtype=torch.int64)
+        mine = mine.to(comm.collective_device(dist.group.WORLD))
+        sums = [torch.empty_like(mine) for _ in range(self.world)]
+        dist.all_gather(sums, mine)
+        sums = [int(x) for x in sums]
+        if len(set(sums)) != 1:
+            raise ValueError(f"the ranks' initial parameters differ "
+                             f"(checksums {sums}); seed every rank alike")
+
+    def _barrier(self) -> None:
+        if self.world > 1:
+            dist.barrier()
+
+    def local_batch(self, batch: Dict[str, np.ndarray]
+                    ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a global batch (host arrays, or tensors),
+        on the device; a :class:`LocalBatch` as it is."""
+        if isinstance(batch, LocalBatch):
+            return batch
+        return shard_batch(self.mesh, batch, self.device)
+
+    def _host_rows(self, batch: Dict[str, np.ndarray]
+                   ) -> Dict[str, np.ndarray]:
+        """This rank's rows of a global host batch (views)."""
+        lo, hi = process_local_rows(self.mesh, len(batch["feat_lens"]))
+        return {k: v[lo:hi] for k, v in batch.items()}
+
     def maybe_restore(self) -> None:
         """Restore the newest intact step of ``train.checkpoint_dir``:
-        parameters, BN statistics, optimizer state, step and epoch."""
+        parameters, BN statistics, optimizer state, step and epoch (every
+        rank reads the same step and takes its shards of it)."""
         if self.ckpt is None:
             return
         restored = self.ckpt.restore()
         if restored is None:
             return
         self.model.load_state_dict(from_flax(restored["params"],
-                                             restored["batch_stats"]))
+                                             restored["batch_stats"],
+                                             self.model.head_group))
         if restored["opt_state"] is not None:
-            self.optimizer.load_state_dict(restored["opt_state"])
+            self.optimizer.load_state_dict(zero.local_state_dict(
+                restored["opt_state"], self._layout))
         self.step = restored["step"]
         self.start_epoch = restored["epoch"]
         self.logger.log("restore", step=self.step, epoch=self.start_epoch)
 
+    def optimizer_state_dict(self) -> Dict:
+        """The optimizer's ``state_dict`` in the dense layout a one-card
+        run has (ZeRO rows and head columns gathered: a collective, every
+        rank calls it)."""
+        return zero.dense_state_dict(self.optimizer.state_dict(),
+                                     self._layout)
+
     def save(self, epoch: int) -> None:
         """Checkpoint the current step with ``epoch``, the epoch a
-        resume starts in. The state is on the host when this returns."""
+        resume starts in. The state is on the host when this returns.
+        Every rank calls it; the primary writes."""
         if self.ckpt is None:
             return
-        params, batch_stats = to_flax(self.model.state_dict())
-        self.ckpt.save(self.step, {
-            "params": params, "batch_stats": batch_stats,
-            "opt_state": self.optimizer.state_dict(), "epoch": epoch,
-            "config": self.cfg.name})
+        head = self.model.head_group
+        if self.primary or head is not None:  # a gather is collective
+            params, batch_stats = to_flax(self.model.state_dict(), head)
+        opt_state = self.optimizer_state_dict()
+        if self.primary:
+            self.ckpt.save(self.step, {
+                "params": params, "batch_stats": batch_stats,
+                "opt_state": opt_state, "epoch": epoch,
+                "config": self.cfg.name})
+
+    def _wait_saved(self) -> None:
+        """The primary's writer joined, then every rank past a barrier:
+        the step is on disk for all."""
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        self._barrier()
+
+    def _grads(self, dev: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Forward, CTC and backward on this rank's rows, the gradients
+        left in the parameters' ``.grad`` averaged over the data group;
+        returns the step's loss, the global mean.
+
+        With ``accum`` microbatches the split is strided: row r goes to
+        microbatch ``r % accum`` (JAX ``train.py:257-283``). Since
+        ``batch_size % (accum * data) == 0``, this rank's contiguous
+        block starts at a multiple of ``accum``, so its local row j is
+        global row ``lo + j`` and lands in microbatch ``j % accum``:
+        ``rows[k::accum]`` locally is this rank's share of the global
+        microbatch k. The BN running statistics are threaded through the
+        microbatches in order; the gradients and the loss are summed and
+        divided by ``accum``."""
+        self.model.train()
+        self.model.zero_grad(set_to_none=True)
+        loss = None
+        for k in range(self.accum):
+            # accum 1: the whole batch (a stride of 1 is a view).
+            mb = {key: v[k::self.accum].contiguous()
+                  for key, v in dev.items()}
+            logits, lens = self.model(mb["features"], mb["feat_lens"])
+            mloss = ctc_loss_mean(logits, mb["labels"], lens,
+                                  mb["label_lens"])
+            mloss.backward()
+            mloss = mloss.detach()
+            loss = mloss if loss is None else loss + mloss
+        with torch.no_grad():
+            for p in self._params:
+                if p.grad is None:  # an unused leaf: JAX's zero gradient
+                    p.grad = torch.zeros_like(p)
+                elif self.accum > 1:
+                    p.grad /= self.accum
+        if self.accum > 1:
+            loss = loss / self.accum
+        # ONE flat all-reduce of the gradients over the data group,
+        # divided by the data size, before the clip; the loss reported is
+        # the global mean.
+        comm.all_reduce_mean_([p.grad for p in self._params],
+                              self.mesh.data_group)
+        comm.all_reduce_mean_([loss], self.mesh.data_group)
+        return loss
+
+    def _norm(self, tensors: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of per-parameter tensors (a sharded head's
+        squares summed over the model group)."""
+        return global_norm(tensors, self._sharded, self.model.head_group)
+
+    def _clip(self) -> torch.Tensor:
+        grads = [p.grad for p in self._params]
+        return clip_by_global_norm(grads, self.cfg.train.grad_clip_norm,
+                                   self._norm(grads))
+
+    def _optimizer_step(self, lr: float) -> None:
+        """Set the rate and step. A ZeRO leaf's rows take the parameter's
+        current rows and gradient, are stepped, and the updated rows are
+        all-gathered into the parameter."""
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        with torch.no_grad():
+            for i, s in self._zero.items():
+                p, rows = self._params[i], self.opt_params[i]
+                rows.copy_(p.narrow(s.dim, s.lo, s.n))
+                rows.grad = (None if p.grad is None else
+                             p.grad.narrow(s.dim, s.lo, s.n).contiguous())
+        self.optimizer.step()
+        with torch.no_grad():
+            for i, s in self._zero.items():
+                self._params[i].copy_(comm.all_gather_dim(
+                    self.opt_params[i].detach(), s.dim, s.group))
 
     def train_step(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
-        """One step on a batch (host arrays, or tensors on the device):
-        forward in train mode, mean CTC, backward, global norm, clip,
-        optimizer step at this step's rate. Returns
-        ``{"loss", "grad_norm"}`` as device scalars.
+        """One step on a global batch (host arrays, or tensors on the
+        device; this rank takes its rows): forward in train mode, mean
+        CTC, backward, the gradients averaged over the data group, global
+        norm, clip, optimizer step at this step's rate. Returns
+        ``{"loss", "grad_norm"}`` as device scalars, the same on every
+        rank.
 
         With the guardian on this is the guarded step
         (:meth:`guarded_step` at the guardian's ``lr_scale``), and the
         caller settles it with :meth:`commit_step`."""
         if self.guardian is not None:
             return self.guarded_step(batch, self.guardian.lr_scale)
-        dev = to_device(batch, self.device)
-        self.model.train()
-        logits, lens = self.model(dev["features"], dev["feat_lens"])
-        loss = ctc_loss_mean(logits, dev["labels"], lens, dev["label_lens"])
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        grads = [p.grad for p in self.model.parameters()
-                 if p.grad is not None]
-        grad_norm = clip_by_global_norm(grads, self.cfg.train.grad_clip_norm)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_schedule(self.step)
-        self.optimizer.step()
+        loss = self._grads(self.local_batch(batch))
+        grad_norm = self._clip()
+        self._optimizer_step(self.lr_schedule(self.step))
         self.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        return {"loss": loss, "grad_norm": grad_norm}
 
     def guarded_step(self, batch: Dict[str, np.ndarray], lr_scale: float
                      ) -> Dict[str, torch.Tensor]:
@@ -296,7 +527,10 @@ class Trainer:
         the optimizer's state tensors on the device) is kept as it was
         on the device; after the step each is written back as
         ``torch.where(ok, new, old)``, ``ok`` being a finite loss,
-        gradient norm and update norm: no host sync. The update norm is
+        gradient norm and update norm: no host sync. Under a process
+        group all three are the same on every rank (the loss and the
+        gradients all-reduced, the parameters all-gathered), so a
+        poisoned batch on one rank gates the step on all. The update norm is
         the applied update's divided back by ``lr_scale``, as the JAX
         step reports it. The optimizer state that torch keeps on the host
         (AdamW's ``step`` counters on a CUDA run) and state the step
@@ -308,8 +542,9 @@ class Trainer:
         run would not have. ``self.step`` advances in ``commit_step``.
         Returns ``{"loss", "grad_norm", "update_norm", "applied"}`` as
         device scalars."""
-        dev = to_device(batch, self.device)
-        params = list(self.model.parameters())
+        dev = self.local_batch(batch)
+        params = self._params
+        opt_params = self.opt_params
         buffers = list(self.model.buffers())
         state = self.optimizer.state
         with torch.no_grad():
@@ -317,28 +552,20 @@ class Trainer:
             old_buffers = [b.clone() for b in buffers]
             old_state = {p: {k: v.clone() for k, v in state[p].items()
                              if torch.is_tensor(v)}
-                         for p in params if state.get(p)}
-        self.model.train()
-        logits, lens = self.model(dev["features"], dev["feat_lens"])
-        loss = ctc_loss_mean(logits, dev["labels"], lens, dev["label_lens"])
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        grads = [p.grad for p in params if p.grad is not None]
-        grad_norm = clip_by_global_norm(grads, self.cfg.train.grad_clip_norm)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_schedule(self.step) * lr_scale
-        self.optimizer.step()
+                         for p in opt_params if state.get(p)}
+        loss = self._grads(dev)
+        grad_norm = self._clip()
+        self._optimizer_step(self.lr_schedule(self.step) * lr_scale)
         host: List = []
-        fresh = [p for p in params if state.get(p) and p not in old_state]
+        fresh = [p for p in opt_params if state.get(p) and p not in old_state]
         with torch.no_grad():
-            update_norm = torch.sqrt(torch.stack(
-                [(p - o).float().square().sum()
-                 for p, o in zip(params, old_params)]).sum()) / lr_scale
-            ok = (torch.isfinite(loss.detach()) & torch.isfinite(grad_norm)
+            update_norm = self._norm(
+                [p - o for p, o in zip(params, old_params)]) / lr_scale
+            ok = (torch.isfinite(loss) & torch.isfinite(grad_norm)
                   & torch.isfinite(update_norm))
             for t, old in zip(params + buffers, old_params + old_buffers):
                 t.copy_(torch.where(ok, t, old))
-            for p in params:
+            for p in opt_params:
                 before = old_state.get(p, {})
                 for k, v in state.get(p, {}).items():
                     if not torch.is_tensor(v):
@@ -350,7 +577,7 @@ class Trainer:
                     v.copy_(torch.where(ok, v, before[k] if k in before
                                         else torch.zeros_like(v)))
         self._pending = (host, fresh)
-        return {"loss": loss.detach(), "grad_norm": grad_norm,
+        return {"loss": loss, "grad_norm": grad_norm,
                 "update_norm": update_norm, "applied": ok}
 
     def commit_step(self, applied: bool) -> None:
@@ -387,19 +614,29 @@ class Trainer:
                             note="in-training eval uses greedy decode")
         pipe = self.eval_pipeline or self.pipeline
         self.model.eval()
-        werr = wtot = cerr = ctot = n = 0
+        # Each rank scores the rows it owns (a model group's ranks share
+        # theirs: only its first scores them); the counts are summed over
+        # the ranks once at the end.
+        scores = self.mesh.model_index == 0
+        counts = np.zeros((5,), np.int64)  # werr, wtot, cerr, ctot, n
         for batch, n_valid in pipe.eval_epoch():
-            dev = to_device(batch, self.device)
+            lo, _ = process_local_rows(self.mesh, len(batch["feat_lens"]))
+            dev = self.local_batch(batch)
             logits, lens = self.model(dev["features"], dev["feat_lens"])
             ids, out_lens = greedy_decode(logits, lens)
             hyps = ids_to_texts(ids, out_lens, self.tokenizer)
-            for g in range(n_valid):
+            for j, hyp in enumerate(hyps if scores else []):
+                g = lo + j
+                if g >= n_valid:
+                    break
                 ref = self.tokenizer.decode(
                     batch["labels"][g][:batch["label_lens"][g]])
-                we, wn = word_errors(ref, hyps[g])
-                ce, cn = char_errors(ref, hyps[g])
-                werr, wtot, cerr, ctot, n = (werr + we, wtot + wn,
-                                             cerr + ce, ctot + cn, n + 1)
+                we, wn = word_errors(ref, hyp)
+                ce, cn = char_errors(ref, hyp)
+                counts += (we, wn, ce, cn, 1)
+        if self.world > 1:
+            counts = comm.host_all_reduce(counts, dist.group.WORLD).numpy()
+        werr, wtot, cerr, ctot, n = (int(c) for c in counts)
         return {"wer": werr / max(wtot, 1), "cer": cerr / max(ctot, 1),
                 "n_utts": n}
 
@@ -449,9 +686,11 @@ class Trainer:
             for epoch in range(self.start_epoch, epochs):
                 t_epoch = time.perf_counter()
                 t_log, utts = time.perf_counter(), 0
-                batches = self.pipeline.epoch(epoch, start=skip)
+                batches = map(self._host_rows,
+                              self.pipeline.epoch(epoch, start=skip))
                 skip = 0
-                for batch in device_prefetch(batches, self.device):
+                for batch in map(LocalBatch,
+                                 device_prefetch(batches, self.device)):
                     # ">=" so that a resume past profile_start_step still
                     # traces the steps left of the window.
                     if (cfg.train.profile_dir and profiler is None
@@ -463,8 +702,8 @@ class Trainer:
                     if spec is not None and spec.kind == "nan_grad":
                         # Chaos: poison the batch so the step's loss and
                         # gradients come out non-finite.
-                        batch = dict(batch, features=batch["features"]
-                                     * float("nan"))
+                        batch = LocalBatch(
+                            batch, features=batch["features"] * float("nan"))
                     lr = self.lr_schedule(self.step)
                     if self.guardian is not None:
                         lr *= self.guardian.lr_scale
@@ -494,7 +733,8 @@ class Trainer:
                             continue
                         self.guardian.maybe_snapshot(self.step,
                                                      self.state_snapshot())
-                    utts += len(batch["feat_lens"])
+                    # The world's utterances: every data rank's rows.
+                    utts += len(batch["feat_lens"]) * self.mesh.data
                     if profiler is not None and self.step >= profile_end:
                         self._stop_profile(profiler)
                         profiler, profile_done = None, True
@@ -503,24 +743,27 @@ class Trainer:
                                 if k in ("loss", "grad_norm")}
                         now = time.perf_counter()
                         rate = utts / (now - t_log)
+                        # The world's rate and, as JAX logs it, a card's.
                         self.logger.log("train_step", step=self.step,
                                         epoch=epoch, lr=lr,
-                                        utt_per_sec=rate, **last)
+                                        utt_per_sec=rate,
+                                        utt_per_sec_per_card=rate
+                                        / self.world, **last)
                         if self.tb is not None:
                             self.tb.scalars(self.step, **last, lr=lr,
                                             utt_per_sec=rate)
                         t_log, utts = now, 0
                     if every and self.ckpt and self.step % every == 0:
                         self.save(epoch)
-                    if self.preempt is not None and self.preempt.requested():
+                    if self._preempt_requested():
                         # The grace window: persist this step with the
                         # current epoch, so a resume skips the consumed
                         # prefix and replays the rest in order.
                         if self.ckpt is not None:
-                            self.ckpt.wait()
+                            self._wait_saved()
                             if self.ckpt.latest_step() != self.step:
                                 self.save(epoch)
-                            self.ckpt.wait()
+                            self._wait_saved()
                         self.logger.log("preempted", step=self.step,
                                         epoch=epoch)
                         preempted = True
@@ -548,12 +791,23 @@ class Trainer:
             if self.tb is not None:
                 self.tb.close()
         if self.ckpt is not None:
-            self.ckpt.wait()
+            self._wait_saved()
         if preempted:
             last = dict(last, preempted=True)
         if self.guardian is not None:
             last = dict(last, guardian=self.guardian.report())
         return last
+
+    def _preempt_requested(self) -> bool:
+        """Whether any rank was asked to stop: every rank stops at the
+        same step."""
+        if self.preempt is None:
+            return False
+        asked = bool(self.preempt.requested())
+        if self.world > 1:
+            asked = bool(comm.host_all_reduce(
+                [int(asked)], dist.group.WORLD, dist.ReduceOp.MAX)[0])
+        return asked
 
     def _start_profile(self):
         """A ``torch.profiler`` window over the host and, on the card,
@@ -598,6 +852,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     args, extra = parser.parse_known_args(argv)
     cfg = apply_overrides(get_config(args.config),
                           parse_cli_overrides(extra))
+    from .parallel import initialize_distributed
+
+    # Under torchrun: join the group (and take this rank's card) before
+    # anything touches a device. One process: no group.
+    initialize_distributed(device=args.device)
     logger = PrintLogger()
     old_vocab = cfg.model.vocab_size
     if args.synthetic:
@@ -628,9 +887,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                           device=args.device, preempt=guard)
         trainer.maybe_restore()
         result = trainer.fit()
-    print(json.dumps({"event": "done", "steps": trainer.step,
-                      **{k: v for k, v in result.items()
-                         if isinstance(v, (int, float))}}))
+    if trainer.primary:
+        print(json.dumps({"event": "done", "steps": trainer.step,
+                          **{k: v for k, v in result.items()
+                             if isinstance(v, (int, float))}}))
 
 
 if __name__ == "__main__":

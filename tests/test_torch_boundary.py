@@ -83,7 +83,8 @@ OWN_COPIES = ("deepspeech_tpu_torch/utils/quantize.py",
               "deepspeech_tpu_torch/serving/transport.py",
               "deepspeech_tpu_torch/resilience/guardian.py",
               "deepspeech_tpu_torch/resilience/preempt.py",
-              "deepspeech_tpu_torch/utils/logging.py")
+              "deepspeech_tpu_torch/utils/logging.py",
+              "deepspeech_tpu_torch/parallel/distributed.py")
 
 
 def test_no_jax_or_reference_imports():
@@ -114,7 +115,12 @@ def test_import_leaves_jax_unloaded():
             "deepspeech_tpu_torch.serving.transport, "
             "deepspeech_tpu_torch.resilience.guardian, "
             "deepspeech_tpu_torch.resilience.preempt, "
-            "deepspeech_tpu_torch.utils.logging; "
+            "deepspeech_tpu_torch.utils.logging, "
+            "deepspeech_tpu_torch.parallel, "
+            "deepspeech_tpu_torch.parallel.comm, "
+            "deepspeech_tpu_torch.parallel.mesh, "
+            "deepspeech_tpu_torch.parallel.zero, "
+            "deepspeech_tpu_torch.data.pipeline; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

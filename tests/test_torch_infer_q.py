@@ -120,7 +120,12 @@ def test_model_holds_int8_and_runs_only_without_gradient():
     ({"decode.mode": "sp_greedy"}, ValueError, "offline decode modes"),
     ({"decode.mode": "sp_beam"}, ValueError, "offline decode modes"),
     ({"decode.mode": "streaming"}, ValueError, "unidirectional"),
-    ({"decode.mode": "rnnt_greedy"}, NotImplementedError, "slice 9")])
+    ({"decode.mode": "rnnt_greedy"}, NotImplementedError, "item 15")],
+    # The ids the cases had when the last one named slice 9.
+    ids=["over0-ValueError-offline decode modes",
+         "over1-ValueError-offline decode modes",
+         "over2-ValueError-unidirectional",
+         "over3-NotImplementedError-slice 9"])
 def test_mode_guards(over, err, match):
     cfg = apply_overrides(get_config("ds2_small"), {**OVER, **over})
     params, stats = bridge.init_params(cfg, torch.Generator().manual_seed(0))

@@ -235,23 +235,58 @@ def test_train_cli_ends_with_done():
     assert np.isfinite(last["loss"]) and np.isfinite(last["grad_norm"])
 
 
+# The ids are the cases' names from when all six raised.
 @pytest.mark.parametrize("over,match", [
-    ({"train.accum_steps": "2"}, "slice 5"),
-    ({"train.mesh_shape": "2,1"}, "slice 5"),
-    ({"train.zero_opt_sharding": "true"}, "slice 5"),
-    ({"train.sequence_parallel": "true"}, "slice 9"),
-    ({"train.objective": "rnnt"}, "slice 9"),
-    ({"model.pipeline_stages": "2"}, "slice 9"),
+    ({"train.accum_steps": "2"}, None),
+    ({"train.mesh_shape": "2,1"}, "needs 2 devices, have 1"),
+    ({"train.zero_opt_sharding": "true"}, None),
+    ({"train.sequence_parallel": "true"}, "item 14"),
+    ({"train.objective": "rnnt"}, "item 15"),
+    ({"model.pipeline_stages": "2"}, "item 14"),
 ], ids=["over1-slice 5", "over2-slice 5", "over3-slice 5", "over4-slice 9",
         "over5-slice 9", "over6-slice 9"])
 def test_unported_training_options_raise(over, match):
+    """The options the port once refused. Item 10's three work now:
+    ``accum_steps=2`` trains through the CLI, ``mesh_shape=2,1`` in one
+    process raises JAX's ``ValueError`` (a mesh larger than the world),
+    and ZeRO at world size 1 trains. The rest raise naming the queue
+    item that brings them."""
     cfg = apply_overrides(get_config("ds2_small"),
                           {"train.checkpoint_dir": "", **over})
-    with pytest.raises(NotImplementedError, match=match):
+    if "train.accum_steps" in over:
         check_supported(cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer(cfg, SyntheticPipeline(cfg, 1), CharTokenizer.english(),
-                device="cpu")
+        cmd = [sys.executable, "-m", "deepspeech_tpu_torch.train",
+               "--config=dev_slice", "--synthetic=8", "--device=cpu",
+               "--model.rnn_hidden=16", "--model.rnn_layers=2",
+               "--data.batch_size=4", "--train.checkpoint_dir=",
+               "--train.epochs=1", "--train.accum_steps=2"]
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=300, env=ONE_THREAD)
+        assert out.returncode == 0, out.stderr
+        last = json.loads(out.stdout.strip().splitlines()[-1])
+        assert last["event"] == "done" and last["steps"] == 2
+        assert np.isfinite(last["loss"]) and np.isfinite(last["grad_norm"])
+    elif "train.mesh_shape" in over:
+        check_supported(cfg)
+        with pytest.raises(ValueError, match=match):
+            Trainer(cfg, SyntheticPipeline(cfg, 1), CharTokenizer.english(),
+                    device="cpu")
+    elif "train.zero_opt_sharding" in over:
+        check_supported(cfg)
+        _, tcfg = _configs("dev_slice", {"train.zero_opt_sharding": "true",
+                                         "model.rnn_hidden": "16",
+                                         "data.bucket_frames": "48"})
+        trainer = Trainer(tcfg, SyntheticPipeline(tcfg, 8, label_len=4),
+                          CharTokenizer.english(), device="cpu")
+        last = trainer.fit(epochs=1)
+        assert trainer.step == 2 and np.isfinite(last["loss"])
+        assert trainer.opt_params == trainer._params
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            check_supported(cfg)
+        with pytest.raises(NotImplementedError, match=match):
+            Trainer(cfg, SyntheticPipeline(cfg, 1), CharTokenizer.english(),
+                    device="cpu")
 
 
 @pytest.mark.parametrize("option", ["guardian", "tensorboard_dir",
