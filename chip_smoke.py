@@ -188,12 +188,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    --decode=beam`` equal to ``Inferencer(decode.mode="beam")`` in f32
    and ``--quant-tier=premium`` equal to ``--decode=beam``; the wall ms
    of a manager step in beam and greedy at capacities 1 and 32;
-   ``rescore_phase``: ``ds2_beam_lm`` behind the gateway on 32 requests
+   ``rescore_phase``: ``ds2_beam_lm`` behind the gateway on 16 requests
    with ``Replica.from_inferencer(nbest=True)`` and a ``RescoringPool``
    over the phase's character trigram: texts equal to ``nbest=False``,
    each n-best equal to ``decode_batch_nbest``, each revision host
    ``rescore_nbest``'s pick, a replay's revision stream the same, a
-   fired brownout rescore rung shedding 32 of 32, 3 K4 a micro-batch;
+   fired brownout rescore rung shedding 16 of 16, 3 K4 a micro-batch;
    dispatch p50/p95 with and without, the pump's ms a job;
 10. the serving plane's controllers (``controllers_phase``, on the
    serve phase's WAVs through ``serve.serve_files_pooled`` with
@@ -247,7 +247,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and within ``DP_B_TOL`` of one process's update, their step ms; and
    the C++ feature loader against numpy on the manifest phase's 128
    seeded WAVs with the cache off (host s a batch);
-13. prints each phase's seconds on a line of its own, a
+13. item 17, the warm store (``warm_restart_phase``, after the
+   gateway), ds2_small at full width in fresh processes
+   (``chip_smoke.py --warm-child``, started together, each let go when
+   the one before has exited): process A, with a fresh store, serves
+   every (B, T) rung once through the gateway on a premium bf16 and a
+   bulk int8 replica (every rung a miss; 72 K4 and 72 K10) and the
+   export hook writes 24 recipes a tier; process B, the restart,
+   preloads them in ``Replica.from_inferencer`` (each rung captured as a
+   CUDA graph before admission: 24 hits a tier, no miss or reject,
+   ``warm_pct`` 100) and serves the same requests: texts equal to A's,
+   every replayed ``log_softmax`` bit-equal to the eager forward on the
+   same rows, no first use (``compiles == 0``), no eager recurrent
+   launch, 72 K4 and 72 K10 replayed (each graph's captured count times
+   its replays, added to the kernels line); then, while those two
+   replicas serve the requests again on another thread, round after
+   round, an ``AutoscaleController`` with the store scales up a third,
+   bf16 replica, capturing its 24 rungs before the pool routes to it (24
+   hits, no miss or reject, each replay bit-equal to the serving
+   replica's, the serving texts unchanged; the rounds' replays are added
+   too); a foreign fingerprint rejecting every rung and one changed
+   ``sig`` exactly its rung; this process replays each tier's (32,
+   1700) rung from the store under the profiler (K4's and K10's kernels
+   by name); the preload's seconds and the pool's bytes (the ladder, the
+   largest rung), the first request on a cold and a preloaded rung at
+   (1, 400) and (32, 1700) in A, B and a third fresh process, and a
+   replayed (32, 1700) forward against the eager one;
+14. prints each phase's seconds on a line of its own, a
    ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -391,8 +417,13 @@ def _phase(name: str, fn, *args):
     return out
 
 
-def _time_ms(fn, reps: int) -> float:
-    fn()
+def _time_ms(fn, reps: int, warm: bool = True) -> float:
+    """CUDA-event ms a call of ``fn`` over ``reps`` calls, after one
+    warm-up call; ``warm=False`` skips the warm-up, for the plain
+    versions, which each phase's checks have just run at the timed
+    shape (a host-bound loop of 0.25–1.7 s a call)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -590,7 +621,7 @@ def gru_fwd_kernel_phase(gen, kernel: str, h: int, timed, d1_h=None):
         hd = d1_h if d == 1 else h
         args, valid = make(d, torch.bfloat16, False, gen, T, B, hd)
         ms = _time_ms(lambda: fn(*args), reps=5)
-        plain_ms = _time_ms(lambda: plain(*args), reps=1)
+        plain_ms = _time_ms(lambda: plain(*args), reps=1, warm=False)
         cudnn = torch.nn.GRU(hd, hd, bidirectional=d == 2)
         if quantized:
             # No PyTorch call computes an int8-weight GRU: the yardstick
@@ -984,7 +1015,7 @@ def lstm_kernel_phase(gen, kernel: str, h: int, timed):
             lambda: fn(*args), want=frozenset(
                 _STREAM_KERNELS[kernel](torch.bfloat16, h)
                 if kernel in _STREAM_KERNELS else ()))
-        plain_ms = _time_ms(lambda: plain(*args), reps=1)
+        plain_ms = _time_ms(lambda: plain(*args), reps=1, warm=False)
         lib = _cudnn_lstm(args, h)
         x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
             torch.bfloat16)
@@ -1116,7 +1147,8 @@ def lstm_bwd_kernel_phase(gen, kernel: str, h: int, timed):
         _, device_ms, _ = _device_kernels(
             lambda: fn(*args),
             want=frozenset(_STREAM_KERNELS[kernel](bf16, h)))
-        plain_ms = _time_ms(lambda: lstm.lstm_bwd_plain(*args), reps=1)
+        plain_ms = _time_ms(lambda: lstm.lstm_bwd_plain(*args), reps=1,
+                            warm=False)
         # Yardstick: the backward of cuDNN's bf16 LSTM (input and weight
         # gradients), timed apart from its forward.
         xp, mask, w, bias, ys, cs, dy, reverse = args
@@ -1260,10 +1292,12 @@ def ctc_kernel_phase(gen):
         "loss_only": _time_ms(lambda: ctc.ctc_alpha(*prep, tape=False), 10),
         "beta": _time_ms(lambda: ctc.ctc_beta(*prep, tape, ll), 10)}
     plain = {
-        "alpha": _time_ms(lambda: ctc.ctc_alpha_plain(*prep, tape=True), 1),
+        "alpha": _time_ms(lambda: ctc.ctc_alpha_plain(*prep, tape=True), 1,
+                          warm=False),
         "loss_only": _time_ms(
-            lambda: ctc.ctc_alpha_plain(*prep, tape=False), 1),
-        "beta": _time_ms(lambda: ctc.ctc_beta_plain(*prep, tape, ll), 1)}
+            lambda: ctc.ctc_alpha_plain(*prep, tape=False), 1, warm=False),
+        "beta": _time_ms(lambda: ctc.ctc_beta_plain(*prep, tape, ll), 1,
+                         warm=False)}
     # Yardstick: torch's CTC on the same log-probs, forward and backward
     # (the pair the taped alpha and the beta replace) and forward alone.
     lp_tbv = lp.transpose(0, 1).detach().requires_grad_()
@@ -1420,7 +1454,8 @@ def gru_bwd_kernel_phase(gen, kernel: str, h: int, timed):
         check = f"D{d}_bf16"
         args, valid = inputs(d, torch.bfloat16, (T, B, h))
         ms = _time_ms(lambda: fn(*args), reps=3)
-        plain_ms = _time_ms(lambda: gru.gru_bwd_plain(*args), reps=1)
+        plain_ms = _time_ms(lambda: gru.gru_bwd_plain(*args), reps=1,
+                            warm=False)
         # Yardstick: the backward of cuDNN's GRU in bf16 (input and
         # weight gradients), timed apart from its forward.
         cudnn = torch.nn.GRU(h, h, bidirectional=d == 2).to(
@@ -3092,6 +3127,645 @@ def pooled_stream_phase(root: str, card: str):
     return launches + launches_mig
 
 
+WARM_PRESET = "ds2_small"
+WARM_TRIAL_RUNGS = ((1, 400), (32, 1700))
+WARM_TIMED = 5               # (32, 1700) forwards a turn, eager and replayed
+WARM_SIG_RUNG = (8, 800)     # the rung whose entry's sig the phase changes
+WARM_CHILD_S = 120.0         # a warm-restart child that has not exited fails
+
+
+def _warm_requests(cfg, rng):
+    """One group of requests a rung of ``cfg``'s ladder: for each (B, T)
+    rung, B utterances of lengths in T's bucket (one of exactly T), so
+    a flush of the group is one micro-batch on that rung."""
+    from deepspeech_tpu_torch.data.infer_bucket import ladder_shapes
+
+    f, groups = cfg.features.num_features, []
+    edges = sorted(cfg.data.bucket_frames)
+    for b, t in ladder_shapes(edges, cfg.data.batch_size):
+        lo = max([e for e in edges if e < t], default=0)
+        lens = rng.integers(lo + 1, t + 1, size=b)
+        lens[0] = t
+        groups.append(((b, t), [rng.standard_normal(
+            (int(n), f), dtype=np.float32) for n in lens]))
+    return groups
+
+
+def _warm_gateway(reps, groups):
+    """Every group through a ``MicroBatchScheduler`` over ``ReplicaPool(
+    reps)`` (a premium bf16 and a bulk int8 replica), once a tier:
+    submit, ``flush_all``, ``dispatch_many``, under the watchdog. Returns
+    ``{rid: text}`` and each replica's decoded rungs."""
+    from deepspeech_tpu_torch.serving import MicroBatchScheduler, ReplicaPool
+
+    cfg = reps[0].inferencer.cfg
+    rungs = {rep.rid: [] for rep in reps}
+    for rep in reps:
+        def decode_fn(batch, plan, decode=rep.decode_fn, log=rungs[rep.rid]):
+            log.append((plan.batch_pad, plan.bucket_frames))
+            return decode(batch, plan)
+        rep.decode_fn = decode_fn
+    sched = MicroBatchScheduler(
+        cfg.data.bucket_frames, cfg.data.batch_size, max_queue=1 << 12,
+        default_deadline=60.0, default_timeout=None,
+        pool=ReplicaPool(reps, telemetry=reps[0].telemetry),
+        telemetry=reps[0].telemetry)
+    k = 0
+    with _watchdog("warm restart gateway", GATEWAY_WATCHDOG_S):
+        for _, feats in groups:
+            for tier in ("premium", "bulk"):
+                for x in feats:
+                    sched.submit(x, rid=f"w{k}", tier=tier)
+                    k += 1
+            sched.dispatch_many(sched.flush_all())
+        torch.cuda.synchronize()
+    _require(len(sched.results) == k and all(
+        r.status == "ok" for r in sched.results.values()),
+        "warm restart gateway: results "
+        f"{sorted({r.status for r in sched.results.values()})}")
+    want = sorted(rung for rung, _ in groups)
+    for rep in reps:
+        _require(sorted(rungs[rep.rid]) == want,
+                 f"warm restart gateway: {rep.rid} decoded rungs "
+                 f"{sorted(rungs[rep.rid])}, want each of {want} once")
+    return {rid: r.text for rid, r in sched.results.items()}
+
+
+def _family(tel, family: str) -> int:
+    return int(sum(v for k, v in tel.counters.items()
+                   if k.split("{", 1)[0] == family))
+
+
+def _warm_replicas(ws, tel, weights):
+    """The premium bf16 and bulk int8 ds2_small replicas on ``weights``,
+    built through ``Replica.from_inferencer(warmstore=ws)``; each
+    replica's seconds in it (the preload, with a store that holds the
+    ladder)."""
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.infer import Inferencer
+    from deepspeech_tpu_torch.serving import Replica
+
+    cfg = _config(WARM_PRESET)
+    params, stats = weights
+    reps, secs = [], {}
+    for rid, tier, quantize in (("p0", "premium", ""),
+                                ("b0", "bulk", "int8")):
+        inf = Inferencer(cfg, CharTokenizer.english(), params, stats,
+                         quantize=quantize)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps.append(Replica.from_inferencer(rid, inf, tier=tier,
+                                            telemetry=tel, warmstore=ws))
+        torch.cuda.synchronize()
+        secs[rid] = time.perf_counter() - t0
+    return reps, secs
+
+
+def _first_request_ms(inf, rng) -> dict:
+    """The host ms of ``inf``'s first ``decode_batch`` at each of
+    ``WARM_TRIAL_RUNGS`` (rows of exactly T frames), synchronised."""
+    f, out = inf.cfg.features.num_features, {}
+    for b, t in WARM_TRIAL_RUNGS:
+        batch = {"features": rng.normal(size=(b, t, f)).astype(np.float32),
+                 "feat_lens": np.full((b,), t, np.int32)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inf.decode_batch(batch)
+        torch.cuda.synchronize()
+        out[f"{b}x{t}"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _cold_first_requests(weights, rng) -> dict:
+    """A cold bf16 Inferencer's first requests (no store; the process's
+    first forwards, so they also pay its first use of cuBLAS, cuDNN
+    and the kernels)."""
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.infer import Inferencer
+
+    cold = Inferencer(_config(WARM_PRESET), CharTokenizer.english(),
+                      *weights)
+    return _first_request_ms(cold, rng)
+
+
+def _preloaded_first_requests(store: str, weights, rng) -> dict:
+    """A premium bf16 replica preloaded from ``store``: its first
+    requests on the same rungs."""
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.infer import Inferencer
+    from deepspeech_tpu_torch.serving import (Replica, ServingTelemetry,
+                                              WarmStore)
+
+    inf = Inferencer(_config(WARM_PRESET), CharTokenizer.english(),
+                     *weights)
+    Replica.from_inferencer("t0", inf, tier="premium",
+                            telemetry=ServingTelemetry(),
+                            warmstore=WarmStore(store, preset=WARM_PRESET,
+                                                background=False))
+    _require(all(r in inf.preloaded_forwards for r in WARM_TRIAL_RUNGS),
+             "warm trial: the trial rungs were not preloaded")
+    return _first_request_ms(inf, rng)
+
+
+def _warm_export_child(store: str, weights, stages) -> dict:
+    """Process A: a cold Inferencer's first requests (a trial, with the
+    preloaded ones at the end); a fresh store; a premium bf16 and a bulk
+    int8 replica (every rung a miss) serve every rung once through the
+    gateway, and the export hook writes each rung's recipe (background
+    threads, flushed); then a replica preloaded from those entries takes
+    its first requests."""
+    from deepspeech_tpu_torch.serving import ServingTelemetry, WarmStore
+
+    rng = np.random.default_rng(SEED + 19)
+    cold_ms = _cold_first_requests(weights, rng)
+    stages.mark("cold")
+    tel = ServingTelemetry()
+    ws = WarmStore(store, preset=WARM_PRESET)
+    reps, _ = _warm_replicas(ws, tel, weights)
+    stages.mark("replicas")
+    groups = _warm_requests(reps[0].inferencer.cfg,
+                            np.random.default_rng(SEED + 17))
+    stages.mark("requests")
+    n = len(groups)
+    _require(_family(tel, "compile_cache_miss") == 2 * n
+             and _family(tel, "compile_cache_hit") == 0,
+             f"warm export: preload of a fresh store {dict(tel.counters)}")
+    _zero_counts()
+    texts = _warm_gateway(reps, groups)
+    launches = _recurrent_counts()
+    ws.flush()
+    stages.mark("gateway")
+    exported = {rep.tier: ws.store.rungs(WARM_PRESET, rep.tier, "base")
+                for rep in reps}
+    for rep in reps:
+        _require(exported[rep.tier] == sorted(r for r, _ in groups),
+                 f"warm export: {rep.tier} entries {exported[rep.tier]}")
+        _require(rep.inferencer.shape_cache.compiles == n,
+                 f"warm export: {rep.rid} compiles "
+                 f"{rep.inferencer.shape_cache.compiles}")
+    want = {**{k: 0 for k in launches}, "gru_fwd": 3 * n, "gru_fwd_q": 3 * n}
+    _require(launches == want, f"warm export: launches {launches}, want "
+             f"{want}")
+    del reps
+    trial = {"cold_ms": cold_ms,
+             "preloaded_ms": _preloaded_first_requests(store, weights, rng)}
+    return {"texts": texts, "launches": launches, "trial": trial,
+            "exports": _family(tel, "compile_cache_export"),
+            "entries": {k: len(v) for k, v in exported.items()}}
+
+
+def _replay_ms(inf, graph, feats, lens) -> dict:
+    """CUDA-event ms of the eager (32, 1700) forward and its replay on
+    the same device tensors, in turns (eager, replay, replay, eager),
+    ``WARM_TIMED`` a turn."""
+    ms = {"eager": [], "replay": []}
+    for name in ("eager", "replay", "replay", "eager"):
+        fn = inf.forward if name == "eager" else graph
+        fn(feats, lens)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(WARM_TIMED):
+            fn(feats, lens)
+        end.record()
+        torch.cuda.synchronize()
+        ms[name].append(start.elapsed_time(end) / WARM_TIMED)
+    return {k: sum(v) / len(v) for k, v in ms.items()}
+
+
+class _Pressed:
+    """The live scale-up's scheduler: a full queue, pressure enough for
+    ``AutoscaleController`` to add a replica."""
+    max_queue, pending, max_batch = 8, 8, 2
+    tier_max_batch, tier_shift = {}, {}
+
+    def set_max_queue(self, n):
+        self.max_queue = max(int(n), self.pending, 1)
+        return self.max_queue
+
+
+def _warm_live_scale_up(ws, inf, reps, groups, texts, seen) -> dict:
+    """Capture while other replicas serve: an ``AutoscaleController``
+    with ``warmstore=ws`` scales up a premium replica on the fresh bf16
+    ``inf`` (its ladder preloaded before the pool routes to it, trigger
+    ``scale_up``) while ``reps`` serve the gateway's requests on another
+    thread, round after round until the newcomer is in (each round
+    synchronizes the card; its texts must equal ``texts``). The
+    newcomer: a hit a rung, no miss or reject, ``warm_pct`` 100, 3
+    captured K4 a rung, and each rung's replay bit-equal to the premium
+    replica's replay of the same rows (``seen``, itself bit-equal to the
+    eager forward). Returns the leg's report with the serving rounds'
+    K4/K10 replays."""
+    from deepspeech_tpu_torch.obs.metrics import _labeled
+    from deepspeech_tpu_torch.serving import (AutoscaleController, Replica,
+                                              ReplicaPool, ServingTelemetry)
+
+    n = len(groups)
+    fns = {rep.rid: rep.decode_fn for rep in reps}
+    graphs = {rep.rid: dict(rep.inferencer.preloaded_forwards)
+              for rep in reps}
+    replays0 = {(rid, k): g.replays for rid, gs in graphs.items()
+                for k, g in gs.items()}
+    started, done = threading.Event(), threading.Event()
+    rounds, errors = [], []
+
+    def serve():
+        try:
+            while not done.is_set():
+                for rep in reps:
+                    rep.decode_fn = fns[rep.rid]
+                t0 = time.perf_counter()
+                started.set()
+                got = _warm_gateway(reps, groups)
+                rounds.append((t0, time.perf_counter()))
+                _require(got == texts, "warm live scale-up: "
+                         f"{sum(got[k] != v for k, v in texts.items())} "
+                         "texts changed while a newcomer captured")
+        except BaseException as e:   # re-raised in the phase's thread
+            errors.append(e)
+        finally:
+            started.set()
+
+    tel = ServingTelemetry()
+    clock = [0.0]
+    pool = ReplicaPool([Replica("idle", decode_fn=lambda batch, plan: [],
+                                telemetry=tel, clock=lambda: clock[0])],
+                       telemetry=tel, clock=lambda: clock[0])
+    added = []
+
+    def factory(rid):
+        rep = Replica.from_inferencer(rid, inf, tier="premium",
+                                      telemetry=tel, clock=lambda: clock[0])
+        added.append(rep)
+        return rep
+
+    ctrl = AutoscaleController(
+        pool, factory, telemetry=tel, clock=lambda: clock[0],
+        min_replicas=1, max_replicas=2, hold_s=0.05, cooldown_s=1.0,
+        scheduler=_Pressed(), warmstore=ws,
+        postmortem_fn=lambda *a, **kw: None)
+    server = threading.Thread(target=serve, name="warm-live-serve",
+                              daemon=True)
+    server.start()
+    started.wait(GATEWAY_WATCHDOG_S)
+    try:
+        with _watchdog("warm live scale-up", GATEWAY_WATCHDOG_S):
+            t0 = time.perf_counter()
+            for t in (0.0, 0.1, 0.2):
+                clock[0] = t
+                ctrl.tick()
+            t1 = time.perf_counter()
+    finally:
+        done.set()
+        server.join(GATEWAY_WATCHDOG_S)
+    if errors:
+        raise errors[0]
+    _require(not server.is_alive(), "warm live scale-up: the serving "
+             "thread did not end")
+    overlap = sum(a < t1 and b > t0 for a, b in rounds)
+    _require(ctrl.scale_ups == 1 and len(added) == 1 and overlap >= 1,
+             f"warm live scale-up: {ctrl.scale_ups} scale-ups, "
+             f"{overlap} serving rounds during the preload")
+    new = added[0]
+    counts = {k: _family(tel, f"compile_cache_{k}")
+              for k in ("hit", "miss", "reject")}
+    gauge = tel.gauges[_labeled("warm_pct", {**new.labels, "tier":
+                                             "premium"})]
+    _require(counts == {"hit": n, "miss": 0, "reject": 0} and gauge == 100.0
+             and sorted(inf.preloaded_forwards) == sorted(
+                 r for r, _ in groups),
+             f"warm live scale-up: newcomer {counts}, warm_pct {gauge}")
+    for key, g in inf.preloaded_forwards.items():
+        features, feat_lens, lp, lens = seen[("p0", key)]
+        lp_n, lens_n = g(features, feat_lens)
+        _require(g.kernels == {"gru_fwd": 3} and torch.equal(lp_n, lp)
+                 and torch.equal(lens_n, lens),
+                 f"warm live scale-up: rung {key} captured {g.kernels}, "
+                 f"its replay off by {float((lp_n - lp).abs().max())}")
+    replayed = {"gru_fwd": 0, "gru_fwd_q": 0}
+    for rid, gs in graphs.items():
+        for k, g in gs.items():
+            for name, c in g.kernels.items():
+                replayed[name] += c * (g.replays - replays0[(rid, k)])
+    return {"preload_s": t1 - t0, "serving_rounds": len(rounds),
+            "rounds_during_preload": overlap, "newcomer": counts,
+            "warm_pct": gauge, "replayed": replayed}
+
+
+def _warm_restart_child(store: str, weights, stages) -> dict:
+    """Process B, the restart: a cold Inferencer's first requests first
+    (a trial, with the preloaded ones below); then the
+    premium bf16 and bulk int8 replicas preload every rung from A's
+    entries (24 hits a tier, no miss or reject, ``warm_pct`` 100) and
+    serve A's requests through the gateway on the replayed graphs:
+    no eager recurrent launch, no first use (``compiles == 0``), each
+    replayed ``log_softmax`` bit-equal to the eager forward on the same
+    rows; the replays' K4/K10 launches (each graph's captured count
+    times its replays); a (32, 1700) replay against the eager forward; a
+    live scale-up preloading a newcomer while these replicas serve
+    (``_warm_live_scale_up``); a foreign fingerprint rejecting every
+    rung and one changed ``sig`` exactly its rung."""
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.infer import Inferencer
+    from deepspeech_tpu_torch.obs.metrics import _labeled
+    from deepspeech_tpu_torch.serving import (Replica, ServingTelemetry,
+                                              WarmStore)
+    from deepspeech_tpu_torch.utils.aotstore import StoreKey
+
+    rng = np.random.default_rng(SEED + 18)
+    cold_ms = _cold_first_requests(weights, rng)
+    stages.mark("cold")
+    tel = ServingTelemetry()
+    ws = WarmStore(store, preset=WARM_PRESET, background=False)
+    reps, preload_s = _warm_replicas(ws, tel, weights)
+    stages.mark("replicas")
+    trial = {"cold_ms": cold_ms,
+             "preloaded_ms": _first_request_ms(reps[0].inferencer, rng)}
+    groups = _warm_requests(reps[0].inferencer.cfg,
+                            np.random.default_rng(SEED + 17))
+    stages.mark("requests")
+    n = len(groups)
+    _require(_family(tel, "compile_cache_hit") == 2 * n
+             and _family(tel, "compile_cache_miss") == 0
+             and _family(tel, "compile_cache_reject") == 0,
+             f"warm restart: preload counters {dict(tel.counters)}")
+    for rep in reps:
+        gauge = tel.gauges[_labeled("warm_pct", rep.labels)]
+        _require(gauge == 100.0, f"warm restart: {rep.rid} warm_pct {gauge}")
+    graphs = {rep.rid: dict(rep.inferencer.preloaded_forwards)
+              for rep in reps}
+    pools = {rep.rid: {
+        "ladder_bytes": rep.inferencer._graph_pool.reserved_bytes(),
+        "largest_rung_bytes": graphs[rep.rid][(32, 1700)].pool_bytes,
+        "preload_s": preload_s[rep.rid],
+        "largest_rung_capture_s": graphs[rep.rid][(32, 1700)].capture_s}
+        for rep in reps}
+    seen = {}
+    for rep in reps:
+        for key, g in graphs[rep.rid].items():
+            def recorded(features, feat_lens, g=g, key=(rep.rid, key)):
+                lp, lens = g(features, feat_lens)
+                seen[key] = (features, feat_lens, lp, lens)
+                return lp, lens
+            rep.inferencer.preloaded_forwards[key] = recorded
+    replays0 = {(rid, k): g.replays for rid, gs in graphs.items()
+                for k, g in gs.items()}
+    _zero_counts()
+    texts = _warm_gateway(reps, groups)
+    eager = _recurrent_counts()
+    stages.mark("gateway")
+    replayed = {"gru_fwd": 0, "gru_fwd_q": 0}
+    for rid, gs in graphs.items():
+        for k, g in gs.items():
+            for name, c in g.kernels.items():
+                replayed[name] += c * (g.replays - replays0[(rid, k)])
+    _require(not any(eager.values()),
+             f"warm restart: eager recurrent launches {eager} on a "
+             "preloaded ladder")
+    _require(replayed == {"gru_fwd": 3 * n, "gru_fwd_q": 3 * n},
+             f"warm restart: replayed launches {replayed}, want "
+             f"{3 * n} K4 and {3 * n} K10 (3 a forward)")
+    for rep in reps:
+        c = rep.inferencer.shape_cache.compiles
+        _require(c == 0, f"warm restart: {rep.rid} compiles {c}")
+    _require(len(seen) == 2 * n, f"warm restart: {len(seen)} rungs replayed")
+    by_rid = {rep.rid: rep for rep in reps}
+    for (rid, key), (features, feat_lens, lp, lens) in seen.items():
+        lp_e, lens_e = by_rid[rid].inferencer.forward(features, feat_lens)
+        _require(torch.equal(lp, lp_e) and torch.equal(lens, lens_e),
+                 f"warm restart: {rid} {key} replay differs from the eager "
+                 f"forward by {float((lp - lp_e).abs().max())}")
+    stages.mark("bits")
+    f = reps[0].inferencer.cfg.features.num_features
+    feats = torch.as_tensor(rng.normal(size=(32, 1700, f)).astype(
+        np.float32), device="cuda")
+    lens = torch.as_tensor(rng.integers(1201, 1701, size=32),
+                           device="cuda")
+    timing = {rep.rid: _replay_ms(rep.inferencer,
+                                  graphs[rep.rid][(32, 1700)], feats, lens)
+              for rep in reps}
+    stages.mark("timing")
+    for rep in reps:
+        rep.inferencer.preloaded_forwards.update(graphs[rep.rid])
+    live = _warm_live_scale_up(
+        ws, Inferencer(_config(WARM_PRESET), CharTokenizer.english(),
+                       *weights), reps, groups, texts, seen)
+    stages.mark("live")
+    del graphs, seen, reps
+    # A foreign fingerprint: every rung a reject, nothing captured; then
+    # the same Inferencer with one entry's sig changed: exactly that
+    # rung rejects.
+    inf = Inferencer(_config(WARM_PRESET), CharTokenizer.english(),
+                     *weights)
+    rep = Replica.from_inferencer(
+        "f0", inf, tier="premium",
+        telemetry=ServingTelemetry(), warmstore=WarmStore(
+            store, preset=WARM_PRESET, background=False,
+            fingerprint="torch=0|cuda=0|driver=0|plat=cuda|device=other"))
+    foreign = {k: _family(rep.telemetry, f"compile_cache_{k}")
+               for k in ("hit", "miss", "reject")}
+    _require(foreign == {"hit": 0, "miss": 0, "reject": n}
+             and not rep.inferencer.preloaded_forwards,
+             f"warm restart: foreign fingerprint {foreign}")
+    key = StoreKey(WARM_PRESET, "premium", "base", *WARM_SIG_RUNG)
+    meta, payload = ws.store.get(key)
+    ws.store.put(key, payload, meta["format"], sig="0000deadbeef0000")
+    try:
+        rep = Replica.from_inferencer(
+            "s0", inf, tier="premium", telemetry=ServingTelemetry(),
+            warmstore=ws)
+    finally:
+        ws.store.put(key, payload, meta["format"], sig=meta["sig"])
+    sig = {k: _family(rep.telemetry, f"compile_cache_{k}")
+           for k in ("hit", "miss", "reject")}
+    rejected = [k for k in rep.telemetry.counters
+                if k.startswith("compile_cache_reject")]
+    _require(sig == {"hit": n - 1, "miss": 0, "reject": 1}
+             and WARM_SIG_RUNG not in rep.inferencer.preloaded_forwards
+             and f'rung="{key.rung}"' in rejected[0],
+             f"warm restart: one sig changed {sig} {rejected}")
+    stages.mark("rejects")
+    return {"texts": texts, "replayed": replayed, "eager": eager,
+            "trial": trial, "pools": pools, "timing_ms": timing,
+            "live_scale_up": live, "foreign": foreign, "sig_changed": sig}
+
+
+class _Stages:
+    """Seconds since the child was let go at each named mark, for the
+    phase's time budget."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.marks = {}
+
+    def mark(self, name: str) -> None:
+        self.marks[name] = time.perf_counter() - self.t0
+
+
+def _warm_child(role: str, store: str, npz: str, out: str) -> int:
+    """``chip_smoke.py --warm-child export|restart|trial STORE NPZ OUT``:
+    one process of ``warm_restart_phase`` on the weights in ``NPZ``. It
+    imports and reads the weights, waits for the file ``OUT.go`` (the
+    parent starts every child at once, so their imports overlap, and
+    lets each go when the one before has exited), runs, and writes its
+    result to ``OUT`` as JSON."""
+    from deepspeech_tpu_torch.bridge import load_npz
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    weights = load_npz(npz)
+    deadline = time.perf_counter() + CHILD_PHASE_S
+    while not os.path.exists(out + ".go"):
+        if time.perf_counter() > deadline:
+            raise RuntimeError(f"warm {role} child: never let go")
+        time.sleep(0.01)
+    stages = _Stages()
+    torch.ones(1, device="cuda")
+    stages.mark("cuda")
+    if role == "export":
+        res = _warm_export_child(store, weights, stages)
+    elif role == "restart":
+        res = _warm_restart_child(store, weights, stages)
+    else:
+        rng = np.random.default_rng(SEED + 20)
+        res = {"trial": {
+            "cold_ms": _cold_first_requests(weights, rng),
+            "preloaded_ms": _preloaded_first_requests(store, weights, rng)}}
+    stages.mark("end")
+    res["stages"] = stages.marks
+    with open(out, "w") as fh:
+        json.dump(res, fh)
+    return 0
+
+
+def _spawn_warm_child(role: str, root: str, store: str, npz: str):
+    env = {k: v for k, v in os.environ.items() if k != "DS2_WARMSTORE_DIR"}
+    out = os.path.join(root, f"{role}.json")
+    return role, out, subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--warm-child", role,
+         store, npz, out], stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _wait_warm_child(role: str, out: str, proc, t0: float) -> dict:
+    """Wait for a child let go at ``t0`` (``WARM_CHILD_S``); returns its
+    result with its seconds from the go to its exit."""
+    try:
+        _, err = proc.communicate(timeout=WARM_CHILD_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise RuntimeError(f"warm {role} child: no exit after "
+                           f"{WARM_CHILD_S} s")
+    _require(proc.returncode == 0, f"warm {role} child exited "
+             f"{proc.returncode}:\n{err[-4000:]}")
+    with open(out) as fh:
+        res = json.load(fh)
+    res["child_s"] = time.perf_counter() - t0
+    return res
+
+
+def _go(out: str) -> float:
+    open(out + ".go", "w").close()
+    return time.perf_counter()
+
+
+def _warm_replay_trace(store: str, weights) -> dict:
+    """In this process (whose profiler is warm from the kernel phases):
+    each tier's (32, 1700) rung preloaded from ``store`` and replayed
+    once under the profiler; the trace must name K4's and K10's
+    kernels."""
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.infer import Inferencer
+    from deepspeech_tpu_torch.serving import (Replica, ServingTelemetry,
+                                              WarmStore)
+
+    graphs = []
+    for tier, quantize in (("premium", ""), ("bulk", "int8")):
+        inf = Inferencer(_config(WARM_PRESET), CharTokenizer.english(),
+                         *weights, quantize=quantize)
+        rep = Replica.from_inferencer(tier, inf, tier=tier,
+                                      telemetry=ServingTelemetry())
+        got = WarmStore(store, preset=WARM_PRESET).preload_replica(
+            rep, shapes=[(32, 1700)])
+        _require(got["hits"] == 1, f"warm trace: {tier} preload {got}")
+        graphs.append(inf.preloaded_forwards[(32, 1700)])
+    rng = np.random.default_rng(SEED + 21)
+    feats = rng.standard_normal((32, 1700, 161), dtype=np.float32)
+    lens = np.full((32,), 1700, np.int32)
+    want = _k4_kernels(torch.bfloat16, 800) | _k10_kernels(torch.bfloat16,
+                                                          800)
+    _, ran, runs = _device_kernels(lambda: [g(feats, lens) for g in graphs],
+                                   want=frozenset(want))
+    _require(want <= set(ran), f"warm restart: the replays' trace shows "
+             f"{sorted(ran)}, not {sorted(want)}")
+    return {"kernels": ran, "profiler_windows": runs}
+
+
+def warm_restart_phase(card: str):
+    """Item 17, the warm store, on ds2_small at full width in fresh
+    processes (``chip_smoke.py --warm-child``): process A exports every
+    rung's recipe of a premium bf16 and a bulk int8 replica through the
+    gateway (24 entries a tier); process B, the restart, preloads them
+    (each rung captured as a CUDA graph before admission) and serves the
+    same requests — texts equal to A's, on the graphs (``_warm_restart_
+    child``), and an autoscaler preloads a newcomer while they serve; a
+    third process takes only the first-request trial that A
+    and B take too. B and the third import while A runs. Then this
+    process replays each tier's (32, 1700) rung from the store under the
+    profiler (K4's and K10's kernels by name). Prints the preload's
+    seconds and the pool's bytes (the ladder and the largest rung), the
+    first-request ms on cold and preloaded rungs at (1, 400) and (32,
+    1700) in each of the 3 processes, and a replayed (32, 1700) forward
+    against the eager one. Returns A's eager and B's replayed K4
+    (``gru_fwd``) and K10 (``gru_fwd_q``) launches, the live leg's
+    serving replays included."""
+    from deepspeech_tpu_torch.bridge import init_params, save_npz
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_warm_")
+    store, npz = os.path.join(root, "store"), os.path.join(root, "w.npz")
+    children = []
+    try:
+        weights = init_params(_config(WARM_PRESET),
+                              torch.Generator().manual_seed(SEED))
+        save_npz(npz, *weights)
+        children.append(_spawn_warm_child("export", root, store, npz))
+        t0 = _go(children[0][1])
+        # B and the third trial import while A runs; each goes when the
+        # one before it has exited.
+        for role in ("restart", "trial"):
+            children.append(_spawn_warm_child(role, root, store, npz))
+        a = _wait_warm_child(*children[0], t0)
+        b = _wait_warm_child(*children[1], _go(children[1][1]))
+        c = _wait_warm_child(*children[2], _go(children[2][1]))
+        traces = _warm_replay_trace(store, weights)
+    finally:
+        for _, _, proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    differ = sum(b["texts"][k] != v for k, v in a["texts"].items())
+    _require(b["texts"] == a["texts"], f"warm restart: {differ} texts "
+             "differ between the restart and the first process")
+    print(card, flush=True)
+    print(json.dumps({"warm_restart": {
+        "preset": WARM_PRESET, "requests": len(a["texts"]),
+        "entries": a["entries"], "exports": a["exports"],
+        "export_launches": {k: a["launches"][k]
+                            for k in ("gru_fwd", "gru_fwd_q")},
+        "replayed_launches": b["replayed"], "pools": b["pools"],
+        "live_scale_up": b["live_scale_up"],
+        "first_request_ms": [x["trial"] for x in (a, b, c)],
+        "forward_32x1700_ms": b["timing_ms"], "replay_traces": traces,
+        "foreign": b["foreign"], "sig_changed": b["sig_changed"],
+        "child_s": [x["child_s"] for x in (a, b, c)],
+        "child_stages": [x["stages"] for x in (a, b, c)]},
+        "card": card}), flush=True)
+    return {k: a["launches"][k] + b["replayed"][k]
+            + b["live_scale_up"]["replayed"][k]
+            for k in ("gru_fwd", "gru_fwd_q")}
+
+
 BEAM_ROWS_CPU = 2            # rows of the (32, 1700) batch searched on the CPU
 BEAM_HOST_ROWS = 1           # rows of beam_fused run by the Python decoder
 # Beam scores on the card against the CPU, sort against match, dense
@@ -3100,6 +3774,7 @@ BEAM_HOST_ROWS = 1           # rows of beam_fused run by the Python decoder
 # over up to 850 frames; relative to |score|.
 BEAM_SCORE_RTOL = 1e-4
 BEAM_PROFILE_FRAMES = 64     # frames of the search under the profiler
+STREAM_STEPS_TIMED = 4       # live manager steps timed a decode and capacity
 
 
 def _write_char_arpa(path: str, chars, rng, n2: int, n3: int) -> None:
@@ -3645,21 +4320,21 @@ def beam_stream_phase(root: str, card: str):
             feed = {str(i): x[i] for i in range(cap)}
             for sid in feed:
                 mgr.join(sid)
-            for _ in range(3):
+            for _ in range(2):
                 mgr.step(feed)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(8):
+            for _ in range(STREAM_STEPS_TIMED):
                 mgr.step(feed)
             torch.cuda.synchronize()
             report[f"step_wall_ms_{decode}_cap{cap}"] = (
-                (time.perf_counter() - t0) * 1e3 / 8)
+                (time.perf_counter() - t0) * 1e3 / STREAM_STEPS_TIMED)
             del mgr
     print(json.dumps({"beam_stream": report}), flush=True)
     return launches
 
 
-RESCORE_REQUESTS = 32        # requests of each n-best gateway run
+RESCORE_REQUESTS = 16        # requests of each n-best gateway run
 RESCORE_FRAMES = (300, 900)  # their lengths: the beam is host-bound
 CTRL_DRAIN_S = 0.0           # the controllers' drain window, clock s
 CTRL_COOLDOWN_S = 0.0        # the autoscaler's cooldown between episodes
@@ -3767,9 +4442,9 @@ def rescore_phase(root: str, card: str):
     """``ds2_beam_lm`` (ds2_small: 3 BiGRU H=800, bf16, head x8, W=128,
     n-best 8) at full width behind the gateway with n-best, and the
     asynchronous LM second pass over the seeded character trigram of
-    the beam phase. 32 requests of ``RESCORE_FRAMES`` go through a
-    ``MicroBatchScheduler`` over ``Replica.from_inferencer`` twice:
-    without n-best (the baseline), then with ``nbest=True`` and
+    the beam phase. ``RESCORE_REQUESTS`` requests of ``RESCORE_FRAMES``
+    go through a ``MicroBatchScheduler`` over ``Replica.from_inferencer``
+    twice: without n-best (the baseline), then with ``nbest=True`` and
     ``rescorer=RescoringPool(...)`` pumped after every dispatch. The
     texts must equal the baseline's; each micro-batch's n-best must equal
     ``decode_batch_nbest`` on the same batch (texts, scores within
@@ -3777,7 +4452,7 @@ def rescore_phase(root: str, card: str):
     ``rescore_nbest``'s pick over its n-best; a replay of the same offers
     on the same beats into a fresh pool must give the same revision
     stream (every field but the wall-clock latency); with a
-    ``BrownoutController`` whose rescore rung has fired, the same 32
+    ``BrownoutController`` whose rescore rung has fired, the same
     offers must all shed as ``brownout``, counted. Each run: exactly 3
     ``gru_fwd`` (K4) a micro-batch. Prints the dispatch p50/p95 with
     and without the n-best and the rescorer, and the pump's ms a job.
@@ -5358,7 +6033,7 @@ def guarded_train_phase(card: str):
 
 
 DP_STEPS = 2                 # steps of each Leg A run and of Leg B
-DP_TIMED = 3                 # steps timed of the accumulated and ZeRO runs
+DP_TIMED = 2                 # steps timed of the accumulated and ZeRO runs
 DP_B_BATCH = 16              # Leg B's global batch: 8 rows a rank
 DP_B_FRAMES = 400
 # Leg B's update against one process's, relative: 0.013 on an NVIDIA
@@ -5984,6 +6659,11 @@ def main() -> int:
     gateway = _phase("ds2_small gateway", gateway_phase, card)
     entries["gru_fwd[D=2]"]["launches"] += gateway["gru_fwd"]
     entries["gru_fwd_q[D=2]"]["launches"] += gateway["gru_fwd_q"]
+    # The warm store: a restarted process serves ds2_small on CUDA
+    # graphs captured before admission (K4; int8 K10, replayed).
+    warm = _phase("ds2_small warm restart", warm_restart_phase, card)
+    entries["gru_fwd[D=2]"]["launches"] += warm["gru_fwd"]
+    entries["gru_fwd_q[D=2]"]["launches"] += warm["gru_fwd_q"]
     _phase("ds2_streaming chunk timing", chunk_timing_phase, card)
     _phase("ds2_small run feed", feed_phase, card)
     # Beam search and the LM: offline (K4) and live (K6, K10).
@@ -6021,4 +6701,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-child"]:
         sys.exit(_dp_child(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--warm-child"]:
+        sys.exit(_warm_child(*sys.argv[2:6]))
     sys.exit(main())

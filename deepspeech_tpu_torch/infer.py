@@ -29,6 +29,14 @@ through ``restore_params``, which reads the port's own checkpoints
 (checkpoint.py) and, where ``tensorstore`` is installed, a directory
 the JAX package's orbax manager wrote (checkpoint_import.py).
 
+The warm store (``serving/warmstore.py``) makes an offline
+Inferencer's ``(B, T)`` rungs ready before a replica takes traffic:
+``compile_rung`` captures a rung's forward as a CUDA graph
+(``utils/rung_graph.py``) into ``preloaded_forwards``, which
+``decode_batch`` replays instead of the eager forward; ``forward``
+stays eager. A rung's first eager use is tallied (``rung_kernels``) for
+the store's recipe, then handed to ``export_hook``. A streaming Inferencer has no offline rungs.
+
 ``quantize="int8"`` serves weight-only int8 weights, as the JAX
 package's ``Inferencer(quantize="int8")`` does (infer.py:155-253): PTQ
 runs once at init (``utils/quantize.py``), the model holds the quantized
@@ -59,7 +67,8 @@ import json
 import logging
 import os
 from collections import deque
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -79,11 +88,12 @@ from .decode.ngram import load_lm, rescore_nbest
 from .device import resolve_device
 from .metrics import cer, wer
 from .models.ds2 import DeepSpeech2
-from .ops.gru import card_limits
+from .ops.gru import card_limits, launch_tally
 from .streaming import StreamingTranscriber
 from .utils.cache import ShapeBucketCache
 from .utils.quantize import (kernel_regime, quantization_error,
                              quantize_params)
+from .utils.rung_graph import GraphPool, RungGraph
 
 _log = logging.getLogger(__name__)
 
@@ -217,6 +227,9 @@ class Inferencer:
         self.device = resolve_device(device)
         self.quantize_calls = 0
         self.quantize_report = None
+        # The numeric family the warm store keys an untiered replica by
+        # (serving/warmstore.store_tier).
+        self._quantized = bool(quantize)
         self._streamer = None
         if mode == "streaming":
             self._streamer = StreamingTranscriber(
@@ -277,16 +290,93 @@ class Inferencer:
         # as its compile, and the serving plane reads the counts, the
         # padding volume and the usage feedback (serving/replica.py).
         self.shape_cache = ShapeBucketCache(max_shapes=len(self.ladder()))
+        # The wrapper launches of one forward at each rung, tallied at
+        # the rung's first eager use (the warm store's recipe), and the
+        # warm store's export, called as ``export_hook(b, t)`` once that
+        # forward has run (serving/warmstore.install_export_hook).
+        self.rung_kernels: Dict[tuple, Dict[str, int]] = {}
+        self.export_hook: Optional[Callable[[int, int], None]] = None
+        if self._streamer is None:
+            # Rungs the warm store made ready before admission
+            # (serving/warmstore.py): ``decode_batch`` consults this
+            # before the eager forward, as the JAX Inferencer consults
+            # its preloaded executables before the jit. Keys are (B,
+            # T); values are ``compile_rung``'s captured graphs. A
+            # streaming Inferencer never runs the offline forward, so it
+            # has none and the store passes it by.
+            self.preloaded_forwards: Dict[tuple, Callable] = {}
+            self._graph_pool = GraphPool(self.device)
 
     def forward(self, features, feat_lens
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """features [B, T, F], feat_lens [B] (numpy or tensors) ->
-        (log-probs [B, T', V] f32, out lens [B]) on the device."""
+        (log-probs [B, T', V] f32, out lens [B]) on the device. Always
+        the eager forward: a caller never holds a graph's tensors."""
         feats = _tensor(features, np.float32).to(self.device)
         lens = _tensor(feat_lens, np.int64).to(self.device, torch.int64)
         with torch.inference_mode():
-            logits, out_lens = self.model(feats, lens)
-            return torch.log_softmax(logits, dim=-1), out_lens
+            return self._forward(feats, lens)
+
+    def _forward(self, feats: torch.Tensor, lens: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        logits, out_lens = self.model(feats, lens)
+        return torch.log_softmax(logits, dim=-1), out_lens
+
+    # -- the warm store's surface (serving/warmstore.py) ------------------
+    def forward_arg_shapes(self, b: int, t: int) -> tuple:
+        """``((shape, dtype), ...)`` of one rung's forward arguments,
+        features and lengths, as a store recipe records them."""
+        return (((int(b), int(t), self.cfg.features.num_features),
+                 "float32"), ((int(b),), "int64"))
+
+    def forward_signature(self) -> str:
+        """Hash of the model's state-dict names, shapes and dtypes: store
+        entries whose ``sig`` differs are rejected, not captured."""
+        from .utils.aotstore import module_signature
+
+        return module_signature(self.model.state_dict())
+
+    def compile_rung(self, b: int, t: int):
+        """The offline forward of one rung, made ready: on a card a
+        ``RungGraph`` captured into this Inferencer's one graph pool
+        (``utils/rung_graph.py``; capture the largest rung first); on the
+        CPU the eager forward, run once. Raises where the capture
+        fails."""
+        if self._streamer is not None:
+            raise ValueError("a decode.mode='streaming' Inferencer has no "
+                             "offline rungs")
+        return RungGraph(self._forward, b, t, self.cfg.features.num_features,
+                         self._graph_pool)
+
+    def rung_recipe(self, b: int, t: int) -> Dict:
+        """The warm store's recipe of one rung: the argument shapes and
+        dtypes, the kernel regime, and the wrapper launches one forward
+        there made at the rung's first use (None before it)."""
+        kernels = self.rung_kernels.get((int(b), int(t)))
+        return {"args": [[list(s), d] for s, d in
+                         self.forward_arg_shapes(b, t)],
+                "kernel_regime": self.kernel_regime,
+                "kernels": None if kernels is None else dict(kernels),
+                "pool_bytes": None}
+
+    def _eager_forward(self, key: tuple, features, feat_lens):
+        """The eager forward of ``decode_batch``. A rung's first one is
+        tallied (``ops.gru.launch_tally``) for ``rung_recipe``, then
+        handed to ``export_hook``; a failing hook never fails the
+        request."""
+        if key in self.rung_kernels:
+            return self.forward(features, feat_lens)
+        with launch_tally() as used:
+            out = self.forward(features, feat_lens)
+        if self.rung_kernels.setdefault(key, used) is used \
+                and self.export_hook is not None:
+            try:
+                self.export_hook(*key)
+            except Exception:
+                _log.warning(
+                    "warm store export hook failed for B=%d T=%d", *key,
+                    exc_info=True)
+        return out
 
     def decode_batch_nbest(self, batch: Dict[str, np.ndarray]
                            ) -> List[List[tuple]]:
@@ -306,8 +396,16 @@ class Inferencer:
         b, t = batch["features"].shape[:2]
         hit = self.shape_cache.note(b, t, _valid_frames(batch["feat_lens"],
                                                         t))
+        key = (int(b), int(t))
+        # A rung the warm store captured replays its graph; any other
+        # runs eagerly.
+        fwd = self.preloaded_forwards.get(key)
         with obs.span("infer.forward", rung=f"{b}x{t}", cached=hit):
-            lp, lens = self.forward(batch["features"], batch["feat_lens"])
+            if fwd is not None:
+                lp, lens = fwd(batch["features"], batch["feat_lens"])
+            else:
+                lp, lens = self._eager_forward(key, batch["features"],
+                                               batch["feat_lens"])
         mode = self.cfg.decode.mode
         with torch.inference_mode(), obs.span("infer.decode", mode=mode):
             if mode == "beam":

@@ -65,6 +65,7 @@ nor between the resident and the streamed kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import Optional, Sequence, Tuple
@@ -488,9 +489,37 @@ def _launcher(name: str, n_ptrs: int):
     return lib, launch
 
 
+# The calling thread's open ``launch_tally``: (counts, captured) or None.
+_tally = threading.local()
+
+
+@contextlib.contextmanager
+def launch_tally(captured: bool = False):
+    """Count the kernel launches this thread's wrappers make inside the
+    block, as ``{wrapper name: calls}`` (other threads' launches are not
+    in it). ``captured=True`` is for a CUDA graph capture
+    (``utils/rung_graph.py``): the launches are recorded into the graph,
+    not run, so they go to the tally instead of the wrappers'
+    ``launches``; each replay of the graph runs them."""
+    prev = getattr(_tally, "open", None)
+    counts: dict = {}
+    _tally.open = (counts, captured)
+    try:
+        yield counts
+    finally:
+        _tally.open = prev
+
+
 def _counted(fn) -> None:
-    """Add one to a wrapper's ``launches``; the gateway's worker threads
-    launch concurrently, and ``+=`` on an attribute is not atomic."""
+    """Add one to a wrapper's ``launches`` (and to this thread's open
+    ``launch_tally``); the gateway's worker threads launch concurrently,
+    and ``+=`` on an attribute is not atomic."""
+    tally = getattr(_tally, "open", None)
+    if tally is not None:
+        counts, captured = tally
+        counts[fn.__name__] = counts.get(fn.__name__, 0) + 1
+        if captured:
+            return
     with _type_lock:
         fn.launches += 1
 

@@ -25,6 +25,10 @@ Record schema (the JAX package's, so one reader serves both)::
   drain fallback
 - ``slo_burn``            — obs/slo.py burn-rate alert (window,
   burn_rate, threshold, and the slowest recent requests)
+- ``warm_start``          — serving/warmstore.py ladder preload at
+  replica init / autoscale scale-up / rollout re-admission (replica,
+  tier, version, rung counts; linted shape — ``check_obs_schema``
+  requires numeric ``warm_pct`` + ``compiles_avoided``)
 - ``incident``            — obs/timeline.py correlated incident close
 
 ``trigger`` is the specific condition inside the kind

@@ -121,8 +121,11 @@ line a transfer, down the ladder to a local journal re-pin, a drain
 re-pin or staying home when the peer refuses or cannot be reached.
 Either forces the pooled path.
 
-The JAX ``serve``'s ``--warm-store`` comes with item 17 of the port and
-exits naming it.
+Warm store: ``--warm-store=DIR`` makes ``DIR`` the process's default
+executable warm store (``DS2_WARMSTORE_DIR``, serving/warmstore.py), as
+the JAX ``serve``'s flag does: every ``Replica.from_inferencer`` the
+process builds captures its stored ``(B, T)`` rungs as CUDA graphs
+before it takes traffic and records the rungs it first uses.
 """
 
 from __future__ import annotations
@@ -139,13 +142,6 @@ import numpy as np
 
 from . import obs
 from .data.features import frame_params
-
-# Flags of the JAX serve CLI that later slices of the port bring: the
-# value each takes when it is off, and the slice.
-_ITEM17 = "item 17 (the warm store)"
-_LATER_FLAGS = {
-    "warm_store": ("", _ITEM17),
-}
 
 # Epoch counter for handoff sid prefixes: distinguishes pooled loops that
 # share one process; the pid distinguishes processes.
@@ -921,13 +917,6 @@ def device_lm_table(cfg, tokenizer):
         impl=d.device_lm_impl)
 
 
-def _refuse_later_flags(args) -> None:
-    """Exit naming the slice for any flag of a later slice that is on."""
-    for name, (off, where) in _LATER_FLAGS.items():
-        if getattr(args, name) != off:
-            raise SystemExit(f"--{name.replace('_', '-')} comes with "
-                             f"{where} of the port")
-
 
 def _recover_journal(args, cfg, tokenizer, params, batch_stats, table):
     """Open ``--session-journal``. Sessions a killed predecessor left
@@ -1079,18 +1068,18 @@ def main(argv: Optional[List[str]] = None) -> None:
                              "transfer), falling back to a journal "
                              "re-pin, a drain re-pin or staying home. "
                              "Forces the pooled path")
-    # The JAX serve's flags of later slices: parsed so that each exits
-    # naming its slice.
-    for name, (off, _) in _LATER_FLAGS.items():
-        flag = "--" + name.replace("_", "-")
-        parser.add_argument(flag, type=type(off), default=off,
-                            help=argparse.SUPPRESS)
+    parser.add_argument("--warm-store", default="",
+                        help="executable warm-store directory "
+                             "(serving/warmstore.py): makes it the "
+                             "process default (DS2_WARMSTORE_DIR) so "
+                             "every inferencer-backed replica captures "
+                             "its stored (B,T) rungs as CUDA graphs at "
+                             "init and records the rungs it first uses")
     args, extra = parser.parse_known_args(argv)
     if args.quant_tier == "bulk":
         args.quantize_weights, args.decode = "int8", "greedy"
     elif args.quant_tier == "premium":
         args.quantize_weights, args.decode = "", "beam"
-    _refuse_later_flags(args)
     if args.replicas > 1 and args.endpoint_silence_ms > 0:
         raise ValueError("--replicas > 1 does not compose with "
                          "--endpoint-silence-ms (endpointing is "
@@ -1147,6 +1136,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         # A training run's vocab.txt there names the tokenizer.
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, checkpoint_dir=anchor_ckpt))
+    if args.warm_store:
+        # The process-default warm store: Replica.from_inferencer (and
+        # anything else that builds inferencer-backed replicas in this
+        # process) preloads and exports through it with no further
+        # wiring — serving/warmstore.default_store reads this.
+        os.environ["DS2_WARMSTORE_DIR"] = args.warm_store
     tokenizer, cfg = resolve_tokenizer(cfg, vocab_override=args.vocab)
     params = batch_stats = None
     if not model_ckpts:

@@ -1,4 +1,4 @@
-"""The port's serving plane (slices 4a, 4b, 4c and 6b).
+"""The port's serving plane (slices 4a, 4b, 4c and 6b, and item 17).
 
 - ``ladder.py`` — the tier-aware rung ladder;
 - ``session.py`` — :class:`StreamingSessionManager`, live streams that
@@ -40,10 +40,13 @@
   :class:`HandoffListener` under retry and a per-peer breaker, and the
   :class:`RemoteMigrationController`, whose ladder (remote, journal
   re-pin, drain re-pin, stay) never loses a session;
+- ``warmstore.py`` — :class:`WarmStore`, warm restarts: each stored
+  ``(B, T)`` rung of a replica's ``Inferencer`` captured as a CUDA graph
+  before the replica takes traffic (``utils/aotstore.py`` keeps the
+  rungs' recipes), and the recipes of rungs first used at run time
+  written back;
 - ``telemetry.py`` — :class:`ServingTelemetry`, the serving layers'
   shared registry.
-
-The executable warm store comes with item 17 of the port.
 """
 
 from .autoscale import AutoscaleController
@@ -70,6 +73,7 @@ from .transport import (HandoffListener, HandoffReceiver,
                         RemoteMigrationController, SocketTransport,
                         TransportError)
 from .trafficmodel import Arrival, Schedule, SessionPlan, TrafficModel
+from .warmstore import WarmStore
 
 __all__ = [
     "AdmissionController", "Arrival", "AutoscaleController",
@@ -84,7 +88,7 @@ __all__ = [
     "SessionJournal", "SessionPlan", "SnapshotDecodeError",
     "SnapshotIncompatible", "SocketTransport", "StreamSnapshot",
     "StreamingSessionManager", "TenantConfig", "TenantQuotaExceeded",
-    "TrafficModel", "TransportError", "max_batch_for_budget",
+    "TrafficModel", "TransportError", "WarmStore", "max_batch_for_budget",
     "recurrent_stream_bytes", "snapshot_from_bytes",
     "snapshot_to_bytes", "synthetic_replicas", "tier_max_batches",
     "warm_rung_chooser",

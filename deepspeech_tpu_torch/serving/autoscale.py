@@ -211,10 +211,10 @@ class AutoscaleController:
         self.handoff = bool(handoff)
         self.telemetry = telemetry if telemetry is not None \
             else pool.telemetry
-        if warmstore is not None:
-            raise NotImplementedError(
-                "the executable warm store (warmstore=) comes with item "
-                "17 of the port")
+        # Executable warm store (serving/warmstore.py): a scale-up
+        # newcomer's ladder is preloaded before it becomes routable
+        # (trigger "scale_up"). None = no preload.
+        self.warmstore = warmstore
         self.clock = clock if clock is not None else pool.clock
         self.on_event = on_event
         self._postmortem = postmortem_fn
@@ -534,6 +534,12 @@ class AutoscaleController:
         repins0 = self.pool.repins
         with obs.span("autoscale.scale", direction="up", replica=rid):
             rep = self.replica_factory(rid)
+            if self.warmstore is not None:
+                # Before add_replica makes the newcomer routable: load
+                # its ladder from the store (counted per rung; misses
+                # run eagerly — never blocks the scale-up).
+                self.warmstore.preload_replica(rep, trigger="scale_up")
+                self.warmstore.install_export_hook(rep)
             self.pool.add_replica(rep)
         self._apply_capacity()
         self.scale_ups += 1

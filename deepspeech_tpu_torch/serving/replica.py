@@ -183,8 +183,13 @@ class Replica:
         degrades to 1-best ``[(text, 0.0)]`` — the feed for the async
         rescoring plane. Texts are identical either way.
 
-        ``warmstore=`` (the executable warm store) comes with item 17
-        of the port and raises ``NotImplementedError``."""
+        ``warmstore`` (a :class:`~.warmstore.WarmStore`) makes the
+        replica's rung ladder ready BEFORE it is routable — each stored
+        rung captured as a CUDA graph on the card — and arms the
+        first-use export hook so run-time first uses land back in the
+        store. ``None`` falls back to the process default
+        (``DS2_WARMSTORE_DIR``); no store configured = the pre-store
+        behavior, untouched."""
         if nbest:
             def _decode(batch, plan):
                 texts = inferencer.decode_batch_bucketed(
@@ -198,14 +203,17 @@ class Replica:
                 return inferencer.decode_batch_bucketed(
                     batch, plans=[plan])
 
-        if warmstore is not None:
-            raise NotImplementedError(
-                "the executable warm store (warmstore=) comes with item "
-                "17 of the port")
         rep = cls(rid, _decode, **kw)
         rep.inferencer = inferencer
         rep.stream = _own_stream(inferencer)
         inferencer.shape_cache.labels = dict(rep.labels)
+        if warmstore is None:
+            from .warmstore import default_store
+
+            warmstore = default_store()
+        if warmstore is not None:
+            warmstore.preload_replica(rep, trigger="replica_init")
+            warmstore.install_export_hook(rep)
         return rep
 
     # -- lifecycle -------------------------------------------------------

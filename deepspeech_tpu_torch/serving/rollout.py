@@ -55,8 +55,10 @@ A CUDA backend swaps only on a parked, drained replica:
 :meth:`Replica.swap_backend` synchronizes the replica's stream before
 it drops the old backend, so the caching allocator cannot hand the old
 weights' blocks out while kernels queued on that stream still read
-them. The executable warm store (``warmstore=``) comes with item 17 of
-the port and raises ``NotImplementedError``.
+them. With a warm store (``warmstore=``) the swapped-in Inferencer's
+ladder is captured between the swap and the re-admission; the graphs
+belong to that Inferencer and go with it, so a rollback restores the old
+Inferencer with its own graphs.
 """
 
 from __future__ import annotations
@@ -139,10 +141,10 @@ class RolloutController:
         self.handoff = bool(handoff)
         self.telemetry = telemetry if telemetry is not None \
             else pool.telemetry
-        if warmstore is not None:
-            raise NotImplementedError(
-                "the executable warm store (warmstore=) comes with item "
-                "17 of the port")
+        # Executable warm store (serving/warmstore.py): a swapped
+        # replica re-admits with its new version's ladder preloaded
+        # (trigger "rollout_readmit"). None = no preload.
+        self.warmstore = warmstore
         self.clock = clock if clock is not None else pool.clock
         self.on_event = on_event
         self._postmortem = postmortem_fn
@@ -340,6 +342,13 @@ class RolloutController:
             session_factory=candidate.get("session_factory"),
             inferencer=candidate.get("inferencer"),
             version=self.to_version)
+        if self.warmstore is not None:
+            # Between swap and unpark: the replica carries the new
+            # version, so the store keys resolve to the new ladder —
+            # re-admission starts warm (counted; misses run eagerly).
+            self.warmstore.preload_replica(rep,
+                                           trigger="rollout_readmit")
+            self.warmstore.install_export_hook(rep)
         rep.unpark()
         self.upgraded.append(rep.rid)
         self._remaining.remove(rep.rid)

@@ -76,9 +76,12 @@ class ShapeBucketCache:
         # attribute per replica (serving/replica.py).
         self.labels: "dict[str, str] | None" = None
         # First-use hook: called as ``export_hook(batch, frames)`` right
-        # after a fresh shape is recorded (the warm store, item 17 of
-        # the port, will hang its export here). Never fatal (see
-        # note()).
+        # after a fresh shape is recorded, before that shape's first
+        # forward (the JAX warm store's export point). The port's warm
+        # store exports from ``Inferencer.export_hook`` instead, once
+        # that forward's launches are tallied; ``preload`` below marks
+        # the rungs it captured (serving/warmstore.py). Never fatal
+        # (see note()).
         self.export_hook = None
         self._tick = 0
         self._use: "dict[tuple, float]" = {}   # decayed usage score

@@ -84,7 +84,9 @@ OWN_COPIES = ("deepspeech_tpu_torch/utils/quantize.py",
               "deepspeech_tpu_torch/resilience/guardian.py",
               "deepspeech_tpu_torch/resilience/preempt.py",
               "deepspeech_tpu_torch/utils/logging.py",
-              "deepspeech_tpu_torch/parallel/distributed.py")
+              "deepspeech_tpu_torch/parallel/distributed.py",
+              "deepspeech_tpu_torch/utils/aotstore.py",
+              "deepspeech_tpu_torch/serving/warmstore.py")
 
 
 def test_no_jax_or_reference_imports():

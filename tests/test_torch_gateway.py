@@ -19,8 +19,9 @@ and ``serving/replica.py``) against the JAX package's:
   ``tier``;
 - ``ModelRegistry`` routing two model groups (their own pools and
   ladders) behind one gateway on synthetic replicas;
-- ``warm_rung_chooser``, the scheduler's refusals (tenancy, rescoring)
-  and ``from_inferencer``'s warm store refusal.
+- ``warm_rung_chooser``, the scheduler's and the controllers' later
+  arguments (tenancy, rescoring, the warm store) taken, and
+  ``from_inferencer`` with a warm store.
 """
 
 import dataclasses
@@ -333,9 +334,9 @@ def test_warm_rung_chooser_matches_jax():
 
 
 def test_scheduler_refuses_later_slices():
-    """``tenancy=`` and ``rescorer=`` (slices 4b and 6b) are taken now;
-    only the warm store (item 17) is still refused, by the controllers
-    as by ``Replica.from_inferencer``."""
+    """``tenancy=`` and ``rescorer=`` (slices 4b and 6b) are taken, and
+    since item 17 the controllers take the warm store too (it preloads
+    a re-admitted or scaled-up replica: tests/test_torch_warmstore.py)."""
     tenancy = port_serving.AdmissionController(
         [port_serving.TenantConfig("t", quota=2)])
     rescorer = port_serving.RescoringPool(lm=object())
@@ -345,11 +346,11 @@ def test_scheduler_refuses_later_slices():
     pool = port_serving.ReplicaPool(port_serving.synthetic_replicas(2))
     router = port_serving.PooledSessionRouter(pool, tenancy=tenancy)
     assert router.tenancy is tenancy
-    with pytest.raises(NotImplementedError, match="item 17"):
-        port_serving.RolloutController(pool, dict, warmstore=object())
-    with pytest.raises(NotImplementedError, match="item 17"):
-        port_serving.AutoscaleController(pool, port_serving.Replica,
-                                         warmstore=object())
+    ws = port_serving.WarmStore("unused", fingerprint="fp")
+    assert port_serving.RolloutController(pool, dict,
+                                          warmstore=ws).warmstore is ws
+    assert port_serving.AutoscaleController(
+        pool, port_serving.Replica, warmstore=ws).warmstore is ws
 
 
 # -- replicas bound to real inferencers -----------------------------------
@@ -428,12 +429,23 @@ def test_inferencer_replicas_match_jax(tiny_small):
     assert all(st["compiles"] >= 1 for st in shape_stats.values())
 
 
-def test_from_inferencer_refuses_warm_store(tiny_small):
+def test_from_inferencer_refuses_warm_store(tiny_small, tmp_path):
+    """``warmstore=`` is taken (item 17): a store preloads the replica's
+    ladder before it routes (a fresh one misses every rung) and arms the
+    first-use export."""
     _, tcfg, params, stats = tiny_small
     inf = Inferencer(tcfg, CharTokenizer.english(), params, stats,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        port_serving.Replica.from_inferencer("r0", inf, warmstore=object())
+    tel = port_serving.ServingTelemetry()
+    ws = port_serving.WarmStore(str(tmp_path), background=False)
+    rep = port_serving.Replica.from_inferencer("r0", inf, telemetry=tel,
+                                               warmstore=ws)
+    assert sum(v for k, v in tel.counters.items()
+               if k.startswith("compile_cache_miss")) == len(inf.ladder())
+    assert inf.export_hook is not None
+    assert rep.can_route(0.0)
+    inf = Inferencer(tcfg, CharTokenizer.english(), params, stats,
+                     device="cpu")
     rep = port_serving.Replica.from_inferencer("r0", inf)
     # A CPU inferencer decodes on the caller's stream.
     assert rep.stream is None

@@ -10,9 +10,10 @@ weights, with the JAX side on its Pallas GRU kernels in interpret mode:
   ``migrate_sessions``, and with int8 weights;
 - ``main`` prints those lines from an ``.npz`` on the CPU (with
   ``--replicas=2 --migrate-sessions`` too), refuses ``--replicas`` with
-  endpointing, and exits naming the item for ``--warm-store`` (item 17),
-  while the flags of slices 4b, 4c and 6b reach the same checks as the
-  JAX serve's, the handoff flags' guards among them;
+  endpointing, and the flags of slices 4b, 4c and 6b and item 17's
+  ``--warm-store`` reach the same checks as the JAX serve's, the handoff
+  flags' guards among them; ``--warm-store`` makes its directory the
+  process's default warm store;
 - two pooled serve loops wired ``--handoff-listen`` / ``--handoff-peer``
   style hand a stream across (outcome ``remote``), and the adopted final
   equals a pooled run of that WAV in the port and in the JAX package;
@@ -169,6 +170,31 @@ def test_main_prints_jax_lines(setup, tmp_path, capsys):
     assert got == _lines((tmp_path / "jax.jsonl").read_text())
 
 
+def test_main_warm_store_sets_the_process_store(setup, tmp_path, capsys,
+                                                monkeypatch):
+    """``--warm-store=DIR`` sets ``DS2_WARMSTORE_DIR`` (the store every
+    ``Replica.from_inferencer`` of the process then preloads from), as
+    the JAX serve's flag does, and serves the same lines."""
+    from deepspeech_tpu_torch.serving.warmstore import default_store
+
+    # serve sets DS2_WARMSTORE_DIR itself; setenv records the undo ("" is
+    # no store), so the variable is restored after the test.
+    monkeypatch.setenv("DS2_WARMSTORE_DIR", "")
+    jcfg, _, params, stats, paths = setup
+    npz = str(tmp_path / "w.npz")
+    bridge.save_npz(npz, params, stats)
+    with open(tmp_path / "jax.jsonl", "w") as fh:
+        jax_serve.serve_files(jcfg, JaxCharTokenizer.english(), params,
+                              stats, paths, out=fh)
+    store = str(tmp_path / "store")
+    serve.main([f"--params={npz}", "--device=cpu", f"--warm-store={store}",
+                *paths] + [f"--{k}={v}" for k, v in OVER.items()])
+    got = _lines(capsys.readouterr().out)
+    assert got == _lines((tmp_path / "jax.jsonl").read_text())
+    assert os.environ["DS2_WARMSTORE_DIR"] == store
+    assert default_store().store.root == store
+
+
 LATER = {"slice 4b": ("--models=a=x", "--tenant-config=t.json",
                       "--swap-checkpoint=x", "--swap-at-chunk=3",
                       "--swap-wer-guardrail=0.1", "--autoscale",
@@ -181,7 +207,7 @@ LATER = {"slice 4b": ("--models=a=x", "--tenant-config=t.json",
          "slice 6b": ("--lm-rescore",)}
 # Slices the port has now: their flags are parsed and checked like the
 # JAX serve's, and no longer exit naming a slice.
-PORTED = ("slice 4b", "slice 4c", "slice 6b")
+PORTED = ("slice 4b", "slice 4c", "slice 6b", "item 17")
 
 
 @pytest.fixture(scope="module")
@@ -208,6 +234,10 @@ def _raised(fn, argv):
 
 @pytest.mark.parametrize("flag", [f for fs in LATER.values() for f in fs])
 def test_main_refuses_later_flags(flag, ckpt_cwd, monkeypatch):
+    # Either serve sets DS2_WARMSTORE_DIR for --warm-store; setenv
+    # records the undo ("" is no store), so the variable is restored
+    # after the test.
+    monkeypatch.setenv("DS2_WARMSTORE_DIR", "")
     where, = [w for w, fs in LATER.items() if flag in fs]
     if where not in PORTED:
         for argv in ([flag, "--params=x.npz", "--device=cpu", "a.wav"],
