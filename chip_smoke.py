@@ -107,6 +107,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    no GRU kernel on an LSTM path and no LSTM kernel on a GRU path, each
    against the same forward with the LSTM kernel patched to its plain
    version, beside an LSTM with one direction reversed;
+   the item 14a phase (``seqpar_phase``, between the GRU and the LSTM
+   paths): K12 (D=1, H=800) and K14 (D=1, H=1760) in bf16 with a random
+   carried ``(h0, c0)`` against their plain versions (ys and the final
+   ``(h, c)``, forward at T'=850 and reverse at T=37, the same bits
+   twice, zeros as ``(h0, c0)`` the bits of no carry, with and without
+   the tape) and timed with and without it; ``sp_greedy`` over 4 shards
+   of the one card at ds2_small's full width on a (2, 6800) recording
+   (24 K6 at D=1 with h0, no K4), then f32, ds2_full's width (8 K8 at
+   D=1) and LSTM cells (24 K12 with the carry) at 1600 frames, each
+   against the offline forward (logits, ids where the margin decides
+   them, the wall ms of both decodes); ``Inferencer`` ``sp_greedy`` and
+   ``sp_beam`` on the card (S = 1, f32) equal to ``greedy`` and
+   ``beam_fused_device`` with a trigram table; a pipelined ds2_full
+   (``pipeline_stages=2``) through ``Inferencer``, its log-probs equal
+   bit for bit to the standard tree's on the same weights;
 5. training path phases: ``Trainer`` steps at the full width of
    ds2_small, ds2_streaming and ds2_full (2 of its 7 layers,
    ``FULL_TRAIN_LAYERS``) on a (32, 1700) batch of ragged lengths, GRU
@@ -374,7 +389,7 @@ CTC_TOL = 1e-5
 # when the features are scaled by 1 + 2**-22 (read on every run).
 GRAD_REL_TOL = 0.1
 GRAD_REL_TOL_F32 = 5e-3
-TRAIN_STEPS = 3                 # timed steps per train phase
+TRAIN_STEPS = 2                 # timed steps per train phase
 DESCENT_STEPS = 10              # AdamW steps on the fixed batch
 # ds2_full (7 BiGRU, H=1760): a step takes seconds, so fewer of them.
 FULL_TRAIN_STEPS = 2
@@ -725,20 +740,22 @@ def _device_kernels(fn, tries: int = 5, want: frozenset = frozenset(),
     card); returns its result, ``{name: device ms}`` of the port's
     kernels that ran (``every``: of every device kernel, by its full
     name, each name in ``want`` found inside one), and how many times
-    ``fn`` ran. On an H100 the
-    profiler now and then records no device event for a window, at times
-    several windows in a row, or misses the first kernel a window
-    launches (K9's pre-pass in one-call windows). So a window
-    starts with a throw-away kernel and a pause, and one that saw none
-    of the port's kernels or not all of ``want`` runs again after a
-    longer pause, up to ``tries`` times."""
+    ``fn`` ran. On an H100 a window records every device event at
+    chip_smoke's start, but later in the run whole windows record none:
+    by the seqpar phase about every other one (``_profiler_empty_windows``,
+    printed at the start and there), and now and then several in a row;
+    a window may also miss the first kernel it launches (K9's pre-pass
+    in one-call windows). So a window starts with a throw-away kernel and
+    a pause, and one that saw none of the port's kernels or not all of
+    ``want`` runs again, with a longer pause inside it (up to 1 s), up
+    to ``tries`` times."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for runs in range(1, tries + 1):
         with torch.profiler.profile(activities=acts) as prof:
             torch.ones(1, device="cuda").add_(1)
             torch.cuda.synchronize()
-            time.sleep(0.02)
+            time.sleep(0.02 if runs == 1 else min(1.0, 0.25 * (runs - 1)))
             out = fn()
             torch.cuda.synchronize()
         ran = {}
@@ -753,8 +770,24 @@ def _device_kernels(fn, tries: int = 5, want: frozenset = frozenset(),
                  else want <= set(ran))
         if ran and found:
             break
-        time.sleep(0.5 * runs)
     return out, ran, runs
+
+
+def _profiler_empty_windows(n: int = 8) -> int:
+    """Of ``n`` ``torch.profiler`` windows in a row, each around one
+    matmul, how many recorded no event of the card (``_device_kernels``
+    retries such windows)."""
+    a = torch.ones(256, 256, device="cuda")
+    empty = 0
+    for _ in range(n):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            (a @ a).sum()
+            torch.cuda.synchronize()
+        empty += not any(e.device_type == torch.autograd.DeviceType.CUDA
+                         and e.self_device_time_total > 0
+                         for e in prof.key_averages())
+    return empty
 
 
 def _k14_kernels(dtype: torch.dtype, h: int) -> set:
@@ -3129,7 +3162,7 @@ def pooled_stream_phase(root: str, card: str):
 
 WARM_PRESET = "ds2_small"
 WARM_TRIAL_RUNGS = ((1, 400), (32, 1700))
-WARM_TIMED = 5               # (32, 1700) forwards a turn, eager and replayed
+WARM_TIMED = 3               # (32, 1700) forwards a turn, eager and replayed
 WARM_SIG_RUNG = (8, 800)     # the rung whose entry's sig the phase changes
 WARM_CHILD_S = 120.0         # a warm-restart child that has not exited fails
 
@@ -3774,7 +3807,7 @@ BEAM_HOST_ROWS = 1           # rows of beam_fused run by the Python decoder
 # over up to 850 frames; relative to |score|.
 BEAM_SCORE_RTOL = 1e-4
 BEAM_PROFILE_FRAMES = 64     # frames of the search under the profiler
-STREAM_STEPS_TIMED = 4       # live manager steps timed a decode and capacity
+STREAM_STEPS_TIMED = 2       # live manager steps timed a decode and capacity
 
 
 def _write_char_arpa(path: str, chars, rng, n2: int, n3: int) -> None:
@@ -6500,6 +6533,432 @@ def dp_train_phase(card: str):
     return {k: counts[k] + sum(c[k] for c in b_counts) for k in keys}
 
 
+# ---- item 14a: sequence-parallel decoding, a pipelined tree, K12/K14's
+# carry ----
+
+SP_SHARDS = 4
+# ds2_small's long recording: raw frames (a multiple of
+# sp_frame_multiple(cfg, 4) = 8) and how much shorter the second row is.
+SP_FRAMES, SP_SHORT = 6800, 57
+# The shorter recording of the f32, width and family checks.
+SP_FRAMES_SHORT = 1600
+# SP logits against the offline forward's on the same features: at
+# every valid frame |sp - offline| <= max(tol, one step of the model
+# dtype at |offline|). bf16: the conv, the projections and the head run
+# at other shapes, and the D=1 relays' launches beside the offline D=2
+# one; the head writes bf16 logits, so a rounding flipped upstream moves
+# a logit by one bf16 step, 2**-5 in [4, 8) (0.03125 read at ds2_small on
+# an NVIDIA H100 80GB HBM3, 700.00 W), which the step admits and nothing
+# more. f32: its step is far below the tol.
+SP_LOGIT_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# Mantissa bits of each model dtype, for its step.
+_MANTISSA = {torch.bfloat16: 7, torch.float32: 23}
+
+
+def _step(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One step of ``dtype`` at ``|x|``: the spacing of its values in the
+    binade that holds ``x``."""
+    _, exp = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       exp - 1 - _MANTISSA[dtype])
+
+
+class _DSpy:
+    """Stands in for a recurrent forward wrapper of ``ops.gru`` or
+    ``ops.lstm``: calls it and records the D of each call that launched
+    its kernel. The real wrapper counts through its module's name, which
+    the patch points here, so ``launches`` is its count."""
+
+    def __init__(self, real):
+        self.real, self.launches, self.ds = real, 0, []
+        self.__name__ = real.__name__
+
+    def __call__(self, xp, mask, w, *args, **kw):
+        before = self.launches
+        out = self.real(xp, mask, w, *args, **kw)
+        self.ds += [int(w.shape[0])] * (self.launches - before)
+        return out
+
+
+@contextlib.contextmanager
+def _launches_by_d():
+    """Within the block, the launches of K4/K6 (``gru_fwd``), K8, K12 and
+    K14, as ``{"<wrapper>[D=<d>]": n}`` (read after the block)."""
+    from deepspeech_tpu_torch.ops import gru, lstm
+
+    spies = {(mod, n): _DSpy(getattr(mod, n))
+             for mod, n in ((gru, "gru_fwd"), (gru, "gru_fwd_stream"),
+                            (lstm, "lstm_fwd"), (lstm, "lstm_fwd_stream"))}
+    got: dict = {}
+    with contextlib.ExitStack() as stack:
+        for (mod, n), spy in spies.items():
+            stack.enter_context(mock.patch.object(mod, n, spy))
+        yield got
+    for (_, n), spy in spies.items():
+        for d in spy.ds:
+            got[f"{n}[D={d}]"] = got.get(f"{n}[D={d}]", 0) + 1
+
+
+def _carry_checks(gen, kernel: str, h: int) -> dict:
+    """K12 (``lstm_fwd``, D=1, H=800) or K14 (``lstm_fwd_stream``, D=1,
+    H=1760) in bf16 with a carried state: with a random ``(h0, c0)`` at
+    T'=850, B=32, forward, and at (37, 45) reverse, ys and the final
+    ``(h, c)`` within ``LSTM_FWD_TOL`` of the plain version's, the same
+    bits twice, the two carried calls run under the profiler, which must
+    name the device kernels of the tensor-core path (the transpose of W
+    and the loop); zeros passed as ``(h0, c0)`` give the call with none's
+    bits (ys, the tape, the final state). Then ms a call at the full
+    shape with and without the carry."""
+    from deepspeech_tpu_torch.ops import lstm
+
+    fn = getattr(lstm, kernel)
+    tol = LSTM_FWD_TOL[torch.bfloat16]
+    want = frozenset(_STREAM_KERNELS[kernel](torch.bfloat16, h))
+    out = {"checks": {}}
+    _zero_counts()
+    calls = 0
+    for name, shape, rev in (("D1_bf16_carry", (T, B, h), False),
+                             ("D1_bf16_carry_reverse", (37, 45, h), True)):
+        (xp, mask, w, bias, _), _ = _lstm_inputs(1, torch.bfloat16, gen,
+                                                 *shape)
+        hc0 = tuple(torch.randn(1, shape[1], h, generator=gen,
+                                device="cuda") * 0.5 for _ in range(2))
+        args = (xp, mask, w, bias, (rev,))
+        kw = {"hc0": hc0, "return_final": True}
+        outs, ran, runs = _device_kernels(
+            lambda: [fn(*args, **kw) for _ in range(2)], tries=16,
+            want=want)
+        calls += 2 * runs
+        if not ran:
+            _, seen, _ = _device_kernels(
+                lambda: torch.ones(512, 512, device="cuda") @ torch.ones(
+                    512, 512, device="cuda"), tries=1, every=True)
+            raise RuntimeError(
+                f"{kernel} {name}: the profiler saw no kernel of the port "
+                f"in {runs} windows; a matmul's window saw "
+                f"{sorted(seen)[:4]}")
+        _require(set(ran) == want, f"{kernel} {name}: ran {sorted(ran)}, "
+                 f"want {sorted(want)}")
+        (ys, fin), (ys2, fin2) = outs
+        ys_p, fin_p = lstm.lstm_fwd_plain(*args, **kw)
+        err = max(float((ys - ys_p).abs().max()),
+                  *(float((a - b).abs().max()) for a, b in zip(fin, fin_p)))
+        _require(bool(torch.isfinite(ys).all()), f"{name}: non-finite ys")
+        _require(err <= tol, f"{kernel} {name}: max |kernel - plain| {err} "
+                 f"> {tol}")
+        _require(torch.equal(ys, ys2) and all(
+            torch.equal(a, b) for a, b in zip(fin, fin2)),
+            f"{kernel} {name}: two runs on one input differ")
+        zeros = tuple(torch.zeros_like(x) for x in hc0)
+        for tape in (False, True):
+            null = fn(*args, tape=tape, return_final=True)
+            zero = fn(*args, tape=tape, hc0=zeros, return_final=True)
+            calls += 2
+            flat = lambda o: [o[0], *o[1:-1], *o[-1]]  # noqa: E731
+            _require(all(torch.equal(a, b)
+                         for a, b in zip(flat(null), flat(zero))),
+                     f"{kernel} {name}: zeros as (h0, c0) differ from none"
+                     f" (tape {tape})")
+        out["checks"][name] = {"max_abs_err": err, "tol": tol,
+                               "bit_identical": True,
+                               "zeros_equal_null": True,
+                               "kernels": sorted(ran),
+                               "profiler_windows": runs}
+        print(json.dumps({"check": f"{kernel} {name}",
+                          **out["checks"][name]}), flush=True)
+    _require_only(kernel, calls)
+    (xp, mask, w, bias, _), valid = _lstm_inputs(1, torch.bfloat16, gen,
+                                                 T, B, h)
+    hc0 = tuple(torch.randn(1, B, h, generator=gen, device="cuda") * 0.5
+                for _ in range(2))
+    out["ms_carry"] = _time_ms(lambda: fn(xp, mask, w, bias, (False,),
+                                          hc0=hc0, return_final=True), 5)
+    out["ms_null"] = _time_ms(lambda: fn(xp, mask, w, bias, (False,)), 5)
+    out["shape"] = {"D": 1, "T": T, "B": B, "H": h, "dtype": "bfloat16",
+                    "valid_rows": valid}
+    print(json.dumps({"timed": f"{kernel}[D=1] carry", **out}), flush=True)
+    return out
+
+
+def _sp_batch(cfg, rng, t: int, b: int = 2):
+    """``b`` rows of random features, ``t`` frames, the second row
+    ``SP_SHORT`` frames shorter, any others of random lengths (zeros
+    past each length)."""
+    f = cfg.features.num_features
+    lens = np.concatenate([[t, t - SP_SHORT],
+                           rng.integers(t // 3, t, size=max(b - 2, 0))])
+    lens = lens[:b].astype(np.int64)
+    feats = np.zeros((b, t, f), np.float32)
+    for i, n in enumerate(lens):
+        feats[i, :n] = rng.normal(size=(n, f))
+    return torch.from_numpy(feats), torch.from_numpy(lens)
+
+
+def _sp_against_offline(name: str, cfg, model, feats, lens, want: dict,
+                        tol: float, ids_equal: bool = False) -> dict:
+    """``sp_forward`` over ``SP_SHARDS`` shards of the one card against
+    ``model``'s offline forward on the same features: the logits within
+    max(``tol``, one step of the model dtype at the offline logit) of
+    it on valid frames (``SP_LOGIT_TOL``), the lengths equal, the ids
+    equal at every frame whose offline top-1/top-2 margin exceeds twice
+    the largest logit error (``ids_equal``: at every valid frame), and exactly the
+    launches of ``want`` in the SP run. Returns the launches, the errors
+    and each decode's wall ms (the SP greedy decode, ids gathered to the
+    host, against the offline forward and argmax)."""
+    from deepspeech_tpu_torch.parallel.seqpar import (sp_forward,
+                                                      sp_greedy_decode)
+
+    devices = [torch.device("cuda", torch.cuda.current_device())] \
+        * SP_SHARDS
+    f_dev, l_dev = feats.cuda(), lens.cuda()
+    with torch.inference_mode():
+        ref, ref_lens = model(f_dev, l_dev)
+    torch.cuda.synchronize()
+    with _launches_by_d() as launches:
+        shards, sp_lens = sp_forward(cfg.model, model, feats, lens, devices)
+        torch.cuda.synchronize()
+    _require(launches == want, f"{name}: SP launches {launches}, want "
+             f"{want}")
+    got = torch.cat([s.to(ref.device) for s in shards], dim=1)
+    _require(tuple(got.shape) == tuple(ref.shape)
+             and torch.equal(sp_lens.to(ref_lens.device), ref_lens),
+             f"{name}: SP logits {tuple(got.shape)} / lengths differ from "
+             f"offline {tuple(ref.shape)}")
+    valid = (torch.arange(ref.shape[1], device=ref.device)[None]
+             < ref_lens[:, None])
+    diff = (got - ref).abs()
+    bound = _step(ref, getattr(torch, cfg.model.dtype)).clamp(min=tol)
+    err = float(diff[valid].max())
+    over = float((diff / bound)[valid].max())
+    _require(bool(torch.isfinite(got).all()), f"{name}: non-finite logits")
+    _require(over <= 1.0, f"{name}: SP logits {err} from offline, "
+             f"{over} times max({tol}, one step at the offline logit)")
+    top2 = ref.topk(2, dim=-1).values
+    decided = valid & ((top2[..., 0] - top2[..., 1]) > 2 * err)
+    if ids_equal:
+        decided = valid
+    same = got.argmax(-1) == ref.argmax(-1)
+    _require(bool(same[decided].all()),
+             f"{name}: {int((~same & decided).sum())} ids differ from "
+             f"offline where the margin exceeds {2 * err}")
+    ids, _ = sp_greedy_decode(cfg.model, model, feats, lens, devices)
+    _require(np.array_equal(ids, got.argmax(-1).to(torch.int32).cpu()
+                            .numpy()),
+             f"{name}: sp_greedy_decode's ids are not its logits' argmax")
+    times = {}
+    for label, run in (
+            ("sp_ms", lambda: sp_greedy_decode(cfg.model, model, feats,
+                                               lens, devices)),
+            ("offline_ms", lambda: model(feats.cuda(), lens.cuda())[0]
+             .argmax(-1).to(torch.int32).cpu())):
+        # Both ran just above on these inputs (the ids check, the
+        # reference): one timed call each, no warm-up of its own.
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+        times[label] = (time.perf_counter() - t0) * 1e3
+    out = {"case": name, "shards": SP_SHARDS, "batch": list(feats.shape[:2]),
+           "dtype": cfg.model.dtype, "H": cfg.model.rnn_hidden,
+           "rnn_type": cfg.model.rnn_type, "layers": cfg.model.rnn_layers,
+           "launches": launches, "logit_max_abs_err": err,
+           "logit_err_over_bound": over, "tol": tol,
+           "bound": "max(tol, one step of the model dtype at |offline|)",
+           "logit_max_abs": float(ref.abs()[valid].max()),
+           "decided_frames": int(decided.sum()),
+           "valid_frames": int(valid.sum()), **times}
+    print(json.dumps({"seqpar": out}), flush=True)
+    return out
+
+
+def _stacked_tree(params, stats, layers: int):
+    """A standard tree as the pipelined one with the same weights: rnn0
+    as it is, layers 1..L-1 stacked into ``rnn_pipe`` (the layout of
+    ``models/pipe_stack.py`` and JAX ``PipelinedRNNStack``)."""
+    rnn, rstats = params["rnn"], stats.get("rnn", {})
+    mids = [rnn[f"rnn{i}"] for i in range(1, layers)]
+    pipe = {"wx_kernel": np.stack([m["wx"]["kernel"] for m in mids]),
+            "wx_bias": np.stack([m["wx"]["bias"] for m in mids])}
+    for k in ("wh_fw", "bh_fw", "wh_bw", "bh_bw"):
+        if k in mids[0]:
+            pipe[k] = np.stack([m[k] for m in mids])
+    pstats = {}
+    if "bn" in mids[0]:
+        pipe["bn_scale"] = np.stack([m["bn"]["scale"] for m in mids])
+        pipe["bn_bias"] = np.stack([m["bn"]["bias"] for m in mids])
+        for k in ("mean", "var"):
+            pstats[k] = np.stack([rstats[f"rnn{i}"]["bn"][k]
+                                  for i in range(1, layers)])
+    p = {k: v for k, v in params.items() if k != "rnn"}
+    s = {k: v for k, v in stats.items() if k != "rnn"}
+    p["rnn0"], p["rnn_pipe"] = rnn["rnn0"], pipe
+    if "rnn0" in rstats:
+        s["rnn0"] = rstats["rnn0"]
+    if pstats:
+        s["rnn_pipe"] = pstats
+    return p, s
+
+
+def seqpar_phase(gen, root: str, card: str):
+    """Item 14a on the card, one phase:
+
+    - how many of 8 profiler windows record nothing here
+      (``_profiler_empty_windows``);
+    - K12 and K14 with a carried ``(h0, c0)`` (``_carry_checks``); K8 at
+      D=1 with h0 at H=1760 is the gru_fwd_stream phase's "D1_bf16_h0"
+      check already, and that phase times it (``gru_fwd_stream[D=1]``,
+      whose launches are the relay's below);
+    - ``sp_greedy`` at ds2_small's full width (3 BiGRU, H=800, bf16) on a
+      (2, 6800) recording over 4 shards of this card against the offline
+      forward: 24 K6 (2 directions x 3 layers x 4 shards, each a D=1
+      launch with the carry) and no K4; then the same in f32 at 1600
+      frames (logits within 1e-4, every id equal);
+    - the relay at ds2_full's width (one BiGRU layer at H=1760: 8 K8 at
+      D=1 with h0) and at ds2_small with LSTM cells (24 K12 at D=1 with
+      (h0, c0)), bf16, 1600 frames;
+    - ``Inferencer(decode.mode="sp_greedy")`` and ``"sp_beam"`` through
+      the entry point on this one card (S = 1), f32 with the head x8:
+      sp_greedy's texts equal greedy's, and sp_beam with ds2_beam_lm's
+      fused table has beam_fused_device's top-1 (f32, where the D=1 and
+      D=2 calls of the CUDA-core GRU kernel sum alike, so a near tie
+      cannot part them);
+    - a pipelined ds2_full (``pipeline_stages=2``: rnn0 and layers 1-6
+      stacked) through ``Inferencer`` on this card, its log-probs equal
+      bit for bit to those of the standard tree with the same weights
+      (``_stacked_tree``): 7 K8 per forward in each.
+
+    Returns the launches of the counted runs by kernels-line entry."""
+    from deepspeech_tpu_torch.config import apply_overrides
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.infer import Inferencer
+
+    tok = CharTokenizer.english()
+    rng = np.random.default_rng(SEED + 14)
+    counted: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            counted[k] = counted.get(k, 0) + v
+
+    empty = _profiler_empty_windows()
+    print(json.dumps({"profiler_empty_windows": empty, "of": 8,
+                      "at": "seqpar"}), flush=True)
+    carry = {"lstm_fwd": _carry_checks(gen, "lstm_fwd", H),
+             "lstm_fwd_stream": _carry_checks(gen, "lstm_fwd_stream", 1760)}
+
+    # A pipelined ds2_full against the standard tree (the weights of the
+    # ds2_full path phase, still cached), then one of its layers over
+    # shards.
+    cfg = _config("ds2_full")
+    params, stats = _weights("ds2_full")
+    pcfg = apply_overrides(cfg, {"model.pipeline_stages": "2"})
+    pparams, pstats = _stacked_tree(params, stats, cfg.model.rnn_layers)
+    feats, lens = _sp_batch(cfg, rng, 800, b=4)
+    lps = {}
+    for name, c, p, s in (("standard", cfg, params, stats),
+                          ("pipelined", pcfg, pparams, pstats)):
+        inf = Inferencer(c, tok, p, s)
+        with _launches_by_d() as launches:
+            lp, out_lens = inf.forward(feats, lens)
+            torch.cuda.synchronize()
+        _require(launches == {"gru_fwd_stream[D=2]": 7},
+                 f"ds2_full {name}: launches {launches}")
+        add(launches)
+        lps[name] = (lp, out_lens, inf.decode_batch(
+            {"features": feats.numpy(), "feat_lens": lens.numpy()}))
+        del inf
+    _require(torch.equal(lps["standard"][0], lps["pipelined"][0])
+             and torch.equal(lps["standard"][1], lps["pipelined"][1])
+             and lps["standard"][2] == lps["pipelined"][2],
+             "ds2_full: the pipelined tree's log-probs differ from the "
+             "standard tree's")
+    pipelined = {"preset": "ds2_full", "pipeline_stages": 2,
+                 "stacked_layers": cfg.model.rnn_layers - 1,
+                 "batch": list(feats.shape[:2]), "logprobs_bit_equal": True,
+                 "texts_equal": True}
+    print(json.dumps({"pipelined": pipelined}), flush=True)
+    del lps
+    one = apply_overrides(cfg, {"model.rnn_layers": "1"})
+    inf = Inferencer(one, tok, {**{k: v for k, v in params.items()
+                                   if k != "rnn"},
+                                "rnn": {"rnn0": params["rnn"]["rnn0"]}},
+                     {**{k: v for k, v in stats.items() if k != "rnn"},
+                      "rnn": {"rnn0": stats["rnn"]["rnn0"]}})
+    feats, lens = _sp_batch(one, rng, SP_FRAMES_SHORT)
+    cases = [_sp_against_offline(
+        "ds2_full_1layer_bf16", one, inf.model, feats, lens,
+        {"gru_fwd_stream[D=1]": 2 * SP_SHARDS}, SP_LOGIT_TOL[torch.bfloat16])]
+    add(cases[-1]["launches"])
+    del inf, params, stats, pparams, pstats
+    _weights.cache_clear()
+
+    # ds2_small: bf16 at full length, f32 shorter; then LSTM cells.
+    small = _config("ds2_small")
+    params, stats = _weights("ds2_small")
+    for name, c, t, ids_equal in (
+            ("ds2_small_bf16", small, SP_FRAMES, False),
+            ("ds2_small_f32", apply_overrides(
+                small, {"model.dtype": "float32"}), SP_FRAMES_SHORT, True)):
+        inf = Inferencer(c, tok, params, stats)
+        feats, lens = _sp_batch(c, rng, t)
+        dtype = getattr(torch, c.model.dtype)
+        cases.append(_sp_against_offline(
+            name, c, inf.model, feats, lens,
+            {"gru_fwd[D=1]": 2 * 3 * SP_SHARDS}, SP_LOGIT_TOL[dtype],
+            ids_equal))
+        add(cases[-1]["launches"])
+        del inf
+    lstm_cfg = _config("ds2_small", "lstm")
+    inf = Inferencer(lstm_cfg, tok, *_weights("ds2_small", "lstm"))
+    feats, lens = _sp_batch(lstm_cfg, rng, SP_FRAMES_SHORT)
+    cases.append(_sp_against_offline(
+        "ds2_small_lstm_bf16", lstm_cfg, inf.model, feats, lens,
+        {"lstm_fwd[D=1]": 2 * 3 * SP_SHARDS}, SP_LOGIT_TOL[torch.bfloat16]))
+    add(cases[-1]["launches"])
+    del inf
+
+    # The entry point on this card (S = 1), f32, the head x8.
+    f32 = apply_overrides(_config("ds2_beam_lm"), {"model.dtype": "float32"})
+    bparams, bstats = _beam_weights(f32)
+    arpa = os.path.join(root, "sp_char.arpa")
+    _write_char_arpa(arpa, tok.chars, np.random.default_rng(SEED + 15),
+                     200, 400)
+    feats, lens = _sp_batch(f32, rng, 400)
+    batch = {"features": feats.numpy(), "feat_lens": lens.numpy()}
+    texts = {}
+    for mode, over in (("greedy", {}), ("sp_greedy", {}),
+                       ("beam_fused_device", {"decode.lm_path": arpa}),
+                       ("sp_beam", {"decode.lm_path": arpa})):
+        c = apply_overrides(f32, {"decode.mode": mode, **over})
+        inf = Inferencer(c, tok, bparams, bstats)
+        with _launches_by_d() as launches:
+            texts[mode] = inf.decode_batch(batch)
+            torch.cuda.synchronize()
+        want = {"gru_fwd[D=1]" if mode.startswith("sp_") else
+                "gru_fwd[D=2]": 6 if mode.startswith("sp_") else 3}
+        _require(launches == want, f"Inferencer {mode}: launches {launches}"
+                 f", want {want}")
+        add(launches)
+        del inf
+    _require(texts["sp_greedy"] == texts["greedy"],
+             f"sp_greedy {texts['sp_greedy']} != greedy {texts['greedy']}")
+    _require(texts["sp_beam"] == texts["beam_fused_device"],
+             f"sp_beam {texts['sp_beam']} != beam_fused_device "
+             f"{texts['beam_fused_device']}")
+    entry = {"batch": list(feats.shape[:2]), "dtype": "float32",
+             "texts_equal": True, "any_text": any(texts["sp_beam"])}
+    print(json.dumps({"seqpar_inferencer": entry}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"seqpar_phase": {"carry": carry, "cases": cases,
+                                       "pipelined": pipelined,
+                                       "inferencer": entry,
+                                       "launches": counted,
+                                       "profiler_empty_windows": empty},
+                      "card": card}), flush=True)
+    return carry, counted
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6519,6 +6978,8 @@ def main() -> int:
     print(json.dumps({"built": sorted(built),
                       "build_seconds": time.perf_counter() - t0}),
           flush=True)
+    print(json.dumps({"profiler_empty_windows": _profiler_empty_windows(),
+                      "of": 8, "at": "start"}), flush=True)
 
     from deepspeech_tpu_torch.config import get_config
     from deepspeech_tpu_torch.ops import gru
@@ -6530,7 +6991,8 @@ def main() -> int:
             ("gru_fwd", gru_fwd_kernel_phase, H, [(2, K4), (1, K6)]),
             ("gru_bwd", gru_bwd_kernel_phase, H, [(2, K5), (1, K7)]),
             ("ctc", ctc_kernel_phase),
-            ("gru_fwd_stream", gru_fwd_kernel_phase, h_full, [(2, K8)]),
+            ("gru_fwd_stream", gru_fwd_kernel_phase, h_full,
+             [(2, K8), (1, K8)]),
             ("gru_bwd_stream", gru_bwd_kernel_phase, h_full, [(2, K9)]),
             ("gru_fwd_q", functools.partial(gru_fwd_kernel_phase, d1_h=H),
              h_full, [(2, K10), (1, K10)]),
@@ -6564,6 +7026,19 @@ def main() -> int:
                 f"{preset} int8 blocked-q decode", path_phase, preset,
                 layers, "gru_fwd_q_stream", "int8")
         _phase(f"{preset} quant_effect", quant_effect_phase, preset)
+    # Item 14a: K12 and K14 with a carried (h0, c0); sp_greedy/sp_beam
+    # over shards of this card (K6, K8, K12 at D=1 with the carry); a
+    # pipelined ds2_full (K8). Run while ds2_full's weights are cached;
+    # its launches are added after the LSTM paths set their rows.
+    root = tempfile.mkdtemp(prefix="chip_smoke_seqpar_")
+    try:
+        carry, sp_counts = _phase("seqpar (sp_greedy, sp_beam, pipelined "
+                                  "ds2_full, K12/K14 carry)", seqpar_phase,
+                                  gen, root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    entries["lstm_fwd[D=1]"]["carry"] = carry["lstm_fwd"]
+    entries["lstm_fwd_stream[D=2]"]["carry_d1"] = carry["lstm_fwd_stream"]
     # The LSTM variants of the same presets (model.rnn_type=lstm): one
     # LSTM forward launch per layer per forward, bf16 and then int8 on
     # the same weights. At ds2_full's H=1760 both stream (K14, K17).
@@ -6578,6 +7053,8 @@ def main() -> int:
             f"{preset}-lstm {quantize or 'bf16'} decode", path_phase, preset,
             layers, name.split("[")[0], quantize, "lstm")
     _weights.cache_clear()
+    for name, n in sp_counts.items():
+        entries[name]["launches"] += n
     # Training: one forward and one backward launch per layer per step,
     # GRU and then LSTM (the LSTM's forward with its tape).
     for preset, layers, name, streamed, steps, descent, rnn_type in (
@@ -6683,8 +7160,8 @@ def main() -> int:
     entries = [entries[n] for n in (
         "gru_fwd[D=2]", "gru_fwd[D=1]", "ctc_alpha", "ctc_alpha[loss_only]",
         "ctc_beta", "gru_bwd[D=2]", "gru_bwd[D=1]", "gru_fwd_stream[D=2]",
-        "gru_bwd_stream[D=2]", "gru_fwd_q[D=2]", "gru_fwd_q[D=1]",
-        "gru_fwd_q_stream[D=2]",
+        "gru_fwd_stream[D=1]", "gru_bwd_stream[D=2]", "gru_fwd_q[D=2]",
+        "gru_fwd_q[D=1]", "gru_fwd_q_stream[D=2]",
         "lstm_fwd[D=2]", "lstm_fwd[D=1]", "lstm_fwd_stream[D=2]",
         "lstm_fwd_q[D=2]", "lstm_fwd_q[D=1]", "lstm_fwd_q_stream[D=2]",
         "lstm_bwd[D=2]", "lstm_bwd[D=1]", "lstm_bwd_stream[D=2]")]

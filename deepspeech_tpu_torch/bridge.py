@@ -7,7 +7,9 @@ kernels ``[in, out]``, ``wh_*`` ``[H, 3H]`` (GRU) or ``[H, 4H]``
 lookahead ``w [ctx, C]``) and ``batch_stats`` (BN ``mean``/``var``).
 The port's module tree uses the same names, so the mapping is by name;
 the one change of layout is the conv kernel (HWIO <-> OIHW), and the
-round trip is exact.
+round trip is exact. A pipelined tree (``model.pipeline_stages > 1``)
+maps the same way: ``rnn0`` and the stacked ``rnn_pipe/{wx_kernel, ...}``
+leaves ``[L-1, ...]`` with their ``rnn_pipe/{mean, var}`` statistics.
 
 Under a model axis whose head is sharded (``models/ds2.py``: each rank
 of a model group holds ``V / model`` columns of ``head/kernel`` and
@@ -131,22 +133,28 @@ def init_params(cfg: Config, generator: torch.Generator
     """A seeded random init of the whole model in the flax layout, with
     flax's initializers: lecun-normal (truncated) conv and Dense
     kernels, orthogonal ``wh_*``, zero biases, unit BN scales, normal(0.02)
-    lookahead weights, and fresh BN statistics (mean 0, var 1)."""
+    lookahead weights, and fresh BN statistics (mean 0, var 1). A
+    pipelined tree's stacked ``wh_*`` are orthogonal layer by layer (JAX
+    ``pipe_stack.py:58-63``), and its stacked ``wx_kernel [L-1, H, G]``
+    takes flax's lecun-normal on the whole leaf, whose fan-in counts the
+    layer axis too (L-1 times H)."""
     model = DeepSpeech2(cfg.model, cfg.features.num_features)
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("weight", "kernel"):
-                fan_in = (p[0].numel() if leaf == "weight" else p.shape[0])
+            if leaf in ("weight", "kernel", "wx_kernel"):
+                fan_in = (p[0].numel() if leaf == "weight"
+                          else p[..., 0].numel())
                 # flax variance_scaling(1, fan_in, truncated_normal).
                 std = math.sqrt(1.0 / fan_in) / .87962566103423978
                 torch.nn.init.trunc_normal_(p, std=std, a=-2 * std,
                                             b=2 * std, generator=generator)
             elif leaf.startswith("wh_"):
-                torch.nn.init.orthogonal_(p, generator=generator)
+                for layer in (p if p.dim() == 3 else p[None]):
+                    torch.nn.init.orthogonal_(layer, generator=generator)
             elif leaf == "w":
                 torch.nn.init.normal_(p, std=0.02, generator=generator)
-            elif leaf == "scale":
+            elif leaf in ("scale", "bn_scale"):
                 p.fill_(1.0)
             else:
                 p.zero_()

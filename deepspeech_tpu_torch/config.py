@@ -146,8 +146,9 @@ class DecodeConfig:
     host with ``lm_path``), "beam_fused_device" (the LM fused on the
     device by a dense or hashed table, ``device_lm_impl``) and
     "beam_fused" (host search with word-LM fusion, by the C++ or the
-    Python decoder, ``host_impl``); the sequence-parallel ("sp_*") and
-    transducer ("rnnt_*") modes raise ``NotImplementedError``."""
+    Python decoder, ``host_impl``), and the sequence-parallel
+    "sp_greedy" and "sp_beam" (``parallel/seqpar.py``); the transducer
+    ("rnnt_*") modes raise ``NotImplementedError``."""
 
     mode: str = "greedy"
     chunk_frames: int = 64

@@ -13,7 +13,14 @@
 // Gates i, f, g, o: i = sigmoid(xp_i + (h W_i + b_i)),
 // f = sigmoid(xp_f + (h W_f + b_f) + 1), g = tanh(...), o = sigmoid(...);
 // c' = f c + i g, h' = o tanh(c'); h_prev is rounded to the dot dtype for
-// the product, sums, c and h stay f32. Each direction starts from h = c = 0.
+// the product, sums, c and h stay f32. Each direction starts from h0 and
+// c0 [D,B,H] f32 (either NULL for zeros), and with hfin and cfin not NULL
+// the last step writes the final h and c [D,B,H] there (the
+// sequence-parallel relay's chunk, deepspeech_tpu_torch/parallel/seqpar.py,
+// hands them to the next shard).
+// The final state is written by the thread that owns each value at the
+// last step, from the f32 values it holds; ys's last row holds the same h,
+// but the cell state has no row without the tape.
 //
 // What bounds it: each step is a [B,H] x [H,4H] product that depends on the
 // step before, so the T steps run in order and the time is T times the
@@ -126,7 +133,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 lstm_fwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
                 const WT* __restrict__ w, const float* __restrict__ bias,
                 float* ys, float* cs, int T, int B, int H, int h_pad,
-                int reverse_bits) {
+                int reverse_bits, const float* __restrict__ h0,
+                const float* __restrict__ c0, float* hfin, float* cfin) {
   extern __shared__ __align__(16) float smem[];
   const int ws = h_pad + 4;
   float* w_s = smem;
@@ -152,7 +160,13 @@ lstm_fwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
     w_s[c * ws + k] =
         (k < H && j0 + u < H) ? to_f32(w_d[k * H4 + g * H + j0 + u]) : 0.f;
   }
-  for (int i = threadIdx.x; i < B * U; i += THREADS) c_s[i] = 0.f;
+  // The cell state starts from c0 (zeros without one).
+  for (int i = threadIdx.x; i < B * U; i += THREADS) {
+    const int b = i / U, u = i % U;
+    c_s[i] = (c0 != nullptr && j0 + u < H)
+                 ? c0[size_t(d) * B * H + size_t(b) * H + j0 + u]
+                 : 0.f;
+  }
   float b_i = 0.f, b_f = 0.f, b_g = 0.f, b_o = 0.f;
   if (j < H) {
     b_i = bias[d * H4 + j];
@@ -172,9 +186,10 @@ lstm_fwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
 
   for (int s = 0; s < T; ++s) {
     const int row = rev ? T - 1 - s : s;
-    // h_prev of this direction: the ys row of the previous step, or 0.
+    // h_prev of this direction: the ys row of the previous step, h0, or 0.
     const float* hp = s > 0 ? ys_d + size_t(rev ? row + 1 : row - 1) * BH
-                            : nullptr;
+                      : h0 != nullptr ? h0 + size_t(d) * BH
+                                      : nullptr;
     for (int b0 = 0; b0 < B; b0 += ROWS) {
       float acc[2][4] = {};
       if (hp != nullptr) {
@@ -246,6 +261,10 @@ lstm_fwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
         c_s[b * U + lu] = c;
         ys_d[size_t(row) * BH + size_t(b) * H + j] = h;
         if (cs_d) cs_d[size_t(row) * BH + size_t(b) * H + j] = c;
+        if (hfin != nullptr && s == T - 1) {
+          hfin[size_t(d) * BH + size_t(b) * H + j] = h;
+          cfin[size_t(d) * BH + size_t(b) * H + j] = c;
+        }
       }
     }
     grid.sync();
@@ -254,8 +273,9 @@ lstm_fwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
 
 template <typename WT>
 cudaError_t launch(const void* xp, const float* mask, const void* w,
-                   const float* bias, float* ys, float* cs, int D, int T,
-                   int B, int H, int reverse_bits, int device,
+                   const float* bias, const float* h0, const float* c0,
+                   float* ys, float* cs, float* hfin, float* cfin, int D,
+                   int T, int B, int H, int reverse_bits, int device,
                    cudaStream_t stream) {
   auto* kernel = lstm_fwd_kernel<WT>;
   const int h_pad = (H + KC - 1) / KC * KC;
@@ -273,7 +293,8 @@ cudaError_t launch(const void* xp, const float* mask, const void* w,
   const WT* xp_t = static_cast<const WT*>(xp);
   const WT* w_t = static_cast<const WT*>(w);
   void* args[] = {&xp_t, &mask, &w_t, &bias, &ys, &cs,
-                  &T, &B, &H, const_cast<int*>(&h_pad), &reverse_bits};
+                  &T, &B, &H, const_cast<int*>(&h_pad), &reverse_bits,
+                  &h0, &c0, &hfin, &cfin};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                     dim3(blocks), dim3(THREADS), args, smem,
                                     stream);
@@ -294,8 +315,10 @@ constexpr int MS_WIDE = 4;
 
 __global__ void __launch_bounds__(lstm_fwd_mma::TT * 8)
 lstm_fwd_transpose_kernel(const unsigned short* __restrict__ w,
-                          unsigned short* __restrict__ wt, int H) {
-  lstm_fwd_mma::transpose(w, wt, H);
+                          unsigned short* __restrict__ wt, int H,
+                          const float* __restrict__ h0,
+                          __nv_bfloat16* __restrict__ h_row, size_t n_h) {
+  lstm_fwd_mma::transpose(w, wt, H, h0, h_row, n_h);
 }
 
 template <int MU, int MS>
@@ -305,9 +328,11 @@ lstm_fwd_mma_kernel(const __nv_bfloat16* __restrict__ xp,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias, float* ys, float* cs,
                     float* scratch, int D, int T, int B, int H,
-                    int reverse_bits) {
+                    int reverse_bits, const float* __restrict__ h0,
+                    const float* __restrict__ c0, float* hfin, float* cfin) {
   lstm_fwd_mma::loop<MU, MS, lstm_fwd_mma::W_ALL>(
-      xp, mask, scale, bias, ys, cs, scratch, D, T, B, H, reverse_bits);
+      xp, mask, scale, bias, ys, cs, scratch, D, T, B, H, reverse_bits, h0,
+      c0, hfin, cfin);
 }
 
 template <int MU, int MS>
@@ -317,7 +342,8 @@ size_t loop_smem(int H) {
 
 // The two launches at the width the card's SM count gives.
 cudaError_t launch_mma(const void* xp, const float* mask, const void* w,
-                       const float* bias, float* ys, float* cs,
+                       const float* bias, const float* h0, const float* c0,
+                       float* ys, float* cs, float* hfin, float* cfin,
                        float* scratch, int D, int T, int B, int H,
                        int reverse_bits, int device, cudaStream_t stream) {
   int sms = 0;
@@ -325,7 +351,7 @@ cudaError_t launch_mma(const void* xp, const float* mask, const void* w,
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   const bool narrow = D * ((H + MU_NARROW - 1) / MU_NARROW) <= sms;
-  return lstm_fwd_mma::launch(
+  return lstm_fwd_mma::launch_carry(
       lstm_fwd_transpose_kernel,
       narrow ? lstm_fwd_mma_kernel<MU_NARROW, MS_NARROW>
              : lstm_fwd_mma_kernel<MU_WIDE, MS_WIDE>,
@@ -333,7 +359,35 @@ cudaError_t launch_mma(const void* xp, const float* mask, const void* w,
       narrow ? loop_smem<MU_NARROW, MS_NARROW>(H)
              : loop_smem<MU_WIDE, MS_WIDE>(H),
       true, xp, mask, w, nullptr, bias, ys, cs, scratch, D, T, B, H,
-      reverse_bits, device, stream);
+      reverse_bits, device, stream, h0, c0, hfin, cfin);
+}
+
+}  // namespace
+
+namespace {
+
+int run(int bf16, const void* xp, const float* mask, const void* w,
+        const float* bias, const float* h0, const float* c0, float* ys,
+        float* cs, float* hfin, float* cfin, float* scratch, int D, int T,
+        int B, int H, int reverse_bits, int device, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (bf16 && H % 8 == 0 && scratch != nullptr &&
+      lstm_fwd_mma::aligned16(scratch))
+    err = launch_mma(xp, mask, w, bias, h0, c0, ys, cs, hfin, cfin, scratch,
+                     D, T, B, H, reverse_bits, device, st);
+  else if (bf16)
+    err = launch<__nv_bfloat16>(xp, mask, w, bias, h0, c0, ys, cs, hfin,
+                                cfin, D, T, B, H, reverse_bits, device, st);
+  else
+    err = launch<float>(xp, mask, w, bias, h0, c0, ys, cs, hfin, cfin, D, T,
+                        B, H, reverse_bits, device, st);
+  const cudaError_t restore = cudaSetDevice(prev);
+  return err != cudaSuccess ? err : restore;
 }
 
 }  // namespace
@@ -347,29 +401,16 @@ extern "C" {
 // 2*D*B*H + 2*D*H*H floats (c in f32, then the two rounded h rows and
 // W^T, both bf16). Any other call runs the CUDA-core kernel, which reads
 // no scratch (it may be NULL). The calling thread's current device is the
-// same after the call as before it.
+// same after the call as before it. Each direction starts from h0 and c0
+// [D,B,H] f32 (either may be NULL: zeros), and when hfin and cfin are not
+// NULL the last step writes the final h and c [D,B,H] f32 there.
 int lstm_fwd_launch(int bf16, const void* xp, const float* mask,
-                    const void* w, const float* bias, float* ys, float* cs,
-                    float* scratch, int D, int T, int B, int H,
+                    const void* w, const float* bias, const float* h0,
+                    const float* c0, float* ys, float* cs, float* hfin,
+                    float* cfin, float* scratch, int D, int T, int B, int H,
                     int reverse_bits, int device, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return err;
-  err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (bf16 && H % 8 == 0 && scratch != nullptr &&
-      lstm_fwd_mma::aligned16(scratch))
-    err = launch_mma(xp, mask, w, bias, ys, cs, scratch, D, T, B, H,
-                     reverse_bits, device, st);
-  else if (bf16)
-    err = launch<__nv_bfloat16>(xp, mask, w, bias, ys, cs, D, T, B, H,
-                                reverse_bits, device, st);
-  else
-    err = launch<float>(xp, mask, w, bias, ys, cs, D, T, B, H,
-                        reverse_bits, device, st);
-  const cudaError_t restore = cudaSetDevice(prev);
-  return err != cudaSuccess ? err : restore;
+  return run(bf16, xp, mask, w, bias, h0, c0, ys, cs, hfin, cfin, scratch, D,
+             T, B, H, reverse_bits, device, stream);
 }
 
 const char* lstm_fwd_error_string(int code) {

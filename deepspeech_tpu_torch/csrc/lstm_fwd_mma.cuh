@@ -14,8 +14,10 @@
 //   -> ys [D,T,B,H] f32 (every row, masked rows hold h) and, when cs is
 //   not NULL, the cell-state tape cs [D,T,B,H] f32 (masked rows hold c).
 // Gates i, f, g, o with the +1 on f; h_prev is rounded to bf16 for the
-// product, sums, c and h stay f32. Each direction starts from h = c = 0.
-// With SCALED (ops/lstm.py lstm_fwd_q's contract) W is the int8 Q [D,H,4H]
+// product, sums, c and h stay f32. Each direction starts from h = c = 0,
+// or, through launch_carry() (K12 and K14), from h0 and c0 [D,B,H] f32,
+// either of them NULL for zeros; with hfin and cfin not NULL the last
+// step also writes the final h and c [D,B,H] there. With SCALED (ops/lstm.py lstm_fwd_q's contract) W is the int8 Q [D,H,4H]
 // and a gate's recurrent part is sum * scale + b, scale [D,4H] f32 on the
 // finished column sum; every int8 value is exact in bf16 (8 significant
 // bits), so the product is round(h) @ Q exactly as the plain version's.
@@ -51,7 +53,10 @@
 //     parity so that a fast group's write cannot meet a slow group's read
 //     of the step before. That row is the next step's A operand, read
 //     through L2 (.cg: other blocks wrote it before the barrier). Step 0
-//     has h_prev = c_prev = 0 and no product.
+//     has h_prev = c_prev = 0 and no product; with an h0 it runs the
+//     product on round_bf16(h0), which the transpose launch writes into
+//     the row of parity 1 (the one step 0 reads), h_prev is the f32 h0
+//     and c_prev the f32 c0 (or 0 without one).
 //     With W_RES = W_ALL (K12) every chunk of the group's Wt rows is
 //     copied into shared memory once a call and stays there, each group
 //     has a block of its own, and the ring carries only the h row's
@@ -61,8 +66,8 @@
 //     grid barrier, which they do not wait for.
 //
 // Needs H % 8 == 0 and a 16-byte aligned scratch: c [D][B][H] f32, then
-// the rounded h rows [2][D][B][H] bf16, then Wt [D][4H][H] bf16,
-// 2*D*B*H + 2*D*H*H floats in all.
+// the rounded h rows [2][D][B][H] bf16 (parity 1 holding round(h0) when
+// h0 is given), then Wt [D][4H][H] bf16, 2*D*B*H + 2*D*H*H floats in all.
 
 #pragma once
 
@@ -150,6 +155,28 @@ __device__ __forceinline__ void transpose(const Src* __restrict__ w,
   }
 }
 
+// transpose() with an h0: the grid's threads also write h_row[i] =
+// round_bf16(h0[i]) for the n_h values of h0, in a grid-stride loop
+// (csrc/gru_fwd_mma.cuh's transpose does the same for the GRU).
+template <class Src>
+__device__ __forceinline__ void transpose(const Src* __restrict__ w,
+                                          unsigned short* __restrict__ wt,
+                                          int H, const float* __restrict__ h0,
+                                          __nv_bfloat16* __restrict__ h_row,
+                                          size_t n_h) {
+  if (h0 != nullptr) {
+    const size_t per_block = TT * 8;
+    const size_t block =
+        (size_t(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    const size_t stride =
+        size_t(gridDim.x) * gridDim.y * gridDim.z * per_block;
+    for (size_t i = block * per_block + threadIdx.y * TT + threadIdx.x;
+         i < n_h; i += stride)
+      h_row[i] = __float2bfloat16_rn(h0[i]);
+  }
+  transpose(w, wt, H);
+}
+
 // ---- 2. The serial loop ----
 
 constexpr int M_WARPS = 8;
@@ -224,8 +251,9 @@ __device__ __forceinline__ void stage_w(uint4* dst, int it, int kw, int wn,
 }
 
 // The scratch as the top of this file lays it out, Wt as transpose()
-// wrote it. With SCALED the gates take scale [D,4H] on the finished sums
-// (read only then).
+// wrote it (and round(h0) with an h0). With SCALED the gates take scale
+// [D,4H] on the finished sums (read only then). h0, c0, hfin and cfin as
+// the top of this file says; K16 passes none of them.
 template <int MU, int MS, int W_RES, int NW_N = (MU < 32 ? 1 : 2),
           bool SCALED = false>
 __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
@@ -234,7 +262,11 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
                                      const float* __restrict__ bias,
                                      float* ys, float* cs, float* scratch,
                                      int D, int T, int B, int H,
-                                     int reverse_bits) {
+                                     int reverse_bits,
+                                     const float* __restrict__ h0 = nullptr,
+                                     const float* __restrict__ c0 = nullptr,
+                                     float* hfin = nullptr,
+                                     float* cfin = nullptr) {
   using P = Plan<MU, MS, W_RES, NW_N>;
   // A block's one group (W_ALL) reads its scales before the first step.
   static_assert(!SCALED || P::ALL, "the scales of one group a block");
@@ -291,10 +323,11 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
   }
 
   for (int s = 0; s < T; ++s) {
-    // Step s reads the row of parity (s + 1) & 1, the one step s - 1
-    // wrote.
+    // Step s reads the row of parity (s + 1) & 1: the one step s - 1
+    // wrote or, at step 0, round(h0) as the transpose launch wrote it.
     __nv_bfloat16* h_out = hrow + size_t(s & 1) * D * BH;
     const __nv_bfloat16* h_in = hrow + size_t((s + 1) & 1) * D * BH;
+    const bool product = s > 0 || h0 != nullptr;
     for (int gi = blockIdx.x; gi < groups; gi += gridDim.x) {
       const int d = gi / nblk;
       const int j0 = (gi % nblk) * MU;
@@ -321,18 +354,23 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
 #pragma unroll
           for (int e = 0; e < 4; ++e) x_v[q][e] = __ldg(x + e * H + j);
           m_v[q] = __ldg(mask + size_t(row) * B + b);
-          c_v[q] = s > 0 ? c_d[at] : 0.f;
-          // This thread wrote the previous row's h itself.
-          h_v[q] = s > 0 ? __ldcg(ys_d + size_t(prev) * BH + at) : 0.f;
+          // The carry: h0 and c0 at step 0, else what this thread wrote
+          // itself the step before.
+          c_v[q] = s > 0 ? c_d[at]
+                         : c0 != nullptr ? __ldg(c0 + size_t(d) * BH + at)
+                                         : 0.f;
+          h_v[q] = s > 0 ? __ldcg(ys_d + size_t(prev) * BH + at)
+                         : h0 != nullptr ? __ldg(h0 + size_t(d) * BH + at)
+                                         : 0.f;
         }
 
         // gates = round(h_prev) @ W[:, own columns], on the tensor cores.
-        if (s > 0) {
+        if (product) {
           float acc[2][NT][4] = {};
           const bool m1 = b0 + 16 < B;  // the second m16 tile holds a row
-          // The first pass of a step finds Wt's first streamed chunks
-          // issued before the barrier (below).
-          const bool w_issued = gi == blockIdx.x && b0 == 0;
+          // The first pass of a step after the first finds Wt's first
+          // streamed chunks issued before the barrier (below).
+          const bool w_issued = s > 0 && gi == blockIdx.x && b0 == 0;
           auto stage = [&](int it) {
             if (it < n_mine) {
               uint4* slot = ring + (it % MS) * SLOT;
@@ -410,7 +448,7 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
             const int bl = r0 + RSTEP * q, b = b0 + bl;
             if (b >= B) continue;
             float sum[4] = {0.f, 0.f, 0.f, 0.f};
-            if (s > 0) {  // the warps' partial sums, in warp order
+            if (product) {  // the warps' partial sums, in warp order
 #pragma unroll
               for (int kk = 0; kk < NW_K; ++kk)
 #pragma unroll
@@ -438,9 +476,13 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
             ys_d[size_t(row) * BH + at] = h;
             if (cs) cs[(size_t(d) * T + row) * BH + at] = c;
             h_out[size_t(d) * BH + at] = __float2bfloat16_rn(h);
+            if (hfin != nullptr && s == T - 1) {
+              hfin[size_t(d) * BH + at] = h;
+              cfin[size_t(d) * BH + at] = c;
+            }
           }
         }
-        if (s > 0) __syncthreads();  // red is read: the rings are free
+        if (product) __syncthreads();  // red is read: the rings are free
       }
     }
     if (s == T - 1) break;
@@ -488,11 +530,48 @@ inline cudaError_t coop_blocks(const void* kernel, int threads, size_t smem,
   return cudaSuccess;
 }
 
+// The loop kernels of K12 and K14, which take a carry: LoopKernel's
+// arguments, then h0, c0, hfin, cfin.
+using LoopCarryKernel = void (*)(const __nv_bfloat16*, const float*,
+                                 const float*, const float*, float*, float*,
+                                 float*, int, int, int, int, int,
+                                 const float*, const float*, float*, float*);
+// The transpose that also rounds h0 into the h row: w, wt, H, h0, the
+// row, its values.
+using TransposeCarryKernel = void (*)(const unsigned short*, unsigned short*,
+                                      int, const float*, __nv_bfloat16*,
+                                      size_t);
+
+// The loop's shared memory and cooperative grid, and where Wt and the
+// rounded h rows lie in the scratch. With `one_each` (W_ALL) every group
+// needs a block of its own, or nothing is launched: the residency rule
+// (ops/gru.py resident_fits) admits only such sizes.
+inline cudaError_t loop_grid(const void* loop_kernel, int MU, size_t smem,
+                             bool one_each, int D, int H, int device,
+                             int* blocks) {
+  const int groups = D * ((H + MU - 1) / MU);
+  cudaError_t err = cudaFuncSetAttribute(
+      loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  err = coop_blocks(loop_kernel, M_THREADS, smem, groups, device, blocks);
+  if (err != cudaSuccess) return err;
+  if (one_each && *blocks < groups) return cudaErrorCooperativeLaunchTooLarge;
+  return cudaSuccess;
+}
+inline __nv_bfloat16* h_rows(float* scratch, int D, int B, int H) {
+  return reinterpret_cast<__nv_bfloat16*>(scratch + size_t(D) * B * H);
+}
+inline unsigned short* wt_of(float* scratch, int D, int B, int H) {
+  return reinterpret_cast<unsigned short*>(h_rows(scratch, D, B, H) +
+                                           2 * size_t(D) * B * H);
+}
+inline dim3 transpose_grid(int D, int H) {
+  return dim3((4 * H + TT - 1) / TT, (H + TT - 1) / TT, D);
+}
+
 // The two launches: W (bf16, or the int8 Q with `scale`) transposed into
 // the scratch, then the serial loop over groups of MU units, `smem` bytes
-// a block. With `one_each` (W_ALL) every group needs a block of its own,
-// or nothing is launched: the residency rule (ops/gru.py resident_fits)
-// admits only such sizes.
+// a block.
 template <class Src>
 inline cudaError_t launch(TransposeKernel<Src> transpose_kernel,
                           LoopKernel loop_kernel, int MU, size_t smem,
@@ -502,28 +581,52 @@ inline cudaError_t launch(TransposeKernel<Src> transpose_kernel,
                           float* scratch, int D, int T, int B, int H,
                           int reverse_bits, int device,
                           cudaStream_t stream) {
-  const int groups = D * ((H + MU - 1) / MU);
-  cudaError_t err = cudaFuncSetAttribute(
-      loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = coop_blocks(reinterpret_cast<const void*>(loop_kernel), M_THREADS,
-                    smem, groups, device, &blocks);
+  cudaError_t err = loop_grid(reinterpret_cast<const void*>(loop_kernel), MU,
+                              smem, one_each, D, H, device, &blocks);
   if (err != cudaSuccess) return err;
-  if (one_each && blocks < groups) return cudaErrorCooperativeLaunchTooLarge;
-
-  const size_t dbh = size_t(D) * B * H;
-  unsigned short* wt =
-      reinterpret_cast<unsigned short*>(scratch + dbh) + 2 * dbh;
-  const dim3 t_grid((4 * H + TT - 1) / TT, (H + TT - 1) / TT, D);
-  transpose_kernel<<<t_grid, dim3(TT, 8), 0, stream>>>(
-      static_cast<const Src*>(w), wt, H);
+  transpose_kernel<<<transpose_grid(D, H), dim3(TT, 8), 0, stream>>>(
+      static_cast<const Src*>(w), wt_of(scratch, D, B, H), H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const __nv_bfloat16* xp_t = static_cast<const __nv_bfloat16*>(xp);
   void* args[] = {&xp_t, &mask, &scale, &bias, &ys, &cs, &scratch,
                   &D, &T, &B, &H, &reverse_bits};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(loop_kernel),
+                                    dim3(blocks), dim3(M_THREADS), args, smem,
+                                    stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// launch() for bf16 W with a carry, launch()'s arguments then h0, c0,
+// hfin and cfin (any of them NULL): the transpose also rounds h0 into the
+// row of parity 1, the one step 0 reads, and the loop takes the four.
+inline cudaError_t launch_carry(TransposeCarryKernel transpose_kernel,
+                                LoopCarryKernel loop_kernel, int MU,
+                                size_t smem, bool one_each, const void* xp,
+                                const float* mask, const void* w,
+                                const float* scale, const float* bias,
+                                float* ys, float* cs, float* scratch, int D,
+                                int T, int B, int H, int reverse_bits,
+                                int device, cudaStream_t stream,
+                                const float* h0, const float* c0,
+                                float* hfin, float* cfin) {
+  int blocks = 0;
+  cudaError_t err = loop_grid(reinterpret_cast<const void*>(loop_kernel), MU,
+                              smem, one_each, D, H, device, &blocks);
+  if (err != cudaSuccess) return err;
+  const size_t dbh = size_t(D) * B * H;
+  transpose_kernel<<<transpose_grid(D, H), dim3(TT, 8), 0, stream>>>(
+      static_cast<const unsigned short*>(w), wt_of(scratch, D, B, H), H, h0,
+      h_rows(scratch, D, B, H) + dbh, dbh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const __nv_bfloat16* xp_t = static_cast<const __nv_bfloat16*>(xp);
+  void* args[] = {&xp_t, &mask, &scale, &bias, &ys, &cs, &scratch,
+                  &D, &T, &B, &H, &reverse_bits, &h0, &c0, &hfin, &cfin};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(loop_kernel),
                                     dim3(blocks), dim3(M_THREADS), args, smem,
                                     stream);

@@ -15,7 +15,10 @@
 //   -> ys [D,T,B,H] f32 (every row, masked rows hold h) and, when cs is not
 //   NULL, the cell-state tape cs [D,T,B,H] f32 (masked rows hold c).
 // Gates i, f, g, o with the +1 on f, as in csrc/lstm_fwd.cu; the product
-// rounds h_prev to the dot dtype and sums in f32.
+// rounds h_prev to the dot dtype and sums in f32. Each direction starts
+// from h0 and c0 [D,B,H] f32 (either NULL for zeros), writing the final h and c [D,B,H]
+// into hfin and cfin at the last step when they are not NULL, as
+// csrc/lstm_fwd.cu does.
 //
 // What bounds it: T serial steps of one step's latency, far above the FLOP
 // roofline (2*T*D*B*H*4H over the peak) and the byte roofline (the inputs
@@ -59,11 +62,12 @@
 //     by step parity so that a fast group's write cannot meet a slow
 //     group's read of the step before. That row is the next step's A
 //     operand, read through L2 (.cg: other blocks wrote it before the
-//     barrier). Step 0 has h_prev = 0 and no product. Each warp's first
-//     W_RES chunks of Wt stay in shared memory for the whole call (when a
-//     block has one group), and the first streamed chunks of the next
-//     step are issued before the grid barrier, which they do not wait
-//     for. Per SM and step at ds2_full: 14.4 MFLOP; the 71% of W's 450 KB
+//     barrier). Step 0 has h_prev = 0 and no product (with an h0, the
+//     product on round_bf16(h0), as csrc/lstm_fwd_mma.cuh says). Each
+//     warp's first W_RES chunks of Wt stay in shared memory for the whole
+//     call (when a block has one group), and the first streamed chunks of
+//     the next step are issued before the grid barrier, which they do not
+//     wait for. Per SM and step at ds2_full: 14.4 MFLOP; the 71% of W's 450 KB
 //     slice that is not resident, and the h row's 113 KB once for each of
 //     the NW_N column splits, from L2. The resident part saves more
 //     than its share of the bytes (k14_variants on an H100 SXM: 24.1-24.4
@@ -165,7 +169,9 @@ lstm_fwd_stream_kernel(const WT* __restrict__ xp,
                        const WT* __restrict__ w,
                        const float* __restrict__ bias, float* ys, float* cs,
                        float* c_buf, int D, int T, int B, int H,
-                       int reverse_bits) {
+                       int reverse_bits, const float* __restrict__ h0,
+                       const float* __restrict__ c0, float* hfin,
+                       float* cfin) {
   extern __shared__ __align__(16) float smem[];
   const int nblk = (H + U - 1) / U;
   const int groups = D * nblk;
@@ -186,9 +192,11 @@ lstm_fwd_stream_kernel(const WT* __restrict__ xp,
       const WT* w_d = w + size_t(d) * H * H4;
       float* ys_d = ys + size_t(d) * T * BH;
       float* c_d = c_buf + size_t(d) * BH;
-      // h_prev of this direction: the ys row of the previous step, or 0.
+      // h_prev of this direction: the ys row of the previous step, h0, or
+      // 0.
       const float* hp = s > 0 ? ys_d + size_t(rev ? row + 1 : row - 1) * BH
-                              : nullptr;
+                        : h0 != nullptr ? h0 + size_t(d) * BH
+                                        : nullptr;
       // This thread's W column when it stages W: gate wc / U, unit
       // j0 + wc % U (neighbouring threads read neighbouring units, U
       // values in a row of global memory), rows wk, wk + KR, ...
@@ -276,7 +284,9 @@ lstm_fwd_stream_kernel(const WT* __restrict__ xp,
             if (b >= B) continue;
             const size_t at = size_t(b) * H + j;
             const float h_prev = hp ? __ldcg(hp + at) : 0.f;
-            const float c_prev = s > 0 ? c_d[at] : 0.f;
+            const float c_prev = s > 0             ? c_d[at]
+                                 : c0 != nullptr ? c0[size_t(d) * BH + at]
+                                                 : 0.f;
             const WT* x = xp + (size_t(row) * B + b) * H4;
             const float ig = sigmoid(to_f32(x[j]) + (acc[r][0] + b_i));
             const float fg =
@@ -293,6 +303,10 @@ lstm_fwd_stream_kernel(const WT* __restrict__ xp,
             c_d[at] = c;
             ys_d[size_t(row) * BH + at] = h;
             if (cs) cs[(size_t(d) * T + row) * BH + at] = c;
+            if (hfin != nullptr && s == T - 1) {
+              hfin[size_t(d) * BH + at] = h;
+              cfin[size_t(d) * BH + at] = c;
+            }
           }
         }
       }
@@ -323,8 +337,11 @@ static_assert(Plan::smem(0) <= 232448, "over the shared memory of a block");
 
 __global__ void __launch_bounds__(lstm_fwd_mma::TT * 8)
 lstm_fwd_stream_transpose_kernel(const unsigned short* __restrict__ w,
-                                 unsigned short* __restrict__ wt, int H) {
-  lstm_fwd_mma::transpose(w, wt, H);
+                                 unsigned short* __restrict__ wt, int H,
+                                 const float* __restrict__ h0,
+                                 __nv_bfloat16* __restrict__ h_row,
+                                 size_t n_h) {
+  lstm_fwd_mma::transpose(w, wt, H, h0, h_row, n_h);
 }
 
 __global__ void __launch_bounds__(lstm_fwd_mma::M_THREADS, 1)
@@ -333,17 +350,23 @@ lstm_fwd_stream_mma_kernel(const __nv_bfloat16* __restrict__ xp,
                            const float* __restrict__ scale,
                            const float* __restrict__ bias, float* ys,
                            float* cs, float* scratch, int D, int T, int B,
-                           int H, int reverse_bits) {
+                           int H, int reverse_bits,
+                           const float* __restrict__ h0,
+                           const float* __restrict__ c0, float* hfin,
+                           float* cfin) {
   lstm_fwd_mma::loop<MU, MS, W_RES, NW_N>(xp, mask, scale, bias, ys, cs,
-                                          scratch, D, T, B, H, reverse_bits);
+                                          scratch, D, T, B, H, reverse_bits,
+                                          h0, c0, hfin, cfin);
 }
 
 // The CUDA-core kernel: f32, or bf16 off the tensor-core path.
 template <typename WT>
 cudaError_t launch_cuda_core(const void* xp, const float* mask,
-                             const void* w, const float* bias, float* ys,
-                             float* cs, float* c_buf, int D, int T, int B,
-                             int H, int reverse_bits, int device,
+                             const void* w, const float* bias,
+                             const float* h0, const float* c0, float* ys,
+                             float* cs, float* hfin, float* cfin,
+                             float* c_buf, int D, int T, int B, int H,
+                             int reverse_bits, int device,
                              cudaStream_t stream) {
   auto* kernel = lstm_fwd_stream_kernel<WT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -357,7 +380,7 @@ cudaError_t launch_cuda_core(const void* xp, const float* mask,
   const WT* xp_t = static_cast<const WT*>(xp);
   const WT* w_t = static_cast<const WT*>(w);
   void* args[] = {&xp_t, &mask, &w_t, &bias, &ys, &cs, &c_buf,
-                  &D, &T, &B, &H, &reverse_bits};
+                  &D, &T, &B, &H, &reverse_bits, &h0, &c0, &hfin, &cfin};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                     dim3(blocks), dim3(THREADS), args,
                                     SMEM_BYTES, stream);
@@ -368,14 +391,43 @@ cudaError_t launch_cuda_core(const void* xp, const float* mask,
 // The tensor-core path: W transposed into the scratch, then the serial
 // loop, as many blocks as fit (at most one a group).
 cudaError_t launch_mma(const void* xp, const float* mask, const void* w,
-                       const float* bias, float* ys, float* cs,
+                       const float* bias, const float* h0, const float* c0,
+                       float* ys, float* cs, float* hfin, float* cfin,
                        float* scratch, int D, int T, int B, int H,
                        int reverse_bits, int device, cudaStream_t stream) {
-  return lstm_fwd_mma::launch(lstm_fwd_stream_transpose_kernel,
-                              lstm_fwd_stream_mma_kernel, MU, Plan::smem(H),
-                              false, xp, mask, w, nullptr, bias, ys, cs,
-                              scratch, D, T, B, H, reverse_bits, device,
-                              stream);
+  return lstm_fwd_mma::launch_carry(
+      lstm_fwd_stream_transpose_kernel, lstm_fwd_stream_mma_kernel, MU,
+      Plan::smem(H), false, xp, mask, w, nullptr, bias, ys, cs, scratch, D,
+      T, B, H, reverse_bits, device, stream, h0, c0, hfin, cfin);
+}
+
+}  // namespace
+
+namespace {
+
+int run(int bf16, const void* xp, const float* mask, const void* w,
+        const float* bias, const float* h0, const float* c0, float* ys,
+        float* cs, float* hfin, float* cfin, float* scratch, int D, int T,
+        int B, int H, int reverse_bits, int device, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (bf16 && H % 8 == 0 && lstm_fwd_mma::aligned16(scratch))
+    err = launch_mma(xp, mask, w, bias, h0, c0, ys, cs, hfin, cfin, scratch,
+                     D, T, B, H, reverse_bits, device, st);
+  else if (bf16)
+    err = launch_cuda_core<__nv_bfloat16>(xp, mask, w, bias, h0, c0, ys, cs,
+                                          hfin, cfin, scratch, D, T, B, H,
+                                          reverse_bits, device, st);
+  else
+    err = launch_cuda_core<float>(xp, mask, w, bias, h0, c0, ys, cs, hfin,
+                                  cfin, scratch, D, T, B, H, reverse_bits,
+                                  device, st);
+  const cudaError_t restore = cudaSetDevice(prev);
+  return err != cudaSuccess ? err : restore;
 }
 
 }  // namespace
@@ -389,29 +441,17 @@ extern "C" {
 // 2*D*H*H floats (c, the two bf16 h rows, Wt in bf16). Any other call
 // runs the CUDA-core kernel, whose scratch is c alone, D*B*H floats. The
 // calling thread's current device is the same after the call as before.
+// Each direction starts from h0 and c0 [D,B,H] f32 (either may be NULL:
+// zeros), and when hfin and cfin are not NULL the last step writes the
+// final h and c [D,B,H] f32 there.
 int lstm_fwd_stream_launch(int bf16, const void* xp, const float* mask,
-                           const void* w, const float* bias, float* ys,
-                           float* cs, float* scratch, int D, int T, int B,
-                           int H, int reverse_bits, int device,
+                           const void* w, const float* bias, const float* h0,
+                           const float* c0, float* ys, float* cs,
+                           float* hfin, float* cfin, float* scratch, int D,
+                           int T, int B, int H, int reverse_bits, int device,
                            void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return err;
-  err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (bf16 && H % 8 == 0 && lstm_fwd_mma::aligned16(scratch))
-    err = launch_mma(xp, mask, w, bias, ys, cs, scratch, D, T, B, H,
-                     reverse_bits, device, st);
-  else if (bf16)
-    err = launch_cuda_core<__nv_bfloat16>(xp, mask, w, bias, ys, cs, scratch,
-                                          D, T, B, H, reverse_bits, device,
-                                          st);
-  else
-    err = launch_cuda_core<float>(xp, mask, w, bias, ys, cs, scratch, D, T,
-                                  B, H, reverse_bits, device, st);
-  const cudaError_t restore = cudaSetDevice(prev);
-  return err != cudaSuccess ? err : restore;
+  return run(bf16, xp, mask, w, bias, h0, c0, ys, cs, hfin, cfin, scratch, D,
+             T, B, H, reverse_bits, device, stream);
 }
 
 const char* lstm_fwd_stream_error_string(int code) {

@@ -21,8 +21,21 @@ decode modes:
   ``decode.host_impl`` says ("native" raises if the C++ library does
   not build or load; "auto" takes it where it does).
 
-Sequence-parallel and transducer decoding raise ``NotImplementedError``
-naming the slice of the port that brings them.
+- ``sp_greedy`` and ``sp_beam``: the sequence-parallel engine
+  (``parallel/seqpar.py``): the time axis of a batch shards over
+  ``sp_devices`` (every local card, or the CPU when asked for), the
+  recurrences relay their carries across the shards, and only the ids
+  (greedy) or the beam state (beam, with ``decode.lm_path``'s table fused
+  on the device) leave a shard. One process: under a multi-rank
+  ``torch.distributed`` group they raise.
+
+Transducer decoding raises ``NotImplementedError`` naming the slice of
+the port that brings it.
+
+A tree stacked for pipeline stages (``model.pipeline_stages > 1``,
+``models/pipe_stack.py``) serves through its sequential path in the
+offline modes; an int8 engine dequantizes it at init
+(``utils/quantize.keep_recurrent_q``, regime "fp"), as the JAX one does.
 
 Weights: ``Inferencer(params=None)`` restores ``train.checkpoint_dir``
 through ``restore_params``, which reads the port's own checkpoints
@@ -91,7 +104,8 @@ from .models.ds2 import DeepSpeech2
 from .ops.gru import card_limits, launch_tally
 from .streaming import StreamingTranscriber
 from .utils.cache import ShapeBucketCache
-from .utils.quantize import (kernel_regime, quantization_error,
+from .utils.quantize import (dequantize_params, keep_recurrent_q,
+                             kernel_regime, quantization_error,
                              quantize_params)
 from .utils.rung_graph import GraphPool, RungGraph
 
@@ -104,9 +118,9 @@ _OFFLINE_MODES = ("greedy", "beam", "beam_fused", "beam_fused_device",
 
 _BEAM_MODES = ("beam", "beam_fused", "beam_fused_device")
 
+_SP_MODES = ("sp_greedy", "sp_beam")
+
 _LATER = {
-    "sp_greedy": "item 14 (sequence parallelism)",
-    "sp_beam": "item 14 (sequence parallelism)",
     "rnnt_greedy": "item 15 (RNN-T)",
     "rnnt_beam": "item 15 (RNN-T)",
 }
@@ -193,7 +207,9 @@ class Inferencer:
     serves the int8 model; ``kernel_regime`` is "resident-q",
     "blocked-q" or "fp". ``decode.mode="streaming"`` builds a
     ``StreamingTranscriber`` here, which runs the PTQ itself, and
-    shares its model.
+    shares its model. ``sp_devices`` are the shards of the sp modes, one
+    device an entry (entries may repeat): every local card, or one CPU
+    shard on the CPU; a caller may set another list.
     """
 
     def __init__(self, cfg: Config, tokenizer: CharTokenizer,
@@ -214,12 +230,16 @@ class Inferencer:
                 "or the transducer's emission frames) — greedy/"
                 "streaming/rnnt_greedy modes only; beam hypotheses "
                 f"don't carry one ({mode!r})")
-        if mode not in ("greedy", "streaming") + _BEAM_MODES:
+        if mode not in ("greedy", "streaming") + _BEAM_MODES + _SP_MODES:
             if mode not in _LATER:
                 raise ValueError(f"unknown decode mode {mode!r}")
             raise NotImplementedError(
                 f"decode.mode={mode!r} comes with {_LATER[mode]} of the "
                 "port")
+        if mode == "streaming" and cfg.model.pipeline_stages > 1:
+            raise ValueError(
+                "the chunked streaming engine reads the standard tree; a "
+                "pipelined one (model.pipeline_stages > 1) serves offline")
         if params is None:
             params, batch_stats = restore_params(cfg.train.checkpoint_dir)
         self.cfg = cfg
@@ -248,12 +268,17 @@ class Inferencer:
                 report["quantized"], report["kept"],
                 report["bytes_before"] / 1e6, report["bytes_after"] / 1e6,
                 quantization_error(params, qtree))
-            params = qtree
+            # A pipelined tree keeps no int8 leaf (keep_recurrent_q is
+            # None for it): every leaf is dequantized here, once, as the
+            # JAX engine dequantizes them all at the forward's entry.
+            params = (qtree if keep_recurrent_q(cfg.model) is not None
+                      else dequantize_params(qtree))
             self.quantize_calls += 1
             self.quantize_report = report
         if self._streamer is None:
-            self.model = DeepSpeech2(cfg.model, cfg.features.num_features,
-                                     quantized=bool(quantize))
+            self.model = DeepSpeech2(
+                cfg.model, cfg.features.num_features,
+                quantized=bool(quantize) and cfg.model.pipeline_stages == 1)
             self.model.load_state_dict(from_flax(params, batch_stats or {}))
             self.model.to(self.device).eval()
         card = card_limits(self.device) if self.device.type == "cuda" else ()
@@ -285,6 +310,10 @@ class Inferencer:
             except (ValueError, RuntimeError):
                 self._native_lm = None
         self._device_lm = None  # the fusion table (dense/hashed), lazy
+        self.sp_devices = ([torch.device("cuda", i)
+                            for i in range(torch.cuda.device_count())]
+                           if self.device.type == "cuda" else [self.device])
+        self._sp_replicas = None  # seqpar.Replicas over sp_devices, lazy
         # Rung ledger, bounded by the planner's (B, T) ladder: a rung's
         # first use (cuDNN/cuBLAS plans, allocator growth) is counted
         # as its compile, and the serving plane reads the counts, the
@@ -393,6 +422,10 @@ class Inferencer:
     def decode_batch(self, batch: Dict[str, np.ndarray]) -> List[str]:
         if self._streamer is not None:
             return self._decode_streaming(batch)
+        if self.cfg.decode.mode == "sp_greedy":
+            return self._decode_sp(batch)
+        if self.cfg.decode.mode == "sp_beam":
+            return self._decode_sp_beam(batch)
         b, t = batch["features"].shape[:2]
         hit = self.shape_cache.note(b, t, _valid_frames(batch["feat_lens"],
                                                         t))
@@ -483,6 +516,69 @@ class Inferencer:
                 vocab_has_space=self._space_id is not None,
                 impl=d.device_lm_impl).to(self.device)
         return self._device_lm
+
+    # -- sequence-parallel modes ------------------------------------------
+    def _sp_setup(self, batch: Dict[str, np.ndarray]):
+        """The sp modes' shared preparation: refuse a multi-rank group
+        (one process shards its own batch over its devices, as JAX
+        ``_sp_setup`` refuses ``process_count() > 1``), and zero-pad the
+        time axis to the shard multiple and to ``sp_min_frames`` (padding
+        frames are masked as offline). Returns ``(features, lens,
+        devices, replicas)``: the model's ``seqpar.Replicas`` over
+        ``sp_devices``, made at the first sp decode and again only when
+        ``sp_devices`` changes."""
+        from .parallel import distributed
+        from .parallel.seqpar import (Replicas, sp_frame_multiple,
+                                      sp_min_frames)
+
+        if distributed.process_count() > 1:
+            raise ValueError(
+                "sp_greedy/sp_beam decode is single-process: it shards "
+                "one process's batch over its local devices; run infer in "
+                "one process")
+        devices = list(self.sp_devices)
+        if self._sp_replicas is None or self._sp_replicas[0] != devices:
+            self._sp_replicas = (devices, Replicas(self.model, devices))
+        mult = sp_frame_multiple(self.cfg.model, len(devices))
+        feats = _tensor(batch["features"], np.float32)
+        t = feats.shape[1]
+        target = max(-(-t // mult) * mult,
+                     sp_min_frames(self.cfg.model, len(devices)))
+        if target > t:
+            feats = torch.nn.functional.pad(feats, (0, 0, 0, target - t))
+        return (feats, _tensor(batch["feat_lens"], np.int64), devices,
+                self._sp_replicas[1])
+
+    def _decode_sp(self, batch: Dict[str, np.ndarray]) -> List[str]:
+        """Greedy decode through the sequence-parallel engine: one long
+        recording decodes with ``[T/S]`` activations a shard. Equals
+        offline greedy (tests/test_torch_seqpar.py)."""
+        from .parallel.seqpar import sp_greedy_decode
+
+        feats, lens, devices, replicas = self._sp_setup(batch)
+        ids, out_lens = sp_greedy_decode(self.cfg.model, self.model, feats,
+                                         lens, devices, replicas)
+        out, n = collapse_ids(torch.from_numpy(ids).long(),
+                              torch.from_numpy(out_lens).long())
+        return ids_to_texts(out, n, self.tokenizer)
+
+    def _decode_sp_beam(self, batch: Dict[str, np.ndarray]) -> List[str]:
+        """Beam search through the sequence-parallel engine: the beam
+        state relays shard to shard over the time-sharded log-probs, with
+        ``decode.lm_path``'s table fused on the device when one is set."""
+        from .parallel.seqpar import sp_beam_search
+
+        d = self.cfg.decode
+        feats, lens, devices, replicas = self._sp_setup(batch)
+        lm_table = self._lm_table() if d.lm_path else None
+        prefixes, plens, scores = sp_beam_search(
+            self.cfg.model, self.model, feats, lens, devices,
+            beam_width=d.beam_width,
+            prune_top_k=min(d.prune_top_k, self.cfg.model.vocab_size - 1),
+            max_len=self.cfg.data.max_label_len, lm_table=lm_table,
+            merge_impl=d.merge_impl, replicas=replicas)
+        return self._nbest_texts(prefixes, plens, scores,
+                                 lm_fused=lm_table is not None)
 
     def _decode_beam_fused(self, lp, lens) -> List[str]:
         """Host search with word-LM fusion: the log-probs cross to the

@@ -10,9 +10,9 @@ stages where D x ceil(H/MU_NARROW) groups get an SM each, else
 ``csrc/lstm_fwd.cu``, each made by a text substitution of those
 constants (``VARIANTS``), and with ``--parent=PATH`` (another tree's
 ``deepspeech_tpu_torch/csrc`` directory) that tree's ``lstm_fwd.cu`` and
-``lstm_fwd_stream.cu`` as they are (an ``lstm_fwd.cu`` without the
-tensor-core path takes no scratch and is called with its own
-arguments). Each K12 build is held to ``lstm_fwd_plain`` at
+``lstm_fwd_stream.cu`` as they are (an older C entry, without the
+carry or the scratch, is called with its own pointers: ``parent_call``).
+Each K12 build is held to ``lstm_fwd_plain`` at
 ds2_small-lstm's shape (D=2, T'=850, B=32, H=800, bf16, ragged lengths)
 and at ds2_streaming-lstm's (D=1), with and without the cell-state tape,
 ``ys`` (and ``cs``) within ``TOL`` and the same bits twice, then timed
@@ -31,8 +31,12 @@ out (``ABLATIONS``) and holds each to the same comparison: those in
 ``MUST_FAIL`` take out part of the product and must miss ``TOL``, which
 shows that the comparison would see such a fault.
 
+With ``--parent-only`` it runs only the parent's comparison, K12 and
+K14 at the main path's shapes, each also timed with a carried ``(h0,
+c0)``.
+
 ``python -m deepspeech_tpu_torch.k12_variants [--reps=3] [--parent=PATH]
-[--ablate]``
+[--ablate] [--parent-only]``
 """
 
 from __future__ import annotations
@@ -146,12 +150,29 @@ def _outputs(got, tape: bool):
     return got if tape else (got,)
 
 
-def _parent_call(xp, mask, w, b, reverse, tape=False):
-    """``lstm_fwd`` through a source whose C entry point takes no scratch
-    (the CUDA-core kernel alone)."""
-    ys, cs = lstm._outputs(xp, w, tape)
-    gru._launch(SOURCE, xp, mask, w, (b, ys, cs), reverse)
-    return (ys, cs) if tape else ys
+def parent_call(source: str, path: str):
+    """The call of another tree's ``csrc/<source>.cu`` (``path``) on the
+    arguments ``lstm.<source>`` takes: that wrapper itself where the
+    tree's ``<source>_launch`` takes a carry, as this tree's does, else a
+    launch with the pointers its older C entry takes, ``(bias, ys, cs)``
+    and a scratch where it has one (``lstm._fwd_scratch`` or
+    ``lstm._fwd_stream_scratch``)."""
+    with open(path) as f:
+        text = f.read()
+    entry = text[text.index(f"int {source}_launch("):]
+    entry = entry[:entry.index(")")]
+    if "h0" in entry:
+        return getattr(lstm, source)
+    scratch = (lstm._fwd_scratch if source == "lstm_fwd"
+               else lstm._fwd_stream_scratch)
+
+    def call(xp, mask, w, b, reverse, tape=False):
+        ys, cs = lstm._outputs(xp, w, tape)
+        ptrs = (b, ys, cs) + ((scratch(xp, w),) if "scratch" in entry
+                              else ())
+        gru._launch(source, xp, mask, w, ptrs, reverse)
+        return (ys, cs) if tape else ys
+    return call
 
 
 def _cudnn_call(gen, d: int, h: int = 800, t: int = 850, b: int = 32):
@@ -174,31 +195,43 @@ def held_to_parent(source: str, parent: str, shapes, timed, reps: int,
     K14) as built here and the parent tree's: the same bits at each
     ``(D, H)`` of ``shapes``, with and without the tape, and ms a call
     untaped at each ``(D, H)`` of ``timed`` in turns (parent, this tree,
-    this tree, parent). Raises if any bit differs."""
-    libs, ptxas = build_variants(
-        source, {"as_built": []}, f"parent_{source}",
-        {"parent": os.path.join(parent, f"{source}.cu")})
-    fn = getattr(lstm, source)
-    out = {"ptxas": ptxas, "same_bits": {}, "ms": {}, "ms_ratio": {}}
+    this tree, parent), and this tree's with a random carried ``(h0,
+    c0)`` and the final state out (``carry``) in the same turns. Raises
+    if any bit differs."""
+    path = os.path.join(parent, f"{source}.cu")
+    libs, ptxas = build_variants(source, {"as_built": []},
+                                 f"parent_{source}", {"parent": path})
+    calls = {"parent": parent_call(source, path),
+             "as_built": getattr(lstm, source)}
+    out = {"ptxas": ptxas, "same_bits": {}, "ms": {}, "ms_ratio": {},
+           "carry_ms_ratio": {}}
     for d, h in shapes:
         args = _inputs(gen, d, h=h)
         for tape in (False, True):
             got = {}
             for name in ("parent", "as_built"):
                 _build._loaded[source] = libs[name]
-                got[name] = _outputs(fn(*args, tape=tape), tape)
+                got[name] = _outputs(calls[name](*args, tape=tape), tape)
             out["same_bits"][f"D{d}_H{h}{'_tape' if tape else ''}"] = _same(
                 got["parent"], got["as_built"])
             del got
         del args
     for d, h in timed:
         args = _inputs(gen, d, h=h)
-        ms = {"parent": [], "as_built": []}
-        for name in ("parent", "as_built", "as_built", "parent"):
+        hc0 = tuple(torch.randn(d, args[0].shape[1], h, generator=gen,
+                                device="cuda") * 0.5 for _ in range(2))
+        calls["carry"] = lambda *a: getattr(lstm, source)(
+            *a, hc0=hc0, return_final=True)
+        libs["carry"] = libs["as_built"]
+        ms = {"parent": [], "as_built": [], "carry": []}
+        for name in ("parent", "as_built", "carry", "carry", "as_built",
+                     "parent"):
             _build._loaded[source] = libs[name]
-            ms[name].append(_time_ms(lambda: fn(*args), reps))
+            ms[name].append(_time_ms(lambda: calls[name](*args), reps))
         out["ms"][f"D{d}_H{h}"] = ms
         out["ms_ratio"][f"D{d}_H{h}"] = sum(ms["as_built"]) / sum(
+            ms["parent"])
+        out["carry_ms_ratio"][f"D{d}_H{h}"] = sum(ms["carry"]) / sum(
             ms["parent"])
         del args
     _build._loaded[source] = libs["as_built"]
@@ -214,6 +247,29 @@ def _k14(parent: str, reps: int, gen) -> dict:
                           [(2, 1760)], reps, gen)
 
 
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.splitlines()[0]
+
+
+def _parent_only(parent: str, reps: int) -> None:
+    """K12 at ds2_small-lstm's and ds2_streaming-lstm's shapes (H=800,
+    D=2 and D=1) and K14 at ds2_full-lstm's (H=1760, D=2) and the
+    sequence-parallel relay's (D=1), and at H=800, held to the parent's
+    bits and timed in turns; one JSON line."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k12 = held_to_parent("lstm_fwd", parent, [(2, 800), (1, 800)],
+                         [(2, 800), (1, 800)], reps, gen)
+    k14 = held_to_parent("lstm_fwd_stream", parent,
+                         [(2, 1760), (1, 1760), (2, 800)],
+                         [(2, 1760), (1, 1760)], reps, gen)
+    print(json.dumps({"card": _card(), "shape": {"T": 850, "B": 32,
+                                                 "dtype": "bfloat16"},
+                      "k12": k12, "k14": k14}))
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="deepspeech_tpu_torch.k12_variants")
     parser.add_argument("--reps", type=int, default=3)
@@ -224,9 +280,18 @@ def main(argv=None) -> None:
     parser.add_argument("--ablate", action="store_true",
                         help="also time the source with parts of its loop "
                         "taken out (ABLATIONS)")
+    parser.add_argument("--parent-only", action="store_true",
+                        help="with --parent, only hold K12 and K14 to the "
+                        "parent's at the main path's shapes and time them "
+                        "in turns, with and without a carry")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k12_variants measures the card: no CUDA device")
+    if args.parent_only:
+        if not args.parent:
+            raise SystemExit("--parent-only needs --parent")
+        _parent_only(args.parent, args.reps)
+        return
     text = source_text()
     built = {n: built_value(text, n) for n in CONSTANTS}
     builds = {n: substitutions(text, v) for n, v in VARIANTS.items()}
@@ -237,9 +302,7 @@ def main(argv=None) -> None:
     libs, ptxas = build_variants(SOURCE, builds, "k12_variants", copies)
     calls = {name: lstm.lstm_fwd for name in libs}
     if args.parent:
-        with open(copies["parent"]) as f:
-            if "scratch" not in f.read():
-                calls["parent"] = _parent_call
+        calls["parent"] = parent_call(SOURCE, copies["parent"])
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = {d: _inputs(gen, d) for d in (2, 1)}
     refs = {(d, tape): _outputs(lstm.lstm_fwd_plain(*inputs[d], tape=tape),
@@ -291,10 +354,7 @@ def main(argv=None) -> None:
                                  args.reps) for d in (2, 1)}
     del inputs, calls
     k14 = _k14(args.parent, args.reps, gen) if args.parent else None
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.splitlines()[0]
+    card = _card()
     plans = {n: {f"D{d}": plan({**built, **v}, d, 800) for d in (2, 1)}
              for n, v in VARIANTS.items()}
     print(json.dumps({"card": card,

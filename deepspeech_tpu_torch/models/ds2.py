@@ -4,7 +4,10 @@ features [B, T, F] -> conv frontend -> GRU or LSTM stack -> (lookahead conv +
 clipped ReLU) -> masked BN -> dense head -> logits [B, T', V] float32.
 Submodule and parameter names follow the JAX package's (``conv``,
 ``rnn``, ``lookahead``, ``bn_out``, ``head``), which is what lets
-``bridge.py`` map one tree onto the other by name.
+``bridge.py`` map one tree onto the other by name. With
+``model.pipeline_stages > 1`` the RNN stack is JAX ``ds2.py:38-44``'s
+pipelined layout: layer 0 as ``rnn0`` and layers 1..L-1 stacked in
+``rnn_pipe`` (``pipe_stack.py``), served through its sequential path.
 
 Under a ``(data, model)`` mesh (``parallel/mesh.py``) the model is one
 rank's share of the JAX model under GSPMD: every masked BN takes its
@@ -30,7 +33,8 @@ from ..parallel.mesh import head_sharded
 from .conv import ConvFrontend, conv_out_features
 from .layers import Dense, MaskedBatchNorm, clipped_relu, length_mask
 from .lookahead import LookaheadConv
-from .rnn import RNNStack
+from .pipe_stack import PipelinedRNNStack
+from .rnn import RNNLayer, RNNStack
 
 # The head's leaves in the state_dict, split over a model axis.
 HEAD_KEYS = ("head.kernel", "head.bias")
@@ -42,15 +46,19 @@ class DeepSpeech2(nn.Module):
     into: conv, ``wx`` and head kernels and the recurrent matrices held
     int8 with their scales; inference only. ``mesh`` (a
     ``parallel.Mesh``) lays the model over a data-parallel group and a
-    model axis (module docstring); None is one device."""
+    model axis (module docstring); None is one device. A pipelined tree
+    (``pipeline_stages > 1``) serves in full precision only: an int8
+    engine dequantizes it first (``utils/quantize.keep_recurrent_q``)."""
 
     def __init__(self, cfg: ModelConfig, num_features: int = 161,
                  quantized: bool = False, mesh=None):
         super().__init__()
-        if cfg.pipeline_stages > 1:
+        if cfg.pipeline_stages > 1 and (quantized or mesh is not None):
             raise NotImplementedError(
-                "pipeline_stages > 1: the pipelined RNN stack comes with "
-                "item 14 of the port")
+                "a pipelined tree (pipeline_stages > 1) serves on one "
+                "device in full precision (an int8 engine dequantizes it "
+                "first); its mesh and its training come with item 14c of "
+                "the port")
         self.cfg = cfg
         # The model group that splits the head's columns, or None.
         self.head_group = None
@@ -64,8 +72,12 @@ class DeepSpeech2(nn.Module):
             self.head_group = mesh.model_group
             vocab //= mesh.model
         self.conv = ConvFrontend(cfg, quantized)
-        self.rnn = RNNStack(cfg, conv_out_features(cfg, num_features),
-                            quantized)
+        if cfg.pipeline_stages > 1:
+            self.rnn0 = RNNLayer(cfg, conv_out_features(cfg, num_features))
+            self.rnn_pipe = PipelinedRNNStack(cfg)
+        else:
+            self.rnn = RNNStack(cfg, conv_out_features(cfg, num_features),
+                                quantized)
         if cfg.lookahead_context > 0:
             self.lookahead = LookaheadConv(cfg.lookahead_context,
                                            cfg.rnn_hidden)
@@ -80,7 +92,10 @@ class DeepSpeech2(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         x, lens = self.conv(features, feat_lens)
-        x = self.rnn(x, lens)
+        if cfg.pipeline_stages > 1:
+            x = self.rnn_pipe(self.rnn0(x, lens), lens)
+        else:
+            x = self.rnn(x, lens)
         if cfg.lookahead_context > 0:
             x = clipped_relu(self.lookahead(x), cfg.relu_clip)
         mask = length_mask(lens, x.shape[1])

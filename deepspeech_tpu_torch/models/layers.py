@@ -69,6 +69,16 @@ def masked_bn_stats(x32: torch.Tensor, mask: Optional[torch.Tensor],
     return mean, var
 
 
+def normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+              scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = BN_EPS) -> torch.Tensor:
+    """Batch norm's arithmetic with the statistics given, in f32; the
+    input dtype out. ``MaskedBatchNorm`` and the pipelined stack's
+    stacked slices (``pipe_stack.py``) both compute through it."""
+    y = (x.float() - mean) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
 class MaskedBatchNorm(nn.Module):
     """Sequence-wise batch norm over valid frames of ``[B, T, ..., C]``.
 
@@ -101,9 +111,14 @@ class MaskedBatchNorm(nn.Module):
                 self.var.mul_(self.momentum).add_((1 - self.momentum) * var)
         else:
             mean, var = self.mean, self.var
-        y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        y = y * self.scale + self.bias
-        return y.to(x.dtype)
+        return normalize(x32, mean, var, self.scale, self.bias,
+                         self.eps).to(x.dtype)
+
+    def running(self, x: torch.Tensor) -> torch.Tensor:
+        """The eval-mode forward in any mode: the running statistics
+        (time-local, no collective, no update)."""
+        return normalize(x, self.mean, self.var, self.scale, self.bias,
+                         self.eps)
 
 
 class QWeight(nn.Module):
@@ -147,5 +162,11 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features_out))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return (x.to(dtype) @ weight(self.kernel).to(dtype)
-                + self.bias.to(dtype))
+        return dense(x, weight(self.kernel), self.bias, dtype)
+
+
+def dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """``Dense``'s arithmetic on a full-precision ``kernel [in, out]``
+    and ``bias [out]``: all three cast to ``dtype``."""
+    return x.to(dtype) @ kernel.to(dtype) + bias.to(dtype)

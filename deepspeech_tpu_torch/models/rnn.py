@@ -21,7 +21,13 @@ untaped. The JAX model calls ``lstm_scan_pallas`` once per direction
 (models/rnn.py:242-251): the same function. ``gru_scan`` and
 ``lstm_scan`` below are the plain oracles with the JAX package's
 signatures; the tests hold them to the JAX ones, and no layer calls
-them.
+them. ``layer_body`` is a layer after its BN (projection, recurrence,
+mask) as ``RNNLayer`` and the pipelined stack (``pipe_stack.py``) both
+run it; ``chunk_recurrence`` is one direction of its recurrence over a
+chunk of frames from a carried state, with the final state out, the call
+the sequence-parallel relay (``parallel/seqpar.py``) makes on each shard:
+``gru_fwd`` (K6, or K8 at a streamed width) or ``lstm_fwd`` (K12, or
+K14) at D=1.
 
 A quantized layer (``quantized=True``, inference only) holds ``wh_*``
 int8 with their per-column scales and calls ``ops/gru.py``'s
@@ -52,7 +58,8 @@ from ..ops import gru as gru_ops
 from ..ops import lstm as lstm_ops
 from ..ops.gru import GRUFunction, gru_fwd_plain
 from ..ops.lstm import LSTMFunction, lstm_plain_loop
-from .layers import Dense, MaskedBatchNorm, QWeight, length_mask
+from .layers import (Dense, MaskedBatchNorm, QWeight, dense, length_mask,
+                     weight)
 
 _N_GATES = {"gru": 3, "lstm": 4}
 
@@ -119,6 +126,90 @@ def _check_impl(impl: str) -> None:
                          "ops/lstm.py); use 'auto' or 'pallas'")
 
 
+def layer_input(cfg: ModelConfig, x: torch.Tensor, kernel: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """A layer's input projection, hoisted out of the recurrence: ``x [B,
+    T, C]`` (after the BN) through ``layers.dense`` with the full-precision
+    ``kernel [C, GH]`` and ``bias [GH]`` in the model dtype, time-major
+    ``[T, B, GH]``."""
+    dtype = getattr(torch, cfg.dtype)
+    return dense(x.transpose(0, 1), kernel, bias, dtype).contiguous()
+
+
+def layer_output(cfg: ModelConfig, y: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """A layer's output from its directions' summed ``y [T, B, H]`` f32:
+    batch-major, masked, in the model dtype."""
+    return (y.transpose(0, 1) * mask[:, :, None]).to(getattr(torch,
+                                                             cfg.dtype))
+
+
+def layer_body(cfg: ModelConfig, x: torch.Tensor, mask: torch.Tensor,
+               kernel: torch.Tensor, bias: torch.Tensor, whs,
+               bh: torch.Tensor, grad: bool) -> torch.Tensor:
+    """A layer after its BN, as ``RNNLayer`` and the pipelined stack's
+    stacked slices (``pipe_stack.py``) both run it: ``layer_input``, the
+    recurrence over every direction in one call, ``layer_output``.
+    ``x [B,T,C]``, ``mask [B,T]`` f32, ``whs`` the directions' ``[H,GH]``
+    matrices (``QWeight``s for a quantized layer), ``bh [D,GH]``; the
+    first direction runs forward, a second one reversed. ``grad`` (a
+    gradient may be needed) takes the autograd functions; an LSTM without
+    one makes one untaped ``lstm_fwd`` call."""
+    xp_t = layer_input(cfg, x, kernel, bias)
+    mask_t = mask.t().contiguous()
+    reverse = [False, True][:len(whs)]
+    lstm = cfg.rnn_type == "lstm"
+    if isinstance(whs[0], QWeight):
+        q = torch.stack([w.q for w in whs])
+        scale = torch.stack([w.scale for w in whs])
+        if lstm:
+            ys = lstm_ops.lstm_fwd_q(xp_t, mask_t, q, scale, bh.float(),
+                                     reverse)
+        else:
+            ys, _ = gru_ops.gru_fwd_q(xp_t, mask_t, q, scale, bh.float(),
+                                      None, reverse)
+    elif lstm and grad:
+        ys = LSTMFunction.apply(xp_t, mask_t, torch.stack(whs), bh.float(),
+                                None, reverse)
+    elif lstm:
+        ys = lstm_ops.lstm_fwd(
+            xp_t, mask_t, torch.stack(whs).to(xp_t.dtype).contiguous(),
+            bh.float(), reverse)
+    else:
+        ys = GRUFunction.apply(xp_t, mask_t, torch.stack(whs), bh.float(),
+                               None, reverse)
+    return layer_output(cfg, ys.sum(0), mask)
+
+
+def chunk_recurrence(cfg: ModelConfig, xp_t: torch.Tensor,
+                     mask_t: torch.Tensor, w_h: torch.Tensor,
+                     b_h: torch.Tensor, reverse: bool, carry=None):
+    """One direction of a layer over a chunk of frames, from a carried
+    state, without a gradient: the sequence-parallel relay's call.
+
+    ``xp_t [T,B,GH]`` in the model dtype (the input projection of this
+    chunk's frames, time-major), ``mask_t [T,B]`` f32, ``w_h [H,GH]``,
+    ``b_h [GH]``, ``reverse`` for the backward direction, which runs
+    t = T-1..0 and takes its carry at t = T-1. ``carry``: None (zeros),
+    ``h [B,H]`` f32 for a GRU, ``(h, c)`` for an LSTM. Returns ``(ys
+    [T,B,H] f32, the carry after the chunk's last step)``. One D=1 call
+    of ``gru_fwd`` or ``lstm_fwd``, which launch their kernels on a CUDA
+    tensor; with no carry in, the kernel starts from zeros (a NULL
+    ``h0``)."""
+    w = w_h.to(xp_t.dtype)[None].contiguous()
+    b = b_h.float()[None].contiguous()
+    if cfg.rnn_type == "gru":
+        ys, hfin = gru_ops.gru_fwd(
+            xp_t, mask_t, w, b,
+            None if carry is None else carry[None].contiguous(), (reverse,))
+        return ys[0], hfin[0]
+    hc0 = None if carry is None else tuple(x[None].contiguous()
+                                           for x in carry)
+    ys, (h, c) = lstm_ops.lstm_fwd(xp_t, mask_t, w, b, (reverse,), hc0=hc0,
+                                   return_final=True)
+    return ys[0], (h[0], c[0])
+
+
 class RNNLayer(nn.Module):
     """One (bi)directional GRU or LSTM layer with optional sequence BN.
 
@@ -153,9 +244,7 @@ class RNNLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        dtype = getattr(torch, cfg.dtype)
         mask = length_mask(lens, x.shape[1])
-        lstm = cfg.rnn_type == "lstm"
         grad = self._may_need_grad(x)
         if self.quantized and grad:
             raise RuntimeError(
@@ -165,34 +254,10 @@ class RNNLayer(nn.Module):
                 "torch.no_grad() or torch.inference_mode()")
         if cfg.rnn_batch_norm:
             x = self.bn(x, mask)
-        xp_t = self.wx(x.transpose(0, 1), dtype).contiguous()  # [T, B, GH]
-        mask_t = mask.t().contiguous()
-        reverse = [s == "bw" for s in self.dirs]
         whs = [getattr(self, f"wh_{s}") for s in self.dirs]
         bh = torch.stack([getattr(self, f"bh_{s}") for s in self.dirs])
-        if self.quantized and lstm:
-            ys = lstm_ops.lstm_fwd_q(
-                xp_t, mask_t, torch.stack([w.q for w in whs]),
-                torch.stack([w.scale for w in whs]), bh.float(), reverse)
-        elif lstm and grad:
-            ys = LSTMFunction.apply(xp_t, mask_t, torch.stack(whs),
-                                    bh.float(), None, reverse)
-        elif lstm:
-            ys = lstm_ops.lstm_fwd(
-                xp_t, mask_t, torch.stack(whs).to(xp_t.dtype).contiguous(),
-                bh.float(), reverse)
-        elif self.quantized:
-            ys, _ = gru_ops.gru_fwd_q(
-                xp_t, mask_t,
-                torch.stack([w.q for w in whs]),
-                torch.stack([w.scale for w in whs]), bh.float(), None,
-                reverse)
-        else:
-            ys = GRUFunction.apply(xp_t, mask_t, torch.stack(whs),
-                                   bh.float(), None, reverse)
-        out = ys.sum(0).transpose(0, 1)  # [B, T, H]
-        out = out * mask[:, :, None]
-        return out.to(dtype)
+        return layer_body(cfg, x, mask, weight(self.wx.kernel), self.wx.bias,
+                          whs, bh, grad)
 
 
 class RNNStack(nn.Module):

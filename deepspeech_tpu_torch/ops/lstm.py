@@ -8,7 +8,13 @@ arithmetic, ``_lstm_elementwise_fwd`` :41):
   g = tanh(xp_g + gates_g)       o = sigmoid(xp_o + gates_o)
   c' = f c + i g                 h' = o tanh(c')
 A masked frame holds both h and c. Each direction starts from h = c = 0
-(the TPU kernels take no carried state); a reverse one runs t = T-1..0.
+(the TPU kernels take no carried state) or, in ``lstm_fwd`` and
+``lstm_fwd_stream`` (K12, K14), from a carried ``hc0 = (h0, c0)``, and
+can return its final ``(h, c)``: the sequence-parallel relay
+(``parallel/seqpar.py``) runs each shard's chunk from the carry the shard
+before it handed over, as the JAX relay runs ``lstm_scan(..., hc0,
+return_final=True)`` (seqpar.py:192-244); a reverse direction runs
+t = T-1..0.
 
 ``lstm_fwd`` replaces ``_lstm_kernel`` (lstm_pallas.py:89, K12; W held
 on chip, the cell-state tape ``cs`` written only when asked) with
@@ -89,7 +95,8 @@ import torch
 from . import gru
 from .precision import full_f32_matmul
 
-_Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+_Out = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+_HC = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def lstm_plain_loop(xp: torch.Tensor, mask: torch.Tensor,
@@ -136,21 +143,28 @@ def lstm_plain_loop(xp: torch.Tensor, mask: torch.Tensor,
     return ys, cs, hfin, cfin
 
 
-def _result(ys, cs, tape: bool) -> _Out:
-    return (ys, cs) if tape else ys
+def _result(ys, cs, tape: bool, fin=None) -> _Out:
+    """``lstm_fwd``'s return: ``ys``, then ``cs`` with the tape, then the
+    final ``(h, c)`` when ``fin`` is given."""
+    out = (ys, cs) if tape else (ys,)
+    if fin is not None:
+        out += (fin,)
+    return out if len(out) > 1 else ys
 
 
 def lstm_fwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor, reverse: Sequence[bool] = (False,),
-                   tape: bool = False) -> _Out:
+                   tape: bool = False, *, hc0: _HC = None,
+                   return_final: bool = False) -> _Out:
     """The plain PyTorch version of ``lstm_fwd``: an eager time loop with
     the same arithmetic (h_prev rounded to ``w.dtype`` for the product,
-    the product, c and h in f32)."""
+    the product, c and h in f32), from ``hc0`` (zeros when None)."""
     w32 = w.float()
-    ys, cs, _, _ = lstm_plain_loop(
+    ys, cs, hfin, cfin = lstm_plain_loop(
         xp, mask, reverse, w.shape[1],
-        lambda di, hc: hc.to(w.dtype).float() @ w32[di] + b[di], tape=tape)
-    return _result(ys, cs, tape)
+        lambda di, hc: hc.to(w.dtype).float() @ w32[di] + b[di], hc0=hc0,
+        tape=tape)
+    return _result(ys, cs, tape, (hfin, cfin) if return_final else None)
 
 
 def lstm_fwd_q_plain(xp: torch.Tensor, mask: torch.Tensor,
@@ -176,6 +190,50 @@ def _outputs(xp, w, tape: bool):
     ys = torch.empty(shape, dtype=torch.float32, device=xp.device)
     cs = torch.empty_like(ys) if tape else None
     return ys, cs
+
+
+def _check_hc0(xp, w, hc0: _HC) -> None:
+    """``hc0``: None, or ``(h0, c0)``, each f32 ``[D,B,H]``, contiguous,
+    on xp's device (the rule ``gru._check`` holds the GRU's h0 to)."""
+    if hc0 is None:
+        return
+    if len(hc0) != 2 or any(x is None for x in hc0):
+        raise ValueError("hc0 must be None or a pair (h0, c0) of tensors")
+    shape = (w.shape[0], xp.shape[1], w.shape[1])
+    for name, x in zip(("h0", "c0"), hc0):
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be f32 {list(shape)}; got "
+                             f"{x.dtype} {list(x.shape)}")
+        if x.device != xp.device:
+            raise ValueError(f"{name} is on {x.device}, xp on {xp.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _fwd_launch(name: str, fn, xp, mask, w, b, reverse, tape: bool,
+                hc0: _HC, return_final: bool, scratch) -> _Out:
+    """Launch ``csrc/<name>.cu`` (K12 or K14) and count it in
+    ``fn.launches`` (the wrapper's module-level name, which a test or a
+    script may patch). ``<name>_launch`` takes ``(h0, c0)`` and the
+    buffers of the final ``(h, c)``, which the kernel's last step writes;
+    each may be NULL (a carry of zeros, no final state). With no step or
+    no row to run, the final state is the carry in."""
+    ys, cs = _outputs(xp, w, tape)
+    fin = None
+    if return_final:
+        fin = tuple(torch.empty((w.shape[0], xp.shape[1], w.shape[1]),
+                                dtype=torch.float32, device=xp.device)
+                    for _ in range(2))
+        if not ys.numel():
+            for f, x in zip(fin, hc0 or (None, None)):
+                f.copy_(x if x is not None else torch.zeros_like(f))
+    if ys.numel():
+        h0, c0 = hc0 if hc0 is not None else (None, None)
+        hfin, cfin = fin if fin is not None else (None, None)
+        gru._launch(name, xp, mask, w,
+                    (b, h0, c0, ys, cs, hfin, cfin, scratch), reverse)
+        gru._counted(fn)
+    return _result(ys, cs, tape, fin)
 
 
 def _fwd_mma(w: torch.Tensor) -> bool:
@@ -257,7 +315,8 @@ def _fwd_q_stream_scratch(xp, wq) -> torch.Tensor:
 
 def lstm_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
              b: torch.Tensor, reverse: Sequence[bool] = (False,),
-             tape: bool = False) -> _Out:
+             tape: bool = False, *, hc0: _HC = None,
+             return_final: bool = False) -> _Out:
     """LSTM forward over D directions that share one input projection.
 
     ``xp [T,B,4H]`` (includes the input bias) and ``w [D,H,4H]`` in one
@@ -267,7 +326,11 @@ def lstm_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     holds the previous h), and with ``tape`` also ``cs [D,T,B,H]`` f32,
     the cell state of every row (held on masked frames), which
     ``lstm_bwd`` reads. The product rounds h_prev to ``w.dtype`` and
-    sums in f32; c and h stay f32.
+    sums in f32; c and h stay f32. ``hc0 = (h0, c0)``, each ``[D,B,H]``
+    f32, seeds each direction's carry (zeros when None; a reverse
+    direction takes it at t = T-1); with ``return_final`` the result ends
+    with the carry after the last step, ``(h, c)`` each ``[D,B,H]`` f32:
+    ``(ys, (h, c))``, or ``(ys, cs, (h, c))`` with the tape.
 
     A CPU tensor runs ``lstm_fwd_plain``. A CUDA tensor calls the
     resident kernel's C entry point ``csrc/lstm_fwd.cu`` once (counted
@@ -281,19 +344,18 @@ def lstm_fwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     """
     reverse = tuple(bool(r) for r in reverse)
     gru._check(xp, mask, w, b, None, reverse, gates=4)
+    _check_hc0(xp, w, hc0)
     if xp.device.type == "cpu":
-        return lstm_fwd_plain(xp, mask, w, b, reverse, tape)
+        return lstm_fwd_plain(xp, mask, w, b, reverse, tape, hc0=hc0,
+                              return_final=return_final)
     gru._require_cuda(xp, "lstm_fwd")
     if not gru.resident_fits("lstm_fwd", w.shape[0], w.shape[1],
                              xp.shape[1], w.dtype,
                              *gru.card_limits(xp.device)):
-        return lstm_fwd_stream(xp, mask, w, b, reverse, tape)
-    ys, cs = _outputs(xp, w, tape)
-    if ys.numel():
-        gru._launch("lstm_fwd", xp, mask, w,
-                    (b, ys, cs, _fwd_scratch(xp, w)), reverse)
-        gru._counted(lstm_fwd)
-    return _result(ys, cs, tape)
+        return lstm_fwd_stream(xp, mask, w, b, reverse, tape, hc0=hc0,
+                               return_final=return_final)
+    return _fwd_launch("lstm_fwd", lstm_fwd, xp, mask, w, b, reverse, tape,
+                       hc0, return_final, _fwd_scratch(xp, w))
 
 
 lstm_fwd.launches = 0
@@ -301,28 +363,28 @@ lstm_fwd.launches = 0
 
 def lstm_fwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                     b: torch.Tensor, reverse: Sequence[bool] = (False,),
-                    tape: bool = False) -> _Out:
+                    tape: bool = False, *, hc0: _HC = None,
+                    return_final: bool = False) -> _Out:
     """``lstm_fwd`` through the streamed kernel ``csrc/lstm_fwd_stream.cu``
     (K14), whatever the sizes: W stays in global memory and crosses L2
     once a step. Where ``_fwd_mma`` holds (bf16, H % 8 == 0) the
     C call transposes W into the scratch and runs the serial loop on the
     tensor cores, two launches, with part of W^T held in shared memory
     for the call; else one launch of the CUDA-core kernel (see the
-    source). The same contract and arithmetic as ``lstm_fwd``.
-    A CPU tensor runs ``lstm_fwd_plain``; a CUDA tensor calls the
-    kernel's C entry point once (counted in
+    source). The same contract and arithmetic as ``lstm_fwd``, carry
+    included. A CPU tensor runs ``lstm_fwd_plain``; a CUDA tensor calls
+    the kernel's C entry point once (counted in
     ``lstm_fwd_stream.launches``) or raises."""
     reverse = tuple(bool(r) for r in reverse)
     gru._check(xp, mask, w, b, None, reverse, gates=4)
+    _check_hc0(xp, w, hc0)
     if xp.device.type == "cpu":
-        return lstm_fwd_plain(xp, mask, w, b, reverse, tape)
+        return lstm_fwd_plain(xp, mask, w, b, reverse, tape, hc0=hc0,
+                              return_final=return_final)
     gru._require_cuda(xp, "lstm_fwd_stream")
-    ys, cs = _outputs(xp, w, tape)
-    if ys.numel():
-        gru._launch("lstm_fwd_stream", xp, mask, w,
-                    (b, ys, cs, _fwd_stream_scratch(xp, w)), reverse)
-        gru._counted(lstm_fwd_stream)
-    return _result(ys, cs, tape)
+    return _fwd_launch("lstm_fwd_stream", lstm_fwd_stream, xp, mask, w, b,
+                       reverse, tape, hc0, return_final,
+                       _fwd_stream_scratch(xp, w))
 
 
 lstm_fwd_stream.launches = 0
@@ -565,9 +627,9 @@ class LSTMFunction(torch.autograd.Function):
     over directions as ``dxp`` (``xp.dtype``), ``dW = sum_t h_prev^T
     dgates`` as one f32 product with TF32 off (``_lstm_bwd``'s HIGHEST
     einsum, lstm_pallas.py:501-502), and ``db = sum dgates``. ``hc0``
-    must be None: the BPTT, like the JAX VJP, starts from h0 = c0 = 0
-    and returns no gradient for a carry, and the LSTM kernels take no
-    carried state.
+    must be None: the BPTT kernels (K13, K15), like the JAX VJP, start
+    from h0 = c0 = 0 and return no gradient for a carry (that is item
+    14b of the port, sequence-parallel training).
     """
 
     @staticmethod

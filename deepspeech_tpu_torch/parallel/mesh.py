@@ -102,7 +102,7 @@ def make_mesh(shape: Tuple[int, ...] = (0, 1)) -> Mesh:
     if len(shape) == 3:
         raise NotImplementedError(
             f"mesh shape {tuple(shape)}: the pipe axis (pipeline stages) "
-            "comes with item 14 of the port")
+            "comes with item 14c of the port")
     if len(shape) != 2:
         raise ValueError(f"mesh shape {shape} must be (data, model) or "
                          f"(data, pipe, model)")
@@ -142,7 +142,7 @@ def make_mesh(shape: Tuple[int, ...] = (0, 1)) -> Mesh:
 _PARAM_RULES = (
     (re.compile(r"head/kernel$"), (None, MODEL_AXIS)),
     (re.compile(r"head/bias$"), (MODEL_AXIS,)),
-    # The pipelined RNN middle (item 14): stacked [n_layers, ...] leaves
+    # The pipelined RNN middle (item 14c): stacked [n_layers, ...] leaves
     # shard dim 0 over the pipe axis, which a (data, model) mesh lacks.
     (re.compile(r"rnn_pipe/"), (PIPE_AXIS,)),
 )

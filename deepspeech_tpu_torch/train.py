@@ -62,8 +62,9 @@ every collective runs over that rank, which is exact, so both give the
 one-card step, bit for bit.
 
 What the JAX trainer has and the port does not yet raises
-``NotImplementedError`` naming the queue item that brings it: sequence
-parallelism and pipelining (item 14), RNN-T (item 15).
+``NotImplementedError`` naming the queue item that brings it: sequence-
+parallel training (item 14b), pipelined training (item 14c), RNN-T
+(item 15).
 
 CLI: ``python -m deepspeech_tpu_torch.train --config=dev_slice
 [--synthetic=N] [--device=cpu] [--section.key=value ...]``: it trains
@@ -112,12 +113,16 @@ def check_supported(cfg: Config) -> None:
     """Raise on what the JAX trainer has and the port does not yet."""
     t = cfg.train
     later = [
-        (t.sequence_parallel, "train.sequence_parallel comes with item 14 "
-                              "of the port"),
+        (t.sequence_parallel, "train.sequence_parallel (sp_loss, the CTC "
+                              "alpha relay) comes with item 14b of the "
+                              "port"),
         (t.objective == "rnnt", "train.objective='rnnt' comes with item 15 "
                                 "of the port"),
-        (cfg.model.pipeline_stages > 1, "model.pipeline_stages > 1 comes "
-                                        "with item 14 of the port"),
+        (cfg.model.pipeline_stages > 1, "training with "
+                                        "model.pipeline_stages > 1 (the GPipe "
+                                        "schedule) comes with item 14c of the "
+                                        "port; a pipelined tree serves "
+                                        "through infer"),
     ]
     for cond, msg in later:
         if cond:
