@@ -100,10 +100,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    memory);
    LSTM path phases: the same with ``model.rnn_type=lstm`` on the same
    presets' widths: ds2_small (3 ``lstm_fwd`` per forward), ds2_streaming
-   (5 ``lstm_fwd``, D=1), ds2_full (7 ``lstm_fwd_stream``), and through
+   (5 ``lstm_fwd``, D=1), ds2_full on 3 of its 7 layers
+   (``FULL_LSTM_DECODE_LAYERS``: 3 ``lstm_fwd_stream``), and through
    ``Inferencer(quantize="int8")`` ds2_small (3 ``lstm_fwd_q``,
    "resident-q"), ds2_streaming (5 ``lstm_fwd_q``, D=1) and ds2_full
-   (7 ``lstm_fwd_q_stream``, "blocked-q"),
+   (3 ``lstm_fwd_q_stream``, "blocked-q"),
    no GRU kernel on an LSTM path and no LSTM kernel on a GRU path, each
    against the same forward with the LSTM kernel patched to its plain
    version, beside an LSTM with one direction reversed;
@@ -122,8 +123,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``beam_fused_device`` with a trigram table; a pipelined ds2_full
    (``pipeline_stages=2``) through ``Inferencer``, its log-probs equal
    bit for bit to the standard tree's on the same weights;
+   the item 14b phase (``seqpar_train_phase``, right after it): K1 and
+   K2 over 4 chunks with the carried band bit-equal to one call; K7 (D=1,
+   H=800, bf16 and f32) and K9 (D=1, H=1760) with a random ``h0`` and
+   ``dh0`` against their plain versions, zeros the bits of none, a
+   4-chunk relay bit-equal to one call, timed with and without the
+   carry (K9's D=1 entry of its own); ``sp_loss`` over 4 shards of the
+   one card at ds2_small's full width on a (2, 6800) recording with
+   ~400-character labels (24 K6 and 24 K7 at D=1, 4 K1, 4 K2, no K4, K5
+   or K3) against the offline step (loss, gradients per group) and the
+   one-shard SP step, then f32 at 1600 frames (JAX's SP bound and the BN
+   statistics) and ds2_full's width with one layer (8 K8 and 8 K9); the
+   SP ``Trainer`` with the guarded step, 2 steps; an LSTM model refused;
 5. training path phases: ``Trainer`` steps at the full width of
-   ds2_small, ds2_streaming and ds2_full (2 of its 7 layers,
+   ds2_small (2 of its 3 layers, ``SMALL_TRAIN_LAYERS``), ds2_streaming
+   (3 of its 5, ``STREAMING_TRAIN_LAYERS``) and ds2_full (2 of its 7,
    ``FULL_TRAIN_LAYERS``) on a (32, 1700) batch of ragged lengths, GRU
    and then LSTM (``model.rnn_type=lstm``); counts
    the launches per step (one recurrent forward and one backward per
@@ -398,6 +412,22 @@ FULL_DESCENT_STEPS = 5
 # width: with all 7 the whole script took 708 s, with 3 678 s, past its
 # 675 s budget (NVIDIA H100 80GB HBM3, 700 W).
 FULL_TRAIN_LAYERS = 2
+# The ds2_small and ds2_streaming train phases, GRU and LSTM, run 2 of
+# 3 and 3 of 5 layers: with the item 14b phase (15.5 s alone, 11.6 in a
+# whole run) the whole run would pass its 675 s budget at full depth
+# (669.1 s before that phase; with only ds2_streaming cut a whole run
+# took 830.8 s on a slow host, 768 s of it the other phases; NVIDIA H100
+# 80GB HBM3, 700.00 W). Every check of those phases still runs, on fewer
+# layers; ds2_small's 3 layers train in the manifest, guarded and
+# data-parallel phases.
+SMALL_TRAIN_LAYERS = 2
+STREAMING_TRAIN_LAYERS = 3
+# ds2_full-lstm's decode phases (bf16 and int8, K14 and K17) run 3 of
+# its 7 layers: a second whole run with the cuts above took 741.9 s of
+# command on another slow host (693.2 of phases; NVIDIA H100 80GB HBM3,
+# 700.00 W). ds2_full's GRU decodes keep all 7 (the seqpar phase reuses
+# their weights).
+FULL_LSTM_DECODE_LAYERS = 3
 # The TPU kernels the GRU kernels replace (deepspeech_tpu/ops/).
 K4 = "deepspeech_tpu/ops/rnn_pallas.py:155"   # _bigru_kernel
 K5 = "deepspeech_tpu/ops/rnn_pallas.py:211"   # _bigru_bwd_kernel
@@ -1395,6 +1425,37 @@ def _k7_kernels(w: torch.Tensor, ys: torch.Tensor) -> set:
     return {"gru_bwd_kernel"}
 
 
+def _cudnn_gru_bwd_ms(gen, d: int, h: int) -> float:
+    """Yardstick: ms of the backward of cuDNN's GRU in bf16 at D
+    directions of H units on a (T, B) input (input and weight gradients),
+    timed apart from its forward."""
+    cudnn = torch.nn.GRU(h, h, bidirectional=d == 2).to("cuda",
+                                                        torch.bfloat16)
+    cudnn.flatten_parameters()
+    x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    out, _ = cudnn(x_lib)
+    g_out = torch.randn_like(out)
+    leaves = [x_lib, *cudnn.parameters()]
+    return _time_ms(lambda: torch.autograd.grad(
+        out, leaves, g_out, retain_graph=True), reps=3)
+
+
+def _bwd_bound(args, valid: int, h0=None):
+    """(bound ms, what bounds it) of one ``gru_bwd`` call on ``args`` =
+    (xp, mask, w, bias, ys, dy, reverse) with ``valid`` valid rows: two
+    [B,H]x[H,3H] products per valid step (gate recompute and dgates @
+    W^T) over the bf16 peak; inputs (and ``h0``) read once, dxp and
+    dgates (and dh0 with ``h0``) written once."""
+    xp, mask, w, bias, ys, dy, _ = args
+    d, h = w.shape[0], w.shape[1]
+    out_bytes = 2 * d * xp.shape[0] * xp.shape[1] * 3 * h * 4
+    if h0 is not None:
+        out_bytes += _nbytes(h0)
+    return _roofline(_nbytes(xp, mask, w, bias, ys, dy, h0) + out_bytes,
+                     2 * 2.0 * valid * d * h * 3 * h, PEAK_BF16_FLOPS)
+
+
 def gru_bwd_kernel_phase(gen, kernel: str, h: int, timed):
     """Hold ``ops.gru.<kernel>`` (``gru_bwd``, the resident kernel at
     these sizes, or ``gru_bwd_stream``) against ``gru_bwd_plain`` as
@@ -1489,19 +1550,7 @@ def gru_bwd_kernel_phase(gen, kernel: str, h: int, timed):
         ms = _time_ms(lambda: fn(*args), reps=3)
         plain_ms = _time_ms(lambda: gru.gru_bwd_plain(*args), reps=1,
                             warm=False)
-        # Yardstick: the backward of cuDNN's GRU in bf16 (input and
-        # weight gradients), timed apart from its forward.
-        cudnn = torch.nn.GRU(h, h, bidirectional=d == 2).to(
-            "cuda", torch.bfloat16)
-        cudnn.flatten_parameters()
-        x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
-            torch.bfloat16).requires_grad_()
-        out, _ = cudnn(x_lib)
-        g_out = torch.randn_like(out)
-        leaves = [x_lib, *cudnn.parameters()]
-        library_ms = _time_ms(lambda: torch.autograd.grad(
-            out, leaves, g_out, retain_graph=True), reps=3)
-        del out, g_out, leaves, cudnn, x_lib
+        library_ms = _cudnn_gru_bwd_ms(gen, d, h)
         # One call's device time by kernel (in bf16: the gate pre-pass and
         # the serial loop).
         extra = {}
@@ -1517,13 +1566,7 @@ def gru_bwd_kernel_phase(gen, kernel: str, h: int, timed):
             args_h, _ = inputs(d, torch.bfloat16, (T, B, H))
             extra["ms_at_h800"] = _time_ms(lambda: fn(*args_h), reps=2)
             del args_h, args_b1
-        xp, mask, w, bias, ys, dy, _ = args
-        # Two [B,H]x[H,3H] products per valid step (gate recompute and
-        # dgates @ W^T); inputs read once, dxp and dgates written once.
-        dxp_bytes = 2 * d * T * B * 3 * h * 4
-        bound_ms, bound_by = _roofline(
-            _nbytes(xp, mask, w, bias, ys, dy) + dxp_bytes,
-            2 * 2.0 * valid * d * h * 3 * h, PEAK_BF16_FLOPS)
+        bound_ms, bound_by = _bwd_bound(args, valid)
         entries.append({
             "name": f"{kernel}[D={d}]", "route": "cuda",
             "source": f"deepspeech_tpu_torch/csrc/{kernel}.cu",
@@ -1578,13 +1621,16 @@ def _config(preset: str, rnn_type: str = "gru"):
 
 
 @functools.lru_cache(maxsize=1)
-def _weights(preset: str, rnn_type: str = "gru"):
+def _weights(preset: str, rnn_type: str = "gru", layers=None):
     """The seeded random init of ``preset`` with ``rnn_type`` cells
-    (flax layout, numpy)."""
+    (flax layout, numpy), on ``layers`` recurrent layers when given."""
     from deepspeech_tpu_torch.bridge import init_params
+    from deepspeech_tpu_torch.config import apply_overrides
 
-    return init_params(_config(preset, rnn_type),
-                       torch.Generator().manual_seed(SEED))
+    cfg = _config(preset, rnn_type)
+    if layers is not None:
+        cfg = apply_overrides(cfg, {"model.rnn_layers": str(layers)})
+    return init_params(cfg, torch.Generator().manual_seed(SEED))
 
 
 def _refusing_fwd_q(real):
@@ -1603,14 +1649,21 @@ def path_phase(preset: str, layers_per_forward: int, kernel: str,
     ``quantize="int8"`` ``gru_fwd_q`` or ``gru_fwd_q_stream`` (for the
     last the caller patches ``resident_fits``); for an LSTM
     ``lstm_fwd``, ``lstm_fwd_stream``, ``lstm_fwd_q`` or
-    ``lstm_fwd_q_stream``."""
+    ``lstm_fwd_q_stream``. A ``layers_per_forward`` below the preset's
+    depth runs the model on that many layers (a cut for the budget)."""
+    from deepspeech_tpu_torch.config import apply_overrides
     from deepspeech_tpu_torch.data import CharTokenizer, plan_infer_buckets
     from deepspeech_tpu_torch.data.infer_bucket import slice_to_plan
     from deepspeech_tpu_torch.infer import Inferencer
     from deepspeech_tpu_torch.ops import gru, lstm
 
     cfg = _config(preset, rnn_type)
-    params, stats = _weights(preset, rnn_type)
+    if layers_per_forward == cfg.model.rnn_layers:
+        params, stats = _weights(preset, rnn_type)
+    else:
+        cfg = apply_overrides(cfg, {"model.rnn_layers":
+                                    str(layers_per_forward)})
+        params, stats = _weights(preset, rnn_type, layers_per_forward)
     tok = CharTokenizer.english()
     inf = Inferencer(cfg, tok, params, stats, quantize=quantize)
     regime = {"gru_fwd_q": "resident-q", "gru_fwd_q_stream": "blocked-q",
@@ -2033,7 +2086,7 @@ MANIFEST_BUCKETS = (400, 800, 1200, 1700)   # ds2_small's bucket_frames
 MANIFEST_PER_BUCKET = 32                     # one batch a bucket an epoch
 MANIFEST_EVAL = 40
 MANIFEST_EVERY = 3                           # checkpoint_every_steps
-MANIFEST_TIMED = 16                          # steps a turn of the timing
+MANIFEST_TIMED = 8   # steps a turn of the timing (16 before item 14b's phase)
 MANIFEST_LETTERS = "abcdefghijklmnopqrstuvwxyz '"
 
 
@@ -6959,6 +7012,532 @@ def seqpar_phase(gen, root: str, card: str):
     return carry, counted
 
 
+# ---- item 14b: sequence-parallel training of GRU models: sp_loss, the
+# CTC band relay (K1, K2), K7/K9 with a carried h0 and dh0 ----
+
+# The SP train step against the offline one on the same weights and
+# batch. bf16: the loss within 2e-3 relative; the gradient, per
+# parameter group (``_group_rel``), within 2e-2 relative L2 of the same
+# SP step over one shard (the same D=1 kernels: only the sharding
+# differs) and within GRAD_REL_TOL of the offline step (whose D=2 kernels
+# round the two directions' input gradient once, where the D=1 relays
+# round each direction's and add them in bf16). Not per leaf: a leaf
+# whose gradient is bf16 noise moves by more than its norm (conv.bn1's
+# scale, |g| 0.075 beside conv1's kernel's 3.8e3, read 1.74 relative L2
+# from the offline step over ONE shard and 0.64 from the one-shard SP
+# step over four, on the CPU's plain path at H=64; the card's 3.15 from
+# the offline step: NVIDIA H100 80GB HBM3, 700.00 W); the worst leaf is
+# printed. f32: the loss within 1e-5, each gradient within rtol 1e-4 and
+# atol 5e-4 of the leaf's largest magnitude (JAX's SP bound,
+# tests/test_seqpar.py:238-243, scaled per leaf as
+# tests/test_torch_seqpar_train.py scales it), the BN statistics within
+# 1e-5.
+SP_LOSS_RTOL = {torch.bfloat16: 2e-3, torch.float32: 1e-5}
+SP_GRAD_REL = 2e-2
+SP_GRAD_RTOL, SP_GRAD_ATOL = 1e-4, 5e-4
+SP_STATS_ATOL = 1e-5
+SP_LABEL_CHARS = 400    # the long recording's labels: S = 801 <= 1024
+
+
+def _cuts(t: int):
+    """Frame offsets of ``SP_SHARDS`` chunks of ``t`` frames."""
+    return [round(k * t / SP_SHARDS) for k in range(SP_SHARDS + 1)]
+
+
+def _ctc_carry_checks(gen):
+    """K1 and K2 over ``SP_SHARDS`` chunks with the carried band, at the
+    ctc phase's batch (B=32, T'=850, V=29, S <= 513, ragged) with row 1
+    ending in the first chunk (100 frames) and row 2 of no frame: ll, the
+    tape and every gamma row bit-equal to one unsplit call of the same
+    kernels, the same bits twice; then ms of the chunked calls against
+    the unsplit ones."""
+    from deepspeech_tpu_torch import ctc_variants
+    from deepspeech_tpu_torch.ops import ctc
+
+    logits, labels, lens, lab_lens = ctc_variants.batch(gen)
+    lens[1], lens[2] = 100, 0
+    lab_lens = (0.15 * 2 * lens.float()).long().clamp(max=L_MAX).int()
+    labels = labels * (torch.arange(L_MAX, device="cuda")[None]
+                       < lab_lens[:, None])
+    lp, ext, skip, il, sl = ctc_variants.operands(logits, labels, lens,
+                                                  lab_lens)
+    cuts = _cuts(T)
+    lps = [lp[:, a:b].contiguous() for a, b in zip(cuts, cuts[1:])]
+
+    def chunked():
+        tapes, band = [], None
+        for k, a in enumerate(cuts[:-1]):
+            ll, tape = ctc.ctc_alpha(lps[k], ext, skip, il, sl, True,
+                                     alpha0=band, t_off=a)
+            band = tape[:, -1].contiguous()
+            tapes.append(tape)
+        gammas, c = [None] * SP_SHARDS, None
+        for k in range(SP_SHARDS - 1, -1, -1):
+            out = ctc.ctc_beta(lps[k], ext, skip, il, sl, tapes[k], ll,
+                               c_in=c, t_off=cuts[k], return_carry=k > 0)
+            gammas[k], c = out if k > 0 else (out, None)
+        return ll, torch.cat(tapes, 1), torch.cat(gammas, 1)
+
+    ll, tape = ctc.ctc_alpha(lp, ext, skip, il, sl, tape=True)
+    gamma = ctc.ctc_beta(lp, ext, skip, il, sl, tape, ll)
+    _zero_counts()
+    got, again = chunked(), chunked()
+    torch.cuda.synchronize()
+    counts = _counts()
+    _require(counts["ctc_alpha"] == 2 * SP_SHARDS
+             and counts["ctc_beta"] == 2 * SP_SHARDS
+             and counts["loss_only"] == 0,
+             f"ctc carry: launches {counts}")
+    same = {k: torch.equal(g, r) for k, g, r in
+            zip(("loglik", "tape", "gamma"), got, (ll, tape, gamma))}
+    _require(all(same.values()), f"ctc carry: {SP_SHARDS} chunks differ from "
+             f"one unsplit call: bit-equal {same}")
+    _require(all(torch.equal(g, a) for g, a in zip(got, again)),
+             "ctc carry: two chunked runs differ")
+    _require(bool(torch.isfinite(ll[il > 0]).all()),
+             "ctc carry: non-finite loss")
+    ms = {"chunked": _time_ms(chunked, 3),
+          "unsplit": _time_ms(lambda: ctc.ctc_beta(
+              lp, ext, skip, il, sl, *reversed(ctc.ctc_alpha(
+                  lp, ext, skip, il, sl, tape=True))), 3)}
+    ends = [int(((il > a) & (il <= b)).sum())
+            for a, b in zip(cuts, cuts[1:])]
+    out = {"chunks": SP_SHARDS, "cuts": cuts, "rows_ending_in_chunk": ends,
+           "bit_equal_unsplit": same, "same_bits_twice": True,
+           "ms_chunked_alpha_beta": ms["chunked"],
+           "ms_unsplit_alpha_beta": ms["unsplit"],
+           "shape": {"B": B, "T": T, "V": V, "S": int(ext.shape[1])}}
+    print(json.dumps({"check": "ctc carry", **out}), flush=True)
+    return out
+
+
+def _relay_bits(kernel: str, args, gen) -> dict:
+    """One direction of a D=1 layer (``args`` = xp, mask, w, bias, h0,
+    reverse from ``_gru_inputs``; h0 unused) through ``SP_SHARDS``
+    chunks against one unsplit call of the same kernels: the forward
+    (``gru_fwd``, which picks K6 or K8) from each chunk's carry in, then
+    ``ops.gru.<kernel>`` chunk by chunk against the scan with ``h0`` and
+    ``dh0``, each chunk's final-state gradient (the next chunk's ``dh0``)
+    folded into its ``dy`` at the scan's last row. ys, dxp and dgates
+    must equal the unsplit call's bit for bit. Returns which did."""
+    from deepspeech_tpu_torch.ops import gru
+
+    fn = getattr(gru, kernel)
+    xp, mask, w, bias, _, rev = args
+    t = xp.shape[0]
+    last = 0 if rev[0] else -1
+    ys_full, _ = gru.gru_fwd(xp, mask, w, bias, None, rev)
+    r = torch.randn(ys_full.shape, generator=gen, device="cuda") * 0.1
+    ref = fn(xp, mask, w, bias, ys_full, r, rev)
+    cuts = _cuts(t)
+    order = list(range(SP_SHARDS))[::-1 if rev[0] else 1]
+    ys, h0s, carry = {}, {}, None
+    for k in order:
+        a, b = cuts[k], cuts[k + 1]
+        h0s[k] = carry
+        ys[k], _ = gru.gru_fwd(xp[a:b], mask[a:b], w, bias, carry, rev)
+        carry = ys[k][:, last].contiguous()
+    dxp, dg, g_next = {}, {}, None
+    for k in order[::-1]:
+        a, b = cuts[k], cuts[k + 1]
+        dy = r[:, a:b].clone()
+        if g_next is not None:
+            dy[:, last] += g_next
+        out = fn(xp[a:b], mask[a:b], w, bias, ys[k], dy, rev, h0=h0s[k],
+                 return_dh0=h0s[k] is not None)
+        dxp[k], dg[k] = out[0], out[1]
+        g_next = out[2] if h0s[k] is not None else None
+    cat = [torch.cat([x[k] for k in range(SP_SHARDS)], 1)
+           for x in (ys, dxp, dg)]
+    return {k: torch.equal(g, e) for k, g, e in
+            zip(("ys", "dxp", "dgates"), cat, (ys_full, *ref))}
+
+
+def _gru_bwd_carry_checks(gen, kernel: str, h: int, dtypes, replaces=None):
+    """K7 (``gru_bwd``, D=1, H=800) or K9 (``gru_bwd_stream``, D=1,
+    H=1760) with a carried state, at T'=850, B=32, in each of ``dtypes``:
+    with a random ``h0`` and ``dy``, ``dxp``, ``dgates`` and ``dh0`` within
+    the kernel's tolerance of ``gru_bwd_plain``'s, the same bits twice,
+    the device kernels the profiler names those of its path; a zero
+    ``h0`` gives a NULL one's bits; a ``SP_SHARDS``-chunk relay, forward
+    and reverse, equal to one unsplit call bit for bit (``_relay_bits``).
+    Then ms a bf16 call with the carry and without. With ``replaces``
+    (K9) also the kernels-line entry of its D=1 call: the plain version's
+    ms, cuDNN's GRU backward at D=1 and the bound."""
+    from deepspeech_tpu_torch.ops import gru
+
+    fn = getattr(gru, kernel)
+    streamed = kernel.endswith("_stream")
+    tols = TOL if streamed else GRU_BWD_TOL
+    kernels = _k9_kernels if streamed else _k7_kernels
+    out = {"checks": {}}
+    _zero_counts()
+    calls = 0
+    for dtype in dtypes:
+        name = "D1_bf16_carry" if dtype == torch.bfloat16 else "D1_f32_carry"
+        fwd_args, _ = _gru_inputs(1, dtype, True, gen, T, B, h)
+        xp, mask, w, bias, h0, rev = fwd_args
+        ys, _ = gru.gru_fwd(*fwd_args)
+        dy = torch.randn(ys.shape, generator=gen, device="cuda") * 0.1
+        args = (xp, mask, w, bias, ys, dy, rev)
+        want = frozenset(kernels(w, ys))
+        # 16 windows, as the item 14a carry checks take: this late in a
+        # run whole profiler windows come back empty, 5 in a row here once.
+        outs, ran, runs = _device_kernels(
+            lambda: [fn(*args, h0=h0, return_dh0=True) for _ in range(2)],
+            tries=16, want=want)
+        calls += 2 * runs
+        _require(set(ran) == want, f"{kernel} {name}: ran {sorted(ran)}, "
+                 f"want {sorted(want)}")
+        got, again = outs
+        ref = gru.gru_bwd_plain(*args, h0=h0, return_dh0=True)
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        _require(all(bool(torch.isfinite(g).all()) for g in got),
+                 f"{kernel} {name}: non-finite")
+        _require(err <= tols[dtype], f"{kernel} {name}: max |kernel - plain|"
+                 f" {err} > {tols[dtype]}")
+        _require(all(torch.equal(g, a) for g, a in zip(got, again)),
+                 f"{kernel} {name}: two runs on one input differ")
+        zero = fn(*args, h0=torch.zeros_like(h0))
+        null = fn(*args)
+        calls += 2
+        _require(all(torch.equal(z, n) for z, n in zip(zero, null)),
+                 f"{kernel} {name}: a zero h0 differs from none")
+        relay = {}
+        for direction, r in (("forward", False), ("reverse", True)):
+            before = _counts()[kernel]
+            relay[direction] = _relay_bits(kernel, (*fwd_args[:5], (r,)), gen)
+            calls += _counts()[kernel] - before
+            _require(all(relay[direction].values()),
+                     f"{kernel} {name}: a {SP_SHARDS}-chunk {direction} relay "
+                     f"differs from one call: bit-equal {relay[direction]}")
+        out["checks"][name] = {
+            "max_abs_err": err, "tol": tols[dtype], "bit_identical": True,
+            "zeros_equal_null": True, "relay_bit_equal": relay,
+            "kernels": sorted(ran), "profiler_windows": runs,
+            "max_abs_dh0": float(ref[2].abs().max())}
+        print(json.dumps({"check": f"{kernel} {name}",
+                          **out["checks"][name]}), flush=True)
+        del args, outs, got, again, ref
+    _require_only(kernel, calls)
+    fwd_args, valid = _gru_inputs(1, torch.bfloat16, True, gen, T, B, h)
+    xp, mask, w, bias, h0, rev = fwd_args
+    ys, _ = gru.gru_fwd(*fwd_args)
+    dy = torch.randn(ys.shape, generator=gen, device="cuda") * 0.1
+    args = (xp, mask, w, bias, ys, dy, rev)
+    out["ms_carry"] = _time_ms(lambda: fn(*args, h0=h0, return_dh0=True), 3)
+    out["ms_null"] = _time_ms(lambda: fn(*args), 3)
+    out["shape"] = {"D": 1, "T": T, "B": B, "H": h, "dtype": "bfloat16",
+                    "valid_rows": valid}
+    print(json.dumps({"timed": f"{kernel}[D=1] carry", **out}), flush=True)
+    if replaces is None:
+        return out, None
+    bound_ms, bound_by = _bwd_bound(args, valid, h0)
+    entry = {
+        "name": f"{kernel}[D=1]", "route": "cuda",
+        "source": f"deepspeech_tpu_torch/csrc/{kernel}.cu",
+        "replaces": replaces, "launches": 0,
+        "max_abs_err": out["checks"]["D1_bf16_carry"]["max_abs_err"],
+        "ms": out["ms_carry"],
+        "plain_ms": _time_ms(lambda: gru.gru_bwd_plain(
+            *args, h0=h0, return_dh0=True), 1, warm=False),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": _cudnn_gru_bwd_ms(gen, 1, h),
+        "ms_null": out["ms_null"], "shape": out["shape"],
+        "checks": out["checks"]}
+    print(json.dumps({"timed": entry["name"], **{
+        k: entry[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}),
+        flush=True)
+    return out, entry
+
+
+def _sp_inputs(cfg, rng, t: int):
+    """``_sp_batch``'s two rows (``t`` frames, the second ``SP_SHORT``
+    shorter) with seeded labels of about ``SP_LABEL_CHARS`` characters
+    scaled by each row's length (ids 1..V-1), on the card."""
+    feats, lens = _sp_batch(cfg, rng, t)
+    n = [max(1, int(SP_LABEL_CHARS * int(x) / SP_FRAMES)) for x in lens]
+    labels = np.zeros((2, max(n)), np.int64)
+    for i, k in enumerate(n):
+        labels[i, :k] = rng.integers(1, cfg.model.vocab_size, size=k)
+    return {"features": feats.cuda(), "feat_lens": lens.cuda(),
+            "labels": torch.from_numpy(labels).cuda(),
+            "label_lens": torch.tensor(n, device="cuda")}
+
+
+def _sp_model(cfg, params, stats):
+    """The port's model holding the flax trees, on the card, train mode."""
+    from deepspeech_tpu_torch.bridge import from_flax
+    from deepspeech_tpu_torch.models.ds2 import DeepSpeech2
+
+    m = DeepSpeech2(cfg.model, cfg.features.num_features)
+    m.load_state_dict(from_flax(params, stats))
+    return m.cuda().train()
+
+
+def _leaf_rel(got, ref) -> dict:
+    """``||got - ref|| / ||ref||`` per parameter."""
+    return {n: float((got[n] - ref[n]).float().norm()
+                     / ref[n].float().norm().clamp(min=1e-30)) for n in ref}
+
+
+def _sp_against_offline_step(name: str, cfg, params, stats, batch,
+                             want: dict) -> dict:
+    """``sp_loss`` over ``SP_SHARDS`` shards of this card against the
+    offline step (``_grads``' forward, mean CTC and backward) on the same
+    weights and batch: the loss within ``SP_LOSS_RTOL``; in bf16 the
+    gradient per group within ``SP_GRAD_REL`` of ``sp_loss`` over one
+    shard and within ``GRAD_REL_TOL`` of the offline step, or in f32
+    each gradient within ``SP_GRAD_RTOL``/``SP_GRAD_ATOL`` and the BN
+    statistics (through ``MaskedBatchNorm.update``, against the offline
+    forward's running ones) within ``SP_STATS_ATOL``; exactly the
+    launches of ``want`` in the SP step (``_counts()`` with K4/K6/K8 by
+    D). Then one more of each timed, host clock to a synchronize.
+    Returns the launches, the errors and the two steps' wall ms."""
+    from deepspeech_tpu_torch.ops.ctc import ctc_loss_mean
+    from deepspeech_tpu_torch.parallel.seqpar import sp_loss
+
+    dtype = getattr(torch, cfg.model.dtype)
+    devices = [torch.device("cuda", torch.cuda.current_device())] \
+        * SP_SHARDS
+    off, sp = _sp_model(cfg, params, stats), _sp_model(cfg, params, stats)
+
+    def offline_loss():
+        logits, lens = off(batch["features"], batch["feat_lens"])
+        return ctc_loss_mean(logits, batch["labels"], lens,
+                             batch["label_lens"])
+
+    loss_off = offline_loss()
+    loss_off.backward()
+    torch.cuda.synchronize()
+    _zero_counts()
+    with _launches_by_d() as by_d:
+        loss_sp, stats_sp = sp_loss(cfg.model, sp, batch["features"],
+                                    batch["feat_lens"], batch["labels"],
+                                    batch["label_lens"], devices)
+        loss_sp.backward()
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in {**_counts(), **by_d}.items() if v}
+    counts.pop("gru_fwd", None)
+    counts.pop("gru_fwd_stream", None)
+    _require(counts == want, f"{name}: SP step launches {counts}, want "
+             f"{want}")
+    g_off = {n: p.grad for n, p in off.named_parameters()}
+    g_sp = {n: p.grad for n, p in sp.named_parameters()}
+    loss_err = abs(float(loss_sp) - float(loss_off)) / abs(float(loss_off))
+    _require(math.isfinite(float(loss_sp)) and loss_err <= SP_LOSS_RTOL[dtype],
+             f"{name}: SP loss {float(loss_sp)} vs offline "
+             f"{float(loss_off)}: {loss_err} > {SP_LOSS_RTOL[dtype]}")
+    rel = _leaf_rel(g_sp, g_off)
+    worst = max(rel, key=rel.get)
+    out = {"case": name, "shards": SP_SHARDS,
+           "batch": list(batch["features"].shape[:2]),
+           "label_lens": batch["label_lens"].tolist(),
+           "dtype": cfg.model.dtype, "H": cfg.model.rnn_hidden,
+           "layers": cfg.model.rnn_layers, "launches": counts,
+           "loss": float(loss_sp), "loss_offline": float(loss_off),
+           "loss_rel_err": loss_err, "grad_rel_l2_worst_leaf": rel[worst],
+           "grad_worst_leaf": worst,
+           "grad_norm_worst_leaf": float(g_off[worst].norm())}
+    if dtype == torch.bfloat16:
+        one = _sp_model(cfg, params, stats)
+        sp_loss(cfg.model, one, batch["features"], batch["feat_lens"],
+                batch["labels"], batch["label_lens"], devices[:1])[0].backward()
+        g_one = {n: p.grad for n, p in one.named_parameters()}
+        del one
+        rel_one = _leaf_rel(g_sp, g_one)
+        out["grad_rel_l2_group"] = {"one_shard": _group_rel(g_sp, g_one),
+                                    "offline": _group_rel(g_sp, g_off)}
+        out["grad_worst_leaf_one_shard"] = max(rel_one, key=rel_one.get)
+        out["grad_rel_l2_worst_leaf_one_shard"] = max(rel_one.values())
+        for ref, tol in (("one_shard", SP_GRAD_REL), ("offline", GRAD_REL_TOL)):
+            worst_group = max(out["grad_rel_l2_group"][ref].values())
+            _require(worst_group <= tol, f"{name}: gradient from the {ref} "
+                     f"step by {out['grad_rel_l2_group'][ref]} > {tol} "
+                     "(relative L2, per group)")
+    else:
+        for n, ref in g_off.items():
+            scale = max(float(ref.abs().max()), 1.0)
+            bad = ((g_sp[n] - ref).abs()
+                   > SP_GRAD_ATOL * scale + SP_GRAD_RTOL * ref.abs())
+            _require(not bool(bad.any()), f"{name}: gradient of {n} past "
+                     f"rtol {SP_GRAD_RTOL}, atol {SP_GRAD_ATOL} x {scale}: "
+                     f"{int(bad.sum())} entries")
+        init = _sp_model(cfg, params, stats)
+        for bn, (mean, var) in stats_sp.items():
+            init.get_submodule(bn).update(mean, var)
+        stat_err = max(float((a - b).abs().max()) for a, b in zip(
+            init.buffers(), off.buffers()))
+        _require(stat_err <= SP_STATS_ATOL, f"{name}: BN statistics "
+                 f"{stat_err} from offline > {SP_STATS_ATOL}")
+        out["bn_stats_max_abs_err"] = stat_err
+        out["grad_tol"] = {"rtol": SP_GRAD_RTOL, "atol_of_leaf_max":
+                           SP_GRAD_ATOL}
+    # One more step of each, timed: forward, loss, backward.
+    for label, model, step in (
+            ("sp_step_ms", sp, lambda: sp_loss(
+                cfg.model, sp, batch["features"], batch["feat_lens"],
+                batch["labels"], batch["label_lens"], devices)[0]),
+            ("offline_step_ms", off, offline_loss)):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step().backward()
+        torch.cuda.synchronize()
+        out[label] = (time.perf_counter() - t0) * 1e3
+    print(json.dumps({"seqpar_train": out}), flush=True)
+    return out
+
+
+def _sp_trainer_steps(cfg, params, stats, batch) -> dict:
+    """``Trainer`` with ``train.sequence_parallel`` and the guarded step
+    on, ``sp_devices=[this card] * SP_SHARDS``: two steps on ``batch``,
+    each applied with a finite loss; the first step's parameter update
+    within ``GRAD_REL_TOL`` (relative L2 per group, the bf16 bound of
+    ``_sp_against_offline_step``) of the offline Trainer's first step on
+    the same weights and batch. Returns the SP steps' launches and
+    losses."""
+    from deepspeech_tpu_torch.config import apply_overrides
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.train import Trainer
+
+    host = {k: v.cpu().numpy() for k, v in batch.items()}
+    devices = [torch.device("cuda", torch.cuda.current_device())] \
+        * SP_SHARDS
+    over = {"train.checkpoint_dir": "", "data.batch_size": "2",
+            "data.bucket_frames": str(host["features"].shape[1])}
+    base = {n: p.detach() for n, p in
+            _sp_model(cfg, params, stats).named_parameters()}
+    updates, losses = {}, []
+    os.environ.pop("DS2_GUARDIAN", None)
+    for name, extra in (("offline", {}),
+                        ("sp", {"train.sequence_parallel": "true",
+                                "train.guardian": "true"})):
+        c = apply_overrides(cfg, {**over, **extra})
+        tr = Trainer(c, _FixedBatch(host), CharTokenizer.english(),
+                     params=params, batch_stats=stats,
+                     sp_devices=devices if extra else None)
+        _zero_counts()
+        for step in range(2 if extra else 1):
+            m = tr.train_step(host)
+            if extra:
+                _require(bool(m["applied"]), f"SP Trainer step {step}: not "
+                         f"applied ({ {k: float(v) for k, v in m.items()} })")
+                tr.commit_step(True)
+                losses.append(float(m["loss"]))
+            if step == 0:
+                updates[name] = {n: p.detach() - base[n]
+                                 for n, p in tr.model.named_parameters()}
+        torch.cuda.synchronize()
+        if extra:
+            counts = {k: v for k, v in _counts().items() if v}
+        del tr
+    _require(all(math.isfinite(x) for x in losses), f"SP Trainer losses "
+             f"{losses}")
+    rel = _leaf_rel(updates["sp"], updates["offline"])
+    worst = max(rel, key=rel.get)
+    groups = _group_rel(updates["sp"], updates["offline"])
+    _require(max(groups.values()) <= GRAD_REL_TOL, f"SP Trainer: the first "
+             f"step's update from offline by {groups} > {GRAD_REL_TOL} "
+             "(relative L2, per group)")
+    out = {"steps": 2, "guarded": True, "losses": losses, "launches": counts,
+           "update_rel_l2_group": groups, "update_rel_l2_worst_leaf":
+           rel[worst], "update_worst_leaf": worst}
+    print(json.dumps({"seqpar_trainer": out}), flush=True)
+    return out
+
+
+def seqpar_train_phase(card: str):
+    """Item 14b on the card, one phase:
+
+    - K1 and K2 over 4 chunks with the carried band, bit-equal to one
+      unsplit call (``_ctc_carry_checks``);
+    - K7 (D=1, H=800, bf16 and f32) and K9 (D=1, H=1760, bf16) with a
+      carried ``h0`` and ``dh0`` (``_gru_bwd_carry_checks``), and K9's
+      D=1 kernels-line entry;
+    - ``sp_loss`` at ds2_small's full width (3 BiGRU, H=800, bf16) on a
+      (2, 6800) recording with ~400-character labels over 4 shards of
+      this card against the offline step: 24 K6 and 24 K7 (2 directions
+      x 3 layers x 4 shards, D=1), 4 taped K1 and 4 K2, no K4, K5 or K3;
+      the same in f32 at 1600 frames, with the BN statistics; ds2_full's
+      width with one layer (8 K8 and 8 K9 at D=1);
+    - ``Trainer`` with ``train.sequence_parallel`` and the guarded step,
+      two steps, against the offline Trainer's first step;
+    - an LSTM model refused, naming item 14b-ii.
+
+    Returns (K9's D=1 kernels-line entry, the carry checks by kernel,
+    the launches of the counted runs by kernels-line entry)."""
+    from deepspeech_tpu_torch.bridge import init_params
+    from deepspeech_tpu_torch.config import apply_overrides
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.train import Trainer
+
+    # A generator of its own: the later phases draw what they drew before.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    rng = np.random.default_rng(SEED + 29)
+    counted: dict = {}
+
+    def add(launches, names):
+        for k, v in launches.items():
+            if k in names:
+                counted[names[k]] = counted.get(names[k], 0) + v
+
+    carry = {"ctc": _ctc_carry_checks(gen)}
+    carry["gru_bwd"], _ = _gru_bwd_carry_checks(
+        gen, "gru_bwd", H, (torch.bfloat16, torch.float32))
+    carry["gru_bwd_stream"], k9_d1 = _gru_bwd_carry_checks(
+        gen, "gru_bwd_stream", 1760, (torch.bfloat16,), K9)
+    sp_names = {"gru_fwd[D=1]": "gru_fwd[D=1]", "gru_fwd": "gru_fwd[D=1]",
+                "gru_bwd": "gru_bwd[D=1]",
+                "gru_fwd_stream[D=1]": "gru_fwd_stream[D=1]",
+                "gru_bwd_stream": "gru_bwd_stream[D=1]",
+                "ctc_alpha": "ctc_alpha", "ctc_beta": "ctc_beta"}
+
+    small = _config("ds2_small")
+    params, stats = _weights("ds2_small")
+    cases = []
+    for name, c, t in (
+            ("ds2_small_bf16", small, SP_FRAMES),
+            ("ds2_small_f32", apply_overrides(
+                small, {"model.dtype": "float32"}), SP_FRAMES_SHORT)):
+        batch = _sp_inputs(c, rng, t)
+        cases.append(_sp_against_offline_step(
+            name, c, params, stats, batch,
+            {"gru_fwd[D=1]": 24, "gru_bwd": 24, "ctc_alpha": SP_SHARDS,
+             "ctc_beta": SP_SHARDS}))
+        add(cases[-1]["launches"], sp_names)
+    trainer = _sp_trainer_steps(small, params, stats,
+                                _sp_inputs(small, rng, SP_FRAMES_SHORT))
+    add(trainer["launches"], sp_names)
+    del params, stats
+    _weights.cache_clear()
+
+    one = apply_overrides(_config("ds2_full"), {"model.rnn_layers": "1"})
+    p1, s1 = init_params(one, torch.Generator().manual_seed(SEED))
+    cases.append(_sp_against_offline_step(
+        "ds2_full_1layer_bf16", one, p1, s1,
+        _sp_inputs(one, rng, SP_FRAMES_SHORT),
+        {"gru_fwd_stream[D=1]": 2 * SP_SHARDS,
+         "gru_bwd_stream": 2 * SP_SHARDS, "ctc_alpha": SP_SHARDS,
+         "ctc_beta": SP_SHARDS}))
+    add(cases[-1]["launches"], sp_names)
+
+    lstm = apply_overrides(_config("ds2_small", "lstm"), {
+        "train.sequence_parallel": "true", "train.checkpoint_dir": ""})
+    try:
+        Trainer(lstm, _FixedBatch({}), CharTokenizer.english())
+    except NotImplementedError as e:
+        _require("14b-ii" in str(e), f"LSTM refusal names {e}")
+    else:
+        raise RuntimeError("an SP Trainer of an LSTM model did not raise")
+    print(card, flush=True)
+    print(json.dumps({"seqpar_train_phase": {
+        "carry": carry, "cases": cases, "trainer": trainer,
+        "lstm_refused": True, "launches": counted}, "card": card}),
+        flush=True)
+    return k9_d1, carry, counted
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7037,6 +7616,16 @@ def main() -> int:
                                   gen, root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    # Item 14b: K1/K2 with a carried band, K7/K9 with h0 and dh0, sp_loss
+    # and the SP Trainer over shards of this card (K6, K7, K8, K9 at D=1,
+    # K1, K2); its launches are added after the train phases set theirs.
+    k9_d1, sp_carry, sp_train_counts = _phase(
+        "seqpar train (sp_loss, SP Trainer, K1/K2 band relay, K7/K9 carry)",
+        seqpar_train_phase, card)
+    entries["gru_bwd_stream[D=1]"] = k9_d1
+    entries["gru_bwd[D=1]"]["carry"] = sp_carry["gru_bwd"]
+    for name in ("ctc_alpha", "ctc_beta"):
+        entries[name]["carry"] = sp_carry["ctc"]
     entries["lstm_fwd[D=1]"]["carry"] = carry["lstm_fwd"]
     entries["lstm_fwd_stream[D=2]"]["carry_d1"] = carry["lstm_fwd_stream"]
     # The LSTM variants of the same presets (model.rnn_type=lstm): one
@@ -7047,8 +7636,9 @@ def main() -> int:
             ("ds2_small", 3, "lstm_fwd_q[D=2]", "int8"),
             ("ds2_streaming", 5, "lstm_fwd[D=1]", ""),
             ("ds2_streaming", 5, "lstm_fwd_q[D=1]", "int8"),
-            ("ds2_full", 7, "lstm_fwd_stream[D=2]", ""),
-            ("ds2_full", 7, "lstm_fwd_q_stream[D=2]", "int8")):
+            ("ds2_full", FULL_LSTM_DECODE_LAYERS, "lstm_fwd_stream[D=2]", ""),
+            ("ds2_full", FULL_LSTM_DECODE_LAYERS, "lstm_fwd_q_stream[D=2]",
+             "int8")):
         entries[name]["launches"] = _phase(
             f"{preset}-lstm {quantize or 'bf16'} decode", path_phase, preset,
             layers, name.split("[")[0], quantize, "lstm")
@@ -7058,16 +7648,16 @@ def main() -> int:
     # Training: one forward and one backward launch per layer per step,
     # GRU and then LSTM (the LSTM's forward with its tape).
     for preset, layers, name, streamed, steps, descent, rnn_type in (
-            ("ds2_small", 3, "gru_bwd[D=2]", False, TRAIN_STEPS,
-             DESCENT_STEPS, "gru"),
-            ("ds2_streaming", 5, "gru_bwd[D=1]", False, TRAIN_STEPS,
-             DESCENT_STEPS, "gru"),
+            ("ds2_small", SMALL_TRAIN_LAYERS, "gru_bwd[D=2]", False,
+             TRAIN_STEPS, DESCENT_STEPS, "gru"),
+            ("ds2_streaming", STREAMING_TRAIN_LAYERS, "gru_bwd[D=1]", False,
+             TRAIN_STEPS, DESCENT_STEPS, "gru"),
             ("ds2_full", FULL_TRAIN_LAYERS, "gru_bwd_stream[D=2]", True,
              FULL_TRAIN_STEPS, FULL_DESCENT_STEPS, "gru"),
-            ("ds2_small", 3, "lstm_bwd[D=2]", False, TRAIN_STEPS,
-             DESCENT_STEPS, "lstm"),
-            ("ds2_streaming", 5, "lstm_bwd[D=1]", False, TRAIN_STEPS,
-             DESCENT_STEPS, "lstm"),
+            ("ds2_small", SMALL_TRAIN_LAYERS, "lstm_bwd[D=2]", False,
+             TRAIN_STEPS, DESCENT_STEPS, "lstm"),
+            ("ds2_streaming", STREAMING_TRAIN_LAYERS, "lstm_bwd[D=1]", False,
+             TRAIN_STEPS, DESCENT_STEPS, "lstm"),
             ("ds2_full", FULL_TRAIN_LAYERS, "lstm_bwd_stream[D=2]", True,
              FULL_TRAIN_STEPS, FULL_DESCENT_STEPS, "lstm")):
         counts = _phase(f"{preset}-{rnn_type} train", train_phase, preset,
@@ -7077,6 +7667,8 @@ def main() -> int:
                               ("ctc_alpha[loss_only]", "loss_only"),
                               ("ctc_beta", "ctc_beta")):
             entries[ctc_name]["launches"] += counts[key]
+    for name, n in sp_train_counts.items():
+        entries[name]["launches"] += n
     # ds2_small on a WAV manifest: train, checkpoint, resume, serve.
     root = tempfile.mkdtemp(prefix="chip_smoke_manifest_")
     try:
@@ -7160,7 +7752,8 @@ def main() -> int:
     entries = [entries[n] for n in (
         "gru_fwd[D=2]", "gru_fwd[D=1]", "ctc_alpha", "ctc_alpha[loss_only]",
         "ctc_beta", "gru_bwd[D=2]", "gru_bwd[D=1]", "gru_fwd_stream[D=2]",
-        "gru_fwd_stream[D=1]", "gru_bwd_stream[D=2]", "gru_fwd_q[D=2]",
+        "gru_fwd_stream[D=1]", "gru_bwd_stream[D=2]", "gru_bwd_stream[D=1]",
+        "gru_fwd_q[D=2]",
         "gru_fwd_q[D=1]", "gru_fwd_q_stream[D=2]",
         "lstm_fwd[D=2]", "lstm_fwd[D=1]", "lstm_fwd_stream[D=2]",
         "lstm_fwd_q[D=2]", "lstm_fwd_q[D=1]", "lstm_fwd_q_stream[D=2]",

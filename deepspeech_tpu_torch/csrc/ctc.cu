@@ -11,6 +11,22 @@
 //   s_last [B] int32 (= 2L; states past it are invalid)
 //   -> ll [B] f32 and, with a tape, alpha [B,T,S] f32;
 //   -> (with alpha and ll) gamma [B,T,S] f32.
+// A chunk of a longer recursion (the sequence-parallel loss, ops/ctc.py
+// sp_ctc_loss) passes its frames' lp and its global frame offset t_off
+// (lens stay the global lengths), and carries the band across chunks:
+//   alpha: alpha0 [B,S] f32, the band after the chunk before. Local frame
+//     0 is then a recursion step from it (not the t == 0 initialisation);
+//     the outgoing band is the tape's last row, since frames at or past
+//     len hold alpha. ll is the last chunk's only.
+//   beta: c_in [B,S] f32 = beta + lp at the next chunk's first frame (the
+//     c a lane carries, below), and the global ll. A row whose end lies
+//     past the chunk takes its last frame as a step from c_in; a row that
+//     ends inside restarts at the terminal states, as unchunked; a row
+//     that ended before writes zero gamma. c_out [B,S] gets c at local
+//     frame 0 for the chunk before (NEG for a row that ended before).
+// NULL alpha0, c_in and c_out with t_off = 0 are the unchunked kernels,
+// bit for bit; the chunks' bits are the unchunked call's (the carried
+// band is exact in every state, ghosts included).
 // Moves are stay, step and skip. Frames at or past len hold alpha; beta
 // restarts at the terminal states (2L and 2L-1) for t >= len-1, and a
 // skip s -> s+2 is judged at its destination (skip[s+2]). The
@@ -358,19 +374,27 @@ __device__ Seg make_seg(const Plan& p, int S, bool alpha, Mail* mail) {
   return g;
 }
 
-template <bool TAPE>
+// CARRY: alpha0 is given (a chunk after the first); without it the kernel
+// compiles to the unchunked one.
+template <bool TAPE, bool CARRY>
 __global__ void __launch_bounds__(32 * W_MAX, 1)
     ctc_alpha_kernel(const float* __restrict__ lp, const int* __restrict__ ext,
                      const unsigned char* __restrict__ skip,
                      const int* __restrict__ lens,
-                     const int* __restrict__ s_last, float* __restrict__ tape,
-                     float* __restrict__ ll, int T, int V, int S, Plan p) {
+                     const int* __restrict__ s_last,
+                     const float* __restrict__ alpha0,
+                     float* __restrict__ tape, float* __restrict__ ll, int T,
+                     int V, int S, int t_off, Plan p) {
   __shared__ Mail mail[W_MAX];
   const Seg g = make_seg(p, S, true, mail);
   cluster_sync();  // every mailbox initialised before any exchange
   const int b = blockIdx.x / p.C;
   const int sl = s_last[b];
-  const int len = min(max(lens[b], 0), T);
+  const int len = min(max(lens[b] - t_off, 0), T);
+  // The first frame a step makes: 0 from a carried band, else 1 after
+  // the t == 0 initialisation.
+  constexpr int start = CARRY ? 0 : 1;
+  const float* a0 = CARRY ? alpha0 + size_t(b) * S : nullptr;
   const int* eb = ext + size_t(b) * S;
   const unsigned char* kb = skip + size_t(b) * S;
   const float* lpb = lp + size_t(b) * T * V;
@@ -387,8 +411,11 @@ __global__ void __launch_bounds__(32 * W_MAX, 1)
     sk[r] = in && s >= 2 && kb[s];
     live[r] = in && s <= sl;
     mine[r] = s >= g.lo && s < g.hi;
-    a[r] = (live[r] && (s == 0 || (s == 1 && sl > 0))) ? lpb[e[r]] : NEG;
-    if (TAPE && mine[r]) tb[s] = a[r];
+    if (CARRY)
+      a[r] = live[r] ? a0[s] : NEG;
+    else
+      a[r] = (live[r] && (s == 0 || (s == 1 && sl > 0))) ? lpb[e[r]] : NEG;
+    if (TAPE && mine[r] && !CARRY) tb[s] = a[r];
   }
   // The ring holds PREFETCH + 1 rows: a step reloads the slot the step
   // before it read, so the load lands in a dead register. Loads are
@@ -402,8 +429,8 @@ __global__ void __launch_bounds__(32 * W_MAX, 1)
   for (int i = 0; i < DEPTH; ++i)
 #pragma unroll
     for (int r = 0; r < KS; ++r)
-      ring[i][r] = i < PREFETCH ? lpb[min(1 + i, max(len - 1, 0)) * V + e[r]]
-                                : 0.f;
+      ring[i][r] =
+          i < PREFETCH ? lpb[min(start + i, max(len - 1, 0)) * V + e[r]] : 0.f;
 
   const bool exch = p.C * p.W > 1;
   int until = p.h, n = 0;
@@ -412,7 +439,7 @@ __global__ void __launch_bounds__(32 * W_MAX, 1)
   // does not start behind its loads' address arithmetic.
   float l1[KS], l2[KS];
   left(a, g.lane, l1, l2);
-  int t0 = 1;
+  int t0 = start;
   for (; t0 < len; t0 += DEPTH) {
 #pragma unroll
     for (int i = 0; i < DEPTH; ++i) {
@@ -426,14 +453,14 @@ __global__ void __launch_bounds__(32 * W_MAX, 1)
       // Row t-1, the alpha this step reads, is stored while the step
       // runs: the store waits on nothing of the chain. A step past len
       // holds alpha, so its row is the held one.
-      if (TAPE && t > 1 && t - 1 < T) {
+      if (TAPE && t > start && t - 1 < T) {
         float* row = tb + (t - 1) * S;
 #pragma unroll
         for (int r = 0; r < KS; ++r)
           if (mine[r]) row[state(g.first, g.lane, r)] = a[r];
       }
       // Band trim: a warp wholly above min(2L, 2t+1) holds NEG.
-      if (!TRIM || g.first <= min(sl, 2 * t + 1)) {
+      if (!TRIM || g.first <= min(sl, 2 * (t_off + t) + 1)) {
 #pragma unroll
         for (int r = 0; r < KS; ++r) {
           float nw;
@@ -465,7 +492,7 @@ __global__ void __launch_bounds__(32 * W_MAX, 1)
   if ((sl < 0 || sl >= S) && g.lo == 0 && g.lane == 0)
     ll[b] = __int_as_float(0x7fc00000);
   if (TAPE) {  // the rows the loop has not stored, from t0 - 1 on
-    for (int t = max(t0 - 1, 1); t < T; ++t) {
+    for (int t = max(t0 - 1, start); t < T; ++t) {
       float* row = tb + t * S;
 #pragma unroll
       for (int r = 0; r < KS; ++r)
@@ -475,21 +502,31 @@ __global__ void __launch_bounds__(32 * W_MAX, 1)
 }
 
 // beta is never stored: a lane holds c[s] = beta_t[s] + lp_t[s], the
-// term every move out of t-1 adds.
+// term every move out of t-1 adds. CARRY: c_in is given (a chunk before
+// the last); without it the kernel compiles to the unchunked one but for
+// c_out.
+template <bool CARRY>
 __global__ void __launch_bounds__(32 * W_MAX, 1)
     ctc_beta_kernel(const float* __restrict__ lp, const int* __restrict__ ext,
                     const unsigned char* __restrict__ skip,
                     const int* __restrict__ lens,
                     const int* __restrict__ s_last,
                     const float* __restrict__ alpha,
-                    const float* __restrict__ ll, float* __restrict__ gamma,
-                    int T, int V, int S, Plan p) {
+                    const float* __restrict__ ll,
+                    const float* __restrict__ c_in, float* __restrict__ c_out,
+                    float* __restrict__ gamma, int T, int V, int S, int t_off,
+                    Plan p) {
   __shared__ Mail mail[W_MAX];
   const Seg g = make_seg(p, S, false, mail);
   cluster_sync();  // every mailbox initialised before any exchange
   const int b = blockIdx.x / p.C;
   const int sl = s_last[b];
-  const int len = min(max(lens[b], 0), T);
+  const int len = min(max(lens[b] - t_off, 0), T);
+  // The row's end lies past this chunk: its last frame is a step from
+  // c_in, not the terminal restart. `end` is the frame count the band
+  // trim measures from.
+  const bool past = CARRY && lens[b] - t_off > T;
+  const int end = past ? lens[b] - t_off : len;
   const float llb = ll[b];
   const int* eb = ext + size_t(b) * S;
   const unsigned char* kb = skip + size_t(b) * S;
@@ -518,20 +555,50 @@ __global__ void __launch_bounds__(32 * W_MAX, 1)
     for (int r = 0; r < KS; ++r)
       if (mine[r]) row[state(g.first, g.lane, r)] = 0.f;
   }
-  if (len == 0) return;
+  if (len == 0) {  // nothing of the row in this chunk
+    if (c_out != nullptr) {
+#pragma unroll
+      for (int r = 0; r < KS; ++r)
+        if (mine[r]) c_out[size_t(b) * S + state(g.first, g.lane, r)] = NEG;
+    }
+    return;
+  }
 
-  // t = len-1: beta restarts at the terminal states.
+  // t = len-1: beta restarts at the terminal states, or, for a row whose
+  // end lies past the chunk, steps from the next chunk's c_in (every
+  // state of the span read from it, the ghost zone exact).
   float c[KS];
   {
     const int t = len - 1;
+    float bt[KS];
+    if (past) {
+      float cn[KS], q1[KS], q2[KS];
+#pragma unroll
+      for (int r = 0; r < KS; ++r)
+        cn[r] = live[r] ? c_in[size_t(b) * S + state(g.first, g.lane, r)]
+                        : NEG;
+      right(cn, g.lane, q1, q2);
+#pragma unroll
+      for (int r = 0; r < KS; ++r) {
+        float rec;
+        if (PARITY && r % 2 == 0)
+          rec = lse3_blank(cn[r], q1[r]);
+        else
+          rec = lse3(cn[r], q1[r], sk2[r] ? q2[r] : NEG);
+        bt[r] = live[r] ? rec : NEG;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < KS; ++r) bt[r] = term[r];
+    }
     float* row = gb + t * S;
 #pragma unroll
     for (int r = 0; r < KS; ++r) {
       const int s = state(g.first, g.lane, r);
       if (mine[r])
-        row[s] = live[r] ? expf(fminf(ab[t * S + s] + term[r] - llb, 0.f))
+        row[s] = live[r] ? expf(fminf(ab[t * S + s] + bt[r] - llb, 0.f))
                          : 0.f;
-      c[r] = live[r] ? term[r] + lpb[t * V + e[r]] : NEG;
+      c[r] = live[r] ? bt[r] + lpb[t * V + e[r]] : NEG;
     }
   }
   // The rings of lp and of the tape, as the alpha kernel's: PREFETCH + 1
@@ -555,6 +622,13 @@ __global__ void __launch_bounds__(32 * W_MAX, 1)
   const bool exch = p.C * p.W > 1;
   const int top = g.first + 32 * KS - 1;  // the span's highest state
   int until = p.h, n = 0;
+  // A last frame stepped from c_in read NEG past the span's top, as every
+  // step does: it counts toward the next exchange, or the ghost would
+  // stay stale one step past its 2h states.
+  if (exch && past && --until == 0) {
+    until = p.h;
+    g.exchange(c, n++, S);
+  }
   float r1[KS], r2[KS];  // c at s+1 and s+2, shuffled in as alpha's
   right(c, g.lane, r1, r2);
   // beta and the tape at the row the last step made: its gamma is
@@ -586,7 +660,7 @@ __global__ void __launch_bounds__(32 * W_MAX, 1)
       }
       float beta[KS];
       // Band trim: below 2L-1-2(len-1-t) beta is NEG.
-      if (!TRIM || top >= sl - 1 - 2 * (len - 1 - t)) {
+      if (!TRIM || top >= sl - 1 - 2 * (end - 1 - t)) {
 #pragma unroll
         for (int r = 0; r < KS; ++r) {
           float rec;
@@ -618,6 +692,11 @@ __global__ void __launch_bounds__(32 * W_MAX, 1)
     }
   }
   if (len >= 2) gamma_row(0, pbeta, pat);
+  if (c_out != nullptr) {  // c at frame 0, for the chunk before
+#pragma unroll
+    for (int r = 0; r < KS; ++r)
+      if (mine[r]) c_out[size_t(b) * S + state(g.first, g.lane, r)] = c[r];
+  }
   // No CTA leaves while a neighbour may still arrive on its mailbox.
   if (exch) cluster_sync();
 }
@@ -665,32 +744,43 @@ cudaError_t launch(Kernel kernel, const Plan& p, int B, int device,
 extern "C" {
 
 // Both return 0 or a cudaError_t; the launch is asynchronous on `stream`.
-// `tape` may be NULL (the loss-only recursion). The calling thread's
-// current device is the same after the call as before it.
+// `tape` may be NULL (the loss-only recursion). A chunk of a longer
+// recursion passes its global frame offset `t_off` and the carried band:
+// `alpha0` (NULL: the recursion starts here, t_off = 0), `c_in` (NULL:
+// the recursion ends here) and `c_out` (NULL: not wanted); see the top of
+// this file. The calling thread's current device is the same after the
+// call as before it.
 int ctc_alpha_launch(const float* lp, const int* ext,
                      const unsigned char* skip, const int* lens,
-                     const int* s_last, float* tape, float* ll, int B, int T,
-                     int V, int S, int device, void* stream) {
+                     const int* s_last, const float* alpha0, float* tape,
+                     float* ll, int B, int T, int V, int S, int t_off,
+                     int device, void* stream) {
   Plan p;
   cudaError_t err = plan_for(B, T, V, S, device, &p);
   if (err != cudaSuccess) return err;
-  if (tape)
-    return launch(ctc_alpha_kernel<true>, p, B, device, stream, lp, ext, skip,
-                  lens, s_last, tape, ll, T, V, S);
-  return launch(ctc_alpha_kernel<false>, p, B, device, stream, lp, ext, skip,
-                lens, s_last, tape, ll, T, V, S);
+  if (t_off < 0 || (t_off > 0 && alpha0 == nullptr))
+    return cudaErrorInvalidValue;
+  auto kernel = tape ? (alpha0 ? ctc_alpha_kernel<true, true>
+                                : ctc_alpha_kernel<true, false>)
+                     : (alpha0 ? ctc_alpha_kernel<false, true>
+                               : ctc_alpha_kernel<false, false>);
+  return launch(kernel, p, B, device, stream, lp, ext, skip, lens, s_last,
+                alpha0, tape, ll, T, V, S, t_off);
 }
 
 int ctc_beta_launch(const float* lp, const int* ext,
                     const unsigned char* skip, const int* lens,
                     const int* s_last, const float* alpha, const float* ll,
-                    float* gamma, int B, int T, int V, int S, int device,
+                    const float* c_in, float* c_out, float* gamma, int B,
+                    int T, int V, int S, int t_off, int device,
                     void* stream) {
   Plan p;
   cudaError_t err = plan_for(B, T, V, S, device, &p);
   if (err != cudaSuccess) return err;
-  return launch(ctc_beta_kernel, p, B, device, stream, lp, ext, skip, lens,
-                s_last, alpha, ll, gamma, T, V, S);
+  if (t_off < 0) return cudaErrorInvalidValue;
+  return launch(c_in ? ctc_beta_kernel<true> : ctc_beta_kernel<false>, p, B,
+                device, stream, lp, ext, skip, lens, s_last, alpha, ll, c_in,
+                c_out, gamma, T, V, S, t_off);
 }
 
 // The plan both launches take at (B, S) on `device`: out = {C, W, own,

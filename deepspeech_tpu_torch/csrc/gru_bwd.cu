@@ -6,17 +6,22 @@
 // both directions of a BiGRU, D=2, K5). The contract is ops/gru.py
 // gru_bwd's docstring:
 //   xp [T,B,3H] and w [D,H,3H] in one dtype, bf16|f32 (the dot dtype),
-//   mask [T,B] f32, bias [D,3H] f32, ys [D,T,B,H] f32 (the forward's
+//   mask [T,B] f32, bias [D,3H] f32, h0 [D,B,H] f32 or NULL (zeros: the
+//   state the forward started from), ys [D,T,B,H] f32 (the forward's
 //   outputs), dy [D,T,B,H] f32, reverse bit d set for a direction whose
 //   forward ran t = T-1..0
 //   -> dxp [D,T,B,3H] f32 = (da_r, da_z, da_n) and dgates [D,T,B,3H] f32
-//      = (da_r, da_z, dg_n) at every row.
+//      = (da_r, da_z, dg_n) at every row, and, where dh0 [D,B,H] f32 is
+//      not NULL, the gradient of h0 there.
 // Each direction runs against its own forward order, starting from
 // dh = 0. A step recomputes the gates from h_prev (the ys row the
-// forward wrote one step earlier, 0 at the forward's first step) rounded
-// to the dot dtype, applies _gru_bwd_elt's math (rnn_pallas.py:189) with
-// dh = carry + dy, and carries dh_prev = the elementwise terms +
-// round(dgates) @ W^T, summed in f32.
+// forward wrote one step earlier, h0 at the forward's first step)
+// rounded to the dot dtype, applies _gru_bwd_elt's math
+// (rnn_pallas.py:189) with dh = carry + dy, and carries dh_prev = the
+// elementwise terms + round(dgates) @ W^T, summed in f32; the first
+// step's dh_prev, formed the same way, is dh0. The gradient on the final
+// state needs no argument: a GRU's carry out is ys at its scan's last row
+// (a masked frame holds h), so it arrives in dy there.
 //
 // What bounds it: per step two [B,H] x [H,3H]-sized products (the gate
 // recompute and dgates @ W^T), 2 * 2*T*D*B*H*3H FLOPs in all, and the
@@ -129,8 +134,9 @@ template <typename WT>
 __global__ void __launch_bounds__(THREADS)
 gru_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
                const WT* __restrict__ w, const float* __restrict__ bias,
-               const float* __restrict__ ys, const float* __restrict__ dy,
-               float* __restrict__ dxp, float* __restrict__ dgates,
+               const float* __restrict__ h0, const float* __restrict__ ys,
+               const float* __restrict__ dy, float* __restrict__ dxp,
+               float* __restrict__ dgates, float* __restrict__ dh0,
                float* partial, int T, int B, int H, int h_pad,
                int reverse_bits) {
   extern __shared__ __align__(16) float smem[];
@@ -184,9 +190,12 @@ gru_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
   for (int i = 0; i < T; ++i) {
     // Step i of this direction's BPTT is step T-1-i of its forward scan.
     const int row = rev ? i : T - 1 - i;
-    const bool last = i == T - 1;  // the forward's first step: h_prev = 0
-    const float* hp =
-        last ? nullptr : ys_d + size_t(rev ? row + 1 : row - 1) * BH;
+    const bool last = i == T - 1;  // the forward's first step: h_prev = h0
+    // No dh_prev past the recurrence's start unless dh0 asks for it.
+    const bool stop = last && dh0 == nullptr;
+    const float* hp = !last ? ys_d + size_t(rev ? row + 1 : row - 1) * BH
+                      : h0 != nullptr ? h0 + size_t(d) * BH
+                                      : nullptr;
     // This block's partial sums for this step: [B][H].
     float* part = partial + (i & 1) * parity_stride +
                   (size_t(d) * nblk + blk) * BH;
@@ -275,7 +284,7 @@ gru_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
         g_s[r * GS + U + lu] = g_z;
         g_s[r * GS + 2 * U + lu] = g_n;
       }
-      if (last) continue;  // no dh_prev past the recurrence's start
+      if (stop) continue;
       __syncthreads();  // the dgates tile is complete
       // Partial sums of round(dgates) @ W^T over this block's columns,
       // for every hidden unit k: thread k holds W[k, cols] in registers.
@@ -301,7 +310,7 @@ gru_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
       }
       __syncthreads();  // the tile's readers are done before the next
     }
-    if (last) break;
+    if (stop) break;
     grid.sync();
     // dh carried into the next step: the elementwise part plus the
     // partial sums of every block of this direction, in block order.
@@ -315,7 +324,10 @@ gru_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
       float dot = 0.f;
 #pragma unroll 5
       for (int q = 0; q < nblk; ++q) dot += __ldcg(p + size_t(q) * BH);
-      dh_s[e] = de_s[e] + dot;
+      if (last)
+        dh0[size_t(d) * BH + size_t(b) * H + j0 + u] = de_s[e] + dot;
+      else
+        dh_s[e] = de_s[e] + dot;
     }
     __syncthreads();
   }
@@ -323,10 +335,10 @@ gru_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
 
 template <typename WT>
 cudaError_t launch(const void* xp, const float* mask, const void* w,
-                   const float* bias, const float* ys, const float* dy,
-                   float* dxp, float* dgates, float* partial, int D, int T,
-                   int B, int H, int reverse_bits, int device,
-                   cudaStream_t stream) {
+                   const float* bias, const float* h0, const float* ys,
+                   const float* dy, float* dxp, float* dgates, float* dh0,
+                   float* partial, int D, int T, int B, int H,
+                   int reverse_bits, int device, cudaStream_t stream) {
   auto* kernel = gru_bwd_kernel<WT>;
   const int h_pad = (H + KC - 1) / KC * KC;
   const size_t smem = smem_bytes(h_pad, B);
@@ -342,8 +354,8 @@ cudaError_t launch(const void* xp, const float* mask, const void* w,
   if (blocks < groups) return cudaErrorCooperativeLaunchTooLarge;
   const WT* xp_t = static_cast<const WT*>(xp);
   const WT* w_t = static_cast<const WT*>(w);
-  void* args[] = {&xp_t, &mask, &w_t, &bias, &ys, &dy, &dxp, &dgates,
-                  &partial, &T, &B, &H, const_cast<int*>(&h_pad),
+  void* args[] = {&xp_t, &mask, &w_t, &bias, &h0, &ys, &dy, &dxp, &dgates,
+                  &dh0, &partial, &T, &B, &H, const_cast<int*>(&h_pad),
                   &reverse_bits};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                     dim3(blocks), dim3(THREADS), args, smem,
@@ -366,9 +378,10 @@ constexpr int MS_WIDE = 4;
 __global__ void __launch_bounds__(gru_bwd_mma::P_THREADS)
 gru_bwd_gates_kernel(const __nv_bfloat16* __restrict__ w,
                      const float* __restrict__ bias,
+                     const float* __restrict__ h0,
                      const float* __restrict__ ys, float* __restrict__ pre,
                      int T, int B, int H, int reverse_bits) {
-  gru_bwd_mma::gates(w, bias, ys, pre, T, B, H, reverse_bits);
+  gru_bwd_mma::gates(w, bias, h0, ys, pre, T, B, H, reverse_bits);
 }
 
 template <int MU, int MS>
@@ -376,12 +389,14 @@ __global__ void __launch_bounds__(gru_bwd_mma::M_THREADS, 1)
 gru_bwd_mma_kernel(const __nv_bfloat16* __restrict__ xp,
                    const float* __restrict__ mask,
                    const __nv_bfloat16* __restrict__ w,
+                   const float* __restrict__ h0,
                    const float* __restrict__ ys,
                    const float* __restrict__ dy, float* __restrict__ dxp,
-                   float* dgates, float* scratch, int D, int T, int B, int H,
-                   int reverse_bits) {
-  gru_bwd_mma::loop<MU, MS, gru_bwd_mma::W_ALL>(
-      xp, mask, w, ys, dy, dxp, dgates, scratch, D, T, B, H, reverse_bits);
+                   float* dgates, float* __restrict__ dh0, float* scratch,
+                   int D, int T, int B, int H, int reverse_bits) {
+  gru_bwd_mma::loop<MU, MS, gru_bwd_mma::W_ALL>(xp, mask, w, h0, ys, dy, dxp,
+                                                dgates, dh0, scratch, D, T, B,
+                                                H, reverse_bits);
 }
 
 template <int MU, int MS>
@@ -391,10 +406,10 @@ size_t loop_smem(int H) {
 
 // The two launches at the width the card's SM count gives.
 cudaError_t launch_mma(const void* xp, const float* mask, const void* w,
-                       const float* bias, const float* ys, const float* dy,
-                       float* dxp, float* dgates, float* scratch, int D,
-                       int T, int B, int H, int reverse_bits, int device,
-                       cudaStream_t stream) {
+                       const float* bias, const float* h0, const float* ys,
+                       const float* dy, float* dxp, float* dgates, float* dh0,
+                       float* scratch, int D, int T, int B, int H,
+                       int reverse_bits, int device, cudaStream_t stream) {
   int sms = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -407,8 +422,8 @@ cudaError_t launch_mma(const void* xp, const float* mask, const void* w,
       narrow ? MU_NARROW : MU_WIDE,
       narrow ? loop_smem<MU_NARROW, MS_NARROW>(H)
              : loop_smem<MU_WIDE, MS_WIDE>(H),
-      true, xp, mask, w, bias, ys, dy, dxp, dgates, scratch, D, T, B, H,
-      reverse_bits, device, stream);
+      true, xp, mask, w, bias, h0, ys, dy, dxp, dgates, dh0, scratch, D, T, B,
+      H, reverse_bits, device, stream);
 }
 
 }  // namespace
@@ -429,16 +444,17 @@ long long gru_bwd_mma_scratch_floats(int D, int B, int H) {
 }
 
 // Returns 0 or a cudaError_t; the launches are asynchronous on `stream`.
-// xp and w are bf16 when `bf16` is set, f32 otherwise. A bf16 call runs
-// the tensor-core path (two launches; gru_bwd_mma_scratch_floats of
-// scratch) where H % 8 == 0 and w, ys and scratch are 16-byte aligned,
-// else the CUDA-core kernel, as f32 does (gru_bwd_scratch_floats). The
-// calling thread's current device is the same after the call as before it.
+// xp and w are bf16 when `bf16` is set, f32 otherwise. h0 (NULL: zeros)
+// and dh0 (NULL: not formed) are [D,B,H] f32. A bf16 call runs the
+// tensor-core path (two launches; gru_bwd_mma_scratch_floats of scratch)
+// where H % 8 == 0 and w, ys, h0 and scratch are 16-byte aligned, else the
+// CUDA-core kernel, as f32 does (gru_bwd_scratch_floats). The calling
+// thread's current device is the same after the call as before it.
 int gru_bwd_launch(int bf16, const void* xp, const float* mask,
-                   const void* w, const float* bias, const float* ys,
-                   const float* dy, float* dxp, float* dgates, float* scratch,
-                   int D, int T, int B, int H, int reverse_bits, int device,
-                   void* stream) {
+                   const void* w, const float* bias, const float* h0,
+                   const float* ys, const float* dy, float* dxp,
+                   float* dgates, float* dh0, float* scratch, int D, int T,
+                   int B, int H, int reverse_bits, int device, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -447,16 +463,18 @@ int gru_bwd_launch(int bf16, const void* xp, const float* mask,
   if (err != cudaSuccess) return err;
   const bool mma = bf16 && H % 8 == 0 && gru_bwd_mma::aligned16(w) &&
                    gru_bwd_mma::aligned16(ys) &&
+                   gru_bwd_mma::aligned16(h0) &&
                    gru_bwd_mma::aligned16(scratch);
   if (mma)
-    err = launch_mma(xp, mask, w, bias, ys, dy, dxp, dgates, scratch, D, T, B,
-                     H, reverse_bits, device, st);
+    err = launch_mma(xp, mask, w, bias, h0, ys, dy, dxp, dgates, dh0, scratch,
+                     D, T, B, H, reverse_bits, device, st);
   else if (bf16)
-    err = launch<__nv_bfloat16>(xp, mask, w, bias, ys, dy, dxp, dgates,
-                                scratch, D, T, B, H, reverse_bits, device, st);
+    err = launch<__nv_bfloat16>(xp, mask, w, bias, h0, ys, dy, dxp, dgates,
+                                dh0, scratch, D, T, B, H, reverse_bits, device,
+                                st);
   else
-    err = launch<float>(xp, mask, w, bias, ys, dy, dxp, dgates, scratch, D, T,
-                        B, H, reverse_bits, device, st);
+    err = launch<float>(xp, mask, w, bias, h0, ys, dy, dxp, dgates, dh0,
+                        scratch, D, T, B, H, reverse_bits, device, st);
   const cudaError_t restore = cudaSetDevice(prev);
   return err != cudaSuccess ? err : restore;
 }

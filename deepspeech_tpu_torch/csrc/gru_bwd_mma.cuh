@@ -14,9 +14,12 @@
 //      = (da_r, da_z, dg_n) at every row.
 // Each direction runs against its own forward order from dh = 0; a step
 // recomputes the gates from round(h_prev) (the ys row of the forward's
-// step before, 0 at its first step), applies _gru_bwd_elt's math
-// (deepspeech_tpu/ops/rnn_pallas.py:189) with dh = carry + dy, and
-// carries dh_prev = dh_mid z + (1 - m) dh + round(dgates) @ W^T in f32.
+// step before; at its first step h0 [D,B,H] f32, zeros where NULL),
+// applies _gru_bwd_elt's math (deepspeech_tpu/ops/rnn_pallas.py:189)
+// with dh = carry + dy, and carries dh_prev = dh_mid z + (1 - m) dh +
+// round(dgates) @ W^T in f32. With dh0 [D,B,H] f32 (NULL: not formed) the
+// loop runs one pass more, the product alone, and writes there the
+// first step's dh_prev, formed as every other step's.
 //
 // Two launches from one C call, chosen before either:
 //  1. gates(), a tiled GEMM on the tensor cores: pre[d, row] =
@@ -68,8 +71,8 @@
 // 1.8 / 0.7, and cutting each warp's 9-10 chunks to one 2.9 / 2.2
 // (deepspeech_tpu_torch/k7_variants.py's ablations).
 //
-// Needs H % 8 == 0 and 16-byte aligned w, ys and scratch (a copy is 4 f32
-// of h_prev or 8 bf16 of a row). Scratch: dh's elementwise part [D,B,H]
+// Needs H % 8 == 0 and 16-byte aligned w, ys, h0 (when given) and scratch
+// (a copy is 4 f32 of h_prev or 8 bf16 of a row). Scratch: dh's elementwise part [D,B,H]
 // f32, then the round(dgates) rows [2][D][B][3H] bf16.
 
 #pragma once
@@ -161,10 +164,11 @@ constexpr size_t PRE_SMEM = sizeof(float4) * PS * P_F +
 
 // pre[d] [T*B, 3H] f32 = round(h_prev(d)) @ W[d] + bias[d], where row
 // m = t*B + b of h_prev(d) is ys[d] row m - B (forward) or m + B
-// (reverse), zero where that falls outside: the forward's first step.
-// grid = (N tiles, M tiles (strided), D).
+// (reverse); where that falls outside, the forward's first step, h0[d]
+// row b (zero where h0 is NULL). grid = (N tiles, M tiles (strided), D).
 __device__ __forceinline__ void gates(const __nv_bfloat16* __restrict__ w,
                                       const float* __restrict__ bias,
+                                      const float* __restrict__ h0,
                                       const float* __restrict__ ys,
                                       float* __restrict__ pre, int T, int B,
                                       int H, int reverse_bits) {
@@ -181,6 +185,7 @@ __device__ __forceinline__ void gates(const __nv_bfloat16* __restrict__ w,
   const int n0 = blockIdx.x * PN;
   const __nv_bfloat16* w_d = w + size_t(d) * H * N;
   const float* ys_d = ys + size_t(d) * M * H;
+  const float* h0_d = h0 != nullptr ? h0 + size_t(d) * B * H : nullptr;
   float* pre_d = pre + size_t(d) * M * N;
   const float* bias_d = bias + size_t(d) * N;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -199,8 +204,10 @@ __device__ __forceinline__ void gates(const __nv_bfloat16* __restrict__ w,
     for (int q = 0; q < 4; ++q) {
       const int m = m0 + ar + 32 * q;
       const int src = rev ? m + B : m - B;
-      a_row[q] =
-          (m < M && src >= 0 && src < M) ? ys_d + size_t(src) * H : nullptr;
+      a_row[q] = m >= M                     ? nullptr
+                 : src >= 0 && src < M      ? ys_d + size_t(src) * H
+                 : h0_d != nullptr          ? h0_d + size_t(m % B) * H
+                                            : nullptr;
     }
     auto fetch = [&](int kt) {
       float4* f = f_s + (kt % PS) * P_F + threadIdx.x;
@@ -390,9 +397,11 @@ template <int MU, int MS, int W_RES>
 __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
                                      const float* __restrict__ mask,
                                      const __nv_bfloat16* __restrict__ w,
+                                     const float* __restrict__ h0,
                                      const float* __restrict__ ys,
                                      const float* __restrict__ dy,
                                      float* __restrict__ dxp, float* dgates,
+                                     float* __restrict__ dh0,
                                      float* scratch, int D, int T, int B,
                                      int H, int reverse_bits) {
   using P = Plan<MU, MS, W_RES>;
@@ -432,8 +441,11 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
     cp_async_wait<0>();  // a lane reads back only its own pieces
   }
 
-  for (int i = 0; i < T; ++i) {
-    const bool first = i == T - 1;  // the forward's first step: h_prev = 0
+  // With dh0 one pass more: the product alone, for the first step's dh_prev.
+  const int passes = T + (dh0 != nullptr);
+  for (int i = 0; i < passes; ++i) {
+    const bool first = i == T - 1;  // the forward's first step: h_prev = h0
+    const bool tail = i == T;       // dh0's pass
     __nv_bfloat16* dgr_i = dgr + size_t(i & 1) * D * B * N;
     const __nv_bfloat16* dgr_prev = dgr + size_t((i + 1) & 1) * D * B * N;
     for (int gi = blockIdx.x; gi < groups; gi += gridDim.x) {
@@ -460,23 +472,29 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
           const int b = b0 + r0 + RSTEP * q;
           if (b >= B || j >= H) continue;
           const size_t at = size_t(b) * H + j;
-          const float* o = dgates + ((size_t(d) * T + row) * B + b) * N;
-          const unsigned short* x = reinterpret_cast<const unsigned short*>(
-              xp + (size_t(row) * B + b) * N);
+          if (!tail) {
+            const float* o = dgates + ((size_t(d) * T + row) * B + b) * N;
+            const unsigned short* x =
+                reinterpret_cast<const unsigned short*>(
+                    xp + (size_t(row) * B + b) * N);
 #pragma unroll
-          for (int e = 0; e < 3; ++e) {
-            pre_v[q][e] = __ldcs(o + e * H + j);
-            x_v[q][e] = __ldg(x + e * H + j);
+            for (int e = 0; e < 3; ++e) {
+              pre_v[q][e] = __ldcs(o + e * H + j);
+              x_v[q][e] = __ldg(x + e * H + j);
+            }
+            hp_v[q] = !first           ? __ldg(ys + prev + at)
+                      : h0 != nullptr  ? __ldg(h0 + size_t(d) * BH + at)
+                                       : 0.f;
+            dy_v[q] =
+                __ldg(dy + size_t(d) * T * BH + size_t(row) * BH + at);
+            m_v[q] = __ldg(mask + size_t(row) * B + b);
           }
-          hp_v[q] = first ? 0.f : __ldg(ys + prev + at);
-          dy_v[q] = __ldg(dy + size_t(d) * T * BH + size_t(row) * BH + at);
-          m_v[q] = __ldg(mask + size_t(row) * B + b);
           de_v[q] = i > 0 ? de_buf[size_t(d) * BH + at] : 0.f;
         }
         auto activations = [&]() {
 #pragma unroll
           for (int q = 0; q < QROWS; ++q)
-            if (b0 + r0 + RSTEP * q < B && j < H)
+            if (!tail && b0 + r0 + RSTEP * q < B && j < H)
               act[q] = activate(x_v[q], pre_v[q]);
         };
 
@@ -568,6 +586,10 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
               s += red[(ww * MROWS + bl) * RED_S + lu];
             carry += s;
           }
+          if (tail) {  // the first step's dh_prev
+            dh0[size_t(d) * BH + size_t(b) * H + j] = carry;
+            continue;
+          }
           float da[4];
           bptt(act[q], hp_v[q], m_v[q], carry, dy_v[q], da,
                de_buf + size_t(d) * BH + size_t(b) * H + j);
@@ -586,7 +608,8 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
         if (i > 0) __syncthreads();  // red is read: the rings are free
       }
     }
-    if (first) break;  // no dh_prev past the recurrence's start
+    // No dh_prev past the recurrence's start unless dh0 asks for it.
+    if (tail || (first && dh0 == nullptr)) break;
     if constexpr (!P::ALL) {
       // W does not wait for the barrier: issue the next step's first
       // streamed chunks for this block's first group (committed with its
@@ -604,10 +627,12 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
 // ---- The launches ----
 
 using GatesKernel = void (*)(const __nv_bfloat16*, const float*,
-                             const float*, float*, int, int, int, int);
+                             const float*, const float*, float*, int, int,
+                             int, int);
 using LoopKernel = void (*)(const __nv_bfloat16*, const float*,
                             const __nv_bfloat16*, const float*, const float*,
-                            float*, float*, float*, int, int, int, int, int);
+                            const float*, float*, float*, float*, float*,
+                            int, int, int, int, int);
 
 // Blocks of a cooperative launch of `kernel`: all resident at once, as
 // grid.sync() needs, and no more than `groups`.
@@ -635,10 +660,11 @@ inline cudaError_t coop_blocks(const void* kernel, int threads, size_t smem,
 inline cudaError_t launch(GatesKernel gates_kernel, LoopKernel loop_kernel,
                           int MU, size_t smem, bool one_each, const void* xp,
                           const float* mask, const void* w,
-                          const float* bias, const float* ys,
-                          const float* dy, float* dxp, float* dgates,
-                          float* scratch, int D, int T, int B, int H,
-                          int reverse_bits, int device, cudaStream_t stream) {
+                          const float* bias, const float* h0,
+                          const float* ys, const float* dy, float* dxp,
+                          float* dgates, float* dh0, float* scratch, int D,
+                          int T, int B, int H, int reverse_bits, int device,
+                          cudaStream_t stream) {
   const __nv_bfloat16* xp_t = static_cast<const __nv_bfloat16*>(xp);
   const __nv_bfloat16* w_t = static_cast<const __nv_bfloat16*>(w);
   const int groups = D * ((H + MU - 1) / MU);
@@ -659,12 +685,12 @@ inline cudaError_t launch(GatesKernel gates_kernel, LoopKernel loop_kernel,
   const dim3 pre_grid((3 * H + PN - 1) / PN,
                       m_tiles < 65535 ? m_tiles : 65535, D);
   gates_kernel<<<pre_grid, P_THREADS, PRE_SMEM, stream>>>(
-      w_t, bias, ys, dgates, T, B, H, reverse_bits);
+      w_t, bias, h0, ys, dgates, T, B, H, reverse_bits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  void* args[] = {&xp_t, &mask, &w_t, &ys, &dy, &dxp, &dgates,
-                  &scratch, &D, &T, &B, &H, &reverse_bits};
+  void* args[] = {&xp_t, &mask, &w_t, &h0, &ys, &dy, &dxp, &dgates,
+                  &dh0, &scratch, &D, &T, &B, &H, &reverse_bits};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(loop_kernel),
                                     dim3(blocks), dim3(M_THREADS), args,
                                     smem, stream);

@@ -11,16 +11,18 @@
 // stream. The contract is ops/gru.py gru_bwd's docstring, as for
 // csrc/gru_bwd.cu:
 //   xp [T,B,3H] and w [D,H,3H] in one dtype, bf16|f32 (the dot dtype),
-//   mask [T,B] f32, bias [D,3H] f32, ys [D,T,B,H] f32 (the forward's
-//   outputs), dy [D,T,B,H] f32, reverse bit d set for a direction whose
-//   forward ran t = T-1..0
+//   mask [T,B] f32, bias [D,3H] f32, h0 [D,B,H] f32 or NULL (zeros),
+//   ys [D,T,B,H] f32 (the forward's outputs), dy [D,T,B,H] f32, reverse
+//   bit d set for a direction whose forward ran t = T-1..0
 //   -> dxp [D,T,B,3H] f32 = (da_r, da_z, da_n) and dgates [D,T,B,3H] f32
-//      = (da_r, da_z, dg_n) at every row.
+//      = (da_r, da_z, dg_n) at every row, and dh0 [D,B,H] f32 where it is
+//      not NULL.
 // Each direction runs against its own forward order from dh = 0; a step
 // recomputes the gates from h_prev (the ys row of the forward's step
-// before, 0 at its first step) rounded to the dot dtype, applies
+// before, h0 at its first step) rounded to the dot dtype, applies
 // _gru_bwd_elt's math (rnn_pallas.py:189) with dh = carry + dy, and
-// carries dh_prev = the elementwise terms + round(dgates) @ W^T in f32.
+// carries dh_prev = the elementwise terms + round(dgates) @ W^T in f32;
+// the first step's dh_prev is dh0.
 //
 // What bounds it: two [T*B,H] x [H,3H]-sized products per direction, the
 // gate recompute and round(dgates) @ W^T (1.01 TFLOP each at ds2_full's
@@ -177,10 +179,12 @@ gru_bwd_stream_kernel(const WT* __restrict__ xp,
                       const float* __restrict__ mask,
                       const WT* __restrict__ w,
                       const float* __restrict__ bias,
+                      const float* __restrict__ h0,
                       const float* __restrict__ ys,
                       const float* __restrict__ dy, float* __restrict__ dxp,
-                      float* __restrict__ dgates, float* scratch, int D,
-                      int T, int B, int H, int reverse_bits) {
+                      float* __restrict__ dgates, float* __restrict__ dh0,
+                      float* scratch, int D, int T, int B, int H,
+                      int reverse_bits) {
   extern __shared__ __align__(16) float smem[];
   const int nblk = (H + U - 1) / U;
   const int groups = D * nblk;
@@ -199,7 +203,7 @@ gru_bwd_stream_kernel(const WT* __restrict__ xp,
   cg::grid_group grid = cg::this_grid();
 
   for (int i = 0; i < T; ++i) {
-    const bool last = i == T - 1;  // the forward's first step: h_prev = 0
+    const bool last = i == T - 1;  // the forward's first step: h_prev = h0
     WT* dgr_i = dgr + size_t(i & 1) * D * B * H3;
 
     // 1. Column phase.
@@ -212,8 +216,9 @@ gru_bwd_stream_kernel(const WT* __restrict__ xp,
       const int row = rev ? i : T - 1 - i;
       const WT* w_d = w + size_t(d) * H * H3;
       const float* ys_d = ys + size_t(d) * T * BH;
-      const float* hp =
-          last ? nullptr : ys_d + size_t(rev ? row + 1 : row - 1) * BH;
+      const float* hp = !last ? ys_d + size_t(rev ? row + 1 : row - 1) * BH
+                        : h0 != nullptr ? h0 + size_t(d) * BH
+                                        : nullptr;
       // This thread's W column when it stages W (gate wc / U, unit
       // j0 + wc % U, rows wk, wk + KR, ...) and its h_prev rows and column.
       const int wc = threadIdx.x % GC, wk = threadIdx.x / GC;
@@ -326,7 +331,8 @@ gru_bwd_stream_kernel(const WT* __restrict__ xp,
         }
       }
     }
-    if (last) break;  // no dh_prev past the recurrence's start
+    // No dh_prev past the recurrence's start unless dh0 asks for it.
+    if (last && dh0 == nullptr) break;
     grid.sync();
 
     // 2. Row phase: dh for the next step, owned units only.
@@ -395,7 +401,7 @@ gru_bwd_stream_kernel(const WT* __restrict__ xp,
           const int b = b0 + rg + q * RG;
           if (b >= B) continue;
           const size_t o_h = size_t(d) * BH + size_t(b) * H + k;
-          dh_buf[o_h] = de_buf[o_h] + acc[q];
+          (last ? dh0 : dh_buf)[o_h] = de_buf[o_h] + acc[q];
         }
       }
     }
@@ -424,22 +430,24 @@ constexpr int W_RES = 10;
 __global__ void __launch_bounds__(gru_bwd_mma::P_THREADS)
 gru_bwd_stream_gates_kernel(const __nv_bfloat16* __restrict__ w,
                             const float* __restrict__ bias,
+                            const float* __restrict__ h0,
                             const float* __restrict__ ys,
                             float* __restrict__ pre, int T, int B, int H,
                             int reverse_bits) {
-  gru_bwd_mma::gates(w, bias, ys, pre, T, B, H, reverse_bits);
+  gru_bwd_mma::gates(w, bias, h0, ys, pre, T, B, H, reverse_bits);
 }
 
 __global__ void __launch_bounds__(gru_bwd_mma::M_THREADS, 1)
 gru_bwd_stream_mma_kernel(const __nv_bfloat16* __restrict__ xp,
                           const float* __restrict__ mask,
                           const __nv_bfloat16* __restrict__ w,
+                          const float* __restrict__ h0,
                           const float* __restrict__ ys,
                           const float* __restrict__ dy,
                           float* __restrict__ dxp, float* dgates,
-                          float* scratch, int D, int T, int B, int H,
-                          int reverse_bits) {
-  gru_bwd_mma::loop<MU, MS, W_RES>(xp, mask, w, ys, dy, dxp, dgates,
+                          float* __restrict__ dh0, float* scratch, int D,
+                          int T, int B, int H, int reverse_bits) {
+  gru_bwd_mma::loop<MU, MS, W_RES>(xp, mask, w, h0, ys, dy, dxp, dgates, dh0,
                                    scratch, D, T, B, H, reverse_bits);
 }
 
@@ -447,9 +455,10 @@ gru_bwd_stream_mma_kernel(const __nv_bfloat16* __restrict__ xp,
 template <typename WT>
 cudaError_t launch_two_phase(const void* xp, const float* mask,
                              const void* w, const float* bias,
-                             const float* ys, const float* dy, float* dxp,
-                             float* dgates, float* scratch, int D, int T,
-                             int B, int H, int reverse_bits, int device,
+                             const float* h0, const float* ys,
+                             const float* dy, float* dxp, float* dgates,
+                             float* dh0, float* scratch, int D, int T, int B,
+                             int H, int reverse_bits, int device,
                              cudaStream_t stream) {
   auto* kernel = gru_bwd_stream_kernel<WT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -462,8 +471,8 @@ cudaError_t launch_two_phase(const void* xp, const float* mask,
   if (err != cudaSuccess) return err;
   const WT* xp_t = static_cast<const WT*>(xp);
   const WT* w_t = static_cast<const WT*>(w);
-  void* args[] = {&xp_t, &mask, &w_t, &bias, &ys, &dy, &dxp, &dgates,
-                  &scratch, &D, &T, &B, &H, &reverse_bits};
+  void* args[] = {&xp_t, &mask, &w_t, &bias, &h0, &ys, &dy, &dxp, &dgates,
+                  &dh0, &scratch, &D, &T, &B, &H, &reverse_bits};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                     dim3(blocks), dim3(THREADS), args,
                                     SMEM_BYTES, stream);
@@ -474,14 +483,14 @@ cudaError_t launch_two_phase(const void* xp, const float* mask,
 // The tensor-core path: the gate pre-pass into dgates, then the serial
 // loop over it.
 cudaError_t launch_mma(const void* xp, const float* mask, const void* w,
-                       const float* bias, const float* ys, const float* dy,
-                       float* dxp, float* dgates, float* scratch, int D,
-                       int T, int B, int H, int reverse_bits, int device,
-                       cudaStream_t stream) {
+                       const float* bias, const float* h0, const float* ys,
+                       const float* dy, float* dxp, float* dgates, float* dh0,
+                       float* scratch, int D, int T, int B, int H,
+                       int reverse_bits, int device, cudaStream_t stream) {
   return gru_bwd_mma::launch(
       gru_bwd_stream_gates_kernel, gru_bwd_stream_mma_kernel, MU,
       gru_bwd_mma::Plan<MU, MS, W_RES>::smem(H), false, xp, mask, w, bias,
-      ys, dy, dxp, dgates, scratch, D, T, B, H, reverse_bits, device,
+      h0, ys, dy, dxp, dgates, dh0, scratch, D, T, B, H, reverse_bits, device,
       stream);
 }
 
@@ -505,10 +514,11 @@ long long gru_bwd_stream_scratch_floats(int D, int B, int H) {
 // The calling thread's current device is the same after the call as
 // before it.
 int gru_bwd_stream_launch(int bf16, const void* xp, const float* mask,
-                          const void* w, const float* bias, const float* ys,
-                          const float* dy, float* dxp, float* dgates,
-                          float* scratch, int D, int T, int B, int H,
-                          int reverse_bits, int device, void* stream) {
+                          const void* w, const float* bias, const float* h0,
+                          const float* ys, const float* dy, float* dxp,
+                          float* dgates, float* dh0, float* scratch, int D,
+                          int T, int B, int H, int reverse_bits, int device,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -517,18 +527,19 @@ int gru_bwd_stream_launch(int bf16, const void* xp, const float* mask,
   if (err != cudaSuccess) return err;
   const bool mma = bf16 && H % 8 == 0 && gru_bwd_mma::aligned16(w) &&
                    gru_bwd_mma::aligned16(ys) &&
+                   gru_bwd_mma::aligned16(h0) &&
                    gru_bwd_mma::aligned16(scratch);
   if (mma)
-    err = launch_mma(xp, mask, w, bias, ys, dy, dxp, dgates, scratch, D, T,
-                     B, H, reverse_bits, device, st);
+    err = launch_mma(xp, mask, w, bias, h0, ys, dy, dxp, dgates, dh0, scratch,
+                     D, T, B, H, reverse_bits, device, st);
   else if (bf16)
-    err = launch_two_phase<__nv_bfloat16>(xp, mask, w, bias, ys, dy, dxp,
-                                          dgates, scratch, D, T, B, H,
+    err = launch_two_phase<__nv_bfloat16>(xp, mask, w, bias, h0, ys, dy, dxp,
+                                          dgates, dh0, scratch, D, T, B, H,
                                           reverse_bits, device, st);
   else
-    err = launch_two_phase<float>(xp, mask, w, bias, ys, dy, dxp, dgates,
-                                  scratch, D, T, B, H, reverse_bits, device,
-                                  st);
+    err = launch_two_phase<float>(xp, mask, w, bias, h0, ys, dy, dxp, dgates,
+                                  dh0, scratch, D, T, B, H, reverse_bits,
+                                  device, st);
   const cudaError_t restore = cudaSetDevice(prev);
   return err != cudaSuccess ? err : restore;
 }

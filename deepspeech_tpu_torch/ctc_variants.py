@@ -41,6 +41,7 @@ and ``--batch=N`` its first N utterances.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -131,7 +132,7 @@ TIMING_ONLY: Dict[str, List[Tuple[str, str]]] = {
          "        ring_a[j][r] = ab[ahead * S + sc[r]];",
          "        ring_lp[j][r] = lt[r];\n        ring_a[j][r] = at[r];")],
     "no_stores": [
-        ("      if (TAPE && t > 1 && t - 1 < T) {", "      if (false) {"),
+        ("      if (TAPE && t > start && t - 1 < T) {", "      if (false) {"),
         ("      if (t + 1 >= 0 && t + 1 <= len - 2) gamma_row(",
          "      if (false) gamma_row(")],
 }
@@ -231,11 +232,65 @@ def operands(logits, labels, lens, lab_lens, pad: int = 0):
     return lp, ext, skip, il, sl
 
 
-def outputs(prep) -> Tuple[torch.Tensor, ...]:
-    """(ll, tape, gamma, loss-only ll) through the loaded library."""
-    ll, tape = ctc.ctc_alpha(*prep, tape=True)
-    gamma = ctc.ctc_beta(*prep, tape, ll)
-    ll_lo, _ = ctc.ctc_alpha(*prep, tape=False)
+def _wrappers():
+    return ctc.ctc_alpha, ctc.ctc_beta
+
+
+def parent_calls(path: str):
+    """``(alpha, beta)`` calls of another tree's ``csrc/ctc.cu``
+    (``path``), loaded into ``_build._loaded["ctc"]`` when they are
+    called, with the arguments ``ctc.ctc_alpha(*prep, tape=...)`` and
+    ``ctc.ctc_beta(*prep, tape, ll)`` take: those wrappers where that
+    tree's entries take the carried band, as this tree's do, else
+    launches with the arguments its older entries take (no ``alpha0``,
+    ``c_in``, ``c_out`` or ``t_off``)."""
+    with open(path) as f:
+        text = f.read()
+    entry = text[text.index("int ctc_alpha_launch("):]
+    if "alpha0" in entry[:entry.index(")")]:
+        return _wrappers()
+    p, i = ctypes.c_void_p, ctypes.c_int
+
+    def typed(name, n_ptrs):
+        fn = _build.load(SOURCE)[name]  # a function object of its own
+        fn.argtypes, fn.restype = [p] * n_ptrs + [i] * 5 + [p], i
+        return fn
+
+    def stream(x):
+        return x.device.index, torch.cuda.current_stream(x.device).cuda_stream
+
+    def alpha(lp, ext, skip, lens, s_last, tape: bool):
+        b, t, _ = lp.shape
+        ll = torch.empty((b,), dtype=torch.float32, device=lp.device)
+        out = (torch.empty((b, t, ext.shape[1]), dtype=torch.float32,
+                           device=lp.device) if tape else None)
+        rc = typed("ctc_alpha_launch", 7)(
+            *(x.data_ptr() for x in (lp, ext, skip, lens, s_last)),
+            out.data_ptr() if tape else None, ll.data_ptr(), *lp.shape,
+            ext.shape[1], *stream(lp))
+        if rc:
+            raise RuntimeError(f"parent ctc_alpha launch failed: {rc}")
+        return ll, out
+
+    def beta(lp, ext, skip, lens, s_last, tape, ll):
+        gamma = torch.empty_like(tape)
+        rc = typed("ctc_beta_launch", 8)(
+            *(x.data_ptr() for x in (lp, ext, skip, lens, s_last, tape, ll,
+                                     gamma)),
+            *lp.shape, ext.shape[1], *stream(lp))
+        if rc:
+            raise RuntimeError(f"parent ctc_beta launch failed: {rc}")
+        return gamma
+    return alpha, beta
+
+
+def outputs(prep, calls=None) -> Tuple[torch.Tensor, ...]:
+    """(ll, tape, gamma, loss-only ll) through the loaded library, by
+    ``calls`` (``parent_calls``' pair; the wrappers when None)."""
+    alpha, beta = calls or _wrappers()
+    ll, tape = alpha(*prep, tape=True)
+    gamma = beta(*prep, tape, ll)
+    ll_lo, _ = alpha(*prep, tape=False)
     return ll, tape, gamma, ll_lo
 
 
@@ -248,7 +303,8 @@ def _same(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def _held(names, libs, prep, plain, consts, sm) -> Tuple[dict, dict]:
+def _held(names, libs, prep, plain, consts, sm, calls=None
+          ) -> Tuple[dict, dict]:
     """Each build's errors against the plain versions ``plain`` (ll,
     tape, gamma) and its plan; raises unless it gives the first build's
     bits, twice, within TOL, with the loss-only ll equal to the taped
@@ -258,7 +314,8 @@ def _held(names, libs, prep, plain, consts, sm) -> Tuple[dict, dict]:
     plans, errs, ref = {}, {}, None
     for name in names:
         _build._loaded[SOURCE] = libs[name]
-        got, again = outputs(prep), outputs(prep)
+        pair = (calls or {}).get(name)
+        got, again = outputs(prep, pair), outputs(prep, pair)
         torch.cuda.synchronize()
         errs[name] = {"loglik": _rel(got[0], ll_p),
                       "tape": _rel(got[1], tape_p),
@@ -308,6 +365,7 @@ def main(argv=None) -> None:
               if args.parent else {})
     libs, ptxas = build_variants(SOURCE, subs, "ctc_variants", copies,
                                  entry="ctc_")
+    calls = {n: parent_calls(path) for n, path in copies.items()}
     sm = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
     logits, labels, lens, lab_lens = batch(gen)
@@ -322,7 +380,8 @@ def main(argv=None) -> None:
     s = prep[1].shape[1]
     ll_p, tape_p = ctc.ctc_alpha_plain(*prep, tape=True)
     plain = (ll_p, tape_p, ctc.ctc_beta_plain(*prep, tape_p, ll_p))
-    plans, errs = _held([*copies, *consts], libs, prep, plain, consts, sm)
+    plans, errs = _held([*copies, *consts], libs, prep, plain, consts, sm,
+                        calls)
     del plain, ll_p, tape_p
     shapes = {}
     if args.parent:
@@ -331,7 +390,7 @@ def main(argv=None) -> None:
             a_p, t_p = ctc.ctc_alpha_plain(*p, tape=True)
             shape_plans, shape_errs = _held(
                 ["parent", "as_built"], libs, p,
-                (a_p, t_p, ctc.ctc_beta_plain(*p, t_p, a_p)), {}, sm)
+                (a_p, t_p, ctc.ctc_beta_plain(*p, t_p, a_p)), {}, sm, calls)
             shapes[name] = {"plan": shape_plans["as_built"],
                             "max_err": shape_errs}
             del p, a_p, t_p
@@ -351,13 +410,12 @@ def main(argv=None) -> None:
             runs[name].append({"fwd_bwd": _time_ms(torch_fwd_bwd, args.reps)})
             continue
         _build._loaded[SOURCE] = libs[name]
+        alpha, beta = calls.get(name) or _wrappers()
         runs[name].append({
-            "alpha": _time_ms(lambda: ctc.ctc_alpha(*prep, tape=True),
-                              args.reps),
-            "loss_only": _time_ms(lambda: ctc.ctc_alpha(*prep, tape=False),
+            "alpha": _time_ms(lambda: alpha(*prep, tape=True), args.reps),
+            "loss_only": _time_ms(lambda: alpha(*prep, tape=False),
                                   args.reps),
-            "beta": _time_ms(lambda: ctc.ctc_beta(*prep, tape, ll),
-                             args.reps)})
+            "beta": _time_ms(lambda: beta(*prep, tape, ll), args.reps)})
     _build._loaded[SOURCE] = libs["as_built"]
     ns = {n: {k: 1e6 * sum(r[k] for r in rs) / len(rs) / T for k in rs[0]}
           for n, rs in runs.items()}

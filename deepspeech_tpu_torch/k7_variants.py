@@ -12,8 +12,9 @@ with ``--parent=PATH`` (another tree's ``deepspeech_tpu_torch/csrc``
 directory) that tree's ``gru_bwd.cu`` and ``gru_bwd_stream.cu`` as they
 are. Each K5/K7 build is held to ``gru_bwd_plain`` at ds2_small's shape
 (D=2, T'=850, B=32, H=800, bf16, ragged lengths) and at ds2_streaming's
-(D=1), within ``TOL`` and the same bits twice, then timed with CUDA
-events at both D, two turns each in the order parent, as built, the
+(D=1), within ``TOL`` and the same bits twice, and with a parent the
+source as built must give the parent's bits at both D (no carry: the C
+entry's NULL ``h0`` and ``dh0``), then timed with CUDA events at both D, two turns each in the order parent, as built, the
 others, and then reversed, with one call split by kernel (the gate
 pre-pass, the loop) by ``torch.profiler``. With a parent, K9 (this
 tree's ``gru_bwd_stream.cu``, whose loop is the header's with part of W
@@ -34,7 +35,6 @@ shows that the comparison would see such a fault.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
 import os
@@ -163,32 +163,32 @@ def _inputs(gen, d: int, t: int = 850, b: int = 32, h: int = 800):
     return xp, mask, w, bias, ys, dy, reverse
 
 
-def _parent_call(lib: ctypes.CDLL):
-    """``gru_bwd`` through another tree's ``gru_bwd.cu`` as it is: its C
-    entry point with the scratch its ``gru_bwd_scratch_floats`` asks for
-    (a tree before the tensor-core path has only that one)."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    size = lib.gru_bwd_scratch_floats
-    size.argtypes, size.restype = [i, i, i], ctypes.c_longlong
-    launch = lib.gru_bwd_launch
-    launch.argtypes = [i, *[p] * 9, i, i, i, i, i, i, p]
-    launch.restype = i
+def parent_call(source: str, path: str):
+    """``gru.<source>`` (``gru_bwd``: K5/K7, or ``gru_bwd_stream``: K9)
+    through another tree's ``csrc/<source>.cu`` (``path``), loaded into
+    ``_build._loaded[source]`` when it is called: the wrapper itself where
+    that tree's C entry takes ``h0``, as this tree's does, else a launch
+    with the pointers its older entry takes, ``(bias, ys, dy, dxp,
+    dgates, scratch)``, and the scratch its ``<source>_scratch_floats``
+    asks for (enough for either of its paths)."""
+    with open(path) as f:
+        text = f.read()
+    entry = text[text.index(f"int {source}_launch("):]
+    entry = entry[:entry.index(")")]
+    if "h0" in entry:
+        return getattr(gru, source)
 
     def call(xp, mask, w, bias, ys, dy, reverse):
-        t, bsz, _ = xp.shape
-        d, h = w.shape[0], w.shape[1]
+        d, t, bsz, h = w.shape[0], xp.shape[0], xp.shape[1], w.shape[1]
         dxp = torch.empty((d, t, bsz, 3 * h), dtype=torch.float32,
                           device=xp.device)
         dgates = torch.empty_like(dxp)
-        scratch = torch.empty((size(d, bsz, h),), dtype=torch.float32,
+        floats = getattr(gru._lib(source), f"{source}_scratch_floats")(
+            d, bsz, h)
+        scratch = torch.empty((floats,), dtype=torch.float32,
                               device=xp.device)
-        rc = launch(int(xp.dtype == torch.bfloat16), *(
-            x.data_ptr() for x in (xp, mask, w, bias, ys, dy, dxp, dgates,
-                                   scratch)),
-            d, t, bsz, h, sum(1 << k for k, r in enumerate(reverse) if r),
-            xp.device.index, torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"parent gru_bwd launch failed: {rc}")
+        gru._launch(source, xp, mask, w,
+                    (bias, ys, dy, dxp, dgates, scratch), reverse)
         return dxp, dgates
     return call
 
@@ -205,10 +205,11 @@ def _k9(parent: str, reps: int, gen) -> dict:
     """K9 as built here and the parent's: the same bits at H=1760 and at
     H=800 (D=2), and ms a call at H=1760 in turns (parent, this tree,
     this tree, parent)."""
-    libs, ptxas = build_variants(
-        "gru_bwd_stream", {"as_built": []}, "k7_variants_k9",
-        {"parent": os.path.join(parent, "gru_bwd_stream.cu")})
-    fn = gru.gru_bwd_stream
+    path = os.path.join(parent, "gru_bwd_stream.cu")
+    libs, ptxas = build_variants("gru_bwd_stream", {"as_built": []},
+                                 "k7_variants_k9", {"parent": path})
+    calls = {"parent": parent_call("gru_bwd_stream", path),
+             "as_built": gru.gru_bwd_stream}
     out = {"ptxas": ptxas, "same_bits": {}, "ms": {"parent": [],
                                                     "as_built": []}}
     for h in (1760, 800):
@@ -216,12 +217,13 @@ def _k9(parent: str, reps: int, gen) -> dict:
         got = {}
         for name in ("parent", "as_built"):
             _build._loaded["gru_bwd_stream"] = libs[name]
-            got[name] = fn(*args)
+            got[name] = calls[name](*args)
         out["same_bits"][h] = _same(got["parent"], got["as_built"])
         if h == 1760:
             for name in ("parent", "as_built", "as_built", "parent"):
                 _build._loaded["gru_bwd_stream"] = libs[name]
-                out["ms"][name].append(_time_ms(lambda: fn(*args), reps))
+                out["ms"][name].append(_time_ms(lambda: calls[name](*args),
+                                                reps))
         del args, got
     _build._loaded["gru_bwd_stream"] = libs["as_built"]
     out["ms_ratio"] = sum(out["ms"]["as_built"]) / sum(out["ms"]["parent"])
@@ -253,18 +255,20 @@ def main(argv=None) -> None:
     libs, ptxas = build_variants(SOURCE, builds, "k7_variants", copies)
     calls = {name: gru.gru_bwd for name in libs}
     if args.parent:
-        calls["parent"] = _parent_call(libs["parent"])
+        calls["parent"] = parent_call(SOURCE, copies["parent"])
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = {d: _inputs(gen, d) for d in (2, 1)}
     refs = {d: gru.gru_bwd_plain(*inputs[d]) for d in (2, 1)}
     plain_max = {f"D{d}": float(refs[d][1].abs().max()) for d in refs}
-    checks = {}
+    checks, held = {}, {}
     for name, lib in libs.items():
         _build._loaded[SOURCE] = lib
         for d in (2, 1):
             got, again = calls[name](*inputs[d]), calls[name](*inputs[d])
             err = _err(got, refs[d])
             checks[f"{name}[D={d}]"] = err
+            if args.parent and name in ("parent", "as_built"):
+                held[name, d] = got
             if name in ablations:
                 if name in MUST_FAIL and err <= TOL:
                     raise RuntimeError(
@@ -276,7 +280,11 @@ def main(argv=None) -> None:
                 raise RuntimeError(f"variant {name} D={d}: max |kernel - "
                                    f"plain| {err}, bit-identical {same}")
             del got, again
-    del refs
+    parent_bits = ({f"D{d}": _same(held["parent", d], held["as_built", d])
+                    for d in (2, 1)} if args.parent else {})
+    del refs, held
+    if not all(parent_bits.values()):
+        raise RuntimeError(f"K5/K7 differ from the parent's: {parent_bits}")
     names = [*copies, *VARIANTS, *ablations]
     runs: Dict[str, list] = {n: [] for n in names}
     for name in names + names[::-1]:
@@ -301,7 +309,8 @@ def main(argv=None) -> None:
                                 "dtype": "bfloat16"},
                       "built": built, "plan": plans, "tol": TOL,
                       "max_abs_plain": plain_max, "max_abs_err": checks,
-                      "ptxas": ptxas, "variants": runs, "k9": k9}))
+                      "parent_bits": parent_bits, "ptxas": ptxas,
+                      "variants": runs, "k9": k9}))
 
 
 if __name__ == "__main__":

@@ -30,6 +30,7 @@ import torch
 
 from .k14_variants import _sub, build_variants
 from .k15_ablation import _split_ms, _time_ms
+from .k7_variants import parent_call
 from .ops import _build, gru
 
 
@@ -79,13 +80,16 @@ def main(argv=None) -> None:
     copies = {"parent": args.parent} if args.parent else {}
     libs, ptxas = build_variants("gru_bwd_stream", VARIANTS, "k9_variants",
                                  copies)
+    calls = {name: gru.gru_bwd_stream for name in libs}
+    if args.parent:
+        calls["parent"] = parent_call("gru_bwd_stream", args.parent)
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = _inputs(gen)
     ref = gru.gru_bwd_plain(*inputs)
     checks = {}
     for name, lib in libs.items():
         _build._loaded["gru_bwd_stream"] = lib
-        got, again = gru.gru_bwd_stream(*inputs), gru.gru_bwd_stream(*inputs)
+        got, again = calls[name](*inputs), calls[name](*inputs)
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         same = all(torch.equal(g, a) for g, a in zip(got, again))
         if err > 3e-2 or not same:
@@ -98,8 +102,8 @@ def main(argv=None) -> None:
     for name in names + names[::-1]:
         _build._loaded["gru_bwd_stream"] = libs[name]
         runs[name].append({
-            "ms": _time_ms(lambda: gru.gru_bwd_stream(*inputs), args.reps),
-            "kernels_ms": _split_ms(lambda: gru.gru_bwd_stream(*inputs),
+            "ms": _time_ms(lambda: calls[name](*inputs), args.reps),
+            "kernels_ms": _split_ms(lambda: calls[name](*inputs),
                                     "gru_bwd_stream")})
     _build._loaded["gru_bwd_stream"] = libs["as_built"]
     card = subprocess.run(

@@ -43,29 +43,50 @@ def length_mask(lens: torch.Tensor, t_max: int) -> torch.Tensor:
             < lens[:, None]).float()
 
 
-def masked_bn_stats(x32: torch.Tensor, mask: Optional[torch.Tensor],
-                    group=None):
+def _over_shards(parts, device: torch.device) -> torch.Tensor:
+    """The shards' partial sums added on ``device`` in shard order (the
+    one shard's as it is)."""
+    total = parts[0].to(device)
+    for p in parts[1:]:
+        total = total + p.to(device)
+    return total
+
+
+def masked_bn_stats(x32, mask, group=None):
     """Mask-weighted (mean, biased var) over all axes but the last.
 
     ``x32`` is float32 ``[B, T, ..., C]``; ``mask`` is [B, T] or None
     for all-valid. ``group`` (a data-parallel process group) takes the
     statistics over every rank's rows (module docstring); None computes
-    on this rank's rows alone, with no collective.
+    on this rank's rows alone, with no collective. ``x32`` and ``mask``
+    may also be lists, one entry a time shard of the same rows, each on
+    its device (the sequence-parallel train step, ``parallel/seqpar.py``):
+    each shard's partial sums are added on the first shard's device in
+    shard order, the mean copied back for the second pass, and the
+    statistics returned there. Every copy is autograd's, so the gradient
+    of each shard's input flows through the statistics.
     """
-    if mask is None:
-        w = torch.ones(x32.shape[:-1], dtype=torch.float32,
-                       device=x32.device)
-    else:
-        w = mask.reshape(mask.shape + (1,) * (x32.dim() - 3)).expand(
-            x32.shape[:-1])
-    dims = tuple(range(x32.dim() - 1))
-    wexp = w[..., None]
+    xs, masks = ((x32, mask) if isinstance(x32, (list, tuple))
+                 else ([x32], [mask]))
+    home = xs[0].device
+    ws = []
+    for x, m in zip(xs, masks):
+        if m is None:
+            ws.append(torch.ones(x.shape[:-1], dtype=torch.float32,
+                                 device=x.device))
+        else:
+            ws.append(m.reshape(m.shape + (1,) * (x.dim() - 3)).expand(
+                x.shape[:-1]))
+    dims = tuple(range(xs[0].dim() - 1))
     # Σw and Σw·x in one all-reduce (none without a group).
-    sums = all_reduce_sum(torch.cat([w.sum().reshape(1),
-                                     (x32 * wexp).sum(dims)]), group)
+    sums = all_reduce_sum(_over_shards(
+        [torch.cat([w.sum().reshape(1), (x * w[..., None]).sum(dims)])
+         for x, w in zip(xs, ws)], home), group)
     denom = torch.clamp(sums[0], min=1.0)
     mean = sums[1:] / denom
-    var = all_reduce_sum((wexp * (x32 - mean) ** 2).sum(dims), group) / denom
+    var = all_reduce_sum(_over_shards(
+        [(w[..., None] * (x - mean.to(x.device)) ** 2).sum(dims)
+         for x, w in zip(xs, ws)], home), group) / denom
     return mean, var
 
 
@@ -105,14 +126,19 @@ class MaskedBatchNorm(nn.Module):
         x32 = x.float()
         if self.training:
             mean, var = masked_bn_stats(x32, mask, self.group)
-            with torch.no_grad():
-                self.mean.mul_(self.momentum).add_(
-                    (1 - self.momentum) * mean)
-                self.var.mul_(self.momentum).add_((1 - self.momentum) * var)
+            self.update(mean, var)
         else:
             mean, var = self.mean, self.var
         return normalize(x32, mean, var, self.scale, self.bias,
                          self.eps).to(x.dtype)
+
+    @torch.no_grad()
+    def update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """The running statistics' momentum update with a batch's
+        ``(mean, var)``: ``running = momentum * running + (1 - momentum)
+        * batch``."""
+        self.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+        self.var.mul_(self.momentum).add_((1 - self.momentum) * var)
 
     def running(self, x: torch.Tensor) -> torch.Tensor:
         """The eval-mode forward in any mode: the running statistics

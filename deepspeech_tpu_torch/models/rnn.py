@@ -27,7 +27,8 @@ run it; ``chunk_recurrence`` is one direction of its recurrence over a
 chunk of frames from a carried state, with the final state out, the call
 the sequence-parallel relay (``parallel/seqpar.py``) makes on each shard:
 ``gru_fwd`` (K6, or K8 at a streamed width) or ``lstm_fwd`` (K12, or
-K14) at D=1.
+K14) at D=1, and under a gradient ``GRUFunction`` at D=1 with the carry
+as its ``h0`` (its backward K7, or K9, with ``h0`` and ``dh0``).
 
 A quantized layer (``quantized=True``, inference only) holds ``wh_*``
 int8 with their per-column scales and calls ``ops/gru.py``'s
@@ -62,6 +63,12 @@ from .layers import (Dense, MaskedBatchNorm, QWeight, dense, length_mask,
                      weight)
 
 _N_GATES = {"gru": 3, "lstm": 4}
+# Sequence-parallel training with LSTM cells needs the LSTM backward's
+# carry, which a later item of the port brings.
+LSTM_CARRY_LATER = ("sequence-parallel training of an LSTM model (a carried "
+                    "(h0, c0) through LSTMFunction, K13/K15 with (dh0, dc0)) "
+                    "comes with item 14b-ii of the port; GRU models train "
+                    "sequence-parallel")
 
 
 def gru_scan(xproj: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor,
@@ -183,9 +190,10 @@ def layer_body(cfg: ModelConfig, x: torch.Tensor, mask: torch.Tensor,
 
 def chunk_recurrence(cfg: ModelConfig, xp_t: torch.Tensor,
                      mask_t: torch.Tensor, w_h: torch.Tensor,
-                     b_h: torch.Tensor, reverse: bool, carry=None):
+                     b_h: torch.Tensor, reverse: bool, carry=None,
+                     grad: bool = False):
     """One direction of a layer over a chunk of frames, from a carried
-    state, without a gradient: the sequence-parallel relay's call.
+    state: the sequence-parallel relay's call.
 
     ``xp_t [T,B,GH]`` in the model dtype (the input projection of this
     chunk's frames, time-major), ``mask_t [T,B]`` f32, ``w_h [H,GH]``,
@@ -195,7 +203,21 @@ def chunk_recurrence(cfg: ModelConfig, xp_t: torch.Tensor,
     [T,B,H] f32, the carry after the chunk's last step)``. One D=1 call
     of ``gru_fwd`` or ``lstm_fwd``, which launch their kernels on a CUDA
     tensor; with no carry in, the kernel starts from zeros (a NULL
-    ``h0``)."""
+    ``h0``).
+
+    ``grad`` (the sequence-parallel train step) makes the GRU's call
+    through ``GRUFunction`` with the carry as its ``h0``, so the backward
+    hands ``dh0`` to the shard before; the carry out is ``ys`` at the
+    scan's last row (a masked frame holds h), so the gradient on it
+    reaches the backward through ``ys``. An LSTM has no such call yet
+    (``LSTMFunction`` takes no carry)."""
+    if grad:
+        if cfg.rnn_type != "gru":
+            raise NotImplementedError(LSTM_CARRY_LATER)
+        ys = GRUFunction.apply(
+            xp_t, mask_t, w_h[None], b_h.float()[None],
+            None if carry is None else carry[None], (reverse,))[0]
+        return ys, ys[0 if reverse else -1]
     w = w_h.to(xp_t.dtype)[None].contiguous()
     b = b_h.float()[None].contiguous()
     if cfg.rnn_type == "gru":

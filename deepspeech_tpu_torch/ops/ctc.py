@@ -18,6 +18,11 @@ The port's counterpart of two JAX modules:
 alpha kernel with its tape and the beta kernel when a gradient is
 needed, and forms ``dlogits`` there (as ``_ctc_pallas_fwd`` does), and
 runs the alpha kernel alone when none is (the eval loss).
+``sp_ctc_loss`` is the sequence-parallel loss's (JAX ``seqpar.py``
+``_ctc_alpha_relay``): the same over logits cut along time into shards,
+each on its device; the kernels run a shard's chunk of the recursion and
+carry the ``[B, S]`` band across shards (``ctc_alpha``'s ``alpha0``,
+``ctc_beta``'s ``c_in``/``c_out``), with the unchunked call's bits.
 
 Conventions follow the JAX package: blank = 0; logits in, log-softmax
 inside; per-utterance negative log-likelihood ``[B]``. The extended
@@ -222,7 +227,7 @@ def _lse3(a, b, c):
 
 
 def _check(log_probs, ext, skip, input_lens, s_last, alphas=None,
-           loglik=None) -> None:
+           loglik=None, **bands) -> None:
     if log_probs.dim() != 3 or log_probs.dtype != torch.float32:
         raise ValueError(f"log_probs must be f32 [B,T,V]; got "
                          f"{log_probs.dtype} {list(log_probs.shape)}")
@@ -239,6 +244,9 @@ def _check(log_probs, ext, skip, input_lens, s_last, alphas=None,
     if alphas is not None:
         want["alphas"] = (alphas, torch.float32, (b, t, s))
         want["loglik"] = (loglik, torch.float32, (b,))
+    for name, x in bands.items():
+        if x is not None:
+            want[name] = (x, torch.float32, (b, s))
     for name, (x, dtype, shape) in want.items():
         if x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {dtype} {list(shape)}; got "
@@ -255,24 +263,39 @@ def _check(log_probs, ext, skip, input_lens, s_last, alphas=None,
                          f"{log_probs.device}")
 
 
-def ctc_alpha_plain(log_probs, ext, skip, input_lens, s_last, tape: bool
+def _check_offset(t_off: int, no_band: bool = False) -> None:
+    """A chunk's offset: >= 0, and for alpha past frame 0 only with the
+    band the chunk before handed over (``no_band``: none was given; the
+    recursion starts at frame 0)."""
+    if t_off < 0 or (t_off > 0 and no_band):
+        raise ValueError(f"t_off={t_off}: must be >= 0, and an alpha chunk "
+                         "past frame 0 needs the carried alpha0")
+
+
+def ctc_alpha_plain(log_probs, ext, skip, input_lens, s_last, tape: bool,
+                    alpha0: Optional[torch.Tensor] = None, t_off: int = 0
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The plain PyTorch version of ``ctc_alpha``: the same recursion as
     the kernel, as an eager loop over T with ``[B, S]`` tensors."""
+    _check_offset(t_off, alpha0 is None)
     t_max = log_probs.shape[1]
     lp_ext = _gather_ext(log_probs, ext)
     s_idx = torch.arange(ext.shape[1], device=ext.device)[None, :]
     valid = s_idx <= s_last[:, None]
     neg = torch.full_like(lp_ext[:, 0], NEG)
-    first = (s_idx == 0) | ((s_idx == 1) & (s_last[:, None] > 0))
-    alpha = torch.where(first & valid, lp_ext[:, 0], neg)
-    alphas = [alpha]
-    for t in range(1, t_max):
+    if alpha0 is None:
+        first = (s_idx == 0) | ((s_idx == 1) & (s_last[:, None] > 0))
+        alpha = torch.where(first & valid, lp_ext[:, 0], neg)
+        alphas, start = [alpha], 1
+    else:
+        alpha = torch.where(valid, alpha0, neg)
+        alphas, start = [], 0
+    for t in range(start, t_max):
         step1 = _shift_right(alpha, 1, NEG)
         step2 = torch.where(skip, _shift_right(alpha, 2, NEG), neg)
         new = torch.where(valid, lp_ext[:, t] + _lse3(alpha, step1, step2),
                           neg)
-        alpha = torch.where((t < input_lens)[:, None], new, alpha)
+        alpha = torch.where((t_off + t < input_lens)[:, None], new, alpha)
         if tape:
             alphas.append(alpha)
     sl = s_last.long()[:, None]
@@ -283,8 +306,10 @@ def ctc_alpha_plain(log_probs, ext, skip, input_lens, s_last, tape: bool
 
 
 def ctc_beta_plain(log_probs, ext, skip, input_lens, s_last, alphas,
-                   loglik) -> torch.Tensor:
+                   loglik, c_in: Optional[torch.Tensor] = None,
+                   t_off: int = 0, return_carry: bool = False):
     """The plain PyTorch version of ``ctc_beta``."""
+    _check_offset(t_off)
     t_max = log_probs.shape[1]
     lp_ext = _gather_ext(log_probs, ext)
     s_idx = torch.arange(ext.shape[1], device=ext.device)[None, :]
@@ -295,27 +320,33 @@ def ctc_beta_plain(log_probs, ext, skip, input_lens, s_last, alphas,
                            torch.zeros_like(neg), neg)
     skip_fwd = _shift_left(skip, 2, False)
     gamma = torch.empty_like(lp_ext)
+    lens = input_lens - t_off  # the rows' lengths in local frames
+    # c = beta + lp at the frame after the chunk's last: none, or c_in.
+    c = None if c_in is None else torch.where(valid, c_in, neg)
     beta = terminal
     for t in range(t_max - 1, -1, -1):
-        if t < t_max - 1:
-            c = beta + lp_ext[:, t + 1]
+        if c is not None:
             step2 = torch.where(skip_fwd, _shift_left(c, 2, NEG), neg)
             rec = torch.where(valid, _lse3(c, _shift_left(c, 1, NEG), step2),
                               neg)
-            beta = torch.where((t >= input_lens - 1)[:, None], terminal, rec)
+            beta = torch.where((t >= lens - 1)[:, None], terminal, rec)
         occ = torch.exp(torch.clamp(alphas[:, t] + beta - loglik[:, None],
                                     max=0.0))
-        keep = valid & (t < input_lens)[:, None]
+        keep = valid & (t < lens)[:, None]
         gamma[:, t] = torch.where(keep, occ, torch.zeros_like(occ))
-    return gamma
+        c = torch.where(valid, beta + lp_ext[:, t], neg)
+    if not return_carry:
+        return gamma
+    # c at frame 0 for the chunk before; NEG where the row ended earlier.
+    return gamma, torch.where((lens > 0)[:, None], c, neg)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ctc")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ctc_alpha_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.ctc_alpha_launch.argtypes = [p] * 8 + [i] * 6 + [p]
     lib.ctc_alpha_launch.restype = i
-    lib.ctc_beta_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.ctc_beta_launch.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.ctc_beta_launch.restype = i
     lib.ctc_error_string.argtypes = [i]
     lib.ctc_error_string.restype = ctypes.c_char_p
@@ -350,7 +381,8 @@ def ctc_plan(b: int, s: int, device: torch.device) -> dict:
 
 def ctc_alpha(log_probs: torch.Tensor, ext: torch.Tensor,
               skip: torch.Tensor, input_lens: torch.Tensor,
-              s_last: torch.Tensor, tape: bool
+              s_last: torch.Tensor, tape: bool,
+              alpha0: Optional[torch.Tensor] = None, t_off: int = 0
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The CTC alpha recursion.
 
@@ -363,14 +395,23 @@ def ctc_alpha(log_probs: torch.Tensor, ext: torch.Tensor,
     ``tape`` (K1), none otherwise (K3). Frames at or past ``input_len``
     hold alpha.
 
+    A chunk of a longer recursion (``sp_ctc_loss``) passes its frames'
+    log-probs, the global ``input_lens``, its first frame's global index
+    ``t_off`` and ``alpha0 [B,S]`` f32, the band after the chunk before:
+    local frame 0 is then a step from it. The band after this chunk is
+    the tape's last row (``alphas[:, -1]``), and ``loglik`` is the
+    recursion's only from its last chunk. ``alpha0=None`` with
+    ``t_off=0`` is the unchunked recursion; the chunks give its bits.
+
     A CPU tensor runs ``ctc_alpha_plain``; a CUDA tensor launches
     ``csrc/ctc.cu`` or raises. ``ctc_alpha.launches`` counts every
     launch, ``ctc_alpha.loss_only_launches`` those without a tape.
     """
-    _check(log_probs, ext, skip, input_lens, s_last)
+    _check(log_probs, ext, skip, input_lens, s_last, alpha0=alpha0)
+    _check_offset(t_off, alpha0 is None)
     if log_probs.device.type == "cpu":
         return ctc_alpha_plain(log_probs, ext, skip, input_lens, s_last,
-                               tape)
+                               tape, alpha0, t_off)
     b, t, v = log_probs.shape
     s = ext.shape[1]
     if b == 0 or t == 0:
@@ -383,8 +424,9 @@ def ctc_alpha(log_probs: torch.Tensor, ext: torch.Tensor,
     rc = lib.ctc_alpha_launch(
         log_probs.data_ptr(), ext.data_ptr(), skip.data_ptr(),
         input_lens.data_ptr(), s_last.data_ptr(),
+        None if alpha0 is None else alpha0.data_ptr(),
         alphas.data_ptr() if tape else None, loglik.data_ptr(), b, t, v, s,
-        log_probs.device.index,
+        t_off, log_probs.device.index,
         torch.cuda.current_stream(log_probs.device).cuda_stream)
     _raise_on(lib, rc, f"ctc_alpha (B={b}, T={t}, V={v}, S={s})")
     ctc_alpha.launches += 1
@@ -398,7 +440,9 @@ ctc_alpha.loss_only_launches = 0
 
 def ctc_beta(log_probs: torch.Tensor, ext: torch.Tensor, skip: torch.Tensor,
              input_lens: torch.Tensor, s_last: torch.Tensor,
-             alphas: torch.Tensor, loglik: torch.Tensor) -> torch.Tensor:
+             alphas: torch.Tensor, loglik: torch.Tensor,
+             c_in: Optional[torch.Tensor] = None, t_off: int = 0,
+             return_carry: bool = False):
     """The CTC beta recursion and the state occupancy.
 
     Inputs as ``ctc_alpha``'s, plus its tape ``alphas [B,T,S]`` and
@@ -408,30 +452,46 @@ def ctc_beta(log_probs: torch.Tensor, ext: torch.Tensor, skip: torch.Tensor,
     ``exp(min(alpha + beta - loglik, 0))``, zero at invalid states and
     frames past ``input_len``.
 
+    A chunk of a longer recursion passes, as ``ctc_alpha`` does, its
+    frames, the global ``input_lens`` and ``t_off``, the recursion's
+    ``loglik`` and ``c_in [B,S]`` f32, ``beta + log_prob`` at the next
+    chunk's first frame (None for the last chunk): a row whose end lies
+    past the chunk takes its last frame as a step from ``c_in``, one that
+    ends inside restarts at the terminal states, one that ended before
+    has zero gamma. With ``return_carry`` it returns ``(gamma, c_out)``,
+    ``c_out [B,S]`` the same quantity at this chunk's first frame for the
+    chunk before (NEG for a row that ended before the chunk). Without
+    them it is the unchunked recursion; the chunks give its bits.
+
     A CPU tensor runs ``ctc_beta_plain``; a CUDA tensor launches
     ``csrc/ctc.cu`` (counted in ``ctc_beta.launches``) or raises.
     """
-    _check(log_probs, ext, skip, input_lens, s_last, alphas, loglik)
+    _check(log_probs, ext, skip, input_lens, s_last, alphas, loglik,
+           c_in=c_in)
+    _check_offset(t_off)
     if log_probs.device.type == "cpu":
         return ctc_beta_plain(log_probs, ext, skip, input_lens, s_last,
-                              alphas, loglik)
+                              alphas, loglik, c_in, t_off, return_carry)
     b, t, v = log_probs.shape
     s = ext.shape[1]
     if b == 0 or t == 0:
         raise ValueError("ctc_beta needs B >= 1 and T >= 1")
     gamma = torch.empty((b, t, s), dtype=torch.float32,
                         device=log_probs.device)
+    c_out = (torch.empty((b, s), dtype=torch.float32,
+                         device=log_probs.device) if return_carry else None)
     gru.require_current(log_probs, "ctc_beta")
     lib = _lib()
     rc = lib.ctc_beta_launch(
         log_probs.data_ptr(), ext.data_ptr(), skip.data_ptr(),
         input_lens.data_ptr(), s_last.data_ptr(), alphas.data_ptr(),
-        loglik.data_ptr(), gamma.data_ptr(), b, t, v, s,
-        log_probs.device.index,
+        loglik.data_ptr(), None if c_in is None else c_in.data_ptr(),
+        None if c_out is None else c_out.data_ptr(), gamma.data_ptr(), b, t,
+        v, s, t_off, log_probs.device.index,
         torch.cuda.current_stream(log_probs.device).cuda_stream)
     _raise_on(lib, rc, f"ctc_beta (B={b}, T={t}, V={v}, S={s})")
     ctc_beta.launches += 1
-    return gamma
+    return (gamma, c_out) if return_carry else gamma
 
 
 ctc_beta.launches = 0
@@ -441,14 +501,13 @@ ctc_beta.launches = 0
 # The loss the train step calls.
 # ---------------------------------------------------------------------------
 
-def prepare(logits: torch.Tensor, labels: torch.Tensor,
-            input_lens: torch.Tensor, label_lens: torch.Tensor):
-    """Log-softmax and the kernels' operands:
-    ``(log_probs, ext, skip, input_lens, s_last)``. Raises on labels
-    outside ``[0, V)``, label lengths outside ``[0, L]`` or frame
+def _operands(labels: torch.Tensor, input_lens: torch.Tensor,
+              label_lens: torch.Tensor, t: int, v: int):
+    """The kernels' operands but the log-probs, ``(ext, skip, input_lens,
+    s_last)``, for ``t`` frames of a ``v``-symbol vocabulary. Raises on
+    labels outside ``[0, V)``, label lengths outside ``[0, L]`` or frame
     counts outside ``[0, T]`` (one host sync): the kernels would read
     out of bounds."""
-    b, t, v = logits.shape
     lab_lens = label_lens.long()
     bad = torch.stack([((labels < 0) | (labels >= v)).any(),
                        ((lab_lens < 0) | (lab_lens > labels.shape[1])).any(),
@@ -457,10 +516,30 @@ def prepare(logits: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"ctc_loss: labels must lie in [0, {v}), "
                          f"label_lens in [0, {labels.shape[1]}] and "
                          f"input_lens in [0, {t}]")
-    log_probs = torch.log_softmax(logits.float(), dim=-1).contiguous()
     ext, skip, _ = transition_masks(labels.long(), lab_lens)
-    return (log_probs, ext.int().contiguous(), skip.contiguous(),
+    return (ext.int().contiguous(), skip.contiguous(),
             input_lens.int().contiguous(), (2 * lab_lens).int().contiguous())
+
+
+def prepare(logits: torch.Tensor, labels: torch.Tensor,
+            input_lens: torch.Tensor, label_lens: torch.Tensor):
+    """Log-softmax and the kernels' operands:
+    ``(log_probs, ext, skip, input_lens, s_last)``; raises as
+    ``_operands`` does."""
+    b, t, v = logits.shape
+    ops = _operands(labels, input_lens, label_lens, t, v)
+    log_probs = torch.log_softmax(logits.float(), dim=-1).contiguous()
+    return (log_probs, *ops)
+
+
+def _dlogits(log_probs, gamma_ext, ext, lens, t_off: int, dtype):
+    """``softmax - gamma`` over a chunk's frames (global frames
+    ``t_off``..), zero softmax past each row's length."""
+    t = log_probs.shape[1]
+    gamma = scatter_ext_to_vocab(gamma_ext, ext, log_probs.shape[2])
+    tmask = ((t_off + torch.arange(t, device=log_probs.device))[None]
+             < lens[:, None])
+    return (torch.exp(log_probs) * tmask[:, :, None] - gamma).to(dtype)
 
 
 class _CTCLoss(torch.autograd.Function):
@@ -477,11 +556,8 @@ class _CTCLoss(torch.autograd.Function):
         gamma_ext = ctc_beta(log_probs, ext, skip, lens, s_last, alphas,
                              loglik)
         del alphas
-        gamma = scatter_ext_to_vocab(gamma_ext, ext, logits.shape[2])
-        tmask = (torch.arange(logits.shape[1], device=logits.device)[None]
-                 < lens[:, None])
-        dlogits = torch.exp(log_probs) * tmask[:, :, None] - gamma
-        ctx.save_for_backward(dlogits.to(logits.dtype))
+        ctx.save_for_backward(_dlogits(log_probs, gamma_ext, ext, lens, 0,
+                                       logits.dtype))
         return -loglik
 
     @staticmethod
@@ -502,3 +578,65 @@ def ctc_loss(logits: torch.Tensor, labels: torch.Tensor,
 def ctc_loss_mean(logits, labels, input_lens, label_lens) -> torch.Tensor:
     """Batch-mean CTC loss, what the train step optimises."""
     return ctc_loss(logits, labels, input_lens, label_lens).mean()
+
+
+class _SPCTCLoss(torch.autograd.Function):
+    """``sp_ctc_loss``: ``apply(labels, input_lens, label_lens, *logits)``
+    with one ``[B, Tl, V]`` logits chunk a shard, in time order."""
+
+    @staticmethod
+    def forward(ctx, labels, input_lens, label_lens, *logits):
+        tl, v = logits[0].shape[1], logits[0].shape[2]
+        ops = _operands(labels, input_lens, label_lens, tl * len(logits), v)
+        devs = [x.device for x in logits]
+        shard_ops = [tuple(o.to(d) for o in ops) for d in devs]
+        lps, tapes, band = [], [], None
+        for k, (x, d) in enumerate(zip(logits, devs)):
+            with gru.current_device(d):
+                lps.append(torch.log_softmax(x.float(), dim=-1).contiguous())
+                loglik, tape = ctc_alpha(
+                    lps[k], *shard_ops[k], tape=True,
+                    alpha0=None if band is None else band.to(d),
+                    t_off=k * tl)
+                band = tape[:, -1].contiguous()
+                tapes.append(tape)
+        dlogits, c = [None] * len(logits), None
+        for k in range(len(logits) - 1, -1, -1):
+            d = devs[k]
+            with gru.current_device(d):
+                out = ctc_beta(lps[k], *shard_ops[k], tapes[k],
+                               loglik.to(d),
+                               c_in=None if c is None else c.to(d),
+                               t_off=k * tl, return_carry=k > 0)
+                gamma_ext, c = out if k > 0 else (out, None)
+                tapes[k] = None
+                dlogits[k] = _dlogits(lps[k], gamma_ext, shard_ops[k][0],
+                                      shard_ops[k][2], k * tl,
+                                      logits[k].dtype)
+        ctx.save_for_backward(*dlogits)
+        return -loglik.to(labels.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, None, *(
+            dl * g.to(dl.device, dl.dtype)[:, None, None]
+            for dl in ctx.saved_tensors))
+
+
+def sp_ctc_loss(logits, labels: torch.Tensor, input_lens: torch.Tensor,
+                label_lens: torch.Tensor) -> torch.Tensor:
+    """Per-utterance CTC loss ``[B]`` over logits cut along time: the
+    contract of ``ctc_loss`` with ``logits`` a list of ``[B, Tl, V]``
+    chunks in time order, each on its shard's device (the
+    sequence-parallel loss, JAX ``seqpar.py`` ``_ctc_alpha_relay``);
+    ``input_lens`` are the global frame counts. The labels are checked
+    once. Shard by shard, 0 -> S-1, the alpha kernel runs its chunk from
+    the band the shard before handed over (its tape's last row); the
+    last shard's band gives the log-likelihood; then S-1 -> 0 the beta
+    kernel runs its chunk from the ``c`` the shard after handed over and
+    hands its own on; each shard forms its ``dlogits`` on its device, as
+    ``ctc_loss`` does. Only ``[B, S]`` bands and ``[B]`` scalars cross
+    shards. The loss and every ``dlogits`` are ``ctc_loss``'s on the
+    concatenated logits, bit for bit where the log-softmax is (it is
+    taken a frame at a time). The loss lies on ``labels``' device."""
+    return _SPCTCLoss.apply(labels, input_lens, label_lens, *logits)

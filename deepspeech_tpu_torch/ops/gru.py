@@ -543,6 +543,14 @@ def require_current(t: torch.Tensor, name: str) -> None:
             "torch.cuda.set_device first")
 
 
+def current_device(device: torch.device):
+    """The context a shard's work runs in: its card current (the kernels
+    launch on the current device), nothing on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def _launch(name: str, xp: torch.Tensor, mask: torch.Tensor,
             w: torch.Tensor, tensors: Sequence[Optional[torch.Tensor]],
             reverse: Tuple[bool, ...]) -> None:
@@ -788,8 +796,9 @@ gru_fwd_q_stream.launches = 0
 
 def gru_bwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                   b: torch.Tensor, ys: torch.Tensor, dy: torch.Tensor,
-                  reverse: Sequence[bool] = (False,)
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  reverse: Sequence[bool] = (False,),
+                  h0: Optional[torch.Tensor] = None,
+                  return_dh0: bool = False):
     """The plain PyTorch version of ``gru_bwd``: an eager reverse time
     loop with ``_gru_bwd_elt``'s per-step math (rnn_pallas.py:189)."""
     t, bsz, _ = xp.shape
@@ -797,13 +806,14 @@ def gru_bwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     dxp = torch.empty((d, t, bsz, 3 * h), dtype=torch.float32,
                       device=xp.device)
     dgates = torch.empty_like(dxp)
+    dh0 = torch.zeros((d, bsz, h), dtype=torch.float32, device=xp.device)
     for di in range(d):
         w32 = w[di].float()
         dh = torch.zeros((bsz, h), dtype=torch.float32, device=xp.device)
         for i in range(t):
             row = i if reverse[di] else t - 1 - i
             if i == t - 1:  # the forward's first step
-                h_prev = torch.zeros_like(dh)
+                h_prev = torch.zeros_like(dh) if h0 is None else h0[di]
             else:
                 h_prev = ys[di, row + 1 if reverse[di] else row - 1]
             gates = h_prev.to(w.dtype).float() @ w32 + b[di]
@@ -827,14 +837,16 @@ def gru_bwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
             dgates[di, row] = dg
             dh = (dh_mid * z + (1.0 - m) * dhc
                   + dg.to(w.dtype).float() @ w32.t())
-    return dxp, dgates
+        dh0[di] = dh  # the first step's dh_prev
+    return (dxp, dgates, dh0) if return_dh0 else (dxp, dgates)
 
 
-def _check_bwd(xp, mask, w, b, reverse, gates: int = 3, **tapes) -> None:
+def _check_bwd(xp, mask, w, b, reverse, gates: int = 3, h0=None,
+               **tapes) -> None:
     """The backward kernels' argument rules: the forward's for ``gates``
-    gates, and each of ``tapes`` (``ys``, ``dy``; the LSTM's ``cs``)
-    contiguous f32 ``[D,T,B,H]`` on xp's device."""
-    _check(xp, mask, w, b, None, reverse, gates=gates)
+    gates (with its ``h0``), and each of ``tapes`` (``ys``, ``dy``; the
+    LSTM's ``cs``) contiguous f32 ``[D,T,B,H]`` on xp's device."""
+    _check(xp, mask, w, b, h0, reverse, gates=gates)
     d, t, bsz, h = w.shape[0], xp.shape[0], xp.shape[1], w.shape[1]
     for name, x in tapes.items():
         if (tuple(x.shape) != (d, t, bsz, h) or x.dtype != torch.float32
@@ -844,24 +856,27 @@ def _check_bwd(xp, mask, w, b, reverse, gates: int = 3, **tapes) -> None:
                              f"{x.dtype} {list(x.shape)} on {x.device}")
 
 
-def _bwd_mma(w: torch.Tensor, ys: torch.Tensor) -> bool:
+def _bwd_mma(w: torch.Tensor, ys: torch.Tensor,
+             h0: Optional[torch.Tensor] = None) -> bool:
     """Whether the C call of a backward kernel runs its tensor-core path,
     the gate pre-pass GEMM and then the ``mma.sync`` loop: ``gru_bwd``
     (``csrc/gru_bwd.cu``), ``gru_bwd_stream`` (``csrc/gru_bwd_stream.cu``)
     and ``ops/lstm.py``'s ``lstm_bwd`` (``csrc/lstm_bwd.cu``) apply the
     same rule before any launch: ``gru_bwd_mma`` (bf16, H % 8 == 0) with
-    ``w`` and ``ys`` 16-byte aligned (they also need the scratch aligned,
-    which ``torch.empty`` is). Else the CUDA-core kernel runs: K5/K7's
-    ``gru_bwd_kernel``, K9's two-phase ``gru_bwd_stream_kernel``, K13's
-    ``lstm_bwd_kernel``."""
+    ``w``, ``ys`` and the GRU's ``h0`` (when given) 16-byte aligned (they
+    also need the scratch aligned, which ``torch.empty`` is). Else the
+    CUDA-core kernel runs: K5/K7's ``gru_bwd_kernel``, K9's two-phase
+    ``gru_bwd_stream_kernel``, K13's ``lstm_bwd_kernel``."""
     return (gru_bwd_mma(w.dtype, w.shape[1])
-            and w.data_ptr() % 16 == 0 and ys.data_ptr() % 16 == 0)
+            and w.data_ptr() % 16 == 0 and ys.data_ptr() % 16 == 0
+            and (h0 is None or h0.data_ptr() % 16 == 0))
 
 
 def _bwd_resident(w: torch.Tensor, ys: torch.Tensor,
                   limits: Tuple[int, int, int] = (
                       H100_SMS, H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM),
-                  kind: str = "bwd") -> bool:
+                  kind: str = "bwd",
+                  h0: Optional[torch.Tensor] = None) -> bool:
     """Whether the backward of ``kind`` keeps W resident (``"bwd"``:
     ``gru_bwd``, K5/K7; ``"lstm_bwd"``: ``ops/lstm.py``'s ``lstm_bwd``,
     K13) on a card with these ``card_limits``, for the kernel
@@ -870,48 +885,61 @@ def _bwd_resident(w: torch.Tensor, ys: torch.Tensor,
     CUDA-core kernel stages W as f32 whatever the dot dtype (a bf16 view
     of W that is not 16-byte aligned is sized as that kernel's block,
     which grows with B)."""
-    dtype = w.dtype if _bwd_mma(w, ys) else torch.float32
+    dtype = w.dtype if _bwd_mma(w, ys, h0) else torch.float32
     return resident_fits(kind, w.shape[0], w.shape[1], ys.shape[2], dtype,
                          *limits)
 
 
-def _bwd_launch(name, xp, mask, w, b, ys, dy, reverse):
-    """Allocate ``dxp``/``dgates`` and ``csrc/<name>.cu``'s scratch and
-    launch it; returns ``(dxp, dgates, launched)``. ``gru_bwd``'s
-    tensor-core path (``_bwd_mma``) takes ``gru_bwd_mma_scratch_floats``
-    (dh's elementwise part, the two bf16 dgates rows), its CUDA-core
-    kernel ``gru_bwd_scratch_floats`` (the blocks' partial sums);
+def _bwd_launch(name, xp, mask, w, b, ys, dy, reverse, h0, return_dh0):
+    """Allocate ``dxp``/``dgates`` (and ``dh0`` when ``return_dh0``) and
+    ``csrc/<name>.cu``'s scratch and launch it; returns ``(dxp, dgates,
+    dh0 or None, launched)``. ``gru_bwd``'s tensor-core path
+    (``_bwd_mma``) takes ``gru_bwd_mma_scratch_floats`` (dh's elementwise
+    part, the two bf16 dgates rows), its CUDA-core kernel
+    ``gru_bwd_scratch_floats`` (the blocks' partial sums);
     ``gru_bwd_stream`` one size for both of its paths."""
     d, t, bsz, h = w.shape[0], xp.shape[0], xp.shape[1], w.shape[1]
     dxp = torch.empty((d, t, bsz, 3 * h), dtype=torch.float32,
                       device=xp.device)
     dgates = torch.empty_like(dxp)
+    # With no step to run, h0 reaches nothing the loss reads.
+    dh0 = ((torch.empty if dxp.numel() else torch.zeros)(
+        (d, bsz, h), dtype=torch.float32, device=xp.device)
+        if return_dh0 else None)
     if not dxp.numel():
-        return dxp, dgates, False
+        return dxp, dgates, dh0, False
     size = (f"{name}_mma_scratch_floats"
-            if name == "gru_bwd" and _bwd_mma(w, ys)
+            if name == "gru_bwd" and _bwd_mma(w, ys, h0)
             else f"{name}_scratch_floats")
     floats = getattr(_lib(name), size)(d, bsz, h)
     scratch = torch.empty((floats,), dtype=torch.float32, device=xp.device)
-    _launch(name, xp, mask, w, (b, ys, dy, dxp, dgates, scratch), reverse)
-    return dxp, dgates, True
+    _launch(name, xp, mask, w, (b, h0, ys, dy, dxp, dgates, dh0, scratch),
+            reverse)
+    return dxp, dgates, dh0, True
 
 
 def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
             b: torch.Tensor, ys: torch.Tensor, dy: torch.Tensor,
-            reverse: Sequence[bool] = (False,)
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """GRU backpropagation through time over D directions, from h0 = 0.
+            reverse: Sequence[bool] = (False,),
+            h0: Optional[torch.Tensor] = None, return_dh0: bool = False):
+    """GRU backpropagation through time over D directions.
 
-    ``xp``, ``mask``, ``w``, ``b`` and ``reverse`` as ``gru_fwd`` took
-    them; ``ys [D,T,B,H]`` f32, the outputs ``gru_fwd`` returned;
-    ``dy [D,T,B,H]`` f32, the gradient of the loss with respect to them.
-    Each direction runs against its forward order, carrying dh; a step
-    recomputes the gates from h_prev rounded to ``w.dtype`` and adds
+    ``xp``, ``mask``, ``w``, ``b``, ``h0`` and ``reverse`` as ``gru_fwd``
+    took them (``h0 [D,B,H]`` f32, None: zeros); ``ys [D,T,B,H]`` f32, the
+    outputs ``gru_fwd`` returned; ``dy [D,T,B,H]`` f32, the gradient of
+    the loss with respect to them. Each direction runs against its
+    forward order, carrying dh; a step recomputes the gates from h_prev
+    (``h0`` at the forward's first step) rounded to ``w.dtype`` and adds
     ``round(dgates) @ W^T`` to dh in f32. Returns ``(dxp, dgates)``,
     each ``[D,T,B,3H]`` f32: ``dxp`` the gradient of the input
     projection ``(da_r, da_z, da_n)``, ``dgates`` that of the recurrent
-    gates ``h W + b``, ``(da_r, da_z, dg_n)``.
+    gates ``h W + b``, ``(da_r, da_z, dg_n)``; with ``return_dh0`` also
+    ``dh0 [D,B,H]`` f32, the gradient of ``h0``: the first step's
+    dh_prev, formed as every other step's. The gradient on the final
+    state takes no argument: the carry after the last step is ``ys`` at
+    the scan's last row (a masked frame holds h), so it arrives in ``dy``
+    there. Without ``h0`` and ``return_dh0`` the call is the BPTT from
+    h0 = 0, bit for bit.
 
     A CPU tensor runs ``gru_bwd_plain``. A CUDA tensor calls the
     resident kernel's C entry point ``csrc/gru_bwd.cu`` once (counted in
@@ -924,16 +952,16 @@ def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     CUDA-core kernel.
     """
     reverse = tuple(bool(r) for r in reverse)
-    _check_bwd(xp, mask, w, b, reverse, ys=ys, dy=dy)
+    _check_bwd(xp, mask, w, b, reverse, h0=h0, ys=ys, dy=dy)
     if xp.device.type == "cpu":
-        return gru_bwd_plain(xp, mask, w, b, ys, dy, reverse)
+        return gru_bwd_plain(xp, mask, w, b, ys, dy, reverse, h0, return_dh0)
     _require_cuda(xp, "gru_bwd")
-    if not _bwd_resident(w, ys, card_limits(xp.device)):
-        return gru_bwd_stream(xp, mask, w, b, ys, dy, reverse)
-    dxp, dgates, launched = _bwd_launch("gru_bwd", xp, mask, w, b, ys, dy,
-                                        reverse)
+    if not _bwd_resident(w, ys, card_limits(xp.device), h0=h0):
+        return gru_bwd_stream(xp, mask, w, b, ys, dy, reverse, h0, return_dh0)
+    dxp, dgates, dh0, launched = _bwd_launch("gru_bwd", xp, mask, w, b, ys,
+                                             dy, reverse, h0, return_dh0)
     gru_bwd.launches += launched
-    return dxp, dgates
+    return (dxp, dgates, dh0) if return_dh0 else (dxp, dgates)
 
 
 gru_bwd.launches = 0
@@ -952,8 +980,9 @@ def _bwd_stream_scratch_floats(d: int, bsz: int, h: int) -> int:
 
 def gru_bwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor, ys: torch.Tensor, dy: torch.Tensor,
-                   reverse: Sequence[bool] = (False,)
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   reverse: Sequence[bool] = (False,),
+                   h0: Optional[torch.Tensor] = None,
+                   return_dh0: bool = False):
     """``gru_bwd`` through the streamed kernel ``csrc/gru_bwd_stream.cu``
     (K9), whatever the sizes. Where ``_bwd_mma`` holds (bf16,
     H % 8 == 0) the gate recompute, which reads h_prev from the ``ys``
@@ -968,25 +997,30 @@ def gru_bwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     CUDA tensor calls the kernel's C entry point once (counted in
     ``gru_bwd_stream.launches``) or raises."""
     reverse = tuple(bool(r) for r in reverse)
-    _check_bwd(xp, mask, w, b, reverse, ys=ys, dy=dy)
+    _check_bwd(xp, mask, w, b, reverse, h0=h0, ys=ys, dy=dy)
     if xp.device.type == "cpu":
-        return gru_bwd_plain(xp, mask, w, b, ys, dy, reverse)
+        return gru_bwd_plain(xp, mask, w, b, ys, dy, reverse, h0, return_dh0)
     _require_cuda(xp, "gru_bwd_stream")
-    dxp, dgates, launched = _bwd_launch("gru_bwd_stream", xp, mask, w, b,
-                                        ys, dy, reverse)
+    dxp, dgates, dh0, launched = _bwd_launch("gru_bwd_stream", xp, mask, w,
+                                             b, ys, dy, reverse, h0,
+                                             return_dh0)
     gru_bwd_stream.launches += launched
-    return dxp, dgates
+    return (dxp, dgates, dh0) if return_dh0 else (dxp, dgates)
 
 
 gru_bwd_stream.launches = 0
 
 
-def _h_prev(ys: torch.Tensor, reverse: Tuple[bool, ...]) -> torch.Tensor:
+def _h_prev(ys: torch.Tensor, reverse: Tuple[bool, ...],
+            h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[D,T,B,H]`` h_prev of every row in data order: ys shifted one
-    step against each direction's scan, 0 at the scan's first row."""
-    zero = torch.zeros_like(ys[0, :1])
+    step against each direction's scan, ``h0`` (None: 0) at the scan's
+    first row."""
+    first = [torch.zeros_like(ys[0, :1]) if h0 is None else h0[di][None]
+             for di in range(len(reverse))]
     return torch.stack([
-        torch.cat([ys[di, 1:], zero]) if rev else torch.cat([zero, ys[di, :-1]])
+        torch.cat([ys[di, 1:], first[di]]) if rev
+        else torch.cat([first[di], ys[di, :-1]])
         for di, rev in enumerate(reverse)])
 
 
@@ -998,33 +1032,39 @@ class GRUFunction(torch.autograd.Function):
     (the dot dtype) inside, so its gradient stays f32, as the JAX
     kernels cast the f32 weights inside. The backward returns ``dxp``
     summed over directions (``xp.dtype``), ``dW = sum_t h_prev^T dgates``
-    as one f32 product with TF32 off, and ``db = sum dgates``. ``h0``
-    may be given only when no input requires a gradient: the BPTT, like
-    the JAX VJP, starts from h0 = 0 and returns no dh0.
+    as one f32 product with TF32 off, and ``db = sum dgates``. ``h0
+    [D,B,H]`` f32 (None: zeros) is the carried state the scan starts
+    from, as in the sequence-parallel relay; its gradient ``dh0`` is
+    ``gru_bwd``'s, and dW's first row takes h0 as its h_prev. The
+    gradient on the final carry reaches the backward through ``ys``:
+    the carry is ``ys`` at the scan's last row. Without ``h0`` the
+    backward makes the call it made before h0 had a gradient, bit for
+    bit.
     """
 
     @staticmethod
     def forward(ctx, xp, mask, w, b, h0, reverse):
-        if h0 is not None and any(ctx.needs_input_grad):
-            raise NotImplementedError(
-                "GRUFunction: no gradient through a carried h0; the BPTT "
-                "starts from h0 = 0, as the JAX VJP does")
         reverse = tuple(bool(r) for r in reverse)
         wd = w.to(xp.dtype).contiguous()
         ys, _ = gru_fwd(xp, mask, wd, b, h0, reverse)
-        ctx.save_for_backward(xp, mask, wd, b, ys)
+        ctx.save_for_backward(xp, mask, wd, b, h0, ys)
         ctx.reverse = reverse
         return ys
 
     @staticmethod
     def backward(ctx, dys):
-        xp, mask, wd, b, ys = ctx.saved_tensors
-        dxp, dgates = gru_bwd(xp, mask, wd, b, ys,
-                              dys.float().contiguous(), ctx.reverse)
+        xp, mask, wd, b, h0, ys = ctx.saved_tensors
+        dys = dys.float().contiguous()
+        dh0 = None
+        if h0 is None:
+            dxp, dgates = gru_bwd(xp, mask, wd, b, ys, dys, ctx.reverse)
+        else:
+            dxp, dgates, dh0 = gru_bwd(xp, mask, wd, b, ys, dys, ctx.reverse,
+                                       h0=h0, return_dh0=True)
         d, t, bsz, h = ys.shape
-        hp = _h_prev(ys, ctx.reverse).reshape(d, t * bsz, h)
+        hp = _h_prev(ys, ctx.reverse, h0).reshape(d, t * bsz, h)
         with full_f32_matmul():
             dw = torch.bmm(hp.transpose(1, 2),
                            dgates.reshape(d, t * bsz, 3 * h))
         db = dgates.sum((1, 2))
-        return dxp.sum(0).to(xp.dtype), None, dw, db, None, None
+        return dxp.sum(0).to(xp.dtype), None, dw, db, dh0, None

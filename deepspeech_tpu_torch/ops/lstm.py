@@ -629,7 +629,7 @@ class LSTMFunction(torch.autograd.Function):
     einsum, lstm_pallas.py:501-502), and ``db = sum dgates``. ``hc0``
     must be None: the BPTT kernels (K13, K15), like the JAX VJP, start
     from h0 = c0 = 0 and return no gradient for a carry (that is item
-    14b of the port, sequence-parallel training).
+    14b-ii of the port, sequence-parallel training of LSTM models).
     """
 
     @staticmethod

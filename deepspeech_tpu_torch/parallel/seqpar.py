@@ -30,6 +30,24 @@ encoder shard by shard (JAX ``seqpar.py:1-37`` does it over a mesh, one
   local to each shard: ``sp_greedy_decode`` gathers only the int32 ids,
   never the ``[T', V]`` logits.
 
+``sp_loss`` is the training half (JAX ``seqpar.py:347-452``): the same
+forward in train mode, with a gradient. Each masked BN takes this
+batch's statistics over every shard (each shard's mask-weighted partial
+sums added on the home device in shard order, ``layers.masked_bn_stats``
+over the list) and returns them for the caller's momentum update. Each
+direction of each GRU layer is one D=1 ``GRUFunction`` call a shard
+with ``h0`` the carry the shard before handed over, ``ys`` at its
+scan's last row moved by a differentiable copy, so ``backward`` relays
+``dh0`` the other way by itself (K6/K8 forward, K7/K9 backward with
+``h0`` and ``dh0``). The log-softmax and the CTC stay on each shard:
+``ops/ctc.py``'s ``sp_ctc_loss`` relays the ``[B, S]`` alpha band shard
+to shard and the beta band back (K1, K2). A shard on another device
+than the model reaches its parameters through differentiable copies
+made in the step (``_TrainShards``), so their gradients sum into the
+home parameters, as JAX psums the replicated cotangents; the
+``Replicas`` of decoding are not used (their weights would go stale
+after an optimizer step). An LSTM model raises (item 14b-ii).
+
 ``sp_beam_search`` relays the beam state the same way: shard k advances
 ``decode/beam.py``'s ``BeamState`` over its own log-probs with
 ``beam_search_chunk`` and hands it to shard k+1; the last shard's state is
@@ -44,15 +62,13 @@ it through ``Replicas``: one copy of the model on each distinct device
 of the list besides its own, made when the ``Replicas`` is. A call
 without ``replicas`` makes them for itself; the Inferencer keeps one
 for its device list, as JAX keeps its ``_sp_mesh``.
-
-Sequence-parallel training (``sp_loss``, the CTC alpha relay) is item
-14b of the port and is not here.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,8 +76,12 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..models.layers import clipped_relu, weight
-from ..models.rnn import chunk_recurrence, layer_input, layer_output
+from ..models.layers import (clipped_relu, masked_bn_stats, normalize,
+                             weight)
+from ..models.rnn import (LSTM_CARRY_LATER, chunk_recurrence, layer_input,
+                          layer_output)
+from ..ops.ctc import sp_ctc_loss
+from ..ops.gru import current_device as _on
 
 Devices = Sequence[torch.device]
 
@@ -125,14 +145,6 @@ def _validate(cfg: ModelConfig, devices: Devices, t: int) -> int:
     return n_shards
 
 
-def _on(device: torch.device):
-    """The context a shard's work runs in: its card current (the kernels
-    launch on the current device), nothing on the CPU."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
-
-
 def _indexed(device) -> torch.device:
     """``device`` with its index: a bare "cuda" is the current card."""
     d = torch.device(device)
@@ -185,18 +197,76 @@ def _replicas(model, devices: Devices, replicas) -> Replicas:
     return replicas
 
 
+# Each model's skeletons on other devices (``_TrainShards``), made once.
+_SKELETONS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+class _TrainShards:
+    """Each shard's view of the home model for one train step, with the
+    interface ``_forward_shards`` reads (``devices``, ``models``): the
+    model itself on its own device; on another device a skeleton (a copy
+    of the model made there once, kept for the model) whose parameters
+    are bound, for this step, to ``p.to(device)`` of the home ones:
+    differentiable copies, so each shard's gradient sums into the home
+    parameter. Where every shard is on the home device (one card, the
+    CPU) nothing is copied."""
+
+    def __init__(self, model, devices: Devices):
+        self.devices = [_indexed(d) for d in devices]
+        home = next(model.parameters()).device
+        named = list(model.named_parameters())
+        views: Dict[torch.device, torch.nn.Module] = {}
+        for d in self.devices:
+            if d in views:
+                continue
+            if d == home:
+                views[d] = model
+                continue
+            skeletons = _SKELETONS.setdefault(model, {})
+            if d not in skeletons:
+                skeletons[d] = copy.deepcopy(model).to(d)
+            view = skeletons[d]
+            for name, p in named:
+                owner, _, leaf = name.rpartition(".")
+                view.get_submodule(owner)._parameters[leaf] = p.to(d)
+            views[d] = view
+        self.models = [views[d] for d in self.devices]
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+
+def _bn(shards, name: str, xs, masks, train: bool, stats: Optional[dict]):
+    """The masked BN ``name`` (a submodule path, e.g. ``conv.bn0``) of
+    each shard's model over its ``xs[k]`` ``[B, T, ..., C]``: the running
+    statistics (time-local), or in ``train`` this batch's over every
+    shard (``masked_bn_stats`` over the list: partial sums added on the
+    first shard's device in shard order), each shard normalising with its
+    copy of them; those go into ``stats[name]`` as ``(mean, var)``."""
+    bns = [m.get_submodule(name) for m in shards.models]
+    if not train:
+        return [bn.running(x) for bn, x in zip(bns, xs)]
+    mean, var = masked_bn_stats([x.float() for x in xs], masks)
+    stats[name] = (mean, var)
+    return [normalize(x.float(), mean.to(x.device), var.to(x.device),
+                      bn.scale, bn.bias, bn.eps).to(x.dtype)
+            for bn, x in zip(bns, xs)]
+
+
 def _mask(t_off: int, t: int, lens: torch.Tensor) -> torch.Tensor:
     """[B, t] f32: 1 where the global frame ``t_off + i`` is valid."""
     gidx = t_off + torch.arange(t, device=lens.device)
     return (gidx[None, :] < lens[:, None]).float()
 
 
-def _conv_sp(cfg: ModelConfig, shards: Replicas, xs: List[torch.Tensor],
-             lens: List[torch.Tensor]):
+def _conv_sp(cfg: ModelConfig, shards, xs: List[torch.Tensor],
+             lens: List[torch.Tensor], train: bool = False,
+             stats: Optional[dict] = None):
     """``models/conv.ConvFrontend``, time-sharded. ``xs[k]`` is shard k's
     feature slice ``[B, Tl, F]``; ``lens[k]`` the utterance lengths on its
     device. Returns each shard's ``[B, Tl', F'*C]``, its conv lengths and
-    its offset in conv frames."""
+    its offset in conv frames. ``train`` takes each BN's statistics over
+    the shards (``_bn``)."""
     dtype = getattr(torch, cfg.dtype)
     s = len(shards)
     tl = xs[0].shape[1]
@@ -213,7 +283,7 @@ def _conv_sp(cfg: ModelConfig, shards: Replicas, xs: List[torch.Tensor],
                          else xs[k].new_zeros((b, c, halo_l, f)))
             rights.append(xs[k + 1][:, :, :halo_r].to(dev) if k < s - 1
                           else xs[k].new_zeros((b, c, halo_r, f)))
-        out = []
+        convs, masks = [], []
         for k, dev in enumerate(shards.devices):
             with _on(dev):
                 fe = shards.models[k].conv
@@ -226,12 +296,14 @@ def _conv_sp(cfg: ModelConfig, shards: Replicas, xs: List[torch.Tensor],
                              stride=(st, sf))
                 lens[k] = -(-lens[k] // st)
                 offs[k] //= st
-                mask = _mask(offs[k], x.shape[2], lens[k])
-                y = getattr(fe, f"bn{i}").running(x.permute(0, 2, 3, 1))
-                y = clipped_relu(y, cfg.relu_clip)
-                y = y * mask[:, :, None, None].to(y.dtype)
-                out.append(y.permute(0, 3, 1, 2))
-        xs = out
+                masks.append(_mask(offs[k], x.shape[2], lens[k]))
+                convs.append(x.permute(0, 2, 3, 1))
+        ys = _bn(shards, f"conv.bn{i}", convs, masks, train, stats)
+        xs = []
+        for y, mask in zip(ys, masks):
+            y = clipped_relu(y, cfg.relu_clip)
+            y = y * mask[:, :, None, None].to(y.dtype)
+            xs.append(y.permute(0, 3, 1, 2))
     flat = []
     for x in xs:
         b, c, t, f = x.shape
@@ -240,13 +312,16 @@ def _conv_sp(cfg: ModelConfig, shards: Replicas, xs: List[torch.Tensor],
     return flat, lens, offs
 
 
-def _relay(cfg: ModelConfig, shards: Replicas, xps, masks, layer: int):
+def _relay(cfg: ModelConfig, shards, xps, masks, layer: int,
+           train: bool = False):
     """One layer's recurrence with the carry relayed across shards: each
     direction's chunks in relay order (forward 0 -> S-1, backward
     S-1 -> 0), issued interleaved so that the two relays overlap on
     distinct devices. ``xps[k]`` ``[Tl, B, GH]`` and ``masks[k]`` ``[Tl,
     B]`` are shard k's; returns each shard's summed ``[Tl, B, H]`` f32
-    outputs (forward + backward, the offline order)."""
+    outputs (forward + backward, the offline order). ``train`` makes each
+    chunk a ``GRUFunction`` call (``chunk_recurrence``'s ``grad``), the
+    carry a differentiable copy."""
     s = len(shards)
     dirs = ["fw", "bw"] if cfg.bidirectional else ["fw"]
     ys: Dict[Tuple[str, int], torch.Tensor] = {}
@@ -263,7 +338,7 @@ def _relay(cfg: ModelConfig, shards: Replicas, xps, masks, layer: int):
                          else tuple(x.to(dev) for x in c))
                 ys[sfx, k], carry[sfx] = chunk_recurrence(
                     cfg, xps[k], masks[k], getattr(lay, f"wh_{sfx}"),
-                    getattr(lay, f"bh_{sfx}"), sfx == "bw", c)
+                    getattr(lay, f"bh_{sfx}"), sfx == "bw", c, train)
     out = []
     for k in range(s):
         with _on(shards.devices[k]):
@@ -274,10 +349,14 @@ def _relay(cfg: ModelConfig, shards: Replicas, xps, masks, layer: int):
     return out
 
 
-def _forward_shards(cfg: ModelConfig, shards: Replicas, features,
-                    feat_lens) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """Each shard's logits ``[B, T'/S, V]`` f32 on its device, and the
-    conv lengths ``[B]`` (on the first shard's device)."""
+def _forward_shards(cfg: ModelConfig, shards, features, feat_lens,
+                    train: bool = False):
+    """Each shard's logits ``[B, T'/S, V]`` f32 on its device, the conv
+    lengths ``[B]`` (on the first shard's device) and the BN statistics
+    (``{BN submodule path: (mean, var)}``, this batch's over every shard
+    in ``train``, else empty). ``shards`` is a ``Replicas`` (decoding,
+    under ``torch.inference_mode``) or a ``_TrainShards`` (``train``,
+    under autograd)."""
     s = len(shards)
     feats = torch.as_tensor(features)
     lens0 = torch.as_tensor(feat_lens).long()
@@ -287,32 +366,31 @@ def _forward_shards(cfg: ModelConfig, shards: Replicas, features,
         xs.append(feats[:, k * tl:(k + 1) * tl].to(dev, torch.float32))
         lens.append(lens0.to(dev))
     dtype = getattr(torch, cfg.dtype)
-    with torch.inference_mode():
-        xs, lens, offs = _conv_sp(cfg, shards, xs, lens)
+    stats: dict = {}
+    with contextlib.nullcontext() if train else torch.inference_mode():
+        xs, lens, offs = _conv_sp(cfg, shards, xs, lens, train, stats)
         masks = [_mask(offs[k], xs[k].shape[1], lens[k])
                  for k in range(s)]
         masks_t = [m.t().contiguous() for m in masks]
         for i in range(cfg.rnn_layers):
+            if cfg.rnn_batch_norm:
+                xs = _bn(shards, f"rnn.rnn{i}.bn", xs, masks, train, stats)
             xps = []
             for k, dev in enumerate(shards.devices):
                 with _on(dev):
                     lay = getattr(shards.models[k].rnn, f"rnn{i}")
-                    x = xs[k]
-                    if cfg.rnn_batch_norm:
-                        x = lay.bn.running(x)
-                    xps.append(layer_input(cfg, x, weight(lay.wx.kernel),
+                    xps.append(layer_input(cfg, xs[k], weight(lay.wx.kernel),
                                            lay.wx.bias))
-            outs = _relay(cfg, shards, xps, masks_t, i)
+            outs = _relay(cfg, shards, xps, masks_t, i, train)
             for k, dev in enumerate(shards.devices):
                 with _on(dev):
                     xs[k] = layer_output(cfg, outs[k], masks[k])
+        xs = _bn(shards, "bn_out", xs, masks, train, stats)
         logits = []
         for k, dev in enumerate(shards.devices):
             with _on(dev):
-                m = shards.models[k]
-                x = m.bn_out.running(xs[k])
-                logits.append(m.head(x, dtype).float())
-    return logits, lens[0]
+                logits.append(shards.models[k].head(xs[k], dtype).float())
+    return logits, lens[0], stats
 
 
 def sp_forward(cfg: ModelConfig, model, features, feat_lens,
@@ -336,8 +414,9 @@ def sp_forward(cfg: ModelConfig, model, features, feat_lens,
     other); the conv, projections, BN and head split S ways.
     """
     _validate(cfg, devices, torch.as_tensor(features).shape[1])
-    return _forward_shards(cfg, _replicas(model, devices, replicas),
-                           features, feat_lens)
+    logits, lens, _ = _forward_shards(
+        cfg, _replicas(model, devices, replicas), features, feat_lens)
+    return logits, lens
 
 
 def sp_greedy_decode(cfg: ModelConfig, model, features, feat_lens,
@@ -370,7 +449,7 @@ def sp_beam_search(cfg: ModelConfig, model, features, feat_lens,
 
     _validate(cfg, devices, torch.as_tensor(features).shape[1])
     shards = _replicas(model, devices, replicas)
-    logits, clens = _forward_shards(cfg, shards, features, feat_lens)
+    logits, clens, _ = _forward_shards(cfg, shards, features, feat_lens)
     b, tl, _ = logits[0].shape
     state = None
     with torch.inference_mode():
@@ -389,3 +468,36 @@ def sp_beam_search(cfg: ModelConfig, model, features, feat_lens,
                                           lm_table=table,
                                           merge_impl=merge_impl)
         return beam_finalize(state)
+
+
+def sp_loss(cfg: ModelConfig, model, features, feat_lens, labels,
+            label_lens, devices: Devices):
+    """Mean CTC loss of a TRAIN-mode forward with the time axis sharded
+    (JAX ``sp_loss``): activations, logits and the loss recursion all
+    live ``[T/S]`` a shard. ``model`` is the port's ``DeepSpeech2`` (a
+    GRU model, the standard tree), its parameters on the home device;
+    ``features [B, T, F]`` with T % ``sp_frame_multiple(cfg, S)`` == 0,
+    ``feat_lens [B]``, ``labels [B, L]``, ``label_lens [B]``; ``devices``
+    one entry a shard (``[cpu] * 8``: eight shards on the CPU, the plain
+    versions; ``[cuda:0] * 4``: four on one card, the kernels).
+
+    Returns ``(loss, batch_stats)``: the batch-mean loss on the home
+    device, whose ``backward()`` leaves in each parameter's ``.grad`` the
+    gradient of the offline step, and each masked BN's statistics of
+    this batch, ``{BN submodule path: (mean, var)}`` on the home device
+    (the caller applies the momentum, ``MaskedBatchNorm.update``, as
+    JAX's step does). The BN running buffers are not read or written.
+    Per layer and direction each shard runs one ``gru_fwd`` (K6, or K8)
+    and, in the backward, one ``gru_bwd`` (K7, or K9) at D=1; the loss
+    one taped ``ctc_alpha`` (K1) and one ``ctc_beta`` (K2) a shard."""
+    if cfg.rnn_type == "lstm":
+        raise NotImplementedError(LSTM_CARRY_LATER)
+    feats = torch.as_tensor(features)
+    _validate(cfg, devices, feats.shape[1])
+    home = next(model.parameters()).device
+    logits, clens, stats = _forward_shards(
+        cfg, _TrainShards(model, devices), feats, feat_lens, train=True)
+    per_utt = sp_ctc_loss(logits, torch.as_tensor(labels).to(home),
+                          clens.to(home), torch.as_tensor(label_lens).to(home))
+    return per_utt.mean(), {k: (m.to(home), v.to(home))
+                            for k, (m, v) in stats.items()}

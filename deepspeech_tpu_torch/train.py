@@ -61,10 +61,23 @@ Without a process group no collective runs; under a group of one rank
 every collective runs over that rank, which is exact, so both give the
 one-card step, bit for bit.
 
+Sequence-parallel training (``train.sequence_parallel``, JAX
+``train.py:202-217``, ``:437-456``): the step's loss and gradients come
+from ``parallel/seqpar.py``'s ``sp_loss`` over ``Trainer.sp_devices``,
+the time axis cut into one shard a device (every local card, or the
+CPU when asked for; a list may repeat a device). Batch rows replicate,
+so there is no row split; every ``data.bucket_frames`` must divide by
+``sp_frame_multiple(cfg, S)``. ``sp_loss`` returns this batch's BN
+statistics and the step applies the momentum to the running buffers, as
+JAX's step does; clip, optimizer, guarded step, checkpoints and
+evaluation (the offline forward on the home device) are the offline
+path's. It excludes ``accum_steps > 1``, a pipelined tree and more than
+one process, as JAX's does, and an LSTM model (item 14b-ii).
+
 What the JAX trainer has and the port does not yet raises
 ``NotImplementedError`` naming the queue item that brings it: sequence-
-parallel training (item 14b), pipelined training (item 14c), RNN-T
-(item 15).
+parallel training of LSTM models (item 14b-ii), pipelined training
+(item 14c), RNN-T (item 15).
 
 CLI: ``python -m deepspeech_tpu_torch.train --config=dev_slice
 [--synthetic=N] [--device=cpu] [--section.key=value ...]``: it trains
@@ -99,6 +112,7 @@ from .device import resolve_device
 from .infer import PrintLogger
 from .metrics import char_errors, word_errors
 from .models.ds2 import HEAD_KEYS, DeepSpeech2
+from .models.rnn import LSTM_CARRY_LATER
 from .ops.ctc import ctc_loss_mean
 from .parallel import comm, zero
 from .parallel.distributed import (is_initialized, is_primary,
@@ -110,12 +124,16 @@ from .resilience.guardian import STEP_HIST, GuardianConfig
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise on what the JAX trainer has and the port does not yet."""
+    """Raise on what the JAX trainer has and the port does not yet, and
+    on what JAX's sequence-parallel step excludes."""
     t = cfg.train
+    if t.sequence_parallel and (max(t.accum_steps, 1) > 1
+                                or cfg.model.pipeline_stages > 1):
+        raise ValueError("sequence_parallel excludes accum_steps>1 and "
+                         "pipeline_stages>1")
     later = [
-        (t.sequence_parallel, "train.sequence_parallel (sp_loss, the CTC "
-                              "alpha relay) comes with item 14b of the "
-                              "port"),
+        (t.sequence_parallel and cfg.model.rnn_type == "lstm",
+         LSTM_CARRY_LATER),
         (t.objective == "rnnt", "train.objective='rnnt' comes with item 15 "
                                 "of the port"),
         (cfg.model.pipeline_stages > 1, "training with "
@@ -255,13 +273,16 @@ class Trainer:
     by ``fit``. ``mesh`` (``parallel.make_mesh``) defaults to
     ``make_mesh(train.mesh_shape)`` over the process group; without a
     group that is one device, and a mesh of more raises JAX's
-    ``ValueError``.
+    ``ValueError``. ``sp_devices`` (``train.sequence_parallel``) are the
+    time shards, one entry a shard: by default every local card, or
+    ``[device]`` on the CPU; ``[cpu] * 8`` gives eight CPU shards.
     """
 
     def __init__(self, cfg: Config, pipeline, tokenizer: CharTokenizer,
                  eval_pipeline=None, logger=None, device=None,
                  params=None, batch_stats=None, preempt=None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 sp_devices: Optional[Sequence[torch.device]] = None):
         check_supported(cfg)
         self.cfg = cfg
         self.pipeline = pipeline
@@ -274,6 +295,9 @@ class Trainer:
         self.primary = is_primary()
         self.accum = max(cfg.train.accum_steps, 1)
         b = cfg.data.batch_size
+        self.sp_devices = None
+        if cfg.train.sequence_parallel:
+            self.sp_devices = self._sp_setup(sp_devices)
         if self.world > 1:
             # The pipeline fills only this process's rows by the equal
             # process-major split; the mesh's row ownership must agree.
@@ -289,7 +313,7 @@ class Trainer:
                     "split assumed by the data pipeline: "
                     f"{local} != {process_local_span(b)}")
         data_size = self.mesh.shape[DATA_AXIS]
-        if b % (self.accum * data_size):
+        if self.sp_devices is None and b % (self.accum * data_size):
             raise ValueError(
                 f"batch_size {b} must divide by "
                 f"accum_steps*data = {self.accum}*{data_size}")
@@ -350,6 +374,28 @@ class Trainer:
                                              ckpt=self.ckpt)
         # The guarded step's host-side undo, settled by commit_step.
         self._pending = None
+
+    def _sp_setup(self, sp_devices) -> List[torch.device]:
+        """The time shards of ``train.sequence_parallel``, after JAX's
+        guards (``train.py:437-456``) that ``check_supported`` has not
+        made: one process, and every bucket's frame count a multiple of
+        ``sp_frame_multiple`` over the shards (batch rows replicate, so
+        ``batch_size`` needs no multiple)."""
+        from .parallel.seqpar import sp_frame_multiple
+
+        if self.world > 1:
+            raise ValueError("sequence_parallel is single-process")
+        if sp_devices is None:
+            sp_devices = ([torch.device("cuda", i)
+                           for i in range(torch.cuda.device_count())]
+                          if self.device.type == "cuda" else [self.device])
+        devices = [torch.device(d) for d in sp_devices]
+        mult = sp_frame_multiple(self.cfg.model, len(devices))
+        bad = [f for f in self.cfg.data.bucket_frames if f % mult]
+        if bad:
+            raise ValueError(f"bucket_frames {bad} must divide by "
+                             f"shards*time_stride = {mult}")
+        return devices
 
     def _check_same_init(self, params, batch_stats) -> None:
         """Every rank seeds its init the same way, as every JAX host
@@ -445,20 +491,24 @@ class Trainer:
         ``rows[k::accum]`` locally is this rank's share of the global
         microbatch k. The BN running statistics are threaded through the
         microbatches in order; the gradients and the loss are summed and
-        divided by ``accum``."""
+        divided by ``accum``. With ``train.sequence_parallel`` the loss
+        and gradients are ``_sp_backward``'s (one process, accum 1)."""
         self.model.train()
         self.model.zero_grad(set_to_none=True)
-        loss = None
-        for k in range(self.accum):
-            # accum 1: the whole batch (a stride of 1 is a view).
-            mb = {key: v[k::self.accum].contiguous()
-                  for key, v in dev.items()}
-            logits, lens = self.model(mb["features"], mb["feat_lens"])
-            mloss = ctc_loss_mean(logits, mb["labels"], lens,
-                                  mb["label_lens"])
-            mloss.backward()
-            mloss = mloss.detach()
-            loss = mloss if loss is None else loss + mloss
+        if self.sp_devices is not None:
+            loss = self._sp_backward(dev)
+        else:
+            loss = None
+            for k in range(self.accum):
+                # accum 1: the whole batch (a stride of 1 is a view).
+                mb = {key: v[k::self.accum].contiguous()
+                      for key, v in dev.items()}
+                logits, lens = self.model(mb["features"], mb["feat_lens"])
+                mloss = ctc_loss_mean(logits, mb["labels"], lens,
+                                      mb["label_lens"])
+                mloss.backward()
+                mloss = mloss.detach()
+                loss = mloss if loss is None else loss + mloss
         with torch.no_grad():
             for p in self._params:
                 if p.grad is None:  # an unused leaf: JAX's zero gradient
@@ -474,6 +524,21 @@ class Trainer:
                               self.mesh.data_group)
         comm.all_reduce_mean_([loss], self.mesh.data_group)
         return loss
+
+    def _sp_backward(self, dev: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """``_grads``' sequence-parallel forward and backward: ``sp_loss``
+        over ``sp_devices``, its backward, then the momentum update of each
+        BN's running statistics with the batch's (JAX
+        ``train.py:202-217``); returns the loss."""
+        from .parallel.seqpar import sp_loss
+
+        loss, stats = sp_loss(self.cfg.model, self.model, dev["features"],
+                              dev["feat_lens"], dev["labels"],
+                              dev["label_lens"], self.sp_devices)
+        loss.backward()
+        for name, (mean, var) in stats.items():
+            self.model.get_submodule(name).update(mean, var)
+        return loss.detach()
 
     def _norm(self, tensors: List[torch.Tensor]) -> torch.Tensor:
         """The global norm of per-parameter tensors (a sharded head's

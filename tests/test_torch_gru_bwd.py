@@ -150,13 +150,23 @@ def test_masked_rows_pass_dh_through():
 
 
 def test_h0_with_a_gradient_raises():
+    """A carried h0 under a gradient was refused until the BPTT took h0
+    and gave dh0 (the sequence-parallel relay's need); it now trains:
+    h0 gets its gradient, and a zero h0 gives the gradients of none, bit
+    for bit (tests/test_torch_gru_carry.py holds dh0 to JAX)."""
     xproj, mask, ws, bs, _ = _inputs(5, 1, False)
     xp = torch.from_numpy(xproj).transpose(0, 1).contiguous()
     w = torch.from_numpy(ws[0])[None].requires_grad_()
     args = (xp, torch.from_numpy(mask).t().contiguous(), w,
             torch.from_numpy(bs[0])[None])
-    with pytest.raises(NotImplementedError, match="h0"):
-        GRUFunction.apply(*args, torch.zeros(1, B, H), (False,))
+    h0 = torch.zeros(1, B, H, requires_grad=True)
+    GRUFunction.apply(*args, h0, (False,)).sum().backward()
+    assert h0.grad.shape == (1, B, H)
+    assert bool(torch.isfinite(h0.grad).all())
+    assert torch.count_nonzero(h0.grad) > 0
+    dw_h0, w.grad = w.grad, None
+    GRUFunction.apply(*args, None, (False,)).sum().backward()
+    assert torch.equal(w.grad, dw_h0)
     w.requires_grad_(False)  # no gradient asked: h0 is fine
     ys = GRUFunction.apply(*args, torch.zeros(1, B, H), (False,))
     assert ys.shape == (1, T, B, H)

@@ -64,19 +64,35 @@ def _args(seed, h, d, dtype, reverse=(False, True)):
     return xp, mask, w, bias, ys, dy, reverse
 
 
-def _mirror(xp, mask, w, b, ys, dy, reverse):
+def _mirror(xp, mask, w, b, ys, dy, reverse, h0=None):
     """The header's loop in its order of summation (see the module
-    docstring); the chunking and the warps, read from the header."""
+    docstring); the chunking and the warps, read from the header. With
+    ``h0`` the pre-pass reads it as the first step's h_prev and one pass
+    more forms ``dh0`` (returned third)."""
     head = k7_variants.header_text()
     warps, kc = built_value(head, "M_WARPS"), built_value(head, "MKC")
     t, bsz, n = xp.shape
     d, h = w.shape[0], w.shape[1]
     w32 = w.float()
-    hp = gru._h_prev(ys, reverse)
+    hp = gru._h_prev(ys, reverse, h0)
     steps = [[8 * lane + 4 * s + e for lane in range(4) for e in range(4)]
              for s in range(2)]
     dxp = torch.empty((d, t, bsz, n))
     dgates = torch.empty((d, t, bsz, n))
+    dh0 = torch.empty((d, bsz, h))
+
+    def product(di, g_prev):
+        parts = torch.zeros(warps, bsz, h)
+        for c in range(-(-n // kc)):
+            for step in steps:
+                p = [c * kc + x for x in step if c * kc + x < n]
+                parts[c % warps] = (parts[c % warps]
+                                    + g_prev[:, p] @ w32[di][:, p].t())
+        s = torch.zeros(bsz, h)
+        for ww in range(warps):
+            s = s + parts[ww]
+        return s
+
     for di in range(d):
         pre = (hp[di].to(w.dtype).float().reshape(t * bsz, h) @ w32[di]
                + b[di]).reshape(t, bsz, n)
@@ -86,16 +102,7 @@ def _mirror(xp, mask, w, b, ys, dy, reverse):
             row = i if reverse[di] else t - 1 - i
             carry = de
             if i > 0:
-                parts = torch.zeros(warps, bsz, h)
-                for c in range(-(-n // kc)):
-                    for step in steps:
-                        p = [c * kc + x for x in step if c * kc + x < n]
-                        parts[c % warps] = (parts[c % warps]
-                                            + g_prev[:, p] @ w32[di][:, p].t())
-                s = torch.zeros(bsz, h)
-                for ww in range(warps):
-                    s = s + parts[ww]
-                carry = carry + s
+                carry = carry + product(di, g_prev)
             x = xp[row].float()
             g = pre[row]
             gn = g[:, 2 * h:]
@@ -113,7 +120,8 @@ def _mirror(xp, mask, w, b, ys, dy, reverse):
             dgates[di, row] = dg
             de = dh_mid * z + (1.0 - m) * dhc
             g_prev = dg.to(w.dtype).float()
-    return dxp, dgates
+        dh0[di] = de + product(di, g_prev)  # the tail pass
+    return (dxp, dgates) if h0 is None else (dxp, dgates, dh0)
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +145,26 @@ def test_loop_order_matches_plain(d, h, reverse, dtype, tol):
         err = float((g - r).abs().max())
         assert err <= tol, err
     assert float(ref[1].abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 1e-5)])
+@pytest.mark.parametrize("d,h", [(2, 40), (1, 200)])
+def test_loop_order_with_h0_matches_plain(d, h, dtype, tol):
+    """The mirror with a carried ``h0`` (the pre-pass's first rows read
+    it) and the tail pass that forms ``dh0`` against ``gru_bwd_plain``
+    with ``h0`` and ``return_dh0``."""
+    xp, mask, w, bias, _, dy, reverse = _args(300 + h + d, h, d, dtype)
+    h0 = torch.from_numpy((np.random.default_rng(h).normal(size=(d, B, h))
+                           * 0.5).astype(np.float32))
+    ys, _ = gru.gru_fwd_plain(xp, mask, w, bias, h0, reverse)
+    args = (xp, mask, w, bias, ys, dy, reverse)
+    got = _mirror(*args, h0=h0)
+    ref = gru.gru_bwd_plain(*args, h0=h0, return_dh0=True)
+    for g, r in zip(got, ref):
+        err = float((g - r).abs().max())
+        assert err <= tol, err
+    assert float(ref[2].abs().max()) > 0.1
 
 
 @pytest.mark.parametrize("h", [40, 200])
