@@ -316,6 +316,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import inspect
 import json
 import math
 import os
@@ -1124,6 +1125,36 @@ def lstm_kernel_phase(gen, kernel: str, h: int, timed):
     return entries
 
 
+def _lstm_bwd_bound(args, valid: int, hc0=None, dcfin=None):
+    """(bound ms, what bounds it) of one ``lstm_bwd`` call on ``args`` =
+    (xp, mask, w, bias, ys, cs, dy, reverse) with ``valid`` valid rows:
+    two [B,H]x[H,4H] products per valid step (gate recompute and dgates
+    @ W^T) over the bf16 peak; the inputs (and the carry ``hc0`` and
+    ``dcfin`` where given) read once, dgates (and dh0, dc0 with the
+    carry) written once."""
+    xp, mask, w, bias, ys, cs, dy, _ = args
+    d, h = w.shape[0], w.shape[1]
+    carry = tuple(hc0 or ())
+    out_bytes = 4 * d * xp.shape[0] * xp.shape[1] * 4 * h + _nbytes(*carry)
+    return _roofline(
+        _nbytes(xp, mask, w, bias, ys, cs, dy, dcfin, *carry) + out_bytes,
+        2 * 2.0 * valid * d * h * 4 * h, PEAK_BF16_FLOPS)
+
+
+def _cudnn_lstm_bwd_ms(gen, fwd_args, h: int) -> float:
+    """ms of the backward of cuDNN's bf16 LSTM (input and weight
+    gradients) holding ``fwd_args``' weights (``_cudnn_lstm``), timed
+    apart from its forward, at T'=850, B=32."""
+    lib = _cudnn_lstm(fwd_args, h)
+    x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    out, _ = lib(x_lib)
+    g_out = torch.randn_like(out)
+    leaves = [x_lib, *lib.parameters()]
+    return _time_ms(lambda: torch.autograd.grad(
+        out, leaves, g_out, retain_graph=True), reps=3)
+
+
 def lstm_bwd_kernel_phase(gen, kernel: str, h: int, timed):
     """Hold ``ops.lstm.<kernel>`` (``lstm_bwd``, the resident kernel at
     these sizes, or ``lstm_bwd_stream``) against ``lstm_bwd_plain`` on
@@ -1212,30 +1243,16 @@ def lstm_bwd_kernel_phase(gen, kernel: str, h: int, timed):
             want=frozenset(_STREAM_KERNELS[kernel](bf16, h)))
         plain_ms = _time_ms(lambda: lstm.lstm_bwd_plain(*args), reps=1,
                             warm=False)
-        # Yardstick: the backward of cuDNN's bf16 LSTM (input and weight
-        # gradients), timed apart from its forward.
+        # Yardstick: the backward of cuDNN's bf16 LSTM.
         xp, mask, w, bias, ys, cs, dy, reverse = args
-        lib = _cudnn_lstm((xp, mask, w, bias, reverse), h)
-        x_lib = torch.randn(T, B, h, generator=gen, device="cuda").to(
-            bf16).requires_grad_()
-        out, _ = lib(x_lib)
-        g_out = torch.randn_like(out)
-        leaves = [x_lib, *lib.parameters()]
-        library_ms = _time_ms(lambda: torch.autograd.grad(
-            out, leaves, g_out, retain_graph=True), reps=3)
-        del out, g_out, leaves, lib, x_lib
+        library_ms = _cudnn_lstm_bwd_ms(gen, (xp, mask, w, bias, reverse), h)
         extra = {"device_ms": device_ms}
         if kernel.endswith("_stream"):
             # The streamed kernel where the resident one runs (H=800).
             args_h, _ = inputs(d, bf16, (T, B, H))
             extra["ms_at_h800"] = _time_ms(lambda: fn(*args_h), reps=2)
             del args_h
-        # Two [B,H]x[H,4H] products per valid step (gate recompute and
-        # dgates @ W^T) over the bf16 peak; the inputs read once and
-        # dgates written once.
-        bound_ms, bound_by = _roofline(
-            _nbytes(xp, mask, w, bias, ys, cs, dy) + 4 * d * T * B * 4 * h,
-            2 * 2.0 * valid * d * h * 4 * h, PEAK_BF16_FLOPS)
+        bound_ms, bound_by = _lstm_bwd_bound(args, valid)
         entries.append({
             "name": f"{kernel}[D={d}]", "route": "cuda",
             "source": f"deepspeech_tpu_torch/csrc/{kernel}.cu",
@@ -6617,39 +6634,49 @@ def _step(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 class _DSpy:
-    """Stands in for a recurrent forward wrapper of ``ops.gru`` or
-    ``ops.lstm``: calls it and records the D of each call that launched
-    its kernel. The real wrapper counts through its module's name, which
-    the patch points here, so ``launches`` is its count."""
+    """Stands in for a recurrent wrapper of ``ops.gru`` or ``ops.lstm``:
+    calls it and records the D of each call that launched its kernel
+    (``D=<d>``, with ``,tape`` for an LSTM forward that writes its cell
+    state tape, as ``LSTMFunction``'s does). The real wrapper counts
+    through its module's name, which the patch points here, so
+    ``launches`` is its count."""
 
     def __init__(self, real):
         self.real, self.launches, self.ds = real, 0, []
         self.__name__ = real.__name__
+        self.signature = inspect.signature(real)
 
     def __call__(self, xp, mask, w, *args, **kw):
         before = self.launches
         out = self.real(xp, mask, w, *args, **kw)
-        self.ds += [int(w.shape[0])] * (self.launches - before)
+        tape = self.signature.bind(xp, mask, w, *args, **kw).arguments.get(
+            "tape")
+        tag = f"D={int(w.shape[0])}" + (",tape" if tape else "")
+        self.ds += [tag] * (self.launches - before)
         return out
 
 
 @contextlib.contextmanager
 def _launches_by_d():
     """Within the block, the launches of K4/K6 (``gru_fwd``), K8, K12 and
-    K14, as ``{"<wrapper>[D=<d>]": n}`` (read after the block)."""
+    K14 and of the backward kernels K5/K7 (``gru_bwd``), K9, K13 and
+    K15, as ``{"<wrapper>[D=<d>]": n}`` (``[D=<d>,tape]`` for a taped
+    LSTM forward; read after the block)."""
     from deepspeech_tpu_torch.ops import gru, lstm
 
     spies = {(mod, n): _DSpy(getattr(mod, n))
              for mod, n in ((gru, "gru_fwd"), (gru, "gru_fwd_stream"),
-                            (lstm, "lstm_fwd"), (lstm, "lstm_fwd_stream"))}
+                            (lstm, "lstm_fwd"), (lstm, "lstm_fwd_stream"),
+                            (gru, "gru_bwd"), (gru, "gru_bwd_stream"),
+                            (lstm, "lstm_bwd"), (lstm, "lstm_bwd_stream"))}
     got: dict = {}
     with contextlib.ExitStack() as stack:
         for (mod, n), spy in spies.items():
             stack.enter_context(mock.patch.object(mod, n, spy))
         yield got
     for (_, n), spy in spies.items():
-        for d in spy.ds:
-            got[f"{n}[D={d}]"] = got.get(f"{n}[D={d}]", 0) + 1
+        for tag in spy.ds:
+            got[f"{n}[{tag}]"] = got.get(f"{n}[{tag}]", 0) + 1
 
 
 def _carry_checks(gen, kernel: str, h: int) -> dict:
@@ -7251,6 +7278,158 @@ def _gru_bwd_carry_checks(gen, kernel: str, h: int, dtypes, replaces=None):
     return out, entry
 
 
+def _lstm_relay_bits(kernel: str, args, gen) -> dict:
+    """One direction of a D=1 LSTM layer (``args`` = xp, mask, w, bias,
+    reverse from ``_lstm_inputs``) from a random ``(h0, c0)`` with a
+    random ``dcfin`` through ``SP_SHARDS`` chunks against one unsplit
+    call of the same kernels: the taped forward (``lstm_fwd``, which
+    picks K12 or K14) from each chunk's carry in, then
+    ``ops.lstm.<kernel>`` chunk by chunk in the backward's order with
+    the next chunk's ``dh0`` folded into ``dy`` at the scan's last row
+    and its ``dc0`` as ``dcfin``. ys, dgates and the first chunk's
+    ``(dh0, dc0)`` must equal the unsplit call's bit for bit. Returns
+    which did."""
+    from deepspeech_tpu_torch.ops import lstm
+
+    fn = getattr(lstm, kernel)
+    xp, mask, w, bias, rev = args
+    last = 0 if rev[0] else -1
+    bsz, h = xp.shape[1], w.shape[1]
+    hc0 = tuple(torch.randn(1, bsz, h, generator=gen, device="cuda") * 0.5
+                for _ in range(2))
+    dcfin = torch.randn(1, bsz, h, generator=gen, device="cuda") * 0.1
+    ys_full, cs_full = lstm.lstm_fwd(xp, mask, w, bias, rev, True, hc0=hc0)
+    r = torch.randn(ys_full.shape, generator=gen, device="cuda") * 0.1
+    ref, ref_dhc0 = fn(xp, mask, w, bias, ys_full, cs_full, r, rev,
+                       hc0=hc0, dcfin=dcfin, return_dhc0=True)
+    cuts = _cuts(xp.shape[0])
+    order = list(range(SP_SHARDS))[::-1 if rev[0] else 1]
+    ys, cs, carries, carry = {}, {}, {}, hc0
+    for k in order:
+        a, b = cuts[k], cuts[k + 1]
+        carries[k] = carry
+        ys[k], cs[k], carry = lstm.lstm_fwd(
+            xp[a:b], mask[a:b], w, bias, rev, True, hc0=carry,
+            return_final=True)
+    dg, fold = {}, (None, dcfin)
+    for k in order[::-1]:
+        a, b = cuts[k], cuts[k + 1]
+        dy = r[:, a:b].clone()
+        if fold[0] is not None:
+            dy[:, last] += fold[0]
+        dg[k], fold = fn(xp[a:b], mask[a:b], w, bias, ys[k], cs[k], dy, rev,
+                         hc0=carries[k], dcfin=fold[1], return_dhc0=True)
+    cat = [torch.cat([x[k] for k in range(SP_SHARDS)], 1) for x in (ys, dg)]
+    return {"ys": torch.equal(cat[0], ys_full),
+            "dgates": torch.equal(cat[1], ref),
+            "dh0": torch.equal(fold[0], ref_dhc0[0]),
+            "dc0": torch.equal(fold[1], ref_dhc0[1])}
+
+
+def _lstm_bwd_carry_checks(gen, kernel: str, h: int, dtypes, replaces=None):
+    """K13 (``lstm_bwd``, D=1, H=800) or K15 (``lstm_bwd_stream``, D=1,
+    H=1760) with a carried state, at T'=850, B=32, in each of
+    ``dtypes``: on the tape of a forward from a random ``(h0, c0)``,
+    with a random ``dy`` and ``dcfin``, ``dgates``, ``dh0`` and ``dc0``
+    within ``LSTM_BWD_TOL`` of ``lstm_bwd_plain``'s, the same bits twice,
+    the device kernels the profiler names those of its path; zeros as
+    ``(h0, c0)`` and ``dcfin`` give the NULL call's bits; a
+    ``SP_SHARDS``-chunk relay, forward and reverse, equal to one unsplit
+    call bit for bit (``_lstm_relay_bits``). Then ms a bf16 call with the
+    carry and without. With ``replaces`` (K15) also the kernels-line
+    entry of its D=1 call: the plain version's ms, cuDNN's LSTM backward
+    at D=1 and the bound."""
+    from deepspeech_tpu_torch.ops import lstm
+
+    fn = getattr(lstm, kernel)
+    out = {"checks": {}}
+    _zero_counts()
+    calls = 0
+
+    def inputs(dtype):
+        fwd_args, valid = _lstm_inputs(1, dtype, gen, T, B, h)
+        xp, mask, w, bias, rev = fwd_args
+        hc0 = tuple(torch.randn(1, B, h, generator=gen, device="cuda") * 0.5
+                    for _ in range(2))
+        ys, cs = lstm.lstm_fwd(*fwd_args, tape=True, hc0=hc0)
+        dy = torch.randn(ys.shape, generator=gen, device="cuda") * 0.1
+        dcfin = torch.randn(1, B, h, generator=gen, device="cuda") * 0.1
+        return (fwd_args, (xp, mask, w, bias, ys, cs, dy, rev),
+                {"hc0": hc0, "dcfin": dcfin, "return_dhc0": True}, valid)
+
+    for dtype in dtypes:
+        name = "D1_bf16_carry" if dtype == torch.bfloat16 else "D1_f32_carry"
+        fwd_args, args, kw, _ = inputs(dtype)
+        want = frozenset(_STREAM_KERNELS[kernel](dtype, h))
+        outs, ran, runs = _device_kernels(
+            lambda: [fn(*args, **kw) for _ in range(2)], tries=16, want=want)
+        calls += 2 * runs
+        _require(set(ran) == want, f"{kernel} {name}: ran {sorted(ran)}, "
+                 f"want {sorted(want)}")
+        flat = lambda o: [o[0], *o[1]]  # noqa: E731
+        got, again = (flat(o) for o in outs)
+        ref = flat(lstm.lstm_bwd_plain(*args, **kw))
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        tol = LSTM_BWD_TOL[dtype]
+        _require(all(bool(torch.isfinite(g).all()) for g in got),
+                 f"{kernel} {name}: non-finite")
+        _require(err <= tol, f"{kernel} {name}: max |kernel - plain| {err} "
+                 f"> {tol}")
+        _require(all(torch.equal(g, a) for g, a in zip(got, again)),
+                 f"{kernel} {name}: two runs on one input differ")
+        zeros = torch.zeros_like(kw["dcfin"])
+        zero = fn(*args, hc0=(zeros, zeros.clone()), dcfin=zeros.clone())
+        null = fn(*args)
+        calls += 2
+        _require(torch.equal(zero, null), f"{kernel} {name}: zeros as (h0, "
+                 "c0) and dcfin differ from none")
+        relay = {}
+        for direction, r in (("forward", False), ("reverse", True)):
+            before = _counts()[kernel]
+            relay[direction] = _lstm_relay_bits(kernel,
+                                                (*fwd_args[:4], (r,)), gen)
+            calls += _counts()[kernel] - before
+            _require(all(relay[direction].values()),
+                     f"{kernel} {name}: a {SP_SHARDS}-chunk {direction} relay "
+                     f"differs from one call: bit-equal {relay[direction]}")
+        out["checks"][name] = {
+            "max_abs_err": err, "tol": tol, "bit_identical": True,
+            "zeros_equal_null": True, "relay_bit_equal": relay,
+            "kernels": sorted(ran), "profiler_windows": runs,
+            "max_abs_dh0": float(ref[1].abs().max()),
+            "max_abs_dc0": float(ref[2].abs().max())}
+        print(json.dumps({"check": f"{kernel} {name}",
+                          **out["checks"][name]}), flush=True)
+        del args, outs, got, again, ref
+    _require_only(kernel, calls)
+    fwd_args, args, kw, valid = inputs(torch.bfloat16)
+    out["ms_carry"] = _time_ms(lambda: fn(*args, **kw), 3)
+    out["ms_null"] = _time_ms(lambda: fn(*args), 3)
+    out["shape"] = {"D": 1, "T": T, "B": B, "H": h, "dtype": "bfloat16",
+                    "valid_rows": valid}
+    print(json.dumps({"timed": f"{kernel}[D=1] carry", **out}), flush=True)
+    if replaces is None:
+        return out, None
+    bound_ms, bound_by = _lstm_bwd_bound(args, valid, kw["hc0"], kw["dcfin"])
+    entry = {
+        "name": f"{kernel}[D=1]", "route": "cuda",
+        "source": f"deepspeech_tpu_torch/csrc/{kernel}.cu",
+        "replaces": replaces, "launches": 0,
+        "max_abs_err": out["checks"]["D1_bf16_carry"]["max_abs_err"],
+        "ms": out["ms_carry"],
+        "plain_ms": _time_ms(lambda: lstm.lstm_bwd_plain(*args, **kw), 1,
+                             warm=False),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": _cudnn_lstm_bwd_ms(gen, fwd_args, h),
+        "library": "cuDNN LSTM backward, bf16, D=1",
+        "ms_null": out["ms_null"], "shape": out["shape"],
+        "checks": out["checks"]}
+    print(json.dumps({"timed": entry["name"], **{
+        k: entry[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}),
+        flush=True)
+    return out, entry
+
+
 def _sp_inputs(cfg, rng, t: int):
     """``_sp_batch``'s two rows (``t`` frames, the second ``SP_SHORT``
     shorter) with seeded labels of about ``SP_LABEL_CHARS`` characters
@@ -7291,8 +7470,9 @@ def _sp_against_offline_step(name: str, cfg, params, stats, batch,
     each gradient within ``SP_GRAD_RTOL``/``SP_GRAD_ATOL`` and the BN
     statistics (through ``MaskedBatchNorm.update``, against the offline
     forward's running ones) within ``SP_STATS_ATOL``; exactly the
-    launches of ``want`` in the SP step (``_counts()`` with K4/K6/K8 by
-    D). Then one more of each timed, host clock to a synchronize.
+    launches of ``want`` in the SP step (``_counts()`` with the GRU and
+    LSTM wrappers by D, ``_launches_by_d``). Then one more of each
+    timed, host clock to a synchronize.
     Returns the launches, the errors and the two steps' wall ms."""
     from deepspeech_tpu_torch.ops.ctc import ctc_loss_mean
     from deepspeech_tpu_torch.parallel.seqpar import sp_loss
@@ -7318,8 +7498,6 @@ def _sp_against_offline_step(name: str, cfg, params, stats, batch,
         loss_sp.backward()
         torch.cuda.synchronize()
     counts = {k: v for k, v in {**_counts(), **by_d}.items() if v}
-    counts.pop("gru_fwd", None)
-    counts.pop("gru_fwd_stream", None)
     _require(counts == want, f"{name}: SP step launches {counts}, want "
              f"{want}")
     g_off = {n: p.grad for n, p in off.named_parameters()}
@@ -7334,6 +7512,7 @@ def _sp_against_offline_step(name: str, cfg, params, stats, batch,
            "batch": list(batch["features"].shape[:2]),
            "label_lens": batch["label_lens"].tolist(),
            "dtype": cfg.model.dtype, "H": cfg.model.rnn_hidden,
+           "rnn_type": cfg.model.rnn_type,
            "layers": cfg.model.rnn_layers, "launches": counts,
            "loss": float(loss_sp), "loss_offline": float(loss_off),
            "loss_rel_err": loss_err, "grad_rel_l2_worst_leaf": rel[worst],
@@ -7448,29 +7627,34 @@ def _sp_trainer_steps(cfg, params, stats, batch) -> dict:
 
 
 def seqpar_train_phase(card: str):
-    """Item 14b on the card, one phase:
+    """Items 14b and 14b-ii on the card, one phase:
 
     - K1 and K2 over 4 chunks with the carried band, bit-equal to one
       unsplit call (``_ctc_carry_checks``);
     - K7 (D=1, H=800, bf16 and f32) and K9 (D=1, H=1760, bf16) with a
       carried ``h0`` and ``dh0`` (``_gru_bwd_carry_checks``), and K9's
       D=1 kernels-line entry;
+    - K13 (D=1, H=800, bf16 and f32) and K15 (D=1, H=1760, bf16) with a
+      carried ``(h0, c0)``, ``dcfin`` and ``(dh0, dc0)``
+      (``_lstm_bwd_carry_checks``), and K15's D=1 kernels-line entry;
     - ``sp_loss`` at ds2_small's full width (3 BiGRU, H=800, bf16) on a
       (2, 6800) recording with ~400-character labels over 4 shards of
       this card against the offline step: 24 K6 and 24 K7 (2 directions
       x 3 layers x 4 shards, D=1), 4 taped K1 and 4 K2, no K4, K5 or K3;
       the same in f32 at 1600 frames, with the BN statistics; ds2_full's
       width with one layer (8 K8 and 8 K9 at D=1);
+    - the same for the LSTM variants (``model.rnn_type=lstm``): 24 taped
+      K12 and 24 K13 at D=1 at ds2_small's width, bf16 and f32, no K12 or
+      K13 at D=2; 8 taped K14 and 8 K15 at D=1 at ds2_full's width with
+      one layer;
     - ``Trainer`` with ``train.sequence_parallel`` and the guarded step,
-      two steps, against the offline Trainer's first step;
-    - an LSTM model refused, naming item 14b-ii.
+      two steps, against the offline Trainer's first step, for ds2_small
+      and ds2_small-lstm.
 
-    Returns (K9's D=1 kernels-line entry, the carry checks by kernel,
-    the launches of the counted runs by kernels-line entry)."""
+    Returns (K9's and K15's D=1 kernels-line entries, the carry checks by
+    kernel, the launches of the counted runs by kernels-line entry)."""
     from deepspeech_tpu_torch.bridge import init_params
     from deepspeech_tpu_torch.config import apply_overrides
-    from deepspeech_tpu_torch.data import CharTokenizer
-    from deepspeech_tpu_torch.train import Trainer
 
     # A generator of its own: the later phases draw what they drew before.
     gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
@@ -7487,55 +7671,70 @@ def seqpar_train_phase(card: str):
         gen, "gru_bwd", H, (torch.bfloat16, torch.float32))
     carry["gru_bwd_stream"], k9_d1 = _gru_bwd_carry_checks(
         gen, "gru_bwd_stream", 1760, (torch.bfloat16,), K9)
+    # The LSTM's draw from their own generator and rng, after the GRU's:
+    # those keep the inputs they had.
+    lgen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    lrng = np.random.default_rng(SEED + 30)
+    carry["lstm_bwd"], _ = _lstm_bwd_carry_checks(
+        lgen, "lstm_bwd", H, (torch.bfloat16, torch.float32))
+    carry["lstm_bwd_stream"], k15_d1 = _lstm_bwd_carry_checks(
+        lgen, "lstm_bwd_stream", 1760, (torch.bfloat16,), K15)
+    # The taped K14 launches at D=1 go to the D=2 entry's launches_d1.
     sp_names = {"gru_fwd[D=1]": "gru_fwd[D=1]", "gru_fwd": "gru_fwd[D=1]",
-                "gru_bwd": "gru_bwd[D=1]",
+                "gru_bwd[D=1]": "gru_bwd[D=1]", "gru_bwd": "gru_bwd[D=1]",
                 "gru_fwd_stream[D=1]": "gru_fwd_stream[D=1]",
-                "gru_bwd_stream": "gru_bwd_stream[D=1]",
+                "gru_bwd_stream[D=1]": "gru_bwd_stream[D=1]",
+                "lstm_fwd[D=1,tape]": "lstm_fwd[D=1]",
+                "lstm_fwd": "lstm_fwd[D=1]",
+                "lstm_bwd[D=1]": "lstm_bwd[D=1]", "lstm_bwd": "lstm_bwd[D=1]",
+                "lstm_fwd_stream[D=1,tape]": "lstm_fwd_stream[D=1]",
+                "lstm_bwd_stream[D=1]": "lstm_bwd_stream[D=1]",
                 "ctc_alpha": "ctc_alpha", "ctc_beta": "ctc_beta"}
+    ctc = {"ctc_alpha": SP_SHARDS, "ctc_beta": SP_SHARDS}
+    small_want = {
+        "gru": {"gru_fwd[D=1]": 24, "gru_bwd[D=1]": 24, **ctc},
+        "lstm": {"lstm_fwd[D=1,tape]": 24, "lstm_bwd[D=1]": 24, **ctc}}
+    full_want = {
+        "gru": {"gru_fwd_stream[D=1]": 2 * SP_SHARDS,
+                "gru_bwd_stream[D=1]": 2 * SP_SHARDS, **ctc},
+        "lstm": {"lstm_fwd_stream[D=1,tape]": 2 * SP_SHARDS,
+                 "lstm_bwd_stream[D=1]": 2 * SP_SHARDS, **ctc}}
+    cases, trainers = [], {}
+    for rnn_type, r in (("gru", rng), ("lstm", lrng)):
+        sfx = "" if rnn_type == "gru" else "_lstm"
+        small = _config("ds2_small", rnn_type)
+        params, stats = _weights("ds2_small", rnn_type)
+        for name, c, t in (
+                (f"ds2_small{sfx}_bf16", small, SP_FRAMES),
+                (f"ds2_small{sfx}_f32", apply_overrides(
+                    small, {"model.dtype": "float32"}), SP_FRAMES_SHORT)):
+            batch = _sp_inputs(c, r, t)
+            cases.append(_sp_against_offline_step(
+                name, c, params, stats, batch, small_want[rnn_type]))
+            add(cases[-1]["launches"], sp_names)
+        trainers[rnn_type] = _sp_trainer_steps(
+            small, params, stats, _sp_inputs(small, r, SP_FRAMES_SHORT))
+        add(trainers[rnn_type]["launches"], sp_names)
+        del params, stats
+        _weights.cache_clear()
 
-    small = _config("ds2_small")
-    params, stats = _weights("ds2_small")
-    cases = []
-    for name, c, t in (
-            ("ds2_small_bf16", small, SP_FRAMES),
-            ("ds2_small_f32", apply_overrides(
-                small, {"model.dtype": "float32"}), SP_FRAMES_SHORT)):
-        batch = _sp_inputs(c, rng, t)
+        one = apply_overrides(_config("ds2_full", rnn_type),
+                              {"model.rnn_layers": "1"})
+        p1, s1 = init_params(one, torch.Generator().manual_seed(SEED))
         cases.append(_sp_against_offline_step(
-            name, c, params, stats, batch,
-            {"gru_fwd[D=1]": 24, "gru_bwd": 24, "ctc_alpha": SP_SHARDS,
-             "ctc_beta": SP_SHARDS}))
+            f"ds2_full{sfx}_1layer_bf16", one, p1, s1,
+            _sp_inputs(one, r, SP_FRAMES_SHORT), full_want[rnn_type]))
         add(cases[-1]["launches"], sp_names)
-    trainer = _sp_trainer_steps(small, params, stats,
-                                _sp_inputs(small, rng, SP_FRAMES_SHORT))
-    add(trainer["launches"], sp_names)
-    del params, stats
-    _weights.cache_clear()
-
-    one = apply_overrides(_config("ds2_full"), {"model.rnn_layers": "1"})
-    p1, s1 = init_params(one, torch.Generator().manual_seed(SEED))
-    cases.append(_sp_against_offline_step(
-        "ds2_full_1layer_bf16", one, p1, s1,
-        _sp_inputs(one, rng, SP_FRAMES_SHORT),
-        {"gru_fwd_stream[D=1]": 2 * SP_SHARDS,
-         "gru_bwd_stream": 2 * SP_SHARDS, "ctc_alpha": SP_SHARDS,
-         "ctc_beta": SP_SHARDS}))
-    add(cases[-1]["launches"], sp_names)
-
-    lstm = apply_overrides(_config("ds2_small", "lstm"), {
-        "train.sequence_parallel": "true", "train.checkpoint_dir": ""})
-    try:
-        Trainer(lstm, _FixedBatch({}), CharTokenizer.english())
-    except NotImplementedError as e:
-        _require("14b-ii" in str(e), f"LSTM refusal names {e}")
-    else:
-        raise RuntimeError("an SP Trainer of an LSTM model did not raise")
+        del p1, s1
+    ratios = {c["case"]: c["sp_step_ms"] / c["offline_step_ms"]
+              for c in cases}
     print(card, flush=True)
     print(json.dumps({"seqpar_train_phase": {
-        "carry": carry, "cases": cases, "trainer": trainer,
-        "lstm_refused": True, "launches": counted}, "card": card}),
+        "carry": carry, "cases": cases, "trainers": trainers,
+        "sp_over_offline_step": ratios, "launches": counted}, "card": card}),
         flush=True)
-    return k9_d1, carry, counted
+    return {"gru_bwd_stream[D=1]": k9_d1,
+            "lstm_bwd_stream[D=1]": k15_d1}, carry, counted
 
 
 def main() -> int:
@@ -7616,14 +7815,17 @@ def main() -> int:
                                   gen, root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    # Item 14b: K1/K2 with a carried band, K7/K9 with h0 and dh0, sp_loss
-    # and the SP Trainer over shards of this card (K6, K7, K8, K9 at D=1,
-    # K1, K2); its launches are added after the train phases set theirs.
-    k9_d1, sp_carry, sp_train_counts = _phase(
-        "seqpar train (sp_loss, SP Trainer, K1/K2 band relay, K7/K9 carry)",
-        seqpar_train_phase, card)
-    entries["gru_bwd_stream[D=1]"] = k9_d1
+    # Items 14b and 14b-ii: K1/K2 with a carried band, K7/K9 with h0 and
+    # dh0, K13/K15 with (h0, c0), dcfin and (dh0, dc0), sp_loss and the
+    # SP Trainer over shards of this card, GRU and LSTM (K6, K7, K8, K9,
+    # K12, K13, K14, K15 at D=1, K1, K2); its launches are added after
+    # the train phases set theirs.
+    d1_entries, sp_carry, sp_train_counts = _phase(
+        "seqpar train (sp_loss, SP Trainer, GRU and LSTM, K1/K2 band "
+        "relay, K7/K9 and K13/K15 carry)", seqpar_train_phase, card)
+    entries.update(d1_entries)
     entries["gru_bwd[D=1]"]["carry"] = sp_carry["gru_bwd"]
+    entries["lstm_bwd[D=1]"]["carry"] = sp_carry["lstm_bwd"]
     for name in ("ctc_alpha", "ctc_beta"):
         entries[name]["carry"] = sp_carry["ctc"]
     entries["lstm_fwd[D=1]"]["carry"] = carry["lstm_fwd"]
@@ -7667,6 +7869,8 @@ def main() -> int:
                               ("ctc_alpha[loss_only]", "loss_only"),
                               ("ctc_beta", "ctc_beta")):
             entries[ctc_name]["launches"] += counts[key]
+    entries["lstm_fwd_stream[D=2]"]["launches_d1"] = sp_train_counts.pop(
+        "lstm_fwd_stream[D=1]", 0)
     for name, n in sp_train_counts.items():
         entries[name]["launches"] += n
     # ds2_small on a WAV manifest: train, checkpoint, resume, serve.
@@ -7757,7 +7961,8 @@ def main() -> int:
         "gru_fwd_q[D=1]", "gru_fwd_q_stream[D=2]",
         "lstm_fwd[D=2]", "lstm_fwd[D=1]", "lstm_fwd_stream[D=2]",
         "lstm_fwd_q[D=2]", "lstm_fwd_q[D=1]", "lstm_fwd_q_stream[D=2]",
-        "lstm_bwd[D=2]", "lstm_bwd[D=1]", "lstm_bwd_stream[D=2]")]
+        "lstm_bwd[D=2]", "lstm_bwd[D=1]", "lstm_bwd_stream[D=2]",
+        "lstm_bwd_stream[D=1]")]
     for e in entries:
         _require(e["launches"] > 0, f"{e['name']} never launched")
     print(json.dumps({"kernels": entries, "card": card}), flush=True)

@@ -6,19 +6,27 @@
 // lstm_pallas.py:147, K13, launched per direction by _lstm_bwd :416 in its
 // resident branch). The contract is ops/lstm.py lstm_bwd's docstring:
 //   xp [T,B,4H] and w [D,H,4H] in one dtype, bf16|f32 (the dot dtype),
-//   mask [T,B] f32, bias [D,4H] f32, ys and cs [D,T,B,H] f32 (the forward's
-//   outputs and cell-state tape), dy [D,T,B,H] f32, reverse bit d set for a
-//   direction whose forward ran t = T-1..0
+//   mask [T,B] f32, bias [D,4H] f32, h0 and c0 [D,B,H] f32 or NULL (zeros:
+//   the carry the forward started from), ys and cs [D,T,B,H] f32 (the
+//   forward's outputs and cell-state tape), dy [D,T,B,H] f32, dcfin
+//   [D,B,H] f32 or NULL (zeros: the gradient on the final cell state),
+//   reverse bit d set for a direction whose forward ran t = T-1..0
 //   -> dgates [D,T,B,4H] f32 = (da_i, da_f, da_g, da_o) at every row, the
 //      gradient of the gate pre-activations; it is both the TPU kernel's
-//      dxp and its dgates, which hold the same values.
-// Each direction runs against its own forward order from dh = dc = 0. A
-// step recomputes the gates from h_prev (the ys row of the forward's step
-// before, 0 at its first step) rounded to the dot dtype, with c_prev from
-// the tape one step behind (0 at the first step), applies
-// _lstm_elementwise_bwd's math (lstm_pallas.py:54) with dh = carry + dy,
-// and carries dc_prev and dh_prev = (1 - m) dh + round(dgates) @ W^T, summed
-// in f32.
+//      dxp and its dgates, which hold the same values. Where dh0 and dc0
+//      [D,B,H] f32 are not NULL, the gradients of h0 and c0 there.
+// Each direction runs against its own forward order from dh = 0 and
+// dc = dcfin. A step recomputes the gates from h_prev (the ys row of the
+// forward's step before, h0 at its first step) rounded to the dot dtype,
+// with c_prev from the tape one step behind (c0 at the first step),
+// applies _lstm_elementwise_bwd's math (lstm_pallas.py:54) with dh =
+// carry + dy, and carries dc_prev and dh_prev = (1 - m) dh + round(dgates)
+// @ W^T, summed in f32; the first step's are dc0 and dh0. The gradient on
+// the final h takes no argument: the carry out is ys at the scan's last
+// row (a masked frame holds h and c), so it arrives in dy there. The
+// sequence-parallel relay (parallel/seqpar.py) hands each chunk's (dh0,
+// dc0) to the chunk before it, dh0 into dy's last scan row and dc0 as
+// its dcfin.
 //
 // What bounds it: per step two [B,H] x [H,4H]-sized products (the gate
 // recompute and dgates @ W^T), 2 * 2*T*D*B*H*4H FLOPs in all, and the
@@ -28,16 +36,18 @@
 // needs it, so the time is T times one step's latency, far above both
 // bounds.
 //
-// bf16 path (the main path: ds2_small-lstm at D=2, ds2_streaming-lstm at
-// D=1, both H=800) where H % 8 == 0 and w, ys and the scratch are 16-byte
-// aligned: two launches from one C entry point, both from
+// bf16 path (the main path: ds2_small-lstm at D=2, ds2_streaming-lstm and
+// the sequence-parallel relay at D=1, all H=800) where H % 8 == 0 and w,
+// ys, h0 and the scratch are 16-byte aligned: two launches from one C entry point, both from
 // csrc/lstm_bwd_mma.cuh (K15 runs the same two with W streamed):
 //  1. lstm_bwd_gates_kernel, the gate pre-pass: one tensor-core GEMM
 //     pre[d, row] = round(h_prev(d, row)) @ W[d] + bias[d] for every row at
 //     once (M = T*B, N = 4H, K = H: 139 GFLOP a direction at H=800, T'=850,
 //     B=32), written into the dgates buffer itself. The recompute leaves
 //     the serial chain.
-//  2. lstm_bwd_mma_kernel<MU, MS>, the serial loop with W resident: a
+//  2. lstm_bwd_mma_kernel<MU, MS, CARRY>, the serial loop with W
+//     resident (CARRY: the instance that reads c0 and dcfin and writes dh0
+//     and dc0, launched where the call has any of them): a
 //     cooperative grid of D x ceil(H/MU) groups of MU hidden units, one
 //     group a block and one block an SM, one grid barrier a step. A group
 //     copies its rows of W, [MU, 4H] bf16 (102 KB at MU=16, H=800), into
@@ -143,8 +153,11 @@ template <typename WT>
 __global__ void __launch_bounds__(THREADS)
 lstm_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
                 const WT* __restrict__ w, const float* __restrict__ bias,
+                const float* __restrict__ h0, const float* __restrict__ c0,
                 const float* __restrict__ ys, const float* __restrict__ cs,
-                const float* __restrict__ dy, float* __restrict__ dgates,
+                const float* __restrict__ dy,
+                const float* __restrict__ dcfin, float* __restrict__ dgates,
+                float* __restrict__ dh0, float* __restrict__ dc0,
                 float* partial, int T, int B, int H, int h_pad,
                 int reverse_bits) {
   extern __shared__ __align__(16) float smem[];
@@ -175,7 +188,13 @@ lstm_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
     w_s[c * ws + k] =
         (k < H && j0 + u < H) ? to_f32(w_d[k * H4 + g * H + j0 + u]) : 0.f;
   }
-  for (int i = threadIdx.x; i < 2 * B * U; i += THREADS) dh_s[i] = 0.f;
+  for (int e = threadIdx.x; e < B * U; e += THREADS) {
+    const int b = e / U, u = e % U;
+    dh_s[e] = 0.f;
+    dc_s[e] = dcfin != nullptr && j0 + u < H
+                  ? dcfin[size_t(d) * BH + size_t(b) * H + j0 + u]
+                  : 0.f;
+  }
   float b_i = 0.f, b_f = 0.f, b_g = 0.f, b_o = 0.f;
   if (j < H) {
     b_i = bias[d * H4 + j];
@@ -199,10 +218,16 @@ lstm_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
   for (int i = 0; i < T; ++i) {
     // Step i of this direction's BPTT is step T-1-i of its forward scan.
     const int row = rev ? i : T - 1 - i;
-    const bool last = i == T - 1;  // the forward's first step: h, c = 0
+    const bool last = i == T - 1;  // the forward's first step: h0, c0
+    // No dh_prev past the recurrence's start unless dh0 asks for it.
+    const bool stop = last && dh0 == nullptr;
     const size_t prev = size_t(rev ? row + 1 : row - 1) * BH;
-    const float* hp = last ? nullptr : ys_d + prev;
-    const float* cp = last ? nullptr : cs_d + prev;
+    const float* hp = !last ? ys_d + prev
+                      : h0 != nullptr ? h0 + size_t(d) * BH
+                                      : nullptr;
+    const float* cp = !last ? cs_d + prev
+                      : c0 != nullptr ? c0 + size_t(d) * BH
+                                      : nullptr;
     // This block's partial sums for this step: [B][H].
     float* part = partial + (i & 1) * parity_stride +
                   (size_t(d) * nblk + blk) * BH;
@@ -286,7 +311,10 @@ lstm_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
           // dh_s now holds dh_prev's elementwise part; the partial sums
           // are added to it after the grid barrier.
           dh_s[b * U + lu] = (1.f - m) * dh;
-          dc_s[b * U + lu] = dc_pre * fg + (1.f - m) * dc_in;
+          const float dc_prev = dc_pre * fg + (1.f - m) * dc_in;
+          dc_s[b * U + lu] = dc_prev;
+          if (last && dc0 != nullptr)
+            dc0[size_t(d) * BH + size_t(b) * H + j] = dc_prev;
           float* o = dg_d + (size_t(row) * B + b) * H4;
           o[j] = da_i;
           o[H + j] = da_f;
@@ -302,7 +330,7 @@ lstm_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
         t_s[r * TS + 2 * U + lu] = g_g;
         t_s[r * TS + 3 * U + lu] = g_o;
       }
-      if (last) continue;  // no dh_prev past the recurrence's start
+      if (stop) continue;
       __syncthreads();  // the dgates tile is complete
       // Partial sums of round(dgates) @ W^T over this block's columns,
       // for every hidden unit k: thread k holds W[k, cols] in registers.
@@ -328,7 +356,7 @@ lstm_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
       }
       __syncthreads();  // the tile's readers are done before the next pass
     }
-    if (last) break;
+    if (stop) break;
     grid.sync();
     // dh carried into the next step: the elementwise part plus the
     // partial sums of every block of this direction, in block order.
@@ -342,7 +370,10 @@ lstm_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
       float dot = 0.f;
 #pragma unroll 5
       for (int q = 0; q < nblk; ++q) dot += __ldcg(p + size_t(q) * BH);
-      dh_s[e] += dot;
+      if (last)
+        dh0[size_t(d) * BH + size_t(b) * H + j0 + u] = dh_s[e] + dot;
+      else
+        dh_s[e] += dot;
     }
     __syncthreads();
   }
@@ -350,10 +381,11 @@ lstm_bwd_kernel(const WT* __restrict__ xp, const float* __restrict__ mask,
 
 template <typename WT>
 cudaError_t launch(const void* xp, const float* mask, const void* w,
-                   const float* bias, const float* ys, const float* cs,
-                   const float* dy, float* dgates, float* partial, int D,
-                   int T, int B, int H, int reverse_bits, int device,
-                   cudaStream_t stream) {
+                   const float* bias, const float* h0, const float* c0,
+                   const float* ys, const float* cs, const float* dy,
+                   const float* dcfin, float* dgates, float* dh0, float* dc0,
+                   float* partial, int D, int T, int B, int H,
+                   int reverse_bits, int device, cudaStream_t stream) {
   auto* kernel = lstm_bwd_kernel<WT>;
   const int h_pad = (H + KC - 1) / KC * KC;
   const size_t smem = smem_bytes(h_pad, B);
@@ -369,9 +401,9 @@ cudaError_t launch(const void* xp, const float* mask, const void* w,
   if (blocks < groups) return cudaErrorCooperativeLaunchTooLarge;
   const WT* xp_t = static_cast<const WT*>(xp);
   const WT* w_t = static_cast<const WT*>(w);
-  void* args[] = {&xp_t, &mask, &w_t, &bias, &ys, &cs, &dy, &dgates,
-                  &partial, &T, &B, &H, const_cast<int*>(&h_pad),
-                  &reverse_bits};
+  void* args[] = {&xp_t, &mask, &w_t, &bias, &h0, &c0, &ys, &cs, &dy,
+                  &dcfin, &dgates, &dh0, &dc0, &partial, &T, &B, &H,
+                  const_cast<int*>(&h_pad), &reverse_bits};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                     dim3(blocks), dim3(THREADS), args, smem,
                                     stream);
@@ -393,22 +425,29 @@ constexpr int MS_WIDE = 4;
 __global__ void __launch_bounds__(lstm_bwd_mma::P_THREADS)
 lstm_bwd_gates_kernel(const __nv_bfloat16* __restrict__ w,
                       const float* __restrict__ bias,
+                      const float* __restrict__ h0,
                       const float* __restrict__ ys, float* __restrict__ pre,
                       int T, int B, int H, int reverse_bits) {
-  lstm_bwd_mma::gates(w, bias, ys, pre, T, B, H, reverse_bits);
+  lstm_bwd_mma::gates(w, bias, h0, ys, pre, T, B, H, reverse_bits);
 }
 
-template <int MU, int MS>
+// CARRY: the loop reads c0 and dcfin and writes dh0 and dc0; without it
+// the loop from zeros.
+template <int MU, int MS, bool CARRY>
 __global__ void __launch_bounds__(lstm_bwd_mma::M_THREADS, 1)
 lstm_bwd_mma_kernel(const __nv_bfloat16* __restrict__ xp,
                     const float* __restrict__ mask,
                     const __nv_bfloat16* __restrict__ w,
+                    const float* __restrict__ c0,
                     const float* __restrict__ cs,
-                    const float* __restrict__ dy, float* dgates,
+                    const float* __restrict__ dy,
+                    const float* __restrict__ dcfin, float* dgates,
+                    float* __restrict__ dh0, float* __restrict__ dc0,
                     float* scratch, int D, int T, int B, int H,
                     int reverse_bits) {
-  lstm_bwd_mma::loop<MU, MS, true>(xp, mask, w, cs, dy, dgates, scratch, D,
-                                   T, B, H, reverse_bits);
+  lstm_bwd_mma::loop<MU, MS, true, CARRY>(xp, mask, w, c0, cs, dy, dcfin,
+                                          dgates, dh0, dc0, scratch, D, T, B,
+                                          H, reverse_bits);
 }
 
 template <int MU, int MS>
@@ -416,26 +455,31 @@ size_t loop_smem(int H) {
   return lstm_bwd_mma::Plan<MU, MS, true>::smem(H);
 }
 
-// The two launches at the width the card's SM count gives.
+// The two launches at the width the card's SM count gives, the loop
+// with the carry where the call has one.
 cudaError_t launch_mma(const void* xp, const float* mask, const void* w,
-                       const float* bias, const float* ys, const float* cs,
-                       const float* dy, float* dgates, float* scratch, int D,
-                       int T, int B, int H, int reverse_bits, int device,
-                       cudaStream_t stream) {
+                       const float* bias, const float* h0, const float* c0,
+                       const float* ys, const float* cs, const float* dy,
+                       const float* dcfin, float* dgates, float* dh0,
+                       float* dc0, float* scratch, int D, int T, int B, int H,
+                       int reverse_bits, int device, cudaStream_t stream) {
   int sms = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   const bool narrow = D * ((H + MU_NARROW - 1) / MU_NARROW) <= sms;
+  const bool carry = lstm_bwd_mma::carries(h0, c0, dcfin, dh0, dc0);
   return lstm_bwd_mma::launch(
       lstm_bwd_gates_kernel,
-      narrow ? lstm_bwd_mma_kernel<MU_NARROW, MS_NARROW>
-             : lstm_bwd_mma_kernel<MU_WIDE, MS_WIDE>,
+      narrow ? (carry ? lstm_bwd_mma_kernel<MU_NARROW, MS_NARROW, true>
+                      : lstm_bwd_mma_kernel<MU_NARROW, MS_NARROW, false>)
+             : (carry ? lstm_bwd_mma_kernel<MU_WIDE, MS_WIDE, true>
+                      : lstm_bwd_mma_kernel<MU_WIDE, MS_WIDE, false>),
       narrow ? MU_NARROW : MU_WIDE,
       narrow ? loop_smem<MU_NARROW, MS_NARROW>(H)
              : loop_smem<MU_WIDE, MS_WIDE>(H),
-      true, xp, mask, w, bias, ys, cs, dy, dgates, scratch, D, T, B, H,
-      reverse_bits, device, stream);
+      true, xp, mask, w, bias, h0, c0, ys, cs, dy, dcfin, dgates, dh0, dc0,
+      scratch, D, T, B, H, reverse_bits, device, stream);
 }
 
 bool aligned16(const void* p) {
@@ -459,16 +503,21 @@ long long lstm_bwd_mma_scratch_floats(int D, int B, int H) {
 }
 
 // Returns 0 or a cudaError_t; the launches are asynchronous on `stream`.
-// xp and w are bf16 when `bf16` is set, f32 otherwise. A bf16 call runs
-// the tensor-core path (two launches; lstm_bwd_mma_scratch_floats of
-// scratch) where H % 8 == 0 and w, ys and scratch are 16-byte aligned,
-// else the CUDA-core kernel, as f32 does (lstm_bwd_scratch_floats). The
-// calling thread's current device is the same after the call as before it.
+// xp and w are bf16 when `bf16` is set, f32 otherwise. h0, c0 and dcfin
+// (NULL: zeros) and dh0 and dc0 (NULL: not formed) are [D,B,H] f32; with
+// all five NULL the call is the BPTT from zeros, bit for bit. A bf16 call
+// runs the tensor-core path (two launches; lstm_bwd_mma_scratch_floats of
+// scratch) where H % 8 == 0 and w, ys, h0 and scratch are 16-byte
+// aligned, else the CUDA-core kernel, as f32 does (lstm_bwd_scratch_floats).
+// The calling thread's current device is the same after the call as
+// before it.
 int lstm_bwd_launch(int bf16, const void* xp, const float* mask,
-                    const void* w, const float* bias, const float* ys,
-                    const float* cs, const float* dy, float* dgates,
-                    float* scratch, int D, int T, int B, int H,
-                    int reverse_bits, int device, void* stream) {
+                    const void* w, const float* bias, const float* h0,
+                    const float* c0, const float* ys, const float* cs,
+                    const float* dy, const float* dcfin, float* dgates,
+                    float* dh0, float* dc0, float* scratch, int D, int T,
+                    int B, int H, int reverse_bits, int device,
+                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -476,16 +525,18 @@ int lstm_bwd_launch(int bf16, const void* xp, const float* mask,
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const bool mma = bf16 && H % 8 == 0 && aligned16(w) && aligned16(ys) &&
-                   aligned16(scratch);
+                   aligned16(h0) && aligned16(scratch);
   if (mma)
-    err = launch_mma(xp, mask, w, bias, ys, cs, dy, dgates, scratch, D, T, B,
-                     H, reverse_bits, device, st);
+    err = launch_mma(xp, mask, w, bias, h0, c0, ys, cs, dy, dcfin, dgates,
+                     dh0, dc0, scratch, D, T, B, H, reverse_bits, device, st);
   else if (bf16)
-    err = launch<__nv_bfloat16>(xp, mask, w, bias, ys, cs, dy, dgates,
-                                scratch, D, T, B, H, reverse_bits, device, st);
+    err = launch<__nv_bfloat16>(xp, mask, w, bias, h0, c0, ys, cs, dy, dcfin,
+                                dgates, dh0, dc0, scratch, D, T, B, H,
+                                reverse_bits, device, st);
   else
-    err = launch<float>(xp, mask, w, bias, ys, cs, dy, dgates, scratch, D, T,
-                        B, H, reverse_bits, device, st);
+    err = launch<float>(xp, mask, w, bias, h0, c0, ys, cs, dy, dcfin, dgates,
+                        dh0, dc0, scratch, D, T, B, H, reverse_bits, device,
+                        st);
   const cudaError_t restore = cudaSetDevice(prev);
   return err != cudaSuccess ? err : restore;
 }

@@ -6,16 +6,29 @@
 // to launch() below with its own two kernels.
 //
 // The contract is ops/lstm.py lstm_bwd's docstring: xp [T,B,4H] and
-// w [D,H,4H] bf16, mask [T,B] f32, bias [D,4H] f32, ys and cs [D,T,B,H]
-// f32 (the forward's outputs and cell-state tape), dy [D,T,B,H] f32,
-// reverse bit d set for a direction whose forward ran t = T-1..0
-//   -> dgates [D,T,B,4H] f32 = (da_i, da_f, da_g, da_o) at every row.
-// Each direction runs against its own forward order from dh = dc = 0; a
-// step recomputes the gates from round(h_prev) (the ys row of the
-// forward's step before, 0 at its first step), with c_prev from the tape,
-// applies _lstm_elementwise_bwd's math (deepspeech_tpu/ops/
-// lstm_pallas.py:54) with dh = carry + dy, and carries dc_prev and
-// dh_prev = (1 - m) dh + round(dgates) @ W^T in f32.
+// w [D,H,4H] bf16, mask [T,B] f32, bias [D,4H] f32, h0 and c0 [D,B,H]
+// f32 or NULL (zeros: the carry the forward started from), ys and cs
+// [D,T,B,H] f32 (the forward's outputs and cell-state tape), dy
+// [D,T,B,H] f32, dcfin [D,B,H] f32 or NULL (zeros: the gradient on the
+// final cell state), reverse bit d set for a direction whose forward ran
+// t = T-1..0
+//   -> dgates [D,T,B,4H] f32 = (da_i, da_f, da_g, da_o) at every row, and
+//      dh0, dc0 [D,B,H] f32 where they are not NULL.
+// Each direction runs against its own forward order from dh = 0 and
+// dc = dcfin; a step recomputes the gates from round(h_prev) (the ys row
+// of the forward's step before, h0 at its first step), with c_prev from
+// the tape (c0 at the first step), applies _lstm_elementwise_bwd's math
+// (deepspeech_tpu/ops/lstm_pallas.py:54) with dh = carry + dy, and
+// carries dc_prev and dh_prev = (1 - m) dh + round(dgates) @ W^T in f32.
+// The first step's dc_prev is dc0; with dh0 the loop runs one pass more,
+// the product alone, and writes there the first step's dh_prev, formed as
+// every other step's. The gradient on the final h needs no argument: the
+// carry out is ys at the scan's last row (a masked frame holds h and c),
+// so it arrives in dy there. The loop is templated on the carry: without
+// it (CARRY false) it compiles to the loop from zeros (on an H100 the
+// same registers, bits and time as before the carry; k13_variants.py
+// --parent); with it, dh0's pass re-reads the first step's inputs, in
+// bounds, so no load waits on a branch.
 //
 // Two launches from one C call, chosen before either:
 //  1. gates(), a tiled GEMM on the tensor cores: pre[d, row] =
@@ -66,9 +79,10 @@
 // D=1, and cutting each warp's 12-13 chunks to one saves 3.9 and 3.1
 // (deepspeech_tpu_torch/k13_variants.py's ablations).
 //
-// Needs H % 4 == 0 (H % 8 == 0 for W_RESIDENT) and 16-byte aligned w, ys
-// and scratch (a copy is 4 f32 of h_prev or 8 bf16 of a row). Scratch: dh
-// and dc [D,B,H] f32 each, then the round(dgates) rows [2][D][B][4H] bf16.
+// Needs H % 4 == 0 (H % 8 == 0 for W_RESIDENT) and 16-byte aligned w, ys,
+// h0 (when given) and scratch (a copy is 4 f32 of h_prev or 8 bf16 of a
+// row). Scratch: dh and dc [D,B,H] f32 each, then the round(dgates) rows
+// [2][D][B][4H] bf16.
 
 #pragma once
 
@@ -159,10 +173,11 @@ constexpr size_t PRE_SMEM = sizeof(float4) * PS * P_F +
 
 // pre[d] [T*B, 4H] f32 = round(h_prev(d)) @ W[d] + bias[d], where row
 // m = t*B + b of h_prev(d) is ys[d] row m - B (forward) or m + B
-// (reverse), zero where that falls outside: the forward's first step.
-// grid = (N tiles, M tiles (strided), D).
+// (reverse); where that falls outside, the forward's first step, h0[d]
+// row b (zero where h0 is NULL). grid = (N tiles, M tiles (strided), D).
 __device__ __forceinline__ void gates(const __nv_bfloat16* __restrict__ w,
                                       const float* __restrict__ bias,
+                                      const float* __restrict__ h0,
                                       const float* __restrict__ ys,
                                       float* __restrict__ pre, int T, int B,
                                       int H, int reverse_bits) {
@@ -179,6 +194,7 @@ __device__ __forceinline__ void gates(const __nv_bfloat16* __restrict__ w,
   const int n0 = blockIdx.x * PN;
   const __nv_bfloat16* w_d = w + size_t(d) * H * N;
   const float* ys_d = ys + size_t(d) * M * H;
+  const float* h0_d = h0 != nullptr ? h0 + size_t(d) * B * H : nullptr;
   float* pre_d = pre + size_t(d) * M * N;
   const float* bias_d = bias + size_t(d) * N;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -197,8 +213,10 @@ __device__ __forceinline__ void gates(const __nv_bfloat16* __restrict__ w,
     for (int q = 0; q < 4; ++q) {
       const int m = m0 + ar + 32 * q;
       const int src = rev ? m + B : m - B;
-      a_row[q] =
-          (m < M && src >= 0 && src < M) ? ys_d + size_t(src) * H : nullptr;
+      a_row[q] = m >= M                     ? nullptr
+                 : src >= 0 && src < M      ? ys_d + size_t(src) * H
+                 : h0_d != nullptr          ? h0_d + size_t(m % B) * H
+                                            : nullptr;
     }
     auto fetch = [&](int kt) {
       float4* f = f_s + (kt % PS) * P_F + threadIdx.x;
@@ -377,16 +395,26 @@ __device__ __forceinline__ void bptt(const Act& a, float c_prev, float m,
   *dc_out = dc_pre * a.fg + (1.f - m) * dc_in;
 }
 
-// (a) Row owner. dgates holds pre on entry.
-template <int MU, int MS, bool W_RESIDENT>
+// (a) Row owner. dgates holds pre on entry. c0, dcfin, dh0 and dc0 are
+// read only with CARRY (else NULL, and the loop is the one from zeros).
+template <int MU, int MS, bool W_RESIDENT, bool CARRY>
 __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
                                      const float* __restrict__ mask,
                                      const __nv_bfloat16* __restrict__ w,
+                                     const float* __restrict__ c0_in,
                                      const float* __restrict__ cs,
                                      const float* __restrict__ dy,
-                                     float* dgates, float* scratch, int D,
-                                     int T, int B, int H, int reverse_bits) {
+                                     const float* __restrict__ dcfin_in,
+                                     float* dgates,
+                                     float* __restrict__ dh0_in,
+                                     float* __restrict__ dc0_in,
+                                     float* scratch, int D, int T, int B,
+                                     int H, int reverse_bits) {
   using P = Plan<MU, MS, W_RESIDENT>;
+  const float* c0 = CARRY ? c0_in : nullptr;
+  const float* dcfin = CARRY ? dcfin_in : nullptr;
+  float* dh0 = CARRY ? dh0_in : nullptr;
+  float* dc0 = CARRY ? dc0_in : nullptr;
   constexpr int NT = P::NT, QROWS = P::QROWS, RSTEP = P::RSTEP;
   constexpr int SLOT = P::SLOT, RED_S = P::RED_S;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -419,8 +447,14 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
     cp_async_wait<0>();  // a lane reads back only its own pieces
   }
 
-  for (int i = 0; i < T; ++i) {
-    const bool first = i == T - 1;  // the forward's first step: c_prev = 0
+  // With dh0 one pass more: the product alone, for the first step's dh_prev.
+  const bool dh0_pass = CARRY && dh0 != nullptr;
+  const int passes = T + dh0_pass;
+  for (int i = 0; i < passes; ++i) {
+    // dh0's pass (the tail) reads the forward's first step's inputs again,
+    // in bounds, and uses none of them: its loads need no branch.
+    const bool tail = CARRY && i == T;
+    const bool first = i == T - 1 || tail;  // c_prev = c0
     __nv_bfloat16* dgr_i = dgr + size_t(i & 1) * D * B * N;
     const __nv_bfloat16* dgr_prev = dgr + size_t((i + 1) & 1) * D * B * N;
     for (int gi = blockIdx.x; gi < groups; gi += gridDim.x) {
@@ -429,7 +463,8 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
       const int j = j0 + lu;  // the unit this thread owns
       const bool rev = (reverse_bits >> d) & 1;
       // Step i of this direction's BPTT is step T-1-i of its forward.
-      const int row = rev ? i : T - 1 - i;
+      const int step = tail ? T - 1 : i;
+      const int row = rev ? step : T - 1 - step;
       const size_t prev =
           size_t(d) * T * BH + size_t(rev ? row + 1 : row - 1) * BH;
       const __nv_bfloat16* w_d = w + size_t(d) * H * N;
@@ -455,11 +490,15 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
             pre_v[q][e] = __ldcs(o + e * H + j);
             x_v[q][e] = __ldg(x + e * H + j);
           }
-          c_v[q] = first ? 0.f : __ldg(cs + prev + at);
+          c_v[q] = !first          ? __ldg(cs + prev + at)
+                   : c0 != nullptr ? __ldg(c0 + size_t(d) * BH + at)
+                                   : 0.f;
           dy_v[q] = __ldg(dy + size_t(d) * T * BH + size_t(row) * BH + at);
           m_v[q] = __ldg(mask + size_t(row) * B + b);
           dh_v[q] = i > 0 ? dh_buf[size_t(d) * BH + at] : 0.f;
-          dc_v[q] = i > 0 ? dc_buf[size_t(d) * BH + at] : 0.f;
+          dc_v[q] = i > 0            ? dc_buf[size_t(d) * BH + at]
+                    : dcfin != nullptr ? __ldg(dcfin + size_t(d) * BH + at)
+                                       : 0.f;
         }
         auto activations = [&]() {
 #pragma unroll
@@ -556,10 +595,16 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
               s += red[(ww * MROWS + bl) * RED_S + lu];
             carry += s;
           }
-          float da[4];
           const size_t o_h = size_t(d) * BH + size_t(b) * H + j;
+          if (tail) {  // the first step's dh_prev
+            dh0[o_h] = carry;
+            continue;
+          }
+          float da[4];
+          // The first step's dc_prev is dc0.
           bptt(act[q], c_v[q], m_v[q], carry, dy_v[q], dc_v[q], da,
-               dh_buf + o_h, dc_buf + o_h);
+               dh_buf + o_h,
+               (first && dc0 != nullptr ? dc0 : dc_buf) + o_h);
           float* o = dgates + ((size_t(d) * T + row) * B + b) * N;
           __nv_bfloat16* gr = dgr_i + (size_t(d) * B + b) * N;
 #pragma unroll
@@ -571,7 +616,8 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
         if (i > 0) __syncthreads();  // red is read: the rings are free
       }
     }
-    if (first) break;  // no dh_prev past the recurrence's start
+    // No dh_prev past the recurrence's start unless dh0 asks for it.
+    if (tail || (first && !dh0_pass)) break;
     if constexpr (!W_RESIDENT) {
       // W does not wait for the barrier: issue the next step's first
       // chunks of W for this block's first group (committed with its first
@@ -589,10 +635,19 @@ __device__ __forceinline__ void loop(const __nv_bfloat16* __restrict__ xp,
 // ---- The launches ----
 
 using GatesKernel = void (*)(const __nv_bfloat16*, const float*,
-                             const float*, float*, int, int, int, int);
+                             const float*, const float*, float*, int, int,
+                             int, int);
 using LoopKernel = void (*)(const __nv_bfloat16*, const float*,
                             const __nv_bfloat16*, const float*, const float*,
+                            const float*, const float*, float*, float*,
                             float*, float*, int, int, int, int, int);
+
+// Whether a call carries: any of the carry's pointers given.
+inline bool carries(const float* h0, const float* c0, const float* dcfin,
+                    const float* dh0, const float* dc0) {
+  return h0 != nullptr || c0 != nullptr || dcfin != nullptr ||
+         dh0 != nullptr || dc0 != nullptr;
+}
 
 // Blocks of a cooperative launch of `kernel`: all resident at once, as
 // grid.sync() needs, and no more than `groups`.
@@ -614,15 +669,17 @@ inline cudaError_t coop_blocks(const void* kernel, int threads, size_t smem,
 }
 
 // The two launches: the gate pre-pass into dgates, then the serial loop
-// over it, groups of MU units, `smem` bytes a block. With `one_each`
-// (W resident) every group needs a block of its own, or nothing is
-// launched: the residency rule (ops/gru.py resident_fits) admits only
-// such sizes.
+// over it (the caller's instance: with CARRY where `carries`), groups of
+// MU units, `smem` bytes a block. With `one_each` (W resident) every
+// group needs a block of its own, or nothing is launched: the residency
+// rule (ops/gru.py resident_fits) admits only such sizes.
 inline cudaError_t launch(GatesKernel gates_kernel, LoopKernel loop_kernel,
                           int MU, size_t smem, bool one_each, const void* xp,
                           const float* mask, const void* w,
-                          const float* bias, const float* ys,
-                          const float* cs, const float* dy, float* dgates,
+                          const float* bias, const float* h0,
+                          const float* c0, const float* ys, const float* cs,
+                          const float* dy, const float* dcfin,
+                          float* dgates, float* dh0, float* dc0,
                           float* scratch, int D, int T, int B, int H,
                           int reverse_bits, int device, cudaStream_t stream) {
   const __nv_bfloat16* xp_t = static_cast<const __nv_bfloat16*>(xp);
@@ -645,12 +702,13 @@ inline cudaError_t launch(GatesKernel gates_kernel, LoopKernel loop_kernel,
   const dim3 pre_grid((4 * H + PN - 1) / PN,
                       m_tiles < 65535 ? m_tiles : 65535, D);
   gates_kernel<<<pre_grid, P_THREADS, PRE_SMEM, stream>>>(
-      w_t, bias, ys, dgates, T, B, H, reverse_bits);
+      w_t, bias, h0, ys, dgates, T, B, H, reverse_bits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  void* args[] = {&xp_t, &mask, &w_t, &cs, &dy, &dgates,
-                  &scratch, &D, &T, &B, &H, &reverse_bits};
+  void* args[] = {&xp_t,   &mask, &w_t, &c0,     &cs, &dy, &dcfin,
+                  &dgates, &dh0,  &dc0, &scratch, &D,  &T,  &B,
+                  &H,      &reverse_bits};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(loop_kernel),
                                     dim3(blocks), dim3(M_THREADS), args,
                                     smem, stream);

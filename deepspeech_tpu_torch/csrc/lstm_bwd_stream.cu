@@ -9,17 +9,21 @@
 // stream, and fires the elementwise BPTT on the last block. The contract
 // is ops/lstm.py lstm_bwd's docstring, as for csrc/lstm_bwd.cu:
 //   xp [T,B,4H] and w [D,H,4H] in one dtype, bf16|f32 (the dot dtype),
-//   mask [T,B] f32, bias [D,4H] f32, ys and cs [D,T,B,H] f32 (the forward's
-//   outputs and cell-state tape), dy [D,T,B,H] f32, reverse bit d set for a
-//   direction whose forward ran t = T-1..0
+//   mask [T,B] f32, bias [D,4H] f32, h0 and c0 [D,B,H] f32 or NULL
+//   (zeros), ys and cs [D,T,B,H] f32 (the forward's outputs and cell-state
+//   tape), dy [D,T,B,H] f32, dcfin [D,B,H] f32 or NULL (zeros: the
+//   gradient on the final cell state), reverse bit d set for a direction
+//   whose forward ran t = T-1..0
 //   -> dgates [D,T,B,4H] f32 = (da_i, da_f, da_g, da_o) at every row (the
-//      TPU kernel's dxp and dgates, which hold the same values).
-// Each direction runs against its own forward order from dh = dc = 0; a
-// step recomputes the gates from h_prev (the ys row of the forward's step
-// before, 0 at its first step) rounded to the dot dtype, with c_prev from
-// the tape (0 at the first step), applies _lstm_elementwise_bwd's math
-// (lstm_pallas.py:54) with dh = carry + dy, and carries dc_prev and
-// dh_prev = (1 - m) dh + round(dgates) @ W^T in f32.
+//      TPU kernel's dxp and dgates, which hold the same values), and dh0
+//      and dc0 [D,B,H] f32 where they are not NULL.
+// Each direction runs against its own forward order from dh = 0 and
+// dc = dcfin; a step recomputes the gates from h_prev (the ys row of the
+// forward's step before, h0 at its first step) rounded to the dot dtype,
+// with c_prev from the tape (c0 at the first step), applies
+// _lstm_elementwise_bwd's math (lstm_pallas.py:54) with dh = carry + dy,
+// and carries dc_prev and dh_prev = (1 - m) dh + round(dgates) @ W^T in
+// f32; the first step's are dc0 and dh0.
 //
 // What bounds it: two [T*B,H] x [H,4H]-sized products per direction, the
 // gate recompute and round(dgates) @ W^T (1.35 TFLOP each at ds2_full's
@@ -41,7 +45,8 @@
 //  1. lstm_bwd_stream_gates_kernel, the gate pre-pass: one tensor-core GEMM
 //     pre[d, row] = round(h_prev(d, row)) @ W[d] + bias[d] for every row at
 //     once (M = T*B, N = 4H, K = H), written into the dgates buffer itself.
-//  2. lstm_bwd_stream_mma_kernel, the serial loop with W streamed: a
+//  2. lstm_bwd_stream_mma_kernel<CARRY>, the serial loop with W streamed
+//     (CARRY where the call has a carry, as in csrc/lstm_bwd.cu): a
 //     cooperative, persistent grid over D x ceil(H/32) groups of MU=32
 //     hidden units, one group a block and one block an SM (110 groups at
 //     ds2_full), one grid barrier a step. A step forms
@@ -150,10 +155,14 @@ lstm_bwd_stream_kernel(const WT* __restrict__ xp,
                        const float* __restrict__ mask,
                        const WT* __restrict__ w,
                        const float* __restrict__ bias,
+                       const float* __restrict__ h0,
+                       const float* __restrict__ c0,
                        const float* __restrict__ ys,
                        const float* __restrict__ cs,
                        const float* __restrict__ dy,
-                       float* __restrict__ dgates, float* scratch, int D,
+                       const float* __restrict__ dcfin,
+                       float* __restrict__ dgates, float* __restrict__ dh0,
+                       float* __restrict__ dc0, float* scratch, int D,
                        int T, int B, int H, int reverse_bits) {
   extern __shared__ __align__(16) float smem[];
   const int nblk = (H + U - 1) / U;
@@ -173,7 +182,7 @@ lstm_bwd_stream_kernel(const WT* __restrict__ xp,
   cg::grid_group grid = cg::this_grid();
 
   for (int i = 0; i < T; ++i) {
-    const bool last = i == T - 1;  // the forward's first step: h, c = 0
+    const bool last = i == T - 1;  // the forward's first step: h0, c0
     WT* dgr_i = dgr + size_t(i & 1) * D * B * H4;
 
     // 1. Column phase.
@@ -187,8 +196,12 @@ lstm_bwd_stream_kernel(const WT* __restrict__ xp,
       const WT* w_d = w + size_t(d) * H * H4;
       const size_t prev =
           size_t(d) * T * BH + size_t(rev ? row + 1 : row - 1) * BH;
-      const float* hp = last ? nullptr : ys + prev;
-      const float* cp = last ? nullptr : cs + prev;
+      const float* hp = !last ? ys + prev
+                        : h0 != nullptr ? h0 + size_t(d) * BH
+                                        : nullptr;
+      const float* cp = !last ? cs + prev
+                        : c0 != nullptr ? c0 + size_t(d) * BH
+                                        : nullptr;
       // This thread's W column when it stages W (gate wc / U, unit
       // j0 + wc % U, rows wk, wk + KR, ...) and its h_prev rows and column.
       const int wc = threadIdx.x % GC, wk = threadIdx.x / GC;
@@ -282,7 +295,9 @@ lstm_bwd_stream_kernel(const WT* __restrict__ xp,
           const size_t o_h = size_t(d) * BH + at;
           const float dh = (i > 0 ? dh_buf[o_h] : 0.f) +
                            dy[size_t(d) * T * BH + size_t(row) * BH + at];
-          const float dc_in = i > 0 ? dc_buf[o_h] : 0.f;
+          const float dc_in = i > 0             ? dc_buf[o_h]
+                              : dcfin != nullptr ? dcfin[o_h]
+                                                 : 0.f;
           const float dh_mid = m * dh;
           const float d_o = dh_mid * tc;
           const float dc_pre = m * dc_in + dh_mid * og * (1.f - tc * tc);
@@ -291,7 +306,9 @@ lstm_bwd_stream_kernel(const WT* __restrict__ xp,
           const float da_g = dc_pre * ig * (1.f - gg * gg);
           const float da_o = d_o * og * (1.f - og);
           dh_buf[o_h] = (1.f - m) * dh;  // dh_prev's elementwise part
-          dc_buf[o_h] = dc_pre * fg + (1.f - m) * dc_in;
+          // The first step's dc_prev is dc0.
+          (last && dc0 != nullptr ? dc0 : dc_buf)[o_h] =
+              dc_pre * fg + (1.f - m) * dc_in;
           float* o = dgates + ((size_t(d) * T + row) * B + b) * H4;
           o[j] = da_i;
           o[H + j] = da_f;
@@ -305,7 +322,8 @@ lstm_bwd_stream_kernel(const WT* __restrict__ xp,
         }
       }
     }
-    if (last) break;  // no dh_prev past the recurrence's start
+    // No dh_prev past the recurrence's start unless dh0 asks for it.
+    if (last && dh0 == nullptr) break;
     grid.sync();
 
     // 2. Row phase: dh for the next step, owned units only.
@@ -373,7 +391,8 @@ lstm_bwd_stream_kernel(const WT* __restrict__ xp,
         for (int q = 0; q < 2; ++q) {
           const int b = b0 + rg + q * RG;
           if (b >= B) continue;
-          dh_buf[size_t(d) * BH + size_t(b) * H + k] += acc[q];
+          const size_t o_h = size_t(d) * BH + size_t(b) * H + k;
+          (last ? dh0 : dh_buf)[o_h] = dh_buf[o_h] + acc[q];
         }
       }
     }
@@ -391,32 +410,43 @@ constexpr int MS = 4;
 __global__ void __launch_bounds__(lstm_bwd_mma::P_THREADS)
 lstm_bwd_stream_gates_kernel(const __nv_bfloat16* __restrict__ w,
                              const float* __restrict__ bias,
+                             const float* __restrict__ h0,
                              const float* __restrict__ ys,
                              float* __restrict__ pre, int T, int B, int H,
                              int reverse_bits) {
-  lstm_bwd_mma::gates(w, bias, ys, pre, T, B, H, reverse_bits);
+  lstm_bwd_mma::gates(w, bias, h0, ys, pre, T, B, H, reverse_bits);
 }
 
+// CARRY: the loop reads c0 and dcfin and writes dh0 and dc0; without it
+// the loop from zeros.
+template <bool CARRY>
 __global__ void __launch_bounds__(lstm_bwd_mma::M_THREADS, 1)
 lstm_bwd_stream_mma_kernel(const __nv_bfloat16* __restrict__ xp,
                            const float* __restrict__ mask,
                            const __nv_bfloat16* __restrict__ w,
+                           const float* __restrict__ c0,
                            const float* __restrict__ cs,
-                           const float* __restrict__ dy, float* dgates,
+                           const float* __restrict__ dy,
+                           const float* __restrict__ dcfin, float* dgates,
+                           float* __restrict__ dh0, float* __restrict__ dc0,
                            float* scratch, int D, int T, int B, int H,
                            int reverse_bits) {
-  lstm_bwd_mma::loop<MU, MS, false>(xp, mask, w, cs, dy, dgates, scratch, D,
-                                    T, B, H, reverse_bits);
+  lstm_bwd_mma::loop<MU, MS, false, CARRY>(xp, mask, w, c0, cs, dy, dcfin,
+                                           dgates, dh0, dc0, scratch, D, T,
+                                           B, H, reverse_bits);
 }
 
 // The two-phase CUDA-core kernel: f32, or bf16 off the tensor-core path.
 template <typename WT>
 cudaError_t launch_two_phase(const void* xp, const float* mask,
                              const void* w, const float* bias,
+                             const float* h0, const float* c0,
                              const float* ys, const float* cs,
-                             const float* dy, float* dgates, float* scratch,
-                             int D, int T, int B, int H, int reverse_bits,
-                             int device, cudaStream_t stream) {
+                             const float* dy, const float* dcfin,
+                             float* dgates, float* dh0, float* dc0,
+                             float* scratch, int D, int T, int B, int H,
+                             int reverse_bits, int device,
+                             cudaStream_t stream) {
   auto* kernel = lstm_bwd_stream_kernel<WT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
@@ -428,8 +458,9 @@ cudaError_t launch_two_phase(const void* xp, const float* mask,
   if (err != cudaSuccess) return err;
   const WT* xp_t = static_cast<const WT*>(xp);
   const WT* w_t = static_cast<const WT*>(w);
-  void* args[] = {&xp_t, &mask, &w_t, &bias, &ys, &cs, &dy, &dgates,
-                  &scratch, &D, &T, &B, &H, &reverse_bits};
+  void* args[] = {&xp_t, &mask, &w_t,     &bias, &h0, &c0, &ys,
+                  &cs,   &dy,   &dcfin,   &dgates, &dh0, &dc0, &scratch,
+                  &D,    &T,    &B,       &H,    &reverse_bits};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                     dim3(blocks), dim3(THREADS), args,
                                     SMEM_BYTES, stream);
@@ -453,14 +484,18 @@ long long lstm_bwd_stream_scratch_floats(int D, int B, int H) {
 }
 
 // Returns 0 or a cudaError_t; the launches are asynchronous on `stream`.
-// xp and w are bf16 when `bf16` is set, f32 otherwise. A bf16 call runs
-// the tensor-core path (two launches) where H % 4 == 0 and w, ys and
-// scratch are 16-byte aligned, else the two-phase kernel, as f32 does.
-// The calling thread's current device is the same after the call as
+// xp and w are bf16 when `bf16` is set, f32 otherwise. h0, c0 and dcfin
+// (NULL: zeros) and dh0 and dc0 (NULL: not formed) are [D,B,H] f32; with
+// all five NULL the call is the BPTT from zeros, bit for bit. A bf16 call
+// runs the tensor-core path (two launches) where H % 4 == 0 and w, ys, h0
+// and scratch are 16-byte aligned, else the two-phase kernel, as f32
+// does. The calling thread's current device is the same after the call as
 // before it.
 int lstm_bwd_stream_launch(int bf16, const void* xp, const float* mask,
-                           const void* w, const float* bias, const float* ys,
-                           const float* cs, const float* dy, float* dgates,
+                           const void* w, const float* bias, const float* h0,
+                           const float* c0, const float* ys, const float* cs,
+                           const float* dy, const float* dcfin,
+                           float* dgates, float* dh0, float* dc0,
                            float* scratch, int D, int T, int B, int H,
                            int reverse_bits, int device, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -470,20 +505,25 @@ int lstm_bwd_stream_launch(int bf16, const void* xp, const float* mask,
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const bool mma = bf16 && H % 4 == 0 && aligned16(w) && aligned16(ys) &&
-                   aligned16(scratch);
+                   aligned16(h0) && aligned16(scratch);
   if (mma)
     err = lstm_bwd_mma::launch(
-        lstm_bwd_stream_gates_kernel, lstm_bwd_stream_mma_kernel, MU,
-        lstm_bwd_mma::Plan<MU, MS, false>::smem(H), false, xp, mask, w, bias,
-        ys, cs, dy, dgates, scratch, D, T, B, H, reverse_bits, device, st);
+        lstm_bwd_stream_gates_kernel,
+        lstm_bwd_mma::carries(h0, c0, dcfin, dh0, dc0)
+            ? lstm_bwd_stream_mma_kernel<true>
+            : lstm_bwd_stream_mma_kernel<false>,
+        MU, lstm_bwd_mma::Plan<MU, MS, false>::smem(H), false, xp, mask, w,
+        bias, h0, c0, ys, cs, dy, dcfin, dgates, dh0, dc0, scratch, D, T, B,
+        H, reverse_bits, device, st);
   else if (bf16)
-    err = launch_two_phase<__nv_bfloat16>(xp, mask, w, bias, ys, cs, dy,
-                                          dgates, scratch, D, T, B, H,
-                                          reverse_bits, device, st);
+    err = launch_two_phase<__nv_bfloat16>(xp, mask, w, bias, h0, c0, ys, cs,
+                                          dy, dcfin, dgates, dh0, dc0,
+                                          scratch, D, T, B, H, reverse_bits,
+                                          device, st);
   else
-    err = launch_two_phase<float>(xp, mask, w, bias, ys, cs, dy, dgates,
-                                  scratch, D, T, B, H, reverse_bits, device,
-                                  st);
+    err = launch_two_phase<float>(xp, mask, w, bias, h0, c0, ys, cs, dy,
+                                  dcfin, dgates, dh0, dc0, scratch, D, T, B,
+                                  H, reverse_bits, device, st);
   const cudaError_t restore = cudaSetDevice(prev);
   return err != cudaSuccess ? err : restore;
 }

@@ -12,13 +12,20 @@ tree's ``deepspeech_tpu_torch/csrc`` directory) that tree's
 ``lstm_bwd.cu`` and ``lstm_bwd_stream.cu`` as they are. Each K13 build is
 held to ``lstm_bwd_plain`` at ds2_small-lstm's shape (D=2, T'=850, B=32,
 H=800, bf16, ragged lengths) and at ds2_streaming-lstm's (D=1), within
-``TOL`` and the same bits twice, then timed with CUDA events at both D, two
-turns each in the order parent, as built, the others, and then
-reversed, with one call split by kernel (the gate pre-pass, the loop)
-by ``torch.profiler``. With a parent, K15 (this tree's
-``lstm_bwd_stream.cu``, whose loop is the header's with W streamed, and
-the parent's) must give the parent's bits at ds2_full's H=1760 and at
-H=800, and is timed in turns at H=1760 (D=2). Prints ptxas's registers
+``TOL`` and the same bits twice, and with a parent the source as built
+must give the parent's bits at both D (no carry: the C entry's NULL
+``h0``, ``c0``, ``dcfin``, ``dh0`` and ``dc0``), then timed with CUDA
+events at both D, two turns each in the order parent, as built, the
+others, and then reversed, with one call split by kernel (the gate
+pre-pass, the loop) by ``torch.profiler``. With a parent, K15 (this
+tree's ``lstm_bwd_stream.cu``, whose loop is the header's with W
+streamed, and the parent's) must give the parent's bits at ds2_full's
+H=1760 and at H=800, and is timed in turns at H=1760 (D=2). A parent
+whose C entries take no carry is called through a shim with the
+pointers they take (``parent_call``). The source as built is also timed
+with a carry (a random ``(h0, c0)`` and ``dcfin``, ``(dh0, dc0)`` out)
+and without one in turns (``carry_turns``): K13 at both D, and with a
+parent K15 at H=1760, D=1. Prints ptxas's registers
 and spills of each loop, each variant's plan at both D, and one JSON
 line with the card's name and power limit.
 
@@ -34,7 +41,6 @@ shows that the comparison would see such a fault.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
 import os
@@ -46,7 +52,7 @@ import torch
 from .k14_variants import build_variants
 from .k15_ablation import _split_ms, _time_ms, with_header
 from .k17_variants import built_value, substitutions
-from .ops import _build, lstm
+from .ops import _build, gru, lstm
 
 SOURCE = "lstm_bwd"
 HEADER = "lstm_bwd_mma.cuh"
@@ -169,44 +175,64 @@ def _inputs(gen, d: int, t: int = 850, b: int = 32, h: int = 800):
     return xp, mask, w, bias, ys, cs, dy, reverse
 
 
-def _parent_call(lib: ctypes.CDLL):
-    """``lstm_bwd`` through another tree's ``lstm_bwd.cu`` as it is: its
-    C entry point with the scratch its ``lstm_bwd_scratch_floats`` asks
-    for (a tree before the tensor-core path has only that one)."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    size = lib.lstm_bwd_scratch_floats
-    size.argtypes, size.restype = [i, i, i], ctypes.c_longlong
-    launch = lib.lstm_bwd_launch
-    launch.argtypes = [i, *[p] * 9, i, i, i, i, i, i, p]
-    launch.restype = i
+def parent_call(source: str, path: str):
+    """``lstm.<source>`` (``lstm_bwd``: K13, or ``lstm_bwd_stream``: K15)
+    through another tree's ``csrc/<source>.cu`` (``path``), loaded into
+    ``_build._loaded[source]`` when it is called: the wrapper itself where
+    that tree's C entry takes the carry (``h0``), as this tree's does,
+    else a launch with the pointers its older entry takes, ``(bias, ys,
+    cs, dy, dgates, scratch)``, and the scratch its
+    ``<source>_scratch_floats`` asks for (enough for either of its
+    paths)."""
+    with open(path) as f:
+        text = f.read()
+    entry = text[text.index(f"int {source}_launch("):]
+    entry = entry[:entry.index(")")]
+    if "h0" in entry:
+        return getattr(lstm, source)
 
     def call(xp, mask, w, bias, ys, cs, dy, reverse):
-        t, bsz, _ = xp.shape
-        d, h = w.shape[0], w.shape[1]
+        d, t, bsz, h = w.shape[0], xp.shape[0], xp.shape[1], w.shape[1]
         dgates = torch.empty((d, t, bsz, 4 * h), dtype=torch.float32,
                              device=xp.device)
-        scratch = torch.empty((size(d, bsz, h),), dtype=torch.float32,
+        floats = getattr(gru._lib(source), f"{source}_scratch_floats")(
+            d, bsz, h)
+        scratch = torch.empty((floats,), dtype=torch.float32,
                               device=xp.device)
-        rc = launch(int(xp.dtype == torch.bfloat16), *(
-            x.data_ptr() for x in (xp, mask, w, bias, ys, cs, dy, dgates,
-                                   scratch)),
-            d, t, bsz, h, sum(1 << k for k, r in enumerate(reverse) if r),
-            xp.device.index, torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"parent lstm_bwd launch failed: {rc}")
+        gru._launch(source, xp, mask, w, (bias, ys, cs, dy, dgates, scratch),
+                    reverse)
         return dgates
     return call
+
+
+def carry_turns(fn, args, gen, reps: int) -> dict:
+    """ms a call of ``fn`` (``lstm.lstm_bwd`` or ``lstm_bwd_stream``) on
+    ``args`` without a carry and with a random ``(h0, c0)`` and
+    ``dcfin``, returning ``(dh0, dc0)``, in turns (none, carry, carry,
+    none), and the ratio of their sums."""
+    xp, w = args[0], args[2]
+    shape = (w.shape[0], xp.shape[1], w.shape[1])
+    hc0 = tuple(torch.randn(shape, generator=gen, device="cuda") * 0.5
+                for _ in range(2))
+    carry = {"hc0": hc0, "return_dhc0": True,
+             "dcfin": torch.randn(shape, generator=gen, device="cuda") * 0.1}
+    out = {"none": [], "carry": []}
+    for name in ("none", "carry", "carry", "none"):
+        kw = carry if name == "carry" else {}
+        out[name].append(_time_ms(lambda: fn(*args, **kw), reps))
+    out["ratio"] = sum(out["carry"]) / sum(out["none"])
+    return out
 
 
 def _k15(parent: str, reps: int, gen) -> dict:
     """K15 as built here and the parent's: the same bits at H=1760 and at
     H=800 (D=2), and ms a call at H=1760 in turns (parent, this tree,
     this tree, parent)."""
-    builds = {"as_built": []}
-    libs, ptxas = build_variants(
-        "lstm_bwd_stream", builds, "k13_variants_k15",
-        {"parent": os.path.join(parent, "lstm_bwd_stream.cu")})
-    fn = lstm.lstm_bwd_stream
+    path = os.path.join(parent, "lstm_bwd_stream.cu")
+    libs, ptxas = build_variants("lstm_bwd_stream", {"as_built": []},
+                                 "k13_variants_k15", {"parent": path})
+    calls = {"parent": parent_call("lstm_bwd_stream", path),
+             "as_built": lstm.lstm_bwd_stream}
     out = {"ptxas": ptxas, "same_bits": {}, "ms": {"parent": [],
                                                     "as_built": []}}
     for h in (1760, 800):
@@ -214,15 +240,19 @@ def _k15(parent: str, reps: int, gen) -> dict:
         got = {}
         for name in ("parent", "as_built"):
             _build._loaded["lstm_bwd_stream"] = libs[name]
-            got[name] = fn(*args)
+            got[name] = calls[name](*args)
         out["same_bits"][h] = bool(torch.equal(got["parent"],
                                                got["as_built"]))
         if h == 1760:
             for name in ("parent", "as_built", "as_built", "parent"):
                 _build._loaded["lstm_bwd_stream"] = libs[name]
-                out["ms"][name].append(_time_ms(lambda: fn(*args), reps))
+                out["ms"][name].append(_time_ms(lambda: calls[name](*args),
+                                                reps))
         del args, got
     _build._loaded["lstm_bwd_stream"] = libs["as_built"]
+    out["ms_ratio"] = sum(out["ms"]["as_built"]) / sum(out["ms"]["parent"])
+    out["carry_turns_d1"] = carry_turns(lstm.lstm_bwd_stream,
+                                        _inputs(gen, 1, h=1760), gen, reps)
     if not all(out["same_bits"].values()):
         raise RuntimeError(f"K15 differs from the parent's: {out}")
     return out
@@ -251,18 +281,20 @@ def main(argv=None) -> None:
     libs, ptxas = build_variants(SOURCE, builds, "k13_variants", copies)
     calls = {name: lstm.lstm_bwd for name in libs}
     if args.parent:
-        calls["parent"] = _parent_call(libs["parent"])
+        calls["parent"] = parent_call(SOURCE, copies["parent"])
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = {d: _inputs(gen, d) for d in (2, 1)}
     refs = {d: lstm.lstm_bwd_plain(*inputs[d]) for d in (2, 1)}
     plain_max = {f"D{d}": float(refs[d].abs().max()) for d in refs}
-    checks = {}
+    checks, held = {}, {}
     for name, lib in libs.items():
         _build._loaded[SOURCE] = lib
         for d in (2, 1):
             got, again = calls[name](*inputs[d]), calls[name](*inputs[d])
             err = float((got - refs[d]).abs().max())
             checks[f"{name}[D={d}]"] = err
+            if args.parent and name in ("parent", "as_built"):
+                held[name, d] = got
             if name in ablations:
                 if name in MUST_FAIL and err <= TOL:
                     raise RuntimeError(
@@ -274,7 +306,12 @@ def main(argv=None) -> None:
                 raise RuntimeError(f"variant {name} D={d}: max |kernel - "
                                    f"plain| {err}, bit-identical {same}")
             del got, again
-    del refs
+    parent_bits = ({f"D{d}": bool(torch.equal(held["parent", d],
+                                              held["as_built", d]))
+                    for d in (2, 1)} if args.parent else {})
+    del refs, held
+    if not all(parent_bits.values()):
+        raise RuntimeError(f"K13 differs from the parent's: {parent_bits}")
     names = [*copies, *VARIANTS, *ablations]
     runs: Dict[str, list] = {n: [] for n in names}
     for name in names + names[::-1]:
@@ -286,6 +323,8 @@ def main(argv=None) -> None:
                                               SOURCE)}
             for d in (2, 1)})
     _build._loaded[SOURCE] = libs["as_built"]
+    turns = {f"D{d}": carry_turns(lstm.lstm_bwd, inputs[d], gen, args.reps)
+             for d in (2, 1)}
     k15 = _k15(args.parent, args.reps, gen) if args.parent else None
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -298,7 +337,9 @@ def main(argv=None) -> None:
                                 "dtype": "bfloat16"},
                       "built": built, "plan": plans, "tol": TOL,
                       "max_abs_plain": plain_max, "max_abs_err": checks,
-                      "ptxas": ptxas, "variants": runs, "k15": k15}))
+                      "parent_bits": parent_bits, "ptxas": ptxas,
+                      "variants": runs, "carry_turns": turns,
+                      "k15": k15}))
 
 
 if __name__ == "__main__":

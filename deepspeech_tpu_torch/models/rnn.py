@@ -28,7 +28,9 @@ chunk of frames from a carried state, with the final state out, the call
 the sequence-parallel relay (``parallel/seqpar.py``) makes on each shard:
 ``gru_fwd`` (K6, or K8 at a streamed width) or ``lstm_fwd`` (K12, or
 K14) at D=1, and under a gradient ``GRUFunction`` at D=1 with the carry
-as its ``h0`` (its backward K7, or K9, with ``h0`` and ``dh0``).
+as its ``h0`` (its backward K7, or K9, with ``h0`` and ``dh0``) or
+``LSTMFunction`` with ``(h0, c0)`` (its backward K13, or K15, with
+``dcfin`` in and ``(dh0, dc0)`` out).
 
 A quantized layer (``quantized=True``, inference only) holds ``wh_*``
 int8 with their per-column scales and calls ``ops/gru.py``'s
@@ -63,12 +65,6 @@ from .layers import (Dense, MaskedBatchNorm, QWeight, dense, length_mask,
                      weight)
 
 _N_GATES = {"gru": 3, "lstm": 4}
-# Sequence-parallel training with LSTM cells needs the LSTM backward's
-# carry, which a later item of the port brings.
-LSTM_CARRY_LATER = ("sequence-parallel training of an LSTM model (a carried "
-                    "(h0, c0) through LSTMFunction, K13/K15 with (dh0, dc0)) "
-                    "comes with item 14b-ii of the port; GRU models train "
-                    "sequence-parallel")
 
 
 def gru_scan(xproj: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor,
@@ -176,8 +172,8 @@ def layer_body(cfg: ModelConfig, x: torch.Tensor, mask: torch.Tensor,
             ys, _ = gru_ops.gru_fwd_q(xp_t, mask_t, q, scale, bh.float(),
                                       None, reverse)
     elif lstm and grad:
-        ys = LSTMFunction.apply(xp_t, mask_t, torch.stack(whs), bh.float(),
-                                None, reverse)
+        ys, _ = LSTMFunction.apply(xp_t, mask_t, torch.stack(whs),
+                                   bh.float(), None, None, reverse)
     elif lstm:
         ys = lstm_ops.lstm_fwd(
             xp_t, mask_t, torch.stack(whs).to(xp_t.dtype).contiguous(),
@@ -205,19 +201,24 @@ def chunk_recurrence(cfg: ModelConfig, xp_t: torch.Tensor,
     tensor; with no carry in, the kernel starts from zeros (a NULL
     ``h0``).
 
-    ``grad`` (the sequence-parallel train step) makes the GRU's call
-    through ``GRUFunction`` with the carry as its ``h0``, so the backward
-    hands ``dh0`` to the shard before; the carry out is ``ys`` at the
-    scan's last row (a masked frame holds h), so the gradient on it
-    reaches the backward through ``ys``. An LSTM has no such call yet
-    (``LSTMFunction`` takes no carry)."""
-    if grad:
-        if cfg.rnn_type != "gru":
-            raise NotImplementedError(LSTM_CARRY_LATER)
+    ``grad`` (the sequence-parallel train step) makes the call through
+    ``GRUFunction`` with the carry as its ``h0``, or ``LSTMFunction``
+    with it as ``(h0, c0)``, so the backward hands ``dh0`` (and ``dc0``)
+    to the shard before; the carried h out is ``ys`` at the scan's last
+    row (a masked frame holds h), so the gradient on it reaches the
+    backward through ``ys``, and the LSTM's c out is ``LSTMFunction``'s
+    second output, whose gradient enters the backward as ``dcfin``."""
+    last = 0 if reverse else -1
+    if grad and cfg.rnn_type == "gru":
         ys = GRUFunction.apply(
             xp_t, mask_t, w_h[None], b_h.float()[None],
             None if carry is None else carry[None], (reverse,))[0]
-        return ys, ys[0 if reverse else -1]
+        return ys, ys[last]
+    if grad:
+        h0, c0 = (None, None) if carry is None else (x[None] for x in carry)
+        ys, c = LSTMFunction.apply(xp_t, mask_t, w_h[None], b_h.float()[None],
+                                   h0, c0, (reverse,))
+        return ys[0], (ys[0][last], c[0])
     w = w_h.to(xp_t.dtype)[None].contiguous()
     b = b_h.float()[None].contiguous()
     if cfg.rnn_type == "gru":

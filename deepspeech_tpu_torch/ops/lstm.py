@@ -14,7 +14,9 @@ can return its final ``(h, c)``: the sequence-parallel relay
 (``parallel/seqpar.py``) runs each shard's chunk from the carry the shard
 before it handed over, as the JAX relay runs ``lstm_scan(..., hc0,
 return_final=True)`` (seqpar.py:192-244); a reverse direction runs
-t = T-1..0.
+t = T-1..0. The backward (K13, K15) takes the same carry and the
+gradient on the final cell state ``dcfin`` and returns ``(dh0, dc0)``,
+which the relay's backward hands to the shard before.
 
 ``lstm_fwd`` replaces ``_lstm_kernel`` (lstm_pallas.py:89, K12; W held
 on chip, the cell-state tape ``cs`` written only when asked) with
@@ -71,8 +73,9 @@ of W held in shared memory for the call, K15 with W streamed once a
 step. In f32 both run on the CUDA cores: K13 K12's tile, with
 ``csrc/gru_bwd.cu``'s dgates @ W^T partial sums added in block order
 after the barrier, K15 two phases a step. ``LSTMFunction`` wraps
-``lstm_fwd(..., tape=True)`` and ``lstm_bwd`` for autograd and forms dW
-and db outside the kernel by one f32 product, as ``_lstm_bwd`` does
+``lstm_fwd(..., tape=True)`` and ``lstm_bwd`` for autograd, with an
+optional carry ``(h0, c0)`` in and the final cell state out, and forms
+dW and db outside the kernel by one f32 product, as ``_lstm_bwd`` does
 (:492-503).
 
 What bounds them on the H100 is what bounds the GRU kernels
@@ -99,6 +102,13 @@ _Out = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 _HC = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic dtype: f32 for the kernels' dtypes
+    (bf16, f32), f64 for f64 inputs (a CPU gradient check; the wrappers
+    refuse f64)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def lstm_plain_loop(xp: torch.Tensor, mask: torch.Tensor,
                     reverse: Sequence[bool], h: int,
                     gates: Callable[[int, torch.Tensor], torch.Tensor],
@@ -109,10 +119,12 @@ def lstm_plain_loop(xp: torch.Tensor, mask: torch.Tensor,
     gates ``h W + b`` ``[B,4H]`` f32 from the f32 carry. ``hc0`` is
     ``(h0, c0)``, each ``[D,B,H]`` (zeros when None). Returns ``(ys,
     cs, hfin, cfin)``: ``ys [D,T,B,H]`` f32, ``cs`` the same shape when
-    ``tape`` (else None), the carries after the last step ``[D,B,H]``."""
+    ``tape`` (else None), the carries after the last step ``[D,B,H]``
+    (f64 throughout for f64 inputs, ``_acc``)."""
     t, bsz, _ = xp.shape
     d = len(reverse)
-    f32 = dict(dtype=torch.float32, device=xp.device)
+    acc = _acc(xp)
+    f32 = dict(dtype=acc, device=xp.device)
     ys = torch.empty((d, t, bsz, h), **f32)
     cs = torch.empty((d, t, bsz, h), **f32) if tape else None
     hfin = torch.empty((d, bsz, h), **f32)
@@ -122,11 +134,11 @@ def lstm_plain_loop(xp: torch.Tensor, mask: torch.Tensor,
             hc = torch.zeros((bsz, h), **f32)
             cc = torch.zeros((bsz, h), **f32)
         else:
-            hc, cc = hc0[0][di].float(), hc0[1][di].float()
+            hc, cc = hc0[0][di].to(acc), hc0[1][di].to(acc)
         for s in range(t):
             row = t - 1 - s if reverse[di] else s
             g = gates(di, hc)
-            x = xp[row].float()
+            x = xp[row].to(acc)
             i = torch.sigmoid(x[:, :h] + g[:, :h])
             f = torch.sigmoid(x[:, h:2 * h] + g[:, h:2 * h] + 1.0)
             gg = torch.tanh(x[:, 2 * h:3 * h] + g[:, 2 * h:3 * h])
@@ -159,10 +171,11 @@ def lstm_fwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     """The plain PyTorch version of ``lstm_fwd``: an eager time loop with
     the same arithmetic (h_prev rounded to ``w.dtype`` for the product,
     the product, c and h in f32), from ``hc0`` (zeros when None)."""
-    w32 = w.float()
+    acc = _acc(xp)
+    w32 = w.to(acc)
     ys, cs, hfin, cfin = lstm_plain_loop(
         xp, mask, reverse, w.shape[1],
-        lambda di, hc: hc.to(w.dtype).float() @ w32[di] + b[di], hc0=hc0,
+        lambda di, hc: hc.to(w.dtype).to(acc) @ w32[di] + b[di], hc0=hc0,
         tape=tape)
     return _result(ys, cs, tape, (hfin, cfin) if return_final else None)
 
@@ -192,15 +205,19 @@ def _outputs(xp, w, tape: bool):
     return ys, cs
 
 
-def _check_hc0(xp, w, hc0: _HC) -> None:
+def _check_hc0(xp, w, hc0: _HC, dcfin: Optional[torch.Tensor] = None
+               ) -> None:
     """``hc0``: None, or ``(h0, c0)``, each f32 ``[D,B,H]``, contiguous,
-    on xp's device (the rule ``gru._check`` holds the GRU's h0 to)."""
-    if hc0 is None:
-        return
-    if len(hc0) != 2 or any(x is None for x in hc0):
-        raise ValueError("hc0 must be None or a pair (h0, c0) of tensors")
+    on xp's device (the rule ``gru._check`` holds the GRU's h0 to); the
+    backward's ``dcfin`` (None, or a tensor) to the same rule."""
+    named = [] if dcfin is None else [("dcfin", dcfin)]
+    if hc0 is not None:
+        if len(hc0) != 2 or any(x is None for x in hc0):
+            raise ValueError("hc0 must be None or a pair (h0, c0) of "
+                             "tensors")
+        named = [("h0", hc0[0]), ("c0", hc0[1])] + named
     shape = (w.shape[0], xp.shape[1], w.shape[1])
-    for name, x in zip(("h0", "c0"), hc0):
+    for name, x in named:
         if tuple(x.shape) != shape or x.dtype != torch.float32:
             raise ValueError(f"{name} must be f32 {list(shape)}; got "
                              f"{x.dtype} {list(x.shape)}")
@@ -477,30 +494,40 @@ lstm_fwd_q_stream.launches = 0
 
 def lstm_bwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor, ys: torch.Tensor, cs: torch.Tensor,
-                   dy: torch.Tensor, reverse: Sequence[bool] = (False,)
-                   ) -> torch.Tensor:
+                   dy: torch.Tensor, reverse: Sequence[bool] = (False,), *,
+                   hc0: _HC = None, dcfin: Optional[torch.Tensor] = None,
+                   return_dhc0: bool = False):
     """The plain PyTorch version of ``lstm_bwd``: an eager reverse time
     loop with ``_lstm_elementwise_bwd``'s per-step math
     (lstm_pallas.py:54), h_prev rounded to ``w.dtype`` for the gate
     recompute and ``round(dgates)`` in ``w.dtype`` into ``@ W^T``, the
-    rest in f32."""
+    rest in f32; from ``hc0`` at the forward's first step and ``dcfin``
+    on the final cell state (zeros when None), with ``(dh0, dc0)`` after
+    the first step when ``return_dhc0``."""
     t, bsz, _ = xp.shape
     d, h = w.shape[0], w.shape[1]
-    f32 = dict(dtype=torch.float32, device=xp.device)
+    acc = _acc(xp)
+    f32 = dict(dtype=acc, device=xp.device)
     dgates = torch.empty((d, t, bsz, 4 * h), **f32)
+    dh0 = torch.empty((d, bsz, h), **f32)
+    dc0 = torch.empty((d, bsz, h), **f32)
     for di in range(d):
-        w32 = w[di].float()
+        w32 = w[di].to(acc)
         dh = torch.zeros((bsz, h), **f32)
-        dc = torch.zeros((bsz, h), **f32)
+        dc = (torch.zeros((bsz, h), **f32) if dcfin is None
+              else dcfin[di].clone())
         for i in range(t):
             row = i if reverse[di] else t - 1 - i
             if i == t - 1:  # the forward's first step
-                h_prev = c_prev = torch.zeros_like(dh)
+                if hc0 is None:
+                    h_prev = c_prev = torch.zeros_like(dh)
+                else:
+                    h_prev, c_prev = hc0[0][di], hc0[1][di]
             else:
                 prev = row + 1 if reverse[di] else row - 1
                 h_prev, c_prev = ys[di, prev], cs[di, prev]
-            g = h_prev.to(w.dtype).float() @ w32 + b[di]
-            x = xp[row].float()
+            g = h_prev.to(w.dtype).to(acc) @ w32 + b[di]
+            x = xp[row].to(acc)
             ig = torch.sigmoid(x[:, :h] + g[:, :h])
             fg = torch.sigmoid(x[:, h:2 * h] + g[:, h:2 * h] + 1.0)
             gg = torch.tanh(x[:, 2 * h:3 * h] + g[:, 2 * h:3 * h])
@@ -515,51 +542,84 @@ def lstm_bwd_plain(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                             dc_pre * ig * (1.0 - gg * gg),
                             dh_mid * tc * og * (1.0 - og)], 1)
             dgates[di, row] = da
-            dh = (1.0 - m) * dhc + da.to(w.dtype).float() @ w32.t()
+            dh = (1.0 - m) * dhc + da.to(w.dtype).to(acc) @ w32.t()
             dc = dc_pre * fg + (1.0 - m) * dc
-    return dgates
+        dh0[di], dc0[di] = dh, dc  # the first step's dh_prev and dc_prev
+    return (dgates, (dh0, dc0)) if return_dhc0 else dgates
 
 
-def _bwd_launch(name, xp, mask, w, b, ys, cs, dy, reverse
-                ) -> Tuple[torch.Tensor, bool]:
-    """Allocate ``dgates`` and ``csrc/<name>.cu``'s scratch and launch it;
-    returns ``(dgates, launched)``. ``lstm_bwd``'s tensor-core path
+def _bwd_launch(name, xp, mask, w, b, ys, cs, dy, reverse, hc0: _HC = None,
+                dcfin: Optional[torch.Tensor] = None,
+                return_dhc0: bool = False):
+    """Allocate ``dgates`` (and ``(dh0, dc0)`` when ``return_dhc0``) and
+    ``csrc/<name>.cu``'s scratch and launch it; returns ``(dgates, (dh0,
+    dc0) or None, launched)``. ``lstm_bwd``'s tensor-core path
     (``gru._bwd_mma``) takes ``lstm_bwd_mma_scratch_floats`` (dh and dc,
     the two bf16 dgates rows), its CUDA-core kernel
-    ``lstm_bwd_scratch_floats`` (the blocks' partial sums)."""
+    ``lstm_bwd_scratch_floats`` (the blocks' partial sums). The C entry
+    takes ``h0``, ``c0``, ``dcfin``, ``dh0`` and ``dc0``, each NULL where
+    absent: with all five NULL it is the call from zeros."""
     d, t, bsz, h = w.shape[0], xp.shape[0], xp.shape[1], w.shape[1]
-    dgates = torch.empty((d, t, bsz, 4 * h), dtype=torch.float32,
-                         device=xp.device)
+    f32 = dict(dtype=torch.float32, device=xp.device)
+    dgates = torch.empty((d, t, bsz, 4 * h), **f32)
+    h0, c0 = hc0 if hc0 is not None else (None, None)
+    dhc0 = None
+    if return_dhc0:
+        dhc0 = tuple(torch.empty((d, bsz, h), **f32) for _ in range(2))
+        if not dgates.numel():
+            # With no step to run, h0 reaches nothing the loss reads and
+            # the gradient on the final c is c0's.
+            dhc0[0].zero_()
+            dhc0[1].copy_(dcfin if dcfin is not None else
+                          torch.zeros_like(dhc0[1]))
     if not dgates.numel():
-        return dgates, False
+        return dgates, dhc0, False
     size = (f"{name}_mma_scratch_floats"
-            if name == "lstm_bwd" and gru._bwd_mma(w, ys)
+            if name == "lstm_bwd" and gru._bwd_mma(w, ys, h0)
             else f"{name}_scratch_floats")
     floats = getattr(gru._lib(name), size)(d, bsz, h)
-    scratch = torch.empty((floats,), dtype=torch.float32, device=xp.device)
-    gru._launch(name, xp, mask, w, (b, ys, cs, dy, dgates, scratch), reverse)
-    return dgates, True
+    scratch = torch.empty((floats,), **f32)
+    dh0, dc0 = dhc0 if dhc0 is not None else (None, None)
+    gru._launch(name, xp, mask, w,
+                (b, h0, c0, ys, cs, dy, dcfin, dgates, dh0, dc0, scratch),
+                reverse)
+    return dgates, dhc0, True
+
+
+def _bwd_result(dgates, dhc0, return_dhc0: bool):
+    return (dgates, dhc0) if return_dhc0 else dgates
 
 
 def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
              b: torch.Tensor, ys: torch.Tensor, cs: torch.Tensor,
-             dy: torch.Tensor, reverse: Sequence[bool] = (False,)
-             ) -> torch.Tensor:
-    """LSTM backpropagation through time over D directions, from
-    h0 = c0 = 0.
+             dy: torch.Tensor, reverse: Sequence[bool] = (False,), *,
+             hc0: _HC = None, dcfin: Optional[torch.Tensor] = None,
+             return_dhc0: bool = False):
+    """LSTM backpropagation through time over D directions.
 
-    ``xp``, ``mask``, ``w``, ``b`` and ``reverse`` as ``lstm_fwd`` took
-    them; ``ys`` and ``cs [D,T,B,H]`` f32, the outputs and the cell-state
-    tape ``lstm_fwd(..., tape=True)`` returned; ``dy [D,T,B,H]`` f32, the
-    gradient of the loss with respect to ``ys``. Each direction runs
-    against its forward order, carrying dh and dc; a step recomputes the
-    gates from h_prev rounded to ``w.dtype`` (c_prev from the tape) and
+    ``xp``, ``mask``, ``w``, ``b``, ``hc0`` and ``reverse`` as
+    ``lstm_fwd`` took them (``hc0 = (h0, c0)``, each ``[D,B,H]`` f32;
+    None: zeros); ``ys`` and ``cs [D,T,B,H]`` f32, the outputs and the
+    cell-state tape ``lstm_fwd(..., tape=True)`` returned; ``dy
+    [D,T,B,H]`` f32, the gradient of the loss with respect to ``ys``;
+    ``dcfin [D,B,H]`` f32 (None: zeros), that with respect to the cell
+    state after each direction's last step. Each direction runs against
+    its forward order, carrying dh and dc (from ``dcfin``); a step
+    recomputes the gates from h_prev rounded to ``w.dtype`` (``h0`` at
+    the forward's first step; c_prev from the tape, ``c0`` there) and
     adds ``round(dgates) @ W^T`` to dh in f32. Returns ``dgates
     [D,T,B,4H]`` f32, the gradient of the gate pre-activations
     ``(da_i, da_f, da_g, da_o)``: both that of the input projection and
     that of the recurrent gates ``h W + b``. The JAX kernels write these
     same values twice, as ``dxp`` and ``dgates`` (lstm_pallas.py:166-167,
-    :211-212); the port writes them once.
+    :211-212); the port writes them once. With ``return_dhc0`` it
+    returns ``(dgates, (dh0, dc0))``, the gradients of ``h0`` and ``c0``:
+    the first step's dh_prev, formed as every other step's, and its
+    dc_prev. The gradient on the final h takes no argument: the carry
+    after the last step is ``ys`` at the scan's last row (a masked frame
+    holds h and c), so it arrives in ``dy`` there. Without ``hc0``,
+    ``dcfin`` and ``return_dhc0`` the call is the BPTT from zeros, bit
+    for bit.
 
     A CPU tensor runs ``lstm_bwd_plain``. A CUDA tensor calls the
     resident kernel's C entry point ``csrc/lstm_bwd.cu`` once (counted in
@@ -572,16 +632,19 @@ def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     """
     reverse = tuple(bool(r) for r in reverse)
     gru._check_bwd(xp, mask, w, b, reverse, gates=4, ys=ys, cs=cs, dy=dy)
+    _check_hc0(xp, w, hc0, dcfin)
+    carry = dict(hc0=hc0, dcfin=dcfin, return_dhc0=return_dhc0)
     if xp.device.type == "cpu":
-        return lstm_bwd_plain(xp, mask, w, b, ys, cs, dy, reverse)
+        return lstm_bwd_plain(xp, mask, w, b, ys, cs, dy, reverse, **carry)
     gru._require_cuda(xp, "lstm_bwd")
+    h0 = None if hc0 is None else hc0[0]
     if not gru._bwd_resident(w, ys, gru.card_limits(xp.device),
-                             "lstm_bwd"):
-        return lstm_bwd_stream(xp, mask, w, b, ys, cs, dy, reverse)
-    dgates, launched = _bwd_launch("lstm_bwd", xp, mask, w, b, ys, cs, dy,
-                                   reverse)
+                             "lstm_bwd", h0=h0):
+        return lstm_bwd_stream(xp, mask, w, b, ys, cs, dy, reverse, **carry)
+    dgates, dhc0, launched = _bwd_launch("lstm_bwd", xp, mask, w, b, ys, cs,
+                                         dy, reverse, **carry)
     lstm_bwd.launches += launched
-    return dgates
+    return _bwd_result(dgates, dhc0, return_dhc0)
 
 
 lstm_bwd.launches = 0
@@ -589,8 +652,9 @@ lstm_bwd.launches = 0
 
 def lstm_bwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                     b: torch.Tensor, ys: torch.Tensor, cs: torch.Tensor,
-                    dy: torch.Tensor, reverse: Sequence[bool] = (False,)
-                    ) -> torch.Tensor:
+                    dy: torch.Tensor, reverse: Sequence[bool] = (False,), *,
+                    hc0: _HC = None, dcfin: Optional[torch.Tensor] = None,
+                    return_dhc0: bool = False):
     """``lstm_bwd`` through the streamed kernel ``csrc/lstm_bwd_stream.cu``
     (K15), whatever the sizes. In bf16 the gate recompute, which reads
     h_prev from the ``ys`` tape and not from the carried dh, runs first
@@ -599,61 +663,93 @@ def lstm_bwd_stream(xp: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
     ``round(dgates) @ W^T`` on the tensor cores, one grid barrier a step,
     and overwrites each step's gates with its ``dgates`` (see the
     source). f32 (and bf16 where H is not a multiple of 4) runs the
-    two-phase CUDA-core kernel, a column and a row phase a step. The same contract and
-    arithmetic as ``lstm_bwd``. A CPU tensor runs ``lstm_bwd_plain``; a
-    CUDA tensor calls the kernel's C entry point once (counted in
-    ``lstm_bwd_stream.launches``) or raises."""
+    two-phase CUDA-core kernel, a column and a row phase a step. The same
+    contract and arithmetic as ``lstm_bwd``, carry included. A CPU
+    tensor runs ``lstm_bwd_plain``; a CUDA tensor calls the kernel's C
+    entry point once (counted in ``lstm_bwd_stream.launches``) or
+    raises."""
     reverse = tuple(bool(r) for r in reverse)
     gru._check_bwd(xp, mask, w, b, reverse, gates=4, ys=ys, cs=cs, dy=dy)
+    _check_hc0(xp, w, hc0, dcfin)
+    carry = dict(hc0=hc0, dcfin=dcfin, return_dhc0=return_dhc0)
     if xp.device.type == "cpu":
-        return lstm_bwd_plain(xp, mask, w, b, ys, cs, dy, reverse)
+        return lstm_bwd_plain(xp, mask, w, b, ys, cs, dy, reverse, **carry)
     gru._require_cuda(xp, "lstm_bwd_stream")
-    dgates, launched = _bwd_launch("lstm_bwd_stream", xp, mask, w, b, ys,
-                                   cs, dy, reverse)
+    dgates, dhc0, launched = _bwd_launch("lstm_bwd_stream", xp, mask, w, b,
+                                         ys, cs, dy, reverse, **carry)
     lstm_bwd_stream.launches += launched
-    return dgates
+    return _bwd_result(dgates, dhc0, return_dhc0)
 
 
 lstm_bwd_stream.launches = 0
 
 
+def _last_rows(x: torch.Tensor, reverse: Tuple[bool, ...],
+               first: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[D,B,H]``: each direction's row of ``x [D,T,B,H]`` at its scan's
+    last step (t = 0 for a reverse direction); ``first`` (None: zeros)
+    where there is no step."""
+    if not x.shape[1]:
+        return (first.clone() if first is not None
+                else x.new_zeros((x.shape[0], *x.shape[2:])))
+    return torch.stack([x[di, 0 if rev else -1]
+                        for di, rev in enumerate(reverse)])
+
+
 class LSTMFunction(torch.autograd.Function):
     """``lstm_fwd(..., tape=True)`` with ``lstm_bwd`` as its backward.
 
-    ``apply(xp [T,B,4H], mask [T,B], w [D,H,4H] f32, b [D,4H] f32, hc0,
-    reverse)`` -> ``ys [D,T,B,H]`` f32. ``w`` is rounded to ``xp.dtype``
-    (the dot dtype) inside, so its gradient stays f32, as the JAX kernels
-    cast the f32 weights inside. The backward returns ``dgates`` summed
-    over directions as ``dxp`` (``xp.dtype``), ``dW = sum_t h_prev^T
-    dgates`` as one f32 product with TF32 off (``_lstm_bwd``'s HIGHEST
-    einsum, lstm_pallas.py:501-502), and ``db = sum dgates``. ``hc0``
-    must be None: the BPTT kernels (K13, K15), like the JAX VJP, start
-    from h0 = c0 = 0 and return no gradient for a carry (that is item
-    14b-ii of the port, sequence-parallel training of LSTM models).
+    ``apply(xp [T,B,4H], mask [T,B], w [D,H,4H] f32, b [D,4H] f32, h0,
+    c0, reverse)`` -> ``(ys [D,T,B,H] f32, c [D,B,H] f32)``: the outputs
+    and each direction's cell state after its last step (the tape's row
+    there: a masked frame holds c). ``h0`` and ``c0`` (``[D,B,H]`` f32,
+    both or neither; None: zeros) are the carried state the scan starts
+    from, as in the sequence-parallel relay; their gradients are
+    ``lstm_bwd``'s ``(dh0, dc0)``, and the gradient on ``c`` enters it
+    as ``dcfin``. The final h needs no output of its own: it is ``ys``
+    at the scan's last row. ``w`` is rounded to ``xp.dtype`` (the dot
+    dtype) inside, so its gradient stays f32, as the JAX kernels cast
+    the f32 weights inside. The backward returns ``dgates`` summed over
+    directions as ``dxp`` (``xp.dtype``), ``dW = sum_t h_prev^T dgates``
+    as one f32 product with TF32 off (``_lstm_bwd``'s HIGHEST einsum,
+    lstm_pallas.py:501-502), dW's first row taking ``h0`` as its h_prev,
+    and ``db = sum dgates``. Without a carry and with ``c`` unused, the
+    backward makes the call it made before the carry, bit for bit.
     """
 
     @staticmethod
-    def forward(ctx, xp, mask, w, b, hc0, reverse):
-        if hc0 is not None:
-            raise NotImplementedError(
-                "LSTMFunction: no carried (h0, c0) and no gradient through "
-                "one; the BPTT starts from zeros, as the JAX VJP does")
+    def forward(ctx, xp, mask, w, b, h0, c0, reverse):
+        if (h0 is None) != (c0 is None):
+            raise ValueError("LSTMFunction: give both h0 and c0, or neither")
         reverse = tuple(bool(r) for r in reverse)
         wd = w.to(xp.dtype).contiguous()
-        ys, cs = lstm_fwd(xp, mask, wd, b, reverse, tape=True)
-        ctx.save_for_backward(xp, mask, wd, b, ys, cs)
+        carry = {} if h0 is None else {"hc0": (h0, c0)}
+        ys, cs = lstm_fwd(xp, mask, wd, b, reverse, tape=True, **carry)
+        ctx.save_for_backward(xp, mask, wd, b, h0, c0, ys, cs)
         ctx.reverse = reverse
-        return ys
+        # An unused output's gradient stays None: no dcfin, the old call.
+        ctx.set_materialize_grads(False)
+        return ys, _last_rows(cs, reverse, c0)
 
     @staticmethod
-    def backward(ctx, dys):
-        xp, mask, wd, b, ys, cs = ctx.saved_tensors
-        dgates = lstm_bwd(xp, mask, wd, b, ys, cs, dys.float().contiguous(),
-                          ctx.reverse)
+    def backward(ctx, dys, dc):
+        xp, mask, wd, b, h0, c0, ys, cs = ctx.saved_tensors
+        dys = (torch.zeros_like(ys) if dys is None
+               else dys.to(ys.dtype).contiguous())
+        dcfin = None if dc is None else dc.to(ys.dtype).contiguous()
+        # Without a carry or a gradient on c, the call made before both.
+        carry = {}
+        if h0 is not None or dcfin is not None:
+            carry = {"hc0": None if h0 is None else (h0, c0),
+                     "dcfin": dcfin, "return_dhc0": h0 is not None}
+        dgates = lstm_bwd(xp, mask, wd, b, ys, cs, dys, ctx.reverse, **carry)
+        dh0 = dc0 = None
+        if h0 is not None:
+            dgates, (dh0, dc0) = dgates
         d, t, bsz, h = ys.shape
-        hp = gru._h_prev(ys, ctx.reverse).reshape(d, t * bsz, h)
+        hp = gru._h_prev(ys, ctx.reverse, h0).reshape(d, t * bsz, h)
         with full_f32_matmul():
             dw = torch.bmm(hp.transpose(1, 2),
                            dgates.reshape(d, t * bsz, 4 * h))
         db = dgates.sum((1, 2))
-        return dgates.sum(0).to(xp.dtype), None, dw, db, None, None
+        return dgates.sum(0).to(xp.dtype), None, dw, db, dh0, dc0, None

@@ -39,14 +39,18 @@ direction of each GRU layer is one D=1 ``GRUFunction`` call a shard
 with ``h0`` the carry the shard before handed over, ``ys`` at its
 scan's last row moved by a differentiable copy, so ``backward`` relays
 ``dh0`` the other way by itself (K6/K8 forward, K7/K9 backward with
-``h0`` and ``dh0``). The log-softmax and the CTC stay on each shard:
+``h0`` and ``dh0``); of each LSTM layer one D=1 ``LSTMFunction`` call
+with ``(h0, c0)``, the carry out being ``ys``'s last row and the
+function's final c, so the backward relays ``(dh0, dc0)`` (K12/K14
+taped forward, K13/K15 backward with ``(h0, c0)``, ``dcfin`` and
+``(dh0, dc0)``). The log-softmax and the CTC stay on each shard:
 ``ops/ctc.py``'s ``sp_ctc_loss`` relays the ``[B, S]`` alpha band shard
 to shard and the beta band back (K1, K2). A shard on another device
 than the model reaches its parameters through differentiable copies
 made in the step (``_TrainShards``), so their gradients sum into the
 home parameters, as JAX psums the replicated cotangents; the
 ``Replicas`` of decoding are not used (their weights would go stale
-after an optimizer step). An LSTM model raises (item 14b-ii).
+after an optimizer step).
 
 ``sp_beam_search`` relays the beam state the same way: shard k advances
 ``decode/beam.py``'s ``BeamState`` over its own log-probs with
@@ -78,8 +82,7 @@ import torch.nn.functional as F
 from ..config import ModelConfig
 from ..models.layers import (clipped_relu, masked_bn_stats, normalize,
                              weight)
-from ..models.rnn import (LSTM_CARRY_LATER, chunk_recurrence, layer_input,
-                          layer_output)
+from ..models.rnn import chunk_recurrence, layer_input, layer_output
 from ..ops.ctc import sp_ctc_loss
 from ..ops.gru import current_device as _on
 
@@ -320,8 +323,9 @@ def _relay(cfg: ModelConfig, shards, xps, masks, layer: int,
     distinct devices. ``xps[k]`` ``[Tl, B, GH]`` and ``masks[k]`` ``[Tl,
     B]`` are shard k's; returns each shard's summed ``[Tl, B, H]`` f32
     outputs (forward + backward, the offline order). ``train`` makes each
-    chunk a ``GRUFunction`` call (``chunk_recurrence``'s ``grad``), the
-    carry a differentiable copy."""
+    chunk a ``GRUFunction`` or ``LSTMFunction`` call
+    (``chunk_recurrence``'s ``grad``), the carry (``h``, or the LSTM's
+    ``(h, c)``) a differentiable copy."""
     s = len(shards)
     dirs = ["fw", "bw"] if cfg.bidirectional else ["fw"]
     ys: Dict[Tuple[str, int], torch.Tensor] = {}
@@ -475,7 +479,8 @@ def sp_loss(cfg: ModelConfig, model, features, feat_lens, labels,
     """Mean CTC loss of a TRAIN-mode forward with the time axis sharded
     (JAX ``sp_loss``): activations, logits and the loss recursion all
     live ``[T/S]`` a shard. ``model`` is the port's ``DeepSpeech2`` (a
-    GRU model, the standard tree), its parameters on the home device;
+    GRU or LSTM model, the standard tree), its parameters on the home
+    device;
     ``features [B, T, F]`` with T % ``sp_frame_multiple(cfg, S)`` == 0,
     ``feat_lens [B]``, ``labels [B, L]``, ``label_lens [B]``; ``devices``
     one entry a shard (``[cpu] * 8``: eight shards on the CPU, the plain
@@ -488,10 +493,11 @@ def sp_loss(cfg: ModelConfig, model, features, feat_lens, labels,
     (the caller applies the momentum, ``MaskedBatchNorm.update``, as
     JAX's step does). The BN running buffers are not read or written.
     Per layer and direction each shard runs one ``gru_fwd`` (K6, or K8)
-    and, in the backward, one ``gru_bwd`` (K7, or K9) at D=1; the loss
-    one taped ``ctc_alpha`` (K1) and one ``ctc_beta`` (K2) a shard."""
-    if cfg.rnn_type == "lstm":
-        raise NotImplementedError(LSTM_CARRY_LATER)
+    and, in the backward, one ``gru_bwd`` (K7, or K9) at D=1; an LSTM
+    model one taped ``lstm_fwd`` (K12 at ds2_small's H=800, or K14 at
+    ds2_full's H=1760) and one ``lstm_bwd`` (K13, or K15) at D=1, both
+    with the carry; the loss one taped ``ctc_alpha`` (K1) and one
+    ``ctc_beta`` (K2) a shard."""
     feats = torch.as_tensor(features)
     _validate(cfg, devices, feats.shape[1])
     home = next(model.parameters()).device

@@ -72,12 +72,11 @@ statistics and the step applies the momentum to the running buffers, as
 JAX's step does; clip, optimizer, guarded step, checkpoints and
 evaluation (the offline forward on the home device) are the offline
 path's. It excludes ``accum_steps > 1``, a pipelined tree and more than
-one process, as JAX's does, and an LSTM model (item 14b-ii).
+one process, as JAX's does; GRU and LSTM models both train.
 
 What the JAX trainer has and the port does not yet raises
-``NotImplementedError`` naming the queue item that brings it: sequence-
-parallel training of LSTM models (item 14b-ii), pipelined training
-(item 14c), RNN-T (item 15).
+``NotImplementedError`` naming the queue item that brings it: pipelined
+training (item 14c), RNN-T (item 15).
 
 CLI: ``python -m deepspeech_tpu_torch.train --config=dev_slice
 [--synthetic=N] [--device=cpu] [--section.key=value ...]``: it trains
@@ -112,7 +111,6 @@ from .device import resolve_device
 from .infer import PrintLogger
 from .metrics import char_errors, word_errors
 from .models.ds2 import HEAD_KEYS, DeepSpeech2
-from .models.rnn import LSTM_CARRY_LATER
 from .ops.ctc import ctc_loss_mean
 from .parallel import comm, zero
 from .parallel.distributed import (is_initialized, is_primary,
@@ -132,8 +130,6 @@ def check_supported(cfg: Config) -> None:
         raise ValueError("sequence_parallel excludes accum_steps>1 and "
                          "pipeline_stages>1")
     later = [
-        (t.sequence_parallel and cfg.model.rnn_type == "lstm",
-         LSTM_CARRY_LATER),
         (t.objective == "rnnt", "train.objective='rnnt' comes with item 15 "
                                 "of the port"),
         (cfg.model.pipeline_stages > 1, "training with "

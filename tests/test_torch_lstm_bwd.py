@@ -82,7 +82,7 @@ def _port_grads(xproj, mask, w, bias, dy, reverse, bf16):
     wt = torch.from_numpy(w).requires_grad_()
     bt = torch.from_numpy(bias).requires_grad_()
     m = torch.from_numpy(mask).t().contiguous()
-    ys = lstm.LSTMFunction.apply(xp, m, wt, bt, None, reverse)
+    ys, _ = lstm.LSTMFunction.apply(xp, m, wt, bt, None, None, reverse)
     assert ys.shape == (len(reverse), T, B, w.shape[1])
     (ys.sum(0).transpose(0, 1) * torch.from_numpy(dy)).sum().backward()
     assert xp.grad.dtype == dd and wt.grad.dtype == torch.float32
@@ -252,16 +252,22 @@ def test_lstm_bwd_rejects_malformed_input(bad):
 
 @pytest.mark.parametrize("needs_grad", [True, False])
 def test_carried_state_raises(needs_grad):
-    """``LSTMFunction`` takes no carried ``(h0, c0)``: the BPTT starts
-    from zeros, as the JAX VJP does, and the LSTM kernels take no carry."""
+    """``LSTMFunction`` takes a carried state whole: ``h0`` without
+    ``c0``, or ``c0`` without ``h0``, raises, with or without a
+    gradient; both together run, and a zero carry gives no carry's
+    outputs bit for bit (the plain versions on the CPU)."""
     xproj, mask, w, bias, _ = _inputs(42, 16, 1)
     wt = torch.from_numpy(w).requires_grad_(needs_grad)
-    hc0 = (torch.zeros(1, B, 16), torch.zeros(1, B, 16))
-    with pytest.raises(NotImplementedError, match="h0, c0"):
-        lstm.LSTMFunction.apply(
-            torch.from_numpy(xproj).transpose(0, 1).contiguous(),
+    args = (torch.from_numpy(xproj).transpose(0, 1).contiguous(),
             torch.from_numpy(mask).t().contiguous(), wt,
-            torch.from_numpy(bias), hc0, (False,))
+            torch.from_numpy(bias))
+    zero = torch.zeros(1, B, 16)
+    for h0, c0 in ((zero, None), (None, zero)):
+        with pytest.raises(ValueError, match="both h0 and c0"):
+            lstm.LSTMFunction.apply(*args, h0, c0, (False,))
+    got = lstm.LSTMFunction.apply(*args, zero, zero.clone(), (False,))
+    ref = lstm.LSTMFunction.apply(*args, None, None, (False,))
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 def test_int8_lstm_under_grad_raises():

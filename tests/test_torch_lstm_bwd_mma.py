@@ -15,7 +15,10 @@ at each step the 4H-deep sum ``round(dg_{i-1}) @ W^T`` cut into 32-deep
 chunks, chunk c taken by warp c % 8, each chunk two k16 steps whose
 depths are the lanes' 16-byte pieces (k = 8l..8l+3, then 8l+4..8l+7),
 each warp summing its chunks in turn and the warps' partial sums added
-in warp order to dh's elementwise part; dy joins after. Tolerances:
+in warp order to dh's elementwise part; dy joins after. With a carry the
+pre-pass reads ``h0`` as the first step's h_prev, that step takes ``c0``
+as c_prev, dc starts from ``dcfin``, and one pass more (the product
+alone) forms ``dh0``; ``dc0`` is the first step's dc_prev. Tolerances:
 1e-6 against the plain version with f32 dots and 1e-5 with bf16 (f32
 sums in another order), 1e-4 against the JAX kernel with f32 dots.
 """
@@ -62,42 +65,48 @@ def _args(seed, h, d, dtype, reverse=(False, True)):
     return xp, mask, w, bias, ys, cs, dy, reverse
 
 
-def _mirror(xp, mask, w, b, ys, cs, dy, reverse):
+def _mirror(xp, mask, w, b, ys, cs, dy, reverse, hc0=None, dcfin=None):
     """The header's loop in its order of summation (see the module
-    docstring); the chunking and the warps, read from the header."""
+    docstring); the chunking and the warps, read from the header. With
+    ``hc0`` (and ``dcfin``) it also returns ``(dh0, dc0)``."""
     head = k13_variants.header_text()
     warps, kc = built_value(head, "M_WARPS"), built_value(head, "MKC")
     t, bsz, n = xp.shape
     d, h = w.shape[0], w.shape[1]
     w32 = w.float()
-    hp = gru._h_prev(ys, reverse)
+    hp = gru._h_prev(ys, reverse, None if hc0 is None else hc0[0])
     steps = [[8 * lane + 4 * s + e for lane in range(4) for e in range(4)]
              for s in range(2)]
     dgates = torch.empty((d, t, bsz, n))
+    dh0, dc0 = torch.empty((d, bsz, h)), torch.empty((d, bsz, h))
+
+    def product(di, g_prev):
+        parts = torch.zeros(warps, bsz, h)
+        for c in range(-(-n // kc)):
+            for step in steps:
+                p = [c * kc + x for x in step if c * kc + x < n]
+                parts[c % warps] = (parts[c % warps]
+                                    + g_prev[:, p] @ w32[di][:, p].t())
+        s = torch.zeros(bsz, h)
+        for ww in range(warps):
+            s = s + parts[ww]
+        return s
+
     for di in range(d):
         pre = (hp[di].to(w.dtype).float().reshape(t * bsz, h) @ w32[di]
                + b[di]).reshape(t, bsz, n)
         dh = torch.zeros(bsz, h)
-        dc = torch.zeros(bsz, h)
+        dc = torch.zeros(bsz, h) if dcfin is None else dcfin[di].clone()
         g_prev = None
         for i in range(t):
             row = i if reverse[di] else t - 1 - i
             if i == t - 1:
-                c_prev = torch.zeros(bsz, h)
+                c_prev = torch.zeros(bsz, h) if hc0 is None else hc0[1][di]
             else:
                 c_prev = cs[di, row + 1 if reverse[di] else row - 1]
             carry = dh
             if i > 0:
-                parts = torch.zeros(warps, bsz, h)
-                for c in range(-(-n // kc)):
-                    for step in steps:
-                        p = [c * kc + x for x in step if c * kc + x < n]
-                        parts[c % warps] = (parts[c % warps]
-                                            + g_prev[:, p] @ w32[di][:, p].t())
-                s = torch.zeros(bsz, h)
-                for ww in range(warps):
-                    s = s + parts[ww]
-                carry = carry + s
+                carry = carry + product(di, g_prev)
             x = xp[row].float()
             g = pre[row]
             ig = torch.sigmoid(x[:, :h] + g[:, :h])
@@ -117,7 +126,8 @@ def _mirror(xp, mask, w, b, ys, cs, dy, reverse):
             dh = (1.0 - m) * dhc
             dc = dc_pre * fg + (1.0 - m) * dc
             g_prev = da.to(w.dtype).float()
-    return dgates
+        dh0[di], dc0[di] = dh + product(di, g_prev), dc  # the tail pass
+    return dgates if hc0 is None else (dgates, (dh0, dc0))
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +150,30 @@ def test_loop_order_matches_plain(d, h, reverse, dtype, tol):
     err = float((got - ref).abs().max())
     assert err <= tol, err
     assert float(ref.abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 1e-5)])
+@pytest.mark.parametrize("d,h", [(2, 40), (1, 200)])
+def test_loop_order_with_carry_matches_plain(d, h, dtype, tol):
+    """The mirror with a carried ``(h0, c0)`` (the pre-pass's first rows
+    read h0, the first step's c_prev is c0), dc starting from ``dcfin``,
+    and the tail pass that forms ``dh0`` against ``lstm_bwd_plain`` with
+    ``hc0``, ``dcfin`` and ``return_dhc0``."""
+    xp, mask, w, bias, _, _, dy, reverse = _args(300 + h + d, h, d, dtype)
+    rng = np.random.default_rng(h + d)
+    h0, c0, dcfin = (torch.from_numpy((rng.normal(size=(d, B, h)) * 0.5)
+                                      .astype(np.float32)) for _ in range(3))
+    ys, cs = lstm.lstm_fwd_plain(xp, mask, w, bias, reverse, tape=True,
+                                 hc0=(h0, c0))
+    args = (xp, mask, w, bias, ys, cs, dy, reverse)
+    got, (dh0, dc0) = _mirror(*args, hc0=(h0, c0), dcfin=dcfin)
+    ref, (rh0, rc0) = lstm.lstm_bwd_plain(*args, hc0=(h0, c0), dcfin=dcfin,
+                                          return_dhc0=True)
+    for g, r in ((got, ref), (dh0, rh0), (dc0, rc0)):
+        err = float((g - r).abs().max())
+        assert err <= tol, err
+    assert min(float(rh0.abs().max()), float(rc0.abs().max())) > 0.1
 
 
 @pytest.mark.parametrize("h", [40, 200])
@@ -321,3 +355,73 @@ def test_both_sources_share_the_header_and_its_hash(tmp_path, monkeypatch):
         k13_variants.header_text().replace("// ---- 1.", "// ---- one."))
     after = {n: _build._target(n) for n in before}
     assert all(before[n] != after[n] for n in before)
+
+
+# ---------------------------------------------------------------------------
+# The C entries' carry arguments and the parent shim.
+# ---------------------------------------------------------------------------
+
+ENTRY_AFTER_W = ["bias", "h0", "c0", "ys", "cs", "dy", "dcfin", "dgates",
+                 "dh0", "dc0", "scratch"]
+
+
+def _entry_params(source):
+    with open(os.path.join(_build.CSRC_DIR, f"{source}.cu")) as f:
+        text = f.read()
+    entry = text[text.index(f"int {source}_launch("):]
+    entry = entry[entry.index("(") + 1:entry.index(")")]
+    return [p.split()[-1].lstrip("*") for p in entry.split(",")]
+
+
+@pytest.mark.parametrize("source", ["lstm_bwd", "lstm_bwd_stream"])
+def test_c_entry_takes_the_carry_in_the_wrappers_order(source, monkeypatch):
+    """Both C entries take ``(bf16, xp, mask, w, bias, h0, c0, ys, cs, dy,
+    dcfin, dgates, dh0, dc0, scratch, D, T, B, H, reverse_bits, device,
+    stream)``, and ``_bwd_launch`` hands its tensors in that order: the
+    carry's where given, None (NULL) where not."""
+    params = _entry_params(source)
+    assert params[:4] == ["bf16", "xp", "mask", "w"]
+    assert params[4:4 + len(ENTRY_AFTER_W)] == ENTRY_AFTER_W
+    assert params[4 + len(ENTRY_AFTER_W):] == [
+        "D", "T", "B", "H", "reverse_bits", "device", "stream"]
+    seen = {}
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda d, b, h: 6 * d * b * h
+
+    monkeypatch.setattr(gru, "_lib", lambda name: Lib())
+    monkeypatch.setattr(gru, "_launch", lambda name, xp, mask, w, tensors,
+                        reverse: seen.update(name=name, tensors=tensors))
+    xp, mask, w, bias, ys, cs, dy, reverse = _args(7, 16, 1, torch.bfloat16)
+    h0, c0, dcfin = (torch.randn(1, B, 16) for _ in range(3))
+    dgates, (dh0, dc0), launched = lstm._bwd_launch(
+        source, xp, mask, w, bias, ys, cs, dy, reverse, hc0=(h0, c0),
+        dcfin=dcfin, return_dhc0=True)
+    assert launched and seen["name"] == source
+    named = dict(zip(ENTRY_AFTER_W, seen["tensors"]))
+    for name, x in (("bias", bias), ("h0", h0), ("c0", c0), ("ys", ys),
+                    ("cs", cs), ("dy", dy), ("dcfin", dcfin),
+                    ("dgates", dgates), ("dh0", dh0), ("dc0", dc0)):
+        assert named[name] is x, name
+    lstm._bwd_launch(source, xp, mask, w, bias, ys, cs, dy, reverse)
+    named = dict(zip(ENTRY_AFTER_W, seen["tensors"]))
+    assert all(named[n] is None for n in ("h0", "c0", "dcfin", "dh0", "dc0"))
+
+
+def test_parent_call_shims_an_older_entry(tmp_path):
+    """``k13_variants.parent_call`` returns the wrapper for a tree whose
+    entry takes the carry and a shim for one whose entry does not."""
+    for source in ("lstm_bwd", "lstm_bwd_stream"):
+        path = os.path.join(_build.CSRC_DIR, f"{source}.cu")
+        assert k13_variants.parent_call(source, path) is getattr(lstm,
+                                                                 source)
+        old = tmp_path / f"{source}.cu"
+        old.write_text(f"int {source}_launch(int bf16, const void* xp, "
+                       "const float* mask, const void* w, const float* "
+                       "bias, const float* ys, const float* cs, const "
+                       "float* dy, float* dgates, float* scratch, int D, "
+                       "int T, int B, int H, int reverse_bits, int device, "
+                       "void* stream) {}")
+        shim = k13_variants.parent_call(source, str(old))
+        assert callable(shim) and shim is not getattr(lstm, source)

@@ -146,10 +146,15 @@ def test_bad_carries_raise(bad, match):
 
 
 def test_lstm_function_still_refuses_a_carry():
-    """Training through a carry (dh0, dc0 out of the BPTT kernels) is
-    sequence-parallel training, a later item: the autograd function
-    refuses one."""
+    """The autograd function now takes the carry (sequence-parallel
+    training, item 14b-ii): its forward from ``(h0, c0)`` gives
+    ``lstm_fwd``'s ``ys`` and final ``c`` with that carry, bit for bit;
+    it still refuses half a carry."""
     xproj, mask, w, bias, h0, c0 = _case(5)
     args, _ = _port(xproj, mask, w, bias, None)
-    with pytest.raises(NotImplementedError, match="carried"):
-        lstm.LSTMFunction.apply(*args, _carry(h0, c0), (False,))
+    hc0 = _carry(h0, c0)
+    ys, c = lstm.LSTMFunction.apply(*args, *hc0, (False,))
+    ref, (_, cf) = lstm.lstm_fwd(*args, (False,), hc0=hc0, return_final=True)
+    assert torch.equal(ys, ref) and torch.equal(c, cf)
+    with pytest.raises(ValueError, match="both"):
+        lstm.LSTMFunction.apply(*args, hc0[0], None, (False,))

@@ -320,13 +320,27 @@ def test_trainer_takes_the_sp_branch_and_the_guarded_step():
     ("accum", {"train.accum_steps": "2"}, ValueError, "accum_steps>1"),
     ("pipelined", {"model.pipeline_stages": "2"}, ValueError,
      "pipeline_stages>1"),
-    ("lstm", {"model.rnn_type": "lstm"}, NotImplementedError, "14b-ii"),
+    # The id is the case's from when an LSTM model raised (item 14b-ii).
+    pytest.param("lstm", {"model.rnn_type": "lstm"}, None, None,
+                 id="lstm-over3-NotImplementedError-14b-ii"),
 ])
 def test_trainer_refuses_what_jax_refuses(case, over, exc, match):
     """JAX's guards (``train.py:437-456``, tests/test_seqpar.py's
-    ``divide``) with its messages, and an LSTM model naming item
-    14b-ii."""
+    ``divide``) with its messages. An LSTM model passes them, as in JAX:
+    its SP Trainer takes a step over eight CPU shards with a finite
+    loss."""
     _, tcfg = _trainer_configs(**over)
+    if exc is None:
+        tr = Trainer(tcfg, _Batches([{}]), CharTokenizer.english(),
+                     logger=_Quiet(), device="cpu", sp_devices=CPU8)
+        assert tr.sp_devices == CPU8 and tcfg.model.rnn_type == "lstm"
+        rng = np.random.default_rng(4)
+        labels, label_lens = _labels(4)
+        batch = {"features": rng.normal(size=(2, 256, 161)).astype(
+            np.float32), "feat_lens": np.array([256, 199], np.int32),
+            "labels": labels[:, :8], "label_lens": np.minimum(label_lens, 8)}
+        assert np.isfinite(float(tr.train_step(batch)["loss"]))
+        return
     with pytest.raises(exc, match=match):
         Trainer(tcfg, _Batches([{}]), CharTokenizer.english(),
                 logger=_Quiet(), device="cpu", sp_devices=CPU8)
@@ -343,14 +357,24 @@ def test_trainer_refuses_a_multi_rank_group(monkeypatch):
 
 
 def test_sp_loss_refuses_lstm_and_lookahead():
+    """An LSTM model trains sequence-parallel now (item 14b-ii): a finite
+    loss and a nonzero gradient on every recurrent weight. A lookahead
+    model is still refused, as JAX refuses it."""
     jcfg, tcfg = _over(rnn_type="lstm")
-    _, feats, lens = _setup(jcfg, 5)
+    variables, feats, lens = _setup(jcfg, 5)
     model = DeepSpeech2(tcfg.model)
+    model.load_state_dict(bridge.from_flax(variables["params"],
+                                           variables["batch_stats"]))
+    model.train()
     labels, label_lens = _labels(5)
     args = (torch.from_numpy(feats), torch.from_numpy(lens),
             torch.from_numpy(labels), torch.from_numpy(label_lens), CPU8)
-    with pytest.raises(NotImplementedError, match="14b-ii"):
-        seqpar.sp_loss(tcfg.model, model, *args)
+    loss, _ = seqpar.sp_loss(tcfg.model, model, *args)
+    loss.backward()
+    assert np.isfinite(float(loss.detach()))
+    for name, p in model.named_parameters():
+        if ".wh_" in name:
+            assert float(p.grad.abs().max()) > 0, name
     cfg = dataclasses.replace(tcfg.model, rnn_type="gru",
                               bidirectional=False, lookahead_context=8)
     with pytest.raises(ValueError, match="stream"):

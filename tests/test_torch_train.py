@@ -249,10 +249,9 @@ def test_unported_training_options_raise(over, match):
     """The options the port once refused. Item 10's three work now:
     ``accum_steps=2`` trains through the CLI, ``mesh_shape=2,1`` in one
     process raises JAX's ``ValueError`` (a mesh larger than the world),
-    and ZeRO at world size 1 trains. Item 14b's ``sequence_parallel``
-    trains a GRU model over two CPU shards and raises for an LSTM one,
-    naming item 14b-ii. The rest raise naming the queue item that
-    brings them."""
+    and ZeRO at world size 1 trains. Items 14b and 14b-ii's
+    ``sequence_parallel`` trains a GRU and an LSTM model over two CPU
+    shards. The rest raise naming the queue item that brings them."""
     cfg = apply_overrides(get_config("ds2_small"),
                           {"train.checkpoint_dir": "", **over})
     if "train.accum_steps" in over:
@@ -284,18 +283,17 @@ def test_unported_training_options_raise(over, match):
         assert trainer.step == 2 and np.isfinite(last["loss"])
         assert trainer.opt_params == trainer._params
     elif "train.sequence_parallel" in over:
-        check_supported(cfg)
-        lstm = apply_overrides(cfg, {"model.rnn_type": "lstm"})
-        with pytest.raises(NotImplementedError, match=match):
-            check_supported(lstm)
-        _, tcfg = _configs("dev_slice", {"train.sequence_parallel": "true",
-                                         "model.rnn_hidden": "16",
-                                         "data.bucket_frames": "48"})
-        trainer = Trainer(tcfg, SyntheticPipeline(tcfg, 8, label_len=4),
-                          CharTokenizer.english(), device="cpu",
-                          sp_devices=[torch.device("cpu")] * 2)
-        last = trainer.fit(epochs=1)
-        assert trainer.step == 2 and np.isfinite(last["loss"])
+        for rnn_type in ("gru", "lstm"):
+            check_supported(apply_overrides(cfg,
+                                            {"model.rnn_type": rnn_type}))
+            _, tcfg = _configs("dev_slice", {
+                "train.sequence_parallel": "true", "model.rnn_hidden": "16",
+                "data.bucket_frames": "48", "model.rnn_type": rnn_type})
+            trainer = Trainer(tcfg, SyntheticPipeline(tcfg, 8, label_len=4),
+                              CharTokenizer.english(), device="cpu",
+                              sp_devices=[torch.device("cpu")] * 2)
+            last = trainer.fit(epochs=1)
+            assert trainer.step == 2 and np.isfinite(last["loss"])
     else:
         with pytest.raises(NotImplementedError, match=match):
             check_supported(cfg)
