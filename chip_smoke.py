@@ -137,8 +137,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    SP ``Trainer`` with the guarded step, 2 steps; an LSTM model refused;
 5. training path phases: ``Trainer`` steps at the full width of
    ds2_small (2 of its 3 layers, ``SMALL_TRAIN_LAYERS``), ds2_streaming
-   (3 of its 5, ``STREAMING_TRAIN_LAYERS``) and ds2_full (2 of its 7,
-   ``FULL_TRAIN_LAYERS``) on a (32, 1700) batch of ragged lengths, GRU
+   (3 of its 5, ``STREAMING_TRAIN_LAYERS``) and ds2_full (1 of its 7,
+   ``FULL_TRAIN_LAYERS``; its 7 train in the pipeline phase) on a (32,
+   1700) batch of ragged lengths, GRU
    and then LSTM (``model.rnn_type=lstm``); counts
    the launches per step (one recurrent forward and one backward per
    layer: ``gru_fwd``/``gru_bwd`` or the taped ``lstm_fwd`` and
@@ -328,6 +329,7 @@ import tempfile
 import threading
 import time
 import weakref
+import zlib
 from unittest import mock
 
 import numpy as np
@@ -409,10 +411,12 @@ DESCENT_STEPS = 10              # AdamW steps on the fixed batch
 # ds2_full (7 BiGRU, H=1760): a step takes seconds, so fewer of them.
 FULL_TRAIN_STEPS = 2
 FULL_DESCENT_STEPS = 5
-# The ds2_full train phases, GRU and LSTM, run 2 of the 7 layers at full
+# The ds2_full train phases, GRU and LSTM, run 1 of the 7 layers at full
 # width: with all 7 the whole script took 708 s, with 3 678 s, past its
-# 675 s budget (NVIDIA H100 80GB HBM3, 700 W).
-FULL_TRAIN_LAYERS = 2
+# 675 s budget (NVIDIA H100 80GB HBM3, 700 W); with 2 and the pipeline
+# phase (53 s, which trains all 7 through K8 and K9) whole runs took
+# 534.3 and 768.4 s (NVIDIA H100 80GB HBM3, 700.00 W), so 1.
+FULL_TRAIN_LAYERS = 1
 # The ds2_small and ds2_streaming train phases, GRU and LSTM, run 2 of
 # 3 and 3 of 5 layers: with the item 14b phase (15.5 s alone, 11.6 in a
 # whole run) the whole run would pass its 675 s budget at full depth
@@ -7737,6 +7741,470 @@ def seqpar_train_phase(card: str):
             "lstm_bwd_stream[D=1]": k15_d1}, carry, counted
 
 
+# ---- item 14c: pipeline-parallel training over two gloo ranks ----
+
+# (preset, rnn_type, global batch rows): ds2_full's 7 BiGRU layers at
+# H=1760 (rnn0, then 3 stacked layers a stage: K8, K9) and
+# ds2_small-lstm's 3 BiLSTM layers at H=800 (1 a stage: K12, K13), each
+# at M = 1 and 2 microbatches.
+PP_LEGS = (("ds2_full", "gru", 8), ("ds2_small", "lstm", 4))
+PP_MICRO = (1, 2)
+PP_FRAMES = 400
+PP_TIMED = 2                 # steps timed after the checked one
+PP_PARAM_TOL = 1e-3          # M=1: of each leaf's largest magnitude
+PP_CHILD_S = 300.0           # a pipe rank that has not exited fails
+# A rank's launches a step: rnn0's taped forward and its backward, each
+# stacked layer of its stage once forward and once in the recompute (an
+# LSTM's forward untaped there, taped in the recompute) on each of the M
+# microbatches, once backward on each; one K1 and one K2.
+PP_KERNELS = {"gru": ("gru_fwd_stream", "gru_bwd_stream"),
+              "lstm": ("lstm_fwd", "lstm_bwd")}
+# A standard tree's recurrent leaf -> the stacked tree's.
+_PP_STACKED = {"wx.kernel": "wx_kernel", "wx.bias": "wx_bias",
+               "bn.scale": "bn_scale", "bn.bias": "bn_bias",
+               "bn.mean": "mean", "bn.var": "var"}
+
+
+@contextlib.contextmanager
+def _collective_clock(ms: dict):
+    """Add to ``ms[name]`` the host ms of each ``torch.distributed``
+    ``name`` call (broadcast, all_reduce, all_gather) made inside, each
+    between two device syncs: with gloo on the card that is the copy
+    through the host and the wait for the other rank."""
+    import torch.distributed as dist
+
+    real = {k: getattr(dist, k) for k in ms}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                ms[name] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    for k in ms:
+        setattr(dist, k, timed(k))
+    try:
+        yield ms
+    finally:
+        for k, fn in real.items():
+            setattr(dist, k, fn)
+
+
+class _GlobalBatches(_Batches):
+    """``_Batches`` whose every process holds the global batch, as a pipe
+    group's ranks, which share their rows, need."""
+
+    provides_global_batches = True
+
+
+def _pp_config(preset: str, rnn_type: str, rows: int, m: int = 0):
+    """``preset`` (bf16, SGD, no checkpoints) at ``rows`` a batch; with
+    ``m`` microbatches, the pipelined tree on the (1, 2, 1) mesh."""
+    from deepspeech_tpu_torch.config import apply_overrides
+
+    over = {"train.checkpoint_dir": "", "train.warmup_steps": "1",
+            "data.batch_size": str(rows)}
+    if m:
+        over.update({"model.pipeline_stages": "2",
+                     "model.pipeline_microbatches": str(m),
+                     "train.mesh_shape": "1,2,1"})
+    return apply_overrides(_config(preset, rnn_type), over)
+
+
+def _logits_hook(model, out: dict):
+    """Keep the logits of ``model``'s next forward in ``out``."""
+    return model.register_forward_hook(
+        lambda mod, args, y: out.update(logits=y[0].detach().clone()))
+
+
+def _crc(t: torch.Tensor) -> int:
+    """CRC-32 of a tensor's bytes."""
+    return zlib.crc32(t.detach().contiguous().view(-1).view(torch.uint8)
+                      .cpu().numpy().tobytes())
+
+
+def _as_stacked(sd: dict, layers: int) -> dict:
+    """A standard tree's ``state_dict`` in the stacked tree's names:
+    ``rnn.rnn0.*`` as ``rnn0.*``, layers 1..L-1 stacked (on their
+    device)."""
+    out, stacks = {}, {}
+    for k, v in sd.items():
+        m = re.match(r"rnn\.rnn(\d+)\.(.+)$", k)
+        if m is None:
+            out[k] = v
+        elif m.group(1) == "0":
+            out[f"rnn0.{m.group(2)}"] = v
+        else:
+            name = _PP_STACKED.get(m.group(2), m.group(2))
+            stacks.setdefault(name, []).append((int(m.group(1)), v))
+    for name, parts in stacks.items():
+        assert [i for i, _ in parts] == list(range(1, layers))
+        out[f"rnn_pipe.{name}"] = torch.stack([v for _, v in parts])
+    return out
+
+
+def _pp_update_rel(got: dict, ref: dict, init: dict) -> float:
+    """``_update_rel`` over two runs' states from ``init`` (f64)."""
+    num = den = 0.0
+    for k, r in ref.items():
+        d = r.double() - init[k].double()
+        num += float((got[k].double() - init[k].double() - d).square()
+                     .sum())
+        den += float(d.square().sum())
+    return math.sqrt(num / den)
+
+
+def _microbatched_rnn(stack, m: int, swap: bool = False):
+    """A forward for a standard tree's ``RNNStack`` with the semantics of
+    the GPipe schedule on two stages, as one process computes it: rnn0
+    on the whole batch, then layers 1..L-1 on each microbatch (rows
+    ``k::m``) alone, each BN on that microbatch's statistics, and each
+    BN's running statistics updated once with their mean over the
+    microbatches. ``swap`` plants a fault: the hop between the stages
+    hands microbatch ``k + 1``'s activations on as microbatch k's."""
+    n = stack.n_layers
+    half = 1 + (n - 1) // 2
+    layers = [getattr(stack, f"rnn{i}") for i in range(n)]
+
+    def forward(x, lens):
+        x = layers[0](x, lens)
+        seen = {i: [] for i in range(1, n)}
+        updates = {}
+        for i in range(1, n):
+            bn = layers[i].bn
+            updates[i] = bn.update
+            bn.update = (lambda i: lambda mean, var:
+                         seen[i].append((mean, var)))(i)
+        try:
+            xs = [x[k::m] for k in range(m)]
+            ls = [lens[k::m] for k in range(m)]
+            for lo, hi in ((1, half), (half, n)):
+                if lo == half and swap:
+                    xs = xs[1:] + xs[:1]
+                for k in range(m):
+                    for i in range(lo, hi):
+                        xs[k] = layers[i](xs[k], ls[k])
+        finally:
+            for i, fn in updates.items():
+                layers[i].bn.update = fn
+        for i in range(1, n):
+            mean = sum(s[0] for s in seen[i]) / m
+            var = sum(s[1] for s in seen[i]) / m
+            layers[i].bn.update(mean, var)
+        y = torch.empty_like(x)
+        for k in range(m):
+            y[k::m] = xs[k]
+        return y
+
+    return forward
+
+
+def _pp_references(cfg, params, stats, batch, pipe: dict) -> dict:
+    """This process's one-card steps on the standard tree holding the
+    same weights, against the pipe runs ``pipe`` (by M: loss, logits,
+    grad norm and the dense state after the step, on the card): M = 1 on
+    the whole batch (its step timed too), and for each M > 1 the
+    microbatched step (``_microbatched_rnn``) and its planted hop fault.
+    Returns the comparisons' numbers by M."""
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.train import Trainer
+
+    layers = cfg.model.rnn_layers
+    tok = CharTokenizer.english()
+    runs, init, out = {}, None, {}
+    for m in sorted(pipe):
+        for swap in ((False,) if m == 1 else (False, True)):
+            tr = Trainer(cfg, _Batches([batch]), tok, logger=_Log(),
+                         params=params, batch_stats=stats)
+            if init is None:
+                init = _as_stacked({k: v.detach().clone() for k, v in
+                                    tr.model.state_dict().items()}, layers)
+            if m > 1:
+                tr.model.rnn.forward = _microbatched_rnn(tr.model.rnn, m,
+                                                         swap)
+            seen: dict = {}
+            hook = _logits_hook(tr.model, seen)
+            metrics = tr.train_step(batch)
+            hook.remove()
+            runs[(m, swap)] = dict(
+                metrics, logits=seen["logits"],
+                state=_as_stacked({k: v.detach().clone() for k, v in
+                                   tr.model.state_dict().items()}, layers))
+            if m == 1:
+                out["one_card_m1_step_ms"] = _time_steps(tr, batch,
+                                                         PP_TIMED)
+            del tr
+    for m, got in pipe.items():
+        ref = runs[(m, False)]
+        rec = {"grad_norm_bit_equal": bool(torch.equal(
+                   got["grad_norm"], ref["grad_norm"])),
+               "ref_grad_norm": float(ref["grad_norm"])}
+        if m == 1:
+            rel = {k: float((got["state"][k].double() - r.double()).abs()
+                            .max()) / max(float(r.abs().max()), 1e-30)
+                   for k, r in ref["state"].items()}
+            worst = max(rel, key=rel.get)
+            rec.update({
+                "loss_logits_bit_equal": bool(
+                    torch.equal(got["logits"], ref["logits"])
+                    and torch.equal(got["loss"], ref["loss"])),
+                "leaves_not_bit_equal": sorted(k for k, v in rel.items()
+                                               if v),
+                "worst_leaf": [worst, rel[worst]]})
+        else:
+            rec.update({
+                "update_rel_to_one_card": _pp_update_rel(
+                    got["state"], ref["state"], init),
+                "planted_faults_rel": {
+                    "bn_whole_batch_statistics": _pp_update_rel(
+                        runs[(1, False)]["state"], ref["state"], init),
+                    "hop_wrong_microbatch": _pp_update_rel(
+                        runs[(m, True)]["state"], ref["state"], init)}})
+        out[f"M={m}"] = rec
+    return out
+
+
+def _step_collectives(trainer, batch) -> dict:
+    """One more step's host ms inside each kind of collective, and the
+    step's whole ms, under ``_collective_clock``."""
+    ms = {"broadcast": 0.0, "all_reduce": 0.0, "all_gather": 0.0}
+    with _collective_clock(ms):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    return dict(ms, step=(time.perf_counter() - t0) * 1e3)
+
+
+def _pp_child(rank: str, store: str, out: str) -> int:
+    """A pipe rank: joins a two-rank gloo group through ``store`` on the
+    one card (LOCAL_RANK 0 for both) and builds each leg's seeded
+    weights; then for each leg and M a ``Trainer`` on the (1, 2, 1) mesh
+    takes one checked step (its launches, ms, loss and logits, and the
+    checksums of its replicated leaves, buffers and logits) and
+    ``PP_TIMED`` timed ones. Rank 0 keeps each run's dense state (the
+    stages all-gathered), leaves the group once both ranks are done, and
+    runs ``_pp_references`` against them. Each rank writes its JSON to
+    ``out``."""
+    os.environ["LOCAL_RANK"] = "0"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from deepspeech_tpu_torch.bridge import STACKED_PREFIX
+    from deepspeech_tpu_torch.data import CharTokenizer
+    from deepspeech_tpu_torch.parallel import initialize_distributed
+    from deepspeech_tpu_torch.parallel.comm import all_gather_dim
+    from deepspeech_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    initialize_distributed(f"file://{store}", 2, int(rank), backend="gloo")
+    legs = []
+    for preset, rnn_type, rows in PP_LEGS:
+        cfg = _pp_config(preset, rnn_type, rows)
+        params, stats = _weights(preset, rnn_type)
+        legs.append((preset, rnn_type, rows, cfg, params, stats,
+                     _train_batch(cfg, np.random.default_rng(SEED + 31),
+                                  PP_FRAMES),
+                     _stacked_tree(params, stats, cfg.model.rnn_layers)))
+        _weights.cache_clear()
+    results = {"rank": int(rank), "init_s": time.perf_counter() - t0}
+    states = {}
+    for preset, rnn_type, rows, _, _, _, batch, (pp, ps) in legs:
+        for m in PP_MICRO:
+            tr = Trainer(_pp_config(preset, rnn_type, rows, m),
+                         _GlobalBatches([batch]), CharTokenizer.english(),
+                         logger=_Log(), params=pp, batch_stats=ps)
+            seen: dict = {}
+            hook = _logits_hook(tr.model, seen)
+            torch.cuda.synchronize()
+            _zero_counts()
+            t1 = time.perf_counter()
+            metrics = tr.train_step(batch)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t1) * 1e3
+            launches = _counts()
+            hook.remove()
+            group = tr.model.pipe_group
+            sd = tr.model.state_dict()
+            if rank == "0":
+                states[(preset, rnn_type, m)] = dict(
+                    metrics, logits=seen["logits"], state={
+                        k: (all_gather_dim(v, 0, group)
+                            if k.startswith(STACKED_PREFIX)
+                            else v.detach().clone()) for k, v in sd.items()})
+            else:
+                for k, v in sd.items():
+                    if k.startswith(STACKED_PREFIX):
+                        all_gather_dim(v, 0, group)
+            results[f"{preset}-{rnn_type} M={m}"] = {
+                "launches": {k: v for k, v in launches.items() if v},
+                "first_step_ms": first_ms,
+                "loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]),
+                "stacked_rows": int(tr.model.rnn_pipe.wh_fw.shape[0]),
+                "stage": tr.model.rnn_pipe.stage,
+                "replicated_crc": {k: _crc(v) for k, v in sd.items()
+                                   if not k.startswith(STACKED_PREFIX)},
+                "logits_crc": _crc(seen["logits"]),
+                "step_ms": _time_steps(tr, batch, PP_TIMED),
+                "collective_ms": _step_collectives(tr, batch),
+                "device": str(tr.device), "backend": dist.get_backend()}
+            del tr, sd
+    results["pipe_s"] = time.perf_counter() - t0
+    dist.destroy_process_group()
+    if rank == "0":
+        for preset, rnn_type, rows, cfg, params, stats, batch, _ in legs:
+            pipe = {m: states.pop((preset, rnn_type, m)) for m in PP_MICRO}
+            results[f"{preset}-{rnn_type} references"] = _pp_references(
+                cfg, params, stats, batch, pipe)
+            del pipe
+    results["seconds"] = time.perf_counter() - t0
+    with open(out, "w") as fh:
+        json.dump(results, fh)
+    return 0
+
+
+def pipeline_train_phase(card: str):
+    """Item 14c on the card: a pipelined tree trained by two processes
+    (``chip_smoke.py --pp-child RANK STORE OUT``) over gloo on the one
+    card, the mesh (1, 2, 1), each holding one stage of the stacked
+    layers; the two ranks are time-sliced on the card, so their step ms
+    holds the bubble, the hops and the other rank's work. Two legs:
+    ds2_full (7 BiGRU, H=1760, bf16; rnn0 and 3 stacked layers a stage;
+    K8, K9) on a global (8, 400) batch and ds2_small-lstm (3 BiLSTM,
+    H=800; 1 a stage; K12, K13) on (4, 400), each at M = 1 and 2, against
+    rank 0's step on the standard tree holding the same weights unstacked
+    once both ranks have left the group (``_pp_references``):
+
+    - M = 1: the loss and logits equal the one-card step's bit for bit,
+      and the parameters and BN statistics after the step are within
+      ``PP_PARAM_TOL`` of each leaf's largest magnitude (the global norm
+      sums the leaves' squares in another grouping, and over the pipe
+      group, so the clip's scale may differ in its last bits); the
+      leaves that differ are listed;
+    - M = 2: the update within ``DP_B_TOL`` (relative) of the one-card
+      microbatched step (``_microbatched_rnn``), and two planted faults
+      past it: the stages normalizing with the whole batch's statistics
+      (the M = 1 step) and a hop that hands on the wrong microbatch;
+    - the replicated leaves, BN buffers and logits bit-equal on the two
+      ranks (their checksums);
+    - each rank's launches a step: ``1 + 2 M L'`` forward and ``1 + M L'``
+      backward recurrent launches for ``L'`` stacked layers a stage, one
+      K1 and one K2;
+    - each rank's step ms against the one-card M = 1 step's, and in one
+      more step the ms each rank spends inside the broadcasts (the hops,
+      the output's and the input gradient's), the all-reduces (the BN
+      statistics', the gradients' and the loss's over the one-rank data
+      group, the norm's over the pipe group) and the all-gathers
+      (``_collective_clock``).
+
+    A collective that gloo refuses on CUDA tensors fails the phase with
+    its error. Returns both ranks' launches by kernels-line entry."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    children = []
+    counted: dict = {}
+    out: dict = {}
+    try:
+        t0 = time.perf_counter()
+        for r in range(2):
+            children.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--pp-child",
+                 str(r), os.path.join(root, "store"),
+                 os.path.join(root, f"rank{r}.json")],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True))
+        results = []
+        for r, c in enumerate(children):
+            try:
+                _, err = c.communicate(timeout=max(
+                    PP_CHILD_S - (time.perf_counter() - t0), 1))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"pipeline: rank {r} still running after "
+                                   f"{PP_CHILD_S} s")
+            _require(c.returncode == 0, f"pipeline: rank {r} exited "
+                     f"{c.returncode}:\n{err[-4000:]}")
+            with open(os.path.join(root, f"rank{r}.json")) as fh:
+                results.append(json.load(fh))
+        for preset, rnn_type, rows in PP_LEGS:
+            cfg = _pp_config(preset, rnn_type, rows)
+            per_stage = (cfg.model.rnn_layers - 1) // 2
+            fwd, bwd = PP_KERNELS[rnn_type]
+            key = f"{preset}-{rnn_type}"
+            refs = results[0][f"{key} references"]
+            leg = {"batch": [rows, PP_FRAMES], "stacked_per_stage": per_stage,
+                   "one_card_m1_step_ms": refs["one_card_m1_step_ms"]}
+            for m in PP_MICRO:
+                name = f"{key} M={m}"
+                got = [res[name] for res in results]
+                want = {fwd: 1 + 2 * m * per_stage, bwd: 1 + m * per_stage,
+                        "ctc_alpha": 1, "ctc_beta": 1}
+                for r, g in enumerate(got):
+                    _require(g["stacked_rows"] == per_stage
+                             and g["stage"] == r,
+                             f"{name}: rank {r} holds {g['stacked_rows']} "
+                             f"stacked layers as stage {g['stage']}")
+                    _require(g["launches"] == want, f"{name}: rank {r} "
+                             f"launches {g['launches']}, want {want}")
+                    for k, v in want.items():
+                        entry = k if k.startswith("ctc") else f"{k}[D=2]"
+                        counted[entry] = counted.get(entry, 0) + v
+                a, b = got
+                _require(a["replicated_crc"] == b["replicated_crc"]
+                         and a["logits_crc"] == b["logits_crc"]
+                         and a["loss"] == b["loss"],
+                         f"{name}: the ranks' replicated leaves, buffers "
+                         f"or logits differ")
+                ref = refs[f"M={m}"]
+                if m == 1:
+                    worst, rel = ref["worst_leaf"]
+                    _require(ref["loss_logits_bit_equal"],
+                             f"{name}: loss or logits differ from the "
+                             f"one-card step's")
+                    _require(rel <= PP_PARAM_TOL, f"{name}: {worst} "
+                             f"{rel:.3g} from the one-card step, past "
+                             f"{PP_PARAM_TOL}")
+                else:
+                    upd = ref["update_rel_to_one_card"]
+                    faults = ref["planted_faults_rel"]
+                    _require(upd <= DP_B_TOL, f"{name}: update {upd:.3g} "
+                             f"from the one-card microbatched step, past "
+                             f"{DP_B_TOL}")
+                    _require(all(v > DP_B_TOL for v in faults.values()),
+                             f"{name}: a planted fault reads within "
+                             f"{DP_B_TOL}: {faults}")
+                    ref = dict(ref, tol=DP_B_TOL)
+                leg[f"M={m}"] = dict(
+                    ref, step_ms=[g["step_ms"] for g in got],
+                    collective_ms=[g["collective_ms"] for g in got],
+                    first_step_ms=[g["first_step_ms"] for g in got],
+                    launches_per_rank=a["launches"], loss=a["loss"],
+                    grad_norm=a["grad_norm"], ranks_bit_identical=True)
+            out[key] = leg
+            print(json.dumps({"pipeline_leg": {key: leg}, "card": card}),
+                  flush=True)
+        out["backend"] = results[0][f"{PP_LEGS[0][0]}-{PP_LEGS[0][1]} "
+                                    f"M=1"]["backend"]
+        out["rank_seconds"] = {k: [res[k] for res in results]
+                               for k in ("init_s", "pipe_s", "seconds")}
+        out["seconds"] = time.perf_counter() - t0
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    print(card, flush=True)
+    print(json.dumps({"pipeline_train": out, "launches": counted,
+                      "card": card}), flush=True)
+    return counted
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7896,6 +8364,12 @@ def main() -> int:
     for name, key in (("gru_fwd[D=2]", "gru_fwd"), ("gru_bwd[D=2]", "gru_bwd"),
                       ("ctc_alpha", "ctc_alpha"), ("ctc_beta", "ctc_beta")):
         entries[name]["launches"] += counts[key]
+    # Item 14c: a pipelined tree trained by two gloo ranks on the one
+    # card, one stage each (K8, K9 on ds2_full; K12, K13 on
+    # ds2_small-lstm; K1, K2).
+    for name, n in _phase("pipeline-parallel train", pipeline_train_phase,
+                          card).items():
+        entries[name]["launches"] += n
     # ds2_streaming live: the chunked engine, sessions, serve (K6 and
     # K10 at D=1 with a carried h0), the chunk's times, the feed.
     stream = _phase("ds2_streaming chunked vs offline", streaming_phase)
@@ -7978,4 +8452,6 @@ if __name__ == "__main__":
         sys.exit(_dp_child(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--warm-child"]:
         sys.exit(_warm_child(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--pp-child"]:
+        sys.exit(_pp_child(*sys.argv[2:5]))
     sys.exit(main())

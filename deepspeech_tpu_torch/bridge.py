@@ -17,7 +17,10 @@ of a model group holds ``V / model`` columns of ``head/kernel`` and
 **full** flax leaves: given the model's ``head_group`` they slice this
 rank's columns on the way in and all-gather them on the way out (a
 collective: every rank of the group calls it), so checkpoints keep
-their layout.
+their layout. On a mesh with a pipe axis a rank holds its stage's
+``L' = (L-1)/P`` layers of every stacked ``rnn_pipe`` leaf, parameters
+and BN statistics alike; given the model's ``pipe_group`` the two slice
+dim 0 on the way in and all-gather it on the way out, the same way.
 
 A quantized tree (``utils/quantize.py``'s ``quantize_params``) maps the
 same way: each ``{"q", "scale"}`` leaf becomes an int8 ``<leaf>.q`` and
@@ -45,6 +48,8 @@ Tree = Dict[str, object]
 _CONV_KERNEL = re.compile(r"^(conv\.conv\d+\.)kernel(\.q|\.scale)?$")
 _CONV_WEIGHT = re.compile(r"^(conv\.conv\d+\.)weight(\.q|\.scale)?$")
 _BN_STATS = ("mean", "var")
+# The stacked leaves of a pipelined tree, split over a pipe axis.
+STACKED_PREFIX = "rnn_pipe."
 
 
 def _flatten(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -82,18 +87,28 @@ def flax_path(key: str, shape: Tuple[int, ...]
     return key.replace(".", "/"), tuple(shape), 0
 
 
-def _head_slice(v: np.ndarray, group) -> np.ndarray:
+def _rank_slice(v: np.ndarray, group, dim: int) -> np.ndarray:
+    """This rank's equal part of ``v`` along ``dim`` over ``group``."""
     rank = torch.distributed.get_rank(group)
-    parts = torch.distributed.get_world_size(group)
-    width = v.shape[-1] // parts
-    return v[..., rank * width:(rank + 1) * width]
+    n = v.shape[dim] // torch.distributed.get_world_size(group)
+    return np.take(v, range(rank * n, (rank + 1) * n), axis=dim)
 
 
-def from_flax(params: Tree, batch_stats: Tree, head_group=None
-              ) -> Dict[str, torch.Tensor]:
+def _split_dim(key: str, head_group, pipe_group):
+    """``(group, dim)`` a ``state_dict`` key is split along, or None."""
+    if head_group is not None and key in HEAD_KEYS:
+        return head_group, -1
+    if pipe_group is not None and key.startswith(STACKED_PREFIX):
+        return pipe_group, 0
+    return None
+
+
+def from_flax(params: Tree, batch_stats: Tree, head_group=None,
+              pipe_group=None) -> Dict[str, torch.Tensor]:
     """Flax ``params`` (plain or quantized) + ``batch_stats`` -> the
     port's ``state_dict``; with ``head_group`` (a sharded head's model
-    group) this rank's columns of the head."""
+    group) this rank's columns of the head, with ``pipe_group`` (a
+    pipelined tree's) this rank's stage of the stacked leaves."""
     sd = {}
     for key, v in _flatten(params).items():
         m = _CONV_KERNEL.match(key)
@@ -101,22 +116,27 @@ def from_flax(params: Tree, batch_stats: Tree, head_group=None
             key = f"{m.group(1)}weight{m.group(2) or ''}"
             if v.ndim == 4:
                 v = v.transpose(3, 2, 0, 1)
-        if head_group is not None and key in HEAD_KEYS:
-            v = _head_slice(v, head_group)
-        sd[key] = torch.tensor(v)
-    for key, v in _flatten(batch_stats).items():
+        sd[key] = v
+    sd.update(_flatten(batch_stats))
+    for key, v in sd.items():
+        split = _split_dim(key, head_group, pipe_group)
+        if split is not None:
+            v = _rank_slice(v, split[0], split[1] % v.ndim)
         sd[key] = torch.tensor(v)
     return sd
 
 
-def to_flax(state_dict: Dict[str, torch.Tensor], head_group=None
-            ) -> Tuple[Tree, Tree]:
+def to_flax(state_dict: Dict[str, torch.Tensor], head_group=None,
+            pipe_group=None) -> Tuple[Tree, Tree]:
     """The port's ``state_dict`` -> flax ``(params, batch_stats)``; with
-    ``head_group`` the head's columns are all-gathered over it first."""
+    ``head_group`` the head's columns are all-gathered over it first,
+    with ``pipe_group`` the stacked leaves' stages (a collective: every
+    rank of the group calls it)."""
     params, stats = {}, {}
     for key, t in state_dict.items():
-        if head_group is not None and key in HEAD_KEYS:
-            t = all_gather_dim(t.detach(), t.dim() - 1, head_group)
+        split = _split_dim(key, head_group, pipe_group)
+        if split is not None:
+            t = all_gather_dim(t.detach(), split[1] % t.dim(), split[0])
         v = t.detach().cpu().numpy()
         m = _CONV_WEIGHT.match(key)
         if m:

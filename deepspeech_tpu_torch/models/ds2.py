@@ -7,10 +7,13 @@ Submodule and parameter names follow the JAX package's (``conv``,
 ``bridge.py`` map one tree onto the other by name. With
 ``model.pipeline_stages > 1`` the RNN stack is JAX ``ds2.py:38-44``'s
 pipelined layout: layer 0 as ``rnn0`` and layers 1..L-1 stacked in
-``rnn_pipe`` (``pipe_stack.py``), served through its sequential path.
+``rnn_pipe`` (``pipe_stack.py``): on one device its sequential path, on
+a mesh with a pipe axis this rank's stage of them, run by the GPipe
+schedule.
 
-Under a ``(data, model)`` mesh (``parallel/mesh.py``) the model is one
-rank's share of the JAX model under GSPMD: every masked BN takes its
+Under a ``(data, model)`` or ``(data, pipe, model)`` mesh
+(``parallel/mesh.py``) the model is one rank's share of the JAX model
+under GSPMD: every masked BN, the stacked layers' too, takes its
 statistics over the data group (``layers.MaskedBatchNorm.group``), and
 where the vocabulary divides by the model axis the head holds this
 rank's ``V / model`` columns of ``head/kernel`` and ``head/bias``,
@@ -45,23 +48,25 @@ class DeepSpeech2(nn.Module):
     tree (``utils/quantize.py``, through ``bridge.from_flax``) loads
     into: conv, ``wx`` and head kernels and the recurrent matrices held
     int8 with their scales; inference only. ``mesh`` (a
-    ``parallel.Mesh``) lays the model over a data-parallel group and a
-    model axis (module docstring); None is one device. A pipelined tree
-    (``pipeline_stages > 1``) serves in full precision only: an int8
-    engine dequantizes it first (``utils/quantize.keep_recurrent_q``)."""
+    ``parallel.Mesh``) lays the model over a data-parallel group, a pipe
+    axis and a model axis (module docstring); None is one device. A
+    pipelined tree (``pipeline_stages > 1``) is full precision only, as
+    JAX quantizes it as fp (``utils/quantize.py:165``): an int8 engine
+    dequantizes it first (``utils/quantize.keep_recurrent_q``)."""
 
     def __init__(self, cfg: ModelConfig, num_features: int = 161,
                  quantized: bool = False, mesh=None):
         super().__init__()
-        if cfg.pipeline_stages > 1 and (quantized or mesh is not None):
+        if cfg.pipeline_stages > 1 and quantized:
             raise NotImplementedError(
-                "a pipelined tree (pipeline_stages > 1) serves on one "
-                "device in full precision (an int8 engine dequantizes it "
-                "first); its mesh and its training come with item 14c of "
-                "the port")
+                "a pipelined tree (pipeline_stages > 1) is full precision "
+                "only, as the JAX package quantizes it as fp: an int8 "
+                "engine dequantizes it first")
         self.cfg = cfg
         # The model group that splits the head's columns, or None.
         self.head_group = None
+        # The pipe group that splits the stacked layers, or None.
+        self.pipe_group = None
         vocab = cfg.vocab_size
         if head_sharded(mesh, vocab):
             if quantized:
@@ -74,7 +79,8 @@ class DeepSpeech2(nn.Module):
         self.conv = ConvFrontend(cfg, quantized)
         if cfg.pipeline_stages > 1:
             self.rnn0 = RNNLayer(cfg, conv_out_features(cfg, num_features))
-            self.rnn_pipe = PipelinedRNNStack(cfg)
+            self.rnn_pipe = PipelinedRNNStack(cfg, mesh)
+            self.pipe_group = self.rnn_pipe.pipe_group
         else:
             self.rnn = RNNStack(cfg, conv_out_features(cfg, num_features),
                                 quantized)
@@ -85,7 +91,7 @@ class DeepSpeech2(nn.Module):
         self.head = Dense(cfg.rnn_hidden, vocab, quantized)
         if mesh is not None:
             for m in self.modules():
-                if isinstance(m, MaskedBatchNorm):
+                if isinstance(m, (MaskedBatchNorm, PipelinedRNNStack)):
                     m.group = mesh.data_group
 
     def forward(self, features: torch.Tensor, feat_lens: torch.Tensor

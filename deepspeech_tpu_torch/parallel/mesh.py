@@ -1,4 +1,5 @@
-"""The (data, model) mesh over a process group, and its sharding rules.
+"""The (data, model) or (data, pipe, model) mesh over a process group,
+and its sharding rules.
 
 The port's counterpart of the JAX package's ``parallel/mesh.py``. JAX
 lays a ``Mesh`` over devices and lets XLA insert the collectives; here
@@ -6,15 +7,21 @@ the mesh is laid over the ranks of the ``torch.distributed`` group (one
 card or one CPU process a rank) and the step calls the collectives of
 ``parallel/comm.py`` itself:
 
-- ``data``: each rank of a data group (the ranks of one model index)
-  takes its own contiguous block of the batch's rows; the gradients and
-  the masked BN's statistics are all-reduced over it;
-- ``model``: the ranks of a model group (one data index) share their
-  rows and split the vocabulary head's columns (``head/kernel``,
-  ``head/bias``), all-gathering the logits.
+- ``data``: each rank of a data group (the ranks of one ``(pipe,
+  model)`` index) takes its own contiguous block of the batch's rows;
+  the gradients and the masked BN's statistics are all-reduced over it;
+- ``pipe`` (a 3-element shape only): the ranks of a pipe group (one
+  ``(data, model)`` index) share their rows and hold one stage each of
+  the pipelined RNN middle (``models/pipe_stack.py``): the stacked
+  ``rnn_pipe/`` leaves split dim 0 over it, and activations hop between
+  adjacent stages over a two-rank group a pair;
+- ``model``: the ranks of a model group (one ``(data, pipe)`` index)
+  share their rows and split the vocabulary head's columns
+  (``head/kernel``, ``head/bias``), all-gathering the logits.
 
-Rank ``r`` sits at ``(r // model, r % model)``, the process-major order
-of the JAX mesh over ``jax.devices()``.
+Rank ``r`` sits at ``(r // (pipe * model), (r // model) % pipe, r %
+model)``, the process-major order of the JAX mesh over
+``jax.devices()``; a 2-element shape has no pipe axis.
 
 ``shard_batchwise`` has no counterpart. JAX needs it because its Pallas
 kernels are opaque to the SPMD partitioner and must be ``shard_map``-ed
@@ -28,7 +35,7 @@ import functools
 import logging
 import re
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,40 +56,86 @@ Spec = Tuple[Optional[str], ...]
 
 @dataclass(eq=False)
 class Mesh:
-    """A ``(data, model)`` layout of the group's ranks.
+    """A ``(data, model)`` or ``(data, pipe, model)`` layout of the
+    group's ranks.
 
     ``shape`` maps each axis to its size, as ``jax.sharding.Mesh.shape``
-    does. ``data_group`` / ``model_group`` are the process groups of
-    this rank's data and model axes, None without a process group (no
-    collective runs). An axis of one rank still has its group: the
-    step's collectives run over it, and a one-rank sum or gather is
-    exact."""
+    does; ``pipe`` is None for a 2-axis mesh, whose ``shape`` has no
+    ``pipe``. ``data_group`` / ``pipe_group`` / ``model_group`` are the
+    process groups of this rank's axes, and ``hops`` the two-rank groups
+    this rank shares with the stage before and after it (None at the
+    ends of the line), all None without a process group (no collective
+    runs). An axis of one rank still has its group: the step's
+    collectives run over it, and a one-rank sum or gather is exact."""
 
     data: int
     model: int
     rank: int = 0
     data_group: Any = None
     model_group: Any = None
+    pipe: Optional[int] = None
+    pipe_group: Any = None
+    hops: Tuple[Any, Any] = (None, None)
     shape: Dict[str, int] = field(init=False)
 
     def __post_init__(self):
-        self.shape = {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+        self.shape = {DATA_AXIS: self.data}
+        if self.pipe is not None:
+            self.shape[PIPE_AXIS] = self.pipe
+        self.shape[MODEL_AXIS] = self.model
+
+    @property
+    def stages(self) -> int:
+        """The pipe axis's size, 1 without one."""
+        return self.pipe or 1
 
     @property
     def size(self) -> int:
-        return self.data * self.model
+        return self.data * self.stages * self.model
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.model
+        return self.rank // (self.stages * self.model)
+
+    @property
+    def pipe_index(self) -> int:
+        return (self.rank // self.model) % self.stages
 
     @property
     def model_index(self) -> int:
         return self.rank % self.model
 
+    def stage_rank(self, stage: int) -> int:
+        """The global rank of ``stage`` on this rank's pipe line (its
+        data and model index)."""
+        return ((self.data_index * self.stages + stage) * self.model
+                + self.model_index)
+
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.data}, model={self.model}, "
+        pipe = "" if self.pipe is None else f"pipe={self.pipe}, "
+        return (f"Mesh(data={self.data}, {pipe}model={self.model}, "
                 f"rank={self.rank})")
+
+
+def axis_groups(data: int, pipe: int, model: int
+                ) -> Dict[str, List[List[int]]]:
+    """The ranks of every group of a ``(data, pipe, model)`` mesh, in
+    the order :func:`make_mesh` creates them: each axis's groups (the
+    ranks that differ only in that axis's index) and ``hop``, one
+    ``[stage p, stage p + 1]`` pair a pipe line and a p."""
+
+    def rank(d, p, m):
+        return (d * pipe + p) * model + m
+
+    out = {DATA_AXIS: [[rank(d, p, m) for d in range(data)]
+                       for p in range(pipe) for m in range(model)],
+           PIPE_AXIS: [[rank(d, p, m) for p in range(pipe)]
+                       for d in range(data) for m in range(model)],
+           MODEL_AXIS: [[rank(d, p, m) for m in range(model)]
+                        for d in range(data) for p in range(pipe)]}
+    out["hop"] = [[line[p], line[p + 1]] for line in out[PIPE_AXIS]
+                  for p in range(pipe - 1)]
+    return out
 
 
 def _group(ranks, world: int):
@@ -94,19 +147,19 @@ def _group(ranks, world: int):
 
 
 def make_mesh(shape: Tuple[int, ...] = (0, 1)) -> Mesh:
-    """Build the ``(data, model)`` mesh over the group's ranks (one rank
-    without a group). ``shape[0] <= 0`` means 'all ranks / model'. Every
-    rank of the group calls it, in the same order: it creates the data
-    and model process groups."""
+    """Build the ``(data, model)`` or ``(data, pipe, model)`` mesh over
+    the group's ranks (one rank without a group). ``shape[0] <= 0``
+    means 'all ranks / product(rest)'. Every rank of the group calls it,
+    in the same order: it creates the groups of every axis and the
+    hops (``axis_groups``)."""
     world = _dist.process_count()
-    if len(shape) == 3:
-        raise NotImplementedError(
-            f"mesh shape {tuple(shape)}: the pipe axis (pipeline stages) "
-            "comes with item 14c of the port")
-    if len(shape) != 2:
+    if len(shape) == 2:
+        dp, rest = int(shape[0]), (int(shape[1]),)
+    elif len(shape) == 3:
+        dp, rest = int(shape[0]), (int(shape[1]), int(shape[2]))
+    else:
         raise ValueError(f"mesh shape {shape} must be (data, model) or "
                          f"(data, pipe, model)")
-    dp, rest = int(shape[0]), (int(shape[1]),)
     restn = int(np.prod(rest))
     if dp <= 0:
         if world % restn:
@@ -119,20 +172,30 @@ def make_mesh(shape: Tuple[int, ...] = (0, 1)) -> Mesh:
     if n < world:
         raise ValueError(f"mesh {(dp,) + rest} covers {n} of the group's "
                          f"{world} ranks; every rank must be in the mesh")
-    mp = rest[0]
+    pp = rest[0] if len(rest) == 2 else None
+    mp = rest[-1]
     rank = _dist.process_index()
-    data_group = model_group = None
-    if _dist.is_initialized():
-        # Every rank creates every group, in one order.
-        for m in range(mp):
-            g = _group(range(m, world, mp), world)
-            if m == rank % mp:
-                data_group = g
-        for d in range(dp):
-            g = _group(range(d * mp, (d + 1) * mp), world)
-            if d == rank // mp:
-                model_group = g
-    return Mesh(dp, mp, rank, data_group, model_group)
+    mesh = Mesh(dp, mp, rank, pipe=pp)
+    if not _dist.is_initialized():
+        return mesh
+    groups = axis_groups(dp, mesh.stages, mp)
+    axes = [(DATA_AXIS, "data_group"), (MODEL_AXIS, "model_group")]
+    if pp is not None:
+        axes.insert(1, (PIPE_AXIS, "pipe_group"))
+    # Every rank creates every group, in one order.
+    for axis, attr in axes:
+        for ranks in groups[axis]:
+            g = _group(ranks, world)
+            if rank in ranks:
+                setattr(mesh, attr, g)
+    hops = [None, None]
+    for pair in groups["hop"] if pp is not None else ():
+        g = _group(pair, world)
+        if rank in pair:
+            # hops[0]: with the stage before; hops[1]: with the one after.
+            hops[int(pair[0] == rank)] = g
+    mesh.hops = tuple(hops)
+    return mesh
 
 
 # Parameter-name patterns -> spec for the tensor-parallel axis; every
@@ -142,8 +205,9 @@ def make_mesh(shape: Tuple[int, ...] = (0, 1)) -> Mesh:
 _PARAM_RULES = (
     (re.compile(r"head/kernel$"), (None, MODEL_AXIS)),
     (re.compile(r"head/bias$"), (MODEL_AXIS,)),
-    # The pipelined RNN middle (item 14c): stacked [n_layers, ...] leaves
-    # shard dim 0 over the pipe axis, which a (data, model) mesh lacks.
+    # The pipelined RNN middle: stacked [n_layers, ...] leaves shard dim
+    # 0 over the pipe axis (each rank holds its stage's layers); a (data,
+    # model) mesh lacks it and replicates them.
     (re.compile(r"rnn_pipe/"), (PIPE_AXIS,)),
 )
 

@@ -13,12 +13,13 @@ all-reduce and all-gather, so the CPU tests and the card run the same
 code.
 
 A ``Layout`` maps a parameter's index in ``model.parameters()`` to the
-split of its optimizer state: ZeRO rows over the data group, or the
-sharded head's columns over the model group (the head's own parameter
-is already this rank's columns). ``dense_state_dict`` gathers every
-split into the ``state_dict`` a dense run writes, ``local_state_dict``
-cuts one back, so a ZeRO checkpoint restores into a dense run and the
-other way round.
+split of its optimizer state: ZeRO rows over the data group, the
+sharded head's columns over the model group, or a pipelined tree's
+stage of a stacked leaf over the pipe group (the head's and the stage's
+own parameters are already this rank's part). ``dense_state_dict``
+gathers every split into the ``state_dict`` a dense run writes,
+``local_state_dict`` cuts one back, so a ZeRO or pipe checkpoint
+restores into a dense run and the other way round.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Any, Dict, List
 import torch
 import torch.distributed as dist
 
-from ..bridge import flax_path
+from ..bridge import STACKED_PREFIX, flax_path
 from ..models.ds2 import HEAD_KEYS
 from .comm import all_gather_dim
 from .mesh import DATA_AXIS, Mesh, leaf_spec
@@ -39,7 +40,8 @@ from .mesh import DATA_AXIS, Mesh, leaf_spec
 class Split:
     """One parameter's optimizer state split along ``dim`` over
     ``group``: this rank holds rows ``[lo, lo + n)``. ``zero``: a ZeRO
-    split of a replicated parameter (else the sharded head's)."""
+    split of a replicated parameter (else the sharded head's or a
+    pipelined tree's stage)."""
 
     dim: int
     group: Any
@@ -61,9 +63,12 @@ def zero_leaves(model: torch.nn.Module, mesh: Mesh) -> Dict[str, int]:
     """``{parameter name: torch dim}`` of the leaves ZeRO shards over
     ``data`` under ``mesh``: JAX's ``param_shardings(zero_data_shard=
     True)`` decision on each leaf's flax path and shape (the dim is the
-    flax leaf's dim 0: a conv kernel's time dim, 2 in OIHW)."""
+    flax leaf's dim 0: a conv kernel's time dim, 2 in OIHW). The
+    stacked leaves are never among them: their rule names ``pipe``."""
     out = {}
     for name, p in model.named_parameters():
+        if name.startswith(STACKED_PREFIX):
+            continue
         path, shape, dim = flax_path(name, tuple(p.shape))
         if leaf_spec(mesh, path, shape, zero_data_shard=True)[:1] == (
                 DATA_AXIS,):
@@ -81,6 +86,11 @@ def layout(model: torch.nn.Module, mesh: Mesh, zero: bool) -> Layout:
             g = model.head_group
             out[i] = _split(p.shape[-1] * dist.get_world_size(g), g,
                             p.dim() - 1, False)
+        elif model.pipe_group is not None and name.startswith(
+                STACKED_PREFIX):
+            g = model.pipe_group
+            out[i] = _split(p.shape[0] * dist.get_world_size(g), g, 0,
+                            False)
         elif name in zero_dims:
             out[i] = _split(p.shape[zero_dims[name]], mesh.data_group,
                             zero_dims[name], True)

@@ -1180,12 +1180,15 @@ def main(argv: Optional[List[str]] = None) -> None:
         from .obs.timeline import (EventLog, IncidentCorrelator,
                                    MetricSeries)
 
+        # The file first: a path that cannot be opened raises before a
+        # log is installed, so none is left behind for the process.
+        if args.timeline:
+            tl_fh = open(args.timeline, "a")
         log = tl_mod.install(EventLog(registry=obs.registry()))
         correlator = IncidentCorrelator(
             series=MetricSeries(registry=obs.registry()),
             registry=obs.registry()).attach(log)
-        if args.timeline:
-            tl_fh = open(args.timeline, "a")
+        if tl_fh is not None:
 
             def _tl_write(ev, fh=tl_fh):
                 fh.write(json.dumps(EventLog.to_record(ev),

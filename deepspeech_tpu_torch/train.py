@@ -74,9 +74,27 @@ evaluation (the offline forward on the home device) are the offline
 path's. It excludes ``accum_steps > 1``, a pipelined tree and more than
 one process, as JAX's does; GRU and LSTM models both train.
 
+Pipeline-parallel training (``model.pipeline_stages > 1``, JAX
+``train.py:477-510``): the mesh is ``(data, pipe, model)`` with a pipe
+axis of ``pipeline_stages`` ranks (``train.mesh_shape=d,P,m``), each
+holding its stage of the stacked RNN layers, their BN statistics and
+their optimizer state (``parallel/zero.py``), and the model's forward
+runs the GPipe schedule (``models/pipe_stack.py``). The ranks of a pipe
+group share their rows; every one of them runs the conv, ``rnn0``, the
+head and the loss, and their replicated leaves' gradients are the same
+bits without an all-reduce over ``pipe``. The global norm sums the
+stacked leaves' squares over the pipe group, so the clip and the
+guardian decide alike on every rank; ``evaluate`` scores on pipe index
+0 only; a checkpoint gathers the stages into the dense layout of a
+one-card run, which restores into any topology. The batch divides by
+accum x microbatches x data. A pipelined tree without the pipe axis is
+refused with JAX's ``ValueError``. JAX refuses ``rnn_impl="pallas"``
+here because its pipelined layers run the XLA scan; the port's stages
+run the kernels, so it has no such refusal.
+
 What the JAX trainer has and the port does not yet raises
-``NotImplementedError`` naming the queue item that brings it: pipelined
-training (item 14c), RNN-T (item 15).
+``NotImplementedError`` naming the queue item that brings it: RNN-T
+(item 15).
 
 CLI: ``python -m deepspeech_tpu_torch.train --config=dev_slice
 [--synthetic=N] [--device=cpu] [--section.key=value ...]``: it trains
@@ -87,6 +105,9 @@ weights are a random init seeded by ``train.seed``. ``torchrun
 --nproc_per_node=N -m deepspeech_tpu_torch.train --config=...
 --train.mesh_shape=0,1`` trains on N cards (``initialize_distributed``
 joins the group first); with one process it behaves as on one card.
+``torchrun --nproc_per_node=2 -m deepspeech_tpu_torch.train --config=...
+--model.pipeline_stages=2 --train.mesh_shape=1,2,1`` trains a pipelined
+model in two stages.
 """
 
 from __future__ import annotations
@@ -102,7 +123,8 @@ import torch
 import torch.distributed as dist
 
 from . import obs
-from .bridge import _flatten, from_flax, init_params, to_flax
+from .bridge import (STACKED_PREFIX, _flatten, from_flax, init_params,
+                     to_flax)
 from .config import Config
 from .data.pipeline import device_prefetch
 from .data.tokenizer import CharTokenizer
@@ -129,18 +151,9 @@ def check_supported(cfg: Config) -> None:
                                 or cfg.model.pipeline_stages > 1):
         raise ValueError("sequence_parallel excludes accum_steps>1 and "
                          "pipeline_stages>1")
-    later = [
-        (t.objective == "rnnt", "train.objective='rnnt' comes with item 15 "
-                                "of the port"),
-        (cfg.model.pipeline_stages > 1, "training with "
-                                        "model.pipeline_stages > 1 (the GPipe "
-                                        "schedule) comes with item 14c of the "
-                                        "port; a pipelined tree serves "
-                                        "through infer"),
-    ]
-    for cond, msg in later:
-        if cond:
-            raise NotImplementedError(msg)
+    if t.objective == "rnnt":
+        raise NotImplementedError("train.objective='rnnt' comes with item "
+                                  "15 of the port")
     if t.objective != "ctc":
         raise ValueError(f"train.objective={t.objective!r}; 'ctc' or 'rnnt'")
     if t.optimizer not in ("sgd", "adamw"):
@@ -184,17 +197,22 @@ def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]
 
 @torch.no_grad()
 def global_norm(tensors: Sequence[torch.Tensor],
-                sharded: Sequence[bool] = (), group=None) -> torch.Tensor:
+                sharded: Sequence[bool] = (), group=None,
+                staged: Sequence[bool] = (), pipe_group=None
+                ) -> torch.Tensor:
     """``optax.global_norm``: the square root of every element's square,
     summed. The tensors ``sharded`` marks are this rank's columns of a
-    leaf split over ``group`` (the sharded head): their squares are
-    all-reduced over it, so every rank gets the whole leaf's norm."""
+    leaf split over ``group`` (the sharded head), those ``staged`` marks
+    this rank's stage of a stacked leaf split over ``pipe_group``: their
+    squares are all-reduced over it, so every rank gets the whole leaf's
+    norm."""
     sq = [t.float().square().sum() for t in tensors]
-    own = [i for i, s in enumerate(sharded) if s]
-    if own:
-        whole = comm.all_reduce_sum(torch.stack([sq[i] for i in own]), group)
-        for j, i in enumerate(own):
-            sq[i] = whole[j]
+    for marks, g in ((sharded, group), (staged, pipe_group)):
+        own = [i for i, s in enumerate(marks) if s]
+        if own:
+            whole = comm.all_reduce_sum(torch.stack([sq[i] for i in own]), g)
+            for j, i in enumerate(own):
+                sq[i] = whole[j]
     return torch.sqrt(torch.stack(sq).sum())
 
 
@@ -249,7 +267,8 @@ def _checksum(*trees) -> int:
 
 class Trainer:
     """Epoch loop over a pipeline's batches on one device, or on this
-    rank's device of a ``(data, model)`` mesh, with greedy WER/CER
+    rank's device of a ``(data, model)`` or ``(data, pipe, model)``
+    mesh, with greedy WER/CER
     evaluation and, with ``train.checkpoint_dir`` set, checkpoints and
     resume.
 
@@ -300,9 +319,14 @@ class Trainer:
             # A batch axis that does not cross processes (data=1)
             # replicates every row everywhere, which only a pipeline
             # that builds the whole global batch on every rank serves.
+            # A pipe axis across processes gives the ranks of a pipe
+            # group the same rows: with data > 1 too, only such a
+            # pipeline serves it (one process a rank, where JAX lays a
+            # host's devices along the pipe axis).
             local = process_local_rows(self.mesh, b)
-            replicated_ok = local == (0, b) and getattr(
-                pipeline, "provides_global_batches", False)
+            replicated_ok = ((local == (0, b) or self.mesh.stages > 1)
+                             and getattr(pipeline, "provides_global_batches",
+                                         False))
             if local != process_local_span(b) and not replicated_ok:
                 raise ValueError(
                     "mesh device order breaks the process-major batch "
@@ -313,6 +337,19 @@ class Trainer:
             raise ValueError(
                 f"batch_size {b} must divide by "
                 f"accum_steps*data = {self.accum}*{data_size}")
+        stages = cfg.model.pipeline_stages
+        if stages > 1:
+            # JAX train.py:477-493: the mesh must carry the pipe axis.
+            if self.mesh.pipe != stages:
+                raise ValueError(
+                    f"pipeline_stages={stages} needs mesh_shape=(data, "
+                    f"{stages}, model); mesh has {dict(self.mesh.shape)}")
+            micro = cfg.model.pipeline_microbatches or stages
+            if b % (self.accum * micro * data_size):
+                raise ValueError(
+                    f"batch_size {b} must divide by "
+                    f"accum*microbatches*data = "
+                    f"{self.accum}*{micro}*{data_size}")
         self.logger = (logger or PrintLogger()) if self.primary else _Silent()
         for pipe in (pipeline, eval_pipeline):
             if pipe is not None and getattr(pipe, "logger", 0) is None:
@@ -327,12 +364,17 @@ class Trainer:
         self.model = DeepSpeech2(cfg.model, cfg.features.num_features,
                                  mesh=self.mesh)
         self.model.load_state_dict(from_flax(params, batch_stats or {},
-                                             self.model.head_group))
+                                             self.model.head_group,
+                                             self.model.pipe_group))
         self.model.to(self.device)
         self._params = list(self.model.parameters())
-        # Which parameters are this rank's columns of the sharded head.
+        # Which parameters are this rank's columns of the sharded head,
+        # and which its stage of the stacked layers.
+        names = [n for n, _ in self.model.named_parameters()]
         self._sharded = [n in HEAD_KEYS and self.model.head_group is not None
-                         for n, _ in self.model.named_parameters()]
+                         for n in names]
+        self._staged = [n.startswith(STACKED_PREFIX)
+                        and self.model.pipe_group is not None for n in names]
         self._layout = zero.layout(self.model, self.mesh,
                                    cfg.train.zero_opt_sharding)
         self._zero = {i: s for i, s in self._layout.items() if s.zero}
@@ -436,7 +478,8 @@ class Trainer:
             return
         self.model.load_state_dict(from_flax(restored["params"],
                                              restored["batch_stats"],
-                                             self.model.head_group))
+                                             self.model.head_group,
+                                             self.model.pipe_group))
         if restored["opt_state"] is not None:
             self.optimizer.load_state_dict(zero.local_state_dict(
                 restored["opt_state"], self._layout))
@@ -446,8 +489,8 @@ class Trainer:
 
     def optimizer_state_dict(self) -> Dict:
         """The optimizer's ``state_dict`` in the dense layout a one-card
-        run has (ZeRO rows and head columns gathered: a collective, every
-        rank calls it)."""
+        run has (ZeRO rows, head columns and stages gathered: a
+        collective, every rank calls it)."""
         return zero.dense_state_dict(self.optimizer.state_dict(),
                                      self._layout)
 
@@ -457,9 +500,11 @@ class Trainer:
         Every rank calls it; the primary writes."""
         if self.ckpt is None:
             return
-        head = self.model.head_group
-        if self.primary or head is not None:  # a gather is collective
-            params, batch_stats = to_flax(self.model.state_dict(), head)
+        head, pipe = self.model.head_group, self.model.pipe_group
+        if self.primary or head is not None or pipe is not None:
+            # A gather is collective.
+            params, batch_stats = to_flax(self.model.state_dict(), head,
+                                          pipe)
         opt_state = self.optimizer_state_dict()
         if self.primary:
             self.ckpt.save(self.step, {
@@ -538,8 +583,10 @@ class Trainer:
 
     def _norm(self, tensors: List[torch.Tensor]) -> torch.Tensor:
         """The global norm of per-parameter tensors (a sharded head's
-        squares summed over the model group)."""
-        return global_norm(tensors, self._sharded, self.model.head_group)
+        squares summed over the model group, the stacked layers' over the
+        pipe group)."""
+        return global_norm(tensors, self._sharded, self.model.head_group,
+                           self._staged, self.model.pipe_group)
 
     def _clip(self) -> torch.Tensor:
         grads = [p.grad for p in self._params]
@@ -680,10 +727,10 @@ class Trainer:
                             note="in-training eval uses greedy decode")
         pipe = self.eval_pipeline or self.pipeline
         self.model.eval()
-        # Each rank scores the rows it owns (a model group's ranks share
-        # theirs: only its first scores them); the counts are summed over
-        # the ranks once at the end.
-        scores = self.mesh.model_index == 0
+        # Each rank scores the rows it owns (a model group's and a pipe
+        # group's ranks share theirs: only their first scores them); the
+        # counts are summed over the ranks once at the end.
+        scores = self.mesh.model_index == 0 and self.mesh.pipe_index == 0
         counts = np.zeros((5,), np.int64)  # werr, wtot, cerr, ctot, n
         for batch, n_valid in pipe.eval_epoch():
             lo, _ = process_local_rows(self.mesh, len(batch["feat_lens"]))

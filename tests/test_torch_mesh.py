@@ -51,8 +51,18 @@ def test_make_mesh_in_one_process_is_jax_on_one_device(shape):
 
 
 def test_pipe_axis_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mesh.make_mesh((1, 1, 1))
+    """A 3-element shape once raised naming item 14c; it now builds the
+    (data, pipe, model) mesh, as JAX does over one device, and a shape
+    that needs more ranks raises JAX's error."""
+    one = jax.devices()[:1]
+    for shape in ((1, 1, 1), (0, 1, 1)):
+        m, j = mesh.make_mesh(shape), jax_mesh.make_mesh(shape, devices=one)
+        assert m.shape == dict(j.shape) and list(m.shape) == list(j.shape)
+        assert (m.pipe, m.pipe_index, m.size) == (1, 0, 1)
+        assert m.pipe_group is None and m.hops == (None, None)
+    for shape in ((1, 2, 1), (2, 1, 2)):
+        assert _raised(lambda: mesh.make_mesh(shape)) == _raised(
+            lambda: jax_mesh.make_mesh(shape, devices=one))
 
 
 @pytest.mark.parametrize("path", [

@@ -121,21 +121,33 @@ def test_every_layer_calls_gru_fwd_once(preset, reverse, impl, monkeypatch):
         cfg.model.rnn_layers
 
 
+# The ids are the cases' names from when all four raised.
 @pytest.mark.parametrize("over,exc", [
     ({"model.rnn_type": "lstm", "quantized": True}, RuntimeError),
-    ({"model.pipeline_stages": "2"}, NotImplementedError),
+    ({"model.pipeline_stages": "2"}, None),
     ({"model.rnn_impl": "cudnn"}, ValueError),
     ({"model.rnn_impl": "xla"}, ValueError),
-])
+], ids=["over0-RuntimeError", "over1-NotImplementedError",
+        "over2-ValueError", "over3-ValueError"])
 def test_unported_model_options_raise(over, exc):
     """What the port does not run raises, when the model is built or
     when it first runs a forward that may need a gradient: an int8 model
     (here an LSTM; ``quantized``) serves without one, as the JAX int8
-    kernels have no VJP."""
+    kernels have no VJP. A pipelined tree (``pipeline_stages=2``) once
+    raised there too; with no pipe group it now runs JAX's sequential
+    path, and a gradient reaches every stacked leaf."""
     over = dict(over)
     quantized = over.pop("quantized", False)
     cfg = apply_overrides(get_config("ds2_small"),
                           {"model.rnn_hidden": "8", **over}).model
+    if exc is None:
+        model = DeepSpeech2(cfg).train()
+        logits, _ = model(torch.randn(2, 16, 161), torch.tensor([16, 12]))
+        assert torch.isfinite(logits).all()
+        logits.square().mean().backward()
+        for name, p in model.rnn_pipe.named_parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        return
     with pytest.raises(exc):
         DeepSpeech2(cfg, quantized=quantized)(torch.zeros(1, 16, 161),
                                               torch.tensor([16]))

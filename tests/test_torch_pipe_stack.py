@@ -5,8 +5,10 @@ eval forward (``models/pipe_stack.py``'s sequential path) against JAX
 ``model.apply`` with no mesh (the path a pipeline-trained checkpoint is
 served on, JAX pipe_stack.py:247-251), within 1e-5 in float32; the bridge,
 ``params.npz`` and an orbax step the JAX package's manager wrote; the
-``Inferencer``'s greedy texts and its int8 regime against JAX's; and the
-training refusals, which name items 14c and 14b of the port.
+``Inferencer``'s greedy texts and its int8 regime against JAX's; the
+training guards (a pipelined tree trains on a mesh with a pipe axis,
+``tests/test_torch_pipeline.py``), and the sequential path under a
+gradient, the standard tree's step bit for bit.
 """
 
 import dataclasses
@@ -27,7 +29,8 @@ from deepspeech_tpu_torch.config import apply_overrides, get_config
 from deepspeech_tpu_torch.data import CharTokenizer
 from deepspeech_tpu_torch.infer import Inferencer
 from deepspeech_tpu_torch.models.ds2 import DeepSpeech2
-from deepspeech_tpu_torch.train import check_supported
+from deepspeech_tpu_torch.data import SyntheticPipeline
+from deepspeech_tpu_torch.train import Trainer, check_supported
 from test_torch_model import random_flax_variables
 
 # One CPU thread for torch: parallel test workers share the machine's
@@ -246,27 +249,68 @@ def test_inferencer_on_a_pipelined_tree_equals_jax(quantize):
                                rtol=TOL)
 
 
-# Sequence-parallel training came with items 14b (GRU models) and 14b-ii
-# (LSTM models); the second case's id is from when an LSTM model's
-# refused it. A pipelined LSTM model is still refused, naming item 14c.
+# The ids are the cases' names from when both raised naming items 14c
+# and 14b. Since item 14c a pipelined GRU or LSTM model trains on a mesh
+# with a pipe axis: ``check_supported`` passes, and a ``Trainer`` on a
+# mesh without one raises JAX's ``ValueError`` naming the pipe axis.
 @pytest.mark.parametrize("over,match", [
-    ({"model.pipeline_stages": "2"}, "item 14c"),
+    pytest.param({"model.pipeline_stages": "2"}, "pipe",
+                 id="over0-item 14c"),
     pytest.param({"model.pipeline_stages": "2", "model.rnn_type": "lstm"},
-                 "item 14c", id="over1-item 14b")])
+                 "pipe", id="over1-item 14b")])
 def test_training_refusals_name_their_items(over, match):
     cfg = apply_overrides(get_config("ds2_small"),
                           {"train.checkpoint_dir": "", **over})
-    with pytest.raises(NotImplementedError, match=match):
-        check_supported(cfg)
+    check_supported(cfg)
+    with pytest.raises(ValueError, match=match):
+        Trainer(cfg, SyntheticPipeline(cfg, 1), CharTokenizer.english(),
+                device="cpu")
+
+
+def _check_sequential_step(rnn_type, dtype):
+    """One train-mode forward and backward of a pipelined tree with no
+    pipe group against the standard tree with the same weights."""
+    jcfg, tcfg = _cfgs(rnn_type=rnn_type, dtype=dtype)
+    feats, lens = _inputs(seed=5)
+    params, stats = _variables(jcfg, feats, lens, seed=5)
+    std = apply_overrides(tcfg, {"model.pipeline_stages": "1"})
+    out = []
+    for cfg, (p, s) in ((tcfg, (params, stats)),
+                        (std, _unstacked(params, stats, 3))):
+        model = DeepSpeech2(cfg.model)
+        model.load_state_dict(bridge.from_flax(p, s))
+        model.train()
+        logits, _ = model(torch.from_numpy(feats),
+                          torch.from_numpy(lens).long())
+        logits.square().mean().backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        out.append((logits.detach(), bridge.to_flax(grads)[0],
+                    bridge.to_flax(model.state_dict())[1]))
+    (got, got_g, got_s), (ref, ref_g, ref_s) = out
+    assert torch.equal(got, ref)
+    # The pipelined tree's gradients and statistics, unstacked.
+    for mine, want in ((_unstacked(got_g, got_s, 3)[0], ref_g),
+                       (_unstacked(params, got_s, 3)[1], ref_s)):
+        mine, want = _flat(mine), _flat(want)
+        assert mine.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(mine[k], want[k], err_msg=k)
 
 
 def test_a_pipelined_forward_that_may_need_a_gradient_raises():
+    """A pipelined forward that may need a gradient once raised; with no
+    pipe group it is now JAX's sequential oracle (pipe_stack.py:247-251):
+    in train mode the standard tree holding the same weights unstacked
+    gives its logits, gradients and BN statistics bit for bit, GRU and
+    LSTM, f32 and bf16 (where the gradients of a BN's statistics and of
+    its arithmetic must add in f32 before the cast, as in
+    ``MaskedBatchNorm``). An int8 pipelined tree is still refused (JAX
+    quantizes it as fp)."""
+    for rnn_type, dtype in (("gru", "float32"), ("lstm", "float32"),
+                            ("gru", "bfloat16"), ("lstm", "bfloat16")):
+        _check_sequential_step(rnn_type, dtype)
     _, tcfg = _cfgs()
-    model = DeepSpeech2(tcfg.model)
-    feats, lens = _inputs(b=2, t=32)
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        model(torch.from_numpy(feats), torch.from_numpy(lens).long())
-    with pytest.raises(NotImplementedError, match="item 14c"):
+    with pytest.raises(NotImplementedError, match="full precision"):
         DeepSpeech2(tcfg.model, quantized=True)
     with pytest.raises(ValueError, match="must divide"):
         DeepSpeech2(apply_overrides(tcfg, {"model.rnn_layers": "4"}).model)

@@ -242,7 +242,7 @@ def test_train_cli_ends_with_done():
     ({"train.zero_opt_sharding": "true"}, None),
     ({"train.sequence_parallel": "true"}, "item 14"),
     ({"train.objective": "rnnt"}, "item 15"),
-    ({"model.pipeline_stages": "2"}, "item 14"),
+    ({"model.pipeline_stages": "2"}, "pipe"),
 ], ids=["over1-slice 5", "over2-slice 5", "over3-slice 5", "over4-slice 9",
         "over5-slice 9", "over6-slice 9"])
 def test_unported_training_options_raise(over, match):
@@ -251,7 +251,10 @@ def test_unported_training_options_raise(over, match):
     process raises JAX's ``ValueError`` (a mesh larger than the world),
     and ZeRO at world size 1 trains. Items 14b and 14b-ii's
     ``sequence_parallel`` trains a GRU and an LSTM model over two CPU
-    shards. The rest raise naming the queue item that brings them."""
+    shards. Item 14c's ``pipeline_stages=2`` passes ``check_supported``;
+    on a mesh without a pipe axis ``Trainer`` raises JAX's ``ValueError``
+    naming it (``tests/test_torch_pipeline.py`` trains it on one). The
+    rest raise naming the queue item that brings them."""
     cfg = apply_overrides(get_config("ds2_small"),
                           {"train.checkpoint_dir": "", **over})
     if "train.accum_steps" in over:
@@ -294,6 +297,11 @@ def test_unported_training_options_raise(over, match):
                               sp_devices=[torch.device("cpu")] * 2)
             last = trainer.fit(epochs=1)
             assert trainer.step == 2 and np.isfinite(last["loss"])
+    elif "model.pipeline_stages" in over:
+        check_supported(cfg)
+        with pytest.raises(ValueError, match=match):
+            Trainer(cfg, SyntheticPipeline(cfg, 1), CharTokenizer.english(),
+                    device="cpu")
     else:
         with pytest.raises(NotImplementedError, match=match):
             check_supported(cfg)
